@@ -1,9 +1,10 @@
 """flowfusion_torch: the PyTorch and CUDA port of the JAX package.
 
 The probability-flow log-likelihood and sampling solves of score-based
-diffusion models run on an NVIDIA H100: an in-house adaptive dopri5
-solver around a hand-written CUDA kernel for the fused score-MLP drift
-and its divergence.  The JAX package stays the reference the port is
+diffusion models and flow-matching CNFs, and reverse-SDE sampling, run on
+an NVIDIA H100: in-house adaptive dopri5 and fixed-step solvers around
+hand-written CUDA kernels for the fused MLP drift/velocity with its
+divergence, and for the whole Euler--Maruyama sampling loop.  The JAX package stays the reference the port is
 checked against; this package imports nothing of it, nor JAX.  Entry
 points run on the CUDA card unless the caller passes ``device="cpu"`` or
 CPU tensors.  What is not ported yet raises ``NotImplementedError``
@@ -11,7 +12,8 @@ naming its ROADMAP.md item.
 """
 
 from . import kernels, models, ops, utils
-from .models.nets import ScoreMLPConfig
+from .models.flow import ODEFlow
+from .models.nets import ScoreMLPConfig, VelocityMLPConfig
 from .models.population import PopulationModelDiffusion
 from .models.score import ScoreModel
 from .ops.integrate import odeint
@@ -26,7 +28,9 @@ __all__ = [
     "utils",
     "ScoreModel",
     "PopulationModelDiffusion",
+    "ODEFlow",
     "ScoreMLPConfig",
+    "VelocityMLPConfig",
     "VESDE",
     "VPSDE",
     "SUBVPSDE",

@@ -1,10 +1,13 @@
-// Fused score-MLP drift, with the Hutchinson or exact divergence, for Hopper.
+// Fused score-MLP drift or flow velocity, with the Hutchinson or exact
+// divergence, for Hopper.
 //
 // Replaces flowfusion_tpu/kernels/fused_mlp.py::_kernel (the Pallas kernel,
 // pallas_call at fused_mlp.py:935) in its modes forward, hutchinson and exact,
-// compute mode float32: strict IEEE fp32 FMAs on the CUDA cores.  Build
-// without --use_fast_math: sigmoid goes through expf and gelu through erff,
-// matching the plain PyTorch path's transcendentals.
+// reached through fused_drift (fused_mlp.py:951) and fused_velocity
+// (fused_mlp.py:1353, (c0, c1) = (0, 1)), compute mode float32: strict IEEE
+// fp32 FMAs on the CUDA cores.  Build without --use_fast_math: sigmoid goes
+// through expf and gelu through erff, matching the plain PyTorch path's
+// transcendentals.
 //
 // What it computes, for a batch-global scalar time folded into b_eff by the
 // caller (b_eff = b1 + temb(t) W1[:E]):
@@ -27,138 +30,26 @@
 // whole layer chain of that tile — the activations and every tangent chain —
 // in shared memory, so nothing but x, e, drift and div touches device memory
 // and each weight read from L2 feeds R rows times all chains.  In a layer
-// product a thread computes an 8-row by 4-column tile of one chain's next
-// layer (4 rows for plans that fit only at 4 rows a block): per 4 steps of k
-// it reads one float4 of activations per row from shared memory (a
-// broadcast: the warp shares its rows) and one float4 of weights per k from
-// global memory (coalesced across the warp), 12 loads for 128 FMAs, so the
-// product is bound by FMA issue rather than loads.  R (64 down to 4) is
-// picked by the caller so that the double buffer of 2 x chains x R x H
-// floats fits shared memory, two blocks to an SM where it can.  Tensor cores
-// (wgmma, 3xTF32) and a persistent schedule are later work.
+// product (mlp_tile.cuh, shared with em_sampler.cu) a thread computes an
+// 8-row by 4-column tile of one chain's next layer (4 rows for plans that
+// fit only at 4 rows a block): per 4 steps of k it reads one float4 of
+// activations per row from shared memory (a broadcast: the warp shares its
+// rows) and one float4 of weights per k from global memory (coalesced across
+// the warp), 12 loads for 128 FMAs, so the product is bound by FMA issue
+// rather than loads.  R (64 down to 4) is picked by the caller so that the
+// double buffer of 2 x chains x R x H floats fits shared memory, two blocks
+// to an SM where it can.  Tensor cores (wgmma, 3xTF32) and a persistent
+// schedule are later work.
 
 #include <cuda_runtime.h>
 
+#include "mlp_tile.cuh"
+
 namespace {
 
-constexpr int kMaxHidden = 16;  // (H, H) layers between input and output
-constexpr int kThreads = 256;
-// Rows per thread in a layer product: 8 when the block's row count allows,
-// else 4 (the smallest tile, for plans that fit only at 4 rows a block).
-constexpr int kMinRowTile = 4;
+using namespace ffk;
 
 enum Mode { kForward = 0, kHutchinson = 1, kExact = 2 };
-enum Act { kSilu = 0, kTanh = 1, kRelu = 2, kGelu = 3 };
-
-struct HiddenLayers {
-  const float* w[kMaxHidden];  // (H, H), row-major (in, out)
-  const float* b[kMaxHidden];  // (H,)
-};
-
-__device__ __forceinline__ void act_pair(int act, float a, float& h, float& dh) {
-  switch (act) {
-    case kSilu: {
-      const float s = 1.0f / (1.0f + expf(-a));
-      h = a * s;
-      dh = s * (1.0f + a * (1.0f - s));
-      break;
-    }
-    case kTanh: {
-      const float th = tanhf(a);
-      h = th;
-      dh = 1.0f - th * th;
-      break;
-    }
-    case kRelu: {
-      const float m = a > 0.0f ? 1.0f : 0.0f;
-      h = a * m;
-      dh = m;
-      break;
-    }
-    default: {  // gelu, exact erf form: a Phi(a), Phi(a) + a phi(a)
-      const float cdf = 0.5f * (1.0f + erff(a * 0.7071067811865476f));
-      const float pdf = 0.3989422804014327f * expf(-0.5f * a * a);
-      h = a * cdf;
-      dh = cdf + a * pdf;
-    }
-  }
-}
-
-// cur[0] <- act(cur[0]); cur[c] *= act'(cur[0]) for every tangent chain.
-__device__ void activate(int act, float* cur, int chains, int rh) {
-  for (int i = threadIdx.x; i < rh; i += blockDim.x) {
-    float h, dh;
-    act_pair(act, cur[i], h, dh);
-    cur[i] = h;
-    for (int c = 1; c < chains; ++c) cur[c * rh + i] *= dh;
-  }
-}
-
-// nxt[c] = cur[c] @ w (+ bias for the primal chain c = 0), for every chain.
-// cur and nxt hold chains x R rows of row stride H.  A thread owns an RT-row
-// by CT-column tile: per 4 k it reads RT float4 activations from shared
-// memory (one address per warp: a broadcast) and 4 weight rows of CT
-// columns from global memory (CT = 4: one float4, coalesced across the
-// warp), for 4 RT CT FMAs.  K is a multiple of 4, R of RT and N of CT; with
-// CT = 4 the weights must be 16-byte aligned.
-template <int RT, int CT>
-__device__ void dense(const float* __restrict__ w, const float* __restrict__ bias,
-                      const float* cur, float* nxt, int K, int N, int R, int H,
-                      int chains) {
-  const int col_groups = N / CT;
-  const int row_groups = R / RT;
-  const int items = chains * row_groups * col_groups;
-  for (int it = threadIdx.x; it < items; it += blockDim.x) {
-    const int cg = it % col_groups;
-    const int rest = it / col_groups;
-    const int rg = rest % row_groups;
-    const int c = rest / row_groups;
-    const int j0 = cg * CT;
-    const float* in = cur + (size_t)(c * R + rg * RT) * H;
-    float acc[RT][CT];
-#pragma unroll
-    for (int i = 0; i < RT; ++i)
-#pragma unroll
-      for (int j = 0; j < CT; ++j) acc[i][j] = 0.0f;
-    for (int k = 0; k < K; k += 4) {
-      float4 hv[RT];
-#pragma unroll
-      for (int i = 0; i < RT; ++i)
-        hv[i] = *reinterpret_cast<const float4*>(in + i * H + k);
-      float wv[4][CT];
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        const float* wrow = w + (size_t)(k + kk) * N + j0;
-        if constexpr (CT == 4) {
-          const float4 v = __ldg(reinterpret_cast<const float4*>(wrow));
-          wv[kk][0] = v.x;
-          wv[kk][1] = v.y;
-          wv[kk][2] = v.z;
-          wv[kk][3] = v.w;
-        } else {
-#pragma unroll
-          for (int j = 0; j < CT; ++j) wv[kk][j] = __ldg(wrow + j);
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < RT; ++i)
-#pragma unroll
-        for (int j = 0; j < CT; ++j) {
-          acc[i][j] = fmaf(hv[i].x, wv[0][j], acc[i][j]);
-          acc[i][j] = fmaf(hv[i].y, wv[1][j], acc[i][j]);
-          acc[i][j] = fmaf(hv[i].z, wv[2][j], acc[i][j]);
-          acc[i][j] = fmaf(hv[i].w, wv[3][j], acc[i][j]);
-        }
-    }
-    float* out = nxt + (size_t)(c * R + rg * RT) * H + j0;
-#pragma unroll
-    for (int j = 0; j < CT; ++j) {
-      const float b = c == 0 ? __ldg(bias + j0 + j) : 0.0f;
-#pragma unroll
-      for (int i = 0; i < RT; ++i) out[i * H + j] = acc[i][j] + b;
-    }
-  }
-}
 
 template <int RT>
 __global__ void __launch_bounds__(kThreads, 2)
@@ -257,11 +148,8 @@ cudaError_t launch(const float* x, const float* e, const float* w_in, const floa
                    const float* b_out, const float* c0c1, float* drift, float* div, int B,
                    int d_in, int d_out, int H, int mode, int act, int rows, size_t smem,
                    cudaStream_t stream) {
-  if (smem > 48 * 1024) {
-    const cudaError_t st = cudaFuncSetAttribute(
-        fused_mlp_kernel<RT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (st != cudaSuccess) return st;
-  }
+  const cudaError_t st = allow_smem(fused_mlp_kernel<RT>, smem);
+  if (st != cudaSuccess) return st;
   const int grid = (B + rows - 1) / rows;
   fused_mlp_kernel<RT><<<grid, kThreads, smem, stream>>>(
       x, e, w_in, b_eff, hidden, n_hidden, w_out, b_out, c0c1, drift, div, B, d_in,

@@ -1,8 +1,9 @@
 """Build the port's CUDA sources with ``nvcc`` at first use, load with ctypes.
 
 Each ``csrc/<name>.cu`` becomes ``build/flowfusion_torch/lib<name>-<hash>.so``
-under the repository root, keyed on a hash of the source text and the
-compiler flags, so an edited source rebuilds and an unchanged one loads
+under the repository root, keyed on a hash of the source text, every
+header in ``csrc/`` (the sources share ``mlp_tile.cuh``) and the compiler
+flags, so an edited source or header rebuilds and an unchanged one loads
 the library already built.  The sources have a plain C interface (no
 PyTorch headers), which keeps a build to seconds.  Nothing here runs at
 import time; a failed build raises.
@@ -24,7 +25,7 @@ __all__ = ["SOURCES", "build", "build_all", "load"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "flowfusion_torch"
-SOURCES = ("fused_mlp",)
+SOURCES = ("fused_mlp", "em_sampler")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -48,9 +49,11 @@ def _nvcc() -> str:
 
 
 def _library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(name: str) -> Path:

@@ -1,0 +1,356 @@
+"""The whole reverse-SDE Euler--Maruyama sampling loop in one launch.
+
+Counterpart of the JAX package's ``kernels/em_sampler.py::fused_em_sample``
+at compute mode ``float32`` (``highf32`` maps to it, as in the JAX
+package).  On CUDA tensors the wrapper launches the hand-written kernel
+``csrc/em_sampler.cu`` or raises; on CPU tensors it runs the plain PyTorch
+version, :func:`fused_em_sample_reference`.
+
+For the uniform grid t_s = T + s dt (dt = -(T - epsilon)/steps),
+``em_prep`` computes on the device, TF32 off:
+
+  coeffs[s] = (1 + c0(t_s) dt,  c1(t_s) dt,  g(t_s) sqrt|dt|)
+  b_eff[s]  = b1 + temb(t_s) W1[:E]
+
+with c1 = -g^2 [/sigma] the reverse drift's net coefficient.  Each step:
+``x_mean = coeffs[s,0] x + coeffs[s,1] net(x)``, ``x = x_mean + coeffs[s,2] z``.
+
+Noise: streamed (``noise`` of shape (steps, B, D), the parity mode) or,
+by default, Philox4x32-10 in the kernel: key = the 64-bit seed, counter =
+(global row, step, feature block of 4, 0), four words -> two Box--Muller
+pairs -> four normals.  The stream depends only on (seed, row, step,
+feature): not on the block size, the grid or B.  :func:`philox_normals`
+computes the same numbers with integer tensor arithmetic on any device.
+
+Freeze granularity: a block of R rows (R from the shared-memory plan, 64
+for the flagship net) stops at its last finite state when any of its real
+rows goes non-finite, and ``diverged`` is the OR of the blocks' flags.
+The JAX kernel freezes per 2048-row grid tile and the scan path
+(``ops.integrate.euler_maruyama``) the whole batch; the granularity
+changes only which rows keep updating after a NaN, never ``diverged``.
+The plain version freezes per tile of the same R rows.
+
+Sigmoid is the exp form 1/(1 + exp(-a)) in the kernel and the plain
+version alike (the JAX kernel uses the tanh form; the two differ by
+~1e-7 relative).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from .._device import strict_fp32_matmul
+from ..models.nets import _ACTIVATIONS, fourier_time_embedding
+from . import _build
+from .fused_mlp import _KERNEL_ACTIVATIONS, _SMEM_LIMIT, _check_conditional, check_operands, pad_to_lanes, rows_for
+
+__all__ = [
+    "em_prep",
+    "em_plan",
+    "philox_normals",
+    "fused_em_sample",
+    "fused_em_sample_reference",
+    "em_flops",
+    "reset_launch_counts",
+]
+
+_MASK = 0xFFFFFFFF
+_PHILOX_M = (0xD2511F53, 0xCD9E8D57)
+_PHILOX_W = (0x9E3779B9, 0xBB67AE85)
+
+
+def _mulhilo(m: int, b: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(hi, lo) words of the 64-bit product of the 32-bit constant ``m``
+    and the 32-bit values in int64 ``b``, from 16-bit limbs of ``b`` (a
+    full 32 x 32 product would overflow int64)."""
+    lo_part = m * (b & 0xFFFF)  # < 2^48
+    hi_part = m * (b >> 16)  # < 2^48
+    mid = lo_part + ((hi_part & 0xFFFF) << 16)
+    return (hi_part >> 16) + (mid >> 32), mid & _MASK
+
+
+def philox4x32_10(counter, key) -> Tuple[torch.Tensor, ...]:
+    """Philox4x32-10 (Salmon et al., SC'11): ``counter`` is four int64
+    tensors of 32-bit values (broadcastable), ``key`` two Python ints.
+    Returns the four output words as int64 tensors."""
+    c0, c1, c2, c3 = counter
+    k0, k1 = key
+    for r in range(10):
+        if r:
+            k0, k1 = (k0 + _PHILOX_W[0]) & _MASK, (k1 + _PHILOX_W[1]) & _MASK
+        hi0, lo0 = _mulhilo(_PHILOX_M[0], c0)
+        hi1, lo1 = _mulhilo(_PHILOX_M[1], c2)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+    return c0, c1, c2, c3
+
+
+def _box_muller(a: torch.Tensor, b: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Two N(0, 1) float32 normals from two words, as the kernel computes
+    them: uniforms from the top 24 bits, u1 + 1e-12 so log never sees 0."""
+    u1 = (a >> 8).to(torch.float32) * 2.0**-24 + 1e-12
+    u2 = (b >> 8).to(torch.float32) * 2.0**-24
+    r = torch.sqrt(-2.0 * torch.log(u1))
+    theta = 6.283185307179586 * u2
+    return r * torch.cos(theta), r * torch.sin(theta)
+
+
+def _check_seed(seed) -> int:
+    seed = int(seed)
+    if not 0 <= seed < 2**64:
+        raise ValueError(f"seed must be in [0, 2^64); got {seed}")
+    return seed
+
+
+def philox_normals(seed: int, steps: int, B: int, D: int, device=None) -> torch.Tensor:
+    """The kernel's in-kernel noise, (steps, B, D) float32, computed with
+    integer tensor arithmetic on ``device`` (default CPU)."""
+    seed = _check_seed(seed)
+    nfb = -(-D // 4)
+    kw = dict(dtype=torch.int64, device=device)
+    step = torch.arange(steps, **kw)[:, None, None]
+    row = torch.arange(B, **kw)[None, :, None]
+    fb = torch.arange(nfb, **kw)[None, None, :]
+    shape = (steps, B, nfb)
+    w = philox4x32_10(
+        (row.expand(shape), step.expand(shape), fb.expand(shape), torch.zeros(shape, **kw)),
+        (seed & _MASK, seed >> 32),
+    )
+    z = torch.stack([*_box_muller(w[0], w[1]), *_box_muller(w[2], w[3])], dim=-1)
+    return z.reshape(steps, B, 4 * nfb)[..., :D].contiguous()
+
+
+def em_prep(params: dict, cfg, sde, steps: int, no_sigma: bool):
+    """Per-step tables on the parameters' device: ``coeffs`` (steps, 3) =
+    (1 + c0 dt, c1 dt, g sqrt|dt|) and ``b_eff`` (steps, H) = b1 +
+    temb(t_s) W1[:E], in float32 with TF32 off."""
+    w1 = params["layers"][0]["w"]
+    dt = -(sde.T - sde.epsilon) / steps
+    ts = sde.T + dt * torch.arange(steps, dtype=torch.float32, device=w1.device)
+    c0 = sde.drift_coefficient(ts)
+    g2 = sde.diffusion_squared_scalar(ts)
+    c1 = -g2  # reverse drift: f - g^2 s
+    if not no_sigma:
+        c1 = c1 / sde.sigma(ts)
+    coeffs = torch.stack([1.0 + c0 * dt, c1 * dt, torch.sqrt(g2) * math.sqrt(abs(dt))], dim=1)
+    E = cfg.embedding_dimensions
+    with strict_fp32_matmul():
+        b_eff = params["layers"][0]["b"][None, :] + fourier_time_embedding(ts, params["W"]) @ w1[:E]
+    return coeffs.contiguous(), b_eff.contiguous()
+
+
+def em_flops(B: int, steps: int, D: int, H: int, n_layers: int) -> int:
+    """Flops of one sampling run, the JAX kernel's cost estimate: per row
+    and step 2 H (D + (n_layers - 2) H + D); ``n_layers`` counts every
+    weight layer."""
+    return B * steps * 2 * H * (D + (n_layers - 2) * H + D)
+
+
+def _smem_bytes(rows: int, H: int, D: int, with_cond: bool) -> int:
+    """Shared memory of one block, in the kernel's layout: two (R, H) layer
+    buffers (three with the conditional projection), then x, x_mean and
+    the step's staged x and x_mean, (R, D) each."""
+    return 4 * ((3 if with_cond else 2) * rows * H + 4 * rows * D)
+
+
+def em_plan(H: int, D: int, with_cond: bool) -> Tuple[int, int]:
+    """``(rows, smem_bytes)`` of a launch, rows from the shared policy
+    ``fused_mlp.rows_for``; raises when not even 4 rows fit."""
+    rows = rows_for(lambda r: _smem_bytes(r, H, D, with_cond))
+    if rows is not None:
+        return rows, _smem_bytes(rows, H, D, with_cond)
+    raise ValueError(
+        f"EM kernel shared-memory plan does not fit: H={H}, D={D} need "
+        f"{_smem_bytes(4, H, D, with_cond)} bytes at 4 rows a block (limit {_SMEM_LIMIT})"
+    )
+
+
+def _check_compute_dtype(compute_dtype: str) -> None:
+    if compute_dtype == "bfloat16":
+        raise NotImplementedError(
+            "EM kernel compute dtype 'bfloat16' is not ported to flowfusion_torch "
+            "yet (ROADMAP.md queue 2, item 7); use 'float32'"
+        )
+    if compute_dtype not in ("float32", "highf32"):
+        raise ValueError(f"unknown compute dtype {compute_dtype!r}")
+
+
+def _prepare(params, cfg, sde, conditional, steps, no_sigma):
+    """``(w_in, cond_proj, coeffs, b_eff)``: the [x] rows of the first
+    layer, the step-independent conditional projection cond W1[E+D:] (or
+    None) and the per-step tables."""
+    coeffs, b_eff = em_prep(params, cfg, sde, steps, no_sigma)
+    E, D = cfg.embedding_dimensions, cfg.n_dimensions
+    w1 = params["layers"][0]["w"]
+    cond_proj = None
+    if conditional is not None:
+        with strict_fp32_matmul():
+            cond_proj = (conditional @ w1[E + D :]).contiguous()
+    return w1[E : E + D].contiguous(), cond_proj, coeffs, b_eff
+
+
+def _padded_rows(t: torch.Tensor, rows: int, dim: int) -> torch.Tensor:
+    """``t`` zero-padded along ``dim`` to ``rows`` entries."""
+    pad = [0, 0] * (t.ndim - 1 - dim) + [0, rows - t.shape[dim]]
+    return F.pad(t, pad)
+
+
+def fused_em_sample_reference(
+    params: dict,
+    cfg,
+    sde,
+    x0: torch.Tensor,
+    noise: torch.Tensor,
+    conditional: Optional[torch.Tensor] = None,
+    steps: int = 100,
+    no_sigma: bool = False,
+):
+    """The plain PyTorch version of :func:`fused_em_sample` with streamed
+    ``noise`` (steps, B, D): the same loop over whole-batch tensor ops,
+    TF32 off, freezing per tile of the kernel's R rows.  Returns
+    ``(x_mean, x, diverged)``."""
+    _check_conditional(cfg.n_conditionals, conditional)
+    params, cfg = pad_to_lanes(params, cfg)
+    B, D = x0.shape
+    if tuple(noise.shape) != (steps, B, D):
+        raise ValueError(f"noise of shape {tuple(noise.shape)}; expected {(steps, B, D)}")
+    tile = em_plan(cfg.units[0], D, conditional is not None)[0]
+    w_in, cond_proj, coeffs, b_eff = _prepare(params, cfg, sde, conditional, steps, no_sigma)
+    act = _ACTIVATIONS[cfg.activation]
+    layers = params["layers"]
+    n_tiles = -(-B // tile)
+    n = n_tiles * tile
+    x = _padded_rows(x0, n, 0)
+    z_all = _padded_rows(noise, n, 1)
+    cp = None if cond_proj is None else _padded_rows(cond_proj, n, 0)
+    real = (torch.arange(n, device=x0.device) < B).reshape(n_tiles, tile, 1)
+    x_mean = x
+    ok = torch.ones(n_tiles, dtype=torch.bool, device=x0.device)
+    with strict_fp32_matmul():
+        for s in range(steps):
+            h = x @ w_in + b_eff[s]
+            if cp is not None:
+                h = h + cp
+            for lyr in layers[1:-1]:
+                h = act(h) @ lyr["w"] + lyr["b"]
+            net = act(h) @ layers[-1]["w"] + layers[-1]["b"]
+            new_mean = coeffs[s, 0] * x + coeffs[s, 1] * net
+            new_x = new_mean + coeffs[s, 2] * z_all[s]
+            finite = (torch.isfinite(new_x).reshape(n_tiles, tile, D) | ~real).reshape(n_tiles, -1)
+            keep = (ok & finite.all(dim=1))[:, None, None]
+            x = torch.where(keep, new_x.reshape(n_tiles, tile, D), x.reshape(n_tiles, tile, D)).reshape(n, D)
+            x_mean = torch.where(
+                keep, new_mean.reshape(n_tiles, tile, D), x_mean.reshape(n_tiles, tile, D)
+            ).reshape(n, D)
+            ok = keep.reshape(n_tiles)
+    return x_mean[:B], x[:B], ~ok.all()
+
+
+def fused_em_sample(
+    params: dict,
+    cfg,
+    sde,
+    x0: torch.Tensor,
+    seed: Optional[int] = None,
+    conditional: Optional[torch.Tensor] = None,
+    steps: int = 100,
+    no_sigma: bool = False,
+    noise: Optional[torch.Tensor] = None,
+    compute_dtype: str = "float32",
+):
+    """Run the whole EM loop from prior samples ``x0``; returns
+    ``(x_mean, x, diverged)`` with ``diverged`` a 0-d bool tensor.
+
+    ``conditional`` (already standardized) enters as one precomputed
+    first-layer projection.  Noise is Philox keyed by ``seed`` (0 <= seed
+    < 2^64) unless ``noise`` (steps, B, D) is streamed.  CUDA tensors
+    launch the kernel (``fused_em_sample.launches`` counts launches); CPU
+    tensors run :func:`fused_em_sample_reference` on the same noise
+    (:func:`philox_normals` when seeded).
+    """
+    _check_compute_dtype(compute_dtype)
+    if (seed is None) == (noise is None):
+        raise ValueError("pass a seed (in-kernel Philox noise) OR streamed noise, not both")
+    if steps < 1:
+        raise ValueError(f"steps must be >= 1, got {steps}")
+    _check_conditional(cfg.n_conditionals, conditional)
+    params, cfg = pad_to_lanes(params, cfg)
+    B, D = x0.shape
+    rows, smem = em_plan(cfg.units[0], D, conditional is not None)
+    if not x0.is_cuda:
+        if noise is None:
+            noise = philox_normals(seed, steps, B, D, x0.device)
+        return fused_em_sample_reference(params, cfg, sde, x0, noise, conditional, steps, no_sigma)
+    w_in, cond_proj, coeffs, b_eff = _prepare(params, cfg, sde, conditional, steps, no_sigma)
+    return _launch(
+        x0.contiguous(), None if noise is None else noise.contiguous(),
+        0 if seed is None else _check_seed(seed), cond_proj, coeffs, b_eff, w_in,
+        params["layers"], cfg.activation, steps, rows, smem,
+    )
+
+
+def reset_launch_counts() -> None:
+    """Zero ``fused_em_sample.launches``."""
+    fused_em_sample.launches = 0
+
+
+reset_launch_counts()
+
+
+def _kernel_lib() -> ctypes.CDLL:
+    lib = _build.load("em_sampler")
+    fn = lib.ff_em_sample
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        pp = ctypes.POINTER(ctypes.c_void_p)
+        fn.argtypes = [
+            p, p, ctypes.c_uint64, p, p, p, p, pp, pp, i, p, p, p, p, p,
+            i, i, i, i, i, i, ctypes.c_size_t, p,
+        ]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def _launch(x0, noise, seed, cond_proj, coeffs, b_eff, w_in, layers, activation, steps, rows, smem):
+    """Check the operands, allocate the outputs and launch the kernel on
+    the current stream.  Raises on anything the kernel does not take."""
+    B, D = x0.shape
+    H = b_eff.shape[1]
+    hidden = layers[1:-1]
+    w_out, b_out = layers[-1]["w"], layers[-1]["b"]
+    expect = [
+        (x0, (B, D)), (coeffs, (steps, 3)), (b_eff, (steps, H)), (w_in, (D, H)),
+        (w_out, (H, D)), (b_out, (D,)),
+    ]
+    expect += [(l["w"], (H, H)) for l in hidden] + [(l["b"], (H,)) for l in hidden]
+    if noise is not None:
+        expect.append((noise, (steps, B, D)))
+    if cond_proj is not None:
+        expect.append((cond_proj, (B, H)))
+    device = check_operands(expect, hidden, H, "EM kernel")
+
+    x_mean = torch.empty((B, D), dtype=torch.float32, device=device)
+    x = torch.empty((B, D), dtype=torch.float32, device=device)
+    if B == 0:
+        return x_mean, x, torch.zeros((), dtype=torch.bool, device=device)
+    flags = torch.empty((-(-B // rows),), dtype=torch.int32, device=device)
+    lib = _kernel_lib()
+    n = len(hidden)
+    w_ptrs = (ctypes.c_void_p * max(n, 1))(*[l["w"].data_ptr() for l in hidden])
+    b_ptrs = (ctypes.c_void_p * max(n, 1))(*[l["b"].data_ptr() for l in hidden])
+    err = lib.ff_em_sample(
+        x0.data_ptr(), None if noise is None else noise.data_ptr(), seed,
+        None if cond_proj is None else cond_proj.data_ptr(), coeffs.data_ptr(),
+        b_eff.data_ptr(), w_in.data_ptr(), w_ptrs, b_ptrs, n, w_out.data_ptr(),
+        b_out.data_ptr(), x_mean.data_ptr(), x.data_ptr(), flags.data_ptr(),
+        B, D, H, steps, _KERNEL_ACTIVATIONS.index(activation), rows, smem,
+        torch.cuda.current_stream(device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"em_sampler kernel launch failed with CUDA error {err}")
+    fused_em_sample.launches += 1
+    return x_mean, x, flags.any()

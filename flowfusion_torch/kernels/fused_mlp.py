@@ -1,10 +1,12 @@
-"""Fused score-MLP drift (+ Hutchinson or exact divergence) on the card.
+"""Fused score-MLP drift and flow velocity (+ Hutchinson or exact
+divergence) on the card.
 
-Counterpart of the JAX package's ``kernels/fused_mlp.py::fused_drift`` in
-its modes ``forward``, ``hutchinson`` and ``exact`` at compute mode
-``float32``.  On CUDA tensors the wrapper launches the hand-written kernel
-``csrc/fused_mlp.cu`` (built at first use, see ``_build``) or raises; on
-CPU tensors it runs the plain PyTorch version, ``fused_drift_reference``.
+Counterpart of the JAX package's ``kernels/fused_mlp.py::fused_drift`` and
+``fused_velocity`` in their modes ``forward``, ``hutchinson`` and ``exact``
+at compute mode ``float32``.  On CUDA tensors the wrappers launch the
+hand-written kernel ``csrc/fused_mlp.cu`` (built at first use, see
+``_build``) or raise; on CPU tensors they run the plain PyTorch versions,
+``fused_drift_reference`` and ``fused_velocity_reference``.
 
 During a solve the time ``t`` is a batch-global scalar, so the Fourier
 embedding contributes a t-dependent bias to the first layer:
@@ -15,25 +17,32 @@ scalars, read by the kernel from a 2-float device buffer so no RHS call
 syncs with the host:
   drift = c0 * x + c1 * net(t, x[, cond])
   div   = c0 |e|^2 + c1 e.J_net e   (hutchinson)  |  c0 D + c1 tr J_net  (exact)
+
+The velocity net takes raw t as an input feature after x, so its fold is
+``b_eff = b1 + t W1[D]`` with ``w_in`` the [x | cond] rows
+(``_velocity_first_layer``), and it runs the same kernel with
+(c0, c1) = (0, 1).  Each wrapper counts its own launches.
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import Optional, Sequence
+from typing import Callable, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
 from torch.func import jvp
 
 from .._device import same_device, strict_fp32_matmul
-from ..models.nets import apply_score_mlp, fourier_time_embedding
+from ..models.nets import apply_score_mlp, apply_velocity_mlp, fourier_time_embedding
 from . import _build
 
 __all__ = [
     "fused_drift",
     "fused_drift_reference",
+    "fused_velocity",
+    "fused_velocity_reference",
     "pad_to_lanes",
     "fusable_config",
     "supports_config",
@@ -84,21 +93,24 @@ def supports_features(
 
 
 def pad_to_lanes(params: dict, cfg):
-    """Zero-pad hidden widths to one uniform multiple of ``LANE``.
+    """Zero-pad hidden widths to one uniform multiple of ``LANE``, for the
+    score and the velocity net alike.
 
     Exact: a padded unit has zero weight column and bias, so zero
     pre-activation, zero activation (act(0) == 0) and zero tangent, and
     contributes nothing downstream.  Returns ``(params, cfg)`` unchanged
     when the config is already supported."""
-    if supports_config(cfg.units, cfg.activation):
+    field = "units" if hasattr(cfg, "units") else "hidden_units"  # score | velocity net
+    units = getattr(cfg, field)
+    if supports_config(units, cfg.activation):
         return params, cfg
-    if not fusable_config(cfg.units, cfg.activation):
+    if not fusable_config(units, cfg.activation):
         raise ValueError(
-            f"fused kernel cannot pad units={cfg.units} "
+            f"fused kernel cannot pad units={units} "
             f"activation={cfg.activation!r} into its envelope (activation must "
             f"be one of {_KERNEL_ACTIVATIONS}, at most {MAX_HIDDEN + 1} hidden layers)"
         )
-    H = max(-(-u // LANE) * LANE for u in cfg.units)
+    H = max(-(-u // LANE) * LANE for u in units)
     layers = params["layers"]
     padded = []
     for i, lyr in enumerate(layers):
@@ -106,7 +118,7 @@ def pad_to_lanes(params: dict, cfg):
         pad_in = H - w.shape[0] if i > 0 else 0
         pad_out = H - w.shape[1] if i < len(layers) - 1 else 0
         padded.append({"w": F.pad(w, (0, pad_out, 0, pad_in)), "b": F.pad(b, (0, pad_out))})
-    return {**params, "layers": padded}, dataclasses.replace(cfg, units=(H,) * len(cfg.units))
+    return {**params, "layers": padded}, dataclasses.replace(cfg, **{field: (H,) * len(units)})
 
 
 def flops_per_row(d_in: int, d_out: int, H: int, n_layers: int, mode: str) -> int:
@@ -115,6 +127,23 @@ def flops_per_row(d_in: int, d_out: int, H: int, n_layers: int, mode: str) -> in
     ``n_layers`` counts every weight layer."""
     n_applies = {"forward": 0, "hutchinson": 1, "exact": d_out}[mode]
     return 2 * H * (d_in + (n_layers - 2) * H + d_out) * (1 + n_applies)
+
+
+def _check_compute_dtype(compute_dtype: str) -> None:
+    if compute_dtype != "float32":
+        raise NotImplementedError(
+            f"kernel compute dtype {compute_dtype!r} is not ported to "
+            "flowfusion_torch yet (ROADMAP.md queue 2: the 3xTF32 'highf32' "
+            "and 'bfloat16' counterparts of items 1-4); use 'float32'"
+        )
+
+
+def _mode(e, exact_divergence: bool) -> str:
+    """The kernel mode of a call: 'hutchinson' with a probe ``e``, 'exact'
+    with ``exact_divergence``, else 'forward'."""
+    if e is not None and exact_divergence:
+        raise ValueError("pass a probe e OR exact_divergence, not both")
+    return "hutchinson" if e is not None else ("exact" if exact_divergence else "forward")
 
 
 def _check_conditional(n_cond: int, conditional) -> None:
@@ -143,22 +172,43 @@ def _score_first_layer(params, cfg, t, conditional):
     return w_in, b_eff
 
 
+def _velocity_first_layer(params, cfg, t, conditional):
+    """``(w_in, b_eff)`` of the velocity net: the raw scalar time's row
+    folded into the first-layer bias, and the [x | cond] weight rows."""
+    D = cfg.target_dimension
+    w1 = params["layers"][0]["w"]
+    t = torch.as_tensor(t, dtype=torch.float32, device=w1.device).reshape(())
+    b_eff = params["layers"][0]["b"] + t * w1[D]
+    w_in = torch.cat([w1[:D], w1[D + 1 :]]) if conditional is not None else w1[:D]
+    return w_in, b_eff
+
+
 def fused_drift_reference(
     params, cfg, t, x, conditional=None, e=None, exact_divergence=False, c0=0.0, c1=1.0
 ):
     """The plain PyTorch version of :func:`fused_drift`, all three modes:
     the net through ``apply_score_mlp`` and its Jacobian through
     ``torch.func.jvp``, with TF32 off (compute mode ``float32``)."""
-    if e is not None and exact_divergence:
-        raise ValueError("pass a probe e OR exact_divergence, not both")
+    _mode(e, exact_divergence)
     with strict_fp32_matmul():
-        return _reference(params, cfg, t, x, conditional, e, exact_divergence, c0, c1)
+        return _reference(
+            lambda xx: apply_score_mlp(cfg, params, t, xx, conditional),
+            x, e, exact_divergence, c0, c1,
+        )
 
 
-def _reference(params, cfg, t, x, conditional, e, exact_divergence, c0, c1):
-    def net(xx):
-        return apply_score_mlp(cfg, params, t, xx, conditional)
+def fused_velocity_reference(params, cfg, t, x, conditional=None, e=None, exact_divergence=False):
+    """The plain PyTorch version of :func:`fused_velocity`, all three modes
+    (``apply_velocity_mlp`` and ``torch.func.jvp``, TF32 off)."""
+    _mode(e, exact_divergence)
+    with strict_fp32_matmul():
+        return _reference(
+            lambda xx: apply_velocity_mlp(cfg, params, t, xx, conditional),
+            x, e, exact_divergence, 0.0, 1.0,
+        )
 
+
+def _reference(net, x, e, exact_divergence, c0, c1):
     if e is not None:
         out, je = jvp(net, (x,), (e,))
         # e^T (c0 I + c1 J_net) e = c0 |e|^2 + c1 e^T J_net e
@@ -198,17 +248,10 @@ def fused_drift(
     syncs).  CUDA tensors launch the kernel (``fused_drift.launches``
     counts launches); CPU tensors run :func:`fused_drift_reference`.
     """
-    if compute_dtype != "float32":
-        raise NotImplementedError(
-            f"kernel compute dtype {compute_dtype!r} is not ported to "
-            "flowfusion_torch yet (ROADMAP.md queue 2: the 3xTF32 'highf32' "
-            "and 'bfloat16' counterparts of items 1-3); use 'float32'"
-        )
-    if e is not None and exact_divergence:
-        raise ValueError("pass a probe e OR exact_divergence, not both")
+    _check_compute_dtype(compute_dtype)
+    mode = _mode(e, exact_divergence)
     _check_conditional(cfg.n_conditionals, conditional)
     params, cfg = pad_to_lanes(params, cfg)
-    mode = "hutchinson" if e is not None else ("exact" if exact_divergence else "forward")
     # the envelope holds on every device, as the JAX interpret mode's does
     _plan(cfg.units[0], mode, cfg.n_dimensions + cfg.n_conditionals, cfg.n_dimensions)
     if not x.is_cuda:
@@ -228,14 +271,52 @@ def fused_drift(
     return drift if mode == "forward" else (drift, div)
 
 
-fused_drift.launches = 0
-fused_drift.launches_by_mode = dict.fromkeys(_MODES, 0)
+def fused_velocity(
+    params: dict,
+    cfg,
+    t,
+    x: torch.Tensor,
+    conditional: Optional[torch.Tensor] = None,
+    e: Optional[torch.Tensor] = None,
+    exact_divergence: bool = False,
+    compute_dtype: str = "float32",
+):
+    """Fused flow-matching velocity v(x, t[, cond]) and optional divergence.
+
+    The arguments and returns of :func:`fused_drift` with (c0, c1) = (0, 1)
+    and a ``VelocityMLPConfig``.  CUDA tensors launch the kernel
+    (``fused_velocity.launches`` counts launches); CPU tensors run
+    :func:`fused_velocity_reference`.
+    """
+    _check_compute_dtype(compute_dtype)
+    mode = _mode(e, exact_divergence)
+    _check_conditional(cfg.conditional_dimension, conditional)
+    params, cfg = pad_to_lanes(params, cfg)
+    D = cfg.target_dimension
+    _plan(cfg.hidden_units[0], mode, D + cfg.conditional_dimension, D)
+    if not x.is_cuda:
+        return fused_velocity_reference(params, cfg, t, x, conditional, e, exact_divergence)
+    with strict_fp32_matmul():
+        w_in, b_eff = _velocity_first_layer(params, cfg, t, conditional)
+    x_in = x if conditional is None else torch.cat([x, conditional], dim=-1)
+    # (c0, c1) = (0, 1), made on the device without a host copy
+    c0c1 = torch.arange(2, dtype=torch.float32, device=x.device)
+    drift, div = _launch(
+        x_in.contiguous(), None if e is None else e.contiguous(), w_in.contiguous(), b_eff,
+        params["layers"], c0c1, mode, D, cfg.activation, counter=fused_velocity,
+    )
+    return drift if mode == "forward" else (drift, div)
 
 
 def reset_launch_counts() -> None:
-    """Zero ``fused_drift.launches`` and its per-mode split."""
-    fused_drift.launches = 0
-    fused_drift.launches_by_mode = dict.fromkeys(_MODES, 0)
+    """Zero the launch counts of ``fused_drift`` and ``fused_velocity``,
+    and their per-mode splits."""
+    for fn in (fused_drift, fused_velocity):
+        fn.launches = 0
+        fn.launches_by_mode = dict.fromkeys(_MODES, 0)
+
+
+reset_launch_counts()
 
 
 def _chains(mode: str, d_out: int) -> int:
@@ -251,16 +332,21 @@ def _smem_bytes(rows: int, H: int, chains: int, d_in: int, d_out: int) -> int:
     return 4 * (2 * chains * rows * H + rows * (d_in + d_out))
 
 
-def _rows_per_block(H: int, chains: int, d_in: int, d_out: int) -> Optional[int]:
-    """Rows a block owns: the most (<= 64) whose shared memory lets two
-    blocks share an SM, else 4 rows in one block; None when not even
-    that fits."""
+def rows_for(smem_bytes: Callable[[int], int]) -> Optional[int]:
+    """Rows a block owns, given its shared memory ``smem_bytes(rows)``:
+    the most (<= 64) that let two blocks share an SM, else 4 rows in one
+    block; None when not even that fits.  Both kernels plan with it."""
     for rows in (64, 32, 16, 8, 4):
-        if _smem_bytes(rows, H, chains, d_in, d_out) <= _SMEM_LIMIT // 2:
+        if smem_bytes(rows) <= _SMEM_LIMIT // 2:
             return rows
-    if _smem_bytes(4, H, chains, d_in, d_out) <= _SMEM_LIMIT:
+    if smem_bytes(4) <= _SMEM_LIMIT:
         return 4
     return None
+
+
+def _rows_per_block(H: int, chains: int, d_in: int, d_out: int) -> Optional[int]:
+    """:func:`rows_for` in this kernel's layout."""
+    return rows_for(lambda rows: _smem_bytes(rows, H, chains, d_in, d_out))
 
 
 def _plan(H: int, mode: str, d_in: int, d_out: int):
@@ -290,9 +376,31 @@ def _kernel_lib() -> ctypes.CDLL:
     return lib
 
 
-def _launch(x_in, e, w_in, b_eff, layers, c0c1, mode, d_out, activation):
+def check_operands(expect, hidden, H: int, what: str) -> torch.device:
+    """Raise unless every ``(tensor, shape)`` of ``expect`` is a contiguous
+    float32 CUDA tensor of that shape on one device, and the ``hidden``
+    (H, H) layers fit the kernel (<= ``MAX_HIDDEN``, H a multiple of
+    ``LANE``, weights 16-byte aligned for float4 reads).  Returns the
+    device.  Both kernels' launch wrappers call it."""
+    device = same_device(*(t for t, _ in expect))
+    for tensor, shape in expect:
+        if not tensor.is_cuda or tensor.dtype != torch.float32:
+            raise ValueError(f"{what} takes float32 CUDA tensors; got {tensor.dtype} on {tensor.device}")
+        if tuple(tensor.shape) != shape:
+            raise ValueError(f"{what} operand of shape {tuple(tensor.shape)}; expected {shape}")
+        if not tensor.is_contiguous():
+            raise ValueError(f"{what} operands must be contiguous")
+    if len(hidden) > MAX_HIDDEN or H % LANE:
+        raise ValueError(f"{what} takes <= {MAX_HIDDEN} hidden layers of a width in multiples of {LANE}")
+    if any(l["w"].data_ptr() % 16 for l in hidden):
+        raise ValueError(f"{what} reads hidden weights as float4: they must be 16-byte aligned")
+    return device
+
+
+def _launch(x_in, e, w_in, b_eff, layers, c0c1, mode, d_out, activation, counter=fused_drift):
     """Check the operands, allocate the outputs and launch the kernel on
-    the current stream.  Raises on anything the kernel does not take."""
+    the current stream; add the launch to ``counter``'s counts.  Raises on
+    anything the kernel does not take."""
     B, d_in = x_in.shape
     H = b_eff.shape[0]
     hidden = layers[1:-1]
@@ -304,18 +412,7 @@ def _launch(x_in, e, w_in, b_eff, layers, c0c1, mode, d_out, activation):
     expect += [(l["w"], (H, H)) for l in hidden] + [(l["b"], (H,)) for l in hidden]
     if mode == "hutchinson":
         expect.append((e, (B, d_out)))
-    device = same_device(*(t for t, _ in expect))
-    for tensor, shape in expect:
-        if not tensor.is_cuda or tensor.dtype != torch.float32:
-            raise ValueError(f"fused kernel takes float32 CUDA tensors; got {tensor.dtype} on {tensor.device}")
-        if tuple(tensor.shape) != shape:
-            raise ValueError(f"fused kernel operand of shape {tuple(tensor.shape)}; expected {shape}")
-        if not tensor.is_contiguous():
-            raise ValueError("fused kernel operands must be contiguous")
-    if len(hidden) > MAX_HIDDEN or H % LANE:
-        raise ValueError(f"fused kernel takes <= {MAX_HIDDEN} hidden layers of a width in multiples of {LANE}")
-    if any(l["w"].data_ptr() % 16 for l in hidden):
-        raise ValueError("fused kernel reads hidden weights as float4: they must be 16-byte aligned")
+    device = check_operands(expect, hidden, H, "fused kernel")
     rows, smem = _plan(H, mode, d_in, d_out)
 
     drift = torch.empty((B, d_out), dtype=torch.float32, device=device)
@@ -336,6 +433,6 @@ def _launch(x_in, e, w_in, b_eff, layers, c0c1, mode, d_out, activation):
     )
     if err != 0:
         raise RuntimeError(f"fused_mlp kernel launch failed with CUDA error {err}")
-    fused_drift.launches += 1
-    fused_drift.launches_by_mode[mode] += 1
+    counter.launches += 1
+    counter.launches_by_mode[mode] += 1
     return drift, div

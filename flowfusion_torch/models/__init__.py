@@ -1,8 +1,9 @@
-"""Model families of the port: the score-based diffusion model and its
-standardizing population wrapper."""
+"""Model families of the port: the score-based diffusion model, its
+standardizing population wrapper, and the flow-matching CNF."""
 
-from . import nets, population, score
+from . import flow, nets, population, score
+from .flow import ODEFlow
 from .population import PopulationModelDiffusion
 from .score import ScoreModel
 
-__all__ = ["nets", "population", "score", "PopulationModelDiffusion", "ScoreModel"]
+__all__ = ["flow", "nets", "population", "score", "ODEFlow", "PopulationModelDiffusion", "ScoreModel"]

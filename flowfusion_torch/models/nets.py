@@ -1,14 +1,16 @@
-"""Score network as a config dataclass plus a plain dict of tensors.
+"""Score and velocity networks as config dataclasses plus plain dicts of
+tensors.
 
-Counterpart of the JAX package's ``models/nets.py`` for the score MLP (the
-velocity and symplectic nets are ROADMAP.md queue 1, items 10-11).  The
-parameters keep the JAX tree and layouts, so weights carry over one for
-one (``utils.convert.params_from_numpy``):
+Counterpart of the JAX package's ``models/nets.py`` for the score MLP and
+the flow-matching velocity MLP (the symplectic net is ROADMAP.md queue 1,
+item 11).  The parameters keep the JAX trees and layouts, so weights carry
+over one for one (``utils.convert.params_from_numpy``):
 
-  ``{"W": (E/2,), "layers": [{"w": (in, out), "b": (out,)}, ...]}``
-
-with the net input ordered ``[t_embedding | x | conditional]``.  ``W`` is
-the frozen Gaussian-Fourier embedding (sampled once at init).
+  score:    ``{"W": (E/2,), "layers": [{"w": (in, out), "b": (out,)}, ...]}``
+            with the input ordered ``[t_embedding | x | conditional]``; ``W``
+            is the frozen Gaussian-Fourier embedding (sampled once at init);
+  velocity: ``{"layers": [...]}`` with the input ordered ``[x | t | cond]``,
+            t a raw scalar feature (no embedding).
 """
 
 from __future__ import annotations
@@ -26,6 +28,9 @@ __all__ = [
     "ScoreMLPConfig",
     "init_score_mlp",
     "apply_score_mlp",
+    "VelocityMLPConfig",
+    "init_velocity_mlp",
+    "apply_velocity_mlp",
     "fourier_time_embedding",
 ]
 
@@ -38,12 +43,12 @@ _ACTIVATIONS = {
 }
 
 
-def _validate_net_config(activation, embedding_dimensions):
+def _validate_net_config(activation, embedding_dimensions=None):
     if activation not in _ACTIVATIONS:
         raise ValueError(
             f"unknown activation {activation!r}; use one of {sorted(_ACTIVATIONS)}"
         )
-    if embedding_dimensions % 2:
+    if embedding_dimensions is not None and embedding_dimensions % 2:
         raise ValueError(
             f"embedding_dimensions must be even (sin/cos pairs); got "
             f"{embedding_dimensions}"
@@ -96,23 +101,26 @@ def init_score_mlp(
     drawn from ``generator`` on its own device, then moved to ``device``."""
     dev = resolve_device(device)
     gen_dev = generator.device if generator is not None else None
-
-    def uniform(shape, bound):
-        u = torch.rand(shape, generator=generator, dtype=dtype, device=gen_dev)
-        return (2.0 * u - 1.0) * bound
-
     W = torch.randn(
         (cfg.embedding_dimensions // 2,), generator=generator, dtype=dtype, device=gen_dev
     ) * cfg.sigma_initialization
-    sizes = cfg.architecture
+    return {"W": W.to(dev), "layers": _init_mlp_stack(cfg.architecture, generator, dev, dtype)}
+
+
+def _init_mlp_stack(sizes, generator, device, dtype) -> list:
+    """torch.nn.Linear's default U(-1/sqrt(fan_in), 1/sqrt(fan_in)) for
+    every layer, drawn on the generator's device, then moved."""
+    gen_dev = generator.device if generator is not None else None
+
+    def uniform(shape, bound):
+        u = torch.rand(shape, generator=generator, dtype=dtype, device=gen_dev)
+        return ((2.0 * u - 1.0) * bound).to(device)
+
     layers = []
     for fan_in, fan_out in zip(sizes[:-1], sizes[1:]):
         bound = 1.0 / math.sqrt(fan_in)
-        layers.append({
-            "w": uniform((fan_in, fan_out), bound).to(dev),
-            "b": uniform((fan_out,), bound).to(dev),
-        })
-    return {"W": W.to(dev), "layers": layers}
+        layers.append({"w": uniform((fan_in, fan_out), bound), "b": uniform((fan_out,), bound)})
+    return layers
 
 
 def _expand_t(t, batch: int, like: torch.Tensor) -> torch.Tensor:
@@ -135,10 +143,63 @@ def apply_score_mlp(
     if conditional is not None:
         x = torch.cat([x, conditional], dim=-1)
     t_emb = fourier_time_embedding(_expand_t(t, x.shape[0], x), params["W"])
-    h = torch.cat([t_emb, x], dim=-1)
-    layers = params["layers"]
+    return _apply_mlp_stack(params["layers"], torch.cat([t_emb, x], dim=-1), act)
+
+
+def _apply_mlp_stack(layers, h: torch.Tensor, act) -> torch.Tensor:
+    """Affine layers with ``act`` between them (none after the last)."""
     for i, layer in enumerate(layers):
         h = h @ layer["w"] + layer["b"]
         if i < len(layers) - 1:
             h = act(h)
     return h
+
+
+@dataclasses.dataclass(frozen=True)
+class VelocityMLPConfig:
+    """Architecture of the flow-matching velocity net (the JAX package's
+    defaults).  Time enters as a raw scalar feature after x."""
+
+    target_dimension: int = 1
+    conditional_dimension: int = 0
+    hidden_units: Tuple[int, ...] = (128, 128)
+    activation: str = "silu"
+
+    def __post_init__(self):
+        object.__setattr__(self, "hidden_units", tuple(self.hidden_units))
+        _validate_net_config(self.activation)
+
+    @property
+    def architecture(self) -> Tuple[int, ...]:
+        return (
+            self.target_dimension + 1 + self.conditional_dimension,
+            *self.hidden_units,
+            self.target_dimension,
+        )
+
+    def apply(self, params, t, x, conditional=None) -> torch.Tensor:
+        """Alias for :func:`apply_velocity_mlp`."""
+        return apply_velocity_mlp(self, params, t, x, conditional)
+
+
+def init_velocity_mlp(
+    cfg: VelocityMLPConfig,
+    generator: Optional[torch.Generator] = None,
+    device: DeviceLike = None,
+    dtype=torch.float32,
+) -> dict:
+    """Fresh parameters, torch.nn.Linear's default init on every layer."""
+    return {"layers": _init_mlp_stack(cfg.architecture, generator, resolve_device(device), dtype)}
+
+
+def apply_velocity_mlp(
+    cfg: VelocityMLPConfig,
+    params: dict,
+    t,
+    x: torch.Tensor,
+    conditional: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """v(x, t[, cond]) with input concat([x, t, cond])."""
+    t = _expand_t(t, x.shape[0], x)[:, None]
+    parts = [x, t] if conditional is None else [x, t, conditional]
+    return _apply_mlp_stack(params["layers"], torch.cat(parts, dim=-1), _ACTIVATIONS[cfg.activation])

@@ -5,12 +5,15 @@ Reference quirks, kept:
   * ``forward``/``sample`` uses atol=rtol=1e-5 whatever the caller set;
   * ``log_prob`` runs with no ``min_step`` (``options={}``) and reports
     the density of the *standardized* variables: it does not subtract
-    sum(log(scale)) unless ``volume_corrected=True``.
+    sum(log(scale)) unless ``volume_corrected=True``;
+  * ``sample_sde`` honours ``steps`` (the reference hard-codes 100) and
+    warns on a diverged solve instead of printing.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -115,8 +118,26 @@ class PopulationModelDiffusion:
     def loss_fn(self, *args, **kwargs):
         raise _common.not_ported("PopulationModelDiffusion.loss_fn (training)", "item 9")
 
-    def sample_sde(self, *args, **kwargs):
-        raise _common.not_ported("PopulationModelDiffusion.sample_sde", "item 8")
+    def sample_sde(
+        self,
+        shape: Sequence[int],
+        conditional: Optional[torch.Tensor] = None,
+        steps: int = 100,
+        generator: Optional[torch.Generator] = None,
+    ) -> torch.Tensor:
+        """Reverse-SDE Euler--Maruyama samples in data units: the
+        standardized conditional in, ``x_mean * scale + shift`` out.  A
+        diverged solve (the returned state is the last finite one) warns;
+        reading the flag is the call's one host sync."""
+        res = self.score_model.sample_sde(
+            shape, conditional=self._norm_cond(conditional), steps=steps, generator=generator
+        )
+        if bool(res.nan_encountered):
+            warnings.warn(
+                "sample_sde: diffusion diverged (NaN encountered); returning "
+                "the last finite state — reduce step size or check training"
+            )
+        return res.x_mean * self.scale + self.shift
 
     def log_prob_per_sample(self, *args, **kwargs):
         raise _common.not_ported("per-sample stepping (odeint_per_sample)", "item 13")

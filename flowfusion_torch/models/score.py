@@ -1,5 +1,6 @@
-"""Score-based diffusion model: probability-flow sampling and exact CNF
-log-likelihood (counterpart of the JAX package's ``models/score.py``).
+"""Score-based diffusion model: probability-flow and reverse-SDE sampling
+and exact CNF log-likelihood (counterpart of the JAX package's
+``models/score.py``).
 
 Parity contract (as the JAX package):
   * score(t, x, c) = net(t, x, c) / sigma(t) unless ``no_sigma``;
@@ -9,25 +10,33 @@ Parity contract (as the JAX package):
   * ``solve_odes_forward`` integrates the augmented state (x, dlogp)
     t: epsilon -> 1.0 at atol=rtol=1e-5 with probes drawn once per solve;
   * ``log_prob`` defaults atol=rtol=1e-4 with min_step=1e-6 and adds the
-    prior term sum_d log N(x_T).
+    prior term sum_d log N(x_T);
+  * ``sample_sde``/``sample_pc`` run reverse-time Euler--Maruyama from T
+    to epsilon and return an ``EMResult`` whose ``x_mean`` is the
+    reference's sample; ``sample_sde_fused`` runs the same loop in one
+    kernel launch (``kernels.em_sampler``).
 
 Every RHS evaluation goes through ``kernels.fused_mlp.fused_drift`` when
 the solve's tensors are on CUDA (or ``use_fused_kernel=True``), else
 through the plain torch drift and ``ops.trace`` estimators.  The solves
 run under ``torch.no_grad`` with TF32 off (compute mode ``float32``).
+Random draws come from an explicit ``torch.Generator``; the prior is drawn
+on the generator's device and moved to the model's.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional, Sequence, Tuple
 
 import torch
 
 from .._device import strict_fp32_matmul
+from ..kernels.em_sampler import fused_em_sample
 from ..kernels.fused_mlp import fused_drift, fusable_config, supports_features
 from ..ops import trace as trace_lib
-from ..ops.integrate import SolverStats, odeint
+from ..ops.integrate import EMResult, SolverStats, euler_maruyama, odeint
 from ..ops.integrate.tableaus import ADAPTIVE_TABLEAUS
 from ..ops.sde import SDE
 from . import _common
@@ -68,12 +77,15 @@ class ScoreModel:
             )
 
     @property
-    def device(self) -> torch.device:
-        return self.params["layers"][0]["w"].device
+    def device(self) -> Optional[torch.device]:
+        """The parameters' device; None for a net without parameters (an
+        analytic field), whose samplers then run on the generator's device."""
+        layers = self.params.get("layers")
+        return layers[0]["w"].device if layers else None
 
     def _check_device(self, *tensors: Optional[torch.Tensor]) -> None:
         for t in tensors:
-            if t is not None and t.device != self.device:
+            if t is not None and self.device is not None and t.device != self.device:
                 raise ValueError(
                     f"input on {t.device} but the model's parameters are on "
                     f"{self.device}; move one of them"
@@ -127,8 +139,8 @@ class ScoreModel:
     def loss_fn(self, *args, **kwargs):
         raise _common.not_ported("ScoreModel.loss_fn (training)", "item 9")
 
-    def sample_sde(self, *args, **kwargs):
-        raise _common.not_ported("ScoreModel.sample_sde", "item 8")
+    def sample_dpm(self, *args, **kwargs):
+        raise _common.not_ported("ScoreModel.sample_dpm (ops/integrate/dpm.py)", "item 13")
 
     def log_prob_per_sample(self, *args, **kwargs):
         raise _common.not_ported("per-sample stepping (odeint_per_sample)", "item 13")
@@ -136,6 +148,146 @@ class ScoreModel:
     # ------------------------------------------------------------------
     # sampling
     # ------------------------------------------------------------------
+    def _reverse_drift_fn(self, conditional, x: torch.Tensor):
+        """Reverse-SDE drift f - g^2 s as a (t, x) closure: the kernel in
+        mode forward with (c0, 2 c1) when the dispatch takes it for ``x``,
+        else the plain torch drift."""
+        if self._fused_available(x, "forward"):
+
+            def drift(t, xx):
+                c0, c1 = self._fused_coeffs(t)
+                return fused_drift(
+                    self.params, self.net, t, xx, conditional, c0=c0, c1=2.0 * c1,
+                    compute_dtype=self.kernel_compute_dtype,
+                )
+
+        else:
+
+            def drift(t, xx):
+                g = self.sde.diffusion(t, xx)
+                return self.sde.drift(t, xx) - g**2 * self.score(t, xx, conditional)
+
+        return drift
+
+    def sample_sde(
+        self,
+        shape: Sequence[int],
+        conditional: Optional[torch.Tensor] = None,
+        steps: int = 100,
+        generator: Optional[torch.Generator] = None,
+        progress: bool = False,
+    ) -> EMResult:
+        """Reverse-time Euler--Maruyama sampler from the prior at T down to
+        epsilon: ``steps`` launches of the drift kernel on the card.  The
+        prior and then the path noise come from ``generator``."""
+        self._check_device(conditional)
+        x0 = self.sde.prior_sample(generator, shape, self.device)
+        drift = self._reverse_drift_fn(conditional, x0)
+        with torch.no_grad(), strict_fp32_matmul():
+            return euler_maruyama(
+                generator, drift, self.sde.diffusion, x0, t0=self.sde.T,
+                t1=self.sde.epsilon, steps=steps, epsilon=self.sde.epsilon, progress=progress,
+            )
+
+    def sample_pc(
+        self,
+        shape: Sequence[int],
+        conditional: Optional[torch.Tensor] = None,
+        steps: int = 100,
+        corrector_steps: int = 1,
+        snr: float = 0.16,
+        generator: Optional[torch.Generator] = None,
+    ) -> EMResult:
+        """Predictor--corrector sampler (Song et al. 2021): each level runs
+        one EM predictor step, then ``corrector_steps`` Langevin steps at
+        the new level with step size 2 (snr |z| / |score|)^2 (batch-mean
+        norms).  The whole batch freezes at its last finite state at the
+        first non-finite level.  On the card both the predictor drift and
+        the corrector score are kernel launches."""
+        self._check_device(conditional)
+        x0 = self.sde.prior_sample(generator, shape, self.device)
+        T, eps_t = float(self.sde.T), float(self.sde.epsilon)
+        dt = -(T - eps_t) / steps
+        rev_drift = self._reverse_drift_fn(conditional, x0)
+
+        if self._fused_available(x0, "forward"):
+
+            def score_fn(t, x):
+                inv_sigma = 1.0 if self.no_sigma else 1.0 / self.sde.sigma(t)
+                return fused_drift(
+                    self.params, self.net, t, x, conditional, c0=0.0, c1=inv_sigma,
+                    compute_dtype=self.kernel_compute_dtype,
+                )
+
+        else:
+
+            def score_fn(t, x):
+                return self.score(t, x, conditional)
+
+        gen_dev = generator.device if generator is not None else x0.device
+
+        def normal(like):
+            return torch.randn(like.shape, generator=generator, device=gen_dev).to(like.device)
+
+        def batch_mean_norm(v):
+            return torch.linalg.vector_norm(v.reshape(v.shape[0], -1), dim=-1).mean()
+
+        ts = T + dt * torch.arange(steps, dtype=torch.float32, device=x0.device)
+        x, x_mean = x0, x0
+        frozen = torch.zeros((), dtype=torch.bool, device=x0.device)
+        with torch.no_grad(), strict_fp32_matmul():
+            for i in range(steps):
+                t = ts[i]
+                x_old, xm_old = x, x_mean
+                # predictor: one reverse-SDE EM step t -> t + dt
+                g = self.sde.diffusion(t, x_old)
+                x_mean = x_old + rev_drift(t, x_old) * dt
+                x = x_mean + g * math.sqrt(-dt) * normal(x_old)
+                # corrector: Langevin at the new level
+                t_next = torch.clamp_min(t + dt, eps_t)
+                for _ in range(corrector_steps):
+                    grad = score_fn(t_next, x)
+                    z = normal(x)
+                    step = 2.0 * (
+                        snr * batch_mean_norm(z) / torch.clamp_min(batch_mean_norm(grad), 1e-20)
+                    ) ** 2
+                    x_mean = x + step * grad
+                    x = x_mean + torch.sqrt(2.0 * step) * z
+                # sample_sde's freeze: keep the last finite state
+                frozen = frozen | ~torch.isfinite(x).all()
+                x = torch.where(frozen, x_old, x)
+                x_mean = torch.where(frozen, xm_old, x_mean)
+        return EMResult(x_mean=x_mean, x=x, nan_encountered=frozen)
+
+    def sample_sde_fused(
+        self,
+        shape: Sequence[int],
+        conditional: Optional[torch.Tensor] = None,
+        steps: int = 100,
+        generator: Optional[torch.Generator] = None,
+        compute_dtype: Optional[str] = None,
+    ) -> EMResult:
+        """The whole EM loop in ONE kernel launch (``kernels.em_sampler``):
+        the prior from ``generator``, then a 64-bit seed from it for the
+        kernel's Philox noise, so draws differ from ``sample_sde``'s while
+        the sampled distribution is the same.  ``nan_encountered`` is the
+        kernel's divergence flag OR non-finite outputs (a non-finite prior
+        draw freezes at step 0)."""
+        if not isinstance(self.net, ScoreMLPConfig):
+            raise ValueError("sample_sde_fused runs the score MLP kernel; this model's net is not a ScoreMLPConfig")
+        self._check_device(conditional)
+        x0 = self.sde.prior_sample(generator, shape, self.device)
+        gen_dev = generator.device if generator is not None else None
+        seed = int(torch.randint(0, 2**63 - 1, (), generator=generator, device=gen_dev))
+        with torch.no_grad():
+            x_mean, x, diverged = fused_em_sample(
+                self.params, self.net, self.sde, x0, seed, conditional=conditional,
+                steps=steps, no_sigma=self.no_sigma,
+                compute_dtype=compute_dtype or self.kernel_compute_dtype,
+            )
+        nan = diverged | ~(torch.isfinite(x_mean).all() & torch.isfinite(x).all())
+        return EMResult(x_mean=x_mean, x=x, nan_encountered=nan)
+
     def sample_ode_from_base(
         self,
         base_samples: torch.Tensor,

@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -87,6 +87,15 @@ class SDE:
         """Elementwise log N(x | 0, prior_scale^2)."""
         s = self.prior_scale
         return -0.5 * (x / s) ** 2 - math.log(s) - 0.5 * _LOG_2PI
+
+    def prior_sample(
+        self, generator: Optional[torch.Generator], shape, device=None
+    ) -> torch.Tensor:
+        """N(0, prior_scale^2) float32 draws from ``generator`` on its own
+        device, moved to ``device`` (default: the generator's device)."""
+        gen_dev = generator.device if generator is not None else None
+        z = torch.randn(tuple(shape), generator=generator, dtype=torch.float32, device=gen_dev)
+        return (z * self.prior_scale).to(device if device is not None else z.device)
 
 
 @dataclasses.dataclass(frozen=True)

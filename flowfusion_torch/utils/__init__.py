@@ -1,1 +1,1 @@
-"""Checkpoint reading, weight conversion and toy data."""
+"""Checkpoint reading, weight conversion, toy data and two-sample statistics."""

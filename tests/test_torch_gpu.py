@@ -1,4 +1,4 @@
-"""The CUDA kernel against its plain PyTorch version, on the card.
+"""The CUDA kernels against their plain PyTorch versions, on the card.
 
 This file imports neither JAX nor the JAX package, so it also runs where
 only PyTorch is installed (the conftest imports JAX, so run it there with
@@ -7,7 +7,9 @@ a CUDA card every test skips: the kernel has no CPU mode.
 
 Bars, the JAX package's fused-versus-plain bars (bench.py:320-321): drift
 within 1e-5 and divergence within 1e-4 of the plain version's max
-magnitude, TF32 off.
+magnitude, TF32 off.  The EM kernel: x and x_mean within rtol 2e-4 / atol
+1e-4 of the plain version on the same noise (tests/test_kernels.py:203-204)
+and the same ``diverged``.
 """
 
 import dataclasses
@@ -15,10 +17,10 @@ import dataclasses
 import pytest
 import torch
 
-from flowfusion_torch.kernels import fused_mlp
-from flowfusion_torch.models.nets import ScoreMLPConfig, init_score_mlp
+from flowfusion_torch.kernels import em_sampler, fused_mlp
+from flowfusion_torch.models.nets import ScoreMLPConfig, VelocityMLPConfig, init_score_mlp, init_velocity_mlp
 from flowfusion_torch.models.score import ScoreModel
-from flowfusion_torch.ops.sde import VESDE
+from flowfusion_torch.ops.sde import VESDE, VPSDE
 
 
 @pytest.fixture
@@ -95,3 +97,76 @@ def test_cuda_wrapper_raises_instead_of_falling_back(cuda_device):
     params = init_score_mlp(cfg, torch.Generator().manual_seed(0), cuda_device)
     with pytest.raises(ValueError, match="float32"):
         fused_mlp.fused_drift(params, cfg, 0.4, torch.zeros(8, 2, device=cuda_device, dtype=torch.float64))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("noise_mode", ["streamed", "philox"])
+@pytest.mark.parametrize("activation,c", [("tanh", 0), ("relu", 0), ("gelu", 0), ("silu", 3)])
+def test_em_kernel_matches_plain_version(cuda_device, noise_mode, activation, c):
+    """Random nets of width 100 (D=3) and a conditional net (D=6, C=3)
+    under the VP-SDE with no_sigma, 1,001 rows (ragged), 40 steps."""
+    d = 6 if c else 3
+    cfg = ScoreMLPConfig(n_dimensions=d, n_conditionals=c, units=(100, 100, 100), activation=activation)
+    params = init_score_mlp(cfg, torch.Generator().manual_seed(4), cuda_device)
+    g = torch.Generator().manual_seed(5)
+    x0 = torch.randn(1001, d, generator=g).to(cuda_device)
+    cond = torch.randn(1001, c, generator=g).to(cuda_device) if c else None
+    steps, seed = 40, 2**33 + 5
+    noise = (torch.randn(steps, 1001, d, generator=g).to(cuda_device) if noise_mode == "streamed"
+             else em_sampler.philox_normals(seed, steps, 1001, d, cuda_device))
+    kw = dict(conditional=cond, steps=steps, no_sigma=True)
+    before = em_sampler.fused_em_sample.launches
+    if noise_mode == "streamed":
+        out = em_sampler.fused_em_sample(params, cfg, VPSDE(), x0, noise=noise, **kw)
+    else:
+        out = em_sampler.fused_em_sample(params, cfg, VPSDE(), x0, seed, **kw)
+    ref = em_sampler.fused_em_sample_reference(params, cfg, VPSDE(), x0, noise, **kw)
+    torch.cuda.synchronize()
+    assert em_sampler.fused_em_sample.launches == before + 1
+    torch.testing.assert_close(out[0], ref[0], rtol=2e-4, atol=1e-4)
+    torch.testing.assert_close(out[1], ref[1], rtol=2e-4, atol=1e-4)
+    assert bool(out[2]) == bool(ref[2]) is False
+
+
+@pytest.mark.gpu
+def test_em_kernel_nan_freezes_only_its_block(cuda_device):
+    cfg = ScoreMLPConfig(n_dimensions=2, units=(128, 128, 128))
+    params = init_score_mlp(cfg, torch.Generator().manual_seed(6), cuda_device)
+    rows = em_sampler.em_plan(128, 2, False)[0]
+    g = torch.Generator().manual_seed(7)
+    x0 = torch.randn(4 * rows + 5, 2, generator=g).to(cuda_device)
+    clean = torch.randn(20, x0.shape[0], 2, generator=g).to(cuda_device)
+    bad = clean.clone()
+    bad[7, 2 * rows + 3, 1] = float("nan")
+    run = lambda z: em_sampler.fused_em_sample(params, cfg, VESDE(), x0, noise=z, steps=20)  # noqa: E731
+    xm_c, x_c, div_c = run(clean)
+    xm_b, x_b, div_b = run(bad)
+    ref = em_sampler.fused_em_sample_reference(params, cfg, VESDE(), x0, bad, steps=20)
+    torch.cuda.synchronize()
+    assert not bool(div_c) and bool(div_b) and bool(ref[2])
+    block = slice(2 * rows, 3 * rows)
+    others = torch.ones(x0.shape[0], dtype=torch.bool, device=cuda_device)
+    others[block] = False
+    assert torch.equal(x_b[others], x_c[others]) and torch.equal(xm_b[others], xm_c[others])
+    assert torch.isfinite(x_b).all() and not torch.equal(x_b[block], x_c[block])
+    torch.testing.assert_close(x_b, ref[1], rtol=2e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["forward", "hutchinson", "exact"])
+def test_fused_velocity_matches_plain_version(cuda_device, mode):
+    cfg = VelocityMLPConfig(target_dimension=6, conditional_dimension=3, hidden_units=(128, 128))
+    params = init_velocity_mlp(cfg, torch.Generator().manual_seed(8), cuda_device)
+    g = torch.Generator().manual_seed(9)
+    x, cond, e = (torch.randn(2003, n, generator=g).to(cuda_device) for n in (6, 3, 6))
+    kw = {"e": torch.sign(e)} if mode == "hutchinson" else {"exact_divergence": mode == "exact"}
+    before = fused_mlp.fused_velocity.launches_by_mode[mode]
+    out = fused_mlp.fused_velocity(params, cfg, 0.3, x, cond, **kw)
+    ref = fused_mlp.fused_velocity_reference(params, cfg, 0.3, x, cond, **kw)
+    torch.cuda.synchronize()
+    assert fused_mlp.fused_velocity.launches_by_mode[mode] == before + 1
+    if mode == "forward":
+        out, ref = (out,), (ref,)
+    assert _rel(out[0], ref[0]) <= 1e-5
+    if mode != "forward":
+        assert _rel(out[1], ref[1]) <= 1e-4

@@ -110,8 +110,15 @@ def test_solver_refusals():
         odeint(f, y0, [0.0, 1.0], options={"beta": 0.04})
     with pytest.raises(ValueError, match="monotonic"):
         odeint(f, y0, [0.0, 1.0, 0.5])
-    for method, item in (("rk4", "item 8"), ("explicit_adams", "item 13"), ("tsit5", "item 13")):
+    for method, item in (("explicit_adams", "item 13"), ("tsit5", "item 13")):
         with pytest.raises(NotImplementedError, match=item):
             odeint(f, y0, [0.0, 1.0], method=method)
+    # the fixed-step methods run (tests/test_torch_fixed.py holds them
+    # against the JAX package); adaptive options are unknown to them
+    ys, st = odeint(f, y0, [0.0, 1.0], method="rk4", options={"steps": 10})
+    assert st is None and ys.shape == (2, 2)
+    np.testing.assert_allclose(ys[-1].numpy(), np.exp(-1.0), rtol=1e-5)
+    with pytest.raises(ValueError, match="unknown fixed-step options"):
+        odeint(f, y0, [0.0, 1.0], method="rk4", options={"min_step": 1e-3})
     with pytest.raises(ValueError, match="unknown method"):
         odeint(f, y0, [0.0, 1.0], method="nope")

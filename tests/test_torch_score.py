@@ -12,6 +12,8 @@
 * ``PopulationModelDiffusion.log_prob`` on the conditional checkpoint
   (256 rows, Hutchinson, pinned step size), with and without
   ``volume_corrected``: |dlogp| <= 1e-4.
+* Fixed-step ``log_prob`` (euler, rk4) against the JAX package's, and the
+  reverse-SDE samplers on the flagship weights.
 """
 
 import dataclasses
@@ -132,6 +134,45 @@ def test_conditional_population_log_prob_matches_jax(volume_corrected):
     assert err.mean() <= 1e-4 and err.max() <= 1e-4, (err.mean(), err.max())
 
 
+@pytest.mark.parametrize("method,steps", [("euler", 24), ("rk4", 6)])
+def test_flagship_fixed_step_log_prob_matches_jax(flagship, method, steps):
+    """The fixed-step solvers under ``log_prob`` (no min_step option for
+    them, as in the JAX package): the same float32 grid, so the densities
+    agree to float32 rounding of the RHS."""
+    jm, tm = flagship
+    jm = dataclasses.replace(jm, use_fused_kernel=False)
+    x = np.random.default_rng(3).standard_normal((256, 2)).astype(np.float32)
+    key = jax.random.PRNGKey(2)
+    opts = {"steps": steps}
+    jlp, jst = jax.jit(lambda m, xx: m.log_prob(xx, key=key, method=method, options=opts))(jm, jnp.asarray(x))
+    lp, st = tm.log_prob(torch.as_tensor(x), method=method, options=opts)
+    assert st is None and jst is None
+    err = np.abs(lp.numpy() - np.asarray(jlp))
+    assert err.mean() <= 1e-4 and err.max() <= 1e-3, (err.mean(), err.max())
+    # the default options of a fixed-step log_prob carry no min_step
+    lp1, _ = tm.log_prob(torch.as_tensor(x[:8]), method=method)
+    assert torch.isfinite(lp1).all()
+
+
+def test_flagship_reverse_sde_samplers(flagship):
+    """sample_sde, sample_pc and sample_sde_fused on the flagship weights
+    (CPU: the plain drift and the EM kernel's plain version) draw the same
+    distribution: first two moments within the on-card bars
+    (tests/test_tpu_numerics.py:137-138) at 3,000 rows."""
+    _, tm = flagship
+    g = lambda s: torch.Generator().manual_seed(s)  # noqa: E731
+    a = tm.sample_sde((3000, 2), steps=60, generator=g(0))
+    b = tm.sample_sde_fused((3000, 2), steps=60, generator=g(1))
+    c = tm.sample_pc((3000, 2), steps=60, corrector_steps=1, generator=g(2))
+    for res in (a, b, c):
+        assert res.x_mean.shape == (3000, 2) and not bool(res.nan_encountered)
+        assert float((res.x_mean.mean(0) - a.x_mean.mean(0)).abs().max()) <= 0.08
+        assert float((torch.cov(res.x_mean.T) - torch.cov(a.x_mean.T)).abs().max()) <= 0.12
+    # the same generator seed draws the same samples
+    torch.testing.assert_close(tm.sample_sde((64, 2), steps=5, generator=g(3)).x,
+                               tm.sample_sde((64, 2), steps=5, generator=g(3)).x, rtol=0, atol=0)
+
+
 def test_entry_points_without_device_raise_when_no_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -159,10 +200,12 @@ def test_refusals_name_their_roadmap_item(flagship):
         tm.log_prob(x, adjoint=True)
     with pytest.raises(NotImplementedError, match="item 13"):
         tm.sample_ode_from_base(x, adjoint=True)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tm.log_prob(x, method="euler", options={})
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tm.sample_sde()
+    with pytest.raises(NotImplementedError, match="item 13"):
+        tm.sample_dpm(x)
+    with pytest.raises(NotImplementedError, match="item 14"):
+        tm.sample_sde((4, 2), steps=2, progress=True)
+    with pytest.raises(NotImplementedError, match="queue 2"):
+        tm.sample_sde_fused((4, 2), steps=2, compute_dtype="bfloat16")
     with pytest.raises(NotImplementedError, match="item 9"):
         tm.loss_fn()
     with pytest.raises(NotImplementedError, match="item 13"):
