@@ -20,6 +20,13 @@ non-zero without the final line):
         a NaN injected into one row freezes its block only;
      c. fused_velocity: the flow checkpoint at 50,000 rows and a
         conditional random velocity net;
+     d. the tangents mode (K = 3: flagship, conditional H=256, flow), the
+        one-launch Hutch++/XTrace kernel (flagship at 50,000 and 50,001
+        rows, the conditional H=128 and H=256 and flow checkpoints, c0 = 0
+        and c0 != 0, exactly parallel sketch rows; full-rank D = 6 sketches
+        reported ungated) and the symplectic velocity (checkpoint, random
+        conditional net); then the two-launch path, ops.trace's sketch
+        algebra over the tangents kernel, against the one-launch kernel;
   2. the likelihood path, flagship model (benchmarks/flagship_ckpt.npz):
      the exact-trace ``log_prob`` at its defaults against the analytic
      mixture density; Hutchinson at rtol 1e-5 with the PI controller through
@@ -35,9 +42,18 @@ non-zero without the final line):
      mixture; ``sample_pc``; the conditional population's ``sample_sde``;
   6. the flow path (benchmarks/flow_ckpt.npz): exact density against the
      analytic mixture, Hutchinson and ``sample`` kernel against plain;
-  7. a ``kernels`` line: launches on the main paths (each path run with
-     the counts set to 0 just before it: phases 2-4, 5 and 6), times,
-     bounds and plain times.
+  8. the sketch likelihood path: flagship ``log_prob`` with Hutch++ (r = 2,
+     m = 1) and XTrace (m = 2) at rtol 1e-5 PI, kernel against plain on the
+     card with the same probes, rows/s and a device-time profile; the
+     Hutch++ (r = D) flagship density against the mixture; ``ODEFlow``
+     with XTrace, kernel against plain;
+  9. the symplectic path (benchmarks/symplectic_ckpt.npz): ``log_prob`` at
+     rtol 1e-5 PI with K = 1 and 4 momentum draws and ``sample`` by 1 and 8
+     Euler steps, kernel against plain; leapfrog; rows/s (profiled),
+     samples/s and the energy distance of one-step samples to the mixture;
+  7. a ``kernels`` line, printed last: launches on the main paths (each
+     path run with the counts set to 0 just before it: phases 2-4, 5, 6,
+     the two-launch path of 1d, 8 and 9), times, bounds and plain times.
 
 The last line is ``{"ok": true, "device": {...}}``.  Exits with 2 and no
 result when no CUDA card is visible.
@@ -63,6 +79,13 @@ PEAK_BYTES = 3.35e12
 REPLACES = "flowfusion_tpu/kernels/fused_mlp.py:475"
 REPLACES_EM = "flowfusion_tpu/kernels/em_sampler.py:105"
 REPLACES_VELOCITY = "flowfusion_tpu/kernels/fused_mlp.py:1353"
+REPLACES_NEW = {
+    "fused_drift_tangents": "flowfusion_tpu/kernels/fused_mlp.py:1020",
+    "fused_velocity_tangents": "flowfusion_tpu/kernels/fused_mlp.py:1148",
+    "fused_drift_sketch": "flowfusion_tpu/kernels/fused_mlp.py:1060",
+    "fused_velocity_sketch": "flowfusion_tpu/kernels/fused_mlp.py:1112",
+    "fused_symplectic_velocity": "flowfusion_tpu/kernels/fused_mlp.py:1182",
+}
 EM_STEPS = 100
 
 
@@ -86,17 +109,22 @@ def main() -> int:
         print("chip_smoke: no CUDA card visible; nothing was run", file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
-    from flowfusion_torch.kernels import _build, em_sampler, fused_mlp
+    from flowfusion_torch.kernels import _build, em_sampler, fused_mlp, fused_sketch
     from flowfusion_torch.kernels.em_sampler import fused_em_sample, fused_em_sample_reference
     from flowfusion_torch.kernels.fused_mlp import (
-        fused_drift, fused_drift_reference, fused_velocity, fused_velocity_reference,
+        fused_drift, fused_drift_reference, fused_drift_tangents, fused_symplectic_velocity,
+        fused_velocity, fused_velocity_reference, fused_velocity_tangents,
     )
+    from flowfusion_torch.kernels.fused_sketch import fused_drift_sketch, fused_velocity_sketch
     from flowfusion_torch.models.flow import ODEFlow
     from flowfusion_torch.models.nets import (
-        ScoreMLPConfig, VelocityMLPConfig, init_score_mlp, init_velocity_mlp,
+        ScoreMLPConfig, SymplecticMLPConfig, VelocityMLPConfig, fourier_time_embedding, init_score_mlp,
+        init_symplectic_mlp, init_velocity_mlp,
     )
     from flowfusion_torch.models.population import PopulationModelDiffusion
     from flowfusion_torch.models.score import ScoreModel
+    from flowfusion_torch.models.symplectic import SymplecticFlowModel
+    from flowfusion_torch.ops import trace as trace_ops
     from flowfusion_torch.ops.sde import VESDE, VPSDE
     from flowfusion_torch.utils.checkpoint import load_npz, read_npz_extra
     from flowfusion_torch.utils.convert import params_from_numpy
@@ -345,14 +373,294 @@ def main() -> int:
 
     def reset_counts():
         fused_mlp.reset_launch_counts()
+        fused_sketch.reset_launch_counts()
         em_sampler.reset_launch_counts()
 
     def read_counts():
         return {
-            **{f"fused_drift[{m}]": n for m, n in fused_drift.launches_by_mode.items()},
+            **{f"fused_drift[{m}]": n for m, n in fused_drift.launches_by_mode.items()
+               if m != "tangents"},
             "fused_em_sample[float32]": fused_em_sample.launches,
-            **{f"fused_velocity[{m}]": n for m, n in fused_velocity.launches_by_mode.items()},
+            **{f"fused_velocity[{m}]": n for m, n in fused_velocity.launches_by_mode.items()
+               if m != "tangents"},
+            "fused_drift_tangents": fused_drift_tangents.launches,
+            "fused_velocity_tangents": fused_velocity_tangents.launches,
+            **{f"fused_drift_sketch[{m}]": n for m, n in fused_drift_sketch.launches_by_mode.items()},
+            **{f"fused_velocity_sketch[{m}]": n for m, n in fused_velocity_sketch.launches_by_mode.items()},
+            "fused_symplectic_velocity": fused_symplectic_velocity.launches,
         }
+
+    # -- phase 1d: tangents, sketch and symplectic kernels against their plain
+    # versions, and the two-launch sketch cross-check --------------------------
+    cond_nets = {}
+    for name, units in (("conditional_ckpt.npz", 128), ("conditional_ckpt_h256.npz", 256)):
+        tree = load_npz(os.path.join(BENCH, name))
+        cond_nets[name] = (params_from_numpy(tree["score_model"]["params"], dev),
+                           ScoreMLPConfig(n_dimensions=6, n_conditionals=3, units=(units,) * 3))
+
+    def rademacher(g, *shape):
+        return torch.sign(torch.randn(*shape, generator=g)).to(dev)
+
+    def sphere(g, m, B, D):
+        u = torch.randn(m, B, D, generator=g)
+        return (u / u.norm(dim=-1, keepdim=True) * D**0.5).to(dev)
+
+    def sketch_probes(g, mode, B, D, r, m):
+        return (rademacher(g, r, B, D), rademacher(g, m, B, D)) if mode == "hutchpp" else (sphere(g, m, B, D),)
+
+    # tangents, K = 3: flagship at 50,000 and 50,001 rows, conditional H=256,
+    # and the velocity form on the flow checkpoint
+    tan_err = {}
+    tan_cases = [("fused_drift_tangents", "flagship", flag_params, flag_cfg, 50_000),
+                 ("fused_drift_tangents", "flagship", flag_params, flag_cfg, 50_001),
+                 ("fused_drift_tangents", "conditional_ckpt_h256.npz", *cond_nets["conditional_ckpt_h256.npz"], 50_000),
+                 ("fused_velocity_tangents", "flow_ckpt.npz", flow_params, flow_cfg, 50_000)]
+    for entry_name, name, params, cfg, B in tan_cases:
+        velocity = entry_name == "fused_velocity_tangents"
+        D = cfg.target_dimension if velocity else cfg.n_dimensions
+        C = cfg.conditional_dimension if velocity else cfg.n_conditionals
+        g = gen(B + 7)
+        x = torch.randn(B, D, generator=g).to(dev)
+        c = torch.randn(B, C, generator=g).to(dev) if C else None
+        V = torch.randn(3, B, D, generator=g).to(dev)
+        t = torch.tensor(0.37, device=dev)
+        if velocity:
+            out = fused_velocity_tangents(params, cfg, t, x, V, c)
+            ref = fused_mlp.fused_velocity_tangents_reference(params, cfg, t, x, V, c)
+        else:
+            out = fused_drift_tangents(params, cfg, t, x, V, c, c0=-0.3, c1=0.7)
+            ref = fused_mlp.fused_drift_tangents_reference(params, cfg, t, x, V, c, c0=-0.3, c1=0.7)
+        torch.cuda.synchronize()
+        pairs = list(zip([out[0]] + out[1], [ref[0]] + ref[1]))
+        rels = [rel_err(o, r) for o, r in pairs]
+        check(max(rels) <= 1e-5, f"{entry_name} {name} B={B}: deviates {max(rels):.2e} > 1e-5")
+        abs_err = max(float((o - r).abs().max()) for o, r in pairs)
+        tan_err[entry_name] = max(tan_err.get(entry_name, 0.0), abs_err)
+        emit("tangents_vs_plain", entry=entry_name, net=name, rows=B, K=3, drift_rel=rels[0],
+             columns_rel=max(rels[1:]), max_abs_err=abs_err)
+
+    # the sketch RHS as the solves call it: data rows (standardized) and the
+    # SDE's own (c0, c1) at t = 0.37: VESDE (c0 = 0) for the flagship, VPSDE
+    # (c0 != 0) for the conditional checkpoints, (0, 1) for the flow
+    t37 = torch.tensor(0.37, device=dev)
+    flag_extra = read_npz_extra(flag_path)
+    flag_std = [torch.tensor(flag_extra[k], device=dev) for k in ("shift", "scale")]
+    flow_std = params_from_numpy([load_npz(flow_path)[k] for k in ("target_shift", "target_scale")], dev)
+    cond_std = {name: params_from_numpy([load_npz(os.path.join(BENCH, name))[k] for k in
+                                         ("shift", "scale", "conditional_shift", "conditional_scale")], dev)
+                for name in cond_nets}
+
+    def rhs_inputs(name, B, g):
+        """(x, conditional, c0, c1) of the real RHS on B data rows."""
+        if name.startswith("flagship"):
+            x = (DEMO_GMM.sample(g, B, device=dev) - flag_std[0]) / flag_std[1]
+            return (x, None, *ScoreModel(flag_params, flag_cfg, VESDE())._fused_coeffs(t37))
+        if name.startswith("flow"):
+            return (REFERENCE_GMM.sample(g, B, device=dev) - flow_std[0]) / flow_std[1], None, 0.0, 1.0
+        sh, sc, csh, csc = cond_std[name]
+        theta, c = CONDITIONAL_POP.sample(g, B, device=dev)
+        coeffs = ScoreModel(*cond_nets[name], VPSDE(), no_sigma=True)._fused_coeffs(t37)
+        return ((theta - sh) / sc, (c - csh) / csc, *coeffs)
+
+    # both modes on the flagship (r = 2, m = 1 | m = 2) at 50,000 and 50,001
+    # rows and with exactly parallel sketch rows, the conditional checkpoints
+    # (D = 6: r = m = 3 | m = 3) and the flow checkpoint's velocity
+    sketch_err = {}
+    sketch_cases = [("fused_drift_sketch", "flagship", flag_params, flag_cfg, B, mode, k)
+                    for B in (50_000, 50_001) for mode, k in (("hutchpp", (2, 1)), ("xtrace", (0, 2)))]
+    sketch_cases.append(("fused_drift_sketch", "flagship_parallel_sketch", flag_params, flag_cfg, 50_000,
+                         "hutchpp", (2, 1)))
+    sketch_cases += [("fused_drift_sketch", name, params, cfg, 50_000, mode, k)
+                     for name, (params, cfg) in cond_nets.items()
+                     for mode, k in (("hutchpp", (3, 3)), ("xtrace", (0, 3)))]
+    sketch_cases += [("fused_velocity_sketch", "flow_ckpt.npz", flow_params, flow_cfg, 50_000, mode, k)
+                     for mode, k in (("hutchpp", (2, 1)), ("xtrace", (0, 2)))]
+    for entry_name, name, params, cfg, B, mode, (r, m) in sketch_cases:
+        velocity = entry_name == "fused_velocity_sketch"
+        D = cfg.target_dimension if velocity else cfg.n_dimensions
+        g = gen(B + 11)
+        x, c, c0, c1 = rhs_inputs(name, B, g)
+        probes = sketch_probes(g, mode, B, D, r, m)
+        if name == "flagship_parallel_sketch":
+            probes[0][1] = probes[0][0]  # every row's sketch is rank one
+        if velocity:
+            out = fused_velocity_sketch(params, cfg, t37, x, probes, mode, c)
+            ref = fused_sketch.fused_velocity_sketch_reference(params, cfg, t37, x, probes, mode, c)
+        else:
+            out = fused_drift_sketch(params, cfg, t37, x, probes, mode, c, c0=c0, c1=c1)
+            ref = fused_sketch.fused_drift_sketch_reference(params, cfg, t37, x, probes, mode, c, c0=c0, c1=c1)
+        torch.cuda.synchronize()
+        d_drift = rel_err(out[0], ref[0])
+        d_div = float((out[1] - ref[1]).abs().max())
+        check(bool(torch.isfinite(out[1]).all()), f"{entry_name} {name} {mode}: non-finite divergence")
+        check(d_drift <= 1e-5, f"{entry_name} {name} B={B} {mode}: drift deviates {d_drift:.2e} > 1e-5")
+        check(d_div <= 2e-4, f"{entry_name} {name} B={B} {mode}: div deviates {d_div:.2e} > 2e-4")
+        key = f"{entry_name}[{mode}]"
+        sketch_err[key] = max(sketch_err.get(key, 0.0), d_div, float((out[0] - ref[0]).abs().max()))
+        emit("sketch_vs_plain", entry=entry_name, net=name, rows=B, mode=mode, r=r, m=m, c0=float(c0),
+             c1=float(c1), drift_rel=d_drift, div_max_abs=d_div,
+             div_mean_abs=float((out[1] - ref[1]).abs().mean()), div_scale=float(ref[1].abs().max()),
+             worst_row=int((out[1] - ref[1]).abs().argmax()))
+
+    # reported, not gated: the flagship at c0 = -0.4 (an A = c0 I + c1 J that
+    # is near-singular on some rows, where single-pass float32 Gram--Schmidt
+    # loses orthogonality in both versions), and full-rank sketches at D = 6
+    # (Rademacher sketches there are often exactly rank-deficient beyond
+    # parallel pairs; XTrace at m = D sees the conditioning of Y = A O).
+    # Hutch++ with r = D equals the exact trace in exact arithmetic, so both
+    # versions are held against the exact-trace kernel's plain version too.
+    def reported(name, params, cfg, x, c, c0, c1, mode, r, m):
+        g = gen(61_000 + r + m)
+        probes = sketch_probes(g, mode, x.shape[0], x.shape[1], r, m)
+        out = fused_drift_sketch(params, cfg, t37, x, probes, mode, c, c0=c0, c1=c1)
+        ref = fused_sketch.fused_drift_sketch_reference(params, cfg, t37, x, probes, mode, c, c0=c0, c1=c1)
+        fields = dict(kernel_vs_plain_max_abs=float((out[1] - ref[1]).abs().max()),
+                      kernel_vs_plain_mean_abs=float((out[1] - ref[1]).abs().mean()),
+                      rows_over_2e4=int(((out[1] - ref[1]).abs() > 2e-4).sum()))
+        if mode == "hutchpp" and r == x.shape[1]:
+            _, exact = fused_drift_reference(params, cfg, t37, x, c, exact_divergence=True, c0=c0, c1=c1)
+            fields.update(kernel_vs_exact_max_abs=float((out[1] - exact).abs().max()),
+                          plain_vs_exact_max_abs=float((ref[1] - exact).abs().max()),
+                          plain_rows_off_exact_1e3=int(((ref[1] - exact).abs() > 1e-3).sum()))
+        emit("sketch_reported_ungated", net=name, rows=x.shape[0], mode=mode, r=r, m=m, c0=float(c0),
+             c1=float(c1), **fields)
+
+    x, _, _, c1 = rhs_inputs("flagship", 50_000, gen(61_000))
+    reported("flagship", flag_params, flag_cfg, x, None, -0.4, c1, "hutchpp", 2, 1)
+    x, c, c0, c1 = rhs_inputs("conditional_ckpt.npz", 50_000, gen(61_001))
+    for mode, (r, m) in (("hutchpp", (6, 2)), ("xtrace", (0, 6))):
+        reported("conditional_ckpt.npz", *cond_nets["conditional_ckpt.npz"], x, c, c0, c1, mode, r, m)
+
+    # symplectic: the checkpoint at 50,000 and 50,001 rows, a small random
+    # conditional net
+    sym_model, sym_extra = SymplecticFlowModel.from_npz(os.path.join(BENCH, "symplectic_ckpt.npz"), device=dev)
+    scfg = SymplecticMLPConfig(n_data_dims=2, n_conditionals=3, units=(100, 100))
+    sym_nets = [("symplectic_ckpt.npz", sym_model.params, sym_model.net, 50_000),
+                ("symplectic_ckpt.npz", sym_model.params, sym_model.net, 50_001),
+                ("random_conditional", init_symplectic_mlp(scfg, gen(43), dev), scfg, 4_099)]
+    sym_err = 0.0
+    for name, params, cfg, B in sym_nets:
+        g = gen(B + 13)
+        s = torch.randn(B, 4, generator=g).to(dev)
+        c = torch.randn(B, cfg.n_conditionals, generator=g).to(dev) if cfg.n_conditionals else None
+        t = torch.tensor(0.43, device=dev)
+        out = fused_symplectic_velocity(params, cfg, t, s, c)
+        ref = fused_mlp.fused_symplectic_velocity_reference(params, cfg, t, s, c)
+        torch.cuda.synchronize()
+        d = rel_err(out, ref)
+        check(d <= 1e-5, f"symplectic {name} B={B}: deviates {d:.2e} > 1e-5")
+        if name == "symplectic_ckpt.npz":
+            sym_err = max(sym_err, float((out - ref).abs().max()))
+        emit("symplectic_vs_plain", net=name, rows=B, rel=d, max_abs_err=float((out - ref).abs().max()))
+
+    # the two-launch path: ops.trace's sketch algebra on the card, its
+    # operator the tangents kernel, against the one-launch sketch kernel;
+    # the tangents entries' launches are counted on this path
+    reset_counts()
+    for entry_name, name, params, cfg, mode, (r, m) in (
+        ("drift", "flagship", flag_params, flag_cfg, "hutchpp", (2, 1)),
+        ("drift", "flagship", flag_params, flag_cfg, "xtrace", (0, 2)),
+        ("drift", "conditional_ckpt_h256.npz", *cond_nets["conditional_ckpt_h256.npz"], "hutchpp", (3, 3)),
+        ("drift", "conditional_ckpt_h256.npz", *cond_nets["conditional_ckpt_h256.npz"], "xtrace", (0, 3)),
+        ("velocity", "flow_ckpt.npz", flow_params, flow_cfg, "xtrace", (0, 2)),
+    ):
+        velocity = entry_name == "velocity"
+        D = cfg.target_dimension if velocity else cfg.n_dimensions
+        g = gen(71 + D + r + m)
+        x, c, c0, c1 = rhs_inputs(name, 50_000, g)
+        probes = sketch_probes(g, mode, 50_000, D, r, m)
+        if velocity:
+            def apply_cols(cols):
+                return fused_velocity_tangents(params, cfg, t37, x, cols, c)[1]
+            one = fused_velocity_sketch(params, cfg, t37, x, probes, mode, c)[1]
+        else:
+            def apply_cols(cols):
+                return fused_drift_tangents(params, cfg, t37, x, cols, c, c0=c0, c1=c1)[1]
+            one = fused_drift_sketch(params, cfg, t37, x, probes, mode, c, c0=c0, c1=c1)[1]
+        cols = [[p[i].T for i in range(p.shape[0])] for p in probes]
+        two = trace_ops.hutchpp_core(apply_cols, *cols) if mode == "hutchpp" else trace_ops.xtrace_core(apply_cols, *cols)
+        torch.cuda.synchronize()
+        d_div = float((two - one).abs().max())
+        check(d_div <= 2e-4, f"two-launch {mode} {name}: differs from the one-launch kernel by {d_div:.2e} > 2e-4")
+        emit("sketch_two_launch_crosscheck", net=name, mode=mode, r=r, m=m, rows=50_000, div_max_abs=d_div)
+    crosscheck_counts = read_counts()
+    for key in ("fused_drift_tangents", "fused_velocity_tangents"):
+        check(crosscheck_counts[key] > 0, f"{key} was never launched on the two-launch path")
+    emit("crosscheck_path_launches", **crosscheck_counts)
+
+    # times at the main paths' shapes (50,000 rows, t = 0.5), CUDA-event
+    # medians: the kernel launch alone, on operands prepared as the wrappers
+    # prepare them (phase 7's rule; a symplectic call is its two launches),
+    # and the plain version's whole call
+    B = 50_000
+    t = torch.tensor(0.5, device=dev)
+    x2 = torch.randn(B, 2, generator=gen(91)).to(dev)
+    V = torch.randn(3, B, 2, generator=gen(92)).to(dev)
+    SG = torch.cat([rademacher(gen(93), 2, B, 2), rademacher(gen(94), 1, B, 2)])
+    (O,) = sketch_probes(gen(95), "xtrace", B, 2, 0, 2)
+    e_tan = V.permute(1, 0, 2).reshape(B, 6).contiguous()
+    c_flag = torch.tensor([0.0, -1.3], device=dev)
+    c_flow = torch.tensor([0.0, 1.0], device=dev)
+    w_in_f, b_eff_f = fused_mlp._score_first_layer(flag_params, flag_cfg, t, None)
+    w_in_fl, b_eff_fl = fused_mlp._velocity_first_layer(flow_params, flow_cfg, t, None)
+    w_in_fl = w_in_fl.contiguous()
+    temb = fourier_time_embedding(t[None], sym_model.params["W"])[0]
+    sym_ops = []
+    for stack, sign in (("q_layers", 1.0), ("p_layers", -1.0)):
+        layers = sym_model.params[stack]
+        w1 = layers[0]["w"]
+        sym_ops.append((w1[:2], layers[0]["b"] + temb @ w1[2:], layers, torch.tensor([0.0, sign], device=dev)))
+    state = torch.cat([x2, x2], 1)
+
+    def sketch_launch(probes, mode, n_s, n_g, w_in, b_eff, layers, c0c1, counter):
+        plan = fused_sketch.sketch_plan(mode, 128, len(layers) - 1, 2, 2, n_s, n_g)
+        return lambda: fused_sketch._launch(x2, probes, w_in, b_eff, layers, c0c1, mode, 2, n_s, n_g, "silu",
+                                            plan, counter)
+
+    def sym_call():
+        for w_in, b_eff, layers, c0c1 in sym_ops:
+            fused_mlp._launch(x2, None, w_in, b_eff, layers, c0c1, "forward", 2, "silu",
+                              counter=fused_symplectic_velocity)
+
+    w_bytes = {"flag": weight_bytes(flag_params["layers"]) + 4 * flag_params["W"].numel(),
+               "flow": weight_bytes(flow_params["layers"]),
+               "sym": weight_bytes(sym_model.params["q_layers"] + sym_model.params["p_layers"])}
+    new_timing = {}
+    # (name, kernel launch, plain call, flops, bytes): bytes = x, probes and
+    # outputs once, and the weights
+    for name, call, plain_call, flops, nbytes in (
+        ("fused_drift_tangents",
+         lambda: fused_mlp._launch(x2, e_tan, w_in_f, b_eff_f, flag_params["layers"], c_flag, "tangents", 2,
+                                   "silu", counter=fused_drift_tangents, n_tan=3),
+         lambda: fused_mlp.fused_drift_tangents_reference(flag_params, flag_cfg, t, x2, V, c0=0.0, c1=-1.3),
+         fused_mlp.flops_per_row(2, 2, 128, 4, "tangents", 3) * B, 4 * B * (2 + 6 + 2 + 6) + w_bytes["flag"]),
+        ("fused_velocity_tangents",
+         lambda: fused_mlp._launch(x2, e_tan, w_in_fl, b_eff_fl, flow_params["layers"], c_flow, "tangents", 2,
+                                   "silu", counter=fused_velocity_tangents, n_tan=3),
+         lambda: fused_mlp.fused_velocity_tangents_reference(flow_params, flow_cfg, t, x2, V),
+         fused_mlp.flops_per_row(2, 2, 128, 3, "tangents", 3) * B, 4 * B * (2 + 6 + 2 + 6) + w_bytes["flow"]),
+        ("fused_drift_sketch[hutchpp]",
+         sketch_launch(SG, "hutchpp", 2, 1, w_in_f, b_eff_f, flag_params["layers"], c_flag, fused_drift_sketch),
+         lambda: fused_sketch.fused_drift_sketch_reference(flag_params, flag_cfg, t, x2, (SG[:2], SG[2:]),
+                                                           "hutchpp", c0=0.0, c1=-1.3),
+         fused_mlp.flops_per_row(2, 2, 128, 4, "hutchpp", 2, 1) * B, 4 * B * (2 + 6 + 2 + 1) + w_bytes["flag"]),
+        ("fused_drift_sketch[xtrace]",
+         sketch_launch(O, "xtrace", 2, 0, w_in_f, b_eff_f, flag_params["layers"], c_flag, fused_drift_sketch),
+         lambda: fused_sketch.fused_drift_sketch_reference(flag_params, flag_cfg, t, x2, (O,), "xtrace",
+                                                           c0=0.0, c1=-1.3),
+         fused_mlp.flops_per_row(2, 2, 128, 4, "xtrace", 2) * B, 4 * B * (2 + 4 + 2 + 1) + w_bytes["flag"]),
+        ("fused_velocity_sketch[xtrace]",
+         sketch_launch(O, "xtrace", 2, 0, w_in_fl, b_eff_fl, flow_params["layers"], c_flow, fused_velocity_sketch),
+         lambda: fused_sketch.fused_velocity_sketch_reference(flow_params, flow_cfg, t, x2, (O,), "xtrace"),
+         fused_mlp.flops_per_row(2, 2, 128, 3, "xtrace", 2) * B, 4 * B * (2 + 4 + 2 + 1) + w_bytes["flow"]),
+        ("fused_symplectic_velocity", sym_call,
+         lambda: fused_mlp.fused_symplectic_velocity_reference(sym_model.params, sym_model.net, t, state),
+         2 * fused_mlp.flops_per_row(2, 2, 128, 3, "forward") * B, 4 * B * (4 + 4) + w_bytes["sym"]),
+    ):
+        ms = median_ms(call, n=15)
+        plain_ms = median_ms(plain_call, n=5, warmup=1)
+        new_timing[name] = dict(ms=ms, plain_ms=plain_ms, **bound(flops, nbytes))
+        emit("new_kernel_time", entry=name, rows=B, card=smi, **new_timing[name], flops=flops, bytes=nbytes)
 
     def timed(fn, count):
         """(fn(), launches it made by ``count``, seconds to its end on the card)."""
@@ -617,8 +925,137 @@ def main() -> int:
         check(flow_counts[f"fused_velocity[{mode}]"] > 0, f"fused_velocity[{mode}] was never launched")
     emit("flow_path_launches", **flow_counts)
 
+    # -- phase 8: the sketch likelihood path, launches counted from zero -----
+    def sketch_launches():
+        return fused_drift_sketch.launches + fused_velocity_sketch.launches
+
+    reset_counts()
+    sketch_rates = {}
+    for mode, kw in (("hutchpp", dict(hpp_rank=2, hpp_vecs=1)), ("xtrace", dict(xt_vecs=2))):
+        sk = ScoreModel(flag_params, flag_cfg, VESDE(), trace_mode=mode, **kw)
+        xs = (DEMO_GMM.sample(gen(200), 50_000, device=dev) - shift) / scale
+        probes = trace_ops.make_probes(mode, gen(201), xs, **kw)
+
+        def sketch_solve(m, xx=xs, pr=probes):
+            return m.log_prob(xx, probes=pr, atol=1e-5, rtol=1e-5, options=opts)
+
+        (lp_k, st_k), n_k, secs_k = timed(lambda: sketch_solve(sk), sketch_launches)
+        (lp_p, st_p), n_p, secs_p = timed(
+            lambda: sketch_solve(dataclasses.replace(sk, use_fused_kernel=False)), sketch_launches)
+        check(n_k == st_k.n_func_evals and n_p == 0, f"{mode} solve: {n_k} launches != nfe {st_k.n_func_evals}")
+        check(st_k.n_func_evals == st_p.n_func_evals,
+              f"{mode} NFE differ: kernel {st_k.n_func_evals} plain {st_p.n_func_evals}")
+        check(bool(torch.isfinite(lp_k).all()), f"{mode} solve: non-finite densities")
+        dlp = float((lp_k - lp_p).abs().mean())
+        check(dlp <= 1e-4, f"{mode} kernel vs plain mean |dlogp| {dlp:.2e} > 1e-4")
+        secs_all = [timed(lambda: sketch_solve(sk), lambda: 0)[2] for _ in range(5)]
+        sketch_rates[mode] = statistics.median(secs_all)
+        _, prof_stats = profiled(lambda: sketch_solve(sk), "fused_sketch", sketch_rates[mode])
+        emit("sketch_log_prob_parity", mode=mode, **kw, rows=50_000, nfe=st_k.n_func_evals,
+             nfe_plain=st_p.n_func_evals, mean_abs_dlogp=dlp, max_abs_dlogp=float((lp_k - lp_p).abs().max()),
+             launches=n_k, seconds_kernel_first=secs_k, seconds_plain=secs_p,
+             seconds_median=sketch_rates[mode], seconds_min=min(secs_all), seconds_max=max(secs_all),
+             rows_per_s=50_000 / sketch_rates[mode], card=smi,
+             profile=prof_stats or "not measured: the profiler saw no CUDA time")
+
+    # Hutch++ with r = D = 2 is the exact trace: the flagship density gate at
+    # the log_prob defaults
+    hpp = ScoreModel(flag_params, flag_cfg, VESDE(), trace_mode="hutchpp", hpp_rank=2, hpp_vecs=1)
+    x_raw = DEMO_GMM.sample(gen(99), 25_000, device=dev)
+    (lp, st), n, secs = timed(lambda: hpp.log_prob((x_raw - shift) / scale, generator=gen(202)), sketch_launches)
+    check(n == st.n_func_evals and st.succeeded, f"hutchpp density solve: {n} launches != nfe {st.n_func_evals}")
+    total = float((lp - torch.log(scale).sum()).double().sum())
+    truth = float(DEMO_GMM.log_prob(x_raw.double()).sum())
+    rel = abs(total - truth) / abs(truth)
+    check(rel <= 3e-3, f"flagship hutchpp density error {rel:.3e} > 3e-3")
+    emit("flagship_hutchpp_density", rows=25_000, hpp_rank=2, hpp_vecs=1, density_rel_error=rel,
+         nfe=st.n_func_evals, launches=n, seconds=secs)
+
+    # the flow family on the one-launch velocity sketch, XTrace
+    xflow = dataclasses.replace(flow, trace_mode="xtrace", xt_vecs=2)
+    xs = REFERENCE_GMM.sample(gen(203), 50_000, device=dev)
+    probes = trace_ops.make_probes("xtrace", gen(204), (xs - flow.target_shift) / flow.target_scale, xt_vecs=2)
+    (lp_k, st_k), n_k, secs_k = timed(
+        lambda: xflow.log_prob(xs, probes=probes, options=opts), sketch_launches)
+    (lp_p, st_p), n_p, secs_p = timed(
+        lambda: dataclasses.replace(xflow, use_fused_kernel=False).log_prob(xs, probes=probes, options=opts),
+        sketch_launches)
+    check(n_k == st_k.n_func_evals and n_p == 0, f"flow xtrace: {n_k} launches != nfe {st_k.n_func_evals}")
+    check(st_k.n_func_evals == st_p.n_func_evals,
+          f"flow xtrace NFE differ: kernel {st_k.n_func_evals} plain {st_p.n_func_evals}")
+    dlp = float((lp_k - lp_p).abs().mean())
+    check(dlp <= 1e-4, f"flow xtrace kernel vs plain mean |dlogp| {dlp:.2e} > 1e-4")
+    emit("flow_xtrace_parity", rows=50_000, xt_vecs=2, nfe=st_k.n_func_evals, nfe_plain=st_p.n_func_evals,
+         mean_abs_dlogp=dlp, launches=n_k, seconds_kernel=secs_k, seconds_plain=secs_p)
+    sketch_counts = read_counts()
+    for key in ("fused_drift_sketch[hutchpp]", "fused_drift_sketch[xtrace]", "fused_velocity_sketch[xtrace]"):
+        check(sketch_counts[key] > 0, f"{key} was never launched on the sketch likelihood path")
+    emit("sketch_path_launches", **sketch_counts)
+
+    # -- phase 9: the symplectic path, launches counted from zero ------------
+    def sym_launches():
+        return fused_symplectic_velocity.launches
+
+    N = 50_000
+    sym_plain = dataclasses.replace(sym_model, use_fused_kernel=False)
+    xs = DEMO_GMM.sample(gen(300), N, device=dev)
+    base = torch.randn(N, 4, generator=cuda_gen(310), device=dev)
+    reset_counts()
+    for K in (1, 4):
+        p0 = torch.randn(K * N, 2, generator=cuda_gen(301 + K), device=dev)
+
+        def sym_solve(m, p0=p0, K=K):
+            return m.log_prob(xs, momentum=p0, n_momentum_samples=K, options=opts)
+
+        (lp_k, st_k), n_k, secs_k = timed(lambda: sym_solve(sym_model), sym_launches)
+        (lp_p, st_p), n_p, secs_p = timed(lambda: sym_solve(sym_plain), sym_launches)
+        check(n_k == 2 * st_k.n_func_evals and n_p == 0,
+              f"symplectic K={K}: {n_k} launches != 2 x nfe {st_k.n_func_evals}")
+        check(st_k.n_func_evals == st_p.n_func_evals,
+              f"symplectic K={K} NFE differ: kernel {st_k.n_func_evals} plain {st_p.n_func_evals}")
+        check(bool(torch.isfinite(lp_k).all()), f"symplectic K={K}: non-finite densities")
+        dlp = float((lp_k - lp_p).abs().mean())
+        check(dlp <= 1e-4, f"symplectic K={K} kernel vs plain mean |dlogp| {dlp:.2e} > 1e-4")
+        fields = {}
+        if K == 1:
+            secs_all = [timed(lambda: sym_solve(sym_model), lambda: 0)[2] for _ in range(5)]
+            sym_solve_s = statistics.median(secs_all)
+            _, prof_stats = profiled(lambda: sym_solve(sym_model), "fused_mlp", sym_solve_s)
+            fields = dict(seconds_median=sym_solve_s, seconds_min=min(secs_all), seconds_max=max(secs_all),
+                          rows_per_s=N / sym_solve_s, card=smi,
+                          profile=prof_stats or "not measured: the profiler saw no CUDA time")
+        emit("symplectic_log_prob_parity", K=K, rows=N, nfe=st_k.n_func_evals, nfe_plain=st_p.n_func_evals,
+             mean_abs_dlogp=dlp, launches=n_k, mean_logp=float(lp_k.mean()),
+             mixture_mean_logp=float(DEMO_GMM.log_prob(xs.double()).mean()), seconds_kernel_first=secs_k,
+             seconds_plain=secs_p, **fields)
+    for steps in (1, 8):
+        s_k, n_k, secs_k = timed(lambda: sym_model.sample((N, 2), num_steps=steps, base=base), sym_launches)
+        s_p, n_p, secs_p = timed(lambda: sym_plain.sample((N, 2), num_steps=steps, base=base), sym_launches)
+        d = rel_err(s_k, s_p)
+        check(n_k == 2 * steps and n_p == 0, f"symplectic sample: {n_k} launches != 2 x {steps}")
+        check(d <= 1e-5, f"symplectic {steps}-step sample: kernel vs plain deviates {d:.2e} > 1e-5")
+        emit("symplectic_sample_parity", steps=steps, rows=N, max_rel_dev=d, launches=n_k,
+             seconds_kernel=secs_k, seconds_plain=secs_p)
+    leap, n_l, secs_l = timed(lambda: sym_model.sample((N, 2), num_steps=8, method="leapfrog", base=base),
+                              sym_launches)
+    check(n_l == 0 and bool(torch.isfinite(leap).all()), "symplectic leapfrog: launched a kernel or non-finite")
+    secs_all = [timed(lambda: sym_model.sample((N, 2), generator=cuda_gen(320 + i)), lambda: 0)[2]
+                for i in range(5)]
+    one_step = sym_model.sample((N, 2), generator=cuda_gen(330))
+    mixture = DEMO_GMM.sample(gen(331), N, device=dev)
+    energy = {"euler_1_step": float(energy_distance(one_step, mixture)),
+              "leapfrog_8_steps": float(energy_distance(leap, mixture)),
+              "mixture_vs_mixture": float(energy_distance(DEMO_GMM.sample(gen(332), N, device=dev), mixture))}
+    sym_counts = read_counts()
+    check(sym_counts["fused_symplectic_velocity"] > 0, "fused_symplectic_velocity was never launched")
+    emit("symplectic_sampling", rows=N, leapfrog_seconds=secs_l, one_step_seconds_median=statistics.median(secs_all),
+         one_step_samples_per_s=N / statistics.median(secs_all), energy_distance=energy, card=smi)
+    emit("symplectic_path_launches", **sym_counts)
+
     # -- phase 7: the kernels line ------------------------------------------
-    # no single PyTorch call computes any of these functions: library_ms null
+    # no single PyTorch call computes any of these functions (a fused MLP with
+    # its divergence, its Jacobian-vector columns or its sketch estimate; the
+    # EM loop; the two-stack Hamiltonian field): library_ms null
     def entry(name, source, replaces, launches, err, t):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": launches, "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
@@ -636,6 +1073,16 @@ def main() -> int:
               flow_counts[f"fused_velocity[{mode}]"], vel_err[mode], vel_timing[mode])
         for mode in ("forward", "hutchinson", "exact")
     ]
+    src_mlp, src_sketch = "flowfusion_torch/csrc/fused_mlp.cu", "flowfusion_torch/csrc/fused_sketch.cu"
+    for name, source, counts, err in (
+        ("fused_drift_tangents", src_mlp, crosscheck_counts, tan_err["fused_drift_tangents"]),
+        ("fused_velocity_tangents", src_mlp, crosscheck_counts, tan_err["fused_velocity_tangents"]),
+        ("fused_drift_sketch[hutchpp]", src_sketch, sketch_counts, sketch_err["fused_drift_sketch[hutchpp]"]),
+        ("fused_drift_sketch[xtrace]", src_sketch, sketch_counts, sketch_err["fused_drift_sketch[xtrace]"]),
+        ("fused_velocity_sketch[xtrace]", src_sketch, sketch_counts, sketch_err["fused_velocity_sketch[xtrace]"]),
+        ("fused_symplectic_velocity", src_mlp, sym_counts, sym_err),
+    ):
+        kernels.append(entry(name, source, REPLACES_NEW[name.split("[")[0]], counts[name], err, new_timing[name]))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({
         "ok": True,

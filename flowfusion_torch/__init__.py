@@ -1,11 +1,13 @@
 """flowfusion_torch: the PyTorch and CUDA port of the JAX package.
 
 The probability-flow log-likelihood and sampling solves of score-based
-diffusion models and flow-matching CNFs, and reverse-SDE sampling, run on
-an NVIDIA H100: in-house adaptive dopri5 and fixed-step solvers around
-hand-written CUDA kernels for the fused MLP drift/velocity with its
-divergence, and for the whole Euler--Maruyama sampling loop.  The JAX package stays the reference the port is
-checked against; this package imports nothing of it, nor JAX.  Entry
+diffusion models, flow-matching CNFs and symplectic flows, and reverse-SDE
+sampling, run on an NVIDIA H100: in-house adaptive dopri5 and fixed-step
+solvers around hand-written CUDA kernels for the fused MLP drift/velocity
+with its divergence (exact, Hutchinson, or K Jacobian-vector columns), for
+the whole Hutch++/XTrace sketch right-hand side, and for the whole
+Euler--Maruyama sampling loop.  The JAX package stays the reference the
+port is checked against; this package imports nothing of it, nor JAX.  Entry
 points run on the CUDA card unless the caller passes ``device="cpu"`` or
 CPU tensors.  What is not ported yet raises ``NotImplementedError``
 naming its ROADMAP.md item.
@@ -13,9 +15,10 @@ naming its ROADMAP.md item.
 
 from . import kernels, models, ops, utils
 from .models.flow import ODEFlow
-from .models.nets import ScoreMLPConfig, VelocityMLPConfig
+from .models.nets import ScoreMLPConfig, SymplecticMLPConfig, VelocityMLPConfig
 from .models.population import PopulationModelDiffusion
 from .models.score import ScoreModel
+from .models.symplectic import SymplecticFlowModel
 from .ops.integrate import odeint
 from .ops.sde import SUBVPSDE, VESDE, VPSDE
 
@@ -29,8 +32,10 @@ __all__ = [
     "ScoreModel",
     "PopulationModelDiffusion",
     "ODEFlow",
+    "SymplecticFlowModel",
     "ScoreMLPConfig",
     "VelocityMLPConfig",
+    "SymplecticMLPConfig",
     "VESDE",
     "VPSDE",
     "SUBVPSDE",

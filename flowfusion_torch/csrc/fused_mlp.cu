@@ -2,9 +2,12 @@
 // divergence, for Hopper.
 //
 // Replaces flowfusion_tpu/kernels/fused_mlp.py::_kernel (the Pallas kernel,
-// pallas_call at fused_mlp.py:935) in its modes forward, hutchinson and exact,
-// reached through fused_drift (fused_mlp.py:951) and fused_velocity
-// (fused_mlp.py:1353, (c0, c1) = (0, 1)), compute mode float32: strict IEEE
+// pallas_call at fused_mlp.py:935) in its modes forward, hutchinson, exact and
+// tangents, reached through fused_drift (fused_mlp.py:951), fused_velocity
+// (fused_mlp.py:1353, (c0, c1) = (0, 1)), fused_drift_tangents and
+// fused_velocity_tangents (fused_mlp.py:1020, 1148) and, two forward launches
+// a call, fused_symplectic_velocity (fused_mlp.py:1182), compute mode float32:
+// strict IEEE
 // fp32 FMAs on the CUDA cores.  Build without --use_fast_math: sigmoid goes
 // through expf and gelu through erff, matching the plain PyTorch path's
 // transcendentals.
@@ -17,6 +20,8 @@
 //               div = c0 |e|^2 + c1 e . (J_net e)
 //   exact:      D tangent chains seeded with rows 0..D-1 of w_in,
 //               div = c0 D + c1 sum_d (J_net e_d)_d
+//   tangents:   K tangent chains seeded with v_k w_in[:D] (K probes a row),
+//               out_k = c0 v_k + c1 J_net v_k, K x D values a row
 // Each tangent chain passes the same linear layers (no bias) and is
 // multiplied by act'(a) at every activation.
 //
@@ -49,8 +54,11 @@ namespace {
 
 using namespace ffk;
 
-enum Mode { kForward = 0, kHutchinson = 1, kExact = 2 };
+enum Mode { kForward = 0, kHutchinson = 1, kExact = 2, kTangents = 3 };
 
+// div: (B,) in modes hutchinson and exact; in mode tangents the (n_tan, B,
+// d_out) columns J v_k.  e: (B, d_out) in mode hutchinson, (B, n_tan, d_out)
+// in mode tangents.
 template <int RT>
 __global__ void __launch_bounds__(kThreads, 2)
 fused_mlp_kernel(const float* __restrict__ x, const float* __restrict__ e,
@@ -59,14 +67,17 @@ fused_mlp_kernel(const float* __restrict__ x, const float* __restrict__ e,
                  const float* __restrict__ w_out, const float* __restrict__ b_out,
                  const float* __restrict__ c0c1, float* __restrict__ drift,
                  float* __restrict__ div, int B, int d_in, int d_out, int H,
-                 int mode, int act, int R) {
+                 int mode, int act, int n_tan, int R) {
   extern __shared__ __align__(16) float smem[];
-  const int chains = mode == kForward ? 1 : (mode == kHutchinson ? 2 : 1 + d_out);
+  const int chains = mode == kForward ? 1
+                     : mode == kHutchinson ? 2
+                     : mode == kExact ? 1 + d_out : 1 + n_tan;
+  const int pw = mode == kTangents ? n_tan * d_out : d_out;  // probe values a row
   const int rh = R * H;
   float* cur = smem;
   float* nxt = smem + chains * rh;
   float* xs = smem + 2 * chains * rh;  // (R, d_in) input tile
-  float* es = xs + R * d_in;           // (R, d_out) probe tile
+  float* es = xs + R * d_in;           // (R, pw) probe tile
   const int row0 = blockIdx.x * R;
 
   // Rows past B (the ragged last tile) compute on zeros and are not stored.
@@ -74,17 +85,17 @@ fused_mlp_kernel(const float* __restrict__ x, const float* __restrict__ e,
     const int row = row0 + i / d_in;
     xs[i] = row < B ? x[(size_t)row0 * d_in + i] : 0.0f;
   }
-  if (mode == kHutchinson) {
-    for (int i = threadIdx.x; i < R * d_out; i += blockDim.x) {
-      const int row = row0 + i / d_out;
-      es[i] = row < B ? e[(size_t)row0 * d_out + i] : 0.0f;
+  if (mode == kHutchinson || mode == kTangents) {
+    for (int i = threadIdx.x; i < R * pw; i += blockDim.x) {
+      const int row = row0 + i / pw;
+      es[i] = row < B ? e[(size_t)row0 * pw + i] : 0.0f;
     }
   }
   __syncthreads();
 
-  // Input layer: the primal chain projects [x | cond]; a Hutchinson probe
-  // has no conditional components and projects through rows 0..D-1 only;
-  // the exact basis tangent e_d projects to row d of w_in.
+  // Input layer: the primal chain projects [x | cond]; a probe (Hutchinson,
+  // or tangent k) has no conditional components and projects through rows
+  // 0..D-1 only; the exact basis tangent e_d projects to row d of w_in.
   for (int i = threadIdx.x; i < chains * rh; i += blockDim.x) {
     const int c = i / rh;
     const int r = (i - c * rh) / H;
@@ -93,8 +104,9 @@ fused_mlp_kernel(const float* __restrict__ x, const float* __restrict__ e,
     if (c == 0) {
       for (int k = 0; k < d_in; ++k) v = fmaf(xs[r * d_in + k], __ldg(w_in + k * H + j), v);
       v += __ldg(b_eff + j);
-    } else if (mode == kHutchinson) {
-      for (int k = 0; k < d_out; ++k) v = fmaf(es[r * d_out + k], __ldg(w_in + k * H + j), v);
+    } else if (mode == kHutchinson || mode == kTangents) {
+      const float* p = es + r * pw + (c - 1) * d_out;  // c - 1 = 0 in hutchinson
+      for (int k = 0; k < d_out; ++k) v = fmaf(p[k], __ldg(w_in + k * H + j), v);
     } else {
       v = __ldg(w_in + (c - 1) * H + j);
     }
@@ -138,6 +150,13 @@ fused_mlp_kernel(const float* __restrict__ x, const float* __restrict__ e,
       float acc = 0.0f;
       for (int d = 0; d < d_out; ++d) acc += nxt[(1 + d) * rh + r * H + d];
       div[row] = c0 * (float)d_out + c1 * acc;
+    } else if (mode == kTangents) {
+      for (int k = 0; k < n_tan; ++k) {
+        const float* v = es + r * pw + k * d_out;
+        const float* jv = nxt + (1 + k) * rh + r * H;
+        float* out = div + ((size_t)k * B + row) * d_out;
+        for (int d = 0; d < d_out; ++d) out[d] = c0 * v[d] + c1 * jv[d];
+      }
     }
   }
 }
@@ -146,14 +165,14 @@ template <int RT>
 cudaError_t launch(const float* x, const float* e, const float* w_in, const float* b_eff,
                    const HiddenLayers& hidden, int n_hidden, const float* w_out,
                    const float* b_out, const float* c0c1, float* drift, float* div, int B,
-                   int d_in, int d_out, int H, int mode, int act, int rows, size_t smem,
-                   cudaStream_t stream) {
+                   int d_in, int d_out, int H, int mode, int act, int n_tan, int rows,
+                   size_t smem, cudaStream_t stream) {
   const cudaError_t st = allow_smem(fused_mlp_kernel<RT>, smem);
   if (st != cudaSuccess) return st;
   const int grid = (B + rows - 1) / rows;
   fused_mlp_kernel<RT><<<grid, kThreads, smem, stream>>>(
       x, e, w_in, b_eff, hidden, n_hidden, w_out, b_out, c0c1, drift, div, B, d_in,
-      d_out, H, mode, act, rows);
+      d_out, H, mode, act, n_tan, rows);
   return cudaGetLastError();
 }
 
@@ -164,16 +183,17 @@ extern "C" {
 // Launch on `stream`; returns the cudaError_t of the launch (0 on success).
 // w_hidden/b_hidden are host arrays of n_hidden device pointers, each weight
 // 16-byte aligned.  `rows` must be a multiple of 4 and H of 4 (the Python
-// wrapper checks all three).  `smem` is the block's shared memory in bytes,
+// wrapper checks all three).  `n_tan` is the probe count of mode tangents
+// (ignored otherwise).  `smem` is the block's shared memory in bytes,
 // computed by the wrapper for the layout the kernel uses: 2 x chains x rows
-// x H floats, then rows x (d_in + d_out) floats.
+// x H floats, then rows x (d_in + d_out max(1, n_tan)) floats.
 int ff_fused_mlp(const float* x, const float* e, const float* w_in, const float* b_eff,
                  const float* const* w_hidden, const float* const* b_hidden, int n_hidden,
                  const float* w_out, const float* b_out, const float* c0c1,
                  float* drift, float* div, int B, int d_in, int d_out, int H, int mode,
-                 int act, int rows, size_t smem, void* stream) {
+                 int act, int n_tan, int rows, size_t smem, void* stream) {
   if (n_hidden < 0 || n_hidden > kMaxHidden || rows % kMinRowTile != 0 || H % 4 != 0 ||
-      B <= 0 || mode < kForward || mode > kExact) {
+      B <= 0 || mode < kForward || mode > kTangents || (mode == kTangents && n_tan < 1)) {
     return (int)cudaErrorInvalidValue;
   }
   HiddenLayers hidden = {};
@@ -184,10 +204,11 @@ int ff_fused_mlp(const float* x, const float* e, const float* w_in, const float*
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (rows % 8 == 0) {
     return (int)launch<8>(x, e, w_in, b_eff, hidden, n_hidden, w_out, b_out, c0c1, drift, div,
-                          B, d_in, d_out, H, mode, act, rows, smem, st);
+                          B, d_in, d_out, H, mode, act, n_tan, rows, smem, st);
   }
   return (int)launch<kMinRowTile>(x, e, w_in, b_eff, hidden, n_hidden, w_out, b_out, c0c1,
-                                  drift, div, B, d_in, d_out, H, mode, act, rows, smem, st);
+                                  drift, div, B, d_in, d_out, H, mode, act, n_tan, rows, smem,
+                                  st);
 }
 
 }  // extern "C"

@@ -1,7 +1,9 @@
-// Building blocks of the port's MLP kernels, shared by fused_mlp.cu and
-// em_sampler.cu: the activations with their derivatives, the in-place
-// activation pass over a block's layer buffer, and the register-tiled layer
-// product.
+// Building blocks of the port's MLP kernels, shared by fused_mlp.cu,
+// em_sampler.cu and fused_sketch.cu: the activations with their
+// derivatives, the in-place activation passes over a block's layer buffer
+// (one that also keeps act'(a) for later Jacobian applications, and the
+// multiply of tangent chains by such a stored act'), and the register-tiled
+// layer product, with or without the primal chain's bias.
 //
 // A block keeps `chains` buffers of R rows by H columns (row stride H) in
 // shared memory: the primal activations, then one buffer per tangent chain
@@ -72,7 +74,28 @@ __device__ __forceinline__ void activate(int act, float* cur, int chains, int rh
   }
 }
 
-// nxt[c] = cur[c] @ w (+ bias for the primal chain c = 0), for every chain.
+// cur <- act(cur) for the primal chain alone, keeping act'(cur) in dh (R x H,
+// the layout of cur) for the Jacobian applications that follow.
+__device__ __forceinline__ void activate_keep(int act, float* cur, float* dh, int rh) {
+  for (int i = threadIdx.x; i < rh; i += blockDim.x) {
+    float h, d;
+    act_pair(act, cur[i], h, d);
+    cur[i] = h;
+    dh[i] = d;
+  }
+}
+
+// cur[c] *= dh for every one of `chains` tangent chains (none primal): the
+// activation layer of a Jacobian application through a stored act'.
+__device__ __forceinline__ void scale_by_act_grad(const float* dh, float* cur, int chains, int rh) {
+  for (int i = threadIdx.x; i < rh; i += blockDim.x) {
+    const float d = dh[i];
+    for (int c = 0; c < chains; ++c) cur[c * rh + i] *= d;
+  }
+}
+
+// nxt[c] = cur[c] @ w (+ bias for the primal chain c = 0 when `bias` is not
+// null), for every chain.
 // cur and nxt hold chains x R rows of row stride H.  A thread owns an RT-row
 // by CT-column tile: per 4 k it reads RT float4 activations from shared
 // memory (one address per warp: a broadcast) and 4 weight rows of CT
@@ -131,11 +154,21 @@ __device__ void dense(const float* __restrict__ w, const float* __restrict__ bia
     float* out = nxt + (size_t)(c * R + rg * RT) * H + j0;
 #pragma unroll
     for (int j = 0; j < CT; ++j) {
-      const float b = c == 0 ? __ldg(bias + j0 + j) : 0.0f;
+      const float b = (c == 0 && bias != nullptr) ? __ldg(bias + j0 + j) : 0.0f;
 #pragma unroll
       for (int i = 0; i < RT; ++i) out[i * H + j] = acc[i][j] + b;
     }
   }
+}
+
+// nxt[c] = cur[c] @ w for every chain, no bias on any: the layer product of
+// a set of tangent chains alone (dense adds the bias to chain 0, which here
+// is a tangent too).
+template <int RT, int CT>
+__device__ __forceinline__ void dense_tangents(const float* __restrict__ w, const float* cur,
+                                               float* nxt, int K, int N, int R, int H,
+                                               int chains) {
+  dense<RT, CT>(w, nullptr, cur, nxt, K, N, R, H, chains);
 }
 
 // Raise a kernel's dynamic shared-memory ceiling where a launch needs more

@@ -1,12 +1,15 @@
 """Fused score-MLP drift and flow velocity (+ Hutchinson or exact
-divergence) on the card.
+divergence, or K Jacobian-vector columns) on the card, and the symplectic
+velocity built from two forward launches.
 
-Counterpart of the JAX package's ``kernels/fused_mlp.py::fused_drift`` and
-``fused_velocity`` in their modes ``forward``, ``hutchinson`` and ``exact``
-at compute mode ``float32``.  On CUDA tensors the wrappers launch the
-hand-written kernel ``csrc/fused_mlp.cu`` (built at first use, see
-``_build``) or raise; on CPU tensors they run the plain PyTorch versions,
-``fused_drift_reference`` and ``fused_velocity_reference``.
+Counterpart of the JAX package's ``kernels/fused_mlp.py::fused_drift``,
+``fused_velocity``, ``fused_drift_tangents``, ``fused_velocity_tangents``
+and ``fused_symplectic_velocity`` in their modes ``forward``,
+``hutchinson``, ``exact`` and ``tangents`` at compute mode ``float32``.  On
+CUDA tensors the wrappers launch the hand-written kernel
+``csrc/fused_mlp.cu`` (built at first use, see ``_build``) or raise; on CPU
+tensors they run the plain PyTorch versions (``*_reference``).  The sketch
+estimators' one-launch kernel is ``kernels/fused_sketch.py``.
 
 During a solve the time ``t`` is a batch-global scalar, so the Fourier
 embedding contributes a t-dependent bias to the first layer:
@@ -17,11 +20,15 @@ scalars, read by the kernel from a 2-float device buffer so no RHS call
 syncs with the host:
   drift = c0 * x + c1 * net(t, x[, cond])
   div   = c0 |e|^2 + c1 e.J_net e   (hutchinson)  |  c0 D + c1 tr J_net  (exact)
+  J v_k = c0 v_k + c1 J_net v_k      (tangents, K probes)
 
 The velocity net takes raw t as an input feature after x, so its fold is
 ``b_eff = b1 + t W1[D]`` with ``w_in`` the [x | cond] rows
 (``_velocity_first_layer``), and it runs the same kernel with
-(c0, c1) = (0, 1).  Each wrapper counts its own launches.
+(c0, c1) = (0, 1).  Each symplectic stack takes [x_other | cond | temb], so
+its fold takes the TRAILING rows: ``b_eff = b1 + temb W1[D+C:]``; the q
+stack runs on p with (0, +1), the p stack on q with (0, -1).  Each wrapper
+counts its own launches.
 """
 
 from __future__ import annotations
@@ -35,7 +42,12 @@ import torch.nn.functional as F
 from torch.func import jvp
 
 from .._device import same_device, strict_fp32_matmul
-from ..models.nets import apply_score_mlp, apply_velocity_mlp, fourier_time_embedding
+from ..models.nets import (
+    apply_score_mlp,
+    apply_symplectic_mlp,
+    apply_velocity_mlp,
+    fourier_time_embedding,
+)
 from . import _build
 
 __all__ = [
@@ -43,6 +55,12 @@ __all__ = [
     "fused_drift_reference",
     "fused_velocity",
     "fused_velocity_reference",
+    "fused_drift_tangents",
+    "fused_drift_tangents_reference",
+    "fused_velocity_tangents",
+    "fused_velocity_tangents_reference",
+    "fused_symplectic_velocity",
+    "fused_symplectic_velocity_reference",
     "pad_to_lanes",
     "fusable_config",
     "supports_config",
@@ -52,7 +70,7 @@ __all__ = [
 ]
 
 _KERNEL_ACTIVATIONS = ("silu", "tanh", "relu", "gelu")  # index = kernel's Act
-_MODES = ("forward", "hutchinson", "exact")  # index = kernel's Mode
+_MODES = ("forward", "hutchinson", "exact", "tangents")  # index = kernel's Mode
 # Hidden widths are padded to a multiple of this: the kernel reads four
 # activations and four weight columns at a time.
 LANE = 4
@@ -92,15 +110,27 @@ def supports_features(
     return _rows_per_block(H, _chains(mode, d_out), n_features, d_out) is not None
 
 
+def _pad_stack(layers: list, H: int) -> list:
+    """One layer stack with its hidden widths zero-padded to ``H``."""
+    padded = []
+    for i, lyr in enumerate(layers):
+        w, b = lyr["w"], lyr["b"]
+        pad_in = H - w.shape[0] if i > 0 else 0
+        pad_out = H - w.shape[1] if i < len(layers) - 1 else 0
+        padded.append({"w": F.pad(w, (0, pad_out, 0, pad_in)), "b": F.pad(b, (0, pad_out))})
+    return padded
+
+
 def pad_to_lanes(params: dict, cfg):
     """Zero-pad hidden widths to one uniform multiple of ``LANE``, for the
-    score and the velocity net alike.
+    score, the velocity and the symplectic net alike (every layer stack of
+    ``params``: ``layers``, or ``q_layers`` and ``p_layers``).
 
     Exact: a padded unit has zero weight column and bias, so zero
     pre-activation, zero activation (act(0) == 0) and zero tangent, and
     contributes nothing downstream.  Returns ``(params, cfg)`` unchanged
     when the config is already supported."""
-    field = "units" if hasattr(cfg, "units") else "hidden_units"  # score | velocity net
+    field = "units" if hasattr(cfg, "units") else "hidden_units"  # score/symplectic | velocity
     units = getattr(cfg, field)
     if supports_config(units, cfg.activation):
         return params, cfg
@@ -111,21 +141,22 @@ def pad_to_lanes(params: dict, cfg):
             f"be one of {_KERNEL_ACTIVATIONS}, at most {MAX_HIDDEN + 1} hidden layers)"
         )
     H = max(-(-u // LANE) * LANE for u in units)
-    layers = params["layers"]
-    padded = []
-    for i, lyr in enumerate(layers):
-        w, b = lyr["w"], lyr["b"]
-        pad_in = H - w.shape[0] if i > 0 else 0
-        pad_out = H - w.shape[1] if i < len(layers) - 1 else 0
-        padded.append({"w": F.pad(w, (0, pad_out, 0, pad_in)), "b": F.pad(b, (0, pad_out))})
-    return {**params, "layers": padded}, dataclasses.replace(cfg, **{field: (H,) * len(units)})
+    stacks = {k: _pad_stack(params[k], H) for k in ("layers", "q_layers", "p_layers") if k in params}
+    return {**params, **stacks}, dataclasses.replace(cfg, **{field: (H,) * len(units)})
 
 
-def flops_per_row(d_in: int, d_out: int, H: int, n_layers: int, mode: str) -> int:
+def flops_per_row(
+    d_in: int, d_out: int, H: int, n_layers: int, mode: str, n_tan: int = 0, n_tan2: int = 0
+) -> int:
     """Kernel flops per row: 2 H (D_in + (n_hidden - 1) H + D) per chain,
-    1 + n_applies chains (the JAX package's kernels/fused_mlp.py:922-934);
+    1 + n_applies chains (the JAX package's kernels/fused_mlp.py:921-934):
+    n_applies = 0, 1, D, K (tangents, ``n_tan`` = K), r + r + m (hutchpp,
+    ``n_tan`` = r, ``n_tan2`` = m) or 2 m (xtrace, ``n_tan`` = m);
     ``n_layers`` counts every weight layer."""
-    n_applies = {"forward": 0, "hutchinson": 1, "exact": d_out}[mode]
+    n_applies = {
+        "forward": 0, "hutchinson": 1, "exact": d_out, "tangents": n_tan,
+        "hutchpp": 2 * n_tan + n_tan2, "xtrace": 2 * n_tan,
+    }[mode]
     return 2 * H * (d_in + (n_layers - 2) * H + d_out) * (1 + n_applies)
 
 
@@ -308,10 +339,183 @@ def fused_velocity(
     return drift if mode == "forward" else (drift, div)
 
 
+def _tangent_stack(V, B: int, D: int) -> torch.Tensor:
+    """Probe tangents as one (K, B, D) tensor: ``V`` is (K, B, D) or a list
+    of K (D, B) columns."""
+    if isinstance(V, (list, tuple)):
+        V = torch.stack([v.T for v in V])
+    if V.ndim != 3 or tuple(V.shape[1:]) != (B, D) or V.shape[0] < 1:
+        raise ValueError(f"tangents V of shape {tuple(V.shape)}; expected (K, {B}, {D}) with K >= 1")
+    return V
+
+
+def _tangents_reference(f, x, V):
+    """(f(x) as (D, B) columns, [J v_k as (D, B) columns]) by torch.func.jvp."""
+    cols = [jvp(f, (x,), (V[k],))[1].T for k in range(V.shape[0])]
+    return f(x).T, cols
+
+
+def fused_drift_tangents_reference(params, cfg, t, x, V, conditional=None, c0=0.0, c1=1.0):
+    """The plain PyTorch version of :func:`fused_drift_tangents`
+    (``apply_score_mlp`` and ``torch.func.jvp``, TF32 off)."""
+    V = _tangent_stack(V, *x.shape)
+    with strict_fp32_matmul():
+        return _tangents_reference(
+            lambda xx: c0 * xx + c1 * apply_score_mlp(cfg, params, t, xx, conditional), x, V
+        )
+
+
+def fused_velocity_tangents_reference(params, cfg, t, x, V, conditional=None):
+    """The plain PyTorch version of :func:`fused_velocity_tangents`."""
+    V = _tangent_stack(V, *x.shape)
+    with strict_fp32_matmul():
+        return _tangents_reference(
+            lambda xx: apply_velocity_mlp(cfg, params, t, xx, conditional), x, V
+        )
+
+
+def fused_drift_tangents(
+    params: dict,
+    cfg,
+    t,
+    x: torch.Tensor,
+    V,
+    conditional: Optional[torch.Tensor] = None,
+    c0=0.0,
+    c1=1.0,
+    compute_dtype: str = "float32",
+):
+    """Fused drift and J v for K probe tangents in one launch (mode
+    tangents).
+
+    ``V`` is (K, B, D) or a list of K (D, B) columns.  Returns
+    ``(drift_cols, jv_cols)`` in the batch-in-lanes layout the sketch
+    estimators consume (``ops.trace.hutchpp_core``/``xtrace_core``):
+    ``drift_cols`` (D, B) and a list of K (D, B) columns of
+    J v_k = c0 v_k + c1 J_net v_k (J with respect to x; the conditional's
+    tangents are zero).  CUDA tensors launch the kernel
+    (``fused_drift_tangents.launches``); CPU tensors run
+    :func:`fused_drift_tangents_reference`.
+    """
+    _check_compute_dtype(compute_dtype)
+    _check_conditional(cfg.n_conditionals, conditional)
+    params, cfg = pad_to_lanes(params, cfg)
+    D = cfg.n_dimensions
+    V = _tangent_stack(V, x.shape[0], D)
+    _plan(cfg.units[0], "tangents", D + cfg.n_conditionals, D, V.shape[0])
+    if not x.is_cuda:
+        return fused_drift_tangents_reference(params, cfg, t, x, V, conditional, c0, c1)
+    with strict_fp32_matmul():
+        w_in, b_eff = _score_first_layer(params, cfg, t, conditional)
+    x_in = x if conditional is None else torch.cat([x, conditional], dim=-1)
+    c0c1 = torch.stack([
+        torch.as_tensor(c, dtype=torch.float32, device=x.device).reshape(()) for c in (c0, c1)
+    ])
+    return _launch_tangents(x_in, V, w_in, b_eff, params["layers"], c0c1, D, cfg.activation,
+                            fused_drift_tangents)
+
+
+def fused_velocity_tangents(
+    params: dict,
+    cfg,
+    t,
+    x: torch.Tensor,
+    V,
+    conditional: Optional[torch.Tensor] = None,
+    compute_dtype: str = "float32",
+):
+    """Fused velocity and J v for K probe tangents of a flow velocity net:
+    :func:`fused_drift_tangents` with (c0, c1) = (0, 1) and the raw-time
+    fold.  CUDA tensors launch the kernel
+    (``fused_velocity_tangents.launches``); CPU tensors run
+    :func:`fused_velocity_tangents_reference`."""
+    _check_compute_dtype(compute_dtype)
+    _check_conditional(cfg.conditional_dimension, conditional)
+    params, cfg = pad_to_lanes(params, cfg)
+    D = cfg.target_dimension
+    V = _tangent_stack(V, x.shape[0], D)
+    _plan(cfg.hidden_units[0], "tangents", D + cfg.conditional_dimension, D, V.shape[0])
+    if not x.is_cuda:
+        return fused_velocity_tangents_reference(params, cfg, t, x, V, conditional)
+    with strict_fp32_matmul():
+        w_in, b_eff = _velocity_first_layer(params, cfg, t, conditional)
+    x_in = x if conditional is None else torch.cat([x, conditional], dim=-1)
+    c0c1 = torch.arange(2, dtype=torch.float32, device=x.device)
+    return _launch_tangents(x_in, V, w_in.contiguous(), b_eff, params["layers"], c0c1, D,
+                            cfg.activation, fused_velocity_tangents)
+
+
+def _launch_tangents(x_in, V, w_in, b_eff, layers, c0c1, D, activation, counter):
+    """Launch mode tangents: V (K, B, D) goes in as (B, K, D) rows; the J v
+    columns come out (K, B, D) and are returned as (D, B) views."""
+    K, B, _ = V.shape
+    e = V.permute(1, 0, 2).reshape(B, K * D).contiguous()
+    drift, jv = _launch(x_in.contiguous(), e, w_in, b_eff, layers, c0c1, "tangents", D, activation,
+                        counter=counter, n_tan=K)
+    return drift.T, [jv[k].T for k in range(K)]
+
+
+def fused_symplectic_velocity_reference(params, cfg, t, state, conditional=None):
+    """The plain PyTorch version of :func:`fused_symplectic_velocity`:
+    ``apply_symplectic_mlp`` with TF32 off."""
+    with strict_fp32_matmul():
+        return apply_symplectic_mlp(cfg, params, t, state, conditional)
+
+
+def fused_symplectic_velocity(
+    params: dict,
+    cfg,
+    t,
+    state: torch.Tensor,
+    conditional: Optional[torch.Tensor] = None,
+    compute_dtype: str = "float32",
+):
+    """The symplectic field [dq/dt | dp/dt] on ``state`` = [q | p] (B, 2D)
+    by two forward launches of the kernel, one per stack: the q stack on p
+    with (c0, c1) = (0, +1) and the p stack on q with (0, -1), each with
+    the embedding folded from its first layer's trailing rows.  The joint
+    field is divergence-free, so no divergence is computed.  CUDA tensors
+    launch the kernel twice (``fused_symplectic_velocity.launches`` counts
+    launches); CPU tensors run :func:`fused_symplectic_velocity_reference`."""
+    _check_compute_dtype(compute_dtype)
+    _check_conditional(cfg.n_conditionals, conditional)
+    params, cfg = pad_to_lanes(params, cfg)
+    D, C = cfg.n_data_dims, cfg.n_conditionals
+    if state.ndim != 2 or state.shape[1] != 2 * D:
+        raise ValueError(f"state of shape {tuple(state.shape)}; expected (B, {2 * D})")
+    _plan(cfg.units[0], "forward", D + C, D)
+    if not state.is_cuda:
+        return fused_symplectic_velocity_reference(params, cfg, t, state, conditional)
+    q, p = torch.chunk(state, 2, dim=-1)
+    with strict_fp32_matmul():
+        t = torch.as_tensor(t, dtype=torch.float32, device=state.device).reshape(())
+        temb = fourier_time_embedding(t[None], params["W"])[0]
+    outs = []
+    for stack, other, sign in (("q_layers", p, 1.0), ("p_layers", q, -1.0)):
+        layers = params[stack]
+        w1 = layers[0]["w"]  # (D + C + E, H), rows [x_other | cond | temb]
+        with strict_fp32_matmul():
+            b_eff = layers[0]["b"] + temb @ w1[D + C:]
+        w_in = w1[: D + C] if conditional is not None else w1[:D]
+        x_in = other if conditional is None else torch.cat([other, conditional], dim=-1)
+        # (c0, c1) = (0, sign), made on the device without a host copy
+        c0c1 = torch.arange(0.0, 2.0 * sign, sign, dtype=torch.float32, device=state.device)
+        drift, _ = _launch(x_in.contiguous(), None, w_in, b_eff, layers, c0c1, "forward", D,
+                           cfg.activation, counter=fused_symplectic_velocity)
+        outs.append(drift)
+    return torch.cat(outs, dim=-1)
+
+
+_COUNTED = (
+    fused_drift, fused_velocity, fused_drift_tangents, fused_velocity_tangents,
+    fused_symplectic_velocity,
+)
+
+
 def reset_launch_counts() -> None:
-    """Zero the launch counts of ``fused_drift`` and ``fused_velocity``,
-    and their per-mode splits."""
-    for fn in (fused_drift, fused_velocity):
+    """Zero the launch counts of every wrapper of this kernel, and their
+    per-mode splits."""
+    for fn in _COUNTED:
         fn.launches = 0
         fn.launches_by_mode = dict.fromkeys(_MODES, 0)
 
@@ -319,17 +523,17 @@ def reset_launch_counts() -> None:
 reset_launch_counts()
 
 
-def _chains(mode: str, d_out: int) -> int:
-    """Chains a block carries: the primal, plus 1 (hutchinson) or D (exact)
-    tangents."""
-    return {"forward": 1, "hutchinson": 2, "exact": 1 + d_out}[mode]
+def _chains(mode: str, d_out: int, n_tan: int = 0) -> int:
+    """Chains a block carries: the primal, plus 1 (hutchinson), D (exact)
+    or K = ``n_tan`` (tangents) tangents."""
+    return {"forward": 1, "hutchinson": 2, "exact": 1 + d_out, "tangents": 1 + n_tan}[mode]
 
 
-def _smem_bytes(rows: int, H: int, chains: int, d_in: int, d_out: int) -> int:
+def _smem_bytes(rows: int, H: int, chains: int, d_in: int, d_out: int, n_tan: int = 0) -> int:
     """Shared memory of one block, in the kernel's layout: the double
     buffer of chains x rows x H floats, then the (rows, d_in) input tile
-    and the (rows, d_out) probe tile."""
-    return 4 * (2 * chains * rows * H + rows * (d_in + d_out))
+    and the (rows, d_out max(1, n_tan)) probe tile."""
+    return 4 * (2 * chains * rows * H + rows * (d_in + d_out * max(1, n_tan)))
 
 
 def rows_for(smem_bytes: Callable[[int], int]) -> Optional[int]:
@@ -344,25 +548,25 @@ def rows_for(smem_bytes: Callable[[int], int]) -> Optional[int]:
     return None
 
 
-def _rows_per_block(H: int, chains: int, d_in: int, d_out: int) -> Optional[int]:
+def _rows_per_block(H: int, chains: int, d_in: int, d_out: int, n_tan: int = 0) -> Optional[int]:
     """:func:`rows_for` in this kernel's layout."""
-    return rows_for(lambda rows: _smem_bytes(rows, H, chains, d_in, d_out))
+    return rows_for(lambda rows: _smem_bytes(rows, H, chains, d_in, d_out, n_tan))
 
 
-def _plan(H: int, mode: str, d_in: int, d_out: int):
+def _plan(H: int, mode: str, d_in: int, d_out: int, n_tan: int = 0):
     """``(rows, smem_bytes)`` of the launch, or raise when the
     shared-memory plan does not fit (the JAX package's vmem_width_clamp
     analogue)."""
-    chains = _chains(mode, d_out)
-    rows = _rows_per_block(H, chains, d_in, d_out)
+    chains = _chains(mode, d_out, n_tan)
+    rows = _rows_per_block(H, chains, d_in, d_out, n_tan)
     if rows is None:
         raise ValueError(
             f"fused kernel shared-memory plan does not fit: {chains} chains of width "
-            f"H={H} need {_smem_bytes(4, H, chains, d_in, d_out)} bytes at 4 rows a "
+            f"H={H} need {_smem_bytes(4, H, chains, d_in, d_out, n_tan)} bytes at 4 rows a "
             f"block (limit {_SMEM_LIMIT}); use trace_mode='hutchinson' instead of "
-            "exact trace, a narrower net, or use_fused_kernel=False"
+            "exact trace, fewer probes, a narrower net, or use_fused_kernel=False"
         )
-    return rows, _smem_bytes(rows, H, chains, d_in, d_out)
+    return rows, _smem_bytes(rows, H, chains, d_in, d_out, n_tan)
 
 
 def _kernel_lib() -> ctypes.CDLL:
@@ -371,7 +575,7 @@ def _kernel_lib() -> ctypes.CDLL:
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         pp = ctypes.POINTER(ctypes.c_void_p)
-        fn.argtypes = [p, p, p, p, pp, pp, i, p, p, p, p, p, i, i, i, i, i, i, i, ctypes.c_size_t, p]
+        fn.argtypes = [p, p, p, p, pp, pp, i, p, p, p, p, p, i, i, i, i, i, i, i, i, ctypes.c_size_t, p]
         fn.restype = ctypes.c_int
     return lib
 
@@ -397,10 +601,13 @@ def check_operands(expect, hidden, H: int, what: str) -> torch.device:
     return device
 
 
-def _launch(x_in, e, w_in, b_eff, layers, c0c1, mode, d_out, activation, counter=fused_drift):
+def _launch(x_in, e, w_in, b_eff, layers, c0c1, mode, d_out, activation, counter=fused_drift,
+            n_tan=0):
     """Check the operands, allocate the outputs and launch the kernel on
-    the current stream; add the launch to ``counter``'s counts.  Raises on
-    anything the kernel does not take."""
+    the current stream; add the launch to ``counter``'s counts.  Returns
+    ``(drift, div)``: div is None (forward), (B,) (hutchinson, exact) or
+    the (n_tan, B, d_out) J v columns (tangents, ``e`` the (B, n_tan d_out)
+    probe rows).  Raises on anything the kernel does not take."""
     B, d_in = x_in.shape
     H = b_eff.shape[0]
     hidden = layers[1:-1]
@@ -412,11 +619,14 @@ def _launch(x_in, e, w_in, b_eff, layers, c0c1, mode, d_out, activation, counter
     expect += [(l["w"], (H, H)) for l in hidden] + [(l["b"], (H,)) for l in hidden]
     if mode == "hutchinson":
         expect.append((e, (B, d_out)))
+    elif mode == "tangents":
+        expect.append((e, (B, n_tan * d_out)))
     device = check_operands(expect, hidden, H, "fused kernel")
-    rows, smem = _plan(H, mode, d_in, d_out)
+    rows, smem = _plan(H, mode, d_in, d_out, n_tan)
 
     drift = torch.empty((B, d_out), dtype=torch.float32, device=device)
-    div = None if mode == "forward" else torch.empty((B,), dtype=torch.float32, device=device)
+    div_shape = {"forward": None, "tangents": (n_tan, B, d_out)}.get(mode, (B,))
+    div = None if div_shape is None else torch.empty(div_shape, dtype=torch.float32, device=device)
     if B == 0:
         return drift, div
     lib = _kernel_lib()
@@ -424,12 +634,12 @@ def _launch(x_in, e, w_in, b_eff, layers, c0c1, mode, d_out, activation, counter
     w_ptrs = (ctypes.c_void_p * max(n, 1))(*[l["w"].data_ptr() for l in hidden])
     b_ptrs = (ctypes.c_void_p * max(n, 1))(*[l["b"].data_ptr() for l in hidden])
     err = lib.ff_fused_mlp(
-        x_in.data_ptr(), e.data_ptr() if mode == "hutchinson" else None,
+        x_in.data_ptr(), e.data_ptr() if mode in ("hutchinson", "tangents") else None,
         w_in.data_ptr(), b_eff.data_ptr(), w_ptrs, b_ptrs, n,
         w_out.data_ptr(), b_out.data_ptr(), c0c1.data_ptr(), drift.data_ptr(),
         None if div is None else div.data_ptr(),
         B, d_in, d_out, H, _MODES.index(mode), _KERNEL_ACTIVATIONS.index(activation),
-        rows, smem, torch.cuda.current_stream(device).cuda_stream,
+        n_tan, rows, smem, torch.cuda.current_stream(device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"fused_mlp kernel launch failed with CUDA error {err}")

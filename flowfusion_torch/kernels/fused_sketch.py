@@ -1,0 +1,304 @@
+"""The whole Hutch++ or XTrace right-hand side in one launch on the card.
+
+Counterpart of the JAX package's ``kernels/fused_mlp.py::fused_drift_sketch``
+and ``fused_velocity_sketch`` (the kernel modes ``hutchpp`` and ``xtrace``)
+at compute mode ``float32``.  On CUDA tensors the wrappers launch the
+hand-written kernel ``csrc/fused_sketch.cu`` (built at first use, see
+``_build``) or raise; on CPU tensors they run the plain PyTorch versions,
+the ``ops.trace`` estimators on the plain drift
+(``fused_drift_sketch_reference``, ``fused_velocity_sketch_reference``).
+
+The kernel runs the forward chain once, keeps act' of every layer in
+shared memory, and applies A v = c0 v + c1 J_net v to the sketch through
+that stored chain (2r + m tangent chains for Hutch++, 2m for XTrace), with
+the per-row QR, projections and leave-one-out algebra between the
+applications.  The time, the first-layer fold and (c0, c1) enter as in
+``kernels.fused_mlp``.  Each wrapper counts its launches, split by mode.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Sequence, Tuple
+
+import torch
+
+from .._device import strict_fp32_matmul
+from ..models.nets import apply_score_mlp, apply_velocity_mlp
+from ..ops import trace as trace_lib
+from . import _build
+from .fused_mlp import (
+    LANE,
+    _KERNEL_ACTIVATIONS,
+    _SMEM_LIMIT,
+    _check_compute_dtype,
+    _check_conditional,
+    _score_first_layer,
+    _velocity_first_layer,
+    check_operands,
+    pad_to_lanes,
+    rows_for,
+)
+
+__all__ = [
+    "fused_drift_sketch",
+    "fused_drift_sketch_reference",
+    "fused_velocity_sketch",
+    "fused_velocity_sketch_reference",
+    "supports_sketch",
+    "sketch_plan",
+    "reset_launch_counts",
+    "MAX_SKETCH_DIM",
+]
+
+SKETCH_MODES = ("hutchpp", "xtrace")  # index = kernel's SketchMode
+MAX_SKETCH_DIM = 8  # D the per-row algebra takes (csrc kMaxDim)
+
+
+def _stack_sketch_probes(probes: Sequence[torch.Tensor], sketch_mode: str, D: int):
+    """Validate the probes and stack them: ``(V (n_s + n_g, B, D), n_s,
+    n_g)``.  The QR orthonormalizes at most D columns, and Hutch++ divides
+    by its residual-probe count."""
+    if sketch_mode == "hutchpp":
+        S, G = probes
+        if G.shape[0] < 1:
+            raise ValueError(
+                "hutchpp needs at least one residual probe (G); got 0 "
+                "(the trace estimate divides by the residual count)"
+            )
+        if S.shape[0] > D:
+            raise ValueError(
+                f"hutchpp sketch rank {S.shape[0]} > D={D}: at most D "
+                "orthonormal columns exist — reduce hpp_rank"
+            )
+        return torch.cat([S, G], dim=0), S.shape[0], G.shape[0]
+    if sketch_mode == "xtrace":
+        (O,) = probes
+        if not 1 <= O.shape[0] <= D:
+            raise ValueError(f"xtrace needs 1 <= m <= D={D} probes; got {O.shape[0]}")
+        return O, O.shape[0], 0
+    raise ValueError(f"unknown sketch mode {sketch_mode!r}")
+
+
+def _layout(sketch_mode: str, n_s: int, n_g: int) -> Tuple[int, int]:
+    """(kmax, ncols): the widest application's chain count and the probe
+    tile's columns a row (xtrace keeps O and Q side by side)."""
+    if sketch_mode == "hutchpp":
+        return n_s + n_g, n_s + n_g
+    return n_s, 2 * n_s
+
+
+def _smem_bytes(rows: int, H: int, n_act: int, d_in: int, D: int, kmax: int, ncols: int) -> int:
+    """Shared memory of one block in the kernel's layout: the act' store
+    (n_act x rows x H), the double buffer of the widest application
+    (2 x kmax x rows x H), the (rows, d_in) input tile and the (rows,
+    ncols, D) probe tile, all float32."""
+    return 4 * rows * ((n_act + 2 * kmax) * H + d_in + ncols * D)
+
+
+def _rows(sketch_mode: str, H: int, n_act: int, d_in: int, D: int, n_s: int, n_g: int):
+    """Rows a block owns (:func:`rows_for` in this kernel's layout), or None
+    when D is past ``MAX_SKETCH_DIM`` or nothing fits."""
+    if D > MAX_SKETCH_DIM:
+        return None
+    kmax, ncols = _layout(sketch_mode, n_s, n_g)
+    return rows_for(lambda r: _smem_bytes(r, H, n_act, d_in, D, kmax, ncols))
+
+
+def sketch_plan(sketch_mode: str, H: int, n_act: int, d_in: int, D: int, n_s: int, n_g: int):
+    """``(rows, smem_bytes)`` of a launch, or raise when the per-row
+    algebra's D is past ``MAX_SKETCH_DIM`` or the shared-memory plan does
+    not fit.  ``n_act`` counts the activation layers (the hidden widths)."""
+    if D > MAX_SKETCH_DIM:
+        raise ValueError(
+            f"fused sketch kernel takes D <= {MAX_SKETCH_DIM} (its per-row algebra's "
+            f"arrays); got D={D}: use use_fused_kernel=False"
+        )
+    kmax, ncols = _layout(sketch_mode, n_s, n_g)
+    rows = _rows(sketch_mode, H, n_act, d_in, D, n_s, n_g)
+    if rows is None:
+        raise ValueError(
+            f"fused sketch kernel shared-memory plan does not fit: {n_act} stored act' "
+            f"layers and 2 x {kmax} chains of width H={H} need "
+            f"{_smem_bytes(4, H, n_act, d_in, D, kmax, ncols)} bytes at 4 rows a block "
+            f"(limit {_SMEM_LIMIT}); use fewer probes, a narrower net, or use_fused_kernel=False"
+        )
+    return rows, _smem_bytes(rows, H, n_act, d_in, D, kmax, ncols)
+
+
+def supports_sketch(
+    sketch_mode: str, hidden: int, n_act: int, n_features: int, n_dimensions: int, n_s: int, n_g: int
+) -> bool:
+    """Whether :func:`sketch_plan` fits (hidden width padded to the kernel's
+    lanes)."""
+    H = -(-hidden // LANE) * LANE
+    return _rows(sketch_mode, H, n_act, n_features, n_dimensions, n_s, n_g) is not None
+
+
+def _sketch_reference(f, x, probes, sketch_mode):
+    if sketch_mode == "hutchpp":
+        return trace_lib.hutchpp_divergence(f, x, *probes)
+    return trace_lib.xtrace_divergence(f, x, *probes)
+
+
+def fused_drift_sketch_reference(
+    params, cfg, t, x, probes, sketch_mode, conditional=None, c0=0.0, c1=1.0
+):
+    """The plain PyTorch version of :func:`fused_drift_sketch`: the
+    ``ops.trace`` Hutch++ or XTrace estimator on the plain drift
+    c0 x + c1 net (TF32 off)."""
+    _stack_sketch_probes(probes, sketch_mode, x.shape[-1])
+    with strict_fp32_matmul():
+        return _sketch_reference(
+            lambda xx: c0 * xx + c1 * apply_score_mlp(cfg, params, t, xx, conditional),
+            x, probes, sketch_mode,
+        )
+
+
+def fused_velocity_sketch_reference(params, cfg, t, x, probes, sketch_mode, conditional=None):
+    """The plain PyTorch version of :func:`fused_velocity_sketch`."""
+    _stack_sketch_probes(probes, sketch_mode, x.shape[-1])
+    with strict_fp32_matmul():
+        return _sketch_reference(
+            lambda xx: apply_velocity_mlp(cfg, params, t, xx, conditional), x, probes, sketch_mode
+        )
+
+
+def fused_drift_sketch(
+    params: dict,
+    cfg,
+    t,
+    x: torch.Tensor,
+    probes: Sequence[torch.Tensor],
+    sketch_mode: str,
+    conditional: Optional[torch.Tensor] = None,
+    c0=0.0,
+    c1=1.0,
+    compute_dtype: str = "float32",
+):
+    """The whole Hutch++ or XTrace RHS of the score drift in one launch.
+
+    ``sketch_mode`` 'hutchpp' takes ``probes = (S, G)``, (r, B, D) sketch
+    and (m, B, D) residual probes; 'xtrace' takes ``(O,)``, (m, B, D).
+    Returns ``(drift (B, D), div (B,))``, the divergence of the affine
+    drift c0 x + c1 net.  CUDA tensors launch the kernel
+    (``fused_drift_sketch.launches``); CPU tensors run
+    :func:`fused_drift_sketch_reference`."""
+    _check_compute_dtype(compute_dtype)
+    _check_conditional(cfg.n_conditionals, conditional)
+    params, cfg = pad_to_lanes(params, cfg)
+    D = cfg.n_dimensions
+    V, n_s, n_g = _stack_sketch_probes(probes, sketch_mode, D)
+    plan = sketch_plan(sketch_mode, cfg.units[0], len(cfg.units), D + cfg.n_conditionals, D, n_s, n_g)
+    if not x.is_cuda:
+        return fused_drift_sketch_reference(params, cfg, t, x, probes, sketch_mode, conditional, c0, c1)
+    with strict_fp32_matmul():
+        w_in, b_eff = _score_first_layer(params, cfg, t, conditional)
+    x_in = x if conditional is None else torch.cat([x, conditional], dim=-1)
+    c0c1 = torch.stack([
+        torch.as_tensor(c, dtype=torch.float32, device=x.device).reshape(()) for c in (c0, c1)
+    ])
+    return _launch(x_in, V, w_in, b_eff, params["layers"], c0c1, sketch_mode, D, n_s, n_g,
+                   cfg.activation, plan, fused_drift_sketch)
+
+
+def fused_velocity_sketch(
+    params: dict,
+    cfg,
+    t,
+    x: torch.Tensor,
+    probes: Sequence[torch.Tensor],
+    sketch_mode: str,
+    conditional: Optional[torch.Tensor] = None,
+    compute_dtype: str = "float32",
+):
+    """One-launch Hutch++ or XTrace for a flow velocity net: the contract of
+    :func:`fused_drift_sketch` with (c0, c1) = (0, 1) and the raw-time
+    fold.  CUDA tensors launch the kernel (``fused_velocity_sketch.launches``);
+    CPU tensors run :func:`fused_velocity_sketch_reference`."""
+    _check_compute_dtype(compute_dtype)
+    _check_conditional(cfg.conditional_dimension, conditional)
+    params, cfg = pad_to_lanes(params, cfg)
+    D = cfg.target_dimension
+    V, n_s, n_g = _stack_sketch_probes(probes, sketch_mode, D)
+    plan = sketch_plan(
+        sketch_mode, cfg.hidden_units[0], len(cfg.hidden_units), D + cfg.conditional_dimension, D,
+        n_s, n_g,
+    )
+    if not x.is_cuda:
+        return fused_velocity_sketch_reference(params, cfg, t, x, probes, sketch_mode, conditional)
+    with strict_fp32_matmul():
+        w_in, b_eff = _velocity_first_layer(params, cfg, t, conditional)
+    x_in = x if conditional is None else torch.cat([x, conditional], dim=-1)
+    c0c1 = torch.arange(2, dtype=torch.float32, device=x.device)  # (0, 1), no host copy
+    return _launch(x_in, V, w_in.contiguous(), b_eff, params["layers"], c0c1, sketch_mode, D, n_s,
+                   n_g, cfg.activation, plan, fused_velocity_sketch)
+
+
+def reset_launch_counts() -> None:
+    """Zero the launch counts of both sketch wrappers, and their per-mode
+    splits."""
+    for fn in (fused_drift_sketch, fused_velocity_sketch):
+        fn.launches = 0
+        fn.launches_by_mode = dict.fromkeys(SKETCH_MODES, 0)
+
+
+reset_launch_counts()
+
+
+def _kernel_lib() -> ctypes.CDLL:
+    lib = _build.load("fused_sketch")
+    fn = lib.ff_fused_sketch
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        pp = ctypes.POINTER(ctypes.c_void_p)
+        fn.argtypes = [p, p, p, p, pp, pp, i, p, p, p, p, p] + [i] * 9 + [ctypes.c_size_t, p]
+        fn.restype = ctypes.c_int
+        lib.ff_sketch_max_dim.argtypes = []
+        lib.ff_sketch_max_dim.restype = ctypes.c_int
+        if lib.ff_sketch_max_dim() != MAX_SKETCH_DIM:
+            raise RuntimeError(
+                f"fused_sketch.cu takes D <= {lib.ff_sketch_max_dim()} but the wrapper "
+                f"plans for {MAX_SKETCH_DIM}"
+            )
+    return lib
+
+
+def _launch(x_in, V, w_in, b_eff, layers, c0c1, sketch_mode, D, n_s, n_g, activation, plan, counter):
+    """Check the operands, allocate the outputs and launch the kernel on
+    the current stream; add the launch to ``counter``'s counts.  ``V`` is
+    the (n_s + n_g, B, D) probe stack; it goes in as (B, n_s + n_g, D)
+    rows."""
+    B, d_in = x_in.shape
+    H = b_eff.shape[0]
+    hidden = layers[1:-1]
+    w_out, b_out = layers[-1]["w"], layers[-1]["b"]
+    x_in = x_in.contiguous()
+    probes = V.permute(1, 0, 2).contiguous()
+    expect = [
+        (x_in, (B, d_in)), (probes, (B, n_s + n_g, D)), (w_in, (d_in, H)), (b_eff, (H,)),
+        (w_out, (H, D)), (b_out, (D,)), (c0c1, (2,)),
+    ]
+    expect += [(l["w"], (H, H)) for l in hidden] + [(l["b"], (H,)) for l in hidden]
+    device = check_operands(expect, hidden, H, "fused sketch kernel")
+    rows, smem = plan
+
+    drift = torch.empty((B, D), dtype=torch.float32, device=device)
+    div = torch.empty((B,), dtype=torch.float32, device=device)
+    if B == 0:
+        return drift, div
+    lib = _kernel_lib()
+    n = len(hidden)
+    w_ptrs = (ctypes.c_void_p * max(n, 1))(*[l["w"].data_ptr() for l in hidden])
+    b_ptrs = (ctypes.c_void_p * max(n, 1))(*[l["b"].data_ptr() for l in hidden])
+    err = lib.ff_fused_sketch(
+        x_in.data_ptr(), probes.data_ptr(), w_in.data_ptr(), b_eff.data_ptr(), w_ptrs, b_ptrs, n,
+        w_out.data_ptr(), b_out.data_ptr(), c0c1.data_ptr(), drift.data_ptr(), div.data_ptr(),
+        B, d_in, D, H, SKETCH_MODES.index(sketch_mode), _KERNEL_ACTIVATIONS.index(activation),
+        n_s, n_g, rows, smem, torch.cuda.current_stream(device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"fused_sketch kernel launch failed with CUDA error {err}")
+    counter.launches += 1
+    counter.launches_by_mode[sketch_mode] += 1
+    return drift, div

@@ -1,9 +1,14 @@
 """Model families of the port: the score-based diffusion model, its
-standardizing population wrapper, and the flow-matching CNF."""
+standardizing population wrapper, the flow-matching CNF and the symplectic
+flow."""
 
-from . import flow, nets, population, score
+from . import flow, nets, population, score, symplectic
 from .flow import ODEFlow
 from .population import PopulationModelDiffusion
 from .score import ScoreModel
+from .symplectic import SymplecticFlowModel
 
-__all__ = ["flow", "nets", "population", "score", "ODEFlow", "PopulationModelDiffusion", "ScoreModel"]
+__all__ = [
+    "flow", "nets", "population", "score", "symplectic", "ODEFlow", "PopulationModelDiffusion",
+    "ScoreModel", "SymplecticFlowModel",
+]

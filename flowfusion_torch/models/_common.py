@@ -11,7 +11,7 @@ import torch
 
 __all__ = [
     "fused_dispatch", "not_ported", "std_stats", "cond_stats", "norm_cond",
-    "std_normal_logpdf",
+    "std_normal_logpdf", "check_trace_mode", "check_probes", "adjoint_refusal",
 ]
 
 
@@ -23,10 +23,46 @@ def not_ported(what: str, item: str) -> NotImplementedError:
     )
 
 
+TRACE_MODES = ("exact", "hutchinson", "hutchpp", "xtrace")
+_N_PROBES = {"exact": 0, "hutchinson": 1, "hutchpp": 2, "xtrace": 1}
+
+
+def check_trace_mode(trace_mode: str) -> None:
+    if trace_mode not in TRACE_MODES:
+        raise ValueError(f"unknown trace mode {trace_mode!r}; use one of {TRACE_MODES}")
+
+
+def check_probes(trace_mode: str, probes) -> tuple:
+    """``probes`` as a tuple, raising unless it holds the tensors the trace
+    mode takes: () exact, (e,) hutchinson, (S, G) hutchpp, (O,) xtrace."""
+    probes = tuple(probes)
+    n = _N_PROBES[trace_mode]
+    if len(probes) != n:
+        raise ValueError(
+            f"trace_mode {trace_mode!r} takes {n} probe tensor(s); got {len(probes)}"
+        )
+    return probes
+
+
+def adjoint_refusal(trace_mode: str) -> NotImplementedError:
+    """The refusal of ``adjoint=True``: the adjoint solver is ROADMAP.md
+    item 13; XTrace will refuse it even then, as in the JAX package."""
+    what = "adjoint=True"
+    if trace_mode == "xtrace":
+        what += (
+            " with trace_mode='xtrace' (which has no gradient even then: its sketch "
+            "is fully detached — use 'exact', 'hutchinson' or 'hutchpp' for "
+            "adjoint/training solves)"
+        )
+    return not_ported(what, "item 13: the adjoint solver")
+
+
 _ENVELOPE = (
     "the fused kernel's envelope (activation silu/tanh/relu/gelu, at most 17 "
     "hidden layers, and a shared-memory plan that fits D, C, the hidden width "
-    "and the trace mode: kernels.fused_mlp.fusable_config/supports_features)"
+    "and the trace mode: kernels.fused_mlp.fusable_config/supports_features; "
+    "for 'hutchpp'/'xtrace' also D <= 8 and the probe counts: "
+    "kernels.fused_sketch.supports_sketch)"
 )
 
 

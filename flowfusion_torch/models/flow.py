@@ -11,8 +11,9 @@ Reference semantics kept:
   * x is standardized at the boundary, conditionals inside the dynamics;
   * ``log_prob`` adds the N(0, 1) prior and subtracts sum(log target_scale).
 
-Every RHS evaluation goes through ``kernels.fused_mlp.fused_velocity`` when
-the solve's tensors are on CUDA (or ``use_fused_kernel=True``), else
+Every RHS evaluation goes through ``kernels.fused_mlp.fused_velocity`` (or,
+for the Hutch++ and XTrace traces, ``kernels.fused_sketch.fused_velocity_sketch``)
+when the solve's tensors are on CUDA (or ``use_fused_kernel=True``), else
 through the plain velocity net and ``ops.trace`` estimators, under
 ``torch.no_grad`` with TF32 off (compute mode ``float32``).
 """
@@ -26,6 +27,7 @@ import torch
 
 from .._device import DeviceLike, resolve_device, strict_fp32_matmul
 from ..kernels.fused_mlp import fusable_config, fused_velocity, supports_features
+from ..kernels.fused_sketch import fused_velocity_sketch, supports_sketch
 from ..ops import trace as trace_lib
 from ..ops.integrate import SolverStats, odeint
 from ..utils.checkpoint import load_npz, read_npz_extra
@@ -42,9 +44,11 @@ class ODEFlow:
     params and the standardization statistics.
 
     ``trace_mode`` selects the divergence estimator of ``log_prob``:
-    'exact' (default) or 'hutchinson'.  ``use_fused_kernel``: None = the
-    kernel for CUDA tensors (a config outside its envelope raises there)
-    and the plain path for CPU tensors; True/False forces.
+    'exact' (default), 'hutchinson', 'hutchpp' (``hpp_rank`` sketch and
+    ``hpp_vecs`` residual probes) or 'xtrace' (``xt_vecs`` probes).
+    ``use_fused_kernel``: None = the kernel for CUDA tensors (a config
+    outside its envelope raises there) and the plain path for CPU tensors;
+    True/False forces.
     """
 
     params: dict
@@ -54,14 +58,14 @@ class ODEFlow:
     conditional_scale: Optional[torch.Tensor]
     net: VelocityMLPConfig
     trace_mode: str = "exact"
+    hpp_rank: int = 1
+    hpp_vecs: int = 1
+    xt_vecs: int = 1
     use_fused_kernel: Optional[bool] = None
     kernel_compute_dtype: str = "float32"
 
     def __post_init__(self):
-        if self.trace_mode in ("hutchpp", "xtrace"):
-            raise _common.not_ported(f"trace_mode={self.trace_mode!r}", "item 12: sketch estimators")
-        if self.trace_mode not in ("exact", "hutchinson"):
-            raise ValueError(f"unknown trace mode {self.trace_mode!r}")
+        _common.check_trace_mode(self.trace_mode)
         if self.kernel_compute_dtype != "float32":
             raise NotImplementedError(
                 f"kernel_compute_dtype={self.kernel_compute_dtype!r} is not ported "
@@ -81,6 +85,9 @@ class ODEFlow:
         conditional_shift=None,
         conditional_scale=None,
         trace_mode: str = "exact",
+        hpp_rank: int = 1,
+        hpp_vecs: int = 1,
+        xt_vecs: int = 1,
         use_fused_kernel: Optional[bool] = None,
         kernel_compute_dtype: str = "float32",
         generator: Optional[torch.Generator] = None,
@@ -101,7 +108,8 @@ class ODEFlow:
         )
         return cls(
             init_velocity_mlp(net, generator, dev), t_shift, t_scale, c_shift, c_scale, net,
-            trace_mode=trace_mode, use_fused_kernel=use_fused_kernel,
+            trace_mode=trace_mode, hpp_rank=hpp_rank, hpp_vecs=hpp_vecs, xt_vecs=xt_vecs,
+            use_fused_kernel=use_fused_kernel,
             kernel_compute_dtype=kernel_compute_dtype,
         )
 
@@ -146,21 +154,26 @@ class ODEFlow:
                     f"{self.device}; move one of them"
                 )
 
-    def _fused_supported(self, mode: str) -> bool:
-        """Whether the kernel takes this net in ``mode`` (forward,
-        hutchinson or exact), padding included."""
+    def _fused_supported(self, mode: str, probes: Sequence[torch.Tensor] = ()) -> bool:
+        """Whether a kernel takes this net in ``mode`` (forward, hutchinson,
+        exact, or the sketch modes with these ``probes``), padding
+        included."""
         net = self.net
-        return (
-            isinstance(net, VelocityMLPConfig)
-            and fusable_config(net.hidden_units, net.activation)
-            and supports_features(
-                net.target_dimension + net.conditional_dimension, mode,
-                max(net.hidden_units), net.target_dimension,
+        if not (isinstance(net, VelocityMLPConfig) and fusable_config(net.hidden_units, net.activation)):
+            return False
+        d_in = net.target_dimension + net.conditional_dimension
+        H = max(net.hidden_units)
+        if mode in ("hutchpp", "xtrace"):
+            return supports_sketch(
+                mode, H, len(net.hidden_units), d_in, net.target_dimension,
+                *trace_lib.probe_counts(mode, probes),
             )
-        )
+        return supports_features(d_in, mode, H, net.target_dimension)
 
-    def _fused_available(self, x: torch.Tensor, mode: str) -> bool:
-        return _common.fused_dispatch(self.use_fused_kernel, self._fused_supported(mode), x.is_cuda)
+    def _fused_available(self, x: torch.Tensor, mode: str, probes: Sequence[torch.Tensor] = ()) -> bool:
+        return _common.fused_dispatch(
+            self.use_fused_kernel, self._fused_supported(mode, probes), x.is_cuda
+        )
 
     def _norm_cond(self, conditional: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
         """Conditionals are standardized inside the dynamics."""
@@ -232,22 +245,31 @@ class ODEFlow:
     ) -> Tuple[torch.Tensor, torch.Tensor, SolverStats]:
         """Integrate (x, log_jacobian) from t=0 to t=1; ``x`` already
         standardized.  Probes come from ``generator`` (drawn once per
-        solve) unless ``probes`` passes them in: ``(e,)`` for
-        'hutchinson', ``()`` for 'exact'.  Returns (x_1, log_jac, stats)."""
+        solve) unless ``probes`` passes them in: ``()`` for 'exact',
+        ``(e,)`` for 'hutchinson', ``(S, G)`` for 'hutchpp', ``(O,)`` for
+        'xtrace'.  Returns (x_1, log_jac, stats)."""
         if adjoint:
-            raise _common.not_ported("adjoint=True", "item 13: the adjoint solver")
+            raise _common.adjoint_refusal(self.trace_mode)
         self._check_device(x, conditional)
         if probes is None:
-            probes = trace_lib.make_probes(self.trace_mode, generator, x)
-        probes = tuple(probes)
-        n_probes = 1 if self.trace_mode == "hutchinson" else 0
-        if len(probes) != n_probes:
-            raise ValueError(
-                f"trace_mode {self.trace_mode!r} takes {n_probes} probe tensor(s); got {len(probes)}"
+            probes = trace_lib.make_probes(
+                self.trace_mode, generator, x,
+                hpp_rank=self.hpp_rank, hpp_vecs=self.hpp_vecs, xt_vecs=self.xt_vecs,
             )
+        probes = _common.check_probes(self.trace_mode, probes)
         self._check_device(*probes)
         exact = self.trace_mode == "exact"
-        if self._fused_available(x, self.trace_mode):
+        sketch = self.trace_mode in ("hutchpp", "xtrace")
+        if sketch and self._fused_available(x, self.trace_mode, probes):
+            cond_n = self._norm_cond(conditional)
+
+            def rhs(t, state):
+                return fused_velocity_sketch(
+                    self.params, self.net, t, state[0], probes, self.trace_mode, cond_n,
+                    compute_dtype=self.kernel_compute_dtype,
+                )
+
+        elif not sketch and self._fused_available(x, self.trace_mode):
             cond_n = self._norm_cond(conditional)
 
             def rhs(t, state):

@@ -1,16 +1,19 @@
-"""Score and velocity networks as config dataclasses plus plain dicts of
-tensors.
+"""Score, velocity and symplectic networks as config dataclasses plus
+plain dicts of tensors.
 
-Counterpart of the JAX package's ``models/nets.py`` for the score MLP and
-the flow-matching velocity MLP (the symplectic net is ROADMAP.md queue 1,
-item 11).  The parameters keep the JAX trees and layouts, so weights carry
-over one for one (``utils.convert.params_from_numpy``):
+Counterpart of the JAX package's ``models/nets.py``.  The parameters keep
+the JAX trees and layouts, so weights carry over one for one
+(``utils.convert.params_from_numpy``):
 
-  score:    ``{"W": (E/2,), "layers": [{"w": (in, out), "b": (out,)}, ...]}``
-            with the input ordered ``[t_embedding | x | conditional]``; ``W``
-            is the frozen Gaussian-Fourier embedding (sampled once at init);
-  velocity: ``{"layers": [...]}`` with the input ordered ``[x | t | cond]``,
-            t a raw scalar feature (no embedding).
+  score:      ``{"W": (E/2,), "layers": [{"w": (in, out), "b": (out,)}, ...]}``
+              with the input ordered ``[t_embedding | x | conditional]``;
+              ``W`` is the frozen Gaussian-Fourier embedding (sampled once
+              at init);
+  velocity:   ``{"layers": [...]}`` with the input ordered ``[x | t | cond]``,
+              t a raw scalar feature (no embedding);
+  symplectic: ``{"W", "q_layers": [...], "p_layers": [...]}``, two stacks
+              each taking ``[x_other | cond | t_embedding]`` (the embedding
+              LAST): dq/dt = mlp_q(p, ...), dp/dt = -mlp_p(q, ...).
 """
 
 from __future__ import annotations
@@ -31,6 +34,11 @@ __all__ = [
     "VelocityMLPConfig",
     "init_velocity_mlp",
     "apply_velocity_mlp",
+    "SymplecticMLPConfig",
+    "init_symplectic_mlp",
+    "apply_symplectic_mlp",
+    "apply_symplectic_q_velocity",
+    "apply_symplectic_p_velocity",
     "fourier_time_embedding",
 ]
 
@@ -203,3 +211,85 @@ def apply_velocity_mlp(
     t = _expand_t(t, x.shape[0], x)[:, None]
     parts = [x, t] if conditional is None else [x, t, conditional]
     return _apply_mlp_stack(params["layers"], torch.cat(parts, dim=-1), _ACTIVATIONS[cfg.activation])
+
+
+@dataclasses.dataclass(frozen=True)
+class SymplecticMLPConfig:
+    """Architecture of the separable-Hamiltonian field (the JAX package's
+    defaults): two stacks of the same shape, q and p, each mapping
+    ``[x_other | cond | t_embedding]`` to ``n_data_dims`` outputs."""
+
+    n_data_dims: int = 2
+    n_conditionals: int = 0
+    embedding_dimensions: int = 8
+    units: Tuple[int, ...] = (128,)
+    activation: str = "silu"
+    sigma_initialization: float = 16.0
+
+    def __post_init__(self):
+        object.__setattr__(self, "units", tuple(self.units))
+        _validate_net_config(self.activation, self.embedding_dimensions)
+
+    @property
+    def architecture(self) -> Tuple[int, ...]:
+        return (
+            self.n_data_dims + self.n_conditionals + self.embedding_dimensions,
+            *self.units,
+            self.n_data_dims,
+        )
+
+    def apply(self, params, t, state, conditional=None) -> torch.Tensor:
+        """Alias for :func:`apply_symplectic_mlp`."""
+        return apply_symplectic_mlp(self, params, t, state, conditional)
+
+
+def init_symplectic_mlp(
+    cfg: SymplecticMLPConfig,
+    generator: Optional[torch.Generator] = None,
+    device: DeviceLike = None,
+    dtype=torch.float32,
+) -> dict:
+    """Fresh parameters: the frozen Fourier ``W`` ~ N(0, sigma_init^2),
+    then the q and the p stack with torch.nn.Linear's default init, drawn
+    in that order from ``generator``."""
+    dev = resolve_device(device)
+    gen_dev = generator.device if generator is not None else None
+    W = torch.randn(
+        (cfg.embedding_dimensions // 2,), generator=generator, dtype=dtype, device=gen_dev
+    ) * cfg.sigma_initialization
+    return {
+        "W": W.to(dev),
+        "q_layers": _init_mlp_stack(cfg.architecture, generator, dev, dtype),
+        "p_layers": _init_mlp_stack(cfg.architecture, generator, dev, dtype),
+    }
+
+
+def apply_symplectic_mlp(
+    cfg: SymplecticMLPConfig,
+    params: dict,
+    t,
+    state: torch.Tensor,
+    conditional: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """The joint field [dq/dt, dp/dt] on ``state`` = [q | p] (B, 2D); the
+    q stack reads p and the p stack reads q, so it is divergence-free."""
+    q, p = torch.chunk(state, 2, dim=-1)
+    v_q = apply_symplectic_q_velocity(cfg, params, t, p, conditional)
+    v_p = apply_symplectic_p_velocity(cfg, params, t, q, conditional)
+    return torch.cat([v_q, v_p], dim=-1)
+
+
+def _symplectic_half(cfg, params, stack, t, other, conditional):
+    t_emb = fourier_time_embedding(_expand_t(t, other.shape[0], other), params["W"])
+    parts = [other, t_emb] if conditional is None else [other, conditional, t_emb]
+    return _apply_mlp_stack(params[stack], torch.cat(parts, dim=-1), _ACTIVATIONS[cfg.activation])
+
+
+def apply_symplectic_q_velocity(cfg, params, t, p, conditional=None) -> torch.Tensor:
+    """dq/dt = mlp_q(p, cond, t_emb): one half of the joint field."""
+    return _symplectic_half(cfg, params, "q_layers", t, p, conditional)
+
+
+def apply_symplectic_p_velocity(cfg, params, t, q, conditional=None) -> torch.Tensor:
+    """dp/dt = -mlp_p(q, cond, t_emb): the other half."""
+    return -_symplectic_half(cfg, params, "p_layers", t, q, conditional)

@@ -56,12 +56,16 @@ class PopulationModelDiffusion:
         conditional_scale=None,
         no_sigma: bool = False,
         trace_mode: str = "exact",
+        hpp_rank: int = 1,
+        hpp_vecs: int = 1,
+        xt_vecs: int = 1,
         use_fused_kernel: Optional[bool] = None,
         kernel_compute_dtype: str = "float32",
         generator: Optional[torch.Generator] = None,
         device: DeviceLike = None,
     ) -> "PopulationModelDiffusion":
-        """Build the wrapper and its freshly initialised ScoreModel."""
+        """Build the wrapper and its freshly initialised ScoreModel; the
+        trace estimator and its probe counts go to the ScoreModel."""
         dev = resolve_device(device)
         net = ScoreMLPConfig(
             n_dimensions=n_dimensions,
@@ -76,6 +80,9 @@ class PopulationModelDiffusion:
             sde=sde,
             no_sigma=no_sigma,
             trace_mode=trace_mode,
+            hpp_rank=hpp_rank,
+            hpp_vecs=hpp_vecs,
+            xt_vecs=xt_vecs,
             use_fused_kernel=use_fused_kernel,
             kernel_compute_dtype=kernel_compute_dtype,
         )

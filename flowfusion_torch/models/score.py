@@ -16,8 +16,9 @@ Parity contract (as the JAX package):
     reference's sample; ``sample_sde_fused`` runs the same loop in one
     kernel launch (``kernels.em_sampler``).
 
-Every RHS evaluation goes through ``kernels.fused_mlp.fused_drift`` when
-the solve's tensors are on CUDA (or ``use_fused_kernel=True``), else
+Every RHS evaluation goes through ``kernels.fused_mlp.fused_drift`` (or,
+for the Hutch++ and XTrace traces, ``kernels.fused_sketch.fused_drift_sketch``)
+when the solve's tensors are on CUDA (or ``use_fused_kernel=True``), else
 through the plain torch drift and ``ops.trace`` estimators.  The solves
 run under ``torch.no_grad`` with TF32 off (compute mode ``float32``).
 Random draws come from an explicit ``torch.Generator``; the prior is drawn
@@ -35,6 +36,7 @@ import torch
 from .._device import strict_fp32_matmul
 from ..kernels.em_sampler import fused_em_sample
 from ..kernels.fused_mlp import fused_drift, fusable_config, supports_features
+from ..kernels.fused_sketch import fused_drift_sketch, supports_sketch
 from ..ops import trace as trace_lib
 from ..ops.integrate import EMResult, SolverStats, euler_maruyama, odeint
 from ..ops.integrate.tableaus import ADAPTIVE_TABLEAUS
@@ -50,10 +52,11 @@ class ScoreModel:
     """(params, net config, sde) with the sampling and likelihood solves.
 
     ``trace_mode`` selects the divergence estimator of
-    ``solve_odes_forward``/``log_prob``: 'exact' (default) or
-    'hutchinson'.  ``use_fused_kernel``: None = the kernel for CUDA
-    tensors (a config outside its envelope raises there) and the plain
-    path for CPU tensors; True/False forces.
+    ``solve_odes_forward``/``log_prob``: 'exact' (default), 'hutchinson',
+    'hutchpp' (``hpp_rank`` sketch and ``hpp_vecs`` residual probes) or
+    'xtrace' (``xt_vecs`` probes).  ``use_fused_kernel``: None = the kernel
+    for CUDA tensors (a config outside its envelope raises there) and the
+    plain path for CPU tensors; True/False forces.
     """
 
     params: dict
@@ -61,14 +64,14 @@ class ScoreModel:
     sde: SDE
     no_sigma: bool = False
     trace_mode: str = "exact"
+    hpp_rank: int = 1
+    hpp_vecs: int = 1
+    xt_vecs: int = 1
     use_fused_kernel: Optional[bool] = None
     kernel_compute_dtype: str = "float32"
 
     def __post_init__(self):
-        if self.trace_mode in ("hutchpp", "xtrace"):
-            raise _common.not_ported(f"trace_mode={self.trace_mode!r}", "item 12: sketch estimators")
-        if self.trace_mode not in ("exact", "hutchinson"):
-            raise ValueError(f"unknown trace mode {self.trace_mode!r}")
+        _common.check_trace_mode(self.trace_mode)
         if self.kernel_compute_dtype != "float32":
             raise NotImplementedError(
                 f"kernel_compute_dtype={self.kernel_compute_dtype!r} is not ported "
@@ -94,20 +97,25 @@ class ScoreModel:
     # ------------------------------------------------------------------
     # fused-kernel plumbing
     # ------------------------------------------------------------------
-    def _fused_supported(self, mode: str) -> bool:
-        """Whether the kernel takes this net in ``mode`` (forward,
-        hutchinson or exact), padding included."""
+    def _fused_supported(self, mode: str, probes: Sequence[torch.Tensor] = ()) -> bool:
+        """Whether a kernel takes this net in ``mode`` (forward, hutchinson,
+        exact, or the sketch modes with these ``probes``), padding
+        included."""
         net = self.net
-        return (
-            isinstance(net, ScoreMLPConfig)
-            and fusable_config(net.units, net.activation)
-            and supports_features(
-                net.n_dimensions + net.n_conditionals, mode, max(net.units), net.n_dimensions
+        if not (isinstance(net, ScoreMLPConfig) and fusable_config(net.units, net.activation)):
+            return False
+        d_in = net.n_dimensions + net.n_conditionals
+        if mode in ("hutchpp", "xtrace"):
+            return supports_sketch(
+                mode, max(net.units), len(net.units), d_in, net.n_dimensions,
+                *trace_lib.probe_counts(mode, probes),
             )
-        )
+        return supports_features(d_in, mode, max(net.units), net.n_dimensions)
 
-    def _fused_available(self, x: torch.Tensor, mode: str) -> bool:
-        return _common.fused_dispatch(self.use_fused_kernel, self._fused_supported(mode), x.is_cuda)
+    def _fused_available(self, x: torch.Tensor, mode: str, probes: Sequence[torch.Tensor] = ()) -> bool:
+        return _common.fused_dispatch(
+            self.use_fused_kernel, self._fused_supported(mode, probes), x.is_cuda
+        )
 
     def _fused_coeffs(self, t):
         """(c0, c1) with prob-flow drift = c0 x + c1 net(t, x[, c])."""
@@ -344,24 +352,33 @@ class ScoreModel:
         """Integrate (x, dlogp) from t=epsilon to t=1.
 
         Probes come from ``generator`` (drawn once per solve) unless
-        ``probes`` passes them in: ``(e,)`` for 'hutchinson', ``()`` for
-        'exact'.  Returns (x_T, delta_logp (B,), stats)."""
+        ``probes`` passes them in: ``()`` for 'exact', ``(e,)`` for
+        'hutchinson', ``(S, G)`` for 'hutchpp', ``(O,)`` for 'xtrace'.
+        Returns (x_T, delta_logp (B,), stats)."""
         if adjoint:
-            raise _common.not_ported("adjoint=True", "item 13: the adjoint solver")
+            raise _common.adjoint_refusal(self.trace_mode)
         self._check_device(x0_samples, conditional)
         if probes is None:
-            probes = trace_lib.make_probes(self.trace_mode, generator, x0_samples)
-        probes = tuple(probes)
-        n_probes = 1 if self.trace_mode == "hutchinson" else 0
-        if len(probes) != n_probes:
-            raise ValueError(
-                f"trace_mode {self.trace_mode!r} takes {n_probes} probe tensor(s); "
-                f"got {len(probes)}"
+            probes = trace_lib.make_probes(
+                self.trace_mode, generator, x0_samples,
+                hpp_rank=self.hpp_rank, hpp_vecs=self.hpp_vecs, xt_vecs=self.xt_vecs,
             )
+        probes = _common.check_probes(self.trace_mode, probes)
         self._check_device(*probes)
         exact = self.trace_mode == "exact"
+        sketch = self.trace_mode in ("hutchpp", "xtrace")
 
-        if self._fused_available(x0_samples, self.trace_mode):
+        if sketch and self._fused_available(x0_samples, self.trace_mode, probes):
+
+            def rhs(t, state):
+                x, _ = state
+                c0, c1 = self._fused_coeffs(t)
+                return fused_drift_sketch(
+                    self.params, self.net, t, x, probes, self.trace_mode, conditional,
+                    c0=c0, c1=c1, compute_dtype=self.kernel_compute_dtype,
+                )
+
+        elif not sketch and self._fused_available(x0_samples, self.trace_mode):
 
             def rhs(t, state):
                 x, _ = state

@@ -205,7 +205,7 @@ def test_flow_create_and_refusals(flow_pair):
     x = torch.zeros(4, 2)
     for call, item in (
         (lambda: tm.flow_matching_loss(x), "item 9"), (lambda: tm.loss_fn(x), "item 9"),
-        (lambda: dataclasses.replace(tm, trace_mode="hutchpp"), "item 12"),
+        (lambda: dataclasses.replace(tm, trace_mode="xtrace").log_prob(x, adjoint=True), "item 13"),
         (lambda: tm.sample(x, gradients=True), "item 13"), (lambda: tm.log_prob(x, adjoint=True), "item 13"),
         (lambda: tm.log_prob_per_sample(x), "item 13"),
         (lambda: dataclasses.replace(tm, kernel_compute_dtype="bfloat16"), "queue 2"),

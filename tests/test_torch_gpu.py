@@ -9,7 +9,9 @@ Bars, the JAX package's fused-versus-plain bars (bench.py:320-321): drift
 within 1e-5 and divergence within 1e-4 of the plain version's max
 magnitude, TF32 off.  The EM kernel: x and x_mean within rtol 2e-4 / atol
 1e-4 of the plain version on the same noise (tests/test_kernels.py:203-204)
-and the same ``diverged``.
+and the same ``diverged``.  Tangent columns within 1e-5 of their scale; the
+sketch kernel's divergence within 2e-4 absolute (the JAX package's sketch
+bar, tests/test_kernels.py:628); the symplectic field within 1e-5.
 """
 
 import dataclasses
@@ -17,8 +19,15 @@ import dataclasses
 import pytest
 import torch
 
-from flowfusion_torch.kernels import em_sampler, fused_mlp
-from flowfusion_torch.models.nets import ScoreMLPConfig, VelocityMLPConfig, init_score_mlp, init_velocity_mlp
+from flowfusion_torch.kernels import em_sampler, fused_mlp, fused_sketch
+from flowfusion_torch.models.nets import (
+    ScoreMLPConfig,
+    SymplecticMLPConfig,
+    VelocityMLPConfig,
+    init_score_mlp,
+    init_symplectic_mlp,
+    init_velocity_mlp,
+)
 from flowfusion_torch.models.score import ScoreModel
 from flowfusion_torch.ops.sde import VESDE, VPSDE
 
@@ -170,3 +179,106 @@ def test_fused_velocity_matches_plain_version(cuda_device, mode):
     assert _rel(out[0], ref[0]) <= 1e-5
     if mode != "forward":
         assert _rel(out[1], ref[1]) <= 1e-4
+
+
+def _net(family, d, c, device, seed):
+    if family == "drift":
+        cfg = ScoreMLPConfig(n_dimensions=d, n_conditionals=c, units=(128, 128, 128))
+        return cfg, init_score_mlp(cfg, torch.Generator().manual_seed(seed), device)
+    cfg = VelocityMLPConfig(target_dimension=d, conditional_dimension=c, hidden_units=(128, 128))
+    return cfg, init_velocity_mlp(cfg, torch.Generator().manual_seed(seed), device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("family", ["drift", "velocity"])
+def test_tangents_kernel_matches_plain_version(cuda_device, family):
+    """Mode tangents, K = 3, a conditional net (D = 6, C = 3), 1,003 rows."""
+    cfg, params = _net(family, 6, 3, cuda_device, 10)
+    g = torch.Generator().manual_seed(11)
+    x, cond = (torch.randn(1003, n, generator=g).to(cuda_device) for n in (6, 3))
+    V = torch.randn(3, 1003, 6, generator=g).to(cuda_device)
+    if family == "drift":
+        fn, before = fused_mlp.fused_drift_tangents, fused_mlp.fused_drift_tangents.launches
+        out = fn(params, cfg, 0.4, x, V, cond, c0=-0.2, c1=0.8)
+        ref = fused_mlp.fused_drift_tangents_reference(params, cfg, 0.4, x, V, cond, c0=-0.2, c1=0.8)
+    else:
+        fn, before = fused_mlp.fused_velocity_tangents, fused_mlp.fused_velocity_tangents.launches
+        out = fn(params, cfg, 0.4, x, V, cond)
+        ref = fused_mlp.fused_velocity_tangents_reference(params, cfg, 0.4, x, V, cond)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    assert out[0].shape == (6, 1003) and len(out[1]) == 3
+    for o, r in zip([out[0]] + out[1], [ref[0]] + ref[1]):
+        assert _rel(o, r) <= 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("family", ["drift", "velocity"])
+@pytest.mark.parametrize("mode", ["hutchpp", "xtrace"])
+@pytest.mark.parametrize("d,c", [(2, 0), (6, 3)])
+def test_sketch_kernel_matches_plain_version(cuda_device, family, mode, d, c):
+    """1,001 rows (ragged); Hutch++ with some exactly parallel sketch rows;
+    a row of zero probes stays finite."""
+    cfg, params = _net(family, d, c, cuda_device, 12)
+    g = torch.Generator().manual_seed(13)
+    B, k = 1001, min(d, 3)
+    x = torch.randn(B, d, generator=g).to(cuda_device)
+    cond = torch.randn(B, c, generator=g).to(cuda_device) if c else None
+    if mode == "hutchpp":
+        S, G = (torch.sign(torch.randn(n, B, d, generator=g)) for n in (k, 2))
+        S[1, :100] = S[0, :100]
+        S[:, 7] = 0.0
+        probes = (S.to(cuda_device), G.to(cuda_device))
+    else:
+        O = torch.randn(k, B, d, generator=g)
+        O = O / O.norm(dim=-1, keepdim=True) * d**0.5
+        O[:, 7] = 0.0
+        probes = (O.to(cuda_device),)
+    if family == "drift":
+        fn = fused_sketch.fused_drift_sketch
+        before = fn.launches_by_mode[mode]
+        out = fn(params, cfg, 0.4, x, probes, mode, cond, c0=-0.2, c1=0.8)
+        ref = fused_sketch.fused_drift_sketch_reference(params, cfg, 0.4, x, probes, mode, cond, c0=-0.2, c1=0.8)
+    else:
+        fn = fused_sketch.fused_velocity_sketch
+        before = fn.launches_by_mode[mode]
+        out = fn(params, cfg, 0.4, x, probes, mode, cond)
+        ref = fused_sketch.fused_velocity_sketch_reference(params, cfg, 0.4, x, probes, mode, cond)
+    torch.cuda.synchronize()
+    assert fn.launches_by_mode[mode] == before + 1
+    assert bool(torch.isfinite(out[1]).all())
+    assert _rel(out[0], ref[0]) <= 1e-5
+    assert float((out[1] - ref[1]).abs().max()) <= 2e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c", [0, 3])
+def test_symplectic_kernel_matches_plain_version(cuda_device, c):
+    cfg = SymplecticMLPConfig(n_data_dims=2, n_conditionals=c, units=(128, 128))
+    params = init_symplectic_mlp(cfg, torch.Generator().manual_seed(14), cuda_device)
+    g = torch.Generator().manual_seed(15)
+    state = torch.randn(2005, 4, generator=g).to(cuda_device)
+    cond = torch.randn(2005, c, generator=g).to(cuda_device) if c else None
+    before = fused_mlp.fused_symplectic_velocity.launches
+    out = fused_mlp.fused_symplectic_velocity(params, cfg, 0.43, state, cond)
+    ref = fused_mlp.fused_symplectic_velocity_reference(params, cfg, 0.43, state, cond)
+    torch.cuda.synchronize()
+    assert fused_mlp.fused_symplectic_velocity.launches == before + 2  # one launch a stack
+    assert _rel(out, ref) <= 1e-5
+
+
+@pytest.mark.gpu
+def test_auto_dispatch_on_card_raises_outside_sketch_plan(cuda_device):
+    """The sketch kernel's per-row algebra takes D <= 8: auto dispatch on the
+    card raises for D = 9 instead of running the plain path, which runs only
+    when asked for."""
+    cfg = ScoreMLPConfig(n_dimensions=9, units=(64,))
+    model = ScoreModel(init_score_mlp(cfg, torch.Generator().manual_seed(0), cuda_device), cfg, VESDE(),
+                       trace_mode="xtrace", xt_vecs=2)
+    x = torch.randn(8, 9, generator=torch.Generator().manual_seed(1)).to(cuda_device)
+    gen = torch.Generator().manual_seed(2)
+    with pytest.raises(ValueError, match="use_fused_kernel=False"):
+        model.log_prob(x, generator=gen)
+    before = fused_sketch.fused_drift_sketch.launches
+    lp, _ = dataclasses.replace(model, use_fused_kernel=False).log_prob(x, generator=gen)
+    assert fused_sketch.fused_drift_sketch.launches == before and bool(torch.isfinite(lp).all())

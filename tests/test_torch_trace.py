@@ -1,4 +1,5 @@
-"""flowfusion_torch exact and Hutchinson divergences against the JAX package.
+"""flowfusion_torch exact and Hutchinson divergences against the JAX package
+(Hutch++ and XTrace: tests/test_torch_sketch.py).
 
 Tolerance: <= 1e-5 relative to the divergence's scale (float32 JVPs of
 the same small net on both sides).
@@ -71,10 +72,13 @@ def test_make_probes_and_divergence_fn():
         trace.make_probes("hutchinson", None, x)
     assert trace.divergence_fn("exact") is trace.exact_divergence
     assert trace.divergence_fn("hutchinson") is trace.hutchinson_divergence
+    # the sketch estimators are ported (tests/test_torch_sketch.py)
+    assert trace.divergence_fn("hutchpp") is trace.hutchpp_divergence
+    assert trace.divergence_fn("xtrace") is trace.xtrace_divergence
     for mode in ("hutchpp", "xtrace"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 12"):
-            trace.divergence_fn(mode)
-        with pytest.raises(NotImplementedError, match="item 12"):
+        with pytest.raises(ValueError, match="Generator"):
             trace.make_probes(mode, None, x)
     with pytest.raises(ValueError):
         trace.divergence_fn("nope")
+    with pytest.raises(ValueError):
+        trace.make_probes("nope", None, x)
