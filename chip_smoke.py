@@ -27,6 +27,12 @@ non-zero without the final line):
         reported ungated) and the symplectic velocity (checkpoint, random
         conditional net); then the two-launch path, ops.trace's sketch
         algebra over the tangents kernel, against the one-launch kernel;
+     e. the training kernel (fused_train_epoch, and its symplectic form of
+        two launches) on tables drawn from a seed: the flagship at bs 512 and
+        500, the conditional H=256, flow (mean over dims) and symplectic
+        checkpoints, random width-100 tanh/relu/gelu nets; two chained calls
+        with the EMA on at the JAX package's bars, 100 steps at rtol 1e-4 and
+        bitwise repeatable; CUDA-event times of a 48-step bs-512 epoch;
   2. the likelihood path, flagship model (benchmarks/flagship_ckpt.npz):
      the exact-trace ``log_prob`` at its defaults against the analytic
      mixture density; Hutchinson at rtol 1e-5 with the PI controller through
@@ -51,9 +57,20 @@ non-zero without the final line):
      rtol 1e-5 PI with K = 1 and 4 momentum draws and ``sample`` by 1 and 8
      Euler steps, kernel against plain; leapfrog; rows/s (profiled),
      samples/s and the energy distance of one-step samples to the mixture;
+  10. the training path: (a) the flagship protocol (100,000 DEMO_GMM rows,
+     25/25/50 split, VESDE population 128 x 3, EMA 0.999) with stages
+     (128, 1e-3), (512, 1e-4) x 5 epochs through fit(engine='auto') (the
+     fused engine, one launch an epoch, run twice: bitwise equal) and
+     engine='plain' from the same seed: the loss falls, the last validation
+     losses agree within rtol 0.15, W does not move, epochs/s and rows/s;
+     (b) the committed flagship weights fine-tuned 10 epochs at (512, 1e-5)
+     still give an exact-trace density error <= 3e-3; (c) a run stopped by
+     max_epochs_total and resumed ends bitwise where the uninterrupted run
+     ends, both engines; (d) fit(engine='auto') on the conditional H=256,
+     flow and symplectic checkpoints; a profiled fused epoch;
   7. a ``kernels`` line, printed last: launches on the main paths (each
      path run with the counts set to 0 just before it: phases 2-4, 5, 6,
-     the two-launch path of 1d, 8 and 9), times, bounds and plain times.
+     the two-launch path of 1d, 8, 9 and 10), times, bounds and plain times.
 
 The last line is ``{"ok": true, "device": {...}}``.  Exits with 2 and no
 result when no CUDA card is visible.
@@ -67,6 +84,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -86,6 +104,10 @@ REPLACES_NEW = {
     "fused_velocity_sketch": "flowfusion_tpu/kernels/fused_mlp.py:1112",
     "fused_symplectic_velocity": "flowfusion_tpu/kernels/fused_mlp.py:1182",
 }
+REPLACES_TRAIN = {
+    "fused_train_epoch[float32]": "flowfusion_tpu/kernels/fused_train.py:202",
+    "fused_train_epoch_symplectic": "flowfusion_tpu/kernels/fused_train.py:466",
+}
 EM_STEPS = 100
 
 
@@ -103,13 +125,14 @@ def rel_err(out, ref) -> float:
 
 
 def main() -> int:
+    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card visible; nothing was run", file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
-    from flowfusion_torch.kernels import _build, em_sampler, fused_mlp, fused_sketch
+    from flowfusion_torch.kernels import _build, em_sampler, fused_mlp, fused_sketch, fused_train
     from flowfusion_torch.kernels.em_sampler import fused_em_sample, fused_em_sample_reference
     from flowfusion_torch.kernels.fused_mlp import (
         fused_drift, fused_drift_reference, fused_drift_tangents, fused_symplectic_velocity,
@@ -128,8 +151,12 @@ def main() -> int:
     from flowfusion_torch.ops.sde import VESDE, VPSDE
     from flowfusion_torch.utils.checkpoint import load_npz, read_npz_extra
     from flowfusion_torch.utils.convert import params_from_numpy
-    from flowfusion_torch.utils.data import CONDITIONAL_POP, DEMO_GMM, REFERENCE_GMM
+    from flowfusion_torch import train as train_lib
+    from flowfusion_torch.utils.data import (
+        CONDITIONAL_POP, DEMO_GMM, REFERENCE_GMM, standardization_stats, train_val_test_split,
+    )
     from flowfusion_torch.utils.stats import energy_distance
+    from flowfusion_torch.utils.tree import leaves_with_paths
 
     dev = torch.device("cuda")
 
@@ -375,6 +402,7 @@ def main() -> int:
         fused_mlp.reset_launch_counts()
         fused_sketch.reset_launch_counts()
         em_sampler.reset_launch_counts()
+        fused_train.reset_launch_counts()
 
     def read_counts():
         return {
@@ -388,6 +416,8 @@ def main() -> int:
             **{f"fused_drift_sketch[{m}]": n for m, n in fused_drift_sketch.launches_by_mode.items()},
             **{f"fused_velocity_sketch[{m}]": n for m, n in fused_velocity_sketch.launches_by_mode.items()},
             "fused_symplectic_velocity": fused_symplectic_velocity.launches,
+            "fused_train_epoch[float32]": fused_train.fused_train_epoch.launches,
+            "fused_train_epoch_symplectic": fused_train.fused_train_epoch_symplectic.launches,
         }
 
     # -- phase 1d: tangents, sketch and symplectic kernels against their plain
@@ -661,6 +691,146 @@ def main() -> int:
         plain_ms = median_ms(plain_call, n=5, warmup=1)
         new_timing[name] = dict(ms=ms, plain_ms=plain_ms, **bound(flops, nbytes))
         emit("new_kernel_time", entry=name, rows=B, card=smi, **new_timing[name], flops=flops, bytes=nbytes)
+
+    # -- phase 1e: the training kernel against its plain version -----------
+    # Tables fixed from a seed, each case's own table builder on its own data
+    # (standardized with the checkpoint's statistics): a first call of 4 steps
+    # with the EMA on, then 4 more steps chained on its state, against the
+    # plain version on the same inputs, at the JAX package's bars
+    # (tests/test_fused_train.py:89-152, :784): losses rtol 1e-5, layers atol
+    # 3e-5 after the first call and 5e-5 chained, symplectic 3e-4.
+    def train_data(kind, steps, B, g):
+        """(tables, conditional tables or None) of ``steps`` x ``B`` rows."""
+        n = steps * B
+        if kind == "flagship":
+            xb = ((DEMO_GMM.sample(g, n, device=dev) - flag_std[0]) / flag_std[1]).reshape(steps, B, 2)
+            return dict(zip(("xt", "zw", "t", "beta"), fused_train.train_tables(VESDE(), g, xb, False))), None
+        if kind == "conditional":
+            sh, sc, csh, csc = cond_std["conditional_ckpt_h256.npz"]
+            theta, c = CONDITIONAL_POP.sample(g, n, device=dev)
+            xb = ((theta - sh) / sc).reshape(steps, B, 6)
+            tabs = fused_train.train_tables(VPSDE(), g, xb, True)
+            return dict(zip(("xt", "zw", "t", "beta"), tabs)), ((c - csh) / csc).reshape(steps, B, 3)
+        if kind == "flow":
+            xb = ((REFERENCE_GMM.sample(g, n, device=dev) - flow_std[0]) / flow_std[1]).reshape(steps, B, 2)
+            return dict(zip(("xt", "zw", "t", "beta"), fused_train.train_tables_flow(g, xb))), None
+        if kind == "symplectic":
+            xb = ((DEMO_GMM.sample(g, n, device=dev) - sym_model.shift) / sym_model.scale).reshape(steps, B, 2)
+            return dict(zip(("xt_q", "zw_q", "xt_p", "zw_p", "t"), fused_train.train_tables_symplectic(g, xb))), None
+        xb = torch.randn(steps, B, 3, generator=g).to(dev)
+        return dict(zip(("xt", "zw", "t", "beta"), fused_train.train_tables(VPSDE(), g, xb, True))), None
+
+    def train_max_err(a, b):
+        """Largest absolute difference over every layer stack of two trees."""
+        return max(float((x - y).abs().max()) for k in ("layers", "q_layers", "p_layers") if k in a
+                   for la, lb in zip(a[k], b[k]) for x, y in zip(la.values(), lb.values()))
+
+    cond256 = cond_nets["conditional_ckpt_h256.npz"]
+    train_cases = [("flagship", "flagship", flag_params, flag_cfg, 512, {}),
+                   ("flagship", "flagship", flag_params, flag_cfg, 500, {}),
+                   ("conditional_ckpt_h256.npz", "conditional", *cond256, 512, {}),
+                   ("flow_ckpt.npz", "flow", flow_params, flow_cfg, 512, {"mean_over_dims": True}),
+                   ("symplectic_ckpt.npz", "symplectic", sym_model.params, sym_model.net, 512, {})]
+    for act in ("tanh", "relu", "gelu"):
+        cfg = ScoreMLPConfig(n_dimensions=3, units=(100, 100, 100), activation=act)
+        train_cases.append((f"random_{act}", "random", init_score_mlp(cfg, gen(23), dev), cfg, 512, {}))
+    train_err = {"fused_train_epoch[float32]": 0.0, "fused_train_epoch_symplectic": 0.0}
+    for name, kind, params, cfg, B, kw in train_cases:
+        tabs, cond = train_data(kind, 8, B, gen(B + 17))
+        sympl = kind == "symplectic"
+        fn = fused_train.fused_train_epoch_symplectic if sympl else fused_train.fused_train_epoch
+        ref_fn = (fused_train.fused_train_epoch_symplectic_reference if sympl
+                  else fused_train.fused_train_epoch_reference)
+        halves = [{k: v[sl] for k, v in tabs.items()} for sl in (slice(0, 4), slice(4, 8))]
+        conds = [None, None] if cond is None else [cond[:4], cond[4:]]
+        outs, refs = [], []
+        for f, acc in ((fn, outs), (ref_fn, refs)):
+            before = fn.launches
+            o1 = f(params, cfg, None, lr=1e-3, ema_decay=0.99, conditional=conds[0], **halves[0], **kw)
+            o2 = f(o1[0], cfg, o1[1], lr=1e-3, ema=o1[2], ema_decay=0.99, conditional=conds[1], **halves[1], **kw)
+            acc += [o1, o2, fn.launches - before]
+        torch.cuda.synchronize()
+        check(outs[2] == (4 if sympl else 2) and refs[2] == 0,
+              f"training kernel {name}: {outs[2]} launches for two calls")
+        loss_rel = max(float(((o[3] - r[3]).abs() / r[3].abs()).max()) for o, r in zip(outs[:2], refs[:2]))
+        first = max(train_max_err(outs[0][0], refs[0][0]), train_max_err(outs[0][2], refs[0][2]))
+        chained = max(train_max_err(outs[1][0], refs[1][0]), train_max_err(outs[1][2], refs[1][2]))
+        bar_first, bar_chained = (3e-4, 3e-4) if sympl else (3e-5, 5e-5)
+        check(loss_rel <= 1e-5, f"training kernel {name} B={B}: losses deviate {loss_rel:.2e} > 1e-5")
+        check(first <= bar_first, f"training kernel {name} B={B}: layers deviate {first:.2e} > {bar_first}")
+        check(chained <= bar_chained, f"training kernel {name} B={B}: chained state deviates {chained:.2e}")
+        key = "fused_train_epoch_symplectic" if sympl else "fused_train_epoch[float32]"
+        if name in ("flagship", "symplectic_ckpt.npz") and B == 512:
+            train_err[key] = max(first, chained)
+        emit("train_kernel_vs_plain", net=name, rows=B, steps=8, calls=2, launches=outs[2], loss_rel=loss_rel,
+             layers_max_abs_first=first, layers_max_abs_chained=chained)
+
+    # 100 steps at bs 512: the losses within rtol 1e-4, the largest parameter
+    # deviation reported
+    tabs, _ = train_data("flagship", 100, 512, gen(100))
+    out = fused_train.fused_train_epoch(flag_params, flag_cfg, lr=1e-3, **tabs)
+    ref = fused_train.fused_train_epoch_reference(flag_params, flag_cfg, lr=1e-3, **tabs)
+    torch.cuda.synchronize()
+    loss_rel = float(((out[3] - ref[3]).abs() / ref[3].abs()).max())
+    check(loss_rel <= 1e-4, f"training kernel, 100 steps: losses deviate {loss_rel:.2e} > 1e-4")
+    a = fused_train.fused_train_epoch(flag_params, flag_cfg, lr=1e-3, **tabs)
+    bitwise = all(torch.equal(x, y) for la, lb in zip(out[0]["layers"], a[0]["layers"])
+                  for x, y in zip(la.values(), lb.values())) and torch.equal(out[3], a[3])
+    check(bitwise, "training kernel: two launches on the same inputs differ")
+    emit("train_kernel_100_steps", net="flagship", rows=512, steps=100, loss_rel=loss_rel,
+         layers_max_abs=train_max_err(out[0], ref[0]), repeat_bitwise_equal=bitwise)
+
+    # times of a 48-step epoch at bs 512, EMA on: the launch alone on state
+    # packed as the wrapper packs it, and the plain version's whole call
+    def packed_state(layers, cfg):
+        K, H, _, D = fused_train._dims(cfg)
+        flat = fused_train._pack([(l["w"], l["b"]) for l in layers], K, H, D)
+        return [flat, torch.zeros_like(flat), torch.zeros_like(flat), flat.clone()]
+
+    def real_params(layers):
+        return sum(p.numel() for l in layers for p in l.values())
+
+    train_timing = {}
+    tabs, _ = train_data("flagship", 48, 512, gen(48))
+    plan = fused_train.train_plan(flag_cfg)
+    state = packed_state(flag_params["layers"], flag_cfg)
+    train_ms = median_ms(lambda: fused_train.launch_packed(
+        flag_cfg, plan, tabs["xt"], tabs["zw"], tabs["t"], tabs["beta"], None, flag_params["W"], *state, 0, 1e-4,
+        0.9, 0.999, 1e-8, 0.999, 1 / 512), n=15)
+    train_plain_ms = median_ms(lambda: fused_train.fused_train_epoch_reference(
+        flag_params, flag_cfg, lr=1e-4, ema_decay=0.999, **tabs), n=3, warmup=1)
+    n_flag = real_params(flag_params["layers"])
+    train_bytes = 4 * (48 * 512 * (2 * 2 + 2) + 8 * n_flag + flag_params["W"].numel() + 48)
+    train_flops = fused_train.train_flops(flag_cfg, 48, 512)
+    train_timing["fused_train_epoch[float32]"] = dict(ms=train_ms, plain_ms=train_plain_ms,
+                                                      **bound(train_flops, train_bytes))
+    emit("train_kernel_time", entry="fused_train_epoch[float32]", net="flagship", rows=512, steps=48, ema=True,
+         card=smi, **train_timing["fused_train_epoch[float32]"], flops=train_flops, bytes=train_bytes,
+         grid=fused_train.launch_grid(dev, *plan, 512), rows_per_block=plan[0], us_per_step=train_ms / 48 * 1e3)
+
+    tabs, _ = train_data("symplectic", 48, 512, gen(49))
+    half_cfg = fused_train._sympl_half_cfg(sym_model.net)
+    sym_plan = fused_train.train_plan(half_cfg)
+    sym_states = [(packed_state(fused_train._sympl_perm_layer0(sym_model.params[s], 2, 0, 8, False), half_cfg),
+                   tabs[f"xt_{s[0]}"], tabs[f"zw_{s[0]}"], torch.full_like(tabs["t"], sign))
+                  for s, sign in (("q_layers", 1.0), ("p_layers", -1.0))]
+
+    def sym_train_call():
+        for st_, xt_, zw_, beta_ in sym_states:
+            fused_train.launch_packed(half_cfg, sym_plan, xt_, zw_, tabs["t"], beta_, None, sym_model.params["W"],
+                                      *st_, 0, 1e-4, 0.9, 0.999, 1e-8, 0.999, 1 / (512 * 4),
+                                      counter=fused_train.fused_train_epoch_symplectic)
+
+    sym_train_ms = median_ms(sym_train_call, n=15)
+    sym_plain_ms = median_ms(lambda: fused_train.fused_train_epoch_symplectic_reference(
+        sym_model.params, sym_model.net, lr=1e-4, ema_decay=0.999, **tabs), n=3, warmup=1)
+    n_half = real_params(sym_model.params["q_layers"])
+    sym_bytes = 4 * (48 * 512 * (4 * 2 + 1) + 2 * 8 * n_half + sym_model.params["W"].numel() + 48)
+    sym_flops = 2 * fused_train.train_flops(half_cfg, 48, 512)
+    train_timing["fused_train_epoch_symplectic"] = dict(ms=sym_train_ms, plain_ms=sym_plain_ms,
+                                                        **bound(sym_flops, sym_bytes))
+    emit("train_kernel_time", entry="fused_train_epoch_symplectic", net="symplectic_ckpt.npz", rows=512, steps=48,
+         ema=True, card=smi, **train_timing["fused_train_epoch_symplectic"], flops=sym_flops, bytes=sym_bytes)
 
     def timed(fn, count):
         """(fn(), launches it made by ``count``, seconds to its end on the card)."""
@@ -1052,6 +1222,131 @@ def main() -> int:
          one_step_samples_per_s=N / statistics.median(secs_all), energy_distance=energy, card=smi)
     emit("symplectic_path_launches", **sym_counts)
 
+    # -- phase 10: the training path at full width, launches counted from zero
+    def train_launches():
+        return fused_train.fused_train_epoch.launches
+
+    def curves(results):
+        return (np.concatenate([r.train_losses for r in results]),
+                np.concatenate([r.val_losses for r in results]))
+
+    def same_model(a, b):
+        return all(torch.equal(x, y) for (_, x), (_, y) in zip(leaves_with_paths(a), leaves_with_paths(b)))
+
+    # (a) the flagship protocol of benchmarks/make_flagship_ckpt.py: 100,000
+    # DEMO_GMM rows, the 25/25/50 split, the training split's statistics, the
+    # population wrapper (VESDE, 128 x 3), EMA 0.999; stages (128, 1e-3) and
+    # (512, 1e-4), 5 epochs each.  fit(engine='auto') takes the fused engine
+    # (twice: the second run is timed warm and must equal the first bitwise),
+    # then engine='plain' from the same seed.
+    g_data = gen(2024)
+    x_tr, x_va, _ = train_val_test_split(g_data, DEMO_GMM.sample(g_data, 100_000, device=dev))
+    shift_tr, scale_tr = standardization_stats(x_tr)
+    pop0 = PopulationModelDiffusion.create(VESDE(), n_dimensions=2, units=(128, 128, 128), shift=shift_tr,
+                                           scale=scale_tr, generator=gen(7), device=dev)
+    W0 = pop0.score_model.params["W"].clone()
+    protocol = dict(stages=((128, 1e-3), (512, 1e-4)), epochs_per_stage=5, ema_decay=0.999)
+    n_tr = x_tr.shape[0]
+    steps_run = 5 * (n_tr // 128) + 5 * (n_tr // 512)
+    rows_run = 5 * (n_tr // 128) * 128 + 5 * (n_tr // 512) * 512
+    check(train_lib._fused_engine_ok(pop0, train_lib._default_loss, "adam", x_tr),
+          "fit(engine='auto') would not take the fused engine for the flagship protocol")
+    reset_counts()
+    (m_f, res_f), n_f, secs_f1 = timed(lambda: train_lib.fit(pop0, cuda_gen(1000), x_tr, x_val=x_va, **protocol),
+                                       train_launches)
+    (m_f2, res_f2), n_f2, secs_f = timed(lambda: train_lib.fit(pop0, cuda_gen(1000), x_tr, x_val=x_va, **protocol),
+                                         train_launches)
+    (m_p, res_p), n_p, secs_p = timed(
+        lambda: train_lib.fit(pop0, cuda_gen(1000), x_tr, x_val=x_va, engine="plain", **protocol), train_launches)
+    (tl_f, vl_f), (tl_p, vl_p) = curves(res_f), curves(res_p)
+    check(n_f == n_f2 == 10 and n_p == 0, f"flagship protocol: {n_f}, {n_f2} fused launches (10 epochs), plain {n_p}")
+    check(same_model(m_f, m_f2) and np.array_equal(tl_f, curves(res_f2)[0]), "two fused runs from one seed differ")
+    check(bool(np.isfinite(tl_f).all() and np.isfinite(tl_p).all()), "flagship protocol: non-finite losses")
+    check(tl_f[-1] < tl_f[0] and tl_p[-1] < tl_p[0], "flagship protocol: the train loss did not fall")
+    val_rel = abs(vl_f[-1] - vl_p[-1]) / abs(vl_p[-1])
+    check(val_rel <= 0.15, f"flagship protocol: last val losses fused {vl_f[-1]:.4f} plain {vl_p[-1]:.4f}")
+    check(torch.equal(m_f.score_model.params["W"], W0) and torch.equal(m_p.score_model.params["W"], W0),
+          "flagship protocol: W moved")
+    engines = {}
+    for name, secs in (("fused", secs_f), ("plain", secs_p)):
+        engines[name] = dict(seconds=secs, ms_per_epoch=secs / 10 * 1e3, steps_per_s=steps_run / secs,
+                             train_rows_per_s=rows_run / secs)
+    engines["fused"]["seconds_first_run"] = secs_f1
+    emit("train_flagship_protocol", rows=n_tr, epochs=10, steps=steps_run, launches_fused=n_f, card=smi,
+         train_loss_fused=[float(tl_f[0]), float(tl_f[-1])], train_loss_plain=[float(tl_p[0]), float(tl_p[-1])],
+         val_loss_last_fused=float(vl_f[-1]), val_loss_last_plain=float(vl_p[-1]), val_rel_diff=val_rel,
+         engines=engines)
+
+    # (b) fine-tune the committed flagship weights for 10 epochs at
+    # (512, 1e-5), EMA 0.999, on the fused engine; the result still serves:
+    # the exact-trace density at the log_prob defaults on 25,000 rows
+    pop_flag = PopulationModelDiffusion(ScoreModel(flag_params, flag_cfg, VESDE()), flag_std[0], flag_std[1],
+                                        None, None)
+    (m_ft, _), n_ft, secs_ft = timed(lambda: train_lib.fit(
+        pop_flag, cuda_gen(1001), x_tr, x_val=x_va, stages=[(512, 1e-5)], epochs_per_stage=10, ema_decay=0.999),
+        train_launches)
+    check(n_ft == 10, f"fine-tune: {n_ft} fused launches for 10 epochs")
+    x_raw = DEMO_GMM.sample(gen(99), 25_000, device=dev)
+    lp, st = m_ft.score_model.log_prob((x_raw - m_ft.shift) / m_ft.scale)
+    total = float((lp - torch.log(m_ft.scale).sum()).double().sum())
+    truth = float(DEMO_GMM.log_prob(x_raw.double()).sum())
+    rel = abs(total - truth) / abs(truth)
+    check(st.succeeded and rel <= 3e-3, f"fine-tuned flagship density error {rel:.3e} > 3e-3")
+    emit("train_flagship_finetune", epochs=10, rows=n_tr, launches=n_ft, seconds=secs_ft, density_rel_error=rel,
+         nfe=st.n_func_evals)
+
+    # (c) exact resume: stopped by max_epochs_total mid-stage, resumed with a
+    # generator in another state, bitwise equal to the uninterrupted run, on
+    # both engines (6,400 training rows)
+    resume = {}
+    small = dict(stages=((128, 1e-3), (512, 1e-4)), epochs_per_stage=2, ema_decay=0.999, checkpoint_every=1)
+    for eng in ("auto", "plain"):
+        m_u, r_u = train_lib.fit(pop0, cuda_gen(1002), x_tr[:6400], engine=eng, **small)
+        with tempfile.TemporaryDirectory() as tmp:
+            _, r_h = train_lib.fit(pop0, cuda_gen(1002), x_tr[:6400], engine=eng, checkpoint_dir=tmp,
+                                   max_epochs_total=3, **small)
+            m_r, r_r = train_lib.fit(pop0, cuda_gen(5), x_tr[:6400], engine=eng, checkpoint_dir=tmp,
+                                     **small)
+        ok = same_model(m_r, m_u) and all(np.array_equal(a, b, equal_nan=True)
+                                          for a, b in zip(curves(r_r), curves(r_u)))
+        check(ok and [len(r.train_losses) for r in r_h] == [2, 1], f"resume ({eng}): not bitwise the uninterrupted run")
+        resume[eng] = ok
+    emit("train_exact_resume", stopped_after_epochs=3, bitwise_equal=resume)
+
+    # (d) the other families on fit(engine='auto'), 3 epochs at (512, 1e-4):
+    # the conditional population (VPSDE, no_sigma, H = 256) from its
+    # checkpoint, the flow and the symplectic checkpoints (2 launches an epoch)
+    cpop, _ = PopulationModelDiffusion.from_conditional_npz(os.path.join(BENCH, "conditional_ckpt_h256.npz"),
+                                                            device=dev)
+    theta_c, c_c = CONDITIONAL_POP.sample(gen(2100), 20_000, device=dev)
+    families = {}
+    for name, model, x, c, count, per_epoch in (
+        ("conditional_ckpt_h256.npz", cpop, theta_c, c_c, train_launches, 1),
+        ("flow_ckpt.npz", flow, REFERENCE_GMM.sample(gen(2101), 20_000, device=dev), None, train_launches, 1),
+        ("symplectic_ckpt.npz", sym_model, DEMO_GMM.sample(gen(2102), 20_000, device=dev), None,
+         lambda: fused_train.fused_train_epoch_symplectic.launches, 2),
+    ):
+        (m_d, r_d), n_d, secs_d = timed(lambda: train_lib.fit(model, cuda_gen(1004), x, c, stages=[(512, 1e-4)],
+                                                    epochs_per_stage=3, ema_decay=0.999), count)
+        check(n_d == 3 * per_epoch, f"{name}: {n_d} launches for 3 epochs")
+        check(bool(np.isfinite(r_d[0].train_losses).all()), f"{name}: non-finite train losses")
+        families[name] = dict(launches=n_d, seconds=secs_d, train_losses=r_d[0].train_losses.tolist())
+    emit("train_families", epochs=3, batch=512, rows=20_000, **families)
+
+    # where the time of a fused epoch goes: one (512, 1e-4) epoch of the
+    # protocol (tables on the card, one launch, no validation), profiled
+    def one_epoch():
+        return train_lib.fit(pop0, cuda_gen(1005), x_tr, stages=[(512, 1e-4)], epochs_per_stage=1)
+
+    epoch_s = statistics.median([timed(one_epoch, lambda: 0)[2] for _ in range(5)])
+    _, prof_stats = profiled(one_epoch, "fused_train", epoch_s)
+    emit("train_epoch_profile", rows=n_tr, batch=512, steps=n_tr // 512, seconds_unprofiled_median=epoch_s,
+         profile=prof_stats or "not measured: the profiler saw no CUDA time")
+    train_counts = read_counts()
+    for key in ("fused_train_epoch[float32]", "fused_train_epoch_symplectic"):
+        check(train_counts[key] > 0, f"{key} was never launched on the training path")
+    emit("training_path_launches", **train_counts)
+
     # -- phase 7: the kernels line ------------------------------------------
     # no single PyTorch call computes any of these functions (a fused MLP with
     # its divergence, its Jacobian-vector columns or its sketch estimate; the
@@ -1083,6 +1378,9 @@ def main() -> int:
         ("fused_symplectic_velocity", src_mlp, sym_counts, sym_err),
     ):
         kernels.append(entry(name, source, REPLACES_NEW[name.split("[")[0]], counts[name], err, new_timing[name]))
+    for name in ("fused_train_epoch[float32]", "fused_train_epoch_symplectic"):
+        kernels.append(entry(name, "flowfusion_torch/csrc/fused_train.cu", REPLACES_TRAIN[name], train_counts[name],
+                             train_err[name], train_timing[name]))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({
         "ok": True,

@@ -25,7 +25,7 @@ __all__ = ["SOURCES", "build", "build_all", "load"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "flowfusion_torch"
-SOURCES = ("fused_mlp", "em_sampler", "fused_sketch")
+SOURCES = ("fused_mlp", "em_sampler", "fused_sketch", "fused_train")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",

@@ -28,6 +28,7 @@ import torch
 from .._device import DeviceLike, resolve_device, strict_fp32_matmul
 from ..kernels.fused_mlp import fusable_config, fused_velocity, supports_features
 from ..kernels.fused_sketch import fused_velocity_sketch, supports_sketch
+from ..ops import losses as losses_lib
 from ..ops import trace as trace_lib
 from ..ops.integrate import SolverStats, odeint
 from ..utils.checkpoint import load_npz, read_npz_extra
@@ -189,11 +190,25 @@ class ODEFlow:
         x0 = (x0 - self.target_shift) / self.target_scale
         return (1.0 - t) * x0 + t * xT, xT - x0
 
-    def flow_matching_loss(self, *args, **kwargs):
-        raise _common.not_ported("ODEFlow.flow_matching_loss (training)", "item 9")
+    def flow_matching_loss(
+        self,
+        generator: Optional[torch.Generator],
+        x: torch.Tensor,
+        conditional: Optional[torch.Tensor] = None,
+    ) -> torch.Tensor:
+        """The CFM loss on data-unit ``x``, standardized here; the
+        conditional is standardized inside the dynamics."""
+        x_std = (x - self.target_shift) / self.target_scale
+        return losses_lib.flow_matching_loss(self.dynamics, generator, x_std, conditional)
 
-    def loss_fn(self, *args, **kwargs):
-        raise _common.not_ported("ODEFlow.loss_fn (training)", "item 9")
+    def loss_fn(
+        self,
+        generator: Optional[torch.Generator],
+        x: torch.Tensor,
+        conditional: Optional[torch.Tensor] = None,
+    ) -> torch.Tensor:
+        """The default training loss (``train.fit``): the CFM loss."""
+        return self.flow_matching_loss(generator, x, conditional)
 
     def log_prob_per_sample(self, *args, **kwargs):
         raise _common.not_ported("per-sample stepping (odeint_per_sample)", "item 13")

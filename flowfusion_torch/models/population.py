@@ -122,8 +122,16 @@ class PopulationModelDiffusion:
     def _norm_cond(self, conditional):
         return _common.norm_cond(conditional, self.conditional_shift, self.conditional_scale)
 
-    def loss_fn(self, *args, **kwargs):
-        raise _common.not_ported("PopulationModelDiffusion.loss_fn (training)", "item 9")
+    def loss_fn(
+        self,
+        generator: Optional[torch.Generator],
+        x: torch.Tensor,
+        conditional: Optional[torch.Tensor] = None,
+    ) -> torch.Tensor:
+        """The DSM loss on standardized data and conditionals: the training
+        entry point."""
+        x_std = (x - self.shift) / self.scale
+        return self.score_model.loss_fn(generator, x_std, self._norm_cond(conditional))
 
     def sample_sde(
         self,

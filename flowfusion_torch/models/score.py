@@ -11,6 +11,7 @@ Parity contract (as the JAX package):
     t: epsilon -> 1.0 at atol=rtol=1e-5 with probes drawn once per solve;
   * ``log_prob`` defaults atol=rtol=1e-4 with min_step=1e-6 and adds the
     prior term sum_d log N(x_T);
+  * ``loss_fn`` is the denoising score-matching loss (training);
   * ``sample_sde``/``sample_pc`` run reverse-time Euler--Maruyama from T
     to epsilon and return an ``EMResult`` whose ``x_mean`` is the
     reference's sample; ``sample_sde_fused`` runs the same loop in one
@@ -37,6 +38,7 @@ from .._device import strict_fp32_matmul
 from ..kernels.em_sampler import fused_em_sample
 from ..kernels.fused_mlp import fused_drift, fusable_config, supports_features
 from ..kernels.fused_sketch import fused_drift_sketch, supports_sketch
+from ..ops import losses as losses_lib
 from ..ops import trace as trace_lib
 from ..ops.integrate import EMResult, SolverStats, euler_maruyama, odeint
 from ..ops.integrate.tableaus import ADAPTIVE_TABLEAUS
@@ -144,8 +146,15 @@ class ScoreModel:
         g = self.sde.diffusion(t, x)
         return self.sde.drift(t, x) - 0.5 * g**2 * self.score(t, x, conditional)
 
-    def loss_fn(self, *args, **kwargs):
-        raise _common.not_ported("ScoreModel.loss_fn (training)", "item 9")
+    def loss_fn(
+        self,
+        generator: Optional[torch.Generator],
+        x: torch.Tensor,
+        conditional: Optional[torch.Tensor] = None,
+    ) -> torch.Tensor:
+        """Denoising score-matching loss, its (t, z) drawn from
+        ``generator`` (``ops.losses.denoising_score_matching``)."""
+        return losses_lib.denoising_score_matching(self.score, self.sde, generator, x, conditional)
 
     def sample_dpm(self, *args, **kwargs):
         raise _common.not_ported("ScoreModel.sample_dpm (ops/integrate/dpm.py)", "item 13")

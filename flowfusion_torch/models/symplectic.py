@@ -31,6 +31,7 @@ import torch
 
 from .._device import DeviceLike, resolve_device, strict_fp32_matmul
 from ..kernels.fused_mlp import fusable_config, fused_symplectic_velocity, supports_features
+from ..ops import losses as losses_lib
 from ..ops.integrate import SolverStats, leapfrog, odeint, odeint_fixed
 from ..utils.checkpoint import load_npz, read_npz_extra
 from ..utils.convert import params_from_numpy
@@ -172,8 +173,18 @@ class SymplecticFlowModel:
         conditional."""
         return self.net.apply(self.params, t, state, conditional)
 
-    def loss_fn(self, *args, **kwargs):
-        raise _common.not_ported("SymplecticFlowModel.loss_fn (training)", "item 9")
+    def loss_fn(
+        self,
+        generator: Optional[torch.Generator],
+        x: torch.Tensor,
+        conditional: Optional[torch.Tensor] = None,
+    ) -> torch.Tensor:
+        """Flow matching on the joint (q, p) state: the standardized data q0
+        with an auxiliary momentum p0 ~ N(0, 1) at t = 0 (drawn first from
+        ``generator``), joint N(0, 1) at t = 1."""
+        q0 = (x - self.shift) / self.scale
+        s0 = torch.cat([q0, losses_lib._normal_like(generator, q0)], dim=-1)
+        return losses_lib.flow_matching_loss(self.dynamics, generator, s0, self._norm_cond(conditional))
 
     def log_prob_per_sample(self, *args, **kwargs):
         raise _common.not_ported("per-sample stepping (odeint_per_sample)", "item 13")

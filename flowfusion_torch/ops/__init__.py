@@ -1,4 +1,4 @@
-"""Mathematical primitives of the port: SDEs, trace estimators, solvers."""
+"""Mathematical primitives of the port: SDEs, trace estimators, solvers, losses."""
 
 from .sde import SDE, SUBVPSDE, VESDE, VPSDE
 

@@ -1,1 +1,2 @@
-"""Checkpoint reading, weight conversion, toy data and two-sample statistics."""
+"""Checkpoints (read and written), trees of tensors, weight conversion, toy
+data and two-sample statistics."""

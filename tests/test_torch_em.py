@@ -215,7 +215,7 @@ def test_fused_em_sample_on_cpu_runs_the_plain_version():
 def test_library_path_hashes_the_shared_header(tmp_path, monkeypatch):
     """Every source includes csrc/mlp_tile.cuh: editing it must change
     every library's build key, or a stale library would load."""
-    assert _build.SOURCES == ("fused_mlp", "em_sampler", "fused_sketch")
+    assert _build.SOURCES == ("fused_mlp", "em_sampler", "fused_sketch", "fused_train")
     for f in _build.CSRC.iterdir():
         (tmp_path / f.name).write_bytes(f.read_bytes())
     monkeypatch.setattr(_build, "CSRC", tmp_path)

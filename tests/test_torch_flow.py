@@ -203,8 +203,10 @@ def test_flow_create_and_refusals(flow_pair):
                        generator=torch.Generator().manual_seed(0), device="cpu")
     assert m.params["layers"][0]["w"].shape == (4, 16) and m.conditional_scale.shape == (1,)
     x = torch.zeros(4, 2)
+    # training is ported: both loss entries draw the same from equal seeds
+    losses = [fn(torch.Generator().manual_seed(0), x) for fn in (tm.flow_matching_loss, tm.loss_fn)]
+    assert torch.isfinite(losses[0]) and torch.equal(losses[0], losses[1])
     for call, item in (
-        (lambda: tm.flow_matching_loss(x), "item 9"), (lambda: tm.loss_fn(x), "item 9"),
         (lambda: dataclasses.replace(tm, trace_mode="xtrace").log_prob(x, adjoint=True), "item 13"),
         (lambda: tm.sample(x, gradients=True), "item 13"), (lambda: tm.log_prob(x, adjoint=True), "item 13"),
         (lambda: tm.log_prob_per_sample(x), "item 13"),

@@ -11,7 +11,11 @@ magnitude, TF32 off.  The EM kernel: x and x_mean within rtol 2e-4 / atol
 1e-4 of the plain version on the same noise (tests/test_kernels.py:203-204)
 and the same ``diverged``.  Tangent columns within 1e-5 of their scale; the
 sketch kernel's divergence within 2e-4 absolute (the JAX package's sketch
-bar, tests/test_kernels.py:628); the symplectic field within 1e-5.
+bar, tests/test_kernels.py:628); the symplectic field within 1e-5.  The
+training kernel: losses rtol 1e-5, layers atol 3e-5 (5e-5 chained, 3e-4
+for the symplectic form; tests/test_fused_train.py:89-152, :784), two
+launches bitwise equal, and a resumed ``fit`` bitwise equal to the
+uninterrupted one.
 """
 
 import dataclasses
@@ -282,3 +286,133 @@ def test_auto_dispatch_on_card_raises_outside_sketch_plan(cuda_device):
     before = fused_sketch.fused_drift_sketch.launches
     lp, _ = dataclasses.replace(model, use_fused_kernel=False).log_prob(x, generator=gen)
     assert fused_sketch.fused_drift_sketch.launches == before and bool(torch.isfinite(lp).all())
+
+
+def _train_tables(steps, bs, D, C, device, seed, symplectic=False):
+    g = torch.Generator().manual_seed(seed)
+    names = ("xt_q", "zw_q", "xt_p", "zw_p") if symplectic else ("xt", "zw")
+    out = {k: torch.randn(steps, bs, D, generator=g).to(device) for k in names}
+    out["t"] = (torch.rand(steps, bs, generator=g) * 0.999 + 1e-3).to(device)
+    if not symplectic:
+        out["beta"] = (torch.rand(steps, bs, generator=g) + 0.5).to(device)
+    out["conditional"] = torch.randn(steps, bs, C, generator=g).to(device) if C else None
+    return out
+
+
+def _train_net(family, device, C=0):
+    g = torch.Generator().manual_seed(16)
+    if family == "score":
+        cfg = ScoreMLPConfig(n_dimensions=2, n_conditionals=C, units=(128, 128, 128))
+        return cfg, init_score_mlp(cfg, g, device)
+    if family == "score_odd":  # K = 11, hidden 30 and 18, D = 3: every width padded to 4
+        cfg = ScoreMLPConfig(n_dimensions=3, units=(30, 18), activation="tanh")
+        return cfg, init_score_mlp(cfg, g, device)
+    if family == "velocity":
+        cfg = VelocityMLPConfig(target_dimension=2, conditional_dimension=C, hidden_units=(128, 128))
+        return cfg, init_velocity_mlp(cfg, g, device)
+    cfg = SymplecticMLPConfig(n_data_dims=2, n_conditionals=C, units=(128, 128))
+    return cfg, init_symplectic_mlp(cfg, g, device)
+
+
+def _max_layer_err(a, b):
+    return max(float((x - y).abs().max()) for k in ("layers", "q_layers", "p_layers") if k in a
+               for la, lb in zip(a[k], b[k]) for x, y in zip(la.values(), lb.values()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("family,C,bs", [("score", 0, 512), ("score", 0, 500), ("score", 3, 256),
+                                         ("score_odd", 0, 77), ("velocity", 2, 300), ("symplectic", 0, 512)])
+def test_train_kernel_matches_plain_version(cuda_device, family, C, bs):
+    """Two chained calls of 4 steps with the EMA on, against the plain
+    version at the JAX package's bars: losses rtol 1e-5, layers 3e-5 after
+    one call and 5e-5 chained (3e-4 for the symplectic form); one launch a
+    call (two for the symplectic form)."""
+    from flowfusion_torch.kernels import fused_train as ft
+
+    cfg, params = _train_net(family, cuda_device, C)
+    sympl = family == "symplectic"
+    tab = _train_tables(8, bs, 3 if family == "score_odd" else 2, C, cuda_device, 17, symplectic=sympl)
+    fn = ft.fused_train_epoch_symplectic if sympl else ft.fused_train_epoch
+    ref_fn = ft.fused_train_epoch_symplectic_reference if sympl else ft.fused_train_epoch_reference
+    kw = {"mean_over_dims": True} if family == "velocity" else {}
+    halves = [{k: None if v is None else v[s] for k, v in tab.items()} for s in (slice(0, 4), slice(4, 8))]
+    runs = []
+    for f in (fn, ref_fn):
+        before = fn.launches
+        o1 = f(params, cfg, None, lr=1e-3, ema_decay=0.99, **halves[0], **kw)
+        o2 = f(o1[0], cfg, o1[1], lr=1e-3, ema=o1[2], ema_decay=0.99, **halves[1], **kw)
+        runs.append((o1, o2, fn.launches - before))
+    torch.cuda.synchronize()
+    (k1, k2, n_k), (r1, r2, n_r) = runs
+    assert n_k == (4 if sympl else 2) and n_r == 0
+    for o, r in ((k1, r1), (k2, r2)):
+        torch.testing.assert_close(o[3], r[3], rtol=1e-5, atol=0)
+    assert _max_layer_err(k1[0], r1[0]) <= (3e-4 if sympl else 3e-5)
+    assert max(_max_layer_err(k2[0], r2[0]), _max_layer_err(k2[2], r2[2])) <= (3e-4 if sympl else 5e-5)
+    key = "p_layers" if sympl else "layers"
+    assert k2[0][key][0]["w"].shape == params[key][0]["w"].shape  # padding stripped
+
+
+@pytest.mark.gpu
+def test_train_kernel_is_deterministic(cuda_device):
+    """No float atomics: two launches on the same inputs are bitwise equal."""
+    from flowfusion_torch.kernels import fused_train as ft
+
+    cfg, params = _train_net("score", cuda_device)
+    tab = _train_tables(12, 1000, 2, 0, cuda_device, 18)
+    a, b = (ft.fused_train_epoch(params, cfg, lr=1e-3, ema_decay=0.9, **tab) for _ in range(2))
+    torch.cuda.synchronize()
+    assert torch.equal(a[3], b[3]) and _max_layer_err(a[0], b[0]) == 0.0 and _max_layer_err(a[2], b[2]) == 0.0
+
+
+@pytest.mark.gpu
+def test_train_kernel_raises_instead_of_falling_back(cuda_device):
+    """On CUDA tensors the wrapper launches or raises: float64 tables, and a
+    net whose shared-memory plan does not fit (fit's auto choice raises too,
+    naming engine='plain')."""
+    from flowfusion_torch import train
+    from flowfusion_torch.kernels import fused_train as ft
+    from flowfusion_torch.models.population import PopulationModelDiffusion
+
+    cfg, params = _train_net("score", cuda_device)
+    tab = _train_tables(2, 64, 2, 0, cuda_device, 19)
+    with pytest.raises(ValueError, match="float32"):
+        ft.fused_train_epoch(params, cfg, lr=1e-3, **dict(tab, xt=tab["xt"].double()))
+    wide = ScoreMLPConfig(n_dimensions=2, units=(4096,) * 3)
+    before = ft.fused_train_epoch.launches
+    with pytest.raises(ValueError, match="plan does not fit"):
+        ft.fused_train_epoch(init_score_mlp(wide, torch.Generator().manual_seed(0), cuda_device), wide, lr=1e-3, **tab)
+    pop = PopulationModelDiffusion.create(VESDE(), n_dimensions=2, units=(4096,) * 3, device=cuda_device)
+    with pytest.raises(ValueError, match="engine='plain'"):
+        train.fit(pop, torch.Generator(device=cuda_device).manual_seed(0), torch.randn(64, 2, device=cuda_device),
+                  stages=[(32, 1e-3)], epochs_per_stage=1)
+    assert ft.fused_train_epoch.launches == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("engine", ["auto", "plain"])
+def test_fit_exact_resume_on_the_card(cuda_device, tmp_path, engine):
+    """Stopped by the budget mid-stage and resumed, fit on the card ends
+    bitwise where the uninterrupted run ends; auto takes the fused engine
+    (one launch an epoch)."""
+    from flowfusion_torch import train
+    from flowfusion_torch.kernels import fused_train as ft
+    from flowfusion_torch.models.population import PopulationModelDiffusion
+    from flowfusion_torch.utils.tree import leaves_with_paths
+
+    x = torch.randn(1000, 2, generator=torch.Generator().manual_seed(20)).to(cuda_device)
+    pop = PopulationModelDiffusion.create(VESDE(), n_dimensions=2, units=(128, 128),
+                                          generator=torch.Generator().manual_seed(21), device=cuda_device)
+    kw = dict(stages=[(64, 1e-3), (256, 1e-4)], epochs_per_stage=2, ema_decay=0.99, engine=engine)
+
+    def gen(seed):
+        return torch.Generator(device=cuda_device).manual_seed(seed)
+
+    before = ft.fused_train_epoch.launches
+    m_full, r_full = train.fit(pop, gen(3), x, **kw)
+    assert ft.fused_train_epoch.launches - before == (4 if engine == "auto" else 0)
+    train.fit(pop, gen(3), x, checkpoint_dir=str(tmp_path), max_epochs_total=3, **kw)
+    m_res, r_res = train.fit(pop, gen(99), x, checkpoint_dir=str(tmp_path), **kw)
+    assert all(torch.equal(a, b) for (_, a), (_, b) in zip(leaves_with_paths(m_res), leaves_with_paths(m_full)))
+    for a, b in zip(r_res, r_full):
+        assert list(a.train_losses) == list(b.train_losses)

@@ -46,7 +46,7 @@ def test_no_source_imports_or_names_the_jax_package():
         files += [os.path.join(dirpath, n) for n in names if n.endswith(".py")]
         sources += [os.path.join(dirpath, n) for n in names if n.endswith((".cu", ".cuh"))]
     assert len(files) > 20
-    assert {os.path.basename(p) for p in sources} >= {"fused_mlp.cu", "em_sampler.cu", "fused_sketch.cu", "mlp_tile.cuh"}
+    assert {os.path.basename(p) for p in sources} >= {"fused_mlp.cu", "em_sampler.cu", "fused_sketch.cu", "fused_train.cu", "mlp_tile.cuh"}
     anywhere = re.compile(IMPORTS.pattern + r"|flowfusion_tpu", re.M)
     offenders = [o for path in files for o in _offenders(path, anywhere)]
     offenders += [o for path in sources + [os.path.join(ROOT, "chip_smoke.py")]
