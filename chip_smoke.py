@@ -33,6 +33,12 @@ non-zero without the final line):
         checkpoints, random width-100 tanh/relu/gelu nets; two chained calls
         with the EMA on at the JAX package's bars, 100 steps at rtol 1e-4 and
         bitwise repeatable; CUDA-event times of a 48-step bs-512 epoch;
+     f. compute mode highf32 of fused_mlp.cu (3xTF32 on the tensor cores):
+        fused_drift in every mode on the nets of 1a, fused_velocity, both
+        tangents entries and the symplectic field, against their highf32
+        plain versions and against strict float32 at the JAX package's
+        highf32 bars, the flagship RHS at the bench.py point, a single-TF32
+        trap guard; times of the highf32 launch beside the float32 one;
   2. the likelihood path, flagship model (benchmarks/flagship_ckpt.npz):
      the exact-trace ``log_prob`` at its defaults against the analytic
      mixture density; Hutchinson at rtol 1e-5 with the PI controller through
@@ -68,9 +74,18 @@ non-zero without the final line):
      max_epochs_total and resumed ends bitwise where the uninterrupted run
      ends, both engines; (d) fit(engine='auto') on the conditional H=256,
      flow and symplectic checkpoints; a profiled fused epoch;
+  11. the main path in highf32 (the bench.py configuration): the flagship
+     Hutchinson log_prob at rtol 1e-5 PI against the plain path (equal NFE,
+     mean |dlogp| <= 5e-4), rows/s at 50,000 and 1,000,000 rows beside the
+     float32 kernel's solve and a profile; the conditional checkpoint as
+     ``from_conditional_npz`` serves it; the flagship's exact density and
+     ODE sampling; the flow's Hutchinson, exact density and sampling; the
+     symplectic log_prob; the two-launch XTrace over the highf32 tangents
+     entries; every launch highf32;
   7. a ``kernels`` line, printed last: launches on the main paths (each
      path run with the counts set to 0 just before it: phases 2-4, 5, 6,
-     the two-launch path of 1d, 8, 9 and 10), times, bounds and plain times.
+     the two-launch path of 1d, 8, 9, 10 and, for the highf32 entries, 11),
+     times, bounds and plain times.
 
 The last line is ``{"ok": true, "device": {...}}``.  Exits with 2 and no
 result when no CUDA card is visible.
@@ -90,8 +105,10 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 BENCH = os.path.join(ROOT, "benchmarks")
 
-# NVIDIA H100 SXM data sheet: fp32 outside the tensor cores, HBM3 rate.
+# NVIDIA H100 SXM data sheet: fp32 outside the tensor cores, TF32 on them,
+# HBM3 rate.
 PEAK_FP32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12  # dense, on the tensor cores
 PEAK_BYTES = 3.35e12
 # The Pallas kernels the CUDA kernels replace (kernel bodies / entries).
 REPLACES = "flowfusion_tpu/kernels/fused_mlp.py:475"
@@ -139,6 +156,7 @@ def main() -> int:
         fused_velocity, fused_velocity_reference, fused_velocity_tangents,
     )
     from flowfusion_torch.kernels.fused_sketch import fused_drift_sketch, fused_velocity_sketch
+    from flowfusion_torch.models import nets as nets_lib
     from flowfusion_torch.models.flow import ODEFlow
     from flowfusion_torch.models.nets import (
         ScoreMLPConfig, SymplecticMLPConfig, VelocityMLPConfig, fourier_time_embedding, init_score_mlp,
@@ -841,6 +859,169 @@ def main() -> int:
         torch.cuda.synchronize()
         return out, count() - before, time.perf_counter() - t_start
 
+    # -- phase 1f: the highf32 kernel against its plain version, then strict -
+    # Kernel vs its highf32 plain version (summation order only): drift 1e-5,
+    # div / J v 5e-5.  Against the strict plain version, the JAX package's
+    # highf32 bars: forward and hutchinson 1e-5 (tests/test_kernels.py:
+    # 819-822), exact and tangents 5e-5 / 5e-4 (:903-905).  Trap guard: the
+    # forward drift's deviation from strict is at least 10x below that of a
+    # single-pass TF32 product of the same layers (a kernel that dropped the
+    # lo terms or let the hardware truncate unconverted operands fails it).
+    strict_bar = {"forward": (1e-5, 0), "hutchinson": (1e-5, 1e-5), "exact": (5e-5, 5e-4), "tangents": (5e-5, 5e-4)}
+    hf = dict(compute_dtype="highf32")
+
+    def one_pass(a, b):
+        return fused_mlp.tf32_round(a) @ fused_mlp.tf32_round(b)
+
+    def hf_check(what, out, ref, strict, kind):
+        """Hold a highf32 output list against its plain version and strict."""
+        d_plain = [rel_err(o, r) for o, r in zip(out, ref)]
+        d_strict = [rel_err(o, s) for o, s in zip(out, strict)]
+        check(d_plain[0] <= 1e-5 and max(d_plain[1:], default=0.0) <= 5e-5,
+              f"highf32 {what}: kernel vs its plain version {d_plain}")
+        bars = strict_bar[kind]
+        check(d_strict[0] <= bars[0] and max(d_strict[1:], default=0.0) <= max(bars[1], 1e-30),
+              f"highf32 {what}: kernel vs strict {d_strict} beyond {bars}")
+        return d_plain, d_strict, max(float((o - r).abs().max()) for o, r in zip(out, ref))
+
+    hf_err = {}
+    for name, params, cfg, B in nets:
+        g = gen(B)
+        x = torch.randn(B, cfg.n_dimensions, generator=g).to(dev)
+        c = torch.randn(B, cfg.n_conditionals, generator=g).to(dev) if cfg.n_conditionals else None
+        e = torch.sign(torch.randn(B, cfg.n_dimensions, generator=g)).to(dev)
+        t = torch.tensor(0.37, device=dev)
+        for mode in ("forward", "hutchinson", "exact"):
+            kw = dict(c0=-0.3, c1=0.7, **modes_kw(mode, e))
+            out = as_pair(fused_drift(params, cfg, t, x, c, **kw, **hf))
+            ref = as_pair(fused_drift_reference(params, cfg, t, x, c, **kw, **hf))
+            strict = as_pair(fused_drift_reference(params, cfg, t, x, c, **kw))
+            n = 1 if mode == "forward" else 2
+            d_plain, d_strict, abs_err = hf_check(f"{name} B={B} {mode}", out[:n], ref[:n], strict[:n], mode)
+            fields = {}
+            if mode == "forward":
+                with torch.no_grad():
+                    p1 = -0.3 * x + 0.7 * nets_lib.apply_score_mlp(cfg, params, t, x, c, matmul=one_pass)
+                d_one = rel_err(p1, strict[0])
+                check(d_one >= 10 * d_strict[0], f"highf32 {name}: deviates {d_strict[0]:.2e} from strict, "
+                      f"not 10x below a single TF32 pass ({d_one:.2e})")
+                fields["single_tf32_pass_rel"] = d_one
+            if name == "flagship" and B == 50_000:
+                hf_err[f"fused_drift[{mode}]"] = abs_err
+            emit("highf32_vs_plain", entry="fused_drift", net=name, rows=B, mode=mode, vs_plain_rel=d_plain,
+                 vs_strict_rel=d_strict, max_abs_err=abs_err, **fields)
+
+    # the flagship RHS at the bench.py point (data rows, t = 0.5, the VESDE's
+    # own c0, c1, a Rademacher probe) against the strict plain RHS:
+    # RHS <= 1.2e-4, div <= 3e-4 (bench.py:324-325)
+    x = (DEMO_GMM.sample(gen(81), 50_000, device=dev) - flag_std[0]) / flag_std[1]
+    e = rademacher(gen(82), 50_000, 2)
+    c0, c1 = ScoreModel(flag_params, flag_cfg, VESDE())._fused_coeffs(0.5)
+    out = fused_drift(flag_params, flag_cfg, 0.5, x, e=e, c0=c0, c1=c1, **hf)
+    ref = fused_drift_reference(flag_params, flag_cfg, 0.5, x, e=e, c0=c0, c1=c1)
+    d_rhs, d_div = rel_err(out[0], ref[0]), rel_err(out[1], ref[1])
+    check(d_rhs <= 1.2e-4 and d_div <= 3e-4, f"highf32 at the bench point: rhs {d_rhs:.2e}, div {d_div:.2e}")
+    emit("highf32_bench_point", rows=50_000, rhs_rel=d_rhs, div_rel=d_div)
+
+    # fused_velocity on the flow checkpoint, both tangents entries (K = 3) and
+    # the symplectic field on its checkpoint
+    x = torch.randn(50_000, 2, generator=gen(83)).to(dev)
+    e = rademacher(gen(84), 50_000, 2)
+    V = torch.randn(3, 50_000, 2, generator=gen(85)).to(dev)
+    t = torch.tensor(0.37, device=dev)
+    for mode in ("forward", "hutchinson", "exact"):
+        kw = modes_kw(mode, e)
+        outs = [as_pair(fn(flow_params, flow_cfg, t, x, **kw, **extra))
+                for fn, extra in ((fused_velocity, hf), (fused_velocity_reference, hf), (fused_velocity_reference, {}))]
+        n = 1 if mode == "forward" else 2
+        d_plain, d_strict, hf_err[f"fused_velocity[{mode}]"] = hf_check(
+            f"velocity {mode}", *(o[:n] for o in outs), mode)
+        emit("highf32_vs_plain", entry="fused_velocity", net="flow_ckpt.npz", rows=50_000, mode=mode,
+             vs_plain_rel=d_plain, vs_strict_rel=d_strict, max_abs_err=hf_err[f"fused_velocity[{mode}]"])
+    for entry_name, call in (
+        ("fused_drift_tangents", lambda fn, **k: fn(flag_params, flag_cfg, t, x, V, c0=-0.3, c1=0.7, **k)),
+        ("fused_velocity_tangents", lambda fn, **k: fn(flow_params, flow_cfg, t, x, V, **k)),
+    ):
+        kern_fn, plain_fn = getattr(fused_mlp, entry_name), getattr(fused_mlp, entry_name + "_reference")
+        outs = [[o[0]] + o[1] for o in (call(kern_fn, **hf), call(plain_fn, **hf), call(plain_fn))]
+        d_plain, d_strict, hf_err[entry_name] = hf_check(entry_name, *outs, "tangents")
+        emit("highf32_vs_plain", entry=entry_name, rows=50_000, K=3, vs_plain_rel=d_plain, vs_strict_rel=d_strict,
+             max_abs_err=hf_err[entry_name])
+    state = torch.randn(50_000, 4, generator=gen(86)).to(dev)
+    outs = [[fn(sym_model.params, sym_model.net, t, state, **extra)] for fn, extra in (
+        (fused_symplectic_velocity, hf), (fused_mlp.fused_symplectic_velocity_reference, hf),
+        (fused_mlp.fused_symplectic_velocity_reference, {}))]
+    d_plain, d_strict, hf_err["fused_symplectic_velocity"] = hf_check("symplectic", *outs, "forward")
+    emit("highf32_vs_plain", entry="fused_symplectic_velocity", net="symplectic_ckpt.npz", rows=50_000,
+         vs_plain_rel=d_plain, vs_strict_rel=d_strict, max_abs_err=hf_err["fused_symplectic_velocity"])
+
+    # times at the float32 rows' shapes (50,000 rows, t = 0.5): the highf32
+    # launch beside the float32 launch in turns, on operands prepared as the
+    # wrappers prepare them, and the highf32 plain version's whole call.
+    # Bound: max(bytes / 3.35 TB/s, 3 F_tc / 495 TFLOP/s + F_cc / 67 TFLOP/s)
+    B = 50_000
+    t = torch.tensor(0.5, device=dev)
+    x2h, eh = x2, torch.sign(V[0])
+    e_tan_h = V.permute(1, 0, 2).reshape(B, 6).contiguous()
+
+    def hf_bound(d_in, n_layers, mode, n_tan, nbytes, launches=1):
+        tc, cc = fused_mlp.highf32_flops_per_row(d_in, 2, 128, n_layers, mode, n_tan)
+        t_ops = launches * B * (3 * tc / PEAK_TF32_FLOPS + cc / PEAK_FP32_FLOPS) * 1e3
+        t_bytes = nbytes / PEAK_BYTES * 1e3
+        return dict(bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes else "bytes")
+
+    def launcher(w_in, b_eff, layers, c0c1, mode, counter, e_=None, n_tan=0, dtype="float32"):
+        return lambda: fused_mlp._launch(x2h, e_, w_in, b_eff, layers, c0c1, mode, 2, "silu", counter=counter,
+                                         n_tan=n_tan, compute_dtype=dtype)
+
+    def sym_launch(dtype):
+        def call():
+            for w_in, b_eff, layers, c0c1 in sym_ops:
+                fused_mlp._launch(x2h, None, w_in, b_eff, layers, c0c1, "forward", 2, "silu",
+                                  counter=fused_symplectic_velocity, compute_dtype=dtype)
+        return call
+
+    hf_cases = []  # (name, launch(dtype), highf32 plain call, bound)
+    for mode in ("forward", "hutchinson", "exact"):
+        ee = eh if mode == "hutchinson" else None
+        io = B * 4 * (2 + (2 if ee is not None else 0) + 2 + (0 if mode == "forward" else 1))
+        hf_cases.append((f"fused_drift[{mode}]",
+                         lambda dt, m=mode, ee=ee: launcher(w_in_f, b_eff_f, flag_params["layers"], c_flag, m,
+                                                            fused_drift, ee, dtype=dt)(),
+                         lambda m=mode: fused_drift_reference(flag_params, flag_cfg, t, x2h, c0=0.0, c1=-1.3,
+                                                              **modes_kw(m, eh), **hf),
+                         hf_bound(2, 4, mode, 0, io + w_bytes["flag"])))
+        hf_cases.append((f"fused_velocity[{mode}]",
+                         lambda dt, m=mode, ee=ee: launcher(w_in_fl, b_eff_fl, flow_params["layers"], c_flow, m,
+                                                            fused_velocity, ee, dtype=dt)(),
+                         lambda m=mode: fused_velocity_reference(flow_params, flow_cfg, t, x2h, **modes_kw(m, eh), **hf),
+                         hf_bound(2, 3, mode, 0, io + w_bytes["flow"])))
+    hf_cases += [
+        ("fused_drift_tangents",
+         lambda dt: launcher(w_in_f, b_eff_f, flag_params["layers"], c_flag, "tangents", fused_drift_tangents, e_tan_h,
+                             3, dt)(),
+         lambda: fused_mlp.fused_drift_tangents_reference(flag_params, flag_cfg, t, x2h, V, c0=0.0, c1=-1.3, **hf),
+         hf_bound(2, 4, "tangents", 3, 4 * B * (2 + 6 + 2 + 6) + w_bytes["flag"])),
+        ("fused_velocity_tangents",
+         lambda dt: launcher(w_in_fl, b_eff_fl, flow_params["layers"], c_flow, "tangents", fused_velocity_tangents,
+                             e_tan_h, 3, dt)(),
+         lambda: fused_mlp.fused_velocity_tangents_reference(flow_params, flow_cfg, t, x2h, V, **hf),
+         hf_bound(2, 3, "tangents", 3, 4 * B * (2 + 6 + 2 + 6) + w_bytes["flow"])),
+        ("fused_symplectic_velocity", lambda dt: sym_launch(dt)(),
+         lambda: fused_mlp.fused_symplectic_velocity_reference(sym_model.params, sym_model.net, t, state[:B], **hf),
+         hf_bound(2, 3, "forward", 0, 4 * B * (4 + 4) + w_bytes["sym"], launches=2)),
+    ]
+    hf_timing = {}
+    for name, call, plain_call, bnd in hf_cases:
+        # float32, highf32, highf32, float32: the two compared within one call
+        f32 = [median_ms(lambda: call("float32"), n=15)]
+        hfs = [median_ms(lambda: call("highf32"), n=15) for _ in range(2)]
+        f32.append(median_ms(lambda: call("float32"), n=15))
+        plain_ms = median_ms(plain_call, n=5, warmup=1)
+        hf_timing[name] = dict(ms=statistics.median(hfs), plain_ms=plain_ms, **bnd)
+        emit("highf32_kernel_time", entry=name, rows=B, card=smi, **hf_timing[name], highf32_ms_runs=hfs,
+             float32_ms_runs=f32, float32_ms=statistics.median(f32))
+
     # -- phases 2-4: the likelihood path, launches counted from zero -------
     reset_counts()
 
@@ -939,22 +1120,29 @@ def main() -> int:
     else:
         emit("flagship_hutchinson_profile", device_time="not measured: the profiler saw no CUDA time")
 
-    # 3. the conditional model against the analytic conditional density
-    cmodel, cextra = PopulationModelDiffusion.from_conditional_npz(
+    # 3. the conditional model against the analytic conditional density, in
+    # float32 here (it is served in highf32: phase 11)
+    cmodel_hf, cextra = PopulationModelDiffusion.from_conditional_npz(
         os.path.join(BENCH, "conditional_ckpt.npz"), device=dev)
-    theta, c = CONDITIONAL_POP.sample(gen(9), 20_000, device=dev)
-    (lp, st), launches, secs = counted_solve(lambda: cmodel.log_prob(
-        theta, conditional=c, generator=gen(1), atol=1e-5, rtol=1e-5,
-        volume_corrected=True, options={"controller": "pi"}))
-    check(launches == st.n_func_evals, f"conditional solve: {launches} launches != nfe {st.n_func_evals}")
-    diff = (lp - CONDITIONAL_POP.log_prob(theta, c)).double()
-    bias = float(diff.mean())
-    scatter = float(((diff - bias) ** 2).mean().sqrt())
-    check(abs(bias) <= 0.04, f"conditional offset {bias:+.4f} nats beyond 0.04")
-    check(scatter <= 0.30, f"conditional scatter {scatter:.4f} nats beyond 0.30")
-    emit("conditional_hutchinson", rows=20_000, offset_nats=bias, scatter_nats=scatter,
-         saved_offset_nats=cextra.get("offset_nats_hutch_1e-5"), nfe=st.n_func_evals,
-         launches=launches, seconds=secs)
+
+    def conditional_check(cmodel, phase, count):
+        theta, c = CONDITIONAL_POP.sample(gen(9), 20_000, device=dev)
+        (lp, st), launches, secs = timed(lambda: cmodel.log_prob(
+            theta, conditional=c, generator=gen(1), atol=1e-5, rtol=1e-5,
+            volume_corrected=True, options={"controller": "pi"}), count)
+        check(launches == st.n_func_evals, f"conditional solve: {launches} launches != nfe {st.n_func_evals}")
+        diff = (lp - CONDITIONAL_POP.log_prob(theta, c)).double()
+        bias = float(diff.mean())
+        scatter = float(((diff - bias) ** 2).mean().sqrt())
+        check(abs(bias) <= 0.04, f"conditional offset {bias:+.4f} nats beyond 0.04")
+        check(scatter <= 0.30, f"conditional scatter {scatter:.4f} nats beyond 0.30")
+        emit(phase, rows=20_000, compute_dtype=cmodel.score_model.kernel_compute_dtype, offset_nats=bias,
+             scatter_nats=scatter, saved_offset_nats=cextra.get("offset_nats_hutch_1e-5"), nfe=st.n_func_evals,
+             launches=launches, seconds=secs)
+
+    cmodel = dataclasses.replace(
+        cmodel_hf, score_model=dataclasses.replace(cmodel_hf.score_model, kernel_compute_dtype="float32"))
+    conditional_check(cmodel, "conditional_hutchinson", lambda: fused_drift.launches)
 
     # 4. forward mode: probability-flow sampling, kernel against plain
     z = torch.randn(50_000, 2, generator=gen(5)).to(dev)
@@ -1347,6 +1535,140 @@ def main() -> int:
         check(train_counts[key] > 0, f"{key} was never launched on the training path")
     emit("training_path_launches", **train_counts)
 
+    # -- phase 11: the main path in highf32, launches counted from zero -----
+    # The bench.py configuration: the flagship's Hutchinson log_prob at rtol
+    # 1e-5 with the PI controller, kernel in highf32, against the plain path
+    # with the same probes (equal NFE, mean |dlogp| <= 5e-4, bench.py:326-327);
+    # every launch counted, all highf32.  Then the rows/s at 50k and 1M rows
+    # beside the float32 kernel's solve, in turns; the conditional checkpoint
+    # as from_conditional_npz serves it; the flagship's exact trace and ODE
+    # sampling; the flow and symplectic log_prob; the two-launch sketch form
+    # over the highf32 tangents entries.
+    def dtype_counts():
+        return {fn.__name__: dict(fn.launches_by_dtype) for fn in fused_mlp._COUNTED}
+
+    def hf_launches():
+        return sum(fn.launches_by_dtype["highf32"] for fn in fused_mlp._COUNTED)
+
+    reset_counts()
+    hutch_hf = dataclasses.replace(hutch, kernel_compute_dtype="highf32")
+    xs, probes = hutch_rows(50_000, 0)
+    (lp_k, st_k), launches, secs_k = timed(
+        lambda: hutch_hf.log_prob(xs, probes=probes, atol=1e-5, rtol=1e-5, options=opts), hf_launches)
+    (lp_p, st_p), n_p, secs_p = timed(
+        lambda: plain.log_prob(xs, probes=probes, atol=1e-5, rtol=1e-5, options=opts), hf_launches)
+    check(launches == st_k.n_func_evals and n_p == 0,
+          f"highf32 hutchinson solve: {launches} highf32 launches != nfe {st_k.n_func_evals}")
+    check(st_k.n_func_evals == st_p.n_func_evals,
+          f"highf32 NFE differ: kernel {st_k.n_func_evals} plain {st_p.n_func_evals}")
+    dlp = float((lp_k - lp_p).abs().mean())
+    check(dlp <= 5e-4, f"highf32 kernel vs plain mean |dlogp| {dlp:.2e} > 5e-4")
+    emit("highf32_hutchinson_parity", rows=50_000, nfe=st_k.n_func_evals, nfe_plain=st_p.n_func_evals,
+         mean_abs_dlogp=dlp, launches=launches, seconds_kernel=secs_k, seconds_plain=secs_p)
+
+    hf_solve_s = {}
+    f32_before = fused_drift.launches_by_dtype["float32"]  # the float32 solves compared with below
+    for n, repeats in ((50_000, 7), (1_000_000, 3)):
+        xs, probes = hutch_rows(n, 10 + n)
+        secs = {"float32": [], "highf32": []}
+        for _ in range(repeats):
+            for m in (hutch, hutch_hf):
+                (lp, st), _, s_ = timed(lambda: m.log_prob(xs, probes=probes, atol=1e-5, rtol=1e-5, options=opts),
+                                        lambda: 0)
+                check(st.succeeded and bool(torch.isfinite(lp).all()), f"{n}-row solve failed")
+                secs[m.kernel_compute_dtype].append(s_)
+        med = {k: statistics.median(v) for k, v in secs.items()}
+        hf_solve_s[n] = med["highf32"]
+        emit("highf32_hutchinson_rate", rows=n, nfe=st.n_func_evals, repeats=repeats, card=smi,
+             **{f"{k}_seconds_median": v for k, v in med.items()},
+             **{f"{k}_seconds_runs": v for k, v in secs.items()},
+             **{f"{k}_rows_per_s": n / v for k, v in med.items()})
+    f32_compared = fused_drift.launches_by_dtype["float32"] - f32_before
+    xs, probes = hutch_rows(50_000, 10 + 50_000)
+    _, prof_stats = profiled(lambda: hutch_hf.log_prob(xs, probes=probes, atol=1e-5, rtol=1e-5, options=opts),
+                             "fused_mlp", hf_solve_s[50_000])
+    emit("highf32_hutchinson_profile", rows=50_000, seconds_unprofiled_median=hf_solve_s[50_000],
+         profile=prof_stats or "not measured: the profiler saw no CUDA time")
+
+    conditional_check(cmodel_hf, "highf32_conditional_hutchinson", hf_launches)
+
+    model_hf = ScoreModel(flag_params, flag_cfg, VESDE(), kernel_compute_dtype="highf32")
+    x_raw = DEMO_GMM.sample(gen(99), 25_000, device=dev)
+    (lp, st), launches, _ = timed(lambda: model_hf.log_prob((x_raw - shift) / scale), hf_launches)
+    total = float((lp - torch.log(scale).sum()).double().sum())
+    rel = abs(total - float(DEMO_GMM.log_prob(x_raw.double()).sum())) / abs(float(DEMO_GMM.log_prob(x_raw.double()).sum()))
+    check(launches == st.n_func_evals and rel <= 3e-3, f"highf32 exact solve: density error {rel:.3e}, "
+          f"{launches} launches for nfe {st.n_func_evals}")
+    z = torch.randn(50_000, 2, generator=gen(5)).to(dev)
+    (s_k, st_s), launches_s, _ = timed(lambda: model_hf.sample_ode_from_base(z), hf_launches)
+    s_p, _ = ScoreModel(flag_params, flag_cfg, VESDE(), use_fused_kernel=False).sample_ode_from_base(z)
+    d_s = rel_err(s_k, s_p)
+    check(launches_s == st_s.n_func_evals and d_s <= 1e-4, f"highf32 sampling deviates {d_s:.2e}")
+    emit("highf32_flagship_exact_and_sampling", rows=25_000, density_rel_error=rel, nfe=st.n_func_evals,
+         sample_rows=50_000, sample_nfe=st_s.n_func_evals, sample_max_rel_dev=d_s)
+
+    others = {}
+    flow_hf = dataclasses.replace(flow, kernel_compute_dtype="highf32", trace_mode="hutchinson")
+    xf = REFERENCE_GMM.sample(gen(120), 50_000, device=dev)
+    ef = (rademacher(gen(121), 50_000, 2),)
+    sym_hf = dataclasses.replace(sym_model, kernel_compute_dtype="highf32")
+    xsym = DEMO_GMM.sample(gen(300), 50_000, device=dev)
+    p0 = torch.randn(50_000, 2, generator=cuda_gen(302), device=dev)
+    for name, kern, plain_m, call in (
+        ("flow_hutchinson", flow_hf, dataclasses.replace(flow_hf, use_fused_kernel=False),
+         lambda m: m.log_prob(xf, probes=ef, atol=1e-5, rtol=1e-5, options=opts)),
+        ("symplectic_K1", sym_hf, dataclasses.replace(sym_hf, use_fused_kernel=False),
+         lambda m: m.log_prob(xsym, momentum=p0, n_momentum_samples=1, options=opts)),
+    ):
+        (lp_k, st_k), n_k, _ = timed(lambda: call(kern), hf_launches)
+        (lp_p, st_p), n_p, _ = timed(lambda: call(plain_m), hf_launches)
+        dlp = float((lp_k - lp_p).abs().mean())
+        check(n_k > 0 and n_p == 0 and bool(torch.isfinite(lp_k).all()), f"highf32 {name}: {n_k} launches")
+        check(dlp <= 5e-4, f"highf32 {name}: kernel vs plain mean |dlogp| {dlp:.2e} > 5e-4")
+        others[name] = dict(nfe=st_k.n_func_evals, nfe_plain=st_p.n_func_evals, mean_abs_dlogp=dlp, launches=n_k)
+    flow_ex = dataclasses.replace(flow, kernel_compute_dtype="highf32")
+    xr = REFERENCE_GMM.sample(gen(81), 25_000, device=dev)
+    (lp, st), n, _ = timed(lambda: flow_ex.log_prob(xr, atol=1e-4, rtol=1e-4), hf_launches)
+    truth = float(REFERENCE_GMM.log_prob(xr.double()).sum())
+    rel = abs(float(lp.double().sum()) - truth) / abs(truth)
+    check(n == st.n_func_evals and rel <= 3e-3, f"highf32 flow density error {rel:.3e}")
+    z = torch.randn(50_000, 2, generator=gen(84)).to(dev)
+    (s_k, st_k), n_k, _ = timed(lambda: flow_ex.sample(z, rtol=1e-5, atol=1e-5), hf_launches)
+    s_p, _ = dataclasses.replace(flow, use_fused_kernel=False).sample(z, rtol=1e-5, atol=1e-5)
+    d_s = rel_err(s_k, s_p)
+    check(n_k == st_k.n_func_evals and d_s <= 1e-4, f"highf32 flow sample deviates {d_s:.2e}")
+    others.update(flow_exact_density_rel_error=rel, flow_exact_nfe=st.n_func_evals, flow_sample_max_rel_dev=d_s,
+                  flow_sample_nfe=st_k.n_func_evals)
+    emit("highf32_flow_and_symplectic", rows=50_000, **others)
+
+    for velocity, params, cfg in ((False, flag_params, flag_cfg), (True, flow_params, flow_cfg)):
+        x, c, c0, c1 = rhs_inputs("flow" if velocity else "flagship", 50_000, gen(130))
+        (O,) = sketch_probes(gen(131), "xtrace", 50_000, 2, 0, 2)
+        if velocity:
+            def apply_cols(cols):
+                return fused_velocity_tangents(params, cfg, t37, x, cols, c, **hf)[1]
+            one = fused_velocity_sketch(params, cfg, t37, x, (O,), "xtrace", c)[1]
+        else:
+            def apply_cols(cols):
+                return fused_drift_tangents(params, cfg, t37, x, cols, c, c0=c0, c1=c1, **hf)[1]
+            one = fused_drift_sketch(params, cfg, t37, x, (O,), "xtrace", c, c0=c0, c1=c1)[1]
+        two = trace_ops.xtrace_core(apply_cols, [O[i].T for i in range(O.shape[0])])
+        d_div = float((two - one).abs().max())
+        check(d_div <= 2e-4, f"highf32 two-launch xtrace: differs from the float32 kernel by {d_div:.2e}")
+        emit("highf32_two_launch_crosscheck", entry="velocity" if velocity else "drift", mode="xtrace", m=2,
+             rows=50_000, div_max_abs=d_div)
+    hf_counts = dtype_counts()
+    check(all(v["float32"] == (f32_compared if k == "fused_drift" else 0) for k, v in hf_counts.items()),
+          f"phase 11 launched a float32 kernel beyond the {f32_compared} of its comparison solves: {hf_counts}")
+    hf_path_counts = {f"{fn.__name__}[{m}]": n for fn in (fused_drift, fused_velocity)
+                      for m, n in fn.launches_by_mode.items() if m != "tangents"}
+    hf_path_counts.update({fn.__name__: fn.launches for fn in (
+        fused_drift_tangents, fused_velocity_tangents, fused_symplectic_velocity)})
+    hf_path_counts["fused_drift[hutchinson]"] -= f32_compared  # highf32 launches only
+    for key, n in hf_path_counts.items():
+        check(n > 0, f"{key} in highf32 was never launched on the highf32 path")
+    emit("highf32_path_launches", by_dtype=hf_counts, float32_comparison_launches=f32_compared, **hf_path_counts)
+
     # -- phase 7: the kernels line ------------------------------------------
     # no single PyTorch call computes any of these functions (a fused MLP with
     # its divergence, its Jacobian-vector columns or its sketch estimate; the
@@ -1381,6 +1703,14 @@ def main() -> int:
     for name in ("fused_train_epoch[float32]", "fused_train_epoch_symplectic"):
         kernels.append(entry(name, "flowfusion_torch/csrc/fused_train.cu", REPLACES_TRAIN[name], train_counts[name],
                              train_err[name], train_timing[name]))
+    # the highf32 mode of fused_mlp.cu: launches from phase 11, errors and
+    # times from phase 1f, bounds at the TF32 tensor-core rate
+    for name in hf_timing:
+        base = name.split("[")[0]
+        replaces = REPLACES if base == "fused_drift" else REPLACES_VELOCITY if base == "fused_velocity" else \
+            REPLACES_NEW[base]
+        hf_name = name[:-1] + ",highf32]" if "[" in name else name + "[highf32]"
+        kernels.append(entry(hf_name, src_mlp, replaces, hf_path_counts[name], hf_err[name], hf_timing[name]))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({
         "ok": True,

@@ -6,10 +6,18 @@
 // tangents, reached through fused_drift (fused_mlp.py:951), fused_velocity
 // (fused_mlp.py:1353, (c0, c1) = (0, 1)), fused_drift_tangents and
 // fused_velocity_tangents (fused_mlp.py:1020, 1148) and, two forward launches
-// a call, fused_symplectic_velocity (fused_mlp.py:1182), compute mode float32:
-// strict IEEE
-// fp32 FMAs on the CUDA cores.  Build without --use_fast_math: sigmoid goes
-// through expf and gelu through erff, matching the plain PyTorch path's
+// a call, fused_symplectic_velocity (fused_mlp.py:1182), in two compute modes:
+//   float32  strict IEEE fp32 FMAs on the CUDA cores;
+//   highf32  the JAX kernel's 3-pass split products (bf16_3pass_dot_general,
+//            fused_mlp.py:214-233, selected at :541-560) and its tanh-form
+//            SiLU (:257-279, selected at :596-599), here as 3xTF32: every
+//            hidden (H, H) product on the tensor cores (mlp_tile.cuh
+//            dense_tf32x3, mma.sync m16n8k8), the (H, D) output product and
+//            an input projection of more than 16 features (the JAX kernel's
+//            rank-1 crossover, in_proj_rows :313-330) through the split in
+//            FMAs; up to 16 input features and the time fold stay strict.
+// Build without --use_fast_math: sigmoid goes through expf (tanhf in
+// highf32) and gelu through erff, matching the plain PyTorch path's
 // transcendentals.
 //
 // What it computes, for a batch-global scalar time folded into b_eff by the
@@ -25,26 +33,32 @@
 // Each tangent chain passes the same linear layers (no bias) and is
 // multiplied by act'(a) at every activation.
 //
-// What bounds it on this card: fp32 FMA throughput.  Per row it does
-// 2 H (D_in + (n_hidden - 1) H + D) (1 + n_applies) flops (n_applies = 0, 1
-// or D; fused_mlp.py:922-934), ~133k for the flagship model's hutchinson
-// mode, against B (2 D + 1) 4 bytes of input and output: over 6,000 flops a
-// byte, far above the ~20 flops a byte at which fp32 FMAs and HBM balance.
+// What bounds it on this card.  float32: fp32 FMA throughput.  Per row it
+// does 2 H (D_in + (n_hidden - 1) H + D) (1 + n_applies) flops (n_applies =
+// 0, 1 or D; fused_mlp.py:922-934), ~133k for the flagship model's
+// hutchinson mode, against B (2 D + 1) 4 bytes of input and output: over
+// 6,000 flops a byte, far above the ~20 flops a byte at which fp32 FMAs and
+// HBM balance.  highf32: the hidden products' three TF32 passes on the
+// tensor cores (495 TFLOP/s dense; 131,072 of the flagship's flops a row)
+// plus the CUDA-core rest (the input projection, 3x the output layer).
+// mma.sync does not reach the wgmma rate.
 //
 // What the design does about it: a block owns a tile of R rows and keeps the
 // whole layer chain of that tile — the activations and every tangent chain —
 // in shared memory, so nothing but x, e, drift and div touches device memory
-// and each weight read from L2 feeds R rows times all chains.  In a layer
-// product (mlp_tile.cuh, shared with em_sampler.cu) a thread computes an
-// 8-row by 4-column tile of one chain's next layer (4 rows for plans that
+// and each weight read from L2 feeds R rows times all chains.  In a float32
+// layer product (mlp_tile.cuh, shared with em_sampler.cu) a thread computes
+// an 8-row by 4-column tile of one chain's next layer (4 rows for plans that
 // fit only at 4 rows a block): per 4 steps of k it reads one float4 of
 // activations per row from shared memory (a broadcast: the warp shares its
 // rows) and one float4 of weights per k from global memory (coalesced across
 // the warp), 12 loads for 128 FMAs, so the product is bound by FMA issue
-// rather than loads.  R (64 down to 4) is picked by the caller so that the
-// double buffer of 2 x chains x R x H floats fits shared memory, two blocks
-// to an SM where it can.  Tensor cores (wgmma, 3xTF32) and a persistent
-// schedule are later work.
+// rather than loads.  A highf32 hidden product is one (chains x R) by H
+// product for all chains at once, a warp to a 16 x 32 strip (dense_tf32x3).
+// R (64 down to 4) is picked by the caller so that the double buffer of
+// 2 x chains x R x H floats fits shared memory, two blocks to an SM where it
+// can.  wgmma, weights staged in shared memory, a padded stride and a
+// persistent schedule are later work.
 
 #include <cuda_runtime.h>
 
@@ -55,11 +69,12 @@ namespace {
 using namespace ffk;
 
 enum Mode { kForward = 0, kHutchinson = 1, kExact = 2, kTangents = 3 };
+constexpr int kRank1Max = 16;  // input features the highf32 mode keeps strict
 
 // div: (B,) in modes hutchinson and exact; in mode tangents the (n_tan, B,
 // d_out) columns J v_k.  e: (B, d_out) in mode hutchinson, (B, n_tan, d_out)
 // in mode tangents.
-template <int RT>
+template <int RT, bool HF>
 __global__ void __launch_bounds__(kThreads, 2)
 fused_mlp_kernel(const float* __restrict__ x, const float* __restrict__ e,
                  const float* __restrict__ w_in, const float* __restrict__ b_eff,
@@ -102,11 +117,19 @@ fused_mlp_kernel(const float* __restrict__ x, const float* __restrict__ e,
     const int j = i - c * rh - r * H;
     float v = 0.0f;
     if (c == 0) {
-      for (int k = 0; k < d_in; ++k) v = fmaf(xs[r * d_in + k], __ldg(w_in + k * H + j), v);
+      if (HF && d_in > kRank1Max) {
+        for (int k = 0; k < d_in; ++k) v = fma_tf32x3(xs[r * d_in + k], __ldg(w_in + k * H + j), v);
+      } else {
+        for (int k = 0; k < d_in; ++k) v = fmaf(xs[r * d_in + k], __ldg(w_in + k * H + j), v);
+      }
       v += __ldg(b_eff + j);
     } else if (mode == kHutchinson || mode == kTangents) {
       const float* p = es + r * pw + (c - 1) * d_out;  // c - 1 = 0 in hutchinson
-      for (int k = 0; k < d_out; ++k) v = fmaf(p[k], __ldg(w_in + k * H + j), v);
+      if (HF && d_out > kRank1Max) {
+        for (int k = 0; k < d_out; ++k) v = fma_tf32x3(p[k], __ldg(w_in + k * H + j), v);
+      } else {
+        for (int k = 0; k < d_out; ++k) v = fmaf(p[k], __ldg(w_in + k * H + j), v);
+      }
     } else {
       v = __ldg(w_in + (c - 1) * H + j);
     }
@@ -115,17 +138,29 @@ fused_mlp_kernel(const float* __restrict__ x, const float* __restrict__ e,
   __syncthreads();
 
   for (int l = 0; l < n_hidden; ++l) {
-    activate(act, cur, chains, rh);
-    __syncthreads();
-    dense<RT, 4>(hidden.w[l], hidden.b[l], cur, nxt, H, H, R, H, chains);
+    if constexpr (HF) {
+      activate_highf32(act, cur, chains, rh);
+      __syncthreads();
+      dense_tf32x3<4>(hidden.w[l], hidden.b[l], cur, nxt, H, H, chains * R, R, H);
+    } else {
+      activate(act, cur, chains, rh);
+      __syncthreads();
+      dense<RT, 4>(hidden.w[l], hidden.b[l], cur, nxt, H, H, R, H, chains);
+    }
     __syncthreads();
     float* tmp = cur;
     cur = nxt;
     nxt = tmp;
   }
-  activate(act, cur, chains, rh);
-  __syncthreads();
-  dense<RT, 1>(w_out, b_out, cur, nxt, H, d_out, R, H, chains);
+  if constexpr (HF) {
+    activate_highf32(act, cur, chains, rh);
+    __syncthreads();
+    dense_split_fma(w_out, b_out, cur, nxt, H, d_out, R, H, chains);
+  } else {
+    activate(act, cur, chains, rh);
+    __syncthreads();
+    dense<RT, 1>(w_out, b_out, cur, nxt, H, d_out, R, H, chains);
+  }
   __syncthreads();
 
   const float c0 = c0c1[0];
@@ -161,16 +196,16 @@ fused_mlp_kernel(const float* __restrict__ x, const float* __restrict__ e,
   }
 }
 
-template <int RT>
+template <int RT, bool HF>
 cudaError_t launch(const float* x, const float* e, const float* w_in, const float* b_eff,
                    const HiddenLayers& hidden, int n_hidden, const float* w_out,
                    const float* b_out, const float* c0c1, float* drift, float* div, int B,
                    int d_in, int d_out, int H, int mode, int act, int n_tan, int rows,
                    size_t smem, cudaStream_t stream) {
-  const cudaError_t st = allow_smem(fused_mlp_kernel<RT>, smem);
+  const cudaError_t st = allow_smem(fused_mlp_kernel<RT, HF>, smem);
   if (st != cudaSuccess) return st;
   const int grid = (B + rows - 1) / rows;
-  fused_mlp_kernel<RT><<<grid, kThreads, smem, stream>>>(
+  fused_mlp_kernel<RT, HF><<<grid, kThreads, smem, stream>>>(
       x, e, w_in, b_eff, hidden, n_hidden, w_out, b_out, c0c1, drift, div, B, d_in,
       d_out, H, mode, act, n_tan, rows);
   return cudaGetLastError();
@@ -182,8 +217,9 @@ extern "C" {
 
 // Launch on `stream`; returns the cudaError_t of the launch (0 on success).
 // w_hidden/b_hidden are host arrays of n_hidden device pointers, each weight
-// 16-byte aligned.  `rows` must be a multiple of 4 and H of 4 (the Python
-// wrapper checks all three).  `n_tan` is the probe count of mode tangents
+// 16-byte aligned.  `precision` is the compute mode: 0 float32, 1 highf32.
+// `rows` must be a multiple of 4 and H of 4, of 8 in highf32 (the Python
+// wrapper checks all of them).  `n_tan` is the probe count of mode tangents
 // (ignored otherwise).  `smem` is the block's shared memory in bytes,
 // computed by the wrapper for the layout the kernel uses: 2 x chains x rows
 // x H floats, then rows x (d_in + d_out max(1, n_tan)) floats.
@@ -191,9 +227,10 @@ int ff_fused_mlp(const float* x, const float* e, const float* w_in, const float*
                  const float* const* w_hidden, const float* const* b_hidden, int n_hidden,
                  const float* w_out, const float* b_out, const float* c0c1,
                  float* drift, float* div, int B, int d_in, int d_out, int H, int mode,
-                 int act, int n_tan, int rows, size_t smem, void* stream) {
+                 int act, int precision, int n_tan, int rows, size_t smem, void* stream) {
   if (n_hidden < 0 || n_hidden > kMaxHidden || rows % kMinRowTile != 0 || H % 4 != 0 ||
-      B <= 0 || mode < kForward || mode > kTangents || (mode == kTangents && n_tan < 1)) {
+      B <= 0 || mode < kForward || mode > kTangents || (mode == kTangents && n_tan < 1) ||
+      precision < 0 || precision > 1 || (precision == 1 && H % 8 != 0)) {
     return (int)cudaErrorInvalidValue;
   }
   HiddenLayers hidden = {};
@@ -202,13 +239,12 @@ int ff_fused_mlp(const float* x, const float* e, const float* w_in, const float*
     hidden.b[i] = b_hidden[i];
   }
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (rows % 8 == 0) {
-    return (int)launch<8>(x, e, w_in, b_eff, hidden, n_hidden, w_out, b_out, c0c1, drift, div,
-                          B, d_in, d_out, H, mode, act, n_tan, rows, smem, st);
-  }
-  return (int)launch<kMinRowTile>(x, e, w_in, b_eff, hidden, n_hidden, w_out, b_out, c0c1,
-                                  drift, div, B, d_in, d_out, H, mode, act, n_tan, rows, smem,
-                                  st);
+  const auto go = [&](auto kernel_launch) {
+    return (int)kernel_launch(x, e, w_in, b_eff, hidden, n_hidden, w_out, b_out, c0c1, drift,
+                              div, B, d_in, d_out, H, mode, act, n_tan, rows, smem, st);
+  };
+  if (precision == 1) return rows % 8 == 0 ? go(launch<8, true>) : go(launch<kMinRowTile, true>);
+  return rows % 8 == 0 ? go(launch<8, false>) : go(launch<kMinRowTile, false>);
 }
 
 }  // extern "C"

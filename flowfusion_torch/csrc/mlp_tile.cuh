@@ -171,6 +171,164 @@ __device__ __forceinline__ void dense_tangents(const float* __restrict__ w, cons
   dense<RT, CT>(w, nullptr, cur, nxt, K, N, R, H, chains);
 }
 
+// ---------------------------------------------------------------------------
+// Compute mode highf32: 3xTF32 layer products.  An fp32 operand a splits into
+// a_hi = tf32(a) and a_lo = tf32(a - a_hi) (cvt.rna: 10 mantissa bits, round
+// to nearest, ties away from zero); a product is a_hi b_hi + a_hi b_lo +
+// a_lo b_hi in fp32, the ~2^-22-relative a_lo b_lo dropped (the counterpart
+// of the JAX package's bf16_3pass_dot_general, kernels/fused_mlp.py:214-233,
+// with TF32 halves in place of bf16 ones).  SiLU takes the tanh-form sigmoid
+// 0.5 + 0.5 tanh(a / 2) (kernels/fused_mlp.py:257-279), through tanhf: the
+// ~2^-11 error of tanh.approx.f32 would use up the mode's bars.
+
+__device__ __forceinline__ float to_tf32(float x) {
+  unsigned r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return __uint_as_float(r);
+}
+
+__device__ __forceinline__ void split_tf32(float x, float& hi, float& lo) {
+  hi = to_tf32(x);
+  lo = to_tf32(x - hi);
+}
+
+// acc + a b through the split, on the CUDA cores: the TF32 halves' products
+// are exact in fp32, so this is the tensor-core arithmetic up to summation
+// order.
+__device__ __forceinline__ float fma_tf32x3(float a, float b, float acc) {
+  float ah, al, bh, bl;
+  split_tf32(a, ah, al);
+  split_tf32(b, bh, bl);
+  return fmaf(ah, bh, fmaf(ah, bl, fmaf(al, bh, acc)));
+}
+
+// act(a) and act'(a) in highf32: act_pair with SiLU's sigmoid in tanh form.
+__device__ __forceinline__ void act_pair_highf32(int act, float a, float& h, float& dh) {
+  if (act != kSilu) {
+    act_pair(act, a, h, dh);
+    return;
+  }
+  const float s = 0.5f + 0.5f * tanhf(0.5f * a);
+  h = a * s;
+  dh = s * (1.0f + a * (1.0f - s));
+}
+
+// activate() with act_pair_highf32.
+__device__ __forceinline__ void activate_highf32(int act, float* cur, int chains, int rh) {
+  for (int i = threadIdx.x; i < rh; i += blockDim.x) {
+    float h, dh;
+    act_pair_highf32(act, cur[i], h, dh);
+    cur[i] = h;
+    for (int c = 1; c < chains; ++c) cur[c * rh + i] *= dh;
+  }
+}
+
+// d += a b on the tensor cores: one m16n8k8 TF32 product, fp32 accumulate.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const unsigned (&a)[4], const unsigned (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// nxt = cur @ w (+ bias on the primal chain's rows, row < R, when `bias` is
+// not null) for the block's M = chains x R rows of stride H at once: one
+// (M x K) by (K x N) product through 3xTF32 mma.sync.  A warp owns a 16-row
+// by 8 NT-column strip and loops K in steps of 8; the block's warps stride
+// over the strips.  A fragments come from shared memory, B fragments from
+// the weights through __ldg, each split in registers and issued as lo.hi,
+// hi.lo, hi.hi.  m16n8k8 .tf32 fragments (PTX ISA), g = lane / 4,
+// t = lane % 4: A a0 (g, t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4);
+// B b0 (k t, n g), b1 (k t + 4, n g); C c0, c1 (g, 2t), (g, 2t + 1), c2, c3
+// (g + 8, 2t), (g + 8, 2t + 1).  M is a multiple of 4 (the last m-tile
+// loads zeros past M and stores nothing there), K and N multiples of 8.
+// A-fragment reads at stride H = 128 meet one bank 8 ways; a padded
+// stride is later work.
+template <int NT>
+__device__ void dense_tf32x3(const float* __restrict__ w, const float* __restrict__ bias,
+                             const float* cur, float* nxt, int K, int N, int M, int R, int H) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int n_tiles = N >> 3;
+  const int strips = (n_tiles + NT - 1) / NT;
+  const int items = ((M + 15) >> 4) * strips;
+  for (int it = threadIdx.x >> 5; it < items; it += blockDim.x >> 5) {
+    const int nt0 = (it % strips) * NT;
+    const int r0 = (it / strips) * 16 + g;
+    const int r1 = r0 + 8;
+    const bool ok0 = r0 < M;
+    const bool ok1 = r1 < M;
+    const float* row0 = cur + (size_t)r0 * H;
+    const float* row1 = cur + (size_t)r1 * H;
+    float acc[NT][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.0f;
+    for (int k = 0; k < K; k += 8) {
+      const float av[4] = {ok0 ? row0[k + t] : 0.0f, ok1 ? row1[k + t] : 0.0f,
+                           ok0 ? row0[k + t + 4] : 0.0f, ok1 ? row1[k + t + 4] : 0.0f};
+      unsigned ahi[4], alo[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        float h, l;
+        split_tf32(av[i], h, l);
+        ahi[i] = __float_as_uint(h);
+        alo[i] = __float_as_uint(l);
+      }
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        if (nt0 + j >= n_tiles) break;  // warp-uniform
+        const int n = (nt0 + j) * 8 + g;
+        unsigned bhi[2], blo[2];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          float h, l;
+          split_tf32(__ldg(w + (size_t)(k + t + 4 * i) * N + n), h, l);
+          bhi[i] = __float_as_uint(h);
+          blo[i] = __float_as_uint(l);
+        }
+        mma_tf32(acc[j], alo, bhi);
+        mma_tf32(acc[j], ahi, blo);
+        mma_tf32(acc[j], ahi, bhi);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      if (nt0 + j >= n_tiles) break;
+      const int n = (nt0 + j) * 8 + 2 * t;
+      const float b0 = bias != nullptr ? __ldg(bias + n) : 0.0f;
+      const float b1 = bias != nullptr ? __ldg(bias + n + 1) : 0.0f;
+      if (ok0) {
+        const bool primal = r0 < R;
+        nxt[(size_t)r0 * H + n] = acc[j][0] + (primal ? b0 : 0.0f);
+        nxt[(size_t)r0 * H + n + 1] = acc[j][1] + (primal ? b1 : 0.0f);
+      }
+      if (ok1) {
+        const bool primal = r1 < R;
+        nxt[(size_t)r1 * H + n] = acc[j][2] + (primal ? b0 : 0.0f);
+        nxt[(size_t)r1 * H + n + 1] = acc[j][3] + (primal ? b1 : 0.0f);
+      }
+    }
+  }
+}
+
+// nxt[c] = cur[c] @ w (+ bias on chain 0) through fma_tf32x3: the narrow
+// (H, D) output layer of highf32, on the CUDA cores, a thread to each of the
+// chains x R x N outputs (N = D is too narrow for an m16n8k8 tile).
+__device__ __forceinline__ void dense_split_fma(const float* __restrict__ w,
+                                                const float* __restrict__ bias, const float* cur,
+                                                float* nxt, int K, int N, int R, int H, int chains) {
+  for (int it = threadIdx.x; it < chains * R * N; it += blockDim.x) {
+    const int j = it % N;
+    const int m = it / N;  // row of the chains x R stack
+    const float* in = cur + (size_t)m * H;
+    float acc = 0.0f;
+    for (int k = 0; k < K; ++k) acc = fma_tf32x3(in[k], __ldg(w + (size_t)k * N + j), acc);
+    nxt[(size_t)m * H + j] = acc + ((m < R && bias != nullptr) ? __ldg(bias + j) : 0.0f);
+  }
+}
+
 // Raise a kernel's dynamic shared-memory ceiling where a launch needs more
 // than the default 48 KB.
 template <typename Kernel>

@@ -173,7 +173,7 @@ def _check_compute_dtype(compute_dtype: str) -> None:
     if compute_dtype == "bfloat16":
         raise NotImplementedError(
             "EM kernel compute dtype 'bfloat16' is not ported to flowfusion_torch "
-            "yet (ROADMAP.md queue 2, item 7); use 'float32'"
+            "yet (ROADMAP.md queue 2 #3b of item 7); use 'float32'"
         )
     if compute_dtype not in ("float32", "highf32"):
         raise ValueError(f"unknown compute dtype {compute_dtype!r}")

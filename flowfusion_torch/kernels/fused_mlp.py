@@ -5,11 +5,14 @@ velocity built from two forward launches.
 Counterpart of the JAX package's ``kernels/fused_mlp.py::fused_drift``,
 ``fused_velocity``, ``fused_drift_tangents``, ``fused_velocity_tangents``
 and ``fused_symplectic_velocity`` in their modes ``forward``,
-``hutchinson``, ``exact`` and ``tangents`` at compute mode ``float32``.  On
-CUDA tensors the wrappers launch the hand-written kernel
-``csrc/fused_mlp.cu`` (built at first use, see ``_build``) or raise; on CPU
-tensors they run the plain PyTorch versions (``*_reference``).  The sketch
-estimators' one-launch kernel is ``kernels/fused_sketch.py``.
+``hutchinson``, ``exact`` and ``tangents``, at compute mode ``float32``
+(strict fp32) or ``highf32`` (3xTF32 layer products and the tanh-form SiLU,
+the JAX package's 3-pass split mode; :func:`tf32x3_matmul` is the port's
+one source of the split).  On CUDA tensors the wrappers launch the
+hand-written kernel ``csrc/fused_mlp.cu`` (built at first use, see
+``_build``) or raise; on CPU tensors they run the plain PyTorch versions
+(``*_reference``) in the same compute mode.  The sketch estimators'
+one-launch kernel is ``kernels/fused_sketch.py``.
 
 During a solve the time ``t`` is a batch-global scalar, so the Fourier
 embedding contributes a t-dependent bias to the first layer:
@@ -51,6 +54,8 @@ from ..models.nets import (
 from . import _build
 
 __all__ = [
+    "tf32_round",
+    "tf32x3_matmul",
     "fused_drift",
     "fused_drift_reference",
     "fused_velocity",
@@ -71,11 +76,97 @@ __all__ = [
 
 _KERNEL_ACTIVATIONS = ("silu", "tanh", "relu", "gelu")  # index = kernel's Act
 _MODES = ("forward", "hutchinson", "exact", "tangents")  # index = kernel's Mode
+COMPUTE_DTYPES = ("float32", "highf32")  # index = the kernel's precision
 # Hidden widths are padded to a multiple of this: the kernel reads four
-# activations and four weight columns at a time.
+# activations and four weight columns at a time.  highf32 pads to the
+# 8-wide n-tile of its tensor-core product (LANE_HIGHF32).
 LANE = 4
+LANE_HIGHF32 = 8
+# Input features up to which the highf32 mode keeps the input projection
+# strict (the JAX kernel's rank-1 crossover, in_proj_rows; csrc kRank1Max).
+RANK1_MAX = 16
 MAX_HIDDEN = 16  # (H, H) layers the kernel takes (csrc kMaxHidden)
 _SMEM_LIMIT = 232_448  # shared memory one block may use on sm_90
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """``x`` rounded to TF32 (10 mantissa bits, to nearest, ties away from
+    zero), as PTX ``cvt.rna.tf32.f32``: on the int32 view, add 0x1000 and
+    clear the low 13 bits.  Non-finite values pass through unchanged."""
+    bits = x.contiguous().view(torch.int32)
+    rounded = ((bits + 0x1000) & -0x2000).view(torch.float32)
+    return torch.where(torch.isfinite(x), rounded, x)
+
+
+def _split(x: torch.Tensor):
+    hi = tf32_round(x)
+    return hi, tf32_round(x - hi)
+
+
+def tf32x3_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` as the 3xTF32 split product of compute mode ``highf32``:
+    each operand splits into hi = tf32(v) and lo = tf32(v - hi), and the
+    product is hi hi + hi lo + lo hi in fp32, lo lo dropped (the
+    counterpart of the JAX package's ``bf16_3pass_dot_general``, with TF32
+    halves).  The three products run with TF32 off, so the card does not
+    round the halves a second time."""
+    a_hi, a_lo = _split(a)
+    b_hi, b_lo = _split(b)
+    with strict_fp32_matmul():
+        return a_hi @ b_hi + a_hi @ b_lo + a_lo @ b_hi
+
+
+def _tanh_silu(a: torch.Tensor) -> torch.Tensor:
+    """SiLU through the tanh-form sigmoid 0.5 + 0.5 tanh(a / 2), the JAX
+    kernel's throughput-mode activation (kernels/fused_mlp.py:257-279)."""
+    return a * (0.5 + 0.5 * torch.tanh(0.5 * a))
+
+
+class _TF32x3(torch.autograd.Function):
+    """:func:`tf32x3_matmul` whose forward derivative is the same split
+    product of the tangent, as the kernel runs its tangent chains."""
+
+    @staticmethod
+    def forward(a, b):
+        return tf32x3_matmul(a, b)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_forward(*inputs)
+
+    @staticmethod
+    def jvp(ctx, a_dot, b_dot):
+        a, b = ctx.saved_tensors
+        out = 0.0
+        if a_dot is not None:
+            out = out + tf32x3_matmul(a_dot, b)
+        if b_dot is not None:
+            out = out + tf32x3_matmul(a, b_dot)
+        return out
+
+
+def _net_ops(compute_dtype: str, activation: str, n_features: int) -> dict:
+    """The ``matmul``/``in_matmul``/``act`` keywords that make the
+    ``models.nets`` forwards compute as the kernel does in
+    ``compute_dtype`` ({} in ``float32``): in ``highf32`` the split on every
+    layer after the first, and on the first when its [x | cond] input has
+    more than ``RANK1_MAX`` features, and the tanh-form SiLU.  The first
+    layer's split also covers the time-embedding rows, which the kernel
+    folds strictly into its bias: the two differ by the split's error on
+    those rows, far inside the kernel's bars."""
+    if compute_dtype == "float32":
+        return {}
+    ops = {"matmul": _TF32x3.apply}
+    if n_features > RANK1_MAX:
+        ops["in_matmul"] = _TF32x3.apply
+    if activation == "silu":
+        ops["act"] = _tanh_silu
+    return ops
+
+
+def lane(compute_dtype: str = "float32") -> int:
+    """The multiple the kernel pads hidden widths to in ``compute_dtype``."""
+    return LANE_HIGHF32 if compute_dtype == "highf32" else LANE
 
 
 def fusable_config(units: Sequence[int], activation: str = "silu") -> bool:
@@ -86,19 +177,21 @@ def fusable_config(units: Sequence[int], activation: str = "silu") -> bool:
     return 1 <= len(units) <= MAX_HIDDEN + 1 and activation in _KERNEL_ACTIVATIONS
 
 
-def supports_config(units: Sequence[int], activation: str = "silu") -> bool:
+def supports_config(
+    units: Sequence[int], activation: str = "silu", compute_dtype: str = "float32"
+) -> bool:
     """The configs the kernel takes as they are: :func:`fusable_config`
-    with uniform hidden widths in multiples of ``LANE``."""
+    with uniform hidden widths in multiples of ``lane(compute_dtype)``."""
     return (
         fusable_config(units, activation)
         and all(u == units[0] for u in units)
-        and units[0] % LANE == 0
+        and units[0] % lane(compute_dtype) == 0
     )
 
 
 def supports_features(
     n_features: int, mode: str = "hutchinson", hidden: int = 128,
-    n_dimensions: Optional[int] = None,
+    n_dimensions: Optional[int] = None, compute_dtype: str = "float32",
 ) -> bool:
     """Feature-count half of the envelope: whether the kernel's
     shared-memory plan fits ``n_features`` = D + C inputs and
@@ -106,7 +199,7 @@ def supports_features(
     ``hidden`` in ``mode``.  The JAX package's ``exact`` flag becomes
     ``mode`` here, because the plan grows with the chain count."""
     d_out = n_features if n_dimensions is None else n_dimensions
-    H = -(-hidden // LANE) * LANE
+    H = -(-hidden // lane(compute_dtype)) * lane(compute_dtype)
     return _rows_per_block(H, _chains(mode, d_out), n_features, d_out) is not None
 
 
@@ -121,10 +214,11 @@ def _pad_stack(layers: list, H: int) -> list:
     return padded
 
 
-def pad_to_lanes(params: dict, cfg):
-    """Zero-pad hidden widths to one uniform multiple of ``LANE``, for the
-    score, the velocity and the symplectic net alike (every layer stack of
-    ``params``: ``layers``, or ``q_layers`` and ``p_layers``).
+def pad_to_lanes(params: dict, cfg, compute_dtype: str = "float32"):
+    """Zero-pad hidden widths to one uniform multiple of
+    ``lane(compute_dtype)``, for the score, the velocity and the symplectic
+    net alike (every layer stack of ``params``: ``layers``, or ``q_layers``
+    and ``p_layers``).
 
     Exact: a padded unit has zero weight column and bias, so zero
     pre-activation, zero activation (act(0) == 0) and zero tangent, and
@@ -132,7 +226,7 @@ def pad_to_lanes(params: dict, cfg):
     when the config is already supported."""
     field = "units" if hasattr(cfg, "units") else "hidden_units"  # score/symplectic | velocity
     units = getattr(cfg, field)
-    if supports_config(units, cfg.activation):
+    if supports_config(units, cfg.activation, compute_dtype):
         return params, cfg
     if not fusable_config(units, cfg.activation):
         raise ValueError(
@@ -140,7 +234,7 @@ def pad_to_lanes(params: dict, cfg):
             f"activation={cfg.activation!r} into its envelope (activation must "
             f"be one of {_KERNEL_ACTIVATIONS}, at most {MAX_HIDDEN + 1} hidden layers)"
         )
-    H = max(-(-u // LANE) * LANE for u in units)
+    H = max(-(-u // lane(compute_dtype)) * lane(compute_dtype) for u in units)
     stacks = {k: _pad_stack(params[k], H) for k in ("layers", "q_layers", "p_layers") if k in params}
     return {**params, **stacks}, dataclasses.replace(cfg, **{field: (H,) * len(units)})
 
@@ -160,13 +254,32 @@ def flops_per_row(
     return 2 * H * (d_in + (n_layers - 2) * H + d_out) * (1 + n_applies)
 
 
-def _check_compute_dtype(compute_dtype: str) -> None:
-    if compute_dtype != "float32":
+def highf32_flops_per_row(
+    d_in: int, d_out: int, H: int, n_layers: int, mode: str, n_tan: int = 0
+) -> tuple:
+    """``(tensor_core, cuda_core)`` flops per row of a ``highf32`` launch:
+    the (H, H) products of every chain on the tensor cores (one pass of
+    the three), and on the CUDA cores the input projections (the primal's
+    d_in rows, a probe's d_out; 3x past ``RANK1_MAX`` features) and 3x
+    the (H, d_out) output layer."""
+    n_applies = {"forward": 0, "hutchinson": 1, "exact": d_out, "tangents": n_tan}[mode]
+    probes = {"hutchinson": 1, "tangents": n_tan}.get(mode, 0)
+    passes_in, passes_probe = (3 if n > RANK1_MAX else 1 for n in (d_in, d_out))
+    tc = 2 * H * H * (n_layers - 2) * (1 + n_applies)
+    cc = 2 * H * (passes_in * d_in + passes_probe * probes * d_out + 3 * d_out * (1 + n_applies))
+    return tc, cc
+
+
+def check_compute_dtype(compute_dtype: str) -> None:
+    """Accept 'float32' and 'highf32'; 'bfloat16' is not ported yet and
+    anything else is not a compute mode.  The models check theirs with it."""
+    if compute_dtype == "bfloat16":
         raise NotImplementedError(
-            f"kernel compute dtype {compute_dtype!r} is not ported to "
-            "flowfusion_torch yet (ROADMAP.md queue 2: the 3xTF32 'highf32' "
-            "and 'bfloat16' counterparts of items 1-4); use 'float32'"
+            "kernel compute dtype 'bfloat16' is not ported to flowfusion_torch "
+            "yet (ROADMAP.md queue 2 #3b); use 'float32' or 'highf32'"
         )
+    if compute_dtype not in COMPUTE_DTYPES:
+        raise ValueError(f"unknown kernel compute dtype {compute_dtype!r}; use one of {COMPUTE_DTYPES}")
 
 
 def _mode(e, exact_divergence: bool) -> str:
@@ -215,26 +328,33 @@ def _velocity_first_layer(params, cfg, t, conditional):
 
 
 def fused_drift_reference(
-    params, cfg, t, x, conditional=None, e=None, exact_divergence=False, c0=0.0, c1=1.0
+    params, cfg, t, x, conditional=None, e=None, exact_divergence=False, c0=0.0, c1=1.0,
+    compute_dtype="float32",
 ):
     """The plain PyTorch version of :func:`fused_drift`, all three modes:
     the net through ``apply_score_mlp`` and its Jacobian through
-    ``torch.func.jvp``, with TF32 off (compute mode ``float32``)."""
+    ``torch.func.jvp``, with TF32 off; in ``highf32`` the layer products
+    through :func:`tf32x3_matmul` (tangents included) and the tanh-form
+    SiLU."""
     _mode(e, exact_divergence)
+    ops = _net_ops(compute_dtype, cfg.activation, cfg.n_dimensions + cfg.n_conditionals)
     with strict_fp32_matmul():
         return _reference(
-            lambda xx: apply_score_mlp(cfg, params, t, xx, conditional),
+            lambda xx: apply_score_mlp(cfg, params, t, xx, conditional, **ops),
             x, e, exact_divergence, c0, c1,
         )
 
 
-def fused_velocity_reference(params, cfg, t, x, conditional=None, e=None, exact_divergence=False):
+def fused_velocity_reference(params, cfg, t, x, conditional=None, e=None, exact_divergence=False,
+                             compute_dtype="float32"):
     """The plain PyTorch version of :func:`fused_velocity`, all three modes
-    (``apply_velocity_mlp`` and ``torch.func.jvp``, TF32 off)."""
+    (``apply_velocity_mlp`` and ``torch.func.jvp``, TF32 off; the split in
+    ``highf32`` as in :func:`fused_drift_reference`)."""
     _mode(e, exact_divergence)
+    ops = _net_ops(compute_dtype, cfg.activation, cfg.target_dimension + cfg.conditional_dimension)
     with strict_fp32_matmul():
         return _reference(
-            lambda xx: apply_velocity_mlp(cfg, params, t, xx, conditional),
+            lambda xx: apply_velocity_mlp(cfg, params, t, xx, conditional, **ops),
             x, e, exact_divergence, 0.0, 1.0,
         )
 
@@ -279,15 +399,15 @@ def fused_drift(
     syncs).  CUDA tensors launch the kernel (``fused_drift.launches``
     counts launches); CPU tensors run :func:`fused_drift_reference`.
     """
-    _check_compute_dtype(compute_dtype)
+    check_compute_dtype(compute_dtype)
     mode = _mode(e, exact_divergence)
     _check_conditional(cfg.n_conditionals, conditional)
-    params, cfg = pad_to_lanes(params, cfg)
+    params, cfg = pad_to_lanes(params, cfg, compute_dtype)
     # the envelope holds on every device, as the JAX interpret mode's does
     _plan(cfg.units[0], mode, cfg.n_dimensions + cfg.n_conditionals, cfg.n_dimensions)
     if not x.is_cuda:
         return fused_drift_reference(
-            params, cfg, t, x, conditional, e, exact_divergence, c0, c1
+            params, cfg, t, x, conditional, e, exact_divergence, c0, c1, compute_dtype
         )
     with strict_fp32_matmul():
         w_in, b_eff = _score_first_layer(params, cfg, t, conditional)
@@ -297,7 +417,7 @@ def fused_drift(
     ])
     drift, div = _launch(
         x_in.contiguous(), None if e is None else e.contiguous(), w_in, b_eff, params["layers"], c0c1, mode,
-        cfg.n_dimensions, cfg.activation,
+        cfg.n_dimensions, cfg.activation, compute_dtype=compute_dtype,
     )
     return drift if mode == "forward" else (drift, div)
 
@@ -319,14 +439,14 @@ def fused_velocity(
     (``fused_velocity.launches`` counts launches); CPU tensors run
     :func:`fused_velocity_reference`.
     """
-    _check_compute_dtype(compute_dtype)
+    check_compute_dtype(compute_dtype)
     mode = _mode(e, exact_divergence)
     _check_conditional(cfg.conditional_dimension, conditional)
-    params, cfg = pad_to_lanes(params, cfg)
+    params, cfg = pad_to_lanes(params, cfg, compute_dtype)
     D = cfg.target_dimension
     _plan(cfg.hidden_units[0], mode, D + cfg.conditional_dimension, D)
     if not x.is_cuda:
-        return fused_velocity_reference(params, cfg, t, x, conditional, e, exact_divergence)
+        return fused_velocity_reference(params, cfg, t, x, conditional, e, exact_divergence, compute_dtype)
     with strict_fp32_matmul():
         w_in, b_eff = _velocity_first_layer(params, cfg, t, conditional)
     x_in = x if conditional is None else torch.cat([x, conditional], dim=-1)
@@ -334,7 +454,7 @@ def fused_velocity(
     c0c1 = torch.arange(2, dtype=torch.float32, device=x.device)
     drift, div = _launch(
         x_in.contiguous(), None if e is None else e.contiguous(), w_in.contiguous(), b_eff,
-        params["layers"], c0c1, mode, D, cfg.activation, counter=fused_velocity,
+        params["layers"], c0c1, mode, D, cfg.activation, counter=fused_velocity, compute_dtype=compute_dtype,
     )
     return drift if mode == "forward" else (drift, div)
 
@@ -355,22 +475,26 @@ def _tangents_reference(f, x, V):
     return f(x).T, cols
 
 
-def fused_drift_tangents_reference(params, cfg, t, x, V, conditional=None, c0=0.0, c1=1.0):
+def fused_drift_tangents_reference(params, cfg, t, x, V, conditional=None, c0=0.0, c1=1.0,
+                                   compute_dtype="float32"):
     """The plain PyTorch version of :func:`fused_drift_tangents`
-    (``apply_score_mlp`` and ``torch.func.jvp``, TF32 off)."""
+    (``apply_score_mlp`` and ``torch.func.jvp``, TF32 off; the split in
+    ``highf32`` as in :func:`fused_drift_reference`)."""
     V = _tangent_stack(V, *x.shape)
+    ops = _net_ops(compute_dtype, cfg.activation, cfg.n_dimensions + cfg.n_conditionals)
     with strict_fp32_matmul():
         return _tangents_reference(
-            lambda xx: c0 * xx + c1 * apply_score_mlp(cfg, params, t, xx, conditional), x, V
+            lambda xx: c0 * xx + c1 * apply_score_mlp(cfg, params, t, xx, conditional, **ops), x, V
         )
 
 
-def fused_velocity_tangents_reference(params, cfg, t, x, V, conditional=None):
+def fused_velocity_tangents_reference(params, cfg, t, x, V, conditional=None, compute_dtype="float32"):
     """The plain PyTorch version of :func:`fused_velocity_tangents`."""
     V = _tangent_stack(V, *x.shape)
+    ops = _net_ops(compute_dtype, cfg.activation, cfg.target_dimension + cfg.conditional_dimension)
     with strict_fp32_matmul():
         return _tangents_reference(
-            lambda xx: apply_velocity_mlp(cfg, params, t, xx, conditional), x, V
+            lambda xx: apply_velocity_mlp(cfg, params, t, xx, conditional, **ops), x, V
         )
 
 
@@ -397,14 +521,14 @@ def fused_drift_tangents(
     (``fused_drift_tangents.launches``); CPU tensors run
     :func:`fused_drift_tangents_reference`.
     """
-    _check_compute_dtype(compute_dtype)
+    check_compute_dtype(compute_dtype)
     _check_conditional(cfg.n_conditionals, conditional)
-    params, cfg = pad_to_lanes(params, cfg)
+    params, cfg = pad_to_lanes(params, cfg, compute_dtype)
     D = cfg.n_dimensions
     V = _tangent_stack(V, x.shape[0], D)
     _plan(cfg.units[0], "tangents", D + cfg.n_conditionals, D, V.shape[0])
     if not x.is_cuda:
-        return fused_drift_tangents_reference(params, cfg, t, x, V, conditional, c0, c1)
+        return fused_drift_tangents_reference(params, cfg, t, x, V, conditional, c0, c1, compute_dtype)
     with strict_fp32_matmul():
         w_in, b_eff = _score_first_layer(params, cfg, t, conditional)
     x_in = x if conditional is None else torch.cat([x, conditional], dim=-1)
@@ -412,7 +536,7 @@ def fused_drift_tangents(
         torch.as_tensor(c, dtype=torch.float32, device=x.device).reshape(()) for c in (c0, c1)
     ])
     return _launch_tangents(x_in, V, w_in, b_eff, params["layers"], c0c1, D, cfg.activation,
-                            fused_drift_tangents)
+                            fused_drift_tangents, compute_dtype)
 
 
 def fused_velocity_tangents(
@@ -429,37 +553,39 @@ def fused_velocity_tangents(
     fold.  CUDA tensors launch the kernel
     (``fused_velocity_tangents.launches``); CPU tensors run
     :func:`fused_velocity_tangents_reference`."""
-    _check_compute_dtype(compute_dtype)
+    check_compute_dtype(compute_dtype)
     _check_conditional(cfg.conditional_dimension, conditional)
-    params, cfg = pad_to_lanes(params, cfg)
+    params, cfg = pad_to_lanes(params, cfg, compute_dtype)
     D = cfg.target_dimension
     V = _tangent_stack(V, x.shape[0], D)
     _plan(cfg.hidden_units[0], "tangents", D + cfg.conditional_dimension, D, V.shape[0])
     if not x.is_cuda:
-        return fused_velocity_tangents_reference(params, cfg, t, x, V, conditional)
+        return fused_velocity_tangents_reference(params, cfg, t, x, V, conditional, compute_dtype)
     with strict_fp32_matmul():
         w_in, b_eff = _velocity_first_layer(params, cfg, t, conditional)
     x_in = x if conditional is None else torch.cat([x, conditional], dim=-1)
     c0c1 = torch.arange(2, dtype=torch.float32, device=x.device)
     return _launch_tangents(x_in, V, w_in.contiguous(), b_eff, params["layers"], c0c1, D,
-                            cfg.activation, fused_velocity_tangents)
+                            cfg.activation, fused_velocity_tangents, compute_dtype)
 
 
-def _launch_tangents(x_in, V, w_in, b_eff, layers, c0c1, D, activation, counter):
+def _launch_tangents(x_in, V, w_in, b_eff, layers, c0c1, D, activation, counter, compute_dtype):
     """Launch mode tangents: V (K, B, D) goes in as (B, K, D) rows; the J v
     columns come out (K, B, D) and are returned as (D, B) views."""
     K, B, _ = V.shape
     e = V.permute(1, 0, 2).reshape(B, K * D).contiguous()
     drift, jv = _launch(x_in.contiguous(), e, w_in, b_eff, layers, c0c1, "tangents", D, activation,
-                        counter=counter, n_tan=K)
+                        counter=counter, n_tan=K, compute_dtype=compute_dtype)
     return drift.T, [jv[k].T for k in range(K)]
 
 
-def fused_symplectic_velocity_reference(params, cfg, t, state, conditional=None):
+def fused_symplectic_velocity_reference(params, cfg, t, state, conditional=None, compute_dtype="float32"):
     """The plain PyTorch version of :func:`fused_symplectic_velocity`:
-    ``apply_symplectic_mlp`` with TF32 off."""
+    ``apply_symplectic_mlp`` with TF32 off (the split in ``highf32`` as in
+    :func:`fused_drift_reference`)."""
+    ops = _net_ops(compute_dtype, cfg.activation, cfg.n_data_dims + cfg.n_conditionals)
     with strict_fp32_matmul():
-        return apply_symplectic_mlp(cfg, params, t, state, conditional)
+        return apply_symplectic_mlp(cfg, params, t, state, conditional, **ops)
 
 
 def fused_symplectic_velocity(
@@ -477,15 +603,15 @@ def fused_symplectic_velocity(
     field is divergence-free, so no divergence is computed.  CUDA tensors
     launch the kernel twice (``fused_symplectic_velocity.launches`` counts
     launches); CPU tensors run :func:`fused_symplectic_velocity_reference`."""
-    _check_compute_dtype(compute_dtype)
+    check_compute_dtype(compute_dtype)
     _check_conditional(cfg.n_conditionals, conditional)
-    params, cfg = pad_to_lanes(params, cfg)
+    params, cfg = pad_to_lanes(params, cfg, compute_dtype)
     D, C = cfg.n_data_dims, cfg.n_conditionals
     if state.ndim != 2 or state.shape[1] != 2 * D:
         raise ValueError(f"state of shape {tuple(state.shape)}; expected (B, {2 * D})")
     _plan(cfg.units[0], "forward", D + C, D)
     if not state.is_cuda:
-        return fused_symplectic_velocity_reference(params, cfg, t, state, conditional)
+        return fused_symplectic_velocity_reference(params, cfg, t, state, conditional, compute_dtype)
     q, p = torch.chunk(state, 2, dim=-1)
     with strict_fp32_matmul():
         t = torch.as_tensor(t, dtype=torch.float32, device=state.device).reshape(())
@@ -501,7 +627,7 @@ def fused_symplectic_velocity(
         # (c0, c1) = (0, sign), made on the device without a host copy
         c0c1 = torch.arange(0.0, 2.0 * sign, sign, dtype=torch.float32, device=state.device)
         drift, _ = _launch(x_in.contiguous(), None, w_in, b_eff, layers, c0c1, "forward", D,
-                           cfg.activation, counter=fused_symplectic_velocity)
+                           cfg.activation, counter=fused_symplectic_velocity, compute_dtype=compute_dtype)
         outs.append(drift)
     return torch.cat(outs, dim=-1)
 
@@ -514,10 +640,12 @@ _COUNTED = (
 
 def reset_launch_counts() -> None:
     """Zero the launch counts of every wrapper of this kernel, and their
-    per-mode splits."""
+    splits by mode (``launches_by_mode``) and by compute mode
+    (``launches_by_dtype``)."""
     for fn in _COUNTED:
         fn.launches = 0
         fn.launches_by_mode = dict.fromkeys(_MODES, 0)
+        fn.launches_by_dtype = dict.fromkeys(COMPUTE_DTYPES, 0)
 
 
 reset_launch_counts()
@@ -575,16 +703,16 @@ def _kernel_lib() -> ctypes.CDLL:
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         pp = ctypes.POINTER(ctypes.c_void_p)
-        fn.argtypes = [p, p, p, p, pp, pp, i, p, p, p, p, p, i, i, i, i, i, i, i, i, ctypes.c_size_t, p]
+        fn.argtypes = [p, p, p, p, pp, pp, i, p, p, p, p, p, i, i, i, i, i, i, i, i, i, ctypes.c_size_t, p]
         fn.restype = ctypes.c_int
     return lib
 
 
-def check_operands(expect, hidden, H: int, what: str) -> torch.device:
+def check_operands(expect, hidden, H: int, what: str, lane_width: int = LANE) -> torch.device:
     """Raise unless every ``(tensor, shape)`` of ``expect`` is a contiguous
     float32 CUDA tensor of that shape on one device, and the ``hidden``
     (H, H) layers fit the kernel (<= ``MAX_HIDDEN``, H a multiple of
-    ``LANE``, weights 16-byte aligned for float4 reads).  Returns the
+    ``lane_width``, weights 16-byte aligned for float4 reads).  Returns the
     device.  Both kernels' launch wrappers call it."""
     device = same_device(*(t for t, _ in expect))
     for tensor, shape in expect:
@@ -594,17 +722,18 @@ def check_operands(expect, hidden, H: int, what: str) -> torch.device:
             raise ValueError(f"{what} operand of shape {tuple(tensor.shape)}; expected {shape}")
         if not tensor.is_contiguous():
             raise ValueError(f"{what} operands must be contiguous")
-    if len(hidden) > MAX_HIDDEN or H % LANE:
-        raise ValueError(f"{what} takes <= {MAX_HIDDEN} hidden layers of a width in multiples of {LANE}")
+    if len(hidden) > MAX_HIDDEN or H % lane_width:
+        raise ValueError(f"{what} takes <= {MAX_HIDDEN} hidden layers of a width in multiples of {lane_width}")
     if any(l["w"].data_ptr() % 16 for l in hidden):
         raise ValueError(f"{what} reads hidden weights as float4: they must be 16-byte aligned")
     return device
 
 
 def _launch(x_in, e, w_in, b_eff, layers, c0c1, mode, d_out, activation, counter=fused_drift,
-            n_tan=0):
-    """Check the operands, allocate the outputs and launch the kernel on
-    the current stream; add the launch to ``counter``'s counts.  Returns
+            n_tan=0, compute_dtype="float32"):
+    """Check the operands, allocate the outputs and launch the kernel in
+    ``compute_dtype`` on the current stream; add the launch to
+    ``counter``'s counts.  Returns
     ``(drift, div)``: div is None (forward), (B,) (hutchinson, exact) or
     the (n_tan, B, d_out) J v columns (tangents, ``e`` the (B, n_tan d_out)
     probe rows).  Raises on anything the kernel does not take."""
@@ -621,7 +750,8 @@ def _launch(x_in, e, w_in, b_eff, layers, c0c1, mode, d_out, activation, counter
         expect.append((e, (B, d_out)))
     elif mode == "tangents":
         expect.append((e, (B, n_tan * d_out)))
-    device = check_operands(expect, hidden, H, "fused kernel")
+    check_compute_dtype(compute_dtype)
+    device = check_operands(expect, hidden, H, "fused kernel", lane(compute_dtype))
     rows, smem = _plan(H, mode, d_in, d_out, n_tan)
 
     drift = torch.empty((B, d_out), dtype=torch.float32, device=device)
@@ -639,10 +769,12 @@ def _launch(x_in, e, w_in, b_eff, layers, c0c1, mode, d_out, activation, counter
         w_out.data_ptr(), b_out.data_ptr(), c0c1.data_ptr(), drift.data_ptr(),
         None if div is None else div.data_ptr(),
         B, d_in, d_out, H, _MODES.index(mode), _KERNEL_ACTIVATIONS.index(activation),
-        n_tan, rows, smem, torch.cuda.current_stream(device).cuda_stream,
+        COMPUTE_DTYPES.index(compute_dtype), n_tan, rows, smem,
+        torch.cuda.current_stream(device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"fused_mlp kernel launch failed with CUDA error {err}")
     counter.launches += 1
     counter.launches_by_mode[mode] += 1
+    counter.launches_by_dtype[compute_dtype] += 1
     return drift, div

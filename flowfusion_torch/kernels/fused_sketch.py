@@ -31,7 +31,6 @@ from .fused_mlp import (
     LANE,
     _KERNEL_ACTIVATIONS,
     _SMEM_LIMIT,
-    _check_compute_dtype,
     _check_conditional,
     _score_first_layer,
     _velocity_first_layer,
@@ -53,6 +52,19 @@ __all__ = [
 
 SKETCH_MODES = ("hutchpp", "xtrace")  # index = kernel's SketchMode
 MAX_SKETCH_DIM = 8  # D the per-row algebra takes (csrc kMaxDim)
+
+
+def _check_sketch_compute_dtype(compute_dtype: str) -> None:
+    """The sketch kernel computes in 'float32' only: its 'highf32' waits for
+    ROADMAP.md queue 2 #6 and 'bfloat16' for #3b."""
+    if compute_dtype in ("highf32", "bfloat16"):
+        raise NotImplementedError(
+            f"the sketch kernel's compute dtype {compute_dtype!r} is not ported to "
+            "flowfusion_torch yet (ROADMAP.md queue 2: #6 'highf32', #3b 'bfloat16'); "
+            "use 'float32' or trace_mode='hutchinson'"
+        )
+    if compute_dtype != "float32":
+        raise ValueError(f"unknown kernel compute dtype {compute_dtype!r}")
 
 
 def _stack_sketch_probes(probes: Sequence[torch.Tensor], sketch_mode: str, D: int):
@@ -184,7 +196,7 @@ def fused_drift_sketch(
     drift c0 x + c1 net.  CUDA tensors launch the kernel
     (``fused_drift_sketch.launches``); CPU tensors run
     :func:`fused_drift_sketch_reference`."""
-    _check_compute_dtype(compute_dtype)
+    _check_sketch_compute_dtype(compute_dtype)
     _check_conditional(cfg.n_conditionals, conditional)
     params, cfg = pad_to_lanes(params, cfg)
     D = cfg.n_dimensions
@@ -216,7 +228,7 @@ def fused_velocity_sketch(
     :func:`fused_drift_sketch` with (c0, c1) = (0, 1) and the raw-time
     fold.  CUDA tensors launch the kernel (``fused_velocity_sketch.launches``);
     CPU tensors run :func:`fused_velocity_sketch_reference`."""
-    _check_compute_dtype(compute_dtype)
+    _check_sketch_compute_dtype(compute_dtype)
     _check_conditional(cfg.conditional_dimension, conditional)
     params, cfg = pad_to_lanes(params, cfg)
     D = cfg.target_dimension

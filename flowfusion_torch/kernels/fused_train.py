@@ -211,7 +211,7 @@ def _check_epoch(params, cfg, xt, zw, t, beta, conditional, ema, compute_dtype) 
     if compute_dtype != "float32":
         raise NotImplementedError(
             f"training compute dtype {compute_dtype!r} is not ported to flowfusion_torch yet "
-            "(ROADMAP.md queue 2: the 'highf32' and 'bfloat16' modes of item 8); use 'float32'"
+            "(ROADMAP.md queue 2 item 8: 'highf32' #3a, 'bfloat16' #3b); use 'float32'"
         )
     units, D_cfg, n_cond, E = _cfg_fields(cfg)
     if not fusable_config(units, cfg.activation):

@@ -26,7 +26,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from .._device import DeviceLike, resolve_device, strict_fp32_matmul
-from ..kernels.fused_mlp import fusable_config, fused_velocity, supports_features
+from ..kernels.fused_mlp import check_compute_dtype, fusable_config, fused_velocity, supports_features
 from ..kernels.fused_sketch import fused_velocity_sketch, supports_sketch
 from ..ops import losses as losses_lib
 from ..ops import trace as trace_lib
@@ -67,12 +67,7 @@ class ODEFlow:
 
     def __post_init__(self):
         _common.check_trace_mode(self.trace_mode)
-        if self.kernel_compute_dtype != "float32":
-            raise NotImplementedError(
-                f"kernel_compute_dtype={self.kernel_compute_dtype!r} is not ported "
-                "to flowfusion_torch yet (ROADMAP.md queue 2: the 3xTF32 'highf32' "
-                "and 'bfloat16' counterparts of items 1-4)"
-            )
+        check_compute_dtype(self.kernel_compute_dtype)
 
     @classmethod
     def create(
@@ -169,7 +164,7 @@ class ODEFlow:
                 mode, H, len(net.hidden_units), d_in, net.target_dimension,
                 *trace_lib.probe_counts(mode, probes),
             )
-        return supports_features(d_in, mode, H, net.target_dimension)
+        return supports_features(d_in, mode, H, net.target_dimension, self.kernel_compute_dtype)
 
     def _fused_available(self, x: torch.Tensor, mode: str, probes: Sequence[torch.Tensor] = ()) -> bool:
         return _common.fused_dispatch(

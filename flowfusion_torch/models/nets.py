@@ -14,6 +14,12 @@ the JAX trees and layouts, so weights carry over one for one
   symplectic: ``{"W", "q_layers": [...], "p_layers": [...]}``, two stacks
               each taking ``[x_other | cond | t_embedding]`` (the embedding
               LAST): dq/dt = mlp_q(p, ...), dp/dt = -mlp_p(q, ...).
+
+Each ``apply_*`` takes optional ``matmul``, ``in_matmul`` and ``act``: the
+product of every layer after the first, the first layer's product, and the
+activation, in place of ``@`` and the config's activation.  The kernels'
+plain versions pass them to compute in another compute mode; left out, the
+forward is the float32 one.
 """
 
 from __future__ import annotations
@@ -145,19 +151,25 @@ def apply_score_mlp(
     t,
     x: torch.Tensor,
     conditional: Optional[torch.Tensor] = None,
+    **ops,
 ) -> torch.Tensor:
-    """net(t, x, cond) with input concat([t_emb, x, cond])."""
-    act = _ACTIVATIONS[cfg.activation]
+    """net(t, x, cond) with input concat([t_emb, x, cond]); ``ops`` as in
+    the module docstring."""
     if conditional is not None:
         x = torch.cat([x, conditional], dim=-1)
     t_emb = fourier_time_embedding(_expand_t(t, x.shape[0], x), params["W"])
-    return _apply_mlp_stack(params["layers"], torch.cat([t_emb, x], dim=-1), act)
+    return _apply_mlp_stack(params["layers"], torch.cat([t_emb, x], dim=-1), cfg.activation, **ops)
 
 
-def _apply_mlp_stack(layers, h: torch.Tensor, act) -> torch.Tensor:
-    """Affine layers with ``act`` between them (none after the last)."""
+def _apply_mlp_stack(layers, h: torch.Tensor, activation: str, matmul=None, in_matmul=None,
+                     act=None) -> torch.Tensor:
+    """Affine layers with the activation between them (none after the
+    last); ``matmul``, ``in_matmul`` and ``act`` as in the module
+    docstring."""
+    act = act or _ACTIVATIONS[activation]
     for i, layer in enumerate(layers):
-        h = h @ layer["w"] + layer["b"]
+        mm = in_matmul if i == 0 else matmul
+        h = (h @ layer["w"] if mm is None else mm(h, layer["w"])) + layer["b"]
         if i < len(layers) - 1:
             h = act(h)
     return h
@@ -206,11 +218,13 @@ def apply_velocity_mlp(
     t,
     x: torch.Tensor,
     conditional: Optional[torch.Tensor] = None,
+    **ops,
 ) -> torch.Tensor:
-    """v(x, t[, cond]) with input concat([x, t, cond])."""
+    """v(x, t[, cond]) with input concat([x, t, cond]); ``ops`` as in the
+    module docstring."""
     t = _expand_t(t, x.shape[0], x)[:, None]
     parts = [x, t] if conditional is None else [x, t, conditional]
-    return _apply_mlp_stack(params["layers"], torch.cat(parts, dim=-1), _ACTIVATIONS[cfg.activation])
+    return _apply_mlp_stack(params["layers"], torch.cat(parts, dim=-1), cfg.activation, **ops)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -270,26 +284,28 @@ def apply_symplectic_mlp(
     t,
     state: torch.Tensor,
     conditional: Optional[torch.Tensor] = None,
+    **ops,
 ) -> torch.Tensor:
     """The joint field [dq/dt, dp/dt] on ``state`` = [q | p] (B, 2D); the
-    q stack reads p and the p stack reads q, so it is divergence-free."""
+    q stack reads p and the p stack reads q, so it is divergence-free.
+    ``ops`` as in the module docstring."""
     q, p = torch.chunk(state, 2, dim=-1)
-    v_q = apply_symplectic_q_velocity(cfg, params, t, p, conditional)
-    v_p = apply_symplectic_p_velocity(cfg, params, t, q, conditional)
+    v_q = apply_symplectic_q_velocity(cfg, params, t, p, conditional, **ops)
+    v_p = apply_symplectic_p_velocity(cfg, params, t, q, conditional, **ops)
     return torch.cat([v_q, v_p], dim=-1)
 
 
-def _symplectic_half(cfg, params, stack, t, other, conditional):
+def _symplectic_half(cfg, params, stack, t, other, conditional, ops):
     t_emb = fourier_time_embedding(_expand_t(t, other.shape[0], other), params["W"])
     parts = [other, t_emb] if conditional is None else [other, conditional, t_emb]
-    return _apply_mlp_stack(params[stack], torch.cat(parts, dim=-1), _ACTIVATIONS[cfg.activation])
+    return _apply_mlp_stack(params[stack], torch.cat(parts, dim=-1), cfg.activation, **ops)
 
 
-def apply_symplectic_q_velocity(cfg, params, t, p, conditional=None) -> torch.Tensor:
+def apply_symplectic_q_velocity(cfg, params, t, p, conditional=None, **ops) -> torch.Tensor:
     """dq/dt = mlp_q(p, cond, t_emb): one half of the joint field."""
-    return _symplectic_half(cfg, params, "q_layers", t, p, conditional)
+    return _symplectic_half(cfg, params, "q_layers", t, p, conditional, ops)
 
 
-def apply_symplectic_p_velocity(cfg, params, t, q, conditional=None) -> torch.Tensor:
+def apply_symplectic_p_velocity(cfg, params, t, q, conditional=None, **ops) -> torch.Tensor:
     """dp/dt = -mlp_p(q, cond, t_emb): the other half."""
-    return -_symplectic_half(cfg, params, "p_layers", t, q, conditional)
+    return -_symplectic_half(cfg, params, "p_layers", t, q, conditional, ops)

@@ -99,8 +99,9 @@ class PopulationModelDiffusion:
         """Load a committed conditional checkpoint (``conditional_ckpt*.npz``)
         as ``(model, extra)``: the VP-SDE, no_sigma, 6-D theta | 3-D c
         configuration of ``benchmarks/make_conditional_ckpt.py``, hidden
-        widths read from the weights.  The JAX loader serves it in
-        'highf32'; the port runs 'float32', the mode ported so far."""
+        widths read from the weights, served in kernel compute mode
+        'highf32' as the JAX loader serves it
+        (benchmarks/make_conditional_ckpt.py ``load_conditional_model``)."""
         tree = load_npz(path)
         dev = resolve_device(device)
         params = params_from_numpy(tree["score_model"]["params"], dev)
@@ -116,7 +117,8 @@ class PopulationModelDiffusion:
             {k: tree[k] for k in ("shift", "scale", "conditional_shift", "conditional_scale")},
             dev,
         )
-        sm = ScoreModel(params=params, net=net, sde=VPSDE(), no_sigma=True, trace_mode="hutchinson")
+        sm = ScoreModel(params=params, net=net, sde=VPSDE(), no_sigma=True, trace_mode="hutchinson",
+                        kernel_compute_dtype="highf32")
         return cls(sm, **stats), read_npz_extra(path)
 
     def _norm_cond(self, conditional):

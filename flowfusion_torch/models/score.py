@@ -21,8 +21,11 @@ Every RHS evaluation goes through ``kernels.fused_mlp.fused_drift`` (or,
 for the Hutch++ and XTrace traces, ``kernels.fused_sketch.fused_drift_sketch``)
 when the solve's tensors are on CUDA (or ``use_fused_kernel=True``), else
 through the plain torch drift and ``ops.trace`` estimators.  The solves
-run under ``torch.no_grad`` with TF32 off (compute mode ``float32``).
-Random draws come from an explicit ``torch.Generator``; the prior is drawn
+run under ``torch.no_grad`` with TF32 off.  ``kernel_compute_dtype`` is the
+kernel's compute mode, 'float32' or 'highf32' (3xTF32 layer products, the
+mode the JAX package benches and serves its conditional checkpoints in);
+the plain path computes in float32 whatever it says, as the JAX plain path
+does.  Random draws come from an explicit ``torch.Generator``; the prior is drawn
 on the generator's device and moved to the model's.
 """
 
@@ -36,7 +39,7 @@ import torch
 
 from .._device import strict_fp32_matmul
 from ..kernels.em_sampler import fused_em_sample
-from ..kernels.fused_mlp import fused_drift, fusable_config, supports_features
+from ..kernels.fused_mlp import check_compute_dtype, fused_drift, fusable_config, supports_features
 from ..kernels.fused_sketch import fused_drift_sketch, supports_sketch
 from ..ops import losses as losses_lib
 from ..ops import trace as trace_lib
@@ -74,12 +77,7 @@ class ScoreModel:
 
     def __post_init__(self):
         _common.check_trace_mode(self.trace_mode)
-        if self.kernel_compute_dtype != "float32":
-            raise NotImplementedError(
-                f"kernel_compute_dtype={self.kernel_compute_dtype!r} is not ported "
-                "to flowfusion_torch yet (ROADMAP.md queue 2: the 3xTF32 'highf32' "
-                "and 'bfloat16' counterparts of items 1-3)"
-            )
+        check_compute_dtype(self.kernel_compute_dtype)
 
     @property
     def device(self) -> Optional[torch.device]:
@@ -112,7 +110,7 @@ class ScoreModel:
                 mode, max(net.units), len(net.units), d_in, net.n_dimensions,
                 *trace_lib.probe_counts(mode, probes),
             )
-        return supports_features(d_in, mode, max(net.units), net.n_dimensions)
+        return supports_features(d_in, mode, max(net.units), net.n_dimensions, self.kernel_compute_dtype)
 
     def _fused_available(self, x: torch.Tensor, mode: str, probes: Sequence[torch.Tensor] = ()) -> bool:
         return _common.fused_dispatch(

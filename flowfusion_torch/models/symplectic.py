@@ -30,7 +30,7 @@ from typing import Optional, Tuple
 import torch
 
 from .._device import DeviceLike, resolve_device, strict_fp32_matmul
-from ..kernels.fused_mlp import fusable_config, fused_symplectic_velocity, supports_features
+from ..kernels.fused_mlp import check_compute_dtype, fusable_config, fused_symplectic_velocity, supports_features
 from ..ops import losses as losses_lib
 from ..ops.integrate import SolverStats, leapfrog, odeint, odeint_fixed
 from ..utils.checkpoint import load_npz, read_npz_extra
@@ -63,12 +63,7 @@ class SymplecticFlowModel:
     kernel_compute_dtype: str = "float32"
 
     def __post_init__(self):
-        if self.kernel_compute_dtype != "float32":
-            raise NotImplementedError(
-                f"kernel_compute_dtype={self.kernel_compute_dtype!r} is not ported "
-                "to flowfusion_torch yet (ROADMAP.md queue 2: the 3xTF32 'highf32' "
-                "and 'bfloat16' counterparts of items 1-3)"
-            )
+        check_compute_dtype(self.kernel_compute_dtype)
 
     @classmethod
     def create(
@@ -151,7 +146,8 @@ class SymplecticFlowModel:
             isinstance(net, SymplecticMLPConfig)
             and fusable_config(net.units, net.activation)
             and supports_features(
-                net.n_data_dims + net.n_conditionals, "forward", max(net.units), net.n_data_dims
+                net.n_data_dims + net.n_conditionals, "forward", max(net.units), net.n_data_dims,
+                self.kernel_compute_dtype,
             )
         )
 

@@ -7,7 +7,9 @@ a CUDA card every test skips: the kernel has no CPU mode.
 
 Bars, the JAX package's fused-versus-plain bars (bench.py:320-321): drift
 within 1e-5 and divergence within 1e-4 of the plain version's max
-magnitude, TF32 off.  The EM kernel: x and x_mean within rtol 2e-4 / atol
+magnitude, TF32 off.  In compute mode highf32 the kernel and its highf32
+plain version differ in summation order only: drift 1e-5, divergence and
+J v 5e-5.  The EM kernel: x and x_mean within rtol 2e-4 / atol
 1e-4 of the plain version on the same noise (tests/test_kernels.py:203-204)
 and the same ``diverged``.  Tangent columns within 1e-5 of their scale; the
 sketch kernel's divergence within 2e-4 absolute (the JAX package's sketch
@@ -269,6 +271,105 @@ def test_symplectic_kernel_matches_plain_version(cuda_device, c):
     torch.cuda.synchronize()
     assert fused_mlp.fused_symplectic_velocity.launches == before + 2  # one launch a stack
     assert _rel(out, ref) <= 1e-5
+
+
+def _drift_outputs(fn, mode, *args, **kw):
+    kw.update({"e": args[-1]} if mode == "hutchinson" else {"exact_divergence": mode == "exact"})
+    out = fn(*args[:-1], **kw)
+    return out if isinstance(out, tuple) else (out,)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("activation,units", [("silu", (128, 128, 128)), ("tanh", (100, 100)), ("gelu", (256, 256))])
+@pytest.mark.parametrize("mode", ["forward", "hutchinson", "exact"])
+def test_highf32_kernel_matches_its_plain_version(cuda_device, mode, activation, units):
+    """The highf32 kernel (3xTF32 mma.sync) against its plain version in
+    highf32: they differ in summation order only (drift 1e-5, div 5e-5);
+    against strict float32 within the JAX package's highf32 bars.  Width
+    100 pads to 104 (a ragged n-strip), 1,001 rows a ragged row tile."""
+    cfg = ScoreMLPConfig(n_dimensions=6, n_conditionals=3, units=units, activation=activation)
+    params = init_score_mlp(cfg, torch.Generator().manual_seed(0), cuda_device)
+    g = torch.Generator().manual_seed(1)
+    x, cond, e = (torch.randn(1001, n, generator=g).to(cuda_device) for n in (6, 3, 6))
+    args = (params, cfg, 0.4, x, cond, torch.sign(e))
+    counts = dict(fused_mlp.fused_drift.launches_by_dtype)
+    out = _drift_outputs(fused_mlp.fused_drift, mode, *args, c0=-0.2, c1=0.8, compute_dtype="highf32")
+    ref = _drift_outputs(fused_mlp.fused_drift_reference, mode, *args, c0=-0.2, c1=0.8, compute_dtype="highf32")
+    strict = _drift_outputs(fused_mlp.fused_drift_reference, mode, *args, c0=-0.2, c1=0.8)
+    torch.cuda.synchronize()
+    assert fused_mlp.fused_drift.launches_by_dtype == {**counts, "highf32": counts["highf32"] + 1}
+    assert _rel(out[0], ref[0]) <= 1e-5
+    assert _rel(out[0], strict[0]) <= (5e-5 if mode == "exact" else 1e-5)
+    if mode != "forward":
+        assert _rel(out[1], ref[1]) <= 5e-5
+        assert _rel(out[1], strict[1]) <= (5e-4 if mode == "exact" else 1e-5)
+
+
+@pytest.mark.gpu
+def test_highf32_four_row_plan_and_wide_input(cuda_device):
+    """The exact plan of 16 features at 4 rows a block (its M tail: 68 rows
+    in 5 m-tiles) and a 20-feature input projection through the split."""
+    for d, c, mode in ((16, 0, "exact"), (4, 16, "hutchinson")):
+        cfg = ScoreMLPConfig(n_dimensions=d, n_conditionals=c, units=(128, 128))
+        params = init_score_mlp(cfg, torch.Generator().manual_seed(2), cuda_device)
+        g = torch.Generator().manual_seed(3)
+        x, cond, e = (torch.randn(1003, n, generator=g).to(cuda_device) if n else None for n in (d, c, d))
+        args = (params, cfg, 0.6, x, cond, torch.sign(e))
+        out = _drift_outputs(fused_mlp.fused_drift, mode, *args, c0=0.3, c1=-0.5, compute_dtype="highf32")
+        ref = _drift_outputs(fused_mlp.fused_drift_reference, mode, *args, c0=0.3, c1=-0.5, compute_dtype="highf32")
+        torch.cuda.synchronize()
+        assert _rel(out[0], ref[0]) <= 1e-5 and _rel(out[1], ref[1]) <= 5e-5
+
+
+@pytest.mark.gpu
+def test_highf32_tangents_velocity_and_symplectic(cuda_device):
+    """The other highf32 entries against their plain versions: both
+    tangents entries (K = 3), fused_velocity and the symplectic field."""
+    g = torch.Generator().manual_seed(11)
+    x, cond = (torch.randn(1003, n, generator=g).to(cuda_device) for n in (6, 3))
+    V = torch.randn(3, 1003, 6, generator=g).to(cuda_device)
+    for family in ("drift", "velocity"):
+        cfg, params = _net(family, 6, 3, cuda_device, 10)
+        if family == "drift":
+            out = fused_mlp.fused_drift_tangents(params, cfg, 0.4, x, V, cond, c0=-0.2, c1=0.8, compute_dtype="highf32")
+            ref = fused_mlp.fused_drift_tangents_reference(params, cfg, 0.4, x, V, cond, c0=-0.2, c1=0.8,
+                                                           compute_dtype="highf32")
+        else:
+            out = fused_mlp.fused_velocity_tangents(params, cfg, 0.4, x, V, cond, compute_dtype="highf32")
+            ref = fused_mlp.fused_velocity_tangents_reference(params, cfg, 0.4, x, V, cond, compute_dtype="highf32")
+            vel = fused_mlp.fused_velocity(params, cfg, 0.4, x, cond, e=torch.sign(V[0]), compute_dtype="highf32")
+            vref = fused_mlp.fused_velocity_reference(params, cfg, 0.4, x, cond, e=torch.sign(V[0]),
+                                                      compute_dtype="highf32")
+            assert _rel(vel[0], vref[0]) <= 1e-5 and _rel(vel[1], vref[1]) <= 5e-5
+        assert _rel(out[0], ref[0]) <= 1e-5
+        for o, r in zip(out[1], ref[1]):
+            assert _rel(o, r) <= 5e-5
+    cfg = SymplecticMLPConfig(n_data_dims=2, n_conditionals=3, units=(128, 128))
+    params = init_symplectic_mlp(cfg, torch.Generator().manual_seed(14), cuda_device)
+    state = torch.randn(2005, 4, generator=g).to(cuda_device)
+    out = fused_mlp.fused_symplectic_velocity(params, cfg, 0.43, state, cond[:1].expand(2005, 3).contiguous(),
+                                              compute_dtype="highf32")
+    ref = fused_mlp.fused_symplectic_velocity_reference(params, cfg, 0.43, state, cond[:1].expand(2005, 3),
+                                                        compute_dtype="highf32")
+    torch.cuda.synchronize()
+    assert _rel(out, ref) <= 1e-5
+
+
+@pytest.mark.gpu
+def test_highf32_solve_never_runs_the_strict_kernel(cuda_device):
+    """A highf32 model's solve launches the highf32 kernel every RHS call
+    and the float32 one never; its sketch modes raise on the card."""
+    cfg = ScoreMLPConfig(n_dimensions=2, units=(128, 128))
+    params = init_score_mlp(cfg, torch.Generator().manual_seed(0), cuda_device)
+    model = ScoreModel(params, cfg, VESDE(), trace_mode="hutchinson", kernel_compute_dtype="highf32")
+    x = torch.randn(257, 2, generator=torch.Generator().manual_seed(1)).to(cuda_device)
+    e = torch.sign(torch.randn(257, 2, generator=torch.Generator().manual_seed(2))).to(cuda_device)
+    fused_mlp.reset_launch_counts()
+    lp, st = model.log_prob(x, probes=(e,))
+    assert bool(torch.isfinite(lp).all())
+    assert fused_mlp.fused_drift.launches_by_dtype == {"float32": 0, "highf32": st.n_func_evals}
+    with pytest.raises(NotImplementedError, match="#6"):
+        dataclasses.replace(model, trace_mode="xtrace").log_prob(x, probes=(e[None],))
 
 
 @pytest.mark.gpu

@@ -193,9 +193,10 @@ def test_refusals_name_their_roadmap_item(flagship):
     for mode in ("hutchpp", "xtrace"):
         with pytest.raises(NotImplementedError, match="item 13"):
             dataclasses.replace(tm, trace_mode=mode).log_prob(x, adjoint=True)
-    for dtype in ("highf32", "bfloat16"):
-        with pytest.raises(NotImplementedError, match="queue 2"):
-            dataclasses.replace(tm, kernel_compute_dtype=dtype)
+    # highf32 is ported; bfloat16 waits for queue 2 #3b
+    assert dataclasses.replace(tm, kernel_compute_dtype="highf32").kernel_compute_dtype == "highf32"
+    with pytest.raises(NotImplementedError, match="queue 2 #3b"):
+        dataclasses.replace(tm, kernel_compute_dtype="bfloat16")
     with pytest.raises(NotImplementedError, match="item 13"):
         tm.log_prob(x, adjoint=True)
     with pytest.raises(NotImplementedError, match="item 13"):

@@ -198,9 +198,11 @@ def test_create_refusals_and_dispatch(sym_pair):
     x = torch.zeros(4, 2)
     # training is ported: the joint flow-matching loss is finite
     assert torch.isfinite(tm.loss_fn(torch.Generator().manual_seed(0), x))
+    # highf32 is ported; bfloat16 waits for queue 2 #3b
+    assert dataclasses.replace(tm, kernel_compute_dtype="highf32").kernel_compute_dtype == "highf32"
     for call, item in ((lambda: tm.log_prob_per_sample(x), "item 13"),
                        (lambda: tm.log_prob(x, adjoint=True), "item 13"),
-                       (lambda: dataclasses.replace(tm, kernel_compute_dtype="highf32"), "queue 2")):
+                       (lambda: dataclasses.replace(tm, kernel_compute_dtype="bfloat16"), "queue 2 #3b")):
         with pytest.raises(NotImplementedError, match=item):
             call()
     with pytest.raises(ValueError, match="num_steps"):
