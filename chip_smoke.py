@@ -39,6 +39,15 @@ non-zero without the final line):
         plain versions and against strict float32 at the JAX package's
         highf32 bars, the flagship RHS at the bench.py point, a single-TF32
         trap guard; times of the highf32 launch beside the float32 one;
+     g. compute mode highf32 of fused_sketch.cu: Hutch++ and XTrace on the
+        flagship (r = 2, m = 1 and the bench suite's r = 1, m = 1 | m = 2) at
+        50,000 and 50,001 rows, the conditional H=128 and H=256 checkpoints
+        (r = m = 3 | m = 3; the H=256 Hutch++ plan takes 4 rows a block),
+        the flow's XTrace and a one-hidden-layer net, against the highf32
+        plain version and the float32 kernel at the JAX package's highf32
+        sketch bars, a single-TF32 trap guard, the two-launch form over the
+        highf32 tangents entries; times of the highf32 launch beside the
+        float32 one;
   2. the likelihood path, flagship model (benchmarks/flagship_ckpt.npz):
      the exact-trace ``log_prob`` at its defaults against the analytic
      mixture density; Hutchinson at rtol 1e-5 with the PI controller through
@@ -82,10 +91,18 @@ non-zero without the final line):
      ODE sampling; the flow's Hutchinson, exact density and sampling; the
      symplectic log_prob; the two-launch XTrace over the highf32 tangents
      entries; every launch highf32;
+  12. the sketch likelihood paths in highf32: flagship Hutch++ (r = 2, m = 1
+     and r = 1, m = 1) and XTrace (m = 2) at 50,000 rows, rtol 1e-5 PI,
+     against the highf32 plain RHS (equal NFE, mean |dlogp| <= 1e-4; Hutch++
+     r = 1 and the conditional XTrace within one dopri5 attempt) and the
+     float32 kernel's solve (<= 5e-4), walls in turns with float32 and
+     profiles; the Hutch++ r = D density; the conditional checkpoint as
+     served with XTrace and Hutch++; the flow's XTrace; every sketch launch
+     highf32;
   7. a ``kernels`` line, printed last: launches on the main paths (each
      path run with the counts set to 0 just before it: phases 2-4, 5, 6,
-     the two-launch path of 1d, 8, 9, 10 and, for the highf32 entries, 11),
-     times, bounds and plain times.
+     the two-launch path of 1d, 8, 9, 10 and, for the highf32 entries, 11
+     and 12), times, bounds and plain times.
 
 The last line is ``{"ok": true, "device": {...}}``.  Exits with 2 and no
 result when no CUDA card is visible.
@@ -1022,6 +1039,158 @@ def main() -> int:
         emit("highf32_kernel_time", entry=name, rows=B, card=smi, **hf_timing[name], highf32_ms_runs=hfs,
              float32_ms_runs=f32, float32_ms=statistics.median(f32))
 
+    # -- phase 1g: the highf32 sketch kernel against its plain version, then
+    # strict.  The RHS as the solves call it (rhs_inputs).  Against its
+    # highf32 plain version and against the strict float32 sketch kernel on
+    # the same inputs, the JAX package's highf32 sketch bars (tests/
+    # test_kernels.py:826-856): drift 5e-5 and div 5e-4, relative to their
+    # max magnitude.  The plain version sums the split's three products as
+    # three whole products, the kernel per k-step on the tensor cores, and on
+    # the conditional checkpoints' data rows c0 x and c1 net cancel in the
+    # drift: there the two differ by ~1e-5 of the drift's max.  The drift is
+    # the highf32 RHS kernel's forward drift (the same per-row arithmetic:
+    # within 1e-6).  Trap guard: the drift's deviation from strict is at
+    # least 10x below that of a single-pass TF32 net.
+    hf_sketch_err = {}
+    check(fused_sketch.sketch_plan("hutchpp", 256, 3, 9, 6, 3, 3)[0] == 4,
+          "the conditional H=256 Hutch++ plan (r = m = 3) is not the 4-row one")
+    one_hidden_cfg = ScoreMLPConfig(n_dimensions=2, units=(128,))
+    one_hidden = init_score_mlp(one_hidden_cfg, gen(17), dev)
+    hf_sketch_cases = [("fused_drift_sketch", "flagship", flag_params, flag_cfg, B, mode, k)
+                       for B, mode, k in ((50_000, "hutchpp", (2, 1)), (50_000, "hutchpp", (1, 1)),
+                                          (50_000, "xtrace", (0, 2)), (50_001, "hutchpp", (2, 1)),
+                                          (50_001, "xtrace", (0, 2)))]
+    hf_sketch_cases += [("fused_drift_sketch", name, params, cfg, 50_000, mode, k)
+                        for name, (params, cfg) in cond_nets.items()
+                        for mode, k in (("hutchpp", (3, 3)), ("xtrace", (0, 3)))]
+    hf_sketch_cases.append(("fused_velocity_sketch", "flow_ckpt.npz", flow_params, flow_cfg, 50_000, "xtrace", (0, 2)))
+    hf_sketch_cases += [("fused_drift_sketch", "random_one_hidden", one_hidden, one_hidden_cfg, 4_099, mode, k)
+                        for mode, k in (("hutchpp", (2, 1)), ("xtrace", (0, 2)))]
+    for entry_name, name, params, cfg, B, mode, (r, m) in hf_sketch_cases:
+        velocity = entry_name == "fused_velocity_sketch"
+        D = cfg.target_dimension if velocity else cfg.n_dimensions
+        g = gen(B + 111)
+        if name == "random_one_hidden":
+            x, c, c0, c1 = torch.randn(B, 2, generator=g).to(dev), None, -0.3, 0.7
+        else:
+            x, c, c0, c1 = rhs_inputs(name, B, g)
+        probes = sketch_probes(g, mode, B, D, r, m)
+        if velocity:
+            outs = [fn(params, cfg, t37, x, probes, mode, c, **extra) for fn, extra in (
+                (fused_velocity_sketch, hf), (fused_sketch.fused_velocity_sketch_reference, hf),
+                (fused_velocity_sketch, {}))]
+            rhs_drift = fused_velocity(params, cfg, t37, x, c, **hf)
+            with torch.no_grad():
+                p1 = nets_lib.apply_velocity_mlp(cfg, params, t37, x, c, matmul=one_pass)
+                strict_drift = fused_velocity_reference(params, cfg, t37, x, c)
+        else:
+            kw = dict(c0=c0, c1=c1)
+            outs = [fn(params, cfg, t37, x, probes, mode, c, **kw, **extra) for fn, extra in (
+                (fused_drift_sketch, hf), (fused_sketch.fused_drift_sketch_reference, hf), (fused_drift_sketch, {}))]
+            rhs_drift = fused_drift(params, cfg, t37, x, c, **kw, **hf)
+            with torch.no_grad():
+                p1 = c0 * x + c1 * nets_lib.apply_score_mlp(cfg, params, t37, x, c, matmul=one_pass)
+                strict_drift = fused_drift_reference(params, cfg, t37, x, c, **kw)
+        (out, ref, s32) = outs
+        torch.cuda.synchronize()
+        what = f"highf32 {entry_name} {name} B={B} {mode} r={r} m={m}"
+        d_drift, d_div = rel_err(out[0], ref[0]), rel_err(out[1], ref[1])
+        s_drift, s_div = rel_err(out[0], s32[0]), rel_err(out[1], s32[1])
+        d_strict, d_one = rel_err(out[0], strict_drift), rel_err(p1, strict_drift)
+        d_rhs = rel_err(out[0], rhs_drift)
+        check(bool(torch.isfinite(out[1]).all()), f"{what}: non-finite divergence")
+        check(d_drift <= 5e-5 and d_div <= 5e-4, f"{what}: vs its plain version drift {d_drift:.2e}, div {d_div:.2e}")
+        check(s_drift <= 5e-5 and s_div <= 5e-4, f"{what}: vs the float32 kernel drift {s_drift:.2e}, div {s_div:.2e}")
+        check(d_rhs <= 1e-6, f"{what}: drift {d_rhs:.2e} from the highf32 RHS kernel's forward drift")
+        check(d_one >= 10 * d_strict,
+              f"{what}: drift {d_strict:.2e} from strict, not 10x below one TF32 pass {d_one:.2e}")
+        if B == 50_000 and name in ("flagship", "flow_ckpt.npz") and (r, m) != (1, 1):
+            key = f"{entry_name}[{mode}]"
+            errs = [float((o - p).abs().max()) for o, p in zip(out, ref)]
+            hf_sketch_err[key] = max(hf_sketch_err.get(key, 0.0), *errs)
+        emit("highf32_sketch_vs_plain", entry=entry_name, net=name, rows=B, mode=mode, r=r, m=m, c0=float(c0),
+             c1=float(c1), vs_plain_drift_rel=d_drift, vs_plain_div_rel=d_div,
+             vs_plain_div_max_abs=float((out[1] - ref[1]).abs().max()), vs_float32_kernel_drift_rel=s_drift,
+             vs_float32_kernel_div_rel=s_div, drift_vs_rhs_kernel_rel=d_rhs, drift_vs_strict_rel=d_strict,
+             single_tf32_pass_rel=d_one,
+             div_scale=float(ref[1].abs().max()), worst_row=int((out[1] - ref[1]).abs().argmax()))
+
+    # the two-launch form in highf32: ops.trace's sketch algebra over the
+    # highf32 tangents kernel, against the highf32 one-launch kernel
+    for velocity, name, params, cfg, mode, (r, m) in (
+        (False, "flagship", flag_params, flag_cfg, "hutchpp", (2, 1)),
+        (False, "flagship", flag_params, flag_cfg, "xtrace", (0, 2)),
+        (False, "conditional_ckpt_h256.npz", *cond_nets["conditional_ckpt_h256.npz"], "hutchpp", (3, 3)),
+        (True, "flow_ckpt.npz", flow_params, flow_cfg, "xtrace", (0, 2)),
+    ):
+        D = cfg.target_dimension if velocity else cfg.n_dimensions
+        g = gen(171 + D + r + m)
+        x, c, c0, c1 = rhs_inputs(name, 50_000, g)
+        probes = sketch_probes(g, mode, 50_000, D, r, m)
+        if velocity:
+            def apply_cols(cols):
+                return fused_velocity_tangents(params, cfg, t37, x, cols, c, **hf)[1]
+            one = fused_velocity_sketch(params, cfg, t37, x, probes, mode, c, **hf)[1]
+        else:
+            def apply_cols(cols):
+                return fused_drift_tangents(params, cfg, t37, x, cols, c, c0=c0, c1=c1, **hf)[1]
+            one = fused_drift_sketch(params, cfg, t37, x, probes, mode, c, c0=c0, c1=c1, **hf)[1]
+        cols = [[p[i].T for i in range(p.shape[0])] for p in probes]
+        core = trace_ops.hutchpp_core if mode == "hutchpp" else trace_ops.xtrace_core
+        two = core(apply_cols, *cols)
+        torch.cuda.synchronize()
+        d_div = float((two - one).abs().max())
+        check(d_div <= 2e-4, f"highf32 two-launch {mode} {name}: differs from the one-launch kernel by {d_div:.2e}")
+        emit("highf32_sketch_two_launch_crosscheck", net=name, mode=mode, r=r, m=m, rows=50_000, div_max_abs=d_div)
+
+    # times at the float32 rows' shapes (flagship and flow, 50,000 rows,
+    # t = 0.5): the highf32 launch and the float32 launch in turns (f, h, h,
+    # f; medians of 15), and the highf32 plain version's whole call; the
+    # TF32 bound of hf_bound with the sketch's chains
+    B = 50_000
+    SG1 = torch.cat([rademacher(gen(96), 1, B, 2), rademacher(gen(97), 1, B, 2)])
+
+    def sketch_hf_bound(n_layers, mode, n_s, n_g, nbytes):
+        tc, cc = fused_mlp.highf32_flops_per_row(2, 2, 128, n_layers, mode, n_s, n_g)
+        t_ops = B * (3 * tc / PEAK_TF32_FLOPS + cc / PEAK_FP32_FLOPS) * 1e3
+        t_bytes = nbytes / PEAK_BYTES * 1e3
+        return dict(bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes else "bytes")
+
+    def sketch_hf_launch(probes, mode, n_s, n_g, w_in, b_eff, layers, c0c1, counter):
+        plan = fused_sketch.sketch_plan(mode, 128, len(layers) - 1, 2, 2, n_s, n_g)
+        return lambda dt: fused_sketch._launch(x2h, probes, w_in, b_eff, layers, c0c1, mode, 2, n_s, n_g, "silu",
+                                               plan, counter, dt)
+
+    hf_sketch_timing = {}
+    for name, call, plain_call, bnd in (
+        ("fused_drift_sketch[hutchpp]",
+         sketch_hf_launch(SG, "hutchpp", 2, 1, w_in_f, b_eff_f, flag_params["layers"], c_flag, fused_drift_sketch),
+         lambda: fused_sketch.fused_drift_sketch_reference(flag_params, flag_cfg, t, x2h, (SG[:2], SG[2:]), "hutchpp",
+                                                           c0=0.0, c1=-1.3, **hf),
+         sketch_hf_bound(4, "hutchpp", 2, 1, 4 * B * (2 + 6 + 2 + 1) + w_bytes["flag"])),
+        ("fused_drift_sketch[hutchpp,r1]",
+         sketch_hf_launch(SG1, "hutchpp", 1, 1, w_in_f, b_eff_f, flag_params["layers"], c_flag, fused_drift_sketch),
+         lambda: fused_sketch.fused_drift_sketch_reference(flag_params, flag_cfg, t, x2h, (SG1[:1], SG1[1:]),
+                                                           "hutchpp", c0=0.0, c1=-1.3, **hf),
+         sketch_hf_bound(4, "hutchpp", 1, 1, 4 * B * (2 + 4 + 2 + 1) + w_bytes["flag"])),
+        ("fused_drift_sketch[xtrace]",
+         sketch_hf_launch(O, "xtrace", 2, 0, w_in_f, b_eff_f, flag_params["layers"], c_flag, fused_drift_sketch),
+         lambda: fused_sketch.fused_drift_sketch_reference(flag_params, flag_cfg, t, x2h, (O,), "xtrace",
+                                                           c0=0.0, c1=-1.3, **hf),
+         sketch_hf_bound(4, "xtrace", 2, 0, 4 * B * (2 + 4 + 2 + 1) + w_bytes["flag"])),
+        ("fused_velocity_sketch[xtrace]",
+         sketch_hf_launch(O, "xtrace", 2, 0, w_in_fl, b_eff_fl, flow_params["layers"], c_flow, fused_velocity_sketch),
+         lambda: fused_sketch.fused_velocity_sketch_reference(flow_params, flow_cfg, t, x2h, (O,), "xtrace", **hf),
+         sketch_hf_bound(3, "xtrace", 2, 0, 4 * B * (2 + 4 + 2 + 1) + w_bytes["flow"])),
+    ):
+        f32 = [median_ms(lambda: call("float32"), n=15)]
+        hfs = [median_ms(lambda: call("highf32"), n=15) for _ in range(2)]
+        f32.append(median_ms(lambda: call("float32"), n=15))
+        plain_ms = median_ms(plain_call, n=5, warmup=1)
+        hf_sketch_timing[name] = dict(ms=statistics.median(hfs), plain_ms=plain_ms, **bnd)
+        emit("highf32_sketch_kernel_time", entry=name, rows=B, card=smi, **hf_sketch_timing[name],
+             highf32_ms_runs=hfs, float32_ms_runs=f32, float32_ms=statistics.median(f32))
+
     # -- phases 2-4: the likelihood path, launches counted from zero -------
     reset_counts()
 
@@ -1669,6 +1838,166 @@ def main() -> int:
         check(n > 0, f"{key} in highf32 was never launched on the highf32 path")
     emit("highf32_path_launches", by_dtype=hf_counts, float32_comparison_launches=f32_compared, **hf_path_counts)
 
+    # -- phase 12: the sketch likelihood paths in highf32, launches counted
+    # from zero.  The JAX bench suite's sketch configs (benchmarks/
+    # bench_suite.py:262-266) and Hutch++ r = 2, m = 1 on the flagship at
+    # 50,000 rows, dopri5 atol = rtol = 1e-5 with the PI controller; the
+    # flagship Hutch++ r = D density; the conditional checkpoint as served
+    # with XTrace m = 3 and Hutch++ r = m = 3; the flow with XTrace m = 2.
+    # Each kernel solve against the same model's solve on the highf32 plain
+    # RHS with the same probes (equal NFE, mean |dlogp| <= 1e-4), every
+    # sketch launch of the path highf32.  Two estimates here turn rounding
+    # into different controller steps on rows where the sketch is nearly
+    # singular: Hutch++ with r = 1 < D (rows pass near A s = 0, where
+    # q = A s / |A s| turns fast) and the conditional checkpoint's XTrace
+    # with m = 3 < D = 6 (its leave-one-out inv(R)).  Both are held to one
+    # dopri5 attempt (6 NFE); r = 1 to the bench.py highf32 bar (5e-4), the
+    # conditional XTrace's |dlogp| reported only; each has its float32
+    # kernel and plain solves reported beside it.  Every case is run and
+    # reported before a failed gate stops the script.  Then, outside the
+    # count: the float32 kernel's solves on the same probes (mean |dlogp| <=
+    # 5e-4, bench.py:323-327), the walls in turns with float32, profiles.
+    import contextlib
+
+    from flowfusion_torch.models import flow as flow_mod, score as score_mod
+
+    @contextlib.contextmanager
+    def plain_sketch_rhs():
+        """The models' sketch RHS through the wrappers' plain versions on the
+        card, in the model's compute mode (the models' own plain path
+        computes in float32 whatever their mode)."""
+        saved = score_mod.fused_drift_sketch, flow_mod.fused_velocity_sketch
+        score_mod.fused_drift_sketch = fused_sketch.fused_drift_sketch_reference
+        flow_mod.fused_velocity_sketch = fused_sketch.fused_velocity_sketch_reference
+        try:
+            yield
+        finally:
+            score_mod.fused_drift_sketch, flow_mod.fused_velocity_sketch = saved
+
+    def sketch_launches_in(*dtypes):
+        return sum(fn.launches_by_dtype[d] for fn in (fused_drift_sketch, fused_velocity_sketch) for d in dtypes)
+
+    failed = []
+
+    def hf_vs_plain(what, call, nfe_slack=0, bar=1e-4):
+        """(kernel densities, fields) of ``call()`` through the kernel and
+        through the highf32 plain RHS; a missed gate goes to ``failed``
+        (``bar`` None: |dlogp| reported only)."""
+        (lp_k, st_k), n_k, secs_k = timed(call, lambda: sketch_launches_in("highf32"))
+        with plain_sketch_rhs():
+            (lp_p, st_p), n_p, secs_p = timed(call, lambda: sketch_launches_in("float32", "highf32"))
+        check(n_k == st_k.n_func_evals and n_p == 0, f"{what}: {n_k} highf32 launches != nfe {st_k.n_func_evals}")
+        check(bool(torch.isfinite(lp_k).all()), f"{what}: non-finite densities")
+        dlp = float((lp_k - lp_p).abs().mean())
+        if abs(st_k.n_func_evals - st_p.n_func_evals) > nfe_slack:
+            failed.append(f"{what}: NFE differ: kernel {st_k.n_func_evals} plain {st_p.n_func_evals}")
+        if bar is not None and dlp > bar:
+            failed.append(f"{what}: kernel vs plain mean |dlogp| {dlp:.2e} > {bar}")
+        return lp_k, dict(nfe=st_k.n_func_evals, nfe_plain=st_p.n_func_evals, mean_abs_dlogp_vs_plain=dlp,
+                          max_abs_dlogp_vs_plain=float((lp_k - lp_p).abs().max()), launches=n_k,
+                          seconds_kernel_first=secs_k, seconds_plain=secs_p)
+
+    reset_counts()
+    sketch_hf = {}
+    for mode, kw in (("hutchpp", dict(hpp_rank=2, hpp_vecs=1)), ("hutchpp", dict(hpp_rank=1, hpp_vecs=1)),
+                     ("xtrace", dict(xt_vecs=2))):
+        label = f"{mode}_r{kw['hpp_rank']}" if mode == "hutchpp" else mode
+        m_hf = ScoreModel(flag_params, flag_cfg, VESDE(), trace_mode=mode, kernel_compute_dtype="highf32", **kw)
+        xs = (DEMO_GMM.sample(gen(400), 50_000, device=dev) - shift) / scale
+        probes = trace_ops.make_probes(mode, gen(401), xs, **kw)
+
+        def solve(m, xx=xs, pr=probes):
+            return m.log_prob(xx, probes=pr, atol=1e-5, rtol=1e-5, options=opts)
+
+        slack = (6, 5e-4) if kw.get("hpp_rank") == 1 else ()
+        lp_k, fields = hf_vs_plain(f"highf32 flagship {label}", lambda: solve(m_hf), *slack)
+        emit("highf32_sketch_log_prob_parity", rows=50_000, mode=mode, **kw, **fields)
+        sketch_hf[label] = (m_hf, solve, lp_k)
+
+    hpp_hf = dataclasses.replace(hpp, kernel_compute_dtype="highf32")
+    x_raw = DEMO_GMM.sample(gen(99), 25_000, device=dev)
+    (lp, st), n, secs = timed(lambda: hpp_hf.log_prob((x_raw - shift) / scale, generator=gen(202)),
+                              lambda: sketch_launches_in("highf32"))
+    total = float((lp - torch.log(scale).sum()).double().sum())
+    truth = float(DEMO_GMM.log_prob(x_raw.double()).sum())
+    rel = abs(total - truth) / abs(truth)
+    check(n == st.n_func_evals and st.succeeded,
+          f"highf32 hutchpp density solve: {n} launches != nfe {st.n_func_evals}")
+    check(rel <= 3e-3, f"highf32 flagship hutchpp density error {rel:.3e} > 3e-3")
+    emit("highf32_flagship_hutchpp_density", rows=25_000, hpp_rank=2, hpp_vecs=1, density_rel_error=rel,
+         nfe=st.n_func_evals, launches=n, seconds=secs)
+
+    theta, c = CONDITIONAL_POP.sample(gen(9), 20_000, device=dev)
+    truth_c = CONDITIONAL_POP.log_prob(theta, c)
+    cond_sketch = {}
+    for mode, kw in (("xtrace", dict(xt_vecs=3)), ("hutchpp", dict(hpp_rank=3, hpp_vecs=3))):
+        cm = dataclasses.replace(cmodel_hf, score_model=dataclasses.replace(cmodel_hf.score_model, trace_mode=mode,
+                                                                            **kw))
+
+        def csolve(m=cm):
+            return m.log_prob(theta, conditional=c, generator=gen(1), atol=1e-5, rtol=1e-5, volume_corrected=True,
+                              options=opts)
+
+        slack = (6, None) if mode == "xtrace" else ()
+        lp_k, fields = hf_vs_plain(f"highf32 conditional {mode}", csolve, *slack)
+        diff = (lp_k - truth_c).double()
+        bias = float(diff.mean())
+        emit("highf32_conditional_sketch", rows=20_000, mode=mode, **kw, **fields, offset_nats=bias,
+             scatter_nats=float(((diff - bias) ** 2).mean().sqrt()))
+        cond_sketch[mode] = (cm, csolve)
+
+    xflow_hf = dataclasses.replace(flow, trace_mode="xtrace", xt_vecs=2, kernel_compute_dtype="highf32")
+    xs = REFERENCE_GMM.sample(gen(403), 50_000, device=dev)
+    probes = trace_ops.make_probes("xtrace", gen(404), (xs - flow.target_shift) / flow.target_scale, xt_vecs=2)
+    _, fields = hf_vs_plain("highf32 flow xtrace", lambda: xflow_hf.log_prob(xs, probes=probes, options=opts))
+    emit("highf32_flow_xtrace_parity", rows=50_000, xt_vecs=2, **fields)
+
+    hf_sketch_counts = {f"{fn.__name__}[{m}]": n for fn in (fused_drift_sketch, fused_velocity_sketch)
+                        for m, n in fn.launches_by_mode.items()}
+    sketch_by_dtype = {fn.__name__: dict(fn.launches_by_dtype) for fn in (fused_drift_sketch, fused_velocity_sketch)}
+    check(sketch_launches_in("float32") == 0, f"phase 12 launched the float32 sketch kernel: {sketch_by_dtype}")
+    for key in ("fused_drift_sketch[hutchpp]", "fused_drift_sketch[xtrace]", "fused_velocity_sketch[xtrace]"):
+        check(hf_sketch_counts[key] > 0, f"{key} in highf32 was never launched on the highf32 sketch path")
+    emit("highf32_sketch_path_launches", by_dtype=sketch_by_dtype, **hf_sketch_counts)
+
+    # outside the count: the float32 kernel's and the float32 plain solve of
+    # the conditional XTrace; for the flagship, the float32 kernel's solve on
+    # the same probes (and, for r = 1, the float32 plain solve), the walls in
+    # turns (f, h three times) and a profile of the highf32 solve
+    cm, csolve = cond_sketch["xtrace"]
+    m32 = dataclasses.replace(cm, score_model=dataclasses.replace(cm.score_model, kernel_compute_dtype="float32"))
+    (lp32, st32), (lpp, stp) = (csolve(m) for m in (m32, dataclasses.replace(
+        m32, score_model=dataclasses.replace(m32.score_model, use_fused_kernel=False))))
+    emit("conditional_xtrace_float32_kernel_vs_plain", rows=20_000, xt_vecs=3, nfe=st32.n_func_evals,
+         nfe_plain=stp.n_func_evals, mean_abs_dlogp=float((lp32 - lpp).abs().mean()),
+         max_abs_dlogp=float((lp32 - lpp).abs().max()))
+    for label, (m_hf, solve, lp_k) in sketch_hf.items():
+        m32 = dataclasses.replace(m_hf, kernel_compute_dtype="float32")
+        lp32, st32 = solve(m32)
+        fields = {}
+        if label == "hutchpp_r1":
+            lpp, stp = solve(dataclasses.replace(m32, use_fused_kernel=False))
+            fields = dict(float32_plain_nfe=stp.n_func_evals,
+                          float32_kernel_vs_plain_mean_abs_dlogp=float((lp32 - lpp).abs().mean()))
+        d32 = float((lp_k - lp32).abs().mean())
+        if d32 > 5e-4:
+            failed.append(f"highf32 flagship {label}: vs the float32 kernel's solve mean |dlogp| {d32:.2e} > 5e-4")
+        secs = {"float32": [], "highf32": []}
+        for _ in range(3):
+            for m in (m32, m_hf):
+                (lp, st), _, s_ = timed(lambda: solve(m), lambda: 0)
+                check(st.succeeded and bool(torch.isfinite(lp).all()),
+                      f"highf32 flagship {label}: a timed solve failed")
+                secs[m.kernel_compute_dtype].append(s_)
+        med = {k: statistics.median(v) for k, v in secs.items()}
+        _, prof_stats = profiled(lambda: solve(m_hf), "fused_sketch", med["highf32"])
+        emit("highf32_sketch_log_prob", config=label, rows=50_000, card=smi, **fields, nfe_float32=st32.n_func_evals,
+             mean_abs_dlogp_vs_float32=d32, **{f"{k}_seconds_median": v for k, v in med.items()},
+             **{f"{k}_seconds_runs": v for k, v in secs.items()},
+             **{f"{k}_rows_per_s": 50_000 / v for k, v in med.items()},
+             profile=prof_stats or "not measured: the profiler saw no CUDA time")
+    check(not failed, "; ".join(failed))
+
     # -- phase 7: the kernels line ------------------------------------------
     # no single PyTorch call computes any of these functions (a fused MLP with
     # its divergence, its Jacobian-vector columns or its sketch estimate; the
@@ -1711,6 +2040,11 @@ def main() -> int:
             REPLACES_NEW[base]
         hf_name = name[:-1] + ",highf32]" if "[" in name else name + "[highf32]"
         kernels.append(entry(hf_name, src_mlp, replaces, hf_path_counts[name], hf_err[name], hf_timing[name]))
+    # the highf32 mode of fused_sketch.cu: launches from phase 12, errors and
+    # times from phase 1g, bounds at the TF32 tensor-core rate
+    for name in ("fused_drift_sketch[hutchpp]", "fused_drift_sketch[xtrace]", "fused_velocity_sketch[xtrace]"):
+        kernels.append(entry(name[:-1] + ",highf32]", src_sketch, REPLACES_NEW[name.split("[")[0]],
+                             hf_sketch_counts[name], hf_sketch_err[name], hf_sketch_timing[name]))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({
         "ok": True,

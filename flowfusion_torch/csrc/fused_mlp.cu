@@ -69,7 +69,6 @@ namespace {
 using namespace ffk;
 
 enum Mode { kForward = 0, kHutchinson = 1, kExact = 2, kTangents = 3 };
-constexpr int kRank1Max = 16;  // input features the highf32 mode keeps strict
 
 // div: (B,) in modes hutchinson and exact; in mode tangents the (n_tan, B,
 // d_out) columns J v_k.  e: (B, d_out) in mode hutchinson, (B, n_tan, d_out)

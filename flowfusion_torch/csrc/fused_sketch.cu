@@ -3,9 +3,21 @@
 // Replaces the sketch modes of flowfusion_tpu/kernels/fused_mlp.py::_kernel
 // (_sketch_chunk, fused_mlp.py:673-754, with _qr_lane :601 and _tri_inv_lane
 // :649), reached through fused_drift_sketch (fused_mlp.py:1060) and
-// fused_velocity_sketch (fused_mlp.py:1112), compute mode float32: strict IEEE
-// fp32 FMAs in every chain (the Pallas kernel runs its sketch tangent chains
-// at a 3-pass bf16 split; this one does not).
+// fused_velocity_sketch (fused_mlp.py:1112), in two compute modes:
+//   float32  strict IEEE fp32 FMAs in every chain (the Pallas kernel runs its
+//            float32 sketch tangent chains at a 3-pass bf16 split, for speed
+//            alone; this one does not);
+//   highf32  the Pallas kernel's 3-pass split mode (mm_3pass, fused_mlp.py:
+//            547-552, bf16_3pass_dot_general :214-233) and its tanh-form SiLU
+//            (:596-599), here as 3xTF32, as in fused_mlp.cu: every hidden
+//            (H, H) product, the forward chain's and all tangent chains' at
+//            once, on the tensor cores (mlp_tile.cuh dense_tf32x3), the
+//            (H, D) output layer through the split in FMAs, act' from the
+//            tanh-form sigmoid; the primal input projection strict up to 16
+//            features (in_proj_rows :313-330) and through the split past
+//            that; the probes' projection (D <= 8 rows) strict.
+// In both modes the per-row QR, projections, inverse and leave-one-out
+// algebra are elementwise fp32, as in the Pallas kernel.
 //
 // What it computes, per row, for the drift f(x) = c0 x + c1 net(t, x[, cond])
 // (the caller folds t into b_eff) and the operator A v = c0 v + c1 J_net v:
@@ -22,24 +34,34 @@
 // sign(d) floor + (d == 0) floor.  So degenerate sketches (parallel probes)
 // and zero rows give bounded values, never NaN.
 //
-// What bounds it on this card: fp32 FMA throughput.  Per row it runs the
-// forward chain once and 2r + m (hutchpp) or 2m (xtrace) tangent chains,
-// 2 H (D_in + (n_hidden - 1) H + D) flops each: ~400k flops a row for the
-// flagship net at r = 2, m = 1, against ~50 bytes of input and output.
+// What bounds it on this card.  Per row it runs the forward chain once and
+// 2r + m (hutchpp) or 2m (xtrace) tangent chains, 2 H (D_in + (n_hidden - 1)
+// H + D) flops each: ~400k flops a row for the flagship net at r = 2, m = 1,
+// against ~50 bytes of input and output.  float32: fp32 FMA throughput.
+// highf32: the hidden products' three TF32 passes on the tensor cores
+// (495 TFLOP/s dense; 393,216 of the flagship's flops a row at r = 2, m = 1)
+// plus the CUDA-core rest (the projections, 3x the output layer);
+// mma.sync does not reach the wgmma rate.
 //
 // What the design does about it: a block owns a tile of R rows.  The forward
 // chain runs once and keeps act'(a) of every activation layer in shared
 // memory (n_act x R x H floats); every Jacobian application seeds its tangent
 // chains from the probe tile and multiplies them by the stored act' at each
-// layer, with the register-tiled products of mlp_tile.cuh (no bias, no
-// recomputed forward), so a sketch RHS touches device memory only for x, the
-// probes, the drift and div.  Between applications one thread per row runs
-// the small D x k algebra (QR, projections, inverse, the estimate) on local
-// arrays of at most kMaxDim x kMaxDim, and writes Q (and U) back into the
-// row's probe tile, where the next application reads its seeds.  R is picked
-// by the caller from the shared-memory plan (act' store + a double buffer of
-// the widest application's chains + the tiles).  Speed (more rows per thread,
-// the algebra spread over a warp, tensor cores) is later work.
+// layer, with the register-tiled products of mlp_tile.cuh (float32) or one
+// (k x R) by H tensor-core product for all k chains of the application
+// (highf32; the chains lie contiguous at stride H), no bias, no recomputed
+// forward, so a sketch RHS touches device memory only for x, the probes, the
+// drift and div.  Between applications one thread per row runs the small
+// D x k algebra (QR, projections, inverse, the estimate) on local arrays of
+// at most kMaxDim x kMaxDim, and writes Q (and U) back into the row's probe
+// tile, where the next application reads its seeds.  R is picked by the
+// caller from the shared-memory plan (act' store + a double buffer of the
+// widest application's chains + the tiles), the same in both modes.  Speed
+// (more rows per thread, the algebra spread over a warp, wgmma) is later
+// work.
+// Build without --use_fast_math: sigmoid goes through expf (tanhf in
+// highf32) and gelu through erff, matching the plain PyTorch path's
+// transcendentals.
 
 #include <cuda_runtime.h>
 
@@ -55,8 +77,10 @@ constexpr int kMaxDim = 8;  // largest D the per-row algebra takes
 // A v for `k` columns of every row of the tile: chain c is seeded with
 // cols[r][off + c] (D values) through w_in[:D], passes every layer without
 // bias, multiplied by the stored act'.  Returns the buffer whose chain c,
-// row r holds (J_net v)[0..D) at [c * R * H + r * H].
-template <int RT>
+// row r holds (J_net v)[0..D) at [c * R * H + r * H].  The probes project
+// strictly in both modes (D <= kMaxDim <= kRank1Max rows of w_in); in highf32
+// every layer product takes the split.
+template <int RT, bool HF>
 __device__ float* apply_jacobian(const float* cols, int ncols, int off, int k,
                                  const float* __restrict__ w_in, const float* dh,
                                  const HiddenLayers& hidden, int n_hidden,
@@ -78,7 +102,11 @@ __device__ float* apply_jacobian(const float* cols, int ncols, int off, int k,
   for (int l = 0; l < n_hidden; ++l) {
     scale_by_act_grad(dh + l * rh, cur, k, rh);
     __syncthreads();
-    dense_tangents<RT, 4>(hidden.w[l], cur, nxt, H, H, R, H, k);
+    if constexpr (HF) {
+      dense_tf32x3<4>(hidden.w[l], nullptr, cur, nxt, H, H, k * R, R, H);
+    } else {
+      dense_tangents<RT, 4>(hidden.w[l], cur, nxt, H, H, R, H, k);
+    }
     __syncthreads();
     float* tmp = cur;
     cur = nxt;
@@ -86,7 +114,11 @@ __device__ float* apply_jacobian(const float* cols, int ncols, int off, int k,
   }
   scale_by_act_grad(dh + n_hidden * rh, cur, k, rh);
   __syncthreads();
-  dense_tangents<RT, 1>(w_out, cur, nxt, H, D, R, H, k);
+  if constexpr (HF) {
+    dense_split_fma(w_out, nullptr, cur, nxt, H, D, R, H, k);
+  } else {
+    dense_tangents<RT, 1>(w_out, cur, nxt, H, D, R, H, k);
+  }
   __syncthreads();
   return nxt;
 }
@@ -164,7 +196,7 @@ __device__ void tri_inv(const float (&rr)[kMaxDim][kMaxDim], int k,
   }
 }
 
-template <int RT>
+template <int RT, bool HF>
 __global__ void __launch_bounds__(kThreads, 2)
 fused_sketch_kernel(const float* __restrict__ x, const float* __restrict__ probes,
                     const float* __restrict__ w_in, const float* __restrict__ b_eff,
@@ -203,24 +235,40 @@ fused_sketch_kernel(const float* __restrict__ x, const float* __restrict__ probe
     const int r = i / H;
     const int j = i - r * H;
     float v = 0.0f;
-    for (int k = 0; k < d_in; ++k) v = fmaf(xs[r * d_in + k], __ldg(w_in + k * H + j), v);
+    if (HF && d_in > kRank1Max) {
+      for (int k = 0; k < d_in; ++k) v = fma_tf32x3(xs[r * d_in + k], __ldg(w_in + k * H + j), v);
+    } else {
+      for (int k = 0; k < d_in; ++k) v = fmaf(xs[r * d_in + k], __ldg(w_in + k * H + j), v);
+    }
     buf0[i] = v + __ldg(b_eff + j);
   }
   __syncthreads();
   float* cur = buf0;
   float* nxt = buf1;
   for (int l = 0; l < n_hidden; ++l) {
-    activate_keep(act, cur, dh + l * rh, rh);
-    __syncthreads();
-    dense<RT, 4>(hidden.w[l], hidden.b[l], cur, nxt, H, H, R, H, 1);
+    if constexpr (HF) {
+      activate_keep_highf32(act, cur, dh + l * rh, rh);
+      __syncthreads();
+      dense_tf32x3<4>(hidden.w[l], hidden.b[l], cur, nxt, H, H, R, R, H);
+    } else {
+      activate_keep(act, cur, dh + l * rh, rh);
+      __syncthreads();
+      dense<RT, 4>(hidden.w[l], hidden.b[l], cur, nxt, H, H, R, H, 1);
+    }
     __syncthreads();
     float* tmp = cur;
     cur = nxt;
     nxt = tmp;
   }
-  activate_keep(act, cur, dh + n_hidden * rh, rh);
-  __syncthreads();
-  dense<RT, 1>(w_out, b_out, cur, nxt, H, D, R, H, 1);
+  if constexpr (HF) {
+    activate_keep_highf32(act, cur, dh + n_hidden * rh, rh);
+    __syncthreads();
+    dense_split_fma(w_out, b_out, cur, nxt, H, D, R, H, 1);
+  } else {
+    activate_keep(act, cur, dh + n_hidden * rh, rh);
+    __syncthreads();
+    dense<RT, 1>(w_out, b_out, cur, nxt, H, D, R, H, 1);
+  }
   __syncthreads();
 
   const float c0 = c0c1[0];
@@ -238,7 +286,7 @@ fused_sketch_kernel(const float* __restrict__ x, const float* __restrict__ probe
   float* my = cols + r * ncols * D;  // this row's probe tile (r < R only)
 
   // First application: A S (hutchpp) or A O (xtrace), then the QR.
-  const float* jv = apply_jacobian<RT>(cols, ncols, 0, n_s, w_in, dh, hidden, n_hidden,
+  const float* jv = apply_jacobian<RT, HF>(cols, ncols, 0, n_s, w_in, dh, hidden, n_hidden,
                                        w_out, buf0, buf1, R, H, D);
   if (r < R) {
     float y[kMaxDim][kMaxDim];
@@ -268,7 +316,7 @@ fused_sketch_kernel(const float* __restrict__ x, const float* __restrict__ probe
 
   if (mode == kHutchpp) {
     // A [Q | U] in one application
-    jv = apply_jacobian<RT>(cols, ncols, 0, n_in, w_in, dh, hidden, n_hidden, w_out, buf0,
+    jv = apply_jacobian<RT, HF>(cols, ncols, 0, n_in, w_in, dh, hidden, n_hidden, w_out, buf0,
                             buf1, R, H, D);
     if (r < R && row < B) {
       float trace_lr = 0.0f, trace_res = 0.0f;
@@ -286,7 +334,7 @@ fused_sketch_kernel(const float* __restrict__ x, const float* __restrict__ probe
   }
 
   // xtrace: A Q, then the leave-one-out algebra
-  jv = apply_jacobian<RT>(cols, ncols, n_s, n_s, w_in, dh, hidden, n_hidden, w_out, buf0, buf1,
+  jv = apply_jacobian<RT, HF>(cols, ncols, n_s, n_s, w_in, dh, hidden, n_hidden, w_out, buf0, buf1,
                           R, H, D);
   if (r < R && row < B) {
     const int m = n_s;
@@ -340,16 +388,16 @@ fused_sketch_kernel(const float* __restrict__ x, const float* __restrict__ probe
   }
 }
 
-template <int RT>
+template <int RT, bool HF>
 cudaError_t launch(const float* x, const float* probes, const float* w_in, const float* b_eff,
                    const HiddenLayers& hidden, int n_hidden, const float* w_out,
                    const float* b_out, const float* c0c1, float* drift, float* div, int B,
                    int d_in, int D, int H, int mode, int act, int n_s, int n_g, int rows,
                    size_t smem, cudaStream_t stream) {
-  const cudaError_t st = allow_smem(fused_sketch_kernel<RT>, smem);
+  const cudaError_t st = allow_smem(fused_sketch_kernel<RT, HF>, smem);
   if (st != cudaSuccess) return st;
   const int grid = (B + rows - 1) / rows;
-  fused_sketch_kernel<RT><<<grid, kThreads, smem, stream>>>(
+  fused_sketch_kernel<RT, HF><<<grid, kThreads, smem, stream>>>(
       x, probes, w_in, b_eff, hidden, n_hidden, w_out, b_out, c0c1, drift, div, B, d_in, D, H,
       mode, act, n_s, n_g, rows);
   return cudaGetLastError();
@@ -366,20 +414,22 @@ int ff_sketch_max_dim() { return kMaxDim; }
 // probes: (B, n_s + n_g, D), the r sketch then the m residual probes of a row
 // (hutchpp, n_g >= 1, n_s <= D), or its m probes (xtrace, 1 <= n_s <= D,
 // n_g = 0).  w_hidden/b_hidden are host arrays of n_hidden device pointers,
-// each weight 16-byte aligned; `rows` a multiple of 4 (at most kThreads), H
-// of 4.  `smem` is the block's shared memory in bytes, computed by the
+// each weight 16-byte aligned.  `precision` is the compute mode: 0 float32,
+// 1 highf32.  `rows` a multiple of 4 (at most kThreads), H of 4, of 8 in
+// highf32 (the Python wrapper checks all of them).  `smem` is the block's shared memory in bytes, computed by the
 // wrapper for the kernel's layout: (n_hidden + 1 + 2 kmax) x rows x H floats,
 // then rows x (d_in + ncols D) floats, kmax = n_s + n_g (hutchpp) or n_s
 // (xtrace) and ncols = n_s + n_g (hutchpp) or 2 n_s (xtrace).
 int ff_fused_sketch(const float* x, const float* probes, const float* w_in, const float* b_eff,
                     const float* const* w_hidden, const float* const* b_hidden, int n_hidden,
                     const float* w_out, const float* b_out, const float* c0c1, float* drift,
-                    float* div, int B, int d_in, int D, int H, int mode, int act, int n_s,
-                    int n_g, int rows, size_t smem, void* stream) {
+                    float* div, int B, int d_in, int D, int H, int mode, int act,
+                    int precision, int n_s, int n_g, int rows, size_t smem, void* stream) {
   const bool counts_ok = mode == kHutchpp ? (n_g >= 1 && n_s >= 0 && n_s <= D)
                                           : (mode == kXtrace && n_g == 0 && n_s >= 1 && n_s <= D);
   if (n_hidden < 0 || n_hidden > kMaxHidden || rows % kMinRowTile != 0 || rows > kThreads ||
-      H % 4 != 0 || B <= 0 || D < 1 || D > kMaxDim || !counts_ok) {
+      H % 4 != 0 || B <= 0 || D < 1 || D > kMaxDim || !counts_ok || precision < 0 ||
+      precision > 1 || (precision == 1 && H % 8 != 0)) {
     return (int)cudaErrorInvalidValue;
   }
   HiddenLayers hidden = {};
@@ -388,13 +438,13 @@ int ff_fused_sketch(const float* x, const float* probes, const float* w_in, cons
     hidden.b[i] = b_hidden[i];
   }
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (rows % 8 == 0) {
-    return (int)launch<8>(x, probes, w_in, b_eff, hidden, n_hidden, w_out, b_out, c0c1, drift,
-                          div, B, d_in, D, H, mode, act, n_s, n_g, rows, smem, st);
-  }
-  return (int)launch<kMinRowTile>(x, probes, w_in, b_eff, hidden, n_hidden, w_out, b_out, c0c1,
-                                  drift, div, B, d_in, D, H, mode, act, n_s, n_g, rows, smem,
-                                  st);
+  const auto go = [&](auto kernel_launch) {
+    return (int)kernel_launch(x, probes, w_in, b_eff, hidden, n_hidden, w_out, b_out, c0c1, drift,
+                              div, B, d_in, D, H, mode, act, n_s, n_g, rows, smem, st);
+  };
+  // highf32 has one instantiation: its products take no row tile
+  if (precision == 1) return go(launch<kMinRowTile, true>);
+  return rows % 8 == 0 ? go(launch<8, false>) : go(launch<kMinRowTile, false>);
 }
 
 }  // extern "C"

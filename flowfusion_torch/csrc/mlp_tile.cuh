@@ -25,6 +25,9 @@ constexpr int kThreads = 256;
 // Rows per thread in a layer product: 8 when the block's row count allows,
 // else 4 (the smallest tile, for plans that fit only at 4 rows a block).
 constexpr int kMinRowTile = 4;
+// Input features up to which highf32 keeps an input projection strict (the
+// JAX kernel's rank-1 crossover, in_proj_rows, kernels/fused_mlp.py:313-330).
+constexpr int kRank1Max = 16;
 
 enum Act { kSilu = 0, kTanh = 1, kRelu = 2, kGelu = 3 };
 
@@ -220,6 +223,17 @@ __device__ __forceinline__ void activate_highf32(int act, float* cur, int chains
     act_pair_highf32(act, cur[i], h, dh);
     cur[i] = h;
     for (int c = 1; c < chains; ++c) cur[c * rh + i] *= dh;
+  }
+}
+
+// activate_keep() with act_pair_highf32: act' from the tanh-form sigmoid,
+// kept for the Jacobian applications of a highf32 sketch.
+__device__ __forceinline__ void activate_keep_highf32(int act, float* cur, float* dh, int rh) {
+  for (int i = threadIdx.x; i < rh; i += blockDim.x) {
+    float h, d;
+    act_pair_highf32(act, cur[i], h, d);
+    cur[i] = h;
+    dh[i] = d;
   }
 }
 

@@ -255,15 +255,21 @@ def flops_per_row(
 
 
 def highf32_flops_per_row(
-    d_in: int, d_out: int, H: int, n_layers: int, mode: str, n_tan: int = 0
+    d_in: int, d_out: int, H: int, n_layers: int, mode: str, n_tan: int = 0, n_tan2: int = 0
 ) -> tuple:
     """``(tensor_core, cuda_core)`` flops per row of a ``highf32`` launch:
     the (H, H) products of every chain on the tensor cores (one pass of
     the three), and on the CUDA cores the input projections (the primal's
     d_in rows, a probe's d_out; 3x past ``RANK1_MAX`` features) and 3x
-    the (H, d_out) output layer."""
-    n_applies = {"forward": 0, "hutchinson": 1, "exact": d_out, "tangents": n_tan}[mode]
-    probes = {"hutchinson": 1, "tangents": n_tan}.get(mode, 0)
+    the (H, d_out) output layer.  The sketch modes count their chains as
+    :func:`flops_per_row` does (hutchpp: ``n_tan`` = r, ``n_tan2`` = m;
+    xtrace: ``n_tan`` = m), each seeded from a probe through w_in[:d_out];
+    their per-row algebra is not counted."""
+    n_applies = {
+        "forward": 0, "hutchinson": 1, "exact": d_out, "tangents": n_tan,
+        "hutchpp": 2 * n_tan + n_tan2, "xtrace": 2 * n_tan,
+    }[mode]
+    probes = 0 if mode in ("forward", "exact") else n_applies
     passes_in, passes_probe = (3 if n > RANK1_MAX else 1 for n in (d_in, d_out))
     tc = 2 * H * H * (n_layers - 2) * (1 + n_applies)
     cc = 2 * H * (passes_in * d_in + passes_probe * probes * d_out + 3 * d_out * (1 + n_applies))

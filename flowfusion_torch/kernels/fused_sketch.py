@@ -2,10 +2,12 @@
 
 Counterpart of the JAX package's ``kernels/fused_mlp.py::fused_drift_sketch``
 and ``fused_velocity_sketch`` (the kernel modes ``hutchpp`` and ``xtrace``)
-at compute mode ``float32``.  On CUDA tensors the wrappers launch the
-hand-written kernel ``csrc/fused_sketch.cu`` (built at first use, see
-``_build``) or raise; on CPU tensors they run the plain PyTorch versions,
-the ``ops.trace`` estimators on the plain drift
+at compute mode ``float32`` (strict fp32) or ``highf32`` (3xTF32 layer
+products and the tanh-form SiLU, as ``kernels.fused_mlp`` computes that
+mode).  On CUDA tensors the wrappers launch the hand-written kernel
+``csrc/fused_sketch.cu`` (built at first use, see ``_build``) in the
+compute mode or raise; on CPU tensors they run the plain PyTorch versions,
+the ``ops.trace`` estimators on the plain drift in the same compute mode
 (``fused_drift_sketch_reference``, ``fused_velocity_sketch_reference``).
 
 The kernel runs the forward chain once, keeps act' of every layer in
@@ -13,7 +15,8 @@ shared memory, and applies A v = c0 v + c1 J_net v to the sketch through
 that stored chain (2r + m tangent chains for Hutch++, 2m for XTrace), with
 the per-row QR, projections and leave-one-out algebra between the
 applications.  The time, the first-layer fold and (c0, c1) enter as in
-``kernels.fused_mlp``.  Each wrapper counts its launches, split by mode.
+``kernels.fused_mlp``.  Each wrapper counts its launches, split by mode
+(``launches_by_mode``) and by compute mode (``launches_by_dtype``).
 """
 
 from __future__ import annotations
@@ -28,13 +31,16 @@ from ..models.nets import apply_score_mlp, apply_velocity_mlp
 from ..ops import trace as trace_lib
 from . import _build
 from .fused_mlp import (
-    LANE,
+    COMPUTE_DTYPES,
     _KERNEL_ACTIVATIONS,
     _SMEM_LIMIT,
     _check_conditional,
+    _net_ops,
     _score_first_layer,
     _velocity_first_layer,
+    check_compute_dtype,
     check_operands,
+    lane,
     pad_to_lanes,
     rows_for,
 )
@@ -52,19 +58,6 @@ __all__ = [
 
 SKETCH_MODES = ("hutchpp", "xtrace")  # index = kernel's SketchMode
 MAX_SKETCH_DIM = 8  # D the per-row algebra takes (csrc kMaxDim)
-
-
-def _check_sketch_compute_dtype(compute_dtype: str) -> None:
-    """The sketch kernel computes in 'float32' only: its 'highf32' waits for
-    ROADMAP.md queue 2 #6 and 'bfloat16' for #3b."""
-    if compute_dtype in ("highf32", "bfloat16"):
-        raise NotImplementedError(
-            f"the sketch kernel's compute dtype {compute_dtype!r} is not ported to "
-            "flowfusion_torch yet (ROADMAP.md queue 2: #6 'highf32', #3b 'bfloat16'); "
-            "use 'float32' or trace_mode='hutchinson'"
-        )
-    if compute_dtype != "float32":
-        raise ValueError(f"unknown kernel compute dtype {compute_dtype!r}")
 
 
 def _stack_sketch_probes(probes: Sequence[torch.Tensor], sketch_mode: str, D: int):
@@ -139,11 +132,12 @@ def sketch_plan(sketch_mode: str, H: int, n_act: int, d_in: int, D: int, n_s: in
 
 
 def supports_sketch(
-    sketch_mode: str, hidden: int, n_act: int, n_features: int, n_dimensions: int, n_s: int, n_g: int
+    sketch_mode: str, hidden: int, n_act: int, n_features: int, n_dimensions: int, n_s: int, n_g: int,
+    compute_dtype: str = "float32",
 ) -> bool:
     """Whether :func:`sketch_plan` fits (hidden width padded to the kernel's
-    lanes)."""
-    H = -(-hidden // LANE) * LANE
+    lanes in ``compute_dtype``)."""
+    H = -(-hidden // lane(compute_dtype)) * lane(compute_dtype)
     return _rows(sketch_mode, H, n_act, n_features, n_dimensions, n_s, n_g) is not None
 
 
@@ -154,25 +148,31 @@ def _sketch_reference(f, x, probes, sketch_mode):
 
 
 def fused_drift_sketch_reference(
-    params, cfg, t, x, probes, sketch_mode, conditional=None, c0=0.0, c1=1.0
+    params, cfg, t, x, probes, sketch_mode, conditional=None, c0=0.0, c1=1.0, compute_dtype="float32"
 ):
     """The plain PyTorch version of :func:`fused_drift_sketch`: the
     ``ops.trace`` Hutch++ or XTrace estimator on the plain drift
-    c0 x + c1 net (TF32 off)."""
+    c0 x + c1 net (TF32 off); in ``highf32`` the net's layer products
+    through ``fused_mlp.tf32x3_matmul`` (tangents included) and the
+    tanh-form SiLU, as ``fused_mlp.fused_drift_reference`` runs them."""
     _stack_sketch_probes(probes, sketch_mode, x.shape[-1])
+    ops = _net_ops(compute_dtype, cfg.activation, cfg.n_dimensions + cfg.n_conditionals)
     with strict_fp32_matmul():
         return _sketch_reference(
-            lambda xx: c0 * xx + c1 * apply_score_mlp(cfg, params, t, xx, conditional),
+            lambda xx: c0 * xx + c1 * apply_score_mlp(cfg, params, t, xx, conditional, **ops),
             x, probes, sketch_mode,
         )
 
 
-def fused_velocity_sketch_reference(params, cfg, t, x, probes, sketch_mode, conditional=None):
-    """The plain PyTorch version of :func:`fused_velocity_sketch`."""
+def fused_velocity_sketch_reference(params, cfg, t, x, probes, sketch_mode, conditional=None,
+                                    compute_dtype="float32"):
+    """The plain PyTorch version of :func:`fused_velocity_sketch` (the
+    split in ``highf32`` as in :func:`fused_drift_sketch_reference`)."""
     _stack_sketch_probes(probes, sketch_mode, x.shape[-1])
+    ops = _net_ops(compute_dtype, cfg.activation, cfg.target_dimension + cfg.conditional_dimension)
     with strict_fp32_matmul():
         return _sketch_reference(
-            lambda xx: apply_velocity_mlp(cfg, params, t, xx, conditional), x, probes, sketch_mode
+            lambda xx: apply_velocity_mlp(cfg, params, t, xx, conditional, **ops), x, probes, sketch_mode
         )
 
 
@@ -193,17 +193,19 @@ def fused_drift_sketch(
     ``sketch_mode`` 'hutchpp' takes ``probes = (S, G)``, (r, B, D) sketch
     and (m, B, D) residual probes; 'xtrace' takes ``(O,)``, (m, B, D).
     Returns ``(drift (B, D), div (B,))``, the divergence of the affine
-    drift c0 x + c1 net.  CUDA tensors launch the kernel
+    drift c0 x + c1 net.  ``compute_dtype`` is 'float32' or 'highf32'.
+    CUDA tensors launch the kernel in that mode
     (``fused_drift_sketch.launches``); CPU tensors run
     :func:`fused_drift_sketch_reference`."""
-    _check_sketch_compute_dtype(compute_dtype)
+    check_compute_dtype(compute_dtype)
     _check_conditional(cfg.n_conditionals, conditional)
-    params, cfg = pad_to_lanes(params, cfg)
+    params, cfg = pad_to_lanes(params, cfg, compute_dtype)
     D = cfg.n_dimensions
     V, n_s, n_g = _stack_sketch_probes(probes, sketch_mode, D)
     plan = sketch_plan(sketch_mode, cfg.units[0], len(cfg.units), D + cfg.n_conditionals, D, n_s, n_g)
     if not x.is_cuda:
-        return fused_drift_sketch_reference(params, cfg, t, x, probes, sketch_mode, conditional, c0, c1)
+        return fused_drift_sketch_reference(params, cfg, t, x, probes, sketch_mode, conditional, c0, c1,
+                                            compute_dtype)
     with strict_fp32_matmul():
         w_in, b_eff = _score_first_layer(params, cfg, t, conditional)
     x_in = x if conditional is None else torch.cat([x, conditional], dim=-1)
@@ -211,7 +213,7 @@ def fused_drift_sketch(
         torch.as_tensor(c, dtype=torch.float32, device=x.device).reshape(()) for c in (c0, c1)
     ])
     return _launch(x_in, V, w_in, b_eff, params["layers"], c0c1, sketch_mode, D, n_s, n_g,
-                   cfg.activation, plan, fused_drift_sketch)
+                   cfg.activation, plan, fused_drift_sketch, compute_dtype)
 
 
 def fused_velocity_sketch(
@@ -228,9 +230,9 @@ def fused_velocity_sketch(
     :func:`fused_drift_sketch` with (c0, c1) = (0, 1) and the raw-time
     fold.  CUDA tensors launch the kernel (``fused_velocity_sketch.launches``);
     CPU tensors run :func:`fused_velocity_sketch_reference`."""
-    _check_sketch_compute_dtype(compute_dtype)
+    check_compute_dtype(compute_dtype)
     _check_conditional(cfg.conditional_dimension, conditional)
-    params, cfg = pad_to_lanes(params, cfg)
+    params, cfg = pad_to_lanes(params, cfg, compute_dtype)
     D = cfg.target_dimension
     V, n_s, n_g = _stack_sketch_probes(probes, sketch_mode, D)
     plan = sketch_plan(
@@ -238,21 +240,23 @@ def fused_velocity_sketch(
         n_s, n_g,
     )
     if not x.is_cuda:
-        return fused_velocity_sketch_reference(params, cfg, t, x, probes, sketch_mode, conditional)
+        return fused_velocity_sketch_reference(params, cfg, t, x, probes, sketch_mode, conditional,
+                                               compute_dtype)
     with strict_fp32_matmul():
         w_in, b_eff = _velocity_first_layer(params, cfg, t, conditional)
     x_in = x if conditional is None else torch.cat([x, conditional], dim=-1)
     c0c1 = torch.arange(2, dtype=torch.float32, device=x.device)  # (0, 1), no host copy
     return _launch(x_in, V, w_in.contiguous(), b_eff, params["layers"], c0c1, sketch_mode, D, n_s,
-                   n_g, cfg.activation, plan, fused_velocity_sketch)
+                   n_g, cfg.activation, plan, fused_velocity_sketch, compute_dtype)
 
 
 def reset_launch_counts() -> None:
-    """Zero the launch counts of both sketch wrappers, and their per-mode
-    splits."""
+    """Zero the launch counts of both sketch wrappers, and their splits by
+    mode and by compute mode."""
     for fn in (fused_drift_sketch, fused_velocity_sketch):
         fn.launches = 0
         fn.launches_by_mode = dict.fromkeys(SKETCH_MODES, 0)
+        fn.launches_by_dtype = dict.fromkeys(COMPUTE_DTYPES, 0)
 
 
 reset_launch_counts()
@@ -264,7 +268,7 @@ def _kernel_lib() -> ctypes.CDLL:
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         pp = ctypes.POINTER(ctypes.c_void_p)
-        fn.argtypes = [p, p, p, p, pp, pp, i, p, p, p, p, p] + [i] * 9 + [ctypes.c_size_t, p]
+        fn.argtypes = [p, p, p, p, pp, pp, i, p, p, p, p, p] + [i] * 10 + [ctypes.c_size_t, p]
         fn.restype = ctypes.c_int
         lib.ff_sketch_max_dim.argtypes = []
         lib.ff_sketch_max_dim.restype = ctypes.c_int
@@ -276,11 +280,12 @@ def _kernel_lib() -> ctypes.CDLL:
     return lib
 
 
-def _launch(x_in, V, w_in, b_eff, layers, c0c1, sketch_mode, D, n_s, n_g, activation, plan, counter):
-    """Check the operands, allocate the outputs and launch the kernel on
-    the current stream; add the launch to ``counter``'s counts.  ``V`` is
-    the (n_s + n_g, B, D) probe stack; it goes in as (B, n_s + n_g, D)
-    rows."""
+def _launch(x_in, V, w_in, b_eff, layers, c0c1, sketch_mode, D, n_s, n_g, activation, plan, counter,
+            compute_dtype="float32"):
+    """Check the operands, allocate the outputs and launch the kernel in
+    ``compute_dtype`` on the current stream; add the launch to
+    ``counter``'s counts.  ``V`` is the (n_s + n_g, B, D) probe stack; it
+    goes in as (B, n_s + n_g, D) rows."""
     B, d_in = x_in.shape
     H = b_eff.shape[0]
     hidden = layers[1:-1]
@@ -292,7 +297,8 @@ def _launch(x_in, V, w_in, b_eff, layers, c0c1, sketch_mode, D, n_s, n_g, activa
         (w_out, (H, D)), (b_out, (D,)), (c0c1, (2,)),
     ]
     expect += [(l["w"], (H, H)) for l in hidden] + [(l["b"], (H,)) for l in hidden]
-    device = check_operands(expect, hidden, H, "fused sketch kernel")
+    check_compute_dtype(compute_dtype)
+    device = check_operands(expect, hidden, H, "fused sketch kernel", lane(compute_dtype))
     rows, smem = plan
 
     drift = torch.empty((B, D), dtype=torch.float32, device=device)
@@ -307,10 +313,12 @@ def _launch(x_in, V, w_in, b_eff, layers, c0c1, sketch_mode, D, n_s, n_g, activa
         x_in.data_ptr(), probes.data_ptr(), w_in.data_ptr(), b_eff.data_ptr(), w_ptrs, b_ptrs, n,
         w_out.data_ptr(), b_out.data_ptr(), c0c1.data_ptr(), drift.data_ptr(), div.data_ptr(),
         B, d_in, D, H, SKETCH_MODES.index(sketch_mode), _KERNEL_ACTIVATIONS.index(activation),
-        n_s, n_g, rows, smem, torch.cuda.current_stream(device).cuda_stream,
+        COMPUTE_DTYPES.index(compute_dtype), n_s, n_g, rows, smem,
+        torch.cuda.current_stream(device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"fused_sketch kernel launch failed with CUDA error {err}")
     counter.launches += 1
     counter.launches_by_mode[sketch_mode] += 1
+    counter.launches_by_dtype[compute_dtype] += 1
     return drift, div

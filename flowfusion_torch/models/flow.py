@@ -162,7 +162,7 @@ class ODEFlow:
         if mode in ("hutchpp", "xtrace"):
             return supports_sketch(
                 mode, H, len(net.hidden_units), d_in, net.target_dimension,
-                *trace_lib.probe_counts(mode, probes),
+                *trace_lib.probe_counts(mode, probes), self.kernel_compute_dtype,
             )
         return supports_features(d_in, mode, H, net.target_dimension, self.kernel_compute_dtype)
 

@@ -108,7 +108,7 @@ class ScoreModel:
         if mode in ("hutchpp", "xtrace"):
             return supports_sketch(
                 mode, max(net.units), len(net.units), d_in, net.n_dimensions,
-                *trace_lib.probe_counts(mode, probes),
+                *trace_lib.probe_counts(mode, probes), self.kernel_compute_dtype,
             )
         return supports_features(d_in, mode, max(net.units), net.n_dimensions, self.kernel_compute_dtype)
 

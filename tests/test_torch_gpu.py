@@ -13,7 +13,10 @@ J v 5e-5.  The EM kernel: x and x_mean within rtol 2e-4 / atol
 1e-4 of the plain version on the same noise (tests/test_kernels.py:203-204)
 and the same ``diverged``.  Tangent columns within 1e-5 of their scale; the
 sketch kernel's divergence within 2e-4 absolute (the JAX package's sketch
-bar, tests/test_kernels.py:628); the symplectic field within 1e-5.  The
+bar, tests/test_kernels.py:628), in highf32 too, and its highf32 output
+within the JAX package's highf32 sketch bars of the float32 kernel's (drift
+5e-5, div 5e-4 relative, tests/test_kernels.py:826-856); the symplectic
+field within 1e-5.  The
 training kernel: losses rtol 1e-5, layers atol 3e-5 (5e-5 chained, 3e-4
 for the symplectic form; tests/test_fused_train.py:89-152, :784), two
 launches bitwise equal, and a resumed ``fit`` bitwise equal to the
@@ -358,7 +361,7 @@ def test_highf32_tangents_velocity_and_symplectic(cuda_device):
 @pytest.mark.gpu
 def test_highf32_solve_never_runs_the_strict_kernel(cuda_device):
     """A highf32 model's solve launches the highf32 kernel every RHS call
-    and the float32 one never; its sketch modes raise on the card."""
+    and the float32 one never, the RHS kernel and the sketch kernel alike."""
     cfg = ScoreMLPConfig(n_dimensions=2, units=(128, 128))
     params = init_score_mlp(cfg, torch.Generator().manual_seed(0), cuda_device)
     model = ScoreModel(params, cfg, VESDE(), trace_mode="hutchinson", kernel_compute_dtype="highf32")
@@ -368,8 +371,72 @@ def test_highf32_solve_never_runs_the_strict_kernel(cuda_device):
     lp, st = model.log_prob(x, probes=(e,))
     assert bool(torch.isfinite(lp).all())
     assert fused_mlp.fused_drift.launches_by_dtype == {"float32": 0, "highf32": st.n_func_evals}
-    with pytest.raises(NotImplementedError, match="#6"):
-        dataclasses.replace(model, trace_mode="xtrace").log_prob(x, probes=(e[None],))
+    fused_sketch.reset_launch_counts()
+    lp, st = dataclasses.replace(model, trace_mode="xtrace").log_prob(x, probes=(e[None],))
+    assert bool(torch.isfinite(lp).all())
+    assert fused_sketch.fused_drift_sketch.launches_by_dtype == {"float32": 0, "highf32": st.n_func_evals}
+
+
+def _sketch_case(d, c, mode, B, k, device, seed):
+    """(x, cond, probes) as test_sketch_kernel_matches_plain_version draws
+    them: some exactly parallel Hutch++ sketch rows and a zero-probe row."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(B, d, generator=g).to(device)
+    cond = torch.randn(B, c, generator=g).to(device) if c else None
+    if mode == "hutchpp":
+        S, G = (torch.sign(torch.randn(n, B, d, generator=g)) for n in (k, k))
+        S[1, :100] = S[0, :100]
+        S[:, 7] = 0.0
+        return x, cond, (S.to(device), G.to(device))
+    O = torch.randn(k, B, d, generator=g)
+    O = O / O.norm(dim=-1, keepdim=True) * d**0.5
+    O[:, 7] = 0.0
+    return x, cond, (O.to(device),)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("family", ["drift", "velocity"])
+@pytest.mark.parametrize("mode", ["hutchpp", "xtrace"])
+@pytest.mark.parametrize("d,c", [(2, 0), (6, 3)])
+def test_highf32_sketch_kernel_matches_its_plain_version(cuda_device, family, mode, d, c):
+    """The sketch kernel in highf32 (3xTF32 mma.sync products) against its
+    highf32 plain version, the float32 sketch bars (summation order only:
+    drift 1e-5, div 2e-4 absolute), and against the float32 kernel within
+    the JAX package's highf32 sketch bars (drift 5e-5, div 5e-4 relative);
+    1,001 rows (ragged), every launch counted as highf32."""
+    cfg, params = _net(family, d, c, cuda_device, 12)
+    x, cond, probes = _sketch_case(d, c, mode, 1001, min(d, 3), cuda_device, 13)
+    if family == "drift":
+        fn, ref_fn, kw = fused_sketch.fused_drift_sketch, fused_sketch.fused_drift_sketch_reference, dict(c0=-0.2, c1=0.8)
+    else:
+        fn, ref_fn, kw = fused_sketch.fused_velocity_sketch, fused_sketch.fused_velocity_sketch_reference, {}
+    counts = dict(fn.launches_by_dtype)
+    out = fn(params, cfg, 0.4, x, probes, mode, cond, compute_dtype="highf32", **kw)
+    assert fn.launches_by_dtype == {**counts, "highf32": counts["highf32"] + 1}
+    ref = ref_fn(params, cfg, 0.4, x, probes, mode, cond, compute_dtype="highf32", **kw)
+    strict = fn(params, cfg, 0.4, x, probes, mode, cond, **kw)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(out[1]).all())
+    assert _rel(out[0], ref[0]) <= 1e-5 and float((out[1] - ref[1]).abs().max()) <= 2e-4
+    assert _rel(out[0], strict[0]) <= 5e-5 and _rel(out[1], strict[1]) <= 5e-4
+
+
+@pytest.mark.gpu
+def test_highf32_sketch_four_row_plan_and_one_hidden_layer(cuda_device):
+    """A Hutch++ plan that fits only at 4 rows a block (H = 256, D = 6,
+    r = m = 3: 24-row products, a partial m-tile) and a one-hidden-layer
+    net (no (H, H) product), highf32 kernel against its plain version."""
+    assert fused_sketch.sketch_plan("hutchpp", 256, 3, 9, 6, 3, 3)[0] == 4
+    for d, c, units in ((6, 3, (256, 256, 256)), (2, 0, (128,))):
+        cfg = ScoreMLPConfig(n_dimensions=d, n_conditionals=c, units=units)
+        params = init_score_mlp(cfg, torch.Generator().manual_seed(16), cuda_device)
+        x, cond, probes = _sketch_case(d, c, "hutchpp", 1003, min(d, 3), cuda_device, 17)
+        out = fused_sketch.fused_drift_sketch(params, cfg, 0.6, x, probes, "hutchpp", cond, c0=0.3, c1=-0.5,
+                                              compute_dtype="highf32")
+        ref = fused_sketch.fused_drift_sketch_reference(params, cfg, 0.6, x, probes, "hutchpp", cond, c0=0.3,
+                                                        c1=-0.5, compute_dtype="highf32")
+        torch.cuda.synchronize()
+        assert _rel(out[0], ref[0]) <= 1e-5 and float((out[1] - ref[1]).abs().max()) <= 2e-4
 
 
 @pytest.mark.gpu

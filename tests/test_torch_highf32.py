@@ -399,23 +399,27 @@ def _train_table(cfg):
 
 
 def test_sketch_wrappers_refuse_highf32_naming_6():
+    """Both sketch wrappers and a model on the sketch kernel take highf32
+    (ROADMAP queue 2 #6), on the CPU through the plain versions in that
+    mode; bfloat16 still raises, naming #3b."""
     cfg = nets.ScoreMLPConfig(n_dimensions=2, units=(16,))
     params = nets.init_score_mlp(cfg, gen(0), "cpu")
     vcfg = nets.VelocityMLPConfig(target_dimension=2, hidden_units=(16,))
     vparams = nets.init_velocity_mlp(vcfg, gen(0), "cpu")
-    x = torch.zeros(4, 2)
+    x = torch.randn(4, 2, generator=gen(1))
     O = torch.ones(1, 4, 2)
-    with pytest.raises(NotImplementedError, match="#6"):
-        fused_sketch.fused_drift_sketch(params, cfg, 0.5, x, (O,), "xtrace", compute_dtype="highf32")
-    with pytest.raises(NotImplementedError, match="#6"):
-        fused_sketch.fused_velocity_sketch(vparams, vcfg, 0.5, x, (O,), "xtrace", compute_dtype="highf32")
-    # a highf32 model on the sketch kernel reaches the refusal
+    for fn, p, c in ((fused_sketch.fused_drift_sketch, params, cfg), (fused_sketch.fused_velocity_sketch, vparams, vcfg)):
+        out = [fn(p, c, 0.5, x, (O,), "xtrace", compute_dtype=dt) for dt in ("highf32", "float32")]
+        assert all(bool(torch.isfinite(v).all()) for v in out[0])
+        assert _rel(out[0][0], out[1][0]) <= 5e-5 and _rel(out[0][1], out[1][1]) <= 5e-4
+        with pytest.raises(NotImplementedError, match="#3b"):
+            fn(p, c, 0.5, x, (O,), "xtrace", compute_dtype="bfloat16")
+    # a highf32 model on the sketch wrapper, and under auto dispatch the plain path
     m = ScoreModel(params, cfg, VESDE(), trace_mode="xtrace", use_fused_kernel=True, kernel_compute_dtype="highf32")
-    with pytest.raises(NotImplementedError, match="#6"):
-        m.log_prob(x, probes=(O,))
-    # on the CPU under auto dispatch it runs the plain path
-    lp, st = dataclasses.replace(m, use_fused_kernel=None).log_prob(x, probes=(O,))
+    lp, st = m.log_prob(x, probes=(O,))
     assert st.succeeded and bool(torch.isfinite(lp).all())
+    lp_auto, st_auto = dataclasses.replace(m, use_fused_kernel=None).log_prob(x, probes=(O,))
+    assert st_auto.succeeded and float((lp - lp_auto).abs().max()) <= 1e-3
 
 
 def test_highf32_bound_counts():
