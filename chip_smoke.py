@@ -48,6 +48,15 @@ non-zero without the final line):
         sketch bars, a single-TF32 trap guard, the two-launch form over the
         highf32 tangents entries; times of the highf32 launch beside the
         float32 one;
+     h. the sketch kernel's plans: rows, bytes, MD and the blocks an SM
+        holds (by the plan and by
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor), registers and local
+        memory a thread (none), for every plan of 1d and 1g; the flagship
+        XTrace plan holds two blocks or more; the launch at its own plan
+        against one forced to 4 rows (8 where the plan has 4) at MD = 8
+        (flagship and conditional H=256, Hutch++ and XTrace, 50,000 rows):
+        float32 bitwise equal, highf32 bitwise or within the highf32 sketch
+        bars;
   2. the likelihood path, flagship model (benchmarks/flagship_ckpt.npz):
      the exact-trace ``log_prob`` at its defaults against the analytic
      mixture density; Hutchinson at rtol 1e-5 with the PI controller through
@@ -106,6 +115,13 @@ non-zero without the final line):
 
 The last line is ``{"ok": true, "device": {...}}``.  Exits with 2 and no
 result when no CUDA card is visible.
+
+    python3 chip_smoke.py --parent DIR   # the sketch kernel against a parent's
+
+A/Bs this tree's sketch kernel against the ``flowfusion_torch`` package of a
+parent commit unpacked in DIR (``git archive <commit> flowfusion_torch |
+tar -x -C DIR``), in one process: launches bitwise and timed in turns,
+the sketch solves of phases 8 and 12 in turns (see ``parent_ab``).
 """
 
 from __future__ import annotations
@@ -1191,6 +1207,77 @@ def main() -> int:
         emit("highf32_sketch_kernel_time", entry=name, rows=B, card=smi, **hf_sketch_timing[name],
              highf32_ms_runs=hfs, float32_ms_runs=f32, float32_ms=statistics.median(f32))
 
+    # -- phase 1h: the sketch kernel's plans on the card, and a row's
+    # arithmetic against the schedule.  Every plan phases 1d, 1g, 7, 8 and 12
+    # run: rows, bytes, MD, the blocks an SM holds by the plan and by the
+    # card (cudaOccupancyMaxActiveBlocksPerMultiprocessor), registers and
+    # local memory a thread.  Then the launch at its own plan against one
+    # forced to 4 rows a block at MD = 8, on the 50k flagship (Hutch++
+    # r = 2, m = 1; XTrace m = 2) and conditional H=256 (r = m = 3; m = 3)
+    # inputs: in float32 drift and div bitwise equal; in highf32 bitwise
+    # expected, else within the highf32 sketch bars (drift 5e-5, div 5e-4
+    # relative).
+    sketch_plans = {}
+    for entry_name, name, params, cfg, B_, mode, (r, m) in sketch_cases + hf_sketch_cases:
+        velocity = entry_name == "fused_velocity_sketch"
+        H = (cfg.hidden_units if velocity else cfg.units)[0]
+        n_act = len(cfg.hidden_units if velocity else cfg.units)
+        D = cfg.target_dimension if velocity else cfg.n_dimensions
+        C = cfg.conditional_dimension if velocity else cfg.n_conditionals
+        n_s, n_g = (r, m) if mode == "hutchpp" else (m, 0)
+        for dt in ("float32", "highf32"):
+            key = (mode, H, n_act, D + C, D, n_s, n_g, dt)
+            sketch_plans.setdefault(key, f"{name} {mode} r={r} m={m}")
+    for key, what in sorted(sketch_plans.items()):
+        plan = fused_sketch.sketch_plan(*key[:-1])
+        occ = fused_sketch.sketch_occupancy(plan, key[-1])
+        planned = fused_sketch.sketch_blocks(plan)
+        check(occ["blocks_per_sm"] == planned,
+              f"sketch plan {what} {key[-1]}: the card holds {occ['blocks_per_sm']} blocks an SM, the plan {planned}")
+        check(occ["local_bytes"] == 0, f"sketch kernel {key[-1]} md={plan[2]} keeps {occ['local_bytes']} bytes a "
+                                       "thread in local memory")
+        emit("sketch_occupancy", case=what, mode=key[0], compute_dtype=key[-1], H=key[1], n_act=key[2], d_in=key[3],
+             D=key[4], n_s=key[5], n_g=key[6], plan_blocks_per_sm=planned, **occ)
+    flag_xt = fused_sketch.sketch_plan("xtrace", 128, 3, 2, 2, 2, 0)
+    check(fused_sketch.sketch_occupancy(flag_xt)["blocks_per_sm"] >= 2,
+          f"the flagship XTrace plan {flag_xt} holds fewer than two blocks an SM")
+
+    for name, params, cfg, mode, (r, m) in (
+        ("flagship", flag_params, flag_cfg, "hutchpp", (2, 1)),
+        ("flagship", flag_params, flag_cfg, "xtrace", (0, 2)),
+        ("conditional_ckpt_h256.npz", *cond_nets["conditional_ckpt_h256.npz"], "hutchpp", (3, 3)),
+        ("conditional_ckpt_h256.npz", *cond_nets["conditional_ckpt_h256.npz"], "xtrace", (0, 3)),
+    ):
+        D, C, H = cfg.n_dimensions, cfg.n_conditionals, cfg.units[0]
+        g = gen(181 + D + r + m)
+        x, c, c0, c1 = rhs_inputs(name, 50_000, g)
+        probes = sketch_probes(g, mode, 50_000, D, r, m)
+        n_s, n_g = (r, m) if mode == "hutchpp" else (m, 0)
+        w_in, b_eff = fused_mlp._score_first_layer(params, cfg, t37, c)
+        x_in = x if c is None else torch.cat([x, c], dim=-1)
+        V = torch.cat(probes) if mode == "hutchpp" else probes[0]
+        c0c1 = torch.tensor([float(c0), float(c1)], device=dev)
+        for dt in ("float32", "highf32"):
+            own = fused_sketch.sketch_plan(mode, H, len(cfg.units), D + C, D, n_s, n_g)
+            # 4 rows at MD = 8; 8 rows where that is the plan already
+            forced = dict(md=8, rows=4 if own[0] != 4 else 8)
+            plans = [own, fused_sketch.sketch_plan(mode, H, len(cfg.units), D + C, D, n_s, n_g, **forced)]
+            own, four = (fused_sketch._launch(x_in, V, w_in, b_eff, params["layers"], c0c1, mode, D, n_s, n_g,
+                                              cfg.activation, plan, fused_drift_sketch, dt) for plan in plans)
+            torch.cuda.synchronize()
+            same = [bool(torch.equal(a, b)) for a, b in zip(own, four)]
+            d_drift, d_div = rel_err(four[0], own[0]), rel_err(four[1], own[1])
+            if dt == "float32":
+                check(all(same), f"sketch {name} {mode} float32: the 4-row MD=8 plan differs from {plans[0]} "
+                                 f"(drift {d_drift:.2e}, div {d_div:.2e})")
+            else:
+                check(d_drift <= 5e-5 and d_div <= 5e-4,
+                      f"sketch {name} {mode} highf32: the 4-row MD=8 plan differs by drift {d_drift:.2e}, "
+                      f"div {d_div:.2e}")
+            emit("sketch_plan_invariance", net=name, mode=mode, r=r, m=m, rows=50_000, compute_dtype=dt,
+                 own_plan=list(plans[0]), forced_plan=list(plans[1]), drift_bitwise=same[0], div_bitwise=same[1],
+                 drift_rel=d_drift, div_rel=d_div)
+
     # -- phases 2-4: the likelihood path, launches counted from zero -------
     reset_counts()
 
@@ -2054,5 +2141,212 @@ def main() -> int:
     return 0
 
 
+def parent_ab(parent_dir: str) -> int:
+    """This tree's sketch kernel against a parent commit's, in one process on
+    one card.  ``parent_dir`` holds the parent's package
+    (``git archive <commit> flowfusion_torch | tar -x -C DIR``); it is
+    imported under another name and builds its own library under DIR.
+
+    Launches: the sketch launches of phases 7 and 1g (flagship Hutch++
+    r = 2 and r = 1, m = 1, XTrace m = 2, flow XTrace m = 2) and the
+    conditional ones (H = 128 and 256, Hutch++ r = m = 3, XTrace m = 3) at
+    50,000 rows, each at its own plan, both compute modes: drift and div
+    bitwise equal (float32 must be; highf32 otherwise within its sketch bars,
+    drift 5e-5, div 5e-4 relative), CUDA-event times in turns (p t t p, three
+    times; medians of 15).  Solves: the flagship Hutch++ r = 2, m = 1 and
+    XTrace m = 2 solves of phases 8 (float32) and 12 (highf32) and the
+    served conditional H = 256 XTrace (m = 3, highf32) through each kernel,
+    a warm-up of each, then ten pairs, each side first in turn: NFE and
+    log-densities equal, walls and the pairs the tree won.  One JSON
+    line a comparison; exits 2 without a card, 1 when a check fails."""
+    import contextlib
+    import importlib
+    import importlib.util
+    import types
+    from collections import defaultdict
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA card visible; nothing was run", file=sys.stderr)
+        return 2
+    sys.path.insert(0, ROOT)
+    from flowfusion_torch.kernels import fused_mlp, fused_sketch
+    from flowfusion_torch.models import score as score_mod
+    from flowfusion_torch.models.nets import ScoreMLPConfig, VelocityMLPConfig
+    from flowfusion_torch.models.population import PopulationModelDiffusion
+    from flowfusion_torch.models.score import ScoreModel
+    from flowfusion_torch.ops import trace as trace_ops
+    from flowfusion_torch.ops.sde import VESDE
+    from flowfusion_torch.utils.checkpoint import load_npz, read_npz_extra
+    from flowfusion_torch.utils.convert import params_from_numpy
+    from flowfusion_torch.utils.data import CONDITIONAL_POP, DEMO_GMM
+
+    init = os.path.join(os.path.abspath(parent_dir), "flowfusion_torch", "__init__.py")
+    spec = importlib.util.spec_from_file_location("parent_flowfusion_torch", init,
+                                                  submodule_search_locations=[os.path.dirname(init)])
+    sys.modules[spec.name] = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(sys.modules[spec.name])
+    old = importlib.import_module("parent_flowfusion_torch.kernels.fused_sketch")
+    kernels = {"parent": old, "tree": fused_sketch}
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    with ThreadPoolExecutor(2) as pool:
+        list(pool.map(lambda mod: mod._build.build("fused_sketch"), kernels.values()))
+
+    dev = torch.device("cuda")
+
+    def gen(seed):
+        return torch.Generator().manual_seed(seed)
+
+    def median_ms(fn, n=15, warmup=3):
+        for _ in range(warmup):
+            fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(n):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b))
+        return statistics.median(times)
+
+    counter = types.SimpleNamespace(launches=0, launches_by_mode=defaultdict(int),
+                                    launches_by_dtype=defaultdict(int))
+    B, t = 50_000, torch.tensor(0.5, device=dev)
+    flag_cfg = ScoreMLPConfig(n_dimensions=2, units=(128, 128, 128))
+    flag_path = os.path.join(BENCH, "flagship_ckpt.npz")
+    flag = params_from_numpy(load_npz(flag_path)["params"], dev)
+    flow_cfg = VelocityMLPConfig(target_dimension=2, hidden_units=(128, 128))
+    flow = params_from_numpy(load_npz(os.path.join(BENCH, "flow_ckpt.npz"))["params"], dev)
+    x2 = torch.randn(B, 2, generator=gen(91)).to(dev)
+    sign = lambda g, *shape: torch.sign(torch.randn(*shape, generator=g)).to(dev)  # noqa: E731
+
+    def sphere(g, m, D):
+        u = torch.randn(m, B, D, generator=g)
+        return (u / u.norm(dim=-1, keepdim=True) * D**0.5).to(dev)
+
+    w_f, b_f = fused_mlp._score_first_layer(flag, flag_cfg, t, None)
+    w_fl, b_fl = fused_mlp._velocity_first_layer(flow, flow_cfg, t, None)
+    c_flag, O = torch.tensor([0.0, -1.3], device=dev), sphere(gen(95), 2, 2)
+    cases = [
+        ("flagship hutchpp r=2 m=1", x2, torch.cat([sign(gen(93), 2, B, 2), sign(gen(94), 1, B, 2)]), w_f, b_f,
+         flag["layers"], c_flag, "hutchpp", 2, 2, 1, 128, 3),
+        ("flagship hutchpp r=1 m=1", x2, torch.cat([sign(gen(96), 1, B, 2), sign(gen(97), 1, B, 2)]), w_f, b_f,
+         flag["layers"], c_flag, "hutchpp", 2, 1, 1, 128, 3),
+        ("flagship xtrace m=2", x2, O, w_f, b_f, flag["layers"], c_flag, "xtrace", 2, 2, 0, 128, 3),
+        ("flow xtrace m=2", x2, O, w_fl.contiguous(), b_fl, flow["layers"], torch.tensor([0.0, 1.0], device=dev),
+         "xtrace", 2, 2, 0, 128, 2),
+    ]
+    g = gen(5)
+    xc = torch.randn(B, 9, generator=g).to(dev) * 0.5
+    for H in (128, 256):
+        tree = load_npz(os.path.join(BENCH, "conditional_ckpt.npz" if H == 128 else "conditional_ckpt_h256.npz"))
+        params = params_from_numpy(tree["score_model"]["params"], dev)
+        w_in, b_eff = fused_mlp._score_first_layer(
+            params, ScoreMLPConfig(n_dimensions=6, n_conditionals=3, units=(H,) * 3), t, xc[:, 6:])
+        cc = torch.tensor([-0.4, 0.9], device=dev)
+        cases.append((f"conditional H={H} hutchpp r=3 m=3", xc, torch.cat([sign(g, 3, B, 6), sign(g, 3, B, 6)]),
+                      w_in, b_eff, params["layers"], cc, "hutchpp", 6, 3, 3, H, 3))
+        cases.append((f"conditional H={H} xtrace m=3", xc, sphere(g, 3, 6), w_in, b_eff, params["layers"], cc,
+                      "xtrace", 6, 3, 0, H, 3))
+
+    failed = []
+    for name, x, V, w_in, b_eff, layers, cc, mode, D, n_s, n_g, H, n_act in cases:
+        args = (mode, H, n_act, x.shape[1], D, n_s, n_g)
+        for dt in ("float32", "highf32"):
+            plans = {k: mod.sketch_plan(*args) for k, mod in kernels.items()}
+            fns = {k: (lambda mod=mod, plan=plans[k]: mod._launch(
+                x, V, w_in, b_eff, layers, cc, mode, D, n_s, n_g, "silu", plan, counter, dt))
+                for k, mod in kernels.items()}
+            outs = {k: fn() for k, fn in fns.items()}
+            torch.cuda.synchronize()
+            same = [bool(torch.equal(a, b)) for a, b in zip(outs["parent"], outs["tree"])]
+            d_drift, d_div = (rel_err(outs["tree"][i], outs["parent"][i]) for i in (0, 1))
+            if dt == "float32" and not all(same):
+                failed.append(f"{name} float32: differs from the parent (drift {d_drift:.2e}, div {d_div:.2e})")
+            if dt == "highf32" and (d_drift > 5e-5 or d_div > 5e-4):
+                failed.append(f"{name} highf32: differs from the parent by drift {d_drift:.2e}, div {d_div:.2e}")
+            runs = {"parent": [], "tree": []}
+            for i in range(3):
+                for k in ("parent", "tree", "tree", "parent") if i % 2 == 0 else ("tree", "parent", "parent", "tree"):
+                    runs[k].append(median_ms(fns[k]))
+            ms = {k: statistics.median(v) for k, v in runs.items()}
+            emit("parent_ab_launch", case=name, rows=B, compute_dtype=dt, card=smi,
+                 plans={k: list(v) for k, v in plans.items()}, drift_bitwise=same[0], div_bitwise=same[1],
+                 drift_rel=d_drift, div_rel=d_div, parent_ms=ms["parent"], tree_ms=ms["tree"],
+                 tree_over_parent=ms["tree"] / ms["parent"], runs_ms=runs)
+
+    @contextlib.contextmanager
+    def kernel_of(which):
+        """The models' sketch RHS through ``which`` kernel's wrapper."""
+        saved = score_mod.fused_drift_sketch
+        score_mod.fused_drift_sketch = kernels[which].fused_drift_sketch
+        try:
+            yield
+        finally:
+            score_mod.fused_drift_sketch = saved
+
+    extra = read_npz_extra(flag_path)
+    shift = torch.tensor(extra["shift"], device=dev)
+    scale = torch.tensor(extra["scale"], device=dev)
+    opts = {"controller": "pi"}
+    solves = []
+    for dt, seeds in (("float32", (200, 201)), ("highf32", (400, 401))):
+        xs = (DEMO_GMM.sample(gen(seeds[0]), B, device=dev) - shift) / scale
+        for mode, kw in (("hutchpp", dict(hpp_rank=2, hpp_vecs=1)), ("xtrace", dict(xt_vecs=2))):
+            m = ScoreModel(flag, flag_cfg, VESDE(), trace_mode=mode, kernel_compute_dtype=dt, **kw)
+            probes = trace_ops.make_probes(mode, gen(seeds[1]), xs, **kw)
+            solves.append((f"flagship {mode} {kw}", dt, B, lambda m=m, xs=xs, pr=probes: m.log_prob(
+                xs, probes=pr, atol=1e-5, rtol=1e-5, options=opts)))
+    cpop, _ = PopulationModelDiffusion.from_conditional_npz(os.path.join(BENCH, "conditional_ckpt_h256.npz"),
+                                                            device=dev)
+    cpop = dataclasses.replace(cpop, score_model=dataclasses.replace(cpop.score_model, trace_mode="xtrace",
+                                                                     xt_vecs=3))
+    theta, c = CONDITIONAL_POP.sample(gen(9), 20_000, device=dev)
+    solves.append(("conditional H=256 xtrace {'xt_vecs': 3}", cpop.score_model.kernel_compute_dtype, 20_000,
+                   lambda: cpop.log_prob(theta, conditional=c, generator=gen(1), atol=1e-5, rtol=1e-5,
+                                         volume_corrected=True, options=opts)))
+    for name, dt, rows, solve in solves:
+        secs, res = {"parent": [], "tree": []}, {}
+        for i in range(11):  # a warm-up of each, then ten pairs, each side first in turn
+            for which in ("tree", "parent") if i % 2 == 0 else ("parent", "tree"):
+                with kernel_of(which):
+                    torch.cuda.synchronize()
+                    t_start = time.perf_counter()
+                    lp, st = solve()
+                    torch.cuda.synchronize()
+                    if i > 0:
+                        secs[which].append(time.perf_counter() - t_start)
+                res[which] = (lp, st.n_func_evals)
+        same = bool(torch.equal(res["tree"][0], res["parent"][0]))
+        if res["tree"][1] != res["parent"][1] or (dt == "float32" and not same):
+            failed.append(f"{name} {dt} solve: NFE {res['tree'][1]} vs the parent's {res['parent'][1]}, "
+                          f"log-densities equal: {same}")
+        med = {k: statistics.median(v) for k, v in secs.items()}
+        emit("parent_ab_solve", solve=name, compute_dtype=dt, rows=rows, card=smi, nfe=res["tree"][1],
+             nfe_parent=res["parent"][1], logp_bitwise=same,
+             mean_abs_dlogp=float((res["tree"][0] - res["parent"][0]).abs().mean()),
+             parent_seconds=med["parent"], tree_seconds=med["tree"], tree_over_parent=med["tree"] / med["parent"],
+             tree_faster_pairs=sum(t < p for t, p in zip(secs["tree"], secs["parent"])), seconds_runs=secs)
+    for msg in failed:
+        print(f"chip_smoke: {msg}", file=sys.stderr)
+    return 1 if failed else 0
+
+
+def cli() -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description="Drive flowfusion_torch's main path on one CUDA card and check it.")
+    ap.add_argument("--parent", metavar="DIR",
+                    help="instead, A/B this tree's sketch kernel against the flowfusion_torch package in DIR")
+    args = ap.parse_args()
+    return parent_ab(args.parent) if args.parent else main()
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(cli())

@@ -39,26 +39,52 @@
 // H + D) flops each: ~400k flops a row for the flagship net at r = 2, m = 1,
 // against ~50 bytes of input and output.  float32: fp32 FMA throughput.
 // highf32: the hidden products' three TF32 passes on the tensor cores
-// (495 TFLOP/s dense; 393,216 of the flagship's flops a row at r = 2, m = 1)
-// plus the CUDA-core rest (the projections, 3x the output layer);
-// mma.sync does not reach the wgmma rate.
+// (495 TFLOP/s dense) plus the CUDA-core rest; mma.sync does not reach the
+// wgmma rate.  Each layer product is a chain of barriers over a block's
+// small tile, so what the SM can overlap decides the time: the blocks it
+// holds at once.
 //
-// What the design does about it: a block owns a tile of R rows.  The forward
-// chain runs once and keeps act'(a) of every activation layer in shared
-// memory (n_act x R x H floats); every Jacobian application seeds its tangent
-// chains from the probe tile and multiplies them by the stored act' at each
-// layer, with the register-tiled products of mlp_tile.cuh (float32) or one
-// (k x R) by H tensor-core product for all k chains of the application
-// (highf32; the chains lie contiguous at stride H), no bias, no recomputed
-// forward, so a sketch RHS touches device memory only for x, the probes, the
-// drift and div.  Between applications one thread per row runs the small
-// D x k algebra (QR, projections, inverse, the estimate) on local arrays of
-// at most kMaxDim x kMaxDim, and writes Q (and U) back into the row's probe
-// tile, where the next application reads its seeds.  R is picked by the
-// caller from the shared-memory plan (act' store + a double buffer of the
-// widest application's chains + the tiles), the same in both modes.  Speed
-// (more rows per thread, the algebra spread over a warp, wgmma) is later
-// work.
+// What the design does about it.  A block owns a tile of R rows.  The
+// forward chain runs once and keeps act'(a) of every activation layer in
+// shared memory (n_act x R x H floats); every Jacobian application seeds
+// its tangent chains from the probe tile and multiplies them by the stored
+// act' at each layer, no bias, no recomputed forward, so a sketch RHS
+// touches device memory only for x, the probes, the weights, the drift and
+// div.
+//   - Three blocks of 256 threads an SM.  The plan
+//     (kernels/fused_sketch.py::sketch_plan) counts blocks against the SM's
+//     233,472 bytes with the 1 KB each block reserves, and takes the most
+//     blocks (at most three) at the most rows that reach them; the launch
+//     bounds hold every instantiation to the 80 registers a thread that
+//     three blocks leave, without spilling (a float32 product thread owns 4
+//     rows by 4 columns).  The first version's plans held one block (the
+//     flagship XTrace, 32 rows) or two an SM.
+//   - float32 (H, H) products: mlp_tile.cuh dense at 4 rows by 4 columns a
+//     thread, each output one fmaf chain over k = 0 .. H-1 in order, the
+//     weights through __ldg.  Staging the weights in shared memory (a
+//     cp.async ring of K-panels, read from L2 once a block rather than once
+//     a warp) measured 1.04-1.38x slower at every plan the repository
+//     runs: the L2 traffic it saves is not what bounds the product, and the
+//     ring costs a barrier a panel and shared memory a block.
+//   - highf32 products: one (k R) by H tensor-core product for all k chains
+//     of an application (dense_tf32x3, weights through __ldg).
+//   - Per-row algebra (QR, projections, inverse, the estimate) on one thread
+//     a row, templated on MD in {2, 4, 8}, the smallest bucket >= D: every
+//     register array is an MD-vector indexed by unrolled d loops (guarded by
+//     the runtime D), and the first version's float[8][8] arrays in local
+//     memory are gone.  The probe tile and XTrace's matrices (R of the QR,
+//     A Q, inv(R), the H, W, T grids) live in element-major tiles in shared
+//     memory (element e of row r at [e R + r]: a warp's rows on consecutive
+//     banks); XTrace's lie over the input tile and the act' store where
+//     these hold them (the drift and the last application leave them
+//     free), so they seldom cost a plan rows or blocks.  Every sum is taken
+//     in the order and multiply-add form of the first version; basis
+//     completion recomputes the canonical residuals of the columns so far,
+//     by the same updates in the same order, only on the rows that need
+//     them.
+// A row's arithmetic does not depend on R or MD: any plan gives bitwise the
+// same drift and div, and the first version's.  wgmma, the split weights
+// staged for highf32 and the algebra spread over the block are later work.
 // Build without --use_fast_math: sigmoid goes through expf (tanhf in
 // highf32) and gelu through erff, matching the plain PyTorch path's
 // transcendentals.
@@ -72,28 +98,44 @@ namespace {
 using namespace ffk;
 
 enum SketchMode { kHutchpp = 0, kXtrace = 1 };
-constexpr int kMaxDim = 8;  // largest D the per-row algebra takes
+constexpr int kMaxDim = 8;     // largest D the per-row algebra takes
+// Blocks of kThreads an SM is to hold, by registers (the launch bounds): 80
+// registers a thread, which every instantiation fits without spilling.
+constexpr int kMinBlocks = 3;
+// Rows a thread of a float32 layer product owns.  Eight would halve the
+// B-operand reads a FMA, but its 32 accumulators do not fit the 80 registers
+// a thread has at three blocks of kThreads an SM.
+constexpr int kRowTile = kMinRowTile;
+
+// One row's view of an element-major shared tile: element e at p[e * R].
+struct RowView {
+  float* p;
+  int R;
+  __device__ __forceinline__ float& operator[](int e) const { return p[e * R]; }
+};
 
 // A v for `k` columns of every row of the tile: chain c is seeded with
-// cols[r][off + c] (D values) through w_in[:D], passes every layer without
-// bias, multiplied by the stored act'.  Returns the buffer whose chain c,
-// row r holds (J_net v)[0..D) at [c * R * H + r * H].  The probes project
-// strictly in both modes (D <= kMaxDim <= kRank1Max rows of w_in); in highf32
-// every layer product takes the split.
-template <int RT, bool HF>
-__device__ float* apply_jacobian(const float* cols, int ncols, int off, int k,
-                                 const float* __restrict__ w_in, const float* dh,
-                                 const HiddenLayers& hidden, int n_hidden,
-                                 const float* __restrict__ w_out, float* buf0, float* buf1,
-                                 int R, int H, int D) {
+// probe-tile column off + c (D values) through w_in[:D], passes every layer
+// without bias, multiplied by the stored act'.  Returns the buffer whose
+// chain c, row r holds (J_net v)[0..D) at [c * R * H + r * H].  The probes
+// project strictly in both modes (D <= kMaxDim <= kRank1Max rows of w_in);
+// in highf32 every layer product takes the split.
+template <int MD, bool HF>
+__device__ float* apply_jacobian(const float* cols, int off, int k, const float* __restrict__ w_in,
+                                 const float* dh, const HiddenLayers& hidden, int n_hidden,
+                                 const float* __restrict__ w_out, float* buf0, float* buf1, int R,
+                                 int H, int D) {
   const int rh = R * H;
   for (int i = threadIdx.x; i < k * rh; i += blockDim.x) {
     const int c = i / rh;
     const int r = (i - c * rh) / H;
     const int j = i - c * rh - r * H;
-    const float* v = cols + (r * ncols + off + c) * D;
+    const float* v = cols + (off + c) * D * R + r;  // element d at v[d * R]
     float s = 0.0f;
-    for (int d = 0; d < D; ++d) s = fmaf(v[d], __ldg(w_in + d * H + j), s);
+#pragma unroll
+    for (int d = 0; d < MD; ++d) {
+      if (d < D) s = fmaf(v[d * R], __ldg(w_in + d * H + j), s);
+    }
     buf0[i] = s;
   }
   __syncthreads();
@@ -105,7 +147,7 @@ __device__ float* apply_jacobian(const float* cols, int ncols, int off, int k,
     if constexpr (HF) {
       dense_tf32x3<4>(hidden.w[l], nullptr, cur, nxt, H, H, k * R, R, H);
     } else {
-      dense_tangents<RT, 4>(hidden.w[l], cur, nxt, H, H, R, H, k);
+      dense<kRowTile, 4>(hidden.w[l], nullptr, cur, nxt, H, H, R, H, k);
     }
     __syncthreads();
     float* tmp = cur;
@@ -117,87 +159,137 @@ __device__ float* apply_jacobian(const float* cols, int ncols, int off, int k,
   if constexpr (HF) {
     dense_split_fma(w_out, nullptr, cur, nxt, H, D, R, H, k);
   } else {
-    dense_tangents<RT, 1>(w_out, cur, nxt, H, D, R, H, k);
+    dense<kRowTile, 1>(w_out, nullptr, cur, nxt, H, D, R, H, k);
   }
   __syncthreads();
   return nxt;
 }
 
-__device__ __forceinline__ float dot(const float* a, const float* b, int D) {
+// ---------------------------------------------------------------------------
+// The per-row algebra: MD-vectors in registers, matrices in the row's views.
+
+template <int MD>
+__device__ __forceinline__ void load_col(RowView t, int off, int D, float (&v)[MD]) {
+#pragma unroll
+  for (int d = 0; d < MD; ++d) v[d] = d < D ? t[off + d] : 0.0f;
+}
+
+template <int MD>
+__device__ __forceinline__ void store_col(RowView t, int off, int D, const float (&v)[MD]) {
+#pragma unroll
+  for (int d = 0; d < MD; ++d) {
+    if (d < D) t[off + d] = v[d];
+  }
+}
+
+template <int MD>
+__device__ __forceinline__ float dot(const float (&a)[MD], const float (&b)[MD], int D) {
   float s = 0.0f;
-  for (int d = 0; d < D; ++d) s += a[d] * b[d];
+#pragma unroll
+  for (int d = 0; d < MD; ++d) {
+    if (d < D) s += a[d] * b[d];
+  }
   return s;
 }
 
-// Thin MGS QR of the k columns y[0..k) (each D values, k <= D <= kMaxDim),
-// with basis completion for degenerate columns; the residuals of the
-// canonical basis are kept incrementally, as on the host path.
-__device__ void qr_cols(const float (&y)[kMaxDim][kMaxDim], int k, int D,
-                        float (&q)[kMaxDim][kMaxDim], float (&rr)[kMaxDim][kMaxDim]) {
+// The canonical vector e_c with the updates v -= (v . q_i) q_i of the
+// columns i < j of y applied in order: its residual after j MGS steps, as
+// the first version kept it incrementally.
+template <int MD>
+__device__ void canonical_residual(RowView y, int c, int j, int D, float (&res)[MD]) {
+#pragma unroll
+  for (int d = 0; d < MD; ++d) res[d] = c == d ? 1.0f : 0.0f;
+  for (int i = 0; i < j; ++i) {
+    float qi[MD];
+    load_col(y, i * D, D, qi);
+    const float proj = dot(res, qi, D);
+#pragma unroll
+    for (int d = 0; d < MD; ++d) {
+      if (d < D) res[d] -= proj * qi[d];
+    }
+  }
+}
+
+// Thin MGS QR, in place, of the k columns of y (column c at y[c D + d],
+// k <= D <= MD): Q replaces them, R goes to rr (rr[i k + j]; not kept when
+// rr.p is null), with basis completion for degenerate columns.
+template <int MD>
+__device__ void qr_cols(RowView y, int k, int D, RowView rr) {
   float ss = 0.0f;
-  for (int c = 0; c < k; ++c) ss += dot(y[c], y[c], D);
+  for (int c = 0; c < k; ++c) {
+    float v[MD];
+    load_col(y, c * D, D, v);
+    ss += dot(v, v, D);
+  }
   const float floor = fmaxf(sqrtf(ss) * 1e-6f, 1e-30f);
-  float res[kMaxDim][kMaxDim];
-  for (int c = 0; c < D; ++c)
-    for (int d = 0; d < D; ++d) res[c][d] = c == d ? 1.0f : 0.0f;
-  for (int i = 0; i < k; ++i)
-    for (int j = 0; j < k; ++j) rr[i][j] = 0.0f;
+  const bool keep = rr.p != nullptr;
+  for (int i = 0; i < k && keep; ++i)
+    for (int j = 0; j < k; ++j) rr[i * k + j] = 0.0f;
   for (int j = 0; j < k; ++j) {
-    float v[kMaxDim];
-    for (int d = 0; d < D; ++d) v[d] = y[j][d];
+    float v[MD];
+    load_col(y, j * D, D, v);
     for (int i = 0; i < j; ++i) {
-      const float r_ij = dot(q[i], v, D);
-      rr[i][j] = r_ij;
-      for (int d = 0; d < D; ++d) v[d] -= r_ij * q[i][d];
+      float qi[MD];
+      load_col(y, i * D, D, qi);
+      const float r_ij = dot(qi, v, D);
+      if (keep) rr[i * k + j] = r_ij;
+#pragma unroll
+      for (int d = 0; d < MD; ++d) {
+        if (d < D) v[d] -= r_ij * qi[d];
+      }
     }
     const float r_jj = sqrtf(dot(v, v, D));
-    rr[j][j] = r_jj;
-    int best = 0;
-    float best_norm = -1.0f;
-    for (int c = 0; c < D; ++c) {
-      const float n = sqrtf(dot(res[c], res[c], D));
-      if (n > best_norm) {  // strict: the first index among equals
-        best_norm = n;
-        best = c;
-      }
-    }
+    if (keep) rr[j * k + j] = r_jj;
+    float q[MD];
     if (r_jj < floor) {
+      // the canonical vector with the largest residual (first among equals)
+      float best_norm = -1.0f;
+      float best[MD];
+#pragma unroll
+      for (int d = 0; d < MD; ++d) best[d] = 0.0f;
+      for (int c = 0; c < D; ++c) {
+        float res[MD];
+        canonical_residual(y, c, j, D, res);
+        const float n = sqrtf(dot(res, res, D));
+        if (n > best_norm) {
+          best_norm = n;
+#pragma unroll
+          for (int d = 0; d < MD; ++d) best[d] = res[d];
+        }
+      }
       const float n = fmaxf(best_norm, 1e-30f);
-      for (int d = 0; d < D; ++d) q[j][d] = res[best][d] / n;
+#pragma unroll
+      for (int d = 0; d < MD; ++d) q[d] = best[d] / n;
     } else {
       const float n = fmaxf(r_jj, floor);
-      for (int d = 0; d < D; ++d) q[j][d] = v[d] / n;
+#pragma unroll
+      for (int d = 0; d < MD; ++d) q[d] = v[d] / n;
     }
-    if (j + 1 < k) {
-      for (int c = 0; c < D; ++c) {
-        const float proj = dot(res[c], q[j], D);
-        for (int d = 0; d < D; ++d) res[c][d] -= proj * q[j][d];
-      }
-    }
+    store_col(y, j * D, D, q);
   }
 }
 
 // inv(R) of the upper-triangular k x k rr, near-zero diagonals clamped.
-__device__ void tri_inv(const float (&rr)[kMaxDim][kMaxDim], int k,
-                        float (&inv)[kMaxDim][kMaxDim]) {
+template <int MD>
+__device__ void tri_inv(RowView rr, int k, RowView inv) {
   float scale = 0.0f;
-  for (int i = 0; i < k; ++i) scale = fmaxf(scale, fabsf(rr[i][i]));
+  for (int i = 0; i < k; ++i) scale = fmaxf(scale, fabsf(rr[i * k + i]));
   const float floor = fmaxf(scale * 1e-6f, 1e-30f);
   for (int i = 0; i < k; ++i)
-    for (int j = 0; j < k; ++j) inv[i][j] = 0.0f;
+    for (int j = 0; j < k; ++j) inv[i * k + j] = 0.0f;
   for (int j = 0; j < k; ++j) {
     for (int i = j; i >= 0; --i) {
       float acc = i == j ? 1.0f : 0.0f;
-      for (int l = i + 1; l <= j; ++l) acc -= rr[i][l] * inv[l][j];
-      const float d = rr[i][i];
+      for (int l = i + 1; l <= j; ++l) acc -= rr[i * k + l] * inv[l * k + j];
+      const float d = rr[i * k + i];
       const float safe = fabsf(d) < floor ? (d > 0.0f ? floor : (d < 0.0f ? -floor : floor)) : d;
-      inv[i][j] = acc / safe;
+      inv[i * k + j] = acc / safe;
     }
   }
 }
 
-template <int RT, bool HF>
-__global__ void __launch_bounds__(kThreads, 2)
+template <int MD, bool HF>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
 fused_sketch_kernel(const float* __restrict__ x, const float* __restrict__ probes,
                     const float* __restrict__ w_in, const float* __restrict__ b_eff,
                     HiddenLayers hidden, int n_hidden,
@@ -209,12 +301,25 @@ fused_sketch_kernel(const float* __restrict__ x, const float* __restrict__ probe
   const int n_in = n_s + n_g;                                // probe columns a row
   const int ncols = mode == kHutchpp ? n_in : 2 * n_s;       // + Q for xtrace
   const int kmax = mode == kHutchpp ? n_in : n_s;            // widest application
+  // xtrace's matrices a row lie over storage that is free when they are
+  // needed, where it holds them, else in the tail: R of the QR (m x m, from
+  // the QR to the estimate) over the input tile, which the drift leaves
+  // free; A Q (m x D; later S), inv(R) (later X) and the H, W, T grids
+  // (m x m each) over the act' store, which the last application leaves free
+  const int n_rr = mode == kHutchpp ? 0 : n_s * n_s;
+  const int n_late = mode == kHutchpp ? 0 : 4 * n_s * n_s + n_s * D;
+  const bool rr_in_xs = n_rr <= d_in;
+  const bool late_in_dh = n_late <= (n_hidden + 1) * H;
+  const int n_alg = (rr_in_xs ? 0 : n_rr) + (late_in_dh ? 0 : n_late);
   const int rh = R * H;
   float* dh = smem;                            // (n_hidden + 1, R, H) act'
   float* buf0 = dh + (n_hidden + 1) * rh;      // (kmax, R, H)
   float* buf1 = buf0 + kmax * rh;              // (kmax, R, H)
   float* xs = buf1 + kmax * rh;                // (R, d_in)
-  float* cols = xs + R * d_in;                 // (R, ncols, D)
+  float* cols = xs + R * d_in;                 // (ncols, D, R) element-major
+  float* tail = cols + ncols * D * R;          // (n_alg, R) element-major
+  float* rr_at = rr_in_xs ? xs : tail;                   // (n_rr, R) element-major
+  float* late = late_in_dh ? dh : tail + (rr_in_xs ? 0 : n_rr) * R;  // (n_late, R)
   const int row0 = blockIdx.x * R;
 
   // Rows past B compute on zeros (the floors keep them finite) and are not
@@ -225,8 +330,8 @@ fused_sketch_kernel(const float* __restrict__ x, const float* __restrict__ probe
   }
   for (int i = threadIdx.x; i < R * n_in * D; i += blockDim.x) {
     const int r = i / (n_in * D);
-    const int rest = i - r * n_in * D;
-    cols[r * ncols * D + rest] = row0 + r < B ? probes[(size_t)row0 * n_in * D + i] : 0.0f;
+    const int e = i - r * n_in * D;  // column e / D, element e % D
+    cols[e * R + r] = row0 + r < B ? probes[(size_t)row0 * n_in * D + i] : 0.0f;
   }
   __syncthreads();
 
@@ -253,7 +358,7 @@ fused_sketch_kernel(const float* __restrict__ x, const float* __restrict__ probe
     } else {
       activate_keep(act, cur, dh + l * rh, rh);
       __syncthreads();
-      dense<RT, 4>(hidden.w[l], hidden.b[l], cur, nxt, H, H, R, H, 1);
+      dense<kRowTile, 4>(hidden.w[l], hidden.b[l], cur, nxt, H, H, R, H, 1);
     }
     __syncthreads();
     float* tmp = cur;
@@ -267,7 +372,7 @@ fused_sketch_kernel(const float* __restrict__ x, const float* __restrict__ probe
   } else {
     activate_keep(act, cur, dh + n_hidden * rh, rh);
     __syncthreads();
-    dense<RT, 1>(w_out, b_out, cur, nxt, H, D, R, H, 1);
+    dense<kRowTile, 1>(w_out, b_out, cur, nxt, H, D, R, H, 1);
   }
   __syncthreads();
 
@@ -281,50 +386,62 @@ fused_sketch_kernel(const float* __restrict__ x, const float* __restrict__ probe
   }
   __syncthreads();  // the forward output buffer is reused below
 
-  float q[kMaxDim][kMaxDim];
-  float rr[kMaxDim][kMaxDim];
-  float* my = cols + r * ncols * D;  // this row's probe tile (r < R only)
+  const RowView my{cols + r, R};  // this row's probe tile (r < R only)
+  const RowView rr{n_rr > 0 ? rr_at + r : nullptr, R};  // R of the QR (xtrace)
 
-  // First application: A S (hutchpp) or A O (xtrace), then the QR.
-  const float* jv = apply_jacobian<RT, HF>(cols, ncols, 0, n_s, w_in, dh, hidden, n_hidden,
-                                       w_out, buf0, buf1, R, H, D);
+  // First application: A S (hutchpp) or A O (xtrace); Y replaces the Q
+  // columns of the tile (S, or the free half for xtrace), then the QR.
+  const int qoff = mode == kHutchpp ? 0 : n_s * D;  // Q's columns in the tile
+  const float* jv = apply_jacobian<MD, HF>(cols, 0, n_s, w_in, dh, hidden, n_hidden, w_out, buf0,
+                                           buf1, R, H, D);
   if (r < R) {
-    float y[kMaxDim][kMaxDim];
-    for (int c = 0; c < n_s; ++c)
-      for (int d = 0; d < D; ++d) y[c][d] = c0 * my[c * D + d] + c1 * jv[c * rh + r * H + d];
-    qr_cols(y, n_s, D, q, rr);
-    if (mode == kHutchpp) {
-      // U = (I - Q Q^T) G, over G in the tile, then Q over S
-      for (int g = 0; g < n_g; ++g) {
-        float* gv = my + (n_s + g) * D;
-        float u[kMaxDim];
-        for (int d = 0; d < D; ++d) u[d] = gv[d];
-        for (int i = 0; i < n_s; ++i) {
-          const float a = dot(q[i], gv, D);
-          for (int d = 0; d < D; ++d) u[d] -= a * q[i][d];
-        }
-        for (int d = 0; d < D; ++d) gv[d] = u[d];
+    for (int c = 0; c < n_s; ++c) {
+      float y[MD];
+#pragma unroll
+      for (int d = 0; d < MD; ++d) {
+        if (d < D) y[d] = c0 * my[c * D + d] + c1 * jv[c * rh + r * H + d];
       }
-      for (int c = 0; c < n_s; ++c)
-        for (int d = 0; d < D; ++d) my[c * D + d] = q[c][d];
-    } else {
-      for (int c = 0; c < n_s; ++c)
-        for (int d = 0; d < D; ++d) my[(n_s + c) * D + d] = q[c][d];
+      store_col(my, qoff + c * D, D, y);
+    }
+    const RowView q{cols + qoff * R + r, R};
+    qr_cols<MD>(q, n_s, D, rr);
+    if (mode == kHutchpp) {
+      // U = (I - Q Q^T) G, over G in the tile
+      for (int g = 0; g < n_g; ++g) {
+        float gv[MD], u[MD];
+        load_col(my, (n_s + g) * D, D, gv);
+#pragma unroll
+        for (int d = 0; d < MD; ++d) u[d] = gv[d];
+        for (int i = 0; i < n_s; ++i) {
+          float qi[MD];
+          load_col(my, i * D, D, qi);
+          const float a = dot(qi, gv, D);
+#pragma unroll
+          for (int d = 0; d < MD; ++d) {
+            if (d < D) u[d] -= a * qi[d];
+          }
+        }
+        store_col(my, (n_s + g) * D, D, u);
+      }
     }
   }
   __syncthreads();
 
   if (mode == kHutchpp) {
     // A [Q | U] in one application
-    jv = apply_jacobian<RT, HF>(cols, ncols, 0, n_in, w_in, dh, hidden, n_hidden, w_out, buf0,
-                            buf1, R, H, D);
+    jv = apply_jacobian<MD, HF>(cols, 0, n_in, w_in, dh, hidden, n_hidden, w_out, buf0, buf1, R, H,
+                                D);
     if (r < R && row < B) {
       float trace_lr = 0.0f, trace_res = 0.0f;
       for (int c = 0; c < n_in; ++c) {
-        const float* v = my + c * D;
         const float* j = jv + c * rh + r * H;
+        float v[MD];
+        load_col(my, c * D, D, v);
         float s = 0.0f;
-        for (int d = 0; d < D; ++d) s += v[d] * (c0 * v[d] + c1 * j[d]);
+#pragma unroll
+        for (int d = 0; d < MD; ++d) {
+          if (d < D) s += v[d] * (c0 * v[d] + c1 * j[d]);
+        }
         if (c < n_s) trace_lr += s;
         else trace_res += s;
       }
@@ -334,38 +451,52 @@ fused_sketch_kernel(const float* __restrict__ x, const float* __restrict__ probe
   }
 
   // xtrace: A Q, then the leave-one-out algebra
-  jv = apply_jacobian<RT, HF>(cols, ncols, n_s, n_s, w_in, dh, hidden, n_hidden, w_out, buf0, buf1,
-                          R, H, D);
+  jv = apply_jacobian<MD, HF>(cols, n_s, n_s, w_in, dh, hidden, n_hidden, w_out, buf0, buf1, R, H,
+                              D);
   if (r < R && row < B) {
     const int m = n_s;
-    float aq[kMaxDim][kMaxDim];
-    for (int c = 0; c < m; ++c)
-      for (int d = 0; d < D; ++d) aq[c][d] = c0 * q[c][d] + c1 * jv[c * rh + r * H + d];
-    float Hm[kMaxDim][kMaxDim], W[kMaxDim][kMaxDim], T[kMaxDim][kMaxDim];
-    for (int i = 0; i < m; ++i)
-      for (int j = 0; j < m; ++j) {
-        Hm[i][j] = dot(q[i], aq[j], D);
-        W[i][j] = dot(q[i], my + j * D, D);
-        T[i][j] = dot(aq[i], my + j * D, D);
+    const int m2 = m * m;
+    const RowView aq{late + r, R};                       // A Q (m x D), later S
+    const RowView inv{late + m * D * R + r, R};          // inv(R), later X
+    const RowView Hm{late + (m2 + m * D) * R + r, R};
+    const RowView W{late + (2 * m2 + m * D) * R + r, R};
+    const RowView T{late + (3 * m2 + m * D) * R + r, R};
+    const RowView& S = aq;
+    const RowView& X = inv;
+    for (int c = 0; c < m; ++c) {
+      float v[MD];
+#pragma unroll
+      for (int d = 0; d < MD; ++d) {
+        if (d < D) v[d] = c0 * my[(m + c) * D + d] + c1 * jv[c * rh + r * H + d];
       }
-    float S[kMaxDim][kMaxDim];
-    {
-      float inv[kMaxDim][kMaxDim];
-      tri_inv(rr, m, inv);
-      for (int i = 0; i < m; ++i) {
-        float n = 0.0f;
-        for (int j = 0; j < m; ++j) n += inv[i][j] * inv[i][j];
-        n = fmaxf(sqrtf(n), 1e-30f);
-        for (int j = 0; j < m; ++j) S[j][i] = inv[i][j] / n;  // S = normalized inv(R)^T
+      store_col(aq, c * D, D, v);
+    }
+    for (int i = 0; i < m; ++i) {
+      float qi[MD], ai[MD];
+      load_col(my, (m + i) * D, D, qi);
+      load_col(aq, i * D, D, ai);
+      for (int j = 0; j < m; ++j) {
+        float aj[MD], oj[MD];
+        load_col(aq, j * D, D, aj);
+        load_col(my, j * D, D, oj);
+        Hm[i * m + j] = dot(qi, aj, D);
+        W[i * m + j] = dot(qi, oj, D);
+        T[i * m + j] = dot(ai, oj, D);
       }
     }
+    tri_inv<MD>(rr, m, inv);
+    for (int i = 0; i < m; ++i) {
+      float n = 0.0f;
+      for (int j = 0; j < m; ++j) n += inv[i * m + j] * inv[i * m + j];
+      n = fmaxf(sqrtf(n), 1e-30f);
+      for (int j = 0; j < m; ++j) S[j * m + i] = inv[i * m + j] / n;  // S = normalized inv(R)^T
+    }
     float trace_H = 0.0f;
-    for (int i = 0; i < m; ++i) trace_H += Hm[i][i];
-    float X[kMaxDim][kMaxDim];
+    for (int i = 0; i < m; ++i) trace_H += Hm[i * m + i];
     for (int j = 0; j < m; ++j) {
       float csum = 0.0f;
-      for (int i = 0; i < m; ++i) csum += S[i][j] * W[i][j];
-      for (int i = 0; i < m; ++i) X[i][j] = W[i][j] - csum * S[i][j];
+      for (int i = 0; i < m; ++i) csum += S[i * m + j] * W[i * m + j];
+      for (int i = 0; i < m; ++i) X[i * m + j] = W[i * m + j] - csum * S[i * m + j];
     }
     float est = 0.0f;
     for (int j = 0; j < m; ++j) {
@@ -373,14 +504,14 @@ fused_sketch_kernel(const float* __restrict__ x, const float* __restrict__ probe
       for (int i = 0; i < m; ++i) {
         float hs = 0.0f, hx = 0.0f;
         for (int l = 0; l < m; ++l) {
-          hs += Hm[i][l] * S[l][j];
-          hx += Hm[i][l] * X[l][j];
+          hs += Hm[i * m + l] * S[l * m + j];
+          hx += Hm[i * m + l] * X[l * m + j];
         }
-        shs += S[i][j] * hs;
-        xhx += X[i][j] * hx;
-        ws += W[i][j] * S[i][j];
-        sr += S[i][j] * rr[i][j];
-        tx += T[i][j] * X[i][j];
+        shs += S[i * m + j] * hs;
+        xhx += X[i * m + j] * hx;
+        ws += W[i * m + j] * S[i * m + j];
+        sr += S[i * m + j] * rr[i * m + j];
+        tx += T[i * m + j] * X[i * m + j];
       }
       est += trace_H - shs + ws * sr - tx + xhx;
     }
@@ -388,20 +519,55 @@ fused_sketch_kernel(const float* __restrict__ x, const float* __restrict__ probe
   }
 }
 
-template <int RT, bool HF>
+template <int MD, bool HF>
+cudaError_t prepare(size_t smem) {
+  return allow_smem(fused_sketch_kernel<MD, HF>, smem);
+}
+
+template <int MD, bool HF>
 cudaError_t launch(const float* x, const float* probes, const float* w_in, const float* b_eff,
                    const HiddenLayers& hidden, int n_hidden, const float* w_out,
                    const float* b_out, const float* c0c1, float* drift, float* div, int B,
                    int d_in, int D, int H, int mode, int act, int n_s, int n_g, int rows,
                    size_t smem, cudaStream_t stream) {
-  const cudaError_t st = allow_smem(fused_sketch_kernel<RT, HF>, smem);
+  const cudaError_t st = prepare<MD, HF>(smem);
   if (st != cudaSuccess) return st;
   const int grid = (B + rows - 1) / rows;
-  fused_sketch_kernel<RT, HF><<<grid, kThreads, smem, stream>>>(
+  fused_sketch_kernel<MD, HF><<<grid, kThreads, smem, stream>>>(
       x, probes, w_in, b_eff, hidden, n_hidden, w_out, b_out, c0c1, drift, div, B, d_in, D, H,
       mode, act, n_s, n_g, rows);
   return cudaGetLastError();
 }
+
+// Resident blocks an SM of the instantiation (md, precision) at `smem`
+// bytes, and its registers and local memory a thread.
+template <int MD, bool HF>
+cudaError_t query(size_t smem, int* blocks, int* regs, int* local_bytes) {
+  cudaError_t st = prepare<MD, HF>(smem);
+  if (st != cudaSuccess) return st;
+  st = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, fused_sketch_kernel<MD, HF>, kThreads,
+                                                     smem);
+  if (st != cudaSuccess) return st;
+  cudaFuncAttributes attr;
+  st = cudaFuncGetAttributes(&attr, fused_sketch_kernel<MD, HF>);
+  *regs = attr.numRegs;
+  *local_bytes = (int)attr.localSizeBytes;
+  return st;
+}
+
+// Index of an instantiation in the tables below: (precision, md bucket).
+int instance(int md, int precision) { return 3 * precision + (md == 2 ? 0 : md == 4 ? 1 : 2); }
+
+using LaunchFn = cudaError_t (*)(const float*, const float*, const float*, const float*,
+                                 const HiddenLayers&, int, const float*, const float*, const float*,
+                                 float*, float*, int, int, int, int, int, int, int, int, int, size_t,
+                                 cudaStream_t);
+using QueryFn = cudaError_t (*)(size_t, int*, int*, int*);
+
+constexpr LaunchFn kLaunch[6] = {launch<2, false>, launch<4, false>, launch<8, false>,
+                                 launch<2, true>,  launch<4, true>,  launch<8, true>};
+constexpr QueryFn kQuery[6] = {query<2, false>, query<4, false>, query<8, false>,
+                               query<2, true>,  query<4, true>,  query<8, true>};
 
 }  // namespace
 
@@ -410,26 +576,35 @@ extern "C" {
 // The per-row algebra's largest D (the wrapper checks it too).
 int ff_sketch_max_dim() { return kMaxDim; }
 
+// The blocks of kThreads an SM is to hold by the launch bounds: the wrapper
+// plans with it.
+int ff_sketch_min_blocks() { return kMinBlocks; }
+
 // Launch on `stream`; returns the cudaError_t of the launch (0 on success).
 // probes: (B, n_s + n_g, D), the r sketch then the m residual probes of a row
 // (hutchpp, n_g >= 1, n_s <= D), or its m probes (xtrace, 1 <= n_s <= D,
 // n_g = 0).  w_hidden/b_hidden are host arrays of n_hidden device pointers,
 // each weight 16-byte aligned.  `precision` is the compute mode: 0 float32,
-// 1 highf32.  `rows` a multiple of 4 (at most kThreads), H of 4, of 8 in
-// highf32 (the Python wrapper checks all of them).  `smem` is the block's shared memory in bytes, computed by the
-// wrapper for the kernel's layout: (n_hidden + 1 + 2 kmax) x rows x H floats,
-// then rows x (d_in + ncols D) floats, kmax = n_s + n_g (hutchpp) or n_s
-// (xtrace) and ncols = n_s + n_g (hutchpp) or 2 n_s (xtrace).
+// 1 highf32.  `md` the algebra's bucket (2, 4 or 8, >= D), `rows` a multiple
+// of 4 (at most kThreads), H of 4, of 8 in highf32 (the Python wrapper checks
+// all of them).  `smem` is the block's shared memory in bytes, computed by
+// the wrapper for the kernel's layout: (n_hidden + 1 + 2 kmax) x rows x H
+// floats, then rows x (d_in + ncols D + n_alg) floats; kmax = n_s + n_g
+// (hutchpp) or n_s (xtrace), ncols = n_s + n_g (hutchpp) or 2 n_s (xtrace),
+// n_alg = 0 (hutchpp), or for xtrace n_s^2 where n_s^2 > d_in (else over
+// the input tile) plus 4 n_s^2 + n_s D where that is > (n_hidden + 1) H
+// (else over the act' store).
 int ff_fused_sketch(const float* x, const float* probes, const float* w_in, const float* b_eff,
                     const float* const* w_hidden, const float* const* b_hidden, int n_hidden,
                     const float* w_out, const float* b_out, const float* c0c1, float* drift,
                     float* div, int B, int d_in, int D, int H, int mode, int act,
-                    int precision, int n_s, int n_g, int rows, size_t smem, void* stream) {
+                    int precision, int n_s, int n_g, int md, int rows, size_t smem,
+                    void* stream) {
   const bool counts_ok = mode == kHutchpp ? (n_g >= 1 && n_s >= 0 && n_s <= D)
                                           : (mode == kXtrace && n_g == 0 && n_s >= 1 && n_s <= D);
   if (n_hidden < 0 || n_hidden > kMaxHidden || rows % kMinRowTile != 0 || rows > kThreads ||
-      H % 4 != 0 || B <= 0 || D < 1 || D > kMaxDim || !counts_ok || precision < 0 ||
-      precision > 1 || (precision == 1 && H % 8 != 0)) {
+      H % 4 != 0 || B <= 0 || D < 1 || D > md || (md != 2 && md != 4 && md != 8) || !counts_ok ||
+      precision < 0 || precision > 1 || (precision == 1 && H % 8 != 0)) {
     return (int)cudaErrorInvalidValue;
   }
   HiddenLayers hidden = {};
@@ -438,13 +613,20 @@ int ff_fused_sketch(const float* x, const float* probes, const float* w_in, cons
     hidden.b[i] = b_hidden[i];
   }
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const auto go = [&](auto kernel_launch) {
-    return (int)kernel_launch(x, probes, w_in, b_eff, hidden, n_hidden, w_out, b_out, c0c1, drift,
-                              div, B, d_in, D, H, mode, act, n_s, n_g, rows, smem, st);
-  };
-  // highf32 has one instantiation: its products take no row tile
-  if (precision == 1) return go(launch<kMinRowTile, true>);
-  return rows % 8 == 0 ? go(launch<8, false>) : go(launch<kMinRowTile, false>);
+  return (int)kLaunch[instance(md, precision)](x, probes, w_in, b_eff, hidden, n_hidden, w_out,
+                                               b_out, c0c1, drift, div, B, d_in, D, H, mode, act,
+                                               n_s, n_g, rows, smem, st);
+}
+
+// Resident blocks an SM, registers and local-memory bytes a thread of the
+// instantiation (md, precision) launched with `smem` bytes; returns the
+// cudaError_t of the query.
+int ff_sketch_occupancy(int md, int precision, size_t smem, int* blocks, int* regs,
+                        int* local_bytes) {
+  if ((md != 2 && md != 4 && md != 8) || precision < 0 || precision > 1) {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)kQuery[instance(md, precision)](smem, blocks, regs, local_bytes);
 }
 
 }  // extern "C"

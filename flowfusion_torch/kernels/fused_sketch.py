@@ -17,6 +17,11 @@ the per-row QR, projections and leave-one-out algebra between the
 applications.  The time, the first-layer fold and (c0, c1) enter as in
 ``kernels.fused_mlp``.  Each wrapper counts its launches, split by mode
 (``launches_by_mode``) and by compute mode (``launches_by_dtype``).
+
+A launch's plan, :func:`sketch_plan`, is ``(rows, smem_bytes, md)``: the
+rows a block owns (the most blocks an SM holds, up to three, at the most
+rows that reach them), its shared memory and the algebra's bucket of D.
+A row's arithmetic does not depend on the plan.
 """
 
 from __future__ import annotations
@@ -42,7 +47,6 @@ from .fused_mlp import (
     check_operands,
     lane,
     pad_to_lanes,
-    rows_for,
 )
 
 __all__ = [
@@ -52,12 +56,21 @@ __all__ = [
     "fused_velocity_sketch_reference",
     "supports_sketch",
     "sketch_plan",
+    "sketch_md",
+    "sketch_occupancy",
     "reset_launch_counts",
     "MAX_SKETCH_DIM",
 ]
 
 SKETCH_MODES = ("hutchpp", "xtrace")  # index = kernel's SketchMode
 MAX_SKETCH_DIM = 8  # D the per-row algebra takes (csrc kMaxDim)
+SKETCH_MD = (2, 4, 8)  # the algebra's compile-time bounds of D (csrc instantiations)
+SKETCH_BLOCKS = 3  # blocks an SM the kernel's launch bounds allow (csrc kMinBlocks)
+# What an SM holds for its resident blocks: 228 KB of shared memory, of which
+# each block also reserves 1 KB for the system.  k blocks share an SM when
+# k x (smem + _SMEM_BLOCK_RESERVE) <= _SMEM_PER_SM.
+_SMEM_PER_SM = 233_472
+_SMEM_BLOCK_RESERVE = 1_024
 
 
 def _stack_sketch_probes(probes: Sequence[torch.Tensor], sketch_mode: str, D: int):
@@ -93,42 +106,96 @@ def _layout(sketch_mode: str, n_s: int, n_g: int) -> Tuple[int, int]:
     return n_s, 2 * n_s
 
 
-def _smem_bytes(rows: int, H: int, n_act: int, d_in: int, D: int, kmax: int, ncols: int) -> int:
+def sketch_md(D: int) -> int:
+    """The per-row algebra's bucket: the smallest of ``SKETCH_MD`` >= D;
+    raise past ``MAX_SKETCH_DIM``."""
+    for md in SKETCH_MD:
+        if D <= md:
+            return md
+    raise ValueError(
+        f"fused sketch kernel takes D <= {MAX_SKETCH_DIM} (its per-row algebra's "
+        f"arrays); got D={D}: use use_fused_kernel=False"
+    )
+
+
+def _algebra_floats(sketch_mode: str, n_s: int, D: int, d_in: int, n_act: int, H: int) -> int:
+    """XTrace's matrices a row in shared memory past the rest of the layout.
+    Each lies over storage that is free when it is needed, where that holds
+    it: R of the QR (m x m) over the input tile (d_in floats a row), A Q
+    (m x D), inv(R) and the H, W, T grids (m x m each) over the act' store
+    (n_act x H); Hutch++ keeps none."""
+    if sketch_mode == "hutchpp":
+        return 0
+    rr, late = n_s * n_s, 4 * n_s * n_s + n_s * D
+    return (rr if rr > d_in else 0) + (late if late > n_act * H else 0)
+
+
+def _smem_bytes(rows: int, H: int, n_act: int, d_in: int, D: int, kmax: int, ncols: int, n_alg: int) -> int:
     """Shared memory of one block in the kernel's layout: the act' store
     (n_act x rows x H), the double buffer of the widest application
-    (2 x kmax x rows x H), the (rows, d_in) input tile and the (rows,
-    ncols, D) probe tile, all float32."""
-    return 4 * rows * ((n_act + 2 * kmax) * H + d_in + ncols * D)
+    (2 x kmax x rows x H), the (rows, d_in) input tile, the (rows, ncols,
+    D) probe tile and the algebra's n_alg floats a row, all float32."""
+    return 4 * rows * ((n_act + 2 * kmax) * H + d_in + ncols * D + n_alg)
 
 
-def _rows(sketch_mode: str, H: int, n_act: int, d_in: int, D: int, n_s: int, n_g: int):
-    """Rows a block owns (:func:`rows_for` in this kernel's layout), or None
-    when D is past ``MAX_SKETCH_DIM`` or nothing fits."""
-    if D > MAX_SKETCH_DIM:
-        return None
+def blocks_per_sm(smem: int) -> int:
+    """Blocks of ``smem`` bytes of shared memory that one SM holds at once
+    (by shared memory alone; registers may allow fewer)."""
+    return _SMEM_PER_SM // (smem + _SMEM_BLOCK_RESERVE)
+
+
+def _pick_rows(smem_bytes) -> Optional[Tuple[int, int]]:
+    """``(rows, blocks)``: the most blocks an SM holds (by its shared memory,
+    at most ``SKETCH_BLOCKS``) of any of 64, 32, 16, 8 and 4 rows a block,
+    at the most rows that reach them.  None when not even 4 rows fit one
+    block."""
+    fits = [(rows, min(SKETCH_BLOCKS, blocks_per_sm(smem_bytes(rows)))) for rows in (64, 32, 16, 8, 4)
+            if smem_bytes(rows) <= _SMEM_LIMIT]
+    most = max((blocks for _, blocks in fits), default=0)
+    return next(((rows, blocks) for rows, blocks in fits if blocks == most), None)
+
+
+def _layout_bytes(sketch_mode, H, n_act, d_in, D, n_s, n_g):
+    """``smem_bytes(rows)`` of the kernel's layout."""
     kmax, ncols = _layout(sketch_mode, n_s, n_g)
-    return rows_for(lambda r: _smem_bytes(r, H, n_act, d_in, D, kmax, ncols))
+    n_alg = _algebra_floats(sketch_mode, n_s, D, d_in, n_act, H)
+    return lambda rows: _smem_bytes(rows, H, n_act, d_in, D, kmax, ncols, n_alg)
 
 
-def sketch_plan(sketch_mode: str, H: int, n_act: int, d_in: int, D: int, n_s: int, n_g: int):
-    """``(rows, smem_bytes)`` of a launch, or raise when the per-row
-    algebra's D is past ``MAX_SKETCH_DIM`` or the shared-memory plan does
-    not fit.  ``n_act`` counts the activation layers (the hidden widths)."""
-    if D > MAX_SKETCH_DIM:
-        raise ValueError(
-            f"fused sketch kernel takes D <= {MAX_SKETCH_DIM} (its per-row algebra's "
-            f"arrays); got D={D}: use use_fused_kernel=False"
-        )
-    kmax, ncols = _layout(sketch_mode, n_s, n_g)
-    rows = _rows(sketch_mode, H, n_act, d_in, D, n_s, n_g)
+def sketch_plan(sketch_mode: str, H: int, n_act: int, d_in: int, D: int, n_s: int, n_g: int,
+                rows: Optional[int] = None, md: Optional[int] = None):
+    """``(rows, smem_bytes, md)`` of a launch in either compute mode, or
+    raise when the per-row algebra's D is past ``MAX_SKETCH_DIM`` or the
+    shared-memory plan does not fit.  ``n_act`` counts the activation
+    layers (the hidden widths).  Rows: the most blocks an SM holds, at the
+    most rows that reach them.  ``rows`` and ``md`` force a plan (a
+    multiple of 4 rows, a bucket >= D).  A row's arithmetic does not depend
+    on rows or md."""
+    bucket = sketch_md(D)
+    md = bucket if md is None else md
+    if md not in SKETCH_MD or md < D:
+        raise ValueError(f"sketch algebra bucket {md} is not one of {SKETCH_MD} at least D={D}")
+    smem_bytes = _layout_bytes(sketch_mode, H, n_act, d_in, D, n_s, n_g)
     if rows is None:
-        raise ValueError(
-            f"fused sketch kernel shared-memory plan does not fit: {n_act} stored act' "
-            f"layers and 2 x {kmax} chains of width H={H} need "
-            f"{_smem_bytes(4, H, n_act, d_in, D, kmax, ncols)} bytes at 4 rows a block "
-            f"(limit {_SMEM_LIMIT}); use fewer probes, a narrower net, or use_fused_kernel=False"
-        )
-    return rows, _smem_bytes(rows, H, n_act, d_in, D, kmax, ncols)
+        picked = _pick_rows(smem_bytes)
+        if picked is None:
+            kmax, _ = _layout(sketch_mode, n_s, n_g)
+            raise ValueError(
+                f"fused sketch kernel shared-memory plan does not fit: {n_act} stored act' "
+                f"layers and 2 x {kmax} chains of width H={H} need {smem_bytes(4)} bytes at "
+                f"4 rows a block (limit {_SMEM_LIMIT}); use fewer probes, a narrower net, or "
+                "use_fused_kernel=False"
+            )
+        rows = picked[0]
+    elif rows % 4 or not 4 <= rows <= 256 or smem_bytes(rows) > _SMEM_LIMIT:
+        raise ValueError(f"sketch plan of {rows} rows: a multiple of 4 up to 256 whose block fits")
+    return rows, smem_bytes(rows), md
+
+
+def sketch_blocks(plan) -> int:
+    """Blocks of ``plan`` an SM holds by its shared memory and the launch
+    bounds (``sketch_occupancy`` asks the card)."""
+    return min(SKETCH_BLOCKS, blocks_per_sm(plan[1]))
 
 
 def supports_sketch(
@@ -137,8 +204,11 @@ def supports_sketch(
 ) -> bool:
     """Whether :func:`sketch_plan` fits (hidden width padded to the kernel's
     lanes in ``compute_dtype``)."""
+    if n_dimensions > MAX_SKETCH_DIM:
+        return False
     H = -(-hidden // lane(compute_dtype)) * lane(compute_dtype)
-    return _rows(sketch_mode, H, n_act, n_features, n_dimensions, n_s, n_g) is not None
+    smem_bytes = _layout_bytes(sketch_mode, H, n_act, n_features, n_dimensions, n_s, n_g)
+    return _pick_rows(smem_bytes) is not None
 
 
 def _sketch_reference(f, x, probes, sketch_mode):
@@ -236,8 +306,7 @@ def fused_velocity_sketch(
     D = cfg.target_dimension
     V, n_s, n_g = _stack_sketch_probes(probes, sketch_mode, D)
     plan = sketch_plan(
-        sketch_mode, cfg.hidden_units[0], len(cfg.hidden_units), D + cfg.conditional_dimension, D,
-        n_s, n_g,
+        sketch_mode, cfg.hidden_units[0], len(cfg.hidden_units), D + cfg.conditional_dimension, D, n_s, n_g
     )
     if not x.is_cuda:
         return fused_velocity_sketch_reference(params, cfg, t, x, probes, sketch_mode, conditional,
@@ -268,16 +337,34 @@ def _kernel_lib() -> ctypes.CDLL:
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         pp = ctypes.POINTER(ctypes.c_void_p)
-        fn.argtypes = [p, p, p, p, pp, pp, i, p, p, p, p, p] + [i] * 10 + [ctypes.c_size_t, p]
+        fn.argtypes = [p, p, p, p, pp, pp, i, p, p, p, p, p] + [i] * 11 + [ctypes.c_size_t, p]
         fn.restype = ctypes.c_int
-        lib.ff_sketch_max_dim.argtypes = []
-        lib.ff_sketch_max_dim.restype = ctypes.c_int
-        if lib.ff_sketch_max_dim() != MAX_SKETCH_DIM:
-            raise RuntimeError(
-                f"fused_sketch.cu takes D <= {lib.ff_sketch_max_dim()} but the wrapper "
-                f"plans for {MAX_SKETCH_DIM}"
-            )
+        ip = ctypes.POINTER(ctypes.c_int)
+        lib.ff_sketch_occupancy.argtypes = [i, i, ctypes.c_size_t, ip, ip, ip]
+        lib.ff_sketch_occupancy.restype = ctypes.c_int
+        want = {"ff_sketch_max_dim": MAX_SKETCH_DIM, "ff_sketch_min_blocks": SKETCH_BLOCKS}
+        for name in want:
+            getattr(lib, name).argtypes = []
+            getattr(lib, name).restype = ctypes.c_int
+        got = {name: getattr(lib, name)() for name in want}
+        if got != want:
+            raise RuntimeError(f"fused_sketch.cu's geometry {got} differs from the wrapper's plan {want}")
     return lib
+
+
+def sketch_occupancy(plan, compute_dtype: str = "float32") -> dict:
+    """What the card says of a plan's instantiation: resident blocks an SM
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), registers and
+    local-memory bytes a thread.  Builds the kernel; needs a card."""
+    check_compute_dtype(compute_dtype)
+    rows, smem, md = plan
+    out = [ctypes.c_int(0) for _ in range(3)]
+    err = _kernel_lib().ff_sketch_occupancy(md, COMPUTE_DTYPES.index(compute_dtype), smem,
+                                            *[ctypes.byref(v) for v in out])
+    if err != 0:
+        raise RuntimeError(f"fused_sketch occupancy query failed with CUDA error {err}")
+    blocks, regs, local_bytes = (v.value for v in out)
+    return dict(rows=rows, smem_bytes=smem, md=md, blocks_per_sm=blocks, registers=regs, local_bytes=local_bytes)
 
 
 def _launch(x_in, V, w_in, b_eff, layers, c0c1, sketch_mode, D, n_s, n_g, activation, plan, counter,
@@ -299,7 +386,7 @@ def _launch(x_in, V, w_in, b_eff, layers, c0c1, sketch_mode, D, n_s, n_g, activa
     expect += [(l["w"], (H, H)) for l in hidden] + [(l["b"], (H,)) for l in hidden]
     check_compute_dtype(compute_dtype)
     device = check_operands(expect, hidden, H, "fused sketch kernel", lane(compute_dtype))
-    rows, smem = plan
+    rows, smem, md = plan
 
     drift = torch.empty((B, D), dtype=torch.float32, device=device)
     div = torch.empty((B,), dtype=torch.float32, device=device)
@@ -313,7 +400,7 @@ def _launch(x_in, V, w_in, b_eff, layers, c0c1, sketch_mode, D, n_s, n_g, activa
         x_in.data_ptr(), probes.data_ptr(), w_in.data_ptr(), b_eff.data_ptr(), w_ptrs, b_ptrs, n,
         w_out.data_ptr(), b_out.data_ptr(), c0c1.data_ptr(), drift.data_ptr(), div.data_ptr(),
         B, d_in, D, H, SKETCH_MODES.index(sketch_mode), _KERNEL_ACTIVATIONS.index(activation),
-        COMPUTE_DTYPES.index(compute_dtype), n_s, n_g, rows, smem,
+        COMPUTE_DTYPES.index(compute_dtype), n_s, n_g, md, rows, smem,
         torch.cuda.current_stream(device).cuda_stream,
     )
     if err != 0:

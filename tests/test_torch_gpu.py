@@ -422,6 +422,64 @@ def test_highf32_sketch_kernel_matches_its_plain_version(cuda_device, family, mo
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("compute_dtype", ["float32", "highf32"])
+@pytest.mark.parametrize("mode", ["hutchpp", "xtrace"])
+@pytest.mark.parametrize("d,c", [(2, 0), (6, 3)])
+def test_sketch_kernel_is_bitwise_across_plans(cuda_device, d, c, mode, compute_dtype):
+    """A row's arithmetic does not depend on the schedule: the launch at its
+    own plan and at a forced one (4 rows, 8 where the plan has 4; the
+    algebra at MD = 8) give bitwise equal drift and div; 1,001 rows
+    (ragged), some exactly parallel Hutch++ sketch rows and a zero-probe
+    row."""
+    cfg, params = _net("drift", d, c, cuda_device, 12)
+    k = min(d, 3)
+    x, cond, probes = _sketch_case(d, c, mode, 1001, k, cuda_device, 13)
+    t = torch.tensor(0.4, device=cuda_device)
+    w_in, b_eff = fused_mlp._score_first_layer(params, cfg, t, cond)
+    x_in = x if cond is None else torch.cat([x, cond], dim=-1)
+    V = torch.cat(probes)
+    n_s, n_g = (k, k) if mode == "hutchpp" else (k, 0)
+    c0c1 = torch.tensor([-0.2, 0.8], device=cuda_device)
+    own = fused_sketch.sketch_plan(mode, 128, 3, d + c, d, n_s, n_g)
+    forced = fused_sketch.sketch_plan(mode, 128, 3, d + c, d, n_s, n_g, md=8,
+                                      rows=4 if own[0] != 4 else 8)
+    assert forced != own
+    outs = []
+    for plan in (own, forced):
+        outs.append(fused_sketch._launch(x_in, V, w_in, b_eff, params["layers"], c0c1, mode, d, n_s, n_g, "silu",
+                                         plan, fused_sketch.fused_drift_sketch, compute_dtype))
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0][0], outs[1][0]) and torch.equal(outs[0][1], outs[1][1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("compute_dtype", ["float32", "highf32"])
+def test_xtrace_kernel_algebra_past_the_act_store(cuda_device, compute_dtype):
+    """A net too narrow for XTrace's matrices to lie over its act' store or
+    R of the QR over the input tile (H = 8, one hidden width, D = 8, m = 4):
+    they go past the probe tile.  Against the plain version, and bitwise
+    across plans; 1,001 rows (ragged)."""
+    cfg = ScoreMLPConfig(n_dimensions=8, units=(8,))
+    params = init_score_mlp(cfg, torch.Generator().manual_seed(18), cuda_device)
+    x, _, probes = _sketch_case(8, 0, "xtrace", 1001, 4, cuda_device, 19)
+    assert fused_sketch._algebra_floats("xtrace", 4, 8, 8, 1, 8) == 16 + 4 * 16 + 4 * 8
+    kw = dict(c0=-0.2, c1=0.8, compute_dtype=compute_dtype)
+    out = fused_sketch.fused_drift_sketch(params, cfg, 0.4, x, probes, "xtrace", **kw)
+    ref = fused_sketch.fused_drift_sketch_reference(params, cfg, 0.4, x, probes, "xtrace", **kw)
+    t = torch.tensor(0.4, device=cuda_device)
+    w_in, b_eff = fused_mlp._score_first_layer(params, cfg, t, None)
+    plan = fused_sketch.sketch_plan("xtrace", 8, 1, 8, 8, 4, 0, rows=4)
+    c0c1 = torch.tensor([-0.2, 0.8], device=cuda_device)
+    four = fused_sketch._launch(x, probes[0], w_in, b_eff, params["layers"], c0c1, "xtrace", 8, 4, 0, "silu", plan,
+                                fused_sketch.fused_drift_sketch, compute_dtype)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(out[1]).all())
+    assert _rel(out[0], ref[0]) <= 1e-5
+    assert float((out[1] - ref[1]).abs().max()) <= 2e-4
+    assert torch.equal(out[0], four[0]) and torch.equal(out[1], four[1])
+
+
+@pytest.mark.gpu
 def test_highf32_sketch_four_row_plan_and_one_hidden_layer(cuda_device):
     """A Hutch++ plan that fits only at 4 rows a block (H = 256, D = 6,
     r = m = 3: 24-row products, a partial m-tile) and a one-hidden-layer

@@ -85,20 +85,59 @@ def _column_cases():
     return cases
 
 
+def _mgs64(cols):
+    """Thin MGS QR of full-rank columns (m, D, B) in float64: Q (m, D, B)
+    and R (m, m, B)."""
+    m = cols.shape[0]
+    Y = cols.astype(np.float64)
+    Q, R = np.zeros_like(Y), np.zeros((m, m, Y.shape[2]))
+    for j in range(m):
+        v = Y[j].copy()
+        for i in range(j):
+            R[i, j] = np.sum(Q[i] * v, axis=0)
+            v -= R[i, j] * Q[i]
+        R[j, j] = np.sqrt(np.sum(v * v, axis=0))
+        Q[j] = v / R[j, j]
+    return Q, R
+
+
+# float32 MGS loses ~u cond(Y) of Q's accuracy (u = 2^-24); rows whose
+# condition lies between these bounds are held to that, against float64
+_WELL_CONDITIONED = 100.0
+_FLOORED = 1e6  # past 1 / the QR floor's 1e-6 the basis completion decides
+
+
 @pytest.mark.parametrize("case", sorted(_column_cases()))
 def test_qr_cols_matches_jax(case):
     cols = _column_cases()[case].astype(np.float32)
     jq, jr = jtrace._qr_cols([jnp.asarray(c) for c in cols])
     q, r = trace._qr_cols([torch.as_tensor(c) for c in cols])
-    m = len(cols)
+    m, _, B = cols.shape
+    # rows well conditioned, or degenerate (the floor and the basis
+    # completion decide, the same in both): the port within 1e-6 of JAX;
+    # in between, both within 8 u cond(Y) of float64 MGS
+    cond = np.array([np.linalg.cond(cols[:, :, b].T.astype(np.float64)) for b in range(B)])
+    ill = (cond > _WELL_CONDITIONED) & (cond < _FLOORED)
     for a, b in zip(q, jq):
-        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-6, atol=1e-6)
+        np.testing.assert_allclose(a.numpy()[..., ~ill], np.asarray(b)[..., ~ill], rtol=1e-6, atol=1e-6)
         assert torch.isfinite(a).all()
     for i in range(m):
         for j in range(m):
-            np.testing.assert_allclose(np.broadcast_to(r[i][j].numpy(), (cols.shape[2],)),
-                                       np.broadcast_to(np.asarray(jr[i][j]), (cols.shape[2],)),
+            np.testing.assert_allclose(np.broadcast_to(r[i][j].numpy(), (B,))[~ill],
+                                       np.broadcast_to(np.asarray(jr[i][j]), (B,))[~ill],
                                        rtol=1e-6, atol=1e-6)
+    if ill.any():
+        q64, r64 = _mgs64(cols[..., ill])
+        bar = 8 * 2.0**-24 * cond[ill]
+        scale = np.abs(r64).max(axis=(0, 1))
+        for name, qq, rr in (("port", torch.stack(q).numpy(), [[np.broadcast_to(r[i][j].numpy(), (B,))
+                                                               for j in range(m)] for i in range(m)]),
+                             ("jax", np.stack([np.asarray(v) for v in jq]),
+                              [[np.broadcast_to(np.asarray(jr[i][j]), (B,)) for j in range(m)] for i in range(m)])):
+            q_err = np.abs(qq[..., ill] - q64).max(axis=(0, 1))
+            r_err = np.abs(np.array(rr, dtype=np.float64)[..., ill] - r64).max(axis=(0, 1)) / scale
+            assert (q_err <= bar).all(), f"{name}: Q off float64 MGS by {q_err} > {bar}"
+            assert (r_err <= bar).all(), f"{name}: R off float64 MGS by {r_err} > {bar} (relative)"
     # Q is orthonormal on every row, degenerate or not (to Gram--Schmidt's
     # eps x condition number on nearly parallel random columns)
     Q = torch.stack(q)  # (m, D, B)
@@ -336,7 +375,7 @@ def test_sketch_plan_and_flops():
     # the flagship (H = 128, three activation layers, D = 2) and the
     # conditional checkpoints (D = 6, C = 3, H = 128 and 256) fit
     assert fused_sketch.sketch_plan("hutchpp", 128, 3, 2, 2, 2, 1)[0] == 16
-    assert fused_sketch.sketch_plan("xtrace", 128, 3, 2, 2, 2, 0)[0] == 32
+    assert fused_sketch.sketch_plan("xtrace", 128, 3, 2, 2, 2, 0)[0] == 16
     for H in (128, 256):
         assert fused_sketch.supports_sketch("hutchpp", H, 3, 9, 6, 6, 6)
         assert fused_sketch.supports_sketch("xtrace", H, 3, 9, 6, 6, 0)
@@ -347,6 +386,81 @@ def test_sketch_plan_and_flops():
     assert fused_mlp.flops_per_row(2, 2, 128, 4, "hutchpp", 2, 1) == 399_360
     assert fused_mlp.flops_per_row(2, 2, 128, 4, "xtrace", 2) == 332_800
     assert fused_mlp.flops_per_row(2, 2, 128, 4, "tangents", 3) == 266_240
+
+
+def test_blocks_an_sm_count_the_block_reserve():
+    # an SM holds 233,472 bytes for its blocks, each block 1 KB more than
+    # its own: two fit up to 115,712 bytes, not up to half the block limit
+    assert fused_sketch.blocks_per_sm(115_712) == 2
+    assert fused_sketch.blocks_per_sm(115_968) == 1
+    assert fused_sketch.blocks_per_sm(76_800) == 3 and fused_sketch.blocks_per_sm(76_804) == 2
+    # the first version's flagship XTrace layout: one block of 32 rows, or
+    # three of 16
+    assert fused_sketch._pick_rows(lambda rows: 3_624 * rows) == (16, 3)
+    # the RHS, EM and training kernels keep their own plans (rows_for)
+    assert fused_mlp._plan(128, "hutchinson", 2, 2) == (32, 66_048)
+    assert fused_mlp._plan(128, "exact", 2, 2) == (32, 98_816)
+    assert fused_mlp._plan(128, "forward", 2, 2) == (64, 66_560)
+    assert fused_mlp._plan(128, "exact", 9, 6) == (16, 115_648)  # 64 bytes inside the two-block budget
+
+
+@pytest.mark.parametrize("D", range(1, 10))
+def test_sketch_md_bucket(D):
+    if D > fused_sketch.MAX_SKETCH_DIM:
+        with pytest.raises(ValueError, match="use_fused_kernel=False"):
+            fused_sketch.sketch_md(D)
+        with pytest.raises(ValueError, match="use_fused_kernel=False"):
+            fused_sketch.sketch_plan("xtrace", 128, 3, D, D, 2, 0)
+        return
+    md = fused_sketch.sketch_md(D)
+    assert md == {1: 2, 2: 2, 3: 4, 4: 4}.get(D, 8)
+    assert fused_sketch.sketch_plan("xtrace", 128, 3, D, D, 1, 0)[2] == md
+
+
+def test_sketch_smem_bytes():
+    # flagship XTrace m = 2 at 16 rows: act' 3 x 16 x 128, 2 x 2 chains of
+    # 16 x 128, x (16, 2), the probe tile (16, 4, 2) and R of the QR (m^2 =
+    # 4 floats a row: more than x holds); A Q, inv(R) and the H, W, T grids
+    # lie over the act' store
+    per_row = (3 + 4) * 128 + 2 + 4 * 2 + 4
+    assert fused_sketch.sketch_plan("xtrace", 128, 3, 2, 2, 2, 0) == (16, 4 * 16 * per_row, 2)
+    # Hutch++ keeps no algebra matrices; the conditional H = 256 plans
+    per_row = (3 + 12) * 256 + 9 + 6 * 6
+    assert fused_sketch.sketch_plan("hutchpp", 256, 3, 9, 6, 3, 3) == (4, 4 * 4 * per_row, 8)
+    # XTrace's R of the QR over the (rows, 9) input tile: nothing past the
+    # probe tile
+    per_row = (3 + 6) * 256 + 9 + 6 * 6
+    assert fused_sketch.sketch_plan("xtrace", 256, 3, 9, 6, 3, 0) == (8, 4 * 8 * per_row, 8)
+    # one hidden width: no (H, H) layer
+    assert fused_sketch.sketch_plan("xtrace", 128, 1, 2, 2, 2, 0, rows=4)[1:] == (4 * 4 * (5 * 128 + 2 + 8 + 4), 2)
+    # a narrow net: the act' store (8 floats a row) holds none of A Q, inv(R),
+    # H, W, T (4 m^2 + m D = 320), the input tile not R of the QR (64)
+    per_row = (1 + 2 * 8) * 8 + 8 + 16 * 8 + 64 + 320
+    assert fused_sketch.sketch_plan("xtrace", 8, 1, 8, 8, 8, 0, rows=4)[1:] == (4 * 4 * per_row, 8)
+    # a forced plan: rows a multiple of 4 that fits, a bucket >= D
+    assert fused_sketch.sketch_plan("xtrace", 128, 3, 2, 2, 2, 0, rows=4, md=8)[::2] == (4, 8)
+    for bad in (dict(rows=6), dict(rows=256), dict(md=3), dict(md=2, rows=4)):
+        with pytest.raises(ValueError):
+            fused_sketch.sketch_plan("xtrace", 128, 3, 9, 6, 2, 0, **bad)
+
+
+@pytest.mark.parametrize("case,rows", [
+    (("hutchpp", 128, 3, 2, 2, 2, 1), 16),  # flagship, r = 2, m = 1
+    (("hutchpp", 128, 3, 2, 2, 1, 1), 16),  # the bench suite's r = m = 1 (two blocks of 32 fit)
+    (("xtrace", 128, 3, 2, 2, 2, 0), 16),   # flagship, m = 2 (was one block of 32)
+    (("xtrace", 128, 2, 2, 2, 2, 0), 16),   # flow, one hidden layer
+    (("hutchpp", 128, 3, 9, 6, 3, 3), 8),   # conditional, H = 128
+    (("xtrace", 128, 3, 9, 6, 3, 0), 16),   # (was two blocks of 16)
+    (("hutchpp", 256, 3, 9, 6, 3, 3), 4),   # conditional, H = 256
+    (("xtrace", 256, 3, 9, 6, 3, 0), 8),    # (was two blocks of 8)
+])
+def test_sketch_plan_rows(case, rows):
+    # the most blocks an SM holds (three), at the most rows that reach them,
+    # in either compute mode
+    plan = fused_sketch.sketch_plan(*case)
+    assert plan[0] == rows and len(plan) == 3
+    assert fused_sketch.sketch_blocks(plan) == fused_sketch.SKETCH_BLOCKS == 3
+    assert 3 * (plan[1] + 1_024) <= 233_472
 
 
 # -- the likelihood solves --------------------------------------------------
