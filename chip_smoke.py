@@ -57,6 +57,14 @@ non-zero without the final line):
         (flagship and conditional H=256, Hutch++ and XTrace, 50,000 rows):
         float32 bitwise equal, highf32 bitwise or within the highf32 sketch
         bars;
+     i. the RHS kernel's plans: rows, bytes and the blocks an SM holds
+        (by the plan and by cudaOccupancyMaxActiveBlocksPerMultiprocessor),
+        registers and local memory a thread (none), for every plan of 1a,
+        1c, 1d and 1f in both compute modes; the float32 flagship Hutchinson
+        plan holds three blocks; the launch at its own plan against one
+        forced to 4 rows (8 where the plan has 4) on the 50,000-row
+        flagship inputs (forward, hutchinson, exact, tangents K = 3) and the
+        conditional H=256 Hutchinson inputs: bitwise equal in both modes;
   2. the likelihood path, flagship model (benchmarks/flagship_ckpt.npz):
      the exact-trace ``log_prob`` at its defaults against the analytic
      mixture density; Hutchinson at rtol 1e-5 with the PI controller through
@@ -116,12 +124,13 @@ non-zero without the final line):
 The last line is ``{"ok": true, "device": {...}}``.  Exits with 2 and no
 result when no CUDA card is visible.
 
-    python3 chip_smoke.py --parent DIR   # the sketch kernel against a parent's
+    python3 chip_smoke.py --parent DIR   # the kernels against a parent's
 
-A/Bs this tree's sketch kernel against the ``flowfusion_torch`` package of a
-parent commit unpacked in DIR (``git archive <commit> flowfusion_torch |
-tar -x -C DIR``), in one process: launches bitwise and timed in turns,
-the sketch solves of phases 8 and 12 in turns (see ``parent_ab``).
+A/Bs this tree's RHS and sketch kernels against the ``flowfusion_torch``
+package of a parent commit unpacked in DIR (``git archive <commit>
+flowfusion_torch | tar -x -C DIR``), in one process: launches bitwise and
+timed in turns, the Hutchinson solves, ``sample_sde`` and the sketch solves
+in turns (see ``parent_ab``).
 """
 
 from __future__ import annotations
@@ -1278,6 +1287,75 @@ def main() -> int:
                  own_plan=list(plans[0]), forced_plan=list(plans[1]), drift_bitwise=same[0], div_bitwise=same[1],
                  drift_rel=d_drift, div_rel=d_div)
 
+    # -- phase 1i: the RHS kernel's plans on the card, and a row's arithmetic
+    # against the schedule.  Every plan phases 1a, 1c, 1d, 1f and 7 run, in
+    # both compute modes: rows, bytes, the blocks an SM holds by the
+    # plan and by the card (cudaOccupancyMaxActiveBlocksPerMultiprocessor),
+    # registers and local memory a thread (none).  The float32 flagship
+    # Hutchinson plan holds three blocks.  Then the launch at its own plan
+    # against one forced to 4 rows a block (8 where the plan has 4), on the
+    # 50k flagship inputs (forward, hutchinson, exact, tangents K = 3) and
+    # the conditional H=256 Hutchinson inputs: bitwise equal in both modes.
+    rhs_plans = {}
+    for name, params, cfg, _ in nets:
+        for mode in ("forward", "hutchinson", "exact"):
+            rhs_plans.setdefault((cfg.units[0], mode, cfg.n_dimensions + cfg.n_conditionals, cfg.n_dimensions, 0),
+                                 f"{name} {mode}")
+    for name, params, cfg, _ in vel_nets:
+        for mode in ("forward", "hutchinson", "exact"):
+            D = cfg.target_dimension
+            rhs_plans.setdefault((cfg.hidden_units[0], mode, D + cfg.conditional_dimension, D, 0), f"{name} {mode}")
+    for entry_name, name, params, cfg, _ in tan_cases:
+        D = cfg.target_dimension if entry_name == "fused_velocity_tangents" else cfg.n_dimensions
+        C = cfg.conditional_dimension if entry_name == "fused_velocity_tangents" else cfg.n_conditionals
+        H = (cfg.hidden_units if entry_name == "fused_velocity_tangents" else cfg.units)[0]
+        rhs_plans.setdefault((H, "tangents", D + C, D, 3), f"{name} tangents K=3")
+    for name, params, cfg, _ in sym_nets:
+        rhs_plans.setdefault((cfg.units[0], "forward", cfg.n_data_dims + cfg.n_conditionals, cfg.n_data_dims, 0),
+                             f"{name} symplectic stack")
+    for (H, mode, d_in, d_out, n_tan), what in sorted(rhs_plans.items()):
+        for dt in ("float32", "highf32"):
+            Hp = -(-H // fused_mlp.lane(dt)) * fused_mlp.lane(dt)
+            plan = fused_mlp._plan(Hp, mode, d_in, d_out, n_tan, dt)
+            occ = fused_mlp.occupancy(plan, dt)
+            planned = fused_mlp.plan_blocks(plan)
+            check(occ["blocks_per_sm"] == planned,
+                  f"RHS plan {what} {dt}: the card holds {occ['blocks_per_sm']} blocks an SM, the plan {planned}")
+            check(occ["local_bytes"] == 0, f"RHS kernel {dt} keeps {occ['local_bytes']} bytes a thread in local memory")
+            emit("rhs_occupancy", case=what, mode=mode, compute_dtype=dt, H=Hp, d_in=d_in, d_out=d_out, n_tan=n_tan,
+                 plan_blocks_per_sm=planned, **occ)
+    flag_hutch = fused_mlp.occupancy(fused_mlp._plan(128, "hutchinson", 2, 2))
+    check(flag_hutch["blocks_per_sm"] == 3, f"the float32 flagship Hutchinson plan holds {flag_hutch} blocks, not 3")
+
+    g = gen(191)
+    x_f = torch.randn(50_000, 2, generator=g).to(dev)
+    e_f = rademacher(g, 50_000, 2)
+    e_t = torch.randn(50_000, 6, generator=g).to(dev)
+    w_in_f37, b_eff_f37 = fused_mlp._score_first_layer(flag_params, flag_cfg, t37, None)
+    c_pair = torch.tensor([-0.3, 0.7], device=dev)
+    x_h, c_h, c0_h, c1_h = rhs_inputs("conditional_ckpt_h256.npz", 50_000, g)
+    p_h, cfg_h = cond_nets["conditional_ckpt_h256.npz"]
+    w_in_h, b_eff_h = fused_mlp._score_first_layer(p_h, cfg_h, t37, c_h)
+    invariance_cases = [
+        (f"flagship {mode}", x_f, {"hutchinson": e_f, "tangents": e_t}.get(mode), w_in_f37, b_eff_f37,
+         flag_params["layers"], c_pair, mode, 2, 3 if mode == "tangents" else 0)
+        for mode in ("forward", "hutchinson", "exact", "tangents")
+    ]
+    invariance_cases.append(("conditional_ckpt_h256.npz hutchinson", torch.cat([x_h, c_h], -1),
+                             rademacher(g, 50_000, 6), w_in_h, b_eff_h, p_h["layers"],
+                             torch.tensor([float(c0_h), float(c1_h)], device=dev), "hutchinson", 6, 0))
+    for name, x_in, e_in, w_in, b_eff, layers, cc, mode, D, n_tan in invariance_cases:
+        for dt in ("float32", "highf32"):
+            own = fused_mlp._plan(b_eff.shape[0], mode, x_in.shape[1], D, n_tan, dt)
+            forced = 4 if own[0] != 4 else 8
+            outs = [fused_mlp._launch(x_in, e_in, w_in, b_eff, layers, cc, mode, D, "silu", n_tan=n_tan,
+                                      compute_dtype=dt, rows=rows) for rows in (None, forced)]
+            torch.cuda.synchronize()
+            same = [bool(torch.equal(a, b)) for a, b in zip(*outs) if a is not None]
+            check(all(same), f"RHS {name} {dt}: the {forced}-row plan differs from {list(own)}")
+            emit("rhs_plan_invariance", case=name, rows=50_000, compute_dtype=dt, own_plan=list(own),
+                 forced_rows=forced, bitwise=same)
+
     # -- phases 2-4: the likelihood path, launches counted from zero -------
     reset_counts()
 
@@ -2142,8 +2220,8 @@ def main() -> int:
 
 
 def parent_ab(parent_dir: str) -> int:
-    """This tree's sketch kernel against a parent commit's, in one process on
-    one card.  ``parent_dir`` holds the parent's package
+    """This tree's RHS and sketch kernels against a parent commit's, in one
+    process on one card.  ``parent_dir`` holds the parent's package
     (``git archive <commit> flowfusion_torch | tar -x -C DIR``); it is
     imported under another name and builds its own library under DIR.
 
@@ -2157,8 +2235,17 @@ def parent_ab(parent_dir: str) -> int:
     XTrace m = 2 solves of phases 8 (float32) and 12 (highf32) and the
     served conditional H = 256 XTrace (m = 3, highf32) through each kernel,
     a warm-up of each, then ten pairs, each side first in turn: NFE and
-    log-densities equal, walls and the pairs the tree won.  One JSON
-    line a comparison; exits 2 without a card, 1 when a check fails."""
+    log-densities equal, walls and the pairs the tree won.
+
+    The RHS kernel: fused_drift forward, hutchinson and exact (flagship and
+    conditional H = 256), fused_velocity (flow), both tangents entries
+    (K = 3) and the symplectic field's two launches at 50,000 rows, both
+    compute modes, each at its own plan: bitwise equal, timed in turns as
+    above.  Solves through the models with each side's fused_drift: the
+    flagship Hutchinson solve at 50,000 (ten pairs) and 1,000,000 rows (four
+    pairs) in both modes and sample_sde at 50,000 (ten pairs), a warm-up of
+    each: NFE equal and outputs bitwise equal.  One JSON line a comparison;
+    exits 2 without a card, 1 when a check fails."""
     import contextlib
     import importlib
     import importlib.util
@@ -2174,9 +2261,10 @@ def parent_ab(parent_dir: str) -> int:
     sys.path.insert(0, ROOT)
     from flowfusion_torch.kernels import fused_mlp, fused_sketch
     from flowfusion_torch.models import score as score_mod
-    from flowfusion_torch.models.nets import ScoreMLPConfig, VelocityMLPConfig
+    from flowfusion_torch.models.nets import ScoreMLPConfig, VelocityMLPConfig, fourier_time_embedding
     from flowfusion_torch.models.population import PopulationModelDiffusion
     from flowfusion_torch.models.score import ScoreModel
+    from flowfusion_torch.models.symplectic import SymplecticFlowModel
     from flowfusion_torch.ops import trace as trace_ops
     from flowfusion_torch.ops.sde import VESDE
     from flowfusion_torch.utils.checkpoint import load_npz, read_npz_extra
@@ -2190,11 +2278,13 @@ def parent_ab(parent_dir: str) -> int:
     spec.loader.exec_module(sys.modules[spec.name])
     old = importlib.import_module("parent_flowfusion_torch.kernels.fused_sketch")
     kernels = {"parent": old, "tree": fused_sketch}
+    rhs = {"parent": importlib.import_module("parent_flowfusion_torch.kernels.fused_mlp"), "tree": fused_mlp}
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
-    with ThreadPoolExecutor(2) as pool:
-        list(pool.map(lambda mod: mod._build.build("fused_sketch"), kernels.values()))
+    with ThreadPoolExecutor(4) as pool:
+        list(pool.map(lambda job: job[0]._build.build(job[1]),
+                      [(mod, name) for mod in kernels.values() for name in ("fused_sketch", "fused_mlp")]))
 
     dev = torch.device("cuda")
 
@@ -2281,15 +2371,68 @@ def parent_ab(parent_dir: str) -> int:
                  drift_rel=d_drift, div_rel=d_div, parent_ms=ms["parent"], tree_ms=ms["tree"],
                  tree_over_parent=ms["tree"] / ms["parent"], runs_ms=runs)
 
+    # the RHS kernel's launches: fused_drift in its three modes (flagship and
+    # conditional H = 256), fused_velocity (flow), both tangents entries
+    # (K = 3) and the symplectic field (its two launches), both compute
+    # modes, each at its own plan: bitwise equal, timed in turns
+    sym, _ = SymplecticFlowModel.from_npz(os.path.join(BENCH, "symplectic_ckpt.npz"), device=dev)
+    temb = fourier_time_embedding(t[None], sym.params["W"])[0]
+    sym_ops = [(sym.params[stack][0]["w"][:2], sym.params[stack][0]["b"] + temb @ sym.params[stack][0]["w"][2:],
+                sym.params[stack], torch.tensor([0.0, sgn], device=dev))
+               for stack, sgn in (("q_layers", 1.0), ("p_layers", -1.0))]
+    e2, V = sign(gen(98), B, 2), torch.randn(B, 6, generator=gen(99)).to(dev)
+    tree256 = load_npz(os.path.join(BENCH, "conditional_ckpt_h256.npz"))
+    p256 = params_from_numpy(tree256["score_model"]["params"], dev)
+    w256, b256 = fused_mlp._score_first_layer(
+        p256, ScoreMLPConfig(n_dimensions=6, n_conditionals=3, units=(256,) * 3), t, xc[:, 6:])
+    c256, e6 = torch.tensor([-0.4, 0.9], device=dev), sign(gen(100), B, 6)
+    # (name, [(x_in, e, w_in, b_eff, layers, c0c1, mode, d_out, n_tan) a launch])
+    rhs_cases = []
+    for mode in ("forward", "hutchinson", "exact"):
+        ee = e2 if mode == "hutchinson" else None
+        rhs_cases.append((f"fused_drift[{mode}] flagship", [(x2, ee, w_f, b_f, flag["layers"], c_flag, mode, 2, 0)]))
+        rhs_cases.append((f"fused_drift[{mode}] conditional H=256",
+                          [(xc, e6 if mode == "hutchinson" else None, w256, b256, p256["layers"], c256, mode, 6, 0)]))
+        rhs_cases.append((f"fused_velocity[{mode}] flow", [(x2, ee, w_fl.contiguous(), b_fl, flow["layers"],
+                                                            torch.tensor([0.0, 1.0], device=dev), mode, 2, 0)]))
+    rhs_cases.append(("fused_drift_tangents flagship K=3", [(x2, V, w_f, b_f, flag["layers"], c_flag, "tangents", 2, 3)]))
+    rhs_cases.append(("fused_velocity_tangents flow K=3", [(x2, V, w_fl.contiguous(), b_fl, flow["layers"],
+                                                            torch.tensor([0.0, 1.0], device=dev), "tangents", 2, 3)]))
+    rhs_cases.append(("fused_symplectic_velocity", [(x2, None, w, b, layers, cc, "forward", 2, 0)
+                                                    for w, b, layers, cc in sym_ops]))
+    for name, launches in rhs_cases:
+        for dt in ("float32", "highf32"):
+            fns = {k: (lambda mod=mod: [mod._launch(x, e, w, b, layers, cc, mode, d, "silu", counter=counter,
+                                                    n_tan=n_tan, compute_dtype=dt)
+                                        for x, e, w, b, layers, cc, mode, d, n_tan in launches])
+                   for k, mod in rhs.items()}
+            outs = {k: [o for pair in fn() for o in pair if o is not None] for k, fn in fns.items()}
+            torch.cuda.synchronize()
+            same = all(bool(torch.equal(a, b)) for a, b in zip(outs["parent"], outs["tree"]))
+            if not same:
+                failed.append(f"RHS {name} {dt}: differs from the parent by "
+                              f"{max(float((a - b).abs().max()) for a, b in zip(outs['parent'], outs['tree'])):.2e}")
+            runs = {"parent": [], "tree": []}
+            for i in range(3):
+                for k in ("parent", "tree", "tree", "parent") if i % 2 == 0 else ("tree", "parent", "parent", "tree"):
+                    runs[k].append(median_ms(fns[k]))
+            ms = {k: statistics.median(v) for k, v in runs.items()}
+            emit("parent_ab_rhs_launch", case=name, rows=B, compute_dtype=dt, card=smi,
+                 plan=list(fused_mlp._plan(launches[0][3].shape[0], launches[0][6], launches[0][0].shape[1],
+                                           launches[0][7], launches[0][8], dt)),
+                 bitwise=same, parent_ms=ms["parent"], tree_ms=ms["tree"], tree_over_parent=ms["tree"] / ms["parent"],
+                 runs_ms=runs)
+
     @contextlib.contextmanager
     def kernel_of(which):
-        """The models' sketch RHS through ``which`` kernel's wrapper."""
-        saved = score_mod.fused_drift_sketch
+        """The models' RHS and sketch RHS through ``which`` kernels' wrappers."""
+        saved = score_mod.fused_drift, score_mod.fused_drift_sketch
+        score_mod.fused_drift = rhs[which].fused_drift
         score_mod.fused_drift_sketch = kernels[which].fused_drift_sketch
         try:
             yield
         finally:
-            score_mod.fused_drift_sketch = saved
+            score_mod.fused_drift, score_mod.fused_drift_sketch = saved
 
     extra = read_npz_extra(flag_path)
     shift = torch.tensor(extra["shift"], device=dev)
@@ -2301,19 +2444,33 @@ def parent_ab(parent_dir: str) -> int:
         for mode, kw in (("hutchpp", dict(hpp_rank=2, hpp_vecs=1)), ("xtrace", dict(xt_vecs=2))):
             m = ScoreModel(flag, flag_cfg, VESDE(), trace_mode=mode, kernel_compute_dtype=dt, **kw)
             probes = trace_ops.make_probes(mode, gen(seeds[1]), xs, **kw)
-            solves.append((f"flagship {mode} {kw}", dt, B, lambda m=m, xs=xs, pr=probes: m.log_prob(
+            solves.append((f"flagship {mode} {kw}", dt, B, 10, dt == "float32", lambda m=m, xs=xs, pr=probes: m.log_prob(
                 xs, probes=pr, atol=1e-5, rtol=1e-5, options=opts)))
     cpop, _ = PopulationModelDiffusion.from_conditional_npz(os.path.join(BENCH, "conditional_ckpt_h256.npz"),
                                                             device=dev)
     cpop = dataclasses.replace(cpop, score_model=dataclasses.replace(cpop.score_model, trace_mode="xtrace",
                                                                      xt_vecs=3))
     theta, c = CONDITIONAL_POP.sample(gen(9), 20_000, device=dev)
-    solves.append(("conditional H=256 xtrace {'xt_vecs': 3}", cpop.score_model.kernel_compute_dtype, 20_000,
-                   lambda: cpop.log_prob(theta, conditional=c, generator=gen(1), atol=1e-5, rtol=1e-5,
-                                         volume_corrected=True, options=opts)))
-    for name, dt, rows, solve in solves:
+    solves.append(("conditional H=256 xtrace {'xt_vecs': 3}", cpop.score_model.kernel_compute_dtype, 20_000, 10,
+                   False, lambda: cpop.log_prob(theta, conditional=c, generator=gen(1), atol=1e-5, rtol=1e-5,
+                                                volume_corrected=True, options=opts)))
+    # the RHS kernel's main path: the flagship Hutchinson solve at 50,000 and
+    # 1,000,000 rows in both compute modes, and sample_sde (100 forward
+    # launches) at 50,000: bitwise equal outputs and equal NFE
+    for dt in ("float32", "highf32"):
+        m = ScoreModel(flag, flag_cfg, VESDE(), trace_mode="hutchinson", kernel_compute_dtype=dt)
+        for rows, pairs in ((50_000, 10), (1_000_000, 4)):
+            xs = (DEMO_GMM.sample(gen(500 + rows), rows, device=dev) - shift) / scale
+            probes = (sign(gen(501 + rows), rows, 2),)
+            solves.append(("flagship hutchinson", dt, rows, pairs, True, lambda m=m, xs=xs, pr=probes: m.log_prob(
+                xs, probes=pr, atol=1e-5, rtol=1e-5, options=opts)))
+    sde_model = ScoreModel(flag, flag_cfg, VESDE())
+    solves.append(("flagship sample_sde, 100 steps", "float32", B, 10, True, lambda: (
+        torch.cat(sde_model.sample_sde((B, 2), steps=100, generator=torch.Generator(device=dev).manual_seed(61))[:2]),
+        types.SimpleNamespace(n_func_evals=100))))
+    for name, dt, rows, pairs, strict, solve in solves:
         secs, res = {"parent": [], "tree": []}, {}
-        for i in range(11):  # a warm-up of each, then ten pairs, each side first in turn
+        for i in range(pairs + 1):  # a warm-up of each, then the pairs, each side first in turn
             for which in ("tree", "parent") if i % 2 == 0 else ("parent", "tree"):
                 with kernel_of(which):
                     torch.cuda.synchronize()
@@ -2324,7 +2481,7 @@ def parent_ab(parent_dir: str) -> int:
                         secs[which].append(time.perf_counter() - t_start)
                 res[which] = (lp, st.n_func_evals)
         same = bool(torch.equal(res["tree"][0], res["parent"][0]))
-        if res["tree"][1] != res["parent"][1] or (dt == "float32" and not same):
+        if res["tree"][1] != res["parent"][1] or (strict and not same):
             failed.append(f"{name} {dt} solve: NFE {res['tree'][1]} vs the parent's {res['parent'][1]}, "
                           f"log-densities equal: {same}")
         med = {k: statistics.median(v) for k, v in secs.items()}
@@ -2343,7 +2500,8 @@ def cli() -> int:
 
     ap = argparse.ArgumentParser(description="Drive flowfusion_torch's main path on one CUDA card and check it.")
     ap.add_argument("--parent", metavar="DIR",
-                    help="instead, A/B this tree's sketch kernel against the flowfusion_torch package in DIR")
+                    help="instead, A/B this tree's RHS and sketch kernels against the flowfusion_torch package "
+                         "in DIR")
     args = ap.parse_args()
     return parent_ab(args.parent) if args.parent else main()
 

@@ -216,16 +216,6 @@ __device__ __forceinline__ void act_pair_highf32(int act, float a, float& h, flo
   dh = s * (1.0f + a * (1.0f - s));
 }
 
-// activate() with act_pair_highf32.
-__device__ __forceinline__ void activate_highf32(int act, float* cur, int chains, int rh) {
-  for (int i = threadIdx.x; i < rh; i += blockDim.x) {
-    float h, dh;
-    act_pair_highf32(act, cur[i], h, dh);
-    cur[i] = h;
-    for (int c = 1; c < chains; ++c) cur[c * rh + i] *= dh;
-  }
-}
-
 // activate_keep() with act_pair_highf32: act' from the tanh-form sigmoid,
 // kept for the Jacobian applications of a highf32 sketch.
 __device__ __forceinline__ void activate_keep_highf32(int act, float* cur, float* dh, int rh) {

@@ -32,13 +32,19 @@ The velocity net takes raw t as an input feature after x, so its fold is
 its fold takes the TRAILING rows: ``b_eff = b1 + temb W1[D+C:]``; the q
 stack runs on p with (0, +1), the p stack on q with (0, -1).  Each wrapper
 counts its own launches.
+
+A launch's plan, :func:`_plan`, is ``(rows, smem_bytes)``: the rows a
+block owns (the most blocks an SM holds, up to three, counted with the
+1 KB each block reserves, at the most rows that reach them) and its shared
+memory.  A row's arithmetic does not depend on the plan.  The EM and training kernels plan with :func:`rows_for`.
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import Callable, Optional, Sequence
+import functools
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -71,6 +77,8 @@ __all__ = [
     "supports_config",
     "supports_features",
     "flops_per_row",
+    "occupancy",
+    "plan_blocks",
     "reset_launch_counts",
 ]
 
@@ -87,6 +95,13 @@ LANE_HIGHF32 = 8
 RANK1_MAX = 16
 MAX_HIDDEN = 16  # (H, H) layers the kernel takes (csrc kMaxHidden)
 _SMEM_LIMIT = 232_448  # shared memory one block may use on sm_90
+# What an SM holds for its resident blocks: 228 KB of shared memory, of which
+# each block also reserves 1 KB for the system.  k blocks share an SM when
+# k x (smem + _SMEM_BLOCK_RESERVE) <= _SMEM_PER_SM.
+_SMEM_PER_SM = 233_472
+_SMEM_BLOCK_RESERVE = 1_024
+KERNEL_BLOCKS = 3  # blocks an SM the kernel's launch bounds allow (csrc kMinBlocks)
+PAD = 4  # floats past H in a row of the kernel's activation buffers (csrc kPad)
 
 
 def tf32_round(x: torch.Tensor) -> torch.Tensor:
@@ -200,7 +215,7 @@ def supports_features(
     ``mode`` here, because the plan grows with the chain count."""
     d_out = n_features if n_dimensions is None else n_dimensions
     H = -(-hidden // lane(compute_dtype)) * lane(compute_dtype)
-    return _rows_per_block(H, _chains(mode, d_out), n_features, d_out) is not None
+    return _rows_per_block(H, _chains(mode, d_out), n_features, d_out, compute_dtype=compute_dtype) is not None
 
 
 def _pad_stack(layers: list, H: int) -> list:
@@ -410,7 +425,7 @@ def fused_drift(
     _check_conditional(cfg.n_conditionals, conditional)
     params, cfg = pad_to_lanes(params, cfg, compute_dtype)
     # the envelope holds on every device, as the JAX interpret mode's does
-    _plan(cfg.units[0], mode, cfg.n_dimensions + cfg.n_conditionals, cfg.n_dimensions)
+    _plan(cfg.units[0], mode, cfg.n_dimensions + cfg.n_conditionals, cfg.n_dimensions, compute_dtype=compute_dtype)
     if not x.is_cuda:
         return fused_drift_reference(
             params, cfg, t, x, conditional, e, exact_divergence, c0, c1, compute_dtype
@@ -450,7 +465,7 @@ def fused_velocity(
     _check_conditional(cfg.conditional_dimension, conditional)
     params, cfg = pad_to_lanes(params, cfg, compute_dtype)
     D = cfg.target_dimension
-    _plan(cfg.hidden_units[0], mode, D + cfg.conditional_dimension, D)
+    _plan(cfg.hidden_units[0], mode, D + cfg.conditional_dimension, D, compute_dtype=compute_dtype)
     if not x.is_cuda:
         return fused_velocity_reference(params, cfg, t, x, conditional, e, exact_divergence, compute_dtype)
     with strict_fp32_matmul():
@@ -532,7 +547,7 @@ def fused_drift_tangents(
     params, cfg = pad_to_lanes(params, cfg, compute_dtype)
     D = cfg.n_dimensions
     V = _tangent_stack(V, x.shape[0], D)
-    _plan(cfg.units[0], "tangents", D + cfg.n_conditionals, D, V.shape[0])
+    _plan(cfg.units[0], "tangents", D + cfg.n_conditionals, D, V.shape[0], compute_dtype)
     if not x.is_cuda:
         return fused_drift_tangents_reference(params, cfg, t, x, V, conditional, c0, c1, compute_dtype)
     with strict_fp32_matmul():
@@ -564,7 +579,7 @@ def fused_velocity_tangents(
     params, cfg = pad_to_lanes(params, cfg, compute_dtype)
     D = cfg.target_dimension
     V = _tangent_stack(V, x.shape[0], D)
-    _plan(cfg.hidden_units[0], "tangents", D + cfg.conditional_dimension, D, V.shape[0])
+    _plan(cfg.hidden_units[0], "tangents", D + cfg.conditional_dimension, D, V.shape[0], compute_dtype)
     if not x.is_cuda:
         return fused_velocity_tangents_reference(params, cfg, t, x, V, conditional, compute_dtype)
     with strict_fp32_matmul():
@@ -615,7 +630,7 @@ def fused_symplectic_velocity(
     D, C = cfg.n_data_dims, cfg.n_conditionals
     if state.ndim != 2 or state.shape[1] != 2 * D:
         raise ValueError(f"state of shape {tuple(state.shape)}; expected (B, {2 * D})")
-    _plan(cfg.units[0], "forward", D + C, D)
+    _plan(cfg.units[0], "forward", D + C, D, compute_dtype=compute_dtype)
     if not state.is_cuda:
         return fused_symplectic_velocity_reference(params, cfg, t, state, conditional, compute_dtype)
     q, p = torch.chunk(state, 2, dim=-1)
@@ -663,17 +678,33 @@ def _chains(mode: str, d_out: int, n_tan: int = 0) -> int:
     return {"forward": 1, "hutchinson": 2, "exact": 1 + d_out, "tangents": 1 + n_tan}[mode]
 
 
-def _smem_bytes(rows: int, H: int, chains: int, d_in: int, d_out: int, n_tan: int = 0) -> int:
-    """Shared memory of one block, in the kernel's layout: the double
-    buffer of chains x rows x H floats, then the (rows, d_in) input tile
-    and the (rows, d_out max(1, n_tan)) probe tile."""
-    return 4 * (2 * chains * rows * H + rows * (d_in + d_out * max(1, n_tan)))
+def _smem_bytes(rows: int, H: int, chains: int, d_in: int, d_out: int, n_tan: int = 0,
+                compute_dtype: str = "float32") -> int:
+    """Shared memory of one block, in the kernel's layout: chains x rows
+    rows of stride H + ``PAD`` floats, twice in ``float32`` (the double
+    buffer) and three times in ``highf32`` (the pre-activations and the
+    TF32 hi and lo planes), then the (rows, d_in) input tile and the
+    (rows, d_out max(1, n_tan)) probe tile."""
+    buffers = 3 if compute_dtype == "highf32" else 2
+    return 4 * (buffers * chains * rows * (H + PAD) + rows * (d_in + d_out * max(1, n_tan)))
+
+
+def blocks_per_sm(smem: int) -> int:
+    """Blocks of ``smem`` bytes of shared memory that one SM holds at once
+    (by shared memory alone; registers may allow fewer)."""
+    return _SMEM_PER_SM // (smem + _SMEM_BLOCK_RESERVE)
 
 
 def rows_for(smem_bytes: Callable[[int], int]) -> Optional[int]:
     """Rows a block owns, given its shared memory ``smem_bytes(rows)``:
-    the most (<= 64) that let two blocks share an SM, else 4 rows in one
-    block; None when not even that fits.  Both kernels plan with it."""
+    the most (<= 64) within half of ``_SMEM_LIMIT``, else 4 rows in one
+    block; None when not even that fits.  The EM and training kernels plan
+    with it.  It miscounts: two blocks share an SM only up to 115,712
+    bytes, since each block also reserves 1 KB (``blocks_per_sm``), so a
+    plan of 115,713-116,224 bytes holds one block, not two.  No plan the
+    repository runs lies there; the fix moves the training kernel's
+    per-block gradient slots, and waits for that kernel's redesign
+    (ROADMAP.md, open item on the training kernel)."""
     for rows in (64, 32, 16, 8, 4):
         if smem_bytes(rows) <= _SMEM_LIMIT // 2:
             return rows
@@ -682,25 +713,68 @@ def rows_for(smem_bytes: Callable[[int], int]) -> Optional[int]:
     return None
 
 
-def _rows_per_block(H: int, chains: int, d_in: int, d_out: int, n_tan: int = 0) -> Optional[int]:
-    """:func:`rows_for` in this kernel's layout."""
-    return rows_for(lambda rows: _smem_bytes(rows, H, chains, d_in, d_out, n_tan))
+def _pick_rows(smem_bytes: Callable[[int], int], cap: int = KERNEL_BLOCKS) -> Optional[Tuple[int, int]]:
+    """``(rows, blocks)``: the most blocks an SM holds (by its shared memory,
+    at most ``cap``, what the launch bounds allow) of any of 64, 32, 16, 8
+    and 4 rows a block, at the most rows that reach them.  None when not
+    even 4 rows fit one block.  The sketch kernel plans with it too."""
+    fits = [(rows, min(cap, blocks_per_sm(smem_bytes(rows)))) for rows in (64, 32, 16, 8, 4)
+            if smem_bytes(rows) <= _SMEM_LIMIT]
+    most = max((blocks for _, blocks in fits), default=0)
+    return next(((rows, blocks) for rows, blocks in fits if blocks == most), None)
 
 
-def _plan(H: int, mode: str, d_in: int, d_out: int, n_tan: int = 0):
+def _rows_per_block(H: int, chains: int, d_in: int, d_out: int, n_tan: int = 0,
+                    compute_dtype: str = "float32") -> Optional[int]:
+    """The rows of :func:`_pick_rows` in this kernel's layout, or None."""
+    picked = _pick_rows(lambda rows: _smem_bytes(rows, H, chains, d_in, d_out, n_tan, compute_dtype))
+    return None if picked is None else picked[0]
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(H: int, mode: str, d_in: int, d_out: int, n_tan: int = 0, compute_dtype: str = "float32",
+          rows: Optional[int] = None):
     """``(rows, smem_bytes)`` of the launch, or raise when the
     shared-memory plan does not fit (the JAX package's vmem_width_clamp
-    analogue)."""
+    analogue).  Rows: the most blocks an SM holds (at most
+    ``KERNEL_BLOCKS``), at the most rows that reach them; ``rows`` forces a
+    plan (a multiple of 4 whose block fits).  A row's arithmetic does not depend on the plan.  Cached: a solve asks
+    for the same plan at every right-hand side."""
     chains = _chains(mode, d_out, n_tan)
-    rows = _rows_per_block(H, chains, d_in, d_out, n_tan)
+    smem_bytes = lambda r: _smem_bytes(r, H, chains, d_in, d_out, n_tan, compute_dtype)  # noqa: E731
     if rows is None:
-        raise ValueError(
-            f"fused kernel shared-memory plan does not fit: {chains} chains of width "
-            f"H={H} need {_smem_bytes(4, H, chains, d_in, d_out, n_tan)} bytes at 4 rows a "
-            f"block (limit {_SMEM_LIMIT}); use trace_mode='hutchinson' instead of "
-            "exact trace, fewer probes, a narrower net, or use_fused_kernel=False"
-        )
-    return rows, _smem_bytes(rows, H, chains, d_in, d_out, n_tan)
+        rows = _rows_per_block(H, chains, d_in, d_out, n_tan, compute_dtype)
+        if rows is None:
+            raise ValueError(
+                f"fused kernel shared-memory plan does not fit: {chains} chains of width "
+                f"H={H} need {smem_bytes(4)} bytes at 4 rows a block in {compute_dtype} "
+                f"(limit {_SMEM_LIMIT}); use trace_mode='hutchinson' instead of "
+                "exact trace, fewer probes, a narrower net, or use_fused_kernel=False"
+            )
+    elif rows % 4 or not 4 <= rows <= 256 or smem_bytes(rows) > _SMEM_LIMIT:
+        raise ValueError(f"fused kernel plan of {rows} rows: a multiple of 4 up to 256 whose block fits")
+    return rows, smem_bytes(rows)
+
+
+def plan_blocks(plan) -> int:
+    """Blocks of ``plan`` an SM holds by its shared memory and the launch
+    bounds (:func:`occupancy` asks the card)."""
+    return min(KERNEL_BLOCKS, blocks_per_sm(plan[1]))
+
+
+def occupancy(plan, compute_dtype: str = "float32") -> dict:
+    """What the card makes of ``plan`` (from :func:`_plan`) in
+    ``compute_dtype``: resident blocks an SM
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), registers and
+    local-memory bytes a thread of the instantiation it launches."""
+    rows, smem = plan
+    blocks, regs, local_bytes = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    err = _kernel_lib().ff_fused_mlp_occupancy(COMPUTE_DTYPES.index(compute_dtype), smem, blocks, regs,
+                                               local_bytes)
+    if err != 0:
+        raise RuntimeError(f"fused_mlp occupancy query failed with CUDA error {err}")
+    return dict(rows=rows, smem_bytes=smem, blocks_per_sm=blocks.value, registers=regs.value,
+                local_bytes=local_bytes.value)
 
 
 def _kernel_lib() -> ctypes.CDLL:
@@ -709,8 +783,16 @@ def _kernel_lib() -> ctypes.CDLL:
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         pp = ctypes.POINTER(ctypes.c_void_p)
-        fn.argtypes = [p, p, p, p, pp, pp, i, p, p, p, p, p, i, i, i, i, i, i, i, i, i, ctypes.c_size_t, p]
+        fn.argtypes = [p, p, p, p, pp, pp, i, p, p, p, p, p] + [i] * 9 + [ctypes.c_size_t, p]
         fn.restype = ctypes.c_int
+        ip = ctypes.POINTER(ctypes.c_int)
+        lib.ff_fused_mlp_occupancy.argtypes = [i, ctypes.c_size_t, ip, ip, ip]
+        lib.ff_fused_mlp_occupancy.restype = ctypes.c_int
+        lib.ff_fused_mlp_min_blocks.argtypes = []
+        lib.ff_fused_mlp_min_blocks.restype = ctypes.c_int
+        if lib.ff_fused_mlp_min_blocks() != KERNEL_BLOCKS:
+            raise RuntimeError(f"fused_mlp.cu's launch bounds hold {lib.ff_fused_mlp_min_blocks()} blocks an SM; "
+                               f"the wrapper plans for {KERNEL_BLOCKS}")
     return lib
 
 
@@ -736,10 +818,10 @@ def check_operands(expect, hidden, H: int, what: str, lane_width: int = LANE) ->
 
 
 def _launch(x_in, e, w_in, b_eff, layers, c0c1, mode, d_out, activation, counter=fused_drift,
-            n_tan=0, compute_dtype="float32"):
+            n_tan=0, compute_dtype="float32", rows=None):
     """Check the operands, allocate the outputs and launch the kernel in
-    ``compute_dtype`` on the current stream; add the launch to
-    ``counter``'s counts.  Returns
+    ``compute_dtype`` on the current stream, at the plan of :func:`_plan`
+    (``rows`` forces one); add the launch to ``counter``'s counts.  Returns
     ``(drift, div)``: div is None (forward), (B,) (hutchinson, exact) or
     the (n_tan, B, d_out) J v columns (tangents, ``e`` the (B, n_tan d_out)
     probe rows).  Raises on anything the kernel does not take."""
@@ -758,7 +840,7 @@ def _launch(x_in, e, w_in, b_eff, layers, c0c1, mode, d_out, activation, counter
         expect.append((e, (B, n_tan * d_out)))
     check_compute_dtype(compute_dtype)
     device = check_operands(expect, hidden, H, "fused kernel", lane(compute_dtype))
-    rows, smem = _plan(H, mode, d_in, d_out, n_tan)
+    rows, smem = _plan(H, mode, d_in, d_out, n_tan, compute_dtype, rows)
 
     drift = torch.empty((B, d_out), dtype=torch.float32, device=device)
     div_shape = {"forward": None, "tangents": (n_tan, B, d_out)}.get(mode, (B,))

@@ -40,6 +40,8 @@ from .fused_mlp import (
     _KERNEL_ACTIVATIONS,
     _SMEM_LIMIT,
     _check_conditional,
+    _pick_rows,
+    blocks_per_sm,
     _net_ops,
     _score_first_layer,
     _velocity_first_layer,
@@ -66,11 +68,6 @@ SKETCH_MODES = ("hutchpp", "xtrace")  # index = kernel's SketchMode
 MAX_SKETCH_DIM = 8  # D the per-row algebra takes (csrc kMaxDim)
 SKETCH_MD = (2, 4, 8)  # the algebra's compile-time bounds of D (csrc instantiations)
 SKETCH_BLOCKS = 3  # blocks an SM the kernel's launch bounds allow (csrc kMinBlocks)
-# What an SM holds for its resident blocks: 228 KB of shared memory, of which
-# each block also reserves 1 KB for the system.  k blocks share an SM when
-# k x (smem + _SMEM_BLOCK_RESERVE) <= _SMEM_PER_SM.
-_SMEM_PER_SM = 233_472
-_SMEM_BLOCK_RESERVE = 1_024
 
 
 def _stack_sketch_probes(probes: Sequence[torch.Tensor], sketch_mode: str, D: int):
@@ -138,23 +135,6 @@ def _smem_bytes(rows: int, H: int, n_act: int, d_in: int, D: int, kmax: int, nco
     return 4 * rows * ((n_act + 2 * kmax) * H + d_in + ncols * D + n_alg)
 
 
-def blocks_per_sm(smem: int) -> int:
-    """Blocks of ``smem`` bytes of shared memory that one SM holds at once
-    (by shared memory alone; registers may allow fewer)."""
-    return _SMEM_PER_SM // (smem + _SMEM_BLOCK_RESERVE)
-
-
-def _pick_rows(smem_bytes) -> Optional[Tuple[int, int]]:
-    """``(rows, blocks)``: the most blocks an SM holds (by its shared memory,
-    at most ``SKETCH_BLOCKS``) of any of 64, 32, 16, 8 and 4 rows a block,
-    at the most rows that reach them.  None when not even 4 rows fit one
-    block."""
-    fits = [(rows, min(SKETCH_BLOCKS, blocks_per_sm(smem_bytes(rows)))) for rows in (64, 32, 16, 8, 4)
-            if smem_bytes(rows) <= _SMEM_LIMIT]
-    most = max((blocks for _, blocks in fits), default=0)
-    return next(((rows, blocks) for rows, blocks in fits if blocks == most), None)
-
-
 def _layout_bytes(sketch_mode, H, n_act, d_in, D, n_s, n_g):
     """``smem_bytes(rows)`` of the kernel's layout."""
     kmax, ncols = _layout(sketch_mode, n_s, n_g)
@@ -177,7 +157,7 @@ def sketch_plan(sketch_mode: str, H: int, n_act: int, d_in: int, D: int, n_s: in
         raise ValueError(f"sketch algebra bucket {md} is not one of {SKETCH_MD} at least D={D}")
     smem_bytes = _layout_bytes(sketch_mode, H, n_act, d_in, D, n_s, n_g)
     if rows is None:
-        picked = _pick_rows(smem_bytes)
+        picked = _pick_rows(smem_bytes, SKETCH_BLOCKS)
         if picked is None:
             kmax, _ = _layout(sketch_mode, n_s, n_g)
             raise ValueError(
@@ -208,7 +188,7 @@ def supports_sketch(
         return False
     H = -(-hidden // lane(compute_dtype)) * lane(compute_dtype)
     smem_bytes = _layout_bytes(sketch_mode, H, n_act, n_features, n_dimensions, n_s, n_g)
-    return _pick_rows(smem_bytes) is not None
+    return _pick_rows(smem_bytes, SKETCH_BLOCKS) is not None
 
 
 def _sketch_reference(f, x, probes, sketch_mode):

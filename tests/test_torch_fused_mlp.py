@@ -16,7 +16,7 @@ import torch
 
 from flowfusion_tpu.kernels import fused_mlp as jfm
 from flowfusion_tpu.models import nets as jnets
-from flowfusion_torch.kernels import fused_mlp
+from flowfusion_torch.kernels import em_sampler, fused_mlp, fused_sketch, fused_train
 from flowfusion_torch.models import nets
 from flowfusion_torch.utils.convert import params_from_numpy
 
@@ -163,4 +163,102 @@ def test_envelope_and_refusals():
         fused_mlp.fused_drift(wide_params, wide, 0.5, torch.zeros(4, 16), exact_divergence=True)
     assert fused_mlp._rows_per_block(128, 2, 2, 2) == 32
     assert fused_mlp._rows_per_block(128, 1, 2, 2) == 64  # forward: one chain
-    assert fused_mlp._plan(128, "exact", 16, 16) == (4, 4 * (2 * 17 * 4 * 128 + 4 * 32))
+    assert fused_mlp._plan(128, "exact", 16, 16) == (4, 4 * (2 * 17 * 4 * (128 + 4) + 4 * 32))
+    assert not fused_mlp.supports_features(16, "exact", 1024, compute_dtype="highf32")
+
+
+def test_rhs_blocks_an_sm_count_the_block_reserve():
+    # an SM holds 233,472 bytes for its blocks, each block 1 KB more than
+    # its own: two fit up to 115,712 bytes, not up to half the block limit
+    assert fused_mlp.blocks_per_sm(115_712) == 2
+    assert fused_mlp.blocks_per_sm(115_968) == 1
+    assert fused_mlp.blocks_per_sm(76_800) == 3 and fused_mlp.blocks_per_sm(76_804) == 2
+    assert fused_sketch.blocks_per_sm is fused_mlp.blocks_per_sm
+
+
+# (H, mode, d_in, d_out, n_tan, compute dtype, rows, blocks an SM):
+# the flagship (2 -> 128, also the flow and each symplectic stack), the
+# conditional checkpoints (D = 6, C = 3, H = 128 and 256), tangents K = 3,
+# highf32 with its planes, and the 4-row plans
+_PLANS = [
+    (128, "hutchinson", 2, 2, 0, "float32", 32, 3),
+    (128, "exact", 2, 2, 0, "float32", 16, 3),
+    (128, "forward", 2, 2, 0, "float32", 64, 3),
+    (128, "hutchinson", 9, 6, 0, "float32", 32, 3),
+    (128, "exact", 9, 6, 0, "float32", 8, 3),
+    (256, "hutchinson", 9, 6, 0, "float32", 16, 3),
+    (256, "exact", 9, 6, 0, "float32", 4, 3),
+    (128, "tangents", 2, 2, 3, "float32", 16, 3),
+    (256, "tangents", 9, 6, 3, "float32", 8, 3),
+    (128, "hutchinson", 2, 2, 0, "highf32", 16, 3),
+    (128, "forward", 2, 2, 0, "highf32", 32, 3),
+    (128, "exact", 2, 2, 0, "highf32", 16, 3),
+    (256, "hutchinson", 9, 6, 0, "highf32", 8, 3),
+    (256, "exact", 9, 6, 0, "highf32", 4, 2),
+    (128, "exact", 16, 16, 0, "highf32", 4, 2),
+]
+
+
+@pytest.mark.parametrize("H, mode, d_in, d_out, n_tan, dtype, rows, blocks", _PLANS)
+def test_rhs_plan(H, mode, d_in, d_out, n_tan, dtype, rows, blocks):
+    """Rows and bytes of the RHS kernel's plan, the padded stride (H + 4)
+    and highf32's planes counted: the most blocks an SM holds (at most
+    three), at the most rows that reach them."""
+    chains = fused_mlp._chains(mode, d_out, n_tan)
+    buffers = 3 if dtype == "highf32" else 2
+
+    def smem(r):
+        return 4 * r * (buffers * chains * (H + 4) + d_in + d_out * max(1, n_tan))
+
+    plan = fused_mlp._plan(H, mode, d_in, d_out, n_tan, dtype)
+    assert plan == (rows, smem(rows))
+    assert fused_mlp.plan_blocks(plan) == blocks == min(3, fused_mlp.blocks_per_sm(smem(rows)))
+    if rows < 64:  # twice the rows would cost a block
+        assert smem(2 * rows) > fused_mlp._SMEM_LIMIT or fused_mlp.blocks_per_sm(smem(2 * rows)) < blocks
+    # the plan at rows forced to 4 keeps the layout
+    assert fused_mlp._plan(H, mode, d_in, d_out, n_tan, dtype, rows=4) == (4, smem(4))
+
+
+def test_rhs_plan_forced_rows():
+    assert fused_mlp._plan(128, "hutchinson", 2, 2, rows=8) == (8, 4 * 8 * (2 * 2 * 132 + 4))
+    for rows in (6, 0, 260):
+        with pytest.raises(ValueError, match="multiple of 4"):
+            fused_mlp._plan(128, "hutchinson", 2, 2, rows=rows)
+    with pytest.raises(ValueError, match="multiple of 4"):  # 64 rows of 17 chains at H=128 do not fit
+        fused_mlp._plan(128, "exact", 16, 16, rows=64)
+
+
+# (features, mode, D, widest H in float32, widest H in highf32): at 4 rows
+# a block the highf32 plan keeps the activations' TF32 hi and lo planes
+# beside the pre-activations, three buffers where float32 has two, so its
+# widest hidden layer is about two thirds of float32's
+_ENVELOPE = [
+    (9, "exact", 6, 1032, 680),
+    (9, "hutchinson", 6, 3624, 2408),
+    (2, "exact", 2, 2416, 1608),
+    (2, "hutchinson", 2, 3624, 2416),
+]
+
+
+@pytest.mark.parametrize("n_features, mode, D, widest_float32, widest_highf32", _ENVELOPE)
+def test_rhs_envelope_widths(n_features, mode, D, widest_float32, widest_highf32):
+    for dtype, widest in (("float32", widest_float32), ("highf32", widest_highf32)):
+        assert fused_mlp.supports_features(n_features, mode, widest, D, dtype)
+        assert not fused_mlp.supports_features(n_features, mode, widest + 8, D, dtype)
+
+
+@pytest.mark.parametrize("H, D, with_cond, plan", [
+    (128, 2, False, (64, 67_584)), (128, 6, True, (64, 104_448)), (256, 6, True, (32, 101_376)),
+])
+def test_em_plan_keeps_its_rows(H, D, with_cond, plan):
+    """The EM kernel plans with rows_for as before: the RHS kernel's plan
+    of its own does not move it."""
+    assert em_sampler.em_plan(H, D, with_cond) == plan
+
+
+@pytest.mark.parametrize("D, C, H, plan", [(2, 0, 128, (32, 101_376)), (6, 3, 128, (32, 102_912)),
+                                           (6, 3, 256, (16, 101_120))])
+def test_training_plan_keeps_its_rows(D, C, H, plan):
+    """The training kernel's rows, and with them its per-block gradient
+    slots and so FitCheckpoint resume, do not move."""
+    assert fused_train.train_plan(nets.ScoreMLPConfig(n_dimensions=D, n_conditionals=C, units=(H,) * 3)) == plan

@@ -642,3 +642,57 @@ def test_fit_exact_resume_on_the_card(cuda_device, tmp_path, engine):
     assert all(torch.equal(a, b) for (_, a), (_, b) in zip(leaves_with_paths(m_res), leaves_with_paths(m_full)))
     for a, b in zip(r_res, r_full):
         assert list(a.train_losses) == list(b.train_losses)
+
+
+_RHS_NETS = [(2, 0, 128), (2, 0, 256), (6, 3, 128), (6, 3, 256)]
+
+
+def _rhs_launch_args(cuda_device, D, C, H, mode, B=1001):
+    """Operands of one RHS kernel launch on a random net, as the wrapper
+    prepares them: (x_in, e, w_in, b_eff, layers, c0c1, mode, D, n_tan)."""
+    cfg = ScoreMLPConfig(n_dimensions=D, n_conditionals=C, units=(H,) * 3)
+    params = init_score_mlp(cfg, torch.Generator().manual_seed(D + C + H), cuda_device)
+    g = torch.Generator().manual_seed(7)
+    x = torch.randn(B, D, generator=g).to(cuda_device)
+    cond = torch.randn(B, C, generator=g).to(cuda_device) if C else None
+    n_tan = 3 if mode == "tangents" else 0
+    e = {"hutchinson": torch.sign(torch.randn(B, D, generator=g)),
+         "tangents": torch.randn(B, n_tan * D, generator=g)}.get(mode)
+    w_in, b_eff = fused_mlp._score_first_layer(params, cfg, 0.4, cond)
+    x_in = x if cond is None else torch.cat([x, cond], -1)
+    c0c1 = torch.tensor([-0.2, 0.8], device=cuda_device)
+    return (x_in, None if e is None else e.to(cuda_device), w_in, b_eff, params["layers"], c0c1, mode, D, n_tan)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("compute_dtype", ["float32", "highf32"])
+@pytest.mark.parametrize("D, C, H", _RHS_NETS)
+def test_rhs_kernel_is_bitwise_across_plans(cuda_device, D, C, H, compute_dtype):
+    """A row's outputs do not depend on the plan: each mode's launch at its
+    own plan equals, bitwise, one forced to 4 rows a block (8 where the plan
+    has 4), on 1,001 ragged rows."""
+    for mode in ("forward", "hutchinson", "exact", "tangents"):
+        x_in, e, w_in, b_eff, layers, c0c1, mode, D_, n_tan = _rhs_launch_args(cuda_device, D, C, H, mode)
+        own = fused_mlp._plan(H, mode, D + C, D, n_tan, compute_dtype)
+        outs = [fused_mlp._launch(x_in, e, w_in, b_eff, layers, c0c1, mode, D, "silu", n_tan=n_tan,
+                                  compute_dtype=compute_dtype, rows=rows)
+                for rows in (None, 4 if own[0] != 4 else 8)]
+        torch.cuda.synchronize()
+        for a, b in zip(*outs):
+            if a is not None:
+                assert torch.equal(a, b), (mode, own)
+
+
+@pytest.mark.gpu
+def test_rhs_kernel_occupancy(cuda_device):
+    """Every plan of the cases above holds the blocks it plans for, with no
+    local memory a thread; the float32 flagship Hutchinson plan holds three
+    blocks an SM."""
+    for D, C, H in _RHS_NETS:
+        for mode in ("forward", "hutchinson", "exact", "tangents"):
+            for dt in ("float32", "highf32"):
+                plan = fused_mlp._plan(H, mode, D + C, D, 3 if mode == "tangents" else 0, dt)
+                occ = fused_mlp.occupancy(plan, dt)
+                assert occ["local_bytes"] == 0, (D, C, H, mode, dt, occ)
+                assert occ["blocks_per_sm"] == fused_mlp.plan_blocks(plan), (D, C, H, mode, dt, occ)
+    assert fused_mlp.occupancy(fused_mlp._plan(128, "hutchinson", 2, 2))["blocks_per_sm"] == 3

@@ -397,11 +397,11 @@ def test_blocks_an_sm_count_the_block_reserve():
     # the first version's flagship XTrace layout: one block of 32 rows, or
     # three of 16
     assert fused_sketch._pick_rows(lambda rows: 3_624 * rows) == (16, 3)
-    # the RHS, EM and training kernels keep their own plans (rows_for)
-    assert fused_mlp._plan(128, "hutchinson", 2, 2) == (32, 66_048)
-    assert fused_mlp._plan(128, "exact", 2, 2) == (32, 98_816)
-    assert fused_mlp._plan(128, "forward", 2, 2) == (64, 66_560)
-    assert fused_mlp._plan(128, "exact", 9, 6) == (16, 115_648)  # 64 bytes inside the two-block budget
+    # the RHS kernel plans with the same count (its own layout, padded rows)
+    assert fused_mlp._plan(128, "hutchinson", 2, 2) == (32, 68_096)
+    assert fused_mlp._plan(128, "exact", 2, 2) == (16, 50_944)
+    assert fused_mlp._plan(128, "forward", 2, 2) == (64, 68_608)
+    assert fused_mlp._plan(128, "exact", 9, 6) == (8, 59_616)
 
 
 @pytest.mark.parametrize("D", range(1, 10))
