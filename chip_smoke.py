@@ -32,7 +32,8 @@ non-zero without the final line):
         500, the conditional H=256, flow (mean over dims) and symplectic
         checkpoints, random width-100 tanh/relu/gelu nets; two chained calls
         with the EMA on at the JAX package's bars, 100 steps at rtol 1e-4 and
-        bitwise repeatable; CUDA-event times of a 48-step bs-512 epoch;
+        bitwise repeatable; CUDA-event times of a 48-step bs-512 epoch and
+        of the protocol's 195-step bs-128 epoch, with us a step;
      f. compute mode highf32 of fused_mlp.cu (3xTF32 on the tensor cores):
         fused_drift in every mode on the nets of 1a, fused_velocity, both
         tangents entries and the symplectic field, against their highf32
@@ -65,6 +66,15 @@ non-zero without the final line):
         forced to 4 rows (8 where the plan has 4) on the 50,000-row
         flagship inputs (forward, hutchinson, exact, tangents K = 3) and the
         conditional H=256 Hutchinson inputs: bitwise equal in both modes;
+     j. the training kernel's plans: rows, bytes, grid, the row and
+        parameter tiles, the blocks an SM, registers and local memory a
+        thread (none) of every plan of 1e and 10 (the flagship at bs 128,
+        500 and 512, the conditional H=256, the flow and a symplectic stack
+        at bs 512); each launch at its own plan against the same launch
+        forced to other rows a block (4, or 8 where the plan has 4, so
+        another row tile a thread; and 32, where the flagship's net no
+        longer fits beside the rows and is staged in k-chunks) and to a
+        17-block grid: params, moments, EMA and losses bitwise equal;
   2. the likelihood path, flagship model (benchmarks/flagship_ckpt.npz):
      the exact-trace ``log_prob`` at its defaults against the analytic
      mixture density; Hutchinson at rtol 1e-5 with the PI controller through
@@ -99,7 +109,7 @@ non-zero without the final line):
      still give an exact-trace density error <= 3e-3; (c) a run stopped by
      max_epochs_total and resumed ends bitwise where the uninterrupted run
      ends, both engines; (d) fit(engine='auto') on the conditional H=256,
-     flow and symplectic checkpoints; a profiled fused epoch;
+     flow and symplectic checkpoints; a profiled fused epoch of each stage;
   11. the main path in highf32 (the bench.py configuration): the flagship
      Hutchinson log_prob at rtol 1e-5 PI against the plain path (equal NFE,
      mean |dlogp| <= 5e-4), rows/s at 50,000 and 1,000,000 rows beside the
@@ -126,11 +136,13 @@ result when no CUDA card is visible.
 
     python3 chip_smoke.py --parent DIR   # the kernels against a parent's
 
-A/Bs this tree's RHS and sketch kernels against the ``flowfusion_torch``
-package of a parent commit unpacked in DIR (``git archive <commit>
-flowfusion_torch | tar -x -C DIR``), in one process: launches bitwise and
-timed in turns, the Hutchinson solves, ``sample_sde`` and the sketch solves
-in turns (see ``parent_ab``).
+A/Bs this tree's RHS, sketch and training kernels against the
+``flowfusion_torch`` package of a parent commit unpacked in DIR (``git
+archive <commit> flowfusion_torch | tar -x -C DIR``), in one process: RHS
+and sketch launches bitwise and timed in turns, the Hutchinson solves,
+``sample_sde`` and the sketch solves in turns; training epochs held to the
+plain version and timed in turns, the flagship protocol through ``fit`` in
+turns (see ``parent_ab``).
 """
 
 from __future__ import annotations
@@ -852,11 +864,23 @@ def main() -> int:
 
     train_timing = {}
     tabs, _ = train_data("flagship", 48, 512, gen(48))
-    plan = fused_train.train_plan(flag_cfg)
+    plan = fused_train.train_plan(flag_cfg, 512)
     state = packed_state(flag_params["layers"], flag_cfg)
     train_ms = median_ms(lambda: fused_train.launch_packed(
         flag_cfg, plan, tabs["xt"], tabs["zw"], tabs["t"], tabs["beta"], None, flag_params["W"], *state, 0, 1e-4,
         0.9, 0.999, 1e-8, 0.999, 1 / 512), n=15)
+    # the protocol's first stage: a 195-step epoch at bs 128, beside it
+    tabs128, _ = train_data("flagship", 195, 128, gen(195))
+    plan128 = fused_train.train_plan(flag_cfg, 128)
+    train128_ms = median_ms(lambda: fused_train.launch_packed(
+        flag_cfg, plan128, tabs128["xt"], tabs128["zw"], tabs128["t"], tabs128["beta"], None, flag_params["W"],
+        *state, 0, 1e-3, 0.9, 0.999, 1e-8, 0.999, 1 / 128), n=15)
+    emit("train_kernel_time", entry="fused_train_epoch[float32]", net="flagship", rows=128, steps=195, ema=True,
+         card=smi, ms=train128_ms, us_per_step=train128_ms / 195 * 1e3, plan=list(plan128),
+         grid=fused_train.launch_grid(dev, plan128, 128),
+         **bound(fused_train.train_flops(flag_cfg, 195, 128),
+                 4 * (195 * 128 * (2 * 2 + 2) + 8 * real_params(flag_params["layers"]) + flag_params["W"].numel()
+                      + 195)))
     train_plain_ms = median_ms(lambda: fused_train.fused_train_epoch_reference(
         flag_params, flag_cfg, lr=1e-4, ema_decay=0.999, **tabs), n=3, warmup=1)
     n_flag = real_params(flag_params["layers"])
@@ -866,11 +890,11 @@ def main() -> int:
                                                       **bound(train_flops, train_bytes))
     emit("train_kernel_time", entry="fused_train_epoch[float32]", net="flagship", rows=512, steps=48, ema=True,
          card=smi, **train_timing["fused_train_epoch[float32]"], flops=train_flops, bytes=train_bytes,
-         grid=fused_train.launch_grid(dev, *plan, 512), rows_per_block=plan[0], us_per_step=train_ms / 48 * 1e3)
+         grid=fused_train.launch_grid(dev, plan, 512), plan=list(plan), us_per_step=train_ms / 48 * 1e3)
 
     tabs, _ = train_data("symplectic", 48, 512, gen(49))
     half_cfg = fused_train._sympl_half_cfg(sym_model.net)
-    sym_plan = fused_train.train_plan(half_cfg)
+    sym_plan = fused_train.train_plan(half_cfg, 512)
     sym_states = [(packed_state(fused_train._sympl_perm_layer0(sym_model.params[s], 2, 0, 8, False), half_cfg),
                    tabs[f"xt_{s[0]}"], tabs[f"zw_{s[0]}"], torch.full_like(tabs["t"], sign))
                   for s, sign in (("q_layers", 1.0), ("p_layers", -1.0))]
@@ -1355,6 +1379,53 @@ def main() -> int:
             check(all(same), f"RHS {name} {dt}: the {forced}-row plan differs from {list(own)}")
             emit("rhs_plan_invariance", case=name, rows=50_000, compute_dtype=dt, own_plan=list(own),
                  forced_rows=forced, bitwise=same)
+
+    # -- phase 1j: the training kernel's plans on the card, and a launch
+    # against its plan.  Every plan phases 1e and 10 run (the flagship at bs
+    # 128, 500 and 512, the conditional H=256, the flow and a symplectic
+    # stack at bs 512): rows, bytes, grid, blocks an SM, registers and local
+    # memory a thread (none).  Then each launch at its own plan against the
+    # same launch forced to other rows a block (4, or 8 where the plan has 4;
+    # and 32: k-chunk staging for the flagship, whose own plan stages the
+    # whole net) and to a grid of 17 blocks, 6 steps with the EMA on:
+    # params, moments, EMA and losses bitwise equal.
+    p_h256, cfg_h256 = cond256
+    plan_cases = [(f"flagship bs {B}", "flagship", flag_params["layers"], flag_params["W"], flag_cfg, B, 1 / B)
+                  for B in (128, 500, 512)]
+    plan_cases += [("conditional_ckpt_h256.npz", "conditional", p_h256["layers"], p_h256["W"], cfg_h256, 512, 1 / 512),
+                   ("flow_ckpt.npz", "flow", flow_params["layers"], None, flow_cfg, 512, 1 / (512 * 2)),
+                   ("symplectic_ckpt.npz q stack", "symplectic",
+                    fused_train._sympl_perm_layer0(sym_model.params["q_layers"], 2, 0, 8, False), sym_model.params["W"],
+                    half_cfg, 512, 1 / (512 * 4))]
+    for name, kind, layers, W, cfg, B, inv in plan_cases:
+        tabs, cond = train_data(kind, 6, B, gen(B + 31))
+        if kind == "symplectic":
+            tabs = dict(xt=tabs["xt_q"], zw=tabs["zw_q"], t=tabs["t"], beta=torch.ones_like(tabs["t"]))
+        own = fused_train.train_plan(cfg, B)
+        occ = fused_train.occupancy(own)
+        grid = fused_train.launch_grid(dev, own, B)
+        check(occ["local_bytes"] == 0, f"training kernel keeps {occ['local_bytes']} bytes a thread in local memory")
+        forced = [fused_train.train_plan(cfg, B, rows=r) for r in (4 if own[0] != 4 else 8, 32)]
+        check(all(f != own for f in forced), f"training kernel {name}: a forced plan equals its own {list(own)}")
+        outs = []
+        for plan_, grid_ in [(own, None)] + [(f, None) for f in forced] + [(own, 17)]:
+            st_ = packed_state(layers, cfg)
+            loss_ = fused_train.launch_packed(cfg, plan_, tabs["xt"], tabs["zw"], tabs["t"], tabs["beta"], cond, W, *st_,
+                                              0, 1e-3, 0.9, 0.999, 1e-8, 0.99, inv, grid=grid_)
+            outs.append(st_ + [loss_])
+        torch.cuda.synchronize()
+        same = [all(torch.equal(a, b) for a, b in zip(outs[0], o)) for o in outs[1:]]
+        check(all(same), f"training kernel {name}: a launch at {[list(f) for f in forced]} or 17 blocks differs "
+                         f"from its own plan {list(own)}")
+        emit("train_plan", case=name, rows=B, plan=list(own), grid=grid, row_tiles=-(-B // own[0]),
+             param_tiles=len(fused_train.param_tiles(*fused_train._dims(cfg))),
+             staged_floats=fused_train.plan_wbuf(cfg, own),
+             resident=fused_train.plan_wbuf(cfg, own) == fused_train._staged_floats(*fused_train._dims(cfg)),
+             **{k: occ[k] for k in ("blocks_per_sm", "registers", "local_bytes")},
+             forced_plans=[list(f) for f in forced],
+             forced_resident=[fused_train.plan_wbuf(cfg, f) == fused_train._staged_floats(*fused_train._dims(cfg))
+                              for f in forced],
+             bitwise_forced=same[:2], bitwise_grid17=same[2])
 
     # -- phases 2-4: the likelihood path, launches counted from zero -------
     reset_counts()
@@ -1855,15 +1926,17 @@ def main() -> int:
         families[name] = dict(launches=n_d, seconds=secs_d, train_losses=r_d[0].train_losses.tolist())
     emit("train_families", epochs=3, batch=512, rows=20_000, **families)
 
-    # where the time of a fused epoch goes: one (512, 1e-4) epoch of the
-    # protocol (tables on the card, one launch, no validation), profiled
-    def one_epoch():
-        return train_lib.fit(pop0, cuda_gen(1005), x_tr, stages=[(512, 1e-4)], epochs_per_stage=1)
+    # where the time of a fused epoch goes: one epoch of each of the
+    # protocol's stages, (128, 1e-3) and (512, 1e-4) (tables on the card,
+    # one launch, no validation), profiled
+    for batch, lr_ in ((128, 1e-3), (512, 1e-4)):
+        def one_epoch():
+            return train_lib.fit(pop0, cuda_gen(1005), x_tr, stages=[(batch, lr_)], epochs_per_stage=1)
 
-    epoch_s = statistics.median([timed(one_epoch, lambda: 0)[2] for _ in range(5)])
-    _, prof_stats = profiled(one_epoch, "fused_train", epoch_s)
-    emit("train_epoch_profile", rows=n_tr, batch=512, steps=n_tr // 512, seconds_unprofiled_median=epoch_s,
-         profile=prof_stats or "not measured: the profiler saw no CUDA time")
+        epoch_s = statistics.median([timed(one_epoch, lambda: 0)[2] for _ in range(5)])
+        _, prof_stats = profiled(one_epoch, "fused_train", epoch_s)
+        emit("train_epoch_profile", rows=n_tr, batch=batch, steps=n_tr // batch, seconds_unprofiled_median=epoch_s,
+             profile=prof_stats or "not measured: the profiler saw no CUDA time")
     train_counts = read_counts()
     for key in ("fused_train_epoch[float32]", "fused_train_epoch_symplectic"):
         check(train_counts[key] > 0, f"{key} was never launched on the training path")
@@ -2220,8 +2293,8 @@ def main() -> int:
 
 
 def parent_ab(parent_dir: str) -> int:
-    """This tree's RHS and sketch kernels against a parent commit's, in one
-    process on one card.  ``parent_dir`` holds the parent's package
+    """This tree's RHS, sketch and training kernels against a parent
+    commit's, in one process on one card.  ``parent_dir`` holds the parent's package
     (``git archive <commit> flowfusion_torch | tar -x -C DIR``); it is
     imported under another name and builds its own library under DIR.
 
@@ -2244,8 +2317,17 @@ def parent_ab(parent_dir: str) -> int:
     above.  Solves through the models with each side's fused_drift: the
     flagship Hutchinson solve at 50,000 (ten pairs) and 1,000,000 rows (four
     pairs) in both modes and sample_sde at 50,000 (ten pairs), a warm-up of
-    each: NFE equal and outputs bitwise equal.  One JSON line a comparison;
-    exits 2 without a card, 1 when a check fails."""
+    each: NFE equal and outputs bitwise equal.
+
+    The training kernel: the flagship at bs 512 x 48 steps and bs 128 x
+    195, the conditional H = 256 net at bs 512 x 48 and the symplectic pair
+    (two launches), each side held to the plain version at phase 1e's bars
+    on 8 chained steps, the two kernels' largest difference after the whole
+    launch printed (their sums run in other orders), timed in turns as
+    above; the flagship protocol of phase 10 through ``fit`` with each
+    side's ``fused_train_epoch``, a warm-up of each, then five pairs in
+    turns.  One JSON line a comparison; exits 2 without a card, 1 when a
+    check fails."""
     import contextlib
     import importlib
     import importlib.util
@@ -2490,6 +2572,149 @@ def parent_ab(parent_dir: str) -> int:
              mean_abs_dlogp=float((res["tree"][0] - res["parent"][0]).abs().mean()),
              parent_seconds=med["parent"], tree_seconds=med["tree"], tree_over_parent=med["tree"] / med["parent"],
              tree_faster_pairs=sum(t < p for t, p in zip(secs["tree"], secs["parent"])), seconds_runs=secs)
+    # the training kernel: the flagship at bs 512 x 48 steps and bs 128 x
+    # 195, the conditional H = 256 net at bs 512 x 48 and the symplectic
+    # pair (two launches) at bs 512 x 48, on tables drawn from a seed.  Each
+    # side is held to the plain version at the JAX package's bars on the
+    # first 8 steps (two chained calls of 4, EMA on: losses rtol 1e-5, layers
+    # 3e-5 after one call and 5e-5 chained, symplectic 3e-4), the two
+    # kernels' largest difference after a whole epoch through the wrappers
+    # is printed, and the launches alone, on state packed once at each
+    # side's own plan, are timed in turns (p t t p, three times; medians of
+    # 15)
+    from flowfusion_torch import train as train_lib
+    from flowfusion_torch.kernels import fused_train
+    from flowfusion_torch.models.nets import SymplecticMLPConfig
+    from flowfusion_torch.utils.data import standardization_stats, train_val_test_split
+
+    train_kernels = {"parent": importlib.import_module("parent_flowfusion_torch.kernels.fused_train"),
+                     "tree": fused_train}
+    old_nets = importlib.import_module("parent_flowfusion_torch.models.nets")
+
+    def cfg_of(which, cfg):
+        """``cfg`` as ``which`` side's config class."""
+        return cfg if which == "tree" else getattr(old_nets, type(cfg).__name__)(**dataclasses.asdict(cfg))
+
+    def state_max_err(a, b):
+        return max(float((x - y).abs().max()) for k in ("layers", "q_layers", "p_layers") if k in a
+                   for la, lb in zip(a[k], b[k]) for x, y in zip(la.values(), lb.values()))
+
+    def train_tables(steps, bs, D, C, seed, sympl=False):
+        g = gen(seed)
+        names = ("xt_q", "zw_q", "xt_p", "zw_p") if sympl else ("xt", "zw")
+        out = {k: torch.randn(steps, bs, D, generator=g).to(dev) for k in names}
+        out["t"] = (torch.rand(steps, bs, generator=g) * 0.999 + 1e-3).to(dev)
+        if not sympl:
+            out["beta"] = (torch.rand(steps, bs, generator=g) + 0.5).to(dev)
+        out["conditional"] = torch.randn(steps, bs, C, generator=g).to(dev) if C else None
+        return out
+
+    def launches_of(which, cfg, params, tab, sympl):
+        """The timed call of one side: its launches alone (two for the
+        symplectic pair) on state packed once, at the side's own plan."""
+        mod = train_kernels[which]
+        bs = tab["t"].shape[1]
+        if sympl:
+            half = fused_train._sympl_half_cfg(cfg)
+            stacks = [(fused_train._sympl_perm_layer0(params[k], cfg.n_data_dims, cfg.n_conditionals,
+                                                      cfg.embedding_dimensions, False), tab[f"xt_{k[0]}"],
+                       tab[f"zw_{k[0]}"], torch.full_like(tab["t"], sign))
+                      for k, sign in (("q_layers", 1.0), ("p_layers", -1.0))]
+            inv = 1.0 / (bs * 2 * cfg.n_data_dims)
+        else:
+            half = cfg
+            stacks = [(params["layers"], tab["xt"], tab["zw"], tab["beta"])]
+            inv = 1.0 / bs
+        side_cfg = cfg_of(which, half)
+        plan = mod.train_plan(side_cfg) if which == "parent" else mod.train_plan(side_cfg, bs)
+        K, H, _, D = fused_train._dims(half)
+        calls = []
+        for layers, xt, zw, beta in stacks:
+            flat = fused_train._pack([(l["w"], l["b"]) for l in layers], K, H, D)
+            state = [flat, torch.zeros_like(flat), torch.zeros_like(flat), flat.clone()]
+            calls.append((xt, zw, beta, state))
+        return lambda: [mod.launch_packed(side_cfg, plan, xt, zw, tab["t"], beta, tab["conditional"], params["W"], *st,
+                                          0, 1e-4, 0.9, 0.999, 1e-8, 0.999, inv) for xt, zw, beta, st in calls]
+
+    train_cases = [("flagship bs 512 x 48", flag_cfg, flag, 512, 48, 0),
+                   ("flagship bs 128 x 195", flag_cfg, flag, 128, 195, 0),
+                   ("conditional H=256 bs 512 x 48", ScoreMLPConfig(n_dimensions=6, n_conditionals=3, units=(256,) * 3),
+                    p256, 512, 48, 3),
+                   ("symplectic pair bs 512 x 48", sym.net, sym.params, 512, 48, 0)]
+    for name, cfg, params, bs, steps, C in train_cases:
+        sympl = isinstance(cfg, SymplecticMLPConfig)
+        tab = train_tables(steps, bs, 6 if C else 2, C, 300 + bs + steps, sympl)
+        halves = [{k: None if v is None else v[sl] for k, v in tab.items()} for sl in (slice(0, 4), slice(4, 8))]
+        outs, errs = {}, {}
+        for which, mod in train_kernels.items():
+            fn = mod.fused_train_epoch_symplectic if sympl else mod.fused_train_epoch
+            ref = fused_train.fused_train_epoch_symplectic_reference if sympl else fused_train.fused_train_epoch_reference
+            res = {}
+            for key, f, c in (("kernel", fn, cfg_of(which, cfg)), ("plain", ref, cfg)):
+                o1 = f(params, c, None, lr=1e-3, ema_decay=0.99, **halves[0])
+                o2 = f(o1[0], c, o1[1], lr=1e-3, ema=o1[2], ema_decay=0.99, **halves[1])
+                res[key] = (o1, o2)
+            (k1, k2), (r1, r2) = res["kernel"], res["plain"]
+            loss_rel = max(float(((o[3] - r[3]).abs() / r[3].abs()).max()) for o, r in ((k1, r1), (k2, r2)))
+            first = state_max_err(k1[0], r1[0])
+            chained = max(state_max_err(k2[0], r2[0]), state_max_err(k2[2], r2[2]))
+            bars = (3e-4, 3e-4) if sympl else (3e-5, 5e-5)
+            if loss_rel > 1e-5 or first > bars[0] or chained > bars[1]:
+                failed.append(f"training {name} ({which}): vs plain losses {loss_rel:.2e}, layers {first:.2e} / "
+                              f"{chained:.2e}")
+            errs[which] = dict(loss_rel=loss_rel, layers_first=first, layers_chained=chained)
+            outs[which] = fn(params, cfg_of(which, cfg), None, lr=1e-4, ema_decay=0.999, **tab)
+        torch.cuda.synchronize()
+        diff = dict(layers=state_max_err(outs["tree"][0], outs["parent"][0]),
+                    ema=state_max_err(outs["tree"][2], outs["parent"][2]),
+                    loss_rel=float(((outs["tree"][3] - outs["parent"][3]).abs() / outs["parent"][3].abs()).max()))
+        fns = {which: launches_of(which, cfg, params, tab, sympl) for which in train_kernels}
+        runs = {"parent": [], "tree": []}
+        for i in range(3):
+            for k in ("parent", "tree", "tree", "parent") if i % 2 == 0 else ("tree", "parent", "parent", "tree"):
+                runs[k].append(median_ms(fns[k]))
+        ms = {k: statistics.median(v) for k, v in runs.items()}
+        emit("parent_ab_train_launch", case=name, rows=bs, steps=steps, card=smi,
+             plans={"tree": list(fused_train.train_plan(fused_train._sympl_half_cfg(cfg) if sympl else cfg, bs)),
+                    "parent": list(train_kernels["parent"].train_plan(
+                        cfg_of("parent", fused_train._sympl_half_cfg(cfg) if sympl else cfg)))},
+             vs_plain=errs, tree_vs_parent=diff, parent_ms=ms["parent"], tree_ms=ms["tree"],
+             tree_over_parent=ms["tree"] / ms["parent"], us_per_step={k: v / steps * 1e3 for k, v in ms.items()},
+             runs_ms=runs)
+
+    # phase 10's flagship protocol through fit(engine='auto') with each
+    # side's fused_train_epoch: a warm-up of each, then five pairs, each side
+    # first in turn; walls and the last validation losses
+    g_data = gen(2024)
+    x_tr, x_va, _ = train_val_test_split(g_data, DEMO_GMM.sample(g_data, 100_000, device=dev))
+    shift_tr, scale_tr = standardization_stats(x_tr)
+    pop0 = PopulationModelDiffusion.create(VESDE(), n_dimensions=2, units=(128, 128, 128), shift=shift_tr,
+                                           scale=scale_tr, generator=gen(7), device=dev)
+    protocol = dict(stages=((128, 1e-3), (512, 1e-4)), epochs_per_stage=5, ema_decay=0.999)
+
+    def parent_epoch(params, cfg, opt_state=None, **kw):
+        return train_kernels["parent"].fused_train_epoch(params, cfg_of("parent", cfg), opt_state, **kw)
+
+    walls, last_val = {"parent": [], "tree": []}, {}
+    saved = train_lib.fused_train_epoch
+    for i in range(6):
+        for which in ("tree", "parent") if i % 2 == 0 else ("parent", "tree"):
+            train_lib.fused_train_epoch = parent_epoch if which == "parent" else saved
+            try:
+                torch.cuda.synchronize()
+                t_start = time.perf_counter()
+                _, res = train_lib.fit(pop0, torch.Generator(device=dev).manual_seed(1000), x_tr, x_val=x_va, **protocol)
+                torch.cuda.synchronize()
+            finally:
+                train_lib.fused_train_epoch = saved
+            if i > 0:
+                walls[which].append(time.perf_counter() - t_start)
+            last_val[which] = float(res[-1].val_losses[-1])
+    med = {k: statistics.median(v) for k, v in walls.items()}
+    emit("parent_ab_train_fit", protocol="flagship, (128, 1e-3), (512, 1e-4) x 5 epochs", card=smi,
+         parent_seconds=med["parent"], tree_seconds=med["tree"], tree_over_parent=med["tree"] / med["parent"],
+         tree_faster_pairs=sum(t < p for t, p in zip(walls["tree"], walls["parent"])), seconds_runs=walls,
+         val_loss_last=last_val)
     for msg in failed:
         print(f"chip_smoke: {msg}", file=sys.stderr)
     return 1 if failed else 0
@@ -2500,7 +2725,7 @@ def cli() -> int:
 
     ap = argparse.ArgumentParser(description="Drive flowfusion_torch's main path on one CUDA card and check it.")
     ap.add_argument("--parent", metavar="DIR",
-                    help="instead, A/B this tree's RHS and sketch kernels against the flowfusion_torch package "
+                    help="instead, A/B this tree's RHS, sketch and training kernels against the flowfusion_torch package "
                          "in DIR")
     args = ap.parse_args()
     return parent_ab(args.parent) if args.parent else main()

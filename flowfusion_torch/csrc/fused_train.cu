@@ -5,8 +5,13 @@
 // (fused_train.py:751) and, one launch a stack, fused_train_epoch_symplectic
 // (fused_train.py:466), compute mode float32: strict IEEE fp32 on the CUDA
 // cores.  Build without --use_fast_math: sigmoid goes through expf, gelu
-// through erff, the embedding through sinf/cosf, Adam through sqrtf and the
-// bias corrections through expf/logf.
+// through erff, Adam through sqrtf and the bias corrections through
+// expf/logf, the Fourier features through sinf/cosf.  Those features
+// [sin(2 pi t W) | cos(2 pi t W)] of score nets are computed for every row of
+// every step by a small kernel of their own (fourier_table_kernel), launched
+// on the same stream just before the training kernel: sinf's slow-path range
+// reduction keeps a 32-byte local array a thread, which the training kernel,
+// at one block an SM and 0 local bytes, does without.
 //
 // What it computes, step s = 0 .. steps-1, for the per-step tables
 // xt, zw (steps, bs, D), t, beta (steps, bs), cond (steps, bs, C):
@@ -22,36 +27,68 @@
 //   EMA of the updated parameters: ema = d ema + (1-d) p.
 // The Fourier W is an input only.
 //
-// What bounds it on this card: fp32 FMA throughput in principle, 3 x 2 H (K +
-// (n_hidden - 1) H + D) flops a row a step (fused_train.py:705-717), 105 MFLOP a
-// step for the flagship net at bs 512 (1.57 us at 67 TFLOP/s), against ~35k
-// parameters of state.  In practice the serial chain of a step sets the time:
-// its forward layer products, the backward's delta and weight-gradient
-// products, two grid barriers and the Adam pass all depend on each other, and
-// a bs 512 batch gives only bs / R row tiles to spread over the card.
+// What bounds a step on this card.  Its flops, 3 x 2 H (K + (n_hidden - 1) H
+// + D) a row (fused_train.py:705-717), are 105 MFLOP for the flagship net at
+// bs 512, 1.57 us at 67 TFLOP/s; but a step is a serial chain (the forward's
+// layer products, the backward's delta products, the weight gradients, Adam)
+// and the next step's forward needs this step's Adam, so a step is as fast
+// as its chain on the busiest SM plus two grid barriers.  The first version
+// took 88.6 us a step at bs 512 (a clock64-stamped copy on the H100,
+// 175k cycles at 1.98 GHz): it planned 32 rows a block, so 16 of 132 SMs
+// worked at bs 512 and 4 at bs 128; each busy block spent 12% of a step in
+// each hidden forward product and 16% in each delta product (half its
+// threads held outputs, every row group re-read the weights from L2), 9% in
+// the output layer on 4 threads, 13% in per-block weight gradients, and
+// 5-8% in phase B and the two barriers.  This design takes ~55k cycles a
+// bs-512 step (same stamping): staging the net 18% (L2 bandwidth: 145 KB a
+// block a step), the forward 27%, the delta products 14%, phase B 24%, the
+// barriers' waits 10%.
 //
-// What the design does (a simple one that is right):
-//   * one persistent cooperative launch for the whole call: the grid is no
-//     larger than the card holds at once, and cooperative_groups' grid barrier
-//     separates the two phases of every step;
-//   * phase A, rows: blocks stride over row tiles of R rows (R from the port's
-//     shared row policy, fused_mlp.rows_for); a block runs forward, loss and
-//     backward of its tile in shared memory and writes its weight and bias
-//     gradients into its own slot of a global [slots, n_param] buffer (a block
-//     with several tiles adds them in tile order) and one loss partial — no
-//     float atomics, so a launch's result does not depend on scheduling;
-//   * phase B, parameters: the grid's threads stride over the parameters; each
-//     sums the slots in order, then runs Adam and the EMA; block 0 sums the
-//     loss partials in order into loss[s];
-//   * parameters, moments and the EMA live in one flat buffer each (per layer:
-//     the (K_l, N_l) weight, row-major, then the bias), padded so K, H and D are
-//     multiples of 4; padded rows and columns get exactly zero gradient and stay
-//     zero, and rows past bs in the last tile are masked (zero loss, zero
-//     delta);
-//   * parameters are rewritten inside the launch, so every read of them goes
-//     through __ldcg (L2, coherent across SMs), never the read-only path.
-// The layer products use an 8-row by 4-column register tile per thread (4 rows
-// for plans that fit only at 4 rows a block), as mlp_tile.cuh::dense does.
+// What the design does about it.
+//   * One persistent cooperative launch for the whole call (the grid no
+//     larger than the card holds at once); cooperative_groups' grid barrier
+//     separates the two phases of every step.
+//   * Phase A, rows: the plan (kernels/fused_train.py::train_plan) takes the
+//     fewest rows a block among those that give the busiest of 132 SMs the
+//     fewest row tiles: 4 rows at bs 512 (128 row tiles), 1 at bs 128 (8 or
+//     2 rows measured slower).  A block runs forward, loss and backward of
+//     its tile in shared memory and writes each row's layer inputs h_l,
+//     deltas delta_l and loss into a global workspace (bs rows): no
+//     gradient leaves phase A, and phase A keeps no reduction tree.
+//   * Layer products give every thread outputs: a thread owns RT rows of one
+//     output column (forward) or one input column (delta product), RT the
+//     most of 4, 2, 1 that still gives a block 256 items, so all 256 threads
+//     hold outputs from 2 rows a block up; the output layer is one thread an
+//     output.  The activation runs in the forward product's epilogue and
+//     keeps act'.  Cells are walked without a division a cell.
+//   * The weights do not change during phase A: a block stages the whole net
+//     into shared memory with cp.async (cg: through L2, which holds this
+//     step's parameters) at the top of the step, one group a layer, and
+//     each forward product waits for its own layer; the delta products read
+//     the same copy, rows N + 4 floats apart (conflict-free float4 reads
+//     down k).  Where the net does not fit beside the row tile (conditional
+//     H = 256), each layer is staged in k-chunks before each product.
+//     Direct __ldcg reads of the weights were 1.3-2.3x slower a launch,
+//     and are not kept.  TMA bulk copies, one a weight row on a layer's mbarrier, were
+//     1.23-1.35x slower than cp.async and are not used.
+//   * Phase B, parameters: the grid strides over tiles of the parameters,
+//     16 weight rows by 32 columns or a bias row by 32 (the wrapper's tile
+//     map, largest first: 89 tiles for the flagship net, so no block takes
+//     two).  A block streams the tile's h and delta columns of every row
+//     through two shared-memory buffers by cp.async; warp c sums over the
+//     rows of fixed chunk c (ceil(bs / 8) rows), a lane a 4 k by 4 n
+//     register tile, one fmaf chain a parameter in row order; the 8 chunk
+//     partials are added in chunk order, then Adam and the EMA run in the
+//     same pass, their operands loaded before the sums.  Eight threads of
+//     the last block sum the per-row losses the same way.  Every read of
+//     data written inside the launch goes through __ldcg or cp.async.cg.
+// The invariant: no sum's order depends on the plan.  Each row's forward and
+// delta chains are one fmaf chain over k (n) from 0, then + bias (* act');
+// each parameter's gradient and the loss are summed in an order fixed by bs
+// alone.  So a launch is bitwise equal to the same launch at any other rows
+// a block, grid or staging.  Padded rows and columns (K, H, D to multiples
+// of 4) get exactly zero gradient and stay zero; rows past bs in the last
+// tile are never written to the workspace.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -63,6 +100,17 @@ namespace {
 using namespace ffk;
 namespace cg = cooperative_groups;
 
+// Phase B: the batch sums run in kChunks fixed row chunks, a warp each; a
+// lane owns a 4 k by 4 n register tile of a parameter tile (kTileItems such
+// items at most: 16 rows by 32 columns).
+constexpr int kChunks = kThreads / 32;
+constexpr int kTileItems = 32;
+constexpr int kWPad = 4;  // floats past N in a staged weight row
+// The least shared floats a block has before its staged weights: phase B's
+// partials (16 a thread), then two buffers of at least 42 rows of its
+// widest tile row (16 k + 32 n).
+constexpr int kPartials = 16 * kThreads;
+constexpr int kPhaseBFloats = 2 * kPartials;
 constexpr float kTwoPi = 6.28318548f;  // float32(2 pi), as the plain version rounds it
 
 struct TrainArgs {
@@ -71,15 +119,17 @@ struct TrainArgs {
   const float* t;
   const float* beta;
   const float* cond;  // null without conditionals
-  const float* wemb;  // (E2,) Fourier weights; null for velocity nets
+  const float* temb;  // (steps, bs, 2 E2) Fourier features (fourier_table_kernel); null for velocity nets
+  const int* tiles;   // (n_ptiles, 5): layer, k0, kc, n0, nc
   float* p;
   float* m;
   float* v;
-  float* ema;  // null without EMA
-  float* partial;    // (n_slots, n_param)
-  float* loss_part;  // (n_slots,)
-  float* loss;       // (steps,)
-  int steps, bs, D, C, E2, K, H, n_hidden, Dp, act, R, n_slots, step0, n_tiles, n_param;
+  float* ema;      // null without EMA
+  float* ws_h;     // (bs, K + n_hidden H): each row's layer inputs
+  float* ws_d;     // (bs, n_hidden H + Dp): each row's layer deltas
+  float* ws_loss;  // (bs,): each row's sum of squared residuals
+  float* loss;     // (steps,)
+  int steps, bs, D, C, E2, K, H, n_hidden, Dp, act, R, step0, n_tiles, n_ptiles, acts, wbuf;
   float lr, beta1, beta2, eps, ema_decay, inv;
 };
 
@@ -95,170 +145,258 @@ __device__ int weight_offset(const TrainArgs& a, int l) {
   return off;
 }
 
-// out[r] = in[r] @ w + b for R rows: (K, N) weight row-major, K and N
-// multiples of 4.  A thread owns RT rows by 4 columns.
+// Offset of layer l's weight in the staged copy of the whole net.
+__device__ int staged_offset(const TrainArgs& a, int l) {
+  int off = 0;
+  for (int i = 0; i < l; ++i) off += layer_in(a, i) * (layer_out(a, i) + kWPad);
+  return off;
+}
+
+// A thread's walk over the (r, c) cells of a grid of `cols` columns,
+// kThreads cells apart, with no division a cell.
+struct Walk {
+  int r, c, dr, dc, cols;
+  __device__ explicit Walk(int n) : cols(n) {
+    r = threadIdx.x / n;
+    c = threadIdx.x - r * n;
+    dr = kThreads / n;
+    dc = kThreads - dr * n;
+  }
+  __device__ void next() {
+    r += dr;
+    c += dc;
+    if (c >= cols) {
+      c -= cols;
+      ++r;
+    }
+  }
+};
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Wait until at most n committed cp.async groups of this thread are pending
+// (more than 7: at most 7, which waits longer).
+__device__ __forceinline__ void cp_async_wait_pending(int n) {
+  switch (n) {
+    case 0: asm volatile("cp.async.wait_group 0;\n" ::: "memory"); break;
+    case 1: asm volatile("cp.async.wait_group 1;\n" ::: "memory"); break;
+    case 2: asm volatile("cp.async.wait_group 2;\n" ::: "memory"); break;
+    case 3: asm volatile("cp.async.wait_group 3;\n" ::: "memory"); break;
+    case 4: asm volatile("cp.async.wait_group 4;\n" ::: "memory"); break;
+    case 5: asm volatile("cp.async.wait_group 5;\n" ::: "memory"); break;
+    case 6: asm volatile("cp.async.wait_group 6;\n" ::: "memory"); break;
+    default: asm volatile("cp.async.wait_group 7;\n" ::: "memory");
+  }
+}
+
+// Rows [k0, k1) of a row-major (., N) weight into dst at row stride
+// N + kWPad, by cp.async; the caller waits.
+__device__ void stage_rows(const float* w, int N, int k0, int k1, float* dst) {
+  const int q = N >> 2;
+  for (Walk g(q); g.r < k1 - k0; g.next())
+    cp_async16(dst + g.r * (N + kWPad) + 4 * g.c, w + (size_t)(k0 + g.r) * N + 4 * g.c);
+}
+
+// out[r][n] (row stride N) of in[r] @ w for R rows (in of row stride K),
+// k over [kb, ke): w holds those weight rows in shared memory at row stride
+// ws.  `first`
+// starts each chain at 0, else it continues from out; `last` adds the bias
+// and, for act >= 0, applies the activation and keeps act' in dh.  A thread
+// owns RT rows of one column.
 template <int RT>
-__device__ void fwd_dense(const float* w, const float* b, const float* in, int in_stride, float* out,
-                          int out_stride, int K, int N, int R) {
-  const int col_groups = N / 4;
-  const int items = (R / RT) * col_groups;
-  for (int it = threadIdx.x; it < items; it += blockDim.x) {
-    const int j0 = (it % col_groups) * 4;
-    const int r0 = (it / col_groups) * RT;
-    float acc[RT][4];
+__device__ void fwd_cols(const float* w, int ws, int kb, int ke, const float* bias, const float* in, int K,
+                         float* out, float* dh, int N, int R, bool first, bool last, int act) {
+  for (Walk g(N); g.r < R / RT; g.next()) {
+    const int n = g.c;
+    const int r0 = g.r * RT;
+    float acc[RT];
 #pragma unroll
-    for (int i = 0; i < RT; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
-    for (int k = 0; k < K; k += 4) {
+    for (int i = 0; i < RT; ++i) acc[i] = first ? 0.0f : out[(r0 + i) * N + n];
+    for (int k = kb; k < ke; k += 4) {
       float4 hv[RT];
 #pragma unroll
-      for (int i = 0; i < RT; ++i)
-        hv[i] = *reinterpret_cast<const float4*>(in + (r0 + i) * in_stride + k);
-      float wv[4][4];
+      for (int i = 0; i < RT; ++i) hv[i] = *reinterpret_cast<const float4*>(in + (r0 + i) * K + k);
+      const float* wk = w + (size_t)(k - kb) * ws + n;
+      const float w0 = wk[0];
+      const float w1 = wk[ws];
+      const float w2 = wk[2 * ws];
+      const float w3 = wk[3 * ws];
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        const float4 q = __ldcg(reinterpret_cast<const float4*>(w + (size_t)(k + kk) * N + j0));
-        wv[kk][0] = q.x;
-        wv[kk][1] = q.y;
-        wv[kk][2] = q.z;
-        wv[kk][3] = q.w;
+      for (int i = 0; i < RT; ++i) {
+        acc[i] = fmaf(hv[i].x, w0, acc[i]);
+        acc[i] = fmaf(hv[i].y, w1, acc[i]);
+        acc[i] = fmaf(hv[i].z, w2, acc[i]);
+        acc[i] = fmaf(hv[i].w, w3, acc[i]);
       }
-#pragma unroll
-      for (int i = 0; i < RT; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          acc[i][j] = fmaf(hv[i].x, wv[0][j], acc[i][j]);
-          acc[i][j] = fmaf(hv[i].y, wv[1][j], acc[i][j]);
-          acc[i][j] = fmaf(hv[i].z, wv[2][j], acc[i][j]);
-          acc[i][j] = fmaf(hv[i].w, wv[3][j], acc[i][j]);
-        }
     }
+    if (!last) {
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float bj = __ldcg(b + j0 + j);
+      for (int i = 0; i < RT; ++i) out[(r0 + i) * N + n] = acc[i];
+      continue;
+    }
+    const float b = __ldcg(bias + n);
 #pragma unroll
-      for (int i = 0; i < RT; ++i) out[(r0 + i) * out_stride + j0 + j] = acc[i][j] + bj;
+    for (int i = 0; i < RT; ++i) {
+      const float a = acc[i] + b;
+      if (act < 0) {
+        out[(r0 + i) * N + n] = a;
+      } else {
+        float h, d;
+        act_pair(act, a, h, d);
+        out[(r0 + i) * N + n] = h;
+        dh[(r0 + i) * N + n] = d;
+      }
     }
   }
 }
 
-// dh[r][k] <- dh[r][k] * sum_n delta[r][n] w[k][n] for R rows: the product by
-// W^T of the backward, times the stored act'.  dh has row stride K.  A thread
-// owns RT rows by 4 values of k.
+// dh[r][k] (row stride K) *= sum_n delta[r][n] w[k][n] for R rows and k in
+// [kb, ke): the product by W^T of the backward, times the stored act'.  w
+// holds those weight rows at row stride ws.  A thread owns RT rows of one k.
 template <int RT>
-__device__ void bwd_dense(const float* w, const float* delta, int d_stride, float* dh, int K, int N,
-                          int R) {
-  const int k_groups = K / 4;
-  const int items = (R / RT) * k_groups;
-  for (int it = threadIdx.x; it < items; it += blockDim.x) {
-    const int k0 = (it % k_groups) * 4;
-    const int r0 = (it / k_groups) * RT;
-    float acc[RT][4];
+__device__ void bwd_cols(const float* w, int ws, int kb, int ke, const float* delta, int N, float* dh,
+                         int K, int R) {
+  for (Walk g(ke - kb); g.r < R / RT; g.next()) {
+    const int k = kb + g.c;
+    const int r0 = g.r * RT;
+    const float* wk = w + (size_t)g.c * ws;
+    float acc[RT];
 #pragma unroll
-    for (int i = 0; i < RT; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
+    for (int i = 0; i < RT; ++i) acc[i] = 0.0f;
     for (int n = 0; n < N; n += 4) {
-      float4 dv[RT];
+      const float4 q = *reinterpret_cast<const float4*>(wk + n);
 #pragma unroll
-      for (int i = 0; i < RT; ++i)
-        dv[i] = *reinterpret_cast<const float4*>(delta + (r0 + i) * d_stride + n);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float4 q = __ldcg(reinterpret_cast<const float4*>(w + (size_t)(k0 + j) * N + n));
-#pragma unroll
-        for (int i = 0; i < RT; ++i) {
-          acc[i][j] = fmaf(dv[i].x, q.x, acc[i][j]);
-          acc[i][j] = fmaf(dv[i].y, q.y, acc[i][j]);
-          acc[i][j] = fmaf(dv[i].z, q.z, acc[i][j]);
-          acc[i][j] = fmaf(dv[i].w, q.w, acc[i][j]);
-        }
+      for (int i = 0; i < RT; ++i) {
+        const float4 dv = *reinterpret_cast<const float4*>(delta + (r0 + i) * N + n);
+        acc[i] = fmaf(dv.x, q.x, acc[i]);
+        acc[i] = fmaf(dv.y, q.y, acc[i]);
+        acc[i] = fmaf(dv.z, q.z, acc[i]);
+        acc[i] = fmaf(dv.w, q.w, acc[i]);
       }
     }
 #pragma unroll
-    for (int i = 0; i < RT; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        float* o = dh + (r0 + i) * K + k0 + j;
-        *o = acc[i][j] * *o;
-      }
-  }
-}
-
-// The block's weight gradient dst[k][n] (=, or += after its first tile) of
-// sum_r in[r][k] delta[r][n] over R rows; a thread owns 4 k by 4 n.
-__device__ void grad_dense(const float* in, int in_stride, const float* delta, int d_stride, int K,
-                           int N, int R, float* dst, bool first) {
-  const int n_groups = N / 4;
-  const int items = (K / 4) * n_groups;
-  for (int it = threadIdx.x; it < items; it += blockDim.x) {
-    const int n0 = (it % n_groups) * 4;
-    const int k0 = (it / n_groups) * 4;
-    float acc[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
-    for (int r = 0; r < R; ++r) {
-      const float4 x = *reinterpret_cast<const float4*>(in + r * in_stride + k0);
-      const float4 d = *reinterpret_cast<const float4*>(delta + r * d_stride + n0);
-      const float xs[4] = {x.x, x.y, x.z, x.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        acc[i][0] = fmaf(xs[i], d.x, acc[i][0]);
-        acc[i][1] = fmaf(xs[i], d.y, acc[i][1]);
-        acc[i][2] = fmaf(xs[i], d.z, acc[i][2]);
-        acc[i][3] = fmaf(xs[i], d.w, acc[i][3]);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float4* o = reinterpret_cast<float4*>(dst + (size_t)(k0 + i) * N + n0);
-      float4 val = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-      if (!first) {
-        const float4 old = *o;
-        val = make_float4(old.x + val.x, old.y + val.y, old.z + val.z, old.w + val.w);
-      }
-      *o = val;
+    for (int i = 0; i < RT; ++i) {
+      float* o = dh + (r0 + i) * K + k;
+      *o = acc[i] * *o;
     }
   }
 }
 
-// The block's bias gradient dst[n] (=, or +=) of sum_r delta[r][n].
-__device__ void bias_grad(const float* delta, int d_stride, int N, int R, float* dst, bool first) {
-  for (int n = threadIdx.x; n < N; n += blockDim.x) {
-    float s = 0.0f;
-    for (int r = 0; r < R; ++r) s += delta[r * d_stride + n];
-    dst[n] = first ? s : dst[n] + s;
+// Rows a thread owns in a product with `cols` output columns: the most of 4,
+// 2, 1 dividing R that still gives the block kThreads items.
+__device__ __forceinline__ int row_tile_of(int R, int cols) {
+  if (R % 4 == 0 && (R / 4) * cols >= kThreads) return 4;
+  if (R % 2 == 0 && (R / 2) * cols >= kThreads) return 2;
+  return 1;
+}
+
+__device__ void fwd_any(const float* w, int ws, int kb, int ke, const float* bias, const float* in, int K,
+                        float* out, float* dh, int N, int R, bool first, bool last, int act) {
+  switch (row_tile_of(R, N)) {
+    case 4: fwd_cols<4>(w, ws, kb, ke, bias, in, K, out, dh, N, R, first, last, act); break;
+    case 2: fwd_cols<2>(w, ws, kb, ke, bias, in, K, out, dh, N, R, first, last, act); break;
+    default: fwd_cols<1>(w, ws, kb, ke, bias, in, K, out, dh, N, R, first, last, act);
   }
 }
 
-// Phase A for one row tile of step s: forward, loss partial, backward into
-// the block's gradient slot.
-template <int RT>
-__device__ void row_tile(const TrainArgs& a, int s, int tile, int slot, bool first, float* smem) {
+__device__ void bwd_any(const float* w, int ws, int kb, int ke, const float* delta, int N, float* dh, int K,
+                        int R) {
+  switch (row_tile_of(R, ke - kb)) {
+    case 4: bwd_cols<4>(w, ws, kb, ke, delta, N, dh, K, R); break;
+    case 2: bwd_cols<2>(w, ws, kb, ke, delta, N, dh, K, R); break;
+    default: bwd_cols<1>(w, ws, kb, ke, delta, N, dh, K, R);
+  }
+}
+
+// Weight rows of layer l (N columns) a k-chunk stages: a multiple of 4.
+__device__ __forceinline__ int chunk_rows(const TrainArgs& a, int N) {
+  return (a.wbuf / (N + kWPad)) & ~3;
+}
+
+// Layer l's forward product over R rows, from the net staged at the top of
+// the step (resident) or layer l staged in k-chunks; ends with a barrier.
+__device__ void layer_fwd(const TrainArgs& a, int l, const float* in, float* out, float* dh, int act,
+                          const float* wsm, bool resident) {
+  const int K = layer_in(a, l), N = layer_out(a, l);
+  const float* w = a.p + weight_offset(a, l);
+  const float* bias = w + (size_t)K * N;
+  if (resident) {
+    cp_async_wait_pending(a.n_hidden - l);  // layer l of the net staged at the top of the step
+    __syncthreads();
+    fwd_any(wsm + staged_offset(a, l), N + kWPad, 0, K, bias, in, K, out, dh, N, a.R, true, true, act);
+  } else {
+    const int kc = chunk_rows(a, N);
+    for (int kb = 0; kb < K; kb += kc) {
+      const int ke = min(K, kb + kc);
+      stage_rows(w, N, kb, ke, const_cast<float*>(wsm));
+      cp_async_wait_all();
+      __syncthreads();
+      fwd_any(wsm, N + kWPad, kb, ke, bias, in, K, out, dh, N, a.R, kb == 0, ke == K, act);
+      if (ke < K) __syncthreads();
+    }
+  }
+  __syncthreads();
+}
+
+// The delta product through layer l (l >= 1): dh of layer l - 1 *= delta_l W_l^T.
+__device__ void layer_bwd(const TrainArgs& a, int l, const float* delta, float* dh, const float* wsm,
+                          bool resident) {
+  const int K = layer_in(a, l), N = layer_out(a, l);
+  const float* w = a.p + weight_offset(a, l);
+  if (resident) {
+    bwd_any(wsm + staged_offset(a, l), N + kWPad, 0, K, delta, N, dh, K, a.R);
+  } else {
+    const int kc = chunk_rows(a, N);
+    for (int kb = 0; kb < K; kb += kc) {
+      const int ke = min(K, kb + kc);
+      stage_rows(w, N, kb, ke, const_cast<float*>(wsm));
+      cp_async_wait_all();
+      __syncthreads();
+      bwd_any(wsm, N + kWPad, kb, ke, delta, N, dh, K, a.R);
+      if (ke < K) __syncthreads();
+    }
+  }
+  __syncthreads();
+}
+
+// cols columns of `rows` rows (row stride cols in shared memory) into the
+// workspace at row stride ld, column offset c0; cols a multiple of 4.
+__device__ void to_workspace(const float* src, int rows, int cols, float* dst, int ld, int c0) {
+  for (Walk g(cols >> 2); g.r < rows; g.next())
+    __stcg(reinterpret_cast<float4*>(dst + (size_t)g.r * ld + c0 + 4 * g.c),
+           *reinterpret_cast<const float4*>(src + g.r * cols + 4 * g.c));
+}
+
+// Phase A for one row tile of step s: forward, per-row loss, backward; each
+// row's layer inputs, deltas and loss into the workspace.
+__device__ void row_tile(const TrainArgs& a, int s, int tile, float* smem, const float* wsm, bool resident) {
   const int R = a.R, K = a.K, H = a.H, Dp = a.Dp, L = a.n_hidden;
   const int rh = R * H;
-  float* u = smem;            // R x K: the input features
-  float* hs = u + R * K;      // L buffers of R x H: act(a_l), the input of layer l + 1
-  float* dhs = hs + L * rh;   // L buffers: act'(a_l), then the backward's deltas
-  float* dout = dhs + L * rh; // R x Dp: net, then dL/dnet
-  float* red = dout + R * Dp; // blockDim.x: the loss reduction
+  float* u = smem;             // R x K: the input features
+  float* hs = u + R * K;       // L buffers of R x H: act(a_l), the input of layer l + 1
+  float* dhs = hs + L * rh;    // L buffers: act'(a_l), then the backward's deltas
+  float* dout = dhs + L * rh;  // R x Dp: net, then dL/dnet
   const int row0 = tile * R;
+  const int valid = min(R, a.bs - row0);
 
-  for (int i = threadIdx.x; i < R * K; i += blockDim.x) {
-    const int r = i / K;
-    const int k = i - r * K;
-    const int row = row0 + r;
+  for (Walk g(K); g.r < R; g.next()) {
+    const int row = row0 + g.r;
     float val = 0.0f;
     if (row < a.bs) {
       const size_t rs = (size_t)s * a.bs + row;
-      int f = k;
+      int f = g.c;
       if (a.E2 > 0) {  // [sin | cos | x | cond]
         if (f < 2 * a.E2) {
-          const float proj = (a.t[rs] * a.wemb[f % a.E2]) * kTwoPi;
-          val = f < a.E2 ? sinf(proj) : cosf(proj);
+          val = a.temb[rs * 2 * a.E2 + f];
           f = -1;
         } else {
           f -= 2 * a.E2;
@@ -271,131 +409,243 @@ __device__ void row_tile(const TrainArgs& a, int s, int tile, int slot, bool fir
         else if (f < a.D + 1 + a.C) val = a.cond[rs * a.C + (f - a.D - 1)];
       }
     }
-    u[i] = val;
+    u[g.r * K + g.c] = val;
   }
   __syncthreads();
 
   // forward, keeping every layer input and act'
-  const float* in = u;
-  int kin = K;
-  for (int l = 0; l < L; ++l) {
-    const float* w = a.p + weight_offset(a, l);
-    float* h = hs + l * rh;
-    fwd_dense<RT>(w, w + kin * H, in, kin, h, H, kin, H, R);
-    __syncthreads();
-    float* dh = dhs + l * rh;
-    for (int i = threadIdx.x; i < rh; i += blockDim.x) {
-      float hv, dv;
-      act_pair(a.act, h[i], hv, dv);
-      h[i] = hv;
-      dh[i] = dv;
-    }
-    __syncthreads();
-    in = h;
-    kin = H;
+  for (int l = 0; l <= L; ++l) {
+    const float* in = l == 0 ? u : hs + (l - 1) * rh;
+    if (l < L) layer_fwd(a, l, in, hs + l * rh, dhs + l * rh, a.act, wsm, resident);
+    else layer_fwd(a, l, in, dout, nullptr, -1, wsm, resident);
   }
-  {
-    const float* w = a.p + weight_offset(a, L);
-    fwd_dense<RT>(w, w + kin * Dp, in, kin, dout, Dp, kin, Dp, R);
-  }
-  __syncthreads();
+  const int SH = K + L * H;
+  to_workspace(u, valid, K, a.ws_h + (size_t)row0 * SH, SH, 0);
+  for (int l = 0; l < L; ++l) to_workspace(hs + l * rh, valid, H, a.ws_h + (size_t)row0 * SH, SH, K + l * H);
 
-  // residual, loss partial and the output delta; masked rows and padded
-  // outputs get zero
-  float lsum = 0.0f;
-  for (int i = threadIdx.x; i < R * Dp; i += blockDim.x) {
-    const int r = i / Dp;
-    const int d = i - r * Dp;
+  // residual, each row's loss and the output delta, a thread a row; masked
+  // rows and padded outputs get zero
+  for (int r = threadIdx.x; r < R; r += kThreads) {
     const int row = row0 + r;
-    float dl = 0.0f;
-    if (row < a.bs && d < a.D) {
-      const size_t rs = (size_t)s * a.bs + row;
-      const float bt = a.beta[rs];
-      const float res = a.zw[rs * a.D + d] + bt * dout[i];
-      lsum += res * res;
-      dl = (2.0f * a.inv) * bt * res;
+    float lsum = 0.0f;
+    for (int d = 0; d < Dp; ++d) {
+      float dl = 0.0f;
+      if (row < a.bs && d < a.D) {
+        const size_t rs = (size_t)s * a.bs + row;
+        const float bt = a.beta[rs];
+        const float res = a.zw[rs * a.D + d] + bt * dout[r * Dp + d];
+        lsum += res * res;
+        dl = (2.0f * a.inv) * bt * res;
+      }
+      dout[r * Dp + d] = dl;
     }
-    dout[i] = dl;
+    if (row < a.bs) __stcg(a.ws_loss + row, lsum);
   }
-  red[threadIdx.x] = lsum;
   __syncthreads();
-  for (int width = blockDim.x / 2; width > 0; width >>= 1) {
-    if (threadIdx.x < width) red[threadIdx.x] += red[threadIdx.x + width];
+
+  // backward: the delta of layer l - 1 into the act' buffer it multiplies
+  for (int l = L; l >= 1; --l) layer_bwd(a, l, l == L ? dout : dhs + l * rh, dhs + (l - 1) * rh, wsm, resident);
+  const int SD = L * H + Dp;
+  for (int l = 0; l < L; ++l) to_workspace(dhs + l * rh, valid, H, a.ws_d + (size_t)row0 * SD, SD, l * H);
+  to_workspace(dout, valid, Dp, a.ws_d + (size_t)row0 * SD, SD, L * H);
+  __syncthreads();
+}
+
+// Phase B for parameter tile j: each parameter's gradient summed over the
+// batch in the fixed chunk order, then Adam and the EMA.  A tile is kc <= 16
+// weight rows [k0, k0 + kc) by nc <= 32 columns, or the bias row (k0 = K_l,
+// kc = 1).  Its inputs and deltas come through shared memory (phase A's
+// tile and the staged weights are free here): batches of RB rows of the
+// tile's h and delta columns by cp.async into two buffers, the next batch
+// in flight while warp c sums this batch's rows of chunk c, a lane a 4 k by
+// 4 n register tile, one fmaf chain a parameter in row order, batch after
+// batch, so the order does not depend on RB; then the chunks' partials are
+// added in chunk order.  The Adam operands of a thread's outputs are loaded
+// before the sums.
+__device__ void param_tile(const TrainArgs& a, int j, float* smem, float bc1, float bc2) {
+  const int* tl = a.tiles + 5 * j;
+  const int l = tl[0], k0 = tl[1], kc = tl[2], n0 = tl[3], nc = tl[4];
+  const int K = layer_in(a, l), N = layer_out(a, l), L = a.n_hidden;
+  const int SH = a.K + L * a.H, SD = L * a.H + a.Dp;
+  const int kh = k0 == K ? 0 : kc;  // input columns to load: none for the bias row (its input is 1)
+  const int n_out = kc * nc;        // <= 2 kThreads
+  float* part = smem;               // kChunks x kTileItems x 16 partials
+  const float* hsrc = a.ws_h + (l == 0 ? 0 : a.K + (l - 1) * a.H) + k0;
+  const float* dsrc = a.ws_d + l * a.H + n0;
+  const size_t off = weight_offset(a, l);
+
+  // this thread's outputs o = threadIdx.x + i kThreads: parameter k0 + o / nc, column n0 + o % nc
+  size_t idx[2];
+  float m0[2], v0[2], p0[2], e0[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int o = threadIdx.x + i * kThreads;
+    const int kk = o / nc;
+    idx[i] = off + (size_t)(k0 + kk) * N + n0 + (o - kk * nc);
+    if (o < n_out) {
+      m0[i] = __ldcg(a.m + idx[i]);
+      v0[i] = __ldcg(a.v + idx[i]);
+      p0[i] = __ldcg(a.p + idx[i]);
+      e0[i] = a.ema != nullptr ? __ldcg(a.ema + idx[i]) : 0.0f;
+    }
+  }
+
+  // two buffers of RB rows (kh inputs, then nc deltas a row): the next
+  // batch streams in while this one is summed
+  const int cap = (a.acts + a.wbuf - kPartials) / (2 * (kh + nc));
+  const int n_batches = max(2, (a.bs + cap - 1) / cap);
+  const int RB = (a.bs + n_batches - 1) / n_batches;
+  const int q = nc >> 2;
+  const int qh = kh >> 2;
+  const int chunk = threadIdx.x >> 5;
+  const int item = threadIdx.x & 31;
+  const bool active = item < (kh ? qh : 1) * q;
+  const int ik = active ? item / q : 0;
+  const int c4 = 4 * (item - ik * q);
+  const int cs = (a.bs + kChunks - 1) / kChunks;
+  const int c0 = chunk * cs, c1 = min(a.bs, c0 + cs);
+  auto buffer = [&](int b) { return smem + kPartials + (b & 1) * RB * (kh + nc); };
+  auto load = [&](int b) {
+    float* hb = buffer(b);
+    float* db = hb + RB * kh;
+    const int b0 = b * RB;
+    const int nb = min(RB, a.bs - b0);
+    for (Walk g(qh + q); g.r < nb; g.next()) {
+      const int row = b0 + g.r;
+      if (g.c < qh) cp_async16(hb + g.r * kh + 4 * g.c, hsrc + (size_t)row * SH + 4 * g.c);
+      else cp_async16(db + g.r * nc + 4 * (g.c - qh), dsrc + (size_t)row * SD + 4 * (g.c - qh));
+    }
+    cp_async_commit();
+  };
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int jn = 0; jn < 4; ++jn) acc[i][jn] = 0.0f;
+  load(0);
+  for (int b = 0; b * RB < a.bs; ++b) {
+    const bool more = (b + 1) * RB < a.bs;
+    if (more) load(b + 1);
+    cp_async_wait_pending(more ? 1 : 0);
+    __syncthreads();
+    const float* hb = buffer(b);
+    const float* db = hb + RB * kh;
+    const int b0 = b * RB;
+    if (active) {
+      const int r1 = min(c1, b0 + RB) - b0;
+#pragma unroll 4
+      for (int r = max(c0, b0) - b0; r < r1; ++r) {
+        const float4 h = kh ? *reinterpret_cast<const float4*>(hb + r * kh + 4 * ik) : make_float4(1.f, 1.f, 1.f, 1.f);
+        const float4 d = *reinterpret_cast<const float4*>(db + r * nc + c4);
+        const float hv[4] = {h.x, h.y, h.z, h.w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          acc[i][0] = fmaf(hv[i], d.x, acc[i][0]);
+          acc[i][1] = fmaf(hv[i], d.y, acc[i][1]);
+          acc[i][2] = fmaf(hv[i], d.z, acc[i][2]);
+          acc[i][3] = fmaf(hv[i], d.w, acc[i][3]);
+        }
+      }
+    }
     __syncthreads();
   }
-  if (threadIdx.x == 0) a.loss_part[slot] = first ? red[0] : a.loss_part[slot] + red[0];
+  // part[c][item][4 k x 4 n]
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    reinterpret_cast<float4*>(part)[4 * threadIdx.x + i] = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int o = threadIdx.x + i * kThreads;
+    if (o >= n_out) break;
+    const int kk = o / nc;
+    const int col = o - kk * nc;
+    const int slot = 16 * ((kk >> 2) * q + (col >> 2)) + 4 * (kk & 3) + (col & 3);
+    float g = part[slot];
+#pragma unroll
+    for (int c = 1; c < kChunks; ++c) g += part[16 * kTileItems * c + slot];
+    const float mi = a.beta1 * m0[i] + (1.0f - a.beta1) * g;
+    const float vi = a.beta2 * v0[i] + (1.0f - a.beta2) * g * g;
+    const float pi = p0[i] - a.lr * (mi / bc1) / (sqrtf(vi / bc2) + a.eps);
+    a.m[idx[i]] = mi;
+    a.v[idx[i]] = vi;
+    a.p[idx[i]] = pi;
+    if (a.ema != nullptr) a.ema[idx[i]] = a.ema_decay * e0[i] + (1.0f - a.ema_decay) * pi;
+  }
+  __syncthreads();
+}
 
-  // backward: gradients of layer l from its input and delta, then the delta
-  // of layer l - 1 into the act' buffer it multiplies
-  float* grad = a.partial + (size_t)slot * a.n_param;
-  for (int l = L; l >= 0; --l) {
-    const int k_l = l == 0 ? K : H;
-    const int n_l = l == L ? Dp : H;
-    const float* in_l = l == 0 ? u : hs + (l - 1) * rh;
-    const float* delta = l == L ? dout : dhs + l * rh;
-    const int off = weight_offset(a, l);
-    grad_dense(in_l, k_l, delta, n_l, k_l, n_l, R, grad + off, first);
-    bias_grad(delta, n_l, n_l, R, grad + off + k_l * n_l, first);
-    if (l > 0) bwd_dense<RT>(a.p + off, delta, n_l, dhs + (l - 1) * rh, H, n_l, R);
+// loss[s] = inv * the per-row losses summed in the fixed chunk order:
+// batches of rows through shared memory, then a thread a chunk, in order.
+__device__ void loss_sum(const TrainArgs& a, int s, float* smem) {
+  const int cap = a.acts + a.wbuf;
+  const int cs = (a.bs + kChunks - 1) / kChunks;
+  float part = 0.0f;
+  for (int b0 = 0; b0 < a.bs; b0 += cap) {
+    const int nb = min(cap, a.bs - b0);
+    for (int r = threadIdx.x; r < nb; r += kThreads) smem[r] = __ldcg(a.ws_loss + b0 + r);
     __syncthreads();
+    if (threadIdx.x < kChunks) {
+      const int r0 = max((int)threadIdx.x * cs, b0) - b0;
+      const int r1 = min(min(a.bs, ((int)threadIdx.x + 1) * cs), b0 + nb) - b0;
+      for (int r = r0; r < r1; ++r) part += smem[r];
+    }
+    __syncthreads();
+  }
+  if (threadIdx.x < 32) {
+    float total = __shfl_sync(0xffffffffu, part, 0);
+#pragma unroll
+    for (int c = 1; c < kChunks; ++c) total += __shfl_sync(0xffffffffu, part, c);
+    if (threadIdx.x == 0) a.loss[s] = a.inv * total;
   }
 }
 
-// Phase B of step s: the summed gradient, Adam and the EMA over the grid's
-// threads; block 0 sums the loss partials.
-__device__ void adam_phase(const TrainArgs& a, int s) {
-  const float tstep = (float)(a.step0 + s + 1);
-  const float bc1 = 1.0f - expf(tstep * logf(a.beta1));
-  const float bc2 = 1.0f - expf(tstep * logf(a.beta2));
-  const size_t stride = (size_t)gridDim.x * blockDim.x;
-  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < (size_t)a.n_param; i += stride) {
-    float g = 0.0f;
-    for (int sl = 0; sl < a.n_slots; ++sl) g += __ldcg(a.partial + (size_t)sl * a.n_param + i);
-    const float mi = a.beta1 * __ldcg(a.m + i) + (1.0f - a.beta1) * g;
-    const float vi = a.beta2 * __ldcg(a.v + i) + (1.0f - a.beta2) * g * g;
-    const float pi = __ldcg(a.p + i) - a.lr * (mi / bc1) / (sqrtf(vi / bc2) + a.eps);
-    a.m[i] = mi;
-    a.v[i] = vi;
-    a.p[i] = pi;
-    if (a.ema != nullptr) a.ema[i] = a.ema_decay * __ldcg(a.ema + i) + (1.0f - a.ema_decay) * pi;
-  }
-  if (blockIdx.x == 0 && threadIdx.x == 0) {
-    float total = 0.0f;
-    for (int sl = 0; sl < a.n_slots; ++sl) total += __ldcg(a.loss_part + sl);
-    a.loss[s] = a.inv * total;
+// The Fourier features of n_rows rows (every step's t, row-major) into temb
+// (n_rows, 2 E2): proj = (t W[f mod E2]) float32(2 pi), sinf for f < E2,
+// cosf after, the order in which the plain version's fourier_time_embedding
+// rounds them.  A thread an entry, grid-strided.
+__global__ void __launch_bounds__(kThreads) fourier_table_kernel(const float* t, const float* wemb, int n_rows,
+                                                                 int E2, float* temb) {
+  const size_t n = (size_t)n_rows * 2 * E2;
+  for (size_t i = (size_t)blockIdx.x * kThreads + threadIdx.x; i < n; i += (size_t)gridDim.x * kThreads) {
+    const size_t row = i / (2 * E2);
+    const int f = (int)(i - row * 2 * E2);
+    const float proj = (t[row] * wemb[f < E2 ? f : f - E2]) * kTwoPi;
+    temb[i] = f < E2 ? sinf(proj) : cosf(proj);
   }
 }
 
-template <int RT>
-__global__ void __launch_bounds__(kThreads) fused_train_kernel(TrainArgs a) {
+__global__ void __launch_bounds__(kThreads, 1) fused_train_kernel(TrainArgs a) {
   extern __shared__ __align__(16) float smem[];
+  float* wsm = smem + a.acts;
+  const bool resident = a.wbuf >= staged_offset(a, a.n_hidden + 1);
   cg::grid_group grid = cg::this_grid();
   for (int s = 0; s < a.steps; ++s) {
-    bool first = true;
-    for (int tile = blockIdx.x; tile < a.n_tiles; tile += gridDim.x) {
-      row_tile<RT>(a, s, tile, blockIdx.x, first, smem);
-      first = false;
-    }
+    if (resident && (int)blockIdx.x < a.n_tiles)
+      for (int l = 0; l <= a.n_hidden; ++l) {  // one cp.async group a layer, waited layer by layer
+        stage_rows(a.p + weight_offset(a, l), layer_out(a, l), 0, layer_in(a, l), wsm + staged_offset(a, l));
+        cp_async_commit();
+      }
+    for (int tile = blockIdx.x; tile < a.n_tiles; tile += gridDim.x) row_tile(a, s, tile, smem, wsm, resident);
     grid.sync();
-    adam_phase(a, s);
+    const float tstep = (float)(a.step0 + s + 1);
+    const float bc1 = 1.0f - expf(tstep * logf(a.beta1));
+    const float bc2 = 1.0f - expf(tstep * logf(a.beta2));
+    if (blockIdx.x == gridDim.x - 1) loss_sum(a, s, smem);
+    for (int j = blockIdx.x; j < a.n_ptiles; j += gridDim.x) param_tile(a, j, smem, bc1, bc2);
     grid.sync();
   }
-}
-
-void* kernel_for(int rows) {
-  return rows % 8 == 0 ? reinterpret_cast<void*>(fused_train_kernel<8>)
-                       : reinterpret_cast<void*>(fused_train_kernel<kMinRowTile>);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Blocks of the `rows`-row kernel with `smem` bytes of shared memory that one
-// SM holds at once, and the SM count; a cooperative grid may not exceed their
-// product.  Returns a cudaError_t (cudaErrorNotSupported without cooperative
-// launches).
-int ff_fused_train_capacity(int rows, size_t smem, int* blocks_per_sm, int* sm_count) {
+// Blocks of the kernel with `smem` bytes of shared memory that one SM holds
+// at once, and the SM count; a cooperative grid may not exceed their
+// product.  Returns a cudaError_t (cudaErrorNotSupported without
+// cooperative launches).
+int ff_fused_train_capacity(size_t smem, int* blocks_per_sm, int* sm_count) {
   int dev = 0;
   cudaError_t st = cudaGetDevice(&dev);
   if (st != cudaSuccess) return (int)st;
@@ -405,29 +655,44 @@ int ff_fused_train_capacity(int rows, size_t smem, int* blocks_per_sm, int* sm_c
   if (!coop) return (int)cudaErrorNotSupported;
   st = cudaDeviceGetAttribute(sm_count, cudaDevAttrMultiProcessorCount, dev);
   if (st != cudaSuccess) return (int)st;
-  const void* k = kernel_for(rows);
-  if (smem > 48 * 1024) {
-    st = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (st != cudaSuccess) return (int)st;
-  }
-  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, k, kThreads, smem);
+  st = allow_smem(fused_train_kernel, smem);
+  if (st != cudaSuccess) return (int)st;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, fused_train_kernel, kThreads, smem);
 }
 
-// One cooperative launch of `grid` blocks on `stream` for the whole call;
-// returns the cudaError_t of the launch (0 on success).  p, m, v and ema (null
-// without EMA) are flat buffers of n_param floats, updated in place; partial
-// is (n_slots, n_param) and loss_part (n_slots,) scratch, n_slots =
-// min(grid, ceil(bs / rows)); loss is (steps,).  K_pad, H and D_pad are
-// multiples of 4, rows of 4; E2 = 0 selects the velocity input [x | t | cond].
-int ff_fused_train(const float* xt, const float* zw, const float* t, const float* beta,
-                   const float* cond, const float* wemb, float* p, float* m, float* v, float* ema,
-                   float* partial, float* loss_part, float* loss, int steps, int bs, int D, int C,
-                   int E2, int K_pad, int H, int n_hidden, int D_pad, int act, int rows, int n_slots,
-                   int step0, float lr, float beta1, float beta2, float eps, float ema_decay,
-                   float inv, int grid, size_t smem, void* stream) {
-  const int n_tiles = (bs + rows - 1) / rows;
-  if (steps < 1 || bs < 1 || D < 1 || D > D_pad || K_pad % 4 || H % 4 || D_pad % 4 ||
-      rows % kMinRowTile || n_hidden < 1 || grid < 1 || n_slots != (grid < n_tiles ? grid : n_tiles)) {
+// Registers and local-memory bytes a thread of the kernel.
+int ff_fused_train_attributes(int* regs, int* local_bytes) {
+  cudaFuncAttributes attr;
+  const cudaError_t st = cudaFuncGetAttributes(&attr, fused_train_kernel);
+  if (st != cudaSuccess) return (int)st;
+  *regs = attr.numRegs;
+  *local_bytes = (int)attr.localSizeBytes;
+  return 0;
+}
+
+// One cooperative launch of `grid` blocks on `stream` for the whole call,
+// after the Fourier table's launch for score nets; returns the cudaError_t
+// of the launches (0 on success).  p, m, v and ema (null without EMA) are
+// flat buffers of the layers' (K_l + 1, N_l) blocks, updated in place; ws_h
+// (bs, K_pad + n_hidden H), ws_d (bs, n_hidden H + D_pad) and ws_loss (bs,)
+// are scratch; wemb is the (E2,) Fourier weight and temb (steps, bs, 2 E2)
+// scratch for its table (both null for velocity nets); tiles is the
+// (n_ptiles, 5) parameter tile map;
+// loss is (steps,).  K_pad, H and D_pad are multiples of 4; E2 = 0 selects
+// the velocity input [x | t | cond].  Shared memory: acts floats of row tile
+// (at least kPhaseBFloats, phase B's), then wbuf floats of staged weights
+// (the whole net, or at least 4 rows of the widest layer for k-chunks).
+int ff_fused_train(const float* xt, const float* zw, const float* t, const float* beta, const float* cond,
+                   const float* wemb, float* temb, const int* tiles, float* p, float* m, float* v, float* ema, float* ws_h,
+                   float* ws_d, float* ws_loss, float* loss, int steps, int bs, int D, int C, int E2, int K_pad,
+                   int H, int n_hidden, int D_pad, int act, int rows, int n_ptiles, int step0, int wbuf, float lr,
+                   float beta1, float beta2, float eps, float ema_decay, float inv, int grid, void* stream) {
+  const int acts_rows = rows * (K_pad + 2 * n_hidden * H + D_pad);
+  const int acts = acts_rows > kPhaseBFloats ? acts_rows : kPhaseBFloats;
+  const int widest = H > D_pad ? H : D_pad;
+  if (steps < 1 || bs < 1 || D < 1 || D > D_pad || K_pad % 4 || H % 4 || D_pad % 4 || rows < 1 ||
+      n_hidden < 1 || grid < 1 || n_ptiles < 1 || wbuf < 4 * (widest + kWPad) ||
+      (E2 > 0 && (wemb == nullptr || temb == nullptr))) {
     return (int)cudaErrorInvalidValue;
   }
   TrainArgs a;
@@ -436,13 +701,15 @@ int ff_fused_train(const float* xt, const float* zw, const float* t, const float
   a.t = t;
   a.beta = beta;
   a.cond = cond;
-  a.wemb = wemb;
+  a.temb = temb;
+  a.tiles = tiles;
   a.p = p;
   a.m = m;
   a.v = v;
   a.ema = ema;
-  a.partial = partial;
-  a.loss_part = loss_part;
+  a.ws_h = ws_h;
+  a.ws_d = ws_d;
+  a.ws_loss = ws_loss;
   a.loss = loss;
   a.steps = steps;
   a.bs = bs;
@@ -455,31 +722,30 @@ int ff_fused_train(const float* xt, const float* zw, const float* t, const float
   a.Dp = D_pad;
   a.act = act;
   a.R = rows;
-  a.n_slots = n_slots;
   a.step0 = step0;
-  a.n_tiles = n_tiles;
-  int n_param = 0;
-  for (int l = 0; l <= n_hidden; ++l) {
-    const int k_l = l == 0 ? K_pad : H;
-    const int n_l = l == n_hidden ? D_pad : H;
-    n_param += (k_l + 1) * n_l;
-  }
-  a.n_param = n_param;
+  a.n_tiles = (bs + rows - 1) / rows;
+  a.n_ptiles = n_ptiles;
+  a.acts = acts;
+  a.wbuf = wbuf;
   a.lr = lr;
   a.beta1 = beta1;
   a.beta2 = beta2;
   a.eps = eps;
   a.ema_decay = ema_decay;
   a.inv = inv;
-  const void* k = kernel_for(rows);
-  cudaError_t st = cudaSuccess;
-  if (smem > 48 * 1024) {
-    st = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const size_t smem = 4 * ((size_t)acts + wbuf);
+  cudaError_t st = allow_smem(fused_train_kernel, smem);
+  if (st != cudaSuccess) return (int)st;
+  if (E2 > 0) {
+    const size_t entries = (size_t)steps * bs * 2 * E2;
+    const size_t blocks = (entries + kThreads - 1) / kThreads;
+    fourier_table_kernel<<<(unsigned)(blocks < 4096 ? blocks : 4096), kThreads, 0,
+                           static_cast<cudaStream_t>(stream)>>>(t, wemb, steps * bs, E2, temb);
+    st = cudaGetLastError();
     if (st != cudaSuccess) return (int)st;
   }
   void* args[] = {&a};
-  st = cudaLaunchCooperativeKernel(k, dim3(grid), dim3(kThreads), args, smem,
-                                   static_cast<cudaStream_t>(stream));
+  st = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(fused_train_kernel), dim3(grid), dim3(kThreads), args, smem, static_cast<cudaStream_t>(stream));
   if (st != cudaSuccess) return (int)st;
   return (int)cudaGetLastError();
 }

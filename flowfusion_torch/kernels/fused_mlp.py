@@ -36,7 +36,7 @@ counts its own launches.
 A launch's plan, :func:`_plan`, is ``(rows, smem_bytes)``: the rows a
 block owns (the most blocks an SM holds, up to three, counted with the
 1 KB each block reserves, at the most rows that reach them) and its shared
-memory.  A row's arithmetic does not depend on the plan.  The EM and training kernels plan with :func:`rows_for`.
+memory.  A row's arithmetic does not depend on the plan.  The EM kernel plans with :func:`rows_for`.
 """
 
 from __future__ import annotations
@@ -697,16 +697,12 @@ def blocks_per_sm(smem: int) -> int:
 
 def rows_for(smem_bytes: Callable[[int], int]) -> Optional[int]:
     """Rows a block owns, given its shared memory ``smem_bytes(rows)``:
-    the most (<= 64) within half of ``_SMEM_LIMIT``, else 4 rows in one
-    block; None when not even that fits.  The EM and training kernels plan
-    with it.  It miscounts: two blocks share an SM only up to 115,712
-    bytes, since each block also reserves 1 KB (``blocks_per_sm``), so a
-    plan of 115,713-116,224 bytes holds one block, not two.  No plan the
-    repository runs lies there; the fix moves the training kernel's
-    per-block gradient slots, and waits for that kernel's redesign
-    (ROADMAP.md, open item on the training kernel)."""
+    the most (<= 64) at which two blocks share an SM (``blocks_per_sm``,
+    which counts the 1 KB each block reserves: up to 115,712 bytes a
+    block), else 4 rows in one block; None when not even that fits.  The
+    EM kernel plans with it."""
     for rows in (64, 32, 16, 8, 4):
-        if smem_bytes(rows) <= _SMEM_LIMIT // 2:
+        if blocks_per_sm(smem_bytes(rows)) >= 2:
             return rows
     if smem_bytes(4) <= _SMEM_LIMIT:
         return 4

@@ -54,7 +54,7 @@ from ..models.nets import (
 )
 from ..ops import losses as losses_lib
 from . import _build
-from .fused_mlp import _KERNEL_ACTIVATIONS, LANE, fusable_config, rows_for
+from .fused_mlp import _KERNEL_ACTIVATIONS, _SMEM_LIMIT, LANE, fusable_config
 
 __all__ = [
     "fused_train_epoch",
@@ -67,10 +67,18 @@ __all__ = [
     "train_tables_symplectic",
     "train_plan",
     "train_flops",
+    "param_tiles",
+    "workspace_floats",
+    "occupancy",
     "reset_launch_counts",
 ]
 
-_THREADS = 256  # csrc kThreads: a block's threads (and its loss-reduction scratch)
+_THREADS = 256  # csrc kThreads: a block's threads
+_TILE_ROWS, _TILE_COLS = 16, 32  # phase B's weight tiles (csrc: 32 lanes of 4 k x 4 n)
+_PHASE_B_FLOATS = 2 * 16 * _THREADS  # csrc kPhaseBFloats: partials, then row buffers
+_WPAD = 4  # csrc kWPad: floats past N in a staged weight row
+_ROWS = (64, 32, 16, 8, 4, 2, 1)  # rows a block may take
+SMS = 132  # the H100's SMs: the plan spreads row tiles over this many blocks
 
 
 def _cfg_fields(cfg):
@@ -97,21 +105,109 @@ def _dims(cfg) -> Tuple[int, int, int, int]:
     return K, _pad(max(units)), len(units), D
 
 
-def _smem_bytes(rows: int, K: int, H: int, n_hidden: int, D: int) -> int:
-    """Shared memory of one block: per row the padded layer input, every
-    hidden layer's activation and act', and the padded output delta; then
-    the loss-reduction scratch."""
-    return 4 * (rows * (_pad(K) + 2 * n_hidden * H + _pad(D)) + _THREADS)
+def _layer_shapes(K: int, H: int, n_hidden: int, D: int) -> List[Tuple[int, int]]:
+    """(K_l, N_l) of every layer in the kernel's padded widths."""
+    return [(_pad(K), H)] + [(H, H)] * (n_hidden - 1) + [(H, _pad(D))]
 
 
-def train_plan(cfg) -> Optional[Tuple[int, int]]:
-    """``(rows, smem_bytes)`` of the kernel's row tiles for ``cfg`` (the
-    shared row policy ``fused_mlp.rows_for``), or None when not even 4 rows
-    fit.  A block strides over the batch's row tiles, so the plan does not
-    depend on the batch size."""
+def _row_floats(K: int, H: int, n_hidden: int, D: int) -> int:
+    """Shared floats of one row in phase A: the padded layer input, every
+    hidden layer's activation and act' (then delta), the padded output."""
+    return _pad(K) + 2 * n_hidden * H + _pad(D)
+
+
+# Admission: a net is admitted when one row of phase A holds at most this
+# many floats (``_row_floats``).  It is a policy, not a layout's size: the
+# envelope of the kernel's first version (4 rows a block and a 256-float
+# scratch within ``_SMEM_LIMIT``: 4 (4 x 14,464 + 256) = 232,448 bytes), kept
+# so that every net admitted before is admitted now and none refused before
+# is admitted.  Every admitted net has a plan that fits (``train_plan``).
+_ADMIT_ROW_FLOATS = 14_464
+
+
+def _acts_floats(rows: int, K: int, H: int, n_hidden: int, D: int) -> int:
+    """Phase A's row tile, at least phase B's partials and as many floats
+    again for its rows (csrc ``kPhaseBFloats``): csrc ``acts``."""
+    return max(rows * _row_floats(K, H, n_hidden, D), _PHASE_B_FLOATS)
+
+
+def _staged_floats(K: int, H: int, n_hidden: int, D: int) -> int:
+    """Shared floats of the whole net staged at row stride N + 4."""
+    return sum(k * (n + _WPAD) for k, n in _layer_shapes(K, H, n_hidden, D))
+
+
+def _wbuf_floats(rows: int, K: int, H: int, n_hidden: int, D: int) -> Optional[int]:
+    """Shared floats for staged weights at ``rows`` rows a block: the whole
+    net where it fits beside the row tile, else what is left for k-chunks
+    (at least 4 rows of the widest layer); None when the block does not
+    fit."""
+    left = _SMEM_LIMIT // 4 - _acts_floats(rows, K, H, n_hidden, D)
+    least = 4 * (max(H, _pad(D)) + _WPAD)
+    return None if left < least else min(left, _staged_floats(K, H, n_hidden, D))
+
+
+def train_plan(cfg, bs: int = 1, sms: int = SMS, rows: Optional[int] = None) -> Optional[Tuple[int, int]]:
+    """``(rows, smem_bytes)`` of a launch on a batch of ``bs`` rows, or None
+    for a net the kernel does not admit.
+
+    Admission is the policy ``_ADMIT_ROW_FLOATS`` (the first version's
+    envelope), and does not depend on ``bs``.  Rows: of 64, 32, 16,
+    8, 4, 2 and 1 whose block fits, the fewest among those that give the
+    busiest of ``sms`` blocks the fewest row tiles (a block strides over
+    ceil(bs / rows) tiles): at least ``sms`` tiles where the batch allows,
+    so 4 rows (128 tiles) at bs 512 and 1 row at bs 128.  ``rows`` forces a
+    plan.  Shared memory: the row tile, then the staged weights.  No
+    result depends on the plan."""
+    dims = _dims(cfg)
+    if _row_floats(*dims) > _ADMIT_ROW_FLOATS:
+        return None
+
+    def smem(r):
+        wbuf = _wbuf_floats(r, *dims)
+        return None if wbuf is None else 4 * (_acts_floats(r, *dims) + wbuf)
+
+    if rows is not None:
+        if not 1 <= rows <= 256 or smem(rows) is None:
+            raise ValueError(f"fused_train plan of {rows} rows: 1 to 256 rows whose block fits")
+        return rows, smem(rows)
+    fits = [r for r in _ROWS if smem(r) is not None]
+    assert fits, f"an admitted net {dims} has no plan that fits"
+
+    def busiest(r):  # row tiles on the busiest of sms blocks
+        tiles = -(-bs // r)
+        return -(-tiles // sms)
+
+    rows = min(fits, key=lambda r: (busiest(r), r))
+    return rows, smem(rows)
+
+
+def plan_wbuf(cfg, plan) -> int:
+    """The staged-weight floats of ``plan``: csrc ``wbuf``."""
+    rows, smem = plan
+    return smem // 4 - _acts_floats(rows, *_dims(cfg))
+
+
+def param_tiles(K: int, H: int, n_hidden: int, D: int) -> List[Tuple[int, int, int, int, int]]:
+    """Phase B's tile map: ``(layer, k0, kc, n0, nc)`` tiles of every
+    layer's (K_l + 1, N_l) parameters, row K_l the bias.  Weight tiles are
+    kc = 16 rows (what is left at the end) by nc = 32 columns (N_l where it
+    is narrower; what is left at the end), at most 32 items of 4 k by 4 n;
+    the bias row goes in tiles of one row by up to 32 columns.  Largest
+    first, so the blocks that take a second tile take a small one."""
+    tiles = []
+    for l, (k_l, n_l) in enumerate(_layer_shapes(K, H, n_hidden, D)):
+        for k0 in list(range(0, k_l, _TILE_ROWS)) + [k_l]:
+            for n0 in range(0, n_l, _TILE_COLS):
+                kc = min(_TILE_ROWS, k_l - k0) if k0 < k_l else 1
+                tiles.append((l, k0, kc, n0, min(_TILE_COLS, n_l - n0)))
+    return sorted(tiles, key=lambda tile: -tile[2] * tile[4])
+
+
+def workspace_floats(cfg, bs: int) -> Tuple[int, int, int]:
+    """Floats of phase A's workspace: each row's layer inputs (bs, K + L H),
+    deltas (bs, L H + D) and loss (bs,), at the kernel's padded widths."""
     K, H, n_hidden, D = _dims(cfg)
-    rows = rows_for(lambda r: _smem_bytes(r, K, H, n_hidden, D))
-    return None if rows is None else (rows, _smem_bytes(rows, K, H, n_hidden, D))
+    return bs * (_pad(K) + n_hidden * H), bs * (n_hidden * H + _pad(D)), bs
 
 
 def train_flops(cfg, steps: int, bs: int) -> int:
@@ -389,13 +485,13 @@ def _epoch(params, cfg, opt_state, xt, zw, t, beta, conditional, lr, beta1, beta
     tensors, or ``plain``)."""
     with_ema = ema_decay > 0.0
     _check_epoch(params, cfg, xt, zw, t, beta, conditional, ema if with_ema else None, compute_dtype)
-    plan = train_plan(cfg)
+    plan = train_plan(cfg, xt.shape[1])
     if plan is None:
         K, H, n_hidden, D = _dims(cfg)
         raise ValueError(
             f"the fused training kernel's shared-memory plan does not fit: {n_hidden} hidden "
-            f"layers of width {H} need {_smem_bytes(4, K, H, n_hidden, D)} bytes at 4 rows a "
-            "block — train on the plain engine (train.fit(engine='plain'))"
+            f"layers of width {H} need {_row_floats(K, H, n_hidden, D)} floats a row, over its "
+            f"limit of {_ADMIT_ROW_FLOATS} — train on the plain engine (train.fit(engine='plain'))"
         )
     kw = dict(xt=xt, zw=zw, t=t, beta=beta, conditional=conditional, lr=lr, beta1=beta1, beta2=beta2,
               eps=eps, ema=ema, ema_decay=ema_decay, mean_over_dims=mean_over_dims, loss_scale=loss_scale)
@@ -408,11 +504,8 @@ def _pack(pairs: Sequence[Tuple[torch.Tensor, torch.Tensor]], K: int, H: int, D:
     """Layers as one flat float32 buffer in the kernel's layout: per layer
     the (K_l, N_l) weight row-major, then its (N_l,) bias, each zero-padded
     to the kernel's widths (K and D to multiples of LANE, hidden to H)."""
-    n = len(pairs)
     parts = []
-    for l, (w, b) in enumerate(pairs):
-        k_l = _pad(K) if l == 0 else H
-        n_l = _pad(D) if l == n - 1 else H
+    for (w, b), (k_l, n_l) in zip(pairs, _layer_shapes(K, H, len(pairs) - 1, D)):
         parts.append(F.pad(w, (0, n_l - w.shape[1], 0, k_l - w.shape[0])).reshape(-1))
         parts.append(F.pad(b, (0, n_l - b.shape[0])))
     return torch.cat(parts).contiguous()
@@ -421,11 +514,8 @@ def _pack(pairs: Sequence[Tuple[torch.Tensor, torch.Tensor]], K: int, H: int, D:
 def _unpack(flat: torch.Tensor, like: Sequence[Tuple[torch.Tensor, torch.Tensor]], K: int, H: int,
             D: int) -> List[Tuple[torch.Tensor, torch.Tensor]]:
     """The inverse of :func:`_pack`, padding stripped to ``like``'s shapes."""
-    n = len(like)
     out, off = [], 0
-    for l, (w, b) in enumerate(like):
-        k_l = _pad(K) if l == 0 else H
-        n_l = _pad(D) if l == n - 1 else H
+    for (w, b), (k_l, n_l) in zip(like, _layer_shapes(K, H, len(like) - 1, D)):
         wp = flat[off: off + k_l * n_l].view(k_l, n_l)
         off += k_l * n_l
         out.append((wp[: w.shape[0], : w.shape[1]].contiguous(), flat[off: off + b.shape[0]].clone()))
@@ -437,40 +527,68 @@ def _kernel_lib() -> ctypes.CDLL:
     lib = _build.load("fused_train")
     if lib.ff_fused_train.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.ff_fused_train.argtypes = [p] * 13 + [i] * 13 + [f] * 6 + [i, ctypes.c_size_t, p]
+        ip = ctypes.POINTER(i)
+        lib.ff_fused_train.argtypes = [p] * 16 + [i] * 14 + [f] * 6 + [i, p]
         lib.ff_fused_train.restype = ctypes.c_int
-        lib.ff_fused_train_capacity.argtypes = [i, ctypes.c_size_t, ctypes.POINTER(i), ctypes.POINTER(i)]
+        lib.ff_fused_train_capacity.argtypes = [ctypes.c_size_t, ip, ip]
         lib.ff_fused_train_capacity.restype = ctypes.c_int
+        lib.ff_fused_train_attributes.argtypes = [ip, ip]
+        lib.ff_fused_train_attributes.restype = ctypes.c_int
     return lib
 
 
-_CAPACITY: Dict[Tuple[int, int, int], Tuple[int, int]] = {}
+_CAPACITY: Dict[Tuple[int, int], Tuple[int, int]] = {}
 
 
-def _capacity(device: torch.device, rows: int, smem: int) -> Tuple[int, int]:
+def _capacity(device: torch.device, smem: int) -> Tuple[int, int]:
     """(blocks an SM can hold for this plan, SM count): a cooperative
     launch's grid may not exceed their product.  Raises where the card
     cannot make a cooperative launch of this plan."""
-    key = (device.index or 0, rows, smem)
+    key = (device.index or 0, smem)
     if key not in _CAPACITY:
         per_sm, sms = ctypes.c_int(0), ctypes.c_int(0)
         with torch.cuda.device(device):
-            err = _kernel_lib().ff_fused_train_capacity(rows, smem, ctypes.byref(per_sm), ctypes.byref(sms))
+            err = _kernel_lib().ff_fused_train_capacity(smem, ctypes.byref(per_sm), ctypes.byref(sms))
         if err != 0 or per_sm.value < 1:
             raise RuntimeError(
-                f"fused_train kernel: no cooperative launch of {rows}-row blocks with {smem} bytes of "
-                f"shared memory on {device} (CUDA error {err}, {per_sm.value} blocks an SM)"
+                f"fused_train kernel: no cooperative launch of blocks with {smem} bytes of shared memory on "
+                f"{device} (CUDA error {err}, {per_sm.value} blocks an SM)"
             )
         _CAPACITY[key] = (per_sm.value, sms.value)
     return _CAPACITY[key]
 
 
-def launch_grid(device: torch.device, rows: int, smem: int, bs: int) -> int:
+def launch_grid(device: torch.device, plan, bs: int) -> int:
     """The grid of a launch: a block for every row tile, at least one for
-    every SM (the Adam pass strides over the parameters with the whole
+    every SM (phase B strides over the parameter tiles with the whole
     grid), never more than the card holds at once."""
-    per_sm, sms = _capacity(device, rows, smem)
-    return min(per_sm * sms, max(-(-bs // rows), sms))
+    per_sm, sms = _capacity(device, plan[1])
+    return min(per_sm * sms, max(-(-bs // plan[0]), sms))
+
+
+def occupancy(plan, device: Optional[torch.device] = None) -> dict:
+    """What the card makes of ``plan``: blocks an SM
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), registers and
+    local-memory bytes a thread of the instantiation it launches."""
+    device = device or torch.device("cuda")
+    regs, local_bytes = ctypes.c_int(), ctypes.c_int()
+    with torch.cuda.device(device):
+        err = _kernel_lib().ff_fused_train_attributes(ctypes.byref(regs), ctypes.byref(local_bytes))
+    if err != 0:
+        raise RuntimeError(f"fused_train attribute query failed with CUDA error {err}")
+    return dict(rows=plan[0], smem_bytes=plan[1], blocks_per_sm=_capacity(device, plan[1])[0],
+                registers=regs.value, local_bytes=local_bytes.value)
+
+
+_TILES: Dict[Tuple[Tuple[int, int, int, int], torch.device], torch.Tensor] = {}
+
+
+def _tiles_on(device: torch.device, dims: Tuple[int, int, int, int]) -> torch.Tensor:
+    """:func:`param_tiles` as an int32 tensor on ``device``, made once."""
+    key = (dims, device)
+    if key not in _TILES:
+        _TILES[key] = torch.tensor(param_tiles(*dims), dtype=torch.int32, device=device)
+    return _TILES[key]
 
 
 def _launch_epoch(params, cfg, opt_state, plan, counter, *, xt, zw, t, beta, conditional, lr, beta1, beta2,
@@ -507,16 +625,18 @@ def _launch_epoch(params, cfg, opt_state, plan, counter, *, xt, zw, t, beta, con
 
 
 def launch_packed(cfg, plan, xt, zw, t, beta, conditional, W, p_flat, m_flat, v_flat, ema_flat, step0, lr, beta1,
-                  beta2, eps, ema_decay, inv, counter=None) -> torch.Tensor:
+                  beta2, eps, ema_decay, inv, counter=None, grid: Optional[int] = None) -> torch.Tensor:
     """One launch of the kernel on state already in its flat layout
     (:func:`_pack`), updated in place; returns the (steps,) losses and adds
-    the launch to ``counter`` (default ``fused_train_epoch``).  Checks the
-    operands and raises on anything the kernel does not take."""
-    rows, smem = plan
+    the launch to ``counter`` (default ``fused_train_epoch``).  ``grid``
+    forces a grid (at most what the card holds).  Checks the operands and
+    raises on anything the kernel does not take."""
+    rows, _ = plan
     steps, bs, D = xt.shape
-    K, H, n_hidden, _ = _dims(cfg)
+    dims = _dims(cfg)
+    K, H, n_hidden, _ = dims
     _, _, C, E = _cfg_fields(cfg)
-    n_param = (_pad(K) + 1) * H + (n_hidden - 1) * (H + 1) * H + (H + 1) * _pad(D)
+    n_param = sum((k + 1) * n for k, n in _layer_shapes(*dims))
     ops = [xt, zw, t, beta] + [a for a in (conditional, W if E is not None else None, ema_flat) if a is not None]
     ops += [p_flat, m_flat, v_flat]
     device = same_device(*ops)
@@ -525,10 +645,14 @@ def launch_packed(cfg, plan, xt, zw, t, beta, conditional, W, p_flat, m_flat, v_
             raise ValueError("fused_train kernel takes contiguous float32 CUDA tensors")
     if any(a.numel() != n_param for a in (p_flat, m_flat, v_flat, ema_flat) if a is not None):
         raise ValueError(f"fused_train kernel: flat state must hold {n_param} floats")
-    grid = launch_grid(device, rows, smem, bs)
-    slots = min(grid, -(-bs // rows))
-    partial = torch.empty((slots, n_param), dtype=torch.float32, device=device)
-    loss_part = torch.empty((slots,), dtype=torch.float32, device=device)
+    if grid is None:
+        grid = launch_grid(device, plan, bs)
+    elif not 1 <= grid <= _capacity(device, plan[1])[0] * _capacity(device, plan[1])[1]:
+        raise ValueError(f"fused_train kernel: a grid of {grid} blocks is more than the card holds at once")
+    tiles = _tiles_on(device, dims)
+    temb = None if E is None else torch.empty((steps * bs * E,), dtype=torch.float32, device=device)
+    ws_h, ws_d, ws_loss = (torch.empty((n,), dtype=torch.float32, device=device)
+                           for n in workspace_floats(cfg, bs))
     loss = torch.empty((steps,), dtype=torch.float32, device=device)
 
     def ptr(a):
@@ -536,11 +660,12 @@ def launch_packed(cfg, plan, xt, zw, t, beta, conditional, W, p_flat, m_flat, v_
 
     with torch.cuda.device(device):
         err = _kernel_lib().ff_fused_train(
-            ptr(xt), ptr(zw), ptr(t), ptr(beta), ptr(conditional), ptr(W if E is not None else None),
-            ptr(p_flat), ptr(m_flat), ptr(v_flat), ptr(ema_flat), ptr(partial), ptr(loss_part), ptr(loss),
+            ptr(xt), ptr(zw), ptr(t), ptr(beta), ptr(conditional), ptr(W if E is not None else None), ptr(temb),
+            ptr(tiles),
+            ptr(p_flat), ptr(m_flat), ptr(v_flat), ptr(ema_flat), ptr(ws_h), ptr(ws_d), ptr(ws_loss), ptr(loss),
             steps, bs, D, C, 0 if E is None else E // 2, _pad(K), H, n_hidden, _pad(D),
-            _KERNEL_ACTIVATIONS.index(cfg.activation), rows, slots, step0,
-            lr, beta1, beta2, eps, ema_decay, inv, grid, smem, torch.cuda.current_stream(device).cuda_stream,
+            _KERNEL_ACTIVATIONS.index(cfg.activation), rows, tiles.shape[0], step0, plan_wbuf(cfg, plan),
+            lr, beta1, beta2, eps, ema_decay, inv, grid, torch.cuda.current_stream(device).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"fused_train kernel launch failed with CUDA error {err}")

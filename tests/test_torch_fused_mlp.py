@@ -256,9 +256,26 @@ def test_em_plan_keeps_its_rows(H, D, with_cond, plan):
     assert em_sampler.em_plan(H, D, with_cond) == plan
 
 
-@pytest.mark.parametrize("D, C, H, plan", [(2, 0, 128, (32, 101_376)), (6, 3, 128, (32, 102_912)),
-                                           (6, 3, 256, (16, 101_120))])
-def test_training_plan_keeps_its_rows(D, C, H, plan):
-    """The training kernel's rows, and with them its per-block gradient
-    slots and so FitCheckpoint resume, do not move."""
-    assert fused_train.train_plan(nets.ScoreMLPConfig(n_dimensions=D, n_conditionals=C, units=(H,) * 3)) == plan
+@pytest.mark.parametrize("D, C, H, plan, wbuf", [(2, 0, 128, (4, 178_368), 36_400),
+                                                 (6, 3, 128, (4, 184_640), 37_968),
+                                                 (6, 3, 256, (4, 232_448), 49_920)])
+def test_training_plan_keeps_its_rows(D, C, H, plan, wbuf):
+    """The training kernel plans with a plan of its own: at bs 512, 4 rows a
+    block (128 row tiles on 132 SMs), the net staged beside them (whole for
+    H = 128, in k-chunks for H = 256).  A launch's result does not depend on
+    the plan, so FitCheckpoint resume does not either.  Other batches:
+    tests/test_torch_fused_train.py::test_train_plan."""
+    cfg = nets.ScoreMLPConfig(n_dimensions=D, n_conditionals=C, units=(H,) * 3)
+    assert fused_train.train_plan(cfg, 512) == plan and fused_train.plan_wbuf(cfg, plan) == wbuf
+
+
+def test_rows_for_counts_the_block_reserve():
+    """Two blocks share an SM up to 115,712 bytes a block (each reserves
+    1 KB): a plan whose 32 rows take 115,968 bytes holds one block there,
+    so rows_for takes 16; at 115,712 bytes it keeps 32.  The EM plans do
+    not move (test_em_plan_keeps_its_rows)."""
+    assert fused_mlp.blocks_per_sm(115_712) == 2 and fused_mlp.blocks_per_sm(115_968) == 1
+    assert fused_mlp.rows_for(lambda r: 115_712 * r // 32) == 32
+    assert fused_mlp.rows_for(lambda r: 115_968 * r // 32) == 16
+    assert fused_mlp.rows_for(lambda r: 115_968 + r) == 4  # no two blocks at any rows: 4 rows, one block
+    assert fused_mlp.rows_for(lambda r: 232_449) is None

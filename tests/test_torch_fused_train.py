@@ -237,13 +237,112 @@ def test_pack_round_trip_pads_to_the_kernel_layout():
 
 
 def test_plan_bound_and_flops_of_the_main_path():
-    """The flagship net (K = 10, H = 128 x 3, D = 2) runs 32-row tiles, the
-    conditional H = 256 net 16-row tiles; 205,824 flops a row a step."""
+    """The flagship net (K = 10, H = 128 x 3, D = 2) runs 4-row tiles at bs
+    512 (128 row tiles) and 1-row tiles at bs 128, the conditional H = 256
+    net 4-row tiles at bs 512; 205,824 flops a row a step."""
     flag = nets.ScoreMLPConfig(n_dimensions=2, units=(128, 128, 128))
     cond = nets.ScoreMLPConfig(n_dimensions=6, n_conditionals=3, units=(256, 256, 256))
-    assert ft.train_plan(flag)[0] == 32 and ft.train_plan(cond)[0] == 16
+    assert ft.train_plan(flag, 512)[0] == 4 and ft.train_plan(flag, 128)[0] == 1
+    assert ft.train_plan(cond, 512)[0] == 4 and -(-512 // ft.train_plan(flag, 512)[0]) >= 128
     assert ft.train_flops(flag, 1, 1) == 205_824 and ft.train_flops(flag, 48, 512) == 48 * 512 * 205_824
     assert ft.train_plan(nets.ScoreMLPConfig(n_dimensions=2, units=(4096,) * 3)) is None
+
+
+_FLAG = nets.ScoreMLPConfig(n_dimensions=2, units=(128, 128, 128))
+_SYMPL_HALF = ft._sympl_half_cfg(nets.SymplecticMLPConfig(n_data_dims=2, units=(128, 128)))
+
+
+# (net, bs, rows, smem bytes, staged floats): 4 x (max(rows x row floats,
+# 8,192) + staged floats), the whole net staged where it fits beside the
+# row tile (flagship 36,400 floats), else what is left for k-chunks
+# (conditional H = 256); phase B's partials and row buffers (8,192 floats)
+# set the floor.  The three nets at bs 512 are pinned in
+# tests/test_torch_fused_mlp.py::test_training_plan_keeps_its_rows.
+@pytest.mark.parametrize("cfg, bs, rows, smem, wbuf", [
+    (_FLAG, 77, 1, 178_368, 36_400),
+    (_FLAG, 128, 1, 178_368, 36_400),
+    (_FLAG, 500, 4, 178_368, 36_400),
+    (_FLAG, 2048, 16, 195_776, 36_400),
+    (_FLAG, 6400, 64, 232_448, 7_936),
+    (nets.ScoreMLPConfig(n_dimensions=6, n_conditionals=3, units=(256,) * 3), 1000, 8, 232_448, 45_600),
+    (nets.VelocityMLPConfig(target_dimension=2, hidden_units=(128, 128)), 512, 4, 106_560, 18_448),
+    (_SYMPL_HALF, 512, 4, 110_784, 19_504),
+    (_SYMPL_HALF, 256, 2, 110_784, 19_504),
+])
+def test_train_plan(cfg, bs, rows, smem, wbuf):
+    plan = ft.train_plan(cfg, bs)
+    assert plan == (rows, smem) and ft.plan_wbuf(cfg, plan) == wbuf
+
+
+def test_train_plan_forced_rows():
+    """``rows=`` forces a plan; a block that does not fit raises; the plan
+    does not depend on the card (``sms`` is the plan's own)."""
+    assert ft.train_plan(_FLAG, 512, rows=4) == ft.train_plan(_FLAG, 512)
+    assert ft.train_plan(_FLAG, 512, rows=32) == (32, 232_448)  # the net does not fit beside 32 rows: k-chunks
+    assert ft.plan_wbuf(_FLAG, (32, 232_448)) == 58_112 - 32 * (12 + 768 + 4)
+    assert ft.train_plan(_FLAG, 512, rows=3) == (3, 4 * (8_192 + 36_400))  # phase B's floor, then the net
+    for rows in (0, 257):
+        with pytest.raises(ValueError, match="rows whose block fits"):
+            ft.train_plan(_FLAG, 512, rows=rows)
+    wide = nets.ScoreMLPConfig(n_dimensions=2, units=(2048,) * 3)
+    with pytest.raises(ValueError, match="rows whose block fits"):
+        ft.train_plan(wide, 512, rows=8)
+    assert ft.train_plan(_FLAG, 512, sms=64)[0] == 8
+
+
+# (D, C, hidden layers, widest H admitted): the admission policy
+# (_ADMIT_ROW_FLOATS), the envelope of the first version of the kernel,
+# unchanged: a 4-row block of activations, act' and a 256-float scratch
+# within 232,448 bytes
+@pytest.mark.parametrize("D, C, n_hidden, widest", [
+    (2, 0, 3, 2408), (6, 3, 3, 2404), (2, 0, 1, 7224), (2, 0, 8, 900),
+])
+def test_train_envelope_widths(D, C, n_hidden, widest):
+    def cfg(H):
+        return nets.ScoreMLPConfig(n_dimensions=D, n_conditionals=C, units=(H,) * n_hidden)
+
+    assert ft.train_plan(cfg(widest)) is not None and ft.train_plan(cfg(widest + 4)) is None
+    for bs in (1, 128, 512, 100_000):
+        rows, smem = ft.train_plan(cfg(widest), bs)
+        assert smem <= 232_448 and ft.plan_wbuf(cfg(widest), (rows, smem)) >= 4 * (widest + 4)
+
+
+@pytest.mark.parametrize("cfg", [_FLAG, _SYMPL_HALF,
+                                 nets.ScoreMLPConfig(n_dimensions=6, n_conditionals=3, units=(256,) * 3),
+                                 nets.ScoreMLPConfig(n_dimensions=3, units=(30, 18), activation="tanh"),
+                                 nets.VelocityMLPConfig(target_dimension=2, conditional_dimension=2,
+                                                        hidden_units=(100, 100))])
+def test_param_tiles_cover_every_parameter_once(cfg):
+    """Phase B's tile map covers every parameter of the flat layout, biases
+    included, exactly once: weight tiles of at most 16 rows by 32 columns
+    (at most 32 items of 4 k by 4 n), bias tiles of one row by at most 32,
+    largest first."""
+    K, H, n_hidden, D = ft._dims(cfg)
+    shapes = ft._layer_shapes(K, H, n_hidden, D)
+    offsets = np.cumsum([0] + [(k + 1) * n for k, n in shapes])
+    hits = np.zeros(offsets[-1], dtype=int)
+    tiles = ft.param_tiles(K, H, n_hidden, D)
+    for l, k0, kc, n0, nc in tiles:
+        k_l, n_l = shapes[l]
+        assert nc % 4 == 0 and nc <= 32 and n0 + nc <= n_l
+        assert (kc == 1 and k0 == k_l) or (kc % 4 == 0 and kc <= 16 and k0 + kc <= k_l)
+        for k in range(k0, k0 + kc):
+            hits[offsets[l] + k * n_l + n0: offsets[l] + k * n_l + n0 + nc] += 1
+    assert (hits == 1).all()
+    assert [kc * nc for _, _, kc, _, nc in tiles] == sorted((kc * nc for _, _, kc, _, nc in tiles), reverse=True)
+    assert hits.size == ft._pack([(torch.zeros(k, n), torch.zeros(n)) for k, n in shapes], K, H, D).numel()
+    if cfg is _FLAG:
+        assert len(tiles) == 89  # at most one tile a block on 132 SMs
+
+
+def test_workspace_size():
+    """Phase A's workspace: each row's layer inputs and deltas at the
+    kernel's padded widths and its loss, about 1.6 MB for the flagship net
+    at bs 512."""
+    assert ft.workspace_floats(_FLAG, 512) == (512 * (12 + 384), 512 * (384 + 4), 512)
+    assert 4 * sum(ft.workspace_floats(_FLAG, 512)) == 1_607_680
+    cond = nets.ScoreMLPConfig(n_dimensions=6, n_conditionals=3, units=(256,) * 3)
+    assert ft.workspace_floats(cond, 77) == (77 * (20 + 768), 77 * (768 + 8), 77)
 
 
 def test_epoch_guards():
@@ -277,7 +376,7 @@ def test_epoch_guards():
         ft.fused_train_epoch(tp, dataclasses.replace(tcfg, n_conditionals=1), lr=1e-3, **tab)
     with pytest.raises(NotImplementedError, match="queue 2"):
         ft.fused_train_epoch(tp, tcfg, lr=1e-3, compute_dtype="bfloat16", **tab)
-    wide = nets.ScoreMLPConfig(n_dimensions=2, units=(1024,) * 8)  # 4 rows need 262,400 bytes
+    wide = nets.ScoreMLPConfig(n_dimensions=2, units=(1024,) * 8)  # 16,400 floats a row: over the 14,464 admitted
     with pytest.raises(ValueError, match="plan does not fit"):
         ft.fused_train_epoch(nets.init_score_mlp(wide, torch.Generator().manual_seed(0), "cpu"), wide, lr=1e-3,
                              **tab)

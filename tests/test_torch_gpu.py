@@ -644,6 +644,64 @@ def test_fit_exact_resume_on_the_card(cuda_device, tmp_path, engine):
         assert list(a.train_losses) == list(b.train_losses)
 
 
+def _train_launch_case(family, bs, C, cuda_device):
+    """(cfg, flat layers, W, tables, inv) of one training-kernel launch on a
+    random net, the symplectic form as its q stack's half-net."""
+    from flowfusion_torch.kernels import fused_train as ft
+
+    cfg, params = _train_net(family, cuda_device, C)
+    layers = params["layers"] if family != "symplectic" else ft._sympl_perm_layer0(params["q_layers"], 2, C, 8, False)
+    if family == "symplectic":
+        cfg = ft._sympl_half_cfg(cfg)
+    D = 3 if family == "score_odd" else 2
+    tab = _train_tables(6, bs, D, C, cuda_device, 23)
+    return cfg, layers, params["W"] if "W" in params else None, tab, 1.0 / bs
+
+
+_TRAIN_PLAN_CASES = [("score", 512, 0), ("score", 77, 0), ("score", 256, 3), ("velocity", 300, 2),
+                     ("symplectic", 512, 0)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("family, bs, C", _TRAIN_PLAN_CASES)
+def test_train_kernel_is_bitwise_across_plans(cuda_device, family, bs, C):
+    """No sum's order depends on the plan: a launch at its own plan equals,
+    bitwise (params, moments, EMA, losses), the same launch forced to other
+    rows a block (4, or 8 where the plan has 4, for another row tile a
+    thread), to a smaller grid, and to 32 rows a block (where the net no
+    longer fits beside the rows and is staged in k-chunks)."""
+    from flowfusion_torch.kernels import fused_train as ft
+
+    cfg, layers, W, tab, inv = _train_launch_case(family, bs, C, cuda_device)
+    K, H, _, D = ft._dims(cfg)
+    own = ft.train_plan(cfg, bs)
+    outs = []
+    for plan, grid in ((own, None), (ft.train_plan(cfg, bs, rows=4 if own[0] != 4 else 8), None), (own, 17),
+                       (ft.train_plan(cfg, bs, rows=32), None)):
+        flat = ft._pack([(l["w"], l["b"]) for l in layers], K, H, D)
+        state = [flat, torch.zeros_like(flat), torch.zeros_like(flat), flat.clone()]
+        loss = ft.launch_packed(cfg, plan, tab["xt"], tab["zw"], tab["t"], tab["beta"], tab["conditional"], W, *state,
+                                0, 1e-3, 0.9, 0.999, 1e-8, 0.99, inv, grid=grid)
+        outs.append(state + [loss])
+    torch.cuda.synchronize()
+    for other in outs[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(outs[0], other)), (family, bs, own)
+
+
+@pytest.mark.gpu
+def test_train_kernel_occupancy(cuda_device):
+    """Every training plan of the cases above, at its own rows, 4 and 32,
+    keeps no local memory a thread and launches with one block an SM at
+    least."""
+    from flowfusion_torch.kernels import fused_train as ft
+
+    for family, bs, C in _TRAIN_PLAN_CASES + [("score", 128, 0)]:
+        cfg = _train_launch_case(family, bs, C, cuda_device)[0]
+        for plan in (ft.train_plan(cfg, bs), ft.train_plan(cfg, bs, rows=4), ft.train_plan(cfg, bs, rows=32)):
+            occ = ft.occupancy(plan)
+            assert occ["local_bytes"] == 0 and occ["blocks_per_sm"] >= 1, (family, bs, occ)
+
+
 _RHS_NETS = [(2, 0, 128), (2, 0, 256), (6, 3, 128), (6, 3, 256)]
 
 
