@@ -17,7 +17,8 @@ non-zero without the final line):
      b. the EM sampler kernel, streamed and Philox noise, 100 steps: the
         flagship at 50,000 and 50,001 rows, the conditional H=128 and H=256
         weights at 50,000, random width-100 tanh/relu/gelu nets at 4,096;
-        a NaN injected into one row freezes its block only;
+        a NaN injected into one row freezes its block only; the flagship
+        launch's time, us a step and share of its bound;
      c. fused_velocity: the flow checkpoint at 50,000 rows and a
         conditional random velocity net;
      d. the tangents mode (K = 3: flagship, conditional H=256, flow), the
@@ -75,6 +76,13 @@ non-zero without the final line):
         another row tile a thread; and 32, where the flagship's net no
         longer fits beside the rows and is staged in k-chunks) and to a
         17-block grid: params, moments, EMA and losses bitwise equal;
+     k. the EM kernel's plans: rows, bytes, grid, the blocks an SM (by the
+        plan and by cudaOccupancyMaxActiveBlocksPerMultiprocessor),
+        registers and local memory a thread (none) of every plan of 1b and
+        of each forced to 4 rows and to half its rows; each case of 1b at the
+        three plans in both noise modes: x_mean, x and diverged bitwise
+        equal; the kernel's written-out sincos against sincosf on all 2^24
+        Box--Muller angles (no bit differs);
   2. the likelihood path, flagship model (benchmarks/flagship_ckpt.npz):
      the exact-trace ``log_prob`` at its defaults against the analytic
      mixture density; Hutchinson at rtol 1e-5 with the PI controller through
@@ -136,13 +144,13 @@ result when no CUDA card is visible.
 
     python3 chip_smoke.py --parent DIR   # the kernels against a parent's
 
-A/Bs this tree's RHS, sketch and training kernels against the
+A/Bs this tree's RHS, sketch, EM and training kernels against the
 ``flowfusion_torch`` package of a parent commit unpacked in DIR (``git
-archive <commit> flowfusion_torch | tar -x -C DIR``), in one process: RHS
-and sketch launches bitwise and timed in turns, the Hutchinson solves,
-``sample_sde`` and the sketch solves in turns; training epochs held to the
-plain version and timed in turns, the flagship protocol through ``fit`` in
-turns (see ``parent_ab``).
+archive <commit> flowfusion_torch | tar -x -C DIR``), in one process: RHS,
+sketch and EM launches bitwise and timed in turns, the Hutchinson solves,
+``sample_sde``, ``sample_sde_fused`` and the sketch solves in turns;
+training epochs held to the plain version and timed in turns, the flagship
+protocol through ``fit`` in turns (see ``parent_ab``).
 """
 
 from __future__ import annotations
@@ -420,7 +428,8 @@ def main() -> int:
         w_in_em.numel() + coeffs.numel() + b_eff_em.numel())
     em_timing = dict(ms=em_ms, plain_ms=em_plain_ms, **bound(em_flops, em_bytes))
     emit("em_kernel_time", rows=B, steps=EM_STEPS, block_rows=rows, card=smi, **em_timing,
-         flops=em_flops, bytes=em_bytes, samples_per_s=B / (em_ms / 1e3))
+         flops=em_flops, bytes=em_bytes, samples_per_s=B / (em_ms / 1e3), us_per_step=em_ms / EM_STEPS * 1e3,
+         share_of_bound=em_timing["bound_ms"] / em_ms)
 
     # -- phase 1c: fused_velocity against its plain version -----------------
     flow_path = os.path.join(BENCH, "flow_ckpt.npz")
@@ -1427,6 +1436,47 @@ def main() -> int:
                               for f in forced],
              bitwise_forced=same[:2], bitwise_grid17=same[2])
 
+    # -- phase 1k: the EM kernel's plans on the card, and a launch against
+    # its plan.  Every plan phase 1b runs: rows, bytes, grid, the blocks an
+    # SM holds by the plan and by the card, registers and local memory a
+    # thread (none).  Then each case of 1b at its own plan, forced to 4 rows
+    # and at half its rows, in both noise modes: x_mean, x and diverged
+    # bitwise equal (rows are independent until a NaN).  The kernel's
+    # written-out sincos is sincosf on every Box--Muller angle.
+    trig_bad = em_sampler.trig_mismatches(dev)
+    check(trig_bad == 0, f"EM kernel sincos differs from sincosf on {trig_bad} Box--Muller angles")
+    for name, params, cfg, sde, no_sigma, B, cond_stats in em_cases:
+        D, with_cond = cfg.n_dimensions, cond_stats is not None
+        pp, pc = fused_mlp.pad_to_lanes(params, cfg)
+        own = em_sampler.em_plan(pc.units[0], D, with_cond)
+        plans = [own] + [em_sampler.em_plan(pc.units[0], D, with_cond, rows=r) for r in (4, own[0] // 2)]
+        occ = [em_sampler.em_occupancy(p_) for p_ in plans]
+        for p_, o in zip(plans, occ):
+            check(o["local_bytes"] == 0, f"EM kernel keeps {o['local_bytes']} bytes a thread in local memory")
+            check(o["blocks_per_sm"] == em_sampler.em_plan_blocks(p_),
+                  f"EM plan {name} {list(p_)}: the card holds {o['blocks_per_sm']} blocks an SM, "
+                  f"the plan {em_sampler.em_plan_blocks(p_)}")
+        g = gen(B + 3)
+        x0 = sde.prior_sample(g, (B, D), dev)
+        c = None
+        if with_cond:
+            c = (CONDITIONAL_POP.sample(g, B, device=dev)[1] - cond_stats[0]) / cond_stats[1]
+        streamed = torch.randn(EM_STEPS, B, D, generator=g).to(dev)
+        w_in_k, cp_k, coeffs_k, b_eff_k = em_sampler._prepare(pp, pc, sde, c, EM_STEPS, no_sigma)
+        same = {}
+        for noise_mode, z in (("streamed", streamed), ("philox", None)):
+            outs = [em_sampler._launch(x0, z, 2**40 + B, cp_k, coeffs_k, b_eff_k, w_in_k, pp["layers"], cfg.activation,
+                                       EM_STEPS, *p_) for p_ in plans]
+            torch.cuda.synchronize()
+            same[noise_mode] = [all(bool(torch.equal(a, b)) for a, b in zip(o, outs[0])) for o in outs[1:]]
+            check(all(same[noise_mode]) and not bool(outs[0][2]),
+                  f"EM {name} B={B} {noise_mode}: a launch at {[list(p_) for p_ in plans[1:]]} differs from its own "
+                  f"plan {list(own)}")
+        emit("em_plan", case=name, rows=B, plan=list(own), grid=-(-B // own[0]), plan_blocks_per_sm=em_sampler.em_plan_blocks(own),
+             **{k: occ[0][k] for k in ("blocks_per_sm", "registers", "local_bytes")},
+             forced_plans=[list(p_) for p_ in plans[1:]], forced_local_bytes=[o["local_bytes"] for o in occ[1:]],
+             bitwise_forced=same, trig_mismatches=trig_bad)
+
     # -- phases 2-4: the likelihood path, launches counted from zero -------
     reset_counts()
 
@@ -2293,7 +2343,7 @@ def main() -> int:
 
 
 def parent_ab(parent_dir: str) -> int:
-    """This tree's RHS, sketch and training kernels against a parent
+    """This tree's RHS, sketch, EM and training kernels against a parent
     commit's, in one process on one card.  ``parent_dir`` holds the parent's package
     (``git archive <commit> flowfusion_torch | tar -x -C DIR``); it is
     imported under another name and builds its own library under DIR.
@@ -2319,6 +2369,14 @@ def parent_ab(parent_dir: str) -> int:
     pairs) in both modes and sample_sde at 50,000 (ten pairs), a warm-up of
     each: NFE equal and outputs bitwise equal.
 
+    The EM kernel: the flagship at 50,000 and 50,001 rows, the conditional
+    H = 128 and H = 256 checkpoints at 50,000 and the random tanh, relu
+    and gelu nets of phase 1b at 4,096, 100 steps, streamed and Philox
+    noise, each side at its own plan: x_mean, x and diverged bitwise equal,
+    timed in turns as above; sample_sde_fused through the flagship model
+    with each side's fused_em_sample at 50,000 rows, a warm-up of each, then
+    ten pairs, each side first in turn: samples bitwise equal.
+
     The training kernel: the flagship at bs 512 x 48 steps and bs 128 x
     195, the conditional H = 256 net at bs 512 x 48 and the symplectic pair
     (two launches), each side held to the plain version at phase 1e's bars
@@ -2331,6 +2389,7 @@ def parent_ab(parent_dir: str) -> int:
     import contextlib
     import importlib
     import importlib.util
+    import inspect
     import types
     from collections import defaultdict
     from concurrent.futures import ThreadPoolExecutor
@@ -2341,14 +2400,14 @@ def parent_ab(parent_dir: str) -> int:
         print("chip_smoke: no CUDA card visible; nothing was run", file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
-    from flowfusion_torch.kernels import fused_mlp, fused_sketch
+    from flowfusion_torch.kernels import em_sampler, fused_mlp, fused_sketch
     from flowfusion_torch.models import score as score_mod
-    from flowfusion_torch.models.nets import ScoreMLPConfig, VelocityMLPConfig, fourier_time_embedding
+    from flowfusion_torch.models.nets import ScoreMLPConfig, VelocityMLPConfig, fourier_time_embedding, init_score_mlp
     from flowfusion_torch.models.population import PopulationModelDiffusion
     from flowfusion_torch.models.score import ScoreModel
     from flowfusion_torch.models.symplectic import SymplecticFlowModel
     from flowfusion_torch.ops import trace as trace_ops
-    from flowfusion_torch.ops.sde import VESDE
+    from flowfusion_torch.ops.sde import VESDE, VPSDE
     from flowfusion_torch.utils.checkpoint import load_npz, read_npz_extra
     from flowfusion_torch.utils.convert import params_from_numpy
     from flowfusion_torch.utils.data import CONDITIONAL_POP, DEMO_GMM
@@ -2364,9 +2423,9 @@ def parent_ab(parent_dir: str) -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
-    with ThreadPoolExecutor(4) as pool:
+    with ThreadPoolExecutor(6) as pool:
         list(pool.map(lambda job: job[0]._build.build(job[1]),
-                      [(mod, name) for mod in kernels.values() for name in ("fused_sketch", "fused_mlp")]))
+                      [(mod, name) for mod in kernels.values() for name in ("fused_sketch", "fused_mlp", "em_sampler")]))
 
     dev = torch.device("cuda")
 
@@ -2505,6 +2564,79 @@ def parent_ab(parent_dir: str) -> int:
                  bitwise=same, parent_ms=ms["parent"], tree_ms=ms["tree"], tree_over_parent=ms["tree"] / ms["parent"],
                  runs_ms=runs)
 
+    # the EM kernel's launches: the flagship at 50,000 and 50,001 rows, the
+    # conditional H = 128 and H = 256 checkpoints at 50,000 (the
+    # population's own standardized conditionals) and phase 1b's random
+    # tanh, relu and gelu nets at 4,096, 100 steps, streamed and Philox
+    # noise, each side at its own plan: x_mean, x and diverged bitwise
+    # equal, timed in turns
+    em = {"parent": importlib.import_module("parent_flowfusion_torch.kernels.em_sampler"), "tree": em_sampler}
+    em_cases = [("flagship", flag, flag_cfg, VESDE(), False, rows, None) for rows in (50_000, 50_001)]
+    for H, name in ((128, "conditional_ckpt.npz"), (256, "conditional_ckpt_h256.npz")):
+        tree_ = load_npz(os.path.join(BENCH, name))
+        em_cases.append((f"conditional H={H}", params_from_numpy(tree_["score_model"]["params"], dev),
+                         ScoreMLPConfig(n_dimensions=6, n_conditionals=3, units=(H,) * 3), VPSDE(), True, 50_000,
+                         params_from_numpy([tree_["conditional_shift"], tree_["conditional_scale"]], dev)))
+    for act in ("tanh", "relu", "gelu"):
+        cfg = ScoreMLPConfig(n_dimensions=3, units=(100, 100, 100), activation=act)
+        em_cases.append((f"random_{act}", init_score_mlp(cfg, gen(21), dev), cfg, VPSDE(), True, 4_096, None))
+    for name, params, cfg, sde, no_sigma, rows, cond_stats in em_cases:
+        g = gen(rows + 3)
+        D = cfg.n_dimensions
+        x0 = sde.prior_sample(g, (rows, D), dev)
+        c = None
+        if cond_stats is not None:
+            c = (CONDITIONAL_POP.sample(g, rows, device=dev)[1] - cond_stats[0]) / cond_stats[1]
+        streamed = torch.randn(100, rows, D, generator=g).to(dev)
+        pp, pc = fused_mlp.pad_to_lanes(params, cfg)
+        w_in, cp, coeffs, b_eff = em_sampler._prepare(pp, pc, sde, c, 100, no_sigma)
+        plans = {k: mod.em_plan(pc.units[0], D, c is not None) for k, mod in em.items()}
+        for noise_mode, z in (("streamed", streamed), ("philox", None)):
+            fns = {k: (lambda mod=mod, plan=plans[k]: mod._launch(x0, z, 2**40 + rows, cp, coeffs, b_eff, w_in,
+                                                                  pp["layers"], cfg.activation, 100, *plan))
+                   for k, mod in em.items()}
+            outs = {k: fn() for k, fn in fns.items()}
+            torch.cuda.synchronize()
+            same = [bool(torch.equal(a, b)) for a, b in zip(outs["parent"], outs["tree"])]
+            if not all(same):
+                failed.append(f"EM {name} B={rows} {noise_mode}: differs from the parent (x_mean, x, diverged: {same})")
+            runs = {"parent": [], "tree": []}
+            for i in range(3):
+                for k in ("parent", "tree", "tree", "parent") if i % 2 == 0 else ("tree", "parent", "parent", "tree"):
+                    runs[k].append(median_ms(fns[k]))
+            ms = {k: statistics.median(v) for k, v in runs.items()}
+            emit("parent_ab_em_launch", case=name, rows=rows, steps=100, noise=noise_mode, card=smi,
+                 plans={k: list(v) for k, v in plans.items()}, bitwise=same, parent_ms=ms["parent"], tree_ms=ms["tree"],
+                 tree_over_parent=ms["tree"] / ms["parent"], us_per_step={k: v / 100 * 1e3 for k, v in ms.items()},
+                 runs_ms=runs)
+    # sample_sde_fused through the flagship model with each side's
+    # fused_em_sample: a warm-up of each, then ten pairs, each side first in
+    # turn; the samples bitwise equal
+    em_model = ScoreModel(flag, flag_cfg, VESDE())
+    saved_em = score_mod.fused_em_sample
+    secs, res = {"parent": [], "tree": []}, {}
+    for i in range(11):
+        for which in ("tree", "parent") if i % 2 == 0 else ("parent", "tree"):
+            score_mod.fused_em_sample = em[which].fused_em_sample
+            try:
+                torch.cuda.synchronize()
+                t_start = time.perf_counter()
+                res[which] = em_model.sample_sde_fused((B, 2), steps=100,
+                                                       generator=torch.Generator(device=dev).manual_seed(62))
+                torch.cuda.synchronize()
+            finally:
+                score_mod.fused_em_sample = saved_em
+            if i > 0:
+                secs[which].append(time.perf_counter() - t_start)
+    same = all(bool(torch.equal(a, b)) for a, b in zip(res["tree"], res["parent"]))
+    if not same:
+        failed.append("sample_sde_fused: the samples differ from the parent's")
+    med = {k: statistics.median(v) for k, v in secs.items()}
+    emit("parent_ab_sample_sde_fused", rows=B, steps=100, card=smi, bitwise=same, parent_seconds=med["parent"],
+         tree_seconds=med["tree"], tree_over_parent=med["tree"] / med["parent"],
+         samples_per_s={k: B / v for k, v in med.items()},
+         tree_faster_pairs=sum(t < p for t, p in zip(secs["tree"], secs["parent"])), seconds_runs=secs)
+
     @contextlib.contextmanager
     def kernel_of(which):
         """The models' RHS and sketch RHS through ``which`` kernels' wrappers."""
@@ -2595,6 +2727,11 @@ def parent_ab(parent_dir: str) -> int:
         """``cfg`` as ``which`` side's config class."""
         return cfg if which == "tree" else getattr(old_nets, type(cfg).__name__)(**dataclasses.asdict(cfg))
 
+    def plan_of(mod, cfg, bs):
+        """``mod``'s training plan at batch ``bs`` (a parent whose plan does
+        not take the batch plans without it)."""
+        return mod.train_plan(cfg, bs) if "bs" in inspect.signature(mod.train_plan).parameters else mod.train_plan(cfg)
+
     def state_max_err(a, b):
         return max(float((x - y).abs().max()) for k in ("layers", "q_layers", "p_layers") if k in a
                    for la, lb in zip(a[k], b[k]) for x, y in zip(la.values(), lb.values()))
@@ -2626,7 +2763,7 @@ def parent_ab(parent_dir: str) -> int:
             stacks = [(params["layers"], tab["xt"], tab["zw"], tab["beta"])]
             inv = 1.0 / bs
         side_cfg = cfg_of(which, half)
-        plan = mod.train_plan(side_cfg) if which == "parent" else mod.train_plan(side_cfg, bs)
+        plan = plan_of(mod, side_cfg, bs)
         K, H, _, D = fused_train._dims(half)
         calls = []
         for layers, xt, zw, beta in stacks:
@@ -2675,9 +2812,8 @@ def parent_ab(parent_dir: str) -> int:
                 runs[k].append(median_ms(fns[k]))
         ms = {k: statistics.median(v) for k, v in runs.items()}
         emit("parent_ab_train_launch", case=name, rows=bs, steps=steps, card=smi,
-             plans={"tree": list(fused_train.train_plan(fused_train._sympl_half_cfg(cfg) if sympl else cfg, bs)),
-                    "parent": list(train_kernels["parent"].train_plan(
-                        cfg_of("parent", fused_train._sympl_half_cfg(cfg) if sympl else cfg)))},
+             plans={k: list(plan_of(train_kernels[k], cfg_of(k, fused_train._sympl_half_cfg(cfg) if sympl else cfg), bs))
+                    for k in ("tree", "parent")},
              vs_plain=errs, tree_vs_parent=diff, parent_ms=ms["parent"], tree_ms=ms["tree"],
              tree_over_parent=ms["tree"] / ms["parent"], us_per_step={k: v / steps * 1e3 for k, v in ms.items()},
              runs_ms=runs)
@@ -2725,7 +2861,7 @@ def cli() -> int:
 
     ap = argparse.ArgumentParser(description="Drive flowfusion_torch's main path on one CUDA card and check it.")
     ap.add_argument("--parent", metavar="DIR",
-                    help="instead, A/B this tree's RHS, sketch and training kernels against the flowfusion_torch package "
+                    help="instead, A/B this tree's RHS, sketch, EM and training kernels against the flowfusion_torch package "
                          "in DIR")
     args = ap.parse_args()
     return parent_ab(args.parent) if args.parent else main()

@@ -22,17 +22,23 @@ pairs -> four normals.  The stream depends only on (seed, row, step,
 feature): not on the block size, the grid or B.  :func:`philox_normals`
 computes the same numbers with integer tensor arithmetic on any device.
 
-Freeze granularity: a block of R rows (R from the shared-memory plan, 64
-for the flagship net) stops at its last finite state when any of its real
+Freeze granularity: a block of R rows (R from :func:`em_plan`, 64 for
+the flagship net) stops at its last finite state when any of its real
 rows goes non-finite, and ``diverged`` is the OR of the blocks' flags.
 The JAX kernel freezes per 2048-row grid tile and the scan path
 (``ops.integrate.euler_maruyama``) the whole batch; the granularity
 changes only which rows keep updating after a NaN, never ``diverged``.
-The plain version freezes per tile of the same R rows.
+The plain version freezes per tile of the same R rows.  Rows are
+independent until a NaN, so on a finite run the plan moves no output.
 
 Sigmoid is the exp form 1/(1 + exp(-a)) in the kernel and the plain
 version alike (the JAX kernel uses the tanh form; the two differ by
 ~1e-7 relative).
+
+A launch's plan, :func:`em_plan`, is ``(rows, smem_bytes)``: the most
+blocks an SM (at most ``EM_BLOCKS``, the kernel's launch bounds) at the
+most rows that reach them, in the kernel's padded layout;
+:func:`em_occupancy` asks the card what it makes of a plan.
 """
 
 from __future__ import annotations
@@ -47,11 +53,23 @@ import torch.nn.functional as F
 from .._device import strict_fp32_matmul
 from ..models.nets import _ACTIVATIONS, fourier_time_embedding
 from . import _build
-from .fused_mlp import _KERNEL_ACTIVATIONS, _SMEM_LIMIT, _check_conditional, check_operands, pad_to_lanes, rows_for
+from .fused_mlp import (
+    _KERNEL_ACTIVATIONS,
+    _SMEM_LIMIT,
+    PAD,
+    _check_conditional,
+    _pick_rows,
+    blocks_per_sm,
+    check_operands,
+    pad_to_lanes,
+)
 
 __all__ = [
     "em_prep",
     "em_plan",
+    "em_plan_blocks",
+    "em_occupancy",
+    "trig_mismatches",
     "philox_normals",
     "fused_em_sample",
     "fused_em_sample_reference",
@@ -59,6 +77,7 @@ __all__ = [
     "reset_launch_counts",
 ]
 
+EM_BLOCKS = 2  # blocks an SM the kernel's launch bounds allow (csrc kMinBlocks)
 _MASK = 0xFFFFFFFF
 _PHILOX_M = (0xD2511F53, 0xCD9E8D57)
 _PHILOX_W = (0x9E3779B9, 0xBB67AE85)
@@ -150,23 +169,44 @@ def em_flops(B: int, steps: int, D: int, H: int, n_layers: int) -> int:
     return B * steps * 2 * H * (D + (n_layers - 2) * H + D)
 
 
-def _smem_bytes(rows: int, H: int, D: int, with_cond: bool) -> int:
-    """Shared memory of one block, in the kernel's layout: two (R, H) layer
-    buffers (three with the conditional projection), then x, x_mean and
-    the step's staged x and x_mean, (R, D) each."""
-    return 4 * ((3 if with_cond else 2) * rows * H + 4 * rows * D)
+def _smem_bytes(rows: int, H: int, D: int, with_cond: bool, pad: int = PAD) -> int:
+    """Shared memory of one block, in the kernel's layout: two layer
+    buffers of rows x (H + ``pad``) floats, the (rows, H) conditional
+    projection where there is one, then two halves each of x and x_mean,
+    (rows, D) each."""
+    return 4 * (2 * rows * (H + pad) + (rows * H if with_cond else 0) + 4 * rows * D)
 
 
-def em_plan(H: int, D: int, with_cond: bool) -> Tuple[int, int]:
-    """``(rows, smem_bytes)`` of a launch, rows from the shared policy
-    ``fused_mlp.rows_for``; raises when not even 4 rows fit."""
-    rows = rows_for(lambda r: _smem_bytes(r, H, D, with_cond))
-    if rows is not None:
-        return rows, _smem_bytes(rows, H, D, with_cond)
-    raise ValueError(
-        f"EM kernel shared-memory plan does not fit: H={H}, D={D} need "
-        f"{_smem_bytes(4, H, D, with_cond)} bytes at 4 rows a block (limit {_SMEM_LIMIT})"
-    )
+def em_plan(H: int, D: int, with_cond: bool, rows: Optional[int] = None) -> Tuple[int, int]:
+    """``(rows, smem_bytes)`` of a launch: the most blocks an SM holds (at
+    most ``EM_BLOCKS``, counted with the 1 KB each block reserves), at the
+    most rows that reach them, in the padded layout (rows H + 4 floats
+    apart); the widest nets, where not even 4 padded rows fit, take 4 rows
+    at the unpadded stride H.  ``rows`` forces a plan: a multiple of 4 up
+    to 256 whose block fits (padded where it can be).  Raises when nothing
+    fits."""
+    def smem(r: int, pad: int = PAD) -> int:
+        return _smem_bytes(r, H, D, with_cond, pad)
+
+    if rows is None:
+        picked = _pick_rows(smem, EM_BLOCKS)
+        if picked is not None:
+            return picked[0], smem(picked[0])
+        if smem(4, 0) <= _SMEM_LIMIT:
+            return 4, smem(4, 0)
+        raise ValueError(
+            f"EM kernel shared-memory plan does not fit: H={H}, D={D} need "
+            f"{smem(4, 0)} bytes at 4 rows a block (limit {_SMEM_LIMIT})"
+        )
+    if rows % 4 or not 4 <= rows <= 256 or smem(rows, 0) > _SMEM_LIMIT:
+        raise ValueError(f"EM kernel plan of {rows} rows: a multiple of 4 up to 256 whose block fits")
+    return rows, smem(rows) if smem(rows) <= _SMEM_LIMIT else smem(rows, 0)
+
+
+def em_plan_blocks(plan) -> int:
+    """Blocks of ``plan`` an SM holds by its shared memory and the launch
+    bounds (:func:`em_occupancy` asks the card)."""
+    return min(EM_BLOCKS, blocks_per_sm(plan[1]))
 
 
 def _check_compute_dtype(compute_dtype: str) -> None:
@@ -208,17 +248,18 @@ def fused_em_sample_reference(
     conditional: Optional[torch.Tensor] = None,
     steps: int = 100,
     no_sigma: bool = False,
+    rows: Optional[int] = None,
 ):
     """The plain PyTorch version of :func:`fused_em_sample` with streamed
     ``noise`` (steps, B, D): the same loop over whole-batch tensor ops,
-    TF32 off, freezing per tile of the kernel's R rows.  Returns
-    ``(x_mean, x, diverged)``."""
+    TF32 off, freezing per tile of the kernel's R rows (``em_plan``'s, or
+    ``rows``).  Returns ``(x_mean, x, diverged)``."""
     _check_conditional(cfg.n_conditionals, conditional)
     params, cfg = pad_to_lanes(params, cfg)
     B, D = x0.shape
     if tuple(noise.shape) != (steps, B, D):
         raise ValueError(f"noise of shape {tuple(noise.shape)}; expected {(steps, B, D)}")
-    tile = em_plan(cfg.units[0], D, conditional is not None)[0]
+    tile = em_plan(cfg.units[0], D, conditional is not None, rows)[0]
     w_in, cond_proj, coeffs, b_eff = _prepare(params, cfg, sde, conditional, steps, no_sigma)
     act = _ACTIVATIONS[cfg.activation]
     layers = params["layers"]
@@ -312,7 +353,41 @@ def _kernel_lib() -> ctypes.CDLL:
             i, i, i, i, i, i, ctypes.c_size_t, p,
         ]
         fn.restype = ctypes.c_int
+        ip = ctypes.POINTER(ctypes.c_int)
+        lib.ff_em_occupancy.argtypes = [ctypes.c_size_t, ip, ip, ip]
+        lib.ff_em_occupancy.restype = ctypes.c_int
+        lib.ff_em_trig_check.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+        lib.ff_em_trig_check.restype = ctypes.c_int
+        lib.ff_em_min_blocks.argtypes = []
+        lib.ff_em_min_blocks.restype = ctypes.c_int
+        if lib.ff_em_min_blocks() != EM_BLOCKS:
+            raise RuntimeError(f"em_sampler.cu's launch bounds hold {lib.ff_em_min_blocks()} blocks an SM; "
+                               f"the wrapper plans for {EM_BLOCKS}")
     return lib
+
+
+def trig_mismatches(device) -> int:
+    """On the CUDA ``device``: how many of the 2^24 Box--Muller angles the
+    kernel's written-out sincos gives other bits than ``sincosf`` for
+    (0: the in-kernel noise is sincosf's)."""
+    count = torch.zeros((), dtype=torch.int32, device=device)
+    err = _kernel_lib().ff_em_trig_check(count.data_ptr(), torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"em_sampler trig check launch failed with CUDA error {err}")
+    return int(count)
+
+
+def em_occupancy(plan) -> dict:
+    """What the card makes of ``plan`` (from :func:`em_plan`): resident
+    blocks an SM (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``),
+    registers and local-memory bytes a thread of the kernel."""
+    rows, smem = plan
+    blocks, regs, local_bytes = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    err = _kernel_lib().ff_em_occupancy(smem, blocks, regs, local_bytes)
+    if err != 0:
+        raise RuntimeError(f"em_sampler occupancy query failed with CUDA error {err}")
+    return dict(rows=rows, smem_bytes=smem, blocks_per_sm=blocks.value, registers=regs.value,
+                local_bytes=local_bytes.value)
 
 
 def _launch(x0, noise, seed, cond_proj, coeffs, b_eff, w_in, layers, activation, steps, rows, smem):

@@ -36,7 +36,8 @@ counts its own launches.
 A launch's plan, :func:`_plan`, is ``(rows, smem_bytes)``: the rows a
 block owns (the most blocks an SM holds, up to three, counted with the
 1 KB each block reserves, at the most rows that reach them) and its shared
-memory.  A row's arithmetic does not depend on the plan.  The EM kernel plans with :func:`rows_for`.
+memory.  A row's arithmetic does not depend on the plan.  The sketch and
+EM kernels plan with :func:`_pick_rows` too, each at its own block cap.
 """
 
 from __future__ import annotations
@@ -695,25 +696,11 @@ def blocks_per_sm(smem: int) -> int:
     return _SMEM_PER_SM // (smem + _SMEM_BLOCK_RESERVE)
 
 
-def rows_for(smem_bytes: Callable[[int], int]) -> Optional[int]:
-    """Rows a block owns, given its shared memory ``smem_bytes(rows)``:
-    the most (<= 64) at which two blocks share an SM (``blocks_per_sm``,
-    which counts the 1 KB each block reserves: up to 115,712 bytes a
-    block), else 4 rows in one block; None when not even that fits.  The
-    EM kernel plans with it."""
-    for rows in (64, 32, 16, 8, 4):
-        if blocks_per_sm(smem_bytes(rows)) >= 2:
-            return rows
-    if smem_bytes(4) <= _SMEM_LIMIT:
-        return 4
-    return None
-
-
 def _pick_rows(smem_bytes: Callable[[int], int], cap: int = KERNEL_BLOCKS) -> Optional[Tuple[int, int]]:
     """``(rows, blocks)``: the most blocks an SM holds (by its shared memory,
     at most ``cap``, what the launch bounds allow) of any of 64, 32, 16, 8
     and 4 rows a block, at the most rows that reach them.  None when not
-    even 4 rows fit one block.  The sketch kernel plans with it too."""
+    even 4 rows fit one block.  The sketch and EM kernels plan with it too."""
     fits = [(rows, min(cap, blocks_per_sm(smem_bytes(rows)))) for rows in (64, 32, 16, 8, 4)
             if smem_bytes(rows) <= _SMEM_LIMIT]
     most = max((blocks for _, blocks in fits), default=0)

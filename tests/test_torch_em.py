@@ -184,6 +184,25 @@ def test_em_tile_freeze_and_ragged_batch():
     assert torch.equal(x_long[:B], x_c)
 
 
+@pytest.mark.parametrize("c, units", [(0, (32, 32)), (3, (32, 32, 32))])
+def test_em_reference_is_bitwise_across_tiles(c, units):
+    """Rows are independent until a NaN: on finite data the plain version
+    at its own tile (64 rows), at 8 and at 32 rows gives the same bits,
+    ragged batch included."""
+    _, _, cfg, params = _pair(c=c, units=units)
+    steps, B = 6, 100
+    rng = np.random.default_rng(11)
+    x0 = torch.as_tensor(rng.standard_normal((B, 2)).astype(np.float32))
+    noise = torch.as_tensor(rng.standard_normal((steps, B, 2)).astype(np.float32))
+    cond = torch.as_tensor(rng.standard_normal((B, c)).astype(np.float32)) if c else None
+    assert es.em_plan(32, 2, c > 0)[0] == 64
+    outs = [es.fused_em_sample_reference(params, cfg, VPSDE(), x0, noise, cond, steps=steps, rows=rows)
+            for rows in (None, 8, 32)]
+    assert not bool(outs[0][2])
+    for out in outs[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(out, outs[0]))
+
+
 def test_fused_em_sample_on_cpu_runs_the_plain_version():
     """CPU tensors run the plain version on the kernel's own Philox noise,
     at the kernel's tile; nothing is launched."""

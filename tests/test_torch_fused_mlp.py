@@ -248,12 +248,24 @@ def test_rhs_envelope_widths(n_features, mode, D, widest_float32, widest_highf32
 
 
 @pytest.mark.parametrize("H, D, with_cond, plan", [
-    (128, 2, False, (64, 67_584)), (128, 6, True, (64, 104_448)), (256, 6, True, (32, 101_376)),
+    (128, 2, False, (64, 69_632)), (128, 6, True, (64, 106_496)), (256, 6, True, (32, 102_400)),
 ])
 def test_em_plan_keeps_its_rows(H, D, with_cond, plan):
-    """The EM kernel plans with rows_for as before: the RHS kernel's plan
-    of its own does not move it."""
-    assert em_sampler.em_plan(H, D, with_cond) == plan
+    """The EM kernel's plan (the flagship, the conditional H = 128 and
+    H = 256 checkpoints): the most blocks an SM up to two (its launch
+    bounds), at the most rows that reach them, in the padded layout (two
+    (rows, H + 4) layer buffers, the (rows, H) conditional projection, two
+    halves each of x and x_mean).  Each holds two blocks; twice the rows
+    would hold fewer, and the plan forced to 4 rows keeps the layout."""
+    def smem(r):
+        return 4 * r * (2 * (H + 4) + (H if with_cond else 0) + 4 * D)
+
+    rows = plan[0]
+    assert em_sampler.em_plan(H, D, with_cond) == plan == (rows, smem(rows))
+    assert em_sampler.em_plan_blocks(plan) == 2 == min(2, fused_mlp.blocks_per_sm(smem(rows)))
+    if rows < 64:
+        assert fused_mlp.blocks_per_sm(smem(2 * rows)) < 2
+    assert em_sampler.em_plan(H, D, with_cond, rows=4) == (4, smem(4))
 
 
 @pytest.mark.parametrize("D, C, H, plan, wbuf", [(2, 0, 128, (4, 178_368), 36_400),
@@ -269,13 +281,41 @@ def test_training_plan_keeps_its_rows(D, C, H, plan, wbuf):
     assert fused_train.train_plan(cfg, 512) == plan and fused_train.plan_wbuf(cfg, plan) == wbuf
 
 
-def test_rows_for_counts_the_block_reserve():
+def test_em_plan_counts_the_block_reserve():
     """Two blocks share an SM up to 115,712 bytes a block (each reserves
-    1 KB): a plan whose 32 rows take 115,968 bytes holds one block there,
-    so rows_for takes 16; at 115,712 bytes it keeps 32.  The EM plans do
-    not move (test_em_plan_keeps_its_rows)."""
+    1 KB).  At H = 216 the 64-row block takes 114,688 bytes and two share
+    an SM; at H = 220 it takes 116,736, half the SM's 233,472 bytes, so
+    with the reserve one block would hold it and the plan takes 32 rows."""
     assert fused_mlp.blocks_per_sm(115_712) == 2 and fused_mlp.blocks_per_sm(115_968) == 1
-    assert fused_mlp.rows_for(lambda r: 115_712 * r // 32) == 32
-    assert fused_mlp.rows_for(lambda r: 115_968 * r // 32) == 16
-    assert fused_mlp.rows_for(lambda r: 115_968 + r) == 4  # no two blocks at any rows: 4 rows, one block
-    assert fused_mlp.rows_for(lambda r: 232_449) is None
+    assert fused_mlp.blocks_per_sm(116_736) == 1
+    assert em_sampler.em_plan(216, 2, False) == (64, 114_688)
+    assert em_sampler.em_plan(220, 2, False) == (32, 58_368)
+    assert em_sampler.em_plan_blocks((32, 58_368)) == 2  # three fit by bytes; the launch bounds hold two
+
+
+def test_em_plan_forced_rows():
+    """``rows`` forces a plan: a multiple of 4 up to 256 whose block fits,
+    padded where the padded block fits, else at the unpadded stride."""
+    assert em_sampler.em_plan(128, 2, False, rows=8) == (8, 4 * 8 * (2 * 132 + 8))
+    assert em_sampler.em_plan(128, 2, False, rows=128) == (128, 4 * 128 * (2 * 132 + 8))
+    assert em_sampler.em_plan(7260, 2, False, rows=4) == (4, 4 * 4 * (2 * 7260 + 8))  # unpadded
+    for rows in (6, 0, 260, -4):
+        with pytest.raises(ValueError, match="multiple of 4"):
+            em_sampler.em_plan(128, 2, False, rows=rows)
+    with pytest.raises(ValueError, match="multiple of 4"):  # 8 rows of H = 4832 do not fit
+        em_sampler.em_plan(4832, 6, True, rows=8)
+
+
+# (D, conditional, widest H): the widest hidden layer em_plan admits, the
+# same as before the padded layout (the widest nets take 4 rows unpadded)
+_EM_ENVELOPE = [(2, False, 7260), (6, True, 4832)]
+
+
+@pytest.mark.parametrize("D, with_cond, widest", _EM_ENVELOPE)
+def test_em_envelope_widths(D, with_cond, widest):
+    rows, smem = em_sampler.em_plan(widest, D, with_cond)
+    assert rows == 4 and smem <= fused_mlp._SMEM_LIMIT
+    # the first version's layout at 4 rows: (2 or 3) x 4 x H + 4 x 4 x D floats
+    assert 4 * ((3 if with_cond else 2) * 4 * widest + 16 * D) <= fused_mlp._SMEM_LIMIT
+    with pytest.raises(ValueError, match="shared-memory"):
+        em_sampler.em_plan(widest + 4, D, with_cond)

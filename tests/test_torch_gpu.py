@@ -170,6 +170,57 @@ def test_em_kernel_nan_freezes_only_its_block(cuda_device):
     torch.testing.assert_close(x_b, ref[1], rtol=2e-4, atol=1e-4)
 
 
+# (D, C, hidden units, activation, rows): the flagship's shape at 1,001
+# ragged rows and at four of its blocks and 5 rows, a conditional net, a
+# tanh net of width 100
+_EM_PLAN_CASES = [(2, 0, (128,) * 3, "silu", 1001), (2, 0, (128,) * 3, "silu", None),
+                  (6, 3, (128,) * 3, "silu", 1001), (3, 0, (100,) * 3, "tanh", 1001)]
+
+
+def _em_plans(H, D, with_cond):
+    """The plan of a launch, one forced to 4 rows and one at half its rows."""
+    own = em_sampler.em_plan(H, D, with_cond)
+    return [own, em_sampler.em_plan(H, D, with_cond, rows=4), em_sampler.em_plan(H, D, with_cond, rows=own[0] // 2)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D, C, units, activation, B", _EM_PLAN_CASES)
+def test_em_kernel_is_bitwise_across_plans(cuda_device, D, C, units, activation, B):
+    """Rows are independent until a NaN: a finite launch at its own plan,
+    forced to 4 rows and at half its rows gives x_mean, x and diverged
+    bitwise equal, with streamed and with Philox noise."""
+    cfg = ScoreMLPConfig(n_dimensions=D, n_conditionals=C, units=units, activation=activation)
+    params = init_score_mlp(cfg, torch.Generator().manual_seed(8), cuda_device)
+    plans = _em_plans(units[0], D, C > 0)
+    B = B or 4 * plans[0][0] + 5
+    g = torch.Generator().manual_seed(9)
+    x0 = torch.randn(B, D, generator=g).to(cuda_device)
+    cond = torch.randn(B, C, generator=g).to(cuda_device) if C else None
+    steps = 30
+    noise = torch.randn(steps, B, D, generator=g).to(cuda_device)
+    w_in, cond_proj, coeffs, b_eff = em_sampler._prepare(params, cfg, VPSDE(), cond, steps, True)
+    for seed, z in ((0, noise), (2**35 + 3, None)):
+        outs = [em_sampler._launch(x0, z, seed, cond_proj, coeffs, b_eff, w_in, params["layers"], activation, steps,
+                                   *plan) for plan in plans]
+        torch.cuda.synchronize()
+        assert not bool(outs[0][2])
+        for out in outs[1:]:
+            assert all(torch.equal(a, b) for a, b in zip(out, outs[0])), (plans, z is None)
+
+
+@pytest.mark.gpu
+def test_em_kernel_keeps_no_local_memory(cuda_device):
+    """Every plan of the cases above holds the blocks it plans for with no
+    local memory a thread, and the kernel's written-out sincos is sincosf
+    on every Box--Muller angle."""
+    for D, C, units, _, _ in _EM_PLAN_CASES:
+        for plan in _em_plans(units[0], D, C > 0):
+            occ = em_sampler.em_occupancy(plan)
+            assert occ["local_bytes"] == 0, (D, C, units, occ)
+            assert occ["blocks_per_sm"] == em_sampler.em_plan_blocks(plan), (D, C, units, occ)
+    assert em_sampler.trig_mismatches(cuda_device) == 0
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("mode", ["forward", "hutchinson", "exact"])
 def test_fused_velocity_matches_plain_version(cuda_device, mode):
