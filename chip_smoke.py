@@ -134,6 +134,23 @@ non-zero without the final line):
      profiles; the Hutch++ r = D density; the conditional checkpoint as
      served with XTrace and Hutch++; the flow's XTrace; every sketch launch
      highf32;
+  13. the remaining solvers, launches counted from zero before each run:
+     (a) the flagship Hutchinson ``log_prob`` at 50,000 rows, rtol 1e-5
+     PI, under tsit5, bosh3, fehlberg2, adaptive_heun and dop853, kernel
+     against plain (NFE within one attempt, mean |dlogp| <= 1e-4, launches
+     = NFE), rows/s in turns with dopri5; the symplectic ``log_prob`` and
+     the flow's with tsit5; (b) AB4/ABM4 ``log_prob`` and
+     ``sample_ode_from_base`` (and the flow's ``sample``) at 16 steps,
+     launches = the formula, samples at rtol 1e-5 / atol 1e-4, the density
+     error beside dopri5's; (c) ``sample_dpm`` orders 1 and 2, 12 steps,
+     12 x order launches, energy distance, the conditional checkpoint as
+     served in highf32 against strict plain; (d) ``log_prob_per_sample``
+     (flagship 50,000, flow and symplectic 20,000 rows): no launch, mean
+     |lp - lp_global| <= 5e-2, per-row NFE, host syncs, idle share; (e) the
+     adjoint gradient at 1,024 rows against backprop through rk4 x 256
+     (the JAX bars, peak memory below backprop's), flow
+     ``sample(gradients=True)`` and the symplectic adjoint, no launch,
+     and the XTrace refusal;
   7. a ``kernels`` line, printed last: launches on the main paths (each
      path run with the counts set to 0 just before it: phases 2-4, 5, 6,
      the two-launch path of 1d, 8, 9, 10 and, for the highf32 entries, 11
@@ -2285,6 +2302,296 @@ def main() -> int:
              **{f"{k}_rows_per_s": 50_000 / v for k, v in med.items()},
              profile=prof_stats or "not measured: the profiler saw no CUDA time")
     check(not failed, "; ".join(failed))
+
+    # -- phase 13: the remaining solvers on the card, launches counted from
+    # zero before each run ------------------------------------------------
+    # 13a the other tableaus and 13b the Adams methods launch the RHS kernel
+    # once an evaluation (fused_drift; fused_velocity for the flow; the
+    # symplectic field twice), 13c DPM-Solver steps
+    # x order times; 13d per-sample stepping and 13e the adjoint run the
+    # plain field by the JAX package's design (vmap of the plain field, JAX
+    # score.py:744-764; autodiff through the RHS, JAX score.py:610-615) and
+    # launch no kernel.
+    from flowfusion_torch.ops.integrate import odeint as odeint_solve
+    from flowfusion_torch.ops.integrate.multistep import multistep_evals
+    from flowfusion_torch.ops.integrate.tableaus import get_adaptive_tableau
+
+    t13 = time.perf_counter()
+    flag_model = ScoreModel(flag_params, flag_cfg, VESDE())  # `model` is rebound by phase 10
+
+    def rhs_launches():
+        return fused_drift.launches
+
+    def launches_of(fn, count=rhs_launches):
+        """fn() with the counts set to 0 just before it: (out, launches, s)."""
+        reset_counts()
+        return timed(fn, count)
+
+    def device_busy(fn, wall_s):
+        """Device time of one profiled run of ``fn`` (every kernel) as a
+        share of ``wall_s``; None when the profiler saw no CUDA time."""
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        us = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA)
+        return None if us == 0 else dict(device_ms=us / 1e3, device_busy_share_of_wall=us / 1e6 / wall_s,
+                                         idle_share_of_wall=1.0 - us / 1e6 / wall_s)
+
+    x13_raw = DEMO_GMM.sample(gen(1300), 50_000, device=dev)
+    x13 = (x13_raw - shift) / scale
+    e13 = (torch.sign(torch.randn(50_000, 2, generator=gen(1301))).to(dev),)
+
+    def density_rel(lp, x_raw):
+        total = float((lp - torch.log(scale).sum()).double().sum())
+        truth = float(DEMO_GMM.log_prob(x_raw.double()).sum())
+        return abs(total - truth) / abs(truth)
+
+    # 13a. the five tableaus: flagship Hutchinson at 50,000 rows, rtol 1e-5 PI
+    failed = []
+    tab_rows = {}
+    for method in ("tsit5", "bosh3", "fehlberg2", "adaptive_heun", "dop853"):
+        kw = dict(probes=e13, atol=1e-5, rtol=1e-5, method=method, options=opts)
+        (lp_k, st_k), launches, secs_k = launches_of(lambda: hutch.log_prob(x13, **kw))
+        (lp_p, st_p), n_p, secs_p = launches_of(lambda: plain.log_prob(x13, **kw))
+        check(launches == st_k.n_func_evals and n_p == 0,
+              f"13a {method}: {launches} launches != nfe {st_k.n_func_evals} (plain {n_p})")
+        check(st_k.succeeded and bool(torch.isfinite(lp_k).all()), f"13a {method}: the kernel solve failed")
+        per = get_adaptive_tableau(method).evals_per_step
+        d_nfe = abs(st_k.n_func_evals - st_p.n_func_evals)
+        if d_nfe > per:
+            failed.append(f"13a {method}: NFE kernel {st_k.n_func_evals} plain {st_p.n_func_evals}")
+        dlp = float((lp_k - lp_p).abs().mean())
+        if dlp > 1e-4:
+            failed.append(f"13a {method}: kernel vs plain mean |dlogp| {dlp:.2e} > 1e-4")
+        # rows/s in turns with dopri5 on the same rows and probes
+        secs = {"dopri5": [], method: []}
+        nfe_d = None
+        for _ in range(2):
+            for m_ in ("dopri5", method):
+                (lp, st), _, s_ = timed(lambda: hutch.log_prob(x13, **{**kw, "method": m_}), lambda: 0)
+                secs[m_].append(s_)
+                if m_ == "dopri5":
+                    nfe_d = st.n_func_evals
+        med = {k: statistics.median(v) for k, v in secs.items()}
+        tab_rows[method] = 50_000 / med[method]
+        emit("solver_tableau", method=method, rows=50_000, card=smi, nfe=st_k.n_func_evals,
+             nfe_plain=st_p.n_func_evals, nfe_within_one_attempt=d_nfe != 0, launches=launches,
+             mean_abs_dlogp=dlp, seconds_kernel=secs_k, seconds_plain=secs_p,
+             seconds_in_turns=secs, rows_per_s=50_000 / med[method], nfe_dopri5=nfe_d,
+             dopri5_rows_per_s=50_000 / med["dopri5"])
+    p13 = torch.randn(50_000, 2, generator=cuda_gen(1302), device=dev)
+    sym_kw = dict(momentum=p13, method="tsit5", options=opts)
+    (lp_k, st_k), n_k, secs_k = launches_of(lambda: sym_model.log_prob(x13_raw, **sym_kw), sym_launches)
+    (lp_p, st_p), n_p, secs_p = launches_of(lambda: sym_plain.log_prob(x13_raw, **sym_kw), sym_launches)
+    check(n_k == 2 * st_k.n_func_evals and n_p == 0,
+          f"13a symplectic tsit5: {n_k} launches != 2 x nfe {st_k.n_func_evals}")
+    dlp = float((lp_k - lp_p).abs().mean())
+    if abs(st_k.n_func_evals - st_p.n_func_evals) > 6 or dlp > 1e-4:
+        failed.append(f"13a symplectic tsit5: NFE {st_k.n_func_evals}/{st_p.n_func_evals}, mean |dlogp| {dlp:.2e}")
+    emit("solver_tableau_symplectic", method="tsit5", rows=50_000, K=1, card=smi, nfe=st_k.n_func_evals,
+         nfe_plain=st_p.n_func_evals, launches=n_k, mean_abs_dlogp=dlp, seconds_kernel=secs_k,
+         seconds_plain=secs_p, rows_per_s=50_000 / secs_k)
+
+    # the flow's velocity kernel under a clipped tableau and an Adams method
+    flow_h = dataclasses.replace(flow, trace_mode="hutchinson")
+    xf = REFERENCE_GMM.sample(gen(1310), 50_000, device=dev)
+    ef = (torch.sign(torch.randn(50_000, 2, generator=gen(1311))).to(dev),)
+    fkw = dict(probes=ef, method="tsit5", options=opts)
+    (lp_k, st_k), n_k, secs_k = launches_of(lambda: flow_h.log_prob(xf, **fkw), velocity_launches)
+    (lp_p, st_p), n_p, _ = launches_of(lambda: dataclasses.replace(flow_h, use_fused_kernel=False).log_prob(
+        xf, **fkw), velocity_launches)
+    check(n_k == st_k.n_func_evals and n_p == 0, f"13a flow tsit5: {n_k} launches != nfe {st_k.n_func_evals}")
+    dlp = float((lp_k - lp_p).abs().mean())
+    if abs(st_k.n_func_evals - st_p.n_func_evals) > 6 or dlp > 1e-4:
+        failed.append(f"13a flow tsit5: NFE {st_k.n_func_evals}/{st_p.n_func_evals}, mean |dlogp| {dlp:.2e}")
+    zf = torch.randn(50_000, 2, generator=gen(1312)).to(dev)
+    (sf_k, _), n_s, secs_s = launches_of(lambda: flow.sample(zf, method="implicit_adams"), velocity_launches)
+    (sf_p, _), _, _ = launches_of(lambda: dataclasses.replace(flow, use_fused_kernel=False).sample(
+        zf, method="implicit_adams"), velocity_launches)
+    check(n_s == multistep_evals("implicit_adams", 16, 1), f"13b flow sample: {n_s} launches")
+    if not torch.allclose(sf_k, sf_p, rtol=1e-5, atol=1e-4):
+        failed.append(f"13b flow sample: kernel vs plain max |d| {float((sf_k - sf_p).abs().max()):.2e}")
+    emit("solver_flow", rows=50_000, card=smi, log_prob_method="tsit5", nfe=st_k.n_func_evals,
+         nfe_plain=st_p.n_func_evals, launches=n_k, mean_abs_dlogp=dlp, seconds=secs_k,
+         sample_method="implicit_adams", sample_launches=n_s, sample_seconds=secs_s,
+         sample_max_abs_dev=float((sf_k - sf_p).abs().max()))
+
+    # 13b. Adams: Hutchinson log_prob and sample_ode_from_base at 50,000 rows
+    (lp_d, st_d), _, secs_d = timed(lambda: hutch.log_prob(x13, probes=e13, atol=1e-5, rtol=1e-5, options=opts),
+                                    lambda: 0)
+    z13 = torch.randn(50_000, 2, generator=gen(1303)).to(dev)
+    s_dopri, _ = flag_model.sample_ode_from_base(z13)
+    mixture13 = DEMO_GMM.sample(gen(1304), 50_000, device=dev)
+    for method in ("explicit_adams", "implicit_adams"):
+        n_formula = multistep_evals(method, 16, 1)
+        (lp_k, _), launches, secs_k = launches_of(lambda: hutch.log_prob(x13, probes=e13, method=method))
+        (lp_p, _), n_p, secs_p = launches_of(lambda: plain.log_prob(x13, probes=e13, method=method))
+        check(launches == n_formula and n_p == 0, f"13b {method}: {launches} launches != {n_formula}")
+        dlp = float((lp_k - lp_p).abs().mean())
+        if dlp > 1e-4:
+            failed.append(f"13b {method}: kernel vs plain mean |dlogp| {dlp:.2e} > 1e-4")
+        (s_k, _), n_s, secs_sk = launches_of(lambda: flag_model.sample_ode_from_base(z13, method=method))
+        (s_p, _), _, secs_sp = launches_of(lambda: ScoreModel(
+            flag_params, flag_cfg, VESDE(), use_fused_kernel=False).sample_ode_from_base(z13, method=method))
+        check(n_s == n_formula, f"13b {method} sampling: {n_s} launches != {n_formula}")
+        if not torch.allclose(s_k, s_p, rtol=1e-5, atol=1e-4):
+            failed.append(f"13b {method}: samples kernel vs plain max |d| {float((s_k - s_p).abs().max()):.2e}")
+        emit("solver_adams", method=method, steps_per_interval=16, rows=50_000, card=smi, launches=launches,
+             nfe_formula=n_formula, mean_abs_dlogp=dlp, seconds_kernel=secs_k, seconds_plain=secs_p,
+             rows_per_s=50_000 / secs_k, density_rel_error=density_rel(lp_k, x13_raw),
+             dopri5_density_rel_error=density_rel(lp_d, x13_raw), dopri5_nfe=st_d.n_func_evals,
+             dopri5_rows_per_s=50_000 / secs_d, sample_launches=n_s,
+             sample_max_abs_dev=float((s_k - s_p).abs().max()), sample_seconds=secs_sk,
+             sample_seconds_plain=secs_sp,
+             energy_distance=float(energy_distance(s_k * scale + shift, mixture13)),
+             dopri5_energy_distance=float(energy_distance(s_dopri * scale + shift, mixture13)))
+
+    # 13c. DPM-Solver: flagship at 50,000 rows, 12 steps, orders 1 and 2
+    for order in (1, 2):
+        s_k, launches, secs_k = launches_of(lambda: flag_model.sample_dpm(z13, steps=12, order=order))
+        s_p, n_p, secs_p = launches_of(lambda: ScoreModel(
+            flag_params, flag_cfg, VESDE(), use_fused_kernel=False).sample_dpm(z13, steps=12, order=order))
+        check(launches == 12 * order and n_p == 0, f"13c order {order}: {launches} launches != {12 * order}")
+        if not torch.allclose(s_k, s_p, rtol=1e-5, atol=1e-4):
+            failed.append(f"13c order {order}: kernel vs plain max |d| {float((s_k - s_p).abs().max()):.2e}")
+        secs = [timed(lambda: flag_model.sample_dpm(z13, steps=12, order=order), lambda: 0)[2] for _ in range(5)]
+        emit("solver_dpm", order=order, steps=12, rows=50_000, card=smi, launches=launches,
+             max_abs_dev=float((s_k - s_p).abs().max()), seconds_first=secs_k, seconds_plain=secs_p,
+             seconds_median=statistics.median(secs), samples_per_s=50_000 / statistics.median(secs),
+             energy_distance=float(energy_distance(s_k * scale + shift, mixture13)),
+             dopri5_energy_distance=float(energy_distance(s_dopri * scale + shift, mixture13)),
+             mixture_vs_mixture=float(energy_distance(DEMO_GMM.sample(gen(1305), 50_000, device=dev), mixture13)))
+    # the conditional checkpoint as served (highf32) on the population's own
+    # standardized conditionals, against the strict plain path
+    _, c13 = CONDITIONAL_POP.sample(gen(1306), 20_000, device=dev)
+    c13 = (c13 - cmodel_hf.conditional_shift) / cmodel_hf.conditional_scale
+    zc = torch.randn(20_000, 6, generator=gen(1307)).to(dev)
+    reset_counts()
+    s_hf = cmodel_hf.score_model.sample_dpm(zc, conditional=c13, steps=12, order=2)
+    hf_launches = fused_drift.launches_by_dtype["highf32"]
+    s_strict = dataclasses.replace(cmodel_hf.score_model, use_fused_kernel=False).sample_dpm(
+        zc, conditional=c13, steps=12, order=2)
+    check(hf_launches == 24 and fused_drift.launches == 24, f"13c conditional: {hf_launches} highf32 launches != 24")
+    dev_rel = rel_err(s_hf, s_strict)
+    if dev_rel > 1.2e-4:
+        failed.append(f"13c conditional highf32 vs strict plain: {dev_rel:.2e} > 1.2e-4")
+    emit("solver_dpm_conditional", rows=20_000, compute_dtype="highf32", steps=12, order=2, card=smi,
+         launches=hf_launches, max_rel_dev_vs_strict_plain=dev_rel, finite=bool(torch.isfinite(s_hf).all()))
+
+    # 13d. per-sample stepping: zero kernel launches, beside the batch-global
+    # kernel solve on the same rows and probes
+    def per_sample_case(name, solve_ps, solve_global, rows):
+        (lp, st), launches, secs = launches_of(solve_ps, lambda: sum(read_counts().values()))
+        check(launches == 0, f"13d {name}: per-sample stepping launched {launches} kernels")
+        check(bool(st.succeeded.all()) and bool(torch.isfinite(lp).all()), f"13d {name}: a row failed")
+        (lp_g, st_g), _, secs_g = timed(solve_global, lambda: 0)
+        d = float((lp - lp_g).abs().mean())
+        if d > 5e-2:
+            failed.append(f"13d {name}: mean |lp_per_sample - lp_global| {d:.2e} > 5e-2")
+        nfe = st.n_func_evals.float()
+        emit("per_sample", model=name, rows=rows, card=smi, launches=launches, mean_abs_vs_global=d,
+             nfe_min=int(nfe.min()), nfe_median=float(nfe.median()), nfe_max=int(nfe.max()),
+             nfe_mean=float(nfe.mean()), host_syncs=int((st.n_accepted + st.n_rejected).max()) + 1,
+             seconds=secs, rows_per_s=rows / secs, global_nfe=st_g.n_func_evals, global_seconds=secs_g,
+             global_rows_per_s=rows / secs_g, profile=device_busy(solve_ps, secs) or "not measured",
+             global_profile=device_busy(solve_global, secs_g) or "not measured")
+
+    per_sample_case("flagship_hutchinson", lambda: hutch.log_prob_per_sample(x13, probes=e13),
+                    lambda: hutch.log_prob(x13, probes=e13), 50_000)
+    x_flow = REFERENCE_GMM.sample(gen(1308), 20_000, device=dev)
+    per_sample_case("flow_exact", lambda: flow.log_prob_per_sample(x_flow),
+                    lambda: flow.log_prob(x_flow), 20_000)
+    p20 = torch.randn(20_000, 2, generator=cuda_gen(1309), device=dev)
+    per_sample_case("symplectic", lambda: sym_model.log_prob_per_sample(x13_raw[:20_000], momentum=p20),
+                    lambda: sym_model.log_prob(x13_raw[:20_000], momentum=p20), 20_000)
+
+    # 13e. the adjoint: flagship Hutchinson at 1,024 rows, rtol = atol = 1e-6,
+    # the gradient of -mean log_prob against backprop through rk4 x 256
+    def grad_params():
+        return {"W": flag_params["W"].detach().clone(), "layers": [
+            {k: v.detach().clone().requires_grad_(True) for k, v in l.items()} for l in flag_params["layers"]]}
+
+    def flat_grad(p):
+        return torch.cat([l[k].grad.reshape(-1) for l in p["layers"] for k in ("b", "w")])
+
+    xa, ea = x13[:1024], (e13[0][:1024],)
+
+    def adjoint_loss(p):
+        m = ScoreModel(p, flag_cfg, VESDE(), trace_mode="hutchinson")
+        lp, st = m.log_prob(xa, probes=ea, atol=1e-6, rtol=1e-6, adjoint=True)
+        check(st is None, "13e: an adjoint solve returned stats")
+        return -lp.mean()
+
+    def backprop_loss(p):
+        m = ScoreModel(p, flag_cfg, VESDE(), trace_mode="hutchinson", use_fused_kernel=False)
+
+        def rhs(t, s):
+            return trace_ops.hutchinson_divergence(lambda xx: m.ode_drift(t, xx), s[0], ea[0])
+
+        (xs_, dlps), _ = odeint_solve(rhs, (xa, torch.zeros(1024, device=dev)), [float(VESDE().epsilon), 1.0],
+                                      method="rk4", options={"steps": 256})
+        return -(dlps[-1] + VESDE().prior_log_prob(xs_[-1]).sum(1)).mean()
+
+    res = {}
+    for name, loss_fn in (("adjoint", adjoint_loss), ("backprop", backprop_loss)):
+        p = grad_params()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base_mem = torch.cuda.memory_allocated()
+        reset_counts()
+        t_start = time.perf_counter()
+        loss = loss_fn(p)
+        loss.backward()
+        torch.cuda.synchronize()
+        res[name] = dict(value=float(loss.detach()), grad=flat_grad(p).double(), wall_s=time.perf_counter() - t_start,
+                         peak_bytes=torch.cuda.max_memory_allocated() - base_mem,
+                         launches=sum(read_counts().values()))
+    ga, gb = res["adjoint"]["grad"], res["backprop"]["grad"]
+    cos = float(ga @ gb / (ga.norm() * gb.norm()))
+    rel = float((ga - gb).norm() / gb.norm())
+    v_rel = abs(res["adjoint"]["value"] - res["backprop"]["value"]) / abs(res["backprop"]["value"])
+    check(res["adjoint"]["launches"] == 0 and res["backprop"]["launches"] == 0,
+          f"13e: the adjoint launched {res['adjoint']['launches']} kernels")
+    if not (v_rel <= 1e-4 and cos > 0.999 and rel < 0.02):
+        failed.append(f"13e: value rel {v_rel:.2e}, cosine {cos:.6f}, relative norm {rel:.2e}")
+    if not res["adjoint"]["peak_bytes"] < res["backprop"]["peak_bytes"]:
+        failed.append(f"13e: adjoint peak {res['adjoint']['peak_bytes']} B >= backprop {res['backprop']['peak_bytes']} B")
+    emit("adjoint", rows=1024, rtol=1e-6, card=smi, value=res["adjoint"]["value"],
+         backprop_value=res["backprop"]["value"], value_rel=v_rel, cosine=cos, grad_rel_norm=rel,
+         wall_s=res["adjoint"]["wall_s"], backprop_wall_s=res["backprop"]["wall_s"],
+         peak_bytes=res["adjoint"]["peak_bytes"], backprop_peak_bytes=res["backprop"]["peak_bytes"], launches=0)
+    # flow sample(gradients=True) and the symplectic log_prob(adjoint=True)
+    for name, solve, params in (
+        ("flow_sample_gradients", lambda m: m.sample(z13[:1024], gradients=True, rtol=1e-5, atol=1e-5)[0].pow(2).mean(),
+         flow.params),
+        ("symplectic_log_prob_adjoint",
+         lambda m: -m.log_prob(x13_raw[:1024], momentum=p13[:1024], adjoint=True)[0].mean(), sym_model.params),
+    ):
+        p = {k: ([{kk: vv.detach().clone().requires_grad_(True) for kk, vv in l.items()} for l in v]
+                 if isinstance(v, list) else v.detach().clone()) for k, v in params.items()}
+        m = dataclasses.replace(flow if name.startswith("flow") else sym_model, params=p)
+        reset_counts()
+        t_start = time.perf_counter()
+        loss = solve(m)
+        loss.backward()
+        torch.cuda.synchronize()
+        grads = [l[k].grad for v in p.values() if isinstance(v, list) for l in v for k in l]
+        launches = sum(read_counts().values())
+        check(launches == 0, f"13e {name}: {launches} kernel launches")
+        check(all(g is not None and bool(torch.isfinite(g).all()) for g in grads) and
+              any(float(g.abs().sum()) > 0 for g in grads), f"13e {name}: non-finite or zero gradients")
+        emit("adjoint_model", path=name, rows=1024, card=smi, value=float(loss.detach()), launches=launches,
+             wall_s=time.perf_counter() - t_start, grad_norm=float(torch.cat([g.reshape(-1) for g in grads]).norm()))
+    try:
+        dataclasses.replace(hutch, trace_mode="xtrace").log_prob(
+            xa, probes=(torch.ones(1, 1024, 2, device=dev),), adjoint=True)
+        failed.append("13e: XTrace adjoint=True did not raise")
+    except NotImplementedError as err:
+        check("no gradient" in str(err), f"13e: XTrace refused for another reason: {err}")
+    check(not failed, "; ".join(failed))
+    emit("phase13", seconds=time.perf_counter() - t13, card=smi,
+         tableau_rows_per_s=tab_rows)
 
     # -- phase 7: the kernels line ------------------------------------------
     # no single PyTorch call computes any of these functions (a fused MLP with

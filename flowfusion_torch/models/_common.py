@@ -1,26 +1,20 @@
 """Shared plumbing for the model families: the fused-kernel dispatch
-policy and the standardization statistics (counterpart of
-the JAX package's ``models/_common.py``)."""
+policy, the standardization statistics and the adjoint solves' inputs
+(counterpart of the JAX package's ``models/_common.py``)."""
 
 from __future__ import annotations
 
+import dataclasses
 import math
-from typing import Optional, Tuple
+from typing import Callable, List, Optional, Tuple
 
 import torch
 
 __all__ = [
-    "fused_dispatch", "not_ported", "std_stats", "cond_stats", "norm_cond",
-    "std_normal_logpdf", "check_trace_mode", "check_probes", "adjoint_refusal",
+    "fused_dispatch", "std_stats", "cond_stats", "norm_cond", "std_normal_logpdf",
+    "check_trace_mode", "check_probes", "adjoint_refusal", "adjoint_inputs",
+    "check_per_sample_mode",
 ]
-
-
-def not_ported(what: str, item: str) -> NotImplementedError:
-    """The refusal of a feature outside the ported slice, naming the
-    ROADMAP.md item that will port it."""
-    return NotImplementedError(
-        f"{what} is not ported to flowfusion_torch yet (ROADMAP.md queue 1, {item})"
-    )
 
 
 TRACE_MODES = ("exact", "hutchinson", "hutchpp", "xtrace")
@@ -44,17 +38,80 @@ def check_probes(trace_mode: str, probes) -> tuple:
     return probes
 
 
-def adjoint_refusal(trace_mode: str) -> NotImplementedError:
-    """The refusal of ``adjoint=True``: the adjoint solver is ROADMAP.md
-    item 13; XTrace will refuse it even then, as in the JAX package."""
-    what = "adjoint=True"
-    if trace_mode == "xtrace":
-        what += (
-            " with trace_mode='xtrace' (which has no gradient even then: its sketch "
-            "is fully detached — use 'exact', 'hutchinson' or 'hutchpp' for "
-            "adjoint/training solves)"
+def adjoint_refusal() -> NotImplementedError:
+    """The refusal of ``adjoint=True`` with XTrace, as in the JAX package."""
+    return NotImplementedError(
+        "trace_mode='xtrace' has no gradient (its sketch is fully detached, "
+        "see ops.trace.xtrace_divergence) — use 'exact', 'hutchinson', or "
+        "'hutchpp' for adjoint/training solves"
+    )
+
+
+def check_per_sample_mode(trace_mode: str) -> None:
+    """Per-sample stepping takes the row-wise estimators only, as in the
+    JAX package."""
+    if trace_mode not in ("exact", "hutchinson"):
+        raise NotImplementedError(
+            "per-sample stepping supports trace_mode 'exact' and "
+            "'hutchinson' (sketch-based estimators are batch-coupled)"
         )
-    return not_ported(what, "item 13: the adjoint solver")
+
+
+def _param_leaves(params) -> Tuple[List[torch.Tensor], Callable]:
+    """The tensors of a params tree (dict keys sorted, list items in
+    order) and the function that rebuilds the tree from new tensors."""
+    leaves: List[torch.Tensor] = []
+
+    def walk(node):
+        if isinstance(node, torch.Tensor):
+            leaves.append(node)
+        elif isinstance(node, dict):
+            for k in sorted(node):
+                walk(node[k])
+        else:
+            for v in node:
+                walk(v)
+
+    def rebuild(new):
+        it = iter(new)
+
+        def build(node):
+            if isinstance(node, torch.Tensor):
+                return next(it)
+            if isinstance(node, dict):
+                return {k: build(node[k]) for k in sorted(node)}
+            return type(node)(build(v) for v in node)
+
+        return build(params)
+
+    walk(params)
+    return leaves, rebuild
+
+
+def adjoint_inputs(model, conditional: Optional[torch.Tensor]):
+    """``(tensors, rebuild)`` for ``odeint_adjoint``: the model's parameter
+    leaves, then its other tensor fields and the conditional where they
+    require grad (the JAX package hoists what it differentiates with
+    ``closure_convert``; an autograd Function must be passed it).
+    ``rebuild(p)`` gives ``(model, conditional)`` with those tensors in
+    place."""
+    leaves, rebuild_params = _param_leaves(model.params)
+    fields = [
+        f.name for f in dataclasses.fields(model)
+        if f.name != "params" and isinstance(getattr(model, f.name), torch.Tensor)
+        and getattr(model, f.name).requires_grad
+    ]
+    cond_in = conditional is not None and conditional.requires_grad
+    tensors = leaves + [getattr(model, n) for n in fields] + ([conditional] if cond_in else [])
+    n = len(leaves)
+
+    def rebuild(p):
+        m = dataclasses.replace(
+            model, params=rebuild_params(p[:n]), **dict(zip(fields, p[n:n + len(fields)]))
+        )
+        return m, (p[-1] if cond_in else conditional)
+
+    return tensors, rebuild
 
 
 _ENVELOPE = (

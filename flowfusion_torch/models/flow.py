@@ -9,7 +9,9 @@ Reference semantics kept:
     (the reference passes none); ``solve_ode_forward``/``log_prob`` to
     atol=rtol=1e-5;
   * x is standardized at the boundary, conditionals inside the dynamics;
-  * ``log_prob`` adds the N(0, 1) prior and subtracts sum(log target_scale).
+  * ``log_prob`` adds the N(0, 1) prior and subtracts sum(log target_scale);
+  * ``log_prob(adjoint=True)``, ``sample(gradients=True)`` and
+    ``log_prob_per_sample`` run the plain velocity, as the JAX package does.
 
 Every RHS evaluation goes through ``kernels.fused_mlp.fused_velocity`` (or,
 for the Hutch++ and XTrace traces, ``kernels.fused_sketch.fused_velocity_sketch``)
@@ -30,7 +32,7 @@ from ..kernels.fused_mlp import check_compute_dtype, fusable_config, fused_veloc
 from ..kernels.fused_sketch import fused_velocity_sketch, supports_sketch
 from ..ops import losses as losses_lib
 from ..ops import trace as trace_lib
-from ..ops.integrate import SolverStats, odeint
+from ..ops.integrate import SolverStats, odeint, odeint_adjoint, odeint_per_sample
 from ..utils.checkpoint import load_npz, read_npz_extra
 from ..utils.convert import params_from_numpy
 from . import _common
@@ -205,9 +207,6 @@ class ODEFlow:
         """The default training loss (``train.fit``): the CFM loss."""
         return self.flow_matching_loss(generator, x, conditional)
 
-    def log_prob_per_sample(self, *args, **kwargs):
-        raise _common.not_ported("per-sample stepping (odeint_per_sample)", "item 13")
-
     # ------------------------------------------------------------------
     def sample(
         self,
@@ -220,10 +219,21 @@ class ODEFlow:
         gradients: bool = False,
     ) -> Tuple[torch.Tensor, SolverStats]:
         """Transform base samples to the target: integrate t 1 -> 0.
-        Returns (samples in data units, stats)."""
-        if gradients:
-            raise _common.not_ported("ODEFlow.sample(gradients=True)", "item 13: the adjoint solver")
+        Returns (samples in data units, stats).  ``gradients=True``
+        differentiates through the solve with the continuous adjoint
+        (stats None)."""
         self._check_device(xT, conditional)
+        if gradients:
+            tensors, rebuild = _common.adjoint_inputs(self, conditional)
+
+            # the plain velocity, as JAX flow.py:254-264 differentiates it
+            def func(t, x, p):
+                m, c = rebuild(p)
+                return m.dynamics(t, x, c)
+
+            x0 = odeint_adjoint(func, xT, [1.0, 0.0], tensors, rtol=rtol, atol=atol, method=method,
+                                options=options)[-1]
+            return x0 * self.target_scale + self.target_shift, None
         if self._fused_available(xT, "forward"):
             cond_n = self._norm_cond(conditional)
 
@@ -257,9 +267,10 @@ class ODEFlow:
         standardized.  Probes come from ``generator`` (drawn once per
         solve) unless ``probes`` passes them in: ``()`` for 'exact',
         ``(e,)`` for 'hutchinson', ``(S, G)`` for 'hutchpp', ``(O,)`` for
-        'xtrace'.  Returns (x_1, log_jac, stats)."""
-        if adjoint:
-            raise _common.adjoint_refusal(self.trace_mode)
+        'xtrace'.  Returns (x_1, log_jac, stats); ``adjoint=True``
+        differentiates through the solve (stats None), XTrace refusing."""
+        if adjoint and self.trace_mode == "xtrace":
+            raise _common.adjoint_refusal()
         self._check_device(x, conditional)
         if probes is None:
             probes = trace_lib.make_probes(
@@ -270,6 +281,19 @@ class ODEFlow:
         self._check_device(*probes)
         exact = self.trace_mode == "exact"
         sketch = self.trace_mode in ("hutchpp", "xtrace")
+        lj0 = torch.zeros(x.shape[0], dtype=x.dtype, device=x.device)
+        if adjoint:
+            tensors, rebuild = _common.adjoint_inputs(self, conditional)
+            est = trace_lib.divergence_fn(self.trace_mode)
+
+            # the plain velocity and estimator (JAX flow.py:323-335)
+            def func(t, state, p):
+                m, c = rebuild(p)
+                return est(lambda q: m.dynamics(t, q, c), state[0], *probes)
+
+            xs, ljs = odeint_adjoint(func, (x, lj0), [0.0, 1.0], tensors, rtol=rtol, atol=atol, method=method,
+                                     options=options)
+            return xs[-1], ljs[-1], None
         if sketch and self._fused_available(x, self.trace_mode, probes):
             cond_n = self._norm_cond(conditional)
 
@@ -295,7 +319,6 @@ class ODEFlow:
             def rhs(t, state):
                 return est(lambda q: self.dynamics(t, q, conditional), state[0], *probes)
 
-        lj0 = torch.zeros(x.shape[0], dtype=x.dtype, device=x.device)
         with torch.no_grad(), strict_fp32_matmul():
             (xs, ljs), stats = odeint(
                 rhs, (x, lj0), [0.0, 1.0], rtol=rtol, atol=atol, method=method, options=options
@@ -323,3 +346,50 @@ class ODEFlow:
         )
         prior = torch.sum(_common.std_normal_logpdf(xT), dim=1)
         return prior + log_jac - torch.sum(torch.log(self.target_scale)), stats
+
+    def log_prob_per_sample(
+        self,
+        x: torch.Tensor,
+        conditional: Optional[torch.Tensor] = None,
+        generator: Optional[torch.Generator] = None,
+        probes: Optional[Sequence[torch.Tensor]] = None,
+        atol: float = 1e-5,
+        rtol: float = 1e-5,
+        method: str = "dopri5",
+        options: Optional[dict] = None,
+    ) -> Tuple[torch.Tensor, SolverStats]:
+        """``log_prob`` with per-sample adaptive stepping
+        (``ops.integrate.odeint_per_sample``), 'exact' and 'hutchinson'
+        only.  Returns (lp (B,), per-row SolverStats).  The rows step on
+        the plain velocity on any device: the JAX package evaluates the
+        plain field row by row under ``vmap`` here (JAX flow.py:392-459),
+        and so launches no kernel."""
+        _common.check_per_sample_mode(self.trace_mode)
+        self._check_device(x, conditional)
+        x_std = (x - self.target_shift) / self.target_scale
+        if probes is None:
+            probes = trace_lib.make_probes(self.trace_mode, generator, x_std)
+        probes = _common.check_probes(self.trace_mode, probes)
+        self._check_device(*probes)
+        # the probe and the conditional ride in the state with zero dynamics
+        e = probes[0] if probes else torch.zeros_like(x_std)
+        has_cond = conditional is not None
+        cond = conditional if has_cond else x.new_zeros((x.shape[0], 0))
+
+        def rhs_aug(t, state):
+            xx, _, e_, c_ = state
+            v_of_x = lambda q: self.dynamics(t, q, c_ if has_cond else None)  # noqa: E731
+            if self.trace_mode == "hutchinson":
+                v, div = trace_lib.hutchinson_divergence(v_of_x, xx, e_)
+            else:
+                v, div = trace_lib.exact_divergence(v_of_x, xx)
+            return (v, div, torch.zeros_like(e_), torch.zeros_like(c_))
+
+        lj0 = torch.zeros(x.shape[0], dtype=x.dtype, device=x.device)
+        with torch.no_grad(), strict_fp32_matmul():
+            (xs, ljs, _, _), stats = odeint_per_sample(
+                rhs_aug, (x_std, lj0, e, cond), [0.0, 1.0], rtol=rtol, atol=atol, method=method,
+                options=options,
+            )
+        prior = torch.sum(_common.std_normal_logpdf(xs[:, -1]), dim=1)
+        return prior + ljs[:, -1] - torch.sum(torch.log(self.target_scale)), stats

@@ -156,9 +156,6 @@ class PopulationModelDiffusion:
             )
         return res.x_mean * self.scale + self.shift
 
-    def log_prob_per_sample(self, *args, **kwargs):
-        raise _common.not_ported("per-sample stepping (odeint_per_sample)", "item 13")
-
     def forward(
         self,
         base_samples: torch.Tensor,
@@ -167,7 +164,9 @@ class PopulationModelDiffusion:
         options: Optional[dict] = None,
         adjoint: bool = False,
     ) -> Tuple[torch.Tensor, SolverStats]:
-        """Deterministic sampling via the prob-flow ODE, atol=rtol=1e-5."""
+        """Deterministic sampling via the prob-flow ODE, atol=rtol=1e-5;
+        ``adjoint=True`` differentiates through the solve (into the
+        parameters and, where they require grad, the statistics)."""
         x0, stats = self.score_model.sample_ode_from_base(
             base_samples,
             conditional=self._norm_cond(conditional),
@@ -195,7 +194,10 @@ class PopulationModelDiffusion:
         adjoint: bool = False,
     ) -> Tuple[torch.Tensor, SolverStats]:
         """Log density, (B,), of the standardized variables unless
-        ``volume_corrected=True`` (then in data units)."""
+        ``volume_corrected=True`` (then in data units).  ``adjoint=True``
+        makes it differentiable in the parameters and, where they require
+        grad, in the standardization statistics (they enter through the
+        standardized start and conditional)."""
         lp, stats = self.score_model.log_prob(
             (x - self.shift) / self.scale,
             conditional=self._norm_cond(conditional),
@@ -206,6 +208,36 @@ class PopulationModelDiffusion:
             method=method,
             options={} if options is None else options,  # no min_step guard
             adjoint=adjoint,
+        )
+        if volume_corrected:
+            lp = lp - torch.sum(torch.log(self.scale))
+        return lp, stats
+
+    def log_prob_per_sample(
+        self,
+        x: torch.Tensor,
+        conditional: Optional[torch.Tensor] = None,
+        generator: Optional[torch.Generator] = None,
+        probes: Optional[Sequence[torch.Tensor]] = None,
+        atol: float = 1e-5,
+        rtol: float = 1e-5,
+        method: str = "dopri5",
+        options: Optional[dict] = None,
+        volume_corrected: bool = False,
+    ) -> Tuple[torch.Tensor, SolverStats]:
+        """``log_prob`` with per-sample stepping
+        (``ScoreModel.log_prob_per_sample``): the same standardization,
+        ``volume_corrected`` switch and no ``min_step`` guard.  Returns
+        (lp (B,), per-row SolverStats)."""
+        lp, stats = self.score_model.log_prob_per_sample(
+            (x - self.shift) / self.scale,
+            conditional=self._norm_cond(conditional),
+            generator=generator,
+            probes=probes,
+            atol=atol,
+            rtol=rtol,
+            method=method,
+            options={} if options is None else options,  # no min_step guard
         )
         if volume_corrected:
             lp = lp - torch.sum(torch.log(self.scale))

@@ -15,13 +15,17 @@ Parity contract (as the JAX package):
   * ``sample_sde``/``sample_pc`` run reverse-time Euler--Maruyama from T
     to epsilon and return an ``EMResult`` whose ``x_mean`` is the
     reference's sample; ``sample_sde_fused`` runs the same loop in one
-    kernel launch (``kernels.em_sampler``).
+    kernel launch (``kernels.em_sampler``);
+  * ``sample_dpm`` is DPM-Solver (orders 1 and 2) on the log-SNR grid;
+  * ``log_prob_per_sample`` steps every row on its own, and
+    ``adjoint=True`` differentiates a solve with the continuous adjoint;
+    both run the plain torch field, as the JAX package does.
 
 Every RHS evaluation goes through ``kernels.fused_mlp.fused_drift`` (or,
 for the Hutch++ and XTrace traces, ``kernels.fused_sketch.fused_drift_sketch``)
 when the solve's tensors are on CUDA (or ``use_fused_kernel=True``), else
 through the plain torch drift and ``ops.trace`` estimators.  The solves
-run under ``torch.no_grad`` with TF32 off.  ``kernel_compute_dtype`` is the
+run under ``torch.no_grad`` with TF32 off, but for the adjoint's.  ``kernel_compute_dtype`` is the
 kernel's compute mode, 'float32' or 'highf32' (3xTF32 layer products, the
 mode the JAX package benches and serves its conditional checkpoints in);
 the plain path computes in float32 whatever it says, as the JAX plain path
@@ -43,8 +47,10 @@ from ..kernels.fused_mlp import check_compute_dtype, fused_drift, fusable_config
 from ..kernels.fused_sketch import fused_drift_sketch, supports_sketch
 from ..ops import losses as losses_lib
 from ..ops import trace as trace_lib
-from ..ops.integrate import EMResult, SolverStats, euler_maruyama, odeint
-from ..ops.integrate.tableaus import ADAPTIVE_TABLEAUS
+from ..ops.integrate import (
+    EMResult, SolverStats, dpm_solver_sample, euler_maruyama, odeint, odeint_adjoint, odeint_per_sample,
+)
+from ..ops.integrate.tableaus import ADAPTIVE_METHODS
 from ..ops.sde import SDE
 from . import _common
 from .nets import ScoreMLPConfig
@@ -153,12 +159,6 @@ class ScoreModel:
         """Denoising score-matching loss, its (t, z) drawn from
         ``generator`` (``ops.losses.denoising_score_matching``)."""
         return losses_lib.denoising_score_matching(self.score, self.sde, generator, x, conditional)
-
-    def sample_dpm(self, *args, **kwargs):
-        raise _common.not_ported("ScoreModel.sample_dpm (ops/integrate/dpm.py)", "item 13")
-
-    def log_prob_per_sample(self, *args, **kwargs):
-        raise _common.not_ported("per-sample stepping (odeint_per_sample)", "item 13")
 
     # ------------------------------------------------------------------
     # sampling
@@ -303,6 +303,48 @@ class ScoreModel:
         nan = diverged | ~(torch.isfinite(x_mean).all() & torch.isfinite(x).all())
         return EMResult(x_mean=x_mean, x=x, nan_encountered=nan)
 
+    def sample_dpm(
+        self,
+        base_samples: torch.Tensor,
+        conditional: Optional[torch.Tensor] = None,
+        steps: int = 12,
+        order: int = 2,
+    ) -> torch.Tensor:
+        """Deterministic sampling with DPM-Solver (``ops.integrate.dpm``):
+        the exponential integrator on the uniform log-SNR grid from T to
+        epsilon, ``steps * order`` network evaluations.  ``base_samples``
+        ~ N(0, 1), scaled by the prior scale as in ``sample_ode_from_base``.
+        On the card each evaluation is one kernel launch in mode forward
+        with (c0, c1) = (0, -eta) or (0, -eta / sigma): eps = -eta * score."""
+        self._check_device(base_samples, conditional)
+        x_T = base_samples * self.sde.prior_scale
+
+        if self._fused_available(x_T, "forward"):
+
+            def eps_fn(t, x):
+                # a (B,) vector of one time: the kernel folds the scalar
+                # into the first-layer bias
+                ts = t.reshape(-1)[0]
+                eta = self.sde.marginal_prob_scalars(ts)[1]
+                c1 = -eta if self.no_sigma else -eta / self.sde.sigma(ts)
+                return fused_drift(
+                    self.params, self.net, ts, x, conditional, c0=0.0, c1=c1,
+                    compute_dtype=self.kernel_compute_dtype,
+                )
+
+        else:
+
+            def eps_fn(t, x):
+                eta = self.sde.marginal_prob_scalars(t)[1]
+                eta = eta.reshape((-1,) + (1,) * (x.ndim - 1))
+                return -eta * self.score(t, x, conditional)
+
+        with torch.no_grad(), strict_fp32_matmul():
+            return dpm_solver_sample(
+                eps_fn, self.sde, x_T, steps=steps, order=order,
+                t_start=float(self.sde.T), t_end=float(self.sde.epsilon),
+            )
+
     def sample_ode_from_base(
         self,
         base_samples: torch.Tensor,
@@ -314,11 +356,25 @@ class ScoreModel:
         adjoint: bool = False,
     ) -> Tuple[torch.Tensor, SolverStats]:
         """Deterministic sampling: integrate the prob-flow ODE 1.0 -> epsilon
-        from ``base_samples`` ~ N(0, 1) scaled by the prior scale."""
-        if adjoint:
-            raise _common.not_ported("adjoint=True", "item 13: the adjoint solver")
+        from ``base_samples`` ~ N(0, 1) scaled by the prior scale.
+
+        ``adjoint=True`` makes the samples differentiable in the parameters,
+        the base samples and a conditional that requires grad, through the
+        continuous adjoint (``ops.integrate.odeint_adjoint``); stats are
+        None then."""
         self._check_device(base_samples, conditional)
         z = base_samples * self.sde.prior_scale
+        if adjoint:
+            tensors, rebuild = _common.adjoint_inputs(self, conditional)
+
+            # the plain field, as JAX score.py:506-517 differentiates it
+            def func(t, x, p):
+                m, c = rebuild(p)
+                return m.ode_drift(t, x, c)
+
+            ys = odeint_adjoint(func, z, [1.0, float(self.sde.epsilon)], tensors, rtol=rtol, atol=atol,
+                                method=method, options=options)
+            return ys[-1], None
 
         if self._fused_available(z, "forward"):
 
@@ -361,9 +417,11 @@ class ScoreModel:
         Probes come from ``generator`` (drawn once per solve) unless
         ``probes`` passes them in: ``()`` for 'exact', ``(e,)`` for
         'hutchinson', ``(S, G)`` for 'hutchpp', ``(O,)`` for 'xtrace'.
-        Returns (x_T, delta_logp (B,), stats)."""
-        if adjoint:
-            raise _common.adjoint_refusal(self.trace_mode)
+        Returns (x_T, delta_logp (B,), stats).  ``adjoint=True`` makes the
+        result differentiable through the continuous adjoint (stats None);
+        XTrace has no gradient and refuses it."""
+        if adjoint and self.trace_mode == "xtrace":
+            raise _common.adjoint_refusal()
         self._check_device(x0_samples, conditional)
         if probes is None:
             probes = trace_lib.make_probes(
@@ -374,6 +432,21 @@ class ScoreModel:
         self._check_device(*probes)
         exact = self.trace_mode == "exact"
         sketch = self.trace_mode in ("hutchpp", "xtrace")
+        dlp0 = torch.zeros(x0_samples.shape[0], dtype=x0_samples.dtype, device=x0_samples.device)
+
+        if adjoint:
+            tensors, rebuild = _common.adjoint_inputs(self, conditional)
+            est = trace_lib.divergence_fn(self.trace_mode)
+
+            # the plain field and estimator: a kernel launch has no
+            # autodiff rule (JAX score.py:610-615)
+            def func(t, state, p):
+                m, c = rebuild(p)
+                return est(lambda xx: m.ode_drift(t, xx, c), state[0], *probes)
+
+            xs, dlps = odeint_adjoint(func, (x0_samples, dlp0), [float(self.sde.epsilon), 1.0], tensors,
+                                      rtol=rtol, atol=atol, method=method, options=options)
+            return xs[-1], dlps[-1], None
 
         if sketch and self._fused_available(x0_samples, self.trace_mode, probes):
 
@@ -403,13 +476,64 @@ class ScoreModel:
                 x, _ = state
                 return est(lambda xx: self.ode_drift(t, xx, conditional), x, *probes)
 
-        dlp0 = torch.zeros(x0_samples.shape[0], dtype=x0_samples.dtype, device=x0_samples.device)
         with torch.no_grad(), strict_fp32_matmul():
             (xs, dlps), stats = odeint(
                 rhs, (x0_samples, dlp0), [float(self.sde.epsilon), 1.0],
                 rtol=rtol, atol=atol, method=method, options=options,
             )
         return xs[-1], dlps[-1], stats
+
+    def log_prob_per_sample(
+        self,
+        x0_samples: torch.Tensor,
+        conditional: Optional[torch.Tensor] = None,
+        generator: Optional[torch.Generator] = None,
+        probes: Optional[Sequence[torch.Tensor]] = None,
+        atol: float = 1e-4,
+        rtol: float = 1e-4,
+        method: str = "dopri5",
+        options: Optional[dict] = None,
+    ) -> Tuple[torch.Tensor, SolverStats]:
+        """``log_prob`` with per-sample adaptive stepping
+        (``ops.integrate.odeint_per_sample``): each row gets its own step
+        sequence instead of the batch-global one — the same estimator, a
+        different discretization error profile.  'exact' and 'hutchinson'
+        only; ``options`` defaults to ``{"min_step": 1e-6}``.  Returns
+        (lp (B,), per-row SolverStats of (B,) tensors).
+
+        The rows step on the plain torch field on any device: the JAX
+        package evaluates the plain field row by row under ``vmap`` here
+        (JAX score.py:744-764), and so launches no kernel."""
+        _common.check_per_sample_mode(self.trace_mode)
+        self._check_device(x0_samples, conditional)
+        if options is None:
+            options = {"min_step": 1e-6}
+        if probes is None:
+            probes = trace_lib.make_probes(self.trace_mode, generator, x0_samples)
+        probes = _common.check_probes(self.trace_mode, probes)
+        self._check_device(*probes)
+        # the probe and the conditional ride in the state with zero
+        # dynamics, so each row's evaluation sees only its own slice
+        e = probes[0] if probes else torch.zeros_like(x0_samples)
+        has_cond = conditional is not None
+        cond = conditional if has_cond else x0_samples.new_zeros((x0_samples.shape[0], 0))
+
+        def rhs_aug(t, state):
+            x, _, e_, c_ = state
+            f = lambda xx: self.ode_drift(t, xx, c_ if has_cond else None)  # noqa: E731
+            if self.trace_mode == "hutchinson":
+                x_dot, div = trace_lib.hutchinson_divergence(f, x, e_)
+            else:
+                x_dot, div = trace_lib.exact_divergence(f, x)
+            return (x_dot, div, torch.zeros_like(e_), torch.zeros_like(c_))
+
+        dlp0 = torch.zeros(x0_samples.shape[0], dtype=x0_samples.dtype, device=x0_samples.device)
+        with torch.no_grad(), strict_fp32_matmul():
+            (xs, dlps, _, _), stats = odeint_per_sample(
+                rhs_aug, (x0_samples, dlp0, e, cond), [float(self.sde.epsilon), 1.0],
+                rtol=rtol, atol=atol, method=method, options=options,
+            )
+        return dlps[:, -1] + torch.sum(self.sde.prior_log_prob(xs[:, -1]), dim=1), stats
 
     def log_prob(
         self,
@@ -424,10 +548,11 @@ class ScoreModel:
         adjoint: bool = False,
     ) -> Tuple[torch.Tensor, SolverStats]:
         """Exact CNF log-likelihood, (B,), with the reference defaults
-        atol=rtol=1e-4 and min_step=1e-6.  Returns (log_prob, stats)."""
+        atol=rtol=1e-4 and min_step=1e-6 (adaptive methods).  Returns
+        (log_prob, stats); ``adjoint=True`` as in ``solve_odes_forward``."""
         if options is None:
             # min_step is an adaptive-solver option
-            options = {"min_step": 1e-6} if method in ADAPTIVE_TABLEAUS else {}
+            options = {"min_step": 1e-6} if method in ADAPTIVE_METHODS else {}
         xT, dlp, stats = self.solve_odes_forward(
             x0_samples, conditional=conditional, generator=generator, probes=probes,
             atol=atol, rtol=rtol, method=method, options=options, adjoint=adjoint,

@@ -10,7 +10,9 @@ Reference semantics kept:
   * ``sample`` runs fixed-step Euler t: 1 -> 0, one step by default (one
     network evaluation per sample), or leapfrog on the per-stack fields;
   * ``log_prob`` integrates t: 0 -> 1 with dopri5 at atol=rtol=1e-5 and
-    combines K momentum draws as logsumexp - log K.
+    combines K momentum draws as logsumexp - log K; with ``adjoint=True``
+    and in ``log_prob_per_sample`` it runs the plain field, as the JAX
+    package does.
 
 The solves (Euler sampling and ``log_prob``) go through
 ``kernels.fused_mlp.fused_symplectic_velocity`` (two forward launches an
@@ -32,7 +34,7 @@ import torch
 from .._device import DeviceLike, resolve_device, strict_fp32_matmul
 from ..kernels.fused_mlp import check_compute_dtype, fusable_config, fused_symplectic_velocity, supports_features
 from ..ops import losses as losses_lib
-from ..ops.integrate import SolverStats, leapfrog, odeint, odeint_fixed
+from ..ops.integrate import SolverStats, leapfrog, odeint, odeint_adjoint, odeint_fixed, odeint_per_sample
 from ..utils.checkpoint import load_npz, read_npz_extra
 from ..utils.convert import params_from_numpy
 from . import _common
@@ -163,6 +165,16 @@ class SymplecticFlowModel:
     def _norm_cond(self, conditional):
         return _common.norm_cond(conditional, self.conditional_shift, self.conditional_scale)
 
+    def _momentum(self, q0, generator, momentum):
+        """The auxiliary momentum p0 ~ N(0, 1) shaped like ``q0``: drawn from
+        ``generator`` on its own device, or ``momentum`` checked."""
+        if momentum is None:
+            gen_dev = generator.device if generator is not None else None
+            return torch.randn(q0.shape, generator=generator, device=gen_dev).to(self.device)
+        if tuple(momentum.shape) != tuple(q0.shape):
+            raise ValueError(f"momentum of shape {tuple(momentum.shape)}; expected {tuple(q0.shape)}")
+        return momentum
+
     # ------------------------------------------------------------------
     def dynamics(self, t, state: torch.Tensor, conditional: Optional[torch.Tensor] = None):
         """The divergence-free joint field [dq/dt, dp/dt] on a standardized
@@ -181,9 +193,6 @@ class SymplecticFlowModel:
         q0 = (x - self.shift) / self.scale
         s0 = torch.cat([q0, losses_lib._normal_like(generator, q0)], dim=-1)
         return losses_lib.flow_matching_loss(self.dynamics, generator, s0, self._norm_cond(conditional))
-
-    def log_prob_per_sample(self, *args, **kwargs):
-        raise _common.not_ported("per-sample stepping (odeint_per_sample)", "item 13")
 
     # ------------------------------------------------------------------
     def sample(
@@ -243,9 +252,9 @@ class SymplecticFlowModel:
         stats.  The momentum p0 ~ N(0, 1) of shape (K B, D) comes from
         ``generator`` unless ``momentum`` gives it; rows k B .. (k+1) B - 1
         belong to draw k.  K = ``n_momentum_samples`` draws combine as
-        logsumexp - log K (one solve at K B rows)."""
-        if adjoint:
-            raise _common.not_ported("adjoint=True", "item 13: the adjoint solver")
+        logsumexp - log K (one solve at K B rows).  ``adjoint=True``
+        differentiates through the solve with the continuous adjoint on
+        the plain field (stats None)."""
         K = int(n_momentum_samples)
         if K < 1:
             raise ValueError("n_momentum_samples must be >= 1")
@@ -257,22 +266,70 @@ class SymplecticFlowModel:
             q0 = q0.repeat(K, 1)
             if cond is not None:
                 cond = cond.repeat(K, 1)
-        if momentum is None:
-            gen_dev = generator.device if generator is not None else None
-            momentum = torch.randn(q0.shape, generator=generator, device=gen_dev).to(self.device)
-        elif tuple(momentum.shape) != tuple(q0.shape):
-            raise ValueError(f"momentum of shape {tuple(momentum.shape)}; expected {tuple(q0.shape)}")
+        momentum = self._momentum(q0, generator, momentum)
         state0 = torch.cat([q0, momentum], dim=-1)
-        with torch.no_grad(), strict_fp32_matmul():
-            ys, stats = odeint(
-                self._solve_dynamics(cond, state0), state0, [0.0, 1.0], rtol=rtol, atol=atol,
-                method=method, options=options,
-            )
-        z1 = ys[-1]
+        if adjoint:
+            tensors, rebuild = _common.adjoint_inputs(self, cond)
+
+            # the plain field, as JAX symplectic.py:303-315 differentiates it
+            def func(t, s, p):
+                m, c = rebuild(p)
+                return m.dynamics(t, s, c)
+
+            z1 = odeint_adjoint(func, state0, [0.0, 1.0], tensors, rtol=rtol, atol=atol, method=method,
+                                options=options)[-1]
+            stats = None
+        else:
+            with torch.no_grad(), strict_fp32_matmul():
+                ys, stats = odeint(
+                    self._solve_dynamics(cond, state0), state0, [0.0, 1.0], rtol=rtol, atol=atol,
+                    method=method, options=options,
+                )
+            z1 = ys[-1]
         lp = (
             torch.sum(_common.std_normal_logpdf(z1), dim=-1)
             - torch.sum(_common.std_normal_logpdf(momentum), dim=-1)
         )
         if K > 1:
             lp = torch.logsumexp(lp.reshape(K, B), dim=0) - math.log(K)
+        return lp - torch.sum(torch.log(self.scale)), stats
+
+    def log_prob_per_sample(
+        self,
+        x: torch.Tensor,
+        conditional: Optional[torch.Tensor] = None,
+        generator: Optional[torch.Generator] = None,
+        momentum: Optional[torch.Tensor] = None,
+        atol: float = 1e-5,
+        rtol: float = 1e-5,
+        method: str = "dopri5",
+        options: Optional[dict] = None,
+    ) -> Tuple[torch.Tensor, SolverStats]:
+        """``log_prob`` (one momentum draw) with per-sample adaptive stepping
+        (``ops.integrate.odeint_per_sample``): the per-row state is the
+        joint (q, p) vector and the zero-dynamics conditional.  Returns
+        (lp (B,), per-row SolverStats).  The rows step on the plain field
+        on any device: the JAX package evaluates it row by row under
+        ``vmap`` here (JAX symplectic.py:337-392), and so launches no
+        kernel."""
+        self._check_device(x, conditional, momentum)
+        q0 = (x - self.shift) / self.scale
+        cond_n = self._norm_cond(conditional)
+        momentum = self._momentum(q0, generator, momentum)
+        state0 = torch.cat([q0, momentum], dim=-1)
+        has_cond = cond_n is not None
+        cond = cond_n if has_cond else x.new_zeros((x.shape[0], 0))
+
+        def rhs_aug(t, state):
+            s, c_ = state
+            return (self.dynamics(t, s, c_ if has_cond else None), torch.zeros_like(c_))
+
+        with torch.no_grad(), strict_fp32_matmul():
+            (ss, _), stats = odeint_per_sample(
+                rhs_aug, (state0, cond), [0.0, 1.0], rtol=rtol, atol=atol, method=method, options=options,
+            )
+        lp = (
+            torch.sum(_common.std_normal_logpdf(ss[:, -1]), dim=-1)
+            - torch.sum(_common.std_normal_logpdf(momentum), dim=-1)
+        )
         return lp - torch.sum(torch.log(self.scale)), stats

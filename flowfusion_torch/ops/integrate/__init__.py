@@ -2,10 +2,13 @@
 ``ops/integrate``).
 
 ``odeint`` is the single entry point.  It dispatches to the adaptive
-embedded RK solver or the fixed-grid solvers (euler, midpoint, heun3,
-rk4); the JAX package's multistep, per-sample and adjoint solvers are not
-ported yet and raise.  ``euler_maruyama`` and ``leapfrog`` are the SDE
-sampler and the symplectic integrator.
+embedded RK solvers (dopri5, tsit5, bosh3, fehlberg2, adaptive_heun,
+dop853), the fixed-grid solvers (euler, midpoint, heun3, rk4) or the
+fixed-grid Adams multistep solvers (explicit_adams, implicit_adams).
+``odeint_per_sample`` steps every batch row on its own, ``odeint_adjoint``
+differentiates an adaptive solve with the continuous adjoint, and
+``dpm_solver_sample`` is the DPM-Solver sampler.  ``euler_maruyama`` and
+``leapfrog`` are the SDE sampler and the symplectic integrator.
 """
 
 from __future__ import annotations
@@ -14,29 +17,32 @@ from typing import Any, Callable, Optional
 
 import numpy as np
 
-from .adaptive import SolverStats, odeint_adaptive
+from .adaptive import SolverStats, odeint_adaptive, odeint_per_sample
+from .adjoint import odeint_adjoint
+from .dpm import dpm_solver_sample
 from .fixed import FIXED_METHODS, EMResult, euler_maruyama, leapfrog, odeint_fixed
-from .tableaus import _NOT_PORTED as _ADAPTIVE_NOT_PORTED
-from .tableaus import ADAPTIVE_TABLEAUS, get_adaptive_tableau
+from .multistep import MULTISTEP_METHODS, odeint_multistep
+from .tableaus import ADAPTIVE_METHODS
 
 __all__ = [
     "odeint",
     "odeint_adaptive",
+    "odeint_per_sample",
+    "odeint_adjoint",
     "odeint_fixed",
+    "odeint_multistep",
+    "dpm_solver_sample",
     "euler_maruyama",
     "leapfrog",
     "SolverStats",
     "EMResult",
 ]
 
-_MULTISTEP = ("explicit_adams", "implicit_adams")
-
-
-def _fixed_steps(ts, options: Optional[dict]) -> int:
+def _fixed_steps(ts, options: Optional[dict], default: int) -> int:
     """Sub-steps per output interval from the fixed-step options:
     ``step_size`` (a uniform step, rounded up to whole sub-steps) or
-    ``steps_per_interval`` / its alias ``steps`` (default 1); giving both
-    spellings, or any other option, raises."""
+    ``steps_per_interval`` / its alias ``steps`` (default ``default``);
+    giving both spellings, or any other option, raises."""
     opts = dict(options or {})
     if "step_size" in opts:
         h = float(opts.pop("step_size"))
@@ -47,7 +53,7 @@ def _fixed_steps(ts, options: Optional[dict]) -> int:
     elif "steps_per_interval" in opts:
         steps = int(opts.pop("steps_per_interval"))
     else:
-        steps = int(opts.pop("steps", 1))
+        steps = int(opts.pop("steps", default))
     if opts:
         raise ValueError(f"unknown fixed-step options: {sorted(opts)}")
     return steps
@@ -65,24 +71,22 @@ def odeint(
 ):
     """Integrate dy/dt = func(t, y) through the times ``ts``.
 
-    Returns ``(ys, stats)``; for fixed-step methods ``stats`` is None.
-    Default tolerances match torchdiffeq's (rtol=1e-7, atol=1e-9).
+    Returns ``(ys, stats)``; for fixed-step and multistep methods
+    ``stats`` is None.  Default tolerances match torchdiffeq's (rtol=1e-7,
+    atol=1e-9).  Fixed-step methods take one step an output interval by
+    default, the multistep methods 16.
     """
-    if method in ADAPTIVE_TABLEAUS:
+    if method in ADAPTIVE_METHODS:
         return odeint_adaptive(
             func, y0, ts, rtol=rtol, atol=atol, method=method, options=options
         )
     if method in FIXED_METHODS:
-        steps = _fixed_steps(ts, options)
+        steps = _fixed_steps(ts, options, default=1)
         return odeint_fixed(func, y0, ts, method=method, steps_per_interval=steps), None
-    if method in _MULTISTEP:
-        raise NotImplementedError(
-            f"multistep method {method!r} is not ported to flowfusion_torch "
-            "yet (ROADMAP.md queue 1, item 13); use 'dopri5'"
-        )
-    if method in _ADAPTIVE_NOT_PORTED:
-        get_adaptive_tableau(method)  # raises the NotImplementedError
+    if method in MULTISTEP_METHODS:
+        steps = _fixed_steps(ts, options, default=16)
+        return odeint_multistep(func, y0, ts, method=method, steps_per_interval=steps), None
     raise ValueError(
-        f"unknown method {method!r}; adaptive: {sorted(ADAPTIVE_TABLEAUS)}, "
-        f"fixed: {sorted(FIXED_METHODS)}"
+        f"unknown method {method!r}; adaptive: {sorted(ADAPTIVE_METHODS)}, "
+        f"fixed: {sorted(FIXED_METHODS)}, multistep: {sorted(MULTISTEP_METHODS)}"
     )

@@ -11,6 +11,8 @@ Conventions (identical to the JAX package):
     p[x(t)|x(0)] = N(nu(t) x(0), eta(t)^2).
   * ``prior_log_prob`` returns the per-dimension log density of the base
     distribution (callers sum over trailing dims).
+  * ``log_snr(t) = log(nu / eta)`` is the DPM-Solver half-log-SNR and
+    ``t_of_log_snr`` its inverse, in closed form for each family.
 """
 
 from __future__ import annotations
@@ -83,6 +85,15 @@ class SDE:
         """Std of the N(0, s^2) base distribution."""
         return 1.0
 
+    def log_snr(self, t) -> torch.Tensor:
+        """lambda(t) = log(nu(t) / eta(t)), the DPM-Solver half-log-SNR."""
+        nu, eta = self.marginal_prob_scalars(t)
+        return torch.log(nu) - torch.log(eta)
+
+    def t_of_log_snr(self, lam) -> torch.Tensor:
+        """Inverse of ``log_snr`` (defined per family)."""
+        raise NotImplementedError
+
     def prior_log_prob(self, x: torch.Tensor) -> torch.Tensor:
         """Elementwise log N(x | 0, prior_scale^2)."""
         s = self.prior_scale
@@ -133,6 +144,11 @@ class VESDE(SDE):
         t = _f32(t)
         return torch.ones_like(t), self.sigma(t)
 
+    def t_of_log_snr(self, lam) -> torch.Tensor:
+        # lambda = -log sigma(t)  =>  t = T log(e^-lam / sigma_min) / log(r)
+        sigma = torch.exp(-_f32(lam))
+        return self.T * torch.log(sigma / self.sigma_min) / math.log(self.sigma_max / self.sigma_min)
+
     @property
     def prior_scale(self) -> float:
         return self.sigma_max
@@ -177,6 +193,18 @@ class VPSDE(SDE):
         std = torch.sqrt(-torch.expm1(-log_coeff))
         return torch.exp(-0.5 * log_coeff), std
 
+    def _t_of_int_beta(self, B: torch.Tensor) -> torch.Tensor:
+        """Invert B(t) = a t^2 + b t for t >= 0 with the cancellation-free
+        root 2B / (b + sqrt(b^2 + 4 a B)) (exact for a -> 0, where the
+        textbook -b + sqrt form is 0/0)."""
+        a = 0.5 * (self.beta_max - self.beta_min) / self.T
+        b = self.beta_min
+        return 2.0 * B / (b + torch.sqrt(b**2 + 4.0 * a * B))
+
+    def t_of_log_snr(self, lam) -> torch.Tensor:
+        # lambda = -0.5 log(e^B - 1)  =>  B = log1p(e^{-2 lambda})
+        return self._t_of_int_beta(torch.log1p(torch.exp(-2.0 * _f32(lam))))
+
 
 @dataclasses.dataclass(frozen=True)
 class SUBVPSDE(VPSDE):
@@ -200,3 +228,12 @@ class SUBVPSDE(VPSDE):
         log_coeff = self._int_beta(t)
         std = -torch.expm1(-log_coeff)
         return torch.exp(-0.5 * log_coeff), std
+
+    def t_of_log_snr(self, lam) -> torch.Tensor:
+        # eta = 1 - e^{-B}: with u = e^{-B/2}, e^lam = u / (1 - u^2)
+        #  =>  u = 2 e^lam / (1 + sqrt(1 + 4 e^{2 lam})),  B = -2 log u.
+        # (the textbook (sqrt(1+4r^2)-1)/(2r) form cancels for negative
+        # lambda: at r ~ 1e-4 float32 rounds 1 + 4r^2 to 1, u = 0, B = inf)
+        r = torch.exp(_f32(lam))
+        u = 2.0 * r / (1.0 + torch.sqrt(1.0 + 4.0 * r**2))
+        return self._t_of_int_beta(-2.0 * torch.log(u))

@@ -207,13 +207,21 @@ def test_flow_create_and_refusals(flow_pair):
     losses = [fn(torch.Generator().manual_seed(0), x) for fn in (tm.flow_matching_loss, tm.loss_fn)]
     assert torch.isfinite(losses[0]) and torch.equal(losses[0], losses[1])
     for call, item in (
-        (lambda: dataclasses.replace(tm, trace_mode="xtrace").log_prob(x, adjoint=True), "item 13"),
-        (lambda: tm.sample(x, gradients=True), "item 13"), (lambda: tm.log_prob(x, adjoint=True), "item 13"),
-        (lambda: tm.log_prob_per_sample(x), "item 13"),
+        (lambda: dataclasses.replace(tm, trace_mode="xtrace").log_prob(x, adjoint=True), "no gradient"),
+        (lambda: dataclasses.replace(tm, trace_mode="xtrace").log_prob_per_sample(x), "batch-coupled"),
         (lambda: dataclasses.replace(tm, kernel_compute_dtype="bfloat16"), "queue 2"),
     ):
         with pytest.raises(NotImplementedError, match=item):
             call()
+    # the solvers of item 13 run: adjoint gradients, per-sample stepping
+    xr = torch.randn(4, 2, generator=torch.Generator().manual_seed(2))
+    s_g, st = tm.sample(xr, gradients=True, rtol=1e-5, atol=1e-5)
+    assert st is None and torch.isfinite(s_g).all()
+    lp_a, st = tm.log_prob(xr, adjoint=True)
+    lp, _ = tm.log_prob(xr)
+    assert st is None and float((lp_a - lp).abs().max()) <= 1e-5
+    lp_ps, st_ps = tm.log_prob_per_sample(xr)
+    assert st_ps.n_func_evals.shape == (4,) and float((lp_ps - lp).abs().max()) <= 1e-2
     with pytest.raises(ValueError, match="probe"):
         dataclasses.replace(tm, trace_mode="hutchinson").log_prob(x)
     with pytest.raises(ValueError, match="parameters are on"):

@@ -805,3 +805,80 @@ def test_rhs_kernel_occupancy(cuda_device):
                 assert occ["local_bytes"] == 0, (D, C, H, mode, dt, occ)
                 assert occ["blocks_per_sm"] == fused_mlp.plan_blocks(plan), (D, C, H, mode, dt, occ)
     assert fused_mlp.occupancy(fused_mlp._plan(128, "hutchinson", 2, 2))["blocks_per_sm"] == 3
+
+
+def _flagship(device, **kw):
+    import os
+
+    from flowfusion_torch.utils.checkpoint import load_npz
+    from flowfusion_torch.utils.convert import params_from_numpy
+
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "benchmarks",
+                        "flagship_ckpt.npz")
+    return ScoreModel(params_from_numpy(load_npz(path)["params"], device),
+                      ScoreMLPConfig(n_dimensions=2, units=(128, 128, 128)), VESDE(), **kw)
+
+
+def _rows(device, n=4096):
+    g = torch.Generator().manual_seed(n)
+    return torch.randn(n, 2, generator=g).to(device), (torch.sign(torch.randn(n, 2, generator=g)).to(device),)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("method", ["tsit5", "bosh3", "fehlberg2", "adaptive_heun", "dop853"])
+def test_new_tableaus_launch_the_kernel_once_an_evaluation(cuda_device, method):
+    """chip_smoke.py 13a at 4,096 rows: the kernel solve against the plain
+    solve on the card, rtol 1e-5 PI: NFE within one attempt, mean |dlogp|
+    <= 1e-4, launches = NFE."""
+    from flowfusion_torch.ops.integrate.tableaus import get_adaptive_tableau
+
+    x, probes = _rows(cuda_device)
+    kw = dict(probes=probes, atol=1e-5, rtol=1e-5, method=method, options={"controller": "pi"})
+    fused_mlp.reset_launch_counts()
+    lp_k, st_k = _flagship(cuda_device, trace_mode="hutchinson").log_prob(x, **kw)
+    assert fused_mlp.fused_drift.launches == st_k.n_func_evals
+    lp_p, st_p = _flagship(cuda_device, trace_mode="hutchinson", use_fused_kernel=False).log_prob(x, **kw)
+    assert abs(st_k.n_func_evals - st_p.n_func_evals) <= get_adaptive_tableau(method).evals_per_step
+    assert float((lp_k - lp_p).abs().mean()) <= 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("method", ["explicit_adams", "implicit_adams"])
+def test_adams_launch_the_kernel_by_the_formula(cuda_device, method):
+    """chip_smoke.py 13b at 4,096 rows: launches = the method's NFE formula,
+    log_prob within mean |dlogp| 1e-4 and samples within rtol 1e-5 / atol
+    1e-4 of the plain path."""
+    from flowfusion_torch.ops.integrate.multistep import multistep_evals
+
+    x, probes = _rows(cuda_device)
+    fused_mlp.reset_launch_counts()
+    lp_k, _ = _flagship(cuda_device, trace_mode="hutchinson").log_prob(x, probes=probes, method=method)
+    assert fused_mlp.fused_drift.launches == multistep_evals(method, 16, 1)
+    lp_p, _ = _flagship(cuda_device, trace_mode="hutchinson", use_fused_kernel=False).log_prob(
+        x, probes=probes, method=method)
+    assert float((lp_k - lp_p).abs().mean()) <= 1e-4
+    s_k, _ = _flagship(cuda_device).sample_ode_from_base(x, method=method)
+    s_p, _ = _flagship(cuda_device, use_fused_kernel=False).sample_ode_from_base(x, method=method)
+    torch.testing.assert_close(s_k, s_p, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("order", [1, 2])
+def test_dpm_launches_steps_times_order(cuda_device, order):
+    """chip_smoke.py 13c at 4,096 rows: steps x order launches, samples
+    within rtol 1e-5 / atol 1e-4 of the plain path (the JAX bar,
+    tests/test_kernels.py:1065); per-sample and adjoint solves launch
+    nothing."""
+    x, probes = _rows(cuda_device)
+    fused_mlp.reset_launch_counts()
+    s_k = _flagship(cuda_device).sample_dpm(x, steps=12, order=order)
+    assert fused_mlp.fused_drift.launches == 12 * order
+    s_p = _flagship(cuda_device, use_fused_kernel=False).sample_dpm(x, steps=12, order=order)
+    torch.testing.assert_close(s_k, s_p, rtol=1e-5, atol=1e-4)
+    fused_mlp.reset_launch_counts()
+    m = _flagship(cuda_device, trace_mode="hutchinson")
+    lp, st = m.log_prob_per_sample(x[:256], probes=(probes[0][:256],))
+    assert bool(st.succeeded.all()) and fused_mlp.fused_drift.launches == 0
+    m.params["layers"][0]["w"].requires_grad_(True)
+    m.log_prob(x[:64], probes=(probes[0][:64],), adjoint=True)[0].mean().backward()
+    assert fused_mlp.fused_drift.launches == 0 and torch.isfinite(m.params["layers"][0]["w"].grad).all()

@@ -52,3 +52,26 @@ def test_no_source_imports_or_names_the_jax_package():
     offenders += [o for path in sources + [os.path.join(ROOT, "chip_smoke.py")]
                   for o in _offenders(path, IMPORTS)]
     assert offenders == []
+
+
+def test_imports_without_scipy():
+    """scipy only backs dop853's coefficients, loaded on first use: with
+    scipy unimportable every module imports and 'dop853' raises naming it."""
+    code = (
+        "import sys; sys.modules['scipy'] = None\n"
+        "import importlib, pkgutil, flowfusion_torch\n"
+        "for m in pkgutil.walk_packages(flowfusion_torch.__path__, 'flowfusion_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "from flowfusion_torch.ops.integrate import odeint\n"
+        "import torch\n"
+        "try:\n"
+        "    odeint(lambda t, y: -y, torch.ones(2), [0.0, 1.0], method='dop853')\n"
+        "except ValueError as err:\n"
+        "    print('scipy' in str(err))\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    env["PYTHONPATH"] = ROOT
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, cwd=ROOT, env=env,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "True", out.stdout

@@ -187,22 +187,34 @@ def test_entry_points_without_device_raise_when_no_card(monkeypatch):
 
 
 def test_refusals_name_their_roadmap_item(flagship):
+    """The remaining refusals name their ROADMAP.md item; the solvers of
+    item 13 run (tests/test_torch_adjoint.py, test_torch_dpm.py and
+    test_torch_per_sample.py hold them against the JAX package)."""
     _, tm = flagship
-    x = torch.zeros(4, 2)
-    # the sketch estimators are ported; their adjoint solves wait for item 13
-    for mode in ("hutchpp", "xtrace"):
-        with pytest.raises(NotImplementedError, match="item 13"):
-            dataclasses.replace(tm, trace_mode=mode).log_prob(x, adjoint=True)
+    x = torch.randn(4, 2, generator=torch.Generator().manual_seed(3))
+    # XTrace has no gradient: its adjoint refuses with the JAX package's reason
+    with pytest.raises(NotImplementedError, match="no gradient"):
+        dataclasses.replace(tm, trace_mode="xtrace").log_prob(x, adjoint=True)
+    # Hutch++ and the exact trace differentiate through the adjoint
+    for mode, probes in (("hutchpp", (torch.ones(1, 4, 2), torch.ones(1, 4, 2))), ("exact", ())):
+        params = {"W": tm.params["W"], "layers": [{k: v.clone().requires_grad_(True) for k, v in l.items()}
+                                                  for l in tm.params["layers"]]}
+        m = dataclasses.replace(tm, params=params, trace_mode=mode)
+        lp, st = m.log_prob(x, probes=probes, adjoint=True)
+        assert st is None and lp.shape == (4,)
+        lp.sum().backward()
+        assert all(torch.isfinite(l["w"].grad).all() and l["w"].grad.abs().sum() > 0 for l in params["layers"])
+    s_adj, st = tm.sample_ode_from_base(x, adjoint=True)
+    assert st is None and torch.isfinite(s_adj).all()
+    assert tm.sample_dpm(x, steps=4).shape == (4, 2)
+    lp_ps, st_ps = tm.log_prob_per_sample(x)
+    assert lp_ps.shape == (4,) and st_ps.n_func_evals.shape == (4,) and bool(st_ps.succeeded.all())
+    with pytest.raises(NotImplementedError, match="batch-coupled"):
+        dataclasses.replace(tm, trace_mode="hutchpp").log_prob_per_sample(x)
     # highf32 is ported; bfloat16 waits for queue 2 #3b
     assert dataclasses.replace(tm, kernel_compute_dtype="highf32").kernel_compute_dtype == "highf32"
     with pytest.raises(NotImplementedError, match="queue 2 #3b"):
         dataclasses.replace(tm, kernel_compute_dtype="bfloat16")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tm.log_prob(x, adjoint=True)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tm.sample_ode_from_base(x, adjoint=True)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tm.sample_dpm(x)
     with pytest.raises(NotImplementedError, match="item 14"):
         tm.sample_sde((4, 2), steps=2, progress=True)
     with pytest.raises(NotImplementedError, match="queue 2"):
@@ -210,8 +222,6 @@ def test_refusals_name_their_roadmap_item(flagship):
     # training is ported: the loss draws from the generator and is finite
     loss = tm.loss_fn(torch.Generator().manual_seed(0), torch.randn(8, 2, generator=torch.Generator().manual_seed(1)))
     assert loss.ndim == 0 and torch.isfinite(loss)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tm.log_prob_per_sample(x)
     # an explicit kernel request outside the envelope raises, never falls
     # back: 16 exact-trace chains of width 1024 overflow shared memory
     wide = ScoreModel(

@@ -200,11 +200,17 @@ def test_create_refusals_and_dispatch(sym_pair):
     assert torch.isfinite(tm.loss_fn(torch.Generator().manual_seed(0), x))
     # highf32 is ported; bfloat16 waits for queue 2 #3b
     assert dataclasses.replace(tm, kernel_compute_dtype="highf32").kernel_compute_dtype == "highf32"
-    for call, item in ((lambda: tm.log_prob_per_sample(x), "item 13"),
-                       (lambda: tm.log_prob(x, adjoint=True), "item 13"),
-                       (lambda: dataclasses.replace(tm, kernel_compute_dtype="bfloat16"), "queue 2 #3b")):
-        with pytest.raises(NotImplementedError, match=item):
-            call()
+    with pytest.raises(NotImplementedError, match="queue 2 #3b"):
+        dataclasses.replace(tm, kernel_compute_dtype="bfloat16")
+    # the solvers of item 13 run: the adjoint log_prob equals the plain
+    # one, and per-sample stepping agrees within the solve's tolerance
+    p0 = torch.randn(4, 2, generator=torch.Generator().manual_seed(3))
+    xr = torch.randn(4, 2, generator=torch.Generator().manual_seed(4))
+    lp, _ = tm.log_prob(xr, momentum=p0)
+    lp_a, st = tm.log_prob(xr, momentum=p0, adjoint=True)
+    assert st is None and float((lp_a - lp).abs().max()) <= 1e-5
+    lp_ps, st_ps = tm.log_prob_per_sample(xr, momentum=p0)
+    assert st_ps.n_func_evals.shape == (4,) and float((lp_ps - lp).abs().max()) <= 1e-2
     with pytest.raises(ValueError, match="num_steps"):
         tm.sample((4, 2), num_steps=0)
     with pytest.raises(ValueError, match="n_momentum_samples"):
