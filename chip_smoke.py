@@ -151,10 +151,28 @@ non-zero without the final line):
      (the JAX bars, peak memory below backprop's), flow
      ``sample(gradients=True)`` and the symplectic adjoint, no launch,
      and the XTrace refusal;
+  14. the CLI and the serving artifacts (``serving_phase``): (a)
+     ``flowfusion_torch.cli.main`` in-process on 25,000 DEMO_GMM rows --
+     ``train`` (one training-kernel launch an epoch, the loss falls),
+     ``sample --n 50000`` by SDE and ODE, ``logprob`` with the exact trace
+     (within 3e-3 of the analytic mixture) and Hutchinson on the flagship
+     weights as a CLI checkpoint (launches = the printed NFE), ``export``
+     and ``export --buckets 1024,8192,65536`` -- then ``python -m
+     flowfusion_torch logprob`` in a subprocess prints the same sum; (b)
+     the flagship Hutchinson and exact artifacts at batch 50,000 and
+     symbolic, Hutch++, the bucket bundle, the conditional checkpoint as
+     served, flow and symplectic log_prob and samplers, the flagship
+     sampler, each against its eager solve on the same rows and seed:
+     launches equal (= NFE), outputs bitwise, the program holds the ops and
+     no plain net, walls in turns; the symbolic artifacts serve 50,001 and
+     1,024 rows; a caller with TF32 on gets the same launches and bits;
+     (c) a fresh interpreter serves a saved artifact bitwise; the ops'
+     dispatch cost against their CUDA kernels called directly;
   7. a ``kernels`` line, printed last: launches on the main paths (each
      path run with the counts set to 0 just before it: phases 2-4, 5, 6,
      the two-launch path of 1d, 8, 9, 10 and, for the highf32 entries, 11
-     and 12), times, bounds and plain times.
+     and 12), times, bounds and plain times, and ``serving_launches``, the
+     launches on phase 14's paths.
 
 The last line is ``{"ok": true, "device": {...}}``.  Exits with 2 and no
 result when no CUDA card is visible.
@@ -2593,6 +2611,9 @@ def main() -> int:
     emit("phase13", seconds=time.perf_counter() - t13, card=smi,
          tableau_rows_per_s=tab_rows)
 
+    # -- phase 14: the CLI and the serving artifacts -------------------------
+    serving_counts = serving_phase(smi, dev, flag_params, flag_cfg, reset_counts, read_counts)
+
     # -- phase 7: the kernels line ------------------------------------------
     # no single PyTorch call computes any of these functions (a fused MLP with
     # its divergence, its Jacobian-vector columns or its sketch estimate; the
@@ -2640,6 +2661,12 @@ def main() -> int:
     for name in ("fused_drift_sketch[hutchpp]", "fused_drift_sketch[xtrace]", "fused_velocity_sketch[xtrace]"):
         kernels.append(entry(name[:-1] + ",highf32]", src_sketch, REPLACES_NEW[name.split("[")[0]],
                              hf_sketch_counts[name], hf_sketch_err[name], hf_sketch_timing[name]))
+    # launches on phase 14's paths (the CLI and the serving artifacts), each
+    # path counted from zero
+    for k in kernels:
+        k["serving_launches"] = serving_counts.get(k["name"], 0)
+    check(set(serving_counts) <= {k["name"] for k in kernels} | {n for n, v in serving_counts.items() if not v},
+          f"phase 14 launched kernels the line does not name: {serving_counts}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({
         "ok": True,
@@ -2647,6 +2674,372 @@ def main() -> int:
                    "count": torch.cuda.device_count()},
     }), flush=True)
     return 0
+
+
+def serving_phase(smi, dev, flag_params, flag_cfg, reset_counts, read_counts) -> dict:
+    """Phase 14: the CLI and the serving artifacts on the card, at full width.
+
+    (a) ``flowfusion_torch.cli.main`` in-process on 25,000 DEMO_GMM rows: train
+    (the training kernel once an epoch, the loss falls), sample by SDE and
+    ODE, logprob with the exact trace and Hutchinson on the flagship weights
+    as a CLI checkpoint (launches = the printed NFE, the exact density within
+    3e-3 of the analytic mixture), export and export --buckets; then
+    ``python -m flowfusion_torch logprob`` in a subprocess prints the same sum.
+    (b) the artifacts against the eager solves on the same rows and seed:
+    launches = the eager solve's = NFE, outputs bitwise, the programs hold
+    the ops and no plain net; the symbolic artifacts serve 50,001 and 1,024
+    rows; walls in turns; the bucketed bundle, Hutch++, the conditional
+    checkpoint as served, flow, symplectic and the samplers; a caller with
+    TF32 on gets the same launches and bits.  (c) one artifact loaded and
+    called in a fresh interpreter that imports only the serving module.
+    Returns each kernel entry's launches on these paths (counted from zero
+    before each path) and the phase's numbers."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+
+    from flowfusion_torch import cli
+    from flowfusion_torch.kernels import fused_mlp, fused_sketch, fused_train
+    from flowfusion_torch.models.flow import ODEFlow
+    from flowfusion_torch.models.population import PopulationModelDiffusion
+    from flowfusion_torch.models.score import ScoreModel
+    from flowfusion_torch.models.symplectic import SymplecticFlowModel
+    from flowfusion_torch.ops.sde import VESDE
+    from flowfusion_torch.utils import serving
+    from flowfusion_torch.utils.checkpoint import read_npz_extra, save_npz
+    from flowfusion_torch.utils.data import DEMO_GMM
+
+    t14 = time.perf_counter()
+    path_counts = {}  # kernel entry -> launches on this phase's paths
+
+    def add_counts(dtype="float32"):
+        """Add the counts to this phase's, under the kernel line's entry
+        names (a highf32 path's under ``name[mode,highf32]``)."""
+        for k, v in read_counts().items():
+            if dtype != "float32" and v:
+                k = k[:-1] + f",{dtype}]" if "[" in k else f"{k}[{dtype}]"
+            path_counts[k] = path_counts.get(k, 0) + v
+
+    def launches():
+        return sum(read_counts().values())
+
+    def run_cli(argv):
+        """cli.main(argv) in-process with the counts set to 0 just before:
+        (stdout, launches by entry, seconds)."""
+        reset_counts()
+        out = io.StringIO()
+        torch.cuda.synchronize()
+        t_start = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            cli.main(argv)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t_start
+        counts = {k: v for k, v in read_counts().items() if v}
+        add_counts()
+        return out.getvalue(), counts, secs
+
+    def field(text, name):
+        return text.split(f"{name}=")[1].split()[0]
+
+    def program_ops(f):
+        gm = f.program.graph_module
+        return sorted({str(n.target) for g in [gm, *gm.children()] for n in g.graph.nodes if n.op == "call_function"})
+
+    def check_program(name, f, op):
+        ops = program_ops(f)
+        check(any(op in o for o in ops), f"14b {name}: the program holds no {op} op")
+        # the plain net's activation appears nowhere: every RHS is the op
+        check(not any("silu" in o for o in ops), f"14b {name}: the program holds a plain-path net (silu)")
+
+    def in_turns(a, b, pairs=5):
+        """Walls of a() and b() in turns (a, b, b, a) after one warm call
+        each: medians and ranges."""
+        a(), b()
+        walls = {"a": [], "b": []}
+        for _ in range(pairs):
+            for k in ("a", "b", "b", "a"):
+                torch.cuda.synchronize()
+                t_start = time.perf_counter()
+                (a if k == "a" else b)()
+                torch.cuda.synchronize()
+                walls[k].append(time.perf_counter() - t_start)
+        return {k: (statistics.median(v), min(v), max(v)) for k, v in walls.items()}
+
+    tmp = tempfile.TemporaryDirectory()
+    d = tmp.name
+    # -- 14a the CLI -----------------------------------------------------------
+    rows = DEMO_GMM.sample(torch.Generator().manual_seed(1400), 25_000, device="cpu")
+    data = os.path.join(d, "x.f32")
+    rows.numpy().tofile(data)
+    trained = os.path.join(d, "trained.npz")
+    out, counts, secs = run_cli(["train", "--data", data, "--dim", "2", "--units", "128", "128", "128",
+                                 "--stages", "128:1e-3,512:1e-4", "--epochs", "2", "--out", trained])
+    losses = [float(l.split("train=")[1].split()[0]) for l in out.splitlines() if "train=" in l]
+    check(counts.get("fused_train_epoch[float32]") == 4, f"14a train: training-kernel launches {counts} != 4 epochs")
+    check(len(losses) == 4 and losses[-1] < losses[0], f"14a train: the loss does not fall: {losses}")
+    emit("cli_train", rows=25_000, stages="128:1e-3,512:1e-4", epochs=4, launches=counts, losses=losses,
+         seconds=secs, card=smi)
+
+    # the flagship weights as a CLI checkpoint: the population wrapper of the
+    # committed ScoreModel with its data statistics, the architecture in the
+    # archive's metadata as `train` writes it
+    extra = read_npz_extra(os.path.join(BENCH, "flagship_ckpt.npz"))
+    shift = torch.tensor(extra["shift"], device=dev)
+    scale = torch.tensor(extra["scale"], device=dev)
+    flag_pop = PopulationModelDiffusion(ScoreModel(flag_params, flag_cfg, VESDE()), shift, scale, None, None)
+    flag_ckpt = os.path.join(d, "flagship_cli.npz")
+    save_npz(flag_ckpt, flag_pop, extra={"family": "diffusion", "dim": 2, "cond_dim": 0, "units": [128] * 3,
+                                         "sde": "vesde", "no_sigma": False, "trace": "exact"})
+    for method, entry in (("sde", "fused_drift[forward]"), ("ode", "fused_drift[forward]")):
+        samples = os.path.join(d, f"s_{method}.npy")
+        out, counts, secs = run_cli(["sample", "--ckpt", flag_ckpt, "--n", "50000", "--method", method,
+                                     "--out", samples])
+        s = np.load(samples)
+        check(s.shape == (50_000, 2) and bool(np.isfinite(s).all()), f"14a sample {method}: bad samples")
+        check(set(counts) == {entry} and (method == "ode" or counts[entry] == 100),
+              f"14a sample {method}: launches {counts}")
+        emit("cli_sample", method=method, rows=50_000, launches=counts, seconds=secs, samples_per_s=50_000 / secs,
+             card=smi)
+    lp_sums = {}
+    for trace in ("exact", "hutchinson"):
+        out_path = os.path.join(d, f"lp_{trace}.npy")
+        out, counts, secs = run_cli(["logprob", "--ckpt", flag_ckpt, "--data", data, "--trace", trace,
+                                     "--volume-corrected", "--out", out_path])
+        nfe = int(field(out, "rhs_evals"))
+        check(counts == {f"fused_drift[{trace}]": nfe}, f"14a logprob {trace}: launches {counts} != nfe {nfe}")
+        lp = torch.from_numpy(np.load(out_path)).double()
+        lp_sums[trace] = field(out, "sum")
+        rel = None
+        if trace == "exact":
+            truth = float(DEMO_GMM.log_prob(rows.double()).sum())
+            rel = abs(float(lp.sum()) - truth) / abs(truth)
+            check(rel <= 3e-3, f"14a logprob exact: density error {rel:.3e} > 3e-3")
+        emit("cli_logprob", trace=trace, rows=25_000, nfe=nfe, launches=counts, printed_sum=lp_sums[trace],
+             density_rel_error=rel, seconds=secs, rows_per_s=25_000 / secs, card=smi)
+    art_cli = os.path.join(d, "flagship_exact.pt2")
+    out, counts, secs_export = run_cli(["export", "--ckpt", flag_ckpt, "--out", art_cli])
+    check("batch=symbolic" in out and not counts, f"14a export: {out.strip()} launches {counts}")
+    bundle_cli = os.path.join(d, "flagship_exact_buckets.pt2")
+    out, counts, secs_buckets = run_cli(["export", "--ckpt", flag_ckpt, "--buckets", "1024,8192,65536",
+                                         "--out", bundle_cli])
+    check("buckets 1024,8192,65536" in out and not counts, f"14a export --buckets: {out.strip()}")
+    emit("cli_export", export_s=secs_export, bytes=os.path.getsize(art_cli), buckets_export_s=secs_buckets,
+         buckets_bytes=os.path.getsize(bundle_cli), card=smi)
+    env = {**os.environ, "PYTHONPATH": ROOT}
+    proc = subprocess.run([sys.executable, "-m", "flowfusion_torch", "logprob", "--ckpt", flag_ckpt, "--data", data,
+                           "--trace", "exact", "--volume-corrected", "--out", os.path.join(d, "lp_sub.npy")],
+                          capture_output=True, text=True, env=env, cwd=d, timeout=300)
+    check(proc.returncode == 0, f"14a python -m flowfusion_torch logprob exited {proc.returncode}: {proc.stderr[-2000:]}")
+    check(field(proc.stdout, "sum") == lp_sums["exact"],
+          f"14a subprocess sum {field(proc.stdout, 'sum')} != in-process {lp_sums['exact']}")
+    emit("cli_subprocess", printed_sum=field(proc.stdout, "sum"), card=smi)
+
+    # -- 14b the artifacts against the eager solves -----------------------------
+    x50 = DEMO_GMM.sample(torch.Generator().manual_seed(1401), 50_000, device=dev)
+    seed = 7
+    models = {
+        "exact": flag_pop,
+        "hutchinson": dataclasses.replace(flag_pop, score_model=dataclasses.replace(flag_pop.score_model,
+                                                                                   trace_mode="hutchinson")),
+        "hutchpp": dataclasses.replace(flag_pop, score_model=dataclasses.replace(
+            flag_pop.score_model, trace_mode="hutchpp", hpp_rank=2, hpp_vecs=1)),
+    }
+
+    def eager_lp(model, x, cond=None):
+        gen = torch.Generator(dev).manual_seed(seed)
+        kw = {} if isinstance(model, SymplecticFlowModel) else {"conditional": cond}
+        return model.log_prob(x, generator=gen, **kw)
+
+    def held(name, f, call, eager, nfe_of=None, op="fused_mlp", dtype="float32"):
+        """The artifact's call against the eager call, each counted from
+        zero: launches equal (and = NFE), outputs bitwise.  Returns the
+        artifact's output."""
+        check_program(name, f, op)
+        reset_counts()
+        a = call()
+        torch.cuda.synchronize()
+        ca = {k: v for k, v in read_counts().items() if v}
+        add_counts(dtype)
+        reset_counts()
+        e = eager()
+        torch.cuda.synchronize()
+        ce = {k: v for k, v in read_counts().items() if v}
+        e_out, stats = e if isinstance(e, tuple) else (e, None)
+        check(ca == ce and ca, f"14b {name}: artifact launches {ca} != eager {ce}")
+        if stats is not None and nfe_of is not None:
+            check(sum(ca.values()) == nfe_of(stats), f"14b {name}: launches {ca} != NFE {stats.n_func_evals}")
+        check(bool(torch.equal(a, e_out)), f"14b {name}: artifact differs from eager by "
+                                           f"{float((a - e_out).abs().max()):.3e}")
+        check(bool(torch.isfinite(a).all()), f"14b {name}: non-finite output")
+        return a, ca
+
+    exports = {}
+    artifacts = {}
+    for trace in ("hutchinson", "exact"):
+        for batch in (50_000, None):
+            name = f"flagship_{trace}_{'symbolic' if batch is None else batch}"
+            if trace == "exact" and batch is None:
+                blob = serving.load_artifact(art_cli)  # the CLI's export above
+                exports[name] = secs_export
+            else:
+                t_start = time.perf_counter()
+                blob = serving.export_log_prob(models[trace], batch=batch)
+                exports[name] = time.perf_counter() - t_start
+            f = serving.deserialize_log_prob(blob)
+            artifacts[name] = (f, blob)
+            m = models[trace]
+            _, ca = held(name, f, lambda: f(x50, seed=seed), lambda: eager_lp(m, x50),
+                         nfe_of=lambda st: st.n_func_evals)
+            served = {}
+            if batch is None:
+                for n in (50_001, 1_024):
+                    xs = torch.cat([x50, x50[:1]]) if n > 50_000 else x50[:n]
+                    lp_n = f(xs, seed=seed)
+                    check(tuple(lp_n.shape) == (n,) and bool(torch.isfinite(lp_n).all()),
+                          f"14b {name}: {n} rows not served")
+                    served[n] = True
+            w = in_turns(lambda: f(x50, seed=seed), lambda: eager_lp(m, x50))
+            emit("artifact", path=name, rows=50_000, launches=ca, export_s=exports[name], bytes=len(blob),
+                 bitwise=True, served_rows=sorted(served), artifact_s=w["a"], eager_s=w["b"],
+                 artifact_rows_per_s=50_000 / w["a"][0], eager_rows_per_s=50_000 / w["b"][0], pairs=5, card=smi)
+
+    # a caller with TF32 on: the callable sets strict float32 itself
+    f_h = artifacts["flagship_hutchinson_symbolic"][0]
+    reset_counts()
+    ref = f_h(x50, seed=seed)
+    torch.cuda.synchronize()
+    ref_counts = read_counts()
+    saved_tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        reset_counts()
+        tf32_out = f_h(x50, seed=seed)
+        torch.cuda.synchronize()
+        tf32_counts = read_counts()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved_tf32
+    check(tf32_counts == ref_counts and bool(torch.equal(tf32_out, ref)),
+          "14b: an artifact called with TF32 on gave other launches or densities")
+    emit("artifact_tf32_guard", path="flagship_hutchinson_symbolic", launches=sum(tf32_counts.values()),
+         bitwise=True, card=smi)
+
+    # Hutch++ (r = 2, m = 1)
+    t_start = time.perf_counter()
+    blob = serving.export_log_prob(models["hutchpp"])
+    exports["flagship_hutchpp"] = time.perf_counter() - t_start
+    f = serving.deserialize_log_prob(blob)
+    _, ca = held("flagship_hutchpp", f, lambda: f(x50, seed=seed), lambda: eager_lp(models["hutchpp"], x50),
+                 nfe_of=lambda st: st.n_func_evals, op="fused_sketch")
+    emit("artifact", path="flagship_hutchpp", rows=50_000, launches=ca, export_s=exports["flagship_hutchpp"],
+         bytes=len(blob), bitwise=True, card=smi)
+
+    # the CLI's bucket bundle: 50,000 rows through the 65,536 bucket, against
+    # the eager solve of the same padded rows
+    fb = serving.deserialize_log_prob_bucketed(serving.load_artifact(bundle_cli))
+    check(fb.buckets == (1024, 8192, 65536), f"14b buckets {fb.buckets}")
+    padded = torch.cat([x50, x50[:1].expand(65_536 - 50_000, -1)])
+    reset_counts()
+    lp_b = fb(x50, seed=seed)
+    torch.cuda.synchronize()
+    cb = {k: v for k, v in read_counts().items() if v}
+    add_counts()
+    reset_counts()
+    lp_e, st_e = eager_lp(flag_pop, padded)
+    torch.cuda.synchronize()
+    ce = {k: v for k, v in read_counts().items() if v}
+    check(cb == ce == {"fused_drift[exact]": st_e.n_func_evals}, f"14b buckets: launches {cb} vs eager {ce}")
+    check(bool(torch.equal(lp_b, lp_e[:50_000])), "14b buckets: bundle differs from the eager padded solve")
+    emit("artifact_buckets", rows=50_000, bucket=65_536, launches=cb, bitwise=True, export_s=secs_buckets, card=smi)
+
+    # the conditional checkpoint as served (highf32, Hutchinson), 20,000 rows
+    pop, _ = PopulationModelDiffusion.from_conditional_npz(os.path.join(BENCH, "conditional_ckpt.npz"), device=dev)
+    from flowfusion_torch.utils.data import CONDITIONAL_POP
+
+    theta, cnd = CONDITIONAL_POP.sample(torch.Generator().manual_seed(1402), 20_000, device=dev)
+    t_start = time.perf_counter()
+    blob = serving.export_log_prob(pop, batch=20_000)
+    exports["conditional_highf32"] = time.perf_counter() - t_start
+    f = serving.deserialize_log_prob(blob)
+    _, ca = held("conditional_highf32", f, lambda: f(theta, cnd, seed=seed), lambda: eager_lp(pop, theta, cnd),
+                 nfe_of=lambda st: st.n_func_evals, dtype="highf32")
+    check(fused_mlp.fused_drift.launches_by_dtype["highf32"] == sum(ca.values()),
+          "14b conditional: the eager launches were not highf32")
+    emit("artifact", path="conditional_highf32", rows=20_000, launches=ca, export_s=exports["conditional_highf32"],
+         bytes=len(blob), bitwise=True, card=smi)
+
+    # flow and symplectic: log_prob and sampler; the flagship sampler
+    flow, _ = ODEFlow.from_npz(os.path.join(BENCH, "flow_ckpt.npz"), device=dev)
+    sym, _ = SymplecticFlowModel.from_npz(os.path.join(BENCH, "symplectic_ckpt.npz"), device=dev)
+    z = torch.randn(50_000, 2, generator=torch.Generator().manual_seed(1403)).to(dev)
+    z4 = torch.randn(50_000, 4, generator=torch.Generator().manual_seed(1404)).to(dev)
+    for name, model, what, call, eager in (
+        ("flow_log_prob", flow, "log_prob", lambda f: f(x50, seed=seed), lambda: eager_lp(flow, x50)),
+        ("flow_sampler", flow, "sampler", lambda f: f(z), lambda: flow.sample(z)),
+        ("symplectic_log_prob", sym, "log_prob", lambda f: f(x50, seed=seed), lambda: eager_lp(sym, x50)),
+        ("symplectic_sampler", sym, "sampler", lambda f: f(z4), lambda: sym.sample((50_000, 2), base=z4)),
+        ("flagship_sampler", flag_pop, "sampler", lambda f: f(z), lambda: flag_pop.forward(z)),
+    ):
+        t_start = time.perf_counter()
+        blob = (serving.export_log_prob if what == "log_prob" else serving.export_sampler)(model)
+        exports[name] = time.perf_counter() - t_start
+        f = (serving.deserialize_log_prob if what == "log_prob" else serving.deserialize_sampler)(blob)
+        per_eval = 2 if isinstance(model, SymplecticFlowModel) else 1
+        nfe_of = None if name == "symplectic_sampler" else (lambda st, k=per_eval: k * st.n_func_evals)
+        _, ca = held(name, f, lambda: call(f), eager, nfe_of=nfe_of)
+        w = in_turns(lambda: call(f), eager, pairs=3)
+        emit("artifact", path=name, rows=50_000, launches=ca, export_s=exports[name], bytes=len(blob), bitwise=True,
+             artifact_s=w["a"], eager_s=w["b"], card=smi)
+
+    # -- 14c an artifact served without the model code ---------------------------
+    art = os.path.join(d, "served.pt2")
+    serving.save_artifact(art, artifacts["flagship_hutchinson_symbolic"][1])
+    np.save(os.path.join(d, "x50.npy"), x50.cpu().numpy())
+    code = (
+        "import sys, numpy as np, torch\n"
+        f"sys.path.insert(0, {ROOT!r})\n"
+        "from flowfusion_torch.utils import serving\n"
+        f"f = serving.deserialize_log_prob(serving.load_artifact({art!r}))\n"
+        f"x = torch.from_numpy(np.load({os.path.join(d, 'x50.npy')!r})).cuda()\n"
+        f"np.save({os.path.join(d, 'lp_fresh.npy')!r}, f(x, seed={seed}).cpu().numpy())\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, cwd=d, timeout=300)
+    check(proc.returncode == 0, f"14c fresh interpreter exited {proc.returncode}: {proc.stderr[-2000:]}")
+    fresh = np.load(os.path.join(d, "lp_fresh.npy"))
+    check(np.array_equal(fresh, ref.cpu().numpy()), "14c the fresh interpreter's densities differ")
+    emit("artifact_fresh_process", path="flagship_hutchinson_symbolic", rows=50_000, bitwise=True, card=smi)
+
+    # -- the ops' dispatch cost: the registered op against its CUDA kernel called
+    # directly (no dispatcher), the same launch, at 4 rows (launch-bound) and at
+    # the flagship's 50,000
+    w_in, b_eff = fused_mlp._score_first_layer(flag_params, flag_cfg, 0.5, None)
+    c0c1 = torch.tensor([0.0, -1.0], device=dev)
+    hidden = flag_params["layers"][1:-1]
+    dispatch = {}
+    for n in (4, 50_000):
+        xs, es = x50[:n].contiguous(), torch.ones(n, 2, device=dev)
+        args = (xs, es, w_in, b_eff, [l["w"] for l in hidden], [l["b"] for l in hidden],
+                flag_params["layers"][-1]["w"], flag_params["layers"][-1]["b"], c0c1, "hutchinson", 2, 0, "silu",
+                "float32", "fused_drift", 0)
+        fns = {"op": lambda: fused_mlp.fused_mlp_op(*args), "direct": lambda: fused_mlp._fused_mlp_cuda(*args)}
+        us = {k: [] for k in fns}
+        for _ in range(3):
+            for k in ("op", "direct", "direct", "op"):
+                for _ in range(20):
+                    fns[k]()
+                torch.cuda.synchronize()
+                t_start = time.perf_counter()
+                for _ in range(500):
+                    fns[k]()
+                torch.cuda.synchronize()
+                us[k].append((time.perf_counter() - t_start) / 500 * 1e6)
+        dispatch[n] = {k: statistics.median(v) for k, v in us.items()}
+    emit("op_dispatch", rows_us_per_call=dispatch, card=smi)
+    tmp.cleanup()
+    secs = time.perf_counter() - t14
+    emit("phase14", seconds=secs, export_s=exports, card=smi)
+    return path_counts
 
 
 def parent_ab(parent_dir: str) -> int:
@@ -2698,7 +3091,6 @@ def parent_ab(parent_dir: str) -> int:
     import importlib.util
     import inspect
     import types
-    from collections import defaultdict
     from concurrent.futures import ThreadPoolExecutor
 
     import torch
@@ -2753,8 +3145,6 @@ def parent_ab(parent_dir: str) -> int:
             times.append(a.elapsed_time(b))
         return statistics.median(times)
 
-    counter = types.SimpleNamespace(launches=0, launches_by_mode=defaultdict(int),
-                                    launches_by_dtype=defaultdict(int))
     B, t = 50_000, torch.tensor(0.5, device=dev)
     flag_cfg = ScoreMLPConfig(n_dimensions=2, units=(128, 128, 128))
     flag_path = os.path.join(BENCH, "flagship_ckpt.npz")
@@ -2799,7 +3189,7 @@ def parent_ab(parent_dir: str) -> int:
         for dt in ("float32", "highf32"):
             plans = {k: mod.sketch_plan(*args) for k, mod in kernels.items()}
             fns = {k: (lambda mod=mod, plan=plans[k]: mod._launch(
-                x, V, w_in, b_eff, layers, cc, mode, D, n_s, n_g, "silu", plan, counter, dt))
+                x, V, w_in, b_eff, layers, cc, mode, D, n_s, n_g, "silu", plan, mod.fused_drift_sketch, dt))
                 for k, mod in kernels.items()}
             outs = {k: fn() for k, fn in fns.items()}
             torch.cuda.synchronize()
@@ -2850,7 +3240,7 @@ def parent_ab(parent_dir: str) -> int:
                                                     for w, b, layers, cc in sym_ops]))
     for name, launches in rhs_cases:
         for dt in ("float32", "highf32"):
-            fns = {k: (lambda mod=mod: [mod._launch(x, e, w, b, layers, cc, mode, d, "silu", counter=counter,
+            fns = {k: (lambda mod=mod: [mod._launch(x, e, w, b, layers, cc, mode, d, "silu", counter=mod.fused_drift,
                                                     n_tan=n_tan, compute_dtype=dt)
                                         for x, e, w, b, layers, cc, mode, d, n_tan in launches])
                    for k, mod in rhs.items()}

@@ -40,7 +40,16 @@ def strict_fp32_matmul() -> Iterator[None]:
     (the same trap as a single bf16 pass inside a Pallas kernel,
     the JAX package's kernels/fused_mlp.py:534-545).  The float32 compute
     mode's matmuls on the card (the plain path's, and the embedding fold
-    beside the kernel) run inside this block."""
+    beside the kernel) run inside this block.
+
+    While ``torch.export`` or ``torch.compile`` traces, the block changes
+    nothing: a traced program does not record the flags, and setting
+    globals inside a traced loop body is a side effect the tracer refuses.
+    Whoever runs the program sets them around the call
+    (``utils.serving``)."""
+    if torch.compiler.is_compiling():
+        yield
+        return
     saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False

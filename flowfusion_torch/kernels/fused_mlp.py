@@ -53,6 +53,7 @@ from torch.func import jvp
 
 from .._device import same_device, strict_fp32_matmul
 from ..models.nets import (
+    _apply_mlp_stack,
     apply_score_mlp,
     apply_symplectic_mlp,
     apply_velocity_mlp,
@@ -426,8 +427,8 @@ def fused_drift(
     _check_conditional(cfg.n_conditionals, conditional)
     params, cfg = pad_to_lanes(params, cfg, compute_dtype)
     # the envelope holds on every device, as the JAX interpret mode's does
-    _plan(cfg.units[0], mode, cfg.n_dimensions + cfg.n_conditionals, cfg.n_dimensions, compute_dtype=compute_dtype)
-    if not x.is_cuda:
+    _check_plan(cfg.units[0], mode, cfg.n_dimensions + cfg.n_conditionals, cfg.n_dimensions, compute_dtype=compute_dtype)
+    if not _on_card(x):
         return fused_drift_reference(
             params, cfg, t, x, conditional, e, exact_divergence, c0, c1, compute_dtype
         )
@@ -466,8 +467,8 @@ def fused_velocity(
     _check_conditional(cfg.conditional_dimension, conditional)
     params, cfg = pad_to_lanes(params, cfg, compute_dtype)
     D = cfg.target_dimension
-    _plan(cfg.hidden_units[0], mode, D + cfg.conditional_dimension, D, compute_dtype=compute_dtype)
-    if not x.is_cuda:
+    _check_plan(cfg.hidden_units[0], mode, D + cfg.conditional_dimension, D, compute_dtype=compute_dtype)
+    if not _on_card(x):
         return fused_velocity_reference(params, cfg, t, x, conditional, e, exact_divergence, compute_dtype)
     with strict_fp32_matmul():
         w_in, b_eff = _velocity_first_layer(params, cfg, t, conditional)
@@ -548,8 +549,8 @@ def fused_drift_tangents(
     params, cfg = pad_to_lanes(params, cfg, compute_dtype)
     D = cfg.n_dimensions
     V = _tangent_stack(V, x.shape[0], D)
-    _plan(cfg.units[0], "tangents", D + cfg.n_conditionals, D, V.shape[0], compute_dtype)
-    if not x.is_cuda:
+    _check_plan(cfg.units[0], "tangents", D + cfg.n_conditionals, D, V.shape[0], compute_dtype)
+    if not _on_card(x):
         return fused_drift_tangents_reference(params, cfg, t, x, V, conditional, c0, c1, compute_dtype)
     with strict_fp32_matmul():
         w_in, b_eff = _score_first_layer(params, cfg, t, conditional)
@@ -580,8 +581,8 @@ def fused_velocity_tangents(
     params, cfg = pad_to_lanes(params, cfg, compute_dtype)
     D = cfg.target_dimension
     V = _tangent_stack(V, x.shape[0], D)
-    _plan(cfg.hidden_units[0], "tangents", D + cfg.conditional_dimension, D, V.shape[0], compute_dtype)
-    if not x.is_cuda:
+    _check_plan(cfg.hidden_units[0], "tangents", D + cfg.conditional_dimension, D, V.shape[0], compute_dtype)
+    if not _on_card(x):
         return fused_velocity_tangents_reference(params, cfg, t, x, V, conditional, compute_dtype)
     with strict_fp32_matmul():
         w_in, b_eff = _velocity_first_layer(params, cfg, t, conditional)
@@ -631,8 +632,8 @@ def fused_symplectic_velocity(
     D, C = cfg.n_data_dims, cfg.n_conditionals
     if state.ndim != 2 or state.shape[1] != 2 * D:
         raise ValueError(f"state of shape {tuple(state.shape)}; expected (B, {2 * D})")
-    _plan(cfg.units[0], "forward", D + C, D, compute_dtype=compute_dtype)
-    if not state.is_cuda:
+    _check_plan(cfg.units[0], "forward", D + C, D, compute_dtype=compute_dtype)
+    if not _on_card(state):
         return fused_symplectic_velocity_reference(params, cfg, t, state, conditional, compute_dtype)
     q, p = torch.chunk(state, 2, dim=-1)
     with strict_fp32_matmul():
@@ -712,6 +713,15 @@ def _rows_per_block(H: int, chains: int, d_in: int, d_out: int, n_tan: int = 0,
     """The rows of :func:`_pick_rows` in this kernel's layout, or None."""
     picked = _pick_rows(lambda rows: _smem_bytes(rows, H, chains, d_in, d_out, n_tan, compute_dtype))
     return None if picked is None else picked[0]
+
+
+def _check_plan(*args, **kwargs) -> None:
+    """A wrapper's envelope check, :func:`_plan` for its config.  Skipped
+    while ``torch.export`` traces a solve: inside the traced loop body the
+    sizes may be symbolic, and the op's launch plans from the concrete
+    shapes (and raises) when the program runs."""
+    if not torch.compiler.is_compiling():
+        _plan(*args, **kwargs)
 
 
 @functools.lru_cache(maxsize=None)
@@ -800,52 +810,142 @@ def check_operands(expect, hidden, H: int, what: str, lane_width: int = LANE) ->
     return device
 
 
+def _on_card(x: torch.Tensor) -> bool:
+    """Whether a wrapper calls the registered op for ``x``: a CUDA tensor
+    does (the op launches the kernel), and so does every tensor inside
+    ``torch.export``, where a CPU tensor's op runs the plain version of the
+    folded operands (``torch.func.jvp``, which the plain versions use, does
+    not trace inside the solver's ``while_loop``).  An eager CPU tensor
+    runs the wrapper's plain version.  The sketch wrappers ask it too."""
+    return x.is_cuda or torch.compiler.is_exporting()
+
+
+# The ops' namespace: the package's own name, so that a second copy of the
+# package imported under another name (``chip_smoke.py --parent``)
+# registers its ops beside these instead of over them.
+OP_NAMESPACE = __name__.split(".")[0]
+
+
 def _launch(x_in, e, w_in, b_eff, layers, c0c1, mode, d_out, activation, counter=fused_drift,
             n_tan=0, compute_dtype="float32", rows=None):
-    """Check the operands, allocate the outputs and launch the kernel in
-    ``compute_dtype`` on the current stream, at the plan of :func:`_plan`
-    (``rows`` forces one); add the launch to ``counter``'s counts.  Returns
-    ``(drift, div)``: div is None (forward), (B,) (hutchinson, exact) or
-    the (n_tan, B, d_out) J v columns (tangents, ``e`` the (B, n_tan d_out)
-    probe rows).  Raises on anything the kernel does not take."""
+    """Launch the kernel through the registered op ``fused_mlp`` (eager
+    and traced calls alike) in ``compute_dtype`` on the current stream, at
+    the plan of :func:`_plan` (``rows`` forces one); the launch is added to
+    ``counter``'s counts.  Returns ``(drift, div)``: div is None (forward),
+    (B,) (hutchinson, exact) or the (n_tan, B, d_out) J v columns
+    (tangents, ``e`` the (B, n_tan d_out) probe rows).  Raises on anything
+    the kernel does not take."""
+    hidden = layers[1:-1]
+    drift, div = fused_mlp_op(
+        x_in, e if mode in ("hutchinson", "tangents") else None, w_in, b_eff,
+        [l["w"] for l in hidden], [l["b"] for l in hidden], layers[-1]["w"], layers[-1]["b"], c0c1,
+        mode, d_out, n_tan, activation, compute_dtype, counter.__name__, rows or 0,
+    )
+    return drift, (None if mode == "forward" else div)
+
+
+def _div_shape(mode: str, B, d_out: int, n_tan: int) -> tuple:
+    """The op's second output: (0,) in forward mode (no divergence), (B,)
+    for hutchinson and exact, (n_tan, B, d_out) J v columns for tangents."""
+    return {"forward": (0,), "tangents": (n_tan, B, d_out)}.get(mode, (B,))
+
+
+def _fused_mlp_cuda(x_in, e, w_in, b_eff, hidden_w, hidden_b, w_out, b_out, c0c1, mode, d_out, n_tan,
+                    activation, compute_dtype, counter, rows):
+    """The CUDA kernel of the op ``fused_mlp``: check the operands,
+    allocate the outputs, launch ``csrc/fused_mlp.cu`` on the current
+    stream (``rows`` > 0 forces a plan) and add one to the counts of the
+    wrapper named ``counter``.  Returns ``(drift (B, d_out), div)``, div as
+    :func:`_div_shape` says."""
     B, d_in = x_in.shape
     H = b_eff.shape[0]
-    hidden = layers[1:-1]
-    w_out, b_out = layers[-1]["w"], layers[-1]["b"]
     expect = [
         (x_in, (B, d_in)), (w_in, (d_in, H)), (b_eff, (H,)), (w_out, (H, d_out)),
         (b_out, (d_out,)), (c0c1, (2,)),
     ]
-    expect += [(l["w"], (H, H)) for l in hidden] + [(l["b"], (H,)) for l in hidden]
+    expect += [(w, (H, H)) for w in hidden_w] + [(b, (H,)) for b in hidden_b]
     if mode == "hutchinson":
         expect.append((e, (B, d_out)))
     elif mode == "tangents":
         expect.append((e, (B, n_tan * d_out)))
     check_compute_dtype(compute_dtype)
+    hidden = [{"w": w} for w in hidden_w]
     device = check_operands(expect, hidden, H, "fused kernel", lane(compute_dtype))
-    rows, smem = _plan(H, mode, d_in, d_out, n_tan, compute_dtype, rows)
+    rows, smem = _plan(H, mode, d_in, d_out, n_tan, compute_dtype, rows or None)
 
     drift = torch.empty((B, d_out), dtype=torch.float32, device=device)
-    div_shape = {"forward": None, "tangents": (n_tan, B, d_out)}.get(mode, (B,))
-    div = None if div_shape is None else torch.empty(div_shape, dtype=torch.float32, device=device)
+    div = torch.empty(_div_shape(mode, B, d_out, n_tan), dtype=torch.float32, device=device)
     if B == 0:
         return drift, div
     lib = _kernel_lib()
-    n = len(hidden)
-    w_ptrs = (ctypes.c_void_p * max(n, 1))(*[l["w"].data_ptr() for l in hidden])
-    b_ptrs = (ctypes.c_void_p * max(n, 1))(*[l["b"].data_ptr() for l in hidden])
+    n = len(hidden_w)
+    w_ptrs = (ctypes.c_void_p * max(n, 1))(*[w.data_ptr() for w in hidden_w])
+    b_ptrs = (ctypes.c_void_p * max(n, 1))(*[b.data_ptr() for b in hidden_b])
     err = lib.ff_fused_mlp(
         x_in.data_ptr(), e.data_ptr() if mode in ("hutchinson", "tangents") else None,
         w_in.data_ptr(), b_eff.data_ptr(), w_ptrs, b_ptrs, n,
         w_out.data_ptr(), b_out.data_ptr(), c0c1.data_ptr(), drift.data_ptr(),
-        None if div is None else div.data_ptr(),
+        div.data_ptr() if mode != "forward" else None,
         B, d_in, d_out, H, _MODES.index(mode), _KERNEL_ACTIVATIONS.index(activation),
         COMPUTE_DTYPES.index(compute_dtype), n_tan, rows, smem,
         torch.cuda.current_stream(device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"fused_mlp kernel launch failed with CUDA error {err}")
-    counter.launches += 1
-    counter.launches_by_mode[mode] += 1
-    counter.launches_by_dtype[compute_dtype] += 1
+    count = globals()[counter]
+    count.launches += 1
+    count.launches_by_mode[mode] += 1
+    count.launches_by_dtype[compute_dtype] += 1
     return drift, div
+
+
+# The RHS kernel as a registered op, ``flowfusion_torch::fused_mlp``: what the
+# wrappers call and an exported program holds.  Its CUDA kernel is the launch
+# above; its CPU kernel, below, the plain version of the same folded operands.
+fused_mlp_op = torch.library.custom_op(
+    f"{OP_NAMESPACE}::fused_mlp", _fused_mlp_cuda, mutates_args=(), device_types="cuda",
+    schema="(Tensor x_in, Tensor? e, Tensor w_in, Tensor b_eff, Tensor[] hidden_w, Tensor[] hidden_b, "
+           "Tensor w_out, Tensor b_out, Tensor c0c1, str mode, int d_out, int n_tan, str activation, "
+           "str compute_dtype, str counter, int rows) -> (Tensor, Tensor)",
+)
+
+
+def folded_net(x_in, w_in, b_eff, hidden_w, hidden_b, w_out, b_out, d_out, activation, compute_dtype):
+    """The plain net of the kernel's folded operands as a function of the
+    first ``d_out`` columns of ``x_in`` (the rest, the conditional, held):
+    the first layer ``[x | cond] w_in + b_eff``, in ``compute_dtype`` as
+    :func:`_net_ops` computes it.  The sketch op's CPU kernel uses it too."""
+    layers = [{"w": w_in, "b": b_eff}] + [{"w": w, "b": b} for w, b in zip(hidden_w, hidden_b)]
+    layers.append({"w": w_out, "b": b_out})
+    ops = _net_ops(compute_dtype, activation, x_in.shape[1])
+    cond = x_in[:, d_out:]
+    return lambda xx: _apply_mlp_stack(layers, torch.cat([xx, cond], dim=-1), activation, **ops)
+
+
+@fused_mlp_op.register_kernel("cpu")
+def _fused_mlp_op_cpu(x_in, e, w_in, b_eff, hidden_w, hidden_b, w_out, b_out, c0c1, mode, d_out, n_tan,
+                      activation, compute_dtype, counter, rows):
+    """The op on CPU tensors: the plain version of the folded operands
+    (``torch.func.jvp`` for the divergence and the J v columns, TF32 off),
+    counting nothing."""
+    net = folded_net(x_in, w_in, b_eff, hidden_w, hidden_b, w_out, b_out, d_out, activation, compute_dtype)
+    x = x_in[:, :d_out]
+    c0, c1 = c0c1[0], c0c1[1]
+    with strict_fp32_matmul():
+        if mode == "tangents":
+            V = e.reshape(x.shape[0], n_tan, d_out).permute(1, 0, 2)
+            drift_cols, cols = _tangents_reference(lambda xx: c0 * xx + c1 * net(xx), x, V)
+            return drift_cols.T.contiguous(), torch.stack([c.T for c in cols])
+        out = _reference(net, x, e if mode == "hutchinson" else None, mode == "exact", c0, c1)
+    if mode == "forward":
+        return out, x.new_empty((0,))
+    return out
+
+
+@fused_mlp_op.register_fake
+def _fused_mlp_op_fake(x_in, e, w_in, b_eff, hidden_w, hidden_b, w_out, b_out, c0c1, mode, d_out, n_tan,
+                       activation, compute_dtype, counter, rows):
+    """The op's output shapes, for tracing: drift (B, d_out) and div as
+    :func:`_div_shape` says (the wrappers check the plan before the call)."""
+    B = x_in.shape[0]
+    return x_in.new_empty((B, d_out)), x_in.new_empty(_div_shape(mode, B, d_out, n_tan))

@@ -34,7 +34,7 @@ import torch
 from .._device import strict_fp32_matmul
 from ..models.nets import apply_score_mlp, apply_velocity_mlp
 from ..ops import trace as trace_lib
-from . import _build
+from . import _build, fused_mlp
 from .fused_mlp import (
     COMPUTE_DTYPES,
     _KERNEL_ACTIVATIONS,
@@ -172,6 +172,15 @@ def sketch_plan(sketch_mode: str, H: int, n_act: int, d_in: int, D: int, n_s: in
     return rows, smem_bytes(rows), md
 
 
+def _wrapper_plan(*args):
+    """A wrapper's plan, :func:`sketch_plan` for its config, which also
+    checks the envelope.  While ``torch.export`` traces a solve it is
+    ``(0, 0, 0)``: inside the traced loop body the sizes may be symbolic,
+    and the op's launch plans from the concrete shapes (and raises) when
+    the program runs."""
+    return (0, 0, 0) if torch.compiler.is_compiling() else sketch_plan(*args)
+
+
 def sketch_blocks(plan) -> int:
     """Blocks of ``plan`` an SM holds by its shared memory and the launch
     bounds (``sketch_occupancy`` asks the card)."""
@@ -252,8 +261,8 @@ def fused_drift_sketch(
     params, cfg = pad_to_lanes(params, cfg, compute_dtype)
     D = cfg.n_dimensions
     V, n_s, n_g = _stack_sketch_probes(probes, sketch_mode, D)
-    plan = sketch_plan(sketch_mode, cfg.units[0], len(cfg.units), D + cfg.n_conditionals, D, n_s, n_g)
-    if not x.is_cuda:
+    plan = _wrapper_plan(sketch_mode, cfg.units[0], len(cfg.units), D + cfg.n_conditionals, D, n_s, n_g)
+    if not fused_mlp._on_card(x):
         return fused_drift_sketch_reference(params, cfg, t, x, probes, sketch_mode, conditional, c0, c1,
                                             compute_dtype)
     with strict_fp32_matmul():
@@ -285,10 +294,10 @@ def fused_velocity_sketch(
     params, cfg = pad_to_lanes(params, cfg, compute_dtype)
     D = cfg.target_dimension
     V, n_s, n_g = _stack_sketch_probes(probes, sketch_mode, D)
-    plan = sketch_plan(
+    plan = _wrapper_plan(
         sketch_mode, cfg.hidden_units[0], len(cfg.hidden_units), D + cfg.conditional_dimension, D, n_s, n_g
     )
-    if not x.is_cuda:
+    if not fused_mlp._on_card(x):
         return fused_velocity_sketch_reference(params, cfg, t, x, probes, sketch_mode, conditional,
                                                compute_dtype)
     with strict_fp32_matmul():
@@ -349,43 +358,91 @@ def sketch_occupancy(plan, compute_dtype: str = "float32") -> dict:
 
 def _launch(x_in, V, w_in, b_eff, layers, c0c1, sketch_mode, D, n_s, n_g, activation, plan, counter,
             compute_dtype="float32"):
-    """Check the operands, allocate the outputs and launch the kernel in
-    ``compute_dtype`` on the current stream; add the launch to
-    ``counter``'s counts.  ``V`` is the (n_s + n_g, B, D) probe stack; it
-    goes in as (B, n_s + n_g, D) rows."""
+    """Launch the kernel through the registered op ``fused_sketch`` (eager
+    and traced calls alike) in ``compute_dtype`` on the current stream, at
+    ``plan`` (its rows and MD; the bytes follow from them); the launch is
+    added to ``counter``'s counts.  ``V`` is the (n_s + n_g, B, D) probe
+    stack.  Returns ``(drift (B, D), div (B,))``."""
+    hidden = layers[1:-1]
+    rows, _, md = plan
+    return fused_sketch_op(
+        x_in, V, w_in, b_eff, [l["w"] for l in hidden], [l["b"] for l in hidden], layers[-1]["w"],
+        layers[-1]["b"], c0c1, sketch_mode, D, n_s, n_g, activation, compute_dtype, counter.__name__, rows, md,
+    )
+
+
+def _fused_sketch_cuda(x_in, V, w_in, b_eff, hidden_w, hidden_b, w_out, b_out, c0c1, mode, D, n_s, n_g,
+                       activation, compute_dtype, counter, rows, md):
+    """The CUDA kernel of the op ``fused_sketch``: check the operands,
+    allocate the outputs, launch ``csrc/fused_sketch.cu`` on the current
+    stream at the plan of :func:`sketch_plan` (``rows`` and ``md`` > 0
+    force one) and add one to the counts of the wrapper named ``counter``.
+    Returns ``(drift (B, D), div (B,))``."""
     B, d_in = x_in.shape
     H = b_eff.shape[0]
-    hidden = layers[1:-1]
-    w_out, b_out = layers[-1]["w"], layers[-1]["b"]
     x_in = x_in.contiguous()
     probes = V.permute(1, 0, 2).contiguous()
     expect = [
         (x_in, (B, d_in)), (probes, (B, n_s + n_g, D)), (w_in, (d_in, H)), (b_eff, (H,)),
         (w_out, (H, D)), (b_out, (D,)), (c0c1, (2,)),
     ]
-    expect += [(l["w"], (H, H)) for l in hidden] + [(l["b"], (H,)) for l in hidden]
+    expect += [(w, (H, H)) for w in hidden_w] + [(b, (H,)) for b in hidden_b]
     check_compute_dtype(compute_dtype)
-    device = check_operands(expect, hidden, H, "fused sketch kernel", lane(compute_dtype))
-    rows, smem, md = plan
+    device = check_operands(expect, [{"w": w} for w in hidden_w], H, "fused sketch kernel", lane(compute_dtype))
+    rows, smem, md = sketch_plan(mode, H, len(hidden_w) + 1, d_in, D, n_s, n_g, rows or None, md or None)
 
     drift = torch.empty((B, D), dtype=torch.float32, device=device)
     div = torch.empty((B,), dtype=torch.float32, device=device)
     if B == 0:
         return drift, div
     lib = _kernel_lib()
-    n = len(hidden)
-    w_ptrs = (ctypes.c_void_p * max(n, 1))(*[l["w"].data_ptr() for l in hidden])
-    b_ptrs = (ctypes.c_void_p * max(n, 1))(*[l["b"].data_ptr() for l in hidden])
+    n = len(hidden_w)
+    w_ptrs = (ctypes.c_void_p * max(n, 1))(*[w.data_ptr() for w in hidden_w])
+    b_ptrs = (ctypes.c_void_p * max(n, 1))(*[b.data_ptr() for b in hidden_b])
     err = lib.ff_fused_sketch(
         x_in.data_ptr(), probes.data_ptr(), w_in.data_ptr(), b_eff.data_ptr(), w_ptrs, b_ptrs, n,
         w_out.data_ptr(), b_out.data_ptr(), c0c1.data_ptr(), drift.data_ptr(), div.data_ptr(),
-        B, d_in, D, H, SKETCH_MODES.index(sketch_mode), _KERNEL_ACTIVATIONS.index(activation),
+        B, d_in, D, H, SKETCH_MODES.index(mode), _KERNEL_ACTIVATIONS.index(activation),
         COMPUTE_DTYPES.index(compute_dtype), n_s, n_g, md, rows, smem,
         torch.cuda.current_stream(device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"fused_sketch kernel launch failed with CUDA error {err}")
-    counter.launches += 1
-    counter.launches_by_mode[sketch_mode] += 1
-    counter.launches_by_dtype[compute_dtype] += 1
+    count = globals()[counter]
+    count.launches += 1
+    count.launches_by_mode[mode] += 1
+    count.launches_by_dtype[compute_dtype] += 1
     return drift, div
+
+
+# The sketch kernel as a registered op, ``flowfusion_torch::fused_sketch``: what
+# the wrappers call and an exported program holds.  Its CUDA kernel is the
+# launch above; its CPU kernel, below, the ``ops.trace`` estimator on the plain
+# net of the same folded operands.
+fused_sketch_op = torch.library.custom_op(
+    f"{fused_mlp.OP_NAMESPACE}::fused_sketch", _fused_sketch_cuda, mutates_args=(), device_types="cuda",
+    schema="(Tensor x_in, Tensor V, Tensor w_in, Tensor b_eff, Tensor[] hidden_w, Tensor[] hidden_b, "
+           "Tensor w_out, Tensor b_out, Tensor c0c1, str mode, int D, int n_s, int n_g, str activation, "
+           "str compute_dtype, str counter, int rows, int md) -> (Tensor, Tensor)",
+)
+
+
+@fused_sketch_op.register_kernel("cpu")
+def _fused_sketch_op_cpu(x_in, V, w_in, b_eff, hidden_w, hidden_b, w_out, b_out, c0c1, mode, D, n_s, n_g,
+                         activation, compute_dtype, counter, rows, md):
+    """The op on CPU tensors: the ``ops.trace`` estimator on the plain net
+    of the folded operands (TF32 off), counting nothing."""
+    net = fused_mlp.folded_net(x_in, w_in, b_eff, hidden_w, hidden_b, w_out, b_out, D, activation, compute_dtype)
+    c0, c1 = c0c1[0], c0c1[1]
+    probes = (V[:n_s], V[n_s:]) if mode == "hutchpp" else (V,)
+    with strict_fp32_matmul():
+        return _sketch_reference(lambda xx: c0 * xx + c1 * net(xx), x_in[:, :D], probes, mode)
+
+
+@fused_sketch_op.register_fake
+def _fused_sketch_op_fake(x_in, V, w_in, b_eff, hidden_w, hidden_b, w_out, b_out, c0c1, mode, D, n_s, n_g,
+                          activation, compute_dtype, counter, rows, md):
+    """The op's output shapes, for tracing: drift (B, D) and div (B,) (the
+    wrappers check the plan before the call)."""
+    B = x_in.shape[0]
+    return x_in.new_empty((B, D)), x_in.new_empty((B,))

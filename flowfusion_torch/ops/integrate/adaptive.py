@@ -31,6 +31,8 @@ stay float32 tensors on the state's device — as in the JAX solver, so the
 accept/reject decisions near ratio ~ 1 match it.  ``odeint_adaptive``
 reads one pair of numbers (the error ratio and the new time) back to the
 host an attempt; ``odeint_per_sample`` reads the set of unfinished rows.
+``odeint_adaptive_traced`` is the batch-global solve as one ``while_loop``
+an output interval, the form ``torch.export`` traces (``utils.serving``).
 """
 
 from __future__ import annotations
@@ -40,11 +42,12 @@ from typing import Any, Callable, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
+from torch._higher_order_ops.while_loop import while_loop, while_loop_op
 
 from .fixed import tree_leaves, tree_map
 from .tableaus import ButcherTableau, get_adaptive_tableau
 
-__all__ = ["odeint_adaptive", "odeint_per_sample", "SolverStats"]
+__all__ = ["odeint_adaptive", "odeint_adaptive_traced", "odeint_per_sample", "SolverStats"]
 
 
 class SolverStats(NamedTuple):
@@ -357,8 +360,13 @@ def odeint_adaptive(
     ``y0`` is a tensor or a tuple of tensors; ``func`` gets ``t`` as a
     float32 0-d tensor on the state's device.  ``ts`` are host values,
     strictly monotonic.  Returns ``(ys, stats)``: leaves with a leading
-    axis of ``len(ts)`` (ys[0] == y0) and a ``SolverStats``.
+    axis of ``len(ts)`` (ys[0] == y0) and a ``SolverStats``.  Inside
+    ``torch.export`` the solve is :func:`odeint_adaptive_traced`, the same
+    arithmetic as one ``while_loop``, and its stats are tensors.
     """
+    if torch.compiler.is_exporting():
+        return odeint_adaptive_traced(func, y0, ts, rtol=rtol, atol=atol, method=method, options=options,
+                                      norm=norm)
     tab, cfg, func, ts = _prepare(func, ts, rtol, atol, method, options)
     device = tree_leaves(y0)[0].device
     ts32 = ts.astype(np.float32)
@@ -418,6 +426,124 @@ def odeint_adaptive(
         n_accepted=n_acc,
         n_rejected=n_rej,
         succeeded=t1_host >= float(ts32[-1]),
+    )
+    return ys, stats
+
+
+def _while(cond, body, carried: tuple) -> tuple:
+    """``torch._higher_order_ops.while_loop``: captured as one graph node
+    inside ``torch.export`` (the body traced once, the tensors it captures
+    lifted to inputs); outside it, the operator's own loop, which reads
+    the condition on the host once an iteration."""
+    if torch.compiler.is_exporting():
+        return while_loop(cond, body, carried)
+    return while_loop_op(cond, body, carried, ())
+
+
+def odeint_adaptive_traced(
+    func: Callable[[torch.Tensor, Any], Any],
+    y0: Any,
+    ts: Sequence[float] | np.ndarray,
+    *,
+    rtol: float = 1e-7,
+    atol: float = 1e-9,
+    method: str = "dopri5",
+    options: Optional[dict] = None,
+    norm: Callable[[Any], torch.Tensor] = _mixed_rms_norm,
+):
+    """:func:`odeint_adaptive` in a form ``torch.export`` can trace: each
+    output interval is one ``while_loop`` over :func:`_attempt`, with the
+    host loop's arithmetic.  The loop carries as tensors what the host
+    loop keeps in Python: the time ``t1`` and the last accepted step's
+    start ``t_prev``, the proposal ``dt``, the state and its derivative,
+    the PI controller's memory, the counts and the dense-output
+    coefficients of the last accepted step.  An attempt takes accept or
+    reject with ``torch.where``; an interval ends when ``t1`` reaches its
+    time or ``max_num_steps`` attempts are spent, and its output is read
+    off the interpolant as the host loop reads it.  Eagerly the loop
+    reads its condition once an attempt, the host loop's one sync.
+
+    Returns ``(ys, stats)`` as :func:`odeint_adaptive` does, the stats as
+    0-d tensors.  The fixed-step and multistep methods trace as they are
+    written (their step counts are known on the host)."""
+    tab, cfg, func, ts = _prepare(func, ts, rtol, atol, method, options)
+    single = isinstance(y0, torch.Tensor)
+    leaves0 = tuple(tree_leaves(y0))
+    n = len(leaves0)
+    device = leaves0[0].device
+    ts32 = ts.astype(np.float32)
+    ts_dev = torch.as_tensor(ts32, device=device)
+
+    def tree(leaves):
+        return leaves[0] if single else tuple(leaves)
+
+    t1 = ts_dev[0]
+    f0 = tuple(tree_leaves(func(t1, y0)))
+    dt = _select_initial_step(
+        func, t1, y0, tree(f0), tab.order - 1, cfg.rtol, cfg.atol, norm, float(ts[-1] - ts[0])
+    )
+    zero_i = torch.zeros((), dtype=torch.int32, device=device)
+    # (t1, t_prev, dt, prev_ratio, prev_rejected, n_acc, n_rej, steps, y.., f.., coeffs..): the
+    # dense-output coefficients, five a leaf, where the tableau interpolates
+    n_coeffs = 0 if tab.clip_steps else 5 * n
+    carried = (
+        t1.clone(), t1.clone(), dt, torch.full((), 1e-4, dtype=torch.float32, device=device),  # FACOLD
+        torch.zeros((), dtype=torch.bool, device=device), zero_i, zero_i.clone(), zero_i.clone(),
+        *(l.clone() for l in leaves0), *f0, *(torch.zeros_like(l) for l in leaves0 for _ in range(n_coeffs // n)),
+    )
+
+    outs = [y0]
+    for i in range(1, len(ts32)):
+        target = ts_dev[i]
+
+        def cond(t1, t_prev, dt, prev_ratio, prev_rejected, n_acc, n_rej, steps, *rest):
+            return (t1 < target) & (steps < cfg.max_num_steps)
+
+        def body(t1, t_prev, dt, prev_ratio, prev_rejected, n_acc, n_rej, steps, *rest):
+            y, f, coeffs = rest[:n], rest[n:2 * n], rest[2 * n:]
+            accept, t_new, y1, f1, fit, dt_next, ratio = _attempt(
+                func, tab, cfg, norm, t1, dt, tree(y), tree(f), target, prev_ratio, prev_rejected
+            )
+
+            def pick(new, old):
+                return torch.where(accept, new, old)
+
+            if fit is not None:
+                fitted = fit()
+                fitted = (fitted,) if single else fitted
+                coeffs = tuple(pick(c, old) for c, old in zip((c for cs in fitted for c in cs), coeffs))
+            # the loop's outputs may not alias its inputs: torch.where and
+            # arithmetic make new tensors, dt_next is cloned
+            return (
+                pick(t_new, t1), pick(t1, t_prev), dt_next.clone(), pick(ratio.clamp(min=1e-4), prev_ratio),
+                ~accept, n_acc + accept.to(torch.int32), n_rej + (~accept).to(torch.int32), steps + 1,
+                *(pick(a, b) for a, b in zip(tree_leaves(y1), y)),
+                *(pick(a, b) for a, b in zip(tree_leaves(f1), f)),
+                *coeffs,
+            )
+
+        carried = tuple(_while(cond, body, carried))
+        t1, t_prev, n_acc = carried[0], carried[1], carried[5]
+        y, coeffs = carried[8:8 + n], carried[8 + 2 * n:]
+        if tab.clip_steps:
+            # landed exactly on the target by assignment: no interpolant
+            outs.append(tree(y))
+        else:
+            # the dense interpolant of the last accepted step (the solver
+            # overshot the target); the state where nothing was accepted
+            # (e.g. a NaN-poisoned RHS)
+            dense = [_interp_eval(coeffs[5 * j:5 * j + 5], t_prev, t1, target) for j in range(n)]
+            outs.append(tree([torch.where(n_acc > 0, d, l) for d, l in zip(dense, y)]))
+
+    if single:
+        ys = torch.stack(outs)
+    else:
+        ys = tuple(torch.stack([o[j] for o in outs]) for j in range(n))
+    stats = SolverStats(
+        n_func_evals=2 + tab.evals_per_step * carried[7],
+        n_accepted=carried[5],
+        n_rejected=carried[6],
+        succeeded=carried[0] >= ts_dev[-1],
     )
     return ys, stats
 

@@ -1,2 +1,2 @@
 """Checkpoints (read and written), trees of tensors, weight conversion, toy
-data and two-sample statistics."""
+data, two-sample statistics and the serving artifacts."""

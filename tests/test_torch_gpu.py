@@ -882,3 +882,72 @@ def test_dpm_launches_steps_times_order(cuda_device, order):
     m.params["layers"][0]["w"].requires_grad_(True)
     m.log_prob(x[:64], probes=(probes[0][:64],), adjoint=True)[0].mean().backward()
     assert fused_mlp.fused_drift.launches == 0 and torch.isfinite(m.params["layers"][0]["w"].grad).all()
+
+
+def _fake_call(op, args):
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    with FakeTensorMode() as mode:
+        fake = [mode.from_tensor(a) if isinstance(a, torch.Tensor) else
+                [mode.from_tensor(t) for t in a] if isinstance(a, list) else a for a in args]
+        return op(*fake)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["forward", "hutchinson", "exact", "tangents", "hutchpp", "xtrace"])
+def test_op_fake_shapes_match_the_launch(cuda_device, mode):
+    """Each registered op's fake kernel gives the shapes, dtypes and device
+    of its launch on the card, in every mode."""
+    cfg = ScoreMLPConfig(n_dimensions=3, units=(64, 64))
+    params = init_score_mlp(cfg, torch.Generator().manual_seed(0), cuda_device)
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn(777, 3, generator=g).to(cuda_device)
+    w_in, b_eff = fused_mlp._score_first_layer(params, cfg, 0.4, None)
+    hidden = params["layers"][1:-1]
+    common = (w_in, b_eff, [l["w"] for l in hidden], [l["b"] for l in hidden], params["layers"][-1]["w"],
+              params["layers"][-1]["b"], torch.tensor([-0.2, 0.8], device=cuda_device))
+    if mode in ("hutchpp", "xtrace"):
+        n_s, n_g = (2, 1) if mode == "hutchpp" else (2, 0)
+        V = torch.sign(torch.randn(n_s + n_g, 777, 3, generator=g)).to(cuda_device)
+        op, args = fused_sketch.fused_sketch_op, (x, V, *common, mode, 3, n_s, n_g, "silu", "float32",
+                                                  "fused_drift_sketch", 0, 0)
+    else:
+        n_tan = 2 if mode == "tangents" else 0
+        e = {"hutchinson": torch.sign(torch.randn(777, 3, generator=g)),
+             "tangents": torch.randn(777, 6, generator=g)}.get(mode)
+        op = fused_mlp.fused_mlp_op
+        args = (x, None if e is None else e.to(cuda_device), *common, mode, 3, n_tan, "silu", "float32",
+                "fused_drift", 0)
+    real = op(*args)
+    torch.cuda.synchronize()
+    fake = _fake_call(op, args)
+    for f, r in zip(fake, real):
+        assert tuple(f.shape) == tuple(r.shape) and f.dtype == r.dtype and f.device == r.device
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("trace_mode", ["hutchinson", "exact"])
+def test_symbolic_artifact_launches_the_kernel(cuda_device, trace_mode):
+    """A symbolic-batch artifact exported on the card holds the op and no
+    plain net, launches the kernel as often as the eager solve at three
+    batch sizes, and gives its densities bitwise."""
+    from flowfusion_torch.utils import serving
+
+    cfg = ScoreMLPConfig(n_dimensions=2, units=(128, 128))
+    model = ScoreModel(init_score_mlp(cfg, torch.Generator().manual_seed(2), cuda_device), cfg, VESDE(),
+                       trace_mode=trace_mode)
+    f = serving.deserialize_log_prob(serving.export_log_prob(model))
+    gm = f.program.graph_module
+    targets = {str(n.target) for g in [gm, *gm.children()] for n in g.graph.nodes if n.op == "call_function"}
+    assert any("fused_mlp" in t for t in targets) and not any("silu" in t for t in targets)
+    for n in (1, 1000, 4097):
+        x = torch.randn(n, 2, generator=torch.Generator().manual_seed(n)).to(cuda_device) * 2.0
+        fused_mlp.reset_launch_counts()
+        lp = f(x, seed=3)
+        torch.cuda.synchronize()
+        launches = fused_mlp.fused_drift.launches
+        fused_mlp.reset_launch_counts()
+        ref, st = model.log_prob(x, generator=torch.Generator(cuda_device).manual_seed(3), atol=1e-5, rtol=1e-5)
+        torch.cuda.synchronize()
+        assert launches == fused_mlp.fused_drift.launches == st.n_func_evals
+        assert torch.equal(lp, ref)

@@ -75,3 +75,32 @@ def test_imports_without_scipy():
                          timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "True", out.stdout
+
+
+def test_cli_and_serving_import_without_jax():
+    """``cli``, ``__main__`` and ``utils.serving`` import neither JAX nor
+    the JAX package, and ``python -m flowfusion_torch <command> --help``
+    exits 0 for every command without loading a JAX module."""
+    code = (
+        "import runpy, sys\n"
+        "import flowfusion_torch.cli, flowfusion_torch.__main__, flowfusion_torch.utils.serving\n"
+        "codes = []\n"
+        "for cmd in ('train', 'sample', 'logprob', 'export'):\n"
+        "    sys.argv = ['flowfusion_torch', cmd, '--help']\n"
+        "    try:\n"
+        "        runpy.run_module('flowfusion_torch', run_name='__main__')\n"
+        "    except SystemExit as err:\n"
+        "        codes.append(err.code)\n"
+        "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith(('jax.', 'flowfusion_tpu')))\n"
+        "print(codes, bad, file=sys.stderr)\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    env["PYTHONPATH"] = ROOT
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, cwd=ROOT, env=env,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stderr.strip().splitlines()[-1] == "[0, 0, 0, 0] []", out.stderr
+    for cmd in ("train", "export"):
+        run = subprocess.run([sys.executable, "-m", "flowfusion_torch", cmd, "--help"], capture_output=True,
+                             text=True, cwd=ROOT, env=env, timeout=120)
+        assert run.returncode == 0 and "--device" in run.stdout, run.stderr
