@@ -168,11 +168,31 @@ non-zero without the final line):
      1,024 rows; a caller with TF32 on gets the same launches and bits;
      (c) a fresh interpreter serves a saved artifact bitwise; the ops'
      dispatch cost against their CUDA kernels called directly;
+  15. compute mode bfloat16 of fused_mlp.cu and em_sampler.cu (printed
+     before 14): (a) every bf16 entry (fused_drift in three modes on the
+     flagship and the conditional H=256 checkpoint, fused_velocity, both
+     tangents entries, the symplectic field, at 50,000 data rows) against
+     its bf16 plain version (max |d| 3e-2, mean 1e-5, and 10x closer in the
+     mean than the plain version is to strict float32; the plain version's
+     own spread with float64 sums reported) and strict float32
+     (3e-2); the EM kernel over 10 steps of streamed noise (max 3e-2 and
+     the 10x guard on the mean), its local memory; (b) the main path in bf16, launches counted from zero:
+     the flagship Hutchinson ``log_prob`` at 50,000 rows (NFE beside the
+     float32 solve's, mean |dlogp| <= 5e-2, launches = NFE), the exact
+     density, ODE and DPM sampling, ``sample_sde`` and ``sample_sde_fused``
+     at 50,000 x 100 (the sampling phase's moment bars against float32's
+     ``sample_sde``), the flow's Hutchinson, exact density and sampling,
+     the symplectic ``log_prob``, the two-launch XTrace over both bf16
+     tangents entries; every launch bf16; (c) a bf16 artifact pinned to
+     4,096 rows, then a symbolic one exported after it in the same process
+     (an export no longer depends on the ones before it), each bitwise its
+     eager solve; (d) each bf16 launch's time beside the float32 launch's in
+     turns, the plain version's, the bound at the bf16 tensor-core rate;
   7. a ``kernels`` line, printed last: launches on the main paths (each
      path run with the counts set to 0 just before it: phases 2-4, 5, 6,
      the two-launch path of 1d, 8, 9, 10 and, for the highf32 entries, 11
-     and 12), times, bounds and plain times, and ``serving_launches``, the
-     launches on phase 14's paths.
+     and 12, for the bfloat16 entries 15), times, bounds and plain times,
+     and ``serving_launches``, the launches on phase 14's paths.
 
 The last line is ``{"ok": true, "device": {...}}``.  Exits with 2 and no
 result when no CUDA card is visible.
@@ -206,6 +226,7 @@ BENCH = os.path.join(ROOT, "benchmarks")
 # HBM3 rate.
 PEAK_FP32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12  # dense, on the tensor cores
+PEAK_BF16_FLOPS = 989e12  # dense, on the tensor cores
 PEAK_BYTES = 3.35e12
 # The Pallas kernels the CUDA kernels replace (kernel bodies / entries).
 REPLACES = "flowfusion_tpu/kernels/fused_mlp.py:475"
@@ -524,7 +545,7 @@ def main() -> int:
         return {
             **{f"fused_drift[{m}]": n for m, n in fused_drift.launches_by_mode.items()
                if m != "tangents"},
-            "fused_em_sample[float32]": fused_em_sample.launches,
+            "fused_em_sample[float32]": fused_em_sample.launches_by_dtype["float32"],
             **{f"fused_velocity[{m}]": n for m, n in fused_velocity.launches_by_mode.items()
                if m != "tangents"},
             "fused_drift_tangents": fused_drift_tangents.launches,
@@ -2611,6 +2632,348 @@ def main() -> int:
     emit("phase13", seconds=time.perf_counter() - t13, card=smi,
          tableau_rows_per_s=tab_rows)
 
+    # -- phase 15: compute mode bfloat16 of the RHS and EM kernels ----------
+    # The JAX package's fast serving mode (flowfusion_tpu/models/score.py:
+    # 73-77) on the bf16 tensor cores.  (a) Every bf16 entry of fused_mlp.cu
+    # against its bf16 plain version and strict float32 on the RHS the
+    # solves call (data rows, the SDE's own c0, c1, 50,000 rows).  The two
+    # round at the same points and sum in fp32 in other orders, which moves
+    # the odd value across a bf16 rounding boundary (one bf16 ulp, 2^-8 of
+    # that activation): two plain versions that differ only in fp32 or fp64
+    # sums differ by up to 1.88e-3 of the max magnitude on random rows
+    # (reported here as floor_rel on every case), and on the conditional
+    # H=256 checkpoint's data rows the kernel by 4.95e-3 (drift) and 1.13e-2
+    # (Hutchinson divergence) (H100, PR 15).  So the max |d| is held at the
+    # mode's accuracy class, 3e-2, and the rounding points by the mean:
+    # mean |d| <= 1e-5 of the max magnitude (measured up to 7.2e-6), at
+    # least 10x below the plain version's own mean from strict float32
+    # (measured 630-1,900x; a skipped rounding point fails it); against
+    # strict float32 the accuracy class, 3e-2 (measured up to 2.33e-2).
+    # The EM kernel over 10 steps of streamed noise: the VESDE's early steps
+    # scale a flip by their large c1 dt, and its plain version differs from
+    # itself with float64 sums by 1.19e-2 of the max on these inputs (CPU),
+    # the kernel by 1.30e-2 (H100, PR 15), so its max is held at 3e-2 and
+    # its rounding points by the 10x guard on the mean.  The EM kernel against its plain version over
+    # 10 steps of streamed noise: 1e-2 (measured 1.8e-3).
+    t15 = time.perf_counter()
+    bf = dict(compute_dtype="bfloat16")
+
+    def mean_rel(out, ref):
+        return float((out - ref).abs().mean() / ref.abs().max())
+
+    import contextlib
+
+    @contextlib.contextmanager
+    def f64_sums():
+        """The bf16 plain version with its products summed in float64: the
+        same rounding points, the sums in another order."""
+        orig = fused_mlp.bf16_matmul
+        fused_mlp.bf16_matmul = em_sampler.bf16_matmul = lambda a, b, round_a=True: (
+            (fused_mlp.bf16_round(a) if round_a else a).double() @ fused_mlp.bf16_round(b).double()).float()
+        try:
+            yield
+        finally:
+            fused_mlp.bf16_matmul = em_sampler.bf16_matmul = orig
+
+    def bf_check(what, out, ref, strict, ref64):
+        """Hold bf16 outputs against their bf16 plain version and strict
+        float32, beside the plain version's own spread (``ref64``, its sums
+        in float64); returns the numbers and the largest |d| from the
+        plain."""
+        nums = dict(vs_plain_rel=[rel_err(o, r) for o, r in zip(out, ref)],
+                    floor_rel=[rel_err(r64, r) for r64, r in zip(ref64, ref)],
+                    vs_plain_mean_rel=[mean_rel(o, r) for o, r in zip(out, ref)],
+                    plain_vs_strict_mean_rel=[mean_rel(r, s) for r, s in zip(ref, strict)],
+                    vs_strict_rel=[rel_err(o, s) for o, s in zip(out, strict)])
+        for i in range(len(out)):
+            check(bool(torch.isfinite(out[i]).all()), f"bfloat16 {what}: non-finite output {i}")
+            check(nums["vs_plain_rel"][i] <= 3e-2 and nums["vs_plain_mean_rel"][i] <= 1e-5,
+                  f"bfloat16 {what}: kernel vs its plain version {nums}")
+            check(nums["vs_plain_mean_rel"][i] <= 0.1 * nums["plain_vs_strict_mean_rel"][i],
+                  f"bfloat16 {what}: not 10x closer to the bf16 plain version than that is to strict: {nums}")
+            check(nums["vs_strict_rel"][i] <= 3e-2, f"bfloat16 {what}: outside the accuracy class: {nums}")
+        return nums, max(float((o - r).abs().max()) for o, r in zip(out, ref))
+
+    bf_err = {}
+    for name in ("flagship", "conditional_ckpt_h256.npz"):
+        params, cfg = (flag_params, flag_cfg) if name == "flagship" else cond_nets[name]
+        g = gen(1500)
+        x, c, c0, c1 = rhs_inputs(name, 50_000, g)
+        e = rademacher(g, 50_000, cfg.n_dimensions)
+        for mode in ("forward", "hutchinson", "exact"):
+            kw = dict(c0=c0, c1=c1, **modes_kw(mode, e))
+            outs = [as_pair(fn(params, cfg, t37, x, c, **kw, **extra)) for fn, extra in (
+                (fused_drift, bf), (fused_drift_reference, bf), (fused_drift_reference, {}))]
+            with f64_sums():
+                outs.append(as_pair(fused_drift_reference(params, cfg, t37, x, c, **kw, **bf)))
+            n = 1 if mode == "forward" else 2
+            nums, err = bf_check(f"fused_drift {name} {mode}", *(o[:n] for o in outs))
+            if name == "flagship":
+                bf_err[f"fused_drift[{mode}]"] = err
+            emit("bfloat16_vs_plain", entry="fused_drift", net=name, rows=50_000, mode=mode, max_abs_err=err, **nums)
+    x, _, _, _ = rhs_inputs("flow", 50_000, gen(1501))
+    e = rademacher(gen(1502), 50_000, 2)
+    for mode in ("forward", "hutchinson", "exact"):
+        outs = [as_pair(fn(flow_params, flow_cfg, t37, x, **modes_kw(mode, e), **extra)) for fn, extra in (
+            (fused_velocity, bf), (fused_velocity_reference, bf), (fused_velocity_reference, {}))]
+        with f64_sums():
+            outs.append(as_pair(fused_velocity_reference(flow_params, flow_cfg, t37, x, **modes_kw(mode, e), **bf)))
+        n = 1 if mode == "forward" else 2
+        nums, bf_err[f"fused_velocity[{mode}]"] = bf_check(f"fused_velocity {mode}", *(o[:n] for o in outs))
+        emit("bfloat16_vs_plain", entry="fused_velocity", net="flow_ckpt.npz", rows=50_000, mode=mode,
+             max_abs_err=bf_err[f"fused_velocity[{mode}]"], **nums)
+    Vb = torch.randn(3, 50_000, 2, generator=gen(1503)).to(dev)
+    xf, _, c0, c1 = rhs_inputs("flagship", 50_000, gen(1504))
+    for entry_name, call in (
+        ("fused_drift_tangents", lambda fn, **k: fn(flag_params, flag_cfg, t37, xf, Vb, c0=c0, c1=c1, **k)),
+        ("fused_velocity_tangents", lambda fn, **k: fn(flow_params, flow_cfg, t37, x, Vb, **k)),
+    ):
+        kern_fn, plain_fn = getattr(fused_mlp, entry_name), getattr(fused_mlp, entry_name + "_reference")
+        outs = [call(kern_fn, **bf), call(plain_fn, **bf), call(plain_fn)]
+        with f64_sums():
+            outs.append(call(plain_fn, **bf))
+        nums, bf_err[entry_name] = bf_check(entry_name, *([o[0]] + o[1] for o in outs))
+        emit("bfloat16_vs_plain", entry=entry_name, rows=50_000, K=3, max_abs_err=bf_err[entry_name], **nums)
+    state = torch.cat([xf, torch.randn(50_000, 2, generator=gen(1505)).to(dev)], 1)
+    outs = [[fn(sym_model.params, sym_model.net, t37, state, **extra)] for fn, extra in (
+        (fused_symplectic_velocity, bf), (fused_mlp.fused_symplectic_velocity_reference, bf),
+        (fused_mlp.fused_symplectic_velocity_reference, {}))]
+    with f64_sums():
+        outs.append([fused_mlp.fused_symplectic_velocity_reference(sym_model.params, sym_model.net, t37, state, **bf)])
+    nums, bf_err["fused_symplectic_velocity"] = bf_check("symplectic", *outs)
+    emit("bfloat16_vs_plain", entry="fused_symplectic_velocity", net="symplectic_ckpt.npz", rows=50_000,
+         max_abs_err=bf_err["fused_symplectic_velocity"], **nums)
+
+    # the EM kernel: the flagship at 50,000 rows, 10 steps of streamed noise
+    x0 = VESDE().prior_sample(gen(1506), (50_000, 2), dev)
+    z10 = torch.randn(10, 50_000, 2, generator=gen(1507)).to(dev)
+    out = fused_em_sample(flag_params, flag_cfg, VESDE(), x0, None, steps=10, noise=z10, **bf)
+    ref = fused_em_sample_reference(flag_params, flag_cfg, VESDE(), x0, z10, steps=10, **bf)
+    strict = fused_em_sample_reference(flag_params, flag_cfg, VESDE(), x0, z10, steps=10)
+    with f64_sums():
+        ref64 = fused_em_sample_reference(flag_params, flag_cfg, VESDE(), x0, z10, steps=10, **bf)
+    em_rel = [rel_err(o, r) for o, r in zip(out[:2], ref[:2])]
+    em_mean = [mean_rel(o, r) for o, r in zip(out[:2], ref[:2])]
+    em_strict_mean = [mean_rel(r, s) for r, s in zip(ref[:2], strict[:2])]
+    check(max(em_rel) <= 3e-2 and not bool(out[2]) and bool(torch.isfinite(out[1]).all()),
+          f"bfloat16 EM kernel vs its plain version {em_rel}")
+    check(all(m <= 0.1 * s for m, s in zip(em_mean, em_strict_mean)),
+          f"bfloat16 EM kernel: mean {em_mean} not 10x below the plain version's from strict {em_strict_mean}")
+    bf_err["fused_em_sample"] = max(float((o - r).abs().max()) for o, r in zip(out[:2], ref[:2]))
+    occ_em = em_sampler.em_occupancy(em_sampler.em_plan(128, 2, False), "bfloat16")
+    check(occ_em["local_bytes"] == 0, f"the bfloat16 EM kernel keeps local memory: {occ_em}")
+    emit("bfloat16_em_vs_plain", rows=50_000, steps=10, vs_plain_rel=em_rel, vs_plain_mean_rel=em_mean,
+         floor_rel=[rel_err(r64, r) for r64, r in zip(ref64[:2], ref[:2])], plain_vs_strict_mean_rel=em_strict_mean,
+         vs_strict_rel=[rel_err(o, s) for o, s in zip(out[:2], strict[:2])], max_abs_err=bf_err["fused_em_sample"],
+         occupancy=occ_em)
+
+    # (b) the main path in bfloat16, launches counted from zero: the
+    # float32 solves it is compared with run first, outside the count
+    xs, probes = hutch_rows(50_000, 0)
+    hutch_bf = dataclasses.replace(hutch, kernel_compute_dtype="bfloat16")
+    lp_f, st_f = hutch.log_prob(xs, probes=probes, atol=1e-5, rtol=1e-5, options=opts)
+    flow_bf = dataclasses.replace(flow, kernel_compute_dtype="bfloat16")
+    xr = REFERENCE_GMM.sample(gen(1510), 50_000, device=dev)
+    ef = (rademacher(gen(1511), 50_000, 2),)
+    flow_f = dataclasses.replace(flow, trace_mode="hutchinson").log_prob(xr, probes=ef, atol=1e-5, rtol=1e-5,
+                                                                         options=opts)
+    sym_bf = dataclasses.replace(sym_model, kernel_compute_dtype="bfloat16")
+    xsym = DEMO_GMM.sample(gen(1512), 50_000, device=dev)
+    p0 = torch.randn(50_000, 2, generator=cuda_gen(1513), device=dev)
+    sym_f = sym_model.log_prob(xsym, momentum=p0, n_momentum_samples=1, options=opts)
+    model_bf = ScoreModel(flag_params, flag_cfg, VESDE(), kernel_compute_dtype="bfloat16")
+    z = torch.randn(50_000, 2, generator=gen(1514)).to(dev)
+    s_f, _ = ScoreModel(flag_params, flag_cfg, VESDE()).sample_ode_from_base(z)
+
+    def bf_launches():
+        return sum(fn.launches_by_dtype["bfloat16"] for fn in fused_mlp._COUNTED)
+
+    reset_counts()
+    path = {}
+    (lp_b, st_b), n_b, secs_b = timed(
+        lambda: hutch_bf.log_prob(xs, probes=probes, atol=1e-5, rtol=1e-5, options=opts), bf_launches)
+    dlp = float((lp_b - lp_f).abs().mean())
+    check(n_b == st_b.n_func_evals and st_b.succeeded and bool(torch.isfinite(lp_b).all()),
+          f"bfloat16 hutchinson solve: {n_b} launches for nfe {st_b.n_func_evals}")
+    # the JAX package reports 5e-2 a row on a stiffer field (BENCHMARKS.md:514-518)
+    check(dlp <= 5e-2, f"bfloat16 flagship hutchinson: mean |dlogp| {dlp:.2e} against float32 > 5e-2")
+    path["flagship_hutchinson"] = dict(rows=50_000, nfe=st_b.n_func_evals, nfe_float32=st_f.n_func_evals,
+                                       mean_abs_dlogp_vs_float32=dlp, launches=n_b, seconds=secs_b)
+    x_raw = DEMO_GMM.sample(gen(1515), 25_000, device=dev)
+    (lp, st), n, _ = timed(lambda: model_bf.log_prob((x_raw - shift) / scale), bf_launches)
+    truth = float(DEMO_GMM.log_prob(x_raw.double()).sum())
+    rel = abs(float((lp - torch.log(scale).sum()).double().sum()) - truth) / abs(truth)
+    check(n == st.n_func_evals and bool(torch.isfinite(lp).all()), f"bfloat16 exact solve: {n} launches")
+    path["flagship_exact"] = dict(rows=25_000, nfe=st.n_func_evals, density_rel_error=rel, launches=n)
+    (s_b, st), n, _ = timed(lambda: model_bf.sample_ode_from_base(z), bf_launches)
+    check(n == st.n_func_evals and bool(torch.isfinite(s_b).all()), f"bfloat16 ODE sampling: {n} launches")
+    path["flagship_ode_sample"] = dict(rows=50_000, nfe=st.n_func_evals, max_rel_dev_vs_float32=rel_err(s_b, s_f),
+                                       launches=n)
+    dpm, n, _ = timed(lambda: model_bf.sample_dpm(z, steps=12, order=2), bf_launches)
+    check(n == 24 and bool(torch.isfinite(dpm).all()), f"bfloat16 sample_dpm: {n} launches != 24")
+    scan_bf, n, _ = timed(lambda: model_bf.sample_sde((N, 2), steps=EM_STEPS, generator=cuda_gen(1516)),
+                          bf_launches)
+    check(n == EM_STEPS and not bool(scan_bf.nan_encountered), f"bfloat16 sample_sde: {n} launches")
+    fused_bf, n_em, secs_em = timed(
+        lambda: model_bf.sample_sde_fused((N, 2), steps=EM_STEPS, generator=cuda_gen(1517)),
+        lambda: fused_em_sample.launches_by_dtype["bfloat16"])
+    check(n_em == 1 and not bool(fused_bf.nan_encountered), f"bfloat16 sample_sde_fused: {n_em} EM launches")
+    # the sampling phase's moment bars, against its float32 sample_sde
+    sample_moments = {}
+    for name, res in (("sample_sde", scan_bf), ("sample_sde_fused", fused_bf)):
+        m_, c_ = moments(res.x_mean)
+        d_mean, d_cov = float((m_ - m_scan).abs().max()), float((c_ - c_scan).abs().max())
+        check(d_mean <= 0.05 and d_cov <= 0.08,
+              f"bfloat16 {name}: moments off the float32 sample_sde's by {d_mean:.3f} / {d_cov:.3f}")
+        sample_moments[name] = dict(mean=m_.tolist(), cov=c_.tolist(), mean_max_diff=d_mean, cov_max_diff=d_cov,
+                                    energy_distance=float(energy_distance(res.x_mean * scale + shift, mixture)))
+    path["sampling"] = dict(rows=N, steps=EM_STEPS, seconds_fused=secs_em, **sample_moments)
+    (lpf, stf), n, _ = timed(lambda: dataclasses.replace(flow_bf, trace_mode="hutchinson").log_prob(
+        xr, probes=ef, atol=1e-5, rtol=1e-5, options=opts), bf_launches)
+    dlp_flow = float((lpf - flow_f[0]).abs().mean())
+    check(n == stf.n_func_evals and dlp_flow <= 5e-2, f"bfloat16 flow hutchinson: {n} launches, |dlogp| {dlp_flow}")
+    xr2 = REFERENCE_GMM.sample(gen(1518), 25_000, device=dev)
+    (lpe, ste), n_e, _ = timed(lambda: flow_bf.log_prob(xr2, atol=1e-4, rtol=1e-4), bf_launches)
+    truth = float(REFERENCE_GMM.log_prob(xr2.double()).sum())
+    (sf, stsf), n_s, _ = timed(lambda: flow_bf.sample(z, rtol=1e-5, atol=1e-5), bf_launches)
+    check(n_e == ste.n_func_evals and n_s == stsf.n_func_evals and bool(torch.isfinite(sf).all()),
+          "bfloat16 flow exact density or sampling: launches != NFE")
+    (lps, sts), n, _ = timed(lambda: sym_bf.log_prob(xsym, momentum=p0, n_momentum_samples=1, options=opts),
+                             bf_launches)
+    dlp_sym = float((lps - sym_f[0]).abs().mean())
+    check(n > 0 and dlp_sym <= 5e-2, f"bfloat16 symplectic log_prob: {n} launches, |dlogp| {dlp_sym}")
+    path["flow_and_symplectic"] = dict(
+        flow_hutchinson_nfe=stf.n_func_evals, flow_mean_abs_dlogp_vs_float32=dlp_flow,
+        flow_exact_density_rel_error=abs(float(lpe.double().sum()) - truth) / abs(truth),
+        flow_sample_nfe=stsf.n_func_evals, symplectic_nfe=sts.n_func_evals, symplectic_mean_abs_dlogp=dlp_sym)
+    # the tangents entries on the path: the two-launch XTrace (m = 2) over
+    # each bf16 tangents entry, beside the same algebra over the plain
+    # version's columns (reported: the per-row QR turns flips into larger
+    # steps on near-singular rows)
+    for velocity, params, cfg in ((False, flag_params, flag_cfg), (True, flow_params, flow_cfg)):
+        x, c, c0, c1 = rhs_inputs("flow" if velocity else "flagship", 50_000, gen(1520))
+        (O,) = sketch_probes(gen(1521), "xtrace", 50_000, 2, 0, 2)
+        fn = fused_velocity_tangents if velocity else fused_drift_tangents
+        plain_fn = getattr(fused_mlp, fn.__name__ + "_reference")
+        kw = {} if velocity else dict(c0=c0, c1=c1)
+        two = trace_ops.xtrace_core(lambda cols: fn(params, cfg, t37, x, cols, c, **kw, **bf)[1],
+                                    [O[i].T for i in range(2)])
+        ref = trace_ops.xtrace_core(lambda cols: plain_fn(params, cfg, t37, x, cols, c, **kw, **bf)[1],
+                                    [O[i].T for i in range(2)])
+        check(bool(torch.isfinite(two).all()), f"bfloat16 two-launch xtrace {fn.__name__}: non-finite")
+        path[f"two_launch_xtrace_{fn.__name__}"] = dict(rows=50_000, div_rel=rel_err(two, ref),
+                                                         div_mean_rel=mean_rel(two, ref))
+    by_dtype = {fn.__name__: dict(fn.launches_by_dtype) for fn in fused_mlp._COUNTED}
+    check(all(v["float32"] == v["highf32"] == 0 for v in by_dtype.values()) and
+          fused_em_sample.launches_by_dtype["float32"] == 0,
+          f"the bfloat16 path launched a kernel in another mode: {by_dtype}")
+    bf_path_counts = {f"{fn.__name__}[{m},bfloat16]": n for fn in (fused_drift, fused_velocity)
+                      for m, n in fn.launches_by_mode.items() if m != "tangents"}
+    bf_path_counts.update({f"{fn.__name__}[bfloat16]": fn.launches for fn in (
+        fused_drift_tangents, fused_velocity_tangents, fused_symplectic_velocity)})
+    bf_path_counts["fused_em_sample[bfloat16]"] = fused_em_sample.launches_by_dtype["bfloat16"]
+    for key, n in bf_path_counts.items():
+        check(n > 0, f"{key} was never launched on the bfloat16 path")
+    emit("bfloat16_path", card=smi, launches=bf_path_counts, **path)
+
+    # (c) bfloat16 artifacts of the flagship Hutchinson log_prob against
+    # their eager solves (the export's tolerances and controller): one
+    # pinned to 4,096 rows, then a symbolic one exported after it in the
+    # same process (the while_loop compiles of an earlier export no longer
+    # constrain a later one's batch)
+    from flowfusion_torch.utils import serving as serving_lib
+
+    for batch, rows in ((4096, 4096), (None, 20_000)):
+        t_exp = time.perf_counter()
+        f_bf = serving_lib.deserialize_log_prob(serving_lib.export_log_prob(hutch_bf, batch=batch))
+        export_s = time.perf_counter() - t_exp
+        x_art = xs[:rows]
+        lp_art, n_art, _ = timed(lambda: f_bf(x_art, seed=15), bf_launches)
+        (lp_eager, st_eager), n_eager, _ = timed(
+            lambda: hutch_bf.log_prob(x_art, generator=torch.Generator(dev).manual_seed(15), atol=1e-5, rtol=1e-5),
+            bf_launches)
+        check(torch.equal(lp_art, lp_eager) and n_art == n_eager == st_eager.n_func_evals,
+              f"bfloat16 artifact (batch {batch}) vs eager: bitwise {torch.equal(lp_art, lp_eager)}, "
+              f"launches {n_art} / {n_eager}")
+        emit("bfloat16_artifact", batch=batch or "symbolic", rows=rows, nfe=st_eager.n_func_evals, launches=n_art,
+             bitwise=True, export_s=export_s)
+
+    # (d) times at the float32 rows' shapes (50,000 rows, t = 0.5): the bf16
+    # launch beside the float32 launch in turns (f, b, b, f; medians of 15),
+    # the bf16 plain version's whole call.  Bound: max(bytes / 3.35 TB/s,
+    # F_tc / 989 TFLOP/s + F_cc / 67 TFLOP/s), F_tc the (H, H) products on
+    # the bf16 tensor cores (fused_mlp.bf16_flops_per_row)
+    def bf_bound(d_in, n_layers, mode, n_tan, nbytes, launches=1):
+        tc, cc = fused_mlp.bf16_flops_per_row(d_in, 2, 128, n_layers, mode, n_tan)
+        t_ops = launches * B * (tc / PEAK_BF16_FLOPS + cc / PEAK_FP32_FLOPS) * 1e3
+        t_bytes = nbytes / PEAK_BYTES * 1e3
+        return dict(bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes else "bytes")
+
+    B = 50_000
+    t = torch.tensor(0.5, device=dev)
+    modes3 = ("forward", "hutchinson", "exact")
+
+    def case_bytes(base, mode):
+        """Bytes a launch must move: x, the probes, the outputs, the weights."""
+        if base in ("fused_drift", "fused_velocity"):
+            io = B * 4 * (2 + (2 if mode == "hutchinson" else 0) + 2 + (0 if mode == "forward" else 1))
+        else:
+            io = 4 * B * ((2 + 6 + 2 + 6) if "tangents" in base else (4 + 4))
+        return io + w_bytes[{"fused_drift": "flag", "fused_drift_tangents": "flag", "fused_velocity": "flow",
+                             "fused_velocity_tangents": "flow"}.get(base, "sym")]
+
+    plain_bf = {
+        **{f"fused_drift[{m}]": (lambda m=m: fused_drift_reference(flag_params, flag_cfg, t, x2h, c0=0.0, c1=-1.3,
+                                                                  **modes_kw(m, eh), **bf)) for m in modes3},
+        **{f"fused_velocity[{m}]": (lambda m=m: fused_velocity_reference(flow_params, flow_cfg, t, x2h,
+                                                                        **modes_kw(m, eh), **bf)) for m in modes3},
+        "fused_drift_tangents": lambda: fused_mlp.fused_drift_tangents_reference(flag_params, flag_cfg, t, x2h, Vb,
+                                                                                 c0=0.0, c1=-1.3, **bf),
+        "fused_velocity_tangents": lambda: fused_mlp.fused_velocity_tangents_reference(flow_params, flow_cfg, t, x2h,
+                                                                                       Vb, **bf),
+        "fused_symplectic_velocity": lambda: fused_mlp.fused_symplectic_velocity_reference(
+            sym_model.params, sym_model.net, t, state[:B], **bf),
+    }
+    bf_timing = {}
+    for name, call, _, _ in hf_cases:
+        base = name.split("[")[0]
+        mode = name[len(base) + 1:-1] if "[" in name else ("tangents" if "tangents" in base else "forward")
+        n_layers = 4 if base in ("fused_drift", "fused_drift_tangents") else 3
+        nbytes = case_bytes(base, mode)
+        f32 = [median_ms(lambda: call("float32"), n=15)]
+        bfs = [median_ms(lambda: call("bfloat16"), n=15) for _ in range(2)]
+        f32.append(median_ms(lambda: call("float32"), n=15))
+        bf_timing[name] = dict(ms=statistics.median(bfs), plain_ms=median_ms(plain_bf[name], n=5, warmup=1),
+                               **bf_bound(2, n_layers, mode, 3 if mode == "tangents" else 0, nbytes,
+                                          launches=2 if base == "fused_symplectic_velocity" else 1))
+        emit("bfloat16_kernel_time", entry=name, rows=B, card=smi, **bf_timing[name], bfloat16_ms_runs=bfs,
+             float32_ms_runs=f32, float32_ms=statistics.median(f32))
+    # the EM kernel: the flagship sampler at 50,000 rows x 100 steps, Philox
+    # noise, in turns with float32 (medians of 5), the bf16 plain version's
+    # run on the same noise; bound with the hidden products on the bf16
+    # tensor cores and the input and output layers at the fp32 rate
+    x0 = VESDE().prior_sample(gen(1530), (N, 2), dev)
+    z100 = em_sampler.philox_normals(7, EM_STEPS, N, 2, dev)
+
+    def em_call(dt):
+        return fused_em_sample(flag_params, flag_cfg, VESDE(), x0, 7, steps=EM_STEPS, compute_dtype=dt)
+
+    em_f32 = [median_ms(lambda: em_call("float32"), n=5, warmup=1)]
+    em_bfs = [median_ms(lambda: em_call("bfloat16"), n=5, warmup=1) for _ in range(2)]
+    em_f32.append(median_ms(lambda: em_call("float32"), n=5, warmup=1))
+    em_plain = median_ms(lambda: fused_em_sample_reference(flag_params, flag_cfg, VESDE(), x0, z100, steps=EM_STEPS,
+                                                           **bf), n=3, warmup=1)
+    tc = N * EM_STEPS * 2 * 128 * 128 * 2
+    cc = em_sampler.em_flops(N, EM_STEPS, 2, 128, 4) - tc
+    t_ops = (tc / PEAK_BF16_FLOPS + cc / PEAK_FP32_FLOPS) * 1e3
+    t_bytes = em_sampler.em_bytes(N, EM_STEPS, 2, 128, 4, compute_dtype="bfloat16") / PEAK_BYTES * 1e3
+    bf_timing["fused_em_sample"] = dict(ms=statistics.median(em_bfs), plain_ms=em_plain, bound_ms=max(t_ops, t_bytes),
+                                        bound_by="operations" if t_ops >= t_bytes else "bytes")
+    emit("bfloat16_kernel_time", entry="fused_em_sample", rows=N, steps=EM_STEPS, card=smi,
+         **bf_timing["fused_em_sample"], bfloat16_ms_runs=em_bfs, float32_ms_runs=em_f32,
+         float32_ms=statistics.median(em_f32))
+    emit("phase15", seconds=time.perf_counter() - t15, card=smi)
+
     # -- phase 14: the CLI and the serving artifacts -------------------------
     serving_counts = serving_phase(smi, dev, flag_params, flag_cfg, reset_counts, read_counts)
 
@@ -2661,6 +3024,19 @@ def main() -> int:
     for name in ("fused_drift_sketch[hutchpp]", "fused_drift_sketch[xtrace]", "fused_velocity_sketch[xtrace]"):
         kernels.append(entry(name[:-1] + ",highf32]", src_sketch, REPLACES_NEW[name.split("[")[0]],
                              hf_sketch_counts[name], hf_sketch_err[name], hf_sketch_timing[name]))
+    # the bfloat16 mode of fused_mlp.cu and em_sampler.cu: launches from
+    # phase 15's path, errors and times from phase 15, bounds at the bf16
+    # tensor-core rate
+    for name, t_ in bf_timing.items():
+        base = name.split("[")[0]
+        if base == "fused_em_sample":
+            kernels.append(entry("fused_em_sample[bfloat16]", "flowfusion_torch/csrc/em_sampler.cu", REPLACES_EM,
+                                 bf_path_counts["fused_em_sample[bfloat16]"], bf_err[name], t_))
+            continue
+        replaces = REPLACES if base == "fused_drift" else REPLACES_VELOCITY if base == "fused_velocity" else \
+            REPLACES_NEW[base]
+        bf_name = name[:-1] + ",bfloat16]" if "[" in name else name + "[bfloat16]"
+        kernels.append(entry(bf_name, src_mlp, replaces, bf_path_counts[bf_name], bf_err[name], t_))
     # launches on phase 14's paths (the CLI and the serving artifacts), each
     # path counted from zero
     for k in kernels:

@@ -6,7 +6,8 @@
 // tangents, reached through fused_drift (fused_mlp.py:951), fused_velocity
 // (fused_mlp.py:1353, (c0, c1) = (0, 1)), fused_drift_tangents and
 // fused_velocity_tangents (fused_mlp.py:1020, 1148) and, two forward launches
-// a call, fused_symplectic_velocity (fused_mlp.py:1182), in two compute modes:
+// a call, fused_symplectic_velocity (fused_mlp.py:1182), in three compute
+// modes (the template's P, the wrapper's precision index):
 //   float32  strict IEEE fp32 FMAs on the CUDA cores;
 //   highf32  the JAX kernel's 3-pass split products (bf16_3pass_dot_general,
 //            fused_mlp.py:214-233, selected at :541-560) and its tanh-form
@@ -15,7 +16,15 @@
 //            mma.sync m16n8k8), the (H, D) output product and
 //            an input projection of more than 16 features (the JAX kernel's
 //            rank-1 crossover, in_proj_rows :313-330) through the split in
-//            FMAs; up to 16 input features and the time fold stay strict.
+//            FMAs; up to 16 input features and the time fold stay strict;
+//   bfloat16 the JAX kernel's fast serving mode (_compute_mode :175-201):
+//            the weights bf16 (converted by the wrapper once a call), every
+//            activation and tangent rounded to bf16 before its product,
+//            fp32 sums, the tanh-form SiLU.  The hidden (H, H) products run
+//            on the bf16 tensor cores (dense_bf16, mma.sync m16n8k16, one
+//            pass), the output layer in FMAs on the same rounded operands
+//            (exact products), the input layer as in highf32 with bf16
+//            weights (the rank-1 sum up to 16 inputs, rounded inputs past).
 // Build without --use_fast_math: sigmoid goes through expf (tanhf in
 // highf32) and gelu through erff, matching the plain PyTorch path's
 // transcendentals.
@@ -41,7 +50,9 @@
 // HBM balance.  highf32: the hidden products' three TF32 passes on the
 // tensor cores (495 TFLOP/s dense; 131,072 of the flagship's flops a row)
 // plus the CUDA-core rest (the input projection, 3x the output layer).
-// mma.sync does not reach the wgmma rate.  Each layer is a product and an
+// mma.sync does not reach the wgmma rate.  bfloat16: one pass on the bf16
+// tensor cores (989 TFLOP/s dense) beside the same CUDA-core rest, the
+// output layer once.  Each layer is a product and an
 // activation pass over a block's small tile with a barrier between, so how
 // many blocks an SM holds, and what runs beside the products, decide the
 // time.  The first version (measured on the H100 before this design, a
@@ -82,6 +93,14 @@
 //     runs).  The planes are a third buffer, so these plans take half the
 //     float32 rows at three blocks, and the widest H a plan fits is about
 //     two thirds of float32's.
+//   - bfloat16 products (dense_bf16): the activation pass writes one bf16
+//     plane of act(a) and of each tangent chain (rows H + 8 values apart,
+//     so a warp's A-fragment words fall on 32 distinct banks), which the
+//     product reads as packed pairs; the wrapper hands the hidden weights
+//     over transposed, (out, in), so a B fragment's two k values are one
+//     32-bit load.  The plane is 2 bytes a value, so these plans hold more
+//     rows than float32's.  Not yet: the weights staged in shared memory,
+//     TMA, wgmma.
 //   - The (H, D) output layer: a thread an output, chains x R x D of them.
 // Every output keeps the first version's arithmetic: each float32 layer
 // output one fmaf chain over k = 0 .. K-1 from 0, then + bias; each highf32
@@ -101,11 +120,17 @@ namespace {
 using namespace ffk;
 
 enum Mode { kForward = 0, kHutchinson = 1, kExact = 2, kTangents = 3 };
+// The compute modes, the templates' P (the wrapper's precision index).
+enum Precision { kFloat32 = 0, kHighF32 = 1, kBFloat16 = 2 };
 
 constexpr int kWarps = kThreads / 32;
 // Floats past H in a row of the activation buffers: the row stride is
 // H + kPad, so consecutive rows start 4 banks apart.
 constexpr int kPad = 4;
+// The same in bfloat16, where the fp32 pre-activations and the bf16 plane
+// share the row stride H + kPadBF16: a plane row is (H + 8) / 2 words, 4
+// banks past the one before for H a multiple of 16.
+constexpr int kPadBF16 = 8;
 // Blocks of kThreads an SM is to hold, by registers (the launch bounds):
 // 80 registers a thread, which every instantiation fits without spilling.
 constexpr int kMinBlocks = 3;
@@ -300,12 +325,116 @@ __device__ void dense_planes(const float* __restrict__ w, const float* __restric
   }
 }
 
+// bfloat16: nxt[m] = A[m] @ w (+ bias on rows m < R) through mma.sync
+// m16n8k16 bf16 with fp32 accumulation, A the bf16 plane (stride S values)
+// and wt the weights as bf16 transposed, (N, K), so a B fragment's k pair
+// is one 32-bit load.  The warp tiling of dense_planes: NT n-tiles across up
+// to MT m-tiles, each weight fragment loaded once a block a layer wherever
+// M <= 64.  m16n8k16 .bf16 fragments (PTX ISA), g = lane / 4, t = lane % 4,
+// a register a pair of consecutive k: A (g, 2t), (g + 8, 2t), (g, 2t + 8),
+// (g + 8, 2t + 8); B (k 2t, n g), (k 2t + 8, n g); C as in m16n8k8.  Rows
+// past M read row M - 1 and store nothing.  K is a multiple of 16, N of 8.
+__device__ void dense_bf16(const __nv_bfloat16* __restrict__ wt, const float* __restrict__ bias,
+                           const __nv_bfloat16* a, float* nxt, int K, int N, int M, int R, int S) {
+  constexpr int NT = kNTiles;
+  constexpr int MT = 8 / NT;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int n_tiles = N >> 3;
+  const int m_tiles = (M + 15) >> 4;
+  const int strips = (n_tiles + NT - 1) / NT;
+  const int groups = (m_tiles + MT - 1) / MT;
+  for (int it = threadIdx.x >> 5; it < strips * groups; it += kWarps) {
+    const int grp = it / strips;
+    const int nt0 = (it - grp * strips) * NT;
+    const int mt0 = grp * MT;
+    float acc[MT][NT][4];
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int j = 0; j < NT; ++j) acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.0f;
+    for (int k = 0; k < K; k += 16) {
+      unsigned b[NT][2];
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const int n = min(nt0 + j, n_tiles - 1) * 8 + g;
+        const unsigned* col = reinterpret_cast<const unsigned*>(wt + (size_t)n * K + k + 2 * t);
+        b[j][0] = __ldg(col);
+        b[j][1] = __ldg(col + 4);
+      }
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+        if (mt0 + i >= m_tiles) break;  // warp-uniform
+        const unsigned* p0 =
+            reinterpret_cast<const unsigned*>(a + (size_t)min((mt0 + i) * 16 + g, M - 1) * S + k + 2 * t);
+        const unsigned* p1 =
+            reinterpret_cast<const unsigned*>(a + (size_t)min((mt0 + i) * 16 + g + 8, M - 1) * S + k + 2 * t);
+        const unsigned af[4] = {p0[0], p1[0], p0[4], p1[4]};
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          if (nt0 + j >= n_tiles) break;  // warp-uniform
+          mma_bf16(acc[i][j], af, b[j]);
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      if (nt0 + j >= n_tiles) break;
+      const int n = (nt0 + j) * 8 + 2 * t;
+      const float b0 = bias != nullptr ? __ldg(bias + n) : 0.0f;
+      const float b1 = bias != nullptr ? __ldg(bias + n + 1) : 0.0f;
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+        if (mt0 + i >= m_tiles) break;
+        const int r0 = (mt0 + i) * 16 + g;
+        const int r1 = r0 + 8;
+        if (r0 < M) {
+          const bool primal = r0 < R;
+          float2 o;
+          o.x = acc[i][j][0] + (primal ? b0 : 0.0f);
+          o.y = acc[i][j][1] + (primal ? b1 : 0.0f);
+          *reinterpret_cast<float2*>(nxt + (size_t)r0 * S + n) = o;
+        }
+        if (r1 < M) {
+          const bool primal = r1 < R;
+          float2 o;
+          o.x = acc[i][j][2] + (primal ? b0 : 0.0f);
+          o.y = acc[i][j][3] + (primal ? b1 : 0.0f);
+          *reinterpret_cast<float2*>(nxt + (size_t)r1 * S + n) = o;
+        }
+      }
+    }
+  }
+}
+
+// bfloat16: out[m, j] = A[m] @ w[:, j] (+ bias[j] on rows m < R) for the
+// narrow (K, N = D) output layer, a thread an output: A the bf16 plane
+// (stride S values), w bf16 in its (K, N) layout, one fmaf chain over k
+// from 0 (the products exact).  `out` is compact, (M, N).
+__device__ void dense_out_bf16(const __nv_bfloat16* __restrict__ w, const float* __restrict__ bias,
+                               const __nv_bfloat16* a, float* out, int K, int N, int M, int R, int S) {
+  for (int it = threadIdx.x; it < M * N; it += kThreads) {
+    const int m = it / N;
+    const int j = it - m * N;
+    const __nv_bfloat162* in = reinterpret_cast<const __nv_bfloat162*>(a + (size_t)m * S);
+    float acc = 0.0f;
+#pragma unroll 4
+    for (int k = 0; k < K; k += 2) {
+      const float2 hv = __bfloat1622float2(in[k >> 1]);
+      acc = fmaf(hv.x, __bfloat162float(w[(size_t)k * N + j]), acc);
+      acc = fmaf(hv.y, __bfloat162float(w[(size_t)(k + 1) * N + j]), acc);
+    }
+    out[it] = acc + ((m < R && bias != nullptr) ? __ldg(bias + j) : 0.0f);
+  }
+}
+
 // out[m, j] = cur[m] @ w[:, j] (+ bias[j] on the primal rows m < R) for the
 // narrow (K, N = D) output layer, one thread an output of the M x N: in
 // float32 one fmaf chain over k from 0; in highf32 the split in FMAs
-// (fma_tf32x3's arithmetic), A's halves read from the planes.  `out` is
-// compact, (M, N).
-template <bool HF>
+// (fma_tf32x3's arithmetic), A's halves read from the planes (bfloat16 has
+// dense_out_bf16).  `out` is compact, (M, N).
+template <int P>
 __device__ void dense_out(const float* __restrict__ w, const float* __restrict__ bias, const float* a,
                           const float* a_lo, float* out, int K, int N, int M, int R, int S) {
   for (int it = threadIdx.x; it < M * N; it += kThreads) {
@@ -313,7 +442,7 @@ __device__ void dense_out(const float* __restrict__ w, const float* __restrict__
     const int j = it - m * N;
     const float* in = a + (size_t)m * S;
     float acc = 0.0f;
-    if constexpr (HF) {
+    if constexpr (P == kHighF32) {
       const float* in_lo = a_lo + (size_t)m * S;
 #pragma unroll 8
       for (int k = 0; k < K; ++k) {
@@ -337,23 +466,30 @@ __device__ void dense_out(const float* __restrict__ w, const float* __restrict__
 // Pre-activation of cell (r, j) of chain c in the input layer: the primal
 // chain projects [x | cond] and adds b_eff; a probe (Hutchinson, or tangent
 // k) has no conditional components and projects through rows 0..D-1 only;
-// the exact basis tangent e_d is row d of w_in.
-template <bool HF>
+// the exact basis tangent e_d is row d of w_in.  In bfloat16 w_in holds
+// bf16 values (the wrapper rounds it) and an input of more than kRank1Max
+// features is rounded too, as the JAX kernel's in_proj_rows projects it
+// through its bf16 product.
+template <int P>
 __device__ __forceinline__ float input_cell(int c, int r, int j, int mode, const float* xs, const float* es,
                                             const float* __restrict__ w_in, const float* __restrict__ b_eff,
                                             int d_in, int d_out, int pw, int H) {
   float v = 0.0f;
   if (c == 0) {
-    if (HF && d_in > kRank1Max) {
+    if (P == kHighF32 && d_in > kRank1Max) {
       for (int k = 0; k < d_in; ++k) v = fma_tf32x3(xs[r * d_in + k], __ldg(w_in + k * H + j), v);
+    } else if (P == kBFloat16 && d_in > kRank1Max) {
+      for (int k = 0; k < d_in; ++k) v = fmaf(round_bf16(xs[r * d_in + k]), __ldg(w_in + k * H + j), v);
     } else {
       for (int k = 0; k < d_in; ++k) v = fmaf(xs[r * d_in + k], __ldg(w_in + k * H + j), v);
     }
     v += __ldg(b_eff + j);
   } else if (mode == kHutchinson || mode == kTangents) {
     const float* p = es + r * pw + (c - 1) * d_out;  // c - 1 = 0 in hutchinson
-    if (HF && d_out > kRank1Max) {
+    if (P == kHighF32 && d_out > kRank1Max) {
       for (int k = 0; k < d_out; ++k) v = fma_tf32x3(p[k], __ldg(w_in + k * H + j), v);
+    } else if (P == kBFloat16 && d_out > kRank1Max) {
+      for (int k = 0; k < d_out; ++k) v = fmaf(round_bf16(p[k]), __ldg(w_in + k * H + j), v);
     } else {
       for (int k = 0; k < d_out; ++k) v = fmaf(p[k], __ldg(w_in + k * H + j), v);
     }
@@ -364,10 +500,10 @@ __device__ __forceinline__ float input_cell(int c, int r, int j, int mode, const
 }
 
 // act(a) and act'(a) in the compute mode: SiLU's sigmoid in tanh form in
-// highf32.
-template <bool HF>
+// highf32 and bfloat16.
+template <int P>
 __device__ __forceinline__ void act_cell(int act, float a, float& h, float& dh) {
-  if constexpr (HF) {
+  if constexpr (P != kFloat32) {
     act_pair_highf32(act, a, h, dh);
   } else {
     act_pair(act, a, h, dh);
@@ -375,11 +511,13 @@ __device__ __forceinline__ void act_cell(int act, float a, float& h, float& dh) 
 }
 
 // Store an activation value at o: float32 in cur, highf32 as its TF32 hi
-// and lo halves in the planes.
-template <bool HF>
+// and lo halves in the planes, bfloat16 rounded into the bf16 plane (at hi).
+template <int P>
 __device__ __forceinline__ void store_act(float v, float* cur, float* hi, float* lo, int o) {
-  if constexpr (HF) {
+  if constexpr (P == kHighF32) {
     split_stored(v, hi[o], lo[o]);
+  } else if constexpr (P == kBFloat16) {
+    reinterpret_cast<__nv_bfloat16*>(hi)[o] = __float2bfloat16_rn(v);
   } else {
     cur[o] = v;
   }
@@ -389,25 +527,25 @@ __device__ __forceinline__ void store_act(float v, float* cur, float* hi, float*
 // their pre-activations in cur: act(a) on the primal chain, each tangent
 // chain times act'(a), stored by store_act.  Every value of a chain is
 // loaded before it is stored, so the two cells' latencies overlap.
-template <bool HF>
+template <int P>
 __device__ __forceinline__ void activate_cells(int act, float* cur, float* hi, float* lo, int o1, int o2,
                                                int chains, int rs) {
   float h1, d1, h2, d2;
-  act_cell<HF>(act, cur[o1], h1, d1);
-  act_cell<HF>(act, cur[o2], h2, d2);
+  act_cell<P>(act, cur[o1], h1, d1);
+  act_cell<P>(act, cur[o2], h2, d2);
   for (int c = 1; c < chains; ++c) {
     const float t1 = cur[c * rs + o1], t2 = cur[c * rs + o2];
-    store_act<HF>(__fmul_rn(t1, d1), cur, hi, lo, c * rs + o1);
-    store_act<HF>(__fmul_rn(t2, d2), cur, hi, lo, c * rs + o2);
+    store_act<P>(__fmul_rn(t1, d1), cur, hi, lo, c * rs + o1);
+    store_act<P>(__fmul_rn(t2, d2), cur, hi, lo, c * rs + o2);
   }
-  store_act<HF>(h1, cur, hi, lo, o1);
-  store_act<HF>(h2, cur, hi, lo, o2);
+  store_act<P>(h1, cur, hi, lo, o1);
+  store_act<P>(h2, cur, hi, lo, o2);
 }
 
 // div: (B,) in modes hutchinson and exact; in mode tangents the (n_tan, B,
 // d_out) columns J v_k.  e: (B, d_out) in mode hutchinson, (B, n_tan, d_out)
 // in mode tangents.
-template <bool HF>
+template <int P>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 fused_mlp_kernel(const float* __restrict__ x, const float* __restrict__ e,
                  const float* __restrict__ w_in, const float* __restrict__ b_eff,
@@ -421,16 +559,18 @@ fused_mlp_kernel(const float* __restrict__ x, const float* __restrict__ e,
                      : mode == kHutchinson ? 2
                      : mode == kExact ? 1 + d_out : 1 + n_tan;
   const int pw = mode == kTangents ? n_tan * d_out : d_out;  // probe values a row
-  const int S = H + kPad;
+  const int S = H + (P == kBFloat16 ? kPadBF16 : kPad);
   const int M = chains * R;
   const int rs = R * S;
   // float32: cur and nxt, the double buffer of pre-activations and
   // activations; highf32: the pre-activations and the TF32 hi and lo planes
-  // of the activations.  Both: M rows of stride S each.
+  // of the activations; bfloat16: the pre-activations and (at nxt) the bf16
+  // plane of the activations, M S values of 2 bytes.  M rows of stride S
+  // each.
   float* cur = smem;
   float* nxt = smem + M * S;
   float* lo = smem + 2 * M * S;  // highf32 only
-  float* xs = smem + (HF ? 3 : 2) * M * S;  // (R, d_in) input tile
+  float* xs = smem + (P == kHighF32 ? 3 * M * S : P == kBFloat16 ? M * S + M * S / 2 : 2 * M * S);  // (R, d_in) input tile
   float* es = xs + R * d_in;                // (R, pw) probe tile
   const int row0 = blockIdx.x * R;
 
@@ -455,29 +595,33 @@ fused_mlp_kernel(const float* __restrict__ x, const float* __restrict__ e,
     const int r2 = two ? gw.r : r1, j2 = two ? gw.j : j1;
     gw.next();
     const int o1 = r1 * S + j1, o2 = r2 * S + j2;
-    const float a1 = input_cell<HF>(0, r1, j1, mode, xs, es, w_in, b_eff, d_in, d_out, pw, H);
-    const float a2 = input_cell<HF>(0, r2, j2, mode, xs, es, w_in, b_eff, d_in, d_out, pw, H);
+    const float a1 = input_cell<P>(0, r1, j1, mode, xs, es, w_in, b_eff, d_in, d_out, pw, H);
+    const float a2 = input_cell<P>(0, r2, j2, mode, xs, es, w_in, b_eff, d_in, d_out, pw, H);
     float h1, d1, h2, d2;
-    act_cell<HF>(act, a1, h1, d1);
-    act_cell<HF>(act, a2, h2, d2);
+    act_cell<P>(act, a1, h1, d1);
+    act_cell<P>(act, a2, h2, d2);
     for (int c = 1; c < chains; ++c) {
-      const float t1 = input_cell<HF>(c, r1, j1, mode, xs, es, w_in, b_eff, d_in, d_out, pw, H);
-      const float t2 = input_cell<HF>(c, r2, j2, mode, xs, es, w_in, b_eff, d_in, d_out, pw, H);
-      store_act<HF>(__fmul_rn(t1, d1), cur, nxt, lo, c * rs + o1);
-      store_act<HF>(__fmul_rn(t2, d2), cur, nxt, lo, c * rs + o2);
+      const float t1 = input_cell<P>(c, r1, j1, mode, xs, es, w_in, b_eff, d_in, d_out, pw, H);
+      const float t2 = input_cell<P>(c, r2, j2, mode, xs, es, w_in, b_eff, d_in, d_out, pw, H);
+      store_act<P>(__fmul_rn(t1, d1), cur, nxt, lo, c * rs + o1);
+      store_act<P>(__fmul_rn(t2, d2), cur, nxt, lo, c * rs + o2);
     }
-    store_act<HF>(h1, cur, nxt, lo, o1);
-    store_act<HF>(h2, cur, nxt, lo, o2);
+    store_act<P>(h1, cur, nxt, lo, o1);
+    store_act<P>(h2, cur, nxt, lo, o2);
   }
   __syncthreads();
 
   // Each hidden layer: the product into the next pre-activations, then the
   // activation pass.  highf32's products read the activations' TF32 hi and
-  // lo planes (nxt and lo) and write cur; float32 products read cur and
-  // write nxt, and the pass works in place.
+  // lo planes (nxt and lo) and write cur, bfloat16's the bf16 plane (at
+  // nxt, the weights bf16 (out, in)); float32 products read cur and write
+  // nxt, and the pass works in place.
   for (int l = 0; l < n_hidden; ++l) {
-    if constexpr (HF) {
+    if constexpr (P == kHighF32) {
       dense_planes(hidden.w[l], hidden.b[l], nxt, lo, cur, H, H, M, R, S);
+    } else if constexpr (P == kBFloat16) {
+      dense_bf16(reinterpret_cast<const __nv_bfloat16*>(hidden.w[l]), hidden.b[l],
+                 reinterpret_cast<const __nv_bfloat16*>(nxt), cur, H, H, M, R, S);
     } else {
       dense_rows(hidden.w[l], hidden.b[l], cur, nxt, H, H, M, R, S);
       float* tmp = cur;
@@ -490,17 +634,21 @@ fused_mlp_kernel(const float* __restrict__ x, const float* __restrict__ e,
       gw.next();
       const int o2 = gw.r < R ? gw.r * S + gw.j : o1;
       gw.next();
-      activate_cells<HF>(act, cur, nxt, lo, o1, o2, chains, rs);
+      activate_cells<P>(act, cur, nxt, lo, o1, o2, chains, rs);
     }
     __syncthreads();
   }
   // The output layer into a compact (M, d_out) tile over the buffer the
-  // last product read (float32) or the pre-activations (highf32).
-  float* net = HF ? cur : nxt;
-  if constexpr (HF) {
-    dense_out<true>(w_out, b_out, nxt, lo, net, H, d_out, M, R, S);
+  // last product read (float32) or the pre-activations (highf32, bfloat16;
+  // bfloat16's w_out bf16 (H, D)).
+  float* net = P != kFloat32 ? cur : nxt;
+  if constexpr (P == kHighF32) {
+    dense_out<kHighF32>(w_out, b_out, nxt, lo, net, H, d_out, M, R, S);
+  } else if constexpr (P == kBFloat16) {
+    dense_out_bf16(reinterpret_cast<const __nv_bfloat16*>(w_out), b_out,
+                   reinterpret_cast<const __nv_bfloat16*>(nxt), net, H, d_out, M, R, S);
   } else {
-    dense_out<false>(w_out, b_out, cur, nullptr, net, H, d_out, M, R, S);
+    dense_out<kFloat32>(w_out, b_out, cur, nullptr, net, H, d_out, M, R, S);
   }
   __syncthreads();
 
@@ -537,16 +685,16 @@ fused_mlp_kernel(const float* __restrict__ x, const float* __restrict__ e,
   }
 }
 
-template <bool HF>
+template <int P>
 cudaError_t launch(const float* x, const float* e, const float* w_in, const float* b_eff,
                    const HiddenLayers& hidden, int n_hidden, const float* w_out,
                    const float* b_out, const float* c0c1, float* drift, float* div, int B,
                    int d_in, int d_out, int H, int mode, int act, int n_tan, int rows,
                    size_t smem, cudaStream_t stream) {
-  const cudaError_t st = allow_smem(fused_mlp_kernel<HF>, smem);
+  const cudaError_t st = allow_smem(fused_mlp_kernel<P>, smem);
   if (st != cudaSuccess) return st;
   const int grid = (B + rows - 1) / rows;
-  fused_mlp_kernel<HF><<<grid, kThreads, smem, stream>>>(
+  fused_mlp_kernel<P><<<grid, kThreads, smem, stream>>>(
       x, e, w_in, b_eff, hidden, n_hidden, w_out, b_out, c0c1, drift, div, B, d_in,
       d_out, H, mode, act, n_tan, rows);
   return cudaGetLastError();
@@ -554,14 +702,14 @@ cudaError_t launch(const float* x, const float* e, const float* w_in, const floa
 
 // Resident blocks an SM of an instantiation at `smem` bytes, and its
 // registers and local memory a thread.
-template <bool HF>
+template <int P>
 cudaError_t query(size_t smem, int* blocks, int* regs, int* local_bytes) {
-  cudaError_t st = allow_smem(fused_mlp_kernel<HF>, smem);
+  cudaError_t st = allow_smem(fused_mlp_kernel<P>, smem);
   if (st != cudaSuccess) return st;
-  st = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, fused_mlp_kernel<HF>, kThreads, smem);
+  st = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, fused_mlp_kernel<P>, kThreads, smem);
   if (st != cudaSuccess) return st;
   cudaFuncAttributes attr;
-  st = cudaFuncGetAttributes(&attr, fused_mlp_kernel<HF>);
+  st = cudaFuncGetAttributes(&attr, fused_mlp_kernel<P>);
   *regs = attr.numRegs;
   *local_bytes = (int)attr.localSizeBytes;
   return st;
@@ -573,21 +721,24 @@ extern "C" {
 
 // Launch on `stream`; returns the cudaError_t of the launch (0 on success).
 // w_hidden/b_hidden are host arrays of n_hidden device pointers, each weight
-// 16-byte aligned.  `precision` is the compute mode: 0 float32, 1 highf32.
-// `rows` must be a multiple of 4 and H of 4, of 8 in highf32 (the Python
-// wrapper checks all of them).  `n_tan` is the probe count of mode tangents
-// (ignored otherwise).  `smem` is the block's shared memory in bytes,
-// computed by the wrapper for the layout the kernel uses: 2 (float32) or 3
-// (highf32) x chains x rows x (H + 4) floats, then rows x (d_in + d_out
-// max(1, n_tan)) floats.
+// 16-byte aligned.  `precision` is the compute mode: 0 float32, 1 highf32,
+// 2 bfloat16; in bfloat16 w_in holds bf16-rounded floats, each hidden weight
+// is bf16 of shape (H_out, H_in) (transposed) and w_out bf16 (H, d_out).
+// `rows` must be a multiple of 4 and H of 4, of 8 in highf32, of 16 in
+// bfloat16 (the Python wrapper checks all of them).  `n_tan` is the probe
+// count of mode tangents (ignored otherwise).  `smem` is the block's shared
+// memory in bytes, computed by the wrapper for the layout the kernel uses:
+// 2 (float32) or 3 (highf32) x chains x rows x (H + 4) floats, or in
+// bfloat16 chains x rows x (H + 8) floats and as many bf16 values, then
+// rows x (d_in + d_out max(1, n_tan)) floats.
 int ff_fused_mlp(const float* x, const float* e, const float* w_in, const float* b_eff,
                  const float* const* w_hidden, const float* const* b_hidden, int n_hidden,
                  const float* w_out, const float* b_out, const float* c0c1,
                  float* drift, float* div, int B, int d_in, int d_out, int H, int mode,
                  int act, int precision, int n_tan, int rows, size_t smem, void* stream) {
   if (n_hidden < 0 || n_hidden > kMaxHidden || rows % kMinRowTile != 0 || H % 4 != 0 || B <= 0 ||
-      mode < kForward || mode > kTangents || (mode == kTangents && n_tan < 1) || precision < 0 ||
-      precision > 1 || (precision == 1 && H % 8 != 0)) {
+      mode < kForward || mode > kTangents || (mode == kTangents && n_tan < 1) || precision < kFloat32 ||
+      precision > kBFloat16 || (precision == kHighF32 && H % 8 != 0) || (precision == kBFloat16 && H % 16 != 0)) {
     return (int)cudaErrorInvalidValue;
   }
   HiddenLayers hidden = {};
@@ -596,12 +747,16 @@ int ff_fused_mlp(const float* x, const float* e, const float* w_in, const float*
     hidden.b[i] = b_hidden[i];
   }
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (precision == 1) {
-    return (int)launch<true>(x, e, w_in, b_eff, hidden, n_hidden, w_out, b_out, c0c1, drift, div, B, d_in,
-                             d_out, H, mode, act, n_tan, rows, smem, st);
+  if (precision == kHighF32) {
+    return (int)launch<kHighF32>(x, e, w_in, b_eff, hidden, n_hidden, w_out, b_out, c0c1, drift, div, B, d_in,
+                                 d_out, H, mode, act, n_tan, rows, smem, st);
   }
-  return (int)launch<false>(x, e, w_in, b_eff, hidden, n_hidden, w_out, b_out, c0c1, drift, div, B, d_in,
-                            d_out, H, mode, act, n_tan, rows, smem, st);
+  if (precision == kBFloat16) {
+    return (int)launch<kBFloat16>(x, e, w_in, b_eff, hidden, n_hidden, w_out, b_out, c0c1, drift, div, B, d_in,
+                                  d_out, H, mode, act, n_tan, rows, smem, st);
+  }
+  return (int)launch<kFloat32>(x, e, w_in, b_eff, hidden, n_hidden, w_out, b_out, c0c1, drift, div, B, d_in,
+                               d_out, H, mode, act, n_tan, rows, smem, st);
 }
 
 // The blocks of kThreads an SM is to hold by the launch bounds: the wrapper
@@ -612,9 +767,10 @@ int ff_fused_mlp_min_blocks() { return kMinBlocks; }
 // instantiation of compute mode `precision` launched with `smem` bytes;
 // returns the cudaError_t of the query.
 int ff_fused_mlp_occupancy(int precision, size_t smem, int* blocks, int* regs, int* local_bytes) {
-  if (precision < 0 || precision > 1) return (int)cudaErrorInvalidValue;
-  return (int)(precision == 1 ? query<true>(smem, blocks, regs, local_bytes)
-                              : query<false>(smem, blocks, regs, local_bytes));
+  if (precision < kFloat32 || precision > kBFloat16) return (int)cudaErrorInvalidValue;
+  return (int)(precision == kHighF32    ? query<kHighF32>(smem, blocks, regs, local_bytes)
+               : precision == kBFloat16 ? query<kBFloat16>(smem, blocks, regs, local_bytes)
+                                        : query<kFloat32>(smem, blocks, regs, local_bytes));
 }
 
 }  // extern "C"

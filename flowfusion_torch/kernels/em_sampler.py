@@ -2,7 +2,10 @@
 
 Counterpart of the JAX package's ``kernels/em_sampler.py::fused_em_sample``
 at compute mode ``float32`` (``highf32`` maps to it, as in the JAX
-package).  On CUDA tensors the wrapper launches the hand-written kernel
+package) and ``bfloat16`` (the JAX package's fast serving mode: the
+weights bf16, each activation rounded to bf16 before its product, fp32
+sums, the tanh-form SiLU; ``fused_mlp.bf16_matmul`` says where the JAX
+kernel rounds).  On CUDA tensors the wrapper launches the hand-written kernel
 ``csrc/em_sampler.cu`` or raises; on CPU tensors it runs the plain PyTorch
 version, :func:`fused_em_sample_reference`.
 
@@ -32,8 +35,8 @@ The plain version freezes per tile of the same R rows.  Rows are
 independent until a NaN, so on a finite run the plan moves no output.
 
 Sigmoid is the exp form 1/(1 + exp(-a)) in the kernel and the plain
-version alike (the JAX kernel uses the tanh form; the two differ by
-~1e-7 relative).
+version alike in ``float32`` (the JAX kernel uses the tanh form; the two
+differ by ~1e-7 relative), the tanh form in ``bfloat16``.
 
 A launch's plan, :func:`em_plan`, is ``(rows, smem_bytes)``: the most
 blocks an SM (at most ``EM_BLOCKS``, the kernel's launch bounds) at the
@@ -57,8 +60,12 @@ from .fused_mlp import (
     _KERNEL_ACTIVATIONS,
     _SMEM_LIMIT,
     PAD,
+    RANK1_MAX,
     _check_conditional,
     _pick_rows,
+    _tanh_silu,
+    bf16_matmul,
+    bf16_round,
     blocks_per_sm,
     check_operands,
     pad_to_lanes,
@@ -73,11 +80,13 @@ __all__ = [
     "philox_normals",
     "fused_em_sample",
     "fused_em_sample_reference",
+    "em_bytes",
     "em_flops",
     "reset_launch_counts",
 ]
 
 EM_BLOCKS = 2  # blocks an SM the kernel's launch bounds allow (csrc kMinBlocks)
+EM_DTYPES = ("float32", "bfloat16")  # index = the kernel's precision
 _MASK = 0xFFFFFFFF
 _PHILOX_M = (0xD2511F53, 0xCD9E8D57)
 _PHILOX_W = (0x9E3779B9, 0xBB67AE85)
@@ -162,6 +171,19 @@ def em_prep(params: dict, cfg, sde, steps: int, no_sigma: bool):
     return coeffs.contiguous(), b_eff.contiguous()
 
 
+def em_bytes(B: int, steps: int, D: int, H: int, n_layers: int, with_cond: bool = False,
+             compute_dtype: str = "float32") -> int:
+    """Bytes one sampling run must move: x0 read and x_mean and x written
+    (4 a value), the per-step tables (3 + H floats a step), the conditional
+    projection where there is one, and the weights once, 4 bytes a value
+    in ``float32`` and 2 in ``bfloat16`` (hidden and output; w_in and the
+    biases stay float32)."""
+    n_hidden = n_layers - 2
+    wbytes = 2 if compute_dtype == "bfloat16" else 4
+    weights = wbytes * (n_hidden * H * H + H * D) + 4 * (D * H + n_hidden * H + D)
+    return 4 * (3 * B * D + steps * (3 + H) + (B * H if with_cond else 0)) + weights
+
+
 def em_flops(B: int, steps: int, D: int, H: int, n_layers: int) -> int:
     """Flops of one sampling run, the JAX kernel's cost estimate: per row
     and step 2 H (D + (n_layers - 2) H + D); ``n_layers`` counts every
@@ -209,14 +231,13 @@ def em_plan_blocks(plan) -> int:
     return min(EM_BLOCKS, blocks_per_sm(plan[1]))
 
 
-def _check_compute_dtype(compute_dtype: str) -> None:
-    if compute_dtype == "bfloat16":
-        raise NotImplementedError(
-            "EM kernel compute dtype 'bfloat16' is not ported to flowfusion_torch "
-            "yet (ROADMAP.md queue 2 #3b of item 7); use 'float32'"
-        )
-    if compute_dtype not in ("float32", "highf32"):
+def _em_dtype(compute_dtype: str) -> str:
+    """The EM kernel's mode of a compute dtype: 'highf32' maps to
+    'float32' (the JAX package's ``_em_weight_dtype``), 'bfloat16' is its
+    own."""
+    if compute_dtype not in ("float32", "highf32", "bfloat16"):
         raise ValueError(f"unknown compute dtype {compute_dtype!r}")
+    return "bfloat16" if compute_dtype == "bfloat16" else "float32"
 
 
 def _prepare(params, cfg, sde, conditional, steps, no_sigma):
@@ -249,11 +270,16 @@ def fused_em_sample_reference(
     steps: int = 100,
     no_sigma: bool = False,
     rows: Optional[int] = None,
+    compute_dtype: str = "float32",
 ):
     """The plain PyTorch version of :func:`fused_em_sample` with streamed
     ``noise`` (steps, B, D): the same loop over whole-batch tensor ops,
     TF32 off, freezing per tile of the kernel's R rows (``em_plan``'s, or
-    ``rows``).  Returns ``(x_mean, x, diverged)``."""
+    ``rows``); in ``bfloat16`` every product through
+    ``fused_mlp.bf16_matmul`` (the input layer's D rows rounded only past
+    ``RANK1_MAX`` features, as the JAX kernel's ``in_proj_rows``) and the
+    tanh-form SiLU.  Returns ``(x_mean, x, diverged)``."""
+    bf16 = _em_dtype(compute_dtype) == "bfloat16"
     _check_conditional(cfg.n_conditionals, conditional)
     params, cfg = pad_to_lanes(params, cfg)
     B, D = x0.shape
@@ -261,7 +287,9 @@ def fused_em_sample_reference(
         raise ValueError(f"noise of shape {tuple(noise.shape)}; expected {(steps, B, D)}")
     tile = em_plan(cfg.units[0], D, conditional is not None, rows)[0]
     w_in, cond_proj, coeffs, b_eff = _prepare(params, cfg, sde, conditional, steps, no_sigma)
-    act = _ACTIVATIONS[cfg.activation]
+    act = _tanh_silu if bf16 and cfg.activation == "silu" else _ACTIVATIONS[cfg.activation]
+    mm = (lambda a, w: bf16_matmul(a, w)) if bf16 else torch.matmul
+    in_mm = (lambda a, w: bf16_matmul(a, w, D > RANK1_MAX)) if bf16 else torch.matmul
     layers = params["layers"]
     n_tiles = -(-B // tile)
     n = n_tiles * tile
@@ -273,12 +301,12 @@ def fused_em_sample_reference(
     ok = torch.ones(n_tiles, dtype=torch.bool, device=x0.device)
     with strict_fp32_matmul():
         for s in range(steps):
-            h = x @ w_in + b_eff[s]
+            h = in_mm(x, w_in) + b_eff[s]
             if cp is not None:
                 h = h + cp
             for lyr in layers[1:-1]:
-                h = act(h) @ lyr["w"] + lyr["b"]
-            net = act(h) @ layers[-1]["w"] + layers[-1]["b"]
+                h = mm(act(h), lyr["w"]) + lyr["b"]
+            net = mm(act(h), layers[-1]["w"]) + layers[-1]["b"]
             new_mean = coeffs[s, 0] * x + coeffs[s, 1] * net
             new_x = new_mean + coeffs[s, 2] * z_all[s]
             finite = (torch.isfinite(new_x).reshape(n_tiles, tile, D) | ~real).reshape(n_tiles, -1)
@@ -309,11 +337,13 @@ def fused_em_sample(
     ``conditional`` (already standardized) enters as one precomputed
     first-layer projection.  Noise is Philox keyed by ``seed`` (0 <= seed
     < 2^64) unless ``noise`` (steps, B, D) is streamed.  CUDA tensors
-    launch the kernel (``fused_em_sample.launches`` counts launches); CPU
-    tensors run :func:`fused_em_sample_reference` on the same noise
-    (:func:`philox_normals` when seeded).
+    launch the kernel (``fused_em_sample.launches`` counts launches,
+    ``launches_by_dtype`` splits them by the kernel's mode); CPU tensors
+    run :func:`fused_em_sample_reference` on the same noise
+    (:func:`philox_normals` when seeded).  ``compute_dtype`` 'highf32'
+    runs 'float32'.
     """
-    _check_compute_dtype(compute_dtype)
+    dtype = _em_dtype(compute_dtype)
     if (seed is None) == (noise is None):
         raise ValueError("pass a seed (in-kernel Philox noise) OR streamed noise, not both")
     if steps < 1:
@@ -325,18 +355,20 @@ def fused_em_sample(
     if not x0.is_cuda:
         if noise is None:
             noise = philox_normals(seed, steps, B, D, x0.device)
-        return fused_em_sample_reference(params, cfg, sde, x0, noise, conditional, steps, no_sigma)
+        return fused_em_sample_reference(params, cfg, sde, x0, noise, conditional, steps, no_sigma,
+                                         compute_dtype=dtype)
     w_in, cond_proj, coeffs, b_eff = _prepare(params, cfg, sde, conditional, steps, no_sigma)
     return _launch(
         x0.contiguous(), None if noise is None else noise.contiguous(),
         0 if seed is None else _check_seed(seed), cond_proj, coeffs, b_eff, w_in,
-        params["layers"], cfg.activation, steps, rows, smem,
+        params["layers"], cfg.activation, steps, rows, smem, dtype,
     )
 
 
 def reset_launch_counts() -> None:
-    """Zero ``fused_em_sample.launches``."""
+    """Zero ``fused_em_sample.launches`` and its split by mode."""
     fused_em_sample.launches = 0
+    fused_em_sample.launches_by_dtype = dict.fromkeys(EM_DTYPES, 0)
 
 
 reset_launch_counts()
@@ -350,11 +382,11 @@ def _kernel_lib() -> ctypes.CDLL:
         pp = ctypes.POINTER(ctypes.c_void_p)
         fn.argtypes = [
             p, p, ctypes.c_uint64, p, p, p, p, pp, pp, i, p, p, p, p, p,
-            i, i, i, i, i, i, ctypes.c_size_t, p,
+            i, i, i, i, i, i, i, ctypes.c_size_t, p,
         ]
         fn.restype = ctypes.c_int
         ip = ctypes.POINTER(ctypes.c_int)
-        lib.ff_em_occupancy.argtypes = [ctypes.c_size_t, ip, ip, ip]
+        lib.ff_em_occupancy.argtypes = [i, ctypes.c_size_t, ip, ip, ip]
         lib.ff_em_occupancy.restype = ctypes.c_int
         lib.ff_em_trig_check.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
         lib.ff_em_trig_check.restype = ctypes.c_int
@@ -377,22 +409,28 @@ def trig_mismatches(device) -> int:
     return int(count)
 
 
-def em_occupancy(plan) -> dict:
-    """What the card makes of ``plan`` (from :func:`em_plan`): resident
-    blocks an SM (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``),
-    registers and local-memory bytes a thread of the kernel."""
+def em_occupancy(plan, compute_dtype: str = "float32") -> dict:
+    """What the card makes of ``plan`` (from :func:`em_plan`) in
+    ``compute_dtype``: resident blocks an SM
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), registers and
+    local-memory bytes a thread of the kernel's instantiation."""
     rows, smem = plan
     blocks, regs, local_bytes = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
-    err = _kernel_lib().ff_em_occupancy(smem, blocks, regs, local_bytes)
+    err = _kernel_lib().ff_em_occupancy(EM_DTYPES.index(_em_dtype(compute_dtype)), smem, blocks, regs,
+                                        local_bytes)
     if err != 0:
         raise RuntimeError(f"em_sampler occupancy query failed with CUDA error {err}")
     return dict(rows=rows, smem_bytes=smem, blocks_per_sm=blocks.value, registers=regs.value,
                 local_bytes=local_bytes.value)
 
 
-def _launch(x0, noise, seed, cond_proj, coeffs, b_eff, w_in, layers, activation, steps, rows, smem):
+def _launch(x0, noise, seed, cond_proj, coeffs, b_eff, w_in, layers, activation, steps, rows, smem,
+            compute_dtype="float32"):
     """Check the operands, allocate the outputs and launch the kernel on
-    the current stream.  Raises on anything the kernel does not take."""
+    the current stream in ``compute_dtype`` ('float32' or 'bfloat16': the
+    weights converted here, once a call: ``w_in`` rounded to bf16 in
+    float32, the hidden and output weights as bf16 in their layouts).
+    Raises on anything the kernel does not take."""
     B, D = x0.shape
     H = b_eff.shape[1]
     hidden = layers[1:-1]
@@ -415,17 +453,22 @@ def _launch(x0, noise, seed, cond_proj, coeffs, b_eff, w_in, layers, activation,
     flags = torch.empty((-(-B // rows),), dtype=torch.int32, device=device)
     lib = _kernel_lib()
     n = len(hidden)
-    w_ptrs = (ctypes.c_void_p * max(n, 1))(*[l["w"].data_ptr() for l in hidden])
+    hidden_w = [l["w"] for l in hidden]
+    if compute_dtype == "bfloat16":
+        w_in, w_out = bf16_round(w_in), w_out.to(torch.bfloat16).contiguous()
+        hidden_w = [w.to(torch.bfloat16).contiguous() for w in hidden_w]
+    w_ptrs = (ctypes.c_void_p * max(n, 1))(*[w.data_ptr() for w in hidden_w])
     b_ptrs = (ctypes.c_void_p * max(n, 1))(*[l["b"].data_ptr() for l in hidden])
     err = lib.ff_em_sample(
         x0.data_ptr(), None if noise is None else noise.data_ptr(), seed,
         None if cond_proj is None else cond_proj.data_ptr(), coeffs.data_ptr(),
         b_eff.data_ptr(), w_in.data_ptr(), w_ptrs, b_ptrs, n, w_out.data_ptr(),
         b_out.data_ptr(), x_mean.data_ptr(), x.data_ptr(), flags.data_ptr(),
-        B, D, H, steps, _KERNEL_ACTIVATIONS.index(activation), rows, smem,
+        B, D, H, steps, _KERNEL_ACTIVATIONS.index(activation), EM_DTYPES.index(compute_dtype), rows, smem,
         torch.cuda.current_stream(device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"em_sampler kernel launch failed with CUDA error {err}")
     fused_em_sample.launches += 1
+    fused_em_sample.launches_by_dtype[compute_dtype] += 1
     return x_mean, x, flags.any()

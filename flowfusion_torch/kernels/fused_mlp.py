@@ -6,9 +6,11 @@ Counterpart of the JAX package's ``kernels/fused_mlp.py::fused_drift``,
 ``fused_velocity``, ``fused_drift_tangents``, ``fused_velocity_tangents``
 and ``fused_symplectic_velocity`` in their modes ``forward``,
 ``hutchinson``, ``exact`` and ``tangents``, at compute mode ``float32``
-(strict fp32) or ``highf32`` (3xTF32 layer products and the tanh-form SiLU,
+(strict fp32), ``highf32`` (3xTF32 layer products and the tanh-form SiLU,
 the JAX package's 3-pass split mode; :func:`tf32x3_matmul` is the port's
-one source of the split).  On CUDA tensors the wrappers launch the
+one source of the split) or ``bfloat16`` (the JAX package's fast serving
+mode: bf16 operands, fp32 sums, the tanh-form SiLU; :func:`bf16_matmul` is
+the port's one source of its rounding points).  On CUDA tensors the wrappers launch the
 hand-written kernel ``csrc/fused_mlp.cu`` (built at first use, see
 ``_build``) or raise; on CPU tensors they run the plain PyTorch versions
 (``*_reference``) in the same compute mode.  The sketch estimators'
@@ -64,6 +66,8 @@ from . import _build
 __all__ = [
     "tf32_round",
     "tf32x3_matmul",
+    "bf16_round",
+    "bf16_matmul",
     "fused_drift",
     "fused_drift_reference",
     "fused_velocity",
@@ -86,12 +90,14 @@ __all__ = [
 
 _KERNEL_ACTIVATIONS = ("silu", "tanh", "relu", "gelu")  # index = kernel's Act
 _MODES = ("forward", "hutchinson", "exact", "tangents")  # index = kernel's Mode
-COMPUTE_DTYPES = ("float32", "highf32")  # index = the kernel's precision
+COMPUTE_DTYPES = ("float32", "highf32", "bfloat16")  # index = the kernel's precision
 # Hidden widths are padded to a multiple of this: the kernel reads four
 # activations and four weight columns at a time.  highf32 pads to the
-# 8-wide n-tile of its tensor-core product (LANE_HIGHF32).
+# 8-wide n-tile of its tensor-core product (LANE_HIGHF32), bfloat16 to the
+# 16-deep k-step of its m16n8k16 product (LANE_BF16).
 LANE = 4
 LANE_HIGHF32 = 8
+LANE_BF16 = 16
 # Input features up to which the highf32 mode keeps the input projection
 # strict (the JAX kernel's rank-1 crossover, in_proj_rows; csrc kRank1Max).
 RANK1_MAX = 16
@@ -104,6 +110,7 @@ _SMEM_PER_SM = 233_472
 _SMEM_BLOCK_RESERVE = 1_024
 KERNEL_BLOCKS = 3  # blocks an SM the kernel's launch bounds allow (csrc kMinBlocks)
 PAD = 4  # floats past H in a row of the kernel's activation buffers (csrc kPad)
+PAD_BF16 = 8  # the same in bfloat16, where the bf16 plane shares the row stride (csrc kPadBF16)
 
 
 def tf32_round(x: torch.Tensor) -> torch.Tensor:
@@ -133,10 +140,121 @@ def tf32x3_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         return a_hi @ b_hi + a_hi @ b_lo + a_lo @ b_hi
 
 
+def bf16_round(x: torch.Tensor) -> torch.Tensor:
+    """``x`` rounded to bfloat16 (8 mantissa bits, to nearest even, as
+    ``__float2bfloat16_rn`` and the TPU's casts), as float32."""
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
+def bf16_matmul(a: torch.Tensor, b: torch.Tensor, round_a: bool = True) -> torch.Tensor:
+    """``a @ b`` as compute mode ``bfloat16`` multiplies: both operands
+    rounded to bf16 (``round_a=False``: the weights ``b`` alone, the JAX
+    kernel's rank-1 input projection), the products then exact in fp32 and
+    summed in strict fp32.
+
+    The rounding points are the JAX kernel's on the TPU
+    (the JAX package's ``kernels/fused_mlp.py``):
+
+    - ``_compute_mode`` (:175-201) gives bf16 operands at
+      ``Precision.DEFAULT``, one MXU pass, f32 accumulation;
+    - the wrapper casts ``w_in``, every hidden weight and ``w_out`` to bf16
+      (:1311-1314, :1323, :1326); biases and ``b_eff`` (the time fold)
+      stay f32;
+    - ``_kernel``'s ``mm`` (:554-560) casts the activation, or the tangent
+      ``act'(a) * t``, to bf16 before every hidden product (:682, :801) and
+      the output product (:685, :693, :807, :810); the tangent chains round
+      like the drift (``relax_tangents`` is float32's alone, :577-582);
+    - ``in_proj_rows`` (:313-331) projects up to ``RANK1_MAX`` inputs (the
+      data and conditional, or a probe's D) as a rank-1 sum of bf16 weights
+      times the f32 inputs, and more than that through ``mm``;
+    - the activation is the tanh-form sigmoid (:598, ``_act_pair_fn``
+      :257-300).
+
+    XLA's CPU runtime promotes an f32 x bf16 dot to exact f32, so only the
+    MXU rounds both operands: the port follows the TPU.  A bf16 x bf16
+    product is exact in f32, so the kernel and this plain version differ
+    only in the order of the f32 sums (and where that moves an activation
+    across a bf16 rounding boundary).  The EM kernel rounds the same way
+    (the JAX package's ``kernels/em_sampler.py``: ``_em_weight_dtype`` :64-70,
+    the casts :417-441, the dots :160-170, the tanh-form sigmoid :177)."""
+    with strict_fp32_matmul():
+        return (bf16_round(a) if round_a else a) @ bf16_round(b)
+
+
 def _tanh_silu(a: torch.Tensor) -> torch.Tensor:
     """SiLU through the tanh-form sigmoid 0.5 + 0.5 tanh(a / 2), the JAX
     kernel's throughput-mode activation (kernels/fused_mlp.py:257-279)."""
     return a * (0.5 + 0.5 * torch.tanh(0.5 * a))
+
+
+def _act_pair(activation: str):
+    """``a -> (act(a), act'(a))`` as the kernels compute the pair in their
+    throughput modes (the JAX kernel's ``_act_pair_fn`` with the tanh-form
+    sigmoid, kernels/fused_mlp.py:257-300; the port's ``act_pair_highf32``
+    in csrc/mlp_tile.cuh)."""
+    if activation == "silu":
+        def pair(a):
+            s = 0.5 + 0.5 * torch.tanh(0.5 * a)
+            return a * s, s * (1.0 + a * (1.0 - s))
+    elif activation == "tanh":
+        def pair(a):
+            h = torch.tanh(a)
+            return h, 1.0 - h * h
+    elif activation == "relu":
+        def pair(a):
+            m = (a > 0).to(a.dtype)
+            return a * m, m
+    else:  # gelu, the exact erf form: a Phi(a), Phi(a) + a phi(a)
+        def pair(a):
+            cdf = 0.5 * (1.0 + torch.erf(a * 0.7071067811865476))
+            return a * cdf, cdf + a * (0.3989422804014327 * torch.exp(-0.5 * a * a))
+    return pair
+
+
+def _bf16_chains(layers, w_in, b_eff, x_in, probes, activation: str, d_out: int):
+    """``(net, [J_net v for v in probes])`` of one layer stack in compute
+    mode ``bfloat16``, its first layer folded as the kernel takes it
+    (``x_in`` = [x | cond] times ``w_in`` plus ``b_eff``; ``layers[1:]``
+    the rest), computed as the JAX kernel's ``_kernel`` computes them
+    (``compute_chunk``, kernels/fused_mlp.py:780-830): every product through
+    :func:`bf16_matmul`, the input projection of ``x_in`` and of each probe
+    (B, d_out) rounded past ``RANK1_MAX`` features only, each tangent chain
+    multiplied by act'(a) and rounded like the drift."""
+    pair = _act_pair(activation)
+    a = bf16_matmul(x_in, w_in, x_in.shape[1] > RANK1_MAX) + b_eff
+    ts = [bf16_matmul(v, w_in[:d_out], d_out > RANK1_MAX) for v in probes]
+    for layer in layers[1:]:
+        h, dh = pair(a)
+        ts = [bf16_matmul(dh * t, layer["w"]) for t in ts]
+        a = bf16_matmul(h, layer["w"]) + layer["b"]
+    return a, ts
+
+
+def _bf16_reference(layers, w_in, b_eff, x, conditional, activation, c0, c1, e=None, exact=False, V=None):
+    """The plain version of one kernel launch in ``bfloat16`` on folded
+    operands: ``drift = c0 x + c1 net`` and, with a probe ``e``, the
+    Hutchinson ``div = c0 |e|^2 + c1 e.J_net e``; with ``exact``, ``c0 D +
+    c1 tr J_net`` over the D basis chains; with tangents ``V`` (K, B, D),
+    the K columns ``c0 v + c1 J_net v`` as a list."""
+    D = x.shape[1]
+    x_in = x if conditional is None else torch.cat([x, conditional], dim=-1)
+    if V is not None:
+        probes = list(V)
+    elif e is not None:
+        probes = [e]
+    elif exact:
+        probes = list(torch.eye(D, dtype=x.dtype, device=x.device)[:, None, :].expand(D, x.shape[0], D))
+    else:
+        probes = []
+    net, jv = _bf16_chains(layers, w_in, b_eff, x_in, probes, activation, D)
+    drift = c0 * x + c1 * net
+    if V is not None:
+        return drift, [c0 * v + c1 * j for v, j in zip(V, jv)]
+    if e is not None:
+        return drift, c0 * torch.sum(e * e, dim=-1) + c1 * torch.sum(jv[0] * e, dim=-1)
+    if exact:
+        return drift, c0 * D + c1 * sum(j[:, d] for d, j in enumerate(jv))
+    return drift
 
 
 class _TF32x3(torch.autograd.Function):
@@ -170,7 +288,8 @@ def _net_ops(compute_dtype: str, activation: str, n_features: int) -> dict:
     more than ``RANK1_MAX`` features, and the tanh-form SiLU.  The first
     layer's split also covers the time-embedding rows, which the kernel
     folds strictly into its bias: the two differ by the split's error on
-    those rows, far inside the kernel's bars."""
+    those rows, far inside the kernel's bars.  (``bfloat16`` has its own
+    plain version, :func:`_bf16_reference`.)"""
     if compute_dtype == "float32":
         return {}
     ops = {"matmul": _TF32x3.apply}
@@ -183,7 +302,7 @@ def _net_ops(compute_dtype: str, activation: str, n_features: int) -> dict:
 
 def lane(compute_dtype: str = "float32") -> int:
     """The multiple the kernel pads hidden widths to in ``compute_dtype``."""
-    return LANE_HIGHF32 if compute_dtype == "highf32" else LANE
+    return {"highf32": LANE_HIGHF32, "bfloat16": LANE_BF16}.get(compute_dtype, LANE)
 
 
 def fusable_config(units: Sequence[int], activation: str = "silu") -> bool:
@@ -293,14 +412,24 @@ def highf32_flops_per_row(
     return tc, cc
 
 
+def bf16_flops_per_row(
+    d_in: int, d_out: int, H: int, n_layers: int, mode: str, n_tan: int = 0
+) -> tuple:
+    """``(tensor_core, cuda_core)`` flops per row of a ``bfloat16``
+    launch: the (H, H) products of every chain on the bf16 tensor cores, one
+    pass; on the CUDA cores the input projections (the primal's d_in rows,
+    a probe's d_out) and the (H, d_out) output layer of every chain."""
+    n_applies = {"forward": 0, "hutchinson": 1, "exact": d_out, "tangents": n_tan}[mode]
+    probes = 0 if mode in ("forward", "exact") else n_applies
+    tc = 2 * H * H * (n_layers - 2) * (1 + n_applies)
+    cc = 2 * H * (d_in + probes * d_out + d_out * (1 + n_applies))
+    return tc, cc
+
+
 def check_compute_dtype(compute_dtype: str) -> None:
-    """Accept 'float32' and 'highf32'; 'bfloat16' is not ported yet and
-    anything else is not a compute mode.  The models check theirs with it."""
-    if compute_dtype == "bfloat16":
-        raise NotImplementedError(
-            "kernel compute dtype 'bfloat16' is not ported to flowfusion_torch "
-            "yet (ROADMAP.md queue 2 #3b); use 'float32' or 'highf32'"
-        )
+    """Accept the compute modes of the RHS and EM kernels, 'float32',
+    'highf32' and 'bfloat16'; anything else is not a compute mode.  The
+    models check theirs with it."""
     if compute_dtype not in COMPUTE_DTYPES:
         raise ValueError(f"unknown kernel compute dtype {compute_dtype!r}; use one of {COMPUTE_DTYPES}")
 
@@ -358,10 +487,14 @@ def fused_drift_reference(
     the net through ``apply_score_mlp`` and its Jacobian through
     ``torch.func.jvp``, with TF32 off; in ``highf32`` the layer products
     through :func:`tf32x3_matmul` (tangents included) and the tanh-form
-    SiLU."""
+    SiLU; in ``bfloat16`` :func:`_bf16_reference` on the folded first
+    layer."""
     _mode(e, exact_divergence)
-    ops = _net_ops(compute_dtype, cfg.activation, cfg.n_dimensions + cfg.n_conditionals)
     with strict_fp32_matmul():
+        if compute_dtype == "bfloat16":
+            return _bf16_reference(params["layers"], *_score_first_layer(params, cfg, t, conditional), x,
+                                   conditional, cfg.activation, c0, c1, e, exact_divergence)
+        ops = _net_ops(compute_dtype, cfg.activation, cfg.n_dimensions + cfg.n_conditionals)
         return _reference(
             lambda xx: apply_score_mlp(cfg, params, t, xx, conditional, **ops),
             x, e, exact_divergence, c0, c1,
@@ -374,8 +507,11 @@ def fused_velocity_reference(params, cfg, t, x, conditional=None, e=None, exact_
     (``apply_velocity_mlp`` and ``torch.func.jvp``, TF32 off; the split in
     ``highf32`` as in :func:`fused_drift_reference`)."""
     _mode(e, exact_divergence)
-    ops = _net_ops(compute_dtype, cfg.activation, cfg.target_dimension + cfg.conditional_dimension)
     with strict_fp32_matmul():
+        if compute_dtype == "bfloat16":
+            return _bf16_reference(params["layers"], *_velocity_first_layer(params, cfg, t, conditional), x,
+                                   conditional, cfg.activation, 0.0, 1.0, e, exact_divergence)
+        ops = _net_ops(compute_dtype, cfg.activation, cfg.target_dimension + cfg.conditional_dimension)
         return _reference(
             lambda xx: apply_velocity_mlp(cfg, params, t, xx, conditional, **ops),
             x, e, exact_divergence, 0.0, 1.0,
@@ -504,8 +640,12 @@ def fused_drift_tangents_reference(params, cfg, t, x, V, conditional=None, c0=0.
     (``apply_score_mlp`` and ``torch.func.jvp``, TF32 off; the split in
     ``highf32`` as in :func:`fused_drift_reference`)."""
     V = _tangent_stack(V, *x.shape)
-    ops = _net_ops(compute_dtype, cfg.activation, cfg.n_dimensions + cfg.n_conditionals)
     with strict_fp32_matmul():
+        if compute_dtype == "bfloat16":
+            drift, cols = _bf16_reference(params["layers"], *_score_first_layer(params, cfg, t, conditional), x,
+                                          conditional, cfg.activation, c0, c1, V=V)
+            return drift.T, [c.T for c in cols]
+        ops = _net_ops(compute_dtype, cfg.activation, cfg.n_dimensions + cfg.n_conditionals)
         return _tangents_reference(
             lambda xx: c0 * xx + c1 * apply_score_mlp(cfg, params, t, xx, conditional, **ops), x, V
         )
@@ -514,8 +654,12 @@ def fused_drift_tangents_reference(params, cfg, t, x, V, conditional=None, c0=0.
 def fused_velocity_tangents_reference(params, cfg, t, x, V, conditional=None, compute_dtype="float32"):
     """The plain PyTorch version of :func:`fused_velocity_tangents`."""
     V = _tangent_stack(V, *x.shape)
-    ops = _net_ops(compute_dtype, cfg.activation, cfg.target_dimension + cfg.conditional_dimension)
     with strict_fp32_matmul():
+        if compute_dtype == "bfloat16":
+            drift, cols = _bf16_reference(params["layers"], *_velocity_first_layer(params, cfg, t, conditional),
+                                          x, conditional, cfg.activation, 0.0, 1.0, V=V)
+            return drift.T, [c.T for c in cols]
+        ops = _net_ops(compute_dtype, cfg.activation, cfg.target_dimension + cfg.conditional_dimension)
         return _tangents_reference(
             lambda xx: apply_velocity_mlp(cfg, params, t, xx, conditional, **ops), x, V
         )
@@ -605,10 +749,31 @@ def _launch_tangents(x_in, V, w_in, b_eff, layers, c0c1, D, activation, counter,
 def fused_symplectic_velocity_reference(params, cfg, t, state, conditional=None, compute_dtype="float32"):
     """The plain PyTorch version of :func:`fused_symplectic_velocity`:
     ``apply_symplectic_mlp`` with TF32 off (the split in ``highf32`` as in
-    :func:`fused_drift_reference`)."""
+    :func:`fused_drift_reference`; in ``bfloat16`` each stack folded as
+    the kernel takes it, the embedding's trailing rows in its bias)."""
+    if compute_dtype == "bfloat16":
+        D, C = cfg.n_data_dims, cfg.n_conditionals
+        q, p = torch.chunk(state, 2, dim=-1)
+        with strict_fp32_matmul():
+            t = torch.as_tensor(t, dtype=torch.float32, device=state.device).reshape(())
+            temb = fourier_time_embedding(t[None], params["W"])[0]
+            return torch.cat([
+                _bf16_reference(params[stack], *_symplectic_fold(params[stack], temb, D, C, conditional),
+                                other, conditional, cfg.activation, 0.0, sign)
+                for stack, other, sign in (("q_layers", p, 1.0), ("p_layers", q, -1.0))
+            ], dim=-1)
     ops = _net_ops(compute_dtype, cfg.activation, cfg.n_data_dims + cfg.n_conditionals)
     with strict_fp32_matmul():
         return apply_symplectic_mlp(cfg, params, t, state, conditional, **ops)
+
+
+def _symplectic_fold(layers, temb, D: int, C: int, conditional):
+    """``(w_in, b_eff)`` of one symplectic stack: the [x_other | cond]
+    rows of its first layer, and its trailing embedding rows folded into
+    the bias."""
+    w1 = layers[0]["w"]  # (D + C + E, H), rows [x_other | cond | temb]
+    b_eff = layers[0]["b"] + temb @ w1[D + C:]
+    return (w1[: D + C] if conditional is not None else w1[:D]), b_eff
 
 
 def fused_symplectic_velocity(
@@ -642,10 +807,8 @@ def fused_symplectic_velocity(
     outs = []
     for stack, other, sign in (("q_layers", p, 1.0), ("p_layers", q, -1.0)):
         layers = params[stack]
-        w1 = layers[0]["w"]  # (D + C + E, H), rows [x_other | cond | temb]
         with strict_fp32_matmul():
-            b_eff = layers[0]["b"] + temb @ w1[D + C:]
-        w_in = w1[: D + C] if conditional is not None else w1[:D]
+            w_in, b_eff = _symplectic_fold(layers, temb, D, C, conditional)
         x_in = other if conditional is None else torch.cat([other, conditional], dim=-1)
         # (c0, c1) = (0, sign), made on the device without a host copy
         c0c1 = torch.arange(0.0, 2.0 * sign, sign, dtype=torch.float32, device=state.device)
@@ -685,10 +848,14 @@ def _smem_bytes(rows: int, H: int, chains: int, d_in: int, d_out: int, n_tan: in
     """Shared memory of one block, in the kernel's layout: chains x rows
     rows of stride H + ``PAD`` floats, twice in ``float32`` (the double
     buffer) and three times in ``highf32`` (the pre-activations and the
-    TF32 hi and lo planes), then the (rows, d_in) input tile and the
-    (rows, d_out max(1, n_tan)) probe tile."""
+    TF32 hi and lo planes); in ``bfloat16`` rows of stride H + ``PAD_BF16``,
+    the fp32 pre-activations and one 2-byte bf16 plane; then the (rows,
+    d_in) input tile and the (rows, d_out max(1, n_tan)) probe tile."""
+    tiles = 4 * rows * (d_in + d_out * max(1, n_tan))
+    if compute_dtype == "bfloat16":
+        return (4 + 2) * chains * rows * (H + PAD_BF16) + tiles
     buffers = 3 if compute_dtype == "highf32" else 2
-    return 4 * (buffers * chains * rows * (H + PAD) + rows * (d_in + d_out * max(1, n_tan)))
+    return 4 * buffers * chains * rows * (H + PAD) + tiles
 
 
 def blocks_per_sm(smem: int) -> int:
@@ -872,6 +1039,8 @@ def _fused_mlp_cuda(x_in, e, w_in, b_eff, hidden_w, hidden_b, w_out, b_out, c0c1
     hidden = [{"w": w} for w in hidden_w]
     device = check_operands(expect, hidden, H, "fused kernel", lane(compute_dtype))
     rows, smem = _plan(H, mode, d_in, d_out, n_tan, compute_dtype, rows or None)
+    if compute_dtype == "bfloat16":
+        w_in, hidden_w, w_out = _bf16_operands(w_in, hidden_w, w_out)
 
     drift = torch.empty((B, d_out), dtype=torch.float32, device=device)
     div = torch.empty(_div_shape(mode, B, d_out, n_tan), dtype=torch.float32, device=device)
@@ -897,6 +1066,16 @@ def _fused_mlp_cuda(x_in, e, w_in, b_eff, hidden_w, hidden_b, w_out, b_out, c0c1
     count.launches_by_mode[mode] += 1
     count.launches_by_dtype[compute_dtype] += 1
     return drift, div
+
+
+def _bf16_operands(w_in, hidden_w, w_out):
+    """The weights as a ``bfloat16`` launch reads them, converted once a
+    call: ``w_in`` rounded to bf16 and kept in float32 (the input layer's
+    FMAs read it), each hidden weight as bf16 transposed to (out, in), so
+    that a tensor-core B fragment's two k values are adjacent, and
+    ``w_out`` as bf16 in its (H, D) layout."""
+    return (bf16_round(w_in), [w.t().contiguous().to(torch.bfloat16) for w in hidden_w],
+            w_out.to(torch.bfloat16).contiguous())
 
 
 # The RHS kernel as a registered op, ``flowfusion_torch::fused_mlp``: what the
@@ -926,11 +1105,21 @@ def folded_net(x_in, w_in, b_eff, hidden_w, hidden_b, w_out, b_out, d_out, activ
 def _fused_mlp_op_cpu(x_in, e, w_in, b_eff, hidden_w, hidden_b, w_out, b_out, c0c1, mode, d_out, n_tan,
                       activation, compute_dtype, counter, rows):
     """The op on CPU tensors: the plain version of the folded operands
-    (``torch.func.jvp`` for the divergence and the J v columns, TF32 off),
+    (``torch.func.jvp`` for the divergence and the J v columns, TF32 off;
+    in ``bfloat16`` the explicit chain of :func:`_bf16_reference`),
     counting nothing."""
-    net = folded_net(x_in, w_in, b_eff, hidden_w, hidden_b, w_out, b_out, d_out, activation, compute_dtype)
     x = x_in[:, :d_out]
     c0, c1 = c0c1[0], c0c1[1]
+    if compute_dtype == "bfloat16":
+        layers = [None] + [{"w": w, "b": b} for w, b in zip(hidden_w, hidden_b)] + [{"w": w_out, "b": b_out}]
+        V = e.reshape(x.shape[0], n_tan, d_out).permute(1, 0, 2) if mode == "tangents" else None
+        with strict_fp32_matmul():
+            out = _bf16_reference(layers, w_in, b_eff, x, x_in[:, d_out:], activation, c0, c1,
+                                  e if mode == "hutchinson" else None, mode == "exact", V)
+        if mode == "tangents":
+            return out[0], torch.stack(out[1])
+        return (out, x.new_empty((0,))) if mode == "forward" else out
+    net = folded_net(x_in, w_in, b_eff, hidden_w, hidden_b, w_out, b_out, d_out, activation, compute_dtype)
     with strict_fp32_matmul():
         if mode == "tangents":
             V = e.reshape(x.shape[0], n_tan, d_out).permute(1, 0, 2)

@@ -4,7 +4,8 @@ Counterpart of the JAX package's ``kernels/fused_mlp.py::fused_drift_sketch``
 and ``fused_velocity_sketch`` (the kernel modes ``hutchpp`` and ``xtrace``)
 at compute mode ``float32`` (strict fp32) or ``highf32`` (3xTF32 layer
 products and the tanh-form SiLU, as ``kernels.fused_mlp`` computes that
-mode).  On CUDA tensors the wrappers launch the hand-written kernel
+mode); ``bfloat16`` is not ported to this kernel yet and raises.  On
+CUDA tensors the wrappers launch the hand-written kernel
 ``csrc/fused_sketch.cu`` (built at first use, see ``_build``) in the
 compute mode or raise; on CPU tensors they run the plain PyTorch versions,
 the ``ops.trace`` estimators on the plain drift in the same compute mode
@@ -45,7 +46,6 @@ from .fused_mlp import (
     _net_ops,
     _score_first_layer,
     _velocity_first_layer,
-    check_compute_dtype,
     check_operands,
     lane,
     pad_to_lanes,
@@ -68,6 +68,23 @@ SKETCH_MODES = ("hutchpp", "xtrace")  # index = kernel's SketchMode
 MAX_SKETCH_DIM = 8  # D the per-row algebra takes (csrc kMaxDim)
 SKETCH_MD = (2, 4, 8)  # the algebra's compile-time bounds of D (csrc instantiations)
 SKETCH_BLOCKS = 3  # blocks an SM the kernel's launch bounds allow (csrc kMinBlocks)
+SKETCH_DTYPES = COMPUTE_DTYPES[:2]  # the compute modes this kernel takes, index = its precision
+
+
+def check_compute_dtype(compute_dtype: str) -> None:
+    """Accept the sketch kernel's compute modes, 'float32' and 'highf32'.
+    'bfloat16' is not ported to this kernel yet (ROADMAP.md queue 2 #3b;
+    row 6 of PERF.md's kernel table) and raises, on every device: a
+    bfloat16 model with trace_mode 'hutchpp' or 'xtrace' never falls back
+    to the plain version.  Anything else is not a compute mode."""
+    if compute_dtype == "bfloat16":
+        raise NotImplementedError(
+            "compute dtype 'bfloat16' of the one-launch sketch kernel (Hutch++/XTrace) is not ported to "
+            "flowfusion_torch yet (ROADMAP.md queue 2 #3b, kernel row 6); use 'float32' or 'highf32', or "
+            "trace_mode 'hutchinson' or 'exact' in 'bfloat16'"
+        )
+    if compute_dtype not in SKETCH_DTYPES:
+        raise ValueError(f"unknown kernel compute dtype {compute_dtype!r}; use one of {SKETCH_DTYPES}")
 
 
 def _stack_sketch_probes(probes: Sequence[torch.Tensor], sketch_mode: str, D: int):
@@ -314,7 +331,7 @@ def reset_launch_counts() -> None:
     for fn in (fused_drift_sketch, fused_velocity_sketch):
         fn.launches = 0
         fn.launches_by_mode = dict.fromkeys(SKETCH_MODES, 0)
-        fn.launches_by_dtype = dict.fromkeys(COMPUTE_DTYPES, 0)
+        fn.launches_by_dtype = dict.fromkeys(SKETCH_DTYPES, 0)
 
 
 reset_launch_counts()

@@ -59,6 +59,7 @@ import io
 import json
 import os
 import subprocess
+import types
 import warnings
 from typing import Callable, Optional, Sequence
 
@@ -360,11 +361,33 @@ def _export(fn, args: tuple, batch_dims: tuple, batch: Optional[int], call: dict
         shapes = tuple(_dims(a, d, b) for a, d in zip(args, batch_dims))
     else:
         shapes = None
+    _forget_loop_compiles()
     # the forward's *args are one input of the traced module
     program = torch.export.export(_Program(fn), args, dynamic_shapes=None if shapes is None else (shapes,))
     buf = io.BytesIO()
     torch.export.save(program, buf, extra_files={_CALL_FILE: json.dumps(call)})
     return _wrap_provenance(buf.getvalue(), platforms, device.type)
+
+
+def _forget_loop_compiles():
+    """Drop what earlier exports compiled of ``while_loop``, so that an
+    export does not depend on what the process exported before.
+
+    Inside ``torch.export`` a ``while_loop`` is compiled by dynamo through
+    one wrapper function of torch's (``_while_loop_op_wrapper``, a code
+    object shared by every loop of every export), and dynamo keeps each
+    compile on that code object with its guards.  The next export looks
+    its loops up in that cache: the guards of a pinned batch-4 export,
+    checked against a symbolic batch, add ``batch != 4`` to the new
+    export's shapes, and a symbolic export then fails with a constraint
+    violation.  Removing the wrapper's entries before each export is local
+    to the loops: a caller's own ``torch.compile``d functions keep theirs
+    (``torch._dynamo.reset()`` would clear those too)."""
+    from torch._dynamo.eval_frame import remove_from_cache
+    from torch._higher_order_ops.while_loop import while_loop
+    for code in while_loop.__code__.co_consts:
+        if isinstance(code, types.CodeType):
+            remove_from_cache(code)
 
 
 def _dims(arg, axis, b):

@@ -217,11 +217,14 @@ def test_fused_em_sample_on_cpu_runs_the_plain_version():
     assert es.fused_em_sample.launches == before
     for a, b in zip(out, ref):
         assert torch.equal(a, b)
-    # highf32 maps to float32; bfloat16 waits for its queue-2 item
+    # highf32 maps to float32; bfloat16 runs its own plain version, and an
+    # unknown compute mode raises
     out_h = es.fused_em_sample(params, cfg, VPSDE(), x0, 77, cond, steps=5, no_sigma=True, compute_dtype="highf32")
     assert torch.equal(out_h[1], out[1])
-    with pytest.raises(NotImplementedError, match="queue 2"):
-        es.fused_em_sample(params, cfg, VPSDE(), x0, 77, cond, steps=5, compute_dtype="bfloat16")
+    out_b = es.fused_em_sample(params, cfg, VPSDE(), x0, 77, cond, steps=5, no_sigma=True, compute_dtype="bfloat16")
+    assert es.fused_em_sample.launches == before and not torch.equal(out_b[1], out[1])
+    with pytest.raises(ValueError, match="unknown"):
+        es.fused_em_sample(params, cfg, VPSDE(), x0, 77, cond, steps=5, compute_dtype="float16")
     with pytest.raises(ValueError, match="seed"):
         es.fused_em_sample(params, cfg, VPSDE(), x0, None, cond, steps=5)
     with pytest.raises(ValueError, match="conditional"):

@@ -209,7 +209,8 @@ def test_flow_create_and_refusals(flow_pair):
     for call, item in (
         (lambda: dataclasses.replace(tm, trace_mode="xtrace").log_prob(x, adjoint=True), "no gradient"),
         (lambda: dataclasses.replace(tm, trace_mode="xtrace").log_prob_per_sample(x), "batch-coupled"),
-        (lambda: dataclasses.replace(tm, kernel_compute_dtype="bfloat16"), "queue 2"),
+        (lambda: dataclasses.replace(tm, kernel_compute_dtype="bfloat16", trace_mode="xtrace",
+                                     use_fused_kernel=True).log_prob(x, probes=(torch.ones(1, 4, 2),)), "#3b"),
     ):
         with pytest.raises(NotImplementedError, match=item):
             call()
@@ -226,10 +227,11 @@ def test_flow_create_and_refusals(flow_pair):
         dataclasses.replace(tm, trace_mode="hutchinson").log_prob(x)
     with pytest.raises(ValueError, match="parameters are on"):
         tm.sample(torch.zeros(4, 2, device="meta"))
-    # highf32 is ported; bfloat16 waits for queue 2 #3b
+    # highf32 and bfloat16 are ported; an unknown compute mode raises
     assert fused_mlp.fused_velocity(tm.params, tm.net, 0.5, x, compute_dtype="highf32").shape == x.shape
-    with pytest.raises(NotImplementedError, match="#3b"):
-        fused_mlp.fused_velocity(tm.params, tm.net, 0.5, x, compute_dtype="bfloat16")
+    assert fused_mlp.fused_velocity(tm.params, tm.net, 0.5, x, compute_dtype="bfloat16").shape == x.shape
+    with pytest.raises(ValueError, match="unknown"):
+        fused_mlp.fused_velocity(tm.params, tm.net, 0.5, x, compute_dtype="float16")
     # auto dispatch on a CUDA tensor takes the kernel (a stand-in plays it)
     on_card = type("OnCard", (), {"is_cuda": True})()
     assert all(tm._fused_available(on_card, mode) for mode in ("forward", "hutchinson", "exact"))

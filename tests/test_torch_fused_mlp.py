@@ -148,10 +148,11 @@ def test_envelope_and_refusals():
     x = torch.zeros(4, 2)
     with pytest.raises(ValueError, match="conditional"):
         fused_mlp.fused_drift(params, cfg, 0.5, x)
-    # highf32 is ported; bfloat16 waits for queue 2 #3b
+    # highf32 and bfloat16 are ported; an unknown compute mode raises
     assert fused_mlp.fused_drift(params, cfg, 0.5, x, torch.zeros(4, 3), compute_dtype="highf32").shape == (4, 2)
-    with pytest.raises(NotImplementedError, match="#3b"):
-        fused_mlp.fused_drift(params, cfg, 0.5, x, torch.zeros(4, 3), compute_dtype="bfloat16")
+    assert fused_mlp.fused_drift(params, cfg, 0.5, x, torch.zeros(4, 3), compute_dtype="bfloat16").shape == (4, 2)
+    with pytest.raises(ValueError, match="unknown"):
+        fused_mlp.fused_drift(params, cfg, 0.5, x, torch.zeros(4, 3), compute_dtype="float16")
     with pytest.raises(ValueError, match="OR"):
         fused_mlp.fused_drift(params, cfg, 0.5, x, torch.zeros(4, 3), e=x, exact_divergence=True)
     # shared-memory plan: exact trace of 16 features at H=1024 cannot fit,
@@ -228,23 +229,26 @@ def test_rhs_plan_forced_rows():
         fused_mlp._plan(128, "exact", 16, 16, rows=64)
 
 
-# (features, mode, D, widest H in float32, widest H in highf32): at 4 rows
-# a block the highf32 plan keeps the activations' TF32 hi and lo planes
+# (features, mode, D, widest H in float32, in highf32, in bfloat16): at 4
+# rows a block the highf32 plan keeps the activations' TF32 hi and lo planes
 # beside the pre-activations, three buffers where float32 has two, so its
-# widest hidden layer is about two thirds of float32's
+# widest hidden layer is about two thirds of float32's; bfloat16 keeps one
+# 2-byte plane beside the pre-activations (rows H + 8 apart), 6 bytes a
+# value where float32 has 8, so its widest is about four thirds of
+# float32's (in steps of its 16-wide lane)
 _ENVELOPE = [
-    (9, "exact", 6, 1032, 680),
-    (9, "hutchinson", 6, 3624, 2408),
-    (2, "exact", 2, 2416, 1608),
-    (2, "hutchinson", 2, 3624, 2416),
+    (9, "exact", 6, 1032, 680, 1360),
+    (9, "hutchinson", 6, 3624, 2408, 4816),
+    (2, "exact", 2, 2416, 1608, 3216),
+    (2, "hutchinson", 2, 3624, 2416, 4832),
 ]
 
 
-@pytest.mark.parametrize("n_features, mode, D, widest_float32, widest_highf32", _ENVELOPE)
-def test_rhs_envelope_widths(n_features, mode, D, widest_float32, widest_highf32):
-    for dtype, widest in (("float32", widest_float32), ("highf32", widest_highf32)):
+@pytest.mark.parametrize("n_features, mode, D, widest_float32, widest_highf32, widest_bfloat16", _ENVELOPE)
+def test_rhs_envelope_widths(n_features, mode, D, widest_float32, widest_highf32, widest_bfloat16):
+    for dtype, widest in (("float32", widest_float32), ("highf32", widest_highf32), ("bfloat16", widest_bfloat16)):
         assert fused_mlp.supports_features(n_features, mode, widest, D, dtype)
-        assert not fused_mlp.supports_features(n_features, mode, widest + 8, D, dtype)
+        assert not fused_mlp.supports_features(n_features, mode, widest + fused_mlp.lane(dtype), D, dtype)
 
 
 @pytest.mark.parametrize("H, D, with_cond, plan", [

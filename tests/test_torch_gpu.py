@@ -20,7 +20,16 @@ field within 1e-5.  The
 training kernel: losses rtol 1e-5, layers atol 3e-5 (5e-5 chained, 3e-4
 for the symplectic form; tests/test_fused_train.py:89-152, :784), two
 launches bitwise equal, and a resumed ``fit`` bitwise equal to the
-uninterrupted one.
+uninterrupted one.  In compute mode bfloat16 the RHS kernel and its
+bfloat16 plain version round at the same points and differ in the order of
+the fp32 sums, which moves the odd value across a bf16 rounding boundary:
+max |d| within 4e-3 (measured up to 2.04e-3 on the H100; two plain versions
+that differ only in fp32 or fp64 sums differ by up to 1.88e-3), mean |d|
+within 1e-5 of the max magnitude (measured up to 1.3e-6), and at least 10x
+closer in the mean to the bf16 plain version than that is to strict
+float32, which a kernel that skipped a rounding point fails; against strict
+float32 the mode's accuracy class, 3e-2.  The bf16 EM kernel within 1e-2
+of its plain version over 10 steps of streamed noise.
 """
 
 import dataclasses
@@ -421,7 +430,7 @@ def test_highf32_solve_never_runs_the_strict_kernel(cuda_device):
     fused_mlp.reset_launch_counts()
     lp, st = model.log_prob(x, probes=(e,))
     assert bool(torch.isfinite(lp).all())
-    assert fused_mlp.fused_drift.launches_by_dtype == {"float32": 0, "highf32": st.n_func_evals}
+    assert fused_mlp.fused_drift.launches_by_dtype == {"float32": 0, "highf32": st.n_func_evals, "bfloat16": 0}
     fused_sketch.reset_launch_counts()
     lp, st = dataclasses.replace(model, trace_mode="xtrace").log_prob(x, probes=(e[None],))
     assert bool(torch.isfinite(lp).all())
@@ -951,3 +960,149 @@ def test_symbolic_artifact_launches_the_kernel(cuda_device, trace_mode):
         torch.cuda.synchronize()
         assert launches == fused_mlp.fused_drift.launches == st.n_func_evals
         assert torch.equal(lp, ref)
+
+
+# ---------------------------------------------------------------------------
+# compute mode bfloat16
+# ---------------------------------------------------------------------------
+
+
+def _mean_rel(a, b):
+    return float((a - b).abs().mean() / b.abs().max())
+
+
+def _check_bf16(out, ref, strict):
+    """The bfloat16 bars of the module docstring, for each output."""
+    for o, r, s in zip(out, ref, strict):
+        assert _rel(o, r) <= 4e-3 and _mean_rel(o, r) <= 1e-5, (_rel(o, r), _mean_rel(o, r))
+        assert _mean_rel(o, r) <= 0.1 * _mean_rel(r, s), (_mean_rel(o, r), _mean_rel(r, s))
+        assert _rel(o, s) <= 3e-2, _rel(o, s)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("activation,units", [("silu", (128, 128, 128)), ("tanh", (112, 112)), ("gelu", (256, 256))])
+@pytest.mark.parametrize("mode", ["forward", "hutchinson", "exact"])
+def test_bf16_kernel_matches_its_plain_version(cuda_device, mode, activation, units):
+    """The bfloat16 kernel (bf16 mma.sync m16n8k16) against its plain
+    version: width 112 pads to 128 (the 16-deep k-step), 1,001 rows a
+    ragged row tile; every launch counted as bfloat16."""
+    cfg = ScoreMLPConfig(n_dimensions=6, n_conditionals=3, units=units, activation=activation)
+    params = init_score_mlp(cfg, torch.Generator().manual_seed(0), cuda_device)
+    g = torch.Generator().manual_seed(1)
+    x, cond, e = (torch.randn(1001, n, generator=g).to(cuda_device) for n in (6, 3, 6))
+    args = (params, cfg, 0.4, x, cond, torch.sign(e))
+    counts = dict(fused_mlp.fused_drift.launches_by_dtype)
+    out = _drift_outputs(fused_mlp.fused_drift, mode, *args, c0=-0.2, c1=0.8, compute_dtype="bfloat16")
+    ref = _drift_outputs(fused_mlp.fused_drift_reference, mode, *args, c0=-0.2, c1=0.8, compute_dtype="bfloat16")
+    strict = _drift_outputs(fused_mlp.fused_drift_reference, mode, *args, c0=-0.2, c1=0.8)
+    torch.cuda.synchronize()
+    assert fused_mlp.fused_drift.launches_by_dtype == {**counts, "bfloat16": counts["bfloat16"] + 1}
+    _check_bf16(out, ref, strict)
+
+
+@pytest.mark.gpu
+def test_bf16_four_row_plan_wide_input_and_other_entries(cuda_device):
+    """The exact plan of 16 features at 4 rows a block, a 20-feature input
+    projection (rounded past the rank-1 crossover), both tangents entries
+    (K = 3), fused_velocity and the symplectic field, each against its
+    bfloat16 plain version."""
+    for d, c, mode in ((16, 0, "exact"), (4, 16, "hutchinson")):
+        cfg = ScoreMLPConfig(n_dimensions=d, n_conditionals=c, units=(128, 128))
+        params = init_score_mlp(cfg, torch.Generator().manual_seed(2), cuda_device)
+        g = torch.Generator().manual_seed(3)
+        x, cond, e = (torch.randn(1003, n, generator=g).to(cuda_device) if n else None for n in (d, c, d))
+        args = (params, cfg, 0.6, x, cond, torch.sign(e))
+        _check_bf16(*(_drift_outputs(fn, mode, *args, c0=0.3, c1=-0.5, **kw) for fn, kw in (
+            (fused_mlp.fused_drift, {"compute_dtype": "bfloat16"}),
+            (fused_mlp.fused_drift_reference, {"compute_dtype": "bfloat16"}), (fused_mlp.fused_drift_reference, {}))))
+    g = torch.Generator().manual_seed(11)
+    x, cond = (torch.randn(1003, n, generator=g).to(cuda_device) for n in (6, 3))
+    V = torch.randn(3, 1003, 6, generator=g).to(cuda_device)
+    bf = {"compute_dtype": "bfloat16"}
+    for family in ("drift", "velocity"):
+        cfg, params = _net(family, 6, 3, cuda_device, 10)
+        kw = dict(c0=-0.2, c1=0.8) if family == "drift" else {}
+        fn = fused_mlp.fused_drift_tangents if family == "drift" else fused_mlp.fused_velocity_tangents
+        ref_fn = getattr(fused_mlp, fn.__name__ + "_reference")
+        outs = [fn(params, cfg, 0.4, x, V, cond, **kw, **bf), ref_fn(params, cfg, 0.4, x, V, cond, **kw, **bf),
+                ref_fn(params, cfg, 0.4, x, V, cond, **kw)]
+        _check_bf16(*([o[0]] + o[1] for o in outs))
+        if family == "velocity":
+            e = torch.sign(V[0])
+            _check_bf16(*(f(params, cfg, 0.4, x, cond, e=e, **k) for f, k in (
+                (fused_mlp.fused_velocity, bf), (fused_mlp.fused_velocity_reference, bf),
+                (fused_mlp.fused_velocity_reference, {}))))
+    cfg = SymplecticMLPConfig(n_data_dims=2, n_conditionals=3, units=(128, 128))
+    params = init_symplectic_mlp(cfg, torch.Generator().manual_seed(14), cuda_device)
+    state = torch.randn(2005, 4, generator=g).to(cuda_device)
+    c = cond[:1].expand(2005, 3).contiguous()
+    _check_bf16(*([f(params, cfg, 0.43, state, c, **k)] for f, k in (
+        (fused_mlp.fused_symplectic_velocity, bf), (fused_mlp.fused_symplectic_velocity_reference, bf),
+        (fused_mlp.fused_symplectic_velocity_reference, {}))))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["forward", "hutchinson", "exact", "tangents"])
+def test_bf16_kernel_is_bitwise_across_plans(cuda_device, mode):
+    """A row's arithmetic does not depend on the plan in bfloat16 either:
+    the launch at its own plan against the same launch forced to 4 rows."""
+    cfg = ScoreMLPConfig(n_dimensions=2, units=(128, 128, 128))
+    params = init_score_mlp(cfg, torch.Generator().manual_seed(6), cuda_device)
+    g = torch.Generator().manual_seed(7)
+    x = torch.randn(5003, 2, generator=g).to(cuda_device)
+    n_tan = 3 if mode == "tangents" else 0
+    e = torch.sign(torch.randn(5003, 2 * max(n_tan, 1), generator=g)).to(cuda_device)
+    w_in, b_eff = fused_mlp._score_first_layer(params, cfg, 0.3, None)
+    c0c1 = torch.tensor([0.1, -0.7], device=cuda_device)
+    own, forced = (fused_mlp._launch(x, e if mode in ("hutchinson", "tangents") else None, w_in, b_eff,
+                                     params["layers"], c0c1, mode, 2, "silu", n_tan=n_tan,
+                                     compute_dtype="bfloat16", rows=r) for r in (None, 4))
+    assert fused_mlp._plan(128, mode, 2, 2, n_tan, "bfloat16")[0] > 4
+    assert torch.equal(own[0], forced[0]) and (own[1] is None or torch.equal(own[1], forced[1]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c", [0, 3])
+def test_bf16_em_kernel_matches_plain_version(cuda_device, c):
+    """The bfloat16 EM kernel against its plain version on 10 steps of
+    streamed noise (within 1e-2 of the max magnitude), in-kernel Philox noise
+    running finite; launches counted as bfloat16; no local memory."""
+    d = 6 if c else 2
+    cfg = ScoreMLPConfig(n_dimensions=d, n_conditionals=c, units=(128, 128, 128))
+    params = init_score_mlp(cfg, torch.Generator().manual_seed(4), cuda_device)
+    g = torch.Generator().manual_seed(5)
+    x0 = torch.randn(1001, d, generator=g).to(cuda_device)
+    cond = torch.randn(1001, c, generator=g).to(cuda_device) if c else None
+    noise = torch.randn(10, 1001, d, generator=g).to(cuda_device)
+    kw = dict(conditional=cond, steps=10, no_sigma=True, compute_dtype="bfloat16")
+    before = dict(em_sampler.fused_em_sample.launches_by_dtype)
+    out = em_sampler.fused_em_sample(params, cfg, VPSDE(), x0, noise=noise, **kw)
+    ref = em_sampler.fused_em_sample_reference(params, cfg, VPSDE(), x0, noise, **kw)
+    seeded = em_sampler.fused_em_sample(params, cfg, VPSDE(), x0, 2**35, **kw)
+    torch.cuda.synchronize()
+    assert em_sampler.fused_em_sample.launches_by_dtype == {**before, "bfloat16": before["bfloat16"] + 2}
+    assert _rel(out[0], ref[0]) <= 1e-2 and _rel(out[1], ref[1]) <= 1e-2
+    assert bool(out[2]) == bool(ref[2]) is False and bool(torch.isfinite(seeded[1]).all())
+    occ = em_sampler.em_occupancy(em_sampler.em_plan(128, d, c > 0), "bfloat16")
+    assert occ["local_bytes"] == 0 and occ["blocks_per_sm"] == 2, occ
+
+
+@pytest.mark.gpu
+def test_bf16_model_launches_only_bf16_kernels(cuda_device):
+    """A bfloat16 model's Hutchinson solve launches the bfloat16 RHS kernel
+    every RHS call and no other mode; its fused sampler the bfloat16 EM
+    kernel; a sketch solve raises, naming queue 2 #3b."""
+    cfg = ScoreMLPConfig(n_dimensions=2, units=(128, 128))
+    params = init_score_mlp(cfg, torch.Generator().manual_seed(0), cuda_device)
+    model = ScoreModel(params, cfg, VESDE(), trace_mode="hutchinson", kernel_compute_dtype="bfloat16")
+    x = torch.randn(257, 2, generator=torch.Generator().manual_seed(1)).to(cuda_device)
+    e = torch.sign(torch.randn(257, 2, generator=torch.Generator().manual_seed(2))).to(cuda_device)
+    fused_mlp.reset_launch_counts()
+    em_sampler.reset_launch_counts()
+    lp, st = model.log_prob(x, probes=(e,))
+    res = model.sample_sde_fused((257, 2), steps=20, generator=torch.Generator(cuda_device).manual_seed(3))
+    assert bool(torch.isfinite(lp).all()) and not bool(res.nan_encountered)
+    assert fused_mlp.fused_drift.launches_by_dtype == {"float32": 0, "highf32": 0, "bfloat16": st.n_func_evals}
+    assert em_sampler.fused_em_sample.launches_by_dtype == {"float32": 0, "bfloat16": 1}
+    with pytest.raises(NotImplementedError, match="#3b"):
+        dataclasses.replace(model, trace_mode="xtrace").log_prob(x, probes=(e[None],))

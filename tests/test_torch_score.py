@@ -211,14 +211,16 @@ def test_refusals_name_their_roadmap_item(flagship):
     assert lp_ps.shape == (4,) and st_ps.n_func_evals.shape == (4,) and bool(st_ps.succeeded.all())
     with pytest.raises(NotImplementedError, match="batch-coupled"):
         dataclasses.replace(tm, trace_mode="hutchpp").log_prob_per_sample(x)
-    # highf32 is ported; bfloat16 waits for queue 2 #3b
+    # highf32 and bfloat16 are ported; an unknown compute mode raises
     assert dataclasses.replace(tm, kernel_compute_dtype="highf32").kernel_compute_dtype == "highf32"
-    with pytest.raises(NotImplementedError, match="queue 2 #3b"):
-        dataclasses.replace(tm, kernel_compute_dtype="bfloat16")
+    assert dataclasses.replace(tm, kernel_compute_dtype="bfloat16").kernel_compute_dtype == "bfloat16"
+    with pytest.raises(ValueError, match="unknown"):
+        dataclasses.replace(tm, kernel_compute_dtype="float16")
     with pytest.raises(NotImplementedError, match="item 14"):
         tm.sample_sde((4, 2), steps=2, progress=True)
-    with pytest.raises(NotImplementedError, match="queue 2"):
-        tm.sample_sde_fused((4, 2), steps=2, compute_dtype="bfloat16")
+    # the EM kernel's bfloat16 mode runs (its plain version on the CPU)
+    res = tm.sample_sde_fused((4, 2), steps=2, compute_dtype="bfloat16")
+    assert res.x.shape == (4, 2) and not bool(res.nan_encountered)
     # training is ported: the loss draws from the generator and is finite
     loss = tm.loss_fn(torch.Generator().manual_seed(0), torch.randn(8, 2, generator=torch.Generator().manual_seed(1)))
     assert loss.ndim == 0 and torch.isfinite(loss)

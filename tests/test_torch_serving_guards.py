@@ -245,3 +245,29 @@ def test_fresh_interpreter_serves_the_artifact_without_jax(blob, tmp_path):
     assert out.stdout.strip().splitlines()[-1] == "[]"
     expected = serving.deserialize_log_prob(blob)(x, seed=9).numpy()
     assert np.array_equal(np.load(tmp_path / "lp.npy"), expected)
+
+
+@pytest.mark.parametrize("earlier", ["pinned_sampler", "bucketed_log_prob"])
+def test_symbolic_export_after_a_pinned_one(earlier, monkeypatch):
+    """An export does not depend on what the process exported before: after
+    a pinned batch-4 sampler (or a bucketed bundle of pinned batches 4 and
+    8), a symbolic sampler and a symbolic likelihood export, and both serve
+    batches 4 and 5 bitwise the eager calls.  (Dynamo kept the pinned
+    export's while_loop compile with its guards, and the symbolic export
+    then failed with ``batch != 4``.)"""
+    m = _model()
+    if earlier == "pinned_sampler":
+        serving.export_sampler(m, batch=4)
+    else:
+        serving.export_log_prob_bucketed(m, batches=(4, 8), **TOL)
+    sampler = serving.deserialize_sampler(serving.export_sampler(m))
+    log_prob = serving.deserialize_log_prob(serving.export_log_prob(m, **TOL))
+    for n in (4, 5):
+        z = _x(n, seed=n) / 2.0
+        assert torch.equal(sampler(z), m.sample_ode_from_base(z)[0])
+    monkeypatch.setattr(fused_mlp, "_on_card", lambda x: True)
+    eager = serving._set_kernel(_model(), True)
+    for n in (4, 5):
+        x = _x(n, seed=10 + n)
+        ref, _ = eager.log_prob(x, generator=torch.Generator().manual_seed(3), **TOL)
+        assert torch.equal(log_prob(x, seed=3), ref)

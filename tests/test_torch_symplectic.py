@@ -198,10 +198,11 @@ def test_create_refusals_and_dispatch(sym_pair):
     x = torch.zeros(4, 2)
     # training is ported: the joint flow-matching loss is finite
     assert torch.isfinite(tm.loss_fn(torch.Generator().manual_seed(0), x))
-    # highf32 is ported; bfloat16 waits for queue 2 #3b
+    # highf32 and bfloat16 are ported; an unknown compute mode raises
     assert dataclasses.replace(tm, kernel_compute_dtype="highf32").kernel_compute_dtype == "highf32"
-    with pytest.raises(NotImplementedError, match="queue 2 #3b"):
-        dataclasses.replace(tm, kernel_compute_dtype="bfloat16")
+    assert dataclasses.replace(tm, kernel_compute_dtype="bfloat16").kernel_compute_dtype == "bfloat16"
+    with pytest.raises(ValueError, match="unknown"):
+        dataclasses.replace(tm, kernel_compute_dtype="float16")
     # the solvers of item 13 run: the adjoint log_prob equals the plain
     # one, and per-sample stepping agrees within the solve's tolerance
     p0 = torch.randn(4, 2, generator=torch.Generator().manual_seed(3))
