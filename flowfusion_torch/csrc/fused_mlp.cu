@@ -21,8 +21,8 @@
 //            the weights bf16 (converted by the wrapper once a call), every
 //            activation and tangent rounded to bf16 before its product,
 //            fp32 sums, the tanh-form SiLU.  The hidden (H, H) products run
-//            on the bf16 tensor cores (dense_bf16, mma.sync m16n8k16, one
-//            pass), the output layer in FMAs on the same rounded operands
+//            on the bf16 tensor cores (mlp_tile.cuh dense_bf16, mma.sync
+//            m16n8k16, one pass, shared with fused_sketch.cu), the output layer in FMAs on the same rounded operands
 //            (exact products), the input layer as in highf32 with bf16
 //            weights (the rank-1 sum up to 16 inputs, rounded inputs past).
 // Build without --use_fast_math: sigmoid goes through expf (tanhf in
@@ -93,7 +93,7 @@
 //     runs).  The planes are a third buffer, so these plans take half the
 //     float32 rows at three blocks, and the widest H a plan fits is about
 //     two thirds of float32's.
-//   - bfloat16 products (dense_bf16): the activation pass writes one bf16
+//   - bfloat16 products (mlp_tile.cuh dense_bf16): the activation pass writes one bf16
 //     plane of act(a) and of each tangent chain (rows H + 8 values apart,
 //     so a warp's A-fragment words fall on 32 distinct banks), which the
 //     product reads as packed pairs; the wrapper hands the hidden weights
@@ -127,15 +127,12 @@ constexpr int kWarps = kThreads / 32;
 // Floats past H in a row of the activation buffers: the row stride is
 // H + kPad, so consecutive rows start 4 banks apart.
 constexpr int kPad = 4;
-// The same in bfloat16, where the fp32 pre-activations and the bf16 plane
-// share the row stride H + kPadBF16: a plane row is (H + 8) / 2 words, 4
-// banks past the one before for H a multiple of 16.
-constexpr int kPadBF16 = 8;
 // Blocks of kThreads an SM is to hold, by registers (the launch bounds):
 // 80 registers a thread, which every instantiation fits without spilling.
 constexpr int kMinBlocks = 3;
 // The layer products' tiles: float32 rows a thread (dense_rows), highf32
-// n-tiles a warp (dense_planes).
+// n-tiles a warp (dense_planes; bfloat16's dense_bf16, in mlp_tile.cuh,
+// tiles the same way).
 constexpr int kRowTile = 4;
 constexpr int kNTiles = 2;
 
@@ -322,110 +319,6 @@ __device__ void dense_planes(const float* __restrict__ w, const float* __restric
         }
       }
     }
-  }
-}
-
-// bfloat16: nxt[m] = A[m] @ w (+ bias on rows m < R) through mma.sync
-// m16n8k16 bf16 with fp32 accumulation, A the bf16 plane (stride S values)
-// and wt the weights as bf16 transposed, (N, K), so a B fragment's k pair
-// is one 32-bit load.  The warp tiling of dense_planes: NT n-tiles across up
-// to MT m-tiles, each weight fragment loaded once a block a layer wherever
-// M <= 64.  m16n8k16 .bf16 fragments (PTX ISA), g = lane / 4, t = lane % 4,
-// a register a pair of consecutive k: A (g, 2t), (g + 8, 2t), (g, 2t + 8),
-// (g + 8, 2t + 8); B (k 2t, n g), (k 2t + 8, n g); C as in m16n8k8.  Rows
-// past M read row M - 1 and store nothing.  K is a multiple of 16, N of 8.
-__device__ void dense_bf16(const __nv_bfloat16* __restrict__ wt, const float* __restrict__ bias,
-                           const __nv_bfloat16* a, float* nxt, int K, int N, int M, int R, int S) {
-  constexpr int NT = kNTiles;
-  constexpr int MT = 8 / NT;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int n_tiles = N >> 3;
-  const int m_tiles = (M + 15) >> 4;
-  const int strips = (n_tiles + NT - 1) / NT;
-  const int groups = (m_tiles + MT - 1) / MT;
-  for (int it = threadIdx.x >> 5; it < strips * groups; it += kWarps) {
-    const int grp = it / strips;
-    const int nt0 = (it - grp * strips) * NT;
-    const int mt0 = grp * MT;
-    float acc[MT][NT][4];
-#pragma unroll
-    for (int i = 0; i < MT; ++i)
-#pragma unroll
-      for (int j = 0; j < NT; ++j) acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.0f;
-    for (int k = 0; k < K; k += 16) {
-      unsigned b[NT][2];
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        const int n = min(nt0 + j, n_tiles - 1) * 8 + g;
-        const unsigned* col = reinterpret_cast<const unsigned*>(wt + (size_t)n * K + k + 2 * t);
-        b[j][0] = __ldg(col);
-        b[j][1] = __ldg(col + 4);
-      }
-#pragma unroll
-      for (int i = 0; i < MT; ++i) {
-        if (mt0 + i >= m_tiles) break;  // warp-uniform
-        const unsigned* p0 =
-            reinterpret_cast<const unsigned*>(a + (size_t)min((mt0 + i) * 16 + g, M - 1) * S + k + 2 * t);
-        const unsigned* p1 =
-            reinterpret_cast<const unsigned*>(a + (size_t)min((mt0 + i) * 16 + g + 8, M - 1) * S + k + 2 * t);
-        const unsigned af[4] = {p0[0], p1[0], p0[4], p1[4]};
-#pragma unroll
-        for (int j = 0; j < NT; ++j) {
-          if (nt0 + j >= n_tiles) break;  // warp-uniform
-          mma_bf16(acc[i][j], af, b[j]);
-        }
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      if (nt0 + j >= n_tiles) break;
-      const int n = (nt0 + j) * 8 + 2 * t;
-      const float b0 = bias != nullptr ? __ldg(bias + n) : 0.0f;
-      const float b1 = bias != nullptr ? __ldg(bias + n + 1) : 0.0f;
-#pragma unroll
-      for (int i = 0; i < MT; ++i) {
-        if (mt0 + i >= m_tiles) break;
-        const int r0 = (mt0 + i) * 16 + g;
-        const int r1 = r0 + 8;
-        if (r0 < M) {
-          const bool primal = r0 < R;
-          float2 o;
-          o.x = acc[i][j][0] + (primal ? b0 : 0.0f);
-          o.y = acc[i][j][1] + (primal ? b1 : 0.0f);
-          *reinterpret_cast<float2*>(nxt + (size_t)r0 * S + n) = o;
-        }
-        if (r1 < M) {
-          const bool primal = r1 < R;
-          float2 o;
-          o.x = acc[i][j][2] + (primal ? b0 : 0.0f);
-          o.y = acc[i][j][3] + (primal ? b1 : 0.0f);
-          *reinterpret_cast<float2*>(nxt + (size_t)r1 * S + n) = o;
-        }
-      }
-    }
-  }
-}
-
-// bfloat16: out[m, j] = A[m] @ w[:, j] (+ bias[j] on rows m < R) for the
-// narrow (K, N = D) output layer, a thread an output: A the bf16 plane
-// (stride S values), w bf16 in its (K, N) layout, one fmaf chain over k
-// from 0 (the products exact).  `out` is compact, (M, N).
-__device__ void dense_out_bf16(const __nv_bfloat16* __restrict__ w, const float* __restrict__ bias,
-                               const __nv_bfloat16* a, float* out, int K, int N, int M, int R, int S) {
-  for (int it = threadIdx.x; it < M * N; it += kThreads) {
-    const int m = it / N;
-    const int j = it - m * N;
-    const __nv_bfloat162* in = reinterpret_cast<const __nv_bfloat162*>(a + (size_t)m * S);
-    float acc = 0.0f;
-#pragma unroll 4
-    for (int k = 0; k < K; k += 2) {
-      const float2 hv = __bfloat1622float2(in[k >> 1]);
-      acc = fmaf(hv.x, __bfloat162float(w[(size_t)k * N + j]), acc);
-      acc = fmaf(hv.y, __bfloat162float(w[(size_t)(k + 1) * N + j]), acc);
-    }
-    out[it] = acc + ((m < R && bias != nullptr) ? __ldg(bias + j) : 0.0f);
   }
 }
 

@@ -3,7 +3,8 @@
 // Replaces the sketch modes of flowfusion_tpu/kernels/fused_mlp.py::_kernel
 // (_sketch_chunk, fused_mlp.py:673-754, with _qr_lane :601 and _tri_inv_lane
 // :649), reached through fused_drift_sketch (fused_mlp.py:1060) and
-// fused_velocity_sketch (fused_mlp.py:1112), in two compute modes:
+// fused_velocity_sketch (fused_mlp.py:1112), in three compute modes (the
+// template's P, the wrapper's precision index, as in fused_mlp.cu):
 //   float32  strict IEEE fp32 FMAs in every chain (the Pallas kernel runs its
 //            float32 sketch tangent chains at a 3-pass bf16 split, for speed
 //            alone; this one does not);
@@ -15,8 +16,24 @@
 //            (H, D) output layer through the split in FMAs, act' from the
 //            tanh-form sigmoid; the primal input projection strict up to 16
 //            features (in_proj_rows :313-330) and through the split past
-//            that; the probes' projection (D <= 8 rows) strict.
-// In both modes the per-row QR, projections, inverse and leave-one-out
+//            that; the probes' projection (D <= 8 rows) strict;
+//   bfloat16 the JAX kernel's fast serving mode (_compute_mode :175-205,
+//            mm :554-560 at Precision.DEFAULT; relax_tangents :577-582 is
+//            float32's alone, so the tangents round like the drift): the
+//            weights bf16 (the wrapper converts them once a call, as
+//            fused_mlp.cu takes them: w_in rounded and kept fp32, the hidden
+//            weights bf16 (out, in), w_out bf16 (H, D)); the activation,
+//            and each tangent act'(a) t, rounded to bf16 before every
+//            product, fp32 sums; every hidden (H, H) product, the forward
+//            chain's and all tangent chains' at once, on the bf16 tensor
+//            cores (mlp_tile.cuh dense_bf16, mma.sync m16n8k16), the (H, D)
+//            output layer in FMAs on the same rounded operands
+//            (dense_out_bf16); the tanh-form SiLU, act' stored fp32; the
+//            primal input projection strict up to 16 features and on rounded
+//            inputs past that; the probes' projection (D <= 8 rows) the
+//            strict rank-1 FMA loop over the rounded w_in (in_proj_rows
+//            :313-331).
+// In every mode the per-row QR, projections, inverse and leave-one-out
 // algebra are elementwise fp32, as in the Pallas kernel.
 //
 // What it computes, per row, for the drift f(x) = c0 x + c1 net(t, x[, cond])
@@ -39,8 +56,9 @@
 // H + D) flops each: ~400k flops a row for the flagship net at r = 2, m = 1,
 // against ~50 bytes of input and output.  float32: fp32 FMA throughput.
 // highf32: the hidden products' three TF32 passes on the tensor cores
-// (495 TFLOP/s dense) plus the CUDA-core rest; mma.sync does not reach the
-// wgmma rate.  Each layer product is a chain of barriers over a block's
+// (495 TFLOP/s dense) plus the CUDA-core rest; bfloat16: one pass on the
+// bf16 tensor cores (989 TFLOP/s dense) plus the same CUDA-core rest, the
+// output layer once; mma.sync does not reach the wgmma rate.  Each layer product is a chain of barriers over a block's
 // small tile, so what the SM can overlap decides the time: the blocks it
 // holds at once.
 //
@@ -68,6 +86,19 @@
 //     ring costs a barrier a panel and shared memory a block.
 //   - highf32 products: one (k R) by H tensor-core product for all k chains
 //     of an application (dense_tf32x3, weights through __ldg).
+//   - bfloat16: the act' store (fp32), one fp32 chain buffer and one bf16
+//     plane of kmax chains take the place of the two fp32 chain buffers,
+//     rows H + kPadBF16 apart in both (the A-fragment reads of dense_bf16
+//     fall on 32 distinct banks).  An activation pass writes act' and the
+//     rounded act(a) into the plane; a Jacobian application seeds its
+//     chains and multiplies them by the stored act' in one pass, rounding
+//     into the plane, then per layer one (k R) by H dense_bf16 product into
+//     the fp32 buffer and one pass of act' and rounding back into the
+//     plane; the output layer writes a compact (k R, D) tile.  A warp of a
+//     product carries two m-tiles (kMTilesBF16), not fused_mlp.cu's four,
+//     so that every instantiation fits 80 registers without spilling.  The
+//     plane is 2 bytes a value, so these plans hold at least float32's
+//     rows.
 //   - Per-row algebra (QR, projections, inverse, the estimate) on one thread
 //     a row, templated on MD in {2, 4, 8}, the smallest bucket >= D: every
 //     register array is an MD-vector indexed by unrolled d loops (guarded by
@@ -84,7 +115,8 @@
 //     them.
 // A row's arithmetic does not depend on R or MD: any plan gives bitwise the
 // same drift and div, and the first version's.  wgmma, the split weights
-// staged for highf32 and the algebra spread over the block are later work.
+// staged for highf32, the bf16 weights staged in shared memory and the
+// algebra spread over the block are later work.
 // Build without --use_fast_math: sigmoid goes through expf (tanhf in
 // highf32) and gelu through erff, matching the plain PyTorch path's
 // transcendentals.
@@ -98,6 +130,8 @@ namespace {
 using namespace ffk;
 
 enum SketchMode { kHutchpp = 0, kXtrace = 1 };
+// The compute modes, the templates' P (the wrapper's precision index).
+enum Precision { kFloat32 = 0, kHighF32 = 1, kBFloat16 = 2 };
 constexpr int kMaxDim = 8;     // largest D the per-row algebra takes
 // Blocks of kThreads an SM is to hold, by registers (the launch bounds): 80
 // registers a thread, which every instantiation fits without spilling.
@@ -106,6 +140,10 @@ constexpr int kMinBlocks = 3;
 // B-operand reads a FMA, but its 32 accumulators do not fit the 80 registers
 // a thread has at three blocks of kThreads an SM.
 constexpr int kRowTile = kMinRowTile;
+// m-tiles a warp of a bfloat16 layer product (dense_bf16) carries at once,
+// 16 accumulators a thread: fused_mlp.cu's 4 (32 accumulators) spill at
+// MD = 4 and 8 under the 80 registers a thread.
+constexpr int kMTilesBF16 = 2;
 
 // One row's view of an element-major shared tile: element e at p[e * R].
 struct RowView {
@@ -118,9 +156,10 @@ struct RowView {
 // probe-tile column off + c (D values) through w_in[:D], passes every layer
 // without bias, multiplied by the stored act'.  Returns the buffer whose
 // chain c, row r holds (J_net v)[0..D) at [c * R * H + r * H].  The probes
-// project strictly in both modes (D <= kMaxDim <= kRank1Max rows of w_in);
-// in highf32 every layer product takes the split.
-template <int MD, bool HF>
+// project strictly in every mode (D <= kMaxDim <= kRank1Max rows of w_in);
+// in highf32 every layer product takes the split.  float32 and highf32
+// (bfloat16 has apply_jacobian_bf16).
+template <int MD, int P>
 __device__ float* apply_jacobian(const float* cols, int off, int k, const float* __restrict__ w_in,
                                  const float* dh, const HiddenLayers& hidden, int n_hidden,
                                  const float* __restrict__ w_out, float* buf0, float* buf1, int R,
@@ -144,7 +183,7 @@ __device__ float* apply_jacobian(const float* cols, int off, int k, const float*
   for (int l = 0; l < n_hidden; ++l) {
     scale_by_act_grad(dh + l * rh, cur, k, rh);
     __syncthreads();
-    if constexpr (HF) {
+    if constexpr (P == kHighF32) {
       dense_tf32x3<4>(hidden.w[l], nullptr, cur, nxt, H, H, k * R, R, H);
     } else {
       dense<kRowTile, 4>(hidden.w[l], nullptr, cur, nxt, H, H, R, H, k);
@@ -156,13 +195,82 @@ __device__ float* apply_jacobian(const float* cols, int off, int k, const float*
   }
   scale_by_act_grad(dh + n_hidden * rh, cur, k, rh);
   __syncthreads();
-  if constexpr (HF) {
+  if constexpr (P == kHighF32) {
     dense_split_fma(w_out, nullptr, cur, nxt, H, D, R, H, k);
   } else {
     dense<kRowTile, 1>(w_out, nullptr, cur, nxt, H, D, R, H, k);
   }
   __syncthreads();
   return nxt;
+}
+
+// bfloat16: act(a) of the forward chain's pre-activations a (R rows of
+// stride S) rounded into the bf16 plane (stride S), act'(a) kept in dh (R x
+// H, the act' store's layout), by the tanh-form pair.
+__device__ __forceinline__ void activate_keep_bf16(int act, const float* a, float* dh, __nv_bfloat16* plane,
+                                                   int R, int H, int S) {
+  for (int i = threadIdx.x; i < R * H; i += blockDim.x) {
+    const int r = i / H;
+    const int j = i - r * H;
+    float h, d;
+    act_pair_highf32(act, a[r * S + j], h, d);
+    plane[r * S + j] = __float2bfloat16_rn(h);
+    dh[i] = d;
+  }
+}
+
+// bfloat16: plane[m] = bf16(t[m] act') for the M = chains x R tangent rows
+// (stride S), act' the stored layer dh (R x H): the activation layer of a
+// Jacobian application and the rounding of the next product's operand in
+// one pass.
+__device__ __forceinline__ void scale_round_bf16(const float* dh, const float* t, __nv_bfloat16* plane, int M,
+                                                 int R, int H, int S) {
+  for (int i = threadIdx.x; i < M * H; i += blockDim.x) {
+    const int m = i / H;
+    const int j = i - m * H;
+    const int r = m % R;
+    plane[m * S + j] = __float2bfloat16_rn(__fmul_rn(t[m * S + j], dh[r * H + j]));
+  }
+}
+
+// bfloat16: apply_jacobian on the bf16 tensor cores.  Chain c is seeded with
+// probe-tile column off + c through w_in[:D] (bf16 values in fp32: the
+// strict rank-1 FMA loop) and multiplied by the stored act' in the same
+// pass, rounded into the plane; each hidden layer is one (k R) x H
+// dense_bf16 product, no bias, into the fp32 buffer `buf`, then the next
+// act' and the rounding back into the plane; the output layer
+// dense_out_bf16.  Returns the compact (k R, D) tile of J_net v: chain c,
+// row r at [(c R + r) D].  buf and the plane have rows of stride S.
+template <int MD>
+__device__ float* apply_jacobian_bf16(const float* cols, int off, int k, const float* __restrict__ w_in,
+                                      const float* dh, const HiddenLayers& hidden, int n_hidden,
+                                      const float* __restrict__ w_out, float* buf, __nv_bfloat16* plane, int R,
+                                      int H, int D, int S) {
+  const int rh = R * H;
+  for (int i = threadIdx.x; i < k * rh; i += blockDim.x) {
+    const int m = i / H;  // row of the k x R stack
+    const int j = i - m * H;
+    const int c = m / R;
+    const int r = m - c * R;
+    const float* v = cols + (off + c) * D * R + r;  // element d at v[d * R]
+    float s = 0.0f;
+#pragma unroll
+    for (int d = 0; d < MD; ++d) {
+      if (d < D) s = fmaf(v[d * R], __ldg(w_in + d * H + j), s);
+    }
+    plane[m * S + j] = __float2bfloat16_rn(__fmul_rn(s, dh[r * H + j]));
+  }
+  __syncthreads();
+  for (int l = 0; l < n_hidden; ++l) {
+    dense_bf16<kMTilesBF16>(reinterpret_cast<const __nv_bfloat16*>(hidden.w[l]), nullptr, plane, buf, H, H, k * R,
+                            R, S);
+    __syncthreads();
+    scale_round_bf16(dh + (l + 1) * rh, buf, plane, k * R, R, H, S);
+    __syncthreads();
+  }
+  dense_out_bf16(reinterpret_cast<const __nv_bfloat16*>(w_out), nullptr, plane, buf, H, D, k * R, R, S);
+  __syncthreads();
+  return buf;
 }
 
 // ---------------------------------------------------------------------------
@@ -288,7 +396,7 @@ __device__ void tri_inv(RowView rr, int k, RowView inv) {
   }
 }
 
-template <int MD, bool HF>
+template <int MD, int P>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 fused_sketch_kernel(const float* __restrict__ x, const float* __restrict__ probes,
                     const float* __restrict__ w_in, const float* __restrict__ b_eff,
@@ -312,10 +420,14 @@ fused_sketch_kernel(const float* __restrict__ x, const float* __restrict__ probe
   const bool late_in_dh = n_late <= (n_hidden + 1) * H;
   const int n_alg = (rr_in_xs ? 0 : n_rr) + (late_in_dh ? 0 : n_late);
   const int rh = R * H;
+  // the chain buffers' row stride: H, or H + kPadBF16 in bfloat16, where
+  // buf0 (the fp32 pre-activations) and the bf16 plane share it
+  const int S = P == kBFloat16 ? H + kPadBF16 : H;
   float* dh = smem;                            // (n_hidden + 1, R, H) act'
-  float* buf0 = dh + (n_hidden + 1) * rh;      // (kmax, R, H)
-  float* buf1 = buf0 + kmax * rh;              // (kmax, R, H)
-  float* xs = buf1 + kmax * rh;                // (R, d_in)
+  float* buf0 = dh + (n_hidden + 1) * rh;      // (kmax, R, S)
+  float* buf1 = buf0 + kmax * rh;              // (kmax, R, H): float32, highf32
+  __nv_bfloat16* plane = reinterpret_cast<__nv_bfloat16*>(buf0 + kmax * R * S);  // (kmax, R, S): bfloat16
+  float* xs = P == kBFloat16 ? buf0 + kmax * R * S + kmax * R * S / 2 : buf1 + kmax * rh;  // (R, d_in)
   float* cols = xs + R * d_in;                 // (ncols, D, R) element-major
   float* tail = cols + ncols * D * R;          // (n_alg, R) element-major
   float* rr_at = rr_in_xs ? xs : tail;                   // (n_rr, R) element-major
@@ -335,44 +447,67 @@ fused_sketch_kernel(const float* __restrict__ x, const float* __restrict__ probe
   }
   __syncthreads();
 
-  // Forward chain once, keeping act' of every activation layer.
+  // Forward chain once, keeping act' of every activation layer.  In
+  // bfloat16 w_in holds bf16 values and an input of more than kRank1Max
+  // features is rounded, as the JAX kernel's in_proj_rows projects it
+  // through its bf16 product.
   for (int i = threadIdx.x; i < rh; i += blockDim.x) {
     const int r = i / H;
     const int j = i - r * H;
     float v = 0.0f;
-    if (HF && d_in > kRank1Max) {
+    if (P == kHighF32 && d_in > kRank1Max) {
       for (int k = 0; k < d_in; ++k) v = fma_tf32x3(xs[r * d_in + k], __ldg(w_in + k * H + j), v);
+    } else if (P == kBFloat16 && d_in > kRank1Max) {
+      for (int k = 0; k < d_in; ++k) v = fmaf(round_bf16(xs[r * d_in + k]), __ldg(w_in + k * H + j), v);
     } else {
       for (int k = 0; k < d_in; ++k) v = fmaf(xs[r * d_in + k], __ldg(w_in + k * H + j), v);
     }
-    buf0[i] = v + __ldg(b_eff + j);
+    buf0[r * S + j] = v + __ldg(b_eff + j);
   }
   __syncthreads();
-  float* cur = buf0;
+  // the net's output: float32 and highf32 at [r H + d] of nxt, bfloat16 in
+  // a compact (R, D) tile over buf0; the Jacobian applications' columns
+  // likewise (row stride js)
+  const int js = P == kBFloat16 ? D : H;
   float* nxt = buf1;
-  for (int l = 0; l < n_hidden; ++l) {
-    if constexpr (HF) {
-      activate_keep_highf32(act, cur, dh + l * rh, rh);
+  if constexpr (P == kBFloat16) {
+    for (int l = 0; l < n_hidden; ++l) {
+      activate_keep_bf16(act, buf0, dh + l * rh, plane, R, H, S);
       __syncthreads();
-      dense_tf32x3<4>(hidden.w[l], hidden.b[l], cur, nxt, H, H, R, R, H);
-    } else {
-      activate_keep(act, cur, dh + l * rh, rh);
+      dense_bf16<kMTilesBF16>(reinterpret_cast<const __nv_bfloat16*>(hidden.w[l]), hidden.b[l], plane, buf0, H, H,
+                              R, R, S);
       __syncthreads();
-      dense<kRowTile, 4>(hidden.w[l], hidden.b[l], cur, nxt, H, H, R, H, 1);
     }
+    activate_keep_bf16(act, buf0, dh + n_hidden * rh, plane, R, H, S);
     __syncthreads();
-    float* tmp = cur;
-    cur = nxt;
-    nxt = tmp;
-  }
-  if constexpr (HF) {
-    activate_keep_highf32(act, cur, dh + n_hidden * rh, rh);
-    __syncthreads();
-    dense_split_fma(w_out, b_out, cur, nxt, H, D, R, H, 1);
+    dense_out_bf16(reinterpret_cast<const __nv_bfloat16*>(w_out), b_out, plane, buf0, H, D, R, R, S);
+    nxt = buf0;
   } else {
-    activate_keep(act, cur, dh + n_hidden * rh, rh);
-    __syncthreads();
-    dense<kRowTile, 1>(w_out, b_out, cur, nxt, H, D, R, H, 1);
+    float* cur = buf0;
+    for (int l = 0; l < n_hidden; ++l) {
+      if constexpr (P == kHighF32) {
+        activate_keep_highf32(act, cur, dh + l * rh, rh);
+        __syncthreads();
+        dense_tf32x3<4>(hidden.w[l], hidden.b[l], cur, nxt, H, H, R, R, H);
+      } else {
+        activate_keep(act, cur, dh + l * rh, rh);
+        __syncthreads();
+        dense<kRowTile, 4>(hidden.w[l], hidden.b[l], cur, nxt, H, H, R, H, 1);
+      }
+      __syncthreads();
+      float* tmp = cur;
+      cur = nxt;
+      nxt = tmp;
+    }
+    if constexpr (P == kHighF32) {
+      activate_keep_highf32(act, cur, dh + n_hidden * rh, rh);
+      __syncthreads();
+      dense_split_fma(w_out, b_out, cur, nxt, H, D, R, H, 1);
+    } else {
+      activate_keep(act, cur, dh + n_hidden * rh, rh);
+      __syncthreads();
+      dense<kRowTile, 1>(w_out, b_out, cur, nxt, H, D, R, H, 1);
+    }
   }
   __syncthreads();
 
@@ -382,7 +517,7 @@ fused_sketch_kernel(const float* __restrict__ x, const float* __restrict__ probe
   const int row = row0 + r;
   if (r < R && row < B) {
     for (int d = 0; d < D; ++d)
-      drift[(size_t)row * D + d] = c0 * xs[r * d_in + d] + c1 * nxt[r * H + d];
+      drift[(size_t)row * D + d] = c0 * xs[r * d_in + d] + c1 * nxt[r * js + d];
   }
   __syncthreads();  // the forward output buffer is reused below
 
@@ -392,14 +527,22 @@ fused_sketch_kernel(const float* __restrict__ x, const float* __restrict__ probe
   // First application: A S (hutchpp) or A O (xtrace); Y replaces the Q
   // columns of the tile (S, or the free half for xtrace), then the QR.
   const int qoff = mode == kHutchpp ? 0 : n_s * D;  // Q's columns in the tile
-  const float* jv = apply_jacobian<MD, HF>(cols, 0, n_s, w_in, dh, hidden, n_hidden, w_out, buf0,
-                                           buf1, R, H, D);
+  // A v of k columns from the tile's column off: J_net v of chain c, row r
+  // at jv[(c R + r) js]
+  auto apply = [&](int off, int k) -> const float* {
+    if constexpr (P == kBFloat16) {
+      return apply_jacobian_bf16<MD>(cols, off, k, w_in, dh, hidden, n_hidden, w_out, buf0, plane, R, H, D, S);
+    } else {
+      return apply_jacobian<MD, P>(cols, off, k, w_in, dh, hidden, n_hidden, w_out, buf0, buf1, R, H, D);
+    }
+  };
+  const float* jv = apply(0, n_s);
   if (r < R) {
     for (int c = 0; c < n_s; ++c) {
       float y[MD];
 #pragma unroll
       for (int d = 0; d < MD; ++d) {
-        if (d < D) y[d] = c0 * my[c * D + d] + c1 * jv[c * rh + r * H + d];
+        if (d < D) y[d] = c0 * my[c * D + d] + c1 * jv[(c * R + r) * js + d];
       }
       store_col(my, qoff + c * D, D, y);
     }
@@ -429,12 +572,11 @@ fused_sketch_kernel(const float* __restrict__ x, const float* __restrict__ probe
 
   if (mode == kHutchpp) {
     // A [Q | U] in one application
-    jv = apply_jacobian<MD, HF>(cols, 0, n_in, w_in, dh, hidden, n_hidden, w_out, buf0, buf1, R, H,
-                                D);
+    jv = apply(0, n_in);
     if (r < R && row < B) {
       float trace_lr = 0.0f, trace_res = 0.0f;
       for (int c = 0; c < n_in; ++c) {
-        const float* j = jv + c * rh + r * H;
+        const float* j = jv + (c * R + r) * js;
         float v[MD];
         load_col(my, c * D, D, v);
         float s = 0.0f;
@@ -451,8 +593,7 @@ fused_sketch_kernel(const float* __restrict__ x, const float* __restrict__ probe
   }
 
   // xtrace: A Q, then the leave-one-out algebra
-  jv = apply_jacobian<MD, HF>(cols, n_s, n_s, w_in, dh, hidden, n_hidden, w_out, buf0, buf1, R, H,
-                              D);
+  jv = apply(n_s, n_s);
   if (r < R && row < B) {
     const int m = n_s;
     const int m2 = m * m;
@@ -467,7 +608,7 @@ fused_sketch_kernel(const float* __restrict__ x, const float* __restrict__ probe
       float v[MD];
 #pragma unroll
       for (int d = 0; d < MD; ++d) {
-        if (d < D) v[d] = c0 * my[(m + c) * D + d] + c1 * jv[c * rh + r * H + d];
+        if (d < D) v[d] = c0 * my[(m + c) * D + d] + c1 * jv[(c * R + r) * js + d];
       }
       store_col(aq, c * D, D, v);
     }
@@ -519,21 +660,21 @@ fused_sketch_kernel(const float* __restrict__ x, const float* __restrict__ probe
   }
 }
 
-template <int MD, bool HF>
+template <int MD, int P>
 cudaError_t prepare(size_t smem) {
-  return allow_smem(fused_sketch_kernel<MD, HF>, smem);
+  return allow_smem(fused_sketch_kernel<MD, P>, smem);
 }
 
-template <int MD, bool HF>
+template <int MD, int P>
 cudaError_t launch(const float* x, const float* probes, const float* w_in, const float* b_eff,
                    const HiddenLayers& hidden, int n_hidden, const float* w_out,
                    const float* b_out, const float* c0c1, float* drift, float* div, int B,
                    int d_in, int D, int H, int mode, int act, int n_s, int n_g, int rows,
                    size_t smem, cudaStream_t stream) {
-  const cudaError_t st = prepare<MD, HF>(smem);
+  const cudaError_t st = prepare<MD, P>(smem);
   if (st != cudaSuccess) return st;
   const int grid = (B + rows - 1) / rows;
-  fused_sketch_kernel<MD, HF><<<grid, kThreads, smem, stream>>>(
+  fused_sketch_kernel<MD, P><<<grid, kThreads, smem, stream>>>(
       x, probes, w_in, b_eff, hidden, n_hidden, w_out, b_out, c0c1, drift, div, B, d_in, D, H,
       mode, act, n_s, n_g, rows);
   return cudaGetLastError();
@@ -541,15 +682,15 @@ cudaError_t launch(const float* x, const float* probes, const float* w_in, const
 
 // Resident blocks an SM of the instantiation (md, precision) at `smem`
 // bytes, and its registers and local memory a thread.
-template <int MD, bool HF>
+template <int MD, int P>
 cudaError_t query(size_t smem, int* blocks, int* regs, int* local_bytes) {
-  cudaError_t st = prepare<MD, HF>(smem);
+  cudaError_t st = prepare<MD, P>(smem);
   if (st != cudaSuccess) return st;
-  st = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, fused_sketch_kernel<MD, HF>, kThreads,
+  st = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, fused_sketch_kernel<MD, P>, kThreads,
                                                      smem);
   if (st != cudaSuccess) return st;
   cudaFuncAttributes attr;
-  st = cudaFuncGetAttributes(&attr, fused_sketch_kernel<MD, HF>);
+  st = cudaFuncGetAttributes(&attr, fused_sketch_kernel<MD, P>);
   *regs = attr.numRegs;
   *local_bytes = (int)attr.localSizeBytes;
   return st;
@@ -564,10 +705,12 @@ using LaunchFn = cudaError_t (*)(const float*, const float*, const float*, const
                                  cudaStream_t);
 using QueryFn = cudaError_t (*)(size_t, int*, int*, int*);
 
-constexpr LaunchFn kLaunch[6] = {launch<2, false>, launch<4, false>, launch<8, false>,
-                                 launch<2, true>,  launch<4, true>,  launch<8, true>};
-constexpr QueryFn kQuery[6] = {query<2, false>, query<4, false>, query<8, false>,
-                               query<2, true>,  query<4, true>,  query<8, true>};
+constexpr LaunchFn kLaunch[9] = {
+    launch<2, kFloat32>,  launch<4, kFloat32>,  launch<8, kFloat32>,  launch<2, kHighF32>,  launch<4, kHighF32>,
+    launch<8, kHighF32>,  launch<2, kBFloat16>, launch<4, kBFloat16>, launch<8, kBFloat16>};
+constexpr QueryFn kQuery[9] = {
+    query<2, kFloat32>,  query<4, kFloat32>,  query<8, kFloat32>,  query<2, kHighF32>,  query<4, kHighF32>,
+    query<8, kHighF32>,  query<2, kBFloat16>, query<4, kBFloat16>, query<8, kBFloat16>};
 
 }  // namespace
 
@@ -585,11 +728,16 @@ int ff_sketch_min_blocks() { return kMinBlocks; }
 // (hutchpp, n_g >= 1, n_s <= D), or its m probes (xtrace, 1 <= n_s <= D,
 // n_g = 0).  w_hidden/b_hidden are host arrays of n_hidden device pointers,
 // each weight 16-byte aligned.  `precision` is the compute mode: 0 float32,
-// 1 highf32.  `md` the algebra's bucket (2, 4 or 8, >= D), `rows` a multiple
-// of 4 (at most kThreads), H of 4, of 8 in highf32 (the Python wrapper checks
-// all of them).  `smem` is the block's shared memory in bytes, computed by
-// the wrapper for the kernel's layout: (n_hidden + 1 + 2 kmax) x rows x H
-// floats, then rows x (d_in + ncols D + n_alg) floats; kmax = n_s + n_g
+// 1 highf32, 2 bfloat16; in bfloat16 w_in holds bf16-rounded floats, each
+// hidden weight is bf16 of shape (H_out, H_in) (transposed) and w_out bf16
+// (H, D), as fused_mlp.cu takes them.  `md` the algebra's bucket (2, 4 or
+// 8, >= D), `rows` a multiple of 4 (at most kThreads), H of 4, of 8 in
+// highf32, of 16 in bfloat16 (the Python wrapper checks all of them).
+// `smem` is the block's shared memory in bytes, computed by the wrapper for
+// the kernel's layout: (n_hidden + 1 + 2 kmax) x rows x H floats, or in
+// bfloat16 (n_hidden + 1) x rows x H floats and kmax x rows x (H + 8) floats
+// and as many bf16 values, then rows x (d_in + ncols D + n_alg) floats;
+// kmax = n_s + n_g
 // (hutchpp) or n_s (xtrace), ncols = n_s + n_g (hutchpp) or 2 n_s (xtrace),
 // n_alg = 0 (hutchpp), or for xtrace n_s^2 where n_s^2 > d_in (else over
 // the input tile) plus 4 n_s^2 + n_s D where that is > (n_hidden + 1) H
@@ -604,7 +752,8 @@ int ff_fused_sketch(const float* x, const float* probes, const float* w_in, cons
                                           : (mode == kXtrace && n_g == 0 && n_s >= 1 && n_s <= D);
   if (n_hidden < 0 || n_hidden > kMaxHidden || rows % kMinRowTile != 0 || rows > kThreads ||
       H % 4 != 0 || B <= 0 || D < 1 || D > md || (md != 2 && md != 4 && md != 8) || !counts_ok ||
-      precision < 0 || precision > 1 || (precision == 1 && H % 8 != 0)) {
+      precision < kFloat32 || precision > kBFloat16 || (precision == kHighF32 && H % 8 != 0) ||
+      (precision == kBFloat16 && H % 16 != 0)) {
     return (int)cudaErrorInvalidValue;
   }
   HiddenLayers hidden = {};
@@ -623,7 +772,7 @@ int ff_fused_sketch(const float* x, const float* probes, const float* w_in, cons
 // cudaError_t of the query.
 int ff_sketch_occupancy(int md, int precision, size_t smem, int* blocks, int* regs,
                         int* local_bytes) {
-  if ((md != 2 && md != 4 && md != 8) || precision < 0 || precision > 1) {
+  if ((md != 2 && md != 4 && md != 8) || precision < kFloat32 || precision > kBFloat16) {
     return (int)cudaErrorInvalidValue;
   }
   return (int)kQuery[instance(md, precision)](smem, blocks, regs, local_bytes);

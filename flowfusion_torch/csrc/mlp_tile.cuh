@@ -2,8 +2,11 @@
 // em_sampler.cu and fused_sketch.cu: the activations with their
 // derivatives, the in-place activation passes over a block's layer buffer
 // (one that also keeps act'(a) for later Jacobian applications, and the
-// multiply of tangent chains by such a stored act'), and the register-tiled
-// layer product, with or without the primal chain's bias.
+// multiply of tangent chains by such a stored act'), the register-tiled
+// layer product, with or without the primal chain's bias, the 3xTF32
+// products of compute mode highf32, and the bf16 tensor-core product and
+// output layer of compute mode bfloat16 (fused_mlp.cu and fused_sketch.cu
+// run the same ones).
 //
 // A block keeps `chains` buffers of R rows by H columns (row stride H) in
 // shared memory: the primal activations, then one buffer per tangent chain
@@ -350,6 +353,121 @@ __device__ __forceinline__ void dense_split_fma(const float* __restrict__ w,
     float acc = 0.0f;
     for (int k = 0; k < K; ++k) acc = fma_tf32x3(in[k], __ldg(w + (size_t)k * N + j), acc);
     nxt[(size_t)m * H + j] = acc + ((m < R && bias != nullptr) ? __ldg(bias + j) : 0.0f);
+  }
+}
+
+// Values past H in a row of a bfloat16 kernel's layer buffers, where the
+// fp32 pre-activations and the bf16 plane share the row stride H +
+// kPadBF16: a plane row is (H + 8) / 2 words, 4 banks past the one before
+// for H a multiple of 16, so a warp's A-fragment words fall on 32 distinct
+// banks.
+constexpr int kPadBF16 = 8;
+// n-tiles (8 columns each) a warp of dense_bf16 owns.
+constexpr int kNTilesBF16 = 2;
+
+// bfloat16: nxt[m] = A[m] @ w (+ bias on rows m < R) through mma.sync
+// m16n8k16 bf16 with fp32 accumulation, A the bf16 plane (stride S values)
+// and wt the weights as bf16 transposed, (N, K), so a B fragment's k pair
+// is one 32-bit load.  The warp tiling of fused_mlp.cu's dense_planes: NT
+// n-tiles across up to MT m-tiles, each weight fragment loaded once a block
+// a layer wherever M <= 64.  m16n8k16 .bf16 fragments (PTX ISA), g = lane / 4, t = lane % 4,
+// a register a pair of consecutive k: A (g, 2t), (g + 8, 2t), (g, 2t + 8),
+// (g + 8, 2t + 8); B (k 2t, n g), (k 2t + 8, n g); C as in m16n8k8.  Rows
+// past M read row M - 1 and store nothing.  K is a multiple of 16, N of 8.
+// MT is the m-tiles a warp carries at once (its accumulators: MT x NT x 4
+// floats); an output's sum runs over k in the same order at any MT.
+template <int MT = 8 / kNTilesBF16>
+__device__ void dense_bf16(const __nv_bfloat16* __restrict__ wt, const float* __restrict__ bias,
+                           const __nv_bfloat16* a, float* nxt, int K, int N, int M, int R, int S) {
+  constexpr int NT = kNTilesBF16;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int n_tiles = N >> 3;
+  const int m_tiles = (M + 15) >> 4;
+  const int strips = (n_tiles + NT - 1) / NT;
+  const int groups = (m_tiles + MT - 1) / MT;
+  for (int it = threadIdx.x >> 5; it < strips * groups; it += kThreads / 32) {
+    const int grp = it / strips;
+    const int nt0 = (it - grp * strips) * NT;
+    const int mt0 = grp * MT;
+    float acc[MT][NT][4];
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int j = 0; j < NT; ++j) acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.0f;
+    for (int k = 0; k < K; k += 16) {
+      unsigned b[NT][2];
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const int n = min(nt0 + j, n_tiles - 1) * 8 + g;
+        const unsigned* col = reinterpret_cast<const unsigned*>(wt + (size_t)n * K + k + 2 * t);
+        b[j][0] = __ldg(col);
+        b[j][1] = __ldg(col + 4);
+      }
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+        if (mt0 + i >= m_tiles) break;  // warp-uniform
+        const unsigned* p0 =
+            reinterpret_cast<const unsigned*>(a + (size_t)min((mt0 + i) * 16 + g, M - 1) * S + k + 2 * t);
+        const unsigned* p1 =
+            reinterpret_cast<const unsigned*>(a + (size_t)min((mt0 + i) * 16 + g + 8, M - 1) * S + k + 2 * t);
+        const unsigned af[4] = {p0[0], p1[0], p0[4], p1[4]};
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          if (nt0 + j >= n_tiles) break;  // warp-uniform
+          mma_bf16(acc[i][j], af, b[j]);
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      if (nt0 + j >= n_tiles) break;
+      const int n = (nt0 + j) * 8 + 2 * t;
+      const float b0 = bias != nullptr ? __ldg(bias + n) : 0.0f;
+      const float b1 = bias != nullptr ? __ldg(bias + n + 1) : 0.0f;
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+        if (mt0 + i >= m_tiles) break;
+        const int r0 = (mt0 + i) * 16 + g;
+        const int r1 = r0 + 8;
+        if (r0 < M) {
+          const bool primal = r0 < R;
+          float2 o;
+          o.x = acc[i][j][0] + (primal ? b0 : 0.0f);
+          o.y = acc[i][j][1] + (primal ? b1 : 0.0f);
+          *reinterpret_cast<float2*>(nxt + (size_t)r0 * S + n) = o;
+        }
+        if (r1 < M) {
+          const bool primal = r1 < R;
+          float2 o;
+          o.x = acc[i][j][2] + (primal ? b0 : 0.0f);
+          o.y = acc[i][j][3] + (primal ? b1 : 0.0f);
+          *reinterpret_cast<float2*>(nxt + (size_t)r1 * S + n) = o;
+        }
+      }
+    }
+  }
+}
+
+// bfloat16: out[m, j] = A[m] @ w[:, j] (+ bias[j] on rows m < R) for the
+// narrow (K, N = D) output layer, a thread an output: A the bf16 plane
+// (stride S values), w bf16 in its (K, N) layout, one fmaf chain over k
+// from 0 (the products exact).  `out` is compact, (M, N).
+__device__ void dense_out_bf16(const __nv_bfloat16* __restrict__ w, const float* __restrict__ bias,
+                               const __nv_bfloat16* a, float* out, int K, int N, int M, int R, int S) {
+  for (int it = threadIdx.x; it < M * N; it += kThreads) {
+    const int m = it / N;
+    const int j = it - m * N;
+    const __nv_bfloat162* in = reinterpret_cast<const __nv_bfloat162*>(a + (size_t)m * S);
+    float acc = 0.0f;
+#pragma unroll 4
+    for (int k = 0; k < K; k += 2) {
+      const float2 hv = __bfloat1622float2(in[k >> 1]);
+      acc = fmaf(hv.x, __bfloat162float(w[(size_t)k * N + j]), acc);
+      acc = fmaf(hv.y, __bfloat162float(w[(size_t)(k + 1) * N + j]), acc);
+    }
+    out[it] = acc + ((m < R && bias != nullptr) ? __ldg(bias + j) : 0.0f);
   }
 }
 

@@ -413,13 +413,18 @@ def highf32_flops_per_row(
 
 
 def bf16_flops_per_row(
-    d_in: int, d_out: int, H: int, n_layers: int, mode: str, n_tan: int = 0
+    d_in: int, d_out: int, H: int, n_layers: int, mode: str, n_tan: int = 0, n_tan2: int = 0
 ) -> tuple:
     """``(tensor_core, cuda_core)`` flops per row of a ``bfloat16``
     launch: the (H, H) products of every chain on the bf16 tensor cores, one
     pass; on the CUDA cores the input projections (the primal's d_in rows,
-    a probe's d_out) and the (H, d_out) output layer of every chain."""
-    n_applies = {"forward": 0, "hutchinson": 1, "exact": d_out, "tangents": n_tan}[mode]
+    a probe's d_out) and the (H, d_out) output layer of every chain.  The
+    sketch modes count their chains as :func:`highf32_flops_per_row` does
+    (hutchpp: ``n_tan`` = r, ``n_tan2`` = m; xtrace: ``n_tan`` = m)."""
+    n_applies = {
+        "forward": 0, "hutchinson": 1, "exact": d_out, "tangents": n_tan,
+        "hutchpp": 2 * n_tan + n_tan2, "xtrace": 2 * n_tan,
+    }[mode]
     probes = 0 if mode in ("forward", "exact") else n_applies
     tc = 2 * H * H * (n_layers - 2) * (1 + n_applies)
     cc = 2 * H * (d_in + probes * d_out + d_out * (1 + n_applies))

@@ -2,14 +2,16 @@
 
 Counterpart of the JAX package's ``kernels/fused_mlp.py::fused_drift_sketch``
 and ``fused_velocity_sketch`` (the kernel modes ``hutchpp`` and ``xtrace``)
-at compute mode ``float32`` (strict fp32) or ``highf32`` (3xTF32 layer
+at compute mode ``float32`` (strict fp32), ``highf32`` (3xTF32 layer
 products and the tanh-form SiLU, as ``kernels.fused_mlp`` computes that
-mode); ``bfloat16`` is not ported to this kernel yet and raises.  On
-CUDA tensors the wrappers launch the hand-written kernel
+mode) or ``bfloat16`` (bf16 operands and fp32 sums on the bf16 tensor
+cores, the tanh-form SiLU, at ``kernels.fused_mlp``'s rounding points).
+On CUDA tensors the wrappers launch the hand-written kernel
 ``csrc/fused_sketch.cu`` (built at first use, see ``_build``) in the
 compute mode or raise; on CPU tensors they run the plain PyTorch versions,
 the ``ops.trace`` estimators on the plain drift in the same compute mode
-(``fused_drift_sketch_reference``, ``fused_velocity_sketch_reference``).
+(``fused_drift_sketch_reference``, ``fused_velocity_sketch_reference``;
+in ``bfloat16`` over the explicit chain of ``fused_mlp._bf16_chains``).
 
 The kernel runs the forward chain once, keeps act' of every layer in
 shared memory, and applies A v = c0 v + c1 J_net v to the sketch through
@@ -68,21 +70,12 @@ SKETCH_MODES = ("hutchpp", "xtrace")  # index = kernel's SketchMode
 MAX_SKETCH_DIM = 8  # D the per-row algebra takes (csrc kMaxDim)
 SKETCH_MD = (2, 4, 8)  # the algebra's compile-time bounds of D (csrc instantiations)
 SKETCH_BLOCKS = 3  # blocks an SM the kernel's launch bounds allow (csrc kMinBlocks)
-SKETCH_DTYPES = COMPUTE_DTYPES[:2]  # the compute modes this kernel takes, index = its precision
+SKETCH_DTYPES = COMPUTE_DTYPES  # the compute modes this kernel takes, index = its precision
 
 
 def check_compute_dtype(compute_dtype: str) -> None:
-    """Accept the sketch kernel's compute modes, 'float32' and 'highf32'.
-    'bfloat16' is not ported to this kernel yet (ROADMAP.md queue 2 #3b;
-    row 6 of PERF.md's kernel table) and raises, on every device: a
-    bfloat16 model with trace_mode 'hutchpp' or 'xtrace' never falls back
-    to the plain version.  Anything else is not a compute mode."""
-    if compute_dtype == "bfloat16":
-        raise NotImplementedError(
-            "compute dtype 'bfloat16' of the one-launch sketch kernel (Hutch++/XTrace) is not ported to "
-            "flowfusion_torch yet (ROADMAP.md queue 2 #3b, kernel row 6); use 'float32' or 'highf32', or "
-            "trace_mode 'hutchinson' or 'exact' in 'bfloat16'"
-        )
+    """Accept the sketch kernel's compute modes, 'float32', 'highf32' and
+    'bfloat16'; anything else is not a compute mode."""
     if compute_dtype not in SKETCH_DTYPES:
         raise ValueError(f"unknown kernel compute dtype {compute_dtype!r}; use one of {SKETCH_DTYPES}")
 
@@ -144,35 +137,41 @@ def _algebra_floats(sketch_mode: str, n_s: int, D: int, d_in: int, n_act: int, H
     return (rr if rr > d_in else 0) + (late if late > n_act * H else 0)
 
 
-def _smem_bytes(rows: int, H: int, n_act: int, d_in: int, D: int, kmax: int, ncols: int, n_alg: int) -> int:
+def _smem_bytes(rows: int, H: int, n_act: int, d_in: int, D: int, kmax: int, ncols: int, n_alg: int,
+                compute_dtype: str = "float32") -> int:
     """Shared memory of one block in the kernel's layout: the act' store
     (n_act x rows x H), the double buffer of the widest application
-    (2 x kmax x rows x H), the (rows, d_in) input tile, the (rows, ncols,
-    D) probe tile and the algebra's n_alg floats a row, all float32."""
-    return 4 * rows * ((n_act + 2 * kmax) * H + d_in + ncols * D + n_alg)
+    (2 x kmax x rows x H; in ``bfloat16`` one fp32 buffer and one 2-byte
+    bf16 plane, kmax x rows x (H + ``fused_mlp.PAD_BF16``) values each),
+    the (rows, d_in) input tile, the (rows, ncols, D) probe tile and the
+    algebra's n_alg floats a row, float32 but for the plane."""
+    tiles = 4 * rows * (n_act * H + d_in + ncols * D + n_alg)
+    if compute_dtype == "bfloat16":
+        return tiles + (4 + 2) * kmax * rows * (H + fused_mlp.PAD_BF16)
+    return tiles + 4 * 2 * kmax * rows * H
 
 
-def _layout_bytes(sketch_mode, H, n_act, d_in, D, n_s, n_g):
-    """``smem_bytes(rows)`` of the kernel's layout."""
+def _layout_bytes(sketch_mode, H, n_act, d_in, D, n_s, n_g, compute_dtype="float32"):
+    """``smem_bytes(rows)`` of the kernel's layout in ``compute_dtype``."""
     kmax, ncols = _layout(sketch_mode, n_s, n_g)
     n_alg = _algebra_floats(sketch_mode, n_s, D, d_in, n_act, H)
-    return lambda rows: _smem_bytes(rows, H, n_act, d_in, D, kmax, ncols, n_alg)
+    return lambda rows: _smem_bytes(rows, H, n_act, d_in, D, kmax, ncols, n_alg, compute_dtype)
 
 
 def sketch_plan(sketch_mode: str, H: int, n_act: int, d_in: int, D: int, n_s: int, n_g: int,
-                rows: Optional[int] = None, md: Optional[int] = None):
-    """``(rows, smem_bytes, md)`` of a launch in either compute mode, or
-    raise when the per-row algebra's D is past ``MAX_SKETCH_DIM`` or the
-    shared-memory plan does not fit.  ``n_act`` counts the activation
-    layers (the hidden widths).  Rows: the most blocks an SM holds, at the
-    most rows that reach them.  ``rows`` and ``md`` force a plan (a
-    multiple of 4 rows, a bucket >= D).  A row's arithmetic does not depend
-    on rows or md."""
+                rows: Optional[int] = None, md: Optional[int] = None, compute_dtype: str = "float32"):
+    """``(rows, smem_bytes, md)`` of a launch in ``compute_dtype`` (float32
+    and highf32 share a layout), or raise when the per-row algebra's D is
+    past ``MAX_SKETCH_DIM`` or the shared-memory plan does not fit.
+    ``n_act`` counts the activation layers (the hidden widths).  Rows: the
+    most blocks an SM holds, at the most rows that reach them.  ``rows``
+    and ``md`` force a plan (a multiple of 4 rows, a bucket >= D).  A
+    row's arithmetic does not depend on rows or md."""
     bucket = sketch_md(D)
     md = bucket if md is None else md
     if md not in SKETCH_MD or md < D:
         raise ValueError(f"sketch algebra bucket {md} is not one of {SKETCH_MD} at least D={D}")
-    smem_bytes = _layout_bytes(sketch_mode, H, n_act, d_in, D, n_s, n_g)
+    smem_bytes = _layout_bytes(sketch_mode, H, n_act, d_in, D, n_s, n_g, compute_dtype)
     if rows is None:
         picked = _pick_rows(smem_bytes, SKETCH_BLOCKS)
         if picked is None:
@@ -180,8 +179,8 @@ def sketch_plan(sketch_mode: str, H: int, n_act: int, d_in: int, D: int, n_s: in
             raise ValueError(
                 f"fused sketch kernel shared-memory plan does not fit: {n_act} stored act' "
                 f"layers and 2 x {kmax} chains of width H={H} need {smem_bytes(4)} bytes at "
-                f"4 rows a block (limit {_SMEM_LIMIT}); use fewer probes, a narrower net, or "
-                "use_fused_kernel=False"
+                f"4 rows a block in {compute_dtype} (limit {_SMEM_LIMIT}); use fewer probes, a "
+                "narrower net, or use_fused_kernel=False"
             )
         rows = picked[0]
     elif rows % 4 or not 4 <= rows <= 256 or smem_bytes(rows) > _SMEM_LIMIT:
@@ -189,13 +188,13 @@ def sketch_plan(sketch_mode: str, H: int, n_act: int, d_in: int, D: int, n_s: in
     return rows, smem_bytes(rows), md
 
 
-def _wrapper_plan(*args):
+def _wrapper_plan(*args, **kwargs):
     """A wrapper's plan, :func:`sketch_plan` for its config, which also
     checks the envelope.  While ``torch.export`` traces a solve it is
     ``(0, 0, 0)``: inside the traced loop body the sizes may be symbolic,
     and the op's launch plans from the concrete shapes (and raises) when
     the program runs."""
-    return (0, 0, 0) if torch.compiler.is_compiling() else sketch_plan(*args)
+    return (0, 0, 0) if torch.compiler.is_compiling() else sketch_plan(*args, **kwargs)
 
 
 def sketch_blocks(plan) -> int:
@@ -213,7 +212,7 @@ def supports_sketch(
     if n_dimensions > MAX_SKETCH_DIM:
         return False
     H = -(-hidden // lane(compute_dtype)) * lane(compute_dtype)
-    smem_bytes = _layout_bytes(sketch_mode, H, n_act, n_features, n_dimensions, n_s, n_g)
+    smem_bytes = _layout_bytes(sketch_mode, H, n_act, n_features, n_dimensions, n_s, n_g, compute_dtype)
     return _pick_rows(smem_bytes, SKETCH_BLOCKS) is not None
 
 
@@ -223,6 +222,28 @@ def _sketch_reference(f, x, probes, sketch_mode):
     return trace_lib.xtrace_divergence(f, x, *probes)
 
 
+def _bf16_sketch_reference(layers, w_in, b_eff, x, conditional, activation, c0, c1, probes, sketch_mode):
+    """The plain version of one ``bfloat16`` launch on folded operands
+    (``layers[1:]`` the layers after the first, ``w_in`` and ``b_eff`` the
+    fold): drift = c0 x + c1 net, and the ``ops.trace`` estimator's algebra
+    (``hutchpp_core`` or ``xtrace_core``) over A v = c0 v + c1 J_net v,
+    where every application is the explicit bf16 chain of
+    ``fused_mlp._bf16_chains`` -- the kernel's rounding points and its
+    act' = s (1 + a (1 - s)), not the product rule of an autograd JVP
+    through the rounded net.  Returns ``(drift (B, D), div (B,))``."""
+    D = x.shape[1]
+    x_in = x if conditional is None else torch.cat([x, conditional], dim=-1)
+    net, _ = fused_mlp._bf16_chains(layers, w_in, b_eff, x_in, [], activation, D)
+
+    def apply_cols(cols):
+        _, jv = fused_mlp._bf16_chains(layers, w_in, b_eff, x_in, [v.T for v in cols], activation, D)
+        return [c0 * v + c1 * j.T for v, j in zip(cols, jv)]
+
+    cols = [[p[i].T for i in range(p.shape[0])] for p in probes]
+    core = trace_lib.hutchpp_core if sketch_mode == "hutchpp" else trace_lib.xtrace_core
+    return c0 * x + c1 * net, core(apply_cols, *cols)
+
+
 def fused_drift_sketch_reference(
     params, cfg, t, x, probes, sketch_mode, conditional=None, c0=0.0, c1=1.0, compute_dtype="float32"
 ):
@@ -230,8 +251,14 @@ def fused_drift_sketch_reference(
     ``ops.trace`` Hutch++ or XTrace estimator on the plain drift
     c0 x + c1 net (TF32 off); in ``highf32`` the net's layer products
     through ``fused_mlp.tf32x3_matmul`` (tangents included) and the
-    tanh-form SiLU, as ``fused_mlp.fused_drift_reference`` runs them."""
+    tanh-form SiLU, as ``fused_mlp.fused_drift_reference`` runs them; in
+    ``bfloat16`` :func:`_bf16_sketch_reference` on the folded first
+    layer."""
     _stack_sketch_probes(probes, sketch_mode, x.shape[-1])
+    if compute_dtype == "bfloat16":
+        with strict_fp32_matmul():
+            return _bf16_sketch_reference(params["layers"], *_score_first_layer(params, cfg, t, conditional), x,
+                                          conditional, cfg.activation, c0, c1, probes, sketch_mode)
     ops = _net_ops(compute_dtype, cfg.activation, cfg.n_dimensions + cfg.n_conditionals)
     with strict_fp32_matmul():
         return _sketch_reference(
@@ -243,8 +270,13 @@ def fused_drift_sketch_reference(
 def fused_velocity_sketch_reference(params, cfg, t, x, probes, sketch_mode, conditional=None,
                                     compute_dtype="float32"):
     """The plain PyTorch version of :func:`fused_velocity_sketch` (the
-    split in ``highf32`` as in :func:`fused_drift_sketch_reference`)."""
+    split in ``highf32`` and the bf16 chain in ``bfloat16`` as in
+    :func:`fused_drift_sketch_reference`)."""
     _stack_sketch_probes(probes, sketch_mode, x.shape[-1])
+    if compute_dtype == "bfloat16":
+        with strict_fp32_matmul():
+            return _bf16_sketch_reference(params["layers"], *_velocity_first_layer(params, cfg, t, conditional), x,
+                                          conditional, cfg.activation, 0.0, 1.0, probes, sketch_mode)
     ops = _net_ops(compute_dtype, cfg.activation, cfg.target_dimension + cfg.conditional_dimension)
     with strict_fp32_matmul():
         return _sketch_reference(
@@ -269,7 +301,8 @@ def fused_drift_sketch(
     ``sketch_mode`` 'hutchpp' takes ``probes = (S, G)``, (r, B, D) sketch
     and (m, B, D) residual probes; 'xtrace' takes ``(O,)``, (m, B, D).
     Returns ``(drift (B, D), div (B,))``, the divergence of the affine
-    drift c0 x + c1 net.  ``compute_dtype`` is 'float32' or 'highf32'.
+    drift c0 x + c1 net.  ``compute_dtype`` is 'float32', 'highf32' or
+    'bfloat16'.
     CUDA tensors launch the kernel in that mode
     (``fused_drift_sketch.launches``); CPU tensors run
     :func:`fused_drift_sketch_reference`."""
@@ -278,7 +311,8 @@ def fused_drift_sketch(
     params, cfg = pad_to_lanes(params, cfg, compute_dtype)
     D = cfg.n_dimensions
     V, n_s, n_g = _stack_sketch_probes(probes, sketch_mode, D)
-    plan = _wrapper_plan(sketch_mode, cfg.units[0], len(cfg.units), D + cfg.n_conditionals, D, n_s, n_g)
+    plan = _wrapper_plan(sketch_mode, cfg.units[0], len(cfg.units), D + cfg.n_conditionals, D, n_s, n_g,
+                         compute_dtype=compute_dtype)
     if not fused_mlp._on_card(x):
         return fused_drift_sketch_reference(params, cfg, t, x, probes, sketch_mode, conditional, c0, c1,
                                             compute_dtype)
@@ -312,7 +346,8 @@ def fused_velocity_sketch(
     D = cfg.target_dimension
     V, n_s, n_g = _stack_sketch_probes(probes, sketch_mode, D)
     plan = _wrapper_plan(
-        sketch_mode, cfg.hidden_units[0], len(cfg.hidden_units), D + cfg.conditional_dimension, D, n_s, n_g
+        sketch_mode, cfg.hidden_units[0], len(cfg.hidden_units), D + cfg.conditional_dimension, D, n_s, n_g,
+        compute_dtype=compute_dtype,
     )
     if not fused_mlp._on_card(x):
         return fused_velocity_sketch_reference(params, cfg, t, x, probes, sketch_mode, conditional,
@@ -394,7 +429,9 @@ def _fused_sketch_cuda(x_in, V, w_in, b_eff, hidden_w, hidden_b, w_out, b_out, c
     allocate the outputs, launch ``csrc/fused_sketch.cu`` on the current
     stream at the plan of :func:`sketch_plan` (``rows`` and ``md`` > 0
     force one) and add one to the counts of the wrapper named ``counter``.
-    Returns ``(drift (B, D), div (B,))``."""
+    In ``bfloat16`` the weights are converted once a call as the RHS
+    kernel takes them (``fused_mlp._bf16_operands``).  Returns ``(drift
+    (B, D), div (B,))``."""
     B, d_in = x_in.shape
     H = b_eff.shape[0]
     x_in = x_in.contiguous()
@@ -406,7 +443,10 @@ def _fused_sketch_cuda(x_in, V, w_in, b_eff, hidden_w, hidden_b, w_out, b_out, c
     expect += [(w, (H, H)) for w in hidden_w] + [(b, (H,)) for b in hidden_b]
     check_compute_dtype(compute_dtype)
     device = check_operands(expect, [{"w": w} for w in hidden_w], H, "fused sketch kernel", lane(compute_dtype))
-    rows, smem, md = sketch_plan(mode, H, len(hidden_w) + 1, d_in, D, n_s, n_g, rows or None, md or None)
+    rows, smem, md = sketch_plan(mode, H, len(hidden_w) + 1, d_in, D, n_s, n_g, rows or None, md or None,
+                                 compute_dtype)
+    if compute_dtype == "bfloat16":
+        w_in, hidden_w, w_out = fused_mlp._bf16_operands(w_in, hidden_w, w_out)
 
     drift = torch.empty((B, D), dtype=torch.float32, device=device)
     div = torch.empty((B,), dtype=torch.float32, device=device)
@@ -435,7 +475,7 @@ def _fused_sketch_cuda(x_in, V, w_in, b_eff, hidden_w, hidden_b, w_out, b_out, c
 # The sketch kernel as a registered op, ``flowfusion_torch::fused_sketch``: what
 # the wrappers call and an exported program holds.  Its CUDA kernel is the
 # launch above; its CPU kernel, below, the ``ops.trace`` estimator on the plain
-# net of the same folded operands.
+# net of the same folded operands (the bf16 chain in ``bfloat16``).
 fused_sketch_op = torch.library.custom_op(
     f"{fused_mlp.OP_NAMESPACE}::fused_sketch", _fused_sketch_cuda, mutates_args=(), device_types="cuda",
     schema="(Tensor x_in, Tensor V, Tensor w_in, Tensor b_eff, Tensor[] hidden_w, Tensor[] hidden_b, "
@@ -448,10 +488,16 @@ fused_sketch_op = torch.library.custom_op(
 def _fused_sketch_op_cpu(x_in, V, w_in, b_eff, hidden_w, hidden_b, w_out, b_out, c0c1, mode, D, n_s, n_g,
                          activation, compute_dtype, counter, rows, md):
     """The op on CPU tensors: the ``ops.trace`` estimator on the plain net
-    of the folded operands (TF32 off), counting nothing."""
+    of the folded operands (TF32 off; in ``bfloat16``
+    :func:`_bf16_sketch_reference`), counting nothing."""
+    probes = (V[:n_s], V[n_s:]) if mode == "hutchpp" else (V,)
+    if compute_dtype == "bfloat16":
+        layers = [None] + [{"w": w, "b": b} for w, b in zip(hidden_w, hidden_b)] + [{"w": w_out, "b": b_out}]
+        with strict_fp32_matmul():
+            return _bf16_sketch_reference(layers, w_in, b_eff, x_in[:, :D], x_in[:, D:], activation, c0c1[0],
+                                          c0c1[1], probes, mode)
     net = fused_mlp.folded_net(x_in, w_in, b_eff, hidden_w, hidden_b, w_out, b_out, D, activation, compute_dtype)
     c0, c1 = c0c1[0], c0c1[1]
-    probes = (V[:n_s], V[n_s:]) if mode == "hutchpp" else (V,)
     with strict_fp32_matmul():
         return _sketch_reference(lambda xx: c0 * xx + c1 * net(xx), x_in[:, :D], probes, mode)
 

@@ -28,8 +28,8 @@ through the plain torch drift and ``ops.trace`` estimators.  The solves
 run under ``torch.no_grad`` with TF32 off, but for the adjoint's.  ``kernel_compute_dtype`` is the
 kernel's compute mode, 'float32', 'highf32' (3xTF32 layer products, the
 mode the JAX package benches and serves its conditional checkpoints in) or
-'bfloat16' (bf16 operands and fp32 sums, its fast serving mode; the
-Hutch++ and XTrace kernel has no bfloat16 mode yet and raises);
+'bfloat16' (bf16 operands and fp32 sums, its fast serving mode, in
+every kernel of these solves, the Hutch++ and XTrace one too);
 the plain path computes in float32 whatever it says, as the JAX plain path
 does.  Random draws come from an explicit ``torch.Generator``; the prior is drawn
 on the generator's device and moved to the model's.

@@ -209,11 +209,13 @@ def test_flow_create_and_refusals(flow_pair):
     for call, item in (
         (lambda: dataclasses.replace(tm, trace_mode="xtrace").log_prob(x, adjoint=True), "no gradient"),
         (lambda: dataclasses.replace(tm, trace_mode="xtrace").log_prob_per_sample(x), "batch-coupled"),
-        (lambda: dataclasses.replace(tm, kernel_compute_dtype="bfloat16", trace_mode="xtrace",
-                                     use_fused_kernel=True).log_prob(x, probes=(torch.ones(1, 4, 2),)), "#3b"),
     ):
         with pytest.raises(NotImplementedError, match=item):
             call()
+    # the sketch kernel takes bfloat16 too (queue 2 #3b): on the CPU its plain version
+    lp_bf, _ = dataclasses.replace(tm, kernel_compute_dtype="bfloat16", trace_mode="xtrace",
+                                   use_fused_kernel=True).log_prob(x, probes=(torch.ones(1, 4, 2),))
+    assert lp_bf.shape == (4,) and bool(torch.isfinite(lp_bf).all())
     # the solvers of item 13 run: adjoint gradients, per-sample stepping
     xr = torch.randn(4, 2, generator=torch.Generator().manual_seed(2))
     s_g, st = tm.sample(xr, gradients=True, rtol=1e-5, atol=1e-5)

@@ -29,7 +29,13 @@ within 1e-5 of the max magnitude (measured up to 1.3e-6), and at least 10x
 closer in the mean to the bf16 plain version than that is to strict
 float32, which a kernel that skipped a rounding point fails; against strict
 float32 the mode's accuracy class, 3e-2.  The bf16 EM kernel within 1e-2
-of its plain version over 10 steps of streamed noise.
+of its plain version over 10 steps of streamed noise.  The bf16 sketch
+kernel: the 10x guard as above, the mean within the larger of 1e-5 and
+twice the plain version's own mean spread with float64 sums (the per-row
+QR and the next application carry a flip on: up to 7.2e-6 on these random
+velocity nets, CPU), its max at the accuracy class, 3e-2 (measured up to
+2.3e-3 on 50,000 random rows on the H100), the drift within 3e-2 of
+strict float32.
 """
 
 import dataclasses
@@ -434,23 +440,27 @@ def test_highf32_solve_never_runs_the_strict_kernel(cuda_device):
     fused_sketch.reset_launch_counts()
     lp, st = dataclasses.replace(model, trace_mode="xtrace").log_prob(x, probes=(e[None],))
     assert bool(torch.isfinite(lp).all())
-    assert fused_sketch.fused_drift_sketch.launches_by_dtype == {"float32": 0, "highf32": st.n_func_evals}
+    assert fused_sketch.fused_drift_sketch.launches_by_dtype == {"float32": 0, "highf32": st.n_func_evals,
+                                                                 "bfloat16": 0}
 
 
-def _sketch_case(d, c, mode, B, k, device, seed):
+def _sketch_case(d, c, mode, B, k, device, seed, degenerate=True):
     """(x, cond, probes) as test_sketch_kernel_matches_plain_version draws
-    them: some exactly parallel Hutch++ sketch rows and a zero-probe row."""
+    them: some exactly parallel Hutch++ sketch rows and a zero-probe row
+    (``degenerate``), else plain Rademacher or sphere draws."""
     g = torch.Generator().manual_seed(seed)
     x = torch.randn(B, d, generator=g).to(device)
     cond = torch.randn(B, c, generator=g).to(device) if c else None
     if mode == "hutchpp":
         S, G = (torch.sign(torch.randn(n, B, d, generator=g)) for n in (k, k))
-        S[1, :100] = S[0, :100]
-        S[:, 7] = 0.0
+        if degenerate:
+            S[1, :100] = S[0, :100]
+            S[:, 7] = 0.0
         return x, cond, (S.to(device), G.to(device))
     O = torch.randn(k, B, d, generator=g)
     O = O / O.norm(dim=-1, keepdim=True) * d**0.5
-    O[:, 7] = 0.0
+    if degenerate:
+        O[:, 7] = 0.0
     return x, cond, (O.to(device),)
 
 
@@ -482,7 +492,7 @@ def test_highf32_sketch_kernel_matches_its_plain_version(cuda_device, family, mo
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("compute_dtype", ["float32", "highf32"])
+@pytest.mark.parametrize("compute_dtype", ["float32", "highf32", "bfloat16"])
 @pytest.mark.parametrize("mode", ["hutchpp", "xtrace"])
 @pytest.mark.parametrize("d,c", [(2, 0), (6, 3)])
 def test_sketch_kernel_is_bitwise_across_plans(cuda_device, d, c, mode, compute_dtype):
@@ -500,9 +510,9 @@ def test_sketch_kernel_is_bitwise_across_plans(cuda_device, d, c, mode, compute_
     V = torch.cat(probes)
     n_s, n_g = (k, k) if mode == "hutchpp" else (k, 0)
     c0c1 = torch.tensor([-0.2, 0.8], device=cuda_device)
-    own = fused_sketch.sketch_plan(mode, 128, 3, d + c, d, n_s, n_g)
-    forced = fused_sketch.sketch_plan(mode, 128, 3, d + c, d, n_s, n_g, md=8,
-                                      rows=4 if own[0] != 4 else 8)
+    own = fused_sketch.sketch_plan(mode, 128, 3, d + c, d, n_s, n_g, compute_dtype=compute_dtype)
+    forced = fused_sketch.sketch_plan(mode, 128, 3, d + c, d, n_s, n_g, md=8, rows=4 if own[0] != 4 else 8,
+                                      compute_dtype=compute_dtype)
     assert forced != own
     outs = []
     for plan in (own, forced):
@@ -1061,6 +1071,48 @@ def test_bf16_kernel_is_bitwise_across_plans(cuda_device, mode):
     assert torch.equal(own[0], forced[0]) and (own[1] is None or torch.equal(own[1], forced[1]))
 
 
+def _check_bf16_sketch(out, ref, strict, ref64):
+    """The sketch's bfloat16 bars (the module docstring's), drift and div;
+    ``ref64`` the plain version with its products summed in float64."""
+    for o, r, s, r64 in zip(out, ref, strict, ref64):
+        bar = max(1e-5, 2 * _mean_rel(r64, r))
+        assert _rel(o, r) <= 3e-2 and _mean_rel(o, r) <= bar, (_rel(o, r), _mean_rel(o, r), bar)
+        assert _mean_rel(o, r) <= 0.1 * _mean_rel(r, s), (_mean_rel(o, r), _mean_rel(r, s))
+    assert _rel(out[0], strict[0]) <= 3e-2, _rel(out[0], strict[0])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("family", ["drift", "velocity"])
+@pytest.mark.parametrize("mode", ["hutchpp", "xtrace"])
+@pytest.mark.parametrize("d,c", [(2, 0), (6, 3)])
+def test_bf16_sketch_kernel_matches_its_plain_version(cuda_device, family, mode, d, c, monkeypatch):
+    """The sketch kernel in bfloat16 (bf16 mma.sync m16n8k16 products on a
+    bf16 plane) against its bfloat16 plain version, 1,001 rows (ragged),
+    Rademacher or sphere probes without degenerate rows; every launch
+    counted as bfloat16; no local memory at the plan it took."""
+    cfg, params = _net(family, d, c, cuda_device, 12)
+    x, cond, probes = _sketch_case(d, c, mode, 1001, min(d, 3), cuda_device, 13, degenerate=False)
+    if family == "drift":
+        fn, ref_fn, kw = fused_sketch.fused_drift_sketch, fused_sketch.fused_drift_sketch_reference, dict(c0=-0.2, c1=0.8)
+    else:
+        fn, ref_fn, kw = fused_sketch.fused_velocity_sketch, fused_sketch.fused_velocity_sketch_reference, {}
+    counts = dict(fn.launches_by_dtype)
+    out = fn(params, cfg, 0.4, x, probes, mode, cond, compute_dtype="bfloat16", **kw)
+    assert fn.launches_by_dtype == {**counts, "bfloat16": counts["bfloat16"] + 1}
+    ref = ref_fn(params, cfg, 0.4, x, probes, mode, cond, compute_dtype="bfloat16", **kw)
+    strict = ref_fn(params, cfg, 0.4, x, probes, mode, cond, **kw)
+    monkeypatch.setattr(fused_mlp, "bf16_matmul", lambda a, b, round_a=True: (
+        (fused_mlp.bf16_round(a) if round_a else a).double() @ fused_mlp.bf16_round(b).double()).float())
+    ref64 = ref_fn(params, cfg, 0.4, x, probes, mode, cond, compute_dtype="bfloat16", **kw)
+    torch.cuda.synchronize()
+    _check_bf16_sketch(out, ref, strict, ref64)
+    k = min(d, 3)
+    n_s, n_g = (k, k) if mode == "hutchpp" else (k, 0)
+    n_act = len(cfg.units) if family == "drift" else len(cfg.hidden_units)
+    plan = fused_sketch.sketch_plan(mode, 128, n_act, d + c, d, n_s, n_g, compute_dtype="bfloat16")
+    assert fused_sketch.sketch_occupancy(plan, "bfloat16")["local_bytes"] == 0
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("c", [0, 3])
 def test_bf16_em_kernel_matches_plain_version(cuda_device, c):
@@ -1091,7 +1143,8 @@ def test_bf16_em_kernel_matches_plain_version(cuda_device, c):
 def test_bf16_model_launches_only_bf16_kernels(cuda_device):
     """A bfloat16 model's Hutchinson solve launches the bfloat16 RHS kernel
     every RHS call and no other mode; its fused sampler the bfloat16 EM
-    kernel; a sketch solve raises, naming queue 2 #3b."""
+    kernel; its XTrace and Hutch++ solves the bfloat16 sketch kernel every
+    RHS call and no other mode."""
     cfg = ScoreMLPConfig(n_dimensions=2, units=(128, 128))
     params = init_score_mlp(cfg, torch.Generator().manual_seed(0), cuda_device)
     model = ScoreModel(params, cfg, VESDE(), trace_mode="hutchinson", kernel_compute_dtype="bfloat16")
@@ -1104,5 +1157,9 @@ def test_bf16_model_launches_only_bf16_kernels(cuda_device):
     assert bool(torch.isfinite(lp).all()) and not bool(res.nan_encountered)
     assert fused_mlp.fused_drift.launches_by_dtype == {"float32": 0, "highf32": 0, "bfloat16": st.n_func_evals}
     assert em_sampler.fused_em_sample.launches_by_dtype == {"float32": 0, "bfloat16": 1}
-    with pytest.raises(NotImplementedError, match="#3b"):
-        dataclasses.replace(model, trace_mode="xtrace").log_prob(x, probes=(e[None],))
+    for trace_mode, probes in (("xtrace", (e[None],)), ("hutchpp", (e[None], e[None]))):
+        fused_sketch.reset_launch_counts()
+        lp, st = dataclasses.replace(model, trace_mode=trace_mode).log_prob(x, probes=probes)
+        assert bool(torch.isfinite(lp).all())
+        assert fused_sketch.fused_drift_sketch.launches_by_dtype == {"float32": 0, "highf32": 0,
+                                                                     "bfloat16": st.n_func_evals}

@@ -280,15 +280,16 @@ def test_highf32_sketch_plan_pads_to_eight_and_four_row_plans():
 
 
 def test_sketch_compute_dtype_checks():
-    """bfloat16 still raises, naming ROADMAP #3b; an unknown mode is a
-    ValueError; the launch counts keep a split by compute mode."""
+    """bfloat16 is a compute mode of the sketch kernel too (ROADMAP #3b,
+    ported); an unknown mode is a ValueError; the launch counts keep a
+    split by the three compute modes."""
     cfg = nets.ScoreMLPConfig(n_dimensions=2, units=(16,))
     params = nets.init_score_mlp(cfg, torch.Generator().manual_seed(0), "cpu")
     x, O = torch.zeros(4, 2), torch.ones(1, 4, 2)
-    with pytest.raises(NotImplementedError, match="3b"):
-        fused_sketch.fused_drift_sketch(params, cfg, 0.5, x, (O,), "xtrace", compute_dtype="bfloat16")
+    out = fused_sketch.fused_drift_sketch(params, cfg, 0.5, x, (O,), "xtrace", compute_dtype="bfloat16")
+    assert all(bool(torch.isfinite(v).all()) for v in out)
     with pytest.raises(ValueError, match="unknown"):
         fused_sketch.fused_drift_sketch(params, cfg, 0.5, x, (O,), "xtrace", compute_dtype="float16")
     fused_sketch.reset_launch_counts()
     for fn in (fused_sketch.fused_drift_sketch, fused_sketch.fused_velocity_sketch):
-        assert fn.launches_by_dtype == {"float32": 0, "highf32": 0}
+        assert fn.launches_by_dtype == {"float32": 0, "highf32": 0, "bfloat16": 0}
