@@ -32,9 +32,18 @@ non-zero without the final line):
         two launches) on tables drawn from a seed: the flagship at bs 512 and
         500, the conditional H=256, flow (mean over dims) and symplectic
         checkpoints, random width-100 tanh/relu/gelu nets; two chained calls
-        with the EMA on at the JAX package's bars, 100 steps at rtol 1e-4 and
-        bitwise repeatable; CUDA-event times of a 48-step bs-512 epoch and
-        of the protocol's 195-step bs-128 epoch, with us a step;
+        with the EMA on at the JAX package's bars; then, on the same nets and
+        tables, every compute mode at eps = 1, each mode's kernel against
+        its plain version above float32's floor (highf32 losses rtol 1e-5,
+        the first moment 1e-5, the moves float32's bars; bfloat16 10x
+        closer in the mean than the plain version is to float32, max
+        3e-2); 100 steps in every mode bitwise repeatable (float32 and
+        highf32 at rtol 1e-4), bfloat16's 100 steps at eps = 1 within
+        float32's floor plus min(3e-5, its plain version's distance from
+        float32); CUDA-event times of the 48-step bs-512 and the protocol's
+        195-step bs-128 epochs and the symplectic pair, every mode in turns,
+        with us a step; and the modes' path through the kernel's own API
+        from zero counts (launches = calls);
      f. compute mode highf32 of fused_mlp.cu (3xTF32 on the tensor cores):
         fused_drift in every mode on the nets of 1a, fused_velocity, both
         tangents entries and the symplectic field, against their highf32
@@ -68,11 +77,12 @@ non-zero without the final line):
         forced to 4 rows (8 where the plan has 4) on the 50,000-row
         flagship inputs (forward, hutchinson, exact, tangents K = 3) and the
         conditional H=256 Hutchinson inputs: bitwise equal in both modes;
-     j. the training kernel's plans: rows, bytes, grid, the row and
-        parameter tiles, the blocks an SM, registers and local memory a
-        thread (none) of every plan of 1e and 10 (the flagship at bs 128,
-        500 and 512, the conditional H=256, the flow and a symplectic stack
-        at bs 512); each launch at its own plan against the same launch
+     j. the training kernel's plans in its three compute modes: rows,
+        bytes, grid, the row and parameter tiles, the blocks an SM,
+        registers and local memory a thread (none) of every plan of 1e and
+        10 (the flagship at bs 128, 500 and 512, the conditional H=256, the
+        flow and a symplectic stack at bs 512); each launch at its own plan
+        against the same launch
         forced to other rows a block (4, or 8 where the plan has 4, so
         another row tile a thread; and 32, where the flagship's net no
         longer fits beside the rows and is staged in k-chunks) and to a
@@ -206,7 +216,8 @@ non-zero without the final line):
   7. a ``kernels`` line, printed last: launches on the main paths (each
      path run with the counts set to 0 just before it: phases 2-4, 5, 6,
      the two-launch path of 1d, 8, 9, 10 and, for the highf32 entries, 11
-     and 12, for the bfloat16 entries 15), times, bounds and plain times,
+     and 12, for the bfloat16 entries 15, for the training kernel's modes
+     1e's modes path), times, bounds and plain times,
      and ``serving_launches``, the launches on phase 14's paths.
 
 The last line is ``{"ok": true, "device": {...}}``.  Exits with 2 and no
@@ -258,6 +269,8 @@ REPLACES_NEW = {
 REPLACES_TRAIN = {
     "fused_train_epoch[float32]": "flowfusion_tpu/kernels/fused_train.py:202",
     "fused_train_epoch_symplectic": "flowfusion_tpu/kernels/fused_train.py:466",
+    **{f"fused_train_epoch{s}[{d}]": "flowfusion_tpu/kernels/fused_train.py:202"
+       for s in ("", "_symplectic") for d in ("highf32", "bfloat16")},
 }
 EM_STEPS = 100
 
@@ -569,8 +582,10 @@ def main() -> int:
             **{f"fused_drift_sketch[{m}]": n for m, n in fused_drift_sketch.launches_by_mode.items()},
             **{f"fused_velocity_sketch[{m}]": n for m, n in fused_velocity_sketch.launches_by_mode.items()},
             "fused_symplectic_velocity": fused_symplectic_velocity.launches,
-            "fused_train_epoch[float32]": fused_train.fused_train_epoch.launches,
-            "fused_train_epoch_symplectic": fused_train.fused_train_epoch_symplectic.launches,
+            **{f"fused_train_epoch[{d}]": n for d, n in fused_train.fused_train_epoch.launches_by_dtype.items()},
+            "fused_train_epoch_symplectic": fused_train.fused_train_epoch_symplectic.launches_by_dtype["float32"],
+            **{f"fused_train_epoch_symplectic[{d}]": n
+               for d, n in fused_train.fused_train_epoch_symplectic.launches_by_dtype.items() if d != "float32"},
         }
 
     # -- phase 1d: tangents, sketch and symplectic kernels against their plain
@@ -845,13 +860,29 @@ def main() -> int:
         new_timing[name] = dict(ms=ms, plain_ms=plain_ms, **bound(flops, nbytes))
         emit("new_kernel_time", entry=name, rows=B, card=smi, **new_timing[name], flops=flops, bytes=nbytes)
 
-    # -- phase 1e: the training kernel against its plain version -----------
-    # Tables fixed from a seed, each case's own table builder on its own data
-    # (standardized with the checkpoint's statistics): a first call of 4 steps
-    # with the EMA on, then 4 more steps chained on its state, against the
-    # plain version on the same inputs, at the JAX package's bars
-    # (tests/test_fused_train.py:89-152, :784): losses rtol 1e-5, layers atol
-    # 3e-5 after the first call and 5e-5 chained, symplectic 3e-4.
+    # -- phase 1e: the training kernel against its plain version, in its
+    # three compute modes.  Tables fixed from a seed, each case's own table
+    # builder on its own data (standardized with the checkpoint's
+    # statistics): a first call of 4 steps with the EMA on, then 4 more steps
+    # chained on its state, against the plain version on the same inputs.
+    # float32 at the JAX package's bars (tests/test_fused_train.py:89-152,
+    # :784): losses rtol 1e-5, layers atol 3e-5 after the first call and
+    # 5e-5 chained, symplectic 3e-4.  Then every mode at eps = 1 (Adam's step
+    # then close to linear in the gradient; at eps = 1e-8 a gradient near
+    # zero flips a step's sign in any mode), float32's pair giving the floor
+    # of the fp32 arithmetic (the sums and the EMA's operations run in other
+    # orders in the two), at the bars of tests/test_torch_fused_train_modes.py:
+    # highf32 losses rtol 1e-5 and the first moment 1e-5 of its max above
+    # float32's floor, the weights and EMA at float32's chained bars (5e-5,
+    # symplectic 3e-4: a move at eps = 1 is a few ulps of its weight, so the
+    # moves' max is quantized); bfloat16 losses rtol 3e-5 and closer than the
+    # plain version is to float32, the first moment and the moves 10x closer
+    # in the mean than the plain version is to float32, max 3e-2 of the
+    # largest, each above float32's floor.
+    train_modes = ("highf32", "bfloat16")
+    all_train_modes = ("float32",) + train_modes
+    t1e = time.perf_counter()
+
     def train_data(kind, steps, B, g):
         """(tables, conditional tables or None) of ``steps`` x ``B`` rows."""
         n = steps * B
@@ -878,6 +909,20 @@ def main() -> int:
         return max(float((x - y).abs().max()) for k in ("layers", "q_layers", "p_layers") if k in a
                    for la, lb in zip(a[k], b[k]) for x, y in zip(la.values(), lb.values()))
 
+    def flat_of(tree):
+        return torch.cat([a.double().ravel() for k in ("layers", "q_layers", "p_layers") if k in tree
+                          for lyr in tree[k] for a in (lyr["w"], lyr["b"])])
+
+    def moment_of(opt, sympl):
+        return torch.cat([a.double().ravel() for o in (opt if sympl else (opt,)) for a in o[0]])
+
+    def rel(a, b, scale):
+        return float((a - b).abs().max() / scale), float((a - b).abs().mean() / scale)
+
+    def loss_dev(a, b):
+        """Largest relative difference of two loss sequences, against ``b``."""
+        return float(((a.double() - b.double()).abs() / b.double().abs()).max())
+
     cond256 = cond_nets["conditional_ckpt_h256.npz"]
     train_cases = [("flagship", "flagship", flag_params, flag_cfg, 512, {}),
                    ("flagship", "flagship", flag_params, flag_cfg, 500, {}),
@@ -887,7 +932,7 @@ def main() -> int:
     for act in ("tanh", "relu", "gelu"):
         cfg = ScoreMLPConfig(n_dimensions=3, units=(100, 100, 100), activation=act)
         train_cases.append((f"random_{act}", "random", init_score_mlp(cfg, gen(23), dev), cfg, 512, {}))
-    train_err = {"fused_train_epoch[float32]": 0.0, "fused_train_epoch_symplectic": 0.0}
+    train_err = {}
     for name, kind, params, cfg, B, kw in train_cases:
         tabs, cond = train_data(kind, 8, B, gen(B + 17))
         sympl = kind == "symplectic"
@@ -896,45 +941,121 @@ def main() -> int:
                   else fused_train.fused_train_epoch_reference)
         halves = [{k: v[sl] for k, v in tabs.items()} for sl in (slice(0, 4), slice(4, 8))]
         conds = [None, None] if cond is None else [cond[:4], cond[4:]]
-        outs, refs = [], []
-        for f, acc in ((fn, outs), (ref_fn, refs)):
+
+        def chained(f, **c):
+            """Two chained calls of 4 steps, EMA on: (first, second, launches)."""
             before = fn.launches
-            o1 = f(params, cfg, None, lr=1e-3, ema_decay=0.99, conditional=conds[0], **halves[0], **kw)
-            o2 = f(o1[0], cfg, o1[1], lr=1e-3, ema=o1[2], ema_decay=0.99, conditional=conds[1], **halves[1], **kw)
-            acc += [o1, o2, fn.launches - before]
+            o1 = f(params, cfg, None, lr=1e-3, ema_decay=0.99, conditional=conds[0], **c, **halves[0], **kw)
+            o2 = f(o1[0], cfg, o1[1], lr=1e-3, ema=o1[2], ema_decay=0.99, conditional=conds[1], **c, **halves[1],
+                   **kw)
+            return o1, o2, fn.launches - before
+
+        outs, refs = chained(fn), chained(ref_fn)
         torch.cuda.synchronize()
         check(outs[2] == (4 if sympl else 2) and refs[2] == 0,
               f"training kernel {name}: {outs[2]} launches for two calls")
-        loss_rel = max(float(((o[3] - r[3]).abs() / r[3].abs()).max()) for o, r in zip(outs[:2], refs[:2]))
+        loss_rel = max(loss_dev(o[3], r[3]) for o, r in zip(outs[:2], refs[:2]))
         first = max(train_max_err(outs[0][0], refs[0][0]), train_max_err(outs[0][2], refs[0][2]))
-        chained = max(train_max_err(outs[1][0], refs[1][0]), train_max_err(outs[1][2], refs[1][2]))
+        chained_err = max(train_max_err(outs[1][0], refs[1][0]), train_max_err(outs[1][2], refs[1][2]))
         bar_first, bar_chained = (3e-4, 3e-4) if sympl else (3e-5, 5e-5)
         check(loss_rel <= 1e-5, f"training kernel {name} B={B}: losses deviate {loss_rel:.2e} > 1e-5")
         check(first <= bar_first, f"training kernel {name} B={B}: layers deviate {first:.2e} > {bar_first}")
-        check(chained <= bar_chained, f"training kernel {name} B={B}: chained state deviates {chained:.2e}")
-        key = "fused_train_epoch_symplectic" if sympl else "fused_train_epoch[float32]"
+        check(chained_err <= bar_chained, f"training kernel {name} B={B}: chained state deviates {chained_err:.2e}")
         if name in ("flagship", "symplectic_ckpt.npz") and B == 512:
-            train_err[key] = max(first, chained)
+            train_err["fused_train_epoch_symplectic" if sympl else "fused_train_epoch[float32]"] = max(
+                first, chained_err)
         emit("train_kernel_vs_plain", net=name, rows=B, steps=8, calls=2, launches=outs[2], loss_rel=loss_rel,
-             layers_max_abs_first=first, layers_max_abs_chained=chained)
+             layers_max_abs_first=first, layers_max_abs_chained=chained_err)
 
-    # 100 steps at bs 512: the losses within rtol 1e-4, the largest parameter
-    # deviation reported
-    tabs, _ = train_data("flagship", 100, 512, gen(100))
-    out = fused_train.fused_train_epoch(flag_params, flag_cfg, lr=1e-3, **tabs)
-    ref = fused_train.fused_train_epoch_reference(flag_params, flag_cfg, lr=1e-3, **tabs)
-    torch.cuda.synchronize()
-    loss_rel = float(((out[3] - ref[3]).abs() / ref[3].abs()).max())
-    check(loss_rel <= 1e-4, f"training kernel, 100 steps: losses deviate {loss_rel:.2e} > 1e-4")
-    a = fused_train.fused_train_epoch(flag_params, flag_cfg, lr=1e-3, **tabs)
-    bitwise = all(torch.equal(x, y) for la, lb in zip(out[0]["layers"], a[0]["layers"])
-                  for x, y in zip(la.values(), lb.values())) and torch.equal(out[3], a[3])
-    check(bitwise, "training kernel: two launches on the same inputs differ")
-    emit("train_kernel_100_steps", net="flagship", rows=512, steps=100, loss_rel=loss_rel,
-         layers_max_abs=train_max_err(out[0], ref[0]), repeat_bitwise_equal=bitwise)
+        # every mode at eps = 1, the kernel against its plain version
+        before = flat_of(params)
+        res = {}
+        for dt in all_train_modes:
+            for key, f in (("kernel", fn), ("plain", ref_fn)):
+                o1, o2, _ = chained(f, eps=1.0, compute_dtype=dt)
+                res[key, dt] = dict(loss=torch.cat([o1[3], o2[3]]).double(), m=moment_of(o2[1], sympl),
+                                    p=flat_of(o2[0]) - before, ema=flat_of(o2[2]) - before)
+        torch.cuda.synchronize()
+        scale = {k: float(res["plain", "float32"][k].abs().max()) for k in ("m", "p")}
+        for dt in train_modes:
+            got, own, floor = {}, {}, {}
+            for key in ("m", "p", "ema"):
+                s_ = scale["m" if key == "m" else "p"]
+                got[key] = rel(res["kernel", dt][key], res["plain", dt][key], s_)
+                own[key] = rel(res["plain", dt][key], res["plain", "float32"][key], s_)
+                floor[key] = rel(res["kernel", "float32"][key], res["plain", "float32"][key], s_)
+                if dt == "highf32" and key == "m":
+                    check(got[key][0] <= floor[key][0] + 1e-5,
+                          f"training kernel {name} B={B} highf32: m deviates {got[key][0]:.2e} > "
+                          f"{floor[key][0]:.2e} + 1e-5")
+                elif dt == "highf32":
+                    dev_ = float((res["kernel", dt][key] - res["plain", dt][key]).abs().max())
+                    bar = 3e-4 if sympl else 5e-5
+                    check(dev_ <= bar, f"training kernel {name} B={B} highf32: {key} deviates {dev_:.2e} > {bar}")
+                else:
+                    check(got[key][1] <= floor[key][1] + 0.1 * own[key][1] and got[key][0] <= 3e-2,
+                          f"training kernel {name} B={B} bfloat16: {key} deviates {got[key]} (plain vs float32 "
+                          f"{own[key]}, float32 floor {floor[key]})")
+            loss_rel = loss_dev(res["kernel", dt]["loss"], res["plain", dt]["loss"])
+            loss_own = loss_dev(res["plain", dt]["loss"], res["plain", "float32"]["loss"])
+            loss_floor = loss_dev(res["kernel", "float32"]["loss"], res["plain", "float32"]["loss"])
+            loss_bar = 1e-5 if dt == "highf32" else loss_floor + min(3e-5, loss_own)
+            check(loss_rel <= loss_bar, f"training kernel {name} B={B} {dt}: losses deviate {loss_rel:.2e} > "
+                                        f"{loss_bar:.2e}")
+            layers_err = float((res["kernel", dt]["p"] - res["plain", dt]["p"]).abs().max())
+            if name in ("flagship", "symplectic_ckpt.npz") and B == 512:
+                train_err[f"fused_train_epoch{'_symplectic' if sympl else ''}[{dt}]"] = layers_err
+            emit("train_kernel_vs_plain", net=name, rows=B, steps=8, calls=2, eps=1.0, compute_dtype=dt,
+                 loss_rel=loss_rel, loss_plain_vs_float32=loss_own, loss_float32_floor=loss_floor,
+                 layers_max_abs=layers_err,
+                 ema_max_abs=float((res["kernel", dt]["ema"] - res["plain", dt]["ema"]).abs().max()),
+                 kernel_vs_plain=got, plain_vs_float32=own, float32_floor=floor)
 
-    # times of a 48-step epoch at bs 512, EMA on: the launch alone on state
-    # packed as the wrapper packs it, and the plain version's whole call
+    # 100 steps at bs 512 in each mode (eps 1e-8): two launches bitwise
+    # equal; the losses against the plain version within rtol 1e-4 in
+    # float32 and highf32, 1e-3 in bfloat16 (a sanity bar only: at eps =
+    # 1e-8 a flipped rounding can reverse a step of a weight whose gradient
+    # is near zero, and the two trajectories part).  Then bfloat16 at eps =
+    # 1, where they do not: its losses within float32's floor plus the least
+    # of 3e-5 and the plain version's own distance from float32, the 8-step
+    # bar, which a kernel that ignored the mode would not meet
+    tabs100, _ = train_data("flagship", 100, 512, gen(100))
+    loss100 = {}
+    for dt in all_train_modes:
+        out = fused_train.fused_train_epoch(flag_params, flag_cfg, lr=1e-3, compute_dtype=dt, **tabs100)
+        ref = fused_train.fused_train_epoch_reference(flag_params, flag_cfg, lr=1e-3, compute_dtype=dt, **tabs100)
+        a = fused_train.fused_train_epoch(flag_params, flag_cfg, lr=1e-3, compute_dtype=dt, **tabs100)
+        torch.cuda.synchronize()
+        loss100[dt] = ref[3]
+        loss_rel = loss_dev(out[3], ref[3])
+        bar = 1e-3 if dt == "bfloat16" else 1e-4
+        check(loss_rel <= bar, f"training kernel {dt}, 100 steps: losses deviate {loss_rel:.2e} > {bar:.2e}")
+        bitwise = torch.equal(flat_of(out[0]), flat_of(a[0])) and torch.equal(out[3], a[3])
+        check(bitwise, f"training kernel {dt}: two launches on the same inputs differ")
+        emit("train_kernel_100_steps", net="flagship", rows=512, steps=100, compute_dtype=dt, loss_rel=loss_rel,
+             loss_plain_vs_float32=loss_dev(ref[3], loss100["float32"]),
+             layers_max_abs=train_max_err(out[0], ref[0]), repeat_bitwise_equal=bitwise)
+    loss100 = {(key, dt): f(flag_params, flag_cfg, lr=1e-3, eps=1.0, compute_dtype=dt, **tabs100)[3]
+               for key, f in (("kernel", fused_train.fused_train_epoch),
+                              ("plain", fused_train.fused_train_epoch_reference))
+               for dt in ("float32", "bfloat16")}
+    loss_rel = loss_dev(loss100["kernel", "bfloat16"], loss100["plain", "bfloat16"])
+    loss_own = loss_dev(loss100["plain", "bfloat16"], loss100["plain", "float32"])
+    loss_floor = loss_dev(loss100["kernel", "float32"], loss100["plain", "float32"])
+    loss_bar = loss_floor + min(3e-5, loss_own)
+    check(loss_rel <= loss_bar, f"training kernel bfloat16, 100 steps at eps 1: losses deviate {loss_rel:.2e} > "
+                                f"{loss_bar:.2e}")
+    emit("train_kernel_100_steps", net="flagship", rows=512, steps=100, compute_dtype="bfloat16", eps=1.0,
+         loss_rel=loss_rel, loss_plain_vs_float32=loss_own, loss_float32_floor=loss_floor, loss_bar=loss_bar)
+
+    # times of the 48-step bs-512 and the 195-step bs-128 flagship epochs and
+    # the symplectic pair at 48 x 512, EMA on, every mode in turns (f, h, b,
+    # b, h, f; medians of 15): the launches alone on state packed as the
+    # wrapper packs it; the plain version's whole 48-step call.  Bound:
+    # float32 max(bytes / 3.35 TB/s, flops / 67 TFLOP/s); the modes
+    # max(bytes / 3.35 TB/s, P F_tc / R_tc + F_cc / 67 TFLOP/s), F_tc the
+    # (H, H) products (fused_train.train_flops_by_unit), at the TF32 rate
+    # with P = 3 in highf32 and the bf16 rate with P = 1 in bfloat16
     def packed_state(layers, cfg):
         K, H, _, D = fused_train._dims(cfg)
         flat = fused_train._pack([(l["w"], l["b"]) for l in layers], K, H, D)
@@ -943,59 +1064,101 @@ def main() -> int:
     def real_params(layers):
         return sum(p.numel() for l in layers for p in l.values())
 
-    train_timing = {}
-    tabs, _ = train_data("flagship", 48, 512, gen(48))
-    plan = fused_train.train_plan(flag_cfg, 512)
-    state = packed_state(flag_params["layers"], flag_cfg)
-    train_ms = median_ms(lambda: fused_train.launch_packed(
-        flag_cfg, plan, tabs["xt"], tabs["zw"], tabs["t"], tabs["beta"], None, flag_params["W"], *state, 0, 1e-4,
-        0.9, 0.999, 1e-8, 0.999, 1 / 512), n=15)
-    # the protocol's first stage: a 195-step epoch at bs 128, beside it
-    tabs128, _ = train_data("flagship", 195, 128, gen(195))
-    plan128 = fused_train.train_plan(flag_cfg, 128)
-    train128_ms = median_ms(lambda: fused_train.launch_packed(
-        flag_cfg, plan128, tabs128["xt"], tabs128["zw"], tabs128["t"], tabs128["beta"], None, flag_params["W"],
-        *state, 0, 1e-3, 0.9, 0.999, 1e-8, 0.999, 1 / 128), n=15)
-    emit("train_kernel_time", entry="fused_train_epoch[float32]", net="flagship", rows=128, steps=195, ema=True,
-         card=smi, ms=train128_ms, us_per_step=train128_ms / 195 * 1e3, plan=list(plan128),
-         grid=fused_train.launch_grid(dev, plan128, 128),
-         **bound(fused_train.train_flops(flag_cfg, 195, 128),
-                 4 * (195 * 128 * (2 * 2 + 2) + 8 * real_params(flag_params["layers"]) + flag_params["W"].numel()
-                      + 195)))
-    train_plain_ms = median_ms(lambda: fused_train.fused_train_epoch_reference(
-        flag_params, flag_cfg, lr=1e-4, ema_decay=0.999, **tabs), n=3, warmup=1)
-    n_flag = real_params(flag_params["layers"])
-    train_bytes = 4 * (48 * 512 * (2 * 2 + 2) + 8 * n_flag + flag_params["W"].numel() + 48)
-    train_flops = fused_train.train_flops(flag_cfg, 48, 512)
-    train_timing["fused_train_epoch[float32]"] = dict(ms=train_ms, plain_ms=train_plain_ms,
-                                                      **bound(train_flops, train_bytes))
-    emit("train_kernel_time", entry="fused_train_epoch[float32]", net="flagship", rows=512, steps=48, ema=True,
-         card=smi, **train_timing["fused_train_epoch[float32]"], flops=train_flops, bytes=train_bytes,
-         grid=fused_train.launch_grid(dev, plan, 512), plan=list(plan), us_per_step=train_ms / 48 * 1e3)
+    def mode_bound(cfg, steps, bs, dt, nbytes, stacks=1):
+        if dt == "float32":
+            return bound(stacks * fused_train.train_flops(cfg, steps, bs), nbytes)
+        tc, cc = fused_train.train_flops_by_unit(cfg, steps, bs, dt)
+        rate_tc = PEAK_TF32_FLOPS / 3 if dt == "highf32" else PEAK_BF16_FLOPS
+        t_ops = stacks * (tc / rate_tc + cc / PEAK_FP32_FLOPS) * 1e3
+        t_bytes = nbytes / PEAK_BYTES * 1e3
+        return dict(bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes else "bytes")
 
-    tabs, _ = train_data("symplectic", 48, 512, gen(49))
+    tabs48, _ = train_data("flagship", 48, 512, gen(48))
+    tabs128, _ = train_data("flagship", 195, 128, gen(195))
+    sym_tabs, _ = train_data("symplectic", 48, 512, gen(49))
     half_cfg = fused_train._sympl_half_cfg(sym_model.net)
-    sym_plan = fused_train.train_plan(half_cfg, 512)
-    sym_states = [(packed_state(fused_train._sympl_perm_layer0(sym_model.params[s], 2, 0, 8, False), half_cfg),
-                   tabs[f"xt_{s[0]}"], tabs[f"zw_{s[0]}"], torch.full_like(tabs["t"], sign))
+    n_flag, n_half = real_params(flag_params["layers"]), real_params(sym_model.params["q_layers"])
+    epochs = {"flagship 48 x 512": (flag_cfg, fused_train.train_plan(flag_cfg, 512), tabs48, 512, 48),
+              "flagship 195 x 128": (flag_cfg, fused_train.train_plan(flag_cfg, 128), tabs128, 128, 195),
+              "symplectic 48 x 512": (half_cfg, fused_train.train_plan(half_cfg, 512), sym_tabs, 512, 48)}
+
+    def epoch_call(plan_, tab_, bs, dt):
+        st_ = packed_state(flag_params["layers"], flag_cfg)
+        return lambda: fused_train.launch_packed(flag_cfg, plan_, tab_["xt"], tab_["zw"], tab_["t"], tab_["beta"], None,
+                                                 flag_params["W"], *st_, 0, 1e-4, 0.9, 0.999, 1e-8, 0.999, 1 / bs,
+                                                 compute_dtype=dt)
+
+    def sym_call(plan_, dt):
+        states = [(packed_state(fused_train._sympl_perm_layer0(sym_model.params[s], 2, 0, 8, False), half_cfg),
+                   sym_tabs[f"xt_{s[0]}"], sym_tabs[f"zw_{s[0]}"], torch.full_like(sym_tabs["t"], sign))
                   for s, sign in (("q_layers", 1.0), ("p_layers", -1.0))]
 
-    def sym_train_call():
-        for st_, xt_, zw_, beta_ in sym_states:
-            fused_train.launch_packed(half_cfg, sym_plan, xt_, zw_, tabs["t"], beta_, None, sym_model.params["W"],
-                                      *st_, 0, 1e-4, 0.9, 0.999, 1e-8, 0.999, 1 / (512 * 4),
-                                      counter=fused_train.fused_train_epoch_symplectic)
+        def call():
+            for st_, xt_, zw_, beta_ in states:
+                fused_train.launch_packed(half_cfg, plan_, xt_, zw_, sym_tabs["t"], beta_, None,
+                                          sym_model.params["W"], *st_, 0, 1e-4, 0.9, 0.999, 1e-8, 0.999,
+                                          1 / (512 * 4), counter=fused_train.fused_train_epoch_symplectic,
+                                          compute_dtype=dt)
+        return call
 
-    sym_train_ms = median_ms(sym_train_call, n=15)
-    sym_plain_ms = median_ms(lambda: fused_train.fused_train_epoch_symplectic_reference(
-        sym_model.params, sym_model.net, lr=1e-4, ema_decay=0.999, **tabs), n=3, warmup=1)
-    n_half = real_params(sym_model.params["q_layers"])
-    sym_bytes = 4 * (48 * 512 * (4 * 2 + 1) + 2 * 8 * n_half + sym_model.params["W"].numel() + 48)
-    sym_flops = 2 * fused_train.train_flops(half_cfg, 48, 512)
-    train_timing["fused_train_epoch_symplectic"] = dict(ms=sym_train_ms, plain_ms=sym_plain_ms,
-                                                        **bound(sym_flops, sym_bytes))
-    emit("train_kernel_time", entry="fused_train_epoch_symplectic", net="symplectic_ckpt.npz", rows=512, steps=48,
-         ema=True, card=smi, **train_timing["fused_train_epoch_symplectic"], flops=sym_flops, bytes=sym_bytes)
+    train_timing = {}
+    for key, (cfg, plan_, tab_, bs, steps) in epochs.items():
+        sympl = key.startswith("symplectic")
+        calls = {dt: sym_call(plan_, dt) if sympl else epoch_call(plan_, tab_, bs, dt) for dt in all_train_modes}
+        runs = {dt: [] for dt in calls}
+        for dt in ("float32", "highf32", "bfloat16", "bfloat16", "highf32", "float32"):
+            runs[dt].append(median_ms(calls[dt], n=15))
+        ms = {dt: statistics.median(v) for dt, v in runs.items()}
+        for dt in all_train_modes:
+            if sympl:
+                nbytes = 4 * (48 * 512 * (4 * 2 + 1) + 2 * 8 * n_half + sym_model.params["W"].numel() + 48)
+                name = "fused_train_epoch_symplectic" + ("" if dt == "float32" else f"[{dt}]")
+                ref_fn, net = fused_train.fused_train_epoch_symplectic_reference, (sym_model.params, sym_model.net)
+            else:
+                nbytes = 4 * (steps * bs * (2 * 2 + 2) + 8 * n_flag + flag_params["W"].numel() + steps)
+                name = f"fused_train_epoch[{dt}]"
+                ref_fn, net = fused_train.fused_train_epoch_reference, (flag_params, flag_cfg)
+            row = dict(ms=ms[dt], ms_runs=runs[dt], **mode_bound(cfg, steps, bs, dt, nbytes, stacks=2 if sympl else 1))
+            if dt != "float32":
+                row.update(float32_ms=ms["float32"], float32_ms_runs=runs["float32"])
+            if bs == 512:
+                row["plain_ms"] = median_ms(lambda: ref_fn(*net, lr=1e-4, ema_decay=0.999, compute_dtype=dt, **tab_),
+                                            n=3, warmup=1)
+                train_timing[name] = row
+            occ = fused_train.occupancy(plan_, compute_dtype=dt)
+            emit("train_kernel_time", entry=key, compute_dtype=dt, card=smi, **row, us_per_step=ms[dt] / steps * 1e3,
+                 nbytes=nbytes, plan=list(plan_), grid=fused_train.launch_grid(dev, plan_, bs, dt),
+                 **{k: occ[k] for k in ("registers", "local_bytes", "blocks_per_sm")})
+
+    # the modes' main path: the kernel's own API at full width, launches
+    # counted from zero.  Per mode, from a random flagship init, the
+    # protocol's two stages as two chained calls (bs 128 x 195 steps at 1e-3,
+    # then bs 512 x 48 at 1e-4, EMA 0.999) and one symplectic call at 48 x
+    # 512: launches = calls (two a symplectic call), no float32 launch, the
+    # losses finite and the first stage's falling
+    mode_counts = {}
+    for dt in train_modes:
+        p0 = init_score_mlp(flag_cfg, gen(1700), dev)
+        reset_counts()
+        o1 = fused_train.fused_train_epoch(p0, flag_cfg, lr=1e-3, ema_decay=0.999, compute_dtype=dt, **tabs128)
+        o2 = fused_train.fused_train_epoch(o1[0], flag_cfg, o1[1], lr=1e-4, ema=o1[2], ema_decay=0.999,
+                                           compute_dtype=dt, **tabs48)
+        o3 = fused_train.fused_train_epoch_symplectic(sym_model.params, sym_model.net, lr=1e-4, ema_decay=0.999,
+                                                      compute_dtype=dt, **sym_tabs)
+        torch.cuda.synchronize()
+        counts = {f"fused_train_epoch[{dt}]": fused_train.fused_train_epoch.launches_by_dtype[dt],
+                  f"fused_train_epoch_symplectic[{dt}]": fused_train.fused_train_epoch_symplectic.launches_by_dtype[dt]}
+        others = sum(fn.launches for fn in (fused_train.fused_train_epoch, fused_train.fused_train_epoch_symplectic))
+        mode_counts.update(counts)
+        losses = torch.cat([o1[3], o2[3], o3[3]])
+        falls = float(o1[3][:20].mean()) > float(o1[3][-20:].mean())
+        check(list(counts.values()) == [2, 2] and others == 4,
+              f"training kernel {dt} path: launches {counts}, {others} in all")
+        check(bool(torch.isfinite(losses).all()) and falls, f"training kernel {dt} path: losses {losses.tolist()}")
+        emit("train_mode_path", compute_dtype=dt, launches=counts, loss_first_stage=[float(o1[3][:20].mean()),
+             float(o1[3][-20:].mean())], loss_second_stage=[float(o2[3][0]), float(o2[3][-1])],
+             loss_symplectic=[float(o3[3][0]), float(o3[3][-1])])
+    emit("phase1e", seconds=time.perf_counter() - t1e, card=smi)
 
     def timed(fn, count):
         """(fn(), launches it made by ``count``, seconds to its end on the card)."""
@@ -1490,27 +1653,27 @@ def main() -> int:
                    ("symplectic_ckpt.npz q stack", "symplectic",
                     fused_train._sympl_perm_layer0(sym_model.params["q_layers"], 2, 0, 8, False), sym_model.params["W"],
                     half_cfg, 512, 1 / (512 * 4))]
-    for name, kind, layers, W, cfg, B, inv in plan_cases:
+    for (name, kind, layers, W, cfg, B, inv), dt in [(c, dt) for c in plan_cases for dt in ("float32",) + train_modes]:
         tabs, cond = train_data(kind, 6, B, gen(B + 31))
         if kind == "symplectic":
             tabs = dict(xt=tabs["xt_q"], zw=tabs["zw_q"], t=tabs["t"], beta=torch.ones_like(tabs["t"]))
         own = fused_train.train_plan(cfg, B)
-        occ = fused_train.occupancy(own)
-        grid = fused_train.launch_grid(dev, own, B)
-        check(occ["local_bytes"] == 0, f"training kernel keeps {occ['local_bytes']} bytes a thread in local memory")
+        occ = fused_train.occupancy(own, compute_dtype=dt)
+        grid = fused_train.launch_grid(dev, own, B, dt)
+        check(occ["local_bytes"] == 0, f"training kernel {dt} keeps {occ['local_bytes']} bytes a thread in local memory")
         forced = [fused_train.train_plan(cfg, B, rows=r) for r in (4 if own[0] != 4 else 8, 32)]
         check(all(f != own for f in forced), f"training kernel {name}: a forced plan equals its own {list(own)}")
         outs = []
         for plan_, grid_ in [(own, None)] + [(f, None) for f in forced] + [(own, 17)]:
             st_ = packed_state(layers, cfg)
             loss_ = fused_train.launch_packed(cfg, plan_, tabs["xt"], tabs["zw"], tabs["t"], tabs["beta"], cond, W, *st_,
-                                              0, 1e-3, 0.9, 0.999, 1e-8, 0.99, inv, grid=grid_)
+                                              0, 1e-3, 0.9, 0.999, 1e-8, 0.99, inv, grid=grid_, compute_dtype=dt)
             outs.append(st_ + [loss_])
         torch.cuda.synchronize()
         same = [all(torch.equal(a, b) for a, b in zip(outs[0], o)) for o in outs[1:]]
-        check(all(same), f"training kernel {name}: a launch at {[list(f) for f in forced]} or 17 blocks differs "
+        check(all(same), f"training kernel {name} {dt}: a launch at {[list(f) for f in forced]} or 17 blocks differs "
                          f"from its own plan {list(own)}")
-        emit("train_plan", case=name, rows=B, plan=list(own), grid=grid, row_tiles=-(-B // own[0]),
+        emit("train_plan", case=name, compute_dtype=dt, rows=B, plan=list(own), grid=grid, row_tiles=-(-B // own[0]),
              param_tiles=len(fused_train.param_tiles(*fused_train._dims(cfg))),
              staged_floats=fused_train.plan_wbuf(cfg, own),
              resident=fused_train.plan_wbuf(cfg, own) == fused_train._staged_floats(*fused_train._dims(cfg)),
@@ -3213,6 +3376,12 @@ def main() -> int:
     for name in ("fused_train_epoch[float32]", "fused_train_epoch_symplectic"):
         kernels.append(entry(name, "flowfusion_torch/csrc/fused_train.cu", REPLACES_TRAIN[name], train_counts[name],
                              train_err[name], train_timing[name]))
+    # the highf32 and bfloat16 modes of fused_train.cu: launches from phase
+    # 1e's modes path (the kernel's own API), errors and times from phase 1e,
+    # bounds at the TF32 and bf16 tensor-core rates
+    for name, n in mode_counts.items():
+        kernels.append(entry(name, "flowfusion_torch/csrc/fused_train.cu", REPLACES_TRAIN[name], n, train_err[name],
+                             train_timing[name]))
     # the highf32 mode of fused_mlp.cu: launches from phase 11, errors and
     # times from phase 1f, bounds at the TF32 tensor-core rate
     for name in hf_timing:
@@ -3663,9 +3832,8 @@ def parent_ab(parent_dir: str) -> int:
     The training kernel: the flagship at bs 512 x 48 steps and bs 128 x
     195, the conditional H = 256 net at bs 512 x 48 and the symplectic pair
     (two launches), each side held to the plain version at phase 1e's bars
-    on 8 chained steps, the two kernels' largest difference after the whole
-    launch printed (their sums run in other orders), timed in turns as
-    above; the flagship protocol of phase 10 through ``fit`` with each
+    on 8 chained steps, the two kernels' float32 epochs through the wrappers
+    bitwise equal (params, EMA, losses), timed in turns as above; the flagship protocol of phase 10 through ``fit`` with each
     side's ``fused_train_epoch``, a warm-up of each, then five pairs in
     turns.  One JSON line a comparison; exits 2 without a card, 1 when a
     check fails."""
@@ -3989,10 +4157,9 @@ def parent_ab(parent_dir: str) -> int:
     # side is held to the plain version at the JAX package's bars on the
     # first 8 steps (two chained calls of 4, EMA on: losses rtol 1e-5, layers
     # 3e-5 after one call and 5e-5 chained, symplectic 3e-4), the two
-    # kernels' largest difference after a whole epoch through the wrappers
-    # is printed, and the launches alone, on state packed once at each
-    # side's own plan, are timed in turns (p t t p, three times; medians of
-    # 15)
+    # kernels' float32 epochs through the wrappers bitwise equal, and the
+    # launches alone, on state packed once at each side's own plan, are
+    # timed in turns (p t t p, three times; medians of 15)
     from flowfusion_torch import train as train_lib
     from flowfusion_torch.kernels import fused_train
     from flowfusion_torch.models.nets import SymplecticMLPConfig
@@ -4084,6 +4251,8 @@ def parent_ab(parent_dir: str) -> int:
         diff = dict(layers=state_max_err(outs["tree"][0], outs["parent"][0]),
                     ema=state_max_err(outs["tree"][2], outs["parent"][2]),
                     loss_rel=float(((outs["tree"][3] - outs["parent"][3]).abs() / outs["parent"][3].abs()).max()))
+        if any(diff.values()):
+            failed.append(f"training {name}: the tree's float32 epoch is not bitwise the parent's: {diff}")
         fns = {which: launches_of(which, cfg, params, tab, sympl) for which in train_kernels}
         runs = {"parent": [], "tree": []}
         for i in range(3):

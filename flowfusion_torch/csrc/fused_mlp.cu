@@ -136,15 +136,6 @@ constexpr int kMinBlocks = 3;
 constexpr int kRowTile = 4;
 constexpr int kNTiles = 2;
 
-// x split into TF32 halves as split_tf32 does, with the subtraction
-// written out in round-to-nearest: x is often a product formed just
-// before, and the compiler must not fuse it into x - hi (the activations'
-// stored values are split, as when they came from shared memory).
-__device__ __forceinline__ void split_stored(float x, float& hi, float& lo) {
-  hi = to_tf32(x);
-  lo = to_tf32(__fsub_rn(x, hi));
-}
-
 // A thread's walk over the (r, j) cells of an R x H grid, kThreads cells
 // apart, with no division a cell.
 struct GridWalk {
@@ -408,7 +399,7 @@ __device__ __forceinline__ void act_cell(int act, float a, float& h, float& dh) 
 template <int P>
 __device__ __forceinline__ void store_act(float v, float* cur, float* hi, float* lo, int o) {
   if constexpr (P == kHighF32) {
-    split_stored(v, hi[o], lo[o]);
+    split_tf32(v, hi[o], lo[o]);
   } else if constexpr (P == kBFloat16) {
     reinterpret_cast<__nv_bfloat16*>(hi)[o] = __float2bfloat16_rn(v);
   } else {

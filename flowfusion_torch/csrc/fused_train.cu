@@ -3,8 +3,8 @@
 // Replaces flowfusion_tpu/kernels/fused_train.py::_kernel (the Pallas kernel,
 // pallas_call at fused_train.py:708), reached through fused_train_epoch
 // (fused_train.py:751) and, one launch a stack, fused_train_epoch_symplectic
-// (fused_train.py:466), compute mode float32: strict IEEE fp32 on the CUDA
-// cores.  Build without --use_fast_math: sigmoid goes through expf, gelu
+// (fused_train.py:466), in the JAX kernel's three compute modes (the
+// template's P, below).  Build without --use_fast_math: sigmoid goes through expf, gelu
 // through erff, Adam through sqrtf and the bias corrections through
 // expf/logf, the Fourier features through sinf/cosf.  Those features
 // [sin(2 pi t W) | cos(2 pi t W)] of score nets are computed for every row of
@@ -82,6 +82,26 @@
 //     same pass, their operands loaded before the sums.  Eight threads of
 //     the last block sum the per-row losses the same way.  Every read of
 //     data written inside the launch goes through __ldcg or cp.async.cg.
+// Compute modes.  The mode reaches the three layer products and the
+// activation, as the JAX kernel's _make_dots and _act_pair_fn take it
+// (fused_train.py:164-199, :281-283): the forward products (layer 0 on the
+// whole input u), the delta products by W^T and phase B's weight gradients.
+//   float32   strict IEEE fp32: one fmaf a product;
+//   highf32   3xTF32: each operand split into TF32 halves (split_tf32) as it
+//             is read, the product lo.hi + hi.lo + hi.hi in FMAs (fma_split,
+//             the counterpart of bf16_3pass_dot_general);
+//   bfloat16  each operand rounded to bf16 (round_bf16) as it is read, the
+//             product then exact in one fmaf: bf16 operands, fp32 sums.
+// Both throughput modes take the tanh-form sigmoid (act_pair_highf32).  The
+// products run on the CUDA cores, in the same chains as float32 (the same
+// order, so the invariant below holds in every mode), not on the tensor
+// cores: a step is a serial chain of narrow products (1-4 rows a block),
+// and this keeps the plan, the shared memory and the tile map of float32.
+// The biases, the residual and loss, the output delta, the bias gradient
+// (an unrounded sum of the deltas), the multiply by act', Adam, the
+// moments, the EMA and the Fourier features stay fp32.  Operands are split
+// or rounded in registers; nothing of the mode is stored.
+//
 // The invariant: no sum's order depends on the plan.  Each row's forward and
 // delta chains are one fmaf chain over k (n) from 0, then + bias (* act');
 // each parameter's gradient and the loss are summed in an order fixed by bs
@@ -112,6 +132,38 @@ constexpr int kWPad = 4;  // floats past N in a staged weight row
 constexpr int kPartials = 16 * kThreads;
 constexpr int kPhaseBFloats = 2 * kPartials;
 constexpr float kTwoPi = 6.28318548f;  // float32(2 pi), as the plain version rounds it
+// The compute modes, the templates' P (the wrapper's precision index).
+enum Precision { kFloat32 = 0, kHighF32 = 1, kBFloat16 = 2 };
+
+// An operand of a layer product in compute mode P, prepared once as it is
+// read: float32 as it is, highf32 its TF32 halves, bfloat16 rounded to bf16.
+template <int P>
+struct Operand {
+  float hi, lo;
+  __device__ __forceinline__ explicit Operand(float x) {
+    if constexpr (P == kHighF32) {
+      split_tf32(x, hi, lo);
+    } else {
+      hi = P == kBFloat16 ? round_bf16(x) : x;
+      lo = 0.0f;
+    }
+  }
+};
+
+// acc + a b in compute mode P: one fmaf, or fma_split's three in highf32.
+template <int P>
+__device__ __forceinline__ float mac(const Operand<P>& a, const Operand<P>& b, float acc) {
+  if constexpr (P == kHighF32) return fma_split(a.hi, a.lo, b.hi, b.lo, acc);
+  return fmaf(a.hi, b.hi, acc);
+}
+
+// act(a) and act'(a) in compute mode P: SiLU's sigmoid in tanh form in
+// highf32 and bfloat16.
+template <int P>
+__device__ __forceinline__ void act_mode(int act, float a, float& h, float& dh) {
+  if constexpr (P == kFloat32) act_pair(act, a, h, dh);
+  else act_pair_highf32(act, a, h, dh);
+}
 
 struct TrainArgs {
   const float* xt;
@@ -211,8 +263,8 @@ __device__ void stage_rows(const float* w, int N, int k0, int k1, float* dst) {
 // ws.  `first`
 // starts each chain at 0, else it continues from out; `last` adds the bias
 // and, for act >= 0, applies the activation and keeps act' in dh.  A thread
-// owns RT rows of one column.
-template <int RT>
+// owns RT rows of one column.  Products in compute mode P.
+template <int P, int RT>
 __device__ void fwd_cols(const float* w, int ws, int kb, int ke, const float* bias, const float* in, int K,
                          float* out, float* dh, int N, int R, bool first, bool last, int act) {
   for (Walk g(N); g.r < R / RT; g.next()) {
@@ -226,16 +278,16 @@ __device__ void fwd_cols(const float* w, int ws, int kb, int ke, const float* bi
 #pragma unroll
       for (int i = 0; i < RT; ++i) hv[i] = *reinterpret_cast<const float4*>(in + (r0 + i) * K + k);
       const float* wk = w + (size_t)(k - kb) * ws + n;
-      const float w0 = wk[0];
-      const float w1 = wk[ws];
-      const float w2 = wk[2 * ws];
-      const float w3 = wk[3 * ws];
+      const Operand<P> w0(wk[0]);
+      const Operand<P> w1(wk[ws]);
+      const Operand<P> w2(wk[2 * ws]);
+      const Operand<P> w3(wk[3 * ws]);
 #pragma unroll
       for (int i = 0; i < RT; ++i) {
-        acc[i] = fmaf(hv[i].x, w0, acc[i]);
-        acc[i] = fmaf(hv[i].y, w1, acc[i]);
-        acc[i] = fmaf(hv[i].z, w2, acc[i]);
-        acc[i] = fmaf(hv[i].w, w3, acc[i]);
+        acc[i] = mac<P>(Operand<P>(hv[i].x), w0, acc[i]);
+        acc[i] = mac<P>(Operand<P>(hv[i].y), w1, acc[i]);
+        acc[i] = mac<P>(Operand<P>(hv[i].z), w2, acc[i]);
+        acc[i] = mac<P>(Operand<P>(hv[i].w), w3, acc[i]);
       }
     }
     if (!last) {
@@ -251,7 +303,7 @@ __device__ void fwd_cols(const float* w, int ws, int kb, int ke, const float* bi
         out[(r0 + i) * N + n] = a;
       } else {
         float h, d;
-        act_pair(act, a, h, d);
+        act_mode<P>(act, a, h, d);
         out[(r0 + i) * N + n] = h;
         dh[(r0 + i) * N + n] = d;
       }
@@ -262,7 +314,8 @@ __device__ void fwd_cols(const float* w, int ws, int kb, int ke, const float* bi
 // dh[r][k] (row stride K) *= sum_n delta[r][n] w[k][n] for R rows and k in
 // [kb, ke): the product by W^T of the backward, times the stored act'.  w
 // holds those weight rows at row stride ws.  A thread owns RT rows of one k.
-template <int RT>
+// Products in compute mode P; the multiply by act' in fp32.
+template <int P, int RT>
 __device__ void bwd_cols(const float* w, int ws, int kb, int ke, const float* delta, int N, float* dh,
                          int K, int R) {
   for (Walk g(ke - kb); g.r < R / RT; g.next()) {
@@ -274,13 +327,14 @@ __device__ void bwd_cols(const float* w, int ws, int kb, int ke, const float* de
     for (int i = 0; i < RT; ++i) acc[i] = 0.0f;
     for (int n = 0; n < N; n += 4) {
       const float4 q = *reinterpret_cast<const float4*>(wk + n);
+      const Operand<P> q0(q.x), q1(q.y), q2(q.z), q3(q.w);
 #pragma unroll
       for (int i = 0; i < RT; ++i) {
         const float4 dv = *reinterpret_cast<const float4*>(delta + (r0 + i) * N + n);
-        acc[i] = fmaf(dv.x, q.x, acc[i]);
-        acc[i] = fmaf(dv.y, q.y, acc[i]);
-        acc[i] = fmaf(dv.z, q.z, acc[i]);
-        acc[i] = fmaf(dv.w, q.w, acc[i]);
+        acc[i] = mac<P>(Operand<P>(dv.x), q0, acc[i]);
+        acc[i] = mac<P>(Operand<P>(dv.y), q1, acc[i]);
+        acc[i] = mac<P>(Operand<P>(dv.z), q2, acc[i]);
+        acc[i] = mac<P>(Operand<P>(dv.w), q3, acc[i]);
       }
     }
 #pragma unroll
@@ -299,21 +353,23 @@ __device__ __forceinline__ int row_tile_of(int R, int cols) {
   return 1;
 }
 
+template <int P>
 __device__ void fwd_any(const float* w, int ws, int kb, int ke, const float* bias, const float* in, int K,
                         float* out, float* dh, int N, int R, bool first, bool last, int act) {
   switch (row_tile_of(R, N)) {
-    case 4: fwd_cols<4>(w, ws, kb, ke, bias, in, K, out, dh, N, R, first, last, act); break;
-    case 2: fwd_cols<2>(w, ws, kb, ke, bias, in, K, out, dh, N, R, first, last, act); break;
-    default: fwd_cols<1>(w, ws, kb, ke, bias, in, K, out, dh, N, R, first, last, act);
+    case 4: fwd_cols<P, 4>(w, ws, kb, ke, bias, in, K, out, dh, N, R, first, last, act); break;
+    case 2: fwd_cols<P, 2>(w, ws, kb, ke, bias, in, K, out, dh, N, R, first, last, act); break;
+    default: fwd_cols<P, 1>(w, ws, kb, ke, bias, in, K, out, dh, N, R, first, last, act);
   }
 }
 
+template <int P>
 __device__ void bwd_any(const float* w, int ws, int kb, int ke, const float* delta, int N, float* dh, int K,
                         int R) {
   switch (row_tile_of(R, ke - kb)) {
-    case 4: bwd_cols<4>(w, ws, kb, ke, delta, N, dh, K, R); break;
-    case 2: bwd_cols<2>(w, ws, kb, ke, delta, N, dh, K, R); break;
-    default: bwd_cols<1>(w, ws, kb, ke, delta, N, dh, K, R);
+    case 4: bwd_cols<P, 4>(w, ws, kb, ke, delta, N, dh, K, R); break;
+    case 2: bwd_cols<P, 2>(w, ws, kb, ke, delta, N, dh, K, R); break;
+    default: bwd_cols<P, 1>(w, ws, kb, ke, delta, N, dh, K, R);
   }
 }
 
@@ -324,6 +380,7 @@ __device__ __forceinline__ int chunk_rows(const TrainArgs& a, int N) {
 
 // Layer l's forward product over R rows, from the net staged at the top of
 // the step (resident) or layer l staged in k-chunks; ends with a barrier.
+template <int P>
 __device__ void layer_fwd(const TrainArgs& a, int l, const float* in, float* out, float* dh, int act,
                           const float* wsm, bool resident) {
   const int K = layer_in(a, l), N = layer_out(a, l);
@@ -332,7 +389,7 @@ __device__ void layer_fwd(const TrainArgs& a, int l, const float* in, float* out
   if (resident) {
     cp_async_wait_pending(a.n_hidden - l);  // layer l of the net staged at the top of the step
     __syncthreads();
-    fwd_any(wsm + staged_offset(a, l), N + kWPad, 0, K, bias, in, K, out, dh, N, a.R, true, true, act);
+    fwd_any<P>(wsm + staged_offset(a, l), N + kWPad, 0, K, bias, in, K, out, dh, N, a.R, true, true, act);
   } else {
     const int kc = chunk_rows(a, N);
     for (int kb = 0; kb < K; kb += kc) {
@@ -340,7 +397,7 @@ __device__ void layer_fwd(const TrainArgs& a, int l, const float* in, float* out
       stage_rows(w, N, kb, ke, const_cast<float*>(wsm));
       cp_async_wait_all();
       __syncthreads();
-      fwd_any(wsm, N + kWPad, kb, ke, bias, in, K, out, dh, N, a.R, kb == 0, ke == K, act);
+      fwd_any<P>(wsm, N + kWPad, kb, ke, bias, in, K, out, dh, N, a.R, kb == 0, ke == K, act);
       if (ke < K) __syncthreads();
     }
   }
@@ -348,12 +405,13 @@ __device__ void layer_fwd(const TrainArgs& a, int l, const float* in, float* out
 }
 
 // The delta product through layer l (l >= 1): dh of layer l - 1 *= delta_l W_l^T.
+template <int P>
 __device__ void layer_bwd(const TrainArgs& a, int l, const float* delta, float* dh, const float* wsm,
                           bool resident) {
   const int K = layer_in(a, l), N = layer_out(a, l);
   const float* w = a.p + weight_offset(a, l);
   if (resident) {
-    bwd_any(wsm + staged_offset(a, l), N + kWPad, 0, K, delta, N, dh, K, a.R);
+    bwd_any<P>(wsm + staged_offset(a, l), N + kWPad, 0, K, delta, N, dh, K, a.R);
   } else {
     const int kc = chunk_rows(a, N);
     for (int kb = 0; kb < K; kb += kc) {
@@ -361,7 +419,7 @@ __device__ void layer_bwd(const TrainArgs& a, int l, const float* delta, float* 
       stage_rows(w, N, kb, ke, const_cast<float*>(wsm));
       cp_async_wait_all();
       __syncthreads();
-      bwd_any(wsm, N + kWPad, kb, ke, delta, N, dh, K, a.R);
+      bwd_any<P>(wsm, N + kWPad, kb, ke, delta, N, dh, K, a.R);
       if (ke < K) __syncthreads();
     }
   }
@@ -378,6 +436,7 @@ __device__ void to_workspace(const float* src, int rows, int cols, float* dst, i
 
 // Phase A for one row tile of step s: forward, per-row loss, backward; each
 // row's layer inputs, deltas and loss into the workspace.
+template <int P>
 __device__ void row_tile(const TrainArgs& a, int s, int tile, float* smem, const float* wsm, bool resident) {
   const int R = a.R, K = a.K, H = a.H, Dp = a.Dp, L = a.n_hidden;
   const int rh = R * H;
@@ -416,8 +475,8 @@ __device__ void row_tile(const TrainArgs& a, int s, int tile, float* smem, const
   // forward, keeping every layer input and act'
   for (int l = 0; l <= L; ++l) {
     const float* in = l == 0 ? u : hs + (l - 1) * rh;
-    if (l < L) layer_fwd(a, l, in, hs + l * rh, dhs + l * rh, a.act, wsm, resident);
-    else layer_fwd(a, l, in, dout, nullptr, -1, wsm, resident);
+    if (l < L) layer_fwd<P>(a, l, in, hs + l * rh, dhs + l * rh, a.act, wsm, resident);
+    else layer_fwd<P>(a, l, in, dout, nullptr, -1, wsm, resident);
   }
   const int SH = K + L * H;
   to_workspace(u, valid, K, a.ws_h + (size_t)row0 * SH, SH, 0);
@@ -444,11 +503,47 @@ __device__ void row_tile(const TrainArgs& a, int s, int tile, float* smem, const
   __syncthreads();
 
   // backward: the delta of layer l - 1 into the act' buffer it multiplies
-  for (int l = L; l >= 1; --l) layer_bwd(a, l, l == L ? dout : dhs + l * rh, dhs + (l - 1) * rh, wsm, resident);
+  for (int l = L; l >= 1; --l) layer_bwd<P>(a, l, l == L ? dout : dhs + l * rh, dhs + (l - 1) * rh, wsm, resident);
   const int SD = L * H + Dp;
   for (int l = 0; l < L; ++l) to_workspace(dhs + l * rh, valid, H, a.ws_d + (size_t)row0 * SD, SD, l * H);
   to_workspace(dout, valid, Dp, a.ws_d + (size_t)row0 * SD, SD, L * H);
   __syncthreads();
+}
+
+// Rows [r0, r1) of a phase-B batch into a lane's 4 k by 4 n register tile
+// (acc[k][n]): hb the tile's input columns (row stride kh) from column 4 ik,
+// db its delta columns (row stride nc) from column c4, one chain a parameter
+// in row order, products in compute mode P.  The bias row (kh = 0: its input
+// is 1, and only k = 0 is kept) sums the deltas unrounded in every mode.
+template <int P>
+__device__ __forceinline__ void sum_rows(float (&acc)[4][4], const float* hb, const float* db, int kh, int nc,
+                                         int ik, int c4, int r0, int r1) {
+  if (kh == 0) {
+#pragma unroll 4
+    for (int r = r0; r < r1; ++r) {
+      const float4 d = *reinterpret_cast<const float4*>(db + r * nc + c4);
+      acc[0][0] += d.x;
+      acc[0][1] += d.y;
+      acc[0][2] += d.z;
+      acc[0][3] += d.w;
+    }
+    return;
+  }
+#pragma unroll 4
+  for (int r = r0; r < r1; ++r) {
+    const float4 h = *reinterpret_cast<const float4*>(hb + r * kh + 4 * ik);
+    const float4 d = *reinterpret_cast<const float4*>(db + r * nc + c4);
+    const float hv[4] = {h.x, h.y, h.z, h.w};
+    const Operand<P> d0(d.x), d1(d.y), d2(d.z), d3(d.w);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const Operand<P> x(hv[i]);
+      acc[i][0] = mac<P>(x, d0, acc[i][0]);
+      acc[i][1] = mac<P>(x, d1, acc[i][1]);
+      acc[i][2] = mac<P>(x, d2, acc[i][2]);
+      acc[i][3] = mac<P>(x, d3, acc[i][3]);
+    }
+  }
 }
 
 // Phase B for parameter tile j: each parameter's gradient summed over the
@@ -461,7 +556,8 @@ __device__ void row_tile(const TrainArgs& a, int s, int tile, float* smem, const
 // 4 n register tile, one fmaf chain a parameter in row order, batch after
 // batch, so the order does not depend on RB; then the chunks' partials are
 // added in chunk order.  The Adam operands of a thread's outputs are loaded
-// before the sums.
+// before the sums.  Products in compute mode P (sum_rows).
+template <int P>
 __device__ void param_tile(const TrainArgs& a, int j, float* smem, float bc1, float bc2) {
   const int* tl = a.tiles + 5 * j;
   const int l = tl[0], k0 = tl[1], kc = tl[2], n0 = tl[3], nc = tl[4];
@@ -531,22 +627,7 @@ __device__ void param_tile(const TrainArgs& a, int j, float* smem, float bc1, fl
     const float* hb = buffer(b);
     const float* db = hb + RB * kh;
     const int b0 = b * RB;
-    if (active) {
-      const int r1 = min(c1, b0 + RB) - b0;
-#pragma unroll 4
-      for (int r = max(c0, b0) - b0; r < r1; ++r) {
-        const float4 h = kh ? *reinterpret_cast<const float4*>(hb + r * kh + 4 * ik) : make_float4(1.f, 1.f, 1.f, 1.f);
-        const float4 d = *reinterpret_cast<const float4*>(db + r * nc + c4);
-        const float hv[4] = {h.x, h.y, h.z, h.w};
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          acc[i][0] = fmaf(hv[i], d.x, acc[i][0]);
-          acc[i][1] = fmaf(hv[i], d.y, acc[i][1]);
-          acc[i][2] = fmaf(hv[i], d.z, acc[i][2]);
-          acc[i][3] = fmaf(hv[i], d.w, acc[i][3]);
-        }
-      }
-    }
+    if (active) sum_rows<P>(acc, hb, db, kh, nc, ik, c4, max(c0, b0) - b0, min(c1, b0 + RB) - b0);
     __syncthreads();
   }
   // part[c][item][4 k x 4 n]
@@ -615,6 +696,7 @@ __global__ void __launch_bounds__(kThreads) fourier_table_kernel(const float* t,
   }
 }
 
+template <int P>
 __global__ void __launch_bounds__(kThreads, 1) fused_train_kernel(TrainArgs a) {
   extern __shared__ __align__(16) float smem[];
   float* wsm = smem + a.acts;
@@ -626,14 +708,25 @@ __global__ void __launch_bounds__(kThreads, 1) fused_train_kernel(TrainArgs a) {
         stage_rows(a.p + weight_offset(a, l), layer_out(a, l), 0, layer_in(a, l), wsm + staged_offset(a, l));
         cp_async_commit();
       }
-    for (int tile = blockIdx.x; tile < a.n_tiles; tile += gridDim.x) row_tile(a, s, tile, smem, wsm, resident);
+    for (int tile = blockIdx.x; tile < a.n_tiles; tile += gridDim.x) row_tile<P>(a, s, tile, smem, wsm, resident);
     grid.sync();
     const float tstep = (float)(a.step0 + s + 1);
     const float bc1 = 1.0f - expf(tstep * logf(a.beta1));
     const float bc2 = 1.0f - expf(tstep * logf(a.beta2));
     if (blockIdx.x == gridDim.x - 1) loss_sum(a, s, smem);
-    for (int j = blockIdx.x; j < a.n_ptiles; j += gridDim.x) param_tile(a, j, smem, bc1, bc2);
+    for (int j = blockIdx.x; j < a.n_ptiles; j += gridDim.x) param_tile<P>(a, j, smem, bc1, bc2);
     grid.sync();
+  }
+}
+
+// The kernel's instantiation for a precision index; null for none.
+using TrainKernel = void (*)(TrainArgs);
+TrainKernel train_kernel(int precision) {
+  switch (precision) {
+    case kFloat32: return fused_train_kernel<kFloat32>;
+    case kHighF32: return fused_train_kernel<kHighF32>;
+    case kBFloat16: return fused_train_kernel<kBFloat16>;
+    default: return nullptr;
   }
 }
 
@@ -641,11 +734,13 @@ __global__ void __launch_bounds__(kThreads, 1) fused_train_kernel(TrainArgs a) {
 
 extern "C" {
 
-// Blocks of the kernel with `smem` bytes of shared memory that one SM holds
-// at once, and the SM count; a cooperative grid may not exceed their
-// product.  Returns a cudaError_t (cudaErrorNotSupported without
-// cooperative launches).
-int ff_fused_train_capacity(size_t smem, int* blocks_per_sm, int* sm_count) {
+// Blocks of the kernel's instantiation for `precision` with `smem` bytes of
+// shared memory that one SM holds at once, and the SM count; a cooperative
+// grid may not exceed their product.  Returns a cudaError_t
+// (cudaErrorNotSupported without cooperative launches).
+int ff_fused_train_capacity(int precision, size_t smem, int* blocks_per_sm, int* sm_count) {
+  const TrainKernel kernel = train_kernel(precision);
+  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
   int dev = 0;
   cudaError_t st = cudaGetDevice(&dev);
   if (st != cudaSuccess) return (int)st;
@@ -655,15 +750,18 @@ int ff_fused_train_capacity(size_t smem, int* blocks_per_sm, int* sm_count) {
   if (!coop) return (int)cudaErrorNotSupported;
   st = cudaDeviceGetAttribute(sm_count, cudaDevAttrMultiProcessorCount, dev);
   if (st != cudaSuccess) return (int)st;
-  st = allow_smem(fused_train_kernel, smem);
+  st = allow_smem(kernel, smem);
   if (st != cudaSuccess) return (int)st;
-  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, fused_train_kernel, kThreads, smem);
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kernel, kThreads, smem);
 }
 
-// Registers and local-memory bytes a thread of the kernel.
-int ff_fused_train_attributes(int* regs, int* local_bytes) {
+// Registers and local-memory bytes a thread of the instantiation for
+// `precision`.
+int ff_fused_train_attributes(int precision, int* regs, int* local_bytes) {
+  const TrainKernel kernel = train_kernel(precision);
+  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
   cudaFuncAttributes attr;
-  const cudaError_t st = cudaFuncGetAttributes(&attr, fused_train_kernel);
+  const cudaError_t st = cudaFuncGetAttributes(&attr, kernel);
   if (st != cudaSuccess) return (int)st;
   *regs = attr.numRegs;
   *local_bytes = (int)attr.localSizeBytes;
@@ -679,19 +777,21 @@ int ff_fused_train_attributes(int* regs, int* local_bytes) {
 // scratch for its table (both null for velocity nets); tiles is the
 // (n_ptiles, 5) parameter tile map;
 // loss is (steps,).  K_pad, H and D_pad are multiples of 4; E2 = 0 selects
-// the velocity input [x | t | cond].  Shared memory: acts floats of row tile
+// the velocity input [x | t | cond]; precision is the compute mode (0
+// float32, 1 highf32, 2 bfloat16).  Shared memory: acts floats of row tile
 // (at least kPhaseBFloats, phase B's), then wbuf floats of staged weights
 // (the whole net, or at least 4 rows of the widest layer for k-chunks).
 int ff_fused_train(const float* xt, const float* zw, const float* t, const float* beta, const float* cond,
                    const float* wemb, float* temb, const int* tiles, float* p, float* m, float* v, float* ema, float* ws_h,
                    float* ws_d, float* ws_loss, float* loss, int steps, int bs, int D, int C, int E2, int K_pad,
-                   int H, int n_hidden, int D_pad, int act, int rows, int n_ptiles, int step0, int wbuf, float lr,
-                   float beta1, float beta2, float eps, float ema_decay, float inv, int grid, void* stream) {
+                   int H, int n_hidden, int D_pad, int act, int rows, int n_ptiles, int step0, int wbuf, int precision,
+                   float lr, float beta1, float beta2, float eps, float ema_decay, float inv, int grid, void* stream) {
+  const TrainKernel kernel = train_kernel(precision);
   const int acts_rows = rows * (K_pad + 2 * n_hidden * H + D_pad);
   const int acts = acts_rows > kPhaseBFloats ? acts_rows : kPhaseBFloats;
   const int widest = H > D_pad ? H : D_pad;
   if (steps < 1 || bs < 1 || D < 1 || D > D_pad || K_pad % 4 || H % 4 || D_pad % 4 || rows < 1 ||
-      n_hidden < 1 || grid < 1 || n_ptiles < 1 || wbuf < 4 * (widest + kWPad) ||
+      n_hidden < 1 || grid < 1 || n_ptiles < 1 || wbuf < 4 * (widest + kWPad) || kernel == nullptr ||
       (E2 > 0 && (wemb == nullptr || temb == nullptr))) {
     return (int)cudaErrorInvalidValue;
   }
@@ -734,7 +834,7 @@ int ff_fused_train(const float* xt, const float* zw, const float* t, const float
   a.ema_decay = ema_decay;
   a.inv = inv;
   const size_t smem = 4 * ((size_t)acts + wbuf);
-  cudaError_t st = allow_smem(fused_train_kernel, smem);
+  cudaError_t st = allow_smem(kernel, smem);
   if (st != cudaSuccess) return (int)st;
   if (E2 > 0) {
     const size_t entries = (size_t)steps * bs * 2 * E2;
@@ -745,7 +845,8 @@ int ff_fused_train(const float* xt, const float* zw, const float* t, const float
     if (st != cudaSuccess) return (int)st;
   }
   void* args[] = {&a};
-  st = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(fused_train_kernel), dim3(grid), dim3(kThreads), args, smem, static_cast<cudaStream_t>(stream));
+  st = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel), dim3(grid), dim3(kThreads), args, smem,
+                                   static_cast<cudaStream_t>(stream));
   if (st != cudaSuccess) return (int)st;
   return (int)cudaGetLastError();
 }

@@ -184,7 +184,8 @@ __device__ __forceinline__ void dense_tangents(const float* __restrict__ w, cons
 // to nearest, ties away from zero); a product is a_hi b_hi + a_hi b_lo +
 // a_lo b_hi in fp32, the ~2^-22-relative a_lo b_lo dropped (the counterpart
 // of the JAX package's bf16_3pass_dot_general, kernels/fused_mlp.py:214-233,
-// with TF32 halves in place of bf16 ones).  SiLU takes the tanh-form sigmoid
+// with TF32 halves in place of bf16 ones; fused_train.cu splits each operand
+// once as it is read and sums through fma_split).  SiLU takes the tanh-form sigmoid
 // 0.5 + 0.5 tanh(a / 2) (kernels/fused_mlp.py:257-279), through tanhf: the
 // ~2^-11 error of tanh.approx.f32 would use up the mode's bars.
 
@@ -194,9 +195,16 @@ __device__ __forceinline__ float to_tf32(float x) {
   return __uint_as_float(r);
 }
 
+// The subtraction is written out in round-to-nearest: where x is a product
+// formed just before, the compiler must not fuse it into x - hi.
 __device__ __forceinline__ void split_tf32(float x, float& hi, float& lo) {
   hi = to_tf32(x);
-  lo = to_tf32(x - hi);
+  lo = to_tf32(__fsub_rn(x, hi));
+}
+
+// acc + a b from halves already split: lo.hi, hi.lo, hi.hi in FMAs.
+__device__ __forceinline__ float fma_split(float ah, float al, float bh, float bl, float acc) {
+  return fmaf(ah, bh, fmaf(ah, bl, fmaf(al, bh, acc)));
 }
 
 // acc + a b through the split, on the CUDA cores: the TF32 halves' products
@@ -206,7 +214,7 @@ __device__ __forceinline__ float fma_tf32x3(float a, float b, float acc) {
   float ah, al, bh, bl;
   split_tf32(a, ah, al);
   split_tf32(b, bh, bl);
-  return fmaf(ah, bh, fmaf(ah, bl, fmaf(al, bh, acc)));
+  return fma_split(ah, al, bh, bl, acc);
 }
 
 // act(a) and act'(a) in highf32: act_pair with SiLU's sigmoid in tanh form.

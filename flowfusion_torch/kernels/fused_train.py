@@ -1,12 +1,25 @@
 """A whole score-matching or flow-matching training epoch in one launch.
 
-Counterpart of the JAX package's ``kernels/fused_train.py`` at compute mode
-``float32``: ``fused_train_epoch`` runs ``steps`` Adam updates of an MLP on
+Counterpart of the JAX package's ``kernels/fused_train.py`` in its three
+compute modes: ``fused_train_epoch`` runs ``steps`` Adam updates of an MLP on
 per-step tables and ``fused_train_epoch_symplectic`` trains the two stacks of
 a symplectic net by one such launch each.  On CUDA tensors the wrappers
 launch the hand-written kernel ``csrc/fused_train.cu`` (one cooperative
 launch a call, any number of steps) or raise; on CPU tensors they run the
 plain PyTorch version, :func:`fused_train_epoch_reference`.
+
+The compute mode reaches the three layer products of a step and the
+activation, as the JAX kernel's ``_make_dots`` and ``_act_pair_fn`` take it
+(the JAX package's ``kernels/fused_train.py:164-199``, ``:281-283``): the
+forward products (layer 0 on the whole input), the delta products by W^T
+and the weight gradients summed over the batch run in ``float32`` strict
+fp32, in ``highf32`` as the 3xTF32 split (``fused_mlp.tf32x3_matmul``), in
+``bfloat16`` on bf16-rounded operands with fp32 sums
+(``fused_mlp.bf16_matmul``); both throughput modes take the tanh-form
+sigmoid.  The biases, the residual and loss, the output delta, the bias
+gradient (an unrounded sum), the multiply by act', Adam, the moments, the
+EMA and the Fourier features stay fp32.  ``fit`` trains in ``float32``, as
+the JAX ``fit`` does.
 
 Loss algebra (why the kernel needs no SDE code): every family's loss is
 
@@ -51,10 +64,21 @@ from ..models.nets import (
     VelocityMLPConfig,
     apply_score_mlp,
     apply_velocity_mlp,
+    fourier_time_embedding,
 )
 from ..ops import losses as losses_lib
 from . import _build
-from .fused_mlp import _KERNEL_ACTIVATIONS, _SMEM_LIMIT, LANE, fusable_config
+from .fused_mlp import (
+    _KERNEL_ACTIVATIONS,
+    _SMEM_LIMIT,
+    COMPUTE_DTYPES,
+    LANE,
+    _act_pair,
+    bf16_matmul,
+    check_compute_dtype,
+    fusable_config,
+    tf32x3_matmul,
+)
 
 __all__ = [
     "fused_train_epoch",
@@ -67,6 +91,7 @@ __all__ = [
     "train_tables_symplectic",
     "train_plan",
     "train_flops",
+    "train_flops_by_unit",
     "param_tiles",
     "workspace_floats",
     "occupancy",
@@ -211,12 +236,33 @@ def workspace_floats(cfg, bs: int) -> Tuple[int, int, int]:
 
 
 def train_flops(cfg, steps: int, bs: int) -> int:
-    """Flops of an epoch: 3 x 2 H (K + (n_hidden - 1) H + D) a row a step
-    (forward, and twice that in the backward), at the net's real widths."""
+    """Flops of an epoch: 2 H (2 K + 3 (n_hidden - 1) H + 3 D) a row a step
+    at the net's real widths.  Every layer's forward product and weight
+    gradient, and the delta product of every layer but the first: no delta
+    goes back through layer 0 to the input (``row_tile``)."""
     units, _, _, _ = _cfg_fields(cfg)
     K, _, n_hidden, D = _dims(cfg)
     H = max(units)
-    return steps * bs * 3 * 2 * H * (K + (n_hidden - 1) * H + D)
+    return steps * bs * 2 * H * (2 * K + 3 * (n_hidden - 1) * H + 3 * D)
+
+
+def train_flops_by_unit(cfg, steps: int, bs: int, compute_dtype: str) -> Tuple[int, int]:
+    """``(tensor_core, cuda_core)`` flops of an epoch in a throughput mode,
+    the split of :func:`train_flops` that the modes' bounds take (as
+    ``fused_mlp.highf32_flops_per_row`` / ``bf16_flops_per_row`` split a
+    launch): the (H, H) products of the forward, the delta products and the
+    weight gradients on the tensor cores, one pass (the ``highf32`` bound
+    counts them three times at the TF32 rate); on the CUDA cores the input
+    (K) and output (D) layers' products, three passes in ``highf32`` (the
+    split in FMAs), one in ``bfloat16``: two products of the input layer
+    (forward and weight gradient), three of the output layer."""
+    if compute_dtype not in ("highf32", "bfloat16"):
+        raise ValueError(f"train_flops_by_unit splits 'highf32' or 'bfloat16'; got {compute_dtype!r}")
+    units, _, _, _ = _cfg_fields(cfg)
+    K, _, n_hidden, D = _dims(cfg)
+    H = max(units)
+    passes = 3 if compute_dtype == "highf32" else 1
+    return steps * bs * 3 * 2 * H * (n_hidden - 1) * H, passes * steps * bs * 2 * H * (2 * K + 3 * D)
 
 
 # ---------------------------------------------------------------------------
@@ -296,19 +342,15 @@ def _fresh_opt_state(layers) -> Tuple[tuple, tuple, int]:
 
 def _check_epoch(params, cfg, xt, zw, t, beta, conditional, ema, compute_dtype) -> None:
     """The guards of the JAX package's fused_train_epoch: a config family
-    the kernel computes, its activation, float32 leaves, at least one step,
-    the data and conditional widths, an even embedding."""
+    the kernel computes, a compute mode, its activation, float32 leaves, at
+    least one step, the data and conditional widths, an even embedding."""
     if not isinstance(cfg, (ScoreMLPConfig, VelocityMLPConfig)):
         raise ValueError(
             "the fused training kernel computes ScoreMLPConfig / VelocityMLPConfig nets only; "
             f"got {type(cfg).__name__} — custom nets train on the plain engine "
             "(train.fit(engine='plain'))"
         )
-    if compute_dtype != "float32":
-        raise NotImplementedError(
-            f"training compute dtype {compute_dtype!r} is not ported to flowfusion_torch yet "
-            "(ROADMAP.md queue 2 item 8: 'highf32' #3a, 'bfloat16' #3b); use 'float32'"
-        )
+    check_compute_dtype(compute_dtype)
     units, D_cfg, n_cond, E = _cfg_fields(cfg)
     if not fusable_config(units, cfg.activation):
         raise ValueError(
@@ -370,6 +412,41 @@ def _as_layers(pairs) -> list:
 # ---------------------------------------------------------------------------
 
 
+def _net_input(cfg, params, t: torch.Tensor, xt: torch.Tensor, conditional: Optional[torch.Tensor]):
+    """The first layer's input u as the plain nets build it: [temb | x |
+    cond] for score nets (``apply_score_mlp``), [x | t | cond] for velocity
+    nets (``apply_velocity_mlp``)."""
+    parts = [fourier_time_embedding(t, params["W"]), xt] if isinstance(cfg, ScoreMLPConfig) else [xt, t[:, None]]
+    return torch.cat(parts + ([] if conditional is None else [conditional]), dim=-1)
+
+
+def _chain_grads(layers, u, zw, beta, inv, mm, pair):
+    """``(loss, grads)`` of one step of the table loss by the JAX kernel's
+    explicit forward and backward chain (``_kernel``, the JAX package's
+    ``kernels/fused_train.py:285-330``), every layer product through ``mm``
+    and the activation through ``pair``: forward keeping each layer input h
+    and act'; r = zw + beta net; delta = 2 inv beta r; per layer dW =
+    mm(h^T, delta), db = sum delta (unrounded), delta <- mm(delta, W^T) *
+    act'.  ``grads`` in the leaves' order (w, b, w, b, ...)."""
+    hs, dhs = [u], []
+    a = mm(u, layers[0]["w"]) + layers[0]["b"]
+    for layer in layers[1:]:
+        h, dh = pair(a)
+        hs.append(h)
+        dhs.append(dh)
+        a = mm(h, layer["w"]) + layer["b"]
+    r = zw + beta[:, None] * a
+    loss = inv * torch.sum(r * r)
+    delta = (2.0 * inv) * beta[:, None] * r
+    grads = [None] * (2 * len(layers))
+    for l in range(len(layers) - 1, -1, -1):
+        grads[2 * l] = mm(hs[l].T, delta)
+        grads[2 * l + 1] = torch.sum(delta, dim=0)
+        if l > 0:
+            delta = mm(delta, layers[l]["w"].T) * dhs[l - 1]
+    return loss, grads
+
+
 def fused_train_epoch_reference(
     params: dict,
     cfg,
@@ -388,12 +465,19 @@ def fused_train_epoch_reference(
     ema_decay: float = 0.0,
     mean_over_dims: bool = False,
     loss_scale: Optional[float] = None,
+    compute_dtype: str = "float32",
 ):
     """The plain PyTorch version of :func:`fused_train_epoch`: each step,
     autograd of the table loss through ``apply_score_mlp`` /
-    ``apply_velocity_mlp`` (TF32 off), then the kernel's Adam formula in
-    float32 and the EMA.  Returns what :func:`fused_train_epoch` returns."""
+    ``apply_velocity_mlp`` (TF32 off) in ``float32``, or in ``highf32`` and
+    ``bfloat16`` the JAX kernel's explicit chain (:func:`_chain_grads`)
+    over ``tf32x3_matmul`` / ``bf16_matmul`` and the tanh-form act pair;
+    then the kernel's Adam formula in float32 and the EMA.  Returns what
+    :func:`fused_train_epoch` returns."""
+    check_compute_dtype(compute_dtype)
     apply = apply_score_mlp if isinstance(cfg, ScoreMLPConfig) else apply_velocity_mlp
+    mm = {"highf32": tf32x3_matmul, "bfloat16": bf16_matmul}.get(compute_dtype)
+    pair = _act_pair(cfg.activation)
     steps, bs, D = xt.shape
     inv = _inv(bs, D, mean_over_dims, loss_scale)
     leaves = [a.detach().clone() for lyr in params["layers"] for a in (lyr["w"], lyr["b"])]
@@ -412,13 +496,19 @@ def fused_train_epoch_reference(
     losses = []
     with strict_fp32_matmul():
         for s in range(steps):
-            for a in leaves:
-                a.requires_grad_(True)
-            p = dict(params, layers=_as_layers(zip(leaves[0::2], leaves[1::2])))
-            net = apply(cfg, p, t[s], xt[s], None if conditional is None else conditional[s])
-            r = zw[s] + beta[s][:, None] * net
-            loss = inv * torch.sum(r * r)
-            grads = torch.autograd.grad(loss, leaves)
+            cond_s = None if conditional is None else conditional[s]
+            if mm is None:
+                for a in leaves:
+                    a.requires_grad_(True)
+                p = dict(params, layers=_as_layers(zip(leaves[0::2], leaves[1::2])))
+                net = apply(cfg, p, t[s], xt[s], cond_s)
+                r = zw[s] + beta[s][:, None] * net
+                loss = inv * torch.sum(r * r)
+                grads = torch.autograd.grad(loss, leaves)
+            else:
+                u = _net_input(cfg, params, t[s], xt[s], cond_s)
+                loss, grads = _chain_grads(_as_layers(zip(leaves[0::2], leaves[1::2])), u, zw[s], beta[s], inv, mm,
+                                           pair)
             losses.append(loss.detach())
             tstep = f32(step0 + s + 1)
             bc1 = 1.0 - torch.exp(tstep * log_b1)
@@ -470,10 +560,15 @@ def fused_train_epoch(
     when ``ema`` is None).  ``mean_over_dims`` divides by bs D (the flow
     loss), ``loss_scale`` sets the normalization outright.
 
+    ``compute_dtype`` is the JAX kernel's compute mode of the layer
+    products, ``'float32'``, ``'highf32'`` or ``'bfloat16'`` (module
+    docstring); the state stays float32 in every mode.
+
     Returns ``(params', (m, v, step'), ema', losses)`` with ``losses`` the
     (steps,) loss of each step before its update.  CUDA tensors launch the
-    kernel (``fused_train_epoch.launches`` counts launches); CPU tensors
-    run :func:`fused_train_epoch_reference`.
+    kernel (``fused_train_epoch.launches`` counts launches,
+    ``launches_by_dtype`` by compute mode); CPU tensors run
+    :func:`fused_train_epoch_reference` in the same mode.
     """
     return _epoch(params, cfg, opt_state, xt, zw, t, beta, conditional, lr, beta1, beta2, eps, ema,
                   ema_decay, compute_dtype, mean_over_dims, loss_scale, fused_train_epoch)
@@ -494,7 +589,8 @@ def _epoch(params, cfg, opt_state, xt, zw, t, beta, conditional, lr, beta1, beta
             f"limit of {_ADMIT_ROW_FLOATS} — train on the plain engine (train.fit(engine='plain'))"
         )
     kw = dict(xt=xt, zw=zw, t=t, beta=beta, conditional=conditional, lr=lr, beta1=beta1, beta2=beta2,
-              eps=eps, ema=ema, ema_decay=ema_decay, mean_over_dims=mean_over_dims, loss_scale=loss_scale)
+              eps=eps, ema=ema, ema_decay=ema_decay, mean_over_dims=mean_over_dims, loss_scale=loss_scale,
+              compute_dtype=compute_dtype)
     if plain or not xt.is_cuda:
         return fused_train_epoch_reference(params, cfg, opt_state, **kw)
     return _launch_epoch(params, cfg, opt_state, plan, counter, **kw)
@@ -528,27 +624,29 @@ def _kernel_lib() -> ctypes.CDLL:
     if lib.ff_fused_train.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         ip = ctypes.POINTER(i)
-        lib.ff_fused_train.argtypes = [p] * 16 + [i] * 14 + [f] * 6 + [i, p]
+        lib.ff_fused_train.argtypes = [p] * 16 + [i] * 15 + [f] * 6 + [i, p]
         lib.ff_fused_train.restype = ctypes.c_int
-        lib.ff_fused_train_capacity.argtypes = [ctypes.c_size_t, ip, ip]
+        lib.ff_fused_train_capacity.argtypes = [i, ctypes.c_size_t, ip, ip]
         lib.ff_fused_train_capacity.restype = ctypes.c_int
-        lib.ff_fused_train_attributes.argtypes = [ip, ip]
+        lib.ff_fused_train_attributes.argtypes = [i, ip, ip]
         lib.ff_fused_train_attributes.restype = ctypes.c_int
     return lib
 
 
-_CAPACITY: Dict[Tuple[int, int], Tuple[int, int]] = {}
+_CAPACITY: Dict[Tuple[int, int, str], Tuple[int, int]] = {}
 
 
-def _capacity(device: torch.device, smem: int) -> Tuple[int, int]:
-    """(blocks an SM can hold for this plan, SM count): a cooperative
-    launch's grid may not exceed their product.  Raises where the card
-    cannot make a cooperative launch of this plan."""
-    key = (device.index or 0, smem)
+def _capacity(device: torch.device, smem: int, compute_dtype: str) -> Tuple[int, int]:
+    """(blocks an SM can hold for this plan, SM count) of the mode's
+    instantiation: a cooperative launch's grid may not exceed their
+    product.  Raises where the card cannot make a cooperative launch of
+    this plan."""
+    key = (device.index or 0, smem, compute_dtype)
     if key not in _CAPACITY:
         per_sm, sms = ctypes.c_int(0), ctypes.c_int(0)
         with torch.cuda.device(device):
-            err = _kernel_lib().ff_fused_train_capacity(smem, ctypes.byref(per_sm), ctypes.byref(sms))
+            err = _kernel_lib().ff_fused_train_capacity(COMPUTE_DTYPES.index(compute_dtype), smem,
+                                                        ctypes.byref(per_sm), ctypes.byref(sms))
         if err != 0 or per_sm.value < 1:
             raise RuntimeError(
                 f"fused_train kernel: no cooperative launch of blocks with {smem} bytes of shared memory on "
@@ -558,25 +656,27 @@ def _capacity(device: torch.device, smem: int) -> Tuple[int, int]:
     return _CAPACITY[key]
 
 
-def launch_grid(device: torch.device, plan, bs: int) -> int:
+def launch_grid(device: torch.device, plan, bs: int, compute_dtype: str = "float32") -> int:
     """The grid of a launch: a block for every row tile, at least one for
     every SM (phase B strides over the parameter tiles with the whole
     grid), never more than the card holds at once."""
-    per_sm, sms = _capacity(device, plan[1])
+    per_sm, sms = _capacity(device, plan[1], compute_dtype)
     return min(per_sm * sms, max(-(-bs // plan[0]), sms))
 
 
-def occupancy(plan, device: Optional[torch.device] = None) -> dict:
-    """What the card makes of ``plan``: blocks an SM
+def occupancy(plan, device: Optional[torch.device] = None, compute_dtype: str = "float32") -> dict:
+    """What the card makes of ``plan`` in ``compute_dtype``: blocks an SM
     (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), registers and
     local-memory bytes a thread of the instantiation it launches."""
+    check_compute_dtype(compute_dtype)
     device = device or torch.device("cuda")
     regs, local_bytes = ctypes.c_int(), ctypes.c_int()
     with torch.cuda.device(device):
-        err = _kernel_lib().ff_fused_train_attributes(ctypes.byref(regs), ctypes.byref(local_bytes))
+        err = _kernel_lib().ff_fused_train_attributes(COMPUTE_DTYPES.index(compute_dtype), ctypes.byref(regs),
+                                                      ctypes.byref(local_bytes))
     if err != 0:
         raise RuntimeError(f"fused_train attribute query failed with CUDA error {err}")
-    return dict(rows=plan[0], smem_bytes=plan[1], blocks_per_sm=_capacity(device, plan[1])[0],
+    return dict(rows=plan[0], smem_bytes=plan[1], blocks_per_sm=_capacity(device, plan[1], compute_dtype)[0],
                 registers=regs.value, local_bytes=local_bytes.value)
 
 
@@ -592,7 +692,7 @@ def _tiles_on(device: torch.device, dims: Tuple[int, int, int, int]) -> torch.Te
 
 
 def _launch_epoch(params, cfg, opt_state, plan, counter, *, xt, zw, t, beta, conditional, lr, beta1, beta2,
-                  eps, ema, ema_decay, mean_over_dims, loss_scale):
+                  eps, ema, ema_decay, mean_over_dims, loss_scale, compute_dtype):
     """Pack the state, launch the kernel once on the current stream, unpack."""
     steps, bs, D = xt.shape
     K, H, _, _ = _dims(cfg)
@@ -612,7 +712,7 @@ def _launch_epoch(params, cfg, opt_state, plan, counter, *, xt, zw, t, beta, con
              _pack([(l["w"], l["b"]) for l in ema_src["layers"]], K, H, D) if with_ema else None]
     tables = [None if a is None else a.contiguous() for a in (xt, zw, t, beta, conditional, params.get("W"))]
     loss = launch_packed(cfg, plan, *tables, *state, int(step0), lr, beta1, beta2, eps, ema_decay,
-                         _inv(bs, D, mean_over_dims, loss_scale), counter)
+                         _inv(bs, D, mean_over_dims, loss_scale), counter, compute_dtype=compute_dtype)
 
     def unpack(flat):
         return _unpack(flat, pairs, K, H, D)
@@ -625,12 +725,15 @@ def _launch_epoch(params, cfg, opt_state, plan, counter, *, xt, zw, t, beta, con
 
 
 def launch_packed(cfg, plan, xt, zw, t, beta, conditional, W, p_flat, m_flat, v_flat, ema_flat, step0, lr, beta1,
-                  beta2, eps, ema_decay, inv, counter=None, grid: Optional[int] = None) -> torch.Tensor:
-    """One launch of the kernel on state already in its flat layout
-    (:func:`_pack`), updated in place; returns the (steps,) losses and adds
-    the launch to ``counter`` (default ``fused_train_epoch``).  ``grid``
-    forces a grid (at most what the card holds).  Checks the operands and
-    raises on anything the kernel does not take."""
+                  beta2, eps, ema_decay, inv, counter=None, grid: Optional[int] = None,
+                  compute_dtype: str = "float32") -> torch.Tensor:
+    """One launch of the kernel in ``compute_dtype`` on state already in
+    its flat layout (:func:`_pack`), updated in place; returns the (steps,)
+    losses and adds the launch to ``counter`` (default
+    ``fused_train_epoch``) and its ``launches_by_dtype``.  ``grid`` forces
+    a grid (at most what the card holds).  Checks the operands and raises
+    on anything the kernel does not take."""
+    check_compute_dtype(compute_dtype)
     rows, _ = plan
     steps, bs, D = xt.shape
     dims = _dims(cfg)
@@ -645,9 +748,10 @@ def launch_packed(cfg, plan, xt, zw, t, beta, conditional, W, p_flat, m_flat, v_
             raise ValueError("fused_train kernel takes contiguous float32 CUDA tensors")
     if any(a.numel() != n_param for a in (p_flat, m_flat, v_flat, ema_flat) if a is not None):
         raise ValueError(f"fused_train kernel: flat state must hold {n_param} floats")
+    per_sm, sms = _capacity(device, plan[1], compute_dtype)
     if grid is None:
-        grid = launch_grid(device, plan, bs)
-    elif not 1 <= grid <= _capacity(device, plan[1])[0] * _capacity(device, plan[1])[1]:
+        grid = launch_grid(device, plan, bs, compute_dtype)
+    elif not 1 <= grid <= per_sm * sms:
         raise ValueError(f"fused_train kernel: a grid of {grid} blocks is more than the card holds at once")
     tiles = _tiles_on(device, dims)
     temb = None if E is None else torch.empty((steps * bs * E,), dtype=torch.float32, device=device)
@@ -665,11 +769,14 @@ def launch_packed(cfg, plan, xt, zw, t, beta, conditional, W, p_flat, m_flat, v_
             ptr(p_flat), ptr(m_flat), ptr(v_flat), ptr(ema_flat), ptr(ws_h), ptr(ws_d), ptr(ws_loss), ptr(loss),
             steps, bs, D, C, 0 if E is None else E // 2, _pad(K), H, n_hidden, _pad(D),
             _KERNEL_ACTIVATIONS.index(cfg.activation), rows, tiles.shape[0], step0, plan_wbuf(cfg, plan),
-            lr, beta1, beta2, eps, ema_decay, inv, grid, torch.cuda.current_stream(device).cuda_stream,
+            COMPUTE_DTYPES.index(compute_dtype), lr, beta1, beta2, eps, ema_decay, inv, grid,
+            torch.cuda.current_stream(device).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"fused_train kernel launch failed with CUDA error {err}")
-    (counter or fused_train_epoch).launches += 1
+    counter = counter or fused_train_epoch
+    counter.launches += 1
+    counter.launches_by_dtype[compute_dtype] += 1
     return loss
 
 
@@ -721,8 +828,9 @@ def fused_train_epoch_symplectic(
     compute_dtype: str = "float32",
 ):
     """Training epochs of a ``SymplecticFlowModel``'s two stacks, one
-    launch each (CUDA tensors; ``fused_train_epoch_symplectic.launches``
-    counts them) or the plain version (CPU tensors).
+    launch each in ``compute_dtype`` (CUDA tensors;
+    ``fused_train_epoch_symplectic.launches`` counts them) or the plain
+    version (CPU tensors).
 
     The stacks share no parameter, so each trains as its own
     :func:`fused_train_epoch` on its half of the tables
@@ -754,11 +862,13 @@ def fused_train_epoch_symplectic_reference(
     eps: float = 1e-8,
     ema: Optional[dict] = None,
     ema_decay: float = 0.0,
+    compute_dtype: str = "float32",
 ):
     """The plain PyTorch version of :func:`fused_train_epoch_symplectic`
-    on any device: both stacks through :func:`fused_train_epoch_reference`."""
+    on any device: both stacks through :func:`fused_train_epoch_reference`
+    in ``compute_dtype``."""
     return _symplectic(params, cfg, opt_state, xt_q, zw_q, xt_p, zw_p, t, conditional, lr, beta1, beta2, eps, ema,
-                       ema_decay, "float32", plain=True)
+                       ema_decay, compute_dtype, plain=True)
 
 
 def _symplectic(params, cfg, opt_state, xt_q, zw_q, xt_p, zw_p, t, conditional, lr, beta1, beta2, eps, ema,
@@ -795,9 +905,11 @@ def _symplectic(params, cfg, opt_state, xt_q, zw_q, xt_p, zw_p, t, conditional, 
 
 
 def reset_launch_counts() -> None:
-    """Zero the launch counts of both wrappers of the training kernel."""
-    fused_train_epoch.launches = 0
-    fused_train_epoch_symplectic.launches = 0
+    """Zero the launch counts of both wrappers of the training kernel, and
+    their splits by compute mode (``launches_by_dtype``)."""
+    for fn in (fused_train_epoch, fused_train_epoch_symplectic):
+        fn.launches = 0
+        fn.launches_by_dtype = dict.fromkeys(COMPUTE_DTYPES, 0)
 
 
 reset_launch_counts()

@@ -650,6 +650,40 @@ def test_train_kernel_matches_plain_version(cuda_device, family, C, bs):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["highf32", "bfloat16"])
+@pytest.mark.parametrize("family,C,bs", [("score", 0, 512), ("score_odd", 0, 77), ("velocity", 2, 300),
+                                         ("symplectic", 0, 512)])
+def test_train_kernel_modes_match_plain_version(cuda_device, family, C, bs, mode):
+    """highf32 and bfloat16: two chained calls of 4 steps with the EMA on,
+    at eps = 1 (at 1e-8 a gradient near zero flips a step's sign), against
+    the mode's plain version: losses rtol 1e-5 (3e-5 in bfloat16), layers
+    and EMA at float32's chained bar (5e-5, symplectic 3e-4); the launches
+    counted by mode; a repeated launch bitwise equal."""
+    from flowfusion_torch.kernels import fused_train as ft
+
+    cfg, params = _train_net(family, cuda_device, C)
+    sympl = family == "symplectic"
+    tab = _train_tables(8, bs, 3 if family == "score_odd" else 2, C, cuda_device, 21, symplectic=sympl)
+    fn = ft.fused_train_epoch_symplectic if sympl else ft.fused_train_epoch
+    ref_fn = ft.fused_train_epoch_symplectic_reference if sympl else ft.fused_train_epoch_reference
+    kw = dict({"mean_over_dims": True} if family == "velocity" else {}, lr=1e-3, eps=1.0, ema_decay=0.99,
+              compute_dtype=mode)
+    halves = [{k: None if v is None else v[s] for k, v in tab.items()} for s in (slice(0, 4), slice(4, 8))]
+    runs = []
+    for f in (fn, ref_fn, fn):
+        before = fn.launches_by_dtype[mode]
+        o1 = f(params, cfg, None, **halves[0], **kw)
+        o2 = f(o1[0], cfg, o1[1], ema=o1[2], **halves[1], **kw)
+        runs.append((o2, fn.launches_by_dtype[mode] - before))
+    torch.cuda.synchronize()
+    (k, n_k), (r, n_r), (k_again, _) = runs
+    assert n_k == (4 if sympl else 2) and n_r == 0
+    torch.testing.assert_close(k[3], r[3], rtol=1e-5 if mode == "highf32" else 3e-5, atol=0)
+    assert max(_max_layer_err(k[0], r[0]), _max_layer_err(k[2], r[2])) <= (3e-4 if sympl else 5e-5)
+    assert torch.equal(k[3], k_again[3]) and _max_layer_err(k[0], k_again[0]) == 0.0
+
+
+@pytest.mark.gpu
 def test_train_kernel_is_deterministic(cuda_device):
     """No float atomics: two launches on the same inputs are bitwise equal."""
     from flowfusion_torch.kernels import fused_train as ft

@@ -336,8 +336,9 @@ def test_conditional_checkpoint_served_in_highf32():
 @pytest.mark.parametrize("family", ["score", "flow", "symplectic"])
 def test_fit_trains_a_highf32_model_in_float32(family):
     """fit passes no compute dtype to the training kernel, in either
-    package: a highf32 model trains on the float32 kernel's arithmetic
-    (bitwise its float32 twin's run) and keeps its serving mode."""
+    package (the JAX package's train.py:798-820): a highf32 model, and a
+    bfloat16 one, trains on the float32 kernel's arithmetic (bitwise its
+    float32 twin's run) and keeps its serving mode."""
     x = DEMO_GMM.sample(gen(1), 128, device="cpu")
     if family == "score":
         cfg = nets.ScoreMLPConfig(n_dimensions=2, units=(32, 32))
@@ -346,14 +347,15 @@ def test_fit_trains_a_highf32_model_in_float32(family):
         m32 = ODEFlow.create(target_dimension=2, hidden_units=(32, 32), generator=gen(0), device="cpu")
     else:
         m32 = SymplecticFlowModel.create(units=(32, 32), generator=gen(0), device="cpu")
-    mhf = dataclasses.replace(m32, kernel_compute_dtype="highf32")
     kw = dict(stages=[(32, 1e-3)], epochs_per_stage=2, ema_decay=0.9, engine="fused")
     fit32, r32 = train.fit(m32, gen(5), x, **kw)
-    fithf, rhf = train.fit(mhf, gen(5), x, **kw)
-    assert fithf.kernel_compute_dtype == "highf32"
-    assert np.array_equal(r32[0].train_losses, rhf[0].train_losses)
-    for (_, a), (_, b) in zip(leaves_with_paths(fit32), leaves_with_paths(fithf)):
-        assert torch.equal(a, b)
+    for mode in ("highf32", "bfloat16"):
+        mhf = dataclasses.replace(m32, kernel_compute_dtype=mode)
+        fithf, rhf = train.fit(mhf, gen(5), x, **kw)
+        assert fithf.kernel_compute_dtype == mode
+        assert np.array_equal(r32[0].train_losses, rhf[0].train_losses)
+        for (_, a), (_, b) in zip(leaves_with_paths(fit32), leaves_with_paths(fithf)):
+            assert torch.equal(a, b)
 
 
 # ---------------------------------------------------------------------------
@@ -384,14 +386,11 @@ def test_bfloat16_refused_everywhere_naming_3b():
         lambda dt: em_sampler.fused_em_sample(params, cfg, VESDE(), x, 1, steps=1, compute_dtype=dt),
         lambda dt: fused_train.fused_train_epoch(params, cfg, lr=1e-3, compute_dtype=dt, **_train_table(cfg)),
     ]
-    # the RHS, sketch and EM kernels' entries and the models take bfloat16
-    # (queue 2 #3b, rows 1-8); the training kernel still raises, naming #3b
-    for call in calls[:11]:
+    # every kernel's entries and the models take bfloat16 (queue 2 #3b,
+    # rows 1-10); the training kernel runs it at its own API
+    for call in calls:
         call("bfloat16")
-    for call in calls[11:]:
-        with pytest.raises(NotImplementedError, match="3b"):
-            call("bfloat16")
-    for call in calls[:10]:  # the RHS and sketch kernels' entries take no unknown mode
+    for call in calls[:10] + calls[11:]:  # the RHS, sketch and training kernels' entries take no unknown mode
         with pytest.raises(ValueError, match="unknown"):
             call("float16")
 
