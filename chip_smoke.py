@@ -213,12 +213,31 @@ non-zero without the final line):
      solve; (d) each bf16 launch's time (the sketch kernel's too) beside the
      float32 launch's in turns, the plain version's, the bound at the bf16
      tensor-core rate;
+  16. the utilities (``utilities_phase``, printed after 14), launches
+     counted from zero: (a) the flagship, conditional, flow and symplectic
+     checkpoints written as reference-layout state_dicts
+     (``reference_state_dict``) and converted back by ``utils.convert``,
+     each solve at the README's settings (flagship Hutchinson 50,000 rows
+     at rtol 1e-5 PI, conditional 20,000, flow exact and symplectic K = 4
+     at 50,000) bitwise its npz-loaded twin's, the same NFE, launches =
+     NFE; (b) ``sample_sde`` 50,000 x 100 with ``progress=True`` bitwise
+     that of ``progress=False``, 100 launches each, one warning without
+     tqdm; (c) a ``profiling.trace`` of the flagship solve holding the
+     ``annotate`` span and NFE RHS kernel events, ``Timer`` against CUDA
+     events, ``summarize_stats``, ``device_memory``,
+     ``assert_all_finite``; (d) the native loader built by the host
+     compiler, one epoch of 1,000,000 x 9 conditional rows at batch
+     65,536 (each row the file's, none twice), host rows/s, a batch's
+     ``log_prob`` on the card; (e) ``save_dcp`` / ``load_dcp`` of the
+     flagship's parameters into CPU and card templates, bitwise, the
+     reloaded model's solve bitwise, an overwrite;
   7. a ``kernels`` line, printed last: launches on the main paths (each
      path run with the counts set to 0 just before it: phases 2-4, 5, 6,
      the two-launch path of 1d, 8, 9, 10 and, for the highf32 entries, 11
      and 12, for the bfloat16 entries 15, for the training kernel's modes
      1e's modes path), times, bounds and plain times,
-     and ``serving_launches``, the launches on phase 14's paths.
+     ``serving_launches``, the launches on phase 14's paths, and
+     ``utilities_launches``, those on phase 16's.
 
 The last line is ``{"ok": true, "device": {...}}``.  Exits with 2 and no
 result when no CUDA card is visible.
@@ -286,6 +305,41 @@ def check(ok: bool, msg: str) -> None:
 
 def rel_err(out, ref) -> float:
     return float((out - ref).abs().max() / ref.abs().max())
+
+
+def reference_state_dict(tree, family: str, device="cpu") -> dict:
+    """A checkpoint tree (``utils.checkpoint.load_npz``) in the reference
+    library's state_dict layout, the inverse of the port's converters
+    (``utils/convert.py``): each stack an ``nn.Sequential`` with an
+    activation between its Linear layers (Linear j at index 2 j, its weight
+    (out, in)), the Fourier ``W``, and the wrapper's standardization
+    buffers.  ``family``: "score" (a ScoreModel or a population wrapper),
+    "flow" or "symplectic"."""
+    import numpy as np
+    import torch
+
+    def tensor(a):
+        return torch.as_tensor(np.ascontiguousarray(a)).to(device)
+
+    def seq(layers, prefix):
+        out = {}
+        for j, layer in enumerate(layers):
+            out[f"{prefix}.{2 * j}.weight"] = tensor(np.asarray(layer["w"]).T)
+            out[f"{prefix}.{2 * j}.bias"] = tensor(layer["b"])
+        return out
+
+    params = tree["score_model"]["params"] if "score_model" in tree else tree["params"]
+    if family == "score":
+        sd = {"W": tensor(params["W"]), **seq(params["layers"], "NN")}
+    elif family == "flow":
+        sd = seq(params["layers"], "velocity")
+    else:
+        sd = {"W": tensor(params["W"]), **seq(params["q_layers"], "mlp_q_dynamics"),
+              **seq(params["p_layers"], "mlp_p_dynamics")}
+    for name in ("shift", "scale", "target_shift", "target_scale", "conditional_shift", "conditional_scale"):
+        if name in tree:
+            sd[name] = tensor(tree[name])
+    return sd
 
 
 def main() -> int:
@@ -3342,6 +3396,9 @@ def main() -> int:
     # -- phase 14: the CLI and the serving artifacts -------------------------
     serving_counts = serving_phase(smi, dev, flag_params, flag_cfg, reset_counts, read_counts)
 
+    # -- phase 16: the utilities ----------------------------------------------
+    utility_counts = utilities_phase(smi, dev, flag_params, flag_cfg, reset_counts, read_counts)
+
     # -- phase 7: the kernels line ------------------------------------------
     # no single PyTorch call computes any of these functions (a fused MLP with
     # its divergence, its Jacobian-vector columns or its sketch estimate; the
@@ -3420,6 +3477,11 @@ def main() -> int:
         k["serving_launches"] = serving_counts.get(k["name"], 0)
     check(set(serving_counts) <= {k["name"] for k in kernels} | {n for n, v in serving_counts.items() if not v},
           f"phase 14 launched kernels the line does not name: {serving_counts}")
+    # launches on phase 16's paths (the utilities), counted from zero
+    for k in kernels:
+        k["utilities_launches"] = utility_counts.get(k["name"], 0)
+    check(set(utility_counts) <= {k["name"] for k in kernels},
+          f"phase 16 launched kernels the line does not name: {utility_counts}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({
         "ok": True,
@@ -3793,6 +3855,304 @@ def serving_phase(smi, dev, flag_params, flag_cfg, reset_counts, read_counts) ->
     secs = time.perf_counter() - t14
     emit("phase14", seconds=secs, export_s=exports, card=smi)
     return path_counts
+
+
+def utilities_phase(smi, dev, flag_params, flag_cfg, reset_counts, read_counts) -> dict:
+    """Phase 16: the utilities on the card, at the flagship's full width.
+
+    (a) the committed checkpoints written out as reference-layout
+    state_dicts (``reference_state_dict``) and converted back by
+    ``utils.convert``: the flagship (tensors on the card) and the flow and
+    symplectic checkpoints at 50,000 rows, the conditional checkpoint
+    (``standardization_from_torch``) at 20,000, each solve bitwise its
+    npz-loaded twin's in this call, the same NFE, launches = NFE (2 x NFE
+    symplectic).  (b) ``sample_sde`` at 50,000 x 100 with ``progress=True``:
+    ``x_mean`` bitwise that of ``progress=False`` from the same seed, 100
+    launches each, one warning where tqdm is absent.  (c) around the
+    flagship solve: a ``profiling.trace`` file holding the ``annotate``
+    span and at least NFE RHS kernel events, ``Timer`` against CUDA events,
+    ``summarize_stats``, ``device_memory``, ``assert_all_finite``.  (d) the
+    native loader: built by the host compiler, one epoch of 1,000,000 x 9
+    conditional rows at batch 65,536 (each row the file's, none twice),
+    host rows/s, a batch's conditional ``log_prob`` on the card.  (e)
+    ``save_dcp`` / ``load_dcp`` of the flagship's parameters into CPU and
+    card templates, bitwise, the reloaded model's solve bitwise, an
+    overwrite.  Returns each kernel entry's launches on these paths
+    (counted from zero)."""
+    import importlib.util
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from flowfusion_torch.kernels import fused_mlp
+    from flowfusion_torch.models.flow import ODEFlow
+    from flowfusion_torch.models.nets import ScoreMLPConfig, SymplecticMLPConfig, VelocityMLPConfig
+    from flowfusion_torch.models.population import PopulationModelDiffusion
+    from flowfusion_torch.models.score import ScoreModel
+    from flowfusion_torch.models.symplectic import SymplecticFlowModel
+    from flowfusion_torch.ops.sde import VESDE, VPSDE
+    from flowfusion_torch.utils import checkpoint, convert, diagnostics, native_loader, profiling
+    from flowfusion_torch.utils.data import CONDITIONAL_POP, DEMO_GMM, REFERENCE_GMM
+    from flowfusion_torch.utils.tree import leaves_with_paths
+
+    t16 = time.perf_counter()
+    reset_counts()
+    tmp = tempfile.TemporaryDirectory()
+    d = tmp.name
+    drift, velocity, sym = fused_mlp.fused_drift, fused_mlp.fused_velocity, fused_mlp.fused_symplectic_velocity
+    opts = {"controller": "pi"}
+
+    def gen(seed):
+        return torch.Generator().manual_seed(seed)
+
+    def run(fn, count):
+        """(fn(), launches it made by ``count``, seconds to its end on the card)."""
+        before = count()
+        torch.cuda.synchronize()
+        t_start = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, count() - before, time.perf_counter() - t_start
+
+    def same_leaves(a, b):
+        la, lb = leaves_with_paths(a), leaves_with_paths(b)
+        return [n for n, _ in la] == [n for n, _ in lb] and all(
+            x.dtype == y.dtype and torch.equal(x.cpu(), y.cpu()) for (_, x), (_, y) in zip(la, lb))
+
+    # -- 16a reference checkpoints converted back --------------------------
+    def load(name):
+        return checkpoint.load_npz(os.path.join(BENCH, name))
+
+    flag_tree = load("flagship_ckpt.npz")
+    extra = checkpoint.read_npz_extra(os.path.join(BENCH, "flagship_ckpt.npz"))
+    shift, scale = (torch.tensor(extra[k], device=dev) for k in ("shift", "scale"))
+    x_flag = (DEMO_GMM.sample(gen(1600), 50_000, device=dev) - shift) / scale
+
+    def flag_solve(m):
+        return m.log_prob(x_flag, generator=gen(1601), atol=1e-5, rtol=1e-5, options=opts)
+
+    theta, cond = CONDITIONAL_POP.sample(gen(1610), 20_000, device=dev)
+    x_flow = REFERENCE_GMM.sample(gen(1620), 50_000, device=dev)
+    x_sym = DEMO_GMM.sample(gen(1630), 50_000, device=dev)
+    cond_twin, _ = PopulationModelDiffusion.from_conditional_npz(os.path.join(BENCH, "conditional_ckpt.npz"), device=dev)
+    cond_twin = dataclasses.replace(
+        cond_twin, score_model=dataclasses.replace(cond_twin.score_model, kernel_compute_dtype="float32"))
+    no_cond = {"conditional_shift": None, "conditional_scale": None}
+
+    def convert_flagship(sd):
+        return ScoreModel(convert.score_mlp_from_torch(sd, n_layers=4, device=dev), flag_cfg, VESDE(),
+                          trace_mode="hutchinson")
+
+    def convert_conditional(sd):
+        net = ScoreMLPConfig(n_dimensions=6, n_conditionals=3, units=(128,) * 3)
+        check(net == cond_twin.score_model.net, f"16a conditional net {cond_twin.score_model.net}")
+        sm = ScoreModel(convert.score_mlp_from_torch(sd, device=dev), net, VPSDE(), no_sigma=True,
+                        trace_mode="hutchinson")
+        return PopulationModelDiffusion(sm, **convert.standardization_from_torch(sd, device=dev))
+
+    def convert_flow(sd):
+        net = VelocityMLPConfig(target_dimension=2, hidden_units=(128, 128))
+        return ODEFlow(convert.velocity_mlp_from_torch(sd, device=dev), net=net,
+                       **{**no_cond, **convert.standardization_from_torch(sd, device=dev)})
+
+    def convert_symplectic(sd):
+        net = SymplecticMLPConfig(n_data_dims=2, units=(128, 128))
+        return SymplecticFlowModel(convert.symplectic_mlp_from_torch(sd, device=dev), net=net,
+                                   **{**no_cond, **convert.standardization_from_torch(sd, device=dev)})
+
+    cases = (
+        # name, family, tree, state_dict device, converter, npz twin, solve, launch counter, launches an NFE
+        ("flagship", "score", flag_tree, dev, convert_flagship,
+         ScoreModel(flag_params, flag_cfg, VESDE(), trace_mode="hutchinson"), flag_solve,
+         lambda: drift.launches_by_mode["hutchinson"], 1),
+        ("conditional", "score", load("conditional_ckpt.npz"), "cpu", convert_conditional, cond_twin,
+         lambda m: m.log_prob(theta, conditional=cond, generator=gen(1611), atol=1e-5, rtol=1e-5,
+                              volume_corrected=True, options=opts),
+         lambda: drift.launches_by_mode["hutchinson"], 1),
+        ("flow", "flow", load("flow_ckpt.npz"), "cpu", convert_flow,
+         ODEFlow.from_npz(os.path.join(BENCH, "flow_ckpt.npz"), device=dev)[0],
+         lambda m: m.log_prob(x_flow, atol=1e-4, rtol=1e-4), lambda: velocity.launches_by_mode["exact"], 1),
+        ("symplectic", "symplectic", load("symplectic_ckpt.npz"), "cpu", convert_symplectic,
+         SymplecticFlowModel.from_npz(os.path.join(BENCH, "symplectic_ckpt.npz"), device=dev)[0],
+         lambda m: m.log_prob(x_sym, generator=torch.Generator(device=dev).manual_seed(1631),
+                              n_momentum_samples=4),
+         lambda: sym.launches, 2),
+    )
+    converted = {}
+    for name, family, tree, sd_dev, conv, twin, solve, count, per_nfe in cases:
+        sd = reference_state_dict(tree, family, sd_dev)
+        torch.cuda.synchronize()
+        t_start = time.perf_counter()
+        model = conv(sd)
+        torch.cuda.synchronize()
+        convert_ms = (time.perf_counter() - t_start) * 1e3
+        check(same_leaves(model, twin), f"16a {name}: the converted model's leaves differ from the npz-loaded model's")
+        (lp_n, st_n), n_n, s_n = run(lambda: solve(twin), count)
+        (lp_c, st_c), n_c, s_c = run(lambda: solve(model), count)
+        nfe = st_c.n_func_evals
+        check(nfe == st_n.n_func_evals, f"16a {name}: NFE {nfe} != the npz twin's {st_n.n_func_evals}")
+        check(n_c == n_n == per_nfe * nfe, f"16a {name}: launches {n_c} / {n_n} != {per_nfe} x NFE {nfe}")
+        check(bool(torch.isfinite(lp_c).all()) and st_c.succeeded, f"16a {name}: failed or non-finite")
+        check(torch.equal(lp_c, lp_n), f"16a {name}: log-probs differ from the npz twin's, "
+              f"max |d| {float((lp_c - lp_n).abs().max()):.3e}")
+        converted[name] = (model, lp_c, st_c)
+        emit("convert_reference_checkpoint", model=name, rows=lp_c.shape[0], state_dict_keys=len(sd),
+             state_dict_device=str(sd_dev), nfe=nfe, launches=n_c, bitwise=True, convert_ms=convert_ms,
+             seconds_npz_twin=s_n, seconds_converted=s_c, card=smi)
+    flag_model, lp_flag, st_flag = converted["flagship"]
+
+    # -- 16b progress bars --------------------------------------------------
+    tqdm_found = importlib.util.find_spec("tqdm") is not None
+    plain_sampler = ScoreModel(flag_params, flag_cfg, VESDE())
+
+    def forward_launches():
+        return drift.launches_by_mode["forward"]
+
+    def sample(progress):
+        return plain_sampler.sample_sde((50_000, 2), steps=100, progress=progress,
+                                        generator=torch.Generator(device=dev).manual_seed(1640))
+
+    quiet, n_q, s_q = run(lambda: sample(False), forward_launches)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        shown, n_s, s_s = run(lambda: sample(True), forward_launches)
+    bar_warnings = [str(w.message) for w in caught if "tqdm" in str(w.message)]
+    check(n_q == n_s == 100, f"16b sample_sde launches {n_q} / {n_s} != 100")
+    check(torch.equal(shown.x_mean, quiet.x_mean) and torch.equal(shown.x, quiet.x),
+          "16b progress=True changed the samples")
+    check(len(bar_warnings) == (0 if tqdm_found else 1), f"16b tqdm found {tqdm_found}, warnings {bar_warnings}")
+    emit("progress_bar", rows=50_000, steps=100, tqdm_found=tqdm_found, warnings=bar_warnings, launches=n_s,
+         bitwise=True, seconds_progress=s_s, seconds_quiet=s_q, card=smi)
+
+    # -- 16c diagnostics and profiling around the flagship solve ------------
+    span = "phase16-flagship-hutchinson"
+    trace_dir = os.path.join(d, "trace")
+    hutch = lambda: drift.launches_by_mode["hutchinson"]  # noqa: E731
+    t_start = time.perf_counter()
+    with profiling.trace(trace_dir):
+        with profiling.annotate(span):
+            lp_t, st_t = flag_solve(flag_model)
+    trace_s = time.perf_counter() - t_start
+    files = [os.path.join(r, f) for r, _, fs in os.walk(trace_dir) for f in fs]
+    check(len(files) == 1, f"16c trace files: {files}")
+    with open(files[0]) as f:
+        events = json.load(f)["traceEvents"]
+    spans = [e for e in events if e.get("name") == span]
+    # each launch of the RHS kernel is one event of its op on the host, and
+    # one kernel record on the card, linked by the profiler's External id.
+    # Late in a full run the profiler kept 157 kernel records of 158
+    # launches, in two calls, where alone it keeps all 158: the host events
+    # are gated, the card's records reported with the launches they miss.
+    rhs_ops = sorted((e for e in events if e.get("cat") == "cpu_op" and "fused_mlp" in e.get("name", "")),
+                     key=lambda e: e["ts"])
+    rhs_kernels = [e for e in events if e.get("cat") == "kernel" and "fused_mlp_kernel" in e.get("name", "")]
+    recorded = {e.get("args", {}).get("External id") for e in rhs_kernels}
+    unrecorded = [i for i, e in enumerate(rhs_ops) if e.get("args", {}).get("External id") not in recorded]
+    check(torch.equal(lp_t, lp_flag), "16c the profiled solve differs from 16a's")
+    check(len(spans) >= 1, f"16c the trace holds no {span} span")
+    check(len(rhs_ops) == st_t.n_func_evals, f"16c the trace holds {len(rhs_ops)} launches of the RHS kernel's op "
+          f"!= NFE {st_t.n_func_evals}")
+    check(0 < len(rhs_kernels) <= len(rhs_ops), f"16c the trace holds {len(rhs_kernels)} RHS kernel records")
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with diagnostics.Timer() as timer:
+        start.record()
+        lp_w, st_w = flag_solve(flag_model)
+        end.record()
+        timer.block_on((lp_w, st_w))
+    event_s = start.elapsed_time(end) / 1e3
+    check(timer.seconds >= event_s, f"16c Timer {timer.seconds:.6f} s < the CUDA events' {event_s:.6f} s")
+    summary = diagnostics.summarize_stats(st_w)
+    check(summary["n_func_evals"] == st_w.n_func_evals == st_flag.n_func_evals, f"16c summarize_stats {summary}")
+    mem = profiling.device_memory()
+    total = torch.cuda.mem_get_info()[1]
+    check("cuda:0" in mem and abs(mem["cuda:0"]["bytes_limit"] - total) <= 0.01 * total,
+          f"16c device_memory bytes_limit vs mem_get_info total {total}: {mem.get('cuda:0', {}).get('bytes_limit')}")
+    check(mem["cuda:0"]["peak_bytes_in_use"] > 0, "16c device_memory reads no peak")
+    diagnostics.assert_all_finite({"lp": lp_w}, "flagship")
+    poisoned = lp_w.clone()
+    poisoned[12_345] = float("nan")
+    try:
+        diagnostics.assert_all_finite({"lp": poisoned}, "flagship")
+        raised = ""
+    except FloatingPointError as err:
+        raised = str(err)
+    check("1/50000 non-finite" in raised and "['lp']" in raised, f"16c assert_all_finite raised {raised!r}")
+    emit("diagnostics", trace_bytes=os.path.getsize(files[0]), trace_events=len(events), span_events=len(spans),
+         rhs_op_events=len(rhs_ops), rhs_kernel_records=len(rhs_kernels), launches_without_kernel_record=[
+             (i, rhs_ops[i]["ts"] - rhs_ops[0]["ts"]) for i in unrecorded], nfe=st_t.n_func_evals, seconds_traced=trace_s, timer_s=timer.seconds,
+         cuda_event_s=event_s, summary=summary, assert_all_finite=raised,
+         memory=profiling.format_device_memory(), bytes_limit=mem["cuda:0"]["bytes_limit"],
+         peak_bytes=mem["cuda:0"]["peak_bytes_in_use"], card=smi)
+
+    # -- 16d the native batch loader ----------------------------------------
+    t_start = time.perf_counter()
+    built = native_loader.NativeBatchLoader.available()
+    build_s = time.perf_counter() - t_start
+    check(built, f"16d the native loader did not build: {native_loader._LIB_ERR}")
+    n_rows, batch = 1_000_000, 65_536
+    rng = np.random.default_rng(1650)
+    c_np = rng.uniform(-1.0, 1.0, (n_rows, 3)).astype(np.float32)
+    z_np = rng.standard_normal((n_rows, 6)).astype(np.float32)
+    mean, sd_ = CONDITIONAL_POP.mean_scale(torch.from_numpy(c_np))
+    rows = np.concatenate([(mean + sd_ * torch.from_numpy(z_np)).numpy(), c_np], axis=1).astype(np.float32)
+    path = os.path.join(d, "conditional_rows.f32")
+    native_loader.write_f32(path, rows)
+    t_start = time.perf_counter()
+    loader = native_loader.NativeBatchLoader(path, n_cols=9, batch=batch, seed=1651)
+    batches = [loader.next() for _ in range(n_rows // batch)]
+    load_s = time.perf_counter() - t_start
+    loader.close()
+    check(loader.n_rows == n_rows, f"16d the loader sees {loader.n_rows} rows")
+    epoch = np.concatenate(batches)
+
+    def keys(a):
+        return np.ascontiguousarray(a).view(np.dtype((np.void, 36))).ravel()
+
+    check(np.unique(keys(epoch)).size == epoch.shape[0], "16d a row was drawn twice in one epoch")
+    check(bool(np.isin(keys(epoch), keys(rows)).all()), "16d a batch row is not a row of the file")
+    on_card = torch.from_numpy(batches[0]).to(dev)
+    cond_model = converted["conditional"][0]
+    (lp_b, st_b), n_b, s_b = run(lambda: cond_model.log_prob(
+        on_card[:, :6], conditional=on_card[:, 6:], generator=gen(1652), atol=1e-5, rtol=1e-5,
+        volume_corrected=True, options=opts), hutch)
+    check(bool(torch.isfinite(lp_b).all()) and n_b == st_b.n_func_evals, "16d the loader batch's log_prob")
+    offset = float((lp_b - CONDITIONAL_POP.log_prob(on_card[:, :6], on_card[:, 6:])).double().mean())
+    emit("native_loader", rows=n_rows, cols=9, file_bytes=os.path.getsize(path), batch=batch,
+         batches=len(batches), build_s=build_s, epoch_s=load_s, host_rows_per_s=epoch.shape[0] / load_s,
+         batch_log_prob_nfe=st_b.n_func_evals, batch_launches=n_b, batch_offset_nats=offset, seconds_batch=s_b,
+         card=smi)
+
+    # -- 16e the torch checkpoint -------------------------------------------
+    ck = os.path.join(d, "dcp")
+    t_start = time.perf_counter()
+    checkpoint.save_dcp(ck, flag_params)
+    save_s = time.perf_counter() - t_start
+    t_start = time.perf_counter()
+    to_cpu = checkpoint.load_dcp(ck, flag_cfg.init(gen(1660), device="cpu"))
+    to_card = checkpoint.load_dcp(ck, flag_cfg.init(gen(1661), device=dev))
+    load_s = time.perf_counter() - t_start
+    check(same_leaves(to_cpu, flag_params) and same_leaves(to_card, flag_params), "16e the reloaded params differ")
+    check(all(leaf.device.type == "cpu" for _, leaf in leaves_with_paths(to_cpu))
+          and all(leaf.device == flag_params["W"].device for _, leaf in leaves_with_paths(to_card)),
+          "16e a reloaded leaf is not on its template's device")
+    reloaded = ScoreModel(to_card, flag_cfg, VESDE(), trace_mode="hutchinson")
+    (lp_r, st_r), n_r, _ = run(lambda: flag_solve(reloaded), hutch)
+    check(torch.equal(lp_r, lp_flag) and n_r == st_r.n_func_evals, "16e the reloaded model's solve differs")
+    second = {"W": -flag_params["W"], "layers": flag_params["layers"]}
+    checkpoint.save_dcp(ck, second)
+    check(same_leaves(checkpoint.load_dcp(ck, to_card), second), "16e a second save did not overwrite the first")
+    emit("torch_checkpoint", leaves=len(leaves_with_paths(flag_params)), save_s=save_s, load_s_two=load_s,
+         files=sorted(os.listdir(ck)), bitwise=True, solve_bitwise=True, overwritten=True, card=smi)
+
+    counts = {k: v for k, v in read_counts().items() if v}
+    for name in ("fused_drift[hutchinson]", "fused_drift[forward]", "fused_velocity[exact]",
+                 "fused_symplectic_velocity"):
+        check(counts.get(name, 0) > 0, f"phase 16 never launched {name}: {counts}")
+    emit("utilities_path_launches", **counts)
+    tmp.cleanup()
+    emit("phase16", seconds=time.perf_counter() - t16, card=smi)
+    return counts
 
 
 def parent_ab(parent_dir: str) -> int:

@@ -10,8 +10,7 @@ Euler--Maruyama sampling loop, and for a whole training epoch (``fit``,
 with exact resume through ``FitCheckpoint``).  The JAX package stays the reference the
 port is checked against; this package imports nothing of it, nor JAX.  Entry
 points run on the CUDA card unless the caller passes ``device="cpu"`` or
-CPU tensors.  What is not ported yet raises ``NotImplementedError``
-naming its ROADMAP.md item.
+CPU tensors.
 """
 
 from . import kernels, models, ops, train, utils
@@ -20,7 +19,7 @@ from .models.nets import ScoreMLPConfig, SymplecticMLPConfig, VelocityMLPConfig
 from .models.population import PopulationModelDiffusion
 from .models.score import ScoreModel
 from .models.symplectic import SymplecticFlowModel
-from .ops.integrate import odeint
+from .ops.integrate import euler_maruyama, odeint, odeint_adjoint
 from .ops.sde import SUBVPSDE, VESDE, VPSDE
 from .train import FitCheckpoint, fit
 from .utils.checkpoint import save_npz
@@ -47,4 +46,6 @@ __all__ = [
     "VPSDE",
     "SUBVPSDE",
     "odeint",
+    "odeint_adjoint",
+    "euler_maruyama",
 ]

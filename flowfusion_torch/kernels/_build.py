@@ -5,8 +5,10 @@ under the repository root, keyed on a hash of the source text, every
 header in ``csrc/`` (the sources share ``mlp_tile.cuh``) and the compiler
 flags, so an edited source or header rebuilds and an unchanged one loads
 the library already built.  The sources have a plain C interface (no
-PyTorch headers), which keeps a build to seconds.  Nothing here runs at
-import time; a failed build raises.
+PyTorch headers), which keeps a build to seconds.  ``build_host`` builds a
+host C++ source, ``csrc/<name>.cpp`` (the native batch loader), the same
+way with the host compiler (``$CXX``, else ``g++``, else ``c++``).
+Nothing here runs at import time; a failed build raises.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict
 
-__all__ = ["SOURCES", "build", "build_all", "load"]
+__all__ = ["SOURCES", "build", "build_all", "build_host", "load"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "flowfusion_torch"
@@ -30,6 +32,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 )
+HOST_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-pthread")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 
@@ -56,20 +59,19 @@ def _library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
-def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` unless the library for this source exists."""
-    out = _library_path(name)
+def _compile(compiler: list, source: Path, out: Path) -> Path:
+    """Run ``compiler ... -o <tmp> source`` unless ``out`` exists, then
+    move the result to ``out``."""
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
     try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        proc = subprocess.run([*compiler, "-o", tmp, str(source)], capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(
-                f"nvcc failed to build {name}.cu (exit {proc.returncode}):\n"
+                f"{os.path.basename(compiler[0])} failed to build {source.name} (exit {proc.returncode}):\n"
                 f"{proc.stdout}{proc.stderr}"
             )
         os.replace(tmp, out)  # atomic: concurrent builds see whole files
@@ -77,6 +79,31 @@ def build(name: str) -> Path:
         if os.path.exists(tmp):
             os.unlink(tmp)
     return out
+
+
+def build(name: str) -> Path:
+    """Compile ``csrc/<name>.cu`` unless the library for this source exists."""
+    return _compile([_nvcc(), *NVCC_FLAGS], CSRC / f"{name}.cu", _library_path(name))
+
+
+def _cxx() -> str:
+    for candidate in (os.environ.get("CXX"), "g++", "c++"):
+        found = candidate and shutil.which(candidate)
+        if found:
+            return found
+    raise RuntimeError("no host C++ compiler found ($CXX, g++, c++)")
+
+
+def _host_library_path(name: str) -> Path:
+    h = hashlib.sha256((CSRC / f"{name}.cpp").read_bytes())
+    h.update(" ".join(HOST_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def build_host(name: str) -> Path:
+    """Compile the host source ``csrc/<name>.cpp`` with the host compiler
+    unless the library for this source exists."""
+    return _compile([_cxx(), *HOST_FLAGS], CSRC / f"{name}.cpp", _host_library_path(name))
 
 
 def build_all() -> None:

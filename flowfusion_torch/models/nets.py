@@ -99,6 +99,11 @@ class ScoreMLPConfig:
             self.n_dimensions,
         )
 
+    def init(self, generator: Optional[torch.Generator] = None, dtype=torch.float32,
+             device: DeviceLike = None) -> dict:
+        """Fresh parameters (alias for :func:`init_score_mlp`)."""
+        return init_score_mlp(self, generator, device, dtype)
+
     def apply(self, params, t, x, conditional=None) -> torch.Tensor:
         """Alias for :func:`apply_score_mlp`."""
         return apply_score_mlp(self, params, t, x, conditional)
@@ -197,6 +202,11 @@ class VelocityMLPConfig:
             self.target_dimension,
         )
 
+    def init(self, generator: Optional[torch.Generator] = None, dtype=torch.float32,
+             device: DeviceLike = None) -> dict:
+        """Fresh parameters (alias for :func:`init_velocity_mlp`)."""
+        return init_velocity_mlp(self, generator, device, dtype)
+
     def apply(self, params, t, x, conditional=None) -> torch.Tensor:
         """Alias for :func:`apply_velocity_mlp`."""
         return apply_velocity_mlp(self, params, t, x, conditional)
@@ -251,6 +261,11 @@ class SymplecticMLPConfig:
             *self.units,
             self.n_data_dims,
         )
+
+    def init(self, generator: Optional[torch.Generator] = None, dtype=torch.float32,
+             device: DeviceLike = None) -> dict:
+        """Fresh parameters (alias for :func:`init_symplectic_mlp`)."""
+        return init_symplectic_mlp(self, generator, device, dtype)
 
     def apply(self, params, t, state, conditional=None) -> torch.Tensor:
         """Alias for :func:`apply_symplectic_mlp`."""

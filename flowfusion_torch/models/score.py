@@ -196,7 +196,8 @@ class ScoreModel:
     ) -> EMResult:
         """Reverse-time Euler--Maruyama sampler from the prior at T down to
         epsilon: ``steps`` launches of the drift kernel on the card.  The
-        prior and then the path noise come from ``generator``."""
+        prior and then the path noise come from ``generator``;
+        ``progress=True`` shows a tqdm bar (``euler_maruyama``)."""
         self._check_device(conditional)
         x0 = self.sde.prior_sample(generator, shape, self.device)
         drift = self._reverse_drift_fn(conditional, x0)

@@ -9,6 +9,7 @@ tensors.
 
 from __future__ import annotations
 
+import warnings
 from typing import Any, Callable, NamedTuple, Optional, Sequence
 
 import numpy as np
@@ -19,6 +20,7 @@ __all__ = [
     "tree_leaves",
     "odeint_fixed",
     "leapfrog",
+    "make_progress_callback",
     "euler_maruyama",
     "FIXED_METHODS",
     "EMResult",
@@ -137,6 +139,39 @@ def leapfrog(
     return q, p
 
 
+def make_progress_callback(total: int, desc: str = "sampling"):
+    """A tqdm ticker for a sampler's host loop (the reference's per-step
+    bar).  The bar is made lazily on the first tick of a run, and closed
+    (and the counter reset) when ``total`` ticks have arrived, so one
+    sampler can run again.  The tick's argument is ignored."""
+    state = {"bar": None, "count": 0}
+
+    def tick(_t=None):
+        import tqdm
+
+        if state["bar"] is None:
+            state["bar"] = tqdm.tqdm(total=total, desc=desc)
+        state["bar"].update(1)
+        state["count"] += 1
+        if state["count"] >= total:
+            state["bar"].close()
+            state["bar"] = None
+            state["count"] = 0
+
+    return tick
+
+
+def _progress_tick(steps: int):
+    """The sampler's ticker, or None (with one warning) when tqdm does
+    not import."""
+    try:
+        import tqdm  # noqa: F401
+    except ImportError:
+        warnings.warn("progress bars need tqdm, which does not import here; running without a bar")
+        return None
+    return make_progress_callback(steps, "sample_sde")
+
+
 class EMResult(NamedTuple):
     x_mean: torch.Tensor  # final denoised mean (the reference's return value)
     x: torch.Tensor  # final noisy state
@@ -169,12 +204,12 @@ def euler_maruyama(
     Noise is drawn from ``generator`` on its own device (one on the state's
     device avoids a copy a step), or streamed from ``noise`` of shape
     (steps, *x0.shape).
+
+    ``progress=True`` shows a tqdm bar, ticked once a step from the host
+    loop (no synchronisation, no launch; the samples are bitwise those of
+    ``progress=False``).  tqdm is not a dependency of the port: where it
+    does not import, the sampler warns once and runs without a bar.
     """
-    if progress:
-        raise NotImplementedError(
-            "euler_maruyama(progress=True) is not ported to flowfusion_torch yet "
-            "(ROADMAP.md queue 1, item 14: utilities)"
-        )
     if noise is not None and tuple(noise.shape) != (steps, *x0.shape):
         raise ValueError(f"noise of shape {tuple(noise.shape)}; expected {(steps, *x0.shape)}")
     dev = x0.device
@@ -185,8 +220,11 @@ def euler_maruyama(
     gen_dev = generator.device if generator is not None else dev
     x, x_mean = x0, x0
     frozen = torch.zeros((), dtype=torch.bool, device=dev)
+    tick = _progress_tick(steps) if progress else None
     for i in range(steps):
         t = ts[i]
+        if tick is not None:
+            tick(t)
         active = ~frozen & (t >= epsilon)
         g = diffusion_fn(t, x)
         f = drift_fn(t, x)

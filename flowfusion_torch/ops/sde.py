@@ -62,6 +62,14 @@ class SDE:
         nu, eta = self.marginal_prob_scalars(t)
         return _bcast_right(nu, x) * x, _bcast_right(eta, x) * torch.ones_like(x)
 
+    def sample_marginal(self, generator: Optional[torch.Generator], t, x0: torch.Tensor) -> torch.Tensor:
+        """Draw x(t) ~ p[x(t)|x(0)] = nu x0 + eta z, z ~ N(0, I) drawn from
+        ``generator`` on its own device."""
+        gen_dev = generator.device if generator is not None else x0.device
+        z = torch.randn(x0.shape, generator=generator, dtype=x0.dtype, device=gen_dev).to(x0.device)
+        nu, eta = self.marginal_prob_scalars(t)
+        return _bcast_right(nu, x0) * x0 + _bcast_right(eta, x0) * z
+
     def drift(self, t, x: torch.Tensor) -> torch.Tensor:
         """Forward-SDE drift f(x, t) = a(t) x."""
         return _bcast_right(self.drift_coefficient(t), x) * x

@@ -14,6 +14,11 @@ field, ``['key']`` a dict key and ``[i]`` a list index, e.g.
 a tree of the port (a model, or any dataclass/dict/list of tensors) under
 the names the JAX package gives the same tree (``utils.tree``), so either
 package reads what the other wrote.
+
+``save_dcp`` / ``load_dcp`` are the counterpart of the JAX package's
+``save_orbax`` / ``load_orbax``: a directory checkpoint of the same trees
+through ``torch.distributed.checkpoint``, which ships with torch (orbax
+needs JAX).  The npz format stays the one the two packages share.
 """
 
 from __future__ import annotations
@@ -28,7 +33,7 @@ import torch
 
 from .tree import leaves_with_paths, map_with_path
 
-__all__ = ["save_npz", "load_npz", "load_npz_leaves", "read_npz_extra", "restore"]
+__all__ = ["save_npz", "load_npz", "load_npz_leaves", "read_npz_extra", "restore", "save_dcp", "load_dcp"]
 
 _PART = re.compile(r"^(?:\.(?P<attr>\w+)|\['(?P<key>[^']*)'\]|\[(?P<idx>\d+)\])$")
 
@@ -128,8 +133,16 @@ def load_npz(path: str) -> Dict[str, Any]:
     {"params": ...}, "shift", "scale", "conditional_shift",
     "conditional_scale"}``.
     """
+    return _nest(load_npz_leaves(path))
+
+
+def _nest(leaves: Dict[str, Any]) -> Dict[str, Any]:
+    """Leaf path name -> leaf, as a nested tree of dicts and lists (a tree
+    that is one leaf has the empty name)."""
+    if "" in leaves:
+        return leaves[""]
     root: Dict[Any, Any] = {}
-    for name, arr in load_npz_leaves(path).items():
+    for name, arr in leaves.items():
         keys = _parse(name)
         node = root
         for k in keys[:-1]:
@@ -140,7 +153,8 @@ def load_npz(path: str) -> Dict[str, Any]:
 
 def restore(template: Any, tree: Any) -> Any:
     """``template`` with every leaf replaced by the array at the same path
-    of ``tree`` (a nested tree as ``load_npz`` returns it), as a tensor of
+    of ``tree`` (a nested tree as ``load_npz`` returns it, of arrays or
+    tensors), as a tensor of
     the template leaf's dtype on its device.  Raises when a path is missing
     or a shape differs."""
 
@@ -151,9 +165,36 @@ def restore(template: Any, tree: Any) -> Any:
                 node = node[key]
         except (KeyError, IndexError, TypeError) as err:
             raise ValueError(f"checkpoint has no leaf {name!r}") from err
-        arr = np.asarray(node)
+        arr = node if isinstance(node, torch.Tensor) else torch.as_tensor(np.asarray(node))
         if tuple(arr.shape) != tuple(cur.shape):
-            raise ValueError(f"shape mismatch at {name}: checkpoint {arr.shape} vs template {tuple(cur.shape)}")
-        return torch.as_tensor(arr).to(device=cur.device, dtype=cur.dtype)
+            raise ValueError(
+                f"shape mismatch at {name}: checkpoint {tuple(arr.shape)} vs template {tuple(cur.shape)}")
+        return arr.to(device=cur.device, dtype=cur.dtype)
 
     return map_with_path(leaf, template)
+
+
+def save_dcp(path: str, tree: Any) -> None:
+    """A ``torch.distributed.checkpoint`` directory of every leaf of
+    ``tree`` (the trees ``save_npz`` takes), keyed by its path name; an
+    existing checkpoint at ``path`` is overwritten, as the JAX package's
+    ``save_orbax`` does.  Runs in one process without a process group."""
+    import torch.distributed.checkpoint as dcp
+
+    state = {name: leaf.detach() if isinstance(leaf, torch.Tensor) else torch.as_tensor(np.asarray(leaf))
+             for name, leaf in leaves_with_paths(tree)}
+    dcp.save(state, storage_writer=dcp.FileSystemWriter(os.path.abspath(path), overwrite=True), no_dist=True)
+
+
+def load_dcp(path: str, template: Any) -> Any:
+    """``template`` filled from a ``save_dcp`` checkpoint (the JAX
+    package's ``load_orbax``): every leaf a tensor of the template leaf's
+    dtype on its device.  A path the checkpoint lacks or a shape that
+    differs raises ``ValueError``, as ``restore`` does."""
+    import torch.distributed.checkpoint as dcp
+
+    reader = dcp.FileSystemReader(os.path.abspath(path))
+    saved = reader.read_metadata().state_dict_metadata
+    state = {name: torch.empty(tuple(m.size), dtype=m.properties.dtype) for name, m in saved.items()}
+    dcp.load(state, storage_reader=reader, no_dist=True)
+    return restore(template, _nest(state))

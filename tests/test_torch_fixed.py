@@ -8,6 +8,8 @@ diffusion switched off (the deterministic part), and its freeze and
 active-step rules are checked on the port alone with streamed noise.
 """
 
+import warnings
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -176,7 +178,13 @@ def test_euler_maruyama_freeze_and_active_steps(nan_step):
 
 def test_euler_maruyama_refusals():
     f = lambda t, x: x  # noqa: E731
-    with pytest.raises(NotImplementedError, match="item 14"):
-        euler_maruyama(None, f, f, torch.zeros(2, 2), t0=1.0, t1=0.0, steps=2, progress=True)
+    # progress=True runs (a tqdm bar, or one warning without tqdm) and
+    # changes no sample
+    noise = torch.ones(2, 2, 2)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        shown = euler_maruyama(None, f, f, torch.zeros(2, 2), t0=1.0, t1=0.0, steps=2, noise=noise, progress=True)
+    quiet = euler_maruyama(None, f, f, torch.zeros(2, 2), t0=1.0, t1=0.0, steps=2, noise=noise)
+    assert all(torch.equal(a, b) for a, b in zip(shown, quiet))
     with pytest.raises(ValueError, match="noise of shape"):
         euler_maruyama(None, f, f, torch.zeros(2, 2), t0=1.0, t1=0.0, steps=2, noise=torch.zeros(3, 2, 2))

@@ -1197,3 +1197,74 @@ def test_bf16_model_launches_only_bf16_kernels(cuda_device):
         assert bool(torch.isfinite(lp).all())
         assert fused_sketch.fused_drift_sketch.launches_by_dtype == {"float32": 0, "highf32": 0,
                                                                      "bfloat16": st.n_func_evals}
+
+
+@pytest.mark.gpu
+def test_converted_flagship_solve_is_bitwise(cuda_device):
+    """chip_smoke.py 16a at 4,096 rows: the flagship written as a reference
+    state_dict on the card and converted back solves bitwise like the
+    npz-loaded model, launches = NFE."""
+    import os
+
+    from chip_smoke import BENCH, reference_state_dict
+    from flowfusion_torch.utils.checkpoint import load_npz
+    from flowfusion_torch.utils.convert import params_from_numpy, score_mlp_from_torch
+
+    cfg = ScoreMLPConfig(n_dimensions=2, units=(128, 128, 128))
+    tree = load_npz(os.path.join(BENCH, "flagship_ckpt.npz"))
+    twin = ScoreModel(params_from_numpy(tree["params"], cuda_device), cfg, VESDE(), trace_mode="hutchinson")
+    sd = reference_state_dict(tree, "score", cuda_device)
+    model = ScoreModel(score_mlp_from_torch(sd, device=cuda_device), cfg, VESDE(), trace_mode="hutchinson")
+    x = torch.randn(4096, 2, generator=torch.Generator().manual_seed(2)).to(cuda_device)
+    out = []
+    for m in (twin, model):
+        before = fused_mlp.fused_drift.launches_by_mode["hutchinson"]
+        lp, st = m.log_prob(x, generator=torch.Generator().manual_seed(3), atol=1e-5, rtol=1e-5,
+                            options={"controller": "pi"})
+        assert fused_mlp.fused_drift.launches_by_mode["hutchinson"] - before == st.n_func_evals
+        out.append((lp, st.n_func_evals))
+    assert out[0][1] == out[1][1] and torch.equal(out[0][0], out[1][0])
+
+
+@pytest.mark.gpu
+def test_device_memory_reads_the_card(cuda_device):
+    from flowfusion_torch.utils import profiling
+
+    torch.ones(1024, device=cuda_device)
+    mem = profiling.device_memory()
+    assert sorted(mem) == [f"cuda:{i}" for i in range(torch.cuda.device_count())]
+    s = mem["cuda:0"]
+    assert {"bytes_in_use", "peak_bytes_in_use", "bytes_limit", "allocated_bytes.all.current"} <= set(s)
+    total = torch.cuda.mem_get_info(0)[1]
+    assert abs(s["bytes_limit"] - total) <= 0.01 * total and s["peak_bytes_in_use"] > 0
+    assert list(profiling.device_memory(cuda_device)) == [f"cuda:{torch.cuda.current_device()}"]
+    assert profiling.format_device_memory().startswith("cuda:0: in use")
+
+
+@pytest.mark.gpu
+def test_loader_batch_on_the_card(cuda_device, tmp_path):
+    """A native loader batch moved to the card feeds the conditional
+    checkpoint's log_prob: finite, launches = NFE."""
+    import os
+
+    import numpy as np
+
+    from chip_smoke import BENCH
+    from flowfusion_torch.models.population import PopulationModelDiffusion
+    from flowfusion_torch.utils.native_loader import NativeBatchLoader, write_f32
+
+    rng = np.random.default_rng(4)
+    rows = np.concatenate([rng.standard_normal((20_000, 6)) * 0.5, rng.uniform(-1, 1, (20_000, 3))], axis=1)
+    path = str(tmp_path / "rows.f32")
+    write_f32(path, rows)
+    loader = NativeBatchLoader(path, n_cols=9, batch=4096, seed=5)
+    batch = loader.next()
+    loader.close()
+    on_card = torch.from_numpy(batch).to(cuda_device)
+    assert torch.equal(on_card.cpu(), torch.from_numpy(batch))
+    model, _ = PopulationModelDiffusion.from_conditional_npz(os.path.join(BENCH, "conditional_ckpt.npz"),
+                                                              device=cuda_device)
+    before = fused_mlp.fused_drift.launches_by_mode["hutchinson"]
+    lp, st = model.log_prob(on_card[:, :6], conditional=on_card[:, 6:], generator=torch.Generator().manual_seed(6))
+    assert bool(torch.isfinite(lp).all()) and lp.shape == (4096,)
+    assert fused_mlp.fused_drift.launches_by_mode["hutchinson"] - before == st.n_func_evals

@@ -15,6 +15,8 @@ def test_fresh_interpreter_imports_every_module_without_jax():
         "for m in pkgutil.walk_packages(flowfusion_torch.__path__, 'flowfusion_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith(('jax.', 'flowfusion_tpu')))\n"
+        "new = ('diagnostics', 'profiling', 'native_loader')\n"
+        "assert all(f'flowfusion_torch.utils.{m}' in sys.modules for m in new)\n"
         "print(len([k for k in sys.modules if k.startswith('flowfusion_torch')]), bad)\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
@@ -39,14 +41,14 @@ def _offenders(path, pattern):
 def test_no_source_imports_or_names_the_jax_package():
     """No Python file of the port imports JAX or names the JAX package at
     all (docstrings point at "the JAX package's kernels/fused_mlp.py").
-    The CUDA sources' header comments and chip_smoke.py's kernel report
+    The CUDA and C++ sources' header comments and chip_smoke.py's kernel report
     name the Pallas kernel they replace by its path; they import neither."""
     files, sources = [], []
     for dirpath, _, names in os.walk(os.path.join(ROOT, "flowfusion_torch")):
         files += [os.path.join(dirpath, n) for n in names if n.endswith(".py")]
-        sources += [os.path.join(dirpath, n) for n in names if n.endswith((".cu", ".cuh"))]
+        sources += [os.path.join(dirpath, n) for n in names if n.endswith((".cu", ".cuh", ".cpp"))]
     assert len(files) > 20
-    assert {os.path.basename(p) for p in sources} >= {"fused_mlp.cu", "em_sampler.cu", "fused_sketch.cu", "fused_train.cu", "mlp_tile.cuh"}
+    assert {os.path.basename(p) for p in sources} >= {"fused_mlp.cu", "em_sampler.cu", "fused_sketch.cu", "fused_train.cu", "mlp_tile.cuh", "dataloader.cpp"}
     anywhere = re.compile(IMPORTS.pattern + r"|flowfusion_tpu", re.M)
     offenders = [o for path in files for o in _offenders(path, anywhere)]
     offenders += [o for path in sources + [os.path.join(ROOT, "chip_smoke.py")]

@@ -19,6 +19,7 @@
 import dataclasses
 import os
 import types
+import warnings
 
 import jax
 import jax.numpy as jnp
@@ -187,9 +188,10 @@ def test_entry_points_without_device_raise_when_no_card(monkeypatch):
 
 
 def test_refusals_name_their_roadmap_item(flagship):
-    """The remaining refusals name their ROADMAP.md item; the solvers of
-    item 13 run (tests/test_torch_adjoint.py, test_torch_dpm.py and
-    test_torch_per_sample.py hold them against the JAX package)."""
+    """No refusal names a ROADMAP.md item any more: the solvers of item 13
+    run (tests/test_torch_adjoint.py, test_torch_dpm.py and
+    test_torch_per_sample.py hold them against the JAX package), and so
+    does the progress bar of item 14 (tests/test_torch_utils.py)."""
     _, tm = flagship
     x = torch.randn(4, 2, generator=torch.Generator().manual_seed(3))
     # XTrace has no gradient: its adjoint refuses with the JAX package's reason
@@ -216,8 +218,13 @@ def test_refusals_name_their_roadmap_item(flagship):
     assert dataclasses.replace(tm, kernel_compute_dtype="bfloat16").kernel_compute_dtype == "bfloat16"
     with pytest.raises(ValueError, match="unknown"):
         dataclasses.replace(tm, kernel_compute_dtype="float16")
-    with pytest.raises(NotImplementedError, match="item 14"):
-        tm.sample_sde((4, 2), steps=2, progress=True)
+    # progress=True runs (a tqdm bar, or one warning without tqdm) and
+    # draws the samples of progress=False from the same seed
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        shown = tm.sample_sde((4, 2), steps=2, generator=torch.Generator().manual_seed(5), progress=True)
+    quiet = tm.sample_sde((4, 2), steps=2, generator=torch.Generator().manual_seed(5))
+    assert torch.equal(shown.x_mean, quiet.x_mean) and torch.equal(shown.x, quiet.x)
     # the EM kernel's bfloat16 mode runs (its plain version on the CPU)
     res = tm.sample_sde_fused((4, 2), steps=2, compute_dtype="bfloat16")
     assert res.x.shape == (4, 2) and not bool(res.nan_encountered)
