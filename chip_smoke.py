@@ -168,7 +168,7 @@ non-zero without the final line):
      ``sample --n 50000`` by SDE and ODE, ``logprob`` with the exact trace
      (within 3e-3 of the analytic mixture) and Hutchinson on the flagship
      weights as a CLI checkpoint (launches = the printed NFE), ``export``
-     and ``export --buckets 1024,8192,65536`` -- then ``python -m
+     and ``export --buckets 1024,65536`` -- then ``python -m
      flowfusion_torch logprob`` in a subprocess prints the same sum; (b)
      the flagship Hutchinson and exact artifacts at batch 50,000 and
      symbolic, Hutch++, the bucket bundle, the conditional checkpoint as
@@ -231,13 +231,35 @@ non-zero without the final line):
      ``log_prob`` on the card; (e) ``save_dcp`` / ``load_dcp`` of the
      flagship's parameters into CPU and card templates, bitwise, the
      reloaded model's solve bitwise, an overwrite;
+  17. ``parallel`` on the one card (``parallel_phase``, printed after 16):
+     (a) per shard over a mesh of two entries of the card: ``routed_call``
+     over the flagship Hutchinson ``log_prob`` (probes passed, 50,000 rows,
+     rtol 1e-5 PI) and ``sample_ode_from_base``, ``routed_sample`` over
+     ``sample_sde`` and ``sample_sde_fused``: each shard bitwise a direct
+     call on its rows with its generator, stats of leading axis 2, RHS
+     launches = the sum of the per-shard NFE, EM launches = 2; an eager
+     ``log_prob`` on the one card does not route; (b) batch-global across
+     two processes on the card (``--parallel-worker``, gloo): the
+     ``data_parallel`` Hutchinson ``log_prob`` of the 50,000 rows in two
+     halves at the single-process NFE, |dlogp| <= 1e-4, launches = NFE in
+     each process; the DSM loss and gradients within 1e-5 of one
+     process's; ``fit``'s one snapshot writer and its split-resume
+     refusal; an all-reduce's cost; (c) an NCCL world of one: the
+     ``data_parallel`` solve within 1e-6 of the plain call (bitwise), the
+     group path forced on over NCCL within 1e-4 and the DSM loss and
+     gradients on it within 1e-5, a call after the group bitwise; the phase
+     within 40 s;
   7. a ``kernels`` line, printed last: launches on the main paths (each
      path run with the counts set to 0 just before it: phases 2-4, 5, 6,
      the two-launch path of 1d, 8, 9, 10 and, for the highf32 entries, 11
      and 12, for the bfloat16 entries 15, for the training kernel's modes
      1e's modes path), times, bounds and plain times,
-     ``serving_launches``, the launches on phase 14's paths, and
-     ``utilities_launches``, those on phase 16's.
+     ``serving_launches``, the launches on phase 14's paths,
+     ``utilities_launches``, those on phase 16's, and ``parallel_launches``,
+     those on phase 17's (its two worker processes' included).
+
+Every JSON line carries ``seconds``: its own wall, or the wall since the
+line before it.
 
 The last line is ``{"ok": true, "device": {...}}``.  Exits with 2 and no
 result when no CUDA card is visible.
@@ -292,10 +314,31 @@ REPLACES_TRAIN = {
        for s in ("", "_symplectic") for d in ("highf32", "bfloat16")},
 }
 EM_STEPS = 100
+# phase 17's rows: the flagship's 50,000, two shards or two processes of 25,000
+PARALLEL_ROWS = 50_000
+
+
+_LAST_LINE = [time.perf_counter()]
 
 
 def emit(phase: str, **fields) -> None:
+    """One JSON line; ``seconds`` (the wall since the line before) where
+    the line does not carry its own."""
+    now = time.perf_counter()
+    fields.setdefault("seconds", now - _LAST_LINE[0])
+    _LAST_LINE[0] = now
     print(json.dumps({"phase": phase, **fields}), flush=True)
+
+
+_CHILDREN = []
+
+
+def spawn(args, **kwargs) -> subprocess.Popen:
+    """``subprocess.Popen``, remembered: the script stops every process it
+    started when it exits, on an error too (``cli``)."""
+    proc = subprocess.Popen(args, **kwargs)
+    _CHILDREN.append(proc)
+    return proc
 
 
 def check(ok: bool, msg: str) -> None:
@@ -3399,6 +3442,9 @@ def main() -> int:
     # -- phase 16: the utilities ----------------------------------------------
     utility_counts = utilities_phase(smi, dev, flag_params, flag_cfg, reset_counts, read_counts)
 
+    # -- phase 17: parallel/ on the one card ---------------------------------------
+    parallel_counts = parallel_phase(smi, dev, flag_params, flag_cfg, reset_counts, read_counts)
+
     # -- phase 7: the kernels line ------------------------------------------
     # no single PyTorch call computes any of these functions (a fused MLP with
     # its divergence, its Jacobian-vector columns or its sketch estimate; the
@@ -3482,6 +3528,12 @@ def main() -> int:
         k["utilities_launches"] = utility_counts.get(k["name"], 0)
     check(set(utility_counts) <= {k["name"] for k in kernels},
           f"phase 16 launched kernels the line does not name: {utility_counts}")
+    # launches on phase 17's paths (per shard, the two processes, the NCCL
+    # world of one), counted from zero
+    for k in kernels:
+        k["parallel_launches"] = parallel_counts.get(k["name"], 0)
+    check(set(parallel_counts) <= {k["name"] for k in kernels},
+          f"phase 17 launched kernels the line does not name: {parallel_counts}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({
         "ok": True,
@@ -3568,10 +3620,12 @@ def serving_phase(smi, dev, flag_params, flag_cfg, reset_counts, read_counts) ->
         # the plain net's activation appears nowhere: every RHS is the op
         check(not any("silu" in o for o in ops), f"14b {name}: the program holds a plain-path net (silu)")
 
-    def in_turns(a, b, pairs=5):
+    def in_turns(a, b, pairs=5, warm=True):
         """Walls of a() and b() in turns (a, b, b, a) after one warm call
-        each: medians and ranges."""
-        a(), b()
+        each (``warm=False``: the caller just made them): medians and
+        ranges."""
+        if warm:
+            a(), b()
         walls = {"a": [], "b": []}
         for _ in range(pairs):
             for k in ("a", "b", "b", "a"):
@@ -3633,23 +3687,31 @@ def serving_phase(smi, dev, flag_params, flag_cfg, reset_counts, read_counts) ->
             check(rel <= 3e-3, f"14a logprob exact: density error {rel:.3e} > 3e-3")
         emit("cli_logprob", trace=trace, rows=25_000, nfe=nfe, launches=counts, printed_sum=lp_sums[trace],
              density_rel_error=rel, seconds=secs, rows_per_s=25_000 / secs, card=smi)
+    # `python -m flowfusion_torch logprob` in a subprocess, started here and
+    # read after the two exports below: its start-up overlaps their tracing
+    env = {**os.environ, "PYTHONPATH": ROOT}
+    proc = spawn([sys.executable, "-m", "flowfusion_torch", "logprob", "--ckpt", flag_ckpt, "--data", data,
+                  "--trace", "exact", "--volume-corrected", "--out", os.path.join(d, "lp_sub.npy")],
+                 stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env, cwd=d)
     art_cli = os.path.join(d, "flagship_exact.pt2")
     out, counts, secs_export = run_cli(["export", "--ckpt", flag_ckpt, "--out", art_cli])
     check("batch=symbolic" in out and not counts, f"14a export: {out.strip()} launches {counts}")
     bundle_cli = os.path.join(d, "flagship_exact_buckets.pt2")
-    out, counts, secs_buckets = run_cli(["export", "--ckpt", flag_ckpt, "--buckets", "1024,8192,65536",
+    out, counts, secs_buckets = run_cli(["export", "--ckpt", flag_ckpt, "--buckets", "1024,65536",
                                          "--out", bundle_cli])
-    check("buckets 1024,8192,65536" in out and not counts, f"14a export --buckets: {out.strip()}")
+    check("buckets 1024,65536" in out and not counts, f"14a export --buckets: {out.strip()}")
     emit("cli_export", export_s=secs_export, bytes=os.path.getsize(art_cli), buckets_export_s=secs_buckets,
          buckets_bytes=os.path.getsize(bundle_cli), card=smi)
-    env = {**os.environ, "PYTHONPATH": ROOT}
-    proc = subprocess.run([sys.executable, "-m", "flowfusion_torch", "logprob", "--ckpt", flag_ckpt, "--data", data,
-                           "--trace", "exact", "--volume-corrected", "--out", os.path.join(d, "lp_sub.npy")],
-                          capture_output=True, text=True, env=env, cwd=d, timeout=300)
-    check(proc.returncode == 0, f"14a python -m flowfusion_torch logprob exited {proc.returncode}: {proc.stderr[-2000:]}")
-    check(field(proc.stdout, "sum") == lp_sums["exact"],
-          f"14a subprocess sum {field(proc.stdout, 'sum')} != in-process {lp_sums['exact']}")
-    emit("cli_subprocess", printed_sum=field(proc.stdout, "sum"), card=smi)
+    try:
+        sub_out, sub_err = proc.communicate(timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    check(proc.returncode == 0, f"14a python -m flowfusion_torch logprob exited {proc.returncode}: {sub_err[-2000:]}")
+    check(field(sub_out, "sum") == lp_sums["exact"],
+          f"14a subprocess sum {field(sub_out, 'sum')} != in-process {lp_sums['exact']}")
+    emit("cli_subprocess", printed_sum=field(sub_out, "sum"), card=smi)
 
     # -- 14b the artifacts against the eager solves -----------------------------
     x50 = DEMO_GMM.sample(torch.Generator().manual_seed(1401), 50_000, device=dev)
@@ -3715,7 +3777,7 @@ def serving_phase(smi, dev, flag_params, flag_cfg, reset_counts, read_counts) ->
                     check(tuple(lp_n.shape) == (n,) and bool(torch.isfinite(lp_n).all()),
                           f"14b {name}: {n} rows not served")
                     served[n] = True
-            w = in_turns(lambda: f(x50, seed=seed), lambda: eager_lp(m, x50))
+            w = in_turns(lambda: f(x50, seed=seed), lambda: eager_lp(m, x50), warm=batch is None)
             emit("artifact", path=name, rows=50_000, launches=ca, export_s=exports[name], bytes=len(blob),
                  bitwise=True, served_rows=sorted(served), artifact_s=w["a"], eager_s=w["b"],
                  artifact_rows_per_s=50_000 / w["a"][0], eager_rows_per_s=50_000 / w["b"][0], pairs=5, card=smi)
@@ -3740,6 +3802,23 @@ def serving_phase(smi, dev, flag_params, flag_cfg, reset_counts, read_counts) ->
     emit("artifact_tf32_guard", path="flagship_hutchinson_symbolic", launches=sum(tf32_counts.values()),
          bitwise=True, card=smi)
 
+    # -- 14c an artifact served without the model code: a fresh interpreter
+    # started here and read before the walls below (its start-up overlaps the
+    # Hutch++ and conditional exports, which time no call)
+    art = os.path.join(d, "served.pt2")
+    serving.save_artifact(art, artifacts["flagship_hutchinson_symbolic"][1])
+    np.save(os.path.join(d, "x50.npy"), x50.cpu().numpy())
+    code = (
+        "import sys, numpy as np, torch\n"
+        f"sys.path.insert(0, {ROOT!r})\n"
+        "from flowfusion_torch.utils import serving\n"
+        f"f = serving.deserialize_log_prob(serving.load_artifact({art!r}))\n"
+        f"x = torch.from_numpy(np.load({os.path.join(d, 'x50.npy')!r})).cuda()\n"
+        f"np.save({os.path.join(d, 'lp_fresh.npy')!r}, f(x, seed={seed}).cpu().numpy())\n"
+    )
+    fresh_proc = spawn([sys.executable, "-c", code], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                       cwd=d)
+
     # Hutch++ (r = 2, m = 1)
     t_start = time.perf_counter()
     blob = serving.export_log_prob(models["hutchpp"])
@@ -3753,7 +3832,7 @@ def serving_phase(smi, dev, flag_params, flag_cfg, reset_counts, read_counts) ->
     # the CLI's bucket bundle: 50,000 rows through the 65,536 bucket, against
     # the eager solve of the same padded rows
     fb = serving.deserialize_log_prob_bucketed(serving.load_artifact(bundle_cli))
-    check(fb.buckets == (1024, 8192, 65536), f"14b buckets {fb.buckets}")
+    check(fb.buckets == (1024, 65536), f"14b buckets {fb.buckets}")
     padded = torch.cat([x50, x50[:1].expand(65_536 - 50_000, -1)])
     reset_counts()
     lp_b = fb(x50, seed=seed)
@@ -3784,6 +3863,17 @@ def serving_phase(smi, dev, flag_params, flag_cfg, reset_counts, read_counts) ->
     emit("artifact", path="conditional_highf32", rows=20_000, launches=ca, export_s=exports["conditional_highf32"],
          bytes=len(blob), bitwise=True, card=smi)
 
+    try:
+        _, fresh_err = fresh_proc.communicate(timeout=300)
+    finally:
+        if fresh_proc.poll() is None:
+            fresh_proc.kill()
+            fresh_proc.communicate()
+    check(fresh_proc.returncode == 0, f"14c fresh interpreter exited {fresh_proc.returncode}: {fresh_err[-2000:]}")
+    fresh = np.load(os.path.join(d, "lp_fresh.npy"))
+    check(np.array_equal(fresh, ref.cpu().numpy()), "14c the fresh interpreter's densities differ")
+    emit("artifact_fresh_process", path="flagship_hutchinson_symbolic", rows=50_000, bitwise=True, card=smi)
+
     # flow and symplectic: log_prob and sampler; the flagship sampler
     flow, _ = ODEFlow.from_npz(os.path.join(BENCH, "flow_ckpt.npz"), device=dev)
     sym, _ = SymplecticFlowModel.from_npz(os.path.join(BENCH, "symplectic_ckpt.npz"), device=dev)
@@ -3803,27 +3893,9 @@ def serving_phase(smi, dev, flag_params, flag_cfg, reset_counts, read_counts) ->
         per_eval = 2 if isinstance(model, SymplecticFlowModel) else 1
         nfe_of = None if name == "symplectic_sampler" else (lambda st, k=per_eval: k * st.n_func_evals)
         _, ca = held(name, f, lambda: call(f), eager, nfe_of=nfe_of)
-        w = in_turns(lambda: call(f), eager, pairs=3)
+        w = in_turns(lambda: call(f), eager, pairs=3, warm=False)
         emit("artifact", path=name, rows=50_000, launches=ca, export_s=exports[name], bytes=len(blob), bitwise=True,
              artifact_s=w["a"], eager_s=w["b"], card=smi)
-
-    # -- 14c an artifact served without the model code ---------------------------
-    art = os.path.join(d, "served.pt2")
-    serving.save_artifact(art, artifacts["flagship_hutchinson_symbolic"][1])
-    np.save(os.path.join(d, "x50.npy"), x50.cpu().numpy())
-    code = (
-        "import sys, numpy as np, torch\n"
-        f"sys.path.insert(0, {ROOT!r})\n"
-        "from flowfusion_torch.utils import serving\n"
-        f"f = serving.deserialize_log_prob(serving.load_artifact({art!r}))\n"
-        f"x = torch.from_numpy(np.load({os.path.join(d, 'x50.npy')!r})).cuda()\n"
-        f"np.save({os.path.join(d, 'lp_fresh.npy')!r}, f(x, seed={seed}).cpu().numpy())\n"
-    )
-    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, cwd=d, timeout=300)
-    check(proc.returncode == 0, f"14c fresh interpreter exited {proc.returncode}: {proc.stderr[-2000:]}")
-    fresh = np.load(os.path.join(d, "lp_fresh.npy"))
-    check(np.array_equal(fresh, ref.cpu().numpy()), "14c the fresh interpreter's densities differ")
-    emit("artifact_fresh_process", path="flagship_hutchinson_symbolic", rows=50_000, bitwise=True, card=smi)
 
     # -- the ops' dispatch cost: the registered op against its CUDA kernel called
     # directly (no dispatcher), the same launch, at 4 rows (launch-bound) and at
@@ -4153,6 +4225,414 @@ def utilities_phase(smi, dev, flag_params, flag_cfg, reset_counts, read_counts) 
     tmp.cleanup()
     emit("phase16", seconds=time.perf_counter() - t16, card=smi)
     return counts
+
+
+def parallel_phase(smi, dev, flag_params, flag_cfg, reset_counts, read_counts) -> dict:
+    """Phase 17: ``flowfusion_torch.parallel`` on the one card.
+
+    (a) per shard on one card: a mesh of two entries of the card;
+    ``routed_call`` over the flagship Hutchinson ``log_prob`` (probes
+    passed, 50,000 rows, rtol 1e-5 PI) and ``sample_ode_from_base``, and
+    ``routed_sample`` over ``sample_sde`` and ``sample_sde_fused`` (the
+    EM kernel): each shard bitwise a direct
+    call on its rows with its generator, stats with a leading axis of 2,
+    RHS launches = the sum of the per-shard NFE, EM launches = 2; an eager
+    ``log_prob`` on this one-card machine does not route (scalar stats,
+    bitwise the unrouted call).  (b) batch-global across two processes on
+    the card: two workers (``chip_smoke.py --parallel-worker``), each
+    ``initialize_distributed`` on ``gloo`` (NCCL refuses two ranks on one
+    device; ``parallel._collective`` reduces gloo's CUDA tensors through
+    host copies), ``local_rows`` and ``global_batch_from_local``: the
+    ``data_parallel`` Hutchinson ``log_prob`` of their halves of the 50,000
+    rows (the global probe's rows) takes the single-process solve's NFE,
+    |dlogp| <= 1e-4, each process launching the RHS kernel NFE times; the
+    DSM loss and its gradients on the global draw's rows within 1e-5
+    (relative) of the single-process values; ``fit`` with a shared
+    ``checkpoint_dir`` leaves one writer's snapshot, and with a
+    process-local directory on rank 1 both ranks raise before any step;
+    what an all-reduce costs an attempt.  (c) an NCCL world of one:
+    ``data_parallel`` of the flagship Hutchinson ``log_prob`` gives the
+    plain call's NFE within 1e-6 (bitwise: a world of one takes the plain
+    expressions), the group path forced on over NCCL within 1e-4, the DSM
+    loss and its gradients on it within 1e-5 (relative), and after
+    the group is destroyed a call bitwise the plain one.  The workers start
+    before (a) and wait for (a) and (c) to end: their line comes last.
+    Returns each kernel entry's launches on these paths (the workers'
+    included)."""
+    import socket
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from flowfusion_torch.kernels import em_sampler, fused_mlp
+    from flowfusion_torch.models.score import ScoreModel
+    from flowfusion_torch.ops import losses
+    from flowfusion_torch.ops.sde import VESDE
+    from flowfusion_torch.parallel import _collective, autoshard, data_parallel, initialize_distributed, make_mesh
+    from flowfusion_torch.utils.checkpoint import load_npz, read_npz_extra
+    from flowfusion_torch.utils.convert import params_from_numpy
+    from flowfusion_torch.utils.data import DEMO_GMM
+
+    t17 = time.perf_counter()
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    path_counts = {}
+    drift, em = fused_mlp.fused_drift, em_sampler.fused_em_sample
+    opts = {"controller": "pi"}
+    kw = dict(atol=1e-5, rtol=1e-5, options=opts)
+    N = PARALLEL_ROWS
+
+    def gen(seed):
+        return torch.Generator().manual_seed(seed)
+
+    def add_counts(counts):
+        for k, v in counts.items():
+            path_counts[k] = path_counts.get(k, 0) + v
+
+    def counted(fn):
+        """(fn(), launches by entry (nonzero), seconds), counts from zero."""
+        reset_counts()
+        sync()
+        t_start = time.perf_counter()
+        out = fn()
+        sync()
+        secs = time.perf_counter() - t_start
+        counts = {k: v for k, v in read_counts().items() if v}
+        add_counts(counts)
+        return out, counts, secs
+
+    extra = read_npz_extra(os.path.join(BENCH, "flagship_ckpt.npz"))
+    shift, scale = (torch.tensor(extra[k], device=dev) for k in ("shift", "scale"))
+    hutch = ScoreModel(flag_params, flag_cfg, VESDE(), trace_mode="hutchinson")
+    x = (DEMO_GMM.sample(gen(1700), N, device=dev) - shift) / scale
+    e = torch.sign(torch.randn(N, 2, generator=gen(1701))).to(dev)
+    half = N // 2
+
+    # -- 17b batch-global across two processes on the card: the workers start
+    # first, their start-up overlapping 17a and 17c; they wait for the file
+    # `go` (written after 17c) before the work they time ---------------------
+    t_b = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory()
+    d = tmp.name
+    rng = np.random.default_rng(1705)
+    sde = VESDE()
+    t_draw = rng.uniform(sde.epsilon, sde.T, N).astype(np.float32)
+    z_draw = rng.standard_normal((N, 2)).astype(np.float32)
+    np.savez(os.path.join(d, "inputs.npz"), x=x.cpu().numpy(), e=e.cpu().numpy(), t=t_draw, z=z_draw)
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    env = {**os.environ, "PYTHONPATH": ROOT + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    procs = [spawn([sys.executable, os.path.abspath(__file__), "--parallel-worker", str(r), "2", str(port), d],
+                   env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]
+    try:
+        # -- 17a per shard on one card ---------------------------------------------
+        t_a = time.perf_counter()
+        mesh2 = make_mesh([dev, dev])
+        check(autoshard.n_data_devices() == torch.cuda.device_count() <= 1, "17a: this phase expects one card")
+        (lp_r, st_r), c_lp, secs_lp = counted(lambda: autoshard.routed_call(
+            lambda m, xb, cb, gb, pb: m.log_prob(xb, cb, generator=gb, probes=pb, **kw), hutch, x, None, None,
+            probes=(e,), mesh=mesh2))
+        check(tuple(st_r.n_func_evals.shape) == (2,) and lp_r.shape == (N,), f"17a log_prob stats {st_r}")
+        check(c_lp == {"fused_drift[hutchinson]": int(st_r.n_func_evals.sum())},
+              f"17a log_prob: launches {c_lp} != the per-shard NFE {st_r.n_func_evals.tolist()}")
+        z = torch.randn(N, 2, generator=gen(1702)).to(dev)
+        (s_r, sst_r), c_ode, secs_ode = counted(lambda: autoshard.routed_call(
+            lambda m, zb, cb, gb, pb: m.sample_ode_from_base(zb, cb), hutch, z, None, None, mesh=mesh2))
+        check(tuple(sst_r.n_func_evals.shape) == (2,) and c_ode == {"fused_drift[forward]": int(sst_r.n_func_evals.sum())},
+              f"17a sample_ode_from_base: launches {c_ode} != the per-shard NFE {sst_r.n_func_evals.tolist()}")
+        def em_per_shard(name):
+            def per_shard(m, local, cb, gb):
+                res = getattr(m, name)((local, 2), cb, steps=EM_STEPS, generator=gb)
+                return (res.x_mean, res.x), res.nan_encountered
+
+            return per_shard
+
+        ((xm_r, xx_r), nan_r), c_sde, secs_sde = counted(lambda: autoshard.routed_sample(
+            em_per_shard("sample_sde"), hutch, gen(1703), N, None, mesh=mesh2))
+        check(c_sde == {"fused_drift[forward]": 2 * EM_STEPS} and tuple(nan_r.shape) == (2,),
+              f"17a sample_sde: launches {c_sde}")
+        ((em_m, em_x), em_nan), c_em, secs_em = counted(lambda: autoshard.routed_sample(
+            em_per_shard("sample_sde_fused"), hutch, gen(1704), N, None, mesh=mesh2))
+        check(c_em == {"fused_em_sample[float32]": 2}, f"17a sample_sde_fused: launches {c_em} != 2")
+        # each shard bitwise a direct call on its rows with its generator
+        # (outside the count)
+        with autoshard.unrouted():
+            for i in range(2):
+                rows = slice(i * half, (i + 1) * half)
+                lp_i, st_i = hutch.log_prob(x[rows], probes=(e[rows],), **kw)
+                check(torch.equal(lp_i, lp_r[rows]) and st_i.n_func_evals == int(st_r.n_func_evals[i]),
+                      f"17a log_prob shard {i} is not bitwise its direct call")
+                s_i, sst_i = hutch.sample_ode_from_base(z[rows])
+                check(torch.equal(s_i, s_r[rows]) and sst_i.n_func_evals == int(sst_r.n_func_evals[i]),
+                      f"17a sample_ode_from_base shard {i} is not bitwise its direct call")
+            for i, g in enumerate(autoshard._shard_generators(gen(1703), 2)):
+                res = hutch.sample_sde((half, 2), steps=EM_STEPS, generator=g)
+                check(torch.equal(res.x_mean, xm_r[i * half:(i + 1) * half]), f"17a sample_sde shard {i} differs")
+            for i, g in enumerate(autoshard._shard_generators(gen(1704), 2)):
+                res = hutch.sample_sde_fused((half, 2), steps=EM_STEPS, generator=g)
+                check(torch.equal(res.x_mean, em_m[i * half:(i + 1) * half]) and torch.equal(res.x, em_x[i * half:(i + 1) * half]),
+                      f"17a sample_sde_fused shard {i} differs")
+            lp_plain, st_plain = hutch.log_prob(x, probes=(e,), **kw)
+        check(not autoshard.should_route(x, hutch.params), "17a: should_route is true on a one-card machine")
+        (lp_eager, st_eager), c_eager, secs_eager = counted(lambda: hutch.log_prob(x, probes=(e,), **kw))
+        check(isinstance(st_eager.n_func_evals, int) and torch.equal(lp_eager, lp_plain)
+              and c_eager == {"fused_drift[hutchinson]": st_eager.n_func_evals},
+              "17a: the eager log_prob routed or differs from the unrouted call")
+        emit("parallel_per_shard", card=smi, rows=N, shards=2, mesh=[str(d) for d in mesh2.devices],
+             log_prob=dict(nfe=st_r.n_func_evals.tolist(), launches=c_lp, seconds=secs_lp, bitwise=True),
+             sample_ode_from_base=dict(nfe=sst_r.n_func_evals.tolist(), launches=c_ode, seconds=secs_ode, bitwise=True),
+             sample_sde=dict(steps=EM_STEPS, launches=c_sde, seconds=secs_sde, bitwise=True),
+             sample_sde_fused=dict(steps=EM_STEPS, launches=c_em, seconds=secs_em, bitwise=True),
+             eager_log_prob=dict(routed=False, nfe=st_eager.n_func_evals, launches=c_eager, seconds=secs_eager,
+                                 bitwise_unrouted=True, unsharded_nfe_vs_shards=[st_eager.n_func_evals,
+                                                                                 st_r.n_func_evals.tolist()]),
+             seconds=time.perf_counter() - t_a)
+
+        # the single-process values: the solve above, and the DSM loss with its
+        # gradients on the same draws (fresh parameters that require grad)
+        loss_params = params_from_numpy(load_npz(os.path.join(BENCH, "flagship_ckpt.npz"))["params"], dev)
+        leaves = [loss_params["W"]] + [p for layer in loss_params["layers"] for p in (layer["w"], layer["b"])]
+        for p in leaves:
+            p.requires_grad_(True)
+        saved_draw = losses._draw_t_and_z
+        losses._draw_t_and_z = lambda g, s, xx: (torch.from_numpy(t_draw).to(dev), torch.from_numpy(z_draw).to(dev))
+        try:
+            loss1 = ScoreModel(loss_params, flag_cfg, VESDE()).loss_fn(None, x)
+            grads1 = torch.autograd.grad(loss1, leaves)
+        finally:
+            losses._draw_t_and_z = saved_draw
+        # -- 17c an NCCL world of one -------------------------------------------------
+        t_c = time.perf_counter()
+        with socket.socket() as s:
+            s.bind(("localhost", 0))
+            port = s.getsockname()[1]
+        check(not dist.is_initialized(), "17c: a process group is already initialized")
+        rank = initialize_distributed(f"localhost:{port}", 1, 0, backend="nccl")
+        try:
+            check(rank == 0 and dist.get_backend() == "nccl" and dist.get_world_size() == 1, "17c: no NCCL world of one")
+            (lp_dp, st_dp), c_dp, secs_dp = counted(lambda: data_parallel(
+                lambda b: hutch.log_prob(b, probes=(e,), **kw), make_mesh([dev]))(x))
+            # the group path itself, forced on over NCCL: a world of one sums
+            # nothing, so the float64 sums of the squares stand against the
+            # float32 mean (the port's |dlogp| bar, 1e-4: the step sizes move in
+            # their last bits); then the DSM loss with its gradients on the
+            # group path: the loss's sum and count in one all-reduce on the
+            # card, the parameters' gradients through the replicated
+            # all-reduce (an NCCL group reduces CUDA tensors only).
+            # ``activate`` leaves a world of one local, so the group is set
+            # inside a block that restores the one before it
+            with autoshard.unrouted(), _collective.activate(None):
+                _collective._state.group = dist.group.WORLD
+                (lp_g, st_g), c_g, secs_g = counted(lambda: hutch.log_prob(x, probes=(e,), **kw))
+                losses._draw_t_and_z = lambda g, s, xx: (torch.from_numpy(t_draw).to(dev),
+                                                         torch.from_numpy(z_draw).to(dev))
+                try:
+                    loss_g = ScoreModel(loss_params, flag_cfg, VESDE()).loss_fn(None, x)
+                    grads_g = torch.autograd.grad(loss_g, leaves)
+                finally:
+                    losses._draw_t_and_z = saved_draw
+        finally:
+            dist.destroy_process_group()
+        d_dp, d_g = float((lp_dp - lp_plain).abs().max()), float((lp_g - lp_plain).abs().max())
+        check(st_dp.n_func_evals == st_plain.n_func_evals and d_dp <= 1e-6,
+              f"17c data_parallel: NFE {st_dp.n_func_evals} vs {st_plain.n_func_evals}, max |dlogp| {d_dp:.2e}")
+        check(st_g.n_func_evals == st_plain.n_func_evals and d_g <= 1e-4,
+              f"17c forced NCCL group path: NFE {st_g.n_func_evals} vs {st_plain.n_func_evals}, max |dlogp| {d_g:.2e}")
+        loss_err_g = abs(float(loss_g.detach()) - float(loss1.detach())) / abs(float(loss1.detach()))
+        grad_err_g = max(float((a - b).abs().max()) / float(b.abs().max()) for a, b in zip(grads_g, grads1))
+        check(loss_err_g <= 1e-5 and grad_err_g <= 1e-5,
+              f"17c forced NCCL group path: DSM loss / gradients off the plain values by {loss_err_g:.2e} / "
+              f"{grad_err_g:.2e} (relative)")
+        lp_after, st_after = hutch.log_prob(x, probes=(e,), **kw)
+        check(not dist.is_initialized() and torch.equal(lp_after, lp_plain) and st_after == st_plain,
+              "17c: after the group a call is not bitwise the plain one")
+        emit("parallel_nccl_world_of_one", card=smi, rows=N, nfe=st_dp.n_func_evals, max_abs_dlogp=d_dp,
+             bitwise=bool(torch.equal(lp_dp, lp_plain)), launches=c_dp, seconds_solve=secs_dp,
+             forced_group_path=dict(nfe=st_g.n_func_evals, max_abs_dlogp=d_g, launches=c_g, seconds=secs_g,
+                                    dsm_loss_rel_err=loss_err_g, dsm_grad_rel_err=grad_err_g),
+             after_bitwise=True, seconds=time.perf_counter() - t_c)
+        with open(os.path.join(d, "go"), "w"):
+            pass
+        t_go = time.perf_counter()
+        outs = [p.communicate(timeout=240)[0] for p in procs]
+    finally:  # a failed sub-phase or worker stops both workers
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        check(p.returncode == 0 and f"parallel worker {r}: OK" in out,
+              f"17b worker {r} failed (rc={p.returncode}): {out[-3000:]}")
+    ranks = [dict(np.load(os.path.join(d, f"worker{r}.npz"))) for r in range(2)]
+    worker_counts = [json.loads(str(w["counts"])) for w in ranks]
+    for c in worker_counts:
+        add_counts(c)
+    lp2 = torch.cat([torch.from_numpy(w["lp"]) for w in ranks]).to(dev)
+    nfe2 = [int(w["nfe"]) for w in ranks]
+    dlp = float((lp2 - lp_plain).abs().max())
+    check(nfe2 == [st_plain.n_func_evals] * 2, f"17b: NFE {nfe2} != the single-process solve's {st_plain.n_func_evals}")
+    check(dlp <= 1e-4, f"17b: max |dlogp| against the single-process solve {dlp:.2e} > 1e-4")
+    check(all(c.get("fused_drift[hutchinson]") == n for c, n in zip(worker_counts, nfe2)),
+          f"17b: each process's launches {worker_counts} != NFE {nfe2}")
+    loss1 = float(loss1.detach())
+    loss_err = [abs(float(w["loss"]) - loss1) / abs(loss1) for w in ranks]
+    grad_err = [max(float(np.abs(w[f"g{i}"] - g.detach().cpu().numpy()).max()) / float(g.abs().max())
+                    for i, g in enumerate(grads1)) for w in ranks]
+    check(max(loss_err) <= 1e-5 and max(grad_err) <= 1e-5,
+          f"17b: DSM loss / gradients off the single-process values by {loss_err} / {grad_err} (relative)")
+    check(int(ranks[0]["writes"]) > 0 and int(ranks[1]["writes"]) == 0 and bool(ranks[0]["snapshot"]),
+          f"17b fit: snapshot writes by rank {[int(w['writes']) for w in ranks]}")
+    for r, w in enumerate(ranks):
+        check("resume position disagrees" in str(w["raised"]) and int(w["launches_after_split"]) == 0,
+              f"17b fit: rank {r} on a split resume: {w['raised']!r}, {int(w['launches_after_split'])} launches")
+    tmp.cleanup()
+    emit("parallel_batch_global", card=smi, processes=2, backend="gloo (CUDA tensors reduced through host copies)",
+         rows=N, rows_per_process=half, nfe=nfe2, nfe_single_process=st_plain.n_func_evals, max_abs_dlogp=dlp,
+         launches=worker_counts, seconds_solve=[float(w["solve_s"]) for w in ranks],
+         seconds_solve_own_rows_no_group=[float(w["solo_s"]) for w in ranks],
+         attempts=[int(w["attempts"]) for w in ranks],
+         allreduce_us_per_call=[float(w["allreduce_us"]) for w in ranks],
+         ms_per_attempt_added=[(float(w["solve_s"]) - float(w["solo_s"])) / int(w["attempts"]) * 1e3 for w in ranks],
+         dsm_loss_rel_err=loss_err, dsm_grad_rel_err=grad_err,
+         fit_snapshot_writes=[int(w["writes"]) for w in ranks], fit_split_resume_raised=True,
+         seconds_from_start=time.perf_counter() - t_b, seconds=time.perf_counter() - t_go)
+
+    secs = time.perf_counter() - t17
+    check(secs <= 40.0, f"phase 17 took {secs:.1f} s > 40 s")
+    emit("phase17", seconds=secs, card=smi)
+    return path_counts
+
+
+def parallel_worker(rank: int, world: int, port: str, d: str) -> int:
+    """One process of phase 17b (``chip_smoke.py --parallel-worker RANK
+    WORLD PORT DIR``): its half of the rows on the card under
+    ``data_parallel`` over a gloo group, the DSM loss and its gradients on
+    the global draw's rows, ``fit``'s snapshots and resume agreement;
+    writes ``DIR/worker<RANK>.npz``."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, ROOT)
+    from flowfusion_torch import train as train_lib
+    from flowfusion_torch.kernels import em_sampler, fused_mlp, fused_sketch, fused_train
+    from flowfusion_torch.models.nets import ScoreMLPConfig
+    from flowfusion_torch.models.score import ScoreModel
+    from flowfusion_torch.ops import losses
+    from flowfusion_torch.ops.sde import VESDE
+    from flowfusion_torch.parallel import (
+        _collective, data_parallel, global_batch_from_local, initialize_distributed, local_rows, make_mesh,
+    )
+    from flowfusion_torch.utils.checkpoint import load_npz
+    from flowfusion_torch.utils.convert import params_from_numpy
+
+    if not torch.cuda.is_available():
+        raise RuntimeError(f"parallel worker {rank}: no CUDA card visible")
+    dev = torch.device("cuda", 0)
+    sync = torch.cuda.synchronize
+    torch.cuda.set_device(dev)
+    got = initialize_distributed(f"localhost:{port}", world, rank, backend="gloo", timeout=120)
+    check(got == rank, f"worker {rank}: initialize_distributed returned {got}")
+    inputs = np.load(os.path.join(d, "inputs.npz"))
+    n = inputs["x"].shape[0]
+    start, stop = local_rows(n)
+    mesh = make_mesh([dev])
+    b = global_batch_from_local({k: torch.from_numpy(inputs[k][start:stop]) for k in ("x", "e", "t", "z")}, mesh)
+    cfg = ScoreMLPConfig(n_dimensions=2, units=(128, 128, 128))
+    params = params_from_numpy(load_npz(os.path.join(BENCH, "flagship_ckpt.npz"))["params"], dev)
+    hutch = ScoreModel(params, cfg, VESDE(), trace_mode="hutchinson")
+    kw = dict(atol=1e-5, rtol=1e-5, options={"controller": "pi"})
+
+    def reset():
+        for mod in (fused_mlp, fused_sketch, em_sampler, fused_train):
+            mod.reset_launch_counts()
+
+    solve = data_parallel(lambda bb: hutch.log_prob(bb["x"], probes=(bb["e"],), **kw), mesh)
+    # the DSM loss of the global batch on the global draw's rows
+    leaves = [params["W"]] + [p for layer in params["layers"] for p in (layer["w"], layer["b"])]
+
+    def grads_fn(bb):
+        loss = ScoreModel(params, cfg, VESDE()).loss_fn(None, bb["x"])
+        return loss, torch.autograd.grad(loss, leaves)
+
+    def dsm():
+        saved_draw = losses._draw_t_and_z
+        losses._draw_t_and_z = lambda g, s, xx: (b["t"], b["z"])
+        for p in leaves:
+            p.requires_grad_(True)
+        try:
+            return data_parallel(grads_fn, mesh)(b)
+        finally:
+            losses._draw_t_and_z = saved_draw
+            for p in leaves:
+                p.requires_grad_(False)
+
+    small = ScoreModel(params, cfg, VESDE())
+    x_fit = b["x"][:4096]
+    fit_kw = dict(stages=[(512, 1e-4)], epochs_per_stage=2, engine="auto")
+    # first uses (the solve, the gradient, the training engine) while the
+    # parent's other sub-phases hold the card; it writes `go` when they end
+    solve(b)
+    dsm()
+    train_lib.fit(small, torch.Generator(device=dev).manual_seed(3), x_fit, **fit_kw)
+    deadline = time.perf_counter() + 300
+    while not os.path.exists(os.path.join(d, "go")):
+        check(time.perf_counter() < deadline, f"worker {rank}: no go file in 300 s")
+        time.sleep(0.02)
+    reset()
+    sync()
+    t_start = time.perf_counter()
+    lp, st = solve(b)
+    sync()
+    solve_s = time.perf_counter() - t_start
+    counts = {f"fused_drift[{m}]": v for m, v in fused_mlp.fused_drift.launches_by_mode.items() if v}
+    counts.update({f"fused_em_sample[{m}]": v for m, v in em_sampler.fused_em_sample.launches_by_dtype.items() if v})
+    # the same solve of this process's rows alone, no group: the attempts'
+    # cost without the all-reduce
+    sync()
+    t_start = time.perf_counter()
+    _, st_solo = hutch.log_prob(b["x"], probes=(b["e"],), **kw)
+    sync()
+    solo_s = time.perf_counter() - t_start
+    group = torch.distributed.group.WORLD
+    probe = torch.ones(4, device=dev)
+    for _ in range(10):
+        _collective.all_reduce(probe, group)
+    sync()
+    t_start = time.perf_counter()
+    for _ in range(200):
+        _collective.all_reduce(probe, group)
+    allreduce_us = (time.perf_counter() - t_start) / 200 * 1e6
+    loss, grads = dsm()
+
+    # fit: one writer of a shared checkpoint_dir; a split resume raises
+    writes = []
+    save = train_lib.save_npz
+    train_lib.save_npz = lambda *a, **k: (writes.append(1), save(*a, **k))
+    reset()
+    shared = os.path.join(d, "shared_ckpt")
+    train_lib.fit(small, torch.Generator(device=dev).manual_seed(3), x_fit, checkpoint_dir=shared,
+                  max_epochs_total=1, **fit_kw)
+    counts.update({f"fused_train_epoch[{m}]": v
+                   for m, v in fused_train.fused_train_epoch.launches_by_dtype.items() if v})
+    torch.distributed.barrier()
+    snapshot = os.path.exists(os.path.join(shared, train_lib.FitCheckpoint.FILE))
+    local = shared if rank == 0 else os.path.join(d, "rank1_ckpt")
+    reset()
+    raised = ""
+    try:
+        train_lib.fit(small, torch.Generator(device=dev).manual_seed(3), x_fit, checkpoint_dir=local, **fit_kw)
+    except RuntimeError as err:
+        raised = str(err)
+    np.savez(os.path.join(d, f"worker{rank}.npz"), lp=lp.cpu().numpy(), nfe=st.n_func_evals, solve_s=solve_s,
+             solo_s=solo_s, attempts=st.n_accepted + st.n_rejected, allreduce_us=allreduce_us,
+             loss=float(loss.detach()), counts=json.dumps(counts), writes=len(writes), snapshot=snapshot, raised=raised,
+             launches_after_split=fused_train.fused_train_epoch.launches,
+             **{f"g{i}": g.cpu().numpy() for i, g in enumerate(grads)})
+    torch.distributed.destroy_process_group()
+    print(f"parallel worker {rank}: OK solo_nfe={st_solo.n_func_evals}", flush=True)
+    return 0
 
 
 def parent_ab(parent_dir: str) -> int:
@@ -4671,8 +5151,19 @@ def cli() -> int:
     ap.add_argument("--parent", metavar="DIR",
                     help="instead, A/B this tree's RHS, sketch, EM and training kernels against the flowfusion_torch package "
                          "in DIR")
+    ap.add_argument("--parallel-worker", nargs=4, metavar=("RANK", "WORLD", "PORT", "DIR"),
+                    help="one process of phase 17b (started by the script itself)")
     args = ap.parse_args()
-    return parent_ab(args.parent) if args.parent else main()
+    if args.parallel_worker:
+        rank, world, port, d = args.parallel_worker
+        return parallel_worker(int(rank), int(world), port, d)
+    try:
+        return parent_ab(args.parent) if args.parent else main()
+    finally:
+        for proc in _CHILDREN:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
 
 
 if __name__ == "__main__":

@@ -13,7 +13,7 @@ points run on the CUDA card unless the caller passes ``device="cpu"`` or
 CPU tensors.
 """
 
-from . import kernels, models, ops, train, utils
+from . import kernels, models, ops, parallel, train, utils
 from .models.flow import ODEFlow
 from .models.nets import ScoreMLPConfig, SymplecticMLPConfig, VelocityMLPConfig
 from .models.population import PopulationModelDiffusion
@@ -30,6 +30,7 @@ __all__ = [
     "kernels",
     "models",
     "ops",
+    "parallel",
     "train",
     "utils",
     "fit",

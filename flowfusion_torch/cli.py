@@ -343,10 +343,12 @@ def cmd_logprob(args):
     kw = {"volume_corrected": args.volume_corrected} if family == "diffusion" else {}
     lp, stats = model.log_prob(x, conditional=cond, generator=generator, atol=args.tol, rtol=args.tol, **kw)
     np.save(args.out, lp.cpu().numpy())
-    ok = bool(stats.succeeded)
+    # sum/all over the leading device axis: an eager call on a host with
+    # several cards is routed and returns per-shard stats
+    ok = bool(torch.as_tensor(stats.succeeded).all())
     print(
         f"saved {args.out}; sum={float(torch.sum(lp)):.2f} "
-        f"rhs_evals={int(stats.n_func_evals)} "
+        f"rhs_evals={int(torch.as_tensor(stats.n_func_evals).sum())} "
         f"ok={ok}"
     )
     if not ok:

@@ -8,7 +8,8 @@ the library already built.  The sources have a plain C interface (no
 PyTorch headers), which keeps a build to seconds.  ``build_host`` builds a
 host C++ source, ``csrc/<name>.cpp`` (the native batch loader), the same
 way with the host compiler (``$CXX``, else ``g++``, else ``c++``).
-Nothing here runs at import time; a failed build raises.
+Nothing here runs at import time; a failed build raises.  ``count_launch``
+is the wrappers' one launch counter.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict
@@ -120,3 +122,17 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(build(name)))
         _loaded[name] = lib
     return lib
+
+
+_COUNT_LOCK = threading.Lock()
+
+
+def count_launch(counter, **by) -> None:
+    """One launch on a wrapper's counts: ``counter.launches`` and, for each
+    keyword, ``counter.<name>[value]`` (e.g. ``launches_by_mode=mode``).
+    Under a lock: routed shards launch from one thread a card, and ``+=``
+    is not atomic across threads."""
+    with _COUNT_LOCK:
+        counter.launches += 1
+        for name, key in by.items():
+            getattr(counter, name)[key] += 1

@@ -469,6 +469,5 @@ def _launch(x0, noise, seed, cond_proj, coeffs, b_eff, w_in, layers, activation,
     )
     if err != 0:
         raise RuntimeError(f"em_sampler kernel launch failed with CUDA error {err}")
-    fused_em_sample.launches += 1
-    fused_em_sample.launches_by_dtype[compute_dtype] += 1
+    _build.count_launch(fused_em_sample, launches_by_dtype=compute_dtype)
     return x_mean, x, flags.any()

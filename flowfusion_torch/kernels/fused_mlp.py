@@ -1066,10 +1066,7 @@ def _fused_mlp_cuda(x_in, e, w_in, b_eff, hidden_w, hidden_b, w_out, b_out, c0c1
     )
     if err != 0:
         raise RuntimeError(f"fused_mlp kernel launch failed with CUDA error {err}")
-    count = globals()[counter]
-    count.launches += 1
-    count.launches_by_mode[mode] += 1
-    count.launches_by_dtype[compute_dtype] += 1
+    _build.count_launch(globals()[counter], launches_by_mode=mode, launches_by_dtype=compute_dtype)
     return drift, div
 
 

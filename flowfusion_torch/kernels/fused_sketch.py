@@ -465,10 +465,7 @@ def _fused_sketch_cuda(x_in, V, w_in, b_eff, hidden_w, hidden_b, w_out, b_out, c
     )
     if err != 0:
         raise RuntimeError(f"fused_sketch kernel launch failed with CUDA error {err}")
-    count = globals()[counter]
-    count.launches += 1
-    count.launches_by_mode[mode] += 1
-    count.launches_by_dtype[compute_dtype] += 1
+    _build.count_launch(globals()[counter], launches_by_mode=mode, launches_by_dtype=compute_dtype)
     return drift, div
 
 

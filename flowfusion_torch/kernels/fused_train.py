@@ -774,9 +774,7 @@ def launch_packed(cfg, plan, xt, zw, t, beta, conditional, W, p_flat, m_flat, v_
         )
     if err != 0:
         raise RuntimeError(f"fused_train kernel launch failed with CUDA error {err}")
-    counter = counter or fused_train_epoch
-    counter.launches += 1
-    counter.launches_by_dtype[compute_dtype] += 1
+    _build.count_launch(counter or fused_train_epoch, launches_by_dtype=compute_dtype)
     return loss
 
 

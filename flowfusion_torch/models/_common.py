@@ -13,7 +13,7 @@ import torch
 __all__ = [
     "fused_dispatch", "std_stats", "cond_stats", "norm_cond", "std_normal_logpdf",
     "check_trace_mode", "check_probes", "adjoint_refusal", "adjoint_inputs",
-    "check_per_sample_mode",
+    "check_per_sample_mode", "per_shard_variant", "logprob_per_sample_per_shard", "group_params",
 ]
 
 
@@ -147,6 +147,56 @@ def fused_dispatch(use_fused_kernel: Optional[bool], supported: bool, on_cuda: b
             "config, switch trace_mode to 'hutchinson', or drop the flag"
         )
     return bool(use_fused_kernel)
+
+
+def per_shard_variant(model, supported: bool):
+    """The model a device runs under per-shard routing
+    (``parallel.autoshard``) — one rule for the three families.
+
+    The JAX package forces its fused kernel per shard on the TPU, where its
+    auto policy counts the devices of the realm, not of the shard.  Here
+    the rule is: on CUDA, with ``use_fused_kernel=None`` and a supported
+    config, set it to True — which is what ``fused_dispatch`` already takes
+    for CUDA tensors, so the routed calls (``autoshard.maybe_route``) run
+    each shard's model as it is, and a shard runs the kernel exactly as a
+    direct call on its rows does.  Off CUDA, or outside the envelope, the
+    auto policy stands.  ``supported`` is the family's own envelope answer
+    for the solve at hand."""
+    dev = model.device
+    if model.use_fused_kernel is None and dev is not None and dev.type == "cuda" and supported:
+        return dataclasses.replace(model, use_fused_kernel=True)
+    return model
+
+
+def logprob_per_sample_per_shard(atol, rtol, method, opts):
+    """The per-shard ``log_prob_per_sample`` body of ``autoshard.routed_call``
+    (ScoreModel and ODEFlow, whose per-sample solves share the
+    ``(x, conditional, generator=, probes=)`` signature): both outputs are
+    row-shaped, so they ride in the batch tree.  ``opts`` is the options
+    dict or ``hashable_options``' tuple.  The models route through
+    ``autoshard.maybe_route``, which builds the same body."""
+
+    def per_shard(model, xb, cb, gb, pb):
+        lp, stats = model.log_prob_per_sample(
+            xb, cb, generator=gb, probes=pb, atol=atol, rtol=rtol, method=method,
+            options=dict(opts) if opts is not None else None,
+        )
+        return (lp, stats), ()
+
+    return per_shard
+
+
+def group_params(model):
+    """``model`` with its parameters entering the graph through
+    ``_collective.replicated`` inside ``parallel.data_parallel`` (their
+    gradients summed over the process group, so every process holds the
+    global batch's gradient); ``model`` itself outside it."""
+    from ..parallel import _collective
+
+    group = _collective.active_group()
+    if group is None:
+        return model
+    return dataclasses.replace(model, params=_collective.replicated(model.params, group))
 
 
 _LOG_2PI = math.log(2.0 * math.pi)

@@ -18,6 +18,10 @@ for the Hutch++ and XTrace traces, ``kernels.fused_sketch.fused_velocity_sketch`
 when the solve's tensors are on CUDA (or ``use_fused_kernel=True``), else
 through the plain velocity net and ``ops.trace`` estimators, under
 ``torch.no_grad`` with TF32 off (compute mode ``float32``).
+
+Eager ``sample``, ``log_prob`` and ``log_prob_per_sample`` calls on CUDA
+tensors in a process that sees several cards split the batch over all of
+them (``parallel.autoshard``), as ``ScoreModel``'s do.
 """
 
 from __future__ import annotations
@@ -33,6 +37,7 @@ from ..kernels.fused_sketch import fused_velocity_sketch, supports_sketch
 from ..ops import losses as losses_lib
 from ..ops import trace as trace_lib
 from ..ops.integrate import SolverStats, odeint, odeint_adjoint, odeint_per_sample
+from ..parallel import autoshard
 from ..utils.checkpoint import load_npz, read_npz_extra
 from ..utils.convert import params_from_numpy
 from . import _common
@@ -196,7 +201,8 @@ class ODEFlow:
         """The CFM loss on data-unit ``x``, standardized here; the
         conditional is standardized inside the dynamics."""
         x_std = (x - self.target_shift) / self.target_scale
-        return losses_lib.flow_matching_loss(self.dynamics, generator, x_std, conditional)
+        model = _common.group_params(self)
+        return losses_lib.flow_matching_loss(model.dynamics, generator, x_std, conditional)
 
     def loss_fn(
         self,
@@ -223,6 +229,11 @@ class ODEFlow:
         differentiates through the solve with the continuous adjoint
         (stats None)."""
         self._check_device(xT, conditional)
+        routed = None if gradients else autoshard.maybe_route(
+            self, "sample", xT, conditional, stacked=(1,), rtol=rtol, atol=atol, method=method, options=options
+        )
+        if routed is not None:
+            return routed
         if gradients:
             tensors, rebuild = _common.adjoint_inputs(self, conditional)
 
@@ -338,7 +349,14 @@ class ODEFlow:
         adjoint: bool = False,
     ) -> Tuple[torch.Tensor, SolverStats]:
         """CNF log-likelihood (B,) in data units: the N(0, 1) prior at t=1
-        plus the log-Jacobian, minus sum(log target_scale)."""
+        plus the log-Jacobian, minus sum(log target_scale).  A routed
+        call's stats carry a leading n_devices axis."""
+        routed = None if adjoint else autoshard.maybe_route(
+            self, "log_prob", x, conditional, generator, probes, stacked=(1,),
+            atol=atol, rtol=rtol, method=method, options=options,
+        )
+        if routed is not None:
+            return routed
         x_std = (x - self.target_shift) / self.target_scale
         xT, log_jac, stats = self.solve_ode_forward(
             x_std, conditional, generator=generator, probes=probes, atol=atol, rtol=rtol,
@@ -366,6 +384,12 @@ class ODEFlow:
         and so launches no kernel."""
         _common.check_per_sample_mode(self.trace_mode)
         self._check_device(x, conditional)
+        routed = autoshard.maybe_route(
+            self, "log_prob_per_sample", x, conditional, generator, probes,
+            atol=atol, rtol=rtol, method=method, options=options,
+        )
+        if routed is not None:
+            return routed
         x_std = (x - self.target_shift) / self.target_scale
         if probes is None:
             probes = trace_lib.make_probes(self.trace_mode, generator, x_std)
@@ -393,3 +417,4 @@ class ODEFlow:
             )
         prior = torch.sum(_common.std_normal_logpdf(xs[:, -1]), dim=1)
         return prior + ljs[:, -1] - torch.sum(torch.log(self.target_scale)), stats
+

@@ -33,6 +33,13 @@ every kernel of these solves, the Hutch++ and XTrace one too);
 the plain path computes in float32 whatever it says, as the JAX plain path
 does.  Random draws come from an explicit ``torch.Generator``; the prior is drawn
 on the generator's device and moved to the model's.
+
+Eager calls on CUDA tensors in a process that sees several cards split the
+batch over all of them (``parallel.autoshard``): each card runs the solve
+on its own rows, with a generator seeded from the caller's, and the stats
+of a routed solve carry a leading n_devices axis.  ``adjoint=True``,
+``progress=True`` and solver options that cannot be made hashable are
+never routed.
 """
 
 from __future__ import annotations
@@ -54,6 +61,7 @@ from ..ops.integrate import (
 )
 from ..ops.integrate.tableaus import ADAPTIVE_METHODS
 from ..ops.sde import SDE
+from ..parallel import _collective, autoshard
 from . import _common
 from .nets import ScoreMLPConfig
 
@@ -159,8 +167,10 @@ class ScoreModel:
         conditional: Optional[torch.Tensor] = None,
     ) -> torch.Tensor:
         """Denoising score-matching loss, its (t, z) drawn from
-        ``generator`` (``ops.losses.denoising_score_matching``)."""
-        return losses_lib.denoising_score_matching(self.score, self.sde, generator, x, conditional)
+        ``generator`` (``ops.losses.denoising_score_matching``); inside
+        ``parallel.data_parallel`` the loss of the global batch."""
+        model = _common.group_params(self)
+        return losses_lib.denoising_score_matching(model.score, self.sde, generator, x, conditional)
 
     # ------------------------------------------------------------------
     # sampling
@@ -197,8 +207,18 @@ class ScoreModel:
         """Reverse-time Euler--Maruyama sampler from the prior at T down to
         epsilon: ``steps`` launches of the drift kernel on the card.  The
         prior and then the path noise come from ``generator``;
-        ``progress=True`` shows a tqdm bar (``euler_maruyama``)."""
+        ``progress=True`` shows a tqdm bar (``euler_maruyama``).  Routed
+        calls split the batch over the cards, each shard drawing from its
+        own generator."""
         self._check_device(conditional)
+        routed = None if progress else autoshard.maybe_route_sample(
+            self, "sample_sde", shape, conditional, generator, stacked=(2,), steps=steps
+        )
+        if routed is not None:
+            # the flag from the returned rows only: surplus rows of the last
+            # shard may diverge without touching a visible sample
+            nan = ~(torch.isfinite(routed.x_mean).all() & torch.isfinite(routed.x).all())
+            return routed._replace(nan_encountered=nan)
         x0 = self.sde.prior_sample(generator, shape, self.device)
         drift = self._reverse_drift_fn(conditional, x0)
         with torch.no_grad(), strict_fp32_matmul():
@@ -247,8 +267,14 @@ class ScoreModel:
         def normal(like):
             return torch.randn(like.shape, generator=generator, device=gen_dev).to(like.device)
 
+        group = _collective.active_group()
+
         def batch_mean_norm(v):
-            return torch.linalg.vector_norm(v.reshape(v.shape[0], -1), dim=-1).mean()
+            norms = torch.linalg.vector_norm(v.reshape(v.shape[0], -1), dim=-1)
+            if group is None:
+                return norms.mean()
+            # the mean over every process's rows
+            return _collective.mean_over_group(norms.sum(), norms.numel(), group)
 
         ts = T + dt * torch.arange(steps, dtype=torch.float32, device=x0.device)
         x, x_mean = x0, x0
@@ -272,7 +298,10 @@ class ScoreModel:
                     x_mean = x + step * grad
                     x = x_mean + torch.sqrt(2.0 * step) * z
                 # sample_sde's freeze: keep the last finite state
-                frozen = frozen | ~torch.isfinite(x).all()
+                bad = ~torch.isfinite(x).all()
+                if group is not None:
+                    bad = _collective.any_over_group(bad, group)
+                frozen = frozen | bad
                 x = torch.where(frozen, x_old, x)
                 x_mean = torch.where(frozen, xm_old, x_mean)
         return EMResult(x_mean=x_mean, x=x, nan_encountered=frozen)
@@ -304,6 +333,9 @@ class ScoreModel:
                 compute_dtype=compute_dtype or self.kernel_compute_dtype,
             )
         nan = diverged | ~(torch.isfinite(x_mean).all() & torch.isfinite(x).all())
+        group = _collective.active_group()
+        if group is not None:
+            nan = _collective.any_over_group(nan, group)
         return EMResult(x_mean=x_mean, x=x, nan_encountered=nan)
 
     def sample_dpm(
@@ -320,6 +352,9 @@ class ScoreModel:
         On the card each evaluation is one kernel launch in mode forward
         with (c0, c1) = (0, -eta) or (0, -eta / sigma): eps = -eta * score."""
         self._check_device(base_samples, conditional)
+        routed = autoshard.maybe_route(self, "sample_dpm", base_samples, conditional, steps=steps, order=order)
+        if routed is not None:
+            return routed
         x_T = base_samples * self.sde.prior_scale
 
         if self._fused_available(x_T, "forward"):
@@ -366,6 +401,12 @@ class ScoreModel:
         continuous adjoint (``ops.integrate.odeint_adjoint``); stats are
         None then."""
         self._check_device(base_samples, conditional)
+        routed = None if adjoint else autoshard.maybe_route(
+            self, "sample_ode_from_base", base_samples, conditional, stacked=(1,),
+            atol=atol, rtol=rtol, method=method, options=options,
+        )
+        if routed is not None:
+            return routed
         z = base_samples * self.sde.prior_scale
         if adjoint:
             tensors, rebuild = _common.adjoint_inputs(self, conditional)
@@ -426,6 +467,12 @@ class ScoreModel:
         if adjoint and self.trace_mode == "xtrace":
             raise _common.adjoint_refusal()
         self._check_device(x0_samples, conditional)
+        routed = None if adjoint else autoshard.maybe_route(
+            self, "solve_odes_forward", x0_samples, conditional, generator, probes, stacked=(2,),
+            atol=atol, rtol=rtol, method=method, options=options,
+        )
+        if routed is not None:
+            return routed
         if probes is None:
             probes = trace_lib.make_probes(
                 self.trace_mode, generator, x0_samples,
@@ -509,6 +556,12 @@ class ScoreModel:
         (JAX score.py:744-764), and so launches no kernel."""
         _common.check_per_sample_mode(self.trace_mode)
         self._check_device(x0_samples, conditional)
+        routed = autoshard.maybe_route(
+            self, "log_prob_per_sample", x0_samples, conditional, generator, probes,
+            atol=atol, rtol=rtol, method=method, options=options,
+        )
+        if routed is not None:
+            return routed
         if options is None:
             options = {"min_step": 1e-6}
         if probes is None:
@@ -552,7 +605,14 @@ class ScoreModel:
     ) -> Tuple[torch.Tensor, SolverStats]:
         """Exact CNF log-likelihood, (B,), with the reference defaults
         atol=rtol=1e-4 and min_step=1e-6 (adaptive methods).  Returns
-        (log_prob, stats); ``adjoint=True`` as in ``solve_odes_forward``."""
+        (log_prob, stats); ``adjoint=True`` as in ``solve_odes_forward``.
+        A routed call's stats carry a leading n_devices axis."""
+        routed = None if adjoint else autoshard.maybe_route(
+            self, "log_prob", x0_samples, conditional, generator, probes, stacked=(1,),
+            atol=atol, rtol=rtol, method=method, options=options,
+        )
+        if routed is not None:
+            return routed
         if options is None:
             # min_step is an adaptive-solver option
             options = {"min_step": 1e-6} if method in ADAPTIVE_METHODS else {}
@@ -561,3 +621,4 @@ class ScoreModel:
             atol=atol, rtol=rtol, method=method, options=options, adjoint=adjoint,
         )
         return dlp + torch.sum(self.sde.prior_log_prob(xT), dim=1), stats
+

@@ -21,6 +21,11 @@ else through the plain net, under ``torch.no_grad`` with TF32 off.
 Leapfrog runs the plain per-stack velocities on any device, as the JAX
 package does.  Random draws come from an explicit ``torch.Generator`` on
 its own device; tests pass ``base``/``momentum`` instead.
+
+Eager ``sample`` (without ``base``), ``log_prob`` and
+``log_prob_per_sample`` calls on CUDA tensors in a process that sees
+several cards split the batch over all of them (``parallel.autoshard``);
+a given momentum shards with its rows.
 """
 
 from __future__ import annotations
@@ -35,6 +40,7 @@ from .._device import DeviceLike, resolve_device, strict_fp32_matmul
 from ..kernels.fused_mlp import check_compute_dtype, fusable_config, fused_symplectic_velocity, supports_features
 from ..ops import losses as losses_lib
 from ..ops.integrate import SolverStats, leapfrog, odeint, odeint_adjoint, odeint_fixed, odeint_per_sample
+from ..parallel import autoshard
 from ..utils.checkpoint import load_npz, read_npz_extra
 from ..utils.convert import params_from_numpy
 from . import _common
@@ -171,8 +177,7 @@ class SymplecticFlowModel:
         if momentum is None:
             gen_dev = generator.device if generator is not None else None
             return torch.randn(q0.shape, generator=generator, device=gen_dev).to(self.device)
-        if tuple(momentum.shape) != tuple(q0.shape):
-            raise ValueError(f"momentum of shape {tuple(momentum.shape)}; expected {tuple(q0.shape)}")
+        _check_momentum(momentum, q0.shape)
         return momentum
 
     # ------------------------------------------------------------------
@@ -192,7 +197,8 @@ class SymplecticFlowModel:
         ``generator``), joint N(0, 1) at t = 1."""
         q0 = (x - self.shift) / self.scale
         s0 = torch.cat([q0, losses_lib._normal_like(generator, q0)], dim=-1)
-        return losses_lib.flow_matching_loss(self.dynamics, generator, s0, self._norm_cond(conditional))
+        model = _common.group_params(self)
+        return losses_lib.flow_matching_loss(model.dynamics, generator, s0, self._norm_cond(conditional))
 
     # ------------------------------------------------------------------
     def sample(
@@ -215,6 +221,11 @@ class SymplecticFlowModel:
         if num_steps < 1:
             raise ValueError(f"num_steps must be >= 1, got {num_steps}")
         self._check_device(base, conditional)
+        routed = None if base is not None else autoshard.maybe_route_sample(
+            self, "sample", shape, conditional, generator, num_steps=num_steps, method=method
+        )
+        if routed is not None:
+            return routed
         if base is None:
             gen_dev = generator.device if generator is not None else None
             base = torch.randn((batch, 2 * d), generator=generator, device=gen_dev).to(self.device)
@@ -260,6 +271,15 @@ class SymplecticFlowModel:
             raise ValueError("n_momentum_samples must be >= 1")
         self._check_device(x, conditional, momentum)
         B = x.shape[0]
+        _check_momentum(momentum, (K * B, x.shape[1]))
+        # a given momentum (K B, D) shards on its B axis
+        routed = None if adjoint else autoshard.maybe_route(
+            self, "log_prob", x, conditional, generator, None if momentum is None else (momentum.reshape(K, B, -1),),
+            stacked=(1,), probes_as=_momentum_block, atol=atol, rtol=rtol, method=method, options=options,
+            n_momentum_samples=K,
+        )
+        if routed is not None:
+            return routed
         q0 = (x - self.shift) / self.scale
         cond = self._norm_cond(conditional)
         if K > 1:
@@ -313,6 +333,12 @@ class SymplecticFlowModel:
         ``vmap`` here (JAX symplectic.py:337-392), and so launches no
         kernel."""
         self._check_device(x, conditional, momentum)
+        routed = autoshard.maybe_route(
+            self, "log_prob_per_sample", x, conditional, generator, None if momentum is None else (momentum,),
+            probes_as=_momentum_block, atol=atol, rtol=rtol, method=method, options=options,
+        )
+        if routed is not None:
+            return routed
         q0 = (x - self.shift) / self.scale
         cond_n = self._norm_cond(conditional)
         momentum = self._momentum(q0, generator, momentum)
@@ -333,3 +359,16 @@ class SymplecticFlowModel:
             - torch.sum(_common.std_normal_logpdf(momentum), dim=-1)
         )
         return lp - torch.sum(torch.log(self.scale)), stats
+
+
+
+def _check_momentum(momentum: Optional[torch.Tensor], shape) -> None:
+    """A given momentum must have the shape of the (K B, D) positions."""
+    if momentum is not None and tuple(momentum.shape) != tuple(shape):
+        raise ValueError(f"momentum of shape {tuple(momentum.shape)}; expected {tuple(shape)}")
+
+
+def _momentum_block(pb):
+    """A shard's block of a given momentum, (K, rows, D) or (rows, D), as
+    the (K rows, D) keyword of ``log_prob`` and ``log_prob_per_sample``."""
+    return {"momentum": pb[0].reshape(-1, pb[0].shape[-1])}

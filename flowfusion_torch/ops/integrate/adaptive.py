@@ -44,6 +44,7 @@ import numpy as np
 import torch
 from torch._higher_order_ops.while_loop import while_loop, while_loop_op
 
+from ...parallel import _collective
 from .fixed import tree_leaves, tree_map
 from .tableaus import ButcherTableau, get_adaptive_tableau
 
@@ -79,7 +80,14 @@ def _rms(x: torch.Tensor) -> torch.Tensor:
 
 def _mixed_rms_norm(tree: Any) -> torch.Tensor:
     """Max over state components of per-component RMS (empty ones skipped:
-    the mean of an empty tensor is NaN and would poison the norm)."""
+    the mean of an empty tensor is NaN and would poison the norm).  Inside
+    ``parallel.data_parallel`` the RMS runs over the rows of every process
+    of the group: one all-reduce of the squares and the counts, so every
+    process takes the same batch-global accept/reject decision."""
+    group = _collective.active_group()
+    if group is not None:
+        ms = [m for m in _collective.mean_squares(tree_leaves(tree), group) if m is not None]
+        return torch.max(torch.stack([torch.sqrt(m) for m in ms]))
     leaves = [l for l in tree_leaves(tree) if l.numel() > 0]
     return torch.max(torch.stack([_rms(l) for l in leaves]))
 

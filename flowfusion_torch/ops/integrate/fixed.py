@@ -15,6 +15,8 @@ from typing import Any, Callable, NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
+from ...parallel import _collective
+
 __all__ = [
     "tree_map",
     "tree_leaves",
@@ -199,7 +201,9 @@ def euler_maruyama(
     finite state at the first non-finite new x on an active step (t >=
     ``epsilon``), and ``nan_encountered`` says so; inactive steps change
     nothing.  The freeze is a ``torch.where`` on the device: the loop never
-    synchronises with the host.
+    synchronises with the host, but inside ``parallel.data_parallel``,
+    where a non-finite row of any process freezes every process's batch
+    (one all-reduce a step).
 
     Noise is drawn from ``generator`` on its own device (one on the state's
     device avoids a copy a step), or streamed from ``noise`` of shape
@@ -221,6 +225,7 @@ def euler_maruyama(
     x, x_mean = x0, x0
     frozen = torch.zeros((), dtype=torch.bool, device=dev)
     tick = _progress_tick(steps) if progress else None
+    group = _collective.active_group()
     for i in range(steps):
         t = ts[i]
         if tick is not None:
@@ -234,6 +239,9 @@ def euler_maruyama(
         ).to(dev)
         new_x = new_mean + g * (z * sqrt_dt)
         has_nan = ~torch.isfinite(new_x).all()
+        if group is not None:
+            # the whole batch of every process freezes together
+            has_nan = _collective.any_over_group(has_nan, group)
         use = active & ~has_nan
         x = torch.where(use, new_x, x)
         x_mean = torch.where(use, new_mean, x_mean)

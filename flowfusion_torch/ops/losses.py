@@ -9,7 +9,10 @@ it, so with the same generator the two engines train on the same draws.
 
 Reductions as in the JAX package: the two score-matching losses sum the
 squared residuals over batch *and* dimensions and divide by the batch size;
-the flow-matching loss is a plain mean over batch and dimensions.
+the flow-matching loss is a plain mean over batch and dimensions.  Inside
+``parallel.data_parallel`` the batch is the global one: the sum runs over
+every process of the group and the division is by the global batch
+(``_collective.mean_over_group``), so each process holds the global loss.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ from typing import Callable, Optional
 
 import torch
 
+from ..parallel import _collective
 from .sde import SDE
 
 __all__ = ["denoising_score_matching", "log_prob_score_matching", "flow_matching_loss"]
@@ -58,6 +62,15 @@ def _draw_xT_and_t(generator: Optional[torch.Generator], x0: torch.Tensor):
     return xT, _uniform_rows(generator, x0)
 
 
+def _batch_mean(total: torch.Tensor, n: int) -> torch.Tensor:
+    """``total / n``, or inside ``data_parallel`` the sum over the group
+    divided by the sum of the counts."""
+    group = _collective.active_group()
+    if group is None:
+        return total / n
+    return _collective.mean_over_group(total, n, group)
+
+
 def denoising_score_matching(
     score_fn: ScoreFn,
     sde: SDE,
@@ -69,7 +82,7 @@ def denoising_score_matching(
     t, z = _draw_t_and_z(generator, sde, x)
     mean, sigma = sde.marginal_prob(t, x)
     s = score_fn(t, mean + sigma * z, conditional)
-    return torch.sum((z + sigma * s) ** 2) / x.shape[0]
+    return _batch_mean(torch.sum((z + sigma * s) ** 2), x.shape[0])
 
 
 def log_prob_score_matching(
@@ -85,7 +98,7 @@ def log_prob_score_matching(
     g = sde.diffusion(t, x)
     mean, sigma = sde.marginal_prob(t, x)
     s = score_fn(t, mean + sigma * z, conditional)
-    return torch.sum(((g / sigma) * z + g * s) ** 2) / x.shape[0]
+    return _batch_mean(torch.sum(((g / sigma) * z + g * s) ** 2), x.shape[0])
 
 
 def flow_matching_loss(
@@ -101,4 +114,7 @@ def flow_matching_loss(
     t_b = t.reshape((x0.shape[0],) + (1,) * (x0.ndim - 1))
     xt = (1.0 - t_b) * x0 + t_b * xT
     v_pred = velocity_fn(t, xt, conditional)
-    return torch.mean((v_pred - (xT - x0)) ** 2)
+    sq = (v_pred - (xT - x0)) ** 2
+    if _collective.active_group() is None:
+        return torch.mean(sq)
+    return _batch_mean(torch.sum(sq), sq.numel())

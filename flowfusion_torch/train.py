@@ -29,6 +29,7 @@ from typing import Any, Callable, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ._device import strict_fp32_matmul
 from .kernels.fused_mlp import fusable_config
@@ -48,6 +49,7 @@ from .models.nets import ScoreMLPConfig, SymplecticMLPConfig, VelocityMLPConfig
 from .models.population import PopulationModelDiffusion
 from .models.score import ScoreModel
 from .models.symplectic import SymplecticFlowModel
+from .parallel.distributed import _world
 from .utils.checkpoint import load_npz, read_npz_extra, restore, save_npz
 from .utils.tree import leaves_with_paths, map_with_path
 
@@ -171,12 +173,47 @@ class FitCheckpoint:
         return read_npz_extra(self.path) if os.path.exists(self.path) else None
 
     def save(self, state: Any, meta: dict) -> None:
-        """Atomically write the training-state tree and its metadata."""
+        """Atomically write the training-state tree and its metadata.
+
+        With a process group of world > 1 only rank 0 writes (the training
+        state is the same on every rank; a directory that is not shared
+        would otherwise hold diverging snapshots) — every rank reads the
+        same snapshot on resume."""
+        if _world()[1] != 0:
+            return
         save_npz(self.path, state, extra=meta)
 
     def load(self) -> Any:
         """The snapshot's tree of numpy arrays (``utils.checkpoint.load_npz``)."""
         return load_npz(self.path)
+
+
+def _check_resume_agrees(ckpt: Optional["FitCheckpoint"], start_stage: int, start_epoch: int) -> None:
+    """With a process group of world > 1, every rank must resume from the
+    same position: snapshots are written by rank 0 only, so a
+    ``checkpoint_dir`` that is not shared by every rank would restart the
+    others at stage 0 while rank 0 resumes mid-run.  Every rank gathers
+    every position and raises on a disagreement before any step.  A rank
+    with no ``checkpoint_dir`` takes part at (0, 0), so that no rank waits
+    in the gather for one that never reaches it."""
+    world, rank = _world()
+    if world <= 1:
+        return
+    mine = torch.tensor([start_stage, start_epoch], dtype=torch.int64)
+    if dist.get_backend() == "nccl":
+        mine = mine.cuda()
+    gathered = [torch.zeros_like(mine) for _ in range(world)]
+    dist.all_gather(gathered, mine)
+    positions = [g.tolist() for g in gathered]
+    if any(p != positions[0] for p in positions):
+        raise RuntimeError(
+            "fit: resume position disagrees across hosts — per-process "
+            f"stage/epoch positions are {positions} (this is "
+            f"process {rank}, reading {ckpt.path if ckpt is not None else 'no checkpoint_dir'}). "
+            "checkpoint_dir must be on a filesystem shared by ALL "
+            "hosts (snapshots are written by process 0 only); point "
+            "every process at the same directory."
+        )
 
 
 def _epoch_generators(generator: torch.Generator) -> Tuple[torch.Generator, torch.Generator]:
@@ -215,6 +252,7 @@ def _run_stages(
             start_stage, start_epoch = meta["stage"], meta["epoch"]
             past = {"train": meta["train_losses"], "val": meta["val_losses"]}
             print(f"fit: resuming from {ckpt.path} at stage {start_stage} epoch {start_epoch}")
+    _check_resume_agrees(ckpt, start_stage, start_epoch)
 
     def snapshot(si, e_done, tl_flat, vl_flat):
         ckpt.save(

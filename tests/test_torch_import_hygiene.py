@@ -17,6 +17,8 @@ def test_fresh_interpreter_imports_every_module_without_jax():
         "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith(('jax.', 'flowfusion_tpu')))\n"
         "new = ('diagnostics', 'profiling', 'native_loader')\n"
         "assert all(f'flowfusion_torch.utils.{m}' in sys.modules for m in new)\n"
+        "par = ('sharding', 'distributed', 'autoshard', '_collective')\n"
+        "assert all(f'flowfusion_torch.parallel.{m}' in sys.modules for m in par)\n"
         "print(len([k for k in sys.modules if k.startswith('flowfusion_torch')]), bad)\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
