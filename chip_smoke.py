@@ -63,8 +63,9 @@ non-zero without the final line):
         holds (by the plan and by
         cudaOccupancyMaxActiveBlocksPerMultiprocessor), registers and local
         memory a thread (none), for every plan of 1d and 1g in the three
-        compute modes, and the nine instantiations (MD 2, 4, 8 x float32,
-        highf32, bfloat16); the flagship XTrace plan holds two blocks or
+        compute modes, and the nine register-algebra instantiations (MD 2,
+        4, 8 x float32, highf32, bfloat16; phase 18 reports the wide
+        path's); the flagship XTrace plan holds two blocks or
         more; the launch at its own plan against one forced to 4 rows (8
         where the plan has 4) at MD = 8 (flagship and conditional H=256,
         Hutch++ and XTrace, 50,000 rows): float32 and bfloat16 bitwise
@@ -249,14 +250,37 @@ non-zero without the final line):
      group path forced on over NCCL within 1e-4 and the DSM loss and
      gradients on it within 1e-5, a call after the group bitwise; the phase
      within 40 s;
+  18. the pop-cosmos path (``popcosmos_phase``, printed after 17, in a
+     process of its own, ``--popcosmos-worker``, started before 16): the
+     JAX bench suite's wide conditional workload (D = 16 parameters, C = 8
+     observables, 128 x 3 SiLU VESDE net; x = tanh(c W) + 0.3 eps drawn from
+     a seed; 50,000 rows) trained by ``fit(engine='auto')`` (the training
+     kernel at 24 features, held to its plain version on one 4-step call);
+     (a) the sketch kernel's wide path against its plain version in the
+     three compute modes (D16C8 Hutch++ r = 2, m = 1 and r = m = 4, XTrace
+     m = 2 and 4 at 50,000 rows, 50,001 in float32; D = 20, C = 4 and D =
+     64 at 4,099; the velocity form at D = 16), the RHS kernel at 24
+     features in three modes and three compute modes, times of the launch
+     beside the plain version's and the bound (D16C8 and D = 64); (b)
+     Hutch++ at r = D = 16 against the exact trace (orthonormal sketches,
+     with and without parallel columns; Rademacher reported), XTrace at
+     m = 16 against its plain version; (c) ``log_prob`` at 50,000 rows,
+     rtol 1e-5 PI: Hutchinson, Hutch++ and XTrace in float32, highf32
+     Hutchinson, bfloat16 XTrace, kernel against plain (NFE, |dlogp|,
+     launches = NFE), rows/s, idle share, logp against the analytic
+     density; a D = 65 model raises on the card; (d) ``sample_sde_fused``
+     against ``sample_sde`` at 50,000 x 100 on the same conditionals (the
+     moment bars); (e) the wide instantiations' registers, local bytes and
+     blocks an SM, a forced 4-row plan bitwise;
   7. a ``kernels`` line, printed last: launches on the main paths (each
      path run with the counts set to 0 just before it: phases 2-4, 5, 6,
      the two-launch path of 1d, 8, 9, 10 and, for the highf32 entries, 11
      and 12, for the bfloat16 entries 15, for the training kernel's modes
      1e's modes path), times, bounds and plain times,
      ``serving_launches``, the launches on phase 14's paths,
-     ``utilities_launches``, those on phase 16's, and ``parallel_launches``,
-     those on phase 17's (its two worker processes' included).
+     ``utilities_launches``, those on phase 16's, ``parallel_launches``,
+     those on phase 17's (its two worker processes' included), and
+     ``wide_launches``, those on phase 18's.
 
 Every JSON line carries ``seconds``: its own wall, or the wall since the
 line before it.
@@ -316,6 +340,10 @@ REPLACES_TRAIN = {
 EM_STEPS = 100
 # phase 17's rows: the flagship's 50,000, two shards or two processes of 25,000
 PARALLEL_ROWS = 50_000
+# phase 18's rows: every pop-cosmos solve, the fit, the sketch kernel's D16C8
+# checks; and the random wide nets' rows
+POPCOSMOS_ROWS = 50_000
+POPCOSMOS_SMALL_ROWS = 4_099
 
 
 _LAST_LINE = [time.perf_counter()]
@@ -339,6 +367,21 @@ def spawn(args, **kwargs) -> subprocess.Popen:
     proc = subprocess.Popen(args, **kwargs)
     _CHILDREN.append(proc)
     return proc
+
+
+def device_us(fn) -> float:
+    """Device time in microseconds of the kernels and copies of one run of
+    ``fn``, from ``torch.profiler`` recording the device activity alone
+    (the host ops' record took 20-28 s for a per-sample solve on the H100) and
+    read from its raw events (``key_averages`` took seconds a solve)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.duration_ns() for e in prof.profiler.kineto_results.events()
+               if e.device_type() == torch.autograd.DeviceType.CUDA) / 1e3
 
 
 def check(ok: bool, msg: str) -> None:
@@ -1617,9 +1660,9 @@ def main() -> int:
     flag_xt = fused_sketch.sketch_plan("xtrace", 128, 3, 2, 2, 2, 0)
     check(fused_sketch.sketch_occupancy(flag_xt)["blocks_per_sm"] >= 2,
           f"the flagship XTrace plan {flag_xt} holds fewer than two blocks an SM")
-    instantiations = []
+    instantiations = []  # the register algebra's (phase 18 reports the wide path's)
     for dt in fused_sketch.SKETCH_DTYPES:
-        for md in fused_sketch.SKETCH_MD:
+        for md in fused_sketch.SKETCH_MD[:-1]:
             occ = fused_sketch.sketch_occupancy(
                 fused_sketch.sketch_plan("xtrace", 128, 3, 2, 2, 2, 0, md=md, compute_dtype=dt), dt)
             check(occ["local_bytes"] == 0, f"sketch kernel {dt} md={md} keeps {occ['local_bytes']} bytes a thread "
@@ -2655,13 +2698,10 @@ def main() -> int:
         return timed(fn, count)
 
     def device_busy(fn, wall_s):
-        """Device time of one profiled run of ``fn`` (every kernel) as a
-        share of ``wall_s``; None when the profiler saw no CUDA time."""
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        us = sum(e.self_device_time_total for e in prof.key_averages()
-                 if e.device_type == torch.autograd.DeviceType.CUDA)
+        """Device time of one profiled run of ``fn`` (every kernel,
+        ``device_us``) as a share of ``wall_s``; None when the profiler saw
+        no CUDA time."""
+        us = device_us(fn)
         return None if us == 0 else dict(device_ms=us / 1e3, device_busy_share_of_wall=us / 1e6 / wall_s,
                                          idle_share_of_wall=1.0 - us / 1e6 / wall_s)
 
@@ -3439,11 +3479,27 @@ def main() -> int:
     # -- phase 14: the CLI and the serving artifacts -------------------------
     serving_counts = serving_phase(smi, dev, flag_params, flag_cfg, reset_counts, read_counts)
 
+    # phase 18 runs in a fresh process, started here so that its start
+    # overlaps phase 16: late in this process the plain paths' torch.func
+    # solves ran 3.6-5.4x their speed in a fresh one (H100 80GB HBM3, 700 W)
+    dir18 = tempfile.TemporaryDirectory()
+    env18 = {**os.environ, "PYTHONPATH": ROOT + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    worker18 = spawn([sys.executable, os.path.abspath(__file__), "--popcosmos-worker", dir18.name], env=env18)
+
     # -- phase 16: the utilities ----------------------------------------------
     utility_counts = utilities_phase(smi, dev, flag_params, flag_cfg, reset_counts, read_counts)
 
     # -- phase 17: parallel/ on the one card ---------------------------------------
     parallel_counts = parallel_phase(smi, dev, flag_params, flag_cfg, reset_counts, read_counts)
+
+    # -- phase 18: the pop-cosmos path, the sketch kernel's wide path ---------------
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()  # the worker's solves need the card's memory
+    open(os.path.join(dir18.name, "go"), "w").close()
+    check(worker18.wait(timeout=600) == 0, f"phase 18's worker exited with {worker18.returncode}")
+    with open(os.path.join(dir18.name, "counts.json")) as f:
+        wide_counts = json.load(f)
+    dir18.cleanup()
 
     # -- phase 7: the kernels line ------------------------------------------
     # no single PyTorch call computes any of these functions (a fused MLP with
@@ -3534,6 +3590,12 @@ def main() -> int:
         k["parallel_launches"] = parallel_counts.get(k["name"], 0)
     check(set(parallel_counts) <= {k["name"] for k in kernels},
           f"phase 17 launched kernels the line does not name: {parallel_counts}")
+    # launches on phase 18's paths (the pop-cosmos fit, log_prob solves and
+    # samplers), each counted from zero
+    for k in kernels:
+        k["wide_launches"] = wide_counts.get(k["name"], 0)
+    check(set(wide_counts) <= {k["name"] for k in kernels},
+          f"phase 18 launched kernels the line does not name: {wide_counts}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({
         "ok": True,
@@ -4505,6 +4567,593 @@ def parallel_phase(smi, dev, flag_params, flag_cfg, reset_counts, read_counts) -
     return path_counts
 
 
+def popcosmos_phase(smi, dev, reset_counts) -> dict:
+    """Phase 18: the pop-cosmos path on the card, the sketch kernel's wide
+    path (8 < D <= 64) at its users' D.
+
+    The configuration is the JAX bench suite's wide conditional workload
+    (``benchmarks/bench_suite.py:486-505``): D = 16 parameters conditioned
+    on C = 8 observables, a 128 x 3 SiLU score net on the VE SDE, data
+    x = tanh(c W) + 0.3 eps with c ~ N(0, I_8) and W ~ N(0, 1) / sqrt(8),
+    drawn from a seeded ``torch.Generator``; 50,000 rows for every solve.
+    ``fit(engine='auto')`` trains it on the card (the training kernel at 24
+    features) over stages (128, 1e-3) and (512, 1e-4), 3 epochs each, on
+    50,000 rows, validated on 10,000; one 4-step call of the training
+    kernel from the same start is held against its plain version at phase
+    1e's float32 bars.
+
+    (a) the sketch kernel against its plain version in float32, highf32
+    and bfloat16: the trained D16C8 net (Hutch++ r = 2, m = 1 and r = 4,
+    m = 4; XTrace m = 2 and m = 4) at 50,000 data rows, float32 also at
+    50,001; a D = 20, C = 4 net (the probes project past 16 rows) and a
+    D = 64, C = 0 net (the top of the envelope) at 4,099 rows; the
+    velocity form (XTrace m = 2) on a D = 16 velocity net.  float32:
+    drift 1e-5 of its max (phase 1d's bar), |d div| <= 5e-4 + 1e-4 |div|
+    row by row (the JAX package's bar for its wide sketch kernel,
+    tests/test_kernels.py:1142-1145); highf32: phase 1g's bars (drift 5e-5,
+    div 5e-4 of the max, against its plain version and the float32
+    kernel); bfloat16: the mean within 1e-5 of the max and 10x closer to
+    the bf16 plain version than that is to strict float32 (phase 15's bars),
+    the max reported.  The RHS kernel at 24 features (forward, hutchinson,
+    exact) in the three modes at phases 1a, 1f and 15a's bars.  Times of
+    the launch alone (CUDA events) beside the plain version's, the bound.
+    (b) the algebra at full rank on 4,096 rows (see the comment there):
+    Hutch++ with r = D = 16 on orthonormal sketches equals the exact trace
+    (fused_drift's exact mode at 24 features) within 1e-4 of its max, also
+    with exactly parallel sketch columns (basis completion runs); on
+    Rademacher sketches reported; XTrace with m = D = 16 against its plain
+    version at (a)'s float32 bars, its distance from the exact trace
+    reported (the leave-one-out estimate is not exact at m = D: each
+    left-out probe meets a one-dimensional residual at weight
+    (omega . n)^2, 1 only on average).
+    (c) ``PopulationModelDiffusion.log_prob`` of the trained model at 50,000
+    rows, rtol 1e-5 PI, float32: Hutchinson, Hutch++ (r = 2, m = 1) and
+    XTrace (m = 2), the kernel (auto dispatch) against
+    ``use_fused_kernel=False`` on the same probes, kernel, plain, kernel:
+    NFE equal, mean |dlogp| <= 1e-4, launches = NFE; highf32 Hutchinson
+    against the same solve on the highf32 plain RHS (NFE within one
+    dopri5 attempt, 6), bfloat16 XTrace against the bf16 plain RHS (NFE
+    within 15%, |dlogp| reported); rows/s, median wall, the device idle
+    share of a profiled kernel solve; the mean and RMS of logp minus the
+    analytic log N(x; tanh(c W), 0.3^2 I) (no gate: a short fit).  A
+    D = 65 model raises on the card, naming use_fused_kernel=False.
+    (d) ``sample_sde_fused`` (the EM kernel at 24 features) against the
+    ``sample_sde`` scan on the same standardized conditionals, 50,000 rows
+    x 100 steps: max |d mean| <= 0.05, max |d cov| <= 0.08.
+    (e) the wide instantiations' registers, local bytes and blocks an SM
+    (reported) and a forced 4-row plan bitwise its own plan's launch.
+
+    Returns the launches of the main path's runs (fit, the log_prob
+    solves, the samplers), each counted from zero, by kernel entry."""
+    import contextlib
+    import math
+
+    import torch
+
+    from flowfusion_torch import train as train_lib
+    from flowfusion_torch.kernels import em_sampler, fused_mlp, fused_sketch, fused_train
+    from flowfusion_torch.models import score as score_mod
+    from flowfusion_torch.models.nets import ScoreMLPConfig, VelocityMLPConfig, init_score_mlp, init_velocity_mlp
+    from flowfusion_torch.models.population import PopulationModelDiffusion
+    from flowfusion_torch.models.score import ScoreModel
+    from flowfusion_torch.ops import trace as trace_ops
+    from flowfusion_torch.ops.sde import VESDE
+    from flowfusion_torch.utils.data import standardization_stats
+
+    t18 = time.perf_counter()
+    D, C, N, H = 16, 8, POPCOSMOS_ROWS, 128
+    units = (H, H, H)
+    opts = {"controller": "pi"}
+    fused_drift, fused_drift_sketch = fused_mlp.fused_drift, fused_sketch.fused_drift_sketch
+    wrappers = fused_mlp._COUNTED + (fused_drift_sketch, fused_sketch.fused_velocity_sketch)
+    path_counts = {}
+
+    def gen(seed):
+        return torch.Generator().manual_seed(seed)
+
+    def cuda_gen(seed):
+        return torch.Generator(device=dev).manual_seed(seed)
+
+    def entry_counts():
+        """Launches since the last reset by kernel entry (the kernels
+        line's names: ``name[mode]`` in float32, ``name[mode,dtype]``
+        otherwise); a run here launches each wrapper in one mode only."""
+        out = {}
+        for fn in wrappers:
+            dtypes = [d for d, n in fn.launches_by_dtype.items() if n]
+            check(len(dtypes) <= 1, f"phase 18: {fn.__name__} launched in several modes {fn.launches_by_dtype}")
+            for mode, n in fn.launches_by_mode.items():
+                if n:
+                    out[f"{fn.__name__}[{mode}]" if dtypes[0] == "float32" else
+                        f"{fn.__name__}[{mode},{dtypes[0]}]"] = n
+        for fn, fmt in ((em_sampler.fused_em_sample, "fused_em_sample[{}]"),
+                        (fused_train.fused_train_epoch, "fused_train_epoch[{}]")):
+            out.update({fmt.format(d): n for d, n in fn.launches_by_dtype.items() if n})
+        return out
+
+    def counted(fn):
+        """(fn(), launches by entry, seconds), the counts set to 0 just
+        before it; the launches join the path's counts."""
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = entry_counts()
+        for k, v in counts.items():
+            path_counts[k] = path_counts.get(k, 0) + v
+        return out, counts, secs
+
+    def uncounted(fn):
+        """(fn(), seconds): a comparison run, outside the path's counts."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def median_ms(fn, n=5, warmup=1):
+        for _ in range(warmup):
+            fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(n):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b))
+        return statistics.median(times)
+
+    def idle_share(fn, wall_s):
+        """1 - device time of one profiled run of ``fn`` / ``wall_s``; None
+        when the profiler saw no CUDA time."""
+        us = device_us(fn)
+        return None if us == 0 else 1.0 - us / 1e6 / wall_s
+
+    # -- the data and the fit ------------------------------------------------
+    g_data = gen(1800)
+    W_mix = torch.randn(C, D, generator=g_data) / math.sqrt(C)
+
+    def draw(n):
+        c = torch.randn(n, C, generator=g_data)
+        return (torch.tanh(c @ W_mix) + 0.3 * torch.randn(n, D, generator=g_data)).to(dev), c.to(dev)
+
+    x_tr, c_tr = draw(N)
+    x_va, c_va = draw(10_000)
+    shift, scale = standardization_stats(x_tr)
+    c_shift, c_scale = standardization_stats(c_tr)
+    pop0 = PopulationModelDiffusion.create(VESDE(), n_dimensions=D, n_conditionals=C, units=units, shift=shift,
+                                           scale=scale, conditional_shift=c_shift, conditional_scale=c_scale,
+                                           generator=gen(1801), device=dev)
+    check(train_lib._fused_engine_ok(pop0, train_lib._default_loss, "adam", x_tr),
+          "phase 18: fit(engine='auto') would not take the training kernel at 24 features")
+
+    # the training kernel at 24 features against its plain version: one
+    # 4-step call at bs 512 from the fit's start, phase 1e's float32 bars
+    g_tab = gen(1802)
+    xb = ((x_tr[:4 * 512] - shift) / scale).reshape(4, 512, D)
+    tabs = dict(zip(("xt", "zw", "t", "beta"), fused_train.train_tables(VESDE(), g_tab, xb, False)))
+    cb = ((c_tr[:4 * 512] - c_shift) / c_scale).reshape(4, 512, C)
+    sm0 = pop0.score_model
+    out_k = fused_train.fused_train_epoch(sm0.params, sm0.net, lr=1e-3, conditional=cb, **tabs)
+    out_p = fused_train.fused_train_epoch_reference(sm0.params, sm0.net, lr=1e-3, conditional=cb, **tabs)
+    torch.cuda.synchronize()
+    train_loss_rel = float(((out_k[3].double() - out_p[3].double()).abs() / out_p[3].double().abs()).max())
+    train_layer_err = max(float((a - b).abs().max()) for la, lb in zip(out_k[0]["layers"], out_p[0]["layers"])
+                          for a, b in zip(la.values(), lb.values()))
+    check(train_loss_rel <= 1e-5, f"phase 18 training kernel: losses deviate {train_loss_rel:.2e} > 1e-5")
+    check(train_layer_err <= 3e-5, f"phase 18 training kernel: layers deviate {train_layer_err:.2e} > 3e-5")
+
+    protocol = dict(stages=((128, 1e-3), (512, 1e-4)), epochs_per_stage=3)
+    (pop, stages), fit_counts, fit_s = counted(lambda: train_lib.fit(
+        pop0, cuda_gen(1803), x_tr, c_tr, x_val=x_va, conditional_val=c_va, **protocol))
+    val = [float(r.val_losses[-1]) for r in stages]
+    first_val = float(stages[0].val_losses[0])
+    check(fit_counts == {"fused_train_epoch[float32]": 6}, f"phase 18 fit: launches {fit_counts} (6 epochs)")
+    check(all(math.isfinite(v) for v in val) and val[-1] < first_val,
+          f"phase 18 fit: the validation loss does not fall ({first_val} -> {val})")
+    emit("popcosmos_fit", card=smi, rows=N, val_rows=10_000, D=D, C=C, units=list(units), **protocol,
+         launches=fit_counts, seconds_fit=fit_s, first_val_loss=first_val, last_val_loss_by_stage=val,
+         train_losses_by_stage=[[float(v) for v in r.train_losses] for r in stages],
+         train_kernel_vs_plain_loss_rel=train_loss_rel, train_kernel_vs_plain_layers_max_abs=train_layer_err)
+    sm = pop.score_model
+    params, cfg = sm.params, sm.net
+
+    # -- (a) the sketch kernel against its plain version -------------------
+    x_rows, c_rows = draw(N + 1)
+    x_std, c_std = (x_rows - shift) / scale, (c_rows - c_shift) / c_scale
+    t37 = torch.tensor(0.37, device=dev)
+    c0, c1 = sm._fused_coeffs(t37)
+    hf, bf = dict(compute_dtype="highf32"), dict(compute_dtype="bfloat16")
+
+    def rel_rows(out, ref):
+        return float(((out - ref).abs() - 1e-4 * ref.abs()).max())
+
+    def mean_rel(out, ref):
+        return float((out - ref).abs().mean() / ref.abs().max())
+
+    def sketch_probes(g, mode, B, d, r, m):
+        if mode == "hutchpp":
+            return tuple(torch.sign(torch.randn(k, B, d, generator=g)).to(dev) for k in (r, m))
+        u = torch.randn(m, B, d, generator=g)
+        return ((u / u.norm(dim=-1, keepdim=True) * d ** 0.5).to(dev),)
+
+    cfg20 = ScoreMLPConfig(n_dimensions=20, n_conditionals=4, units=units)
+    cfg64 = ScoreMLPConfig(n_dimensions=64, units=units)
+    vcfg = VelocityMLPConfig(target_dimension=16, conditional_dimension=8, hidden_units=(H, H))
+    nets18 = {"D16C8": (params, cfg), "D20C4": (init_score_mlp(cfg20, gen(1804), dev), cfg20),
+              "D64C0": (init_score_mlp(cfg64, gen(1805), dev), cfg64),
+              "velocity_D16C8": (init_velocity_mlp(vcfg, gen(1806), dev), vcfg)}
+
+    def inputs(name, B):
+        """(x, cond) of a case: the trained net's standardized data rows, or
+        random rows for the random nets."""
+        if name == "D16C8":
+            return x_std[:B], c_std[:B]
+        p, cf = nets18[name]
+        d = cf.target_dimension if name.startswith("velocity") else cf.n_dimensions
+        k = cf.conditional_dimension if name.startswith("velocity") else cf.n_conditionals
+        g = gen(B + d)
+        return torch.randn(B, d, generator=g).to(dev), (torch.randn(B, k, generator=g).to(dev) if k else None)
+
+    cases = [("D16C8", N, mode, k) for mode, k in (("hutchpp", (2, 1)), ("hutchpp", (4, 4)), ("xtrace", (0, 2)),
+                                                   ("xtrace", (0, 4)))]
+    cases += [("D16C8", N + 1, "hutchpp", (2, 1)), ("D16C8", N + 1, "xtrace", (0, 2))]
+    cases += [(name, POPCOSMOS_SMALL_ROWS, mode, k) for name in ("D20C4", "D64C0") for mode, k in (("hutchpp", (2, 1)),
+                                                                                    ("xtrace", (0, 2)))]
+    cases.append(("velocity_D16C8", N, "xtrace", (0, 2)))
+    sketch_err = {}
+    for name, B, mode, (r, m) in cases:
+        p, cf = nets18[name]
+        velocity = name.startswith("velocity")
+        d = cf.target_dimension if velocity else cf.n_dimensions
+        x, c = inputs(name, B)
+        probes = sketch_probes(gen(B + 1807 + r + m), mode, B, d, r, m)
+        fn = fused_sketch.fused_velocity_sketch if velocity else fused_drift_sketch
+        ref_fn = getattr(fused_sketch, fn.__name__ + "_reference")
+        kw = {} if velocity else dict(c0=c0, c1=c1)
+
+        def call(f, **extra):
+            return f(p, cf, t37, x, probes, mode, c, **kw, **extra)
+
+        out32, ref32 = call(fn), call(ref_fn)
+        torch.cuda.synchronize()
+        what = f"phase 18a {fn.__name__} {name} B={B} {mode} r={r} m={m}"
+        nums = dict(float32_drift_rel=rel_err(out32[0], ref32[0]), float32_div_excess=rel_rows(out32[1], ref32[1]),
+                    float32_div_max_abs=float((out32[1] - ref32[1]).abs().max()))
+        check(bool(torch.isfinite(out32[1]).all()), f"{what}: non-finite divergence")
+        check(nums["float32_drift_rel"] <= 1e-5, f"{what}: drift deviates {nums['float32_drift_rel']:.2e} > 1e-5")
+        check(nums["float32_div_excess"] <= 5e-4, f"{what}: |d div| exceeds 5e-4 + 1e-4 |div| by "
+                                                  f"{nums['float32_div_excess']:.2e}")
+        if B <= N:
+            out_h, ref_h = call(fn, **hf), call(ref_fn, **hf)
+            torch.cuda.synchronize()
+            nums.update(highf32_drift_rel=rel_err(out_h[0], ref_h[0]), highf32_div_rel=rel_err(out_h[1], ref_h[1]),
+                        highf32_vs_float32_drift_rel=rel_err(out_h[0], out32[0]),
+                        highf32_vs_float32_div_rel=rel_err(out_h[1], out32[1]))
+            check(bool(torch.isfinite(out_h[1]).all()) and nums["highf32_drift_rel"] <= 5e-5 and
+                  nums["highf32_div_rel"] <= 5e-4 and nums["highf32_vs_float32_drift_rel"] <= 5e-5 and
+                  nums["highf32_vs_float32_div_rel"] <= 5e-4, f"{what} highf32: {nums}")
+            out_b, ref_b = call(fn, **bf), call(ref_fn, **bf)
+            torch.cuda.synchronize()
+            for i, part in enumerate(("drift", "div")):
+                nums[f"bfloat16_{part}_max_rel"] = rel_err(out_b[i], ref_b[i])
+                nums[f"bfloat16_{part}_mean_rel"] = mean_rel(out_b[i], ref_b[i])
+                nums[f"bfloat16_{part}_plain_vs_strict_mean_rel"] = mean_rel(ref_b[i], ref32[i])
+                check(bool(torch.isfinite(out_b[i]).all()) and nums[f"bfloat16_{part}_mean_rel"] <= 1e-5 and
+                      nums[f"bfloat16_{part}_mean_rel"] <= 0.1 * nums[f"bfloat16_{part}_plain_vs_strict_mean_rel"],
+                      f"{what} bfloat16 {part}: {nums}")
+            if B == N and (r, m) in ((2, 1), (0, 2)):
+                key = f"{name}[{mode}]"
+                sketch_err[key] = {dt: max(float((o - q).abs().max()) for o, q in zip(a, b_)) for dt, a, b_ in (
+                    ("float32", out32, ref32), ("highf32", out_h, ref_h), ("bfloat16", out_b, ref_b))}
+        emit("popcosmos_sketch_vs_plain", entry=fn.__name__, net=name, rows=B, mode=mode, r=r, m=m,
+             c0=float(c0) if not velocity else 0.0, c1=float(c1) if not velocity else 1.0, **nums)
+
+    # the RHS kernel at 24 features: forward, hutchinson and exact on the
+    # trained net's data rows in the three modes (phases 1a, 1f, 15a)
+    e24 = torch.sign(torch.randn(N, D, generator=gen(1808))).to(dev)
+    for mode_ in ("forward", "hutchinson", "exact"):
+        kw = dict(c0=c0, c1=c1, e=e24 if mode_ == "hutchinson" else None, exact_divergence=mode_ == "exact")
+        outs = {}
+        for dt in ("float32", "highf32", "bfloat16"):
+            o = fused_drift(params, cfg, t37, x_std[:N], c_std[:N], compute_dtype=dt, **kw)
+            q = fused_mlp.fused_drift_reference(params, cfg, t37, x_std[:N], c_std[:N], compute_dtype=dt, **kw)
+            outs[dt] = (o if isinstance(o, tuple) else (o,), q if isinstance(q, tuple) else (q,))
+        torch.cuda.synchronize()
+        nums = {}
+        (o32, q32), (oh, qh), (ob, qb) = outs["float32"], outs["highf32"], outs["bfloat16"]
+        for i, part in enumerate(("drift", "div")[:len(o32)]):
+            nums[f"float32_{part}_rel"] = rel_err(o32[i], q32[i])
+            nums[f"highf32_{part}_rel"] = rel_err(oh[i], qh[i])
+            nums[f"highf32_{part}_vs_strict_rel"] = rel_err(oh[i], q32[i])
+            nums[f"bfloat16_{part}_max_rel"] = rel_err(ob[i], qb[i])
+            nums[f"bfloat16_{part}_mean_rel"] = mean_rel(ob[i], qb[i])
+            nums[f"bfloat16_{part}_plain_vs_strict_mean_rel"] = mean_rel(qb[i], q32[i])
+            bar = 1e-5 if part == "drift" else 1e-4
+            check(nums[f"float32_{part}_rel"] <= bar and nums[f"highf32_{part}_rel"] <= max(bar, 5e-5) and
+                  nums[f"bfloat16_{part}_mean_rel"] <= 1e-5 and
+                  nums[f"bfloat16_{part}_mean_rel"] <= 0.1 * nums[f"bfloat16_{part}_plain_vs_strict_mean_rel"],
+                  f"phase 18a fused_drift D16C8 {mode_} {part}: {nums}")
+        emit("popcosmos_rhs_vs_plain", net="D16C8", rows=N, mode=mode_, **nums)
+
+    # times of the launch alone (CUDA events, median of 5) beside the plain
+    # version's, and the bound: the D16C8 net at 50,000 rows and the D = 64
+    # net at 50,000 rows, Hutch++ r = 2, m = 1 and XTrace m = 2, each mode
+    timing = {}
+    for name in ("D16C8", "D64C0"):
+        p, cf = nets18[name]
+        d, k = cf.n_dimensions, cf.n_conditionals
+        x, c = inputs(name, N)
+        x_in = x if c is None else torch.cat([x, c], dim=-1)
+        w_in, b_eff = fused_mlp._score_first_layer(p, cf, t37, c)
+        c0c1 = torch.stack([torch.as_tensor(v, dtype=torch.float32, device=dev).reshape(()) for v in (c0, c1)])
+        w_bytes = sum(v.numel() * 4 for lyr in p["layers"][1:] for v in lyr.values()) + 4 * (w_in.numel() + H)
+        for mode, (r, m) in (("hutchpp", (2, 1)), ("xtrace", (0, 2))):
+            probes = sketch_probes(gen(1809 + d), mode, N, d, r, m)
+            n_s, n_g = (r, m) if mode == "hutchpp" else (m, 0)
+            V = torch.cat(probes) if mode == "hutchpp" else probes[0]
+            io = 4 * N * (d + k + (n_s + n_g) * d + d + 1) + w_bytes
+            for dt in ("float32", "highf32", "bfloat16"):
+                plan = fused_sketch.sketch_plan(mode, H, 3, d + k, d, n_s, n_g, compute_dtype=dt)
+                ms = median_ms(lambda: fused_sketch._launch(x_in, V, w_in, b_eff, p["layers"], c0c1, mode, d, n_s,
+                                                            n_g, "silu", plan, fused_drift_sketch, dt))
+                plain_ms = median_ms(lambda: fused_sketch.fused_drift_sketch_reference(
+                    p, cf, t37, x, probes, mode, c, c0=c0, c1=c1, compute_dtype=dt), n=3)
+                if dt == "float32":
+                    t_ops = fused_mlp.flops_per_row(d + k, d, H, 4, mode, r or m, m if r else 0) * N / PEAK_FP32_FLOPS
+                else:
+                    fl = fused_mlp.highf32_flops_per_row if dt == "highf32" else fused_mlp.bf16_flops_per_row
+                    tc, cc = fl(d + k, d, H, 4, mode, r or m, m if r else 0)
+                    t_ops = (3 * tc / PEAK_TF32_FLOPS if dt == "highf32" else tc / PEAK_BF16_FLOPS) * N + \
+                        cc * N / PEAK_FP32_FLOPS
+                t_bytes = io / PEAK_BYTES
+                timing[(name, mode, dt)] = dict(
+                    ms=ms, plain_ms=plain_ms, bound_ms=max(t_ops, t_bytes) * 1e3,
+                    bound_by="operations" if t_ops >= t_bytes else "bytes", library_ms=None, plan=list(plan))
+                emit("popcosmos_sketch_time", net=name, rows=N, mode=mode, r=r, m=m, compute_dtype=dt, card=smi,
+                     **timing[(name, mode, dt)], share_of_bound=max(t_ops, t_bytes) * 1e3 / ms)
+
+    # -- (b) the algebra at full rank ----------------------------------------
+    # Hutch++ with r = D spans R^D, so in exact arithmetic it is the exact
+    # trace; in float32, single-pass MGS keeps Q orthonormal to ~u cond(Y),
+    # Y = A S.  On the data rows with Rademacher sketches (cond(S) reaches
+    # 1e4 and beyond on a few rows in 4,096) both versions miss the exact
+    # trace far beyond 1e-4 on those rows: reported.  Gated: orthonormal
+    # sketches (S = sqrt(D) Q_row, Q_row from a Gaussian's QR), so cond(Y) =
+    # cond(A); with exactly parallel columns on a quarter of the rows, where
+    # basis completion supplies the missing direction.  XTrace's leave-one-
+    # out estimate is not exact at m = D (each left-out probe meets a one-
+    # dimensional residual at weight (omega . n)^2, 1 only on average): it
+    # is held against its plain version.
+    B4 = min(4_096, N)
+    x4, c4 = x_std[:B4], c_std[:B4]
+    exact = fused_drift(params, cfg, t37, x4, c4, c0=c0, c1=c1, exact_divergence=True)[1]
+    g = gen(1810)
+    S, G = (torch.sign(torch.randn(k, B4, D, generator=g)).to(dev) for k in (D, 1))
+    Q_orth = torch.linalg.qr(torch.randn(B4, D, D, generator=g, dtype=torch.float64))[0]
+    S_orth = (Q_orth.permute(2, 0, 1) * D ** 0.5).float().to(dev)  # column k of row b at [k, b]
+    S_par = S_orth.clone()
+    S_par[1, :B4 // 4] = S_par[0, :B4 // 4]  # exactly parallel sketch columns: basis completion
+    u = torch.randn(D, B4, D, generator=g)
+    O = (u / u.norm(dim=-1, keepdim=True) * D ** 0.5).to(dev)
+    full = {}
+    for label, probes, mode, gated in (("hutchpp_r16_rademacher", (S, G), "hutchpp", False),
+                                       ("hutchpp_r16_orthonormal", (S_orth, G), "hutchpp", True),
+                                       ("hutchpp_r16_orthonormal_parallel", (S_par, G), "hutchpp", True),
+                                       ("xtrace_m16_sphere", (O,), "xtrace", False),
+                                       ("xtrace_m16_orthonormal", (S_orth,), "xtrace", True)):
+        div_k = fused_drift_sketch(params, cfg, t37, x4, probes, mode, c4, c0=c0, c1=c1)[1]
+        div_p = fused_sketch.fused_drift_sketch_reference(params, cfg, t37, x4, probes, mode, c4, c0=c0, c1=c1)[1]
+        torch.cuda.synchronize()
+        scale_ = float(exact.abs().max())
+        full[label] = dict(vs_exact_rel=rel_err(div_k, exact), plain_vs_exact_rel=rel_err(div_p, exact),
+                           rows_past_1e4_vs_exact=int(((div_k - exact).abs() > 1e-4 * scale_).sum()),
+                           plain_rows_past_1e4_vs_exact=int(((div_p - exact).abs() > 1e-4 * scale_).sum()),
+                           vs_plain_excess=rel_rows(div_k, div_p), finite=bool(torch.isfinite(div_k).all()),
+                           gated=gated)
+        check(full[label]["finite"], f"phase 18b {label}: non-finite divergence")
+        if gated:
+            check(full[label]["vs_plain_excess"] <= 5e-4, f"phase 18b {label}: against its plain version {full[label]}")
+            if mode == "hutchpp":
+                check(full[label]["vs_exact_rel"] <= 1e-4, f"phase 18b {label}: not the exact trace {full[label]}")
+    emit("popcosmos_full_rank", rows=B4, D=D, C=C, **full)
+
+    # -- (c) the path through the model ----------------------------------------
+    x_lp, c_lp = x_rows[:N], c_rows[:N]
+    analytic = (-0.5 * (((x_lp - torch.tanh(c_lp @ W_mix.to(dev))) / 0.3) ** 2).sum(1)
+                - D * math.log(0.3) - 0.5 * D * math.log(2 * math.pi))
+
+    @contextlib.contextmanager
+    def plain_rhs(attr, fn):
+        """The model's kernel RHS swapped for the wrapper's plain version on
+        the card, in the model's compute mode (the models' own plain path
+        computes in float32 whatever their mode)."""
+        saved = getattr(score_mod, attr)
+        setattr(score_mod, attr, fn)
+        try:
+            yield
+        finally:
+            setattr(score_mod, attr, saved)
+
+    solves = {}
+    configs = [("hutchinson", {}, "float32"), ("hutchpp", dict(hpp_rank=2, hpp_vecs=1), "float32"),
+               ("xtrace", dict(xt_vecs=2), "float32"), ("hutchinson", {}, "highf32"),
+               ("xtrace", dict(xt_vecs=2), "bfloat16")]
+    for mode, kw, dt in configs:
+        label = f"{mode}_{dt}"
+        model = dataclasses.replace(pop, score_model=dataclasses.replace(sm, trace_mode=mode,
+                                                                         kernel_compute_dtype=dt, **kw))
+        probes = trace_ops.make_probes(mode, gen(1811), x_std[:N], **kw)
+
+        def solve(m=model, pr=probes):
+            return m.log_prob(x_lp, conditional=c_lp, probes=pr, atol=1e-5, rtol=1e-5, options=opts,
+                              volume_corrected=True)
+
+        if dt == "float32":
+            plain_model = dataclasses.replace(model, score_model=dataclasses.replace(model.score_model,
+                                                                                     use_fused_kernel=False))
+            plain_ctx = contextlib.nullcontext
+            plain_call = lambda: solve(plain_model)  # noqa: E731
+        else:
+            attr = "fused_drift" if mode == "hutchinson" else "fused_drift_sketch"
+            ref = fused_mlp.fused_drift_reference if mode == "hutchinson" else \
+                fused_sketch.fused_drift_sketch_reference
+            plain_ctx = lambda attr=attr, ref=ref: plain_rhs(attr, ref)  # noqa: E731
+            plain_call = solve
+        (lp_k, st_k), counts, s1 = counted(solve)
+        with plain_ctx():
+            (lp_p, st_p), s_p = uncounted(plain_call)
+        (lp_k2, st_k2), counts2, s2 = counted(solve)
+        kernel_key = (f"fused_drift[{mode}]" if mode == "hutchinson" else f"fused_drift_sketch[{mode}]")
+        kernel_key = kernel_key if dt == "float32" else kernel_key[:-1] + f",{dt}]"
+        nfe = st_k.n_func_evals
+        check(counts == {kernel_key: nfe} and counts2 == counts, f"phase 18c {label}: launches {counts} != "
+                                                                   f"{{{kernel_key}: {nfe}}} (then {counts2})")
+        check(st_k.succeeded and bool(torch.isfinite(lp_k).all()) and torch.equal(lp_k, lp_k2),
+              f"phase 18c {label}: the kernel solve failed or is not repeatable")
+        dlp = float((lp_k - lp_p).abs().mean())
+        d_nfe = nfe - st_p.n_func_evals
+        if dt == "float32":
+            check(d_nfe == 0 and dlp <= 1e-4, f"phase 18c {label}: NFE {nfe} vs plain {st_p.n_func_evals}, "
+                                              f"mean |dlogp| {dlp:.2e} > 1e-4")
+        elif dt == "highf32":
+            check(abs(d_nfe) <= 6 and dlp <= 1e-4, f"phase 18c {label}: NFE {nfe} vs the highf32 plain RHS's "
+                                                   f"{st_p.n_func_evals} (one attempt 6), mean |dlogp| {dlp:.2e}")
+        else:
+            check(abs(d_nfe) <= 0.15 * st_p.n_func_evals, f"phase 18c {label}: NFE {nfe} vs the bf16 plain RHS's "
+                                                          f"{st_p.n_func_evals} (15%)")
+        med = statistics.median([s1, s2])
+        diff = (lp_k - analytic).double()
+        solves[label] = dict(nfe=nfe, nfe_plain=st_p.n_func_evals, launches=nfe, mean_abs_dlogp=dlp,
+                             max_abs_dlogp=float((lp_k - lp_p).abs().max()), seconds_kernel=[s1, s2],
+                             seconds_plain=s_p, seconds_median=med, rows_per_s=N / med,
+                             plain_rows_per_s=N / s_p, idle_share=idle_share(solve, med),
+                             logp_minus_analytic_mean=float(diff.mean()),
+                             logp_minus_analytic_rms=float((diff ** 2).mean().sqrt()))
+        emit("popcosmos_log_prob", trace_mode=mode, compute_dtype=dt, **kw, rows=N, card=smi, **solves[label])
+
+    # auto dispatch past the envelope: D = 65 raises, naming the plain path
+    cfg65 = ScoreMLPConfig(n_dimensions=65, units=(H,))
+    m65 = ScoreModel(init_score_mlp(cfg65, gen(1812), dev), cfg65, VESDE(), trace_mode="xtrace", xt_vecs=2)
+    try:
+        m65.log_prob(torch.zeros(8, 65, device=dev), generator=gen(1813))
+        raised = ""
+    except ValueError as err:
+        raised = str(err)
+    check("use_fused_kernel=False" in raised, f"phase 18c: a D = 65 XTrace model did not raise ({raised!r})")
+
+    # -- (d) sampling at D = 16 with conditionals ------------------------------
+    c_s = c_std[:N]
+    scan, scan_counts, s_scan = counted(lambda: sm.sample_sde((N, D), conditional=c_s, steps=EM_STEPS,
+                                                              generator=cuda_gen(1814)))
+    em, em_counts, s_em = counted(lambda: sm.sample_sde_fused((N, D), conditional=c_s, steps=EM_STEPS,
+                                                              generator=cuda_gen(1815)))
+    check(scan_counts == {"fused_drift[forward]": EM_STEPS} and em_counts == {"fused_em_sample[float32]": 1},
+          f"phase 18d: launches {scan_counts}, {em_counts}")
+    for res in (scan, em):
+        check(bool(torch.isfinite(res.x_mean).all()) and not bool(res.nan_encountered),
+              "phase 18d: non-finite samples")
+    d_mean = float((scan.x_mean.mean(0) - em.x_mean.mean(0)).abs().max())
+    d_cov = float((torch.cov(scan.x_mean.T) - torch.cov(em.x_mean.T)).abs().max())
+    check(d_mean <= 0.05 and d_cov <= 0.08, f"phase 18d: sample_sde vs sample_sde_fused mean {d_mean:.3f}, "
+                                            f"cov {d_cov:.3f}")
+    emit("popcosmos_sampling", rows=N, steps=EM_STEPS, D=D, C=C, card=smi, mean_max_diff=d_mean, cov_max_diff=d_cov,
+         launches={"sample_sde": scan_counts, "sample_sde_fused": em_counts}, seconds_scan=s_scan,
+         seconds_fused=s_em, samples_per_s_fused=N / s_em)
+
+    # -- (e) the wide instantiations, and a forced plan --------------------------
+    wide = []
+    for dt in fused_sketch.SKETCH_DTYPES:
+        for mode, (n_s, n_g) in (("hutchpp", (2, 1)), ("xtrace", (2, 0))):
+            plan = fused_sketch.sketch_plan(mode, H, 3, D + C, D, n_s, n_g, compute_dtype=dt)
+            occ = fused_sketch.sketch_occupancy(plan, dt)
+            check(plan[2] == fused_sketch.MAX_SKETCH_DIM and occ["blocks_per_sm"] == fused_sketch.sketch_blocks(plan),
+                  f"phase 18e {mode} {dt}: plan {plan}, the card holds {occ['blocks_per_sm']} blocks an SM")
+            emit("sketch_occupancy", case=f"D16C8 {mode}", mode=mode, compute_dtype=dt, H=H, n_act=3, d_in=D + C,
+                 D=D, n_s=n_s, n_g=n_g, plan_blocks_per_sm=fused_sketch.sketch_blocks(plan), **occ)
+        wide.append(dict(compute_dtype=dt, **fused_sketch.sketch_occupancy(
+            fused_sketch.sketch_plan("xtrace", H, 3, D + C, D, 2, 0, compute_dtype=dt), dt)))
+    emit("sketch_instantiations", card=smi, wide=True, instantiations=wide)
+    w_in, b_eff = fused_mlp._score_first_layer(params, cfg, t37, c_std[:N])
+    x_in = torch.cat([x_std[:N], c_std[:N]], dim=-1)
+    c0c1 = torch.stack([torch.as_tensor(v, dtype=torch.float32, device=dev).reshape(()) for v in (c0, c1)])
+    for mode, (n_s, n_g) in (("hutchpp", (2, 1)), ("xtrace", (2, 0))):
+        V = torch.cat(sketch_probes(gen(1816), mode, N, D, n_s if mode == "hutchpp" else 0, n_g or n_s))
+        for dt in fused_sketch.SKETCH_DTYPES:
+            own = fused_sketch.sketch_plan(mode, H, 3, D + C, D, n_s, n_g, compute_dtype=dt)
+            four = fused_sketch.sketch_plan(mode, H, 3, D + C, D, n_s, n_g, rows=4 if own[0] != 4 else 8,
+                                            compute_dtype=dt)
+            a, b_ = (fused_sketch._launch(x_in, V, w_in, b_eff, params["layers"], c0c1, mode, D, n_s, n_g, "silu",
+                                          plan, fused_drift_sketch, dt) for plan in (own, four))
+            torch.cuda.synchronize()
+            same = [bool(torch.equal(u_, v_)) for u_, v_ in zip(a, b_)]
+            check(all(same), f"phase 18e {mode} {dt}: the forced plan {four} differs from {own}")
+            emit("sketch_plan_invariance", net="D16C8", mode=mode, rows=N, compute_dtype=dt, own_plan=list(own),
+                 forced_plan=list(four), drift_bitwise=same[0], div_bitwise=same[1])
+
+    for key in ("fused_drift_sketch[hutchpp]", "fused_drift_sketch[xtrace]", "fused_drift_sketch[xtrace,bfloat16]",
+                "fused_drift[hutchinson]", "fused_drift[hutchinson,highf32]", "fused_drift[forward]",
+                "fused_em_sample[float32]", "fused_train_epoch[float32]"):
+        check(path_counts.get(key, 0) > 0, f"phase 18 never launched {key} on the pop-cosmos path")
+    emit("popcosmos_path_launches", **path_counts)
+    secs = time.perf_counter() - t18
+    emit("phase18", seconds=secs, card=smi,
+         timing={f"{k[0]}[{k[1]},{k[2]}]": v for k, v in timing.items()}, max_abs_err=sketch_err)
+    return path_counts
+
+
+def popcosmos_worker(d: str) -> int:
+    """Phase 18's process (``chip_smoke.py --popcosmos-worker DIR``, started
+    by the script): loads the kernels and starts its CUDA context, waits for
+    ``DIR/go``, runs :func:`popcosmos_phase` (its lines on the shared
+    stdout) and writes its launch counts to ``DIR/counts.json``."""
+    import torch
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("phase 18 worker: no CUDA card visible")
+    sys.path.insert(0, ROOT)
+    from flowfusion_torch.kernels import _build, em_sampler, fused_mlp, fused_sketch, fused_train
+
+    from flowfusion_torch.models.nets import ScoreMLPConfig, init_score_mlp
+
+    dev = torch.device("cuda")
+    _build.build_all()  # built by the script's phase 0: finds the libraries only
+    # first use of the wrappers, their plain versions and the libraries,
+    # before the phase: the imports they pull in (torch.func, dynamo's
+    # checks) and the libraries' loads took 9-13 s of the phase's first
+    # line in a fresh process on the H100
+    cfg = ScoreMLPConfig(n_dimensions=16, n_conditionals=8, units=(128,))
+    params = init_score_mlp(cfg, torch.Generator().manual_seed(0), dev)
+    x, c = torch.randn(8, 16, device=dev), torch.randn(8, 8, device=dev)
+    for dt in fused_sketch.SKETCH_DTYPES:
+        for fn in (fused_sketch.fused_drift_sketch, fused_sketch.fused_drift_sketch_reference):
+            fn(params, cfg, 0.5, x, (torch.ones(2, 8, 16, device=dev),), "xtrace", c, compute_dtype=dt)
+        for fn in (fused_mlp.fused_drift, fused_mlp.fused_drift_reference):
+            fn(params, cfg, 0.5, x, c, e=x, compute_dtype=dt)
+    torch.cuda.synchronize()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    go = os.path.join(d, "go")
+    deadline = time.time() + 1_000
+    while not os.path.exists(go):
+        check(time.time() < deadline, "phase 18 worker: no go")
+        time.sleep(0.05)
+
+    def reset():
+        for mod in (fused_mlp, fused_sketch, em_sampler, fused_train):
+            mod.reset_launch_counts()
+
+    _LAST_LINE[0] = time.perf_counter()
+    counts = popcosmos_phase(smi, dev, reset)
+    with open(os.path.join(d, "counts.json"), "w") as f:
+        json.dump(counts, f)
+    return 0
+
+
 def parallel_worker(rank: int, world: int, port: str, d: str) -> int:
     """One process of phase 17b (``chip_smoke.py --parallel-worker RANK
     WORLD PORT DIR``): its half of the rows on the card under
@@ -4713,9 +5362,10 @@ def parent_ab(parent_dir: str) -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
-    with ThreadPoolExecutor(6) as pool:
-        list(pool.map(lambda job: job[0]._build.build(job[1]),
-                      [(mod, name) for mod in kernels.values() for name in ("fused_sketch", "fused_mlp", "em_sampler")]))
+    names = ("fused_sketch", "fused_mlp", "em_sampler")
+    with ThreadPoolExecutor(8) as pool:
+        list(pool.map(lambda job: job[0](*job[1:]), [(old._build.build, name) for name in names] +
+                      [(fused_sketch._build.build, *job) for job in fused_sketch._build.jobs(names)]))
 
     dev = torch.device("cuda")
 
@@ -5153,10 +5803,13 @@ def cli() -> int:
                          "in DIR")
     ap.add_argument("--parallel-worker", nargs=4, metavar=("RANK", "WORLD", "PORT", "DIR"),
                     help="one process of phase 17b (started by the script itself)")
+    ap.add_argument("--popcosmos-worker", metavar="DIR", help="phase 18's process (started by the script itself)")
     args = ap.parse_args()
     if args.parallel_worker:
         rank, world, port, d = args.parallel_worker
         return parallel_worker(int(rank), int(world), port, d)
+    if args.popcosmos_worker:
+        return popcosmos_worker(args.popcosmos_worker)
     try:
         return parent_ab(args.parent) if args.parent else main()
     finally:

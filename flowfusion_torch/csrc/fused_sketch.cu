@@ -16,7 +16,9 @@
 //            (H, D) output layer through the split in FMAs, act' from the
 //            tanh-form sigmoid; the primal input projection strict up to 16
 //            features (in_proj_rows :313-330) and through the split past
-//            that; the probes' projection (D <= 8 rows) strict;
+//            that; the probes' projection (D rows of w_in) likewise, as the
+//            JAX kernel's in_proj with mm_tan (:577-593) takes a probe:
+//            strict up to 16 rows, the split past that;
 //   bfloat16 the JAX kernel's fast serving mode (_compute_mode :175-205,
 //            mm :554-560 at Precision.DEFAULT; relax_tangents :577-582 is
 //            float32's alone, so the tangents round like the drift): the
@@ -30,9 +32,9 @@
 //            output layer in FMAs on the same rounded operands
 //            (dense_out_bf16); the tanh-form SiLU, act' stored fp32; the
 //            primal input projection strict up to 16 features and on rounded
-//            inputs past that; the probes' projection (D <= 8 rows) the
-//            strict rank-1 FMA loop over the rounded w_in (in_proj_rows
-//            :313-331).
+//            inputs past that; the probes' projection (D rows) the strict
+//            rank-1 FMA loop over the rounded w_in up to 16 rows and on
+//            rounded probes past that (in_proj_rows :313-331).
 // In every mode the per-row QR, projections, inverse and leave-one-out
 // algebra are elementwise fp32, as in the Pallas kernel.
 //
@@ -113,17 +115,38 @@
 //     completion recomputes the canonical residuals of the columns so far,
 //     by the same updates in the same order, only on the rows that need
 //     them.
-// A row's arithmetic does not depend on R or MD: any plan gives bitwise the
-// same drift and div, and the first version's.  wgmma, the split weights
-// staged for highf32, the bf16 weights staged in shared memory and the
-// algebra spread over the block are later work.
+//   - The wide path, MD = kMaxDim (64), for 8 < D <= 64: 64-vectors do not
+//     fit the 80 registers a thread, so the row's vectors stay where the
+//     narrow path stores them, in the element-major tiles of shared memory,
+//     and every loop runs to the runtime D.  The QR works in place on the
+//     tile's columns; a degenerate column is itself the scratch of basis
+//     completion (each canonical residual is built there, its norm kept,
+//     and the best one rebuilt there); Hutch++'s projections of a residual
+//     probe on the Q columns go over the input tile, which the drift
+//     leaves free.  So the wide path needs no shared memory beyond the
+//     narrow layout, and the pop-cosmos plans (D = 16, C = 8) hold three
+//     blocks an SM.  Its sums run in the narrow path's order and
+//     multiply-add form.  A row's algebra stays serial on its thread: at
+//     D = 64 it is a few thousand shared-memory FMAs a row against the
+//     chains' ~10^5 a row.
+// A row's arithmetic does not depend on R or on MD among 2, 4 and 8: any
+// such plan gives bitwise the same drift and div, and the first version's.
+// wgmma, the split weights staged for highf32, the bf16 weights staged in
+// shared memory and the algebra spread over the block (a warp a row on the
+// wide path) are later work.
 // Build without --use_fast_math: sigmoid goes through expf (tanhf in
 // highf32) and gelu through erff, matching the plain PyTorch path's
-// transcendentals.
+// transcendentals.  The build compiles this source once a compute mode
+// (FF_SKETCH_PRECISION = P, kernels/_build.py VARIANTS), all three in
+// parallel: each library holds that mode's four instantiations.
 
 #include <cuda_runtime.h>
 
 #include "mlp_tile.cuh"
+
+#ifndef FF_SKETCH_PRECISION
+#error "build with -DFF_SKETCH_PRECISION=0|1|2, the compute mode (kernels/_build.py)"
+#endif
 
 namespace {
 
@@ -132,7 +155,8 @@ using namespace ffk;
 enum SketchMode { kHutchpp = 0, kXtrace = 1 };
 // The compute modes, the templates' P (the wrapper's precision index).
 enum Precision { kFloat32 = 0, kHighF32 = 1, kBFloat16 = 2 };
-constexpr int kMaxDim = 8;     // largest D the per-row algebra takes
+constexpr int kMaxNarrow = 8;  // largest D of the register algebra (MD 2, 4, 8)
+constexpr int kMaxDim = 64;    // largest D the per-row algebra takes (the wide path)
 // Blocks of kThreads an SM is to hold, by registers (the launch bounds): 80
 // registers a thread, which every instantiation fits without spilling.
 constexpr int kMinBlocks = 3;
@@ -152,13 +176,40 @@ struct RowView {
   __device__ __forceinline__ float& operator[](int e) const { return p[e * R]; }
 };
 
+// Column j of one probe's projection, sum_d v[d R] w_in[d H + j] over the D
+// rows of w_in a probe meets (v element-major, stride R).  The narrow
+// buckets unroll over MD, strict.  The wide path loops to the runtime D:
+// strict up to kRank1Max rows, and past that as the JAX kernel's in_proj
+// takes a probe (in_proj_rows with mm_tan): through the 3xTF32 split in
+// highf32, on the bf16-rounded probe in bfloat16 (w_in holds bf16 values),
+// strict in float32.
+template <int MD, int P>
+__device__ __forceinline__ float project_probe(const float* v, int R, const float* __restrict__ w_in, int j, int H,
+                                               int D) {
+  float s = 0.0f;
+  if constexpr (MD <= kMaxNarrow) {
+#pragma unroll
+    for (int d = 0; d < MD; ++d) {
+      if (d < D) s = fmaf(v[d * R], __ldg(w_in + d * H + j), s);
+    }
+  } else {
+    if (P == kHighF32 && D > kRank1Max) {
+      for (int d = 0; d < D; ++d) s = fma_tf32x3(v[d * R], __ldg(w_in + d * H + j), s);
+    } else if (P == kBFloat16 && D > kRank1Max) {
+      for (int d = 0; d < D; ++d) s = fmaf(round_bf16(v[d * R]), __ldg(w_in + d * H + j), s);
+    } else {
+      for (int d = 0; d < D; ++d) s = fmaf(v[d * R], __ldg(w_in + d * H + j), s);
+    }
+  }
+  return s;
+}
+
 // A v for `k` columns of every row of the tile: chain c is seeded with
-// probe-tile column off + c (D values) through w_in[:D], passes every layer
-// without bias, multiplied by the stored act'.  Returns the buffer whose
-// chain c, row r holds (J_net v)[0..D) at [c * R * H + r * H].  The probes
-// project strictly in every mode (D <= kMaxDim <= kRank1Max rows of w_in);
-// in highf32 every layer product takes the split.  float32 and highf32
-// (bfloat16 has apply_jacobian_bf16).
+// probe-tile column off + c (D values) through w_in[:D] (project_probe),
+// passes every layer without bias, multiplied by the stored act'.  Returns
+// the buffer whose chain c, row r holds (J_net v)[0..D) at
+// [c * R * H + r * H].  In highf32 every layer product takes the split.
+// float32 and highf32 (bfloat16 has apply_jacobian_bf16).
 template <int MD, int P>
 __device__ float* apply_jacobian(const float* cols, int off, int k, const float* __restrict__ w_in,
                                  const float* dh, const HiddenLayers& hidden, int n_hidden,
@@ -170,12 +221,7 @@ __device__ float* apply_jacobian(const float* cols, int off, int k, const float*
     const int r = (i - c * rh) / H;
     const int j = i - c * rh - r * H;
     const float* v = cols + (off + c) * D * R + r;  // element d at v[d * R]
-    float s = 0.0f;
-#pragma unroll
-    for (int d = 0; d < MD; ++d) {
-      if (d < D) s = fmaf(v[d * R], __ldg(w_in + d * H + j), s);
-    }
-    buf0[i] = s;
+    buf0[i] = project_probe<MD, P>(v, R, w_in, j, H, D);
   }
   __syncthreads();
   float* cur = buf0;
@@ -234,8 +280,8 @@ __device__ __forceinline__ void scale_round_bf16(const float* dh, const float* t
 }
 
 // bfloat16: apply_jacobian on the bf16 tensor cores.  Chain c is seeded with
-// probe-tile column off + c through w_in[:D] (bf16 values in fp32: the
-// strict rank-1 FMA loop) and multiplied by the stored act' in the same
+// probe-tile column off + c through w_in[:D] (bf16 values in fp32:
+// project_probe) and multiplied by the stored act' in the same
 // pass, rounded into the plane; each hidden layer is one (k R) x H
 // dense_bf16 product, no bias, into the fp32 buffer `buf`, then the next
 // act' and the rounding back into the plane; the output layer
@@ -253,11 +299,7 @@ __device__ float* apply_jacobian_bf16(const float* cols, int off, int k, const f
     const int c = m / R;
     const int r = m - c * R;
     const float* v = cols + (off + c) * D * R + r;  // element d at v[d * R]
-    float s = 0.0f;
-#pragma unroll
-    for (int d = 0; d < MD; ++d) {
-      if (d < D) s = fmaf(v[d * R], __ldg(w_in + d * H + j), s);
-    }
+    const float s = project_probe<MD, kBFloat16>(v, R, w_in, j, H, D);
     plane[m * S + j] = __float2bfloat16_rn(__fmul_rn(s, dh[r * H + j]));
   }
   __syncthreads();
@@ -374,6 +416,86 @@ __device__ void qr_cols(RowView y, int k, int D, RowView rr) {
       for (int d = 0; d < MD; ++d) q[d] = v[d] / n;
     }
     store_col(y, j * D, D, q);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The wide path's algebra (8 < D <= kMaxDim): every vector a column of the
+// row's element-major tile, every loop to the runtime D, the sums in the
+// order and multiply-add form of the register versions above.
+
+// a[ao ..] . b[bo ..] over D elements.
+__device__ __forceinline__ float dot_view(RowView a, int ao, RowView b, int bo, int D) {
+  float s = 0.0f;
+  for (int d = 0; d < D; ++d) s += a[ao + d] * b[bo + d];
+  return s;
+}
+
+// canonical_residual() written into column j of y: e_c with the updates of
+// the columns i < j applied in order.
+__device__ void canonical_residual_wide(RowView y, int c, int j, int D) {
+  const int jo = j * D;
+  for (int d = 0; d < D; ++d) y[jo + d] = c == d ? 1.0f : 0.0f;
+  for (int i = 0; i < j; ++i) {
+    const float proj = dot_view(y, jo, y, i * D, D);
+    for (int d = 0; d < D; ++d) y[jo + d] -= proj * y[i * D + d];
+  }
+}
+
+// qr_cols() in place on the tile: column j's MGS updates run in the column
+// itself; a degenerate column is the scratch of basis completion, each
+// canonical residual built there for its norm, the largest (first among
+// equals) rebuilt there and normalized.
+__device__ void qr_cols_wide(RowView y, int k, int D, RowView rr) {
+  float ss = 0.0f;
+  for (int c = 0; c < k; ++c) ss += dot_view(y, c * D, y, c * D, D);
+  const float floor = fmaxf(sqrtf(ss) * 1e-6f, 1e-30f);
+  const bool keep = rr.p != nullptr;
+  for (int i = 0; i < k && keep; ++i)
+    for (int j = 0; j < k; ++j) rr[i * k + j] = 0.0f;
+  for (int j = 0; j < k; ++j) {
+    const int jo = j * D;
+    for (int i = 0; i < j; ++i) {
+      const float r_ij = dot_view(y, i * D, y, jo, D);
+      if (keep) rr[i * k + j] = r_ij;
+      for (int d = 0; d < D; ++d) y[jo + d] -= r_ij * y[i * D + d];
+    }
+    const float r_jj = sqrtf(dot_view(y, jo, y, jo, D));
+    if (keep) rr[j * k + j] = r_jj;
+    float n;
+    if (r_jj < floor) {
+      float best_norm = -1.0f;
+      int best = 0;
+      for (int c = 0; c < D; ++c) {
+        canonical_residual_wide(y, c, j, D);
+        const float nc = sqrtf(dot_view(y, jo, y, jo, D));
+        if (nc > best_norm) {
+          best_norm = nc;
+          best = c;
+        }
+      }
+      canonical_residual_wide(y, best, j, D);
+      n = fmaxf(best_norm, 1e-30f);
+    } else {
+      n = fmaxf(r_jj, floor);
+    }
+    for (int d = 0; d < D; ++d) y[jo + d] = y[jo + d] / n;
+  }
+}
+
+// Hutch++'s U = (I - Q Q^T) G in place over the n_g residual probes, which
+// follow the n_s Q columns in the tile: each probe's projections on the Q
+// columns first, into `coef`, then each element's updates in the order of
+// the Q columns.
+__device__ void project_out_wide(RowView t, int n_s, int n_g, int D, RowView coef) {
+  for (int g = 0; g < n_g; ++g) {
+    const int go = (n_s + g) * D;
+    for (int i = 0; i < n_s; ++i) coef[i] = dot_view(t, i * D, t, go, D);
+    for (int d = 0; d < D; ++d) {
+      float u = t[go + d];
+      for (int i = 0; i < n_s; ++i) u -= coef[i] * t[i * D + d];
+      t[go + d] = u;
+    }
   }
 }
 
@@ -537,7 +659,15 @@ fused_sketch_kernel(const float* __restrict__ x, const float* __restrict__ probe
     }
   };
   const float* jv = apply(0, n_s);
-  if (r < R) {
+  if constexpr (MD > kMaxNarrow) {
+    if (r < R) {
+      for (int c = 0; c < n_s; ++c)
+        for (int d = 0; d < D; ++d) my[qoff + c * D + d] = c0 * my[c * D + d] + c1 * jv[(c * R + r) * js + d];
+      qr_cols_wide(RowView{cols + qoff * R + r, R}, n_s, D, rr);
+      // the projections over the input tile, free since the drift
+      if (mode == kHutchpp) project_out_wide(my, n_s, n_g, D, RowView{xs + r, R});
+    }
+  } else if (r < R) {
     for (int c = 0; c < n_s; ++c) {
       float y[MD];
 #pragma unroll
@@ -577,12 +707,19 @@ fused_sketch_kernel(const float* __restrict__ x, const float* __restrict__ probe
       float trace_lr = 0.0f, trace_res = 0.0f;
       for (int c = 0; c < n_in; ++c) {
         const float* j = jv + (c * R + r) * js;
-        float v[MD];
-        load_col(my, c * D, D, v);
         float s = 0.0f;
+        if constexpr (MD > kMaxNarrow) {
+          for (int d = 0; d < D; ++d) {
+            const float vd = my[c * D + d];
+            s += vd * (c0 * vd + c1 * j[d]);
+          }
+        } else {
+          float v[MD];
+          load_col(my, c * D, D, v);
 #pragma unroll
-        for (int d = 0; d < MD; ++d) {
-          if (d < D) s += v[d] * (c0 * v[d] + c1 * j[d]);
+          for (int d = 0; d < MD; ++d) {
+            if (d < D) s += v[d] * (c0 * v[d] + c1 * j[d]);
+          }
         }
         if (c < n_s) trace_lr += s;
         else trace_res += s;
@@ -604,25 +741,37 @@ fused_sketch_kernel(const float* __restrict__ x, const float* __restrict__ probe
     const RowView T{late + (3 * m2 + m * D) * R + r, R};
     const RowView& S = aq;
     const RowView& X = inv;
-    for (int c = 0; c < m; ++c) {
-      float v[MD];
-#pragma unroll
-      for (int d = 0; d < MD; ++d) {
-        if (d < D) v[d] = c0 * my[(m + c) * D + d] + c1 * jv[(c * R + r) * js + d];
+    if constexpr (MD > kMaxNarrow) {
+      for (int c = 0; c < m; ++c)
+        for (int d = 0; d < D; ++d) aq[c * D + d] = c0 * my[(m + c) * D + d] + c1 * jv[(c * R + r) * js + d];
+      for (int i = 0; i < m; ++i) {
+        for (int j = 0; j < m; ++j) {
+          Hm[i * m + j] = dot_view(my, (m + i) * D, aq, j * D, D);
+          W[i * m + j] = dot_view(my, (m + i) * D, my, j * D, D);
+          T[i * m + j] = dot_view(aq, i * D, my, j * D, D);
+        }
       }
-      store_col(aq, c * D, D, v);
-    }
-    for (int i = 0; i < m; ++i) {
-      float qi[MD], ai[MD];
-      load_col(my, (m + i) * D, D, qi);
-      load_col(aq, i * D, D, ai);
-      for (int j = 0; j < m; ++j) {
-        float aj[MD], oj[MD];
-        load_col(aq, j * D, D, aj);
-        load_col(my, j * D, D, oj);
-        Hm[i * m + j] = dot(qi, aj, D);
-        W[i * m + j] = dot(qi, oj, D);
-        T[i * m + j] = dot(ai, oj, D);
+    } else {
+      for (int c = 0; c < m; ++c) {
+        float v[MD];
+#pragma unroll
+        for (int d = 0; d < MD; ++d) {
+          if (d < D) v[d] = c0 * my[(m + c) * D + d] + c1 * jv[(c * R + r) * js + d];
+        }
+        store_col(aq, c * D, D, v);
+      }
+      for (int i = 0; i < m; ++i) {
+        float qi[MD], ai[MD];
+        load_col(my, (m + i) * D, D, qi);
+        load_col(aq, i * D, D, ai);
+        for (int j = 0; j < m; ++j) {
+          float aj[MD], oj[MD];
+          load_col(aq, j * D, D, aj);
+          load_col(my, j * D, D, oj);
+          Hm[i * m + j] = dot(qi, aj, D);
+          W[i * m + j] = dot(qi, oj, D);
+          T[i * m + j] = dot(ai, oj, D);
+        }
       }
     }
     tri_inv<MD>(rr, m, inv);
@@ -696,8 +845,14 @@ cudaError_t query(size_t smem, int* blocks, int* regs, int* local_bytes) {
   return st;
 }
 
-// Index of an instantiation in the tables below: (precision, md bucket).
-int instance(int md, int precision) { return 3 * precision + (md == 2 ? 0 : md == 4 ? 1 : 2); }
+// The algebra's buckets: MD 2, 4 and 8 in registers, kMaxDim the wide path.
+bool valid_md(int md) { return md == 2 || md == 4 || md == kMaxNarrow || md == kMaxDim; }
+
+// This library's compute mode.
+constexpr int kPrecision = FF_SKETCH_PRECISION;
+
+// Index of an instantiation in the tables below: the md bucket.
+int instance(int md) { return md == 2 ? 0 : md == 4 ? 1 : md == kMaxNarrow ? 2 : 3; }
 
 using LaunchFn = cudaError_t (*)(const float*, const float*, const float*, const float*,
                                  const HiddenLayers&, int, const float*, const float*, const float*,
@@ -705,12 +860,10 @@ using LaunchFn = cudaError_t (*)(const float*, const float*, const float*, const
                                  cudaStream_t);
 using QueryFn = cudaError_t (*)(size_t, int*, int*, int*);
 
-constexpr LaunchFn kLaunch[9] = {
-    launch<2, kFloat32>,  launch<4, kFloat32>,  launch<8, kFloat32>,  launch<2, kHighF32>,  launch<4, kHighF32>,
-    launch<8, kHighF32>,  launch<2, kBFloat16>, launch<4, kBFloat16>, launch<8, kBFloat16>};
-constexpr QueryFn kQuery[9] = {
-    query<2, kFloat32>,  query<4, kFloat32>,  query<8, kFloat32>,  query<2, kHighF32>,  query<4, kHighF32>,
-    query<8, kHighF32>,  query<2, kBFloat16>, query<4, kBFloat16>, query<8, kBFloat16>};
+constexpr LaunchFn kLaunch[4] = {launch<2, kPrecision>, launch<4, kPrecision>, launch<kMaxNarrow, kPrecision>,
+                                  launch<kMaxDim, kPrecision>};
+constexpr QueryFn kQuery[4] = {query<2, kPrecision>, query<4, kPrecision>, query<kMaxNarrow, kPrecision>,
+                                query<kMaxDim, kPrecision>};
 
 }  // namespace
 
@@ -723,15 +876,20 @@ int ff_sketch_max_dim() { return kMaxDim; }
 // plans with it.
 int ff_sketch_min_blocks() { return kMinBlocks; }
 
-// Launch on `stream`; returns the cudaError_t of the launch (0 on success).
+// The compute mode this library was built for (0 float32, 1 highf32, 2
+// bfloat16): the wrapper loads one library a mode.
+int ff_sketch_precision() { return kPrecision; }
+
+// Launch on `stream`; returns the cudaError_t of the launch (0 on success),
+// cudaErrorInvalidValue where `precision` is not this library's.
 // probes: (B, n_s + n_g, D), the r sketch then the m residual probes of a row
 // (hutchpp, n_g >= 1, n_s <= D), or its m probes (xtrace, 1 <= n_s <= D,
 // n_g = 0).  w_hidden/b_hidden are host arrays of n_hidden device pointers,
 // each weight 16-byte aligned.  `precision` is the compute mode: 0 float32,
 // 1 highf32, 2 bfloat16; in bfloat16 w_in holds bf16-rounded floats, each
 // hidden weight is bf16 of shape (H_out, H_in) (transposed) and w_out bf16
-// (H, D), as fused_mlp.cu takes them.  `md` the algebra's bucket (2, 4 or
-// 8, >= D), `rows` a multiple of 4 (at most kThreads), H of 4, of 8 in
+// (H, D), as fused_mlp.cu takes them.  `md` the algebra's bucket (2, 4, 8
+// or 64, the wide path; >= D), `rows` a multiple of 4 (at most kThreads), H of 4, of 8 in
 // highf32, of 16 in bfloat16 (the Python wrapper checks all of them).
 // `smem` is the block's shared memory in bytes, computed by the wrapper for
 // the kernel's layout: (n_hidden + 1 + 2 kmax) x rows x H floats, or in
@@ -751,8 +909,8 @@ int ff_fused_sketch(const float* x, const float* probes, const float* w_in, cons
   const bool counts_ok = mode == kHutchpp ? (n_g >= 1 && n_s >= 0 && n_s <= D)
                                           : (mode == kXtrace && n_g == 0 && n_s >= 1 && n_s <= D);
   if (n_hidden < 0 || n_hidden > kMaxHidden || rows % kMinRowTile != 0 || rows > kThreads ||
-      H % 4 != 0 || B <= 0 || D < 1 || D > md || (md != 2 && md != 4 && md != 8) || !counts_ok ||
-      precision < kFloat32 || precision > kBFloat16 || (precision == kHighF32 && H % 8 != 0) ||
+      H % 4 != 0 || B <= 0 || D < 1 || D > md || !valid_md(md) || !counts_ok ||
+      precision != kPrecision || (precision == kHighF32 && H % 8 != 0) ||
       (precision == kBFloat16 && H % 16 != 0)) {
     return (int)cudaErrorInvalidValue;
   }
@@ -762,7 +920,7 @@ int ff_fused_sketch(const float* x, const float* probes, const float* w_in, cons
     hidden.b[i] = b_hidden[i];
   }
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return (int)kLaunch[instance(md, precision)](x, probes, w_in, b_eff, hidden, n_hidden, w_out,
+  return (int)kLaunch[instance(md)](x, probes, w_in, b_eff, hidden, n_hidden, w_out,
                                                b_out, c0c1, drift, div, B, d_in, D, H, mode, act,
                                                n_s, n_g, rows, smem, st);
 }
@@ -772,10 +930,10 @@ int ff_fused_sketch(const float* x, const float* probes, const float* w_in, cons
 // cudaError_t of the query.
 int ff_sketch_occupancy(int md, int precision, size_t smem, int* blocks, int* regs,
                         int* local_bytes) {
-  if ((md != 2 && md != 4 && md != 8) || precision < kFloat32 || precision > kBFloat16) {
+  if (!valid_md(md) || precision != kPrecision) {
     return (int)cudaErrorInvalidValue;
   }
-  return (int)kQuery[instance(md, precision)](smem, blocks, regs, local_bytes);
+  return (int)kQuery[instance(md)](smem, blocks, regs, local_bytes);
 }
 
 }  // extern "C"

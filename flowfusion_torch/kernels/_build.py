@@ -5,7 +5,10 @@ under the repository root, keyed on a hash of the source text, every
 header in ``csrc/`` (the sources share ``mlp_tile.cuh``) and the compiler
 flags, so an edited source or header rebuilds and an unchanged one loads
 the library already built.  The sources have a plain C interface (no
-PyTorch headers), which keeps a build to seconds.  ``build_host`` builds a
+PyTorch headers), which keeps a build to seconds.  A source listed in
+``VARIANTS`` is built once a variant, each with its own ``-D`` define
+(``lib<name>-<variant>-<hash>.so``), so that its instantiations compile in
+parallel: ``fused_sketch.cu`` once a compute mode.  ``build_host`` builds a
 host C++ source, ``csrc/<name>.cpp`` (the native batch loader), the same
 way with the host compiler (``$CXX``, else ``g++``, else ``c++``).
 Nothing here runs at import time; a failed build raises.  ``count_launch``
@@ -23,20 +26,22 @@ import tempfile
 import threading
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Optional
 
 __all__ = ["SOURCES", "build", "build_all", "build_host", "load"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "flowfusion_torch"
 SOURCES = ("fused_mlp", "em_sampler", "fused_sketch", "fused_train")
+# Sources built once a variant: name -> (the macro, its values by variant).
+VARIANTS = {"fused_sketch": ("FF_SKETCH_PRECISION", {"float32": 0, "highf32": 1, "bfloat16": 2})}
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 )
 HOST_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-pthread")
 
-_loaded: Dict[str, ctypes.CDLL] = {}
+_loaded: Dict[tuple, ctypes.CDLL] = {}
 
 
 def _nvcc() -> str:
@@ -53,12 +58,22 @@ def _nvcc() -> str:
     )
 
 
-def _library_path(name: str) -> Path:
+def _defines(name: str, variant: Optional[str]) -> tuple:
+    """The ``-D`` flag of ``variant`` of a source in ``VARIANTS`` (its first
+    variant when None), else none."""
+    if name not in VARIANTS:
+        return ()
+    macro, values = VARIANTS[name]
+    return (f"-D{macro}={values[variant or next(iter(values))]}",)
+
+
+def _library_path(name: str, variant: Optional[str] = None) -> Path:
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
         h.update(header.name.encode() + b"\0" + header.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+    h.update(" ".join(NVCC_FLAGS + _defines(name, variant)).encode())
+    tag = f"{name}-{variant or next(iter(VARIANTS[name][1]))}" if name in VARIANTS else name
+    return BUILD_DIR / f"lib{tag}-{h.hexdigest()[:16]}.so"
 
 
 def _compile(compiler: list, source: Path, out: Path) -> Path:
@@ -83,9 +98,17 @@ def _compile(compiler: list, source: Path, out: Path) -> Path:
     return out
 
 
-def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` unless the library for this source exists."""
-    return _compile([_nvcc(), *NVCC_FLAGS], CSRC / f"{name}.cu", _library_path(name))
+def build(name: str, variant: Optional[str] = None) -> Path:
+    """Compile ``csrc/<name>.cu`` (``variant`` of a source in ``VARIANTS``,
+    its first when None) unless the library for this source exists."""
+    return _compile([_nvcc(), *NVCC_FLAGS, *_defines(name, variant)], CSRC / f"{name}.cu",
+                    _library_path(name, variant))
+
+
+def jobs(names=SOURCES) -> list:
+    """``(name, variant)`` of every library of ``names``: one a source, one
+    a variant for the sources in ``VARIANTS``."""
+    return [(n, v) for n in names for v in (VARIANTS[n][1] if n in VARIANTS else (None,))]
 
 
 def _cxx() -> str:
@@ -109,18 +132,21 @@ def build_host(name: str) -> Path:
 
 
 def build_all() -> None:
-    """Build every source, one nvcc per source, all started together."""
-    with ThreadPoolExecutor(max_workers=len(SOURCES)) as pool:
-        for fut in [pool.submit(build, n) for n in SOURCES]:
+    """Build every library, one nvcc each (a source, or a variant of one),
+    all started together."""
+    todo = jobs()
+    with ThreadPoolExecutor(max_workers=len(todo)) as pool:
+        for fut in [pool.submit(build, *job) for job in todo]:
             fut.result()
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, building it if needed."""
-    lib = _loaded.get(name)
+def load(name: str, variant: Optional[str] = None) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu`` (``variant`` of a source
+    in ``VARIANTS``), building it if needed."""
+    lib = _loaded.get((name, variant))
     if lib is None:
-        lib = ctypes.CDLL(str(build(name)))
-        _loaded[name] = lib
+        lib = ctypes.CDLL(str(build(name, variant)))
+        _loaded[(name, variant)] = lib
     return lib
 
 

@@ -382,12 +382,19 @@ def flops_per_row(
     1 + n_applies chains (the JAX package's kernels/fused_mlp.py:921-934):
     n_applies = 0, 1, D, K (tangents, ``n_tan`` = K), r + r + m (hutchpp,
     ``n_tan`` = r, ``n_tan2`` = m) or 2 m (xtrace, ``n_tan`` = m);
-    ``n_layers`` counts every weight layer."""
+    ``n_layers`` counts every weight layer.  A probe's chain (hutchinson,
+    tangents and the sketch modes) projects its D values through
+    w_in[:D], so it counts d_out input rows where the JAX formula counts
+    d_in (the same where there is no conditional); exact keeps the JAX
+    formula.  The sketch modes' per-row algebra (QR, projections,
+    leave-one-out) is not counted: O(k^2 D) a row for k = r + m or m
+    probes, under 1% of the chains at D = 64 and k <= 8."""
     n_applies = {
         "forward": 0, "hutchinson": 1, "exact": d_out, "tangents": n_tan,
         "hutchpp": 2 * n_tan + n_tan2, "xtrace": 2 * n_tan,
     }[mode]
-    return 2 * H * (d_in + (n_layers - 2) * H + d_out) * (1 + n_applies)
+    probe_rows = d_in if mode == "exact" else d_out
+    return 2 * H * ((d_in + (n_layers - 2) * H + d_out) + (probe_rows + (n_layers - 2) * H + d_out) * n_applies)
 
 
 def highf32_flops_per_row(

@@ -21,10 +21,21 @@ applications.  The time, the first-layer fold and (c0, c1) enter as in
 ``kernels.fused_mlp``.  Each wrapper counts its launches, split by mode
 (``launches_by_mode``) and by compute mode (``launches_by_dtype``).
 
+The kernel takes every D up to ``MAX_SKETCH_DIM`` = 64, the JAX sketch
+kernel's envelope (D + C <= 64 features).  Its per-row algebra keeps a
+row's D-vectors in registers for D <= 8 (the buckets 2, 4 and 8) and, on
+the wide path (bucket 64), in the element-major tiles of shared memory that
+the narrow path already stores them in, with loops to the runtime D; the
+wide path needs no shared memory beyond that layout.  A probe's projection
+through w_in[:D] is strict up to ``fused_mlp.RANK1_MAX`` = 16 rows and, past
+that, goes through the 3xTF32 split in ``highf32`` and through rounded
+operands in ``bfloat16``, as the JAX kernel's ``in_proj_rows`` takes it.
+
 A launch's plan, :func:`sketch_plan`, is ``(rows, smem_bytes, md)``: the
 rows a block owns (the most blocks an SM holds, up to three, at the most
 rows that reach them), its shared memory and the algebra's bucket of D.
-A row's arithmetic does not depend on the plan.
+A row's arithmetic does not depend on the rows, nor on the bucket among 2,
+4 and 8.
 """
 
 from __future__ import annotations
@@ -67,8 +78,10 @@ __all__ = [
 ]
 
 SKETCH_MODES = ("hutchpp", "xtrace")  # index = kernel's SketchMode
-MAX_SKETCH_DIM = 8  # D the per-row algebra takes (csrc kMaxDim)
-SKETCH_MD = (2, 4, 8)  # the algebra's compile-time bounds of D (csrc instantiations)
+MAX_SKETCH_DIM = 64  # D the per-row algebra takes (csrc kMaxDim)
+# the algebra's compile-time bounds of D (csrc instantiations): 2, 4 and 8
+# in registers, MAX_SKETCH_DIM the wide path in shared memory
+SKETCH_MD = (2, 4, 8, MAX_SKETCH_DIM)
 SKETCH_BLOCKS = 3  # blocks an SM the kernel's launch bounds allow (csrc kMinBlocks)
 SKETCH_DTYPES = COMPUTE_DTYPES  # the compute modes this kernel takes, index = its precision
 
@@ -114,14 +127,15 @@ def _layout(sketch_mode: str, n_s: int, n_g: int) -> Tuple[int, int]:
 
 
 def sketch_md(D: int) -> int:
-    """The per-row algebra's bucket: the smallest of ``SKETCH_MD`` >= D;
-    raise past ``MAX_SKETCH_DIM``."""
+    """The per-row algebra's bucket: the smallest of ``SKETCH_MD`` >= D
+    (2, 4 or 8 in registers; 9 <= D <= 64 the wide path); raise past
+    ``MAX_SKETCH_DIM``, the JAX sketch kernel's envelope."""
     for md in SKETCH_MD:
         if D <= md:
             return md
     raise ValueError(
-        f"fused sketch kernel takes D <= {MAX_SKETCH_DIM} (its per-row algebra's "
-        f"arrays); got D={D}: use use_fused_kernel=False"
+        f"fused sketch kernel takes D <= {MAX_SKETCH_DIM} (the JAX sketch kernel's "
+        f"envelope); got D={D}: use use_fused_kernel=False"
     )
 
 
@@ -130,7 +144,10 @@ def _algebra_floats(sketch_mode: str, n_s: int, D: int, d_in: int, n_act: int, H
     Each lies over storage that is free when it is needed, where that holds
     it: R of the QR (m x m) over the input tile (d_in floats a row), A Q
     (m x D), inv(R) and the H, W, T grids (m x m each) over the act' store
-    (n_act x H); Hutch++ keeps none."""
+    (n_act x H); Hutch++ keeps none.  The wide path (D > 8) counts nothing
+    more: its QR runs in place on the probe tile's columns, basis completion
+    in the degenerate column itself, and Hutch++'s r projections of a
+    residual probe lie over the input tile (d_in >= D >= r floats a row)."""
     if sketch_mode == "hutchpp":
         return 0
     rr, late = n_s * n_s, 4 * n_s * n_s + n_s * D
@@ -144,7 +161,8 @@ def _smem_bytes(rows: int, H: int, n_act: int, d_in: int, D: int, kmax: int, nco
     (2 x kmax x rows x H; in ``bfloat16`` one fp32 buffer and one 2-byte
     bf16 plane, kmax x rows x (H + ``fused_mlp.PAD_BF16``) values each),
     the (rows, d_in) input tile, the (rows, ncols, D) probe tile and the
-    algebra's n_alg floats a row, float32 but for the plane."""
+    algebra's n_alg floats a row, float32 but for the plane.  The same at
+    every D: the wide path's vectors are the probe tile's columns."""
     tiles = 4 * rows * (n_act * H + d_in + ncols * D + n_alg)
     if compute_dtype == "bfloat16":
         return tiles + (4 + 2) * kmax * rows * (H + fused_mlp.PAD_BF16)
@@ -161,12 +179,14 @@ def _layout_bytes(sketch_mode, H, n_act, d_in, D, n_s, n_g, compute_dtype="float
 def sketch_plan(sketch_mode: str, H: int, n_act: int, d_in: int, D: int, n_s: int, n_g: int,
                 rows: Optional[int] = None, md: Optional[int] = None, compute_dtype: str = "float32"):
     """``(rows, smem_bytes, md)`` of a launch in ``compute_dtype`` (float32
-    and highf32 share a layout), or raise when the per-row algebra's D is
-    past ``MAX_SKETCH_DIM`` or the shared-memory plan does not fit.
+    and highf32 share a layout), or raise when D is past
+    ``MAX_SKETCH_DIM`` = 64 or the shared-memory plan does not fit.
     ``n_act`` counts the activation layers (the hidden widths).  Rows: the
-    most blocks an SM holds, at the most rows that reach them.  ``rows``
-    and ``md`` force a plan (a multiple of 4 rows, a bucket >= D).  A
-    row's arithmetic does not depend on rows or md."""
+    most blocks an SM holds, at the most rows that reach them.  ``md``: the
+    bucket of :func:`sketch_md`, 2, 4 or 8 (the register algebra) or 64 (the
+    wide path, 8 < D <= 64).  ``rows`` and ``md`` force a plan (a multiple
+    of 4 rows, a bucket >= D).  A row's arithmetic does not depend on rows,
+    nor on md among 2, 4 and 8."""
     bucket = sketch_md(D)
     md = bucket if md is None else md
     if md not in SKETCH_MD or md < D:
@@ -253,7 +273,16 @@ def fused_drift_sketch_reference(
     through ``fused_mlp.tf32x3_matmul`` (tangents included) and the
     tanh-form SiLU, as ``fused_mlp.fused_drift_reference`` runs them; in
     ``bfloat16`` :func:`_bf16_sketch_reference` on the folded first
-    layer."""
+    layer, whose probe projection rounds the probes past
+    ``fused_mlp.RANK1_MAX`` = 16 rows, as the kernel does.
+
+    In ``highf32`` the first layer takes the split once D + C > 16
+    (``fused_mlp._net_ops``), the probes' projection with it, where the
+    kernel (and the JAX kernel's ``in_proj_rows``) keeps a probe strict up
+    to D = 16 rows and splits it past that.  So for D <= 16 < D + C the
+    two differ by the split's error on a probe's projection, ~2^-22
+    relative, far inside the ``highf32`` sketch bars; past D = 16 both
+    split."""
     _stack_sketch_probes(probes, sketch_mode, x.shape[-1])
     if compute_dtype == "bfloat16":
         with strict_fp32_matmul():
@@ -372,8 +401,10 @@ def reset_launch_counts() -> None:
 reset_launch_counts()
 
 
-def _kernel_lib() -> ctypes.CDLL:
-    lib = _build.load("fused_sketch")
+def _kernel_lib(compute_dtype: str) -> ctypes.CDLL:
+    """The kernel's library for ``compute_dtype``: the build compiles
+    ``csrc/fused_sketch.cu`` once a compute mode (``_build.VARIANTS``)."""
+    lib = _build.load("fused_sketch", compute_dtype)
     fn = lib.ff_fused_sketch
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
@@ -383,7 +414,8 @@ def _kernel_lib() -> ctypes.CDLL:
         ip = ctypes.POINTER(ctypes.c_int)
         lib.ff_sketch_occupancy.argtypes = [i, i, ctypes.c_size_t, ip, ip, ip]
         lib.ff_sketch_occupancy.restype = ctypes.c_int
-        want = {"ff_sketch_max_dim": MAX_SKETCH_DIM, "ff_sketch_min_blocks": SKETCH_BLOCKS}
+        want = {"ff_sketch_max_dim": MAX_SKETCH_DIM, "ff_sketch_min_blocks": SKETCH_BLOCKS,
+                "ff_sketch_precision": COMPUTE_DTYPES.index(compute_dtype)}
         for name in want:
             getattr(lib, name).argtypes = []
             getattr(lib, name).restype = ctypes.c_int
@@ -400,8 +432,8 @@ def sketch_occupancy(plan, compute_dtype: str = "float32") -> dict:
     check_compute_dtype(compute_dtype)
     rows, smem, md = plan
     out = [ctypes.c_int(0) for _ in range(3)]
-    err = _kernel_lib().ff_sketch_occupancy(md, COMPUTE_DTYPES.index(compute_dtype), smem,
-                                            *[ctypes.byref(v) for v in out])
+    err = _kernel_lib(compute_dtype).ff_sketch_occupancy(md, COMPUTE_DTYPES.index(compute_dtype), smem,
+                                                         *[ctypes.byref(v) for v in out])
     if err != 0:
         raise RuntimeError(f"fused_sketch occupancy query failed with CUDA error {err}")
     blocks, regs, local_bytes = (v.value for v in out)
@@ -452,7 +484,7 @@ def _fused_sketch_cuda(x_in, V, w_in, b_eff, hidden_w, hidden_b, w_out, b_out, c
     div = torch.empty((B,), dtype=torch.float32, device=device)
     if B == 0:
         return drift, div
-    lib = _kernel_lib()
+    lib = _kernel_lib(compute_dtype)
     n = len(hidden_w)
     w_ptrs = (ctypes.c_void_p * max(n, 1))(*[w.data_ptr() for w in hidden_w])
     b_ptrs = (ctypes.c_void_p * max(n, 1))(*[b.data_ptr() for b in hidden_b])

@@ -118,7 +118,7 @@ _ENVELOPE = (
     "the fused kernel's envelope (activation silu/tanh/relu/gelu, at most 17 "
     "hidden layers, and a shared-memory plan that fits D, C, the hidden width "
     "and the trace mode: kernels.fused_mlp.fusable_config/supports_features; "
-    "for 'hutchpp'/'xtrace' also D <= 8 and the probe counts: "
+    "for 'hutchpp'/'xtrace' also D <= 64 and the probe counts: "
     "kernels.fused_sketch.supports_sketch)"
 )
 

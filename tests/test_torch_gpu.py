@@ -569,19 +569,69 @@ def test_highf32_sketch_four_row_plan_and_one_hidden_layer(cuda_device):
 
 @pytest.mark.gpu
 def test_auto_dispatch_on_card_raises_outside_sketch_plan(cuda_device):
-    """The sketch kernel's per-row algebra takes D <= 8: auto dispatch on the
-    card raises for D = 9 instead of running the plain path, which runs only
-    when asked for."""
-    cfg = ScoreMLPConfig(n_dimensions=9, units=(64,))
+    """The sketch kernel takes D <= 64 (the JAX sketch kernel's envelope):
+    auto dispatch on the card runs it at D = 16 (the wide path) and raises
+    for D = 65 instead of running the plain path, which runs only when
+    asked for."""
+    gen = torch.Generator().manual_seed(2)
+    cfg16 = ScoreMLPConfig(n_dimensions=16, n_conditionals=8, units=(64,))
+    m16 = ScoreModel(init_score_mlp(cfg16, torch.Generator().manual_seed(0), cuda_device), cfg16, VESDE(),
+                     trace_mode="xtrace", xt_vecs=2)
+    before = fused_sketch.fused_drift_sketch.launches
+    lp, st = m16.log_prob(torch.randn(8, 16, generator=gen).to(cuda_device),
+                          conditional=torch.randn(8, 8, generator=gen).to(cuda_device), generator=gen)
+    assert fused_sketch.fused_drift_sketch.launches - before == st.n_func_evals and bool(torch.isfinite(lp).all())
+    cfg = ScoreMLPConfig(n_dimensions=65, units=(64,))
     model = ScoreModel(init_score_mlp(cfg, torch.Generator().manual_seed(0), cuda_device), cfg, VESDE(),
                        trace_mode="xtrace", xt_vecs=2)
-    x = torch.randn(8, 9, generator=torch.Generator().manual_seed(1)).to(cuda_device)
-    gen = torch.Generator().manual_seed(2)
+    x = torch.randn(8, 65, generator=torch.Generator().manual_seed(1)).to(cuda_device)
     with pytest.raises(ValueError, match="use_fused_kernel=False"):
         model.log_prob(x, generator=gen)
     before = fused_sketch.fused_drift_sketch.launches
     lp, _ = dataclasses.replace(model, use_fused_kernel=False).log_prob(x, generator=gen)
     assert fused_sketch.fused_drift_sketch.launches == before and bool(torch.isfinite(lp).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("compute_dtype", ["float32", "highf32", "bfloat16"])
+@pytest.mark.parametrize("mode", ["hutchpp", "xtrace"])
+@pytest.mark.parametrize("d,c", [(16, 8), (20, 4), (64, 0)])
+def test_wide_sketch_kernel_matches_plain_version(cuda_device, d, c, mode, compute_dtype):
+    """The wide path (8 < D <= 64) at 4,099 rows against its plain version:
+    float32 drift 1e-5 of the max and |d div| <= 5e-4 + 1e-4 |div| row by
+    row (the JAX bar for its wide sketch kernel), highf32 5e-5 and 5e-4 of
+    the max, bfloat16 the mean within 1e-5 of the max; and the same launch
+    at a forced 4-row plan, bitwise."""
+    cfg = ScoreMLPConfig(n_dimensions=d, n_conditionals=c, units=(128, 128, 128))
+    params = init_score_mlp(cfg, torch.Generator().manual_seed(d), cuda_device)
+    k = 2 if mode == "hutchpp" else 3
+    x, cond, probes = _sketch_case(d, c, mode, 4_099, k, cuda_device, 40 + d, degenerate=False)
+    args = (params, cfg, 0.4, x, probes, mode, cond)
+    out = fused_sketch.fused_drift_sketch(*args, c0=0.3, c1=-0.7, compute_dtype=compute_dtype)
+    ref = fused_sketch.fused_drift_sketch_reference(*args, c0=0.3, c1=-0.7, compute_dtype=compute_dtype)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(out[1]).all())
+    if compute_dtype == "float32":
+        assert _rel(out[0], ref[0]) <= 1e-5
+        assert float(((out[1] - ref[1]).abs() - 1e-4 * ref[1].abs()).max()) <= 5e-4
+    elif compute_dtype == "highf32":
+        assert _rel(out[0], ref[0]) <= 5e-5 and _rel(out[1], ref[1]) <= 5e-4
+    else:
+        for o, r in zip(out, ref):
+            assert float((o - r).abs().mean() / r.abs().max()) <= 1e-5
+    n_s, n_g = (k, k) if mode == "hutchpp" else (k, 0)
+    own = fused_sketch.sketch_plan(mode, 128, 3, d + c, d, n_s, n_g, compute_dtype=compute_dtype)
+    assert own[2] == fused_sketch.MAX_SKETCH_DIM
+    four = fused_sketch.sketch_plan(mode, 128, 3, d + c, d, n_s, n_g, rows=4 if own[0] != 4 else 8,
+                                    compute_dtype=compute_dtype)
+    w_in, b_eff = fused_mlp._score_first_layer(params, cfg, torch.tensor(0.4, device=cuda_device), cond)
+    x_in = x if cond is None else torch.cat([x, cond], dim=-1)
+    c0c1 = torch.tensor([0.3, -0.7], device=cuda_device)
+    V = torch.cat(probes)
+    a, b = (fused_sketch._launch(x_in, V, w_in, b_eff, params["layers"], c0c1, mode, d, n_s, n_g, "silu", plan,
+                                 fused_sketch.fused_drift_sketch, compute_dtype) for plan in (own, four))
+    torch.cuda.synchronize()
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
 
 
 def _train_tables(steps, bs, D, C, device, seed, symplectic=False):

@@ -230,11 +230,20 @@ def test_xtrace_matches_float64_oracle():
     np.testing.assert_allclose(div.numpy(), numpy_xtrace(A, O), rtol=1e-3, atol=1e-4)
 
 
-@pytest.mark.parametrize("D,C", [(2, 0), (6, 3)])
+@pytest.mark.parametrize("D,C", [(2, 0), (6, 3), (16, 8)])
 def test_hutchpp_full_rank_equals_exact_trace(D, C):
     """With r = D the sketch spans R^D (the completion fills degenerate
     rows: at D = 2 half the Rademacher pairs are parallel), so Hutch++ is
-    the exact trace whatever the residual probes."""
+    the exact trace whatever the residual probes.
+
+    At D = 16 (the pop-cosmos D) a Rademacher 16 x 16 sketch is exactly
+    singular on some rows (row 39 of this draw), and single-pass float32
+    MGS leaves the dependent column's residual at rounding noise, about
+    1e-6 of the scale: next to the floor, so the JAX package and the port
+    complete the basis there or not by their sum order (PERF.md §7).  D =
+    16 takes orthonormal sketches (cond(S) = 1) with exactly parallel
+    columns on a quarter of the rows, where completion runs by
+    construction."""
     jcfg, jparams, cfg, params = _net_pair(D, C, seed=5)
     rng = np.random.default_rng(6)
     B = 64
@@ -244,6 +253,10 @@ def test_hutchpp_full_rank_equals_exact_trace(D, C):
     S, G = _sketch_probes("hutchpp", D, B, 7, r=D, m=3)
     if D == 2:
         assert (np.abs(S[0] * S[1]).sum(-1) == 2).any()  # some parallel pairs
+    if D == 16:
+        Q = np.linalg.qr(np.random.default_rng(8).standard_normal((B, D, D)))[0]
+        S = (Q.transpose(2, 0, 1) * np.sqrt(D)).astype(np.float32)
+        S[1, : B // 4] = S[0, : B // 4]
     _, div = trace.hutchpp_divergence(f, x, torch.as_tensor(S), torch.as_tensor(G))
     _, exact = trace.exact_divergence(f, x)
     assert _rel(div, exact) <= 1e-5
@@ -284,12 +297,13 @@ def test_stack_sketch_probes_errors():
     ):
         with pytest.raises(ValueError, match=msg):
             fused_sketch.fused_drift_sketch(params, cfg, 0.5, x, probes, mode)
-    # the per-row algebra's size limit holds on every device
-    wide = nets.ScoreMLPConfig(n_dimensions=9, units=(16,))
+    # the per-row algebra's size limit (the JAX sketch kernel's envelope,
+    # D <= 64) holds on every device
+    wide = nets.ScoreMLPConfig(n_dimensions=65, units=(16,))
     wparams = nets.init_score_mlp(wide, torch.Generator().manual_seed(0), "cpu")
-    with pytest.raises(ValueError, match="D <= 8"):
-        fused_sketch.fused_drift_sketch(wparams, wide, 0.5, torch.zeros(5, 9),
-                                        (torch.ones(1, 5, 9),), "xtrace")
+    with pytest.raises(ValueError, match="D <= 64"):
+        fused_sketch.fused_drift_sketch(wparams, wide, 0.5, torch.zeros(5, 65),
+                                        (torch.ones(1, 5, 65),), "xtrace")
 
 
 # -- the kernels' plain versions against the JAX counterparts --------------
@@ -404,7 +418,7 @@ def test_blocks_an_sm_count_the_block_reserve():
     assert fused_mlp._plan(128, "exact", 9, 6) == (8, 59_616)
 
 
-@pytest.mark.parametrize("D", range(1, 10))
+@pytest.mark.parametrize("D", list(range(1, 18)) + [20, 24, 32, 48, 63, 64, 65])
 def test_sketch_md_bucket(D):
     if D > fused_sketch.MAX_SKETCH_DIM:
         with pytest.raises(ValueError, match="use_fused_kernel=False"):
@@ -413,7 +427,7 @@ def test_sketch_md_bucket(D):
             fused_sketch.sketch_plan("xtrace", 128, 3, D, D, 2, 0)
         return
     md = fused_sketch.sketch_md(D)
-    assert md == {1: 2, 2: 2, 3: 4, 4: 4}.get(D, 8)
+    assert md == {1: 2, 2: 2, 3: 4, 4: 4}.get(D, 8 if D <= 8 else 64)
     assert fused_sketch.sketch_plan("xtrace", 128, 3, D, D, 1, 0)[2] == md
 
 
@@ -549,8 +563,11 @@ def test_sketch_modes_through_the_models():
     S, G = torch.ones(2, 8, 2), torch.ones(1, 8, 2)
     assert sm._fused_available(on_card, "hutchpp", (S, G)) is True
     assert sm._fused_available(x, "hutchpp", (S, G)) is False
-    wide = dataclasses.replace(sm, net=nets.ScoreMLPConfig(n_dimensions=9, units=(16,)))
+    # D = 9 takes the wide path; past 64 it raises
+    d9 = dataclasses.replace(sm, net=nets.ScoreMLPConfig(n_dimensions=9, units=(16,)))
+    assert d9._fused_available(on_card, "xtrace", (torch.ones(2, 8, 9),)) is True
+    wide = dataclasses.replace(sm, net=nets.ScoreMLPConfig(n_dimensions=65, units=(16,)))
     with pytest.raises(ValueError, match="use_fused_kernel=False"):
-        wide._fused_available(on_card, "xtrace", (torch.ones(2, 8, 9),))
+        wide._fused_available(on_card, "xtrace", (torch.ones(2, 8, 65),))
     with pytest.raises(ValueError, match="unknown trace mode"):
         dataclasses.replace(sm, trace_mode="nope")
