@@ -272,6 +272,19 @@ non-zero without the final line):
      against ``sample_sde`` at 50,000 x 100 on the same conditionals (the
      moment bars); (e) the wide instantiations' registers, local bytes and
      blocks an SM, a forced 4-row plan bitwise;
+  19. the kernels at the JAX gate's widths, depths and chain counts
+     (``envelope_phase``, printed after 18, in a process of its own,
+     ``--envelope-worker``, started beside 18's): (a) the new plan forms
+     (passes of fewer tangent chains, highf32 without its planes, probe
+     groups) forced at today's widths, bitwise the default plan; (b) the
+     envelope table at the JAX gate's widest H in three modes against the
+     plain versions (4,096 rows), each plan's registers and local bytes,
+     the launches of one case of each new form timed at 50,000 rows
+     beside the bound; (c) ``log_prob`` exact at (1280,) x 3, D = 6, C = 3,
+     Hutchinson ``highf32`` at (3072,) x 3, Hutch++ r = 2, m = 1 at
+     (2048,) x 3 and Hutchinson on a 24-hidden-width net, kernel against
+     plain (NFE, |dlogp|, launches = NFE), the deep net's solve and
+     ``sample_sde_fused`` at 50,000 rows, refusals past the envelope;
   7. a ``kernels`` line, printed last: launches on the main paths (each
      path run with the counts set to 0 just before it: phases 2-4, 5, 6,
      the two-launch path of 1d, 8, 9, 10 and, for the highf32 entries, 11
@@ -279,8 +292,9 @@ non-zero without the final line):
      1e's modes path), times, bounds and plain times,
      ``serving_launches``, the launches on phase 14's paths,
      ``utilities_launches``, those on phase 16's, ``parallel_launches``,
-     those on phase 17's (its two worker processes' included), and
-     ``wide_launches``, those on phase 18's.
+     those on phase 17's (its two worker processes' included),
+     ``wide_launches``, those on phase 18's, and ``envelope_launches``,
+     those on phase 19's.
 
 Every JSON line carries ``seconds``: its own wall, or the wall since the
 line before it.
@@ -344,6 +358,10 @@ PARALLEL_ROWS = 50_000
 # checks; and the random wide nets' rows
 POPCOSMOS_ROWS = 50_000
 POPCOSMOS_SMALL_ROWS = 4_099
+# phase 19's deep net: 24 hidden widths of 128, tanh, the hidden weights'
+# init scale (std 1 / sqrt(3 fan_in)) times sqrt(3): unit gain, the edge of
+# chaos, where the field and its Jacobian stay O(1) through the depth
+DEEP_GAIN = 3 ** 0.5
 
 
 _LAST_LINE = [time.perf_counter()]
@@ -3485,6 +3503,9 @@ def main() -> int:
     dir18 = tempfile.TemporaryDirectory()
     env18 = {**os.environ, "PYTHONPATH": ROOT + os.pathsep + os.environ.get("PYTHONPATH", "")}
     worker18 = spawn([sys.executable, os.path.abspath(__file__), "--popcosmos-worker", dir18.name], env=env18)
+    # phase 19 likewise, started beside it, run after it
+    dir19 = tempfile.TemporaryDirectory()
+    worker19 = spawn([sys.executable, os.path.abspath(__file__), "--envelope-worker", dir19.name], env=env18)
 
     # -- phase 16: the utilities ----------------------------------------------
     utility_counts = utilities_phase(smi, dev, flag_params, flag_cfg, reset_counts, read_counts)
@@ -3500,6 +3521,15 @@ def main() -> int:
     with open(os.path.join(dir18.name, "counts.json")) as f:
         wide_counts = json.load(f)
     dir18.cleanup()
+
+    # -- phase 19: the kernels at the JAX gate's widths, depths and chains ---------
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    open(os.path.join(dir19.name, "go"), "w").close()
+    check(worker19.wait(timeout=600) == 0, f"phase 19's worker exited with {worker19.returncode}")
+    with open(os.path.join(dir19.name, "counts.json")) as f:
+        envelope_counts = json.load(f)
+    dir19.cleanup()
 
     # -- phase 7: the kernels line ------------------------------------------
     # no single PyTorch call computes any of these functions (a fused MLP with
@@ -3596,6 +3626,12 @@ def main() -> int:
         k["wide_launches"] = wide_counts.get(k["name"], 0)
     check(set(wide_counts) <= {k["name"] for k in kernels},
           f"phase 18 launched kernels the line does not name: {wide_counts}")
+    # launches on phase 19's paths (the models at the JAX gate's widths and
+    # the deep net), each counted from zero
+    for k in kernels:
+        k["envelope_launches"] = envelope_counts.get(k["name"], 0)
+    check(set(envelope_counts) <= {k["name"] for k in kernels},
+          f"phase 19 launched kernels the line does not name: {envelope_counts}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({
         "ok": True,
@@ -5154,6 +5190,449 @@ def popcosmos_worker(d: str) -> int:
     return 0
 
 
+def envelope_phase(smi, dev, reset_counts) -> dict:
+    """Phase 19: the RHS, sketch and EM kernels at every width, depth and
+    chain count the JAX kernels admit, where the wide plans take over (the
+    tangent chains in passes of fewer, highf32 without its TF32 planes, the
+    sketch's probe columns in groups, the hidden layers from the layer
+    table past 16).  Random nets from seeds; c0 = -0.3, c1 = 0.9 (a VP
+    SDE's RHS: A = c0 I + c1 J well conditioned for the sketch's QR).
+
+    (a) each new plan form forced at today's widths (D = 2 at H = 128,
+    D = 6, C = 3 at H = 256, and the sketch's D16C8 at H = 128) against the
+    default plan on 4,099 rows, every mode and compute mode: passes of one
+    and of every tangent chain, highf32 without planes (alone and with one
+    chain a pass), sketch groups of one and of every column: drift and div
+    (or J v) bitwise equal.
+    (b) each case of the envelope table at the JAX gate's widest H (three
+    hidden widths) in the three compute modes against its plain version on
+    4,096 rows: float32 at phase 1a's bars (drift 1e-5, div 1e-4 of the max;
+    J v 1e-5), the sketch at phase 1d's (div within 2e-4 absolute; the wide
+    path at phase 18's 5e-4 + 1e-4 |div| row by row); highf32 against its
+    plain version at phase 1f's (drift 1e-5, div 5e-5) and 1g's (drift
+    5e-5, div 5e-4) bars; bfloat16 at phase 15's (the mean within 1e-5 of
+    the max and 10x closer than the plain version is to strict float32, at
+    wider and deeper nets as ``bf16_bars`` says, the max within 3e-2).
+    Each plan's registers, local bytes (none) and blocks an SM; the launch
+    alone and the plain version's call timed at 50,000 rows for one case of
+    each new plan form (CUDA events, one run each), beside the bound.
+    (c) the path through the models, each run counted from zero:
+    ``ScoreModel.log_prob`` exact at (1280,) x 3, D = 6, C = 3, VPSDE,
+    float32; Hutchinson at (3072,) x 3, D = 2, VESDE, highf32; Hutch++
+    r = 2, m = 1 at (2048,) x 3, D = 2, VPSDE, float32; Hutchinson on a
+    24-hidden-width, 128-wide tanh net (``DEEP_GAIN``), VESDE, float32;
+    rtol 1e-5 PI (at the log_prob defaults, atol = rtol = 1e-4 and the I
+    controller, the highf32 solve's steps part from its plain version's:
+    NFE 98 against 122 on the H100).  At 4,096 rows each kernel
+    solve against the same model's plain solve (``use_fused_kernel=False``;
+    highf32 on its own plain RHS): NFE equal, mean |dlogp| <= 1e-4,
+    launches = NFE; the deep net's kernel solve also at 50,000 rows, timed.
+    The full-width solves are not timed at 50,000 rows here: their wide
+    plans (one block of 4 rows an SM) take 0.2-1.2 s a launch there (b),
+    and the three solves took 314 s together on the H100 (NVIDIA H100
+    80GB HBM3, 700 W), past what the script's limit leaves; (b) times
+    their launches at 50,000 rows.
+    ``sample_sde_fused`` on the deep net at 50,000 rows x 100 steps (one
+    launch, finite), and the EM kernel on it against its plain version on
+    streamed noise (4,096 rows, 20 steps, phase 1b's bars).  Past the new
+    envelope (exact at D = 16, H = 4,096; XTrace m = 37 at D = 64) a
+    model's auto dispatch raises on the card, naming use_fused_kernel=False.
+
+    Returns the launches of (c)'s runs by kernel entry."""
+    import contextlib
+
+    import torch
+
+    from flowfusion_torch.kernels import em_sampler, fused_mlp, fused_sketch
+    from flowfusion_torch.models import score as score_mod
+    from flowfusion_torch.models.nets import ScoreMLPConfig, init_score_mlp
+    from flowfusion_torch.models.score import ScoreModel
+    from flowfusion_torch.ops import trace as trace_ops
+    from flowfusion_torch.ops.sde import VESDE, VPSDE
+
+    t19 = time.perf_counter()
+    B, N = 4_096, 50_000
+    c0c1 = torch.tensor([-0.3, 0.9], device=dev)
+    t37 = torch.tensor(0.37, device=dev)
+    wrappers = fused_mlp._COUNTED + (fused_sketch.fused_drift_sketch, fused_sketch.fused_velocity_sketch)
+    path_counts = {}
+
+    def gen(seed):
+        return torch.Generator().manual_seed(seed)
+
+    def net(D, C, H, depth, seed, activation="silu", gain=1.0):
+        cfg = ScoreMLPConfig(n_dimensions=D, n_conditionals=C, units=(H,) * depth, activation=activation)
+        params = init_score_mlp(cfg, gen(seed), dev)
+        for layer in params["layers"][1:-1]:
+            layer["w"] = layer["w"] * gain
+        return cfg, params
+
+    def entry_counts():
+        """Launches since the last reset by kernel entry, the kernels line's
+        names; a run here launches each wrapper in one compute mode."""
+        out = {}
+        for fn in wrappers:
+            dtypes = [d for d, n in fn.launches_by_dtype.items() if n]
+            tag = "" if dtypes and dtypes[0] == "float32" else f",{dtypes[0]}" if dtypes else ""
+            out.update({f"{fn.__name__}[{mode}{tag}]": n for mode, n in fn.launches_by_mode.items() if n})
+        out.update({f"fused_em_sample[{d}]": n for d, n in em_sampler.fused_em_sample.launches_by_dtype.items() if n})
+        return out
+
+    def counted(fn):
+        """(fn(), launches by entry, seconds), the counts set to 0 just
+        before it; the launches join the path's counts."""
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = entry_counts()
+        for k, v in counts.items():
+            path_counts[k] = path_counts.get(k, 0) + v
+        return out, counts, secs
+
+    def median_ms(fn, n=3, warmup=1):
+        for _ in range(warmup):
+            fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(n):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b))
+        return statistics.median(times)
+
+    def bf16_bars(H, n_act):
+        """(mean bar, guard) of bfloat16 against its plain version: phase
+        15's mean within 1e-5 of the max and 10x closer to the plain
+        version than that is to strict float32, at H <= 256 and three
+        hidden widths.  The fp32 sums over H terms, in another order, move
+        more activations across a bf16 rounding boundary at wider H, and
+        the flips compound through the depth: the mean bar scales with the
+        depth (n_act / 3), and past H = 256 or three hidden widths the guard
+        is 2x (a kernel that skipped a rounding point sits at 1x; the
+        sketch's div measured 2.8-4x at the JAX gate's widths, a 24-width
+        net 9.4x, on the H100)."""
+        return 1e-5 * max(1.0, n_act / 3), (0.1 if H <= 256 and n_act <= 3 else 0.5)
+
+    def probes_of(mode, k, rows, D, seed):
+        """Rademacher Hutch++ (r, m) or sphere XTrace (m) probes."""
+        g = gen(seed)
+        if mode == "hutchpp":
+            return tuple(torch.sign(torch.randn(n, rows, D, generator=g)).to(dev) for n in k)
+        O = torch.randn(k, rows, D, generator=g)
+        return ((O / O.norm(dim=-1, keepdim=True) * D ** 0.5).to(dev),)
+
+    # -- (a) the new plan forms at today's widths, bitwise -------------------
+    rows_a, n_forced = 4_099, 0
+    for D, C, H in ((2, 0, 128), (6, 3, 256)):
+        cfg, params = net(D, C, H, 3, 1900 + D)
+        g = gen(1903 + D)
+        x_in = torch.randn(rows_a, D + C, generator=g).to(dev)
+        w_in, b_eff = fused_mlp._score_first_layer(params, cfg, t37, x_in[:, D:] if C else None)
+        for mode, n_tan in (("forward", 0), ("hutchinson", 0), ("exact", 0), ("tangents", 3)):
+            e = {"hutchinson": torch.sign(torch.randn(rows_a, D, generator=g)),
+                 "tangents": torch.randn(rows_a, n_tan * D, generator=g)}.get(mode)
+            e = None if e is None else e.to(dev)
+            n_t = {"forward": 0, "hutchinson": 1, "exact": D, "tangents": n_tan}[mode]
+            for dt in fused_mlp.COMPUTE_DTYPES:
+                def launch(**kw):
+                    return fused_mlp._launch(x_in, e, w_in, b_eff, params["layers"], c0c1, mode, D, "silu",
+                                             n_tan=n_tan, compute_dtype=dt, **kw)
+                forced = [dict(group=gr) for gr in sorted({1, n_t}) if n_t]
+                if dt == "highf32":
+                    forced += [dict(planes=False)] + ([dict(planes=False, group=1)] if n_t else [])
+                own = launch()
+                for kw in forced:
+                    out = launch(**kw)
+                    torch.cuda.synchronize()
+                    check(all(torch.equal(a, b) for a, b in zip(out, own) if a is not None),
+                          f"phase 19a: RHS D={D} H={H} {mode} {dt} forced {kw} differs from its own plan")
+                    n_forced += 1
+    for D, C, H, cases in ((2, 0, 128, (("hutchpp", 2, 1), ("xtrace", 2, 0))),
+                           (6, 3, 256, (("hutchpp", 3, 3), ("xtrace", 3, 0))),
+                           (16, 8, 128, (("hutchpp", 2, 1), ("xtrace", 2, 0)))):
+        cfg, params = net(D, C, H, 3, 1910 + D)
+        x_in = torch.randn(rows_a, D + C, generator=gen(1911)).to(dev)
+        w_in, b_eff = fused_mlp._score_first_layer(params, cfg, t37, x_in[:, D:] if C else None)
+        for mode, n_s, n_g in cases:
+            V = torch.cat(probes_of(mode, (n_s, n_g) if mode == "hutchpp" else n_s, rows_a, D, 1912))
+            kmax = fused_sketch._layout(mode, n_s, n_g)[0]
+            for dt in fused_sketch.SKETCH_DTYPES:
+                plans = [fused_sketch.sketch_plan(mode, H, 3, D + C, D, n_s, n_g, compute_dtype=dt, group=gr)
+                         for gr in (None, 1, kmax)]
+                outs = [fused_sketch._launch(x_in, V, w_in, b_eff, params["layers"], c0c1, mode, D, n_s, n_g, "silu",
+                                             plan, fused_sketch.fused_drift_sketch, dt) for plan in plans]
+                torch.cuda.synchronize()
+                for plan, out in zip(plans[1:], outs[1:]):
+                    check(torch.equal(out[0], outs[0][0]) and torch.equal(out[1], outs[0][1]),
+                          f"phase 19a: sketch D={D} {mode} {dt} group {plan[3]} differs from one group")
+                    n_forced += 1
+    emit("envelope_forced_plans", card=smi, rows=rows_a, launches_bitwise=n_forced)
+
+    # -- (b) the envelope table at the JAX gate's widths, vs plain -------------
+    table = [  # (case, D, C, H, mode, probes): three hidden widths, the JAX gate's widest H
+        ("hutchinson D2", 2, 0, 3072, "hutchinson", 0), ("hutchinson D16C8", 16, 8, 3072, "hutchinson", 0),
+        ("exact D2", 2, 0, 2432, "exact", 0), ("exact D6C3", 6, 3, 1280, "exact", 0),
+        ("exact D16", 16, 0, 640, "exact", 0), ("tangents K3 D2", 2, 0, 2048, "tangents", 3),
+        ("tangents K6 D6C3", 6, 3, 2048, "tangents", 6), ("hutchpp r2m1 D2", 2, 0, 2048, "hutchpp", (2, 1)),
+        ("hutchpp r2m1 D16C8", 16, 8, 2048, "hutchpp", (2, 1)), ("hutchpp r3m3 D6C3", 6, 3, 2048, "hutchpp", (3, 3)),
+        ("xtrace m2 D2", 2, 0, 2048, "xtrace", 2), ("xtrace m2 D16C8", 16, 8, 2048, "xtrace", 2),
+        ("xtrace m2 D64", 64, 0, 2048, "xtrace", 2), ("deep hutchinson", 2, 0, 128, "hutchinson", 0),
+    ]
+    timed = {"hutchinson D2", "exact D6C3", "tangents K6 D6C3", "hutchpp r2m1 D2", "xtrace m2 D64", "deep hutchinson"}
+    timing, errors = {}, {}
+    for case, D, C, H, mode, probes in table:
+        deep = case.startswith("deep")
+        depth = 24 if deep else 3
+        cfg, params = net(D, C, H, depth, 1920 + len(case), "tanh" if deep else "silu", DEEP_GAIN if deep else 1.0)
+        n_layers = depth + 1
+        for rows in ((B, N) if case in timed else (B,)):
+            g = gen(1930 + rows)
+            x = torch.randn(rows, D, generator=g).to(dev)
+            cond = torch.randn(rows, C, generator=g).to(dev) if C else None
+            if mode in ("hutchpp", "xtrace"):
+                pr = probes_of(mode, probes, rows, D, 1931)
+                n_s, n_g = probes if mode == "hutchpp" else (probes, 0)
+
+                def call(dt, ref=False, pr=pr, x=x, cond=cond, cfg=cfg, params=params):
+                    fn = fused_sketch.fused_drift_sketch_reference if ref else fused_sketch.fused_drift_sketch
+                    return fn(params, cfg, t37, x, pr, mode, cond, c0=-0.3, c1=0.9, compute_dtype=dt)
+
+                def plan_of(dt, n_s=n_s, n_g=n_g):
+                    return fused_sketch.sketch_plan(mode, H, depth, D + C, D, n_s, n_g, compute_dtype=dt)
+
+                occ_of = fused_sketch.sketch_occupancy
+                flop_args = (D + C, D, H, n_layers, mode, n_s, n_g)
+                io = rows * 4 * (D + C + (n_s + n_g) * D + D + 1)
+            elif mode == "tangents":
+                V = torch.randn(probes, rows, D, generator=g).to(dev)
+
+                def call(dt, ref=False, V=V, x=x, cond=cond, cfg=cfg, params=params):
+                    fn = fused_mlp.fused_drift_tangents_reference if ref else fused_mlp.fused_drift_tangents
+                    drift, cols = fn(params, cfg, t37, x, V, cond, c0=-0.3, c1=0.9, compute_dtype=dt)
+                    return drift, torch.stack(cols)
+
+                def plan_of(dt):
+                    return fused_mlp._plan(H, mode, D + C, D, probes, dt)
+
+                occ_of = fused_mlp.occupancy
+                flop_args = (D + C, D, H, n_layers, mode, probes)
+                io = rows * 4 * (D + C + 2 * probes * D + D)
+            else:
+                e = torch.sign(torch.randn(rows, D, generator=g)).to(dev) if mode == "hutchinson" else None
+
+                def call(dt, ref=False, e=e, x=x, cond=cond, cfg=cfg, params=params):
+                    fn = fused_mlp.fused_drift_reference if ref else fused_mlp.fused_drift
+                    return fn(params, cfg, t37, x, cond, e=e, exact_divergence=mode == "exact", c0=-0.3, c1=0.9,
+                              compute_dtype=dt)
+
+                def plan_of(dt):
+                    return fused_mlp._plan(H, mode, D + C, D, 0, dt)
+
+                occ_of = fused_mlp.occupancy
+                flop_args = (D + C, D, H, n_layers, mode)
+                io = rows * 4 * (D + C + (D if e is not None else 0) + D + 1)
+            strict = call("float32", ref=True) if rows == B else None
+            for dt in fused_mlp.COMPUTE_DTYPES:
+                plan = plan_of(dt)
+                if rows == N:
+                    wbytes = sum(l["w"].numel() * (2 if dt == "bfloat16" and i > 0 else 4) + 4 * l["b"].numel()
+                                 for i, l in enumerate(params["layers"]))
+                    if dt == "float32":
+                        t_ops = N * fused_mlp.flops_per_row(*flop_args) / PEAK_FP32_FLOPS * 1e3
+                    else:
+                        tc, cc = (fused_mlp.highf32_flops_per_row if dt == "highf32" else
+                                  fused_mlp.bf16_flops_per_row)(*flop_args)
+                        t_ops = N * ((3 * tc / PEAK_TF32_FLOPS if dt == "highf32" else tc / PEAK_BF16_FLOPS)
+                                     + cc / PEAK_FP32_FLOPS) * 1e3
+                    t_bytes = (io + wbytes) / PEAK_BYTES * 1e3
+                    # the launches at 4,096 rows warmed the instantiation: one run each
+                    timing[(case, dt)] = dict(ms=median_ms(lambda: call(dt), n=1, warmup=0),
+                                              plain_ms=median_ms(lambda: call(dt, True), n=1, warmup=0),
+                                              bound_ms=max(t_ops, t_bytes),
+                                              bound_by="operations" if t_ops >= t_bytes else "bytes")
+                    emit("envelope_kernel_time", case=case, rows=N, compute_dtype=dt, card=smi, plan=list(plan),
+                         **timing[(case, dt)])
+                    continue
+                out, ref = call(dt), call(dt, ref=True)
+                occ = occ_of(plan, dt)
+                check(all(bool(torch.isfinite(o).all()) for o in out) and occ["local_bytes"] == 0,
+                      f"phase 19b {case} {dt}: non-finite output or local memory {occ}")
+                rels = [rel_err(o, r) for o, r in zip(out, ref)]
+                means = [float((o - r).abs().mean() / r.abs().max()) for o, r in zip(out, ref)]
+                guard = [float((r - s).abs().mean() / r.abs().max()) for r, s in zip(ref, strict)]
+                if dt == "bfloat16":
+                    bar, factor = bf16_bars(H, depth)
+                    ok = all(m <= bar and m <= factor * gd and r_ <= 3e-2 for m, gd, r_ in zip(means, guard, rels))
+                elif mode in ("hutchpp", "xtrace"):
+                    d_div = (out[1] - ref[1]).abs()
+                    div_ok = (bool((d_div <= 5e-4 + 1e-4 * ref[1].abs()).all()) if D > 8 else
+                              float(d_div.max()) <= 2e-4) if dt == "float32" else rels[1] <= 5e-4
+                    ok = rels[0] <= (1e-5 if dt == "float32" else 5e-5) and div_ok
+                else:
+                    ok = rels[0] <= 1e-5 and (len(rels) < 2 or rels[1] <= (1e-4 if dt == "float32" else 5e-5))
+                    if mode == "tangents" and dt == "float32":
+                        ok = ok and rels[1] <= 1e-5
+                errors[(case, dt)] = max(float((o - r).abs().max()) for o, r in zip(out, ref))
+                emit("envelope_vs_plain", case=case, D=D, C=C, H=H, depth=depth, mode=mode, compute_dtype=dt, rows=B,
+                     plan=list(plan), wide=bool(plan[3] if mode in ("hutchpp", "xtrace") else
+                                                fused_mlp.plan_wide(plan, dt)),
+                     rel_max=rels, rel_mean=means, plain_vs_strict_mean=guard, registers=occ["registers"],
+                     local_bytes=occ["local_bytes"],
+                     blocks_per_sm=occ["blocks_per_sm"], card=smi)
+                check(ok, f"phase 19b {case} {dt}: kernel vs plain {rels} (mean {means}) past the bars")
+        del params
+        torch.cuda.empty_cache()
+
+    # -- (c) the path through the models ---------------------------------------
+    @contextlib.contextmanager
+    def plain_rhs(fn):
+        """The model's kernel RHS swapped for the wrapper's plain version on
+        the card, in the model's compute mode."""
+        saved = score_mod.fused_drift
+        score_mod.fused_drift = fn
+        try:
+            yield
+        finally:
+            score_mod.fused_drift = saved
+
+    opts = {"controller": "pi"}
+    deep_cfg, deep_params = net(2, 0, 128, 24, 1950, "tanh", DEEP_GAIN)
+    solves = {}
+    for label, D, C, H, sde, mode, kw, dt in (
+        ("exact 1280x3 D6C3", 6, 3, 1280, VPSDE(), "exact", {}, "float32"),
+        ("hutchinson 3072x3 highf32", 2, 0, 3072, VESDE(), "hutchinson", {}, "highf32"),
+        ("hutchpp r2m1 2048x3", 2, 0, 2048, VPSDE(), "hutchpp", dict(hpp_rank=2, hpp_vecs=1), "float32"),
+        ("deep hutchinson 128x24", 2, 0, 128, VESDE(), "hutchinson", {}, "float32"),
+    ):
+        cfg, params = (deep_cfg, deep_params) if label.startswith("deep") else net(D, C, H, 3, 1940 + H)
+        model = ScoreModel(params, cfg, sde, trace_mode=mode, kernel_compute_dtype=dt, **kw)
+        res = {}
+        for rows in ((B, N) if label.startswith("deep") else (B,)):
+            g = gen(1960 + rows)
+            x = 0.5 * torch.randn(rows, D, generator=g).to(dev)
+            cond = torch.randn(rows, C, generator=g).to(dev) if C else None
+            probes = None if mode == "exact" else trace_ops.make_probes(mode, g, x, **kw)
+
+            def solve(m=model, x=x, cond=cond, probes=probes):
+                return m.log_prob(x, conditional=cond, probes=probes, atol=1e-5, rtol=1e-5, options=opts)
+
+            (lp, st), counts, secs = counted(solve)
+            key = f"fused_drift[{mode}]" if mode != "hutchpp" else "fused_drift_sketch[hutchpp]"
+            key = key if dt == "float32" else key[:-1] + f",{dt}]"
+            check(st.succeeded and bool(torch.isfinite(lp).all()) and counts == {key: st.n_func_evals},
+                  f"phase 19c {label} at {rows}: launches {counts}, NFE {st.n_func_evals}, finite "
+                  f"{bool(torch.isfinite(lp).all())}")
+            res[rows] = dict(nfe=st.n_func_evals, launches=counts[key], seconds=secs, rows_per_s=rows / secs)
+            if rows == B:
+                if dt == "float32":
+                    plain_ctx = contextlib.nullcontext()
+                    plain_model = dataclasses.replace(model, use_fused_kernel=False)
+                else:
+                    plain_ctx = plain_rhs(fused_mlp.fused_drift_reference)
+                    plain_model = model
+                with plain_ctx:
+                    lp_p, st_p = solve(plain_model)
+                dlp = float((lp - lp_p).abs().mean())
+                res[rows].update(nfe_plain=st_p.n_func_evals, mean_abs_dlogp=dlp,
+                                 max_abs_dlogp=float((lp - lp_p).abs().max()))
+                check(st_p.n_func_evals == st.n_func_evals and dlp <= 1e-4,
+                      f"phase 19c {label}: NFE {st.n_func_evals} vs plain {st_p.n_func_evals}, mean |dlogp| {dlp:.2e}")
+        solves[label] = res
+        emit("envelope_log_prob", case=label, trace_mode=mode, compute_dtype=dt, card=smi,
+             **{f"rows_{r}": v for r, v in res.items()})
+        if not label.startswith("deep"):
+            del model, params
+            torch.cuda.empty_cache()
+
+    deep = ScoreModel(deep_params, deep_cfg, VESDE())
+    cuda_gen = torch.Generator(device=dev).manual_seed(1970)
+    em, em_counts, s_em = counted(lambda: deep.sample_sde_fused((N, 2), steps=EM_STEPS, generator=cuda_gen))
+    check(em_counts == {"fused_em_sample[float32]": 1} and bool(torch.isfinite(em.x_mean).all())
+          and not bool(em.nan_encountered), f"phase 19c: deep sample_sde_fused launches {em_counts}, finite "
+                                            f"{bool(torch.isfinite(em.x_mean).all())}")
+    g = gen(1971)
+    x0 = VESDE().prior_sample(g, (B, 2), dev)
+    z = torch.randn(20, B, 2, generator=g).to(dev)
+    got = em_sampler.fused_em_sample(deep_params, deep_cfg, VESDE(), x0, noise=z, steps=20)
+    want = em_sampler.fused_em_sample_reference(deep_params, deep_cfg, VESDE(), x0, z, steps=20)
+    em_err = max(float((a - b).abs().max()) for a, b in zip(got[:2], want[:2]))
+    check(all(bool(torch.allclose(a, b, rtol=2e-4, atol=1e-4)) for a, b in zip(got[:2], want[:2]))
+          and bool(got[2]) == bool(want[2]), f"phase 19c: the deep EM kernel vs plain, max |d| {em_err:.2e}")
+    emit("envelope_sampling", case="deep 128x24 tanh", rows=N, steps=EM_STEPS, card=smi, launches=em_counts,
+         seconds=s_em, samples_per_s=N / s_em, em_vs_plain_max_abs=em_err)
+
+    # past the new envelope: auto dispatch raises on the card
+    raised = []
+    for cfg_kw, model_kw, x_rows in ((dict(n_dimensions=16, units=(4096,) * 3), dict(trace_mode="exact"), 8),
+                                     (dict(n_dimensions=64, units=(128,) * 3), dict(trace_mode="xtrace", xt_vecs=37),
+                                      8)):
+        cfg = ScoreMLPConfig(**cfg_kw)
+        m = ScoreModel(init_score_mlp(cfg, gen(1980), dev), cfg, VESDE(), **model_kw)
+        try:
+            m.log_prob(torch.zeros(x_rows, cfg.n_dimensions, device=dev), generator=gen(1981))
+            raised.append("")
+        except ValueError as err:
+            raised.append(str(err))
+    check(all("use_fused_kernel=False" in r for r in raised), f"phase 19c: past the envelope did not raise: {raised}")
+    emit("envelope_refusals", card=smi, raised=[r[:120] for r in raised])
+    emit("envelope_path_launches", **path_counts)
+    emit("phase19", seconds=time.perf_counter() - t19, card=smi,
+         timing={f"{c}[{d}]": v for (c, d), v in timing.items()},
+         max_abs_err={f"{c}[{d}]": v for (c, d), v in errors.items()})
+    return path_counts
+
+
+def envelope_worker(d: str) -> int:
+    """Phase 19's process (``chip_smoke.py --envelope-worker DIR``, started
+    by the script): loads the kernels and starts its CUDA context, waits
+    for ``DIR/go``, runs :func:`envelope_phase` (its lines on the shared
+    stdout) and writes its launch counts to ``DIR/counts.json``."""
+    import torch
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("phase 19 worker: no CUDA card visible")
+    sys.path.insert(0, ROOT)
+    from flowfusion_torch.kernels import _build, em_sampler, fused_mlp, fused_sketch
+
+    from flowfusion_torch.models.nets import ScoreMLPConfig, init_score_mlp
+
+    dev = torch.device("cuda")
+    _build.build_all()  # built by the script's phase 0: finds the libraries only
+    # first use of the wrappers and their plain versions before the phase
+    cfg = ScoreMLPConfig(n_dimensions=2, units=(128,))
+    params = init_score_mlp(cfg, torch.Generator().manual_seed(0), dev)
+    x = torch.randn(8, 2, device=dev)
+    for dt in fused_mlp.COMPUTE_DTYPES:
+        for fn in (fused_sketch.fused_drift_sketch, fused_sketch.fused_drift_sketch_reference):
+            fn(params, cfg, 0.5, x, (torch.ones(2, 8, 2, device=dev),), "xtrace", compute_dtype=dt)
+        for fn in (fused_mlp.fused_drift, fused_mlp.fused_drift_reference):
+            fn(params, cfg, 0.5, x, e=x, compute_dtype=dt)
+    torch.cuda.synchronize()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    go = os.path.join(d, "go")
+    deadline = time.time() + 1_100
+    while not os.path.exists(go):
+        check(time.time() < deadline, "phase 19 worker: no go")
+        time.sleep(0.05)
+
+    def reset():
+        for mod in (fused_mlp, fused_sketch, em_sampler):
+            mod.reset_launch_counts()
+
+    _LAST_LINE[0] = time.perf_counter()
+    counts = envelope_phase(smi, dev, reset)
+    with open(os.path.join(d, "counts.json"), "w") as f:
+        json.dump(counts, f)
+    return 0
+
+
 def parallel_worker(rank: int, world: int, port: str, d: str) -> int:
     """One process of phase 17b (``chip_smoke.py --parallel-worker RANK
     WORLD PORT DIR``): its half of the rows on the card under
@@ -5804,12 +6283,15 @@ def cli() -> int:
     ap.add_argument("--parallel-worker", nargs=4, metavar=("RANK", "WORLD", "PORT", "DIR"),
                     help="one process of phase 17b (started by the script itself)")
     ap.add_argument("--popcosmos-worker", metavar="DIR", help="phase 18's process (started by the script itself)")
+    ap.add_argument("--envelope-worker", metavar="DIR", help="phase 19's process (started by the script itself)")
     args = ap.parse_args()
     if args.parallel_worker:
         rank, world, port, d = args.parallel_worker
         return parallel_worker(int(rank), int(world), port, d)
     if args.popcosmos_worker:
         return popcosmos_worker(args.popcosmos_worker)
+    if args.envelope_worker:
+        return envelope_worker(args.envelope_worker)
     try:
         return parent_ab(args.parent) if args.parent else main()
     finally:

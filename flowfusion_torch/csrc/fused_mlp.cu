@@ -92,7 +92,29 @@
 //     once a block a layer wherever M <= 64 (every plan the main path
 //     runs).  The planes are a third buffer, so these plans take half the
 //     float32 rows at three blocks, and the widest H a plan fits is about
-//     two thirds of float32's.
+//     two thirds of float32's.  Where the planes do not fit, the plan drops
+//     them (kPlanes false): the activation pass writes fp32 activations
+//     in place, as float32 does, and the product splits each A value as it
+//     loads the fragment, by the same cvt.rna hi and __fsub_rn remainder
+//     the pass writes to the planes, so its operands and outputs are the
+//     planes plan's bit for bit, at float32's footprint.
+//   - Chain groups: a pass carries the primal and up to `group` tangent
+//     chains through the layers and writes their output-layer columns,
+//     then the next pass takes the next group, the primal recomputed (so
+//     the footprint does not grow with depth, and no pass keeps act' of a
+//     layer); a tangents pass loads its group's probes only.  The plan
+//     (kernels/fused_mlp.py::_plan) takes every tangent chain in one pass
+//     wherever that fits, and groups only where it does not (exact and
+//     tangents at the widest nets).  A product row's sum reads no other row
+//     (every row one fmaf chain, or one mma.sync row), and the exact
+//     divergence is summed over d = 0 .. D-1 in order across the passes, so
+//     a row's outputs do not depend on the group.
+//   - The wide plans (grouped, or highf32 without its planes) fit one block
+//     of 4 rows an SM by their shared memory, so they launch instantiations
+//     of their own (kWide), bounded to one block an SM: the pass loop and
+//     the split on load then take what registers they need without
+//     spilling, and the plans that fit today launch today's
+//     instantiations, one pass and no loop.
 //   - bfloat16 products (mlp_tile.cuh dense_bf16): the activation pass writes one bf16
 //     plane of act(a) and of each tangent chain (rows H + 8 values apart,
 //     so a warp's A-fragment words fall on 32 distinct banks), which the
@@ -224,7 +246,9 @@ __device__ void dense_rows(const float* __restrict__ w, const float* __restrict_
 
 // highf32: nxt[m] = A[m] @ w (+ bias on rows m < R) through 3xTF32
 // mma.sync m16n8k8, A given as its TF32 hi and lo planes (stride S), so no
-// A value is split here.  A warp owns NT = kNTiles n-tiles (8 columns each)
+// A value is split here; with kSplit, A is the fp32 activations at `hi`
+// (lo unused), each value split as the fragment is loaded, into the halves
+// the planes would hold.  A warp owns NT = kNTiles n-tiles (8 columns each)
 // across up to MT = 8 / NT m-tiles (16 rows each; every m-tile of the block
 // where M <= 16 MT): per k-step of 8 it loads and splits its NT weight fragments
 // once and issues lo.hi, hi.lo, hi.hi into each of its MT x NT
@@ -232,6 +256,7 @@ __device__ void dense_rows(const float* __restrict__ w, const float* __restrict_
 // dense_tf32x3), so every output is bitwise that form's.  Fragment layout
 // as there (g = lane / 4, t = lane % 4); rows past M read row M - 1 and
 // store nothing.  K and N are multiples of 8.
+template <bool kSplit>
 __device__ void dense_planes(const float* __restrict__ w, const float* __restrict__ bias, const float* hi,
                              const float* lo, float* nxt, int K, int N, int M, int R, int S) {
   constexpr int NT = kNTiles;
@@ -270,10 +295,24 @@ __device__ void dense_planes(const float* __restrict__ w, const float* __restric
         if (mt0 + a >= m_tiles) break;  // warp-uniform
         const int r0 = min((mt0 + a) * 16 + g, M - 1) * S + k + t;
         const int r1 = min((mt0 + a) * 16 + g + 8, M - 1) * S + k + t;
-        const unsigned ahi[4] = {__float_as_uint(hi[r0]), __float_as_uint(hi[r1]), __float_as_uint(hi[r0 + 4]),
-                                 __float_as_uint(hi[r1 + 4])};
-        const unsigned alo[4] = {__float_as_uint(lo[r0]), __float_as_uint(lo[r1]), __float_as_uint(lo[r0 + 4]),
-                                 __float_as_uint(lo[r1 + 4])};
+        unsigned ahi[4], alo[4];
+        if constexpr (kSplit) {
+          const float av[4] = {hi[r0], hi[r1], hi[r0 + 4], hi[r1 + 4]};
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            float h, l;
+            split_tf32(av[i], h, l);
+            ahi[i] = __float_as_uint(h);
+            alo[i] = __float_as_uint(l);
+          }
+        } else {
+          const int o[4] = {r0, r1, r0 + 4, r1 + 4};
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            ahi[i] = __float_as_uint(hi[o[i]]);
+            alo[i] = __float_as_uint(lo[o[i]]);
+          }
+        }
 #pragma unroll
         for (int j = 0; j < NT; ++j) {
           if (nt0 + j >= n_tiles) break;  // warp-uniform
@@ -316,9 +355,10 @@ __device__ void dense_planes(const float* __restrict__ w, const float* __restric
 // out[m, j] = cur[m] @ w[:, j] (+ bias[j] on the primal rows m < R) for the
 // narrow (K, N = D) output layer, one thread an output of the M x N: in
 // float32 one fmaf chain over k from 0; in highf32 the split in FMAs
-// (fma_tf32x3's arithmetic), A's halves read from the planes (bfloat16 has
-// dense_out_bf16).  `out` is compact, (M, N).
-template <int P>
+// (fma_tf32x3's arithmetic), A's halves read from the planes, or with
+// kSplit split from the fp32 activations at `a` as they are read
+// (bfloat16 has dense_out_bf16).  `out` is compact, (M, N).
+template <int P, bool kSplit = false>
 __device__ void dense_out(const float* __restrict__ w, const float* __restrict__ bias, const float* a,
                           const float* a_lo, float* out, int K, int N, int M, int R, int S) {
   for (int it = threadIdx.x; it < M * N; it += kThreads) {
@@ -326,7 +366,15 @@ __device__ void dense_out(const float* __restrict__ w, const float* __restrict__
     const int j = it - m * N;
     const float* in = a + (size_t)m * S;
     float acc = 0.0f;
-    if constexpr (P == kHighF32) {
+    if constexpr (P == kHighF32 && kSplit) {
+#pragma unroll 8
+      for (int k = 0; k < K; ++k) {
+        float ah, al, bh, bl;
+        split_tf32(in[k], ah, al);
+        split_tf32(__ldg(w + (size_t)k * N + j), bh, bl);
+        acc = fmaf(ah, bh, fmaf(ah, bl, fmaf(al, bh, acc)));
+      }
+    } else if constexpr (P == kHighF32) {
       const float* in_lo = a_lo + (size_t)m * S;
 #pragma unroll 8
       for (int k = 0; k < K; ++k) {
@@ -348,16 +396,18 @@ __device__ void dense_out(const float* __restrict__ w, const float* __restrict__
 }
 
 // Pre-activation of cell (r, j) of chain c in the input layer: the primal
-// chain projects [x | cond] and adds b_eff; a probe (Hutchinson, or tangent
-// k) has no conditional components and projects through rows 0..D-1 only;
-// the exact basis tangent e_d is row d of w_in.  In bfloat16 w_in holds
-// bf16 values (the wrapper rounds it) and an input of more than kRank1Max
+// chain (c = 0) projects [x | cond] and adds b_eff; tangent chain c of a
+// pass is tangent t0 + c - 1 of the row: a probe (Hutchinson, or tangent k;
+// the pass's probes at es, pws values a row) has no conditional components
+// and projects through rows 0..D-1 only; the exact basis tangent e_d is row
+// d of w_in.  In bfloat16 w_in holds bf16
+// values (the wrapper rounds it) and an input of more than kRank1Max
 // features is rounded too, as the JAX kernel's in_proj_rows projects it
 // through its bf16 product.
 template <int P>
-__device__ __forceinline__ float input_cell(int c, int r, int j, int mode, const float* xs, const float* es,
+__device__ __forceinline__ float input_cell(int c, int t0, int r, int j, int mode, const float* xs, const float* es,
                                             const float* __restrict__ w_in, const float* __restrict__ b_eff,
-                                            int d_in, int d_out, int pw, int H) {
+                                            int d_in, int d_out, int pws, int H) {
   float v = 0.0f;
   if (c == 0) {
     if (P == kHighF32 && d_in > kRank1Max) {
@@ -369,7 +419,7 @@ __device__ __forceinline__ float input_cell(int c, int r, int j, int mode, const
     }
     v += __ldg(b_eff + j);
   } else if (mode == kHutchinson || mode == kTangents) {
-    const float* p = es + r * pw + (c - 1) * d_out;  // c - 1 = 0 in hutchinson
+    const float* p = es + r * pws + (c - 1) * d_out;
     if (P == kHighF32 && d_out > kRank1Max) {
       for (int k = 0; k < d_out; ++k) v = fma_tf32x3(p[k], __ldg(w_in + k * H + j), v);
     } else if (P == kBFloat16 && d_out > kRank1Max) {
@@ -378,7 +428,7 @@ __device__ __forceinline__ float input_cell(int c, int r, int j, int mode, const
       for (int k = 0; k < d_out; ++k) v = fmaf(p[k], __ldg(w_in + k * H + j), v);
     }
   } else {
-    v = __ldg(w_in + (c - 1) * H + j);
+    v = __ldg(w_in + (t0 + c - 1) * H + j);
   }
   return v;
 }
@@ -394,13 +444,19 @@ __device__ __forceinline__ void act_cell(int act, float a, float& h, float& dh) 
   }
 }
 
-// Store an activation value at o: float32 in cur, highf32 as its TF32 hi
-// and lo halves in the planes, bfloat16 rounded into the bf16 plane (at hi).
-template <int P>
+// Where the activation pass writes an activation value: fp32 in place in
+// the pre-activation buffer (float32, and highf32 without its planes), its
+// TF32 hi and lo halves in the planes (highf32), or rounded into the bf16
+// plane (bfloat16).
+enum Store { kFp32 = 0, kTF32Planes = 1, kBF16Plane = 2 };
+
+// Store an activation value at o: in cur, as hi and lo halves, or rounded
+// into the bf16 plane (at hi), by the store kind ST.
+template <int ST>
 __device__ __forceinline__ void store_act(float v, float* cur, float* hi, float* lo, int o) {
-  if constexpr (P == kHighF32) {
+  if constexpr (ST == kTF32Planes) {
     split_tf32(v, hi[o], lo[o]);
-  } else if constexpr (P == kBFloat16) {
+  } else if constexpr (ST == kBF16Plane) {
     reinterpret_cast<__nv_bfloat16*>(hi)[o] = __float2bfloat16_rn(v);
   } else {
     cur[o] = v;
@@ -411,7 +467,7 @@ __device__ __forceinline__ void store_act(float v, float* cur, float* hi, float*
 // their pre-activations in cur: act(a) on the primal chain, each tangent
 // chain times act'(a), stored by store_act.  Every value of a chain is
 // loaded before it is stored, so the two cells' latencies overlap.
-template <int P>
+template <int P, int ST>
 __device__ __forceinline__ void activate_cells(int act, float* cur, float* hi, float* lo, int o1, int o2,
                                                int chains, int rs) {
   float h1, d1, h2, d2;
@@ -419,228 +475,276 @@ __device__ __forceinline__ void activate_cells(int act, float* cur, float* hi, f
   act_cell<P>(act, cur[o2], h2, d2);
   for (int c = 1; c < chains; ++c) {
     const float t1 = cur[c * rs + o1], t2 = cur[c * rs + o2];
-    store_act<P>(__fmul_rn(t1, d1), cur, hi, lo, c * rs + o1);
-    store_act<P>(__fmul_rn(t2, d2), cur, hi, lo, c * rs + o2);
+    store_act<ST>(__fmul_rn(t1, d1), cur, hi, lo, c * rs + o1);
+    store_act<ST>(__fmul_rn(t2, d2), cur, hi, lo, c * rs + o2);
   }
-  store_act<P>(h1, cur, hi, lo, o1);
-  store_act<P>(h2, cur, hi, lo, o2);
+  store_act<ST>(h1, cur, hi, lo, o1);
+  store_act<ST>(h2, cur, hi, lo, o2);
 }
 
 // div: (B,) in modes hutchinson and exact; in mode tangents the (n_tan, B,
 // d_out) columns J v_k.  e: (B, d_out) in mode hutchinson, (B, n_tan, d_out)
-// in mode tangents.
-template <int P>
-__global__ void __launch_bounds__(kThreads, kMinBlocks)
+// in mode tangents.  `group`: the tangent chains a pass carries, 0 for all
+// of them in one pass (the only form of the instantiations that are not
+// kWide); the passes take the tangents in order, group by group, and a
+// tangents pass loads its group's probes.
+template <int P, bool kPlanes, bool kWide>
+__global__ void __launch_bounds__(kThreads, kWide ? 1 : kMinBlocks)
 fused_mlp_kernel(const float* __restrict__ x, const float* __restrict__ e,
                  const float* __restrict__ w_in, const float* __restrict__ b_eff,
                  HiddenLayers hidden, int n_hidden,
                  const float* __restrict__ w_out, const float* __restrict__ b_out,
                  const float* __restrict__ c0c1, float* __restrict__ drift,
                  float* __restrict__ div, int B, int d_in, int d_out, int H,
-                 int mode, int act, int n_tan, int R) {
+                 int mode, int act, int n_tan, int R, int group) {
+  constexpr int ST = P == kBFloat16 ? kBF16Plane : (P == kHighF32 && kPlanes) ? kTF32Planes : kFp32;
+  // float32 and highf32 without planes: the products read cur and write
+  // nxt, the buffers swap, and the activation pass works in place
+  constexpr bool kSwap = ST == kFp32;
   extern __shared__ __align__(16) float smem[];
-  const int chains = mode == kForward ? 1
-                     : mode == kHutchinson ? 2
-                     : mode == kExact ? 1 + d_out : 1 + n_tan;
+  const int n_t = mode == kForward ? 0 : mode == kHutchinson ? 1 : mode == kExact ? d_out : n_tan;  // tangents
+  const int gsize = group > 0 ? group : n_t;                   // tangent chains a pass carries
   const int pw = mode == kTangents ? n_tan * d_out : d_out;  // probe values a row
+  const int pws = mode == kTangents ? gsize * d_out : d_out;   // the probe tile's, a pass's
   const int S = H + (P == kBFloat16 ? kPadBF16 : kPad);
-  const int M = chains * R;
+  const int M_max = (1 + gsize) * R;  // the widest pass's rows
   const int rs = R * S;
-  // float32: cur and nxt, the double buffer of pre-activations and
-  // activations; highf32: the pre-activations and the TF32 hi and lo planes
-  // of the activations; bfloat16: the pre-activations and (at nxt) the bf16
-  // plane of the activations, M S values of 2 bytes.  M rows of stride S
-  // each.
-  float* cur = smem;
-  float* nxt = smem + M * S;
-  float* lo = smem + 2 * M * S;  // highf32 only
-  float* xs = smem + (P == kHighF32 ? 3 * M * S : P == kBFloat16 ? M * S + M * S / 2 : 2 * M * S);  // (R, d_in) input tile
-  float* es = xs + R * d_in;                // (R, pw) probe tile
+  // float32 and highf32 without planes: cur and nxt, the double buffer of
+  // pre-activations and activations; highf32: the pre-activations and the
+  // TF32 hi and lo planes of the activations; bfloat16: the pre-activations
+  // and (at nxt) the bf16 plane of the activations, M S values of 2 bytes.
+  // M_max rows of stride S each.
+  float* const buf0 = smem;
+  float* const buf1 = smem + M_max * S;
+  float* lo = smem + 2 * M_max * S;  // highf32 with planes only
+  // (R, d_in) input tile
+  float* xs = smem + (ST == kTF32Planes ? 3 * M_max * S : P == kBFloat16 ? M_max * S + M_max * S / 2 : 2 * M_max * S);
+  float* es = xs + R * d_in;                // (R, pws) probe tile
   const int row0 = blockIdx.x * R;
 
   // Rows past B (the ragged last tile) compute on zeros and are not stored.
   for (int i = threadIdx.x; i < R * d_in; i += kThreads) {
     xs[i] = (size_t)row0 * d_in + i < (size_t)B * d_in ? x[(size_t)row0 * d_in + i] : 0.0f;
   }
-  if (mode == kHutchinson || mode == kTangents) {
-    for (int i = threadIdx.x; i < R * pw; i += kThreads) {
-      es[i] = (size_t)row0 * pw + i < (size_t)B * pw ? e[(size_t)row0 * pw + i] : 0.0f;
-    }
-  }
-  __syncthreads();
-
-  // Input layer and its activation, two cells (r, j) a thread at a time,
-  // every chain of a cell, in registers: act(a) of the primal, each tangent
-  // chain's projection times act'(a).
-  for (GridWalk gw(H); gw.r < R;) {
-    const int r1 = gw.r, j1 = gw.j;
-    gw.next();
-    const bool two = gw.r < R;  // else the second cell repeats the first
-    const int r2 = two ? gw.r : r1, j2 = two ? gw.j : j1;
-    gw.next();
-    const int o1 = r1 * S + j1, o2 = r2 * S + j2;
-    const float a1 = input_cell<P>(0, r1, j1, mode, xs, es, w_in, b_eff, d_in, d_out, pw, H);
-    const float a2 = input_cell<P>(0, r2, j2, mode, xs, es, w_in, b_eff, d_in, d_out, pw, H);
-    float h1, d1, h2, d2;
-    act_cell<P>(act, a1, h1, d1);
-    act_cell<P>(act, a2, h2, d2);
-    for (int c = 1; c < chains; ++c) {
-      const float t1 = input_cell<P>(c, r1, j1, mode, xs, es, w_in, b_eff, d_in, d_out, pw, H);
-      const float t2 = input_cell<P>(c, r2, j2, mode, xs, es, w_in, b_eff, d_in, d_out, pw, H);
-      store_act<P>(__fmul_rn(t1, d1), cur, nxt, lo, c * rs + o1);
-      store_act<P>(__fmul_rn(t2, d2), cur, nxt, lo, c * rs + o2);
-    }
-    store_act<P>(h1, cur, nxt, lo, o1);
-    store_act<P>(h2, cur, nxt, lo, o2);
-  }
-  __syncthreads();
-
-  // Each hidden layer: the product into the next pre-activations, then the
-  // activation pass.  highf32's products read the activations' TF32 hi and
-  // lo planes (nxt and lo) and write cur, bfloat16's the bf16 plane (at
-  // nxt, the weights bf16 (out, in)); float32 products read cur and write
-  // nxt, and the pass works in place.
-  for (int l = 0; l < n_hidden; ++l) {
-    if constexpr (P == kHighF32) {
-      dense_planes(hidden.w[l], hidden.b[l], nxt, lo, cur, H, H, M, R, S);
-    } else if constexpr (P == kBFloat16) {
-      dense_bf16(reinterpret_cast<const __nv_bfloat16*>(hidden.w[l]), hidden.b[l],
-                 reinterpret_cast<const __nv_bfloat16*>(nxt), cur, H, H, M, R, S);
-    } else {
-      dense_rows(hidden.w[l], hidden.b[l], cur, nxt, H, H, M, R, S);
-      float* tmp = cur;
-      cur = nxt;
-      nxt = tmp;
-    }
-    __syncthreads();
-    for (GridWalk gw(H); gw.r < R;) {
-      const int o1 = gw.r * S + gw.j;
-      gw.next();
-      const int o2 = gw.r < R ? gw.r * S + gw.j : o1;
-      gw.next();
-      activate_cells<P>(act, cur, nxt, lo, o1, o2, chains, rs);
-    }
-    __syncthreads();
-  }
-  // The output layer into a compact (M, d_out) tile over the buffer the
-  // last product read (float32) or the pre-activations (highf32, bfloat16;
-  // bfloat16's w_out bf16 (H, D)).
-  float* net = P != kFloat32 ? cur : nxt;
-  if constexpr (P == kHighF32) {
-    dense_out<kHighF32>(w_out, b_out, nxt, lo, net, H, d_out, M, R, S);
-  } else if constexpr (P == kBFloat16) {
-    dense_out_bf16(reinterpret_cast<const __nv_bfloat16*>(w_out), b_out,
-                   reinterpret_cast<const __nv_bfloat16*>(nxt), net, H, d_out, M, R, S);
-  } else {
-    dense_out<kFloat32>(w_out, b_out, cur, nullptr, net, H, d_out, M, R, S);
-  }
-  __syncthreads();
 
   const float c0 = c0c1[0];
   const float c1 = c0c1[1];
-  for (int r = threadIdx.x; r < R; r += kThreads) {
-    const int row = row0 + r;
-    if (row >= B) break;
-    const float* y = net + r * d_out;
-    for (int d = 0; d < d_out; ++d)
-      drift[(size_t)row * d_out + d] = c0 * xs[r * d_in + d] + c1 * y[d];
-    if (mode == kHutchinson) {
-      const float* je = net + (R + r) * d_out;
-      float acc = 0.0f, ee = 0.0f;
-      for (int d = 0; d < d_out; ++d) {
-        const float ed = es[r * d_out + d];
-        acc += je[d] * ed;
-        ee += ed * ed;
-      }
-      // e^T (c0 I + c1 J_net) e: the c0 term is c0 |e|^2, not c0 D
-      div[row] = c0 * ee + c1 * acc;
-    } else if (mode == kExact) {
-      float acc = 0.0f;
-      for (int d = 0; d < d_out; ++d) acc += net[((1 + d) * R + r) * d_out + d];
-      div[row] = c0 * (float)d_out + c1 * acc;
-    } else if (mode == kTangents) {
-      for (int k = 0; k < n_tan; ++k) {
-        const float* v = es + r * pw + k * d_out;
-        const float* jv = net + ((1 + k) * R + r) * d_out;
-        float* out = div + ((size_t)k * B + row) * d_out;
-        for (int d = 0; d < d_out; ++d) out[d] = c0 * v[d] + c1 * jv[d];
+  // the exact divergence's sum of a row (this thread's, r = threadIdx.x <
+  // R), over d = 0 .. D-1 in order across the passes
+  float exact_sum = 0.0f;
+  const int passes = kWide && n_t > 0 ? (n_t + gsize - 1) / gsize : 1;
+  for (int pass = 0; pass < passes; ++pass) {
+    const int t0 = pass * gsize;              // the pass's first tangent
+    const int chains = 1 + min(gsize, n_t - t0);
+    const int M = chains * R;
+    float* cur = buf0;
+    float* nxt = buf1;
+    if (mode == kHutchinson || mode == kTangents) {
+      // the pass's probes, tangents t0 .. t0 + chains - 2 of each row
+      const int gw = (chains - 1) * d_out;
+      for (int i = threadIdx.x; i < R * gw; i += kThreads) {
+        const int r = i / gw;
+        const int q = i - r * gw;
+        es[r * pws + q] = row0 + r < B ? e[(size_t)(row0 + r) * pw + t0 * d_out + q] : 0.0f;
       }
     }
+    __syncthreads();
+
+    // Input layer and its activation, two cells (r, j) a thread at a time,
+    // every chain of a cell, in registers: act(a) of the primal, each
+    // tangent chain's projection times act'(a).
+    for (GridWalk gw(H); gw.r < R;) {
+      const int r1 = gw.r, j1 = gw.j;
+      gw.next();
+      const bool two = gw.r < R;  // else the second cell repeats the first
+      const int r2 = two ? gw.r : r1, j2 = two ? gw.j : j1;
+      gw.next();
+      const int o1 = r1 * S + j1, o2 = r2 * S + j2;
+      const float a1 = input_cell<P>(0, t0, r1, j1, mode, xs, es, w_in, b_eff, d_in, d_out, pws, H);
+      const float a2 = input_cell<P>(0, t0, r2, j2, mode, xs, es, w_in, b_eff, d_in, d_out, pws, H);
+      float h1, d1, h2, d2;
+      act_cell<P>(act, a1, h1, d1);
+      act_cell<P>(act, a2, h2, d2);
+      for (int c = 1; c < chains; ++c) {
+        const float t1 = input_cell<P>(c, t0, r1, j1, mode, xs, es, w_in, b_eff, d_in, d_out, pws, H);
+        const float t2 = input_cell<P>(c, t0, r2, j2, mode, xs, es, w_in, b_eff, d_in, d_out, pws, H);
+        store_act<ST>(__fmul_rn(t1, d1), cur, nxt, lo, c * rs + o1);
+        store_act<ST>(__fmul_rn(t2, d2), cur, nxt, lo, c * rs + o2);
+      }
+      store_act<ST>(h1, cur, nxt, lo, o1);
+      store_act<ST>(h2, cur, nxt, lo, o2);
+    }
+    __syncthreads();
+
+    // Each hidden layer: the product into the next pre-activations, then
+    // the activation pass.  highf32's products read the activations' TF32
+    // hi and lo planes (nxt and lo) and write cur, bfloat16's the bf16
+    // plane (at nxt, the weights bf16 (out, in)); float32 products, and
+    // highf32's without planes (splitting as they load), read cur and write
+    // nxt, and the pass works in place.
+    for (int l = 0; l < n_hidden; ++l) {
+      if constexpr (ST == kTF32Planes) {
+        dense_planes<false>(hidden.w[l], hidden.b[l], nxt, lo, cur, H, H, M, R, S);
+      } else if constexpr (P == kBFloat16) {
+        dense_bf16(reinterpret_cast<const __nv_bfloat16*>(hidden.w[l]), hidden.b[l],
+                   reinterpret_cast<const __nv_bfloat16*>(nxt), cur, H, H, M, R, S);
+      } else {
+        if constexpr (P == kHighF32) {
+          dense_planes<true>(hidden.w[l], hidden.b[l], cur, nullptr, nxt, H, H, M, R, S);
+        } else {
+          dense_rows(hidden.w[l], hidden.b[l], cur, nxt, H, H, M, R, S);
+        }
+        float* tmp = cur;
+        cur = nxt;
+        nxt = tmp;
+      }
+      __syncthreads();
+      for (GridWalk gw(H); gw.r < R;) {
+        const int o1 = gw.r * S + gw.j;
+        gw.next();
+        const int o2 = gw.r < R ? gw.r * S + gw.j : o1;
+        gw.next();
+        activate_cells<P, ST>(act, cur, nxt, lo, o1, o2, chains, rs);
+      }
+      __syncthreads();
+    }
+    // The output layer into a compact (M, d_out) tile over the buffer the
+    // last product read (float32, highf32 without planes) or the
+    // pre-activations (highf32, bfloat16; bfloat16's w_out bf16 (H, D)).
+    float* net = kSwap ? nxt : cur;
+    if constexpr (ST == kTF32Planes) {
+      dense_out<kHighF32>(w_out, b_out, nxt, lo, net, H, d_out, M, R, S);
+    } else if constexpr (P == kBFloat16) {
+      dense_out_bf16(reinterpret_cast<const __nv_bfloat16*>(w_out), b_out,
+                     reinterpret_cast<const __nv_bfloat16*>(nxt), net, H, d_out, M, R, S);
+    } else {
+      dense_out<P, true>(w_out, b_out, cur, nullptr, net, H, d_out, M, R, S);
+    }
+    __syncthreads();
+
+    for (int r = threadIdx.x; r < R; r += kThreads) {
+      const int row = row0 + r;
+      if (row >= B) break;
+      if (pass == 0) {
+        const float* y = net + r * d_out;
+        for (int d = 0; d < d_out; ++d)
+          drift[(size_t)row * d_out + d] = c0 * xs[r * d_in + d] + c1 * y[d];
+      }
+      if (mode == kHutchinson) {
+        const float* je = net + (R + r) * d_out;
+        float acc = 0.0f, ee = 0.0f;
+        for (int d = 0; d < d_out; ++d) {
+          const float ed = es[r * d_out + d];
+          acc += je[d] * ed;
+          ee += ed * ed;
+        }
+        // e^T (c0 I + c1 J_net) e: the c0 term is c0 |e|^2, not c0 D
+        div[row] = c0 * ee + c1 * acc;
+      } else if (mode == kExact) {
+        for (int d = t0; d < t0 + chains - 1; ++d) exact_sum += net[((1 + d - t0) * R + r) * d_out + d];
+        if (pass == passes - 1) div[row] = c0 * (float)d_out + c1 * exact_sum;
+      } else if (mode == kTangents) {
+        for (int k = t0; k < t0 + chains - 1; ++k) {
+          const float* v = es + r * pws + (k - t0) * d_out;
+          const float* jv = net + ((1 + k - t0) * R + r) * d_out;
+          float* out = div + ((size_t)k * B + row) * d_out;
+          for (int d = 0; d < d_out; ++d) out[d] = c0 * v[d] + c1 * jv[d];
+        }
+      }
+    }
+    __syncthreads();  // the next pass writes the buffers this one read
   }
 }
 
-template <int P>
+template <int P, bool kPlanes, bool kWide>
 cudaError_t launch(const float* x, const float* e, const float* w_in, const float* b_eff,
                    const HiddenLayers& hidden, int n_hidden, const float* w_out,
                    const float* b_out, const float* c0c1, float* drift, float* div, int B,
-                   int d_in, int d_out, int H, int mode, int act, int n_tan, int rows,
+                   int d_in, int d_out, int H, int mode, int act, int n_tan, int rows, int group,
                    size_t smem, cudaStream_t stream) {
-  const cudaError_t st = allow_smem(fused_mlp_kernel<P>, smem);
+  const cudaError_t st = allow_smem(fused_mlp_kernel<P, kPlanes, kWide>, smem);
   if (st != cudaSuccess) return st;
   const int grid = (B + rows - 1) / rows;
-  fused_mlp_kernel<P><<<grid, kThreads, smem, stream>>>(
+  fused_mlp_kernel<P, kPlanes, kWide><<<grid, kThreads, smem, stream>>>(
       x, e, w_in, b_eff, hidden, n_hidden, w_out, b_out, c0c1, drift, div, B, d_in,
-      d_out, H, mode, act, n_tan, rows);
+      d_out, H, mode, act, n_tan, rows, group);
   return cudaGetLastError();
 }
 
 // Resident blocks an SM of an instantiation at `smem` bytes, and its
 // registers and local memory a thread.
-template <int P>
+template <int P, bool kPlanes, bool kWide>
 cudaError_t query(size_t smem, int* blocks, int* regs, int* local_bytes) {
-  cudaError_t st = allow_smem(fused_mlp_kernel<P>, smem);
+  cudaError_t st = allow_smem(fused_mlp_kernel<P, kPlanes, kWide>, smem);
   if (st != cudaSuccess) return st;
-  st = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, fused_mlp_kernel<P>, kThreads, smem);
+  st = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, fused_mlp_kernel<P, kPlanes, kWide>, kThreads, smem);
   if (st != cudaSuccess) return st;
   cudaFuncAttributes attr;
-  st = cudaFuncGetAttributes(&attr, fused_mlp_kernel<P>);
+  st = cudaFuncGetAttributes(&attr, fused_mlp_kernel<P, kPlanes, kWide>);
   *regs = attr.numRegs;
   *local_bytes = (int)attr.localSizeBytes;
   return st;
 }
+
+using LaunchFn = cudaError_t (*)(const float*, const float*, const float*, const float*, const HiddenLayers&, int,
+                                 const float*, const float*, const float*, float*, float*, int, int, int, int, int,
+                                 int, int, int, int, size_t, cudaStream_t);
+using QueryFn = cudaError_t (*)(size_t, int*, int*, int*);
+
+// The instantiations by (precision, planes, wide): float32, highf32 with
+// its planes and bfloat16 at one pass of every chain, three blocks an SM,
+// and each of them wide; highf32 without planes, wide only.  A plan is wide
+// where it groups the tangent chains (group > 0) or drops the planes.
+int instance(int precision, int planes, int group) {
+  const bool wide = group > 0 || (precision == kHighF32 && !planes);
+  if (precision == kHighF32) return planes ? (wide ? 3 : 2) : 4;
+  return (precision == kFloat32 ? 0 : 5) + (wide ? 1 : 0);
+}
+
+constexpr LaunchFn kLaunch[7] = {launch<kFloat32, false, false>, launch<kFloat32, false, true>,
+                                 launch<kHighF32, true, false>,  launch<kHighF32, true, true>,
+                                 launch<kHighF32, false, true>,  launch<kBFloat16, false, false>,
+                                 launch<kBFloat16, false, true>};
+constexpr QueryFn kQuery[7] = {query<kFloat32, false, false>, query<kFloat32, false, true>,
+                               query<kHighF32, true, false>,  query<kHighF32, true, true>,
+                               query<kHighF32, false, true>,  query<kBFloat16, false, false>,
+                               query<kBFloat16, false, true>};
 
 }  // namespace
 
 extern "C" {
 
 // Launch on `stream`; returns the cudaError_t of the launch (0 on success).
-// w_hidden/b_hidden are host arrays of n_hidden device pointers, each weight
-// 16-byte aligned.  `precision` is the compute mode: 0 float32, 1 highf32,
-// 2 bfloat16; in bfloat16 w_in holds bf16-rounded floats, each hidden weight
-// is bf16 of shape (H_out, H_in) (transposed) and w_out bf16 (H, d_out).
-// `rows` must be a multiple of 4 and H of 4, of 8 in highf32, of 16 in
-// bfloat16 (the Python wrapper checks all of them).  `n_tan` is the probe
-// count of mode tangents (ignored otherwise).  `smem` is the block's shared
-// memory in bytes, computed by the wrapper for the layout the kernel uses:
-// 2 (float32) or 3 (highf32) x chains x rows x (H + 4) floats, or in
-// bfloat16 chains x rows x (H + 8) floats and as many bf16 values, then
-// rows x (d_in + d_out max(1, n_tan)) floats.
+// `layers` is the layer table in device memory: n_hidden weight pointers,
+// then n_hidden bias pointers, each weight 16-byte aligned.  `precision` is
+// the compute mode: 0 float32, 1 highf32, 2 bfloat16; in bfloat16 w_in holds
+// bf16-rounded floats, each hidden weight is bf16 of shape (H_out, H_in)
+// (transposed) and w_out bf16 (H, d_out).  `rows` must be a multiple of 4
+// and H of 4, of 8 in highf32, of 16 in bfloat16 (the Python wrapper checks
+// all of them).  `n_tan` is the probe count of mode tangents (ignored
+// otherwise).  `group` is the tangent chains a pass carries, 0 for every
+// one in a single pass (always 0 in mode forward), `planes` whether highf32
+// keeps its TF32 hi and lo planes (0 in the other modes).  `smem` is the
+// block's shared memory in bytes, computed by the wrapper
+// (kernels/fused_mlp.py::_smem_bytes) for the layout the kernel uses, with
+// chains = 1 + the tangents a pass carries: 2 (float32, highf32 without planes) or 3 (highf32)
+// x chains x rows x (H + 4) floats, or in bfloat16 chains x rows x (H + 8)
+// floats and as many bf16 values, then rows x (d_in + d_out) floats, or in
+// mode tangents rows x (d_in + d_out group) floats.
 int ff_fused_mlp(const float* x, const float* e, const float* w_in, const float* b_eff,
-                 const float* const* w_hidden, const float* const* b_hidden, int n_hidden,
-                 const float* w_out, const float* b_out, const float* c0c1,
-                 float* drift, float* div, int B, int d_in, int d_out, int H, int mode,
-                 int act, int precision, int n_tan, int rows, size_t smem, void* stream) {
-  if (n_hidden < 0 || n_hidden > kMaxHidden || rows % kMinRowTile != 0 || H % 4 != 0 || B <= 0 ||
+                 const float* const* layers, int n_hidden, const float* w_out, const float* b_out,
+                 const float* c0c1, float* drift, float* div, int B, int d_in, int d_out, int H, int mode,
+                 int act, int precision, int n_tan, int rows, int group, int planes, size_t smem, void* stream) {
+  const int n_t = mode == kForward ? 0 : mode == kHutchinson ? 1 : mode == kExact ? d_out : n_tan;
+  if (n_hidden < 0 || (n_hidden > 0 && layers == nullptr) || rows % kMinRowTile != 0 || H % 4 != 0 || B <= 0 ||
       mode < kForward || mode > kTangents || (mode == kTangents && n_tan < 1) || precision < kFloat32 ||
-      precision > kBFloat16 || (precision == kHighF32 && H % 8 != 0) || (precision == kBFloat16 && H % 16 != 0)) {
+      precision > kBFloat16 || (precision == kHighF32 && H % 8 != 0) || (precision == kBFloat16 && H % 16 != 0) ||
+      group < 0 || group > n_t || (planes != 0 && precision != kHighF32)) {
     return (int)cudaErrorInvalidValue;
   }
-  HiddenLayers hidden = {};
-  for (int i = 0; i < n_hidden; ++i) {
-    hidden.w[i] = w_hidden[i];
-    hidden.b[i] = b_hidden[i];
-  }
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (precision == kHighF32) {
-    return (int)launch<kHighF32>(x, e, w_in, b_eff, hidden, n_hidden, w_out, b_out, c0c1, drift, div, B, d_in,
-                                 d_out, H, mode, act, n_tan, rows, smem, st);
-  }
-  if (precision == kBFloat16) {
-    return (int)launch<kBFloat16>(x, e, w_in, b_eff, hidden, n_hidden, w_out, b_out, c0c1, drift, div, B, d_in,
-                                  d_out, H, mode, act, n_tan, rows, smem, st);
-  }
-  return (int)launch<kFloat32>(x, e, w_in, b_eff, hidden, n_hidden, w_out, b_out, c0c1, drift, div, B, d_in,
-                               d_out, H, mode, act, n_tan, rows, smem, st);
+  return (int)kLaunch[instance(precision, planes, group)](x, e, w_in, b_eff, hidden_layers(layers, n_hidden), n_hidden,
+                                                   w_out, b_out, c0c1, drift, div, B, d_in, d_out, H, mode, act,
+                                                   n_tan, rows, group, smem, static_cast<cudaStream_t>(stream));
 }
 
 // The blocks of kThreads an SM is to hold by the launch bounds: the wrapper
@@ -648,13 +752,14 @@ int ff_fused_mlp(const float* x, const float* e, const float* w_in, const float*
 int ff_fused_mlp_min_blocks() { return kMinBlocks; }
 
 // Resident blocks an SM, registers and local-memory bytes a thread of the
-// instantiation of compute mode `precision` launched with `smem` bytes;
-// returns the cudaError_t of the query.
-int ff_fused_mlp_occupancy(int precision, size_t smem, int* blocks, int* regs, int* local_bytes) {
-  if (precision < kFloat32 || precision > kBFloat16) return (int)cudaErrorInvalidValue;
-  return (int)(precision == kHighF32    ? query<kHighF32>(smem, blocks, regs, local_bytes)
-               : precision == kBFloat16 ? query<kBFloat16>(smem, blocks, regs, local_bytes)
-                                        : query<kFloat32>(smem, blocks, regs, local_bytes));
+// instantiation a plan of compute mode `precision`, `planes` and `group`
+// launches with `smem` bytes; returns the cudaError_t of the query.
+int ff_fused_mlp_occupancy(int precision, int planes, int group, size_t smem, int* blocks, int* regs,
+                           int* local_bytes) {
+  if (precision < kFloat32 || precision > kBFloat16 || (planes != 0 && precision != kHighF32) || group < 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)kQuery[instance(precision, planes, group)](smem, blocks, regs, local_bytes);
 }
 
 }  // extern "C"

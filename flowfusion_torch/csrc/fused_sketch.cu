@@ -89,7 +89,7 @@
 //   - highf32 products: one (k R) by H tensor-core product for all k chains
 //     of an application (dense_tf32x3, weights through __ldg).
 //   - bfloat16: the act' store (fp32), one fp32 chain buffer and one bf16
-//     plane of kmax chains take the place of the two fp32 chain buffers,
+//     plane of a group's chains take the place of the two fp32 chain buffers,
 //     rows H + kPadBF16 apart in both (the A-fragment reads of dense_bf16
 //     fall on 32 distinct banks).  An activation pass writes act' and the
 //     rounded act(a) into the plane; a Jacobian application seeds its
@@ -101,6 +101,23 @@
 //     so that every instantiation fits 80 registers without spilling.  The
 //     plane is 2 bytes a value, so these plans hold at least float32's
 //     rows.
+//   - Probe groups: each Jacobian application runs over its probe columns
+//     in groups of `group` chains (Hutch++'s S, then its Q and G; XTrace's
+//     O, then its Q), and the chain buffers (and the bf16 plane) hold one
+//     group, so the widest nets and the most probes fit.  The plan
+//     (kernels/fused_sketch.py::sketch_plan) takes every column of an
+//     application in one group wherever that fits, and groups only where it
+//     does not (one block of 4 rows an SM).  Each group's columns are taken
+//     up as it ends (Y into the tile, Hutch++'s sums in column order,
+//     XTrace's A Q), and a product row's sum reads no other row, so a row's
+//     drift and div do not depend on the group.  A grouped XTrace keeps its
+//     late matrices (A Q, inv(R), H, W, T) in the tail, not over the act'
+//     store: every group of the last application reads that store, and A Q
+//     is written as each group ends.  The grouped plans launch
+//     instantiations of their own (kWide, launch bounds of one block: every
+//     grouped plan holds one block of 4 rows an SM by its shared memory),
+//     which keep the one-group code of the others as it was: a group loop
+//     in the three-block instantiations spilled 4-104 bytes a thread.
 //   - Per-row algebra (QR, projections, inverse, the estimate) on one thread
 //     a row, templated on MD in {2, 4, 8}, the smallest bucket >= D: every
 //     register array is an MD-vector indexed by unrolled d loops (guarded by
@@ -518,38 +535,40 @@ __device__ void tri_inv(RowView rr, int k, RowView inv) {
   }
 }
 
-template <int MD, int P>
-__global__ void __launch_bounds__(kThreads, kMinBlocks)
+template <int MD, int P, bool kWide>
+__global__ void __launch_bounds__(kThreads, kWide ? 1 : kMinBlocks)
 fused_sketch_kernel(const float* __restrict__ x, const float* __restrict__ probes,
                     const float* __restrict__ w_in, const float* __restrict__ b_eff,
                     HiddenLayers hidden, int n_hidden,
                     const float* __restrict__ w_out, const float* __restrict__ b_out,
                     const float* __restrict__ c0c1, float* __restrict__ drift,
                     float* __restrict__ div, int B, int d_in, int D, int H, int mode,
-                    int act, int n_s, int n_g, int R) {
+                    int act, int n_s, int n_g, int R, int group) {
   extern __shared__ __align__(16) float smem[];
   const int n_in = n_s + n_g;                                // probe columns a row
   const int ncols = mode == kHutchpp ? n_in : 2 * n_s;       // + Q for xtrace
   const int kmax = mode == kHutchpp ? n_in : n_s;            // widest application
+  const int g = kWide && group > 0 ? group : kmax;           // chains a group carries (kmax but wide)
   // xtrace's matrices a row lie over storage that is free when they are
   // needed, where it holds them, else in the tail: R of the QR (m x m, from
   // the QR to the estimate) over the input tile, which the drift leaves
   // free; A Q (m x D; later S), inv(R) (later X) and the H, W, T grids
   // (m x m each) over the act' store, which the last application leaves free
+  // when it runs as one group
   const int n_rr = mode == kHutchpp ? 0 : n_s * n_s;
   const int n_late = mode == kHutchpp ? 0 : 4 * n_s * n_s + n_s * D;
   const bool rr_in_xs = n_rr <= d_in;
-  const bool late_in_dh = n_late <= (n_hidden + 1) * H;
+  const bool late_in_dh = g == kmax && n_late <= (n_hidden + 1) * H;
   const int n_alg = (rr_in_xs ? 0 : n_rr) + (late_in_dh ? 0 : n_late);
   const int rh = R * H;
   // the chain buffers' row stride: H, or H + kPadBF16 in bfloat16, where
   // buf0 (the fp32 pre-activations) and the bf16 plane share it
   const int S = P == kBFloat16 ? H + kPadBF16 : H;
   float* dh = smem;                            // (n_hidden + 1, R, H) act'
-  float* buf0 = dh + (n_hidden + 1) * rh;      // (kmax, R, S)
-  float* buf1 = buf0 + kmax * rh;              // (kmax, R, H): float32, highf32
-  __nv_bfloat16* plane = reinterpret_cast<__nv_bfloat16*>(buf0 + kmax * R * S);  // (kmax, R, S): bfloat16
-  float* xs = P == kBFloat16 ? buf0 + kmax * R * S + kmax * R * S / 2 : buf1 + kmax * rh;  // (R, d_in)
+  float* buf0 = dh + (n_hidden + 1) * rh;      // (g, R, S)
+  float* buf1 = buf0 + g * rh;                 // (g, R, H): float32, highf32
+  __nv_bfloat16* plane = reinterpret_cast<__nv_bfloat16*>(buf0 + g * R * S);  // (g, R, S): bfloat16
+  float* xs = P == kBFloat16 ? buf0 + g * R * S + g * R * S / 2 : buf1 + g * rh;  // (R, d_in)
   float* cols = xs + R * d_in;                 // (ncols, D, R) element-major
   float* tail = cols + ncols * D * R;          // (n_alg, R) element-major
   float* rr_at = rr_in_xs ? xs : tail;                   // (n_rr, R) element-major
@@ -658,188 +677,365 @@ fused_sketch_kernel(const float* __restrict__ x, const float* __restrict__ probe
       return apply_jacobian<MD, P>(cols, off, k, w_in, dh, hidden, n_hidden, w_out, buf0, buf1, R, H, D);
     }
   };
-  const float* jv = apply(0, n_s);
-  if constexpr (MD > kMaxNarrow) {
-    if (r < R) {
-      for (int c = 0; c < n_s; ++c)
-        for (int d = 0; d < D; ++d) my[qoff + c * D + d] = c0 * my[c * D + d] + c1 * jv[(c * R + r) * js + d];
-      qr_cols_wide(RowView{cols + qoff * R + r, R}, n_s, D, rr);
-      // the projections over the input tile, free since the drift
-      if (mode == kHutchpp) project_out_wide(my, n_s, n_g, D, RowView{xs + r, R});
-    }
-  } else if (r < R) {
-    for (int c = 0; c < n_s; ++c) {
-      float y[MD];
-#pragma unroll
-      for (int d = 0; d < MD; ++d) {
-        if (d < D) y[d] = c0 * my[c * D + d] + c1 * jv[(c * R + r) * js + d];
-      }
-      store_col(my, qoff + c * D, D, y);
-    }
-    const RowView q{cols + qoff * R + r, R};
-    qr_cols<MD>(q, n_s, D, rr);
-    if (mode == kHutchpp) {
-      // U = (I - Q Q^T) G, over G in the tile
-      for (int g = 0; g < n_g; ++g) {
-        float gv[MD], u[MD];
-        load_col(my, (n_s + g) * D, D, gv);
-#pragma unroll
-        for (int d = 0; d < MD; ++d) u[d] = gv[d];
-        for (int i = 0; i < n_s; ++i) {
-          float qi[MD];
-          load_col(my, i * D, D, qi);
-          const float a = dot(qi, gv, D);
-#pragma unroll
-          for (int d = 0; d < MD; ++d) {
-            if (d < D) u[d] -= a * qi[d];
-          }
-        }
-        store_col(my, (n_s + g) * D, D, u);
-      }
-    }
-  }
-  __syncthreads();
-
-  if (mode == kHutchpp) {
-    // A [Q | U] in one application
-    jv = apply(0, n_in);
-    if (r < R && row < B) {
-      float trace_lr = 0.0f, trace_res = 0.0f;
-      for (int c = 0; c < n_in; ++c) {
-        const float* j = jv + (c * R + r) * js;
-        float s = 0.0f;
-        if constexpr (MD > kMaxNarrow) {
-          for (int d = 0; d < D; ++d) {
-            const float vd = my[c * D + d];
-            s += vd * (c0 * vd + c1 * j[d]);
-          }
-        } else {
-          float v[MD];
-          load_col(my, c * D, D, v);
-#pragma unroll
-          for (int d = 0; d < MD; ++d) {
-            if (d < D) s += v[d] * (c0 * v[d] + c1 * j[d]);
-          }
-        }
-        if (c < n_s) trace_lr += s;
-        else trace_res += s;
-      }
-      div[row] = trace_lr + trace_res / (float)n_g;
-    }
-    return;
-  }
-
-  // xtrace: A Q, then the leave-one-out algebra
-  jv = apply(n_s, n_s);
-  if (r < R && row < B) {
-    const int m = n_s;
-    const int m2 = m * m;
-    const RowView aq{late + r, R};                       // A Q (m x D), later S
-    const RowView inv{late + m * D * R + r, R};          // inv(R), later X
-    const RowView Hm{late + (m2 + m * D) * R + r, R};
-    const RowView W{late + (2 * m2 + m * D) * R + r, R};
-    const RowView T{late + (3 * m2 + m * D) * R + r, R};
-    const RowView& S = aq;
-    const RowView& X = inv;
+  if constexpr (!kWide) {
+    // every column of an application in one group
+    const float* jv = apply(0, n_s);
     if constexpr (MD > kMaxNarrow) {
-      for (int c = 0; c < m; ++c)
-        for (int d = 0; d < D; ++d) aq[c * D + d] = c0 * my[(m + c) * D + d] + c1 * jv[(c * R + r) * js + d];
-      for (int i = 0; i < m; ++i) {
-        for (int j = 0; j < m; ++j) {
-          Hm[i * m + j] = dot_view(my, (m + i) * D, aq, j * D, D);
-          W[i * m + j] = dot_view(my, (m + i) * D, my, j * D, D);
-          T[i * m + j] = dot_view(aq, i * D, my, j * D, D);
-        }
+      if (r < R) {
+        for (int c = 0; c < n_s; ++c)
+          for (int d = 0; d < D; ++d) my[qoff + c * D + d] = c0 * my[c * D + d] + c1 * jv[(c * R + r) * js + d];
+        qr_cols_wide(RowView{cols + qoff * R + r, R}, n_s, D, rr);
+        // the projections over the input tile, free since the drift
+        if (mode == kHutchpp) project_out_wide(my, n_s, n_g, D, RowView{xs + r, R});
       }
-    } else {
-      for (int c = 0; c < m; ++c) {
-        float v[MD];
+    } else if (r < R) {
+      for (int c = 0; c < n_s; ++c) {
+        float y[MD];
 #pragma unroll
         for (int d = 0; d < MD; ++d) {
-          if (d < D) v[d] = c0 * my[(m + c) * D + d] + c1 * jv[(c * R + r) * js + d];
+          if (d < D) y[d] = c0 * my[c * D + d] + c1 * jv[(c * R + r) * js + d];
         }
-        store_col(aq, c * D, D, v);
+        store_col(my, qoff + c * D, D, y);
       }
+      const RowView q{cols + qoff * R + r, R};
+      qr_cols<MD>(q, n_s, D, rr);
+      if (mode == kHutchpp) {
+        // U = (I - Q Q^T) G, over G in the tile
+        for (int gi = 0; gi < n_g; ++gi) {
+          float gv[MD], u[MD];
+          load_col(my, (n_s + gi) * D, D, gv);
+#pragma unroll
+          for (int d = 0; d < MD; ++d) u[d] = gv[d];
+          for (int i = 0; i < n_s; ++i) {
+            float qi[MD];
+            load_col(my, i * D, D, qi);
+            const float a = dot(qi, gv, D);
+#pragma unroll
+            for (int d = 0; d < MD; ++d) {
+              if (d < D) u[d] -= a * qi[d];
+            }
+          }
+          store_col(my, (n_s + gi) * D, D, u);
+        }
+      }
+    }
+    __syncthreads();
+
+    if (mode == kHutchpp) {
+      // A [Q | U] in one application
+      jv = apply(0, n_in);
+      if (r < R && row < B) {
+        float trace_lr = 0.0f, trace_res = 0.0f;
+        for (int c = 0; c < n_in; ++c) {
+          const float* j = jv + (c * R + r) * js;
+          float s = 0.0f;
+          if constexpr (MD > kMaxNarrow) {
+            for (int d = 0; d < D; ++d) {
+              const float vd = my[c * D + d];
+              s += vd * (c0 * vd + c1 * j[d]);
+            }
+          } else {
+            float v[MD];
+            load_col(my, c * D, D, v);
+#pragma unroll
+            for (int d = 0; d < MD; ++d) {
+              if (d < D) s += v[d] * (c0 * v[d] + c1 * j[d]);
+            }
+          }
+          if (c < n_s) trace_lr += s;
+          else trace_res += s;
+        }
+        div[row] = trace_lr + trace_res / (float)n_g;
+      }
+      return;
+    }
+
+    // xtrace: A Q, then the leave-one-out algebra
+    jv = apply(n_s, n_s);
+    if (r < R && row < B) {
+      const int m = n_s;
+      const int m2 = m * m;
+      const RowView aq{late + r, R};                       // A Q (m x D), later S
+      const RowView inv{late + m * D * R + r, R};          // inv(R), later X
+      const RowView Hm{late + (m2 + m * D) * R + r, R};
+      const RowView W{late + (2 * m2 + m * D) * R + r, R};
+      const RowView T{late + (3 * m2 + m * D) * R + r, R};
+      const RowView& S = aq;
+      const RowView& X = inv;
+      if constexpr (MD > kMaxNarrow) {
+        for (int c = 0; c < m; ++c)
+          for (int d = 0; d < D; ++d) aq[c * D + d] = c0 * my[(m + c) * D + d] + c1 * jv[(c * R + r) * js + d];
+        for (int i = 0; i < m; ++i) {
+          for (int j = 0; j < m; ++j) {
+            Hm[i * m + j] = dot_view(my, (m + i) * D, aq, j * D, D);
+            W[i * m + j] = dot_view(my, (m + i) * D, my, j * D, D);
+            T[i * m + j] = dot_view(aq, i * D, my, j * D, D);
+          }
+        }
+      } else {
+        for (int c = 0; c < m; ++c) {
+          float v[MD];
+#pragma unroll
+          for (int d = 0; d < MD; ++d) {
+            if (d < D) v[d] = c0 * my[(m + c) * D + d] + c1 * jv[(c * R + r) * js + d];
+          }
+          store_col(aq, c * D, D, v);
+        }
+        for (int i = 0; i < m; ++i) {
+          float qi[MD], ai[MD];
+          load_col(my, (m + i) * D, D, qi);
+          load_col(aq, i * D, D, ai);
+          for (int j = 0; j < m; ++j) {
+            float aj[MD], oj[MD];
+            load_col(aq, j * D, D, aj);
+            load_col(my, j * D, D, oj);
+            Hm[i * m + j] = dot(qi, aj, D);
+            W[i * m + j] = dot(qi, oj, D);
+            T[i * m + j] = dot(ai, oj, D);
+          }
+        }
+      }
+      tri_inv<MD>(rr, m, inv);
       for (int i = 0; i < m; ++i) {
-        float qi[MD], ai[MD];
-        load_col(my, (m + i) * D, D, qi);
-        load_col(aq, i * D, D, ai);
+        float n = 0.0f;
+        for (int j = 0; j < m; ++j) n += inv[i * m + j] * inv[i * m + j];
+        n = fmaxf(sqrtf(n), 1e-30f);
+        for (int j = 0; j < m; ++j) S[j * m + i] = inv[i * m + j] / n;  // S = normalized inv(R)^T
+      }
+      float trace_H = 0.0f;
+      for (int i = 0; i < m; ++i) trace_H += Hm[i * m + i];
+      for (int j = 0; j < m; ++j) {
+        float csum = 0.0f;
+        for (int i = 0; i < m; ++i) csum += S[i * m + j] * W[i * m + j];
+        for (int i = 0; i < m; ++i) X[i * m + j] = W[i * m + j] - csum * S[i * m + j];
+      }
+      float est = 0.0f;
+      for (int j = 0; j < m; ++j) {
+        float shs = 0.0f, xhx = 0.0f, ws = 0.0f, sr = 0.0f, tx = 0.0f;
+        for (int i = 0; i < m; ++i) {
+          float hs = 0.0f, hx = 0.0f;
+          for (int l = 0; l < m; ++l) {
+            hs += Hm[i * m + l] * S[l * m + j];
+            hx += Hm[i * m + l] * X[l * m + j];
+          }
+          shs += S[i * m + j] * hs;
+          xhx += X[i * m + j] * hx;
+          ws += W[i * m + j] * S[i * m + j];
+          sr += S[i * m + j] * rr[i * m + j];
+          tx += T[i * m + j] * X[i * m + j];
+        }
+        est += trace_H - shs + ws * sr - tx + xhx;
+      }
+      div[row] = est / (float)m;
+    }
+  } else {
+    // groups: an application over the n columns from the
+    // tile's column off, group by group, each group's J v taken up by
+    // take(jv, first column, columns) as the group ends.
+    auto apply_groups = [&](int off, int n, auto take) {
+      for (int cg = 0; cg < n; cg += g) {
+        const int k = min(g, n - cg);
+        take(apply(off + cg, k), cg, k);
+        __syncthreads();  // the next group's chains overwrite jv
+      }
+    };
+    // Y = A S (or A O) into the Q columns (hutchpp's Y replaces the group's
+    // own S columns, which no later group reads)
+    apply_groups(0, n_s, [&](const float* jv, int cg, int k) {
+      if (r >= R) return;
+      for (int c = cg; c < cg + k; ++c) {
+        const float* j = jv + ((c - cg) * R + r) * js;
+        if constexpr (MD > kMaxNarrow) {
+          for (int d = 0; d < D; ++d) my[qoff + c * D + d] = c0 * my[c * D + d] + c1 * j[d];
+        } else {
+          float y[MD];
+#pragma unroll
+          for (int d = 0; d < MD; ++d) {
+            if (d < D) y[d] = c0 * my[c * D + d] + c1 * j[d];
+          }
+          store_col(my, qoff + c * D, D, y);
+        }
+      }
+    });
+    if constexpr (MD > kMaxNarrow) {
+      if (r < R) {
+        qr_cols_wide(RowView{cols + qoff * R + r, R}, n_s, D, rr);
+        // the projections over the input tile, free since the drift
+        if (mode == kHutchpp) project_out_wide(my, n_s, n_g, D, RowView{xs + r, R});
+      }
+    } else if (r < R) {
+      const RowView q{cols + qoff * R + r, R};
+      qr_cols<MD>(q, n_s, D, rr);
+      if (mode == kHutchpp) {
+        // U = (I - Q Q^T) G, over G in the tile
+        for (int gi = 0; gi < n_g; ++gi) {
+          float gv[MD], u[MD];
+          load_col(my, (n_s + gi) * D, D, gv);
+#pragma unroll
+          for (int d = 0; d < MD; ++d) u[d] = gv[d];
+          for (int i = 0; i < n_s; ++i) {
+            float qi[MD];
+            load_col(my, i * D, D, qi);
+            const float a = dot(qi, gv, D);
+#pragma unroll
+            for (int d = 0; d < MD; ++d) {
+              if (d < D) u[d] -= a * qi[d];
+            }
+          }
+          store_col(my, (n_s + gi) * D, D, u);
+        }
+      }
+    }
+    __syncthreads();
+
+    if (mode == kHutchpp) {
+      // A [Q | U], each column's term summed in column order
+      float trace_lr = 0.0f, trace_res = 0.0f;
+      apply_groups(0, n_in, [&](const float* jv, int cg, int k) {
+        if (r >= R || row >= B) return;
+        for (int c = cg; c < cg + k; ++c) {
+          const float* j = jv + ((c - cg) * R + r) * js;
+          float s = 0.0f;
+          if constexpr (MD > kMaxNarrow) {
+            for (int d = 0; d < D; ++d) {
+              const float vd = my[c * D + d];
+              s += vd * (c0 * vd + c1 * j[d]);
+            }
+          } else {
+            float v[MD];
+            load_col(my, c * D, D, v);
+#pragma unroll
+            for (int d = 0; d < MD; ++d) {
+              if (d < D) s += v[d] * (c0 * v[d] + c1 * j[d]);
+            }
+          }
+          if (c < n_s) trace_lr += s;
+          else trace_res += s;
+        }
+      });
+      if (r < R && row < B) div[row] = trace_lr + trace_res / (float)n_g;
+      return;
+    }
+
+    // xtrace: A Q into the late matrices, then the leave-one-out algebra
+    {
+      const int m = n_s;
+      const int m2 = m * m;
+      const RowView aq{late + r, R};                       // A Q (m x D), later S
+      const RowView inv{late + m * D * R + r, R};          // inv(R), later X
+      const RowView Hm{late + (m2 + m * D) * R + r, R};
+      const RowView W{late + (2 * m2 + m * D) * R + r, R};
+      const RowView T{late + (3 * m2 + m * D) * R + r, R};
+      const RowView& S = aq;
+      const RowView& X = inv;
+      apply_groups(m, m, [&](const float* jv, int cg, int k) {
+        if (r >= R || row >= B) return;
+        for (int c = cg; c < cg + k; ++c) {
+          const float* j = jv + ((c - cg) * R + r) * js;
+          if constexpr (MD > kMaxNarrow) {
+            for (int d = 0; d < D; ++d) aq[c * D + d] = c0 * my[(m + c) * D + d] + c1 * j[d];
+          } else {
+            float v[MD];
+#pragma unroll
+            for (int d = 0; d < MD; ++d) {
+              if (d < D) v[d] = c0 * my[(m + c) * D + d] + c1 * j[d];
+            }
+            store_col(aq, c * D, D, v);
+          }
+        }
+      });
+      if (r < R && row < B) {
+        if constexpr (MD > kMaxNarrow) {
+          for (int i = 0; i < m; ++i) {
+            for (int j = 0; j < m; ++j) {
+              Hm[i * m + j] = dot_view(my, (m + i) * D, aq, j * D, D);
+              W[i * m + j] = dot_view(my, (m + i) * D, my, j * D, D);
+              T[i * m + j] = dot_view(aq, i * D, my, j * D, D);
+            }
+          }
+        } else {
+          for (int i = 0; i < m; ++i) {
+            float qi[MD], ai[MD];
+            load_col(my, (m + i) * D, D, qi);
+            load_col(aq, i * D, D, ai);
+            for (int j = 0; j < m; ++j) {
+              float aj[MD], oj[MD];
+              load_col(aq, j * D, D, aj);
+              load_col(my, j * D, D, oj);
+              Hm[i * m + j] = dot(qi, aj, D);
+              W[i * m + j] = dot(qi, oj, D);
+              T[i * m + j] = dot(ai, oj, D);
+            }
+          }
+        }
+        tri_inv<MD>(rr, m, inv);
+        for (int i = 0; i < m; ++i) {
+          float n = 0.0f;
+          for (int j = 0; j < m; ++j) n += inv[i * m + j] * inv[i * m + j];
+          n = fmaxf(sqrtf(n), 1e-30f);
+          for (int j = 0; j < m; ++j) S[j * m + i] = inv[i * m + j] / n;  // S = normalized inv(R)^T
+        }
+        float trace_H = 0.0f;
+        for (int i = 0; i < m; ++i) trace_H += Hm[i * m + i];
         for (int j = 0; j < m; ++j) {
-          float aj[MD], oj[MD];
-          load_col(aq, j * D, D, aj);
-          load_col(my, j * D, D, oj);
-          Hm[i * m + j] = dot(qi, aj, D);
-          W[i * m + j] = dot(qi, oj, D);
-          T[i * m + j] = dot(ai, oj, D);
+          float csum = 0.0f;
+          for (int i = 0; i < m; ++i) csum += S[i * m + j] * W[i * m + j];
+          for (int i = 0; i < m; ++i) X[i * m + j] = W[i * m + j] - csum * S[i * m + j];
         }
+        float est = 0.0f;
+        for (int j = 0; j < m; ++j) {
+          float shs = 0.0f, xhx = 0.0f, ws = 0.0f, sr = 0.0f, tx = 0.0f;
+          for (int i = 0; i < m; ++i) {
+            float hs = 0.0f, hx = 0.0f;
+            for (int l = 0; l < m; ++l) {
+              hs += Hm[i * m + l] * S[l * m + j];
+              hx += Hm[i * m + l] * X[l * m + j];
+            }
+            shs += S[i * m + j] * hs;
+            xhx += X[i * m + j] * hx;
+            ws += W[i * m + j] * S[i * m + j];
+            sr += S[i * m + j] * rr[i * m + j];
+            tx += T[i * m + j] * X[i * m + j];
+          }
+          est += trace_H - shs + ws * sr - tx + xhx;
+        }
+        div[row] = est / (float)m;
       }
     }
-    tri_inv<MD>(rr, m, inv);
-    for (int i = 0; i < m; ++i) {
-      float n = 0.0f;
-      for (int j = 0; j < m; ++j) n += inv[i * m + j] * inv[i * m + j];
-      n = fmaxf(sqrtf(n), 1e-30f);
-      for (int j = 0; j < m; ++j) S[j * m + i] = inv[i * m + j] / n;  // S = normalized inv(R)^T
-    }
-    float trace_H = 0.0f;
-    for (int i = 0; i < m; ++i) trace_H += Hm[i * m + i];
-    for (int j = 0; j < m; ++j) {
-      float csum = 0.0f;
-      for (int i = 0; i < m; ++i) csum += S[i * m + j] * W[i * m + j];
-      for (int i = 0; i < m; ++i) X[i * m + j] = W[i * m + j] - csum * S[i * m + j];
-    }
-    float est = 0.0f;
-    for (int j = 0; j < m; ++j) {
-      float shs = 0.0f, xhx = 0.0f, ws = 0.0f, sr = 0.0f, tx = 0.0f;
-      for (int i = 0; i < m; ++i) {
-        float hs = 0.0f, hx = 0.0f;
-        for (int l = 0; l < m; ++l) {
-          hs += Hm[i * m + l] * S[l * m + j];
-          hx += Hm[i * m + l] * X[l * m + j];
-        }
-        shs += S[i * m + j] * hs;
-        xhx += X[i * m + j] * hx;
-        ws += W[i * m + j] * S[i * m + j];
-        sr += S[i * m + j] * rr[i * m + j];
-        tx += T[i * m + j] * X[i * m + j];
-      }
-      est += trace_H - shs + ws * sr - tx + xhx;
-    }
-    div[row] = est / (float)m;
   }
 }
 
-template <int MD, int P>
+template <int MD, int P, bool kWide>
 cudaError_t prepare(size_t smem) {
-  return allow_smem(fused_sketch_kernel<MD, P>, smem);
+  return allow_smem(fused_sketch_kernel<MD, P, kWide>, smem);
 }
 
-template <int MD, int P>
+template <int MD, int P, bool kWide>
 cudaError_t launch(const float* x, const float* probes, const float* w_in, const float* b_eff,
                    const HiddenLayers& hidden, int n_hidden, const float* w_out,
                    const float* b_out, const float* c0c1, float* drift, float* div, int B,
-                   int d_in, int D, int H, int mode, int act, int n_s, int n_g, int rows,
+                   int d_in, int D, int H, int mode, int act, int n_s, int n_g, int rows, int group,
                    size_t smem, cudaStream_t stream) {
-  const cudaError_t st = prepare<MD, P>(smem);
+  const cudaError_t st = prepare<MD, P, kWide>(smem);
   if (st != cudaSuccess) return st;
   const int grid = (B + rows - 1) / rows;
-  fused_sketch_kernel<MD, P><<<grid, kThreads, smem, stream>>>(
+  fused_sketch_kernel<MD, P, kWide><<<grid, kThreads, smem, stream>>>(
       x, probes, w_in, b_eff, hidden, n_hidden, w_out, b_out, c0c1, drift, div, B, d_in, D, H,
-      mode, act, n_s, n_g, rows);
+      mode, act, n_s, n_g, rows, group);
   return cudaGetLastError();
 }
 
 // Resident blocks an SM of the instantiation (md, precision) at `smem`
 // bytes, and its registers and local memory a thread.
-template <int MD, int P>
+template <int MD, int P, bool kWide>
 cudaError_t query(size_t smem, int* blocks, int* regs, int* local_bytes) {
-  cudaError_t st = prepare<MD, P>(smem);
+  cudaError_t st = prepare<MD, P, kWide>(smem);
   if (st != cudaSuccess) return st;
-  st = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, fused_sketch_kernel<MD, P>, kThreads,
+  st = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, fused_sketch_kernel<MD, P, kWide>, kThreads,
                                                      smem);
   if (st != cudaSuccess) return st;
   cudaFuncAttributes attr;
-  st = cudaFuncGetAttributes(&attr, fused_sketch_kernel<MD, P>);
+  st = cudaFuncGetAttributes(&attr, fused_sketch_kernel<MD, P, kWide>);
   *regs = attr.numRegs;
   *local_bytes = (int)attr.localSizeBytes;
   return st;
@@ -851,19 +1047,24 @@ bool valid_md(int md) { return md == 2 || md == 4 || md == kMaxNarrow || md == k
 // This library's compute mode.
 constexpr int kPrecision = FF_SKETCH_PRECISION;
 
-// Index of an instantiation in the tables below: the md bucket.
-int instance(int md) { return md == 2 ? 0 : md == 4 ? 1 : md == kMaxNarrow ? 2 : 3; }
+// Index of an instantiation in the tables below: the md bucket, then the
+// wide ones (a grouped plan, group > 0).
+int instance(int md, int group) { return (md == 2 ? 0 : md == 4 ? 1 : md == kMaxNarrow ? 2 : 3) + (group > 0 ? 4 : 0); }
 
 using LaunchFn = cudaError_t (*)(const float*, const float*, const float*, const float*,
                                  const HiddenLayers&, int, const float*, const float*, const float*,
-                                 float*, float*, int, int, int, int, int, int, int, int, int, size_t,
+                                 float*, float*, int, int, int, int, int, int, int, int, int, int, size_t,
                                  cudaStream_t);
 using QueryFn = cudaError_t (*)(size_t, int*, int*, int*);
 
-constexpr LaunchFn kLaunch[4] = {launch<2, kPrecision>, launch<4, kPrecision>, launch<kMaxNarrow, kPrecision>,
-                                  launch<kMaxDim, kPrecision>};
-constexpr QueryFn kQuery[4] = {query<2, kPrecision>, query<4, kPrecision>, query<kMaxNarrow, kPrecision>,
-                                query<kMaxDim, kPrecision>};
+constexpr LaunchFn kLaunch[8] = {launch<2, kPrecision, false>, launch<4, kPrecision, false>,
+                                  launch<kMaxNarrow, kPrecision, false>, launch<kMaxDim, kPrecision, false>,
+                                  launch<2, kPrecision, true>, launch<4, kPrecision, true>,
+                                  launch<kMaxNarrow, kPrecision, true>, launch<kMaxDim, kPrecision, true>};
+constexpr QueryFn kQuery[8] = {query<2, kPrecision, false>, query<4, kPrecision, false>,
+                                query<kMaxNarrow, kPrecision, false>, query<kMaxDim, kPrecision, false>,
+                                query<2, kPrecision, true>, query<4, kPrecision, true>,
+                                query<kMaxNarrow, kPrecision, true>, query<kMaxDim, kPrecision, true>};
 
 }  // namespace
 
@@ -884,56 +1085,53 @@ int ff_sketch_precision() { return kPrecision; }
 // cudaErrorInvalidValue where `precision` is not this library's.
 // probes: (B, n_s + n_g, D), the r sketch then the m residual probes of a row
 // (hutchpp, n_g >= 1, n_s <= D), or its m probes (xtrace, 1 <= n_s <= D,
-// n_g = 0).  w_hidden/b_hidden are host arrays of n_hidden device pointers,
-// each weight 16-byte aligned.  `precision` is the compute mode: 0 float32,
+// n_g = 0).  `layers` is the layer table in device memory: n_hidden weight
+// pointers, then n_hidden bias pointers, each weight 16-byte aligned.
+// `precision` is the compute mode: 0 float32,
 // 1 highf32, 2 bfloat16; in bfloat16 w_in holds bf16-rounded floats, each
 // hidden weight is bf16 of shape (H_out, H_in) (transposed) and w_out bf16
 // (H, D), as fused_mlp.cu takes them.  `md` the algebra's bucket (2, 4, 8
 // or 64, the wide path; >= D), `rows` a multiple of 4 (at most kThreads), H of 4, of 8 in
 // highf32, of 16 in bfloat16 (the Python wrapper checks all of them).
-// `smem` is the block's shared memory in bytes, computed by the wrapper for
-// the kernel's layout: (n_hidden + 1 + 2 kmax) x rows x H floats, or in
-// bfloat16 (n_hidden + 1) x rows x H floats and kmax x rows x (H + 8) floats
-// and as many bf16 values, then rows x (d_in + ncols D + n_alg) floats;
-// kmax = n_s + n_g
+// `group` is the chains an application carries at once, 0 for all of them
+// (one group), else 1 to kmax (the wide instantiations).  `smem`
+// is the block's shared memory in bytes, computed by the wrapper
+// (kernels/fused_sketch.py::_smem_bytes) for the kernel's layout, g the
+// chains a group carries: (n_hidden + 1 + 2 g) x rows x H floats, or in
+// bfloat16 (n_hidden + 1) x rows x H floats and g x rows x (H + 8) floats
+// and as many bf16 values, then rows x (d_in + ncols D + n_alg) floats; kmax = n_s + n_g
 // (hutchpp) or n_s (xtrace), ncols = n_s + n_g (hutchpp) or 2 n_s (xtrace),
 // n_alg = 0 (hutchpp), or for xtrace n_s^2 where n_s^2 > d_in (else over
-// the input tile) plus 4 n_s^2 + n_s D where that is > (n_hidden + 1) H
-// (else over the act' store).
+// the input tile) plus 4 n_s^2 + n_s D where that is > (n_hidden + 1) H or
+// g < kmax (else over the act' store).
 int ff_fused_sketch(const float* x, const float* probes, const float* w_in, const float* b_eff,
-                    const float* const* w_hidden, const float* const* b_hidden, int n_hidden,
-                    const float* w_out, const float* b_out, const float* c0c1, float* drift,
-                    float* div, int B, int d_in, int D, int H, int mode, int act,
-                    int precision, int n_s, int n_g, int md, int rows, size_t smem,
+                    const float* const* layers, int n_hidden, const float* w_out, const float* b_out,
+                    const float* c0c1, float* drift, float* div, int B, int d_in, int D, int H, int mode,
+                    int act, int precision, int n_s, int n_g, int md, int rows, int group, size_t smem,
                     void* stream) {
   const bool counts_ok = mode == kHutchpp ? (n_g >= 1 && n_s >= 0 && n_s <= D)
                                           : (mode == kXtrace && n_g == 0 && n_s >= 1 && n_s <= D);
-  if (n_hidden < 0 || n_hidden > kMaxHidden || rows % kMinRowTile != 0 || rows > kThreads ||
-      H % 4 != 0 || B <= 0 || D < 1 || D > md || !valid_md(md) || !counts_ok ||
+  const int kmax = mode == kHutchpp ? n_s + n_g : n_s;
+  if (n_hidden < 0 || (n_hidden > 0 && layers == nullptr) || rows % kMinRowTile != 0 || rows > kThreads ||
+      H % 4 != 0 || B <= 0 || D < 1 || D > md || !valid_md(md) || !counts_ok || group < 0 || group > kmax ||
       precision != kPrecision || (precision == kHighF32 && H % 8 != 0) ||
       (precision == kBFloat16 && H % 16 != 0)) {
     return (int)cudaErrorInvalidValue;
   }
-  HiddenLayers hidden = {};
-  for (int i = 0; i < n_hidden; ++i) {
-    hidden.w[i] = w_hidden[i];
-    hidden.b[i] = b_hidden[i];
-  }
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return (int)kLaunch[instance(md)](x, probes, w_in, b_eff, hidden, n_hidden, w_out,
-                                               b_out, c0c1, drift, div, B, d_in, D, H, mode, act,
-                                               n_s, n_g, rows, smem, st);
+  return (int)kLaunch[instance(md, group)](x, probes, w_in, b_eff, hidden_layers(layers, n_hidden), n_hidden, w_out,
+                                    b_out, c0c1, drift, div, B, d_in, D, H, mode, act, n_s, n_g, rows, group, smem,
+                                    static_cast<cudaStream_t>(stream));
 }
 
 // Resident blocks an SM, registers and local-memory bytes a thread of the
-// instantiation (md, precision) launched with `smem` bytes; returns the
-// cudaError_t of the query.
-int ff_sketch_occupancy(int md, int precision, size_t smem, int* blocks, int* regs,
+// instantiation (md, precision, group > 0) launched with `smem` bytes;
+// returns the cudaError_t of the query.
+int ff_sketch_occupancy(int md, int precision, int group, size_t smem, int* blocks, int* regs,
                         int* local_bytes) {
-  if (!valid_md(md) || precision != kPrecision) {
+  if (!valid_md(md) || precision != kPrecision || group < 0) {
     return (int)cudaErrorInvalidValue;
   }
-  return (int)kQuery[instance(md)](smem, blocks, regs, local_bytes);
+  return (int)kQuery[instance(md, group)](smem, blocks, regs, local_bytes);
 }
 
 }  // extern "C"

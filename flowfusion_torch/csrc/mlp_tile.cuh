@@ -24,7 +24,6 @@
 
 namespace ffk {
 
-constexpr int kMaxHidden = 16;  // (H, H) layers between input and output
 constexpr int kThreads = 256;
 // Rows per thread in a layer product: 8 when the block's row count allows,
 // else 4 (the smallest tile, for plans that fit only at 4 rows a block).
@@ -35,10 +34,17 @@ constexpr int kRank1Max = 16;
 
 enum Act { kSilu = 0, kTanh = 1, kRelu = 2, kGelu = 3 };
 
+// The (H, H) layers between input and output, any number of them: views of
+// the layer table, 2 n_hidden pointers in device memory, the weights then
+// the biases, which the wrapper writes before the launch
+// (kernels/fused_mlp.py::layer_table).  A kernel reads a layer's two
+// pointers once a product.
 struct HiddenLayers {
-  const float* w[kMaxHidden];  // (H, H), row-major (in, out)
-  const float* b[kMaxHidden];  // (H,)
+  const float* const* w;  // w[l]: (H, H), row-major (in, out)
+  const float* const* b;  // b[l]: (H,)
 };
+
+inline HiddenLayers hidden_layers(const float* const* table, int n_hidden) { return {table, table + n_hidden}; }
 
 // act(a) and act'(a).  Sigmoid is the exp form 1 / (1 + exp(-a)) in every
 // kernel, as in the plain PyTorch paths (F.silu).

@@ -68,6 +68,7 @@ from .fused_mlp import (
     bf16_round,
     blocks_per_sm,
     check_operands,
+    layer_table,
     pad_to_lanes,
 )
 
@@ -379,9 +380,8 @@ def _kernel_lib() -> ctypes.CDLL:
     fn = lib.ff_em_sample
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        pp = ctypes.POINTER(ctypes.c_void_p)
         fn.argtypes = [
-            p, p, ctypes.c_uint64, p, p, p, p, pp, pp, i, p, p, p, p, p,
+            p, p, ctypes.c_uint64, p, p, p, p, p, i, p, p, p, p, p,
             i, i, i, i, i, i, i, ctypes.c_size_t, p,
         ]
         fn.restype = ctypes.c_int
@@ -452,17 +452,15 @@ def _launch(x0, noise, seed, cond_proj, coeffs, b_eff, w_in, layers, activation,
         return x_mean, x, torch.zeros((), dtype=torch.bool, device=device)
     flags = torch.empty((-(-B // rows),), dtype=torch.int32, device=device)
     lib = _kernel_lib()
-    n = len(hidden)
     hidden_w = [l["w"] for l in hidden]
     if compute_dtype == "bfloat16":
         w_in, w_out = bf16_round(w_in), w_out.to(torch.bfloat16).contiguous()
         hidden_w = [w.to(torch.bfloat16).contiguous() for w in hidden_w]
-    w_ptrs = (ctypes.c_void_p * max(n, 1))(*[w.data_ptr() for w in hidden_w])
-    b_ptrs = (ctypes.c_void_p * max(n, 1))(*[l["b"].data_ptr() for l in hidden])
+    table = layer_table(hidden_w, [l["b"] for l in hidden], device)
     err = lib.ff_em_sample(
         x0.data_ptr(), None if noise is None else noise.data_ptr(), seed,
         None if cond_proj is None else cond_proj.data_ptr(), coeffs.data_ptr(),
-        b_eff.data_ptr(), w_in.data_ptr(), w_ptrs, b_ptrs, n, w_out.data_ptr(),
+        b_eff.data_ptr(), w_in.data_ptr(), table, len(hidden_w), w_out.data_ptr(),
         b_out.data_ptr(), x_mean.data_ptr(), x.data_ptr(), flags.data_ptr(),
         B, D, H, steps, _KERNEL_ACTIVATIONS.index(activation), EM_DTYPES.index(compute_dtype), rows, smem,
         torch.cuda.current_stream(device).cuda_stream,

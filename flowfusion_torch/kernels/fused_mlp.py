@@ -35,11 +35,18 @@ its fold takes the TRAILING rows: ``b_eff = b1 + temb W1[D+C:]``; the q
 stack runs on p with (0, +1), the p stack on q with (0, -1).  Each wrapper
 counts its own launches.
 
-A launch's plan, :func:`_plan`, is ``(rows, smem_bytes)``: the rows a
-block owns (the most blocks an SM holds, up to three, counted with the
-1 KB each block reserves, at the most rows that reach them) and its shared
-memory.  A row's arithmetic does not depend on the plan.  The sketch and
-EM kernels plan with :func:`_pick_rows` too, each at its own block cap.
+A launch's plan, :func:`_plan`, is ``(rows, smem_bytes, group, planes)``:
+the rows a block owns (the most blocks an SM holds, up to three, counted
+with the 1 KB each block reserves, at the most rows that reach them), its
+shared memory, the tangent chains a pass carries and whether ``highf32``
+keeps its TF32 hi and lo planes.  Every tangent chain rides in one pass,
+with the planes, wherever that fits; only the widest nets take passes of
+fewer chains (exact and tangents) or a ``highf32`` product that splits as
+it loads.  A row's arithmetic does not depend on the plan.  The sketch
+and EM kernels plan with :func:`_pick_rows` too, each at its own block
+cap.  The hidden layers reach every kernel through a table of their
+pointers in device memory (:func:`layer_table`), so a net may have any
+depth.
 """
 
 from __future__ import annotations
@@ -79,6 +86,7 @@ __all__ = [
     "fused_symplectic_velocity",
     "fused_symplectic_velocity_reference",
     "pad_to_lanes",
+    "paddable_config",
     "fusable_config",
     "supports_config",
     "supports_features",
@@ -101,7 +109,6 @@ LANE_BF16 = 16
 # Input features up to which the highf32 mode keeps the input projection
 # strict (the JAX kernel's rank-1 crossover, in_proj_rows; csrc kRank1Max).
 RANK1_MAX = 16
-MAX_HIDDEN = 16  # (H, H) layers the kernel takes (csrc kMaxHidden)
 _SMEM_LIMIT = 232_448  # shared memory one block may use on sm_90
 # What an SM holds for its resident blocks: 228 KB of shared memory, of which
 # each block also reserves 1 KB for the system.  k blocks share an SM when
@@ -305,12 +312,21 @@ def lane(compute_dtype: str = "float32") -> int:
     return {"highf32": LANE_HIGHF32, "bfloat16": LANE_BF16}.get(compute_dtype, LANE)
 
 
+def paddable_config(units: Sequence[int], activation: str = "silu") -> bool:
+    """True when :func:`pad_to_lanes` can lift the config into the kernel's
+    envelope: any hidden widths and any depth, with an activation the
+    kernel implements.  Every kernel activation has act(0) == 0, which
+    makes the zero-padding exact."""
+    return len(units) >= 1 and activation in _KERNEL_ACTIVATIONS
+
+
 def fusable_config(units: Sequence[int], activation: str = "silu") -> bool:
-    """Config half of the fused envelope, padding included: at most
-    ``MAX_HIDDEN + 1`` hidden layers and an activation the kernel
-    implements.  Every kernel activation has act(0) == 0, which makes the
-    zero-padding of :func:`pad_to_lanes` exact."""
-    return 1 <= len(units) <= MAX_HIDDEN + 1 and activation in _KERNEL_ACTIVATIONS
+    """Config half of the fused envelope, padding included: what the
+    models' dispatch consults.  Every config :func:`supports_config` takes
+    as it is is paddable, so this is :func:`paddable_config`; the
+    feature-count half is :func:`supports_features` (and
+    ``fused_sketch.supports_sketch``)."""
+    return paddable_config(units, activation)
 
 
 def supports_config(
@@ -327,16 +343,18 @@ def supports_config(
 
 def supports_features(
     n_features: int, mode: str = "hutchinson", hidden: int = 128,
-    n_dimensions: Optional[int] = None, compute_dtype: str = "float32",
+    n_dimensions: Optional[int] = None, compute_dtype: str = "float32", n_tan: int = 0,
 ) -> bool:
     """Feature-count half of the envelope: whether the kernel's
-    shared-memory plan fits ``n_features`` = D + C inputs and
-    D = ``n_dimensions`` outputs (default: every feature) at hidden width
-    ``hidden`` in ``mode``.  The JAX package's ``exact`` flag becomes
-    ``mode`` here, because the plan grows with the chain count."""
+    shared-memory plan (:func:`_plan`) fits ``n_features`` = D + C inputs
+    and D = ``n_dimensions`` outputs (default: every feature) at hidden
+    width ``hidden`` in ``mode`` (``n_tan`` probes in mode tangents).  The
+    JAX package's ``exact`` flag becomes ``mode`` here, because the plan
+    grows with the chain count.  The depth is the config half's
+    (:func:`fusable_config`): the RHS kernel's plan does not depend on it."""
     d_out = n_features if n_dimensions is None else n_dimensions
     H = -(-hidden // lane(compute_dtype)) * lane(compute_dtype)
-    return _rows_per_block(H, _chains(mode, d_out), n_features, d_out, compute_dtype=compute_dtype) is not None
+    return _default_plan(H, mode, n_features, d_out, n_tan, compute_dtype) is not None
 
 
 def _pad_stack(layers: list, H: int) -> list:
@@ -368,7 +386,7 @@ def pad_to_lanes(params: dict, cfg, compute_dtype: str = "float32"):
         raise ValueError(
             f"fused kernel cannot pad units={units} "
             f"activation={cfg.activation!r} into its envelope (activation must "
-            f"be one of {_KERNEL_ACTIVATIONS}, at most {MAX_HIDDEN + 1} hidden layers)"
+            f"be one of {_KERNEL_ACTIVATIONS})"
         )
     H = max(-(-u // lane(compute_dtype)) * lane(compute_dtype) for u in units)
     stacks = {k: _pad_stack(params[k], H) for k in ("layers", "q_layers", "p_layers") if k in params}
@@ -856,17 +874,20 @@ def _chains(mode: str, d_out: int, n_tan: int = 0) -> int:
 
 
 def _smem_bytes(rows: int, H: int, chains: int, d_in: int, d_out: int, n_tan: int = 0,
-                compute_dtype: str = "float32") -> int:
+                compute_dtype: str = "float32", planes: bool = True) -> int:
     """Shared memory of one block, in the kernel's layout: chains x rows
     rows of stride H + ``PAD`` floats, twice in ``float32`` (the double
     buffer) and three times in ``highf32`` (the pre-activations and the
-    TF32 hi and lo planes); in ``bfloat16`` rows of stride H + ``PAD_BF16``,
-    the fp32 pre-activations and one 2-byte bf16 plane; then the (rows,
-    d_in) input tile and the (rows, d_out max(1, n_tan)) probe tile."""
+    TF32 hi and lo planes; twice without ``planes``, as float32); in
+    ``bfloat16`` rows of stride H + ``PAD_BF16``, the fp32 pre-activations
+    and one 2-byte bf16 plane; then the (rows, d_in) input tile and the
+    (rows, d_out max(1, n_tan)) probe tile.  ``chains`` is those of the
+    widest pass, the primal and a group of tangents, and ``n_tan`` the
+    probes a pass holds in mode tangents (its group)."""
     tiles = 4 * rows * (d_in + d_out * max(1, n_tan))
     if compute_dtype == "bfloat16":
         return (4 + 2) * chains * rows * (H + PAD_BF16) + tiles
-    buffers = 3 if compute_dtype == "highf32" else 2
+    buffers = 3 if compute_dtype == "highf32" and planes else 2
     return 4 * buffers * chains * rows * (H + PAD) + tiles
 
 
@@ -887,13 +908,6 @@ def _pick_rows(smem_bytes: Callable[[int], int], cap: int = KERNEL_BLOCKS) -> Op
     return next(((rows, blocks) for rows, blocks in fits if blocks == most), None)
 
 
-def _rows_per_block(H: int, chains: int, d_in: int, d_out: int, n_tan: int = 0,
-                    compute_dtype: str = "float32") -> Optional[int]:
-    """The rows of :func:`_pick_rows` in this kernel's layout, or None."""
-    picked = _pick_rows(lambda rows: _smem_bytes(rows, H, chains, d_in, d_out, n_tan, compute_dtype))
-    return None if picked is None else picked[0]
-
-
 def _check_plan(*args, **kwargs) -> None:
     """A wrapper's envelope check, :func:`_plan` for its config.  Skipped
     while ``torch.export`` traces a solve: inside the traced loop body the
@@ -903,34 +917,90 @@ def _check_plan(*args, **kwargs) -> None:
         _plan(*args, **kwargs)
 
 
+def _group_bytes(rows: int, H: int, mode: str, group: int, d_in: int, d_out: int, n_tan: int, compute_dtype: str,
+                 planes: bool) -> int:
+    """:func:`_smem_bytes` of a plan whose passes carry ``group`` tangent
+    chains (0: all of them in one pass), and, in mode tangents, hold that
+    many probes."""
+    n = group or _chains(mode, d_out, n_tan) - 1
+    return _smem_bytes(rows, H, 1 + n, d_in, d_out, n if mode == "tangents" else 0, compute_dtype, planes)
+
+
+@functools.lru_cache(maxsize=None)
+def _default_plan(H: int, mode: str, d_in: int, d_out: int, n_tan: int = 0, compute_dtype: str = "float32"):
+    """The plan :func:`_plan` takes, or None where none fits.  In order:
+    every tangent chain in one pass (group 0), with the TF32 planes in
+    ``highf32``, at the rows of :func:`_pick_rows`; else the planes kept
+    and the largest group of tangent chains a pass that fits at 4 rows a
+    block; else (``highf32``) the same two without the planes."""
+    n_t = _chains(mode, d_out, n_tan) - 1
+    for planes in ((True, False) if compute_dtype == "highf32" else (False,)):
+        def smem_bytes(rows, group):
+            return _group_bytes(rows, H, mode, group, d_in, d_out, n_tan, compute_dtype, planes)
+
+        picked = _pick_rows(lambda rows: smem_bytes(rows, 0))
+        if picked is not None:
+            return picked[0], smem_bytes(picked[0], 0), 0, planes
+        group = next((g for g in range(n_t - 1, 0, -1) if smem_bytes(4, g) <= _SMEM_LIMIT), None)
+        if group is not None:
+            return 4, smem_bytes(4, group), group, planes
+    return None
+
+
 @functools.lru_cache(maxsize=None)
 def _plan(H: int, mode: str, d_in: int, d_out: int, n_tan: int = 0, compute_dtype: str = "float32",
-          rows: Optional[int] = None):
-    """``(rows, smem_bytes)`` of the launch, or raise when the
-    shared-memory plan does not fit (the JAX package's vmem_width_clamp
-    analogue).  Rows: the most blocks an SM holds (at most
-    ``KERNEL_BLOCKS``), at the most rows that reach them; ``rows`` forces a
-    plan (a multiple of 4 whose block fits).  A row's arithmetic does not depend on the plan.  Cached: a solve asks
-    for the same plan at every right-hand side."""
-    chains = _chains(mode, d_out, n_tan)
-    smem_bytes = lambda r: _smem_bytes(r, H, chains, d_in, d_out, n_tan, compute_dtype)  # noqa: E731
-    if rows is None:
-        rows = _rows_per_block(H, chains, d_in, d_out, n_tan, compute_dtype)
-        if rows is None:
+          rows: Optional[int] = None, group: Optional[int] = None, planes: Optional[bool] = None):
+    """``(rows, smem_bytes, group, planes)`` of the launch, or raise when
+    the shared-memory plan does not fit (the JAX package's
+    vmem_width_clamp analogue).  The plan of :func:`_default_plan`:
+    rows the most blocks an SM holds (at most ``KERNEL_BLOCKS``), at the
+    most rows that reach them; ``group`` the tangent chains a pass carries,
+    0 for all of them (1 in hutchinson, D in exact, K in tangents, none in
+    forward) in one pass where that fits, fewer at 4 rows a block where it
+    does not; ``planes`` whether ``highf32`` keeps its TF32 hi and lo
+    planes (False in the other modes).  A plan that groups or drops the
+    planes is wide: it fits one block an SM and launches the kernel's wide
+    instantiations.  ``rows``, ``group`` and ``planes`` force a plan (a
+    multiple of 4 rows, a group of 0 to the tangent count, planes in
+    ``highf32`` only, whose block fits); what is not forced is the default
+    plan's.  A row's arithmetic does not depend on the plan.  Cached: a
+    solve asks for the same plan at every right-hand side."""
+    n_t = _chains(mode, d_out, n_tan) - 1
+    own = _default_plan(H, mode, d_in, d_out, n_tan, compute_dtype)
+    if rows is None and group is None and planes is None:
+        if own is None:
             raise ValueError(
-                f"fused kernel shared-memory plan does not fit: {chains} chains of width "
-                f"H={H} need {smem_bytes(4)} bytes at 4 rows a block in {compute_dtype} "
-                f"(limit {_SMEM_LIMIT}); use trace_mode='hutchinson' instead of "
-                "exact trace, fewer probes, a narrower net, or use_fused_kernel=False"
+                f"fused kernel shared-memory plan does not fit: its smallest form (the primal and at most one "
+                f"tangent chain of width H={H}, 4 rows a block) needs "
+                f"{_group_bytes(4, H, mode, min(1, n_t), d_in, d_out, n_tan, compute_dtype, False)} bytes in "
+                f"{compute_dtype} (limit {_SMEM_LIMIT}); use a narrower net, fewer features, or "
+                "use_fused_kernel=False"
             )
-    elif rows % 4 or not 4 <= rows <= 256 or smem_bytes(rows) > _SMEM_LIMIT:
+        return own
+    rows = (own[0] if own else 4) if rows is None else rows
+    group = (own[2] if own else 0) if group is None else group
+    planes = (own[3] if own else compute_dtype == "highf32") if planes is None else bool(planes)
+    smem = _group_bytes(rows, H, mode, group, d_in, d_out, n_tan, compute_dtype, planes)
+    if rows % 4 or not 4 <= rows <= 256 or smem > _SMEM_LIMIT:
         raise ValueError(f"fused kernel plan of {rows} rows: a multiple of 4 up to 256 whose block fits")
-    return rows, smem_bytes(rows)
+    if not 0 <= group <= n_t or (planes and compute_dtype != "highf32"):
+        raise ValueError(f"fused kernel plan of group {group} and planes {planes}: a group of 0 to the {n_t} "
+                         "tangent chains, planes in highf32 only")
+    return rows, smem, group, planes
+
+
+def plan_wide(plan, compute_dtype: str = "float32") -> bool:
+    """Whether ``plan`` is wide: its passes group the tangent chains, or
+    ``highf32`` drops its planes.  A wide plan fits one block an SM by its
+    shared memory and launches the kernel's wide instantiations (launch
+    bounds of one block)."""
+    return plan[2] > 0 or (compute_dtype == "highf32" and not plan[3])
 
 
 def plan_blocks(plan) -> int:
     """Blocks of ``plan`` an SM holds by its shared memory and the launch
-    bounds (:func:`occupancy` asks the card)."""
+    bounds (:func:`occupancy` asks the card).  A default plan that is wide
+    (:func:`plan_wide`) holds one block by its shared memory."""
     return min(KERNEL_BLOCKS, blocks_per_sm(plan[1]))
 
 
@@ -939,14 +1009,14 @@ def occupancy(plan, compute_dtype: str = "float32") -> dict:
     ``compute_dtype``: resident blocks an SM
     (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), registers and
     local-memory bytes a thread of the instantiation it launches."""
-    rows, smem = plan
+    rows, smem, group, planes = plan
     blocks, regs, local_bytes = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
-    err = _kernel_lib().ff_fused_mlp_occupancy(COMPUTE_DTYPES.index(compute_dtype), smem, blocks, regs,
-                                               local_bytes)
+    err = _kernel_lib().ff_fused_mlp_occupancy(COMPUTE_DTYPES.index(compute_dtype), int(planes), group, smem, blocks,
+                                               regs, local_bytes)
     if err != 0:
         raise RuntimeError(f"fused_mlp occupancy query failed with CUDA error {err}")
-    return dict(rows=rows, smem_bytes=smem, blocks_per_sm=blocks.value, registers=regs.value,
-                local_bytes=local_bytes.value)
+    return dict(rows=rows, smem_bytes=smem, group=group, planes=planes, blocks_per_sm=blocks.value,
+                registers=regs.value, local_bytes=local_bytes.value)
 
 
 def _kernel_lib() -> ctypes.CDLL:
@@ -954,11 +1024,10 @@ def _kernel_lib() -> ctypes.CDLL:
     fn = lib.ff_fused_mlp
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        pp = ctypes.POINTER(ctypes.c_void_p)
-        fn.argtypes = [p, p, p, p, pp, pp, i, p, p, p, p, p] + [i] * 9 + [ctypes.c_size_t, p]
+        fn.argtypes = [p, p, p, p, p, i, p, p, p, p, p] + [i] * 11 + [ctypes.c_size_t, p]
         fn.restype = ctypes.c_int
         ip = ctypes.POINTER(ctypes.c_int)
-        lib.ff_fused_mlp_occupancy.argtypes = [i, ctypes.c_size_t, ip, ip, ip]
+        lib.ff_fused_mlp_occupancy.argtypes = [i, i, i, ctypes.c_size_t, ip, ip, ip]
         lib.ff_fused_mlp_occupancy.restype = ctypes.c_int
         lib.ff_fused_mlp_min_blocks.argtypes = []
         lib.ff_fused_mlp_min_blocks.restype = ctypes.c_int
@@ -971,9 +1040,9 @@ def _kernel_lib() -> ctypes.CDLL:
 def check_operands(expect, hidden, H: int, what: str, lane_width: int = LANE) -> torch.device:
     """Raise unless every ``(tensor, shape)`` of ``expect`` is a contiguous
     float32 CUDA tensor of that shape on one device, and the ``hidden``
-    (H, H) layers fit the kernel (<= ``MAX_HIDDEN``, H a multiple of
-    ``lane_width``, weights 16-byte aligned for float4 reads).  Returns the
-    device.  Both kernels' launch wrappers call it."""
+    (H, H) layers fit the kernel (H a multiple of ``lane_width``, weights
+    16-byte aligned for float4 reads).  Returns the device.  The RHS,
+    sketch and EM kernels' launch wrappers call it."""
     device = same_device(*(t for t, _ in expect))
     for tensor, shape in expect:
         if not tensor.is_cuda or tensor.dtype != torch.float32:
@@ -982,11 +1051,40 @@ def check_operands(expect, hidden, H: int, what: str, lane_width: int = LANE) ->
             raise ValueError(f"{what} operand of shape {tuple(tensor.shape)}; expected {shape}")
         if not tensor.is_contiguous():
             raise ValueError(f"{what} operands must be contiguous")
-    if len(hidden) > MAX_HIDDEN or H % lane_width:
-        raise ValueError(f"{what} takes <= {MAX_HIDDEN} hidden layers of a width in multiples of {lane_width}")
+    if H % lane_width:
+        raise ValueError(f"{what} takes hidden layers of a width in multiples of {lane_width}")
     if any(l["w"].data_ptr() % 16 for l in hidden):
         raise ValueError(f"{what} reads hidden weights as float4: they must be 16-byte aligned")
     return device
+
+
+# The layer tables written so far, by device and pointers (the table's own
+# contents): a solve launches on the same weights at every right-hand side.
+_TABLES: dict = {}
+_MAX_TABLES = 256
+
+
+def layer_table(weights: Sequence[torch.Tensor], biases: Sequence[torch.Tensor], device) -> int:
+    """The device address of the hidden layers' table as the kernels read
+    it (``csrc/mlp_tile.cuh`` HiddenLayers): the n weight pointers, then
+    the n bias pointers, int64 in device memory; 0 (null) for no hidden
+    layer.  A table holds nothing but these addresses, so one is written
+    once for its pointers on its device (on the current stream, before the
+    launch that reads it) and kept; past ``_MAX_TABLES`` the card is
+    synchronized before the tables are dropped, so that no launch still
+    reads one."""
+    if not weights:
+        return 0
+    ptrs = tuple(t.data_ptr() for t in weights) + tuple(t.data_ptr() for t in biases)
+    key = (device, ptrs)
+    table = _TABLES.get(key)
+    if table is None:
+        if len(_TABLES) >= _MAX_TABLES:
+            torch.cuda.synchronize(device)
+            _TABLES.clear()
+        table = torch.tensor(ptrs, dtype=torch.int64).to(device, non_blocking=True)
+        _TABLES[key] = table
+    return table.data_ptr()
 
 
 def _on_card(x: torch.Tensor) -> bool:
@@ -1006,11 +1104,11 @@ OP_NAMESPACE = __name__.split(".")[0]
 
 
 def _launch(x_in, e, w_in, b_eff, layers, c0c1, mode, d_out, activation, counter=fused_drift,
-            n_tan=0, compute_dtype="float32", rows=None):
+            n_tan=0, compute_dtype="float32", rows=None, group=None, planes=None):
     """Launch the kernel through the registered op ``fused_mlp`` (eager
     and traced calls alike) in ``compute_dtype`` on the current stream, at
-    the plan of :func:`_plan` (``rows`` forces one); the launch is added to
-    ``counter``'s counts.  Returns ``(drift, div)``: div is None (forward),
+    the plan of :func:`_plan` (``rows``, ``group`` and ``planes`` force
+    one); the launch is added to ``counter``'s counts.  Returns ``(drift, div)``: div is None (forward),
     (B,) (hutchinson, exact) or the (n_tan, B, d_out) J v columns
     (tangents, ``e`` the (B, n_tan d_out) probe rows).  Raises on anything
     the kernel does not take."""
@@ -1019,6 +1117,7 @@ def _launch(x_in, e, w_in, b_eff, layers, c0c1, mode, d_out, activation, counter
         x_in, e if mode in ("hutchinson", "tangents") else None, w_in, b_eff,
         [l["w"] for l in hidden], [l["b"] for l in hidden], layers[-1]["w"], layers[-1]["b"], c0c1,
         mode, d_out, n_tan, activation, compute_dtype, counter.__name__, rows or 0,
+        -1 if group is None else group, -1 if planes is None else int(planes),
     )
     return drift, (None if mode == "forward" else div)
 
@@ -1030,11 +1129,11 @@ def _div_shape(mode: str, B, d_out: int, n_tan: int) -> tuple:
 
 
 def _fused_mlp_cuda(x_in, e, w_in, b_eff, hidden_w, hidden_b, w_out, b_out, c0c1, mode, d_out, n_tan,
-                    activation, compute_dtype, counter, rows):
+                    activation, compute_dtype, counter, rows, group=-1, planes=-1):
     """The CUDA kernel of the op ``fused_mlp``: check the operands,
     allocate the outputs, launch ``csrc/fused_mlp.cu`` on the current
-    stream (``rows`` > 0 forces a plan) and add one to the counts of the
-    wrapper named ``counter``.  Returns ``(drift (B, d_out), div)``, div as
+    stream (``rows`` > 0, ``group`` and ``planes`` >= 0 force a plan) and
+    add one to the counts of the wrapper named ``counter``.  Returns ``(drift (B, d_out), div)``, div as
     :func:`_div_shape` says."""
     B, d_in = x_in.shape
     H = b_eff.shape[0]
@@ -1050,7 +1149,8 @@ def _fused_mlp_cuda(x_in, e, w_in, b_eff, hidden_w, hidden_b, w_out, b_out, c0c1
     check_compute_dtype(compute_dtype)
     hidden = [{"w": w} for w in hidden_w]
     device = check_operands(expect, hidden, H, "fused kernel", lane(compute_dtype))
-    rows, smem = _plan(H, mode, d_in, d_out, n_tan, compute_dtype, rows or None)
+    rows, smem, group, planes = _plan(H, mode, d_in, d_out, n_tan, compute_dtype, rows or None,
+                                      None if group < 0 else group, None if planes < 0 else bool(planes))
     if compute_dtype == "bfloat16":
         w_in, hidden_w, w_out = _bf16_operands(w_in, hidden_w, w_out)
 
@@ -1059,16 +1159,13 @@ def _fused_mlp_cuda(x_in, e, w_in, b_eff, hidden_w, hidden_b, w_out, b_out, c0c1
     if B == 0:
         return drift, div
     lib = _kernel_lib()
-    n = len(hidden_w)
-    w_ptrs = (ctypes.c_void_p * max(n, 1))(*[w.data_ptr() for w in hidden_w])
-    b_ptrs = (ctypes.c_void_p * max(n, 1))(*[b.data_ptr() for b in hidden_b])
     err = lib.ff_fused_mlp(
         x_in.data_ptr(), e.data_ptr() if mode in ("hutchinson", "tangents") else None,
-        w_in.data_ptr(), b_eff.data_ptr(), w_ptrs, b_ptrs, n,
+        w_in.data_ptr(), b_eff.data_ptr(), layer_table(hidden_w, hidden_b, device), len(hidden_w),
         w_out.data_ptr(), b_out.data_ptr(), c0c1.data_ptr(), drift.data_ptr(),
         div.data_ptr() if mode != "forward" else None,
         B, d_in, d_out, H, _MODES.index(mode), _KERNEL_ACTIVATIONS.index(activation),
-        COMPUTE_DTYPES.index(compute_dtype), n_tan, rows, smem,
+        COMPUTE_DTYPES.index(compute_dtype), n_tan, rows, group, int(planes), smem,
         torch.cuda.current_stream(device).cuda_stream,
     )
     if err != 0:
@@ -1094,7 +1191,7 @@ fused_mlp_op = torch.library.custom_op(
     f"{OP_NAMESPACE}::fused_mlp", _fused_mlp_cuda, mutates_args=(), device_types="cuda",
     schema="(Tensor x_in, Tensor? e, Tensor w_in, Tensor b_eff, Tensor[] hidden_w, Tensor[] hidden_b, "
            "Tensor w_out, Tensor b_out, Tensor c0c1, str mode, int d_out, int n_tan, str activation, "
-           "str compute_dtype, str counter, int rows) -> (Tensor, Tensor)",
+           "str compute_dtype, str counter, int rows, int group=-1, int planes=-1) -> (Tensor, Tensor)",
 )
 
 
@@ -1112,7 +1209,7 @@ def folded_net(x_in, w_in, b_eff, hidden_w, hidden_b, w_out, b_out, d_out, activ
 
 @fused_mlp_op.register_kernel("cpu")
 def _fused_mlp_op_cpu(x_in, e, w_in, b_eff, hidden_w, hidden_b, w_out, b_out, c0c1, mode, d_out, n_tan,
-                      activation, compute_dtype, counter, rows):
+                      activation, compute_dtype, counter, rows, group=-1, planes=-1):
     """The op on CPU tensors: the plain version of the folded operands
     (``torch.func.jvp`` for the divergence and the J v columns, TF32 off;
     in ``bfloat16`` the explicit chain of :func:`_bf16_reference`),
@@ -1142,7 +1239,7 @@ def _fused_mlp_op_cpu(x_in, e, w_in, b_eff, hidden_w, hidden_b, w_out, b_out, c0
 
 @fused_mlp_op.register_fake
 def _fused_mlp_op_fake(x_in, e, w_in, b_eff, hidden_w, hidden_b, w_out, b_out, c0c1, mode, d_out, n_tan,
-                       activation, compute_dtype, counter, rows):
+                       activation, compute_dtype, counter, rows, group=-1, planes=-1):
     """The op's output shapes, for tracing: drift (B, d_out) and div as
     :func:`_div_shape` says (the wrappers check the plan before the call)."""
     B = x_in.shape[0]

@@ -31,11 +31,14 @@ through w_in[:D] is strict up to ``fused_mlp.RANK1_MAX`` = 16 rows and, past
 that, goes through the 3xTF32 split in ``highf32`` and through rounded
 operands in ``bfloat16``, as the JAX kernel's ``in_proj_rows`` takes it.
 
-A launch's plan, :func:`sketch_plan`, is ``(rows, smem_bytes, md)``: the
-rows a block owns (the most blocks an SM holds, up to three, at the most
-rows that reach them), its shared memory and the algebra's bucket of D.
-A row's arithmetic does not depend on the rows, nor on the bucket among 2,
-4 and 8.
+A launch's plan, :func:`sketch_plan`, is ``(rows, smem_bytes, md,
+group)``: the rows a block owns (the most blocks an SM holds, up to three,
+at the most rows that reach them), its shared memory, the algebra's bucket
+of D and the probe columns an application carries at once (0: all of
+them, wherever that fits; groups of fewer, at 4 rows a block, only where
+it does not).  A grouped plan is wide: it fits one block an SM and
+launches the kernel's wide instantiations.  A row's arithmetic does not depend on the rows, on the group, nor on
+the bucket among 2, 4 and 8.
 """
 
 from __future__ import annotations
@@ -139,87 +142,118 @@ def sketch_md(D: int) -> int:
     )
 
 
-def _algebra_floats(sketch_mode: str, n_s: int, D: int, d_in: int, n_act: int, H: int) -> int:
+def _algebra_floats(sketch_mode: str, n_s: int, D: int, d_in: int, n_act: int, H: int,
+                    grouped: bool = False) -> int:
     """XTrace's matrices a row in shared memory past the rest of the layout.
     Each lies over storage that is free when it is needed, where that holds
     it: R of the QR (m x m) over the input tile (d_in floats a row), A Q
     (m x D), inv(R) and the H, W, T grids (m x m each) over the act' store
-    (n_act x H); Hutch++ keeps none.  The wide path (D > 8) counts nothing
+    (n_act x H), unless the last application runs in groups (``grouped``):
+    each group reads the store, and A Q is written as a group ends, so
+    these stay past it; Hutch++ keeps none.  The wide path (D > 8) counts nothing
     more: its QR runs in place on the probe tile's columns, basis completion
     in the degenerate column itself, and Hutch++'s r projections of a
     residual probe lie over the input tile (d_in >= D >= r floats a row)."""
     if sketch_mode == "hutchpp":
         return 0
     rr, late = n_s * n_s, 4 * n_s * n_s + n_s * D
-    return (rr if rr > d_in else 0) + (late if late > n_act * H else 0)
+    return (rr if rr > d_in else 0) + (late if grouped or late > n_act * H else 0)
 
 
-def _smem_bytes(rows: int, H: int, n_act: int, d_in: int, D: int, kmax: int, ncols: int, n_alg: int,
+def _smem_bytes(rows: int, H: int, n_act: int, d_in: int, D: int, group: int, ncols: int, n_alg: int,
                 compute_dtype: str = "float32") -> int:
     """Shared memory of one block in the kernel's layout: the act' store
-    (n_act x rows x H), the double buffer of the widest application
-    (2 x kmax x rows x H; in ``bfloat16`` one fp32 buffer and one 2-byte
-    bf16 plane, kmax x rows x (H + ``fused_mlp.PAD_BF16``) values each),
+    (n_act x rows x H), the double buffer of a group of chains
+    (2 x group x rows x H; in ``bfloat16`` one fp32 buffer and one 2-byte
+    bf16 plane, group x rows x (H + ``fused_mlp.PAD_BF16``) values each),
     the (rows, d_in) input tile, the (rows, ncols, D) probe tile and the
     algebra's n_alg floats a row, float32 but for the plane.  The same at
     every D: the wide path's vectors are the probe tile's columns."""
     tiles = 4 * rows * (n_act * H + d_in + ncols * D + n_alg)
     if compute_dtype == "bfloat16":
-        return tiles + (4 + 2) * kmax * rows * (H + fused_mlp.PAD_BF16)
-    return tiles + 4 * 2 * kmax * rows * H
+        return tiles + (4 + 2) * group * rows * (H + fused_mlp.PAD_BF16)
+    return tiles + 4 * 2 * group * rows * H
 
 
-def _layout_bytes(sketch_mode, H, n_act, d_in, D, n_s, n_g, compute_dtype="float32"):
-    """``smem_bytes(rows)`` of the kernel's layout in ``compute_dtype``."""
+def _layout_bytes(sketch_mode, H, n_act, d_in, D, n_s, n_g, compute_dtype="float32", group=0):
+    """``smem_bytes(rows)`` of the kernel's layout in ``compute_dtype``,
+    for groups of ``group`` chains (0: the widest application's kmax, one
+    group)."""
     kmax, ncols = _layout(sketch_mode, n_s, n_g)
-    n_alg = _algebra_floats(sketch_mode, n_s, D, d_in, n_act, H)
-    return lambda rows: _smem_bytes(rows, H, n_act, d_in, D, kmax, ncols, n_alg, compute_dtype)
+    group = group or kmax
+    n_alg = _algebra_floats(sketch_mode, n_s, D, d_in, n_act, H, group < kmax)
+    return lambda rows: _smem_bytes(rows, H, n_act, d_in, D, group, ncols, n_alg, compute_dtype)
+
+
+def _default_plan(sketch_mode, H, n_act, d_in, D, n_s, n_g, compute_dtype="float32"):
+    """``(rows, group)`` of the plan :func:`sketch_plan` takes, or None:
+    every column of an application in one group (group 0) at the rows of
+    ``fused_mlp._pick_rows``; else the largest group that fits at 4 rows a
+    block."""
+    kmax, _ = _layout(sketch_mode, n_s, n_g)
+    picked = _pick_rows(_layout_bytes(sketch_mode, H, n_act, d_in, D, n_s, n_g, compute_dtype), SKETCH_BLOCKS)
+    if picked is not None:
+        return picked[0], 0
+    group = next((g for g in range(kmax - 1, 0, -1)
+                  if _layout_bytes(sketch_mode, H, n_act, d_in, D, n_s, n_g, compute_dtype, g)(4) <= _SMEM_LIMIT),
+                 None)
+    return None if group is None else (4, group)
 
 
 def sketch_plan(sketch_mode: str, H: int, n_act: int, d_in: int, D: int, n_s: int, n_g: int,
-                rows: Optional[int] = None, md: Optional[int] = None, compute_dtype: str = "float32"):
-    """``(rows, smem_bytes, md)`` of a launch in ``compute_dtype`` (float32
-    and highf32 share a layout), or raise when D is past
+                rows: Optional[int] = None, md: Optional[int] = None, compute_dtype: str = "float32",
+                group: Optional[int] = None):
+    """``(rows, smem_bytes, md, group)`` of a launch in ``compute_dtype``
+    (float32 and highf32 share a layout), or raise when D is past
     ``MAX_SKETCH_DIM`` = 64 or the shared-memory plan does not fit.
     ``n_act`` counts the activation layers (the hidden widths).  Rows: the
     most blocks an SM holds, at the most rows that reach them.  ``md``: the
     bucket of :func:`sketch_md`, 2, 4 or 8 (the register algebra) or 64 (the
-    wide path, 8 < D <= 64).  ``rows`` and ``md`` force a plan (a multiple
-    of 4 rows, a bucket >= D).  A row's arithmetic does not depend on rows,
-    nor on md among 2, 4 and 8."""
+    wide path, 8 < D <= 64).  ``group``: the probe columns an application
+    carries at once, 0 for all of them (r, then r + m, for Hutch++; m for
+    XTrace) wherever that fits, else the largest group that fits at 4 rows
+    a block (a wide plan, one block an SM).  ``rows``, ``md`` and ``group``
+    force a plan (a multiple of 4 rows, a bucket >= D, a group of 0 to the
+    widest application's columns); what is not forced is the default
+    plan's.  A row's arithmetic does not
+    depend on rows or group, nor on md among 2, 4 and 8."""
     bucket = sketch_md(D)
     md = bucket if md is None else md
     if md not in SKETCH_MD or md < D:
         raise ValueError(f"sketch algebra bucket {md} is not one of {SKETCH_MD} at least D={D}")
-    smem_bytes = _layout_bytes(sketch_mode, H, n_act, d_in, D, n_s, n_g, compute_dtype)
-    if rows is None:
-        picked = _pick_rows(smem_bytes, SKETCH_BLOCKS)
-        if picked is None:
-            kmax, _ = _layout(sketch_mode, n_s, n_g)
-            raise ValueError(
-                f"fused sketch kernel shared-memory plan does not fit: {n_act} stored act' "
-                f"layers and 2 x {kmax} chains of width H={H} need {smem_bytes(4)} bytes at "
-                f"4 rows a block in {compute_dtype} (limit {_SMEM_LIMIT}); use fewer probes, a "
-                "narrower net, or use_fused_kernel=False"
-            )
-        rows = picked[0]
-    elif rows % 4 or not 4 <= rows <= 256 or smem_bytes(rows) > _SMEM_LIMIT:
+    kmax, _ = _layout(sketch_mode, n_s, n_g)
+    own = _default_plan(sketch_mode, H, n_act, d_in, D, n_s, n_g, compute_dtype)
+    if own is None and rows is None and group is None:
+        smem_bytes = _layout_bytes(sketch_mode, H, n_act, d_in, D, n_s, n_g, compute_dtype, 1)
+        raise ValueError(
+            f"fused sketch kernel shared-memory plan does not fit: {n_act} stored act' "
+            f"layers and 2 chains of width H={H} need {smem_bytes(4)} bytes at "
+            f"4 rows a block in {compute_dtype} (limit {_SMEM_LIMIT}); use fewer probes, a "
+            "narrower or shallower net, or use_fused_kernel=False"
+        )
+    rows = (own[0] if own else 4) if rows is None else rows
+    group = (own[1] if own else 0) if group is None else group
+    if not 0 <= group <= kmax:
+        raise ValueError(f"sketch plan of group {group}: 0 to the widest application's {kmax} columns")
+    smem_bytes = _layout_bytes(sketch_mode, H, n_act, d_in, D, n_s, n_g, compute_dtype, group)
+    if rows % 4 or not 4 <= rows <= 256 or smem_bytes(rows) > _SMEM_LIMIT:
         raise ValueError(f"sketch plan of {rows} rows: a multiple of 4 up to 256 whose block fits")
-    return rows, smem_bytes(rows), md
+    return rows, smem_bytes(rows), md, group
 
 
 def _wrapper_plan(*args, **kwargs):
     """A wrapper's plan, :func:`sketch_plan` for its config, which also
     checks the envelope.  While ``torch.export`` traces a solve it is
-    ``(0, 0, 0)``: inside the traced loop body the sizes may be symbolic,
-    and the op's launch plans from the concrete shapes (and raises) when
-    the program runs."""
-    return (0, 0, 0) if torch.compiler.is_compiling() else sketch_plan(*args, **kwargs)
+    ``(0, 0, 0, -1)``: inside the traced loop body the sizes may be
+    symbolic, and the op's launch plans from the concrete shapes (and
+    raises) when the program runs."""
+    return (0, 0, 0, -1) if torch.compiler.is_compiling() else sketch_plan(*args, **kwargs)
 
 
 def sketch_blocks(plan) -> int:
     """Blocks of ``plan`` an SM holds by its shared memory and the launch
-    bounds (``sketch_occupancy`` asks the card)."""
+    bounds (``sketch_occupancy`` asks the card).  A default plan that groups
+    holds one block by its shared memory."""
     return min(SKETCH_BLOCKS, blocks_per_sm(plan[1]))
 
 
@@ -232,8 +266,7 @@ def supports_sketch(
     if n_dimensions > MAX_SKETCH_DIM:
         return False
     H = -(-hidden // lane(compute_dtype)) * lane(compute_dtype)
-    smem_bytes = _layout_bytes(sketch_mode, H, n_act, n_features, n_dimensions, n_s, n_g, compute_dtype)
-    return _pick_rows(smem_bytes, SKETCH_BLOCKS) is not None
+    return _default_plan(sketch_mode, H, n_act, n_features, n_dimensions, n_s, n_g, compute_dtype) is not None
 
 
 def _sketch_reference(f, x, probes, sketch_mode):
@@ -408,11 +441,10 @@ def _kernel_lib(compute_dtype: str) -> ctypes.CDLL:
     fn = lib.ff_fused_sketch
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        pp = ctypes.POINTER(ctypes.c_void_p)
-        fn.argtypes = [p, p, p, p, pp, pp, i, p, p, p, p, p] + [i] * 11 + [ctypes.c_size_t, p]
+        fn.argtypes = [p, p, p, p, p, i, p, p, p, p, p] + [i] * 12 + [ctypes.c_size_t, p]
         fn.restype = ctypes.c_int
         ip = ctypes.POINTER(ctypes.c_int)
-        lib.ff_sketch_occupancy.argtypes = [i, i, ctypes.c_size_t, ip, ip, ip]
+        lib.ff_sketch_occupancy.argtypes = [i, i, i, ctypes.c_size_t, ip, ip, ip]
         lib.ff_sketch_occupancy.restype = ctypes.c_int
         want = {"ff_sketch_max_dim": MAX_SKETCH_DIM, "ff_sketch_min_blocks": SKETCH_BLOCKS,
                 "ff_sketch_precision": COMPUTE_DTYPES.index(compute_dtype)}
@@ -430,37 +462,39 @@ def sketch_occupancy(plan, compute_dtype: str = "float32") -> dict:
     (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), registers and
     local-memory bytes a thread.  Builds the kernel; needs a card."""
     check_compute_dtype(compute_dtype)
-    rows, smem, md = plan
+    rows, smem, md, group = plan
     out = [ctypes.c_int(0) for _ in range(3)]
-    err = _kernel_lib(compute_dtype).ff_sketch_occupancy(md, COMPUTE_DTYPES.index(compute_dtype), smem,
+    err = _kernel_lib(compute_dtype).ff_sketch_occupancy(md, COMPUTE_DTYPES.index(compute_dtype), group, smem,
                                                          *[ctypes.byref(v) for v in out])
     if err != 0:
         raise RuntimeError(f"fused_sketch occupancy query failed with CUDA error {err}")
     blocks, regs, local_bytes = (v.value for v in out)
-    return dict(rows=rows, smem_bytes=smem, md=md, blocks_per_sm=blocks, registers=regs, local_bytes=local_bytes)
+    return dict(rows=rows, smem_bytes=smem, md=md, group=group, blocks_per_sm=blocks, registers=regs,
+                local_bytes=local_bytes)
 
 
 def _launch(x_in, V, w_in, b_eff, layers, c0c1, sketch_mode, D, n_s, n_g, activation, plan, counter,
             compute_dtype="float32"):
     """Launch the kernel through the registered op ``fused_sketch`` (eager
     and traced calls alike) in ``compute_dtype`` on the current stream, at
-    ``plan`` (its rows and MD; the bytes follow from them); the launch is
-    added to ``counter``'s counts.  ``V`` is the (n_s + n_g, B, D) probe
+    ``plan`` (its rows, MD and group; the bytes follow from them); the
+    launch is added to ``counter``'s counts.  ``V`` is the (n_s + n_g, B, D) probe
     stack.  Returns ``(drift (B, D), div (B,))``."""
     hidden = layers[1:-1]
-    rows, _, md = plan
+    rows, _, md, group = plan
     return fused_sketch_op(
         x_in, V, w_in, b_eff, [l["w"] for l in hidden], [l["b"] for l in hidden], layers[-1]["w"],
         layers[-1]["b"], c0c1, sketch_mode, D, n_s, n_g, activation, compute_dtype, counter.__name__, rows, md,
+        group,
     )
 
 
 def _fused_sketch_cuda(x_in, V, w_in, b_eff, hidden_w, hidden_b, w_out, b_out, c0c1, mode, D, n_s, n_g,
-                       activation, compute_dtype, counter, rows, md):
+                       activation, compute_dtype, counter, rows, md, group=-1):
     """The CUDA kernel of the op ``fused_sketch``: check the operands,
     allocate the outputs, launch ``csrc/fused_sketch.cu`` on the current
-    stream at the plan of :func:`sketch_plan` (``rows`` and ``md`` > 0
-    force one) and add one to the counts of the wrapper named ``counter``.
+    stream at the plan of :func:`sketch_plan` (``rows`` and ``md`` > 0 and
+    ``group`` >= 0 force one) and add one to the counts of the wrapper named ``counter``.
     In ``bfloat16`` the weights are converted once a call as the RHS
     kernel takes them (``fused_mlp._bf16_operands``).  Returns ``(drift
     (B, D), div (B,))``."""
@@ -475,8 +509,8 @@ def _fused_sketch_cuda(x_in, V, w_in, b_eff, hidden_w, hidden_b, w_out, b_out, c
     expect += [(w, (H, H)) for w in hidden_w] + [(b, (H,)) for b in hidden_b]
     check_compute_dtype(compute_dtype)
     device = check_operands(expect, [{"w": w} for w in hidden_w], H, "fused sketch kernel", lane(compute_dtype))
-    rows, smem, md = sketch_plan(mode, H, len(hidden_w) + 1, d_in, D, n_s, n_g, rows or None, md or None,
-                                 compute_dtype)
+    rows, smem, md, group = sketch_plan(mode, H, len(hidden_w) + 1, d_in, D, n_s, n_g, rows or None, md or None,
+                                        compute_dtype, None if group < 0 else group)
     if compute_dtype == "bfloat16":
         w_in, hidden_w, w_out = fused_mlp._bf16_operands(w_in, hidden_w, w_out)
 
@@ -485,14 +519,12 @@ def _fused_sketch_cuda(x_in, V, w_in, b_eff, hidden_w, hidden_b, w_out, b_out, c
     if B == 0:
         return drift, div
     lib = _kernel_lib(compute_dtype)
-    n = len(hidden_w)
-    w_ptrs = (ctypes.c_void_p * max(n, 1))(*[w.data_ptr() for w in hidden_w])
-    b_ptrs = (ctypes.c_void_p * max(n, 1))(*[b.data_ptr() for b in hidden_b])
     err = lib.ff_fused_sketch(
-        x_in.data_ptr(), probes.data_ptr(), w_in.data_ptr(), b_eff.data_ptr(), w_ptrs, b_ptrs, n,
+        x_in.data_ptr(), probes.data_ptr(), w_in.data_ptr(), b_eff.data_ptr(),
+        fused_mlp.layer_table(hidden_w, hidden_b, device), len(hidden_w),
         w_out.data_ptr(), b_out.data_ptr(), c0c1.data_ptr(), drift.data_ptr(), div.data_ptr(),
         B, d_in, D, H, SKETCH_MODES.index(mode), _KERNEL_ACTIVATIONS.index(activation),
-        COMPUTE_DTYPES.index(compute_dtype), n_s, n_g, md, rows, smem,
+        COMPUTE_DTYPES.index(compute_dtype), n_s, n_g, md, rows, group, smem,
         torch.cuda.current_stream(device).cuda_stream,
     )
     if err != 0:
@@ -509,13 +541,13 @@ fused_sketch_op = torch.library.custom_op(
     f"{fused_mlp.OP_NAMESPACE}::fused_sketch", _fused_sketch_cuda, mutates_args=(), device_types="cuda",
     schema="(Tensor x_in, Tensor V, Tensor w_in, Tensor b_eff, Tensor[] hidden_w, Tensor[] hidden_b, "
            "Tensor w_out, Tensor b_out, Tensor c0c1, str mode, int D, int n_s, int n_g, str activation, "
-           "str compute_dtype, str counter, int rows, int md) -> (Tensor, Tensor)",
+           "str compute_dtype, str counter, int rows, int md, int group=-1) -> (Tensor, Tensor)",
 )
 
 
 @fused_sketch_op.register_kernel("cpu")
 def _fused_sketch_op_cpu(x_in, V, w_in, b_eff, hidden_w, hidden_b, w_out, b_out, c0c1, mode, D, n_s, n_g,
-                         activation, compute_dtype, counter, rows, md):
+                         activation, compute_dtype, counter, rows, md, group=-1):
     """The op on CPU tensors: the ``ops.trace`` estimator on the plain net
     of the folded operands (TF32 off; in ``bfloat16``
     :func:`_bf16_sketch_reference`), counting nothing."""
@@ -533,7 +565,7 @@ def _fused_sketch_op_cpu(x_in, V, w_in, b_eff, hidden_w, hidden_b, w_out, b_out,
 
 @fused_sketch_op.register_fake
 def _fused_sketch_op_fake(x_in, V, w_in, b_eff, hidden_w, hidden_b, w_out, b_out, c0c1, mode, D, n_s, n_g,
-                          activation, compute_dtype, counter, rows, md):
+                          activation, compute_dtype, counter, rows, md, group=-1):
     """The op's output shapes, for tracing: drift (B, D) and div (B,) (the
     wrappers check the plan before the call)."""
     B = x_in.shape[0]

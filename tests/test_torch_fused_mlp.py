@@ -136,11 +136,16 @@ def test_envelope_and_refusals():
     assert not fused_mlp.supports_config((30,)) and fused_mlp.fusable_config((30,))
     assert not fused_mlp.supports_config((128, 64)) and fused_mlp.fusable_config((128, 64))
     assert not fused_mlp.fusable_config((128,), "swish")
-    assert not fused_mlp.fusable_config((128,) * 18)  # 17 hidden (H, H) layers
+    # any depth, as the JAX package's paddable_config: the hidden layers
+    # reach the kernels through a table in device memory
+    assert fused_mlp.fusable_config((128,) * 18) and fused_mlp.paddable_config((128,) * 93)
+    assert not fused_mlp.fusable_config(()) and not fused_mlp.paddable_config((128,), "swish")
     # the feature envelope is the kernel's shared-memory plan: 17 exact
-    # features fit at H=128 (4 rows a block), 16 do not at H=1024
+    # features fit at H=128 (4 rows a block), 16 at H=1024 in passes of
+    # fewer basis chains, and not at H=4096, past the JAX gate too
     assert fused_mlp.supports_features(17, "exact", 128)
-    assert not fused_mlp.supports_features(16, "exact", 1024)
+    assert fused_mlp.supports_features(16, "exact", 1024)
+    assert not fused_mlp.supports_features(16, "exact", 4096)
     assert fused_mlp.supports_features(16, "hutchinson", 1024)
     assert fused_mlp.supports_features(64) and fused_mlp.supports_features(9, "exact", 256, 6)
     assert fused_mlp.flops_per_row(2, 2, 128, 4, "hutchinson") == 133_120
@@ -155,17 +160,18 @@ def test_envelope_and_refusals():
         fused_mlp.fused_drift(params, cfg, 0.5, x, torch.zeros(4, 3), compute_dtype="float16")
     with pytest.raises(ValueError, match="OR"):
         fused_mlp.fused_drift(params, cfg, 0.5, x, torch.zeros(4, 3), e=x, exact_divergence=True)
-    # shared-memory plan: exact trace of 16 features at H=1024 cannot fit,
-    # and the wrapper refuses it on every device
-    assert fused_mlp._rows_per_block(1024, 17, 16, 16) is None
-    wide = nets.ScoreMLPConfig(n_dimensions=16, units=(1024,))
+    # shared-memory plan: exact trace of 16 features at H=1024 cannot fit
+    # in one pass, nor at H=4096 in any, and the wrapper refuses that on
+    # every device
+    assert fused_mlp._default_plan(1024, "exact", 16, 16)[2] > 0  # passes of fewer basis chains
+    wide = nets.ScoreMLPConfig(n_dimensions=16, units=(4096,))
     wide_params = nets.init_score_mlp(wide, torch.Generator().manual_seed(0), "cpu")
     with pytest.raises(ValueError, match="shared-memory"):
         fused_mlp.fused_drift(wide_params, wide, 0.5, torch.zeros(4, 16), exact_divergence=True)
-    assert fused_mlp._rows_per_block(128, 2, 2, 2) == 32
-    assert fused_mlp._rows_per_block(128, 1, 2, 2) == 64  # forward: one chain
-    assert fused_mlp._plan(128, "exact", 16, 16) == (4, 4 * (2 * 17 * 4 * (128 + 4) + 4 * 32))
-    assert not fused_mlp.supports_features(16, "exact", 1024, compute_dtype="highf32")
+    assert fused_mlp._default_plan(128, "hutchinson", 2, 2)[0] == 32
+    assert fused_mlp._default_plan(128, "forward", 2, 2)[0] == 64  # forward: one chain
+    assert fused_mlp._plan(128, "exact", 16, 16) == (4, 4 * (2 * 17 * 4 * (128 + 4) + 4 * 32), 0, False)
+    assert not fused_mlp.supports_features(16, "exact", 4096, compute_dtype="highf32")
 
 
 def test_rhs_blocks_an_sm_count_the_block_reserve():
@@ -212,16 +218,18 @@ def test_rhs_plan(H, mode, d_in, d_out, n_tan, dtype, rows, blocks):
         return 4 * r * (buffers * chains * (H + 4) + d_in + d_out * max(1, n_tan))
 
     plan = fused_mlp._plan(H, mode, d_in, d_out, n_tan, dtype)
-    assert plan == (rows, smem(rows))
+    # every tangent chain in one pass (group 0), highf32 with its planes
+    assert plan == (rows, smem(rows), 0, dtype == "highf32")
+    assert not fused_mlp.plan_wide(plan, dtype)
     assert fused_mlp.plan_blocks(plan) == blocks == min(3, fused_mlp.blocks_per_sm(smem(rows)))
     if rows < 64:  # twice the rows would cost a block
         assert smem(2 * rows) > fused_mlp._SMEM_LIMIT or fused_mlp.blocks_per_sm(smem(2 * rows)) < blocks
     # the plan at rows forced to 4 keeps the layout
-    assert fused_mlp._plan(H, mode, d_in, d_out, n_tan, dtype, rows=4) == (4, smem(4))
+    assert fused_mlp._plan(H, mode, d_in, d_out, n_tan, dtype, rows=4) == (4, smem(4), 0, dtype == "highf32")
 
 
 def test_rhs_plan_forced_rows():
-    assert fused_mlp._plan(128, "hutchinson", 2, 2, rows=8) == (8, 4 * 8 * (2 * 2 * 132 + 4))
+    assert fused_mlp._plan(128, "hutchinson", 2, 2, rows=8) == (8, 4 * 8 * (2 * 2 * 132 + 4), 0, False)
     for rows in (6, 0, 260):
         with pytest.raises(ValueError, match="multiple of 4"):
             fused_mlp._plan(128, "hutchinson", 2, 2, rows=rows)
@@ -229,18 +237,19 @@ def test_rhs_plan_forced_rows():
         fused_mlp._plan(128, "exact", 16, 16, rows=64)
 
 
-# (features, mode, D, widest H in float32, in highf32, in bfloat16): at 4
-# rows a block the highf32 plan keeps the activations' TF32 hi and lo planes
-# beside the pre-activations, three buffers where float32 has two, so its
-# widest hidden layer is about two thirds of float32's; bfloat16 keeps one
-# 2-byte plane beside the pre-activations (rows H + 8 apart), 6 bytes a
-# value where float32 has 8, so its widest is about four thirds of
-# float32's (in steps of its 16-wide lane)
+# (features, mode, D, widest H in float32, in highf32, in bfloat16): the
+# widest plans carry the primal and one tangent chain a pass at 4 rows a
+# block (exact in D passes), and highf32 drops its TF32 hi and lo planes
+# there, so it reaches float32's widest; bfloat16 keeps one 2-byte plane
+# beside the pre-activations (rows H + 8 apart), 6 bytes a value where
+# float32 has 8, so its widest is about four thirds of float32's (in steps
+# of its 16-wide lane).  One lane wider is past the JAX package's gate too
+# (chains x H <= 12,288, H in multiples of 128).
 _ENVELOPE = [
-    (9, "exact", 6, 1032, 680, 1360),
-    (9, "hutchinson", 6, 3624, 2408, 4816),
-    (2, "exact", 2, 2416, 1608, 3216),
-    (2, "hutchinson", 2, 3624, 2416, 4832),
+    (9, "exact", 6, 3624, 3624, 4816),
+    (9, "hutchinson", 6, 3624, 3624, 4816),
+    (2, "exact", 2, 3624, 3624, 4832),
+    (2, "hutchinson", 2, 3624, 3624, 4832),
 ]
 
 
@@ -248,7 +257,10 @@ _ENVELOPE = [
 def test_rhs_envelope_widths(n_features, mode, D, widest_float32, widest_highf32, widest_bfloat16):
     for dtype, widest in (("float32", widest_float32), ("highf32", widest_highf32), ("bfloat16", widest_bfloat16)):
         assert fused_mlp.supports_features(n_features, mode, widest, D, dtype)
-        assert not fused_mlp.supports_features(n_features, mode, widest + fused_mlp.lane(dtype), D, dtype)
+        past = widest + fused_mlp.lane(dtype)
+        assert not fused_mlp.supports_features(n_features, mode, past, D, dtype)
+        with pytest.raises(ValueError, match="VMEM"):
+            jfm.vmem_width_clamp(256, -(-past // 128) * 128, D + 3 if mode == "exact" else 4)
 
 
 @pytest.mark.parametrize("H, D, with_cond, plan", [

@@ -111,10 +111,10 @@ def test_cuda_kernel_four_row_plan(cuda_device, mode):
 
 @pytest.mark.gpu
 def test_auto_dispatch_on_card_raises_outside_envelope(cuda_device):
-    """Auto dispatch launches the kernel or raises: 16 exact chains of
-    width 1024 overflow shared memory, and the plain path runs on the card
-    only when asked for."""
-    cfg = ScoreMLPConfig(n_dimensions=16, units=(1024,))
+    """Auto dispatch launches the kernel or raises: exact chains of width
+    4096 overflow shared memory even one basis chain a pass, and the plain
+    path runs on the card only when asked for."""
+    cfg = ScoreMLPConfig(n_dimensions=16, units=(4096,))
     model = ScoreModel(init_score_mlp(cfg, torch.Generator().manual_seed(0), cuda_device), cfg, VESDE())
     x = torch.randn(8, 16, generator=torch.Generator().manual_seed(1)).to(cuda_device)
     with pytest.raises(ValueError, match="use_fused_kernel=False"):
@@ -650,6 +650,9 @@ def _train_net(family, device, C=0):
     if family == "score":
         cfg = ScoreMLPConfig(n_dimensions=2, n_conditionals=C, units=(128, 128, 128))
         return cfg, init_score_mlp(cfg, g, device)
+    if family == "score_deep":  # 20 hidden widths: past the 17 fusable_config held before any depth
+        cfg = ScoreMLPConfig(n_dimensions=2, units=(32,) * 20)
+        return cfg, init_score_mlp(cfg, g, device)
     if family == "score_odd":  # K = 11, hidden 30 and 18, D = 3: every width padded to 4
         cfg = ScoreMLPConfig(n_dimensions=3, units=(30, 18), activation="tanh")
         return cfg, init_score_mlp(cfg, g, device)
@@ -667,7 +670,8 @@ def _max_layer_err(a, b):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("family,C,bs", [("score", 0, 512), ("score", 0, 500), ("score", 3, 256),
-                                         ("score_odd", 0, 77), ("velocity", 2, 300), ("symplectic", 0, 512)])
+                                         ("score_odd", 0, 77), ("score_deep", 0, 256), ("velocity", 2, 300),
+                                         ("symplectic", 0, 512)])
 def test_train_kernel_matches_plain_version(cuda_device, family, C, bs):
     """Two chained calls of 4 steps with the EMA on, against the plain
     version at the JAX package's bars: losses rtol 1e-5, layers 3e-5 after
@@ -1318,3 +1322,154 @@ def test_loader_batch_on_the_card(cuda_device, tmp_path):
     lp, st = model.log_prob(on_card[:, :6], conditional=on_card[:, 6:], generator=torch.Generator().manual_seed(6))
     assert bool(torch.isfinite(lp).all()) and lp.shape == (4096,)
     assert fused_mlp.fused_drift.launches_by_mode["hutchinson"] - before == st.n_func_evals
+
+
+# -- the wide plans: tangent chains in groups, highf32 without its planes,
+# the sketch's probe columns in groups, any depth --------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("compute_dtype", ["float32", "highf32", "bfloat16"])
+@pytest.mark.parametrize("D, C, H", [(2, 0, 128), (6, 3, 256)])
+def test_rhs_wide_plan_forms_are_bitwise_the_default_plan(cuda_device, D, C, H, compute_dtype):
+    """Each mode's launch at its own plan equals, bitwise, the same launch
+    forced to each wide form: passes of one, half and all the tangent
+    chains, and highf32 without its TF32 planes (alone and with one chain a
+    pass); 1,001 ragged rows.  Every wide instantiation keeps no local
+    memory."""
+    for mode in ("forward", "hutchinson", "exact", "tangents"):
+        x_in, e, w_in, b_eff, layers, c0c1, mode, D_, n_tan = _rhs_launch_args(cuda_device, D, C, H, mode)
+        n_t = {"forward": 0, "hutchinson": 1, "exact": D, "tangents": n_tan}[mode]
+        forced = [dict(group=g) for g in sorted({1, max(1, n_t // 2), n_t}) if n_t]
+        if compute_dtype == "highf32":
+            forced += [dict(planes=False)] + ([dict(planes=False, group=1)] if n_t else [])
+        launch = lambda **kw: fused_mlp._launch(x_in, e, w_in, b_eff, layers, c0c1, mode, D, "silu",  # noqa: E731
+                                                 n_tan=n_tan, compute_dtype=compute_dtype, **kw)
+        own = launch()
+        for kw in forced:
+            out = launch(**kw)
+            torch.cuda.synchronize()
+            assert all(torch.equal(a, b) for a, b in zip(out, own) if a is not None), (mode, kw)
+            plan = fused_mlp._plan(H, mode, D + C, D, n_tan, compute_dtype, **kw)
+            occ = fused_mlp.occupancy(plan, compute_dtype)
+            assert fused_mlp.plan_wide(plan, compute_dtype) and occ["local_bytes"] == 0, (mode, kw, occ)
+            assert occ["blocks_per_sm"] >= 1, (mode, kw, occ)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("compute_dtype", ["float32", "highf32", "bfloat16"])
+@pytest.mark.parametrize("mode", ["hutchpp", "xtrace"])
+@pytest.mark.parametrize("d,c", [(2, 0), (6, 3), (16, 8)])
+def test_sketch_probe_groups_are_bitwise_one_group(cuda_device, d, c, mode, compute_dtype):
+    """The sketch launch at its own plan (one group of every probe column)
+    equals, bitwise, the same launch with its applications in groups of 1,
+    half and all the columns (the wide instantiations; XTrace's late
+    matrices then past the probe tile), some exactly parallel Hutch++
+    sketch rows and a zero-probe row, 1,001 rows."""
+    cfg = ScoreMLPConfig(n_dimensions=d, n_conditionals=c, units=(128, 128, 128))
+    params = init_score_mlp(cfg, torch.Generator().manual_seed(14), cuda_device)
+    k = min(d, 3)
+    x, cond, probes = _sketch_case(d, c, mode, 1001, k, cuda_device, 15)
+    w_in, b_eff = fused_mlp._score_first_layer(params, cfg, 0.4, cond)
+    x_in = x if cond is None else torch.cat([x, cond], dim=-1)
+    n_s, n_g = (k, k) if mode == "hutchpp" else (k, 0)
+    kmax = fused_sketch._layout(mode, n_s, n_g)[0]
+    c0c1 = torch.tensor([-0.2, 0.8], device=cuda_device)
+    plans = [fused_sketch.sketch_plan(mode, 128, 3, d + c, d, n_s, n_g, compute_dtype=compute_dtype, group=g)
+             for g in (None, 1, max(1, kmax // 2), kmax)]
+    outs = [fused_sketch._launch(x_in, torch.cat(probes), w_in, b_eff, params["layers"], c0c1, mode, d, n_s, n_g,
+                                 "silu", plan, fused_sketch.fused_drift_sketch, compute_dtype) for plan in plans]
+    torch.cuda.synchronize()
+    for plan, out in zip(plans[1:], outs[1:]):
+        assert torch.equal(out[0], outs[0][0]) and torch.equal(out[1], outs[0][1]), plan
+        occ = fused_sketch.sketch_occupancy(plan, compute_dtype)
+        assert occ["local_bytes"] == 0 and occ["blocks_per_sm"] >= 1, occ
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("compute_dtype", ["float32", "highf32", "bfloat16"])
+def test_kernels_at_gap_widths_match_plain_versions(cuda_device, compute_dtype):
+    """The JAX gate's widest where the wide plans take over: Hutchinson at
+    H = 3,072 (highf32 without its planes), exact at 1,280 with D = 6,
+    C = 3 (passes of fewer basis chains, float32 and highf32) and Hutch++
+    r = 2, m = 1 at 2,048 (groups of probe columns), on a VP SDE's RHS
+    (c0 = -0.3: A = c0 I + c1 J well conditioned for the sketch's QR),
+    against their plain versions at the bars above (the sketch's highf32
+    drift 5e-5, div 5e-4 of the max), one block of 4 rows an SM; bf16 at
+    its mean bar and a 2x guard (10x at H <= 256: past that the fp32 sums
+    over H terms move more activations across a bf16 rounding boundary,
+    and the sketch's QR carries a flip on; a kernel that skipped a rounding
+    point sits at 1x)."""
+    g = torch.Generator().manual_seed(16)
+    B = 1003
+    for D, C, H, mode in ((2, 0, 3072, "hutchinson"), (6, 3, 1280, "exact"), (2, 0, 2048, "hutchpp")):
+        cfg = ScoreMLPConfig(n_dimensions=D, n_conditionals=C, units=(H,) * 3)
+        params = init_score_mlp(cfg, torch.Generator().manual_seed(17), cuda_device)
+        x = torch.randn(B, D, generator=g).to(cuda_device)
+        cond = torch.randn(B, C, generator=g).to(cuda_device) if C else None
+        if mode == "hutchpp":
+            probes = tuple(torch.sign(torch.randn(n, B, D, generator=g)).to(cuda_device) for n in (2, 1))
+            assert fused_sketch.sketch_plan(mode, H, 3, D + C, D, 2, 1, compute_dtype=compute_dtype)[3] > 0
+            kw = dict(c0=-0.3, c1=0.9, compute_dtype=compute_dtype)
+            out = fused_sketch.fused_drift_sketch(params, cfg, 0.4, x, probes, mode, cond, **kw)
+            ref = fused_sketch.fused_drift_sketch_reference(params, cfg, 0.4, x, probes, mode, cond, **kw)
+            strict = fused_sketch.fused_drift_sketch_reference(params, cfg, 0.4, x, probes, mode, cond, c0=-0.3,
+                                                               c1=0.9)
+            bars = {"float32": (1e-5, None), "highf32": (5e-5, 5e-4)}.get(compute_dtype)
+        else:
+            plan = fused_mlp._plan(H, mode, D + C, D, 0, compute_dtype)
+            occ = fused_mlp.occupancy(plan, compute_dtype)
+            assert occ["local_bytes"] == 0 and occ["blocks_per_sm"] == fused_mlp.plan_blocks(plan) == 1, occ
+            e = torch.sign(torch.randn(B, D, generator=g)).to(cuda_device) if mode == "hutchinson" else None
+            kw = dict(e=e, exact_divergence=mode == "exact", c0=-0.2, c1=0.8, compute_dtype=compute_dtype)
+            out = fused_mlp.fused_drift(params, cfg, 0.4, x, cond, **kw)
+            ref = fused_mlp.fused_drift_reference(params, cfg, 0.4, x, cond, **kw)
+            strict = fused_mlp.fused_drift_reference(params, cfg, 0.4, x, cond, **{**kw, "compute_dtype": "float32"})
+            bars = {"float32": (1e-5, 1e-4), "highf32": (1e-5, 5e-5)}.get(compute_dtype)
+        for i, (a, b, s) in enumerate(zip(out, ref, strict)):
+            assert bool(torch.isfinite(a).all())
+            if compute_dtype == "bfloat16":
+                mean = float((a - b).abs().mean() / b.abs().max())
+                assert mean <= 1e-5 and mean <= float((b - s).abs().mean() / b.abs().max()) / 2, (D, H, mode, i)
+            elif bars[i] is None:  # the sketch's float32 div: phase 1d's 2e-4 absolute
+                assert float((a - b).abs().max()) <= 2e-4, (D, H, mode)
+            else:
+                assert _rel(a, b) <= bars[i], (D, H, mode, i, _rel(a, b))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+def test_deep_net_on_the_card(cuda_device, compute_dtype):
+    """A net of 24 hidden widths of 128 (23 hidden layers, past the 16 the
+    kernels' parameter struct held; tanh, the hidden weights' init scale
+    times sqrt(3), unit gain, so its Jacobian stays O(1)): the RHS kernel's
+    Hutchinson launch and the EM kernel over 10 steps of streamed noise
+    against their plain versions at the bars above."""
+    cfg = ScoreMLPConfig(n_dimensions=2, units=(128,) * 24, activation="tanh")
+    params = init_score_mlp(cfg, torch.Generator().manual_seed(18), cuda_device)
+    for layer in params["layers"][1:-1]:
+        layer["w"] = layer["w"] * 3 ** 0.5
+    g = torch.Generator().manual_seed(19)
+    x = torch.randn(4096, 2, generator=g).to(cuda_device)
+    e = torch.sign(torch.randn(4096, 2, generator=g)).to(cuda_device)
+    out = fused_mlp.fused_drift(params, cfg, 0.4, x, e=e, c0=0.0, c1=1.0, compute_dtype=compute_dtype)
+    ref = fused_mlp.fused_drift_reference(params, cfg, 0.4, x, e=e, c0=0.0, c1=1.0, compute_dtype=compute_dtype)
+    if compute_dtype == "float32":
+        assert _rel(out[0], ref[0]) <= 1e-5 and _rel(out[1], ref[1]) <= 1e-4
+    else:  # a 2x guard: the flips of the fp32 sum order compound through the depth (9.4x measured)
+        strict = fused_mlp.fused_drift_reference(params, cfg, 0.4, x, e=e, c0=0.0, c1=1.0)
+        for a, b, s in zip(out, ref, strict):
+            mean = float((a - b).abs().mean() / b.abs().max())
+            assert mean <= 0.5 * float((b - s).abs().mean() / b.abs().max()), mean
+    assert float(out[1].abs().max()) > 1e-2
+    z = torch.randn(10, 4096, 2, generator=g).to(cuda_device)
+    got = em_sampler.fused_em_sample(params, cfg, VPSDE(), x, noise=z, steps=10, compute_dtype=compute_dtype)
+    want = em_sampler.fused_em_sample_reference(params, cfg, VPSDE(), x, z, steps=10, compute_dtype=compute_dtype)
+    assert not bool(got[2]) and not bool(want[2])
+    if compute_dtype == "float32":
+        for a, b in zip(got[:2], want[:2]):
+            torch.testing.assert_close(a, b, rtol=2e-4, atol=1e-4)
+    else:  # the same 2x guard against float32's plain samples
+        strict = em_sampler.fused_em_sample_reference(params, cfg, VPSDE(), x, z, steps=10)
+        for a, b, s in zip(got[:2], want[:2], strict[:2]):
+            assert float((a - b).abs().mean()) <= 0.5 * float((b - s).abs().mean())

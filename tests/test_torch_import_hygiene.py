@@ -58,6 +58,29 @@ def test_no_source_imports_or_names_the_jax_package():
     assert offenders == []
 
 
+def test_kernel_package_names():
+    """The kernel package's public names are the JAX package's
+    ``kernels/__init__.py`` names, each the wrapper or predicate of its
+    module, in a fresh interpreter."""
+    code = (
+        "import flowfusion_torch.kernels as k\n"
+        "from flowfusion_torch.kernels import em_sampler, fused_mlp\n"
+        "print(k.__all__)\n"
+        "home = {n: em_sampler if n == 'fused_em_sample' else fused_mlp for n in k.__all__}\n"
+        "print(all(getattr(k, n) is getattr(home[n], n) for n in k.__all__))\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    env["PYTHONPATH"] = ROOT
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, cwd=ROOT, env=env,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.splitlines() == [
+        "['fusable_config', 'fused_drift', 'fused_drift_reference', 'fused_em_sample', 'fused_velocity', "
+        "'pad_to_lanes', 'paddable_config', 'supports_config']",
+        "True",
+    ]
+
+
 def test_imports_without_scipy():
     """scipy only backs dop853's coefficients, loaded on first use: with
     scipy unimportable every module imports and 'dop853' raises naming it."""

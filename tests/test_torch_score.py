@@ -232,9 +232,10 @@ def test_refusals_name_their_roadmap_item(flagship):
     loss = tm.loss_fn(torch.Generator().manual_seed(0), torch.randn(8, 2, generator=torch.Generator().manual_seed(1)))
     assert loss.ndim == 0 and torch.isfinite(loss)
     # an explicit kernel request outside the envelope raises, never falls
-    # back: 16 exact-trace chains of width 1024 overflow shared memory
+    # back: exact-trace chains of width 4096 overflow shared memory even one
+    # basis chain a pass
     wide = ScoreModel(
-        tm.params, ScoreMLPConfig(n_dimensions=16, units=(1024, 1024, 1024)), VESDE(),
+        tm.params, ScoreMLPConfig(n_dimensions=16, units=(4096, 4096, 4096)), VESDE(),
         use_fused_kernel=True,
     )
     with pytest.raises(ValueError, match="envelope"):
@@ -257,12 +258,16 @@ def test_auto_dispatch_on_cuda_launches_or_raises(flagship):
     # 17 exact-trace features at H=128 fit (4 rows a block)
     d17 = dataclasses.replace(tm, net=ScoreMLPConfig(n_dimensions=17, units=(128, 128, 128)))
     assert d17._fused_available(on_card, "exact") is True
+    # 16 at H=1024 in passes of fewer basis chains; at H=4096 (past the JAX
+    # gate too) nothing fits
     big = dataclasses.replace(tm, net=ScoreMLPConfig(n_dimensions=16, units=(1024, 1024, 1024)))
     assert big._fused_available(on_card, "hutchinson") is True
+    assert big._fused_available(on_card, "exact") is True
+    huge = dataclasses.replace(tm, net=ScoreMLPConfig(n_dimensions=16, units=(4096, 4096, 4096)))
     with pytest.raises(ValueError, match="use_fused_kernel=False"):
-        big._fused_available(on_card, "exact")
-    assert dataclasses.replace(big, use_fused_kernel=False)._fused_available(on_card, "exact") is False
-    assert big._fused_available(torch.zeros(1, 16), "exact") is False
+        huge._fused_available(on_card, "exact")
+    assert dataclasses.replace(huge, use_fused_kernel=False)._fused_available(on_card, "exact") is False
+    assert huge._fused_available(torch.zeros(1, 16), "exact") is False
 
 
 def test_population_create_and_forward_cpu():

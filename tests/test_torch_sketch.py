@@ -393,9 +393,13 @@ def test_sketch_plan_and_flops():
     for H in (128, 256):
         assert fused_sketch.supports_sketch("hutchpp", H, 3, 9, 6, 6, 6)
         assert fused_sketch.supports_sketch("xtrace", H, 3, 9, 6, 6, 0)
-    assert not fused_sketch.supports_sketch("hutchpp", 1024, 3, 9, 6, 6, 6)
+    # wider in groups of fewer probe columns a Jacobian application
+    # (r = m = 6 at H = 1024: groups of 5), and not past the JAX gate too
+    # ((3 + 3) H <= 12,288: H = 2,048)
+    assert fused_sketch.sketch_plan("hutchpp", 1024, 3, 9, 6, 6, 6)[::3] == (4, 5)
+    assert not fused_sketch.supports_sketch("hutchpp", 4096, 3, 9, 6, 6, 6)
     with pytest.raises(ValueError, match="use_fused_kernel=False"):
-        fused_sketch.sketch_plan("hutchpp", 1024, 3, 9, 6, 6, 6)
+        fused_sketch.sketch_plan("hutchpp", 4096, 3, 9, 6, 6, 6)
     # flops a row: 1 + 2r + m chains (hutchpp), 1 + 2m (xtrace), 1 + K
     assert fused_mlp.flops_per_row(2, 2, 128, 4, "hutchpp", 2, 1) == 399_360
     assert fused_mlp.flops_per_row(2, 2, 128, 4, "xtrace", 2) == 332_800
@@ -412,10 +416,11 @@ def test_blocks_an_sm_count_the_block_reserve():
     # three of 16
     assert fused_sketch._pick_rows(lambda rows: 3_624 * rows) == (16, 3)
     # the RHS kernel plans with the same count (its own layout, padded rows)
-    assert fused_mlp._plan(128, "hutchinson", 2, 2) == (32, 68_096)
-    assert fused_mlp._plan(128, "exact", 2, 2) == (16, 50_944)
-    assert fused_mlp._plan(128, "forward", 2, 2) == (64, 68_608)
-    assert fused_mlp._plan(128, "exact", 9, 6) == (8, 59_616)
+    # and every tangent chain in one pass
+    assert fused_mlp._plan(128, "hutchinson", 2, 2) == (32, 68_096, 0, False)
+    assert fused_mlp._plan(128, "exact", 2, 2) == (16, 50_944, 0, False)
+    assert fused_mlp._plan(128, "forward", 2, 2) == (64, 68_608, 0, False)
+    assert fused_mlp._plan(128, "exact", 9, 6) == (8, 59_616, 0, False)
 
 
 @pytest.mark.parametrize("D", list(range(1, 18)) + [20, 24, 32, 48, 63, 64, 65])
@@ -437,20 +442,20 @@ def test_sketch_smem_bytes():
     # 4 floats a row: more than x holds); A Q, inv(R) and the H, W, T grids
     # lie over the act' store
     per_row = (3 + 4) * 128 + 2 + 4 * 2 + 4
-    assert fused_sketch.sketch_plan("xtrace", 128, 3, 2, 2, 2, 0) == (16, 4 * 16 * per_row, 2)
+    assert fused_sketch.sketch_plan("xtrace", 128, 3, 2, 2, 2, 0) == (16, 4 * 16 * per_row, 2, 0)
     # Hutch++ keeps no algebra matrices; the conditional H = 256 plans
     per_row = (3 + 12) * 256 + 9 + 6 * 6
-    assert fused_sketch.sketch_plan("hutchpp", 256, 3, 9, 6, 3, 3) == (4, 4 * 4 * per_row, 8)
+    assert fused_sketch.sketch_plan("hutchpp", 256, 3, 9, 6, 3, 3) == (4, 4 * 4 * per_row, 8, 0)
     # XTrace's R of the QR over the (rows, 9) input tile: nothing past the
     # probe tile
     per_row = (3 + 6) * 256 + 9 + 6 * 6
-    assert fused_sketch.sketch_plan("xtrace", 256, 3, 9, 6, 3, 0) == (8, 4 * 8 * per_row, 8)
+    assert fused_sketch.sketch_plan("xtrace", 256, 3, 9, 6, 3, 0) == (8, 4 * 8 * per_row, 8, 0)
     # one hidden width: no (H, H) layer
-    assert fused_sketch.sketch_plan("xtrace", 128, 1, 2, 2, 2, 0, rows=4)[1:] == (4 * 4 * (5 * 128 + 2 + 8 + 4), 2)
+    assert fused_sketch.sketch_plan("xtrace", 128, 1, 2, 2, 2, 0, rows=4)[1:] == (4 * 4 * (5 * 128 + 2 + 8 + 4), 2, 0)
     # a narrow net: the act' store (8 floats a row) holds none of A Q, inv(R),
     # H, W, T (4 m^2 + m D = 320), the input tile not R of the QR (64)
     per_row = (1 + 2 * 8) * 8 + 8 + 16 * 8 + 64 + 320
-    assert fused_sketch.sketch_plan("xtrace", 8, 1, 8, 8, 8, 0, rows=4)[1:] == (4 * 4 * per_row, 8)
+    assert fused_sketch.sketch_plan("xtrace", 8, 1, 8, 8, 8, 0, rows=4)[1:] == (4 * 4 * per_row, 8, 0)
     # a forced plan: rows a multiple of 4 that fits, a bucket >= D
     assert fused_sketch.sketch_plan("xtrace", 128, 3, 2, 2, 2, 0, rows=4, md=8)[::2] == (4, 8)
     for bad in (dict(rows=6), dict(rows=256), dict(md=3), dict(md=2, rows=4)):
@@ -472,7 +477,7 @@ def test_sketch_plan_rows(case, rows):
     # the most blocks an SM holds (three), at the most rows that reach them,
     # in either compute mode
     plan = fused_sketch.sketch_plan(*case)
-    assert plan[0] == rows and len(plan) == 3
+    assert plan[0] == rows and len(plan) == 4 and plan[3] == 0  # one group: every probe column at once
     assert fused_sketch.sketch_blocks(plan) == fused_sketch.SKETCH_BLOCKS == 3
     assert 3 * (plan[1] + 1_024) <= 233_472
 

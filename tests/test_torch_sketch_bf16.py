@@ -31,6 +31,7 @@ import numpy as np
 import pytest
 import torch
 
+from flowfusion_tpu.kernels import fused_mlp as jfm
 from flowfusion_torch.kernels import fused_mlp, fused_sketch
 from flowfusion_torch.models import nets
 from flowfusion_torch.models import score as score_mod
@@ -195,15 +196,18 @@ def test_bf16_sketch_log_prob_matches_spec_solve(mode, monkeypatch):
 # (mode, features, D, r or m, residual probes, widest H in float32, in
 # highf32, in bfloat16): the flagship Hutch++ r = 2, m = 1 and XTrace m = 2,
 # the conditional checkpoints' D = 6, C = 3, r = m = 3, three hidden
-# layers.  float32 and highf32 share a layout (highf32 pads to 8, so its
-# widest is float32's rounded down to 8); bfloat16 keeps one fp32 chain
-# buffer and one 2-byte plane (rows H + 8 apart) where the others keep two
-# fp32 buffers, 6 bytes a chain value against 8, so its widest is wider.
+# layers.  The widest plans apply the Jacobian one probe column at a time
+# at 4 rows a block.  float32 and highf32 share a layout (highf32 pads to
+# 8, so its widest is float32's rounded down to 8); bfloat16 keeps one fp32
+# chain buffer and one 2-byte plane (rows H + 8 apart) where the others
+# keep two fp32 buffers, 6 bytes a chain value against 8, so its widest is
+# wider.  One lane wider is past the JAX package's gate too ((3 + 3) x H <=
+# 12,288, H in multiples of 128).
 _SKETCH_ENVELOPE = [
-    ("hutchpp", 2, 2, 2, 1, 1612, 1608, 1920),
-    ("xtrace", 2, 2, 2, 0, 2072, 2072, 2400),
-    ("hutchpp", 9, 6, 3, 3, 964, 960, 1200),
-    ("xtrace", 9, 6, 3, 0, 1608, 1608, 1920),
+    ("hutchpp", 2, 2, 2, 1, 2904, 2904, 3216),
+    ("xtrace", 2, 2, 2, 0, 2896, 2896, 3216),
+    ("hutchpp", 9, 6, 3, 3, 2896, 2896, 3200),
+    ("xtrace", 9, 6, 3, 0, 2884, 2880, 3200),
 ]
 
 
@@ -212,8 +216,10 @@ _SKETCH_ENVELOPE = [
 def test_sketch_envelope_widths(mode, n_features, D, n_s, n_g, widest_float32, widest_highf32, widest_bfloat16):
     for dtype, widest in (("float32", widest_float32), ("highf32", widest_highf32), ("bfloat16", widest_bfloat16)):
         assert fused_sketch.supports_sketch(mode, widest, 3, n_features, D, n_s, n_g, dtype)
-        assert not fused_sketch.supports_sketch(mode, widest + fused_mlp.lane(dtype), 3, n_features, D, n_s, n_g,
-                                                dtype)
+        past = widest + fused_mlp.lane(dtype)
+        assert not fused_sketch.supports_sketch(mode, past, 3, n_features, D, n_s, n_g, dtype)
+        with pytest.raises(ValueError, match="VMEM"):
+            jfm.vmem_width_clamp(256, -(-past // 128) * 128, 3 + 3)
     assert widest_bfloat16 >= widest_float32
 
 
@@ -223,9 +229,10 @@ def test_bf16_sketch_plan_counts_the_plane():
     tiles and XTrace's R of the QR (m x m past a 2-feature input tile); the
     flagship plans keep float32's rows at three blocks an SM."""
     for mode, n_s, n_g, ncols, kmax, n_alg in (("hutchpp", 2, 1, 3, 3, 0), ("xtrace", 2, 0, 4, 2, 4)):
-        rows, smem, md = fused_sketch.sketch_plan(mode, 128, 3, 2, 2, n_s, n_g, compute_dtype="bfloat16")
+        rows, smem, md, group = fused_sketch.sketch_plan(mode, 128, 3, 2, 2, n_s, n_g, compute_dtype="bfloat16")
+        assert group == 0
         assert smem == 4 * rows * (3 * 128 + 2 + ncols * 2 + n_alg) + 6 * kmax * rows * 136
-        assert md == 2 and fused_sketch.sketch_blocks((rows, smem, md)) == 3
+        assert md == 2 and fused_sketch.sketch_blocks((rows, smem, md, group)) == 3
         assert rows == fused_sketch.sketch_plan(mode, 128, 3, 2, 2, n_s, n_g)[0]
     assert fused_sketch.sketch_plan("hutchpp", 128, 3, 2, 2, 2, 1, rows=4, compute_dtype="bfloat16")[1] == \
         4 * 4 * (3 * 128 + 2 + 6) + 6 * 3 * 4 * 136

@@ -206,8 +206,8 @@ def test_sketch_md_and_plan_up_to_64():
         md = fused_sketch.sketch_md(D)
         assert md == (2 if D <= 2 else 4 if D <= 4 else 8 if D <= 8 else 64)
         for mode, (n_s, n_g) in (("hutchpp", (min(2, D), 1)), ("xtrace", (min(2, D), 0))):
-            rows, smem, md_ = fused_sketch.sketch_plan(mode, 128, 3, D + 8, D, n_s, n_g)
-            assert md_ == md
+            rows, smem, md_, group = fused_sketch.sketch_plan(mode, 128, 3, D + 8, D, n_s, n_g)
+            assert md_ == md and group == 0
             kmax, ncols = fused_sketch._layout(mode, n_s, n_g)
             n_alg = fused_sketch._algebra_floats(mode, n_s, D, D + 8, 3, 128)
             assert smem == 4 * rows * (3 * 128 + D + 8 + ncols * D + n_alg) + 8 * kmax * rows * 128

@@ -297,7 +297,8 @@ def test_fit_guards():
 def test_auto_engine_choice():
     """Plain for CPU data, a custom loss, another optimizer, a model or net
     no kernel computes, non-float32 parameters; fused for a net the kernel
-    takes on CUDA data; a raise where the family fits but the plan does not."""
+    takes on CUDA data, at any depth its plan fits (20 hidden widths of
+    32); a raise where the family fits but the plan does not."""
     model, (x, _) = _model("population"), _data("population")
     ok, loss = train._fused_engine_ok, train._default_loss
     cuda_x = types.SimpleNamespace(is_cuda=True, shape=x.shape)
@@ -312,7 +313,7 @@ def test_auto_engine_choice():
     assert not ok(double, loss, "adam", cuda_x)
     deep = dataclasses.replace(model, score_model=dataclasses.replace(
         sm, net=dataclasses.replace(sm.net, units=(32,) * 20)))
-    assert not ok(deep, loss, "adam", cuda_x)
+    assert ok(deep, loss, "adam", cuda_x)
     wide = dataclasses.replace(model, score_model=dataclasses.replace(
         sm, net=dataclasses.replace(sm.net, units=(4096,) * 3)))
     with pytest.raises(ValueError, match="engine='plain'"):
