@@ -272,18 +272,20 @@ non-zero without the final line):
      against ``sample_sde`` at 50,000 x 100 on the same conditionals (the
      moment bars); (e) the wide instantiations' registers, local bytes and
      blocks an SM, a forced 4-row plan bitwise;
-  19. the kernels at the JAX gate's widths, depths and chain counts
-     (``envelope_phase``, printed after 18, in a process of its own,
-     ``--envelope-worker``, started beside 18's): (a) the new plan forms
-     (passes of fewer tangent chains, highf32 without its planes, probe
-     groups) forced at today's widths, bitwise the default plan; (b) the
-     envelope table at the JAX gate's widest H in three modes against the
-     plain versions (4,096 rows), each plan's registers and local bytes,
-     the launches of one case of each new form timed at 50,000 rows
-     beside the bound; (c) ``log_prob`` exact at (1280,) x 3, D = 6, C = 3,
+  19. the kernels at the JAX gate's widths, depths, chain counts and
+     probe counts (``envelope_phase``, printed after 18, in a process of
+     its own, ``--envelope-worker``, started beside 18's): (a) the new plan
+     forms (passes of fewer tangent chains, highf32 without its planes,
+     probe groups, the sketch's storage form) forced at today's widths,
+     bitwise the default plan; (b) the envelope table at the JAX gate's
+     widest H and the storage form's cases at D = 64 in three modes
+     against the plain versions (4,096 rows), each plan's registers and
+     local bytes, the launches of one case of each new form timed beside
+     the bound; (c) ``log_prob`` exact at (1280,) x 3, D = 6, C = 3,
      Hutchinson ``highf32`` at (3072,) x 3, Hutch++ r = 2, m = 1 at
-     (2048,) x 3 and Hutchinson on a 24-hidden-width net, kernel against
-     plain (NFE, |dlogp|, launches = NFE), the deep net's solve and
+     (2048,) x 3, XTrace m = 64 at D = 64 (the storage form) and
+     Hutchinson on a 24-hidden-width net, kernel against plain (NFE,
+     |dlogp|, launches = NFE), the deep net's solve and
      ``sample_sde_fused`` at 50,000 rows, refusals past the envelope;
   7. a ``kernels`` line, printed last: launches on the main paths (each
      path run with the counts set to 0 just before it: phases 2-4, 5, 6,
@@ -5203,10 +5205,16 @@ def envelope_phase(smi, dev, reset_counts) -> dict:
     default plan on 4,099 rows, every mode and compute mode: passes of one
     and of every tangent chain, highf32 without planes (alone and with one
     chain a pass), sketch groups of one and of every column: drift and div
-    (or J v) bitwise equal.
+    (or J v) bitwise equal; and the sketch's storage form (the probe tile
+    and XTrace's algebra in a workspace in device memory, ROADMAP B3)
+    forced where the shared-memory plans fit, XTrace m = 36 at D = 64 (128
+    x 3) and the D16C8 Hutch++ r = 2, m = 1, with every column an
+    application and with one: bitwise the default plan.
     (b) each case of the envelope table at the JAX gate's widest H (three
-    hidden widths) in the three compute modes against its plain version on
-    4,096 rows: float32 at phase 1a's bars (drift 1e-5, div 1e-4 of the max;
+    hidden widths), and the storage form's cases (XTrace m = 37 and m = 64
+    at D = 64, 128 x 3; Hutch++ r = m = 64 at D = 64, (2048,) x 3, the
+    JAX gate's widest at three), in the three compute modes against its
+    plain version on 4,096 rows: float32 at phase 1a's bars (drift 1e-5, div 1e-4 of the max;
     J v 1e-5), the sketch at phase 1d's (div within 2e-4 absolute; the wide
     path at phase 18's 5e-4 + 1e-4 |div| row by row); highf32 against its
     plain version at phase 1f's (drift 1e-5, div 5e-5) and 1g's (drift
@@ -5214,12 +5222,16 @@ def envelope_phase(smi, dev, reset_counts) -> dict:
     the max and 10x closer than the plain version is to strict float32, at
     wider and deeper nets as ``bf16_bars`` says, the max within 3e-2).
     Each plan's registers, local bytes (none) and blocks an SM; the launch
-    alone and the plain version's call timed at 50,000 rows for one case of
-    each new plan form (CUDA events, one run each), beside the bound.
+    alone and the plain version's call timed for one case of each new plan
+    form (CUDA events, one run each): the storage form's XTrace m = 64 at
+    50,000 rows, the grouped and plane-free forms at 12,500; beside the
+    bound (the sketch's counting its per-row algebra,
+    ``fused_sketch.algebra_flops``).
     (c) the path through the models, each run counted from zero:
     ``ScoreModel.log_prob`` exact at (1280,) x 3, D = 6, C = 3, VPSDE,
     float32; Hutchinson at (3072,) x 3, D = 2, VESDE, highf32; Hutch++
-    r = 2, m = 1 at (2048,) x 3, D = 2, VPSDE, float32; Hutchinson on a
+    r = 2, m = 1 at (2048,) x 3, D = 2, VPSDE, float32; XTrace m = 64 at
+    D = 64, 128 x 3, VPSDE, float32 (the storage form); Hutchinson on a
     24-hidden-width, 128-wide tanh net (``DEEP_GAIN``), VESDE, float32;
     rtol 1e-5 PI (at the log_prob defaults, atol = rtol = 1e-4 and the I
     controller, the highf32 solve's steps part from its plain version's:
@@ -5231,12 +5243,16 @@ def envelope_phase(smi, dev, reset_counts) -> dict:
     plans (one block of 4 rows an SM) take 0.2-1.2 s a launch there (b),
     and the three solves took 314 s together on the H100 (NVIDIA H100
     80GB HBM3, 700 W), past what the script's limit leaves; (b) times
-    their launches at 50,000 rows.
+    their launches.  The XTrace m = 64 plain solve costs ~0.7 s an RHS call
+    whatever the rows (its 128 forward-mode tangents a call and the
+    algebra's sequential sums), ~80 s at 4,096 rows.
     ``sample_sde_fused`` on the deep net at 50,000 rows x 100 steps (one
     launch, finite), and the EM kernel on it against its plain version on
-    streamed noise (4,096 rows, 20 steps, phase 1b's bars).  Past the new
-    envelope (exact at D = 16, H = 4,096; XTrace m = 37 at D = 64) a
-    model's auto dispatch raises on the card, naming use_fused_kernel=False.
+    streamed noise (4,096 rows, 20 steps, phase 1b's bars).  XTrace m = 37
+    at D = 64, refused before the storage form, launches the kernel through
+    the model (8 rows, launches = NFE).  Past the new envelope (exact at
+    D = 16, H = 4,096; XTrace at D = 65) a model's auto dispatch raises on
+    the card, naming use_fused_kernel=False.
 
     Returns the launches of (c)'s runs by kernel entry."""
     import contextlib
@@ -5319,11 +5335,20 @@ def envelope_phase(smi, dev, reset_counts) -> dict:
         net 9.4x, on the H100)."""
         return 1e-5 * max(1.0, n_act / 3), (0.1 if H <= 256 and n_act <= 3 else 0.5)
 
-    def probes_of(mode, k, rows, D, seed):
-        """Rademacher Hutch++ (r, m) or sphere XTrace (m) probes."""
+    def probes_of(mode, k, rows, D, seed, orthonormal_sketch=False):
+        """Rademacher Hutch++ (r, m) or sphere XTrace (m) probes; with
+        ``orthonormal_sketch`` Hutch++'s r = D sketch columns a row's
+        orthonormal basis (the QR of the same Gaussian draws), as the
+        full-rank checks of the tests take them: a random D x D sketch is
+        near singular on some rows of 4,096 at D = 64, where float32 MGS
+        loses digits in the kernel and the plain version alike, by their
+        different sum orders (``PERF.md`` §7)."""
         g = gen(seed)
         if mode == "hutchpp":
-            return tuple(torch.sign(torch.randn(n, rows, D, generator=g)).to(dev) for n in k)
+            def sketch(v):
+                return torch.linalg.qr(v.permute(1, 2, 0))[0].permute(2, 0, 1).contiguous()
+            return tuple((sketch(v) if i == 0 and orthonormal_sketch else torch.sign(v)).to(dev)
+                         for i, v in enumerate(torch.randn(n, rows, D, generator=g) for n in k))
         O = torch.randn(k, rows, D, generator=g)
         return ((O / O.norm(dim=-1, keepdim=True) * D ** 0.5).to(dev),)
 
@@ -5372,7 +5397,30 @@ def envelope_phase(smi, dev, reset_counts) -> dict:
                     check(torch.equal(out[0], outs[0][0]) and torch.equal(out[1], outs[0][1]),
                           f"phase 19a: sketch D={D} {mode} {dt} group {plan[3]} differs from one group")
                     n_forced += 1
-    emit("envelope_forced_plans", card=smi, rows=rows_a, launches_bitwise=n_forced)
+    # the storage form forced where the shared-memory plans fit
+    n_store, store_occ = 0, []
+    for D, C, H, mode, n_s, n_g in ((64, 0, 128, "xtrace", 36, 0), (16, 8, 128, "hutchpp", 2, 1)):
+        cfg, params = net(D, C, H, 3, 1915 + D)
+        x_in = torch.randn(rows_a, D + C, generator=gen(1916)).to(dev)
+        w_in, b_eff = fused_mlp._score_first_layer(params, cfg, t37, x_in[:, D:] if C else None)
+        V = torch.cat(probes_of(mode, (n_s, n_g) if mode == "hutchpp" else n_s, rows_a, D, 1917))
+        for dt in fused_sketch.SKETCH_DTYPES:
+            plans = [fused_sketch.sketch_plan(mode, H, 3, D + C, D, n_s, n_g, compute_dtype=dt, store=store, group=gr)
+                     for store, gr in ((None, None), (True, None), (True, 1))]
+            outs = [fused_sketch._launch(x_in, V, w_in, b_eff, params["layers"], c0c1, mode, D, n_s, n_g, "silu",
+                                         plan, fused_sketch.fused_drift_sketch, dt) for plan in plans]
+            torch.cuda.synchronize()
+            check(len(plans[0]) == 4 and all(len(p) == 5 for p in plans[1:]),
+                  f"phase 19a: the storage form's plans {plans}")
+            for plan, out in zip(plans[1:], outs[1:]):
+                check(torch.equal(out[0], outs[0][0]) and torch.equal(out[1], outs[0][1]),
+                      f"phase 19a: sketch D={D} {mode} {dt} storage form {plan} differs from the default plan")
+                n_store += 1
+            store_occ.append(dict(case=f"{mode} D={D} C={C}", compute_dtype=dt, **fused_sketch.sketch_occupancy(
+                plans[1], dt)))
+            check(store_occ[-1]["local_bytes"] == 0, f"phase 19a: the storage form's local memory {store_occ[-1]}")
+    emit("envelope_forced_plans", card=smi, rows=rows_a, launches_bitwise=n_forced, storage_form_bitwise=n_store,
+         storage_form_occupancy=store_occ)
 
     # -- (b) the envelope table at the JAX gate's widths, vs plain -------------
     table = [  # (case, D, C, H, mode, probes): three hidden widths, the JAX gate's widest H
@@ -5383,20 +5431,29 @@ def envelope_phase(smi, dev, reset_counts) -> dict:
         ("hutchpp r2m1 D16C8", 16, 8, 2048, "hutchpp", (2, 1)), ("hutchpp r3m3 D6C3", 6, 3, 2048, "hutchpp", (3, 3)),
         ("xtrace m2 D2", 2, 0, 2048, "xtrace", 2), ("xtrace m2 D16C8", 16, 8, 2048, "xtrace", 2),
         ("xtrace m2 D64", 64, 0, 2048, "xtrace", 2), ("deep hutchinson", 2, 0, 128, "hutchinson", 0),
+        # the storage form (ROADMAP B3): refused before it
+        ("xtrace m37 D64", 64, 0, 128, "xtrace", 37), ("xtrace m64 D64", 64, 0, 128, "xtrace", 64),
+        ("hutchpp r64m64 D64", 64, 0, 2048, "hutchpp", (64, 64)),
     ]
-    timed = {"hutchinson D2", "exact D6C3", "tangents K6 D6C3", "hutchpp r2m1 D2", "xtrace m2 D64", "deep hutchinson"}
+    # the timed cases' rows: the storage form's at 50,000, the other forms'
+    # at 12,500 (their launches scale with the rows: one block of 4 rows an
+    # SM), which leaves the script's time to the storage form's solves
+    timed = {"hutchinson D2": N // 4, "exact D6C3": N // 4, "tangents K6 D6C3": N // 4, "hutchpp r2m1 D2": N // 4,
+             "xtrace m2 D64": N // 4, "deep hutchinson": N // 4, "xtrace m64 D64": N}
     timing, errors = {}, {}
     for case, D, C, H, mode, probes in table:
         deep = case.startswith("deep")
         depth = 24 if deep else 3
         cfg, params = net(D, C, H, depth, 1920 + len(case), "tanh" if deep else "silu", DEEP_GAIN if deep else 1.0)
         n_layers = depth + 1
-        for rows in ((B, N) if case in timed else (B,)):
+        for rows in ((B, timed[case]) if case in timed else (B,)):
             g = gen(1930 + rows)
             x = torch.randn(rows, D, generator=g).to(dev)
             cond = torch.randn(rows, C, generator=g).to(dev) if C else None
+            alg_flops = 0  # the sketch's per-row algebra, on the CUDA cores in every mode
             if mode in ("hutchpp", "xtrace"):
-                pr = probes_of(mode, probes, rows, D, 1931)
+                pr = probes_of(mode, probes, rows, D, 1931,
+                               orthonormal_sketch=mode == "hutchpp" and probes[0] == D > 8)
                 n_s, n_g = probes if mode == "hutchpp" else (probes, 0)
 
                 def call(dt, ref=False, pr=pr, x=x, cond=cond, cfg=cfg, params=params):
@@ -5408,6 +5465,7 @@ def envelope_phase(smi, dev, reset_counts) -> dict:
 
                 occ_of = fused_sketch.sketch_occupancy
                 flop_args = (D + C, D, H, n_layers, mode, n_s, n_g)
+                alg_flops = fused_sketch.algebra_flops(mode, n_s, n_g, D)
                 io = rows * 4 * (D + C + (n_s + n_g) * D + D + 1)
             elif mode == "tangents":
                 V = torch.randn(probes, rows, D, generator=g).to(dev)
@@ -5440,23 +5498,24 @@ def envelope_phase(smi, dev, reset_counts) -> dict:
             strict = call("float32", ref=True) if rows == B else None
             for dt in fused_mlp.COMPUTE_DTYPES:
                 plan = plan_of(dt)
-                if rows == N:
+                if rows != B:
                     wbytes = sum(l["w"].numel() * (2 if dt == "bfloat16" and i > 0 else 4) + 4 * l["b"].numel()
                                  for i, l in enumerate(params["layers"]))
                     if dt == "float32":
-                        t_ops = N * fused_mlp.flops_per_row(*flop_args) / PEAK_FP32_FLOPS * 1e3
+                        t_ops = rows * fused_mlp.flops_per_row(*flop_args) / PEAK_FP32_FLOPS * 1e3
                     else:
                         tc, cc = (fused_mlp.highf32_flops_per_row if dt == "highf32" else
                                   fused_mlp.bf16_flops_per_row)(*flop_args)
-                        t_ops = N * ((3 * tc / PEAK_TF32_FLOPS if dt == "highf32" else tc / PEAK_BF16_FLOPS)
-                                     + cc / PEAK_FP32_FLOPS) * 1e3
+                        t_ops = rows * ((3 * tc / PEAK_TF32_FLOPS if dt == "highf32" else tc / PEAK_BF16_FLOPS)
+                                        + cc / PEAK_FP32_FLOPS) * 1e3
+                    t_ops += rows * alg_flops / PEAK_FP32_FLOPS * 1e3
                     t_bytes = (io + wbytes) / PEAK_BYTES * 1e3
                     # the launches at 4,096 rows warmed the instantiation: one run each
                     timing[(case, dt)] = dict(ms=median_ms(lambda: call(dt), n=1, warmup=0),
                                               plain_ms=median_ms(lambda: call(dt, True), n=1, warmup=0),
                                               bound_ms=max(t_ops, t_bytes),
                                               bound_by="operations" if t_ops >= t_bytes else "bytes")
-                    emit("envelope_kernel_time", case=case, rows=N, compute_dtype=dt, card=smi, plan=list(plan),
+                    emit("envelope_kernel_time", case=case, rows=rows, compute_dtype=dt, card=smi, plan=list(plan),
                          **timing[(case, dt)])
                     continue
                 out, ref = call(dt), call(dt, ref=True)
@@ -5482,6 +5541,7 @@ def envelope_phase(smi, dev, reset_counts) -> dict:
                 emit("envelope_vs_plain", case=case, D=D, C=C, H=H, depth=depth, mode=mode, compute_dtype=dt, rows=B,
                      plan=list(plan), wide=bool(plan[3] if mode in ("hutchpp", "xtrace") else
                                                 fused_mlp.plan_wide(plan, dt)),
+                     storage_form=mode in ("hutchpp", "xtrace") and len(plan) == 5,
                      rel_max=rels, rel_mean=means, plain_vs_strict_mean=guard, registers=occ["registers"],
                      local_bytes=occ["local_bytes"],
                      blocks_per_sm=occ["blocks_per_sm"], card=smi)
@@ -5508,6 +5568,7 @@ def envelope_phase(smi, dev, reset_counts) -> dict:
         ("exact 1280x3 D6C3", 6, 3, 1280, VPSDE(), "exact", {}, "float32"),
         ("hutchinson 3072x3 highf32", 2, 0, 3072, VESDE(), "hutchinson", {}, "highf32"),
         ("hutchpp r2m1 2048x3", 2, 0, 2048, VPSDE(), "hutchpp", dict(hpp_rank=2, hpp_vecs=1), "float32"),
+        ("xtrace m64 128x3 D64", 64, 0, 128, VPSDE(), "xtrace", dict(xt_vecs=64), "float32"),
         ("deep hutchinson 128x24", 2, 0, 128, VESDE(), "hutchinson", {}, "float32"),
     ):
         cfg, params = (deep_cfg, deep_params) if label.startswith("deep") else net(D, C, H, 3, 1940 + H)
@@ -5523,7 +5584,7 @@ def envelope_phase(smi, dev, reset_counts) -> dict:
                 return m.log_prob(x, conditional=cond, probes=probes, atol=1e-5, rtol=1e-5, options=opts)
 
             (lp, st), counts, secs = counted(solve)
-            key = f"fused_drift[{mode}]" if mode != "hutchpp" else "fused_drift_sketch[hutchpp]"
+            key = f"fused_drift_sketch[{mode}]" if mode in ("hutchpp", "xtrace") else f"fused_drift[{mode}]"
             key = key if dt == "float32" else key[:-1] + f",{dt}]"
             check(st.succeeded and bool(torch.isfinite(lp).all()) and counts == {key: st.n_func_evals},
                   f"phase 19c {label} at {rows}: launches {counts}, NFE {st.n_func_evals}, finite "
@@ -5567,10 +5628,18 @@ def envelope_phase(smi, dev, reset_counts) -> dict:
     emit("envelope_sampling", case="deep 128x24 tanh", rows=N, steps=EM_STEPS, card=smi, launches=em_counts,
          seconds=s_em, samples_per_s=N / s_em, em_vs_plain_max_abs=em_err)
 
+    # XTrace m = 37 at D = 64, refused before the storage form, launches
+    cfg = ScoreMLPConfig(n_dimensions=64, units=(128,) * 3)
+    m37 = ScoreModel(init_score_mlp(cfg, gen(1980), dev), cfg, VESDE(), trace_mode="xtrace", xt_vecs=37)
+    (lp37, st37), c37, _ = counted(lambda: m37.log_prob(torch.zeros(8, 64, device=dev), generator=gen(1981)))
+    check(c37 == {"fused_drift_sketch[xtrace]": st37.n_func_evals} and bool(torch.isfinite(lp37).all()),
+          f"phase 19c: XTrace m = 37 at D = 64 launches {c37}, NFE {st37.n_func_evals}")
+    emit("envelope_storage_launch", case="xtrace m37 D64 128x3", rows=8, launches=c37, nfe=st37.n_func_evals,
+         card=smi)
     # past the new envelope: auto dispatch raises on the card
     raised = []
     for cfg_kw, model_kw, x_rows in ((dict(n_dimensions=16, units=(4096,) * 3), dict(trace_mode="exact"), 8),
-                                     (dict(n_dimensions=64, units=(128,) * 3), dict(trace_mode="xtrace", xt_vecs=37),
+                                     (dict(n_dimensions=65, units=(128,) * 3), dict(trace_mode="xtrace", xt_vecs=2),
                                       8)):
         cfg = ScoreMLPConfig(**cfg_kw)
         m = ScoreModel(init_score_mlp(cfg, gen(1980), dev), cfg, VESDE(), **model_kw)

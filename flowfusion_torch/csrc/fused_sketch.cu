@@ -118,6 +118,25 @@
 //     grouped plan holds one block of 4 rows an SM by its shared memory),
 //     which keep the one-group code of the others as it was: a group loop
 //     in the three-block instantiations spilled 4-104 bytes a thread.
+//   - The storage form (fused_sketch_store_kernel, one instantiation a
+//     compute mode on the wide path): the JAX gate counts no probe
+//     storage, and at D = 64 the probe tile (ncols x D floats a row) and
+//     XTrace's algebra (R, A Q, inv(R), H, W, T: 5 m^2 + m D) outgrow
+//     shared memory beside the act' store even at 4 rows and one chain a
+//     group (XTrace m = 64 on 128 x 3: 793,600 bytes).  Where no group
+//     fits, the plan keeps them in a workspace in device memory, the same
+//     element-major layout a slot, and shared memory holds the act' store,
+//     the chain buffers and the input tile alone.  The workspace is sized
+//     by the grid, not by B: a persistent grid of one block an SM walks
+//     the row tiles, each block with a slot of its own (132 x 4 rows x
+//     165 KB = 83 MiB for XTrace m = 64).  The block rewrites its slot, so
+//     it reads it with plain loads after a barrier, never through __ldg.
+//     Its algebra, O(m^2 D + m^3) a row at m = D = 64 (3.3 MFLOP against
+//     the chains' 12.7), is spread over the block with each sum whole on
+//     one thread in the wide path's order and multiply-add form: the QR a
+//     warp a row (lane 0 the sums, the lanes the updates), every entry of
+//     the grids, column of inv(R) and X and row of S a thread.  So its
+//     drift and div are bitwise the shared forms' wherever both fit.
 //   - Per-row algebra (QR, projections, inverse, the estimate) on one thread
 //     a row, templated on MD in {2, 4, 8}, the smallest bucket >= D: every
 //     register array is an MD-vector indexed by unrolled d loops (guarded by
@@ -149,8 +168,8 @@
 // A row's arithmetic does not depend on R or on MD among 2, 4 and 8: any
 // such plan gives bitwise the same drift and div, and the first version's.
 // wgmma, the split weights staged for highf32, the bf16 weights staged in
-// shared memory and the algebra spread over the block (a warp a row on the
-// wide path) are later work.
+// shared memory and the algebra spread over the block in the shared forms
+// (the storage form spreads it) are later work.
 // Build without --use_fast_math: sigmoid goes through expf (tanhf in
 // highf32) and gelu through erff, matching the plain PyTorch path's
 // transcendentals.  The build compiles this source once a compute mode
@@ -500,83 +519,126 @@ __device__ void qr_cols_wide(RowView y, int k, int D, RowView rr) {
   }
 }
 
-// Hutch++'s U = (I - Q Q^T) G in place over the n_g residual probes, which
-// follow the n_s Q columns in the tile: each probe's projections on the Q
-// columns first, into `coef`, then each element's updates in the order of
-// the Q columns.
+// Residual probe g of Hutch++'s U = (I - Q Q^T) G, in place: the probe
+// follows the n_s Q columns and the g probes before it in the tile; its
+// projections on the Q columns first, into `coef`, then each element's
+// updates in the order of the Q columns.
+__device__ __forceinline__ void project_out_probe(RowView t, int n_s, int g, int D, RowView coef) {
+  const int go = (n_s + g) * D;
+  for (int i = 0; i < n_s; ++i) coef[i] = dot_view(t, i * D, t, go, D);
+  for (int d = 0; d < D; ++d) {
+    float u = t[go + d];
+    for (int i = 0; i < n_s; ++i) u -= coef[i] * t[i * D + d];
+    t[go + d] = u;
+  }
+}
+
+// U = (I - Q Q^T) G over the n_g residual probes, one after the other.
 __device__ void project_out_wide(RowView t, int n_s, int n_g, int D, RowView coef) {
-  for (int g = 0; g < n_g; ++g) {
-    const int go = (n_s + g) * D;
-    for (int i = 0; i < n_s; ++i) coef[i] = dot_view(t, i * D, t, go, D);
-    for (int d = 0; d < D; ++d) {
-      float u = t[go + d];
-      for (int i = 0; i < n_s; ++i) u -= coef[i] * t[i * D + d];
-      t[go + d] = u;
-    }
+  for (int g = 0; g < n_g; ++g) project_out_probe(t, n_s, g, D, coef);
+}
+
+// tri_inv()'s clamp: max(1e-6 x the largest |diagonal| of rr, 1e-30).
+__device__ __forceinline__ float tri_inv_floor(RowView rr, int k) {
+  float scale = 0.0f;
+  for (int i = 0; i < k; ++i) scale = fmaxf(scale, fabsf(rr[i * k + i]));
+  return fmaxf(scale * 1e-6f, 1e-30f);
+}
+
+// Column j of inv(R), entries j down to 0, by back-substitution over the
+// column's own entries (those below the diagonal are not written).
+__device__ __forceinline__ void tri_inv_col(RowView rr, int k, int j, float floor, RowView inv) {
+  for (int i = j; i >= 0; --i) {
+    float acc = i == j ? 1.0f : 0.0f;
+    for (int l = i + 1; l <= j; ++l) acc -= rr[i * k + l] * inv[l * k + j];
+    const float d = rr[i * k + i];
+    const float safe = fabsf(d) < floor ? (d > 0.0f ? floor : (d < 0.0f ? -floor : floor)) : d;
+    inv[i * k + j] = acc / safe;
   }
 }
 
 // inv(R) of the upper-triangular k x k rr, near-zero diagonals clamped.
 template <int MD>
 __device__ void tri_inv(RowView rr, int k, RowView inv) {
-  float scale = 0.0f;
-  for (int i = 0; i < k; ++i) scale = fmaxf(scale, fabsf(rr[i * k + i]));
-  const float floor = fmaxf(scale * 1e-6f, 1e-30f);
+  const float floor = tri_inv_floor(rr, k);
   for (int i = 0; i < k; ++i)
     for (int j = 0; j < k; ++j) inv[i * k + j] = 0.0f;
+  for (int j = 0; j < k; ++j) tri_inv_col(rr, k, j, floor, inv);
+}
+
+// qr_cols_wide() with a warp a row, for the storage form: lane 0 takes
+// every sum and the basis completion, in the same order and multiply-add
+// form; the lanes split each column's updates and its normalization by
+// element.  So Q and R are bitwise qr_cols_wide()'s.  y and rr lie in
+// device memory that the warp rewrites: __syncwarp() orders the lanes'
+// plain loads and stores.
+__device__ void qr_cols_warp(RowView y, int k, int D, RowView rr, int lane) {
+  constexpr unsigned kAll = 0xffffffffu;
+  float ss = 0.0f;
+  if (lane == 0)
+    for (int c = 0; c < k; ++c) ss += dot_view(y, c * D, y, c * D, D);
+  const float floor = fmaxf(sqrtf(__shfl_sync(kAll, ss, 0)) * 1e-6f, 1e-30f);
+  const bool keep = rr.p != nullptr;
+  for (int e = lane; keep && e < k * k; e += 32) rr[e] = 0.0f;
+  __syncwarp();
   for (int j = 0; j < k; ++j) {
-    for (int i = j; i >= 0; --i) {
-      float acc = i == j ? 1.0f : 0.0f;
-      for (int l = i + 1; l <= j; ++l) acc -= rr[i * k + l] * inv[l * k + j];
-      const float d = rr[i * k + i];
-      const float safe = fabsf(d) < floor ? (d > 0.0f ? floor : (d < 0.0f ? -floor : floor)) : d;
-      inv[i * k + j] = acc / safe;
+    const int jo = j * D;
+    for (int i = 0; i < j; ++i) {
+      float r_ij = 0.0f;
+      if (lane == 0) {
+        r_ij = dot_view(y, i * D, y, jo, D);
+        if (keep) rr[i * k + j] = r_ij;
+      }
+      r_ij = __shfl_sync(kAll, r_ij, 0);
+      for (int d = lane; d < D; d += 32) y[jo + d] -= r_ij * y[i * D + d];
+      __syncwarp();
     }
+    float r_jj = 0.0f;
+    if (lane == 0) {
+      r_jj = sqrtf(dot_view(y, jo, y, jo, D));
+      if (keep) rr[j * k + j] = r_jj;
+    }
+    r_jj = __shfl_sync(kAll, r_jj, 0);
+    float n;
+    if (r_jj < floor) {
+      float best_norm = -1.0f;
+      if (lane == 0) {
+        int best = 0;
+        for (int c = 0; c < D; ++c) {
+          canonical_residual_wide(y, c, j, D);
+          const float nc = sqrtf(dot_view(y, jo, y, jo, D));
+          if (nc > best_norm) {
+            best_norm = nc;
+            best = c;
+          }
+        }
+        canonical_residual_wide(y, best, j, D);
+      }
+      n = fmaxf(__shfl_sync(kAll, best_norm, 0), 1e-30f);
+      __syncwarp();
+    } else {
+      n = fmaxf(r_jj, floor);
+    }
+    for (int d = lane; d < D; d += 32) y[jo + d] = y[jo + d] / n;
+    __syncwarp();
   }
 }
 
-template <int MD, int P, bool kWide>
-__global__ void __launch_bounds__(kThreads, kWide ? 1 : kMinBlocks)
-fused_sketch_kernel(const float* __restrict__ x, const float* __restrict__ probes,
-                    const float* __restrict__ w_in, const float* __restrict__ b_eff,
-                    HiddenLayers hidden, int n_hidden,
-                    const float* __restrict__ w_out, const float* __restrict__ b_out,
-                    const float* __restrict__ c0c1, float* __restrict__ drift,
-                    float* __restrict__ div, int B, int d_in, int D, int H, int mode,
-                    int act, int n_s, int n_g, int R, int group) {
-  extern __shared__ __align__(16) float smem[];
-  const int n_in = n_s + n_g;                                // probe columns a row
-  const int ncols = mode == kHutchpp ? n_in : 2 * n_s;       // + Q for xtrace
-  const int kmax = mode == kHutchpp ? n_in : n_s;            // widest application
-  const int g = kWide && group > 0 ? group : kmax;           // chains a group carries (kmax but wide)
-  // xtrace's matrices a row lie over storage that is free when they are
-  // needed, where it holds them, else in the tail: R of the QR (m x m, from
-  // the QR to the estimate) over the input tile, which the drift leaves
-  // free; A Q (m x D; later S), inv(R) (later X) and the H, W, T grids
-  // (m x m each) over the act' store, which the last application leaves free
-  // when it runs as one group
-  const int n_rr = mode == kHutchpp ? 0 : n_s * n_s;
-  const int n_late = mode == kHutchpp ? 0 : 4 * n_s * n_s + n_s * D;
-  const bool rr_in_xs = n_rr <= d_in;
-  const bool late_in_dh = g == kmax && n_late <= (n_hidden + 1) * H;
-  const int n_alg = (rr_in_xs ? 0 : n_rr) + (late_in_dh ? 0 : n_late);
+// A tile's inputs and its forward chain: x into xs and the probes
+// element-major into cols (rows past B as zeros: the floors keep them
+// finite, and they are not stored), then the forward chain once, keeping
+// act' of every activation layer in dh.  Returns the net's output: float32
+// and highf32 at [r H + d] of buf1 or buf0, bfloat16 in a compact (R, D)
+// tile over buf0.
+template <int P>
+__device__ __forceinline__ const float* forward_tile(const float* __restrict__ x, const float* __restrict__ probes,
+                                                     const float* __restrict__ w_in, const float* __restrict__ b_eff,
+                                                     const HiddenLayers& hidden, int n_hidden,
+                                                     const float* __restrict__ w_out, const float* __restrict__ b_out,
+                                                     float* xs, float* cols, float* dh, float* buf0, float* buf1,
+                                                     __nv_bfloat16* plane, int B, int d_in, int D, int H, int act,
+                                                     int n_in, int R, int S, int row0) {
   const int rh = R * H;
-  // the chain buffers' row stride: H, or H + kPadBF16 in bfloat16, where
-  // buf0 (the fp32 pre-activations) and the bf16 plane share it
-  const int S = P == kBFloat16 ? H + kPadBF16 : H;
-  float* dh = smem;                            // (n_hidden + 1, R, H) act'
-  float* buf0 = dh + (n_hidden + 1) * rh;      // (g, R, S)
-  float* buf1 = buf0 + g * rh;                 // (g, R, H): float32, highf32
-  __nv_bfloat16* plane = reinterpret_cast<__nv_bfloat16*>(buf0 + g * R * S);  // (g, R, S): bfloat16
-  float* xs = P == kBFloat16 ? buf0 + g * R * S + g * R * S / 2 : buf1 + g * rh;  // (R, d_in)
-  float* cols = xs + R * d_in;                 // (ncols, D, R) element-major
-  float* tail = cols + ncols * D * R;          // (n_alg, R) element-major
-  float* rr_at = rr_in_xs ? xs : tail;                   // (n_rr, R) element-major
-  float* late = late_in_dh ? dh : tail + (rr_in_xs ? 0 : n_rr) * R;  // (n_late, R)
-  const int row0 = blockIdx.x * R;
-
-  // Rows past B compute on zeros (the floors keep them finite) and are not
-  // stored.
   for (int i = threadIdx.x; i < R * d_in; i += blockDim.x) {
     const int row = row0 + i / d_in;
     xs[i] = row < B ? x[(size_t)row0 * d_in + i] : 0.0f;
@@ -606,10 +668,6 @@ fused_sketch_kernel(const float* __restrict__ x, const float* __restrict__ probe
     buf0[r * S + j] = v + __ldg(b_eff + j);
   }
   __syncthreads();
-  // the net's output: float32 and highf32 at [r H + d] of nxt, bfloat16 in
-  // a compact (R, D) tile over buf0; the Jacobian applications' columns
-  // likewise (row stride js)
-  const int js = P == kBFloat16 ? D : H;
   float* nxt = buf1;
   if constexpr (P == kBFloat16) {
     for (int l = 0; l < n_hidden; ++l) {
@@ -651,7 +709,54 @@ fused_sketch_kernel(const float* __restrict__ x, const float* __restrict__ probe
     }
   }
   __syncthreads();
+  return nxt;
+}
 
+template <int MD, int P, bool kWide>
+__global__ void __launch_bounds__(kThreads, kWide ? 1 : kMinBlocks)
+fused_sketch_kernel(const float* __restrict__ x, const float* __restrict__ probes,
+                    const float* __restrict__ w_in, const float* __restrict__ b_eff,
+                    HiddenLayers hidden, int n_hidden,
+                    const float* __restrict__ w_out, const float* __restrict__ b_out,
+                    const float* __restrict__ c0c1, float* __restrict__ drift,
+                    float* __restrict__ div, int B, int d_in, int D, int H, int mode,
+                    int act, int n_s, int n_g, int R, int group) {
+  extern __shared__ __align__(16) float smem[];
+  const int n_in = n_s + n_g;                                // probe columns a row
+  const int ncols = mode == kHutchpp ? n_in : 2 * n_s;       // + Q for xtrace
+  const int kmax = mode == kHutchpp ? n_in : n_s;            // widest application
+  const int g = kWide && group > 0 ? group : kmax;           // chains a group carries (kmax but wide)
+  // xtrace's matrices a row lie over storage that is free when they are
+  // needed, where it holds them, else in the tail: R of the QR (m x m, from
+  // the QR to the estimate) over the input tile, which the drift leaves
+  // free; A Q (m x D; later S), inv(R) (later X) and the H, W, T grids
+  // (m x m each) over the act' store, which the last application leaves free
+  // when it runs as one group
+  const int n_rr = mode == kHutchpp ? 0 : n_s * n_s;
+  const int n_late = mode == kHutchpp ? 0 : 4 * n_s * n_s + n_s * D;
+  const bool rr_in_xs = n_rr <= d_in;
+  const bool late_in_dh = g == kmax && n_late <= (n_hidden + 1) * H;
+  const int n_alg = (rr_in_xs ? 0 : n_rr) + (late_in_dh ? 0 : n_late);
+  const int rh = R * H;
+  // the chain buffers' row stride: H, or H + kPadBF16 in bfloat16, where
+  // buf0 (the fp32 pre-activations) and the bf16 plane share it
+  const int S = P == kBFloat16 ? H + kPadBF16 : H;
+  float* dh = smem;                            // (n_hidden + 1, R, H) act'
+  float* buf0 = dh + (n_hidden + 1) * rh;      // (g, R, S)
+  float* buf1 = buf0 + g * rh;                 // (g, R, H): float32, highf32
+  __nv_bfloat16* plane = reinterpret_cast<__nv_bfloat16*>(buf0 + g * R * S);  // (g, R, S): bfloat16
+  float* xs = P == kBFloat16 ? buf0 + g * R * S + g * R * S / 2 : buf1 + g * rh;  // (R, d_in)
+  float* cols = xs + R * d_in;                 // (ncols, D, R) element-major
+  float* tail = cols + ncols * D * R;          // (n_alg, R) element-major
+  float* rr_at = rr_in_xs ? xs : tail;                   // (n_rr, R) element-major
+  float* late = late_in_dh ? dh : tail + (rr_in_xs ? 0 : n_rr) * R;  // (n_late, R)
+  const int row0 = blockIdx.x * R;
+  const float* nxt = forward_tile<P>(x, probes, w_in, b_eff, hidden, n_hidden, w_out, b_out, xs, cols, dh, buf0,
+                                     buf1, plane, B, d_in, D, H, act, n_in, R, S, row0);
+  // the net's output: float32 and highf32 at [r H + d] of nxt, bfloat16 in
+  // a compact (R, D) tile over buf0; the Jacobian applications' columns
+  // likewise (row stride js)
+  const int js = P == kBFloat16 ? D : H;
   const float c0 = c0c1[0];
   const float c1 = c0c1[1];
   const int r = threadIdx.x;  // the row this thread's algebra serves
@@ -1005,6 +1110,265 @@ fused_sketch_kernel(const float* __restrict__ x, const float* __restrict__ probe
   }
 }
 
+// The storage form (kernels/fused_sketch.py::sketch_plan takes it where the
+// probe storage does not fit shared memory at 4 rows a block): the wide
+// path (MD = kMaxDim) with each row's probe tile and algebra in `work`, a
+// workspace in device memory, and the act' store, the chain buffers (the
+// bf16 plane) and the input tile in shared memory, as the other forms lay
+// them out.  A persistent grid: block b walks the row tiles b, b +
+// gridDim.x, ... with a slot of its own, R x ws_row floats in the
+// element-major layout of the shared tiles (element e of row r at [e R +
+// r]), so the workspace grows with the grid, not with B.  The block
+// rewrites its slot inside the launch, so it reads it with plain loads after
+// a barrier (never __ldg or a const __restrict__ pointer).  Slot layout, in
+// elements of a row: the probe tile (ncols x D); then for hutchpp each
+// residual probe's projections on Q (n_g x n_s) and each column's quadratic
+// form (n_s + n_g); for xtrace R of the QR (m x m), A Q (m x D; later S),
+// inv(R) (m x m; later X), the H, W, T, H S and H X grids (m x m each) and
+// the five sums of each left-out probe (5 m).  The row's algebra is spread
+// over the block, each sum on one thread in the order and multiply-add
+// form of the wide path: the QR a warp a row (qr_cols_warp), Hutch++'s
+// projections a residual probe a thread, each column's quadratic form, the
+// Y, A Q, H, W, T, H S and H X entries, inv(R)'s columns, S's rows, X's
+// columns and a left-out probe's sums an item a thread, the estimates'
+// sums on a thread a row.  So a row's drift and div are bitwise those of
+// the other forms.
+template <int P>
+__global__ void __launch_bounds__(kThreads, 1)
+fused_sketch_store_kernel(const float* __restrict__ x, const float* __restrict__ probes,
+                          const float* __restrict__ w_in, const float* __restrict__ b_eff,
+                          HiddenLayers hidden, int n_hidden,
+                          const float* __restrict__ w_out, const float* __restrict__ b_out,
+                          const float* __restrict__ c0c1, float* __restrict__ drift,
+                          float* __restrict__ div, int B, int d_in, int D, int H, int mode,
+                          int act, int n_s, int n_g, int R, int group, float* work, int ws_row) {
+  constexpr int MD = kMaxDim;
+  extern __shared__ __align__(16) float smem[];
+  const int n_in = n_s + n_g;
+  const int ncols = mode == kHutchpp ? n_in : 2 * n_s;
+  const int kmax = mode == kHutchpp ? n_in : n_s;
+  const int g = group > 0 ? group : kmax;
+  const int rh = R * H;
+  const int S = P == kBFloat16 ? H + kPadBF16 : H;
+  float* dh = smem;                            // (n_hidden + 1, R, H) act'
+  float* buf0 = dh + (n_hidden + 1) * rh;      // (g, R, S)
+  float* buf1 = buf0 + g * rh;                 // (g, R, H): float32, highf32
+  __nv_bfloat16* plane = reinterpret_cast<__nv_bfloat16*>(buf0 + g * R * S);  // (g, R, S): bfloat16
+  float* xs = P == kBFloat16 ? buf0 + g * R * S + g * R * S / 2 : buf1 + g * rh;  // (R, d_in)
+  // the block's slot: the probe tile, then the algebra (each (n, R))
+  const int m = n_s;
+  const int m2 = m * m;
+  float* cols = work + (size_t)blockIdx.x * R * ws_row;
+  float* alg = cols + ncols * D * R;
+  float* coef_at = alg;                        // hutchpp: (n_g x n_s)
+  float* terms_at = alg + n_g * n_s * R;       // hutchpp: (n_in)
+  float* rr_at = alg;                          // xtrace: R of the QR
+  float* aq_at = rr_at + m2 * R;               // A Q, later S
+  float* inv_at = aq_at + m * D * R;           // inv(R), later X
+  float* hm_at = inv_at + m2 * R;
+  float* w_at = hm_at + m2 * R;
+  float* t_at = w_at + m2 * R;
+  float* hs_at = t_at + m2 * R;
+  float* hx_at = hs_at + m2 * R;
+  float* sums_at = hx_at + m2 * R;             // (5 m): shs, xhx, ws, sr, tx of each probe
+  const int js = P == kBFloat16 ? D : H;
+  const int qoff = mode == kHutchpp ? 0 : n_s * D;
+  const float c0 = c0c1[0];
+  const float c1 = c0c1[1];
+  const int n_tiles = (B + R - 1) / R;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  auto apply = [&](int off, int k) -> const float* {
+    if constexpr (P == kBFloat16) {
+      return apply_jacobian_bf16<MD>(cols, off, k, w_in, dh, hidden, n_hidden, w_out, buf0, plane, R, H, D, S);
+    } else {
+      return apply_jacobian<MD, P>(cols, off, k, w_in, dh, hidden, n_hidden, w_out, buf0, buf1, R, H, D);
+    }
+  };
+  // an application over the n columns from the tile's column off, group
+  // by group, each group's J v taken up by take(jv, first column, columns)
+  auto apply_groups = [&](int off, int n, auto take) {
+    for (int cg = 0; cg < n; cg += g) {
+      const int k = min(g, n - cg);
+      take(apply(off + cg, k), cg, k);
+      __syncthreads();  // the next group's chains overwrite jv
+    }
+  };
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const int row0 = tile * R;
+    // fn(r, e) for the items e < n of each row r of the tile (only the rows
+    // below B unless `all`), consecutive threads on consecutive rows
+    auto spread = [&](int n, bool all, auto fn) {
+      for (int i = threadIdx.x; i < R * n; i += blockDim.x) {
+        const int r = i % R;
+        if (all || row0 + r < B) fn(r, i / R);
+      }
+    };
+    const float* nxt = forward_tile<P>(x, probes, w_in, b_eff, hidden, n_hidden, w_out, b_out, xs, cols, dh, buf0,
+                                       buf1, plane, B, d_in, D, H, act, n_in, R, S, row0);
+    if (threadIdx.x < R && row0 + (int)threadIdx.x < B) {
+      const int r = threadIdx.x;
+      for (int d = 0; d < D; ++d)
+        drift[(size_t)(row0 + r) * D + d] = c0 * xs[r * d_in + d] + c1 * nxt[r * js + d];
+    }
+    __syncthreads();  // the forward output buffer is reused below
+
+    // Y = A S (hutchpp, in place) or A O (xtrace, into the free half), then
+    // the QR of Y a warp a row
+    apply_groups(0, n_s, [&](const float* jv, int cg, int k) {
+      spread(k * D, true, [&](int r, int e) {
+        const int c = cg + e / D;
+        const int d = e - (c - cg) * D;
+        const RowView my{cols + r, R};
+        my[qoff + c * D + d] = c0 * my[c * D + d] + c1 * jv[((c - cg) * R + r) * js + d];
+      });
+    });
+    for (int r = warp; r < R; r += kThreads / 32)
+      qr_cols_warp(RowView{cols + qoff * R + r, R}, n_s, D, RowView{mode == kHutchpp ? nullptr : rr_at + r, R},
+                   lane);
+    __syncthreads();
+
+    if (mode == kHutchpp) {
+      spread(n_g, true, [&](int r, int gi) {
+        project_out_probe(RowView{cols + r, R}, n_s, gi, D, RowView{coef_at + gi * n_s * R + r, R});
+      });
+      __syncthreads();
+      // A [Q | U]: each column's quadratic form, then their sums in column
+      // order
+      apply_groups(0, n_in, [&](const float* jv, int cg, int k) {
+        spread(k, false, [&](int r, int e) {
+          const int c = cg + e;
+          const RowView my{cols + r, R};
+          const float* j = jv + (e * R + r) * js;
+          float s = 0.0f;
+          for (int d = 0; d < D; ++d) {
+            const float vd = my[c * D + d];
+            s += vd * (c0 * vd + c1 * j[d]);
+          }
+          RowView{terms_at + r, R}[c] = s;
+        });
+      });
+      if (threadIdx.x < R && row0 + (int)threadIdx.x < B) {
+        const RowView terms{terms_at + threadIdx.x, R};
+        float trace_lr = 0.0f, trace_res = 0.0f;
+        for (int c = 0; c < n_in; ++c) {
+          const float s = terms[c];
+          if (c < n_s) trace_lr += s;
+          else trace_res += s;
+        }
+        div[row0 + threadIdx.x] = trace_lr + trace_res / (float)n_g;
+      }
+    } else {
+      // A Q, then the H, W, T grids and inv(R)'s columns
+      apply_groups(m, m, [&](const float* jv, int cg, int k) {
+        spread(k * D, false, [&](int r, int e) {
+          const int c = cg + e / D;
+          const int d = e - (c - cg) * D;
+          const RowView my{cols + r, R};
+          RowView{aq_at + r, R}[c * D + d] = c0 * my[(m + c) * D + d] + c1 * jv[((c - cg) * R + r) * js + d];
+        });
+      });
+      spread(m2 + m, false, [&](int r, int e) {
+        const RowView my{cols + r, R};
+        const RowView aq{aq_at + r, R};
+        if (e < m2) {
+          const int i = e / m;
+          const int j = e - i * m;
+          RowView{hm_at + r, R}[e] = dot_view(my, (m + i) * D, aq, j * D, D);
+          RowView{w_at + r, R}[e] = dot_view(my, (m + i) * D, my, j * D, D);
+          RowView{t_at + r, R}[e] = dot_view(aq, i * D, my, j * D, D);
+        } else {
+          const int j = e - m2;
+          const RowView rr{rr_at + r, R};
+          const RowView inv{inv_at + r, R};
+          for (int i = j + 1; i < m; ++i) inv[i * m + j] = 0.0f;
+          tri_inv_col(rr, m, j, tri_inv_floor(rr, m), inv);
+        }
+      });
+      __syncthreads();
+      // S = normalized inv(R)^T over A Q, a row of inv(R) an item
+      spread(m, false, [&](int r, int i) {
+        const RowView inv{inv_at + r, R};
+        const RowView Sv{aq_at + r, R};
+        float n = 0.0f;
+        for (int j = 0; j < m; ++j) n += inv[i * m + j] * inv[i * m + j];
+        n = fmaxf(sqrtf(n), 1e-30f);
+        for (int j = 0; j < m; ++j) Sv[j * m + i] = inv[i * m + j] / n;
+      });
+      __syncthreads();
+      // X = W - colsum(S .* W) S over inv(R), a column an item
+      spread(m, false, [&](int r, int j) {
+        const RowView Sv{aq_at + r, R};
+        const RowView W{w_at + r, R};
+        const RowView X{inv_at + r, R};
+        float csum = 0.0f;
+        for (int i = 0; i < m; ++i) csum += Sv[i * m + j] * W[i * m + j];
+        for (int i = 0; i < m; ++i) X[i * m + j] = W[i * m + j] - csum * Sv[i * m + j];
+      });
+      __syncthreads();
+      spread(m2, false, [&](int r, int e) {
+        const int i = e / m;
+        const int j = e - i * m;
+        const RowView Hm{hm_at + r, R};
+        const RowView Sv{aq_at + r, R};
+        const RowView X{inv_at + r, R};
+        float hs = 0.0f, hx = 0.0f;
+        for (int l = 0; l < m; ++l) {
+          hs += Hm[i * m + l] * Sv[l * m + j];
+          hx += Hm[i * m + l] * X[l * m + j];
+        }
+        RowView{hs_at + r, R}[e] = hs;
+        RowView{hx_at + r, R}[e] = hx;
+      });
+      __syncthreads();
+      spread(m, false, [&](int r, int j) {
+        const RowView Sv{aq_at + r, R};
+        const RowView X{inv_at + r, R};
+        const RowView W{w_at + r, R};
+        const RowView T{t_at + r, R};
+        const RowView HS{hs_at + r, R};
+        const RowView HX{hx_at + r, R};
+        const RowView rr{rr_at + r, R};
+        float shs = 0.0f, xhx = 0.0f, ws = 0.0f, sr = 0.0f, tx = 0.0f;
+        for (int i = 0; i < m; ++i) {
+          shs += Sv[i * m + j] * HS[i * m + j];
+          xhx += X[i * m + j] * HX[i * m + j];
+          ws += W[i * m + j] * Sv[i * m + j];
+          sr += Sv[i * m + j] * rr[i * m + j];
+          tx += T[i * m + j] * X[i * m + j];
+        }
+        const RowView sums{sums_at + r, R};
+        sums[5 * j] = shs;
+        sums[5 * j + 1] = xhx;
+        sums[5 * j + 2] = ws;
+        sums[5 * j + 3] = sr;
+        sums[5 * j + 4] = tx;
+      });
+      __syncthreads();
+      if (threadIdx.x < R && row0 + (int)threadIdx.x < B) {
+        const RowView Hm{hm_at + threadIdx.x, R};
+        const RowView sums{sums_at + threadIdx.x, R};
+        float trace_H = 0.0f;
+        for (int i = 0; i < m; ++i) trace_H += Hm[i * m + i];
+        float est = 0.0f;
+        for (int j = 0; j < m; ++j) {
+          const float shs = sums[5 * j], xhx = sums[5 * j + 1], ws = sums[5 * j + 2], sr = sums[5 * j + 3],
+                      tx = sums[5 * j + 4];
+          est += trace_H - shs + ws * sr - tx + xhx;
+        }
+        div[row0 + threadIdx.x] = est / (float)m;
+      }
+    }
+    __syncthreads();  // the next tile rewrites the slot and the tiles
+  }
+}
+
+// Floats a row of the storage form's workspace slot, in the layout above.
+int store_floats(int mode, int n_s, int n_g, int D) {
+  if (mode == kHutchpp) return (n_s + n_g) * D + n_g * n_s + n_s + n_g;
+  return 2 * n_s * D + n_s * n_s + n_s * D + 6 * n_s * n_s + 5 * n_s;
+}
+
 template <int MD, int P, bool kWide>
 cudaError_t prepare(size_t smem) {
   return allow_smem(fused_sketch_kernel<MD, P, kWide>, smem);
@@ -1025,20 +1389,40 @@ cudaError_t launch(const float* x, const float* probes, const float* w_in, const
   return cudaGetLastError();
 }
 
-// Resident blocks an SM of the instantiation (md, precision) at `smem`
-// bytes, and its registers and local memory a thread.
-template <int MD, int P, bool kWide>
-cudaError_t query(size_t smem, int* blocks, int* regs, int* local_bytes) {
-  cudaError_t st = prepare<MD, P, kWide>(smem);
+// The storage form on `grid` blocks, each with its slot of rows x ws_row
+// floats of `work`.
+template <int P>
+cudaError_t launch_store(const float* x, const float* probes, const float* w_in, const float* b_eff,
+                         const HiddenLayers& hidden, int n_hidden, const float* w_out, const float* b_out,
+                         const float* c0c1, float* drift, float* div, int B, int d_in, int D, int H, int mode,
+                         int act, int n_s, int n_g, int rows, int group, size_t smem, float* work, int ws_row,
+                         int grid, cudaStream_t stream) {
+  const cudaError_t st = allow_smem(fused_sketch_store_kernel<P>, smem);
   if (st != cudaSuccess) return st;
-  st = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, fused_sketch_kernel<MD, P, kWide>, kThreads,
-                                                     smem);
+  fused_sketch_store_kernel<P><<<grid, kThreads, smem, stream>>>(
+      x, probes, w_in, b_eff, hidden, n_hidden, w_out, b_out, c0c1, drift, div, B, d_in, D, H, mode, act, n_s,
+      n_g, rows, group, work, ws_row);
+  return cudaGetLastError();
+}
+
+// Resident blocks an SM of `kernel` at `smem` bytes, and its registers and
+// local memory a thread.
+template <typename Kernel>
+cudaError_t occupancy(Kernel kernel, size_t smem, int* blocks, int* regs, int* local_bytes) {
+  cudaError_t st = allow_smem(kernel, smem);
+  if (st != cudaSuccess) return st;
+  st = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, kThreads, smem);
   if (st != cudaSuccess) return st;
   cudaFuncAttributes attr;
-  st = cudaFuncGetAttributes(&attr, fused_sketch_kernel<MD, P, kWide>);
+  st = cudaFuncGetAttributes(&attr, kernel);
   *regs = attr.numRegs;
   *local_bytes = (int)attr.localSizeBytes;
   return st;
+}
+
+template <int MD, int P, bool kWide>
+cudaError_t query(size_t smem, int* blocks, int* regs, int* local_bytes) {
+  return occupancy(fused_sketch_kernel<MD, P, kWide>, smem, blocks, regs, local_bytes);
 }
 
 // The algebra's buckets: MD 2, 4 and 8 in registers, kMaxDim the wide path.
@@ -1081,6 +1465,10 @@ int ff_sketch_min_blocks() { return kMinBlocks; }
 // bfloat16): the wrapper loads one library a mode.
 int ff_sketch_precision() { return kPrecision; }
 
+// Floats a row of the storage form's workspace (the wrapper sizes the
+// workspace with its own count and checks it against this one).
+int ff_sketch_store_floats(int mode, int n_s, int n_g, int D) { return store_floats(mode, n_s, n_g, D); }
+
 // Launch on `stream`; returns the cudaError_t of the launch (0 on success),
 // cudaErrorInvalidValue where `precision` is not this library's.
 // probes: (B, n_s + n_g, D), the r sketch then the m residual probes of a row
@@ -1103,12 +1491,17 @@ int ff_sketch_precision() { return kPrecision; }
 // (hutchpp) or n_s (xtrace), ncols = n_s + n_g (hutchpp) or 2 n_s (xtrace),
 // n_alg = 0 (hutchpp), or for xtrace n_s^2 where n_s^2 > d_in (else over
 // the input tile) plus 4 n_s^2 + n_s D where that is > (n_hidden + 1) H or
-// g < kmax (else over the act' store).
+// g < kmax (else over the act' store).  `ws_row` > 0 selects the storage
+// form (md 64): `work` holds grid x rows x ws_row floats in device memory
+// (ws_row = ff_sketch_store_floats), the block's shared memory is the layout
+// above without the probe tile and the algebra (rows x d_in floats past the
+// chain buffers), and `grid` blocks walk the row tiles; ws_row 0 launches
+// one block a row tile, `work` and `grid` unused.
 int ff_fused_sketch(const float* x, const float* probes, const float* w_in, const float* b_eff,
                     const float* const* layers, int n_hidden, const float* w_out, const float* b_out,
                     const float* c0c1, float* drift, float* div, int B, int d_in, int D, int H, int mode,
                     int act, int precision, int n_s, int n_g, int md, int rows, int group, size_t smem,
-                    void* stream) {
+                    float* work, int ws_row, int grid, void* stream) {
   const bool counts_ok = mode == kHutchpp ? (n_g >= 1 && n_s >= 0 && n_s <= D)
                                           : (mode == kXtrace && n_g == 0 && n_s >= 1 && n_s <= D);
   const int kmax = mode == kHutchpp ? n_s + n_g : n_s;
@@ -1118,19 +1511,29 @@ int ff_fused_sketch(const float* x, const float* probes, const float* w_in, cons
       (precision == kBFloat16 && H % 16 != 0)) {
     return (int)cudaErrorInvalidValue;
   }
-  return (int)kLaunch[instance(md, group)](x, probes, w_in, b_eff, hidden_layers(layers, n_hidden), n_hidden, w_out,
-                                    b_out, c0c1, drift, div, B, d_in, D, H, mode, act, n_s, n_g, rows, group, smem,
-                                    static_cast<cudaStream_t>(stream));
+  const HiddenLayers hidden = hidden_layers(layers, n_hidden);
+  if (ws_row > 0) {
+    if (md != kMaxDim || work == nullptr || grid < 1 || ws_row != store_floats(mode, n_s, n_g, D)) {
+      return (int)cudaErrorInvalidValue;
+    }
+    return (int)launch_store<kPrecision>(x, probes, w_in, b_eff, hidden, n_hidden, w_out, b_out, c0c1, drift, div,
+                                         B, d_in, D, H, mode, act, n_s, n_g, rows, group, smem, work, ws_row, grid,
+                                         static_cast<cudaStream_t>(stream));
+  }
+  return (int)kLaunch[instance(md, group)](x, probes, w_in, b_eff, hidden, n_hidden, w_out, b_out, c0c1, drift,
+                                           div, B, d_in, D, H, mode, act, n_s, n_g, rows, group, smem,
+                                           static_cast<cudaStream_t>(stream));
 }
 
 // Resident blocks an SM, registers and local-memory bytes a thread of the
-// instantiation (md, precision, group > 0) launched with `smem` bytes;
-// returns the cudaError_t of the query.
-int ff_sketch_occupancy(int md, int precision, int group, size_t smem, int* blocks, int* regs,
+// instantiation (md, precision, group > 0, or the storage form where
+// `store`) launched with `smem` bytes; returns the cudaError_t of the query.
+int ff_sketch_occupancy(int md, int precision, int group, int store, size_t smem, int* blocks, int* regs,
                         int* local_bytes) {
-  if (!valid_md(md) || precision != kPrecision || group < 0) {
+  if (!valid_md(md) || precision != kPrecision || group < 0 || (store && md != kMaxDim)) {
     return (int)cudaErrorInvalidValue;
   }
+  if (store) return (int)occupancy(fused_sketch_store_kernel<kPrecision>, smem, blocks, regs, local_bytes);
   return (int)kQuery[instance(md, group)](smem, blocks, regs, local_bytes);
 }
 

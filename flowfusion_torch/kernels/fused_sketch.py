@@ -37,8 +37,19 @@ at the most rows that reach them), its shared memory, the algebra's bucket
 of D and the probe columns an application carries at once (0: all of
 them, wherever that fits; groups of fewer, at 4 rows a block, only where
 it does not).  A grouped plan is wide: it fits one block an SM and
-launches the kernel's wide instantiations.  A row's arithmetic does not depend on the rows, on the group, nor on
-the bucket among 2, 4 and 8.
+launches the kernel's wide instantiations.  Where even that does not fit,
+because the probe tile (every probe column of a row, D values each) and
+XTrace's algebra fill shared memory beside the act' store, the plan takes
+the *storage form*, ``(rows, smem_bytes, 64, group, ws_row)``: the wide
+path with each row's probe tile and algebra in a workspace in device
+memory, ``ws_row`` floats a row, which the wrapper allocates on the
+launch's device and stream for a persistent grid of one block an SM
+(:func:`store_workspace`; each block walks its row tiles with a slot of
+its own), and the act' store and the chain buffers alone in shared
+memory.  The JAX sketch kernel's gate counts no probe storage, so with it
+the kernel takes every configuration that gate admits.  A row's arithmetic
+does not depend on the rows, on the group, on the form, nor on the bucket
+among 2, 4 and 8.
 """
 
 from __future__ import annotations
@@ -76,6 +87,8 @@ __all__ = [
     "sketch_plan",
     "sketch_md",
     "sketch_occupancy",
+    "store_workspace",
+    "algebra_flops",
     "reset_launch_counts",
     "MAX_SKETCH_DIM",
 ]
@@ -86,6 +99,7 @@ MAX_SKETCH_DIM = 64  # D the per-row algebra takes (csrc kMaxDim)
 # in registers, MAX_SKETCH_DIM the wide path in shared memory
 SKETCH_MD = (2, 4, 8, MAX_SKETCH_DIM)
 SKETCH_BLOCKS = 3  # blocks an SM the kernel's launch bounds allow (csrc kMinBlocks)
+STORE_BLOCKS = 1  # blocks an SM of the storage form's persistent grid (its launch bounds)
 SKETCH_DTYPES = COMPUTE_DTYPES  # the compute modes this kernel takes, index = its precision
 
 
@@ -185,60 +199,134 @@ def _layout_bytes(sketch_mode, H, n_act, d_in, D, n_s, n_g, compute_dtype="float
     return lambda rows: _smem_bytes(rows, H, n_act, d_in, D, group, ncols, n_alg, compute_dtype)
 
 
+def _store_floats(sketch_mode: str, n_s: int, n_g: int, D: int) -> int:
+    """Floats a row of the storage form's workspace (csrc ``store_floats``):
+    the probe tile (ncols x D); then for Hutch++ each residual probe's
+    projections on Q (n_g x n_s) and each column's quadratic form (n_s +
+    n_g); for XTrace R of the QR (m x m), A Q (m x D), inv(R) and the H, W,
+    T, H S and H X grids (m x m each) and five sums a left-out probe."""
+    if sketch_mode == "hutchpp":
+        return (n_s + n_g) * D + n_g * n_s + n_s + n_g
+    return 2 * n_s * D + n_s * n_s + n_s * D + 6 * n_s * n_s + 5 * n_s
+
+
+def _store_layout_bytes(sketch_mode, H, n_act, d_in, D, n_s, n_g, compute_dtype="float32", group=0):
+    """``smem_bytes(rows)`` of the storage form: the layout of
+    :func:`_layout_bytes` without the probe tile and the algebra."""
+    kmax, _ = _layout(sketch_mode, n_s, n_g)
+    return lambda rows: _smem_bytes(rows, H, n_act, d_in, D, group or kmax, 0, 0, compute_dtype)
+
+
 def _default_plan(sketch_mode, H, n_act, d_in, D, n_s, n_g, compute_dtype="float32"):
-    """``(rows, group)`` of the plan :func:`sketch_plan` takes, or None:
-    every column of an application in one group (group 0) at the rows of
-    ``fused_mlp._pick_rows``; else the largest group that fits at 4 rows a
-    block."""
+    """``(rows, group, store)`` of the plan :func:`sketch_plan` takes, or
+    None: every column of an application in one group (group 0) at the rows
+    of ``fused_mlp._pick_rows``; else the largest group that fits at 4 rows
+    a block; else the storage form (``store``) at 4 rows a block with the
+    largest group that fits beside the act' store (0 for every column)."""
     kmax, _ = _layout(sketch_mode, n_s, n_g)
     picked = _pick_rows(_layout_bytes(sketch_mode, H, n_act, d_in, D, n_s, n_g, compute_dtype), SKETCH_BLOCKS)
     if picked is not None:
-        return picked[0], 0
+        return picked[0], 0, False
     group = next((g for g in range(kmax - 1, 0, -1)
                   if _layout_bytes(sketch_mode, H, n_act, d_in, D, n_s, n_g, compute_dtype, g)(4) <= _SMEM_LIMIT),
                  None)
-    return None if group is None else (4, group)
+    if group is not None:
+        return 4, group, False
+    group = _store_group(sketch_mode, H, n_act, d_in, D, n_s, n_g, compute_dtype)
+    return None if group is None else (4, group, True)
+
+
+def _store_group(sketch_mode, H, n_act, d_in, D, n_s, n_g, compute_dtype="float32"):
+    """The storage form's group at 4 rows a block: 0 where every column of
+    an application fits, else the largest group that does, else None."""
+    kmax, _ = _layout(sketch_mode, n_s, n_g)
+    group = next((g for g in range(kmax, 0, -1)
+                  if _store_layout_bytes(sketch_mode, H, n_act, d_in, D, n_s, n_g, compute_dtype, g)(4)
+                  <= _SMEM_LIMIT), None)
+    return None if group is None else group % kmax
 
 
 def sketch_plan(sketch_mode: str, H: int, n_act: int, d_in: int, D: int, n_s: int, n_g: int,
                 rows: Optional[int] = None, md: Optional[int] = None, compute_dtype: str = "float32",
-                group: Optional[int] = None):
+                group: Optional[int] = None, store: Optional[bool] = None):
     """``(rows, smem_bytes, md, group)`` of a launch in ``compute_dtype``
-    (float32 and highf32 share a layout), or raise when D is past
-    ``MAX_SKETCH_DIM`` = 64 or the shared-memory plan does not fit.
+    (float32 and highf32 share a layout), or ``(rows, smem_bytes, 64,
+    group, ws_row)`` in the storage form; raise when D is past
+    ``MAX_SKETCH_DIM`` = 64 or not even the storage form fits.
     ``n_act`` counts the activation layers (the hidden widths).  Rows: the
     most blocks an SM holds, at the most rows that reach them.  ``md``: the
     bucket of :func:`sketch_md`, 2, 4 or 8 (the register algebra) or 64 (the
     wide path, 8 < D <= 64).  ``group``: the probe columns an application
     carries at once, 0 for all of them (r, then r + m, for Hutch++; m for
     XTrace) wherever that fits, else the largest group that fits at 4 rows
-    a block (a wide plan, one block an SM).  ``rows``, ``md`` and ``group``
+    a block (a wide plan, one block an SM).  ``store``: the storage form,
+    where no group fits at 4 rows a block: the probe tile and XTrace's
+    algebra, ``ws_row`` floats a row, in a workspace in device memory, at 4
+    rows a block with the largest group that fits beside the act' store;
+    always the wide path (md 64).  ``rows``, ``md``, ``group`` and ``store``
     force a plan (a multiple of 4 rows, a bucket >= D, a group of 0 to the
-    widest application's columns); what is not forced is the default
-    plan's.  A row's arithmetic does not
-    depend on rows or group, nor on md among 2, 4 and 8."""
+    widest application's columns, either form); what is not forced is the
+    default plan's.  A row's arithmetic does not depend on rows, group or
+    form, nor on md among 2, 4 and 8."""
     bucket = sketch_md(D)
-    md = bucket if md is None else md
-    if md not in SKETCH_MD or md < D:
-        raise ValueError(f"sketch algebra bucket {md} is not one of {SKETCH_MD} at least D={D}")
     kmax, _ = _layout(sketch_mode, n_s, n_g)
     own = _default_plan(sketch_mode, H, n_act, d_in, D, n_s, n_g, compute_dtype)
-    if own is None and rows is None and group is None:
-        smem_bytes = _layout_bytes(sketch_mode, H, n_act, d_in, D, n_s, n_g, compute_dtype, 1)
+    if own is None and rows is None and group is None and store is None:
+        smem_bytes = _store_layout_bytes(sketch_mode, H, n_act, d_in, D, n_s, n_g, compute_dtype, 1)
         raise ValueError(
             f"fused sketch kernel shared-memory plan does not fit: {n_act} stored act' "
             f"layers and 2 chains of width H={H} need {smem_bytes(4)} bytes at "
-            f"4 rows a block in {compute_dtype} (limit {_SMEM_LIMIT}); use fewer probes, a "
+            f"4 rows a block in {compute_dtype} (limit {_SMEM_LIMIT}); use a "
             "narrower or shallower net, or use_fused_kernel=False"
         )
-    rows = (own[0] if own else 4) if rows is None else rows
-    group = (own[1] if own else 0) if group is None else group
+    store = (own[2] if own else False) if store is None else store
+    md = (MAX_SKETCH_DIM if store else bucket) if md is None else md
+    if md not in SKETCH_MD or md < D or (store and md != MAX_SKETCH_DIM):
+        raise ValueError(f"sketch algebra bucket {md} is not one of {SKETCH_MD} at least D={D}"
+                         + (f" (the storage form takes {MAX_SKETCH_DIM})" if store else ""))
+    if own is not None and own[2] == store:
+        rows_own, group_own = own[:2]
+    else:  # a forced form: 4 rows, and the storage form's own group
+        rows_own = 4
+        group_own = (store and _store_group(sketch_mode, H, n_act, d_in, D, n_s, n_g, compute_dtype)) or 0
+    rows = rows_own if rows is None else rows
+    group = group_own if group is None else group
     if not 0 <= group <= kmax:
         raise ValueError(f"sketch plan of group {group}: 0 to the widest application's {kmax} columns")
-    smem_bytes = _layout_bytes(sketch_mode, H, n_act, d_in, D, n_s, n_g, compute_dtype, group)
+    layout = _store_layout_bytes if store else _layout_bytes
+    smem_bytes = layout(sketch_mode, H, n_act, d_in, D, n_s, n_g, compute_dtype, group)
     if rows % 4 or not 4 <= rows <= 256 or smem_bytes(rows) > _SMEM_LIMIT:
         raise ValueError(f"sketch plan of {rows} rows: a multiple of 4 up to 256 whose block fits")
+    if store:
+        return rows, smem_bytes(rows), md, group, _store_floats(sketch_mode, n_s, n_g, D)
     return rows, smem_bytes(rows), md, group
+
+
+def algebra_flops(sketch_mode: str, n_s: int, n_g: int, D: int) -> int:
+    """fp32 flops a row of the per-row algebra, a multiply-add as two:
+    Y = c0 V + c1 J V; the MGS QR of r (Hutch++) or m (XTrace) columns;
+    Hutch++'s projections of the m residual probes on Q and the r + m
+    quadratic forms; XTrace's A Q, its H, W, T grids (m^2 dots of D),
+    inv(R) (m (m^2 - 1) / 3), S and X (m^2 each) and the leave-one-out sums
+    (the H S, H X grids, 4 m^3, and 10 m^2).  Under 1% of the chains' flops
+    at D <= 8; at m = D = 64 a quarter of them (``fused_mlp.flops_per_row``
+    counts the chains alone)."""
+    k = n_s
+    qr = 2 * D * k * (k - 1) + 3 * D * k
+    if sketch_mode == "hutchpp":
+        return 3 * k * D + qr + 4 * n_g * k * D + 4 * (k + n_g) * D
+    m = n_s
+    return 6 * m * D + qr + 6 * m * m * D + m * (m * m - 1) // 3 + 4 * m * m + 4 * m ** 3 + 10 * m * m
+
+
+def store_workspace(plan, B: int, sms: int = 132) -> Tuple[int, int]:
+    """``(grid, bytes)`` of a storage-form ``plan``'s launch over B rows on a
+    card of ``sms`` SMs (132 on the H100): one block a row tile up to
+    ``STORE_BLOCKS`` an SM, each walking its tiles with a slot of rows x
+    ws_row floats, so the workspace grows with the grid, not with B."""
+    rows, ws_row = plan[0], plan[4]
+    grid = min(-(-B // rows), sms * STORE_BLOCKS)
+    return grid, 4 * grid * rows * ws_row
 
 
 def _wrapper_plan(*args, **kwargs):
@@ -253,8 +341,9 @@ def _wrapper_plan(*args, **kwargs):
 def sketch_blocks(plan) -> int:
     """Blocks of ``plan`` an SM holds by its shared memory and the launch
     bounds (``sketch_occupancy`` asks the card).  A default plan that groups
-    holds one block by its shared memory."""
-    return min(SKETCH_BLOCKS, blocks_per_sm(plan[1]))
+    holds one block by its shared memory; the storage form's grid one
+    (``STORE_BLOCKS``)."""
+    return min(STORE_BLOCKS if len(plan) > 4 else SKETCH_BLOCKS, blocks_per_sm(plan[1]))
 
 
 def supports_sketch(
@@ -441,11 +530,13 @@ def _kernel_lib(compute_dtype: str) -> ctypes.CDLL:
     fn = lib.ff_fused_sketch
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, i, p, p, p, p, p] + [i] * 12 + [ctypes.c_size_t, p]
+        fn.argtypes = [p, p, p, p, p, i, p, p, p, p, p] + [i] * 12 + [ctypes.c_size_t, p, i, i, p]
         fn.restype = ctypes.c_int
         ip = ctypes.POINTER(ctypes.c_int)
-        lib.ff_sketch_occupancy.argtypes = [i, i, i, ctypes.c_size_t, ip, ip, ip]
+        lib.ff_sketch_occupancy.argtypes = [i, i, i, i, ctypes.c_size_t, ip, ip, ip]
         lib.ff_sketch_occupancy.restype = ctypes.c_int
+        lib.ff_sketch_store_floats.argtypes = [i, i, i, i]
+        lib.ff_sketch_store_floats.restype = ctypes.c_int
         want = {"ff_sketch_max_dim": MAX_SKETCH_DIM, "ff_sketch_min_blocks": SKETCH_BLOCKS,
                 "ff_sketch_precision": COMPUTE_DTYPES.index(compute_dtype)}
         for name in want:
@@ -462,14 +553,15 @@ def sketch_occupancy(plan, compute_dtype: str = "float32") -> dict:
     (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), registers and
     local-memory bytes a thread.  Builds the kernel; needs a card."""
     check_compute_dtype(compute_dtype)
-    rows, smem, md, group = plan
+    rows, smem, md, group = plan[:4]
+    store = len(plan) > 4
     out = [ctypes.c_int(0) for _ in range(3)]
-    err = _kernel_lib(compute_dtype).ff_sketch_occupancy(md, COMPUTE_DTYPES.index(compute_dtype), group, smem,
-                                                         *[ctypes.byref(v) for v in out])
+    err = _kernel_lib(compute_dtype).ff_sketch_occupancy(md, COMPUTE_DTYPES.index(compute_dtype), group, int(store),
+                                                         smem, *[ctypes.byref(v) for v in out])
     if err != 0:
         raise RuntimeError(f"fused_sketch occupancy query failed with CUDA error {err}")
     blocks, regs, local_bytes = (v.value for v in out)
-    return dict(rows=rows, smem_bytes=smem, md=md, group=group, blocks_per_sm=blocks, registers=regs,
+    return dict(rows=rows, smem_bytes=smem, md=md, group=group, store=store, blocks_per_sm=blocks, registers=regs,
                 local_bytes=local_bytes)
 
 
@@ -477,27 +569,30 @@ def _launch(x_in, V, w_in, b_eff, layers, c0c1, sketch_mode, D, n_s, n_g, activa
             compute_dtype="float32"):
     """Launch the kernel through the registered op ``fused_sketch`` (eager
     and traced calls alike) in ``compute_dtype`` on the current stream, at
-    ``plan`` (its rows, MD and group; the bytes follow from them); the
+    ``plan`` (its rows, MD, group and form; the bytes follow from them); the
     launch is added to ``counter``'s counts.  ``V`` is the (n_s + n_g, B, D) probe
     stack.  Returns ``(drift (B, D), div (B,))``."""
     hidden = layers[1:-1]
-    rows, _, md, group = plan
+    rows, _, md, group = plan[:4]
+    store = -1 if group < 0 else int(len(plan) > 4)  # -1: the traced placeholder, planned at run time
     return fused_sketch_op(
         x_in, V, w_in, b_eff, [l["w"] for l in hidden], [l["b"] for l in hidden], layers[-1]["w"],
         layers[-1]["b"], c0c1, sketch_mode, D, n_s, n_g, activation, compute_dtype, counter.__name__, rows, md,
-        group,
+        group, store,
     )
 
 
 def _fused_sketch_cuda(x_in, V, w_in, b_eff, hidden_w, hidden_b, w_out, b_out, c0c1, mode, D, n_s, n_g,
-                       activation, compute_dtype, counter, rows, md, group=-1):
+                       activation, compute_dtype, counter, rows, md, group=-1, store=-1):
     """The CUDA kernel of the op ``fused_sketch``: check the operands,
     allocate the outputs, launch ``csrc/fused_sketch.cu`` on the current
-    stream at the plan of :func:`sketch_plan` (``rows`` and ``md`` > 0 and
-    ``group`` >= 0 force one) and add one to the counts of the wrapper named ``counter``.
-    In ``bfloat16`` the weights are converted once a call as the RHS
-    kernel takes them (``fused_mlp._bf16_operands``).  Returns ``(drift
-    (B, D), div (B,))``."""
+    stream at the plan of :func:`sketch_plan` (``rows`` and ``md`` > 0,
+    ``group`` >= 0 and ``store`` >= 0 force one) and add one to the counts of the wrapper named ``counter``.
+    The storage form's workspace is allocated here, on the device and the
+    current stream (:func:`store_workspace`, the card's SMs); a failed
+    allocation raises.  In ``bfloat16`` the weights are converted once a
+    call as the RHS kernel takes them (``fused_mlp._bf16_operands``).
+    Returns ``(drift (B, D), div (B,))``."""
     B, d_in = x_in.shape
     H = b_eff.shape[0]
     x_in = x_in.contiguous()
@@ -509,8 +604,9 @@ def _fused_sketch_cuda(x_in, V, w_in, b_eff, hidden_w, hidden_b, w_out, b_out, c
     expect += [(w, (H, H)) for w in hidden_w] + [(b, (H,)) for b in hidden_b]
     check_compute_dtype(compute_dtype)
     device = check_operands(expect, [{"w": w} for w in hidden_w], H, "fused sketch kernel", lane(compute_dtype))
-    rows, smem, md, group = sketch_plan(mode, H, len(hidden_w) + 1, d_in, D, n_s, n_g, rows or None, md or None,
-                                        compute_dtype, None if group < 0 else group)
+    plan = sketch_plan(mode, H, len(hidden_w) + 1, d_in, D, n_s, n_g, rows or None, md or None, compute_dtype,
+                       None if group < 0 else group, None if store < 0 else bool(store))
+    rows, smem, md, group = plan[:4]
     if compute_dtype == "bfloat16":
         w_in, hidden_w, w_out = fused_mlp._bf16_operands(w_in, hidden_w, w_out)
 
@@ -519,12 +615,20 @@ def _fused_sketch_cuda(x_in, V, w_in, b_eff, hidden_w, hidden_b, w_out, b_out, c
     if B == 0:
         return drift, div
     lib = _kernel_lib(compute_dtype)
+    work, ws_row, grid = None, 0, 0
+    if len(plan) > 4:
+        ws_row = plan[4]
+        if lib.ff_sketch_store_floats(SKETCH_MODES.index(mode), n_s, n_g, D) != ws_row:
+            raise RuntimeError("fused_sketch.cu's storage-form workspace differs from the wrapper's plan")
+        grid, nbytes = store_workspace(plan, B, torch.cuda.get_device_properties(device).multi_processor_count)
+        work = torch.empty(nbytes // 4, dtype=torch.float32, device=device)
     err = lib.ff_fused_sketch(
         x_in.data_ptr(), probes.data_ptr(), w_in.data_ptr(), b_eff.data_ptr(),
         fused_mlp.layer_table(hidden_w, hidden_b, device), len(hidden_w),
         w_out.data_ptr(), b_out.data_ptr(), c0c1.data_ptr(), drift.data_ptr(), div.data_ptr(),
         B, d_in, D, H, SKETCH_MODES.index(mode), _KERNEL_ACTIVATIONS.index(activation),
         COMPUTE_DTYPES.index(compute_dtype), n_s, n_g, md, rows, group, smem,
+        None if work is None else work.data_ptr(), ws_row, grid,
         torch.cuda.current_stream(device).cuda_stream,
     )
     if err != 0:
@@ -541,13 +645,13 @@ fused_sketch_op = torch.library.custom_op(
     f"{fused_mlp.OP_NAMESPACE}::fused_sketch", _fused_sketch_cuda, mutates_args=(), device_types="cuda",
     schema="(Tensor x_in, Tensor V, Tensor w_in, Tensor b_eff, Tensor[] hidden_w, Tensor[] hidden_b, "
            "Tensor w_out, Tensor b_out, Tensor c0c1, str mode, int D, int n_s, int n_g, str activation, "
-           "str compute_dtype, str counter, int rows, int md, int group=-1) -> (Tensor, Tensor)",
+           "str compute_dtype, str counter, int rows, int md, int group=-1, int store=-1) -> (Tensor, Tensor)",
 )
 
 
 @fused_sketch_op.register_kernel("cpu")
 def _fused_sketch_op_cpu(x_in, V, w_in, b_eff, hidden_w, hidden_b, w_out, b_out, c0c1, mode, D, n_s, n_g,
-                         activation, compute_dtype, counter, rows, md, group=-1):
+                         activation, compute_dtype, counter, rows, md, group=-1, store=-1):
     """The op on CPU tensors: the ``ops.trace`` estimator on the plain net
     of the folded operands (TF32 off; in ``bfloat16``
     :func:`_bf16_sketch_reference`), counting nothing."""
@@ -565,7 +669,7 @@ def _fused_sketch_op_cpu(x_in, V, w_in, b_eff, hidden_w, hidden_b, w_out, b_out,
 
 @fused_sketch_op.register_fake
 def _fused_sketch_op_fake(x_in, V, w_in, b_eff, hidden_w, hidden_b, w_out, b_out, c0c1, mode, D, n_s, n_g,
-                          activation, compute_dtype, counter, rows, md, group=-1):
+                          activation, compute_dtype, counter, rows, md, group=-1, store=-1):
     """The op's output shapes, for tracing: drift (B, D) and div (B,) (the
     wrappers check the plan before the call)."""
     B = x_in.shape[0]

@@ -90,6 +90,7 @@ __all__ = [
     "train_tables_flow",
     "train_tables_symplectic",
     "train_plan",
+    "supports_batch",
     "train_flops",
     "train_flops_by_unit",
     "param_tiles",
@@ -169,6 +170,14 @@ def _wbuf_floats(rows: int, K: int, H: int, n_hidden: int, D: int) -> Optional[i
     left = _SMEM_LIMIT // 4 - _acts_floats(rows, K, H, n_hidden, D)
     least = 4 * (max(H, _pad(D)) + _WPAD)
     return None if left < least else min(left, _staged_floats(K, H, n_hidden, D))
+
+
+def supports_batch(cfg, bs: int) -> bool:
+    """Whether the kernel trains ``cfg`` on batches of ``bs`` rows: the JAX
+    package's name for :func:`train_plan` admitting the net (admission does
+    not depend on ``bs`` here; ``train.fit(engine='auto')`` routes a net it
+    does not admit to the plain engine)."""
+    return train_plan(cfg, bs) is not None
 
 
 def train_plan(cfg, bs: int = 1, sms: int = SMS, rows: Optional[int] = None) -> Optional[Tuple[int, int]]:

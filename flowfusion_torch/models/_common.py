@@ -11,7 +11,7 @@ from typing import Callable, List, Optional, Tuple
 import torch
 
 __all__ = [
-    "fused_dispatch", "std_stats", "cond_stats", "norm_cond", "std_normal_logpdf",
+    "auto_fused", "fused_dispatch", "std_stats", "cond_stats", "norm_cond", "std_normal_logpdf",
     "check_trace_mode", "check_probes", "adjoint_refusal", "adjoint_inputs",
     "check_per_sample_mode", "per_shard_variant", "logprob_per_sample_per_shard", "group_params",
 ]
@@ -147,6 +147,14 @@ def fused_dispatch(use_fused_kernel: Optional[bool], supported: bool, on_cuda: b
             "config, switch trace_mode to 'hutchinson', or drop the flag"
         )
     return bool(use_fused_kernel)
+
+
+def auto_fused(use_fused_kernel: Optional[bool], supported: bool, on_cuda: bool = False) -> bool:
+    """The JAX package's name for :func:`fused_dispatch`, the same rule:
+    an explicit True or False wins (True raises outside the envelope), and
+    auto (None) takes the kernel where the solve's tensors are on CUDA
+    (``on_cuda``), as the JAX rule takes it on a single-device TPU."""
+    return fused_dispatch(use_fused_kernel, supported, on_cuda)
 
 
 def per_shard_variant(model, supported: bool):

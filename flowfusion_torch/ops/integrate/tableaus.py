@@ -33,7 +33,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional, Tuple
 
-__all__ = ["ButcherTableau", "DOPRI5", "ADAPTIVE_METHODS", "get_adaptive_tableau"]
+__all__ = ["ButcherTableau", "DOPRI5", "ADAPTIVE_METHODS", "ADAPTIVE_TABLEAUS", "get_adaptive_tableau"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -230,6 +230,10 @@ _TABLEAUS = {
     "adaptive_heun": ADAPTIVE_HEUN,
 }
 ADAPTIVE_METHODS = tuple(_TABLEAUS) + ("dop853",)
+# The JAX package's method -> tableau dict, of the tableaus built at import:
+# 'dop853' is built from scipy at its first use (get_adaptive_tableau), so
+# it is in ADAPTIVE_METHODS and not here.
+ADAPTIVE_TABLEAUS = _TABLEAUS
 
 
 def get_adaptive_tableau(method: str) -> ButcherTableau:

@@ -30,6 +30,7 @@ import math
 from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
+import torch.autograd.forward_ad as fwAD
 from torch.func import jvp
 
 __all__ = [
@@ -100,7 +101,9 @@ def _linearized(f, x) -> Tuple[torch.Tensor, Callable[[torch.Tensor], torch.Tens
 def _qr_cols(cols: Cols) -> Tuple[Cols, List[List[torch.Tensor]]]:
     """Thin QR of per-row (D, m) matrices given as m columns of (D, B).
 
-    Modified Gram--Schmidt unrolled over the columns.  A column whose
+    Modified Gram--Schmidt, each column's updates by q_0, q_1, ... in
+    order; the later columns take q_j's update together as q_j is
+    accepted (the same operations on each column).  A column whose
     residual norm falls under ``max(scale * 1e-6, 1e-30)`` (``scale`` the
     root of the summed squared norms of all columns) is degenerate: it is
     replaced by the canonical basis vector with the largest residual
@@ -126,12 +129,9 @@ def _qr_cols(cols: Cols) -> Tuple[Cols, List[List[torch.Tensor]]]:
     # res[c] = e_c orthogonalized against the accepted columns so far
     eye = torch.eye(D, dtype=cols[0].dtype, device=cols[0].device)
     res = eye[:, :, None].expand(D, D, B)  # (c, d, B)
+    V = _stack_cols(cols)  # columns j.. with the updates by q_0 .. q_{j-1}
     for j in range(m):
-        v = cols[j]
-        for i in range(j):
-            r_ij = torch.sum(q_cols[i] * v, dim=0)
-            R[i][j] = r_ij
-            v = v - r_ij[None, :] * q_cols[i]
+        v = V[0]
         r_jj = torch.sqrt(torch.sum(v * v, dim=0))
         R[j][j] = r_jj
 
@@ -143,35 +143,55 @@ def _qr_cols(cols: Cols) -> Tuple[Cols, List[List[torch.Tensor]]]:
         q_j = torch.where(degenerate, q_fb, v / torch.maximum(r_jj, floor)[None, :])
         q_cols.append(q_j)
         if j + 1 < m:
+            r_j = torch.sum(q_j * V[1:], dim=1)  # (m - j - 1, B): R's row j past the diagonal
+            R[j][j + 1:] = list(r_j.unbind(0))
+            V = V[1:] - r_j[:, None, :] * q_j
             proj = torch.sum(res * q_j[None, :, :], dim=1)  # (c, B)
             res = res - proj[:, None, :] * q_j[None, :, :]
     return q_cols, R
 
 
+def _stack_cols(cols: Cols) -> torch.Tensor:
+    """The (D, B) columns as one (m, D, B) tensor in their own memory
+    layout: a JVP's columns are transposed (B, D) rows, and a product with
+    them sums over D as the column's own product does."""
+    if all(c.dim() == 2 and c.shape[0] > 1 and c.stride(0) == 1 for c in cols):
+        return torch.stack([c.T for c in cols]).transpose(1, 2)
+    return torch.stack(cols)
+
+
+def _tri_inv(R: torch.Tensor) -> torch.Tensor:
+    """inv(R) of the upper-triangular (k, k, B) R, by back-substitution a
+    row of inv(R) at a time (rows k-1 down to 0, every column at once).  A
+    diagonal under ``max(scale * 1e-6, 1e-30)`` (``scale`` the largest
+    |diagonal|) is clamped to ``sign(d) floor + (d == 0) floor``, so a
+    degenerate sketch gives a bounded estimate instead of a NaN.  Entry
+    (i, j) is 1 or 0 less R[i][l] inv[l][j] for l = i+1 .. j in order,
+    divided by the clamped diagonal; the terms l > j of a row's update meet
+    inv's zeros below the diagonal and leave a finite sum as it is."""
+    k = R.shape[0]
+    scale = R[0, 0] * 0
+    for i in range(k):
+        scale = torch.maximum(scale, torch.abs(R[i, i]))
+    floor = torch.clamp_min(scale * 1e-6, 1e-30)
+    inv = torch.zeros_like(R)
+    upper = torch.arange(k, device=R.device)[:, None]  # column index j, against row i
+    for i in range(k - 1, -1, -1):
+        acc = torch.zeros_like(R[0])
+        acc[i] = 1.0
+        for l in range(i + 1, k):
+            acc = acc - R[i, l] * inv[l]
+        d = R[i, i]
+        safe = torch.where(torch.abs(d) < floor, torch.sign(d) * floor + (d == 0) * floor, d)
+        inv[i] = torch.where(upper >= i, acc / safe, 0.0)
+    return inv
+
+
 def _tri_inv_entries(R, k: int):
     """Entries of inv(R), R upper-triangular as a k x k grid of (B,)
-    entries, by back-substitution.  A diagonal under ``max(scale * 1e-6,
-    1e-30)`` (``scale`` the largest |diagonal|) is clamped to
-    ``sign(d) floor + (d == 0) floor``, so a degenerate sketch gives a
-    bounded estimate instead of a NaN."""
-    scale = R[0][0] * 0
-    for i in range(k):
-        scale = torch.maximum(scale, torch.abs(R[i][i]))
-    floor = torch.clamp_min(scale * 1e-6, 1e-30)
-
-    def safe_diag(i):
-        d = R[i][i]
-        return torch.where(torch.abs(d) < floor, torch.sign(d) * floor + (d == 0) * floor, d)
-
-    zeros = torch.zeros_like(scale)
-    inv = [[zeros] * k for _ in range(k)]
-    for j in range(k):
-        for i in range(j, -1, -1):
-            acc = torch.full_like(scale, 1.0 if i == j else 0.0)
-            for l in range(i + 1, j + 1):
-                acc = acc - R[i][l] * inv[l][j]
-            inv[i][j] = acc / safe_diag(i)
-    return inv
+    entries: :func:`_tri_inv` on the stacked grid."""
+    inv = _tri_inv(torch.stack([torch.stack(list(row[:k])) for row in R[:k]]))
+    return [[inv[i, j] for j in range(k)] for i in range(k)]
 
 
 def hutchpp_core(apply_cols, s_cols: Cols, g_cols: Cols, measure_cols=None) -> torch.Tensor:
@@ -187,12 +207,15 @@ def hutchpp_core(apply_cols, s_cols: Cols, g_cols: Cols, measure_cols=None) -> t
     y_cols = apply_cols(s_cols)
     q_cols, _ = _qr_cols(y_cols)
 
-    u_cols = []
-    for g in g_cols:
-        u = g
+    # U = (I - QQ^T) G, every residual probe at once: each probe's
+    # projection on q by torch.sum over the D axis, the updates in q's order
+    u_cols = list(g_cols)
+    if q_cols and g_cols:
+        G = _stack_cols(g_cols)
+        U = G
         for q in q_cols:
-            u = u - torch.sum(q * g, dim=0)[None, :] * q
-        u_cols.append(u)
+            U = U - torch.sum(q * G, dim=1)[:, None, :] * q
+        u_cols = list(U.unbind(0))
 
     # U depends only on Q and the probes: A Q and A U share one application
     applied = measure_cols(q_cols + u_cols)
@@ -226,47 +249,63 @@ def xtrace_core(apply_cols, o_cols: Cols) -> torch.Tensor:
     y_cols = apply_cols(o_cols)
     q_cols, R = _qr_cols(y_cols)
     aq_cols = apply_cols(q_cols)
+    Q, AQ, O = _stack_cols(q_cols), _stack_cols(aq_cols), _stack_cols(o_cols)  # (m, D, B)
+    # The m x m matrices as (m, m, B) grids, [i][j] the (B,) entry: each sum
+    # over i, j or l below runs in index order, one grid row or column of
+    # entries at a time, and each dot over D is torch.sum over the D axis.
 
-    def dot(a, b):
-        return torch.sum(a * b, dim=0)
+    def grid(a, b):  # [i][j] = a_i . b_j
+        return torch.stack([torch.sum(a[i] * b, dim=1) for i in range(m)])
 
-    H = [[dot(q_cols[i], aq_cols[j]) for j in range(m)] for i in range(m)]
-    W = [[dot(q_cols[i], o_cols[j]) for j in range(m)] for i in range(m)]
-    T = [[dot(aq_cols[i], o_cols[j]) for j in range(m)] for i in range(m)]
-
-    S_t = _tri_inv_entries(R, m)  # inv(R), row i / col j
-    for i in range(m):
-        norm = torch.clamp_min(torch.sqrt(sum(S_t[i][j] * S_t[i][j] for j in range(m))), 1e-30)
-        S_t[i] = [S_t[i][j] / norm for j in range(m)]
+    H, W, T = grid(Q, AQ), grid(Q, O), grid(AQ, O)
+    R = torch.stack([torch.stack(row) for row in R])
+    S_t = _tri_inv(R)  # inv(R), row i / col j
+    norm = torch.clamp_min(torch.sqrt(sum(S_t[:, j] * S_t[:, j] for j in range(m))), 1e-30)
     # S[i][j] pairs row index i with W's and T's row index (a Q column)
-    S = [[S_t[j][i] for j in range(m)] for i in range(m)]
+    S = (S_t / norm[:, None]).transpose(0, 1)
 
-    trace_H = sum(H[i][i] for i in range(m))
+    trace_H = sum(H[i, i] for i in range(m))
     # X = W - colsum(S .* W) * S (leave-one-out deflation)
-    csum = [sum(S[i][j] * W[i][j] for i in range(m)) for j in range(m)]
-    X = [[W[i][j] - csum[j] * S[i][j] for j in range(m)] for i in range(m)]
+    csum = sum(S[i] * W[i] for i in range(m))
+    X = W - csum[None] * S
 
     def quad(V):  # [V^T H V]_jj for each left-out column j
-        HV = [[sum(H[i][l] * V[l][j] for l in range(m)) for j in range(m)] for i in range(m)]
-        return [sum(V[i][j] * HV[i][j] for i in range(m)) for j in range(m)]
+        HV = sum(H[:, l, None] * V[l][None] for l in range(m))
+        return sum(V[i] * HV[i] for i in range(m))
 
     SHS = quad(S)
     XHX = quad(X)
-    WS = [sum(W[i][j] * S[i][j] for i in range(m)) for j in range(m)]
-    SR = [sum(S[i][j] * R[i][j] for i in range(m)) for j in range(m)]
-    TX = [sum(T[i][j] * X[i][j] for i in range(m)) for j in range(m)]
-    ests = [trace_H - SHS[j] + WS[j] * SR[j] - TX[j] + XHX[j] for j in range(m)]
-    return sum(ests) / float(m)
+    WS = sum(W[i] * S[i] for i in range(m))
+    SR = sum(S[i] * R[i] for i in range(m))
+    TX = sum(T[i] * X[i] for i in range(m))
+    ests = trace_H - SHS + WS * SR - TX + XHX
+    return sum(ests[j] for j in range(m)) / float(m)
 
 
 def xtrace_divergence(
     f: Callable[[torch.Tensor], torch.Tensor], x: torch.Tensor, O: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """XTrace with ``O`` (m, B, D) probes, m <= D.  Every application of A
-    is detached: the value is right, its gradient is zero."""
-    x_dot, jv = _linearized(f, x)
-    div = xtrace_core(lambda cols: [jv(c).detach() for c in cols], [O[i].T for i in range(O.shape[0])])
-    return x_dot, div
+    is detached: the value is right, its gradient is zero.  So A v is a
+    forward-mode dual number's tangent (``torch.autograd.forward_ad``),
+    the tangent formulas ``torch.func.jvp`` runs, at a small part of its
+    cost a call (a call applies A to 2 m columns, 128 at m = 64); where
+    forward AD does not reach ``f`` (inside a registered op's kernel, below
+    autograd), ``torch.func.jvp``."""
+
+    def apply_cols(cols: Cols) -> Cols:
+        out = []
+        for col in cols:
+            v = col.T.contiguous()
+            with fwAD.dual_level():
+                jv = fwAD.unpack_dual(f(fwAD.make_dual(x, v))).tangent
+            if jv is None:
+                jv = jvp(f, (x,), (v,))[1]
+            out.append(jv.T.detach())
+        return out
+
+    div = xtrace_core(apply_cols, [O[i].T for i in range(O.shape[0])])
+    return f(x), div
 
 
 def make_probes(

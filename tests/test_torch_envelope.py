@@ -8,17 +8,18 @@ for tangents, Hutch++ and XTrace; the widths padded to 128 lanes) all hold.
 The port's plans (``fused_mlp._plan``, ``fused_sketch.sketch_plan``) fit
 every one of them in every compute mode: every tangent chain in one pass
 where that fits, else passes of fewer chains (and ``highf32`` without its
-TF32 planes), and the sketch's Jacobian applications in groups of probe
-columns.  The one exception is the sketch kernel's probe storage: the probe
-tile (every probe column of a row, D values each) and XTrace's algebra stay
-in shared memory, which the JAX gate does not count, so at D = 64 the
-largest probe counts do not fit beside the act' store of the widest or
-deepest nets (at the flagship's depth and H = 128: XTrace with m > 36).
+TF32 planes), the sketch's Jacobian applications in groups of probe
+columns, and, where the sketch's probe storage (the probe tile, every probe
+column of a row, D values each, and XTrace's algebra, which the JAX gate
+does not count) does not fit shared memory beside the act' store, the
+sketch's storage form, which keeps it in a workspace in device memory (at
+the flagship's depth and H = 128: XTrace with m > 36 at D = 64).
 
 Then today's plans, pinned at the values they had before the new plan
-forms, and the plain versions at gap widths (which the wrappers refused on
-every device before) against the JAX kernels in interpret mode, and in
-``bfloat16`` against the numpy spec of the JAX kernel's rounding points.
+forms, the storage form's workspace, and the plain versions at gap widths
+(which the wrappers refused on every device before) against the JAX
+kernels in interpret mode, and in ``bfloat16`` against the numpy spec of
+the JAX kernel's rounding points.
 """
 
 import jax
@@ -29,9 +30,11 @@ import torch
 
 from flowfusion_tpu.kernels import fused_mlp as jfm
 from flowfusion_tpu.models import nets as jnets
+from flowfusion_tpu.ops import trace as jtrace
 from flowfusion_torch import kernels
 from flowfusion_torch.kernels import fused_mlp, fused_sketch
 from flowfusion_torch.models import nets
+from flowfusion_torch.ops import trace
 from flowfusion_torch.utils.convert import params_from_numpy
 from test_torch_bf16 import _fold_score, _np_params, _spec_rhs, _tail
 from test_torch_sketch_bf16 import _check
@@ -77,15 +80,6 @@ def _port_admits(mode, D, C, probes, n_act, H, dtype):
     return fused_mlp.supports_features(D + C, mode, H, D, dtype, n_tan=probes)
 
 
-def _storage_bound(mode, D, C, n_act, H, dtype):
-    """Whether the sketch kernel's layout without its probe tile and
-    algebra (one chain a group) fits 4 rows a block: then its refusal is
-    the probe storage alone."""
-    lane = fused_mlp.lane(dtype)
-    H = -(-H // lane) * lane
-    return mode in SKETCH and fused_sketch._smem_bytes(4, H, n_act, D + C, D, 1, 0, 0, dtype) <= fused_mlp._SMEM_LIMIT
-
-
 def _gaps(mode, dtype, depths=None, widths=WIDTHS):
     """The grid's configurations the JAX gate admits and the port refuses."""
     depths = depths or list(range(1, 25)) + ([93] if mode in SKETCH else [])
@@ -106,22 +100,22 @@ def _gaps(mode, dtype, depths=None, widths=WIDTHS):
 def test_port_admits_what_the_jax_gate_admits(mode, dtype):
     """Every width, depth (1-24, and 93 at H = 128 for the sketch modes)
     and probe count of the grid that the JAX gate admits, the port admits
-    too, but for the sketch's probe storage at D = 64."""
-    gaps = _gaps(mode, dtype)
-    if mode not in SKETCH:
-        assert gaps == []
-        return
-    assert all(D == 64 and _storage_bound(mode, D, C, n_act, H, dtype) for D, C, _, n_act, H in gaps), gaps[:5]
+    too: the sketch's probe storage at D = 64 by the storage form."""
+    assert _gaps(mode, dtype) == []
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_the_flagship_depth_and_width_refuse_only_xtrace_past_36_probes(dtype):
-    """At three hidden layers of H = 128 the port refuses only XTrace with
-    m > 36 at D = 64 (ROADMAP B3): Hutch++ takes every r and m there."""
-    gaps = [(mode, D, p) for mode in SKETCH for D, C, p, _, _ in _gaps(mode, dtype, [3], [128])]
-    assert gaps == [("xtrace", 64, 37), ("xtrace", 64, 64)]
-    assert fused_sketch.supports_sketch("xtrace", 128, 3, 64, 64, 36, 0, dtype)
-    assert fused_sketch.supports_sketch("hutchpp", 128, 3, 64, 64, 64, 64, dtype)
+    """At three hidden layers of H = 128 and D = 64, where the port refused
+    XTrace with m > 36 before the storage form (ROADMAP B3), it refuses
+    nothing, and the plan takes the storage form for exactly those probe
+    counts: Hutch++ and XTrace up to m = 36 keep their shared-memory plans."""
+    assert [p for mode in SKETCH for p in _gaps(mode, dtype, [3], [128])] == []
+    forms = {m: len(fused_sketch.sketch_plan("xtrace", 128, 3, 64, 64, m, 0, compute_dtype=dtype)) == 5
+             for m in range(1, 65)}
+    assert [m for m, store in forms.items() if store] == list(range(37, 65))
+    assert all(len(fused_sketch.sketch_plan("hutchpp", 128, 3, 64, 64, r, m, compute_dtype=dtype)) == 4
+               for r in (0, 1, 32, 64) for m in (1, 32, 64))
 
 
 def test_the_issue_table_widths():
@@ -245,6 +239,46 @@ def test_new_plan_forms():
         fused_sketch.sketch_plan("xtrace", 128, 3, 2, 2, 2, 0, group=3)
 
 
+def test_storage_form_workspace_and_grid():
+    """The storage form's plan, workspace and grid against a hand count.
+    XTrace m = 64 at D = 64, 128 x 3: 4 rows; shared memory the act' store
+    (3 x 4 x 128 floats), the chain buffers of a group and the input tile
+    (4 x 64), with the largest group that fits 232,448 bytes (55 of 64
+    columns; bf16 fits every column); a row's workspace the probe tile (2 x
+    64 x 64), R, A Q and inv(R) (64 x 64 each), the H, W, T, H S and H X
+    grids (5 x 64 x 64) and five sums a probe.  Hutch++ r = m = 64 at (2048,)
+    x 3: groups of two chains; the probe tile (128 x 64), the projections (64
+    x 64) and 128 column terms.  One block an SM of 132 walks the row
+    tiles: the grid is the tiles up to 132, the workspace grid x 4 rows."""
+    xt_row = 2 * 64 * 64 + 64 * 64 + 64 * 64 + 64 * 64 + 5 * 64 * 64 + 5 * 64
+    assert xt_row == 41_280
+    assert fused_sketch.sketch_plan("xtrace", 128, 3, 64, 64, 64, 0) == (
+        4, 4 * (3 * 4 * 128 + 2 * 55 * 4 * 128 + 4 * 64), 64, 55, xt_row)
+    assert fused_sketch.sketch_plan("xtrace", 128, 3, 64, 64, 64, 0, compute_dtype="highf32")[3] == 55
+    assert fused_sketch.sketch_plan("xtrace", 128, 3, 64, 64, 64, 0, compute_dtype="bfloat16") == (
+        4, 4 * (3 * 4 * 128 + 4 * 64) + 6 * 64 * 4 * 136, 64, 0, xt_row)
+    hpp_row = 128 * 64 + 64 * 64 + 128
+    assert fused_sketch.sketch_plan("hutchpp", 2048, 3, 64, 64, 64, 64) == (
+        4, 4 * (3 * 4 * 2048 + 2 * 2 * 4 * 2048 + 4 * 64), 64, 2, hpp_row)
+    for plan, row in ((fused_sketch.sketch_plan("xtrace", 128, 3, 64, 64, 64, 0), xt_row),
+                      (fused_sketch.sketch_plan("hutchpp", 2048, 3, 64, 64, 64, 64), hpp_row)):
+        assert fused_sketch.store_workspace(plan, 50_000) == (132, 4 * 132 * 4 * row)
+        assert fused_sketch.store_workspace(plan, 4_096, sms=114) == (114, 4 * 114 * 4 * row)
+        assert fused_sketch.store_workspace(plan, 21) == (6, 4 * 6 * 4 * row)
+        assert fused_sketch.sketch_blocks(plan) == 1
+    assert fused_sketch.store_workspace(fused_sketch.sketch_plan("xtrace", 128, 3, 64, 64, 64, 0), 50_000)[1] == \
+        87_183_360  # 83 MiB on the H100
+    # forced where the shared-memory plan fits: 4 rows, every column; the
+    # wide path only (md 64), and past the JAX gate still a refusal
+    assert fused_sketch.sketch_plan("hutchpp", 128, 3, 24, 16, 2, 1, store=True) == (
+        4, 4 * (3 * 4 * 128 + 2 * 3 * 4 * 128 + 4 * 24), 64, 0, 3 * 16 + 2 + 3)
+    assert fused_sketch.sketch_plan("xtrace", 128, 3, 2, 2, 2, 0, store=True)[2] == 64
+    with pytest.raises(ValueError, match="storage form"):
+        fused_sketch.sketch_plan("xtrace", 128, 3, 2, 2, 2, 0, store=True, md=2)
+    with pytest.raises(ValueError, match="does not fit"):
+        fused_sketch.sketch_plan("hutchpp", 4096, 3, 9, 6, 6, 6)
+
+
 # -- the plain versions at gap widths against the JAX kernels ------------------
 T, C0, C1 = 0.37, -0.3, 0.9
 
@@ -317,15 +351,21 @@ def test_rhs_plain_version_at_gap_widths(name, D, C, units, activation, gain, mo
 
 # (name, D, C, units, activation, gain, mode, r or m, residual probes):
 # Hutch++ r = 2, m = 1 at the JAX gate's 2,048 (groups of two probe
-# columns) and XTrace m = 2 on the 24-hidden-layer net
+# columns), XTrace m = 2 on the 24-hidden-layer net, and XTrace m = 37 at
+# D = 64 on the flagship's widths (the storage form, ROADMAP B3)
 _SKETCH_GAPS = [
     ("hutchpp 2048", 2, 0, (2048,) * 3, "silu", 1.0, "hutchpp", 2, 1),
     ("deep xtrace", 2, 0, (128,) * 24, "tanh", 3 ** 0.5, "xtrace", 2, 0),
+    ("xtrace m37 D64", 64, 0, (128,) * 3, "silu", 1.0, "xtrace", 37, 0),
 ]
 
 
 @pytest.mark.parametrize("name, D, C, units, activation, gain, mode, n_s, n_g", _SKETCH_GAPS)
 def test_sketch_plain_version_at_gap_widths(name, D, C, units, activation, gain, mode, n_s, n_g):
+    """Against the JAX Pallas kernel in interpret mode; at m = 37, D = 64,
+    where the interpreted kernel takes minutes on one core, against the JAX
+    package's ``ops/trace.py::xtrace_divergence`` on the same net, time and
+    probes (the estimator the kernel computes), eagerly."""
     jcfg, jparams, cfg, params = _pair(D, C, units, activation, gain)
     assert fused_sketch.supports_sketch(mode, units[0], len(units), D + C, D, n_s, n_g)
     rng, x, _ = _data(32, D, C, 2)
@@ -334,8 +374,14 @@ def test_sketch_plain_version_at_gap_widths(name, D, C, units, activation, gain,
     else:
         g = rng.standard_normal((n_s, 32, D))
         probes = ((g / np.linalg.norm(g, axis=-1, keepdims=True) * np.sqrt(D)).astype(np.float32),)
-    jout = jfm.fused_drift_sketch(jparams, jcfg, jnp.float32(T), jnp.asarray(x), tuple(map(jnp.asarray, probes)),
-                                  mode, None, c0=0.0, c1=-1.3, interpret=True, tile=32)
+    if n_s > 8:
+        assert len(fused_sketch.sketch_plan(mode, units[0], len(units), D + C, D, n_s, n_g)) == 5
+        jout = jtrace.xtrace_divergence(lambda xx: -1.3 * jnets.apply_score_mlp(jcfg, jparams, jnp.float32(T), xx),
+                                        jnp.asarray(x), *map(jnp.asarray, probes))
+    else:
+        jout = jfm.fused_drift_sketch(jparams, jcfg, jnp.float32(T), jnp.asarray(x),
+                                      tuple(map(jnp.asarray, probes)), mode, None, c0=0.0, c1=-1.3, interpret=True,
+                                      tile=32)
     out = fused_sketch.fused_drift_sketch(params, cfg, torch.tensor(T), torch.as_tensor(x),
                                           tuple(map(torch.as_tensor, probes)), mode, None, c0=0.0, c1=-1.3)
     assert _rel(out[0], jout[0]) <= 1e-5
@@ -358,3 +404,130 @@ def test_bf16_exact_at_a_gap_width_against_the_spec():
     strict = fused_mlp.fused_drift(params, cfg, torch.tensor(T), torch.as_tensor(x), exact_divergence=True, c0=C0,
                                    c1=C1)
     _check(port, spec, strict)
+
+
+# -- the plain algebra at the storage form's probe counts ----------------------
+def _entry_qr(cols):
+    """Modified Gram--Schmidt a column at a time, each column taking its
+    updates by q_0 .. q_{j-1} as it comes up, with the basis completion of
+    ``ops.trace._qr_cols`` (the JAX package's ``_qr_cols``)."""
+    m, (D, B) = len(cols), cols[0].shape
+    scale = torch.sqrt(sum(torch.sum(c * c, dim=0) for c in cols))
+    floor = torch.clamp_min(scale * 1e-6, 1e-30)
+    q_cols, R = [], [[torch.zeros_like(scale)] * m for _ in range(m)]
+    res = torch.eye(D, dtype=cols[0].dtype)[:, :, None].expand(D, D, B)
+    for j in range(m):
+        v = cols[j]
+        for i in range(j):
+            R[i][j] = torch.sum(q_cols[i] * v, dim=0)
+            v = v - R[i][j][None, :] * q_cols[i]
+        R[j][j] = torch.sqrt(torch.sum(v * v, dim=0))
+        res_norm = torch.sqrt(torch.sum(res * res, dim=1))
+        best = torch.argmax(res_norm, dim=0)
+        q_fb = torch.take_along_dim(res, best[None, None, :], dim=0)[0]
+        q_fb = q_fb / torch.clamp_min(torch.take_along_dim(res_norm, best[None, :], dim=0)[0], 1e-30)
+        q_cols.append(torch.where((R[j][j] < floor)[None, :], q_fb, v / torch.maximum(R[j][j], floor)[None, :]))
+        proj = torch.sum(res * q_cols[-1][None, :, :], dim=1)
+        res = res - proj[:, None, :] * q_cols[-1][None, :, :]
+    return q_cols, R
+
+
+def _entry_xtrace(apply_cols, o_cols):
+    """XTrace's algebra entry by entry, each (B,) entry its own sum, as the
+    JAX package's ``ops/trace.py::xtrace_core`` writes it."""
+    m = len(o_cols)
+    q_cols, R = _entry_qr(apply_cols(o_cols))
+    aq_cols = apply_cols(q_cols)
+
+    def dot(a, b):
+        return torch.sum(a * b, dim=0)
+
+    H = [[dot(q_cols[i], aq_cols[j]) for j in range(m)] for i in range(m)]
+    W = [[dot(q_cols[i], o_cols[j]) for j in range(m)] for i in range(m)]
+    T = [[dot(aq_cols[i], o_cols[j]) for j in range(m)] for i in range(m)]
+    S_t = _entry_tri_inv(R, m)
+    for i in range(m):
+        norm = torch.clamp_min(torch.sqrt(sum(S_t[i][j] * S_t[i][j] for j in range(m))), 1e-30)
+        S_t[i] = [S_t[i][j] / norm for j in range(m)]
+    S = [[S_t[j][i] for j in range(m)] for i in range(m)]
+    trace_H = sum(H[i][i] for i in range(m))
+    csum = [sum(S[i][j] * W[i][j] for i in range(m)) for j in range(m)]
+    X = [[W[i][j] - csum[j] * S[i][j] for j in range(m)] for i in range(m)]
+
+    def quad(V):
+        HV = [[sum(H[i][l] * V[l][j] for l in range(m)) for j in range(m)] for i in range(m)]
+        return [sum(V[i][j] * HV[i][j] for i in range(m)) for j in range(m)]
+
+    SHS, XHX = quad(S), quad(X)
+    WS = [sum(W[i][j] * S[i][j] for i in range(m)) for j in range(m)]
+    SR = [sum(S[i][j] * R[i][j] for i in range(m)) for j in range(m)]
+    TX = [sum(T[i][j] * X[i][j] for i in range(m)) for j in range(m)]
+    return sum(trace_H - SHS[j] + WS[j] * SR[j] - TX[j] + XHX[j] for j in range(m)) / float(m)
+
+
+def _entry_tri_inv(R, k):
+    """inv(R) by back-substitution a column at a time, entry by entry."""
+    scale = R[0][0] * 0
+    for i in range(k):
+        scale = torch.maximum(scale, torch.abs(R[i][i]))
+    floor = torch.clamp_min(scale * 1e-6, 1e-30)
+    inv = [[torch.zeros_like(scale)] * k for _ in range(k)]
+    for j in range(k):
+        for i in range(j, -1, -1):
+            acc = torch.full_like(scale, 1.0 if i == j else 0.0)
+            for l in range(i + 1, j + 1):
+                acc = acc - R[i][l] * inv[l][j]
+            d = R[i][i]
+            inv[i][j] = acc / torch.where(torch.abs(d) < floor, torch.sign(d) * floor + (d == 0) * floor, d)
+    return inv
+
+
+def _entry_hutchpp(apply_cols, s_cols, g_cols):
+    """Hutch++'s algebra a residual probe and a Q column at a time."""
+    q_cols, _ = _entry_qr(apply_cols(s_cols))
+    u_cols = []
+    for g in g_cols:
+        u = g
+        for q in q_cols:
+            u = u - torch.sum(q * g, dim=0)[None, :] * q
+        u_cols.append(u)
+    applied = apply_cols(q_cols + u_cols)
+    trace_lr = sum(torch.sum(q * aq, dim=0) for q, aq in zip(q_cols, applied))
+    trace_res = sum(torch.sum(u * au, dim=0) for u, au in zip(u_cols, applied[len(q_cols):]))
+    return trace_lr + trace_res / float(len(g_cols))
+
+
+@pytest.mark.parametrize("D, m, layout", [(2, 2, "rows"), (6, 3, "columns"), (64, 37, "rows"), (64, 64, "rows"),
+                                          (64, 64, "columns"), (16, 16, "rows")])
+def test_plain_sketch_algebra_is_the_entry_by_entry_algebra(D, m, layout):
+    """``ops.trace``'s QR, XTrace and Hutch++ algebra, which runs a grid row
+    or column of (B,) entries at a time (the QR's later columns take each
+    accepted column's update together) so that the plain version at m = 64
+    is a few thousand tensor operations, not a million: bitwise the entry by
+    entry algebra on the CPU, on a JVP's transposed columns (``rows``) and
+    on contiguous ones, at the storage form's probe counts and today's.
+    The D = 16 case has a rank-deficient operator (basis completion)."""
+    g = torch.Generator().manual_seed(D + m)
+    B = 24
+    A = torch.randn(B, D, D, generator=g) / D ** 0.5 + torch.eye(D)
+    if D == 16:
+        A[:, :, 0] = 0
+
+    def apply_cols(cols):
+        out = [torch.einsum("bde,eb->bd", A, c) for c in cols]
+        return [o.T for o in out] if layout == "rows" else [o.T.contiguous() for o in out]
+
+    def cols_of(k):
+        v = torch.randn(k, B, D, generator=g)
+        return [v[i].T if layout == "rows" else v[i].T.contiguous() for i in range(k)]
+
+    o_cols = cols_of(m)
+    assert torch.equal(trace.xtrace_core(apply_cols, o_cols), _entry_xtrace(apply_cols, o_cols))
+    s_cols, g_cols = cols_of(min(m, D)), cols_of(m + 1)
+    assert torch.equal(trace.hutchpp_core(apply_cols, s_cols, g_cols), _entry_hutchpp(apply_cols, s_cols, g_cols))
+    y_cols = apply_cols(o_cols)
+    (q_got, R), (q_want, R_want) = trace._qr_cols(y_cols), _entry_qr(y_cols)
+    assert all(torch.equal(a, b) for a, b in zip(q_got, q_want))
+    assert all(torch.equal(R[i][j], R_want[i][j]) for i in range(m) for j in range(m))
+    got, want = trace._tri_inv_entries(R, m), _entry_tri_inv(R, m)
+    assert all(torch.equal(got[i][j], want[i][j]) for i in range(m) for j in range(m))

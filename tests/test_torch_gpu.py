@@ -1388,6 +1388,36 @@ def test_sketch_probe_groups_are_bitwise_one_group(cuda_device, d, c, mode, comp
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("compute_dtype", ["float32", "highf32", "bfloat16"])
+@pytest.mark.parametrize("mode", ["hutchpp", "xtrace"])
+@pytest.mark.parametrize("d,c,k", [(2, 0, 2), (16, 8, 3), (64, 0, 36)])
+def test_sketch_storage_form_is_bitwise_the_default_plan(cuda_device, d, c, k, mode, compute_dtype):
+    """The storage form (the probe tile and XTrace's algebra in a workspace
+    in device memory, a persistent grid) forced where the shared-memory
+    plan fits: every column an application, one column, and 8 rows, each
+    bitwise the launch at its own plan, 1,001 rows; 0 local bytes."""
+    cfg = ScoreMLPConfig(n_dimensions=d, n_conditionals=c, units=(128, 128, 128))
+    params = init_score_mlp(cfg, torch.Generator().manual_seed(18), cuda_device)
+    x, cond, probes = _sketch_case(d, c, mode, 1001, k, cuda_device, 19)
+    w_in, b_eff = fused_mlp._score_first_layer(params, cfg, 0.4, cond)
+    x_in = x if cond is None else torch.cat([x, cond], dim=-1)
+    n_s, n_g = (k, k) if mode == "hutchpp" else (k, 0)
+    c0c1 = torch.tensor([-0.2, 0.8], device=cuda_device)
+    args = (mode, 128, 3, d + c, d, n_s, n_g)
+    plans = [fused_sketch.sketch_plan(*args, compute_dtype=compute_dtype),
+             fused_sketch.sketch_plan(*args, compute_dtype=compute_dtype, store=True),
+             fused_sketch.sketch_plan(*args, compute_dtype=compute_dtype, store=True, group=1),
+             fused_sketch.sketch_plan(*args, compute_dtype=compute_dtype, store=True, group=1, rows=8)]
+    assert len(plans[0]) == 4 and all(len(plan) == 5 for plan in plans[1:])
+    outs = [fused_sketch._launch(x_in, torch.cat(probes), w_in, b_eff, params["layers"], c0c1, mode, d, n_s, n_g,
+                                 "silu", plan, fused_sketch.fused_drift_sketch, compute_dtype) for plan in plans]
+    torch.cuda.synchronize()
+    for plan, out in zip(plans[1:], outs[1:]):
+        assert torch.equal(out[0], outs[0][0]) and torch.equal(out[1], outs[0][1]), plan
+    assert fused_sketch.sketch_occupancy(plans[1], compute_dtype)["local_bytes"] == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("compute_dtype", ["float32", "highf32", "bfloat16"])
 def test_kernels_at_gap_widths_match_plain_versions(cuda_device, compute_dtype):
     """The JAX gate's widest where the wide plans take over: Hutchinson at
     H = 3,072 (highf32 without its planes), exact at 1,280 with D = 6,

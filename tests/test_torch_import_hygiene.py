@@ -131,3 +131,29 @@ def test_cli_and_serving_import_without_jax():
         run = subprocess.run([sys.executable, "-m", "flowfusion_torch", cmd, "--help"], capture_output=True,
                              text=True, cwd=ROOT, env=env, timeout=120)
         assert run.returncode == 0 and "--device" in run.stdout, run.stderr
+
+
+def test_jax_names_kept_as_thin_aliases():
+    """The JAX public names whose rule the port has under another name:
+    ``kernels.fused_train.supports_batch`` (``train_plan`` admits the net),
+    ``models._common.auto_fused`` (``fused_dispatch``) and
+    ``ops.integrate.tableaus.ADAPTIVE_TABLEAUS``; and the orbax checkpoint
+    names map to ``save_dcp``/``load_dcp``, which the module text says."""
+    from flowfusion_torch.kernels import fused_train
+    from flowfusion_torch.models import _common
+    from flowfusion_torch.models.nets import ScoreMLPConfig
+    from flowfusion_torch.ops.integrate import tableaus
+    from flowfusion_torch.utils import checkpoint
+
+    cfg = ScoreMLPConfig(n_dimensions=2, units=(128,) * 3)
+    assert fused_train.supports_batch(cfg, 512) and "supports_batch" in fused_train.__all__
+    assert not fused_train.supports_batch(ScoreMLPConfig(n_dimensions=2, units=(4096,) * 3), 512)
+    assert "auto_fused" in _common.__all__
+    for use, supported, on_cuda in [(None, True, False), (None, True, True), (False, True, True), (True, True, False)]:
+        assert _common.auto_fused(use, supported, on_cuda) == _common.fused_dispatch(use, supported, on_cuda)
+    assert _common.auto_fused(None, True) is False
+    assert set(tableaus.ADAPTIVE_TABLEAUS) == set(tableaus.ADAPTIVE_METHODS) - {"dop853"}
+    assert all(tableaus.get_adaptive_tableau(n) is t for n, t in tableaus.ADAPTIVE_TABLEAUS.items())
+    assert "ADAPTIVE_TABLEAUS" in tableaus.__all__
+    assert "``save_dcp`` / ``load_dcp`` are the counterpart of the JAX package's\n``save_orbax`` / ``load_orbax``" in \
+        checkpoint.__doc__
