@@ -13,7 +13,7 @@ from typing import Iterator, Optional, Union
 
 import torch
 
-__all__ = ["resolve_device", "same_device", "strict_fp32_matmul"]
+__all__ = ["resolve_device", "resolve_device_or_exit", "same_device", "strict_fp32_matmul"]
 
 DeviceLike = Union[str, torch.device, None]
 
@@ -29,6 +29,16 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
             "the plain PyTorch path on the CPU"
         )
     return torch.device("cuda")
+
+
+def resolve_device_or_exit(device: DeviceLike = None) -> torch.device:
+    """:func:`resolve_device` for a command line (the CLI, the examples):
+    with no card visible and no device asked for, exit with the reason and
+    the flag that runs the plain path on the CPU."""
+    try:
+        return resolve_device(device)
+    except RuntimeError as err:
+        raise SystemExit(f"{err} (the CLI flag: --device cpu)")
 
 
 @contextlib.contextmanager

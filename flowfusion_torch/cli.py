@@ -68,12 +68,9 @@ def _load_array(path: str, dim: int | None = None) -> np.ndarray:
 def _device(args):
     """``--device``, or the CUDA card; exit with the reason when no card is
     visible and no device was asked for."""
-    from ._device import resolve_device
+    from ._device import resolve_device_or_exit
 
-    try:
-        return resolve_device(getattr(args, "device", None))
-    except RuntimeError as err:
-        raise SystemExit(f"{err} (the CLI flag: --device cpu)")
+    return resolve_device_or_exit(getattr(args, "device", None))
 
 
 def _generator(args, device):

@@ -233,7 +233,8 @@ ADAPTIVE_METHODS = tuple(_TABLEAUS) + ("dop853",)
 # The JAX package's method -> tableau dict, of the tableaus built at import:
 # 'dop853' is built from scipy at its first use (get_adaptive_tableau), so
 # it is in ADAPTIVE_METHODS and not here.
-ADAPTIVE_TABLEAUS = _TABLEAUS
+# A copy: the lookup below caches 'dop853' into _TABLEAUS, not into this.
+ADAPTIVE_TABLEAUS = dict(_TABLEAUS)
 
 
 def get_adaptive_tableau(method: str) -> ButcherTableau:

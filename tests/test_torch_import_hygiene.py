@@ -152,8 +152,48 @@ def test_jax_names_kept_as_thin_aliases():
     for use, supported, on_cuda in [(None, True, False), (None, True, True), (False, True, True), (True, True, False)]:
         assert _common.auto_fused(use, supported, on_cuda) == _common.fused_dispatch(use, supported, on_cuda)
     assert _common.auto_fused(None, True) is False
+    tableaus.get_adaptive_tableau("dop853")  # built on first use: it stays out of ADAPTIVE_TABLEAUS
     assert set(tableaus.ADAPTIVE_TABLEAUS) == set(tableaus.ADAPTIVE_METHODS) - {"dop853"}
     assert all(tableaus.get_adaptive_tableau(n) is t for n, t in tableaus.ADAPTIVE_TABLEAUS.items())
     assert "ADAPTIVE_TABLEAUS" in tableaus.__all__
     assert "``save_dcp`` / ``load_dcp`` are the counterpart of the JAX package's\n``save_orbax`` / ``load_orbax``" in \
         checkpoint.__doc__
+
+
+EXAMPLE_TWINS = ("diffusion", "flow", "symplectic", "conditional_population", "likelihood_training", "serving")
+FORBIDDEN = ("jax", "optax", "flowfusion_tpu", "bench", "chip_smoke")
+
+
+def test_example_twins_import_no_jax():
+    """The examples' twins (``examples/demo_*_torch.py``) and their notebook
+    generator import the standard library, torch, numpy and
+    flowfusion_torch only: no JAX, optax, the JAX package, ``bench`` or
+    ``chip_smoke``, in their source and in a fresh interpreter that loads
+    each twin."""
+    import ast
+
+    paths = [os.path.join(ROOT, "examples", f"demo_{n}_torch.py") for n in EXAMPLE_TWINS]
+    paths.append(os.path.join(ROOT, "examples", "make_notebooks_torch.py"))
+    allowed = set(sys.stdlib_module_names) | {"torch", "numpy", "flowfusion_torch"}
+    for path in paths:
+        with open(path) as f:
+            tree = ast.parse(f.read())
+        roots = {a.name.split(".")[0] for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names}
+        roots |= {n.module.split(".")[0] for n in ast.walk(tree) if isinstance(n, ast.ImportFrom) and n.module}
+        assert roots <= allowed, (os.path.basename(path), sorted(roots - allowed))
+    code = (
+        "import importlib.util, sys\n"
+        f"for name in {EXAMPLE_TWINS!r}:\n"
+        f"    spec = importlib.util.spec_from_file_location(name, {os.path.join(ROOT, 'examples')!r} + "
+        "f'/demo_{name}_torch.py')\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        f"bad = sorted(k for k in sys.modules if k.split('.')[0] in {FORBIDDEN!r})\n"
+        "print(len([k for k in sys.modules if k.startswith('flowfusion_torch')]), bad)\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    env["PYTHONPATH"] = ROOT
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, cwd=ROOT, env=env,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    n, bad = out.stdout.strip().split(" ", 1)
+    assert int(n) >= 20 and bad == "[]", out.stdout
