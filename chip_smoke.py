@@ -377,6 +377,8 @@ POPCOSMOS_SMALL_ROWS = 4_099
 # init scale (std 1 / sqrt(3 fan_in)) times sqrt(3): unit gain, the edge of
 # chaos, where the field and its Jacobian stay O(1) through the depth
 DEEP_GAIN = 3 ** 0.5
+# The RHS kernel's modes with their probe counts, as phase 19a forces them
+RHS_MODES = (("forward", 0), ("hutchinson", 0), ("exact", 0), ("tangents", 3))
 # phase 19c's XTrace m = 64 solves (kernel and plain) at atol = rtol of this
 # value: 38 of the 116 RHS calls they take at 1e-5 on the H100 (at 1e-1, 32
 # calls, the pair's mean |dlogp| reached the 1e-4 bar)
@@ -5426,6 +5428,41 @@ def envelope_phase(smi, dev, reset_counts) -> dict:
                     check(all(torch.equal(a, b) for a, b in zip(out, own) if a is not None),
                           f"phase 19a: RHS D={D} H={H} {mode} {dt} forced {kw} differs from its own plan")
                     n_forced += 1
+    # the RHS kernel's row-tiled form forced at today's widths (the default
+    # plan there, or not), and at the JAX gate's widths, against the 4-row
+    # form (the shared-memory plan forced to 4 rows a block): bitwise, every
+    # mode and compute mode, with a pass of one tangent chain too
+    n_tiled, tiled_occ = 0, []
+    for D, C, H, cases in ((2, 0, 128, RHS_MODES), (6, 3, 256, RHS_MODES), (2, 0, 3072, (("hutchinson", 0),)),
+                           (6, 3, 1280, (("exact", 0),)), (6, 3, 2048, (("tangents", 6),))):
+        cfg, params = net(D, C, H, 3, 1905 + H)
+        g = gen(1906 + H)
+        x_in = torch.randn(rows_a, D + C, generator=g).to(dev)
+        w_in, b_eff = fused_mlp._score_first_layer(params, cfg, t37, x_in[:, D:] if C else None)
+        for mode, n_tan in cases:
+            e = {"hutchinson": torch.sign(torch.randn(rows_a, D, generator=g)),
+                 "tangents": torch.randn(rows_a, n_tan * D, generator=g)}.get(mode)
+            e = None if e is None else e.to(dev)
+            n_t = {"forward": 0, "hutchinson": 1, "exact": D, "tangents": n_tan}[mode]
+            for dt in fused_mlp.COMPUTE_DTYPES:
+                forms = [dict(tiled=True), dict(tiled=False), dict(rows=4)] + (
+                    [dict(tiled=True, group=1)] if n_t > 1 else [])
+                outs = [fused_mlp._launch(x_in, e, w_in, b_eff, params["layers"], c0c1, mode, D, "silu", n_tan=n_tan,
+                                          compute_dtype=dt, **kw) for kw in forms]
+                torch.cuda.synchronize()
+                for kw, out in zip(forms[1:], outs[1:]):
+                    check(all(torch.equal(a, b) for a, b in zip(out, outs[0]) if a is not None),
+                          f"phase 19a: RHS D={D} H={H} {mode} {dt} {kw} differs from the row-tiled form")
+                    n_tiled += 1
+        del params
+    for dt in fused_mlp.COMPUTE_DTYPES:
+        occ = fused_mlp.occupancy(fused_mlp._plan(256, "exact", 9, 6, 0, dt, tiled=True), dt)
+        tiled_occ.append(dict(compute_dtype=dt, **occ))
+        check(occ["local_bytes"] == 0 and occ["blocks_per_sm"] >= 1,
+              f"phase 19a: the row-tiled form's occupancy {occ}")
+    emit("envelope_tiled_bitwise", card=smi, rows=rows_a, launches_bitwise=n_tiled, occupancy=tiled_occ)
+    tiled_time = tiled_timing(smi, dev, net, gen, c0c1, t37, N)
+
     for D, C, H, cases in ((2, 0, 128, (("hutchpp", 2, 1), ("xtrace", 2, 0))),
                            (6, 3, 256, (("hutchpp", 3, 3), ("xtrace", 3, 0))),
                            (16, 8, 128, (("hutchpp", 2, 1), ("xtrace", 2, 0)))):
@@ -5485,9 +5522,9 @@ def envelope_phase(smi, dev, reset_counts) -> dict:
     ]
     # the timed cases' rows: the storage form's at 50,000, the other forms'
     # at 12,500 (their launches scale with the rows: one block of 4 rows an
-    # SM), which leaves the script's time to the storage form's solves
-    timed = {"hutchinson D2": N // 4, "exact D6C3": N // 4, "tangents K6 D6C3": N // 4, "hutchpp r2m1 D2": N // 4,
-             "xtrace m2 D64": N // 4, "deep hutchinson": N // 4, "xtrace m64 D64": N}
+    # SM), which leaves the script's time to the storage form's solves; the
+    # RHS kernel's cells are 19a's, at 50,000 rows
+    timed = {"hutchpp r2m1 D2": N // 4, "xtrace m2 D64": N // 4, "deep hutchinson": N // 4, "xtrace m64 D64": N}
     timing, errors = {}, {}
     for case, D, C, H, mode, probes in table:
         deep = case.startswith("deep")
@@ -5549,20 +5586,11 @@ def envelope_phase(smi, dev, reset_counts) -> dict:
                 if rows != B:
                     wbytes = sum(l["w"].numel() * (2 if dt == "bfloat16" and i > 0 else 4) + 4 * l["b"].numel()
                                  for i, l in enumerate(params["layers"]))
-                    if dt == "float32":
-                        t_ops = rows * fused_mlp.flops_per_row(*flop_args) / PEAK_FP32_FLOPS * 1e3
-                    else:
-                        tc, cc = (fused_mlp.highf32_flops_per_row if dt == "highf32" else
-                                  fused_mlp.bf16_flops_per_row)(*flop_args)
-                        t_ops = rows * ((3 * tc / PEAK_TF32_FLOPS if dt == "highf32" else tc / PEAK_BF16_FLOPS)
-                                        + cc / PEAK_FP32_FLOPS) * 1e3
-                    t_ops += rows * alg_flops / PEAK_FP32_FLOPS * 1e3
-                    t_bytes = (io + wbytes) / PEAK_BYTES * 1e3
+                    bound, by = rhs_bound_ms(rows, flop_args, dt, wbytes, io, alg_flops)
                     # the launches at 4,096 rows warmed the instantiation: one run each
                     timing[(case, dt)] = dict(ms=median_ms(lambda: call(dt), n=1, warmup=0),
                                               plain_ms=median_ms(lambda: call(dt, True), n=1, warmup=0),
-                                              bound_ms=max(t_ops, t_bytes),
-                                              bound_by="operations" if t_ops >= t_bytes else "bytes")
+                                              bound_ms=bound, bound_by=by)
                     emit("envelope_kernel_time", case=case, rows=rows, compute_dtype=dt, card=smi, plan=list(plan),
                          **timing[(case, dt)])
                     continue
@@ -5636,12 +5664,18 @@ def envelope_phase(smi, dev, reset_counts) -> dict:
                 return m.log_prob(x, conditional=cond, probes=probes, atol=tol, rtol=tol, options=opts)
 
             (lp, st), counts, secs = counted(solve)
+            tiled_n = fused_mlp.fused_drift.launches_by_form["tiled"]
             key = f"fused_drift_sketch[{mode}]" if mode in ("hutchpp", "xtrace") else f"fused_drift[{mode}]"
             key = key if dt == "float32" else key[:-1] + f",{dt}]"
             check(st.succeeded and bool(torch.isfinite(lp).all()) and counts == {key: st.n_func_evals},
                   f"phase 19c {label} at {rows}: launches {counts}, NFE {st.n_func_evals}, finite "
                   f"{bool(torch.isfinite(lp).all())}")
-            res[rows] = dict(nfe=st.n_func_evals, launches=counts[key], seconds=secs, rows_per_s=rows / secs, tol=tol)
+            res[rows] = dict(nfe=st.n_func_evals, launches=counts[key], seconds=secs, rows_per_s=rows / secs, tol=tol,
+                             tiled_launches=tiled_n)
+            if mode in ("exact", "hutchinson"):  # the row-tiled form where the default plan takes it
+                takes = fused_mlp.plan_tiled(fused_mlp._plan(H, mode, D + C, D, 0, dt))
+                check(tiled_n == (st.n_func_evals if takes else 0),
+                      f"phase 19c {label}: {tiled_n} row-tiled launches of {st.n_func_evals}, default tiled {takes}")
             if rows == B:
                 if dt == "float32":
                     plain_ctx = contextlib.nullcontext()
@@ -5704,9 +5738,166 @@ def envelope_phase(smi, dev, reset_counts) -> dict:
     emit("envelope_refusals", card=smi, raised=[r[:120] for r in raised])
     emit("envelope_path_launches", **path_counts)
     emit("phase19", seconds=time.perf_counter() - t19, card=smi,
-         timing={f"{c}[{d}]": v for (c, d), v in timing.items()},
+         timing={f"{c}[{d}]": v for (c, d), v in timing.items()}, tiled_timing=tiled_time,
          max_abs_err={f"{c}[{d}]": v for (c, d), v in errors.items()})
     return path_counts
+
+
+def rhs_bound_ms(rows, flop_args, dt, wbytes, io, alg_flops=0):
+    """(bound ms, what bounds it) of an RHS or sketch launch over ``rows``
+    rows: the larger of its flops at the compute mode's peaks (float32 on
+    the CUDA cores; highf32's three TF32 passes and bfloat16's one on the
+    tensor cores beside their CUDA-core rest; the sketch's per-row algebra,
+    ``alg_flops`` a row, on the CUDA cores) and its bytes (weights read
+    once, inputs read and outputs written once) at the HBM rate."""
+    from flowfusion_torch.kernels import fused_mlp
+
+    if dt == "float32":
+        t_ops = rows * fused_mlp.flops_per_row(*flop_args) / PEAK_FP32_FLOPS * 1e3
+    else:
+        tc, cc = (fused_mlp.highf32_flops_per_row if dt == "highf32" else fused_mlp.bf16_flops_per_row)(*flop_args)
+        t_ops = rows * ((3 * tc / PEAK_TF32_FLOPS if dt == "highf32" else tc / PEAK_BF16_FLOPS)
+                        + cc / PEAK_FP32_FLOPS) * 1e3
+    t_ops += rows * alg_flops / PEAK_FP32_FLOPS * 1e3
+    t_bytes = (io + wbytes) / PEAK_BYTES * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def tiled_timing(smi, dev, net, gen, c0c1, t37, N) -> dict:
+    """Phase 19a's times: the RHS kernel's row-tiled form against the
+    shared-memory plan (the plan before the tiled form: 4 rows a block at
+    the JAX gate's widths) and the plain version, at ``N`` = 50,000 rows,
+    in turns (plain, shared, tiled, tiled, shared, plain; CUDA events, the
+    median of each pair): the nine cells at the JAX gate's widths
+    (Hutchinson D2 (3072,) x 3, exact D6C3 (1280,) x 3, tangents K = 6
+    D6C3 (2048,) x 3; three compute modes) and the H = 256 conditional
+    checkpoint's exact (three modes) and highf32 Hutchinson launches on
+    its own weights, each beside its bound (:func:`rhs_bound_ms`) and both
+    forms' plans."""
+    import torch
+
+    from flowfusion_torch.kernels import fused_mlp
+    from flowfusion_torch.models.nets import ScoreMLPConfig
+    from flowfusion_torch.utils.checkpoint import load_npz
+    from flowfusion_torch.utils.convert import params_from_numpy
+
+    def once(fn):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        return a.elapsed_time(b)
+
+    h256 = ScoreMLPConfig(n_dimensions=6, n_conditionals=3, units=(256,) * 3), params_from_numpy(
+        load_npz(os.path.join(BENCH, "conditional_ckpt_h256.npz"))["score_model"]["params"], dev)
+    cells = [("hutchinson D2 3072", 2, 0, 3072, "hutchinson", 0, fused_mlp.COMPUTE_DTYPES, None),
+             ("exact D6C3 1280", 6, 3, 1280, "exact", 0, fused_mlp.COMPUTE_DTYPES, None),
+             ("tangents K6 D6C3 2048", 6, 3, 2048, "tangents", 6, fused_mlp.COMPUTE_DTYPES, None),
+             ("h256 checkpoint exact", 6, 3, 256, "exact", 0, fused_mlp.COMPUTE_DTYPES, h256),
+             ("h256 checkpoint hutchinson", 6, 3, 256, "hutchinson", 0, ("highf32",), h256)]
+    out = {}
+    for case, D, C, H, mode, K, dtypes, ckpt in cells:
+        cfg, params = ckpt or net(D, C, H, 3, 1990 + H)
+        g = gen(1991 + H)
+        x = torch.randn(N, D, generator=g).to(dev)
+        cond = torch.randn(N, C, generator=g).to(dev) if C else None
+        x_in = x if cond is None else torch.cat([x, cond], dim=-1)
+        w_in, b_eff = fused_mlp._score_first_layer(params, cfg, t37, cond)
+        e = {"hutchinson": torch.sign(torch.randn(N, D, generator=g)),
+             "tangents": torch.randn(N, K * D, generator=g)}.get(mode)
+        e = None if e is None else e.to(dev)
+        V = e.reshape(N, K, D).permute(1, 0, 2) if mode == "tangents" else None
+        io = N * 4 * (D + C + {"hutchinson": 2 * D + 1, "exact": D + 1, "tangents": 2 * K * D + D}[mode])
+        for dt in dtypes:
+            wbytes = sum(l["w"].numel() * (2 if dt == "bfloat16" and i > 0 else 4) + 4 * l["b"].numel()
+                         for i, l in enumerate(params["layers"]))
+
+            def launch(dt=dt, **kw):
+                return fused_mlp._launch(x_in, e, w_in, b_eff, params["layers"], c0c1, mode, D, "silu", n_tan=K,
+                                         compute_dtype=dt, **kw)
+
+            def plain(dt=dt):
+                if mode == "tangents":
+                    return fused_mlp.fused_drift_tangents_reference(params, cfg, t37, x, V, cond, c0=-0.3, c1=0.9,
+                                                                    compute_dtype=dt)
+                return fused_mlp.fused_drift_reference(params, cfg, t37, x, cond, e=e, exact_divergence=mode == "exact",
+                                                       c0=-0.3, c1=0.9, compute_dtype=dt)
+
+            runs = {"plain": [], "shared": [], "tiled": []}
+            for form in ("plain", "shared", "tiled", "tiled", "shared", "plain"):
+                runs[form].append(once(plain if form == "plain" else lambda: launch(tiled=form == "tiled")))
+            bound, by = rhs_bound_ms(N, (D + C, D, H, 4, mode, K), dt, wbytes, io)
+            plan = fused_mlp._plan(H, mode, D + C, D, K, dt, tiled=True)
+            cluster, clusters, ws = fused_mlp.tiled_launch(plan, N, H, mode, D, K, torch.cuda.get_device_properties(
+                dev).multi_processor_count)
+            out[f"{case}[{dt}]"] = dict(
+                ms=statistics.median(runs["tiled"]), shared_ms=statistics.median(runs["shared"]),
+                plain_ms=statistics.median(runs["plain"]), bound_ms=bound, bound_by=by, runs_ms=runs,
+                default_tiled=fused_mlp.plan_tiled(fused_mlp._plan(H, mode, D + C, D, K, dt)),
+                shared_plan=list(fused_mlp._plan(H, mode, D + C, D, K, dt, tiled=False)), tiled_plan=list(plan),
+                cluster=cluster, clusters=clusters, workspace_bytes=ws)
+            emit("envelope_tiled_time", case=case, rows=N, compute_dtype=dt, card=smi, **out[f"{case}[{dt}]"])
+        del params, x, x_in, e, V
+        torch.cuda.empty_cache()
+    return out
+
+
+def tiled_sweep() -> int:
+    """``chip_smoke.py --tiled-sweep``: the times that set the plan's
+    threshold (``kernels/fused_mlp.py`` ``TILED_BELOW``).  Random D = 6,
+    C = 3 nets (the conditional checkpoints' shape), three hidden widths of
+    H = 128, 256, 384, 512, 768, 1,024 and 1,280, every mode (tangents
+    K = 3) and compute mode, 50,000 rows: the shared-memory plan and the
+    row-tiled form in turns (shared, tiled, tiled, shared after one of
+    each; CUDA events, the median of each pair), one JSON line a case with
+    the shared plan's rows.  Needs one card; not part of the default run."""
+    import torch
+
+    sys.path.insert(0, ROOT)
+    from flowfusion_torch.kernels import fused_mlp
+    from flowfusion_torch.models.nets import ScoreMLPConfig, init_score_mlp
+
+    if not torch.cuda.is_available():
+        print("chip_smoke --tiled-sweep: no CUDA card visible", file=sys.stderr)
+        return 1
+    dev = torch.device("cuda")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    N, D, C = 50_000, 6, 3
+    c0c1 = torch.tensor([-0.3, 0.9], device=dev)
+    t37 = torch.tensor(0.37, device=dev)
+    for H in (128, 256, 384, 512, 768, 1024, 1280):
+        cfg = ScoreMLPConfig(n_dimensions=D, n_conditionals=C, units=(H,) * 3)
+        params = init_score_mlp(cfg, torch.Generator().manual_seed(H), dev)
+        g = torch.Generator().manual_seed(H + 1)
+        x_in = torch.randn(N, D + C, generator=g).to(dev)
+        w_in, b_eff = fused_mlp._score_first_layer(params, cfg, t37, x_in[:, D:])
+        for mode, K in RHS_MODES:
+            e = {"hutchinson": torch.sign(torch.randn(N, D, generator=g)),
+                 "tangents": torch.randn(N, K * D, generator=g)}.get(mode)
+            e = None if e is None else e.to(dev)
+            for dt in fused_mlp.COMPUTE_DTYPES:
+                def launch(tiled, dt=dt):
+                    return fused_mlp._launch(x_in, e, w_in, b_eff, params["layers"], c0c1, mode, D, "silu",
+                                             n_tan=K, compute_dtype=dt, tiled=tiled)
+
+                times = {False: [], True: []}
+                launch(False), launch(True)
+                for tiled in (False, True, True, False):
+                    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                    a.record()
+                    launch(tiled)
+                    b.record()
+                    b.synchronize()
+                    times[tiled].append(a.elapsed_time(b))
+                shared = fused_mlp._plan(H, mode, D + C, D, K, dt, tiled=False)
+                emit("tiled_sweep", H=H, mode=mode, compute_dtype=dt, rows=N, card=smi, shared_plan=list(shared),
+                     shared_ms=statistics.median(times[False]), tiled_ms=statistics.median(times[True]),
+                     tiled_over_shared=statistics.median(times[True]) / statistics.median(times[False]))
+        del params
+        torch.cuda.empty_cache()
+    return 0
 
 
 def envelope_worker(d: str) -> int:
@@ -6674,7 +6865,12 @@ def cli() -> int:
     ap.add_argument("--envelope-worker", metavar="DIR", help="phase 19's process (started by the script itself)")
     ap.add_argument("--examples-worker", metavar="DIR", help="phase 20's process (started by the script itself)")
     ap.add_argument("--export-worker", metavar="DIR", help="phase 14's exports (started by the script itself)")
+    ap.add_argument("--tiled-sweep", action="store_true",
+                    help="instead, time the RHS kernel's shared-memory plans against its row-tiled form (the plan's "
+                         "threshold)")
     args = ap.parse_args()
+    if args.tiled_sweep:
+        return tiled_sweep()
     if args.parallel_worker:
         rank, world, port, d = args.parallel_worker
         return parallel_worker(int(rank), int(world), port, d)

@@ -64,7 +64,9 @@
 // highf32 split each A value once a strip and each weight once an m-tile,
 // reading A at stride H with 8-way bank conflicts.
 //
-// What the design does about it.  A block owns a tile of R rows and keeps
+// What the design does about it (the shared-memory forms; the row-tiled
+// form, for the widest nets, follows fused_mlp_kernel).  A block owns a
+// tile of R rows and keeps
 // the whole layer chain of that tile, the activations and every tangent
 // chain, in shared memory, so nothing but x, e, drift and div touches device
 // memory and each weight read from L2 feeds R rows times all chains.
@@ -121,8 +123,8 @@
 //     product reads as packed pairs; the wrapper hands the hidden weights
 //     over transposed, (out, in), so a B fragment's two k values are one
 //     32-bit load.  The plane is 2 bytes a value, so these plans hold more
-//     rows than float32's.  Not yet: the weights staged in shared memory,
-//     TMA, wgmma.
+//     rows than float32's.  Not here: the weights staged in shared memory
+//     (the row-tiled form below stages them), TMA, wgmma.
 //   - The (H, D) output layer: a thread an output, chains x R x D of them.
 // Every output keeps the first version's arithmetic: each float32 layer
 // output one fmaf chain over k = 0 .. K-1 from 0, then + bias; each highf32
@@ -357,11 +359,14 @@ __device__ void dense_planes(const float* __restrict__ w, const float* __restric
 // float32 one fmaf chain over k from 0; in highf32 the split in FMAs
 // (fma_tf32x3's arithmetic), A's halves read from the planes, or with
 // kSplit split from the fp32 activations at `a` as they are read
-// (bfloat16 has dense_out_bf16).  `out` is compact, (M, N).
+// (bfloat16 has dense_out_bf16).  `out` is compact, (M, N).  Block `part`
+// of `parts` that share the outputs (a cluster's) takes every parts-th run
+// of kThreads of them.
 template <int P, bool kSplit = false>
 __device__ void dense_out(const float* __restrict__ w, const float* __restrict__ bias, const float* a,
-                          const float* a_lo, float* out, int K, int N, int M, int R, int S) {
-  for (int it = threadIdx.x; it < M * N; it += kThreads) {
+                          const float* a_lo, float* out, int K, int N, int M, int R, int S, int part = 0,
+                          int parts = 1) {
+  for (int it = part * kThreads + threadIdx.x; it < M * N; it += parts * kThreads) {
     const int m = it / N;
     const int j = it - m * N;
     const float* in = a + (size_t)m * S;
@@ -480,6 +485,42 @@ __device__ __forceinline__ void activate_cells(int act, float* cur, float* hi, f
   }
   store_act<ST>(h1, cur, hi, lo, o1);
   store_act<ST>(h2, cur, hi, lo, o2);
+}
+
+// The outputs of row r of a tile (batch row `row`) once pass `pass` has
+// written the tile's compact (chains R, d_out) output layer `net`: the drift
+// (first pass), the Hutchinson divergence, the exact divergence's sum over
+// d = 0 .. D-1 in order across the passes (`exact_sum`, the thread's), or
+// the pass's J v columns.  Both kernels' forms call it, so their rows agree.
+__device__ __forceinline__ void finish_row(int r, int row, int pass, int passes, int t0, int chains, int mode,
+                                           int R, int B, int d_in, int d_out, int pws, const float* net,
+                                           const float* xs, const float* es, float c0, float c1, float* drift,
+                                           float* div, float& exact_sum) {
+  if (pass == 0) {
+    const float* y = net + r * d_out;
+    for (int d = 0; d < d_out; ++d) drift[(size_t)row * d_out + d] = c0 * xs[r * d_in + d] + c1 * y[d];
+  }
+  if (mode == kHutchinson) {
+    const float* je = net + (R + r) * d_out;
+    float acc = 0.0f, ee = 0.0f;
+    for (int d = 0; d < d_out; ++d) {
+      const float ed = es[r * d_out + d];
+      acc += je[d] * ed;
+      ee += ed * ed;
+    }
+    // e^T (c0 I + c1 J_net) e: the c0 term is c0 |e|^2, not c0 D
+    div[row] = c0 * ee + c1 * acc;
+  } else if (mode == kExact) {
+    for (int d = t0; d < t0 + chains - 1; ++d) exact_sum += net[((1 + d - t0) * R + r) * d_out + d];
+    if (pass == passes - 1) div[row] = c0 * (float)d_out + c1 * exact_sum;
+  } else if (mode == kTangents) {
+    for (int k = t0; k < t0 + chains - 1; ++k) {
+      const float* v = es + r * pws + (k - t0) * d_out;
+      const float* jv = net + ((1 + k - t0) * R + r) * d_out;
+      float* out = div + ((size_t)k * B + row) * d_out;
+      for (int d = 0; d < d_out; ++d) out[d] = c0 * v[d] + c1 * jv[d];
+    }
+  }
 }
 
 // div: (B,) in modes hutchinson and exact; in mode tangents the (n_tan, B,
@@ -622,39 +663,471 @@ fused_mlp_kernel(const float* __restrict__ x, const float* __restrict__ e,
     }
     __syncthreads();
 
-    for (int r = threadIdx.x; r < R; r += kThreads) {
-      const int row = row0 + r;
-      if (row >= B) break;
-      if (pass == 0) {
-        const float* y = net + r * d_out;
-        for (int d = 0; d < d_out; ++d)
-          drift[(size_t)row * d_out + d] = c0 * xs[r * d_in + d] + c1 * y[d];
-      }
-      if (mode == kHutchinson) {
-        const float* je = net + (R + r) * d_out;
-        float acc = 0.0f, ee = 0.0f;
-        for (int d = 0; d < d_out; ++d) {
-          const float ed = es[r * d_out + d];
-          acc += je[d] * ed;
-          ee += ed * ed;
-        }
-        // e^T (c0 I + c1 J_net) e: the c0 term is c0 |e|^2, not c0 D
-        div[row] = c0 * ee + c1 * acc;
-      } else if (mode == kExact) {
-        for (int d = t0; d < t0 + chains - 1; ++d) exact_sum += net[((1 + d - t0) * R + r) * d_out + d];
-        if (pass == passes - 1) div[row] = c0 * (float)d_out + c1 * exact_sum;
-      } else if (mode == kTangents) {
-        for (int k = t0; k < t0 + chains - 1; ++k) {
-          const float* v = es + r * pws + (k - t0) * d_out;
-          const float* jv = net + ((1 + k - t0) * R + r) * d_out;
-          float* out = div + ((size_t)k * B + row) * d_out;
-          for (int d = 0; d < d_out; ++d) out[d] = c0 * v[d] + c1 * jv[d];
-        }
-      }
+    for (int r = threadIdx.x; r < R && row0 + r < B; r += kThreads) {
+      finish_row(r, row0 + r, pass, passes, t0, chains, mode, R, B, d_in, d_out, pws, net, xs, es, c0, c1, drift,
+                 div, exact_sum);
     }
     __syncthreads();  // the next pass writes the buffers this one read
   }
 }
+
+// ---------------------------------------------------------------------------
+// The row-tiled form.  Where the shared-memory plans hold few rows a block
+// (4 or 8 at the widest nets, one block an SM), each block reads every
+// (H, H) weight again for those few rows: at H = 3,072 and 4 rows a block a
+// hutchinson launch over 50,000 rows streams ~944 GB of weights.  Here a
+// cluster of G blocks (1, 2, 4 or 8: the wrapper's choice by B, so that the
+// card fills at 4,096 rows as at 50,000) carries a tile of kTileRows = 128
+// rows, with every chain of its pass, through every layer.  The tile's
+// layer buffers live in the cluster's slot of a device-memory workspace: a
+// persistent grid whose clusters walk the tiles, so the workspace is one
+// grid's slots whatever B.  Each layer is the product of the tile's
+// (chains x 128, H) activations by the (H, H) weight, cut in 128 x 128
+// output units that the cluster's blocks share; a unit stages 32-deep
+// K-tiles of its activations and of the weight in shared memory with
+// cp.async, three stages in flight, and all 128 of its rows read each
+// staged weight value: against a shared-memory plan of R rows and `chains`
+// chains the weight bytes a launch fall by 128 / (R chains), 16x for
+// hutchinson at H = 3,072.
+// Between a layer's products, its activation pass and the next layer, the
+// cluster meets at its barrier (release and acquire at cluster scope),
+// since each block reads what the others wrote.
+// Every output keeps the shared-memory forms' arithmetic, so a row's
+// outputs equal theirs bit for bit: each float32 output one fmaf chain over
+// k = 0 .. K-1 from 0 (the accumulator kept across K-tiles), then + bias;
+// highf32 each k-step of 8 the same three mma.sync (lo.hi, hi.lo, hi.hi)
+// on the same TF32 halves, split as the fragment is loaded (the plane-free
+// plan's); bfloat16 m16n8k16 into one accumulator in k order; the input
+// layer, the activation passes, the output layer and each row's outputs
+// through the same functions as the shared-memory forms.  Not taken: wgmma
+// (its k order is not mma.sync's), TMA.
+
+constexpr int kTileRows = 128;  // rows of a tile (R): chains x 128 product rows
+constexpr int kBM = 128;        // a unit's rows
+constexpr int kBN = 128;        // a unit's columns
+constexpr int kBK = 32;         // the depth of a staged K-tile
+constexpr int kStages = 3;      // staged K-tiles in flight
+// Row strides of the staged tiles: fp32 activations kBK + 4 floats (rows 4
+// banks apart: a warp's fragment reads fall on 32 distinct banks), fp32
+// weights kBN + 8 (k rows 8 banks apart), bf16 rows kBK + 8 values (20
+// words apart: the fragment words on 32 distinct banks).
+constexpr int kAStride = kBK + 4;
+constexpr int kWStride = kBN + 8;
+constexpr int kStride16 = kBK + 8;
+constexpr int kStageFloats = kBM * kAStride + kBK * kWStride;  // 35,840 bytes; bf16 uses 20,480 of them
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Stage K-tile k0 of unit (m0, n0): A (rows m0.., stride H; fp32, or the
+// bf16 plane) and the weight (fp32 (in, out), or bf16 transposed (out,
+// in)).  Past K or N the tile is zero-filled, and no stored output reads it.
+template <int P>
+__device__ __forceinline__ void load_stage(float* st, const void* A, const void* W, int H, int m0, int n0, int k0) {
+  if constexpr (P == kBFloat16) {
+    const __nv_bfloat16* a = static_cast<const __nv_bfloat16*>(A);
+    const __nv_bfloat16* w = static_cast<const __nv_bfloat16*>(W);
+    __nv_bfloat16* as = reinterpret_cast<__nv_bfloat16*>(st);
+    __nv_bfloat16* ws = as + kBM * kStride16;
+    for (int i = threadIdx.x; i < kBM * (kBK / 8); i += kThreads) {
+      const int r = i >> 2, ch = (i & 3) * 8;
+      const bool ok = k0 + ch < H;
+      cp_async16(as + r * kStride16 + ch, ok ? a + (size_t)(m0 + r) * H + k0 + ch : a, ok);
+    }
+    for (int i = threadIdx.x; i < kBN * (kBK / 8); i += kThreads) {
+      const int n = i >> 2, ch = (i & 3) * 8;
+      const bool ok = n0 + n < H && k0 + ch < H;
+      cp_async16(ws + n * kStride16 + ch, ok ? w + (size_t)(n0 + n) * H + k0 + ch : w, ok);
+    }
+  } else {
+    const float* a = static_cast<const float*>(A);
+    const float* w = static_cast<const float*>(W);
+    float* as = st;
+    float* ws = st + kBM * kAStride;
+    for (int i = threadIdx.x; i < kBM * (kBK / 4); i += kThreads) {
+      const int r = i >> 3, ch = (i & 7) * 4;
+      const bool ok = k0 + ch < H;
+      cp_async16(as + r * kAStride + ch, ok ? a + (size_t)(m0 + r) * H + k0 + ch : a, ok);
+    }
+    for (int i = threadIdx.x; i < kBK * (kBN / 4); i += kThreads) {
+      const int k = i >> 5, ch = (i & 31) * 4;
+      const bool ok = k0 + k < H && n0 + ch < H;
+      cp_async16(ws + k * kWStride + ch, ok ? w + (size_t)(k0 + k) * H + n0 + ch : w, ok);
+    }
+  }
+}
+
+// One 128 x 128 output unit (m0, n0) of C = A W (+ bias on the primal rows
+// m < R): every K-tile staged once through the ring, the accumulators kept
+// across K-tiles, then stored to C (stride H).  float32: a thread owns rows
+// ty + 16 i (i < 8) by columns 4 tx .. 4 tx + 3 and 64 + 4 tx .. (ty =
+// tid / 16, tx = tid % 16); highf32 and bfloat16: a warp owns 64 rows (4
+// m-tiles) by 32 columns (4 n-tiles) of mma.sync fragments, laid out as
+// dense_planes and dense_bf16 read theirs.
+template <int P>
+__device__ void product_unit(const void* A, const void* W, const float* __restrict__ bias, float* C, int H, int m0,
+                             int n0, int R, float* stage) {
+  constexpr int NA = P == kFloat32 ? 8 : 4;  // float32: rows; mma: m-tiles
+  constexpr int NB = P == kFloat32 ? 8 : 4;  // float32: columns; mma: n-tiles
+  constexpr int NC = P == kFloat32 ? 1 : 4;  // mma: a fragment's four values
+  float acc[NA][NB][NC];
+#pragma unroll
+  for (int i = 0; i < NA; ++i)
+#pragma unroll
+    for (int j = 0; j < NB; ++j)
+#pragma unroll
+      for (int c = 0; c < NC; ++c) acc[i][j][c] = 0.0f;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int wm = warp >> 2, wn = warp & 3;
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int nk = (H + kBK - 1) / kBK;
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < nk) load_stage<P>(stage + s * kStageFloats, A, W, H, m0, n0, s * kBK);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < nk; ++kt) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();  // K-tile kt is in, and every warp is done with the stage refilled next
+    const int nx = kt + kStages - 1;
+    if (nx < nk) load_stage<P>(stage + (nx % kStages) * kStageFloats, A, W, H, m0, n0, nx * kBK);
+    cp_async_commit();
+    const float* st = stage + (kt % kStages) * kStageFloats;
+    const int kmax = min(kBK, H - kt * kBK);
+    if constexpr (P == kFloat32) {
+      const float* as = st;
+      const float* ws = st + kBM * kAStride;
+      for (int kk = 0; kk < kmax; kk += 4) {
+        float4 a[8];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) a[i] = *reinterpret_cast<const float4*>(as + (ty + 16 * i) * kAStride + kk);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const float4 w0 = *reinterpret_cast<const float4*>(ws + (kk + q) * kWStride + 4 * tx);
+          const float4 w1 = *reinterpret_cast<const float4*>(ws + (kk + q) * kWStride + 64 + 4 * tx);
+          const float wv[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            const float av = q == 0 ? a[i].x : q == 1 ? a[i].y : q == 2 ? a[i].z : a[i].w;
+#pragma unroll
+            for (int j = 0; j < 8; ++j) acc[i][j][0] = fmaf(av, wv[j], acc[i][j][0]);
+          }
+        }
+      }
+    } else if constexpr (P == kHighF32) {
+      const float* as = st;
+      const float* ws = st + kBM * kAStride;
+      for (int ks = 0; ks < kmax; ks += 8) {
+        unsigned ahi[4][4], alo[4][4], bhi[4][2], blo[4][2];
+#pragma unroll
+        for (int mt = 0; mt < 4; ++mt) {
+          const float* r0 = as + (wm * 64 + mt * 16 + g) * kAStride + ks + t;
+          const float* r1 = r0 + 8 * kAStride;
+          const float av[4] = {r0[0], r1[0], r0[4], r1[4]};
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            float h, l;
+            split_tf32(av[i], h, l);
+            ahi[mt][i] = __float_as_uint(h);
+            alo[mt][i] = __float_as_uint(l);
+          }
+        }
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          const float* c = ws + (ks + t) * kWStride + wn * 32 + nt * 8 + g;
+          const float bv[2] = {c[0], c[4 * kWStride]};
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            float h, l;
+            split_tf32(bv[i], h, l);
+            bhi[nt][i] = __float_as_uint(h);
+            blo[nt][i] = __float_as_uint(l);
+          }
+        }
+#pragma unroll
+        for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt) {
+            mma_tf32(acc[mt][nt], alo[mt], bhi[nt]);
+            mma_tf32(acc[mt][nt], ahi[mt], blo[nt]);
+            mma_tf32(acc[mt][nt], ahi[mt], bhi[nt]);
+          }
+      }
+    } else {
+      const __nv_bfloat16* as = reinterpret_cast<const __nv_bfloat16*>(st);
+      const __nv_bfloat16* ws = as + kBM * kStride16;
+      for (int ks = 0; ks < kmax; ks += 16) {
+        unsigned af[4][4], bf[4][2];
+#pragma unroll
+        for (int mt = 0; mt < 4; ++mt) {
+          const int r = wm * 64 + mt * 16 + g;
+          const unsigned* p0 = reinterpret_cast<const unsigned*>(as + r * kStride16 + ks + 2 * t);
+          const unsigned* p1 = reinterpret_cast<const unsigned*>(as + (r + 8) * kStride16 + ks + 2 * t);
+          af[mt][0] = p0[0];
+          af[mt][1] = p1[0];
+          af[mt][2] = p0[4];
+          af[mt][3] = p1[4];
+        }
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          const unsigned* col =
+              reinterpret_cast<const unsigned*>(ws + (wn * 32 + nt * 8 + g) * kStride16 + ks + 2 * t);
+          bf[nt][0] = col[0];
+          bf[nt][1] = col[4];
+        }
+#pragma unroll
+        for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt) mma_bf16(acc[mt][nt], af[mt], bf[nt]);
+      }
+    }
+  }
+  __syncthreads();  // the next unit's first stages overwrite this one's
+
+  if constexpr (P == kFloat32) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int m = m0 + ty + 16 * i;
+      const bool primal = m < R;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int n = n0 + 64 * h + 4 * tx;
+        if (n >= H) continue;
+        float4 o;
+        o.x = acc[i][4 * h][0] + (primal ? __ldg(bias + n) : 0.0f);
+        o.y = acc[i][4 * h + 1][0] + (primal ? __ldg(bias + n + 1) : 0.0f);
+        o.z = acc[i][4 * h + 2][0] + (primal ? __ldg(bias + n + 2) : 0.0f);
+        o.w = acc[i][4 * h + 3][0] + (primal ? __ldg(bias + n + 3) : 0.0f);
+        *reinterpret_cast<float4*>(C + (size_t)m * H + n) = o;
+      }
+    }
+  } else {
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      const int n = n0 + wn * 32 + nt * 8 + 2 * t;
+      if (n >= H) continue;
+      const float b0 = __ldg(bias + n), b1 = __ldg(bias + n + 1);
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt) {
+        const int r0 = m0 + wm * 64 + mt * 16 + g;
+        const int r1 = r0 + 8;
+        float2 o;
+        o.x = acc[mt][nt][0] + (r0 < R ? b0 : 0.0f);
+        o.y = acc[mt][nt][1] + (r0 < R ? b1 : 0.0f);
+        *reinterpret_cast<float2*>(C + (size_t)r0 * H + n) = o;
+        o.x = acc[mt][nt][2] + (r1 < R ? b0 : 0.0f);
+        o.y = acc[mt][nt][3] + (r1 < R ? b1 : 0.0f);
+        *reinterpret_cast<float2*>(C + (size_t)r1 * H + n) = o;
+      }
+    }
+  }
+}
+
+// The cluster's barrier: every block of the cluster arrives (release at
+// cluster scope) and waits (acquire), so what one block wrote to the
+// workspace before it is visible to the others after it.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n\tbarrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ int cluster_rank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return static_cast<int>(r);
+}
+
+__device__ __forceinline__ int cluster_blocks() {
+  unsigned n;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(n));
+  return static_cast<int>(n);
+}
+
+// The row-tiled kernel: fused_mlp_kernel's arguments and `ws`, the
+// workspace, a slot a cluster of kTileRows (1 + group) (2 H + d_out) floats
+// in float32 and highf32 (the two layer buffers, then the compact output
+// layer) or kTileRows (1 + group) (H + H / 2 + d_out) in bfloat16 (the fp32
+// pre-activations, the bf16 plane, the output layer), each of (1 + group)
+// kTileRows rows.  Shared memory: the kStages K-tile ring, then the (R,
+// d_in) input tile and the (R, pws) probe tile.  `group` as in
+// fused_mlp_kernel (0: every tangent chain in one pass).
+template <int P>
+__global__ void __launch_bounds__(kThreads, 1)
+fused_mlp_tiled_kernel(const float* __restrict__ x, const float* __restrict__ e,
+                       const float* __restrict__ w_in, const float* __restrict__ b_eff, HiddenLayers hidden,
+                       int n_hidden, const float* __restrict__ w_out, const float* __restrict__ b_out,
+                       const float* __restrict__ c0c1, float* __restrict__ drift, float* __restrict__ div,
+                       float* __restrict__ ws, int B, int d_in, int d_out, int H, int mode, int act, int n_tan,
+                       int group) {
+  constexpr int ST = P == kBFloat16 ? kBF16Plane : kFp32;
+  constexpr int R = kTileRows;
+  const int G = cluster_blocks();
+  const int rank = cluster_rank();
+  const int cid = blockIdx.x / G;
+  const int n_clusters = gridDim.x / G;
+  const int n_t = mode == kForward ? 0 : mode == kHutchinson ? 1 : mode == kExact ? d_out : n_tan;
+  const int gsize = group > 0 ? group : n_t;
+  const int pw = mode == kTangents ? n_tan * d_out : d_out;
+  const int pws = mode == kTangents ? gsize * d_out : d_out;
+  const size_t plane = (size_t)(1 + gsize) * R * H;
+  float* const slot = ws + (size_t)cid * R * (1 + gsize) * (P == kBFloat16 ? H + H / 2 + d_out : 2 * H + d_out);
+  // float32, highf32: the two layer buffers; bfloat16: the pre-activations
+  // and (at buf1) the bf16 plane of the activations
+  float* const buf0 = slot;
+  float* const buf1 = slot + plane;
+  float* const net = P == kBFloat16 ? slot + plane + plane / 2 : slot + 2 * plane;
+  extern __shared__ __align__(16) float smem[];
+  float* const stage = smem;
+  float* const xs = smem + kStages * kStageFloats;
+  float* const es = xs + R * d_in;
+  const float c0 = c0c1[0];
+  const float c1 = c0c1[1];
+  const int tiles = (B + R - 1) / R;
+  const int passes = n_t > 0 ? (n_t + gsize - 1) / gsize : 1;
+  const int RH = R * H;
+
+  for (int tile = cid; tile < tiles; tile += n_clusters) {
+    const int row0 = tile * R;
+    for (int i = threadIdx.x; i < R * d_in; i += kThreads) {
+      xs[i] = (size_t)row0 * d_in + i < (size_t)B * d_in ? x[(size_t)row0 * d_in + i] : 0.0f;
+    }
+    float exact_sum = 0.0f;
+    for (int pass = 0; pass < passes; ++pass) {
+      const int t0 = pass * gsize;
+      const int chains = 1 + min(gsize, n_t - t0);
+      const int M = chains * R;
+      if (mode == kHutchinson || mode == kTangents) {
+        const int gw = (chains - 1) * d_out;
+        for (int i = threadIdx.x; i < R * gw; i += kThreads) {
+          const int r = i / gw;
+          const int q = i - r * gw;
+          es[r * pws + q] = row0 + r < B ? e[(size_t)(row0 + r) * pw + t0 * d_out + q] : 0.0f;
+        }
+      }
+      __syncthreads();
+
+      // the input layer and its activation, the tile's cells (r, j) shared
+      // out over the cluster, every chain of a cell on one thread
+      float* cur = buf0;
+      float* nxt = buf1;
+      for (int i = rank * kThreads + threadIdx.x; i < RH; i += G * kThreads) {
+        const int r = i / H, j = i - r * H;
+        float h, d;
+        act_cell<P>(act, input_cell<P>(0, t0, r, j, mode, xs, es, w_in, b_eff, d_in, d_out, pws, H), h, d);
+        for (int c = 1; c < chains; ++c) {
+          const float tc = input_cell<P>(c, t0, r, j, mode, xs, es, w_in, b_eff, d_in, d_out, pws, H);
+          store_act<ST>(__fmul_rn(tc, d), cur, buf1, nullptr, c * RH + i);
+        }
+        store_act<ST>(h, cur, buf1, nullptr, i);
+      }
+      cluster_sync();
+
+      for (int l = 0; l < n_hidden; ++l) {
+        // float32, highf32: cur -> nxt, the pass in place, then a swap;
+        // bfloat16: the plane -> the pre-activations, the pass back into it
+        const void* A = P == kBFloat16 ? static_cast<const void*>(buf1) : static_cast<const void*>(cur);
+        float* out = P == kBFloat16 ? buf0 : nxt;
+        const int m_units = M / kBM, units = m_units * ((H + kBN - 1) / kBN);
+        for (int u = rank; u < units; u += G) {  // a column's units in a row: they stage one weight slice
+          const int nu = u / m_units;
+          product_unit<P>(A, hidden.w[l], hidden.b[l], out, H, (u - nu * m_units) * kBM, nu * kBN, R, stage);
+        }
+        cluster_sync();
+        for (int i = rank * kThreads + threadIdx.x; i < RH; i += G * kThreads) {
+          float h, d;
+          act_cell<P>(act, __ldcg(out + i), h, d);
+          for (int c = 1; c < chains; ++c) {
+            store_act<ST>(__fmul_rn(__ldcg(out + c * RH + i), d), out, buf1, nullptr, c * RH + i);
+          }
+          store_act<ST>(h, out, buf1, nullptr, i);
+        }
+        cluster_sync();
+        if constexpr (P != kBFloat16) {
+          float* tmp = cur;
+          cur = nxt;
+          nxt = tmp;
+        }
+      }
+      if constexpr (P == kBFloat16) {
+        dense_out_bf16(reinterpret_cast<const __nv_bfloat16*>(w_out), b_out,
+                       reinterpret_cast<const __nv_bfloat16*>(buf1), net, H, d_out, M, R, H, rank, G);
+      } else {
+        dense_out<P, true>(w_out, b_out, cur, nullptr, net, H, d_out, M, R, H, rank, G);
+      }
+      cluster_sync();
+      if (rank == 0) {
+        for (int r = threadIdx.x; r < R && row0 + r < B; r += kThreads) {
+          finish_row(r, row0 + r, pass, passes, t0, chains, mode, R, B, d_in, d_out, pws, net, xs, es, c0, c1,
+                     drift, div, exact_sum);
+        }
+      }
+      cluster_sync();  // the next pass or tile writes what this one read
+    }
+  }
+}
+
+cudaLaunchConfig_t tiled_config(int cluster, int clusters, size_t smem, cudaStream_t stream,
+                                cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(clusters * cluster);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+template <int P>
+cudaError_t launch_tiled(const float* x, const float* e, const float* w_in, const float* b_eff,
+                         const HiddenLayers& hidden, int n_hidden, const float* w_out, const float* b_out,
+                         const float* c0c1, float* drift, float* div, float* ws, int B, int d_in, int d_out, int H,
+                         int mode, int act, int n_tan, int group, int cluster, int clusters, size_t smem,
+                         cudaStream_t stream) {
+  const cudaError_t st = allow_smem(fused_mlp_tiled_kernel<P>, smem);
+  if (st != cudaSuccess) return st;
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = tiled_config(cluster, clusters, smem, stream, attr);
+  const cudaError_t launched = cudaLaunchKernelEx(&cfg, fused_mlp_tiled_kernel<P>, x, e, w_in, b_eff, hidden,
+                                                  n_hidden, w_out, b_out, c0c1, drift, div, ws, B, d_in, d_out, H,
+                                                  mode, act, n_tan, group);
+  return launched != cudaSuccess ? launched : cudaGetLastError();
+}
+
+// Clusters of `cluster` blocks at `smem` bytes that the card holds at once,
+// and the tiled instantiation's registers and local-memory bytes a thread.
+template <int P>
+cudaError_t query_tiled(size_t smem, int cluster, int* clusters, int* regs, int* local_bytes) {
+  cudaError_t st = allow_smem(fused_mlp_tiled_kernel<P>, smem);
+  if (st != cudaSuccess) return st;
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = tiled_config(cluster, 1, smem, nullptr, attr);
+  st = cudaOccupancyMaxActiveClusters(clusters, fused_mlp_tiled_kernel<P>, &cfg);
+  if (st != cudaSuccess) return st;
+  cudaFuncAttributes fa;
+  st = cudaFuncGetAttributes(&fa, fused_mlp_tiled_kernel<P>);
+  *regs = fa.numRegs;
+  *local_bytes = (int)fa.localSizeBytes;
+  return st;
+}
+
+using TiledLaunchFn = cudaError_t (*)(const float*, const float*, const float*, const float*, const HiddenLayers&,
+                                      int, const float*, const float*, const float*, float*, float*, float*, int, int,
+                                      int, int, int, int, int, int, int, int, size_t, cudaStream_t);
+using TiledQueryFn = cudaError_t (*)(size_t, int, int*, int*, int*);
+constexpr TiledLaunchFn kTiledLaunch[3] = {launch_tiled<kFloat32>, launch_tiled<kHighF32>, launch_tiled<kBFloat16>};
+constexpr TiledQueryFn kTiledQuery[3] = {query_tiled<kFloat32>, query_tiled<kHighF32>, query_tiled<kBFloat16>};
 
 template <int P, bool kPlanes, bool kWide>
 cudaError_t launch(const float* x, const float* e, const float* w_in, const float* b_eff,
@@ -746,6 +1219,47 @@ int ff_fused_mlp(const float* x, const float* e, const float* w_in, const float*
                                                    w_out, b_out, c0c1, drift, div, B, d_in, d_out, H, mode, act,
                                                    n_tan, rows, group, smem, static_cast<cudaStream_t>(stream));
 }
+
+// Launch the row-tiled form on `stream` (the arguments of ff_fused_mlp but
+// `rows` and `planes`): `clusters` clusters of `cluster` blocks (1, 2, 4 or
+// 8) walk the tiles of kTileRows rows, `ws` the workspace of a slot a
+// cluster (kernels/fused_mlp.py::tiled_launch sizes both).  `group` is the
+// tangent chains a pass carries, 0 for all of them.  `smem`: the kStages
+// K-tile ring (kStages x 35,840 bytes), then kTileRows x (d_in + d_out)
+// floats, or in mode tangents kTileRows x (d_in + d_out group) floats.
+int ff_fused_mlp_tiled(const float* x, const float* e, const float* w_in, const float* b_eff,
+                       const float* const* layers, int n_hidden, const float* w_out, const float* b_out,
+                       const float* c0c1, float* drift, float* div, float* ws, int B, int d_in, int d_out, int H,
+                       int mode, int act, int precision, int n_tan, int group, int cluster, int clusters, size_t smem,
+                       void* stream) {
+  const int n_t = mode == kForward ? 0 : mode == kHutchinson ? 1 : mode == kExact ? d_out : n_tan;
+  if (n_hidden < 0 || (n_hidden > 0 && layers == nullptr) || H % 4 != 0 || B <= 0 || ws == nullptr ||
+      mode < kForward || mode > kTangents || (mode == kTangents && n_tan < 1) || precision < kFloat32 ||
+      precision > kBFloat16 || (precision == kHighF32 && H % 8 != 0) || (precision == kBFloat16 && H % 16 != 0) ||
+      group < 0 || group > n_t || (cluster != 1 && cluster != 2 && cluster != 4 && cluster != 8) || clusters < 1) {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)kTiledLaunch[precision](x, e, w_in, b_eff, hidden_layers(layers, n_hidden), n_hidden, w_out, b_out,
+                                      c0c1, drift, div, ws, B, d_in, d_out, H, mode, act, n_tan, group, cluster,
+                                      clusters, smem, static_cast<cudaStream_t>(stream));
+}
+
+// Clusters of `cluster` blocks of the tiled form in compute mode
+// `precision` at `smem` bytes that the card holds at once, and the
+// instantiation's registers and local-memory bytes a thread; returns the
+// cudaError_t of the query.
+int ff_fused_mlp_tiled_occupancy(int precision, int cluster, size_t smem, int* clusters, int* regs,
+                                 int* local_bytes) {
+  if (precision < kFloat32 || precision > kBFloat16 || cluster < 1 || cluster > 8) {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)kTiledQuery[precision](smem, cluster, clusters, regs, local_bytes);
+}
+
+// The row-tiled form's rows a tile and its K-tile ring's bytes: the wrapper
+// plans with them.
+int ff_fused_mlp_tile_rows() { return kTileRows; }
+int ff_fused_mlp_tile_ring_bytes() { return kStages * kStageFloats * (int)sizeof(float); }
 
 // The blocks of kThreads an SM is to hold by the launch bounds: the wrapper
 // plans with it.

@@ -467,10 +467,13 @@ __device__ void dense_bf16(const __nv_bfloat16* __restrict__ wt, const float* __
 // bfloat16: out[m, j] = A[m] @ w[:, j] (+ bias[j] on rows m < R) for the
 // narrow (K, N = D) output layer, a thread an output: A the bf16 plane
 // (stride S values), w bf16 in its (K, N) layout, one fmaf chain over k
-// from 0 (the products exact).  `out` is compact, (M, N).
+// from 0 (the products exact).  `out` is compact, (M, N).  Block `part` of
+// `parts` that share the outputs (a cluster's) takes every parts-th run of
+// kThreads of them.
 __device__ void dense_out_bf16(const __nv_bfloat16* __restrict__ w, const float* __restrict__ bias,
-                               const __nv_bfloat16* a, float* out, int K, int N, int M, int R, int S) {
-  for (int it = threadIdx.x; it < M * N; it += kThreads) {
+                               const __nv_bfloat16* a, float* out, int K, int N, int M, int R, int S,
+                               int part = 0, int parts = 1) {
+  for (int it = part * kThreads + threadIdx.x; it < M * N; it += parts * kThreads) {
     const int m = it / N;
     const int j = it - m * N;
     const __nv_bfloat162* in = reinterpret_cast<const __nv_bfloat162*>(a + (size_t)m * S);

@@ -42,7 +42,13 @@ shared memory, the tangent chains a pass carries and whether ``highf32``
 keeps its TF32 hi and lo planes.  Every tangent chain rides in one pass,
 with the planes, wherever that fits; only the widest nets take passes of
 fewer chains (exact and tangents) or a ``highf32`` product that splits as
-it loads.  A row's arithmetic does not depend on the plan.  The sketch
+it loads.  Where those shared-memory plans hold fewer than ``TILED_BELOW``
+rows a block at H of at least ``TILED_FROM_H``, the plan is the row-tiled
+form, ``(128, smem_bytes, group,
+False, ws_row)``: tiles of 128 rows whose layer buffers live in a
+device-memory workspace (``ws_row`` floats a row), each staged weight
+K-tile read by all 128 rows (:func:`tiled_launch`).  A row's arithmetic
+does not depend on the plan.  The sketch
 and EM kernels plan with :func:`_pick_rows` too, each at its own block
 cap.  The hidden layers reach every kernel through a table of their
 pointers in device memory (:func:`layer_table`), so a net may have any
@@ -93,12 +99,15 @@ __all__ = [
     "flops_per_row",
     "occupancy",
     "plan_blocks",
+    "plan_tiled",
+    "tiled_launch",
     "reset_launch_counts",
 ]
 
 _KERNEL_ACTIVATIONS = ("silu", "tanh", "relu", "gelu")  # index = kernel's Act
 _MODES = ("forward", "hutchinson", "exact", "tangents")  # index = kernel's Mode
 COMPUTE_DTYPES = ("float32", "highf32", "bfloat16")  # index = the kernel's precision
+FORMS = ("shared", "tiled")  # the shared-memory plans' kernel, the row-tiled kernel
 # Hidden widths are padded to a multiple of this: the kernel reads four
 # activations and four weight columns at a time.  highf32 pads to the
 # 8-wide n-tile of its tensor-core product (LANE_HIGHF32), bfloat16 to the
@@ -118,6 +127,22 @@ _SMEM_BLOCK_RESERVE = 1_024
 KERNEL_BLOCKS = 3  # blocks an SM the kernel's launch bounds allow (csrc kMinBlocks)
 PAD = 4  # floats past H in a row of the kernel's activation buffers (csrc kPad)
 PAD_BF16 = 8  # the same in bfloat16, where the bf16 plane shares the row stride (csrc kPadBF16)
+# The row-tiled form (csrc fused_mlp_tiled_kernel): rows a tile (kTileRows),
+# the bytes of its K-tile ring (kStages x 35,840), the tangent chains a pass
+# carries at most where it does not carry them all, and the most blocks a
+# cluster (the portable cluster size).
+TILE_ROWS = 128
+TILE_RING_BYTES = 3 * 35_840
+TILED_MAX_GROUP = 8
+TILED_MAX_CLUSTER = 8
+# Where the default plan takes the row-tiled form: a shared-memory plan of
+# fewer than TILED_BELOW rows a block at a hidden width of at least
+# TILED_FROM_H in the compute mode.  Set from in-turn times on the H100
+# (`chip_smoke.py --tiled-sweep`, PERF.md §6): below those widths the
+# shared-memory plans' weights stay in L2 and their blocks beat the tiles'
+# workspace round trips, at every row count.
+TILED_BELOW = {"float32": 16, "highf32": 16, "bfloat16": 16}
+TILED_FROM_H = {"float32": 768, "highf32": 512, "bfloat16": 1024}
 
 
 def tf32_round(x: torch.Tensor) -> torch.Tensor:
@@ -856,12 +881,14 @@ _COUNTED = (
 
 def reset_launch_counts() -> None:
     """Zero the launch counts of every wrapper of this kernel, and their
-    splits by mode (``launches_by_mode``) and by compute mode
-    (``launches_by_dtype``)."""
+    splits by mode (``launches_by_mode``), by compute mode
+    (``launches_by_dtype``) and by form (``launches_by_form``: the
+    shared-memory plans' kernel or the row-tiled one)."""
     for fn in _COUNTED:
         fn.launches = 0
         fn.launches_by_mode = dict.fromkeys(_MODES, 0)
         fn.launches_by_dtype = dict.fromkeys(COMPUTE_DTYPES, 0)
+        fn.launches_by_form = dict.fromkeys(FORMS, 0)
 
 
 reset_launch_counts()
@@ -926,9 +953,62 @@ def _group_bytes(rows: int, H: int, mode: str, group: int, d_in: int, d_out: int
     return _smem_bytes(rows, H, 1 + n, d_in, d_out, n if mode == "tangents" else 0, compute_dtype, planes)
 
 
+def _tiled_bytes(mode: str, d_in: int, d_out: int, n_tan: int, group: int) -> int:
+    """Shared memory of a row-tiled block: the K-tile ring, then the (128,
+    d_in) input tile and the probe tile of a pass, as :func:`_smem_bytes`
+    counts them."""
+    n = group or n_tan
+    return TILE_RING_BYTES + 4 * TILE_ROWS * (d_in + d_out * max(1, n if mode == "tangents" else 0))
+
+
+def _tiled_ws_row(H: int, mode: str, d_out: int, n_tan: int, group: int, compute_dtype: str) -> int:
+    """Floats a row of the row-tiled form's workspace: for the primal and a
+    pass's tangent chains, the two fp32 layer buffers (in ``bfloat16`` the
+    fp32 pre-activations and the bf16 plane, H / 2 floats) and the output
+    layer's d_out values."""
+    chains = 1 + (group or _chains(mode, d_out, n_tan) - 1)
+    return chains * ((H + H // 2 if compute_dtype == "bfloat16" else 2 * H) + d_out)
+
+
+def _tiled_plan(H: int, mode: str, d_in: int, d_out: int, n_tan: int, compute_dtype: str,
+                group: Optional[int] = None):
+    """``(128, smem_bytes, group, False, ws_row)``: the row-tiled form with
+    every tangent chain in one pass where there are at most
+    ``TILED_MAX_GROUP`` (else passes of the largest group up to that many
+    whose block fits), or None where not even one chain a pass fits."""
+    n_t = _chains(mode, d_out, n_tan) - 1
+    if group is None:
+        groups = ([0] if n_t <= TILED_MAX_GROUP else []) + list(range(min(n_t - 1, TILED_MAX_GROUP), 0, -1))
+        group = next((g for g in groups if _tiled_bytes(mode, d_in, d_out, n_tan, g) <= _SMEM_LIMIT), None)
+        if group is None:
+            return None
+    smem = _tiled_bytes(mode, d_in, d_out, n_tan, group)
+    if smem > _SMEM_LIMIT:
+        return None
+    return TILE_ROWS, smem, group, False, _tiled_ws_row(H, mode, d_out, n_tan, group, compute_dtype)
+
+
+def plan_tiled(plan) -> bool:
+    """Whether ``plan`` is the row-tiled form (its fifth value, ``ws_row``)."""
+    return len(plan) == 5
+
+
 @functools.lru_cache(maxsize=None)
 def _default_plan(H: int, mode: str, d_in: int, d_out: int, n_tan: int = 0, compute_dtype: str = "float32"):
-    """The plan :func:`_plan` takes, or None where none fits.  In order:
+    """The plan :func:`_plan` takes, or None where none fits: the
+    shared-memory plan of :func:`_shared_plan`, or the row-tiled form
+    where that holds fewer than ``TILED_BELOW[compute_dtype]`` rows a block
+    at H of at least ``TILED_FROM_H[compute_dtype]`` (the envelope is the
+    shared-memory plans': the tiled form widens nothing)."""
+    own = _shared_plan(H, mode, d_in, d_out, n_tan, compute_dtype)
+    if own is None or own[0] >= TILED_BELOW[compute_dtype] or H < TILED_FROM_H[compute_dtype]:
+        return own
+    return _tiled_plan(H, mode, d_in, d_out, n_tan, compute_dtype) or own
+
+
+@functools.lru_cache(maxsize=None)
+def _shared_plan(H: int, mode: str, d_in: int, d_out: int, n_tan: int = 0, compute_dtype: str = "float32"):
+    """The shared-memory plan, or None where none fits.  In order:
     every tangent chain in one pass (group 0), with the TF32 planes in
     ``highf32``, at the rows of :func:`_pick_rows`; else the planes kept
     and the largest group of tangent chains a pass that fits at 4 rows a
@@ -949,8 +1029,10 @@ def _default_plan(H: int, mode: str, d_in: int, d_out: int, n_tan: int = 0, comp
 
 @functools.lru_cache(maxsize=None)
 def _plan(H: int, mode: str, d_in: int, d_out: int, n_tan: int = 0, compute_dtype: str = "float32",
-          rows: Optional[int] = None, group: Optional[int] = None, planes: Optional[bool] = None):
-    """``(rows, smem_bytes, group, planes)`` of the launch, or raise when
+          rows: Optional[int] = None, group: Optional[int] = None, planes: Optional[bool] = None,
+          tiled: Optional[bool] = None):
+    """``(rows, smem_bytes, group, planes)`` of the launch, or ``(128,
+    smem_bytes, group, False, ws_row)`` in the row-tiled form; raise when
     the shared-memory plan does not fit (the JAX package's
     vmem_width_clamp analogue).  The plan of :func:`_default_plan`:
     rows the most blocks an SM holds (at most ``KERNEL_BLOCKS``), at the
@@ -960,13 +1042,32 @@ def _plan(H: int, mode: str, d_in: int, d_out: int, n_tan: int = 0, compute_dtyp
     does not; ``planes`` whether ``highf32`` keeps its TF32 hi and lo
     planes (False in the other modes).  A plan that groups or drops the
     planes is wide: it fits one block an SM and launches the kernel's wide
-    instantiations.  ``rows``, ``group`` and ``planes`` force a plan (a
-    multiple of 4 rows, a group of 0 to the tangent count, planes in
-    ``highf32`` only, whose block fits); what is not forced is the default
+    instantiations.  ``tiled`` forces either form: the row-tiled one
+    (the default where the shared-memory plans hold fewer than
+    ``TILED_BELOW`` rows at H of at least ``TILED_FROM_H``) or the
+    shared-memory one.  ``rows``, ``group`` and
+    ``planes`` force a plan (a multiple of 4 rows, a group of 0 to the
+    tangent count, planes in ``highf32`` only, whose block fits; rows and
+    planes are the shared-memory form's, so forcing either takes that form
+    unless ``tiled`` says otherwise); what is not forced is the default
     plan's.  A row's arithmetic does not depend on the plan.  Cached: a
     solve asks for the same plan at every right-hand side."""
     n_t = _chains(mode, d_out, n_tan) - 1
     own = _default_plan(H, mode, d_in, d_out, n_tan, compute_dtype)
+    if tiled is None:
+        tiled = own is not None and plan_tiled(own) and rows is None and planes is None
+    if tiled:
+        if rows not in (None, TILE_ROWS) or planes:
+            raise ValueError(f"the row-tiled form takes {TILE_ROWS} rows a tile and no TF32 planes")
+        if group is not None and not 0 <= group <= n_t:
+            raise ValueError(f"fused kernel plan of group {group}: a group of 0 to the {n_t} tangent chains")
+        plan = _tiled_plan(H, mode, d_in, d_out, n_tan, compute_dtype, group)
+        if own is None or plan is None:
+            raise ValueError(f"the row-tiled form does not fit H={H} {mode} with {d_in} input features in "
+                             f"{compute_dtype}: it takes what a shared-memory plan does")
+        return plan
+    if own is not None and plan_tiled(own):
+        own = _shared_plan(H, mode, d_in, d_out, n_tan, compute_dtype)
     if rows is None and group is None and planes is None:
         if own is None:
             raise ValueError(
@@ -990,25 +1091,54 @@ def _plan(H: int, mode: str, d_in: int, d_out: int, n_tan: int = 0, compute_dtyp
 
 
 def plan_wide(plan, compute_dtype: str = "float32") -> bool:
-    """Whether ``plan`` is wide: its passes group the tangent chains, or
-    ``highf32`` drops its planes.  A wide plan fits one block an SM by its
-    shared memory and launches the kernel's wide instantiations (launch
-    bounds of one block)."""
-    return plan[2] > 0 or (compute_dtype == "highf32" and not plan[3])
+    """Whether ``plan`` is wide: a shared-memory plan whose passes group
+    the tangent chains, or ``highf32`` without its planes.  A wide plan
+    fits one block an SM by its shared memory and launches the kernel's
+    wide instantiations (launch bounds of one block)."""
+    return not plan_tiled(plan) and (plan[2] > 0 or (compute_dtype == "highf32" and not plan[3]))
 
 
 def plan_blocks(plan) -> int:
     """Blocks of ``plan`` an SM holds by its shared memory and the launch
     bounds (:func:`occupancy` asks the card).  A default plan that is wide
-    (:func:`plan_wide`) holds one block by its shared memory."""
-    return min(KERNEL_BLOCKS, blocks_per_sm(plan[1]))
+    (:func:`plan_wide`) holds one block by its shared memory; the row-tiled
+    form one by its launch bounds."""
+    return 1 if plan_tiled(plan) else min(KERNEL_BLOCKS, blocks_per_sm(plan[1]))
+
+
+def tiled_launch(plan, B: int, H: int, mode: str, d_out: int, n_tan: int = 0, sms: int = 132,
+                 max_clusters: Optional[Callable[[int], int]] = None) -> Tuple[int, int, int]:
+    """``(cluster, clusters, workspace_bytes)`` of a row-tiled ``plan``'s
+    launch over B rows on a card of ``sms`` SMs: clusters of 1, 2, 4 or 8
+    blocks share a tile's 128 x 128 product units (chains x H / 128 of
+    them a layer), the fewest blocks a cluster at which the tiles fill 90%
+    of the card; a persistent grid of at most the clusters the card holds
+    at once (``max_clusters(cluster)``, by default ``sms // cluster``), each
+    with a slot of 128 x ws_row floats, so the workspace stops growing at
+    one grid's slots."""
+    rows, group, ws_row = plan[0], plan[2], plan[4]
+    tiles = -(-B // rows)
+    units = (1 + (group or _chains(mode, d_out, n_tan) - 1)) * -(-H // TILE_ROWS)
+    cluster = 1
+    while cluster < TILED_MAX_CLUSTER and 2 * cluster <= units and 10 * tiles * cluster < 9 * sms:
+        cluster *= 2
+    resident = max_clusters(cluster) if max_clusters is not None else sms // cluster
+    clusters = max(1, min(tiles, resident))
+    return cluster, clusters, 4 * clusters * rows * ws_row
 
 
 def occupancy(plan, compute_dtype: str = "float32") -> dict:
     """What the card makes of ``plan`` (from :func:`_plan`) in
     ``compute_dtype``: resident blocks an SM
-    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), registers and
-    local-memory bytes a thread of the instantiation it launches."""
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``; for the row-tiled
+    form the clusters of one block the card holds over its SM count),
+    registers and local-memory bytes a thread of the instantiation it
+    launches."""
+    if plan_tiled(plan):
+        clusters, regs, local_bytes = _tiled_query(COMPUTE_DTYPES.index(compute_dtype), 1, plan[1])
+        sms = torch.cuda.get_device_properties(torch.cuda.current_device()).multi_processor_count
+        return dict(rows=plan[0], smem_bytes=plan[1], group=plan[2], planes=False, tiled=True, ws_row=plan[4],
+                    blocks_per_sm=clusters // sms, registers=regs, local_bytes=local_bytes)
     rows, smem, group, planes = plan
     blocks, regs, local_bytes = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
     err = _kernel_lib().ff_fused_mlp_occupancy(COMPUTE_DTYPES.index(compute_dtype), int(planes), group, smem, blocks,
@@ -1026,15 +1156,35 @@ def _kernel_lib() -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [p, p, p, p, p, i, p, p, p, p, p] + [i] * 11 + [ctypes.c_size_t, p]
         fn.restype = ctypes.c_int
+        lib.ff_fused_mlp_tiled.argtypes = [p, p, p, p, p, i, p, p, p, p, p, p] + [i] * 11 + [ctypes.c_size_t, p]
+        lib.ff_fused_mlp_tiled.restype = ctypes.c_int
         ip = ctypes.POINTER(ctypes.c_int)
         lib.ff_fused_mlp_occupancy.argtypes = [i, i, i, ctypes.c_size_t, ip, ip, ip]
         lib.ff_fused_mlp_occupancy.restype = ctypes.c_int
-        lib.ff_fused_mlp_min_blocks.argtypes = []
-        lib.ff_fused_mlp_min_blocks.restype = ctypes.c_int
+        lib.ff_fused_mlp_tiled_occupancy.argtypes = [i, i, ctypes.c_size_t, ip, ip, ip]
+        lib.ff_fused_mlp_tiled_occupancy.restype = ctypes.c_int
+        for name in ("ff_fused_mlp_min_blocks", "ff_fused_mlp_tile_rows", "ff_fused_mlp_tile_ring_bytes"):
+            getattr(lib, name).argtypes = []
+            getattr(lib, name).restype = ctypes.c_int
         if lib.ff_fused_mlp_min_blocks() != KERNEL_BLOCKS:
             raise RuntimeError(f"fused_mlp.cu's launch bounds hold {lib.ff_fused_mlp_min_blocks()} blocks an SM; "
                                f"the wrapper plans for {KERNEL_BLOCKS}")
+        if (lib.ff_fused_mlp_tile_rows(), lib.ff_fused_mlp_tile_ring_bytes()) != (TILE_ROWS, TILE_RING_BYTES):
+            raise RuntimeError("fused_mlp.cu's row-tiled form is not the one the wrapper plans for")
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _tiled_query(precision: int, cluster: int, smem: int) -> Tuple[int, int, int]:
+    """``(clusters, registers, local_bytes)``: clusters of ``cluster``
+    blocks of the row-tiled instantiation at ``smem`` bytes that the
+    current card holds at once, and its registers and local bytes a
+    thread."""
+    clusters, regs, local_bytes = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    err = _kernel_lib().ff_fused_mlp_tiled_occupancy(precision, cluster, smem, clusters, regs, local_bytes)
+    if err != 0:
+        raise RuntimeError(f"fused_mlp row-tiled occupancy query failed with CUDA error {err}")
+    return clusters.value, regs.value, local_bytes.value
 
 
 def check_operands(expect, hidden, H: int, what: str, lane_width: int = LANE) -> torch.device:
@@ -1104,11 +1254,11 @@ OP_NAMESPACE = __name__.split(".")[0]
 
 
 def _launch(x_in, e, w_in, b_eff, layers, c0c1, mode, d_out, activation, counter=fused_drift,
-            n_tan=0, compute_dtype="float32", rows=None, group=None, planes=None):
+            n_tan=0, compute_dtype="float32", rows=None, group=None, planes=None, tiled=None):
     """Launch the kernel through the registered op ``fused_mlp`` (eager
     and traced calls alike) in ``compute_dtype`` on the current stream, at
-    the plan of :func:`_plan` (``rows``, ``group`` and ``planes`` force
-    one); the launch is added to ``counter``'s counts.  Returns ``(drift, div)``: div is None (forward),
+    the plan of :func:`_plan` (``rows``, ``group``, ``planes`` and
+    ``tiled`` force one); the launch is added to ``counter``'s counts.  Returns ``(drift, div)``: div is None (forward),
     (B,) (hutchinson, exact) or the (n_tan, B, d_out) J v columns
     (tangents, ``e`` the (B, n_tan d_out) probe rows).  Raises on anything
     the kernel does not take."""
@@ -1117,7 +1267,7 @@ def _launch(x_in, e, w_in, b_eff, layers, c0c1, mode, d_out, activation, counter
         x_in, e if mode in ("hutchinson", "tangents") else None, w_in, b_eff,
         [l["w"] for l in hidden], [l["b"] for l in hidden], layers[-1]["w"], layers[-1]["b"], c0c1,
         mode, d_out, n_tan, activation, compute_dtype, counter.__name__, rows or 0,
-        -1 if group is None else group, -1 if planes is None else int(planes),
+        -1 if group is None else group, -1 if planes is None else int(planes), -1 if tiled is None else int(tiled),
     )
     return drift, (None if mode == "forward" else div)
 
@@ -1129,11 +1279,12 @@ def _div_shape(mode: str, B, d_out: int, n_tan: int) -> tuple:
 
 
 def _fused_mlp_cuda(x_in, e, w_in, b_eff, hidden_w, hidden_b, w_out, b_out, c0c1, mode, d_out, n_tan,
-                    activation, compute_dtype, counter, rows, group=-1, planes=-1):
+                    activation, compute_dtype, counter, rows, group=-1, planes=-1, tiled=-1):
     """The CUDA kernel of the op ``fused_mlp``: check the operands,
-    allocate the outputs, launch ``csrc/fused_mlp.cu`` on the current
-    stream (``rows`` > 0, ``group`` and ``planes`` >= 0 force a plan) and
-    add one to the counts of the wrapper named ``counter``.  Returns ``(drift (B, d_out), div)``, div as
+    allocate the outputs (and the row-tiled form's workspace), launch
+    ``csrc/fused_mlp.cu`` on the current stream (``rows`` > 0, ``group``,
+    ``planes`` and ``tiled`` >= 0 force a plan) and add one to the counts
+    of the wrapper named ``counter``.  Returns ``(drift (B, d_out), div)``, div as
     :func:`_div_shape` says."""
     B, d_in = x_in.shape
     H = b_eff.shape[0]
@@ -1149,8 +1300,9 @@ def _fused_mlp_cuda(x_in, e, w_in, b_eff, hidden_w, hidden_b, w_out, b_out, c0c1
     check_compute_dtype(compute_dtype)
     hidden = [{"w": w} for w in hidden_w]
     device = check_operands(expect, hidden, H, "fused kernel", lane(compute_dtype))
-    rows, smem, group, planes = _plan(H, mode, d_in, d_out, n_tan, compute_dtype, rows or None,
-                                      None if group < 0 else group, None if planes < 0 else bool(planes))
+    plan = _plan(H, mode, d_in, d_out, n_tan, compute_dtype, rows or None, None if group < 0 else group,
+                 None if planes < 0 else bool(planes), None if tiled < 0 else bool(tiled))
+    rows, smem, group, planes = plan[:4]
     if compute_dtype == "bfloat16":
         w_in, hidden_w, w_out = _bf16_operands(w_in, hidden_w, w_out)
 
@@ -1159,18 +1311,26 @@ def _fused_mlp_cuda(x_in, e, w_in, b_eff, hidden_w, hidden_b, w_out, b_out, c0c1
     if B == 0:
         return drift, div
     lib = _kernel_lib()
-    err = lib.ff_fused_mlp(
-        x_in.data_ptr(), e.data_ptr() if mode in ("hutchinson", "tangents") else None,
-        w_in.data_ptr(), b_eff.data_ptr(), layer_table(hidden_w, hidden_b, device), len(hidden_w),
-        w_out.data_ptr(), b_out.data_ptr(), c0c1.data_ptr(), drift.data_ptr(),
-        div.data_ptr() if mode != "forward" else None,
-        B, d_in, d_out, H, _MODES.index(mode), _KERNEL_ACTIVATIONS.index(activation),
-        COMPUTE_DTYPES.index(compute_dtype), n_tan, rows, group, int(planes), smem,
-        torch.cuda.current_stream(device).cuda_stream,
-    )
+    head = (x_in.data_ptr(), e.data_ptr() if mode in ("hutchinson", "tangents") else None,
+            w_in.data_ptr(), b_eff.data_ptr(), layer_table(hidden_w, hidden_b, device), len(hidden_w),
+            w_out.data_ptr(), b_out.data_ptr(), c0c1.data_ptr(), drift.data_ptr(),
+            div.data_ptr() if mode != "forward" else None)
+    tail = (B, d_in, d_out, H, _MODES.index(mode), _KERNEL_ACTIVATIONS.index(activation),
+            COMPUTE_DTYPES.index(compute_dtype), n_tan)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    if plan_tiled(plan):
+        precision = COMPUTE_DTYPES.index(compute_dtype)
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        cluster, clusters, ws_bytes = tiled_launch(
+            plan, B, H, mode, d_out, n_tan, sms, lambda c: _tiled_query(precision, c, smem)[0])
+        ws = torch.empty(ws_bytes // 4, dtype=torch.float32, device=device)
+        err = lib.ff_fused_mlp_tiled(*head, ws.data_ptr(), *tail, group, cluster, clusters, smem, stream)
+    else:
+        err = lib.ff_fused_mlp(*head, *tail, rows, group, int(planes), smem, stream)
     if err != 0:
         raise RuntimeError(f"fused_mlp kernel launch failed with CUDA error {err}")
-    _build.count_launch(globals()[counter], launches_by_mode=mode, launches_by_dtype=compute_dtype)
+    _build.count_launch(globals()[counter], launches_by_mode=mode, launches_by_dtype=compute_dtype,
+                        launches_by_form=FORMS[plan_tiled(plan)])
     return drift, div
 
 
@@ -1191,7 +1351,7 @@ fused_mlp_op = torch.library.custom_op(
     f"{OP_NAMESPACE}::fused_mlp", _fused_mlp_cuda, mutates_args=(), device_types="cuda",
     schema="(Tensor x_in, Tensor? e, Tensor w_in, Tensor b_eff, Tensor[] hidden_w, Tensor[] hidden_b, "
            "Tensor w_out, Tensor b_out, Tensor c0c1, str mode, int d_out, int n_tan, str activation, "
-           "str compute_dtype, str counter, int rows, int group=-1, int planes=-1) -> (Tensor, Tensor)",
+           "str compute_dtype, str counter, int rows, int group=-1, int planes=-1, int tiled=-1) -> (Tensor, Tensor)",
 )
 
 
@@ -1209,7 +1369,7 @@ def folded_net(x_in, w_in, b_eff, hidden_w, hidden_b, w_out, b_out, d_out, activ
 
 @fused_mlp_op.register_kernel("cpu")
 def _fused_mlp_op_cpu(x_in, e, w_in, b_eff, hidden_w, hidden_b, w_out, b_out, c0c1, mode, d_out, n_tan,
-                      activation, compute_dtype, counter, rows, group=-1, planes=-1):
+                      activation, compute_dtype, counter, rows, group=-1, planes=-1, tiled=-1):
     """The op on CPU tensors: the plain version of the folded operands
     (``torch.func.jvp`` for the divergence and the J v columns, TF32 off;
     in ``bfloat16`` the explicit chain of :func:`_bf16_reference`),
@@ -1239,7 +1399,7 @@ def _fused_mlp_op_cpu(x_in, e, w_in, b_eff, hidden_w, hidden_b, w_out, b_out, c0
 
 @fused_mlp_op.register_fake
 def _fused_mlp_op_fake(x_in, e, w_in, b_eff, hidden_w, hidden_b, w_out, b_out, c0c1, mode, d_out, n_tan,
-                       activation, compute_dtype, counter, rows, group=-1, planes=-1):
+                       activation, compute_dtype, counter, rows, group=-1, planes=-1, tiled=-1):
     """The op's output shapes, for tracing: drift (B, d_out) and div as
     :func:`_div_shape` says (the wrappers check the plan before the call)."""
     B = x_in.shape[0]

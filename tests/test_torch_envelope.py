@@ -214,13 +214,16 @@ def test_new_plan_forms():
     """Where one pass of every chain does not fit, the plan keeps highf32's
     planes and groups at 4 rows a block, else drops the planes; a wide
     plan holds one block an SM.  Forced forms fit where the default does."""
-    assert fused_mlp._plan(3072, "hutchinson", 2, 2, 0, "highf32")[2:] == (0, False)  # no group below one tangent
-    assert fused_mlp._plan(1280, "exact", 9, 6, 0, "highf32")[::2] == (4, 2) and fused_mlp._plan(
-        1280, "exact", 9, 6, 0, "highf32")[3]
+    # (the default plans at 3,072, 1,280 and 2,048 are the row-tiled form:
+    # the shared-memory forms' values are held beside it)
+    assert fused_mlp._plan(3072, "hutchinson", 2, 2, 0, "highf32", tiled=False)[2:] == (0, False)  # no group below one
+    assert fused_mlp._plan(1280, "exact", 9, 6, 0, "highf32", tiled=False)[::2] == (4, 2) and fused_mlp._plan(
+        1280, "exact", 9, 6, 0, "highf32", tiled=False)[3]
     assert fused_mlp._plan(640, "exact", 16, 16, 0, "float32")[::2] == (4, 10)
     for dt in DTYPES:
-        plan = fused_mlp._plan(2048, "tangents", 9, 6, 6, dt)
+        plan = fused_mlp._plan(2048, "tangents", 9, 6, 6, dt, tiled=False)
         assert plan[0] == 4 and fused_mlp.plan_wide(plan, dt) and fused_mlp.plan_blocks(plan) == 1
+        assert fused_mlp.plan_tiled(fused_mlp._plan(2048, "tangents", 9, 6, 6, dt))
     # at today's widths: a group of one chain, highf32 without planes
     assert fused_mlp._plan(128, "exact", 2, 2, group=1)[2:] == (1, False)
     no_planes = fused_mlp._plan(128, "hutchinson", 2, 2, 0, "highf32", planes=False)

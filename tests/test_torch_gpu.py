@@ -900,6 +900,30 @@ def test_rhs_kernel_is_bitwise_across_plans(cuda_device, D, C, H, compute_dtype)
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("compute_dtype", ["float32", "highf32", "bfloat16"])
+def test_rhs_tiled_form_is_bitwise_the_four_row_form(cuda_device, compute_dtype):
+    """The row-tiled form (clusters of up to 8 blocks on 1,001 rows, one
+    block at 50,000 rows) against the shared-memory plan forced to 4 rows
+    a block, every mode, and with one tangent chain a pass: bitwise, at
+    today's widths and at the JAX gate's Hutchinson width (3,072)."""
+    cases = [(D, C, H, B) for D, C, H in _RHS_NETS for B in (1001,)] + [(6, 3, 256, 50_000), (2, 0, 3072, 1001)]
+    for D, C, H, B in cases:
+        for mode in ("forward", "hutchinson", "exact", "tangents"):
+            if H == 3072 and mode != "hutchinson":
+                continue
+            x_in, e, w_in, b_eff, layers, c0c1, mode, D_, n_tan = _rhs_launch_args(cuda_device, D, C, H, mode, B)
+            n_t = {"forward": 0, "hutchinson": 1, "exact": D, "tangents": n_tan}[mode]
+            forms = [dict(tiled=True), dict(rows=4)] + ([dict(tiled=True, group=1)] if n_t > 1 else [])
+            outs = [fused_mlp._launch(x_in, e, w_in, b_eff, layers, c0c1, mode, D, "silu", n_tan=n_tan,
+                                      compute_dtype=compute_dtype, **kw) for kw in forms]
+            torch.cuda.synchronize()
+            for kw, out in zip(forms[1:], outs[1:]):
+                for a, b in zip(outs[0], out):
+                    if a is not None:
+                        assert torch.equal(a, b), (D, C, H, B, mode, kw)
+
+
+@pytest.mark.gpu
 def test_rhs_kernel_occupancy(cuda_device):
     """Every plan of the cases above holds the blocks it plans for, with no
     local memory a thread; the float32 flagship Hutchinson plan holds three
